@@ -8,11 +8,17 @@ Phases, each printing one JSON line; any failure exits nonzero before the
 result line:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds both kernels from csrc/ in parallel;
+  2. build    nvcc builds both kernels from csrc/ in parallel; ptxas's
+              registers / shared memory / spills per kernel, and the count of
+              HGMMA (wgmma) instructions in K1's library (must be > 0);
   3. kernels  K1 (prefill) and K2 (decode) against their plain versions on
-              the card at llama-3-8b widths, f32 and bf16, with timings of the
-              kernel, the plain version, one PyTorch library call (SDPA) and
-              the least time the card could take (bound);
+              the card at llama-3-8b widths, f32 and bf16 (rows past a
+              prompt's length must be exactly 0; K1 must take the route its
+              wrapper names), with timings of the kernel, the plain version,
+              one PyTorch library call (SDPA; for K1 both with the dense mask
+              and with is_causal) and the least time the card could take
+              (bound), plus K1 at the serve phase's three largest prompt
+              buckets at their real lengths;
   4. model    llama-3-8b widths at 2 layers: prefill + decode steps through
               the kernels against the same steps through the plain attention;
   5. serve    the full 32-layer llama-3-8b (bf16, seed 0) behind the port's
@@ -20,8 +26,15 @@ result line:
               (streamed and not, greedy and sampled), launch counts of both
               kernels, first TTFT and decode-rate readings;
   6. kernels  one line listing both kernels (launches during serve, errors,
-              timings);
-then the card's name and power limit, and the result line
+              timings, route, share of the bound);
+
+Kernel, plain and library times (``ms``, ``plain_ms``, ``library_ms``) are
+device time per call from one CUDA graph that replays the calls over enough
+copies of the inputs to exceed the 50 MB L2 (as a layer finds its inputs
+cold), so the host's launch cost is excluded. ``eager_ms`` is the kernel's
+wrapper timed per call with CUDA events on the same inputs every call (warm
+L2, the wrapper's host cost included): the method of the port's first
+kernel timings. Then the card's name and power limit, and the result line
 ``{"ok": true, "device": {"platform": "gpu", ...}}`` last. It imports
 nothing of JAX or of the JAX package.
 """
@@ -98,6 +111,45 @@ def make_timer(torch, cpu: bool):
     return median_ms
 
 
+def make_graph_timer(torch, cpu: bool, median_ms):
+    def graph_ms(calls, rounds: int = 4, reps: int = 5) -> float:
+        """Median device ms per call: ``calls`` (one zero-argument callable
+        per input copy) are captured ``rounds`` times into one CUDA graph,
+        whose replays are timed with CUDA events."""
+        if cpu:
+            return median_ms(lambda: [c() for c in calls]) / len(calls)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for c in calls:
+                c()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(rounds):
+                for c in calls:
+                    c()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            graph.replay()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e) / (rounds * len(calls)))
+        del graph
+        return statistics.median(times)
+
+    return graph_ms
+
+
+def _copies(nbytes: int) -> int:
+    """Input copies to rotate through so one round exceeds the 50 MB L2."""
+    return max(1, -(-60_000_000 // max(nbytes, 1)))
+
+
 # ---- phases ------------------------------------------------------------------
 
 def phase_device(torch, cpu: bool) -> dict:
@@ -124,26 +176,45 @@ def phase_build(cpu: bool) -> None:
         return
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
-    regs = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-            for name, log in logs.items()}
-    emit("build", seconds=round(time.perf_counter() - t0, 3), ptxas=regs)
+    seconds = time.perf_counter() - t0
+    ptxas = {}
+    for name, log in logs.items():
+        entries, kernel = [], None
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1]
+            elif kernel and ("registers" in ln or "spill" in ln):
+                entries.append(f"{kernel[-90:]}: {ln.strip()}")
+        ptxas[name] = entries
+    hgmma = cuda_build.sass_count("flash_prefill", "HGMMA")
+    emit("build", seconds=round(seconds, 3), nvcc_flags=cuda_build.NVCC_FLAGS + cuda_build.LINK_FLAGS,
+         hgmma_in_flash_prefill=hgmma, ptxas=ptxas)
+    require(hgmma > 0, "libflash_prefill.so holds no HGMMA: the bf16 route is not on wgmma")
 
 
 def _prefill_pairs(np, lengths, s, window):
+    """Kept (query, key) pairs over the rows below each length — the rows
+    whose output the function defines (rows past it are 0)."""
     rows = np.arange(s)[None, :]
     lens = np.asarray(lengths)[:, None]
-    hi = np.minimum(rows, lens - 1)
+    hi = np.where(rows < lens, rows, -1)
     lo = np.maximum(0, rows - window + 1) if window else np.zeros_like(rows)
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def phase_kernels(torch, cpu: bool, tiny: bool, median_ms) -> dict:
+def _bound(flops: float, nbytes: float, dtype: str = "bfloat16") -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def phase_kernels(torch, cpu: bool, tiny: bool, median_ms, graph_ms) -> dict:
     import numpy as np
     import torch.nn.functional as F
 
     from quorum_tpu_torch.ops.attention import decode_attention, prefill_attention
-    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
-    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention, prefill_route
+    from quorum_tpu_torch.ops.flash_decode import (decode_route, flash_decode_attention,
+                                                   ticket_counters)
 
     dev = "cpu" if cpu else "cuda"
     h, kv, hd = (4, 2, 64) if tiny else (32, 8, 128)
@@ -152,66 +223,115 @@ def phase_kernels(torch, cpu: bool, tiny: bool, median_ms) -> dict:
     def rnd(*shape, dtype):
         return torch.randn(shape, generator=gen).to(device=dev, dtype=dtype)
 
-    def sdpa(q, k, v, mask):
+    def sdpa(q, k, v, mask=None, causal=False):
         """One library call computing the same function (timed only, never
         used by the port)."""
         def call():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal,
+                                                  enable_gqa=True)
         try:
             call()
             return call
         except TypeError:  # older torch: no GQA flag — expand K/V once, outside the timing
             g = q.shape[1] // k.shape[1]
             ke, ve = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
-            return lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+            return lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask,
+                                                          is_causal=causal)
 
     results = {"flash_prefill": {"max_abs_err": 0.0}, "flash_decode": {"max_abs_err": 0.0}}
 
-    # K1: prefill, B=2 ragged rows for the checks.
-    seqs = (64, 128, 100) if tiny else (512, 2048, 1000)
+    # K1: prefill, B=2 ragged rows for the checks; rows past a length must be 0.
+    cases = ([(64, None), (128, None), (100, None)] if tiny else
+             [(512, None), (2048, None), (1000, None), (4096, 3017)])
     windows = (0, 32) if tiny else (0, 256)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
-        for s in seqs:
+        route = prefill_route(dtype, hd)
+        for s, first_len in cases:
             for w in windows:
                 q, k, v = rnd(2, h, s, hd, dtype=dtype), rnd(2, kv, s, hd, dtype=dtype), \
                     rnd(2, kv, s, hd, dtype=dtype)
-                lengths = torch.tensor([s, s - s // 3 - 5], dtype=torch.int32, device=dev)
+                lens = [first_len or s, s - s // 3 - 5]
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                by_route = dict(flash_prefill_attention.launches_by_route)
                 got = flash_prefill_attention(q, k, v, lengths, window=w)
                 ref = prefill_attention(q, k, v, lengths, window=w)
                 if not cpu:
                     torch.cuda.synchronize()
+                    require(flash_prefill_attention.launches_by_route[route]
+                            == by_route[route] + 1, f"K1 {dname} did not take the {route} route")
                 err = 0.0
-                for b, n in enumerate(lengths.tolist()):  # rows past a length are padding
+                for b, n in enumerate(lens):
                     diff = (got[b, :, :n].float() - ref[b, :, :n].float()).abs().max().item()
                     err = max(err, diff)
+                    if not cpu:
+                        require(bool((got[b, :, n:] == 0).all()),
+                                f"K1 {dname} S={s} W={w}: a row past length {n} is not 0")
                 require(bool(torch.isfinite(got.float()).all()), f"K1 non-finite S={s} W={w}")
-                emit("kernels", kernel="flash_prefill", dtype=dname, S=s, window=w,
-                     lengths=lengths.tolist(), max_abs_err=err, tol=KERNEL_TOL[dname])
+                emit("kernels", kernel="flash_prefill", dtype=dname, route=route, S=s, window=w,
+                     lengths=lens, max_abs_err=err, tol=KERNEL_TOL[dname])
                 require(err <= KERNEL_TOL[dname], f"K1 {dname} S={s} W={w}: err {err}")
                 results["flash_prefill"]["max_abs_err"] = max(
                     results["flash_prefill"]["max_abs_err"], err)
 
     # K1 timing at the admission path's shape: B=1, a full 2048-token bucket, bf16.
-    s = 128 if tiny else 2048
     dtype = torch.bfloat16
-    q, k, v = rnd(1, h, s, hd, dtype=dtype), rnd(1, kv, s, hd, dtype=dtype), \
-        rnd(1, kv, s, hd, dtype=dtype)
-    lengths = torch.tensor([s], dtype=torch.int32, device=dev)
-    mask = (torch.arange(s, device=dev)[None, :] <= torch.arange(s, device=dev)[:, None])
-    pairs = _prefill_pairs(np, [s], s, 0)
-    flops = 4 * h * pairs * hd
-    nbytes = 2 * (2 * h * s * hd + 2 * kv * s * hd) + 4
+
+    def k1_inputs(s, n, copies):
+        sets = []
+        for _ in range(copies):
+            sets.append((rnd(1, h, s, hd, dtype=dtype), rnd(1, kv, s, hd, dtype=dtype),
+                         rnd(1, kv, s, hd, dtype=dtype),
+                         torch.tensor([n], dtype=torch.int32, device=dev)))
+        return sets
+
+    def k1_mask(s, n):
+        ar = torch.arange(s, device=dev)
+        return ((ar[None, :] <= ar[:, None]) & (ar[None, :] < n))[None, None]
+
+    def k1_cost(s, n):
+        """FLOPs and bytes the function needs: q/k/v rows below the length
+        read, every output row written (rows past the length as zeros)."""
+        flops = 4 * h * _prefill_pairs(np, [n], s, 0) * hd
+        nbytes = 2 * (h * n * hd + 2 * kv * n * hd + h * s * hd) + 4
+        return flops, nbytes
+
+    s = 128 if tiny else 2048
+    k1_bytes = k1_cost(s, s)[1]
+    sets = k1_inputs(s, s, _copies(k1_bytes))
+    q, k, v, lengths = sets[0]
+    flops, nbytes = k1_cost(s, s)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    ms = graph_ms([lambda a=a: flash_prefill_attention(*a) for a in sets])
+    masked_ms = graph_ms([sdpa(a[0], a[1], a[2], k1_mask(s, s)) for a in sets])
+    causal_ms = graph_ms([sdpa(a[0], a[1], a[2], causal=True) for a in sets])
     results["flash_prefill"].update(
         shape={"B": 1, "H": h, "K": kv, "S": s, "hd": hd, "dtype": "bfloat16", "window": 0},
-        ms=median_ms(lambda: flash_prefill_attention(q, k, v, lengths)),
-        plain_ms=median_ms(lambda: prefill_attention(q, k, v, lengths)),
-        library_ms=median_ms(sdpa(q, k, v, mask[None, None])),
-        flops=flops, bytes=nbytes,
-        bound_ms=max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if flops / PEAK_FLOPS["bfloat16"] > nbytes / HBM_BYTES_PER_S
-        else "bytes")
+        route=prefill_route(dtype, hd), ms=ms,
+        eager_ms=median_ms(lambda: flash_prefill_attention(q, k, v, lengths)),
+        plain_ms=graph_ms([lambda a=a: prefill_attention(*a) for a in sets]),
+        library_ms=min(masked_ms, causal_ms), library_masked_ms=masked_ms,
+        library_causal_ms=causal_ms, flops=flops, bytes=nbytes, bound_ms=bound_ms,
+        bound_by=bound_by, pct_of_bound=100 * bound_ms / ms)
+    del sets
     emit("kernels", kernel="flash_prefill", timing=results["flash_prefill"])
+
+    # K1 at the serve phase's three largest buckets, at their real lengths:
+    # the tiles past each length write zeros and do no attention work.
+    buckets = [(128, 77)] if tiny else [(512, 317), (2048, 1217), (4096, 3017)]
+    rows = []
+    for s, n in buckets:
+        flops, nbytes = k1_cost(s, n)
+        sets = k1_inputs(s, n, _copies(nbytes))
+        b_ms, b_by = _bound(flops, nbytes)
+        t = graph_ms([lambda a=a: flash_prefill_attention(*a) for a in sets])
+        rows.append({"S": s, "length": n, "ms": t, "bound_ms": b_ms, "bound_by": b_by,
+                     "pct_of_bound": 100 * b_ms / t,
+                     "library_masked_ms": graph_ms(
+                         [sdpa(a[0], a[1], a[2], k1_mask(s, n)) for a in sets])})
+        del sets
+    results["flash_prefill"]["buckets"] = rows
+    emit("kernels", kernel="flash_prefill", buckets=rows)
 
     # K2: decode over the slot cache, 4 slots with skewed lengths.
     t = 256 if tiny else 8192
@@ -227,29 +347,37 @@ def phase_kernels(torch, cpu: bool, tiny: bool, median_ms) -> dict:
             ref = decode_attention(q, kc, vc, lengths, window=w)
             err = (got.float() - ref.float()).abs().max().item()
             require(bool(torch.isfinite(got.float()).all()), f"K2 non-finite W={w}")
+            require(all(int(c.abs().sum()) == 0 for c in ticket_counters()),
+                    "K2 ticket counters are not back at 0")
             emit("kernels", kernel="flash_decode", dtype=dname, T=t, window=w, lengths=lens,
                  max_abs_err=err, tol=KERNEL_TOL[dname])
             require(err <= KERNEL_TOL[dname], f"K2 {dname} W={w}: err {err}")
             results["flash_decode"]["max_abs_err"] = max(
                 results["flash_decode"]["max_abs_err"], err)
     dtype = torch.bfloat16
-    q = rnd(4, h, 1, hd, dtype=dtype)
-    kc, vc = rnd(4, kv, t, hd, dtype=dtype), rnd(4, kv, t, hd, dtype=dtype)
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    dmask = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     live = sum(lens)
     flops = 4 * h * live * hd
     nbytes = 2 * (live * kv * hd * 2 + 2 * 4 * h * hd) + 4 * 4
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    sets = [(rnd(4, h, 1, hd, dtype=dtype), rnd(4, kv, t, hd, dtype=dtype),
+             rnd(4, kv, t, hd, dtype=dtype), lengths) for _ in range(_copies(nbytes))]
+    q, kc, vc, _ = sets[0]
+    dmask = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    bound_ms, bound_by = _bound(flops, nbytes)
+    ms = graph_ms([lambda a=a: flash_decode_attention(*a) for a in sets])
     results["flash_decode"].update(
         shape={"B": 4, "H": h, "K": kv, "T": t, "hd": hd, "dtype": "bfloat16", "window": 0,
                "lengths": lens},
-        ms=median_ms(lambda: flash_decode_attention(q, kc, vc, lengths)),
-        plain_ms=median_ms(lambda: decode_attention(q, kc, vc, lengths)),
-        library_ms=median_ms(sdpa(q, kc, vc, dmask)),
-        flops=flops, bytes=nbytes,
-        bound_ms=max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if flops / PEAK_FLOPS["bfloat16"] > nbytes / HBM_BYTES_PER_S
-        else "bytes")
+        route=decode_route(dtype), ms=ms,
+        eager_ms=median_ms(lambda: flash_decode_attention(q, kc, vc, lengths)),
+        plain_ms=graph_ms([lambda a=a: decode_attention(*a) for a in sets]),
+        library_ms=graph_ms([sdpa(a[0], a[1], a[2], dmask) for a in sets]),
+        flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+        pct_of_bound=100 * bound_ms / ms)
+    del sets
+    if not cpu:
+        require(all(int(c.abs().sum()) == 0 for c in ticket_counters()),
+                "K2 ticket counters are not back at 0 after the timed graph replays")
     emit("kernels", kernel="flash_decode", timing=results["flash_decode"])
     return results
 
@@ -410,6 +538,7 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
               body(3, True, True)]
     # Every launch counter to 0 just before the main path, read just after.
     flash_prefill_attention.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
     flash_decode_attention.launches = 0
     m0 = engine.metrics()
 
@@ -425,6 +554,7 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
     m1 = engine.metrics()
     launches = {"flash_prefill": flash_prefill_attention.launches,
                 "flash_decode": flash_decode_attention.launches}
+    k1_routes = dict(flash_prefill_attention.launches_by_route)
     tok = backend.tokenizer
     checked = [_check_response(r, b, tok, max_tokens) for r, b in zip(first, bodies)]
     repeat = _check_response(again, {**bodies[0], "stream": True}, tok, max_tokens)
@@ -436,6 +566,8 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
     if not cpu:
         require(launches["flash_prefill"] == n_layers * admissions,
                 f"K1 launches {launches['flash_prefill']} != {n_layers} x {admissions}")
+        require(k1_routes["wgmma"] == n_layers * admissions,
+                f"K1 launches on the wgmma route {k1_routes} != {n_layers} x {admissions}")
         require(launches["flash_decode"] == n_layers * steps,
                 f"K2 launches {launches['flash_decode']} != {n_layers} x {steps}")
         require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
@@ -456,6 +588,7 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
                       "ttft_s": c.get("ttft_s")} for b, c in zip(bodies, checked)],
         "greedy_stream_matches_complete": True,
         "admissions": admissions, "decode_steps": steps, "launches": launches,
+        "k1_launches_by_route": k1_routes,
         "concurrent_wall_s": round(wall, 4),
         "concurrent_completion_tokens": completion,
         "ttft_s_first_reading": [c["ttft_s"] for c in streams],
@@ -469,27 +602,29 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
             return await asyncio.gather(*[_call(app, b) for b in bodies])
 
         phase_profile(torch, cpu, lambda: asyncio.run(
-            asyncio.wait_for(one_round(), 2 * SERVE_TIMEOUT_S)), card)
+            asyncio.wait_for(one_round(), 2 * SERVE_TIMEOUT_S)), card, flash_decode_attention)
     shutdown_all_engines()
     return info
 
 
 # Kernel-name fragments → where the serve time goes.
-_KERNEL_GROUPS = (("K1 flash_prefill", ("flash_prefill_kernel",)),
-                  ("K2 flash_decode", ("decode_split_kernel", "decode_combine_kernel")),
+_KERNEL_GROUPS = (("K1 flash_prefill", ("prefill_wgmma_kernel", "flash_prefill_kernel")),
+                  ("K2 flash_decode", ("flash_decode_mma_kernel", "flash_decode_kernel")),
                   ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas", "splitk")),
                   ("sort (top-p/top-k)", ("sort", "radix", "scan")))
 
 
-def phase_profile(torch, cpu: bool, run_requests, card: str) -> None:
+def phase_profile(torch, cpu: bool, run_requests, card: str, decode_fn) -> None:
     """The same 4 concurrent requests again under torch.profiler: device time
-    by kernel group and the device's busy share of the wall time."""
+    by kernel group and the device's busy share of the wall time. K2 must
+    show one kernel name, launched once per call."""
     if cpu:
         run_requests()  # rehearse the path; there is no device to trace
         emit("profile", skipped="cpu rehearsal: no device trace")
         return
     from torch.profiler import ProfilerActivity, profile
 
+    decode_fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_requests()
@@ -509,10 +644,14 @@ def phase_profile(torch, cpu: bool, run_requests, card: str) -> None:
         groups[group] = groups.get(group, 0.0) + dev_us / 1e3
         kernels.append((dev_us / 1e3, ev.count, name[:80]))
     busy_ms = sum(groups.values())
+    k2 = [(n, name) for _, n, name in kernels if "flash_decode" in name]
+    require(len(k2) == 1 and k2[0][0] == decode_fn.launches,
+            f"K2 in the profile: {k2}, {decode_fn.launches} calls; want one kernel per call")
     kernels.sort(reverse=True)
     emit("profile", wall_ms=wall * 1e3, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / (wall * 1e3) if wall > 0 else None,
          device_ms_by_group={g: round(v, 3) for g, v in sorted(groups.items())},
+         k2_kernels=[{"count": n, "name": name} for n, name in k2],
          top_kernels=[{"ms": round(ms, 3), "count": n, "name": name}
                       for ms, n, name in kernels[:12]],
          measured_on=card)
@@ -543,11 +682,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     median_ms = make_timer(torch, args.cpu)
+    graph_ms = make_graph_timer(torch, args.cpu, median_ms)
     try:
         info = phase_device(torch, args.cpu)
         if "build" in phases:
             phase_build(args.cpu)
-        kernels = phase_kernels(torch, args.cpu, args.tiny, median_ms) \
+        kernels = phase_kernels(torch, args.cpu, args.tiny, median_ms, graph_ms) \
             if "kernels" in phases else None
         if "model" in phases:
             phase_model(torch, args.cpu, args.tiny)
@@ -566,11 +706,16 @@ def main(argv=None) -> int:
                 ("flash_decode", "quorum_tpu_torch/csrc/flash_decode.cu",
                  "quorum_tpu/ops/flash_decode.py:53")):
             r = kernels[name]
-            rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                         "launches": launches.get(name, 0), "max_abs_err": r["max_abs_err"],
-                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                         "ok": True})
+            row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                   "launches": launches.get(name, 0), "max_abs_err": r["max_abs_err"],
+                   "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                   "kernel_route": r["route"], "pct_of_bound": r["pct_of_bound"],
+                   "eager_ms": r["eager_ms"], "ok": True}
+            if name == "flash_prefill":
+                row.update(library_masked_ms=r["library_masked_ms"],
+                           library_causal_ms=r["library_causal_ms"])
+            rows.append(row)
         print(json.dumps({"kernels": rows}), flush=True)
     if args.cpu:
         print("cpu rehearsal: no card", flush=True)

@@ -1,0 +1,79 @@
+// Hopper pipeline pieces shared by the port's kernels (sm_90a): mbarrier
+// operations, TMA tile loads into 128-byte-swizzled shared memory, the host
+// side encoding of their tensor maps, and bf16 packing. Included by
+// flash_prefill.cu and flash_decode.cu; each translation unit gets its own
+// copy (anonymous namespace).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// Spin until the phase with the given parity has completed. The loop is one
+// PTX block, so the compiler sees no divergent branch and the warp stays
+// converged for the shuffles and warp-wide instructions that follow. A wait
+// that outlasts 2^32 cycles (about 2 s) can only be a broken pipeline: trap,
+// so the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done, late;\n"
+      ".reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 late, t1, 4294967296;\n"
+      "@late trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+// 2-D TMA tile load global -> shared (col, row: innermost coordinate first).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2-D tensor map over a [rows, hd] bf16 matrix, loaded in boxes of
+// 64 columns (one 128-byte swizzled panel) x box_rows rows.
+inline int make_map(CUtensorMap* map, const void* ptr, uint64_t rows, int HD, uint32_t box_rows) {
+  cuuint64_t dims[2] = {(cuuint64_t)HD, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)HD * sizeof(__nv_bfloat16)};
+  cuuint32_t box[2] = {64, box_rows};
+  cuuint32_t estr[2] = {1, 1};
+  const CUresult r = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+      estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1;
+}
+
+}  // namespace

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point, is compiled by
 with ``ctypes`` — no PyTorch headers, so a build takes seconds, not
 minutes. Libraries land in ``build/quorum_tpu_torch/<hash>/`` beside the
 package (``build/`` is git-ignored); the directory is keyed by a hash of the
-source and the flags, so an edited kernel never loads a stale library.
+source, the shared headers and the flags, so an edited kernel never loads a
+stale library.
 
 Nothing here runs at import: the CPU test suite imports every module on a
 machine that has no ``nvcc``.
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -25,6 +27,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "quorum_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# The C entry points encode TMA tensor maps with the driver API
+# (cuTensorMapEncodeTiled), so the libraries link libcuda.
+LINK_FLAGS = ["-lcuda"]
 KERNEL_SOURCES = ("flash_prefill", "flash_decode")
 
 _lock = threading.Lock()
@@ -35,19 +40,29 @@ class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a kernel source."""
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(name: str) -> str:
+    """A CUDA toolkit program: on PATH, in $CUDA_HOME/bin (default
+    /usr/local/cuda/bin), or the copy Triton's package carries."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+    cands = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name]
+    spec = importlib.util.find_spec("triton")
+    if spec and spec.submodule_search_locations:
+        cands.append(Path(spec.submodule_search_locations[0]) / "backends" / "nvidia" / "bin"
+                     / name)
+    for cand in cands:
+        if cand.exists():
+            return str(cand)
+    raise KernelBuildError(f"{name} not found (PATH, $CUDA_HOME/bin, triton's nvidia/bin)")
 
 
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library lives: keyed by the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + LINK_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / digest / f"lib{name}.so"
 
 
@@ -58,7 +73,8 @@ def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(CSRC / f"{name}.cu"), *LINK_FLAGS]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
@@ -92,6 +108,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many instructions of ``opcode`` (e.g. ``HGMMA``) the built
+    library's machine code holds, from ``cuobjdump -sass``."""
+    dump = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(1 for ln in dump.splitlines() if f" {opcode}." in ln or f" {opcode} " in ln)
 
 
 def check(err: int, what: str) -> None:
