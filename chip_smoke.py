@@ -18,22 +18,35 @@ result line:
               one PyTorch library call (SDPA; for K1 both with the dense mask
               and with is_causal) and the least time the card could take
               (bound), plus K1 at the serve phase's three largest prompt
-              buckets at their real lengths;
+              buckets at their real lengths, and at B=3 ragged rows (one
+              coalesced member admission) at the serve buckets;
   4. model    llama-3-8b widths at 2 layers: prefill + decode steps through
               the kernels against the same steps through the plain attention;
+              then three stacked weight sets (members=3): the stacked prefill
+              (K1 at B=3) and decode steps against each member alone, and the
+              ensemble step against the mean of the members' logits;
   5. serve    the full 32-layer llama-3-8b (bf16, seed 0) behind the port's
               ASGI app with one cuda:// backend: 4 concurrent chat requests
               (streamed and not, greedy and sampled), launch counts of both
               kernels, first TTFT and decode-rate readings;
   6. fanout   three full 32-layer llama-3-8b members (bf16, seeds 0, 1, 2)
               behind one app, concatenate and aggregate (LLM1 aggregates):
-              greedy requests one at a time (three different member texts,
-              streamed texts equal to non-streamed ones, aggregates not
-              degraded), then a concurrent burst of 4; launch counts of both
-              kernels over the three engines, ticket counters at 0, peak
-              memory;
-  7. kernels  one line listing both kernels (launches during serve and
-              fanout, errors, timings, route, share of the bound);
+              greedy requests one at a time on a 300-byte prompt (three
+              different member texts, streamed texts equal to non-streamed
+              ones, aggregates not degraded), then a concurrent burst of 4;
+              launch counts of both kernels over the three engines, ticket
+              counters at 0, peak memory;
+  7. members  the same deployment on ONE stacked engine
+              (cuda://llama-3-8b?members=3&member=i, the shipped
+              config.yaml's shape): the fanout phase's requests at 300 and
+              1200 bytes, one engine, K1 launches = 32 × admission
+              dispatches, member texts compared with the fanout phase's;
+              then a dedup leg on ?members=3&member_seeds=shared&
+              quorum_dedup=1 (at least one dedup admission, exact token
+              savings, TTFT with and without dedup on a ≈ 3 000-token
+              prompt);
+  8. kernels  one line listing both kernels (launches per phase, errors,
+              timings, route, share of the bound);
 
 Kernel, plain and library times (``ms``, ``plain_ms``, ``library_ms``) are
 device time per call from one CUDA graph that replays the calls over enough
@@ -50,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
 import os
 import statistics
@@ -340,6 +354,44 @@ def phase_kernels(torch, cpu: bool, tiny: bool, median_ms, graph_ms) -> dict:
     results["flash_prefill"]["buckets"] = rows
     emit("kernels", kernel="flash_prefill", buckets=rows)
 
+    # K1 at B=3 ragged rows: a member-coalesced admission of a members=3
+    # engine (one row per member, each at its own length, one bucket).
+    groups = [(128, (77, 128, 40))] if tiny else [(512, (317, 512, 200)),
+                                                  (2048, (1217, 2048, 700)),
+                                                  (4096, (3017, 4096, 2100))]
+    rows = []
+    for s, lens in groups:
+        flops = 4 * h * _prefill_pairs(np, lens, s, 0) * hd
+        nbytes = 2 * (h * sum(lens) * hd + 2 * kv * sum(lens) * hd + 3 * h * s * hd) + 12
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        sets = [(rnd(3, h, s, hd, dtype=dtype), rnd(3, kv, s, hd, dtype=dtype),
+                 rnd(3, kv, s, hd, dtype=dtype), lengths) for _ in range(_copies(nbytes))]
+        by_route = dict(flash_prefill_attention.launches_by_route)
+        got = flash_prefill_attention(*sets[0])
+        ref = prefill_attention(*sets[0])
+        err = 0.0
+        for b, n in enumerate(lens):
+            err = max(err, (got[b, :, :n].float() - ref[b, :, :n].float()).abs().max().item())
+            if not cpu:
+                require(bool((got[b, :, n:] == 0).all()),
+                        f"K1 B=3 S={s}: a row past length {n} is not 0")
+        if not cpu:
+            require(flash_prefill_attention.launches_by_route["wgmma"] == by_route["wgmma"] + 1,
+                    "K1 B=3 did not take the wgmma route")
+        require(err <= KERNEL_TOL["bfloat16"], f"K1 B=3 S={s}: err {err}")
+        results["flash_prefill"]["max_abs_err"] = max(results["flash_prefill"]["max_abs_err"], err)
+        b_ms, b_by = _bound(flops, nbytes)
+        t = graph_ms([lambda a=a: flash_prefill_attention(*a) for a in sets])
+        rows.append({"B": 3, "S": s, "lengths": list(lens), "max_abs_err": err,
+                     "tol": KERNEL_TOL["bfloat16"], "ms": t, "bound_ms": b_ms, "bound_by": b_by,
+                     "pct_of_bound": 100 * b_ms / t,
+                     "library_masked_ms": graph_ms(
+                         [sdpa(a[0], a[1], a[2], torch.stack([k1_mask(s, n)[0] for n in lens]))
+                          for a in sets])})
+        del sets
+    results["flash_prefill"]["members_b3"] = rows
+    emit("kernels", kernel="flash_prefill", members_b3=rows)
+
     # K2: decode over the slot cache, 4 slots with skewed lengths.
     t = 256 if tiny else 8192
     lens = [1, 100, 200, 255] if tiny else [1, 100, 4096, 8191]
@@ -432,6 +484,71 @@ def phase_model(torch, cpu: bool, tiny: bool) -> None:
              tol=MODEL_TOL[dtype])
         require(max(errs) <= MODEL_TOL[dtype], f"model {dtype}: logits differ by {max(errs)}")
         del params
+        _model_stacked(torch, spec, dev, gen, bucket, n_prompt, steps)
+
+
+def _model_stacked(torch, spec, dev, gen, bucket: int, n_prompt: int, steps: int) -> None:
+    """Three stacked weight sets (seeds 0, 1, 2): the stacked prefill (one
+    row per member, ragged lengths, K1 at B=3) and decode steps over the
+    3 × 2 rows against each member alone through its weight views; the
+    ensemble prefill and steps against the mean of the members' logits."""
+    from quorum_tpu_torch.models.init import init_params_stacked
+    from quorum_tpu_torch.models.transformer import (decode_step, init_cache,
+                                                     member_params, prefill)
+
+    n_mem, s = 3, 2
+    params = init_params_stacked(spec, [0, 1, 2], device=dev)
+    lens = [n_prompt, n_prompt - n_prompt // 3, n_prompt // 2]
+    tokens = torch.randint(3, spec.vocab_size, (n_mem, bucket), generator=gen).to(dev)
+    feed = torch.randint(3, spec.vocab_size, (steps,), generator=gen).to(dev)
+    live = torch.tensor([False, True], device=dev)  # slot 0 idle, slot 1 decoding
+
+    def alone(m, row_tokens, n):
+        """Member m's prefill + steps alone (prompt in slot 1 of 2)."""
+        p = member_params(params, m)
+        ck, cv = init_cache(spec, s, device=dev)
+        logits, _, _ = prefill(p, spec, row_tokens[None], torch.tensor([n], dtype=torch.int32,
+                                                                      device=dev), ck, cv, slot=1)
+        seq, pos = [logits[0]], torch.tensor([0, n], dtype=torch.int32, device=dev)
+        for i in range(steps):
+            logits, _, _ = decode_step(p, spec, feed[i].repeat(s), pos, ck, cv, write_mask=live)
+            seq.append(logits[1])
+            pos = pos + live.to(torch.int32)
+        return seq
+
+    def stacked(row_tokens, row_lens, ensemble):
+        ck, cv = init_cache(spec, n_mem * s, device=dev)
+        logits, _, _ = prefill(params, spec, row_tokens, torch.tensor(
+            row_lens, dtype=torch.int32, device=dev), ck, cv, rows=[m * s + 1 for m in range(n_mem)])
+        rows = 1 if ensemble else n_mem
+        seq = [logits.mean(0, keepdim=True) if ensemble else logits]
+        pos = torch.tensor([0, row_lens[0]] if ensemble else
+                           [x for n in row_lens for x in (0, n)], dtype=torch.int32, device=dev)
+        mask = live.repeat(rows)
+        for i in range(steps):
+            logits, _, _ = decode_step(params, spec, feed[i].repeat(rows * s), pos, ck, cv,
+                                       write_mask=mask, ensemble=n_mem if ensemble else 1)
+            seq.append(logits[1::2])
+            pos = pos + mask.to(torch.int32)
+        return seq
+
+    members = [alone(m, tokens[m], lens[m]) for m in range(n_mem)]
+    got = stacked(tokens, lens, ensemble=False)
+    errs = [max((got[j][m] - members[m][j]).abs().max().item() for m in range(n_mem))
+            for j in range(steps + 1)]
+    for x in got:
+        require(bool(torch.isfinite(x).all()) and x.shape == (n_mem, spec.vocab_size),
+                f"model members: logits {tuple(x.shape)} or non-finite")
+    shared = [members[0]] + [alone(m, tokens[0], lens[0]) for m in range(1, n_mem)]
+    ens = stacked(tokens[:1].repeat(n_mem, 1), [lens[0]] * n_mem, ensemble=True)
+    ens_errs = [(ens[j][0] - sum(shared[m][j] for m in range(n_mem)) / n_mem).abs().max().item()
+                for j in range(steps + 1)]
+    tol = MODEL_TOL[spec.dtype]
+    emit("model", dtype=spec.dtype, layers=2, members=n_mem, prompts=lens,
+         decode_steps=steps, max_abs_logit_diff_members=max(errs), per_step_members=errs,
+         max_abs_logit_diff_ensemble=max(ens_errs), per_step_ensemble=ens_errs, tol=tol)
+    require(max(errs) <= tol, f"model members {spec.dtype}: logits differ by {max(errs)}")
+    require(max(ens_errs) <= tol, f"model ensemble {spec.dtype}: logits differ by {max(ens_errs)}")
 
 
 def _prompt(n_bytes: int, seed: int) -> str:
@@ -661,31 +778,54 @@ def _parallel_complete(resp: dict) -> dict:
             "t_end": resp["t_end"]}
 
 
-def phase_fanout(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
-    """Three members, each its own weights, behind one app; the aggregate
-    strategy's aggregator is LLM1. Engines are keyed by (spec, seed,
-    device), so the three apps share them."""
+def _require_card_empty(torch, cpu: bool, what: str) -> None:
+    """Before a phase builds its engines, the previous phase's must be gone
+    (a stacked engine's leaves are 3× larger blocks than freed
+    single-engine ones, so fragments would not do)."""
+    gc.collect()
+    if not cpu:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        require(held < 1e9, f"{what}: {held / 1e9:.3f} GB still allocated before the build")
+
+
+def _fanout_urls(model: str, extra: str, stacked: bool, knobs: str = "") -> list[str]:
+    if stacked:
+        return [f"cuda://{model}?members=3&member={i}{knobs}&slots=4&decode_chunk=8{extra}"
+                for i in range(3)]
+    return [f"cuda://{model}?seed={i}&slots=4&decode_chunk=8{extra}" for i in range(3)]
+
+
+def phase_fanout(torch, cpu: bool, tiny: bool, device_info: dict, stacked: bool = False,
+                 reference: dict | None = None) -> dict:
+    """Three members behind one app; the aggregate strategy's aggregator is
+    LLM1. ``fanout``: three engines, seeds 0, 1, 2 (engines are keyed by
+    weight identity, so the three apps share them). ``members``
+    (``stacked``): the same three weight sets on ONE engine,
+    ``?members=3&member=i``; its member texts are compared with the fanout
+    phase's (``reference``)."""
     from quorum_tpu_torch.config import Config
     from quorum_tpu_torch.engine.engine import shutdown_all_engines
     from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
     from quorum_tpu_torch.ops.flash_decode import flash_decode_attention, ticket_counters
     from quorum_tpu_torch.server.app import create_app
 
+    phase = "members" if stacked else "fanout"
     model = "llama-tiny" if tiny else "llama-3-8b"
     # llama-tiny's 128-token window would cut the aggregation prompt.
     extra = "&max_seq=2048&device=cpu" if tiny else ""
     names = ("LLM1", "LLM2", "LLM3")
+    urls = _fanout_urls(model, extra, stacked)
 
     def raw(strategy: str, stream_aggregate: bool = False) -> dict:
         return {"settings": {"timeout": SERVE_TIMEOUT_S},
-                "primary_backends": [
-                    {"name": n, "url": f"cuda://{model}?seed={i}&slots=4&decode_chunk=8{extra}"}
-                    for i, n in enumerate(names)],
+                "primary_backends": [{"name": n, "url": u} for n, u in zip(names, urls)],
                 "iterations": {"aggregation": {"strategy": strategy}},
                 "strategy": {"concatenate": {"separator": FANOUT_SEPARATOR},
                              "aggregate": {"aggregator_backend": "LLM1",
                                            "stream_aggregate": stream_aggregate}}}
 
+    _require_card_empty(torch, cpu, phase)
     if not cpu:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -693,14 +833,28 @@ def phase_fanout(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     reg = concat_app.state["registry"]
     agg_app = create_app(Config(raw=raw("aggregate")), registry=reg)
     live_app = create_app(Config(raw=raw("aggregate", stream_aggregate=True)), registry=reg)
-    engines = [b.engine for b in reg.backends]
-    require(len({id(e) for e in engines}) == 3, "the three members must be three engines")
+    engines = list({id(b.engine): b.engine for b in reg.backends}.values())
+    require(len(engines) == (1 if stacked else 3),
+            f"{phase}: the three members must be {'one engine' if stacked else 'three engines'},"
+            f" got {len(engines)}")
+    if stacked:
+        require([b.member for b in reg.backends] == [0, 1, 2], "members: member indices")
+
+    def member_tokens() -> list[int]:
+        if stacked:
+            return engines[0].metrics()["member_tokens_total"]
+        return [e.metrics()["tokens_total"] for e in engines]
+
     if not cpu:
         torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     n_layers = engines[0].spec.n_layers
     max_tokens = 16 if tiny else 32
-    sizes = (30, 80) if tiny else (300, 1200)
+    burst_sizes = (30, 80) if tiny else (300, 1200)
+    # Three engines in one process are host-bound (PERF.md §5): the fanout
+    # phase runs its one-at-a-time requests on the smaller prompt only, to
+    # keep the script inside its time budget; the members phase runs both.
+    sizes = burst_sizes if stacked else burst_sizes[:1]
     agg_sep = "\n\n---\n\n"  # the aggregate strategy's default intermediate_separator
 
     def body(n_bytes: int, seed: int, stream: bool = False) -> dict:
@@ -713,16 +867,19 @@ def phase_fanout(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     flash_decode_attention.launches = 0
     m0 = [e.metrics() for e in engines]
 
+    texts_by_size: dict[int, list[str]] = {}
+
     async def sequential(n_bytes: int, seed: int) -> dict:
         out: dict = {"prompt_bytes": n_bytes}
-        tok0 = [e.metrics()["tokens_total"] for e in engines]
+        tok0 = member_tokens()
         concat = _parallel_complete(await _call(concat_app, body(n_bytes, seed)))
         texts = concat["text"].split(FANOUT_SEPARATOR)
         require(len(texts) == 3 and all(texts), f"concatenate: {len(texts)} member texts")
         require(len(set(texts)) == 3, "concatenate: two members wrote the same text")
-        tok1 = [e.metrics()["tokens_total"] for e in engines]
+        texts_by_size[n_bytes] = texts
+        tok1 = member_tokens()
         streamed = _parallel_stream(await _call(concat_app, body(n_bytes, seed, True)))
-        tok2 = [e.metrics()["tokens_total"] for e in engines]
+        tok2 = member_tokens()
         require([streamed["members"].get(i) for i in range(3)] == texts,
                 "concatenate: streamed member texts differ from the non-streamed ones")
         require(streamed["final"] == concat["text"],
@@ -765,8 +922,9 @@ def phase_fanout(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
         return out
 
     async def burst() -> dict:
-        reqs = [(concat_app, body(sizes[0], 10)), (concat_app, body(sizes[1], 11, True)),
-                (agg_app, body(sizes[1], 12)), (agg_app, body(sizes[0], 13, True))]
+        reqs = [(concat_app, body(burst_sizes[0], 10)),
+                (concat_app, body(burst_sizes[1], 11, True)),
+                (agg_app, body(burst_sizes[1], 12)), (agg_app, body(burst_sizes[0], 13, True))]
         t_start = time.perf_counter()
         resps = await asyncio.gather(*[_call(app, b) for app, b in reqs])
         wall = time.perf_counter() - t_start
@@ -792,38 +950,165 @@ def phase_fanout(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
                 "flash_decode": flash_decode_attention.launches}
     k1_routes = dict(flash_prefill_attention.launches_by_route)
     admissions = [b["admissions_total"] - a["admissions_total"] for a, b in zip(m0, m1)]
+    dispatches = [b["admission_dispatches_total"] - a["admission_dispatches_total"]
+                  for a, b in zip(m0, m1)]
     steps = [b["decode_steps_total"] - a["decode_steps_total"] for a, b in zip(m0, m1)]
     tickets_zero = all(int(c.abs().sum()) == 0 for c in ticket_counters())
     # Members: 3 per request (5 sequential per size, 4 in the burst); the
     # aggregator admits one more per aggregate request (3 per size, 2 in
-    # the burst).
+    # the burst). The stacked engine admits them all.
     want_admissions = [len(sizes) * 8 + 6, len(sizes) * 5 + 4, len(sizes) * 5 + 4]
+    if stacked:
+        want_admissions = [sum(want_admissions)]
     require(admissions == want_admissions,
             f"admissions per engine {admissions}, expected {want_admissions}")
-    require(tickets_zero, "K2 ticket counters are not back at 0 after the fanout phase")
+    require(tickets_zero, f"K2 ticket counters are not back at 0 after the {phase} phase")
     if not cpu:
-        require(launches["flash_prefill"] == n_layers * sum(admissions),
-                f"K1 launches {launches['flash_prefill']} != {n_layers} x {sum(admissions)}")
-        require(k1_routes["wgmma"] == n_layers * sum(admissions),
-                f"K1 launches on the wgmma route {k1_routes} != {n_layers} x {sum(admissions)}")
+        require(launches["flash_prefill"] == n_layers * sum(dispatches),
+                f"K1 launches {launches['flash_prefill']} != {n_layers} x {sum(dispatches)} "
+                "admission dispatches")
+        require(k1_routes["wgmma"] == n_layers * sum(dispatches),
+                f"K1 launches on the wgmma route {k1_routes} != {n_layers} x {sum(dispatches)}")
         require(launches["flash_decode"] == n_layers * sum(steps),
                 f"K2 launches {launches['flash_decode']} != {n_layers} x {sum(steps)}")
+        require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
+                f"{phase}: a kernel of the path was never launched")
     total_mem = None if cpu else torch.cuda.get_device_properties(0).total_memory
     peak = None if cpu else torch.cuda.max_memory_allocated()
     if not cpu:
         require(peak < total_mem, f"peak memory {peak} is not below the card's {total_mem}")
     info = {"model": model, "layers": n_layers, "members": 3, "seeds": [0, 1, 2],
-            "dtype": engines[0].spec.dtype, "slots": engines[0].n_slots,
+            "urls": urls, "engines": len(engines),
+            "dtype": engines[0].spec.dtype, "slots_per_member": engines[0].n_slots,
             "app_build_s": round(build_s, 3), "max_tokens": max_tokens,
             "sequential": runs, "burst": burst_info,
-            "admissions_per_engine": dict(zip(names, admissions)),
-            "decode_steps_per_engine": dict(zip(names, steps)),
+            "admissions_per_engine": admissions, "admission_dispatches_per_engine": dispatches,
+            "requests_per_admission_dispatch": sum(admissions) / max(1, sum(dispatches)),
+            "decode_steps_per_engine": steps,
             "launches": launches, "k1_launches_by_route": k1_routes,
             "ticket_counters_zero": tickets_zero,
             "peak_mem_gb": None if cpu else round(peak / 1e9, 3),
             "card_mem_gb": None if cpu else round(total_mem / 1e9, 3),
             "measured_on": f"{device_info['name']} ({device_info['power_limit']})"}
-    emit("fanout", **info)
+    if reference is not None:
+        ref = reference["texts_by_size"]
+        info["member_texts_equal_to_fanout"] = {
+            n: [a == b for a, b in zip(texts_by_size[n], ref[n])] for n in sizes if n in ref}
+    emit(phase, **info)
+    info["texts_by_size"] = texts_by_size
+    shutdown_all_engines()
+    return info
+
+
+def phase_dedup(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+    """The dedup leg of the members phase: ``?members=3&member_seeds=shared
+    &quorum_dedup=1`` (one weight set, three sampling streams). One streamed
+    concatenate through the app, then fan-outs of a ≈ 3 000-token prompt
+    straight to the engine: identical prompts (the dedup route: one
+    prefill, K/V copied to the three rows) against prompts differing in
+    their last token (one coalesced B=3 prefill), alternating. Requires at
+    least one dedup admission and the exact token savings; reports the time
+    to every member's first token both ways."""
+    from quorum_tpu_torch.config import Config
+    from quorum_tpu_torch.engine.engine import shutdown_all_engines
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention, ticket_counters
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.server.app import create_app
+
+    model = "llama-tiny" if tiny else "llama-3-8b"
+    extra = "&max_seq=2048&device=cpu" if tiny else ""
+    urls = _fanout_urls(model, extra, True, "&member_seeds=shared&quorum_dedup=1")
+    _require_card_empty(torch, cpu, "members_dedup")
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    app = create_app(Config(raw={
+        "settings": {"timeout": SERVE_TIMEOUT_S},
+        "primary_backends": [{"name": f"LLM{i + 1}", "url": u} for i, u in enumerate(urls)],
+        "iterations": {"aggregation": {"strategy": "concatenate"}},
+        "strategy": {"concatenate": {"separator": FANOUT_SEPARATOR}}}))
+    backends = app.state["registry"].backends
+    engine = backends[0].engine
+    require(all(b.engine is engine for b in backends) and engine.quorum_dedup,
+            "members_dedup: the three members must be one dedup engine")
+    tok, n_layers = backends[0].tokenizer, engine.spec.n_layers
+    n_bytes = 80 if tiny else 3000
+    greedy = SamplerConfig(temperature=0.0)
+    prompt = tok.encode(tok.render_chat([{"role": "user", "content": _prompt(n_bytes, 40)}]))
+    variants = {"dedup": [prompt] * 3,
+                "stacked": [prompt[:-1] + [3 + m] for m in range(3)]}
+
+    def fan(prompts) -> tuple[list[float], list[list[int]]]:
+        """Submit one request per member back to back; seconds to each
+        member's first token, and the streams."""
+        t0 = time.perf_counter()
+        reqs = [engine.submit(list(p), max_new_tokens=4, sampler=greedy, member=m)
+                for m, p in enumerate(prompts)]
+        its = [engine.stream_results(r) for r in reqs]
+        firsts = [next(it) for it in its]
+        ttft = time.perf_counter() - t0
+        outs = [[f] + list(it) for f, it in zip(firsts, its)]
+        return ttft, outs
+
+    # Every launch counter to 0 just before the main path, read just after.
+    flash_prefill_attention.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
+    flash_decode_attention.launches = 0
+    m0 = engine.metrics()
+    body = {"model": model, "max_tokens": 8, "temperature": 0, "stream": True,
+            "messages": [{"role": "user", "content": _prompt(n_bytes, 41)}]}
+    concat = _parallel_stream(asyncio.run(asyncio.wait_for(_call(app, body), SERVE_TIMEOUT_S)))
+    require(len(concat["members"]) == 3, "members_dedup: a member of the concatenate is missing")
+    readings: dict[str, list[float]] = {"dedup": [], "stacked": []}
+    checked = []
+    for rep in range(3):
+        for name in (("dedup", "stacked") if rep % 2 == 0 else ("stacked", "dedup")):
+            a = engine.metrics()
+            ttft, outs = fan(variants[name])
+            b = engine.metrics()
+            n_dedup = b["quorum_dedup_prefills_total"] - a["quorum_dedup_prefills_total"]
+            saved = b["quorum_dedup_tokens_total"] - a["quorum_dedup_tokens_total"]
+            require(saved == n_dedup * 2 * len(prompt),
+                    f"members_dedup: {saved} tokens saved by {n_dedup} dedup admissions")
+            coalesced = b["admission_dispatches_total"] - a["admission_dispatches_total"] == 1
+            if (name == "dedup" and n_dedup == 1) or (name == "stacked" and coalesced):
+                readings[name].append(ttft)
+            if name == "dedup":
+                checked.append(outs[0] == outs[1] == outs[2])
+    if not cpu:
+        torch.cuda.synchronize()
+    m1 = engine.metrics()
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches}
+    dispatches = m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
+    steps = m1["decode_steps_total"] - m0["decode_steps_total"]
+    prefills = m1["quorum_dedup_prefills_total"] - m0["quorum_dedup_prefills_total"]
+    saved = m1["quorum_dedup_tokens_total"] - m0["quorum_dedup_tokens_total"]
+    require(prefills >= 1, "members_dedup: no dedup admission was counted")
+    require(all(int(c.abs().sum()) == 0 for c in ticket_counters()),
+            "K2 ticket counters are not back at 0 after the dedup leg")
+    if not cpu:
+        require(launches["flash_prefill"] == n_layers * dispatches
+                and flash_prefill_attention.launches_by_route["wgmma"] == n_layers * dispatches,
+                f"K1 launches {launches['flash_prefill']} != {n_layers} x {dispatches} dispatches")
+        require(launches["flash_decode"] == n_layers * steps,
+                f"K2 launches {launches['flash_decode']} != {n_layers} x {steps}")
+        require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
+                "members_dedup: a kernel of the path was never launched")
+    total_mem = None if cpu else torch.cuda.get_device_properties(0).total_memory
+    peak = None if cpu else torch.cuda.max_memory_allocated()
+    if not cpu:
+        require(peak < total_mem, f"peak memory {peak} is not below the card's {total_mem}")
+    info = {"model": model, "urls": urls, "prompt_tokens": len(prompt),
+            "app_concat_stream_s": concat["t_end"],
+            "app_concat_ttft_member_s": concat["ttft_member_s"],
+            "dedup_prefills": prefills, "dedup_tokens_saved": saved,
+            "admission_dispatches": dispatches, "decode_steps": steps,
+            "ttft_all_members_s": readings,
+            "dedup_members_equal": checked, "launches": launches,
+            "peak_mem_gb": None if cpu else round(peak / 1e9, 3),
+            "measured_on": f"{device_info['name']} ({device_info['power_limit']})"}
+    emit("members_dedup", **info)
     shutdown_all_engines()
     return info
 
@@ -883,7 +1168,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="rehearsal on the CPU with the plain versions (never the default)")
     ap.add_argument("--tiny", action="store_true", help="llama-tiny shapes (rehearsal)")
-    ap.add_argument("--phases", default="device,build,kernels,model,serve,fanout",
+    ap.add_argument("--phases", default="device,build,kernels,model,serve,fanout,members",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -915,13 +1200,19 @@ def main(argv=None) -> int:
         serve = (phase_serve(torch, args.cpu, args.tiny, info, "profile" in phases)
                  if "serve" in phases else None)
         fanout = phase_fanout(torch, args.cpu, args.tiny, info) if "fanout" in phases else None
+        members = dedup = None
+        if "members" in phases:
+            members = phase_fanout(torch, args.cpu, args.tiny, info, stacked=True,
+                                   reference=fanout)
+            dedup = phase_dedup(torch, args.cpu, args.tiny, info)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     if kernels is not None:
-        by_phase = {name: ph["launches"] for name, ph in (("serve", serve), ("fanout", fanout))
-                    if ph is not None}
+        by_phase = {name: ph["launches"] for name, ph in (
+            ("serve", serve), ("fanout", fanout), ("members", members),
+            ("members_dedup", dedup)) if ph is not None}
         rows = []
         for name, src, replaces in (
                 ("flash_prefill", "quorum_tpu_torch/csrc/flash_prefill.cu",

@@ -12,8 +12,33 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
   decode_chunk=    decode steps per scheduler turn (default 8)
   seed=            weight-init seed
   device=          torch device (default cuda; cpu runs the plain versions)
-  queue=           admission queue capacity (default 128)
+  queue=           admission queue capacity (default 128; × members)
   max_tokens=      default completion budget (default 64)
+  members=M        stacked fan-out (default 1 = off): backends whose URLs
+  member=i         agree on ``members=M`` (and the base seed/spec) share ONE
+                   engine holding M weight sets (seed..seed+M-1) stacked
+                   on the card; ``member=i`` selects which weight set
+                   serves THIS backend. Each member keeps its own slots and
+                   sampler state and produces its own stream (unlike
+                   ``ensemble``), but every decode chunk — and coalesced
+                   same-bucket admissions — advance ALL members in one
+                   dispatch: an N-model quorum pays N× the compute, not N×
+                   the per-step host work
+  member_seeds=    ``distinct`` (default) seeds member i with seed+i;
+                   ``shared`` stacks M copies of the SAME weights (all
+                   members seed identically) — the diversity then comes
+                   from per-member sampling streams, and the shared
+                   weights are what make ``quorum_dedup=1`` sound
+  quorum_dedup=1   shared-prefix member dedup: when a full member group
+                   admits the same prompt, prefill it ONCE on member 0's
+                   weights and copy the K/V into all M cache rows —
+                   prefill work drops ~M×. Requires ``member_seeds=shared``
+                   (distinct weights produce distinct K/V); counted by the
+                   engine's ``quorum_dedup_tokens``
+  ensemble=M       logit-ensemble decoding (default 1 = off): M weight sets
+                   (seed..seed+M-1) decode ONE shared stream — every step
+                   averages the M members' next-token logits in f32 before
+                   sampling
 
 Request knobs: messages, max_tokens / max_completion_tokens, temperature,
 top_p, top_k, seed, stop, stream (+ stream_options.include_usage). Knobs the
@@ -64,6 +89,16 @@ def _timeout_error(name: str, timeout: float) -> BackendError:
     return BackendError(msg, status_code=504,
                         body=oai.error_body(msg, type_="timeout_error", code=504),
                         headers={"Retry-After": "1"})
+
+
+def _parse_bool_opt(name: str, raw: str) -> bool:
+    """Strict boolean URL option: a typo must not silently mean 'enabled'."""
+    val = str(raw).lower()
+    if val in ("1", "true", "yes"):
+        return True
+    if val in ("0", "false", "no"):
+        return False
+    raise ValueError(f"invalid {name}={raw!r} (use 0/1, true/false, yes/no)")
 
 
 def _request_number(body: dict[str, Any], key: str, default: float) -> float:
@@ -146,9 +181,13 @@ class CudaBackend:
                     "logprobs", "top_logprobs")
 
     def __init__(self, name: str, engine, *, model: str = "", model_id: str = "",
-                 default_max_tokens: int = 64, decode_chunk: int | None = None):
+                 default_max_tokens: int = 64, decode_chunk: int | None = None,
+                 member: int = 0):
         self.name = name
         self.engine = engine
+        # Stacked-members engine: which of the engine's weight sets serves
+        # this backend's requests (0 on ordinary engines).
+        self.member = member
         self.model_id = model_id or "cuda-model"
         self.model = model or self.model_id
         self.default_max_tokens = default_max_tokens
@@ -159,14 +198,22 @@ class CudaBackend:
     def from_spec(cls, bspec: BackendSpec) -> "CudaBackend":
         opts = bspec.options
         spec = resolve_spec(bspec.model_id, opts)
+        members = int(opts.get("members", 1))
+        member = int(opts.get("member", 0))
+        if not 0 <= member < max(1, members):
+            raise ValueError(f"member={member} out of range for members={members}")
         engine = get_engine(
             spec, device=opts.get("device"), seed=int(opts.get("seed", 0)),
             n_slots=int(opts.get("slots", DEFAULT_SLOTS)),
             decode_chunk=int(opts.get("decode_chunk", DEFAULT_DECODE_CHUNK)),
-            max_pending=int(opts.get("queue", DEFAULT_MAX_PENDING)))
+            max_pending=int(opts.get("queue", DEFAULT_MAX_PENDING)),
+            members=members, member_seeds=opts.get("member_seeds", "distinct"),
+            quorum_dedup=_parse_bool_opt("quorum_dedup", opts.get("quorum_dedup", "0")),
+            ensemble=int(opts.get("ensemble", 1)))
         return cls(bspec.name, engine, model=bspec.model, model_id=bspec.model_id,
                    default_max_tokens=int(opts.get("max_tokens", 64)),
-                   decode_chunk=int(opts["decode_chunk"]) if "decode_chunk" in opts else None)
+                   decode_chunk=int(opts["decode_chunk"]) if "decode_chunk" in opts else None,
+                   member=member)
 
     # ---- request plumbing -------------------------------------------------
 
@@ -207,7 +254,7 @@ class CudaBackend:
             return self.engine.submit(
                 plan["prompt_ids"], max_new_tokens=plan["max_new"], sampler=plan["sampler"],
                 seed=plan["seed"], eos_id=self.tokenizer.eos_id, cancel=cancel,
-                decode_chunk=self.decode_chunk)
+                decode_chunk=self.decode_chunk, member=self.member)
         except QueueFullError as e:
             raise _overloaded(self.name, str(e)) from None
 

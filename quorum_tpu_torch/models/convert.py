@@ -4,6 +4,8 @@ back with ``numpy.asarray`` leaf by leaf) into the port's params.
 The tree keeps its layout: the same leaf names, ``None`` for absent leaves,
 per-layer weights stacked ``[L, …]`` under ``"blocks"``. Quantized
 ``{"q8", "qs"}`` leaves are refused: int8 serving is not ported yet.
+Member-stacked trees (``members=M`` / ``ensemble=M`` engines) go through
+:func:`stacked_params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -41,4 +43,25 @@ def params_from_numpy(tree: Mapping, device=None, dtype=None) -> dict:
             out[name] = {k: (None if b is None else _leaf(b, dev, dt)) for k, b in x.items()}
         else:
             out[name] = None if x is None else _leaf(x, dev, dt)
+    return out
+
+
+def stacked_params_from_numpy(tree: Mapping, device=None, dtype=None) -> dict:
+    """The JAX engine's member-stacked tree (every leaf ``[M, …]``, block
+    leaves ``[M, L, …]``) → the port's stacked layout: top-level leaves
+    ``[M, …]``, block leaves ``[L, M, …]`` (permuted once, contiguous)."""
+    out = params_from_numpy(tree, device=device, dtype=dtype)
+    out["blocks"] = {k: (None if b is None else b.transpose(0, 1).contiguous())
+                     for k, b in out["blocks"].items()}
+    return out
+
+
+def stack_params(trees: list[dict]) -> dict:
+    """M port trees → one stacked tree in the port's layout (top-level
+    leaves stacked on a new axis 0, block leaves on axis 1)."""
+    first = trees[0]
+    out = {name: (None if x is None else torch.stack([t[name] for t in trees]))
+           for name, x in first.items() if name != "blocks"}
+    out["blocks"] = {k: (None if b is None else torch.stack([t["blocks"][k] for t in trees], 1))
+                     for k, b in first["blocks"].items()}
     return out

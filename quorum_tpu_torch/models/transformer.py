@@ -6,6 +6,18 @@ like with like: params are a dict with per-layer weights stacked
 ``[L, …]`` under ``"blocks"``; q [B, H, T, hd], k/v [B, K, T, hd]; the KV
 cache is ``[L, S, K, max_seq, hd]`` per side.
 
+Member-stacked params (``models/init.py`` ``init_params_stacked``: M weight
+sets, top-level leaves ``[M, …]``, block leaves ``[L, M, …]``) run through
+the same functions — the explicit batched form of the JAX engine's member
+vmaps (``_member_call`` / ``_stacked_rows_call``). The batch rows are then
+member-major: row ``m·B + b`` is member m's row b (B rows per member), and
+the cache rows follow the JAX flat-row convention, ``m·S + s`` = member m's
+slot s. Every projection is one batched GEMM ``[M, rows, D] × [M, D, N]``,
+norm weights and biases broadcast per member, the embedding gathers
+``tok_emb[m, token]``; a stacked step issues as many ops as a single-model
+step, and attention runs once per layer over all rows. A leaf's rank tells
+stacked from single (``_mm``, ``_per_member``).
+
 The KV cache is updated IN PLACE — the JAX package donates the cache
 buffers to its jitted programs instead; functions still return the cache
 tensors so call sites read the same.
@@ -54,9 +66,46 @@ def _layer(blocks: Params, l: int) -> Params:
     return {k: (None if v is None else v[l]) for k, v in blocks.items()}
 
 
+def member_params(params: Params, m: int) -> Params:
+    """Member ``m``'s single-model view of a member-stacked tree: views,
+    never copies (each layer's slab ``blocks[k][l, m]`` is contiguous)."""
+    out = {k: (None if v is None else v[m]) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: (None if v is None else v[:, m]) for k, v in params["blocks"].items()}
+    return out
+
+
+_MEMBER_ROWS: dict = {}
+
+
+def _member_rows(n_members: int, n_rows: int, device) -> torch.Tensor:
+    """[n_rows] member index of each member-major batch row (cached)."""
+    key = (n_members, n_rows, str(device))
+    idx = _MEMBER_ROWS.get(key)
+    if idx is None:
+        idx = _MEMBER_ROWS[key] = torch.arange(n_rows, device=device) // (n_rows // n_members)
+    return idx
+
+
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w read back as float32 (the JAX einsums' f32 output)."""
+    """x @ w read back as float32 (the JAX einsums' f32 output). A
+    member-stacked w [M, D, N] takes x's member-major rows as M groups: one
+    batched GEMM [M, rows, D] × [M, D, N]."""
+    if w.dim() == 3:
+        out = torch.matmul(x.reshape(w.shape[0], -1, x.shape[-1]), w)
+        return out.reshape(*x.shape[:-1], w.shape[-1]).float()
     return torch.matmul(x, w).float()
+
+
+def _per_member(x: torch.Tensor, v: torch.Tensor, op):
+    """``op(x, v)`` for a vector over x's last axis; a member-stacked v
+    [M, N] applies to x's member-major row groups."""
+    if v.dim() == 1:
+        return op(x, v)
+    return op(x.reshape(v.shape[0], -1, x.shape[-1]), v[:, None]).reshape(x.shape)
+
+
+def _add(x, v):
+    return _per_member(x, v, torch.add)
 
 
 def _norm(x, w, b, spec: ModelSpec):
@@ -64,8 +113,9 @@ def _norm(x, w, b, spec: ModelSpec):
         # gemma stores norm weights as w with the model applying (1 + w).
         if spec.norm_offset:
             w = w + torch.tensor(spec.norm_offset, dtype=w.dtype, device=w.device)
-        return rmsnorm(x, w, spec.norm_eps)
-    return layernorm(x, w, b, spec.norm_eps)
+        return _per_member(x, w, lambda xs, ws: rmsnorm(xs, ws, spec.norm_eps))
+    y = _per_member(x, w, lambda xs, ws: layernorm(xs, ws, None, spec.norm_eps))
+    return y if b is None else _add(y, b)
 
 
 def _gelu(x):
@@ -82,11 +132,11 @@ def _dense_mlp(x, block, spec: ModelSpec):
     else:
         up = _mm(x, block["w_up"])
         if block.get("b_up") is not None:
-            up = up + block["b_up"]
+            up = _add(up, block["b_up"])
         h = _gelu(up).to(x.dtype)
     out = _mm(h, block["w_down"])
     if block.get("b_down") is not None:
-        out = out + block["b_down"]
+        out = _add(out, block["b_down"])
     return out.to(x.dtype)
 
 
@@ -95,7 +145,7 @@ def _qkv(x, block, spec: ModelSpec):
     b, t, _ = x.shape
     q, k, v = _mm(x, block["wq"]), _mm(x, block["wk"]), _mm(x, block["wv"])
     if block.get("bq") is not None:
-        q, k, v = q + block["bq"], k + block["bk"], v + block["bv"]
+        q, k, v = _add(q, block["bq"]), _add(k, block["bk"]), _add(v, block["bv"])
 
     def heads(y, n):
         return y.to(x.dtype).reshape(b, t, n, spec.head_dim).transpose(1, 2).contiguous()
@@ -107,7 +157,7 @@ def _attn_out(attn, block, x_dtype):
     b, h, t, d = attn.shape
     out = _mm(attn.transpose(1, 2).reshape(b, t, h * d), block["wo"])
     if block.get("bo") is not None:
-        out = out + block["bo"]
+        out = _add(out, block["bo"])
     return out.to(x_dtype)
 
 
@@ -118,10 +168,18 @@ def _scale_emb(x, spec: ModelSpec):
 
 
 def _embed(params, spec: ModelSpec, tokens, positions):
-    x = _scale_emb(params["tok_emb"][tokens].to(_dtype(spec)), spec)
-    if spec.pos == "learned":
-        x = x + params["pos_emb"][positions][None].to(x.dtype)
-    return x
+    """tokens [B, T] → [B, T, D]; with member-stacked tables row b reads
+    its member's table (``tok_emb[m, token]``)."""
+    emb, pos_emb = params["tok_emb"], params.get("pos_emb")
+    if emb.dim() == 3:
+        mi = _member_rows(emb.shape[0], tokens.shape[0], tokens.device)[:, None]
+        x = emb[mi, tokens]
+        pos = pos_emb[mi, positions[None, :]] if spec.pos == "learned" else None
+    else:
+        x = emb[tokens]
+        pos = pos_emb[positions][None] if spec.pos == "learned" else None
+    x = _scale_emb(x.to(_dtype(spec)), spec)
+    return x if pos is None else x + pos.to(x.dtype)
 
 
 def _unembed(params, spec: ModelSpec, x):
@@ -129,7 +187,7 @@ def _unembed(params, spec: ModelSpec, x):
     if w is not None:
         return _mm(x, w)
     # tied head: contract against the embedding table's rows directly
-    return _mm(x, params["tok_emb"].t())
+    return _mm(x, params["tok_emb"].transpose(-1, -2))
 
 
 def _final_norm(params, spec: ModelSpec, x):
@@ -156,21 +214,35 @@ def prefill(
     spec: ModelSpec,
     tokens: torch.Tensor,   # [B, T] right-padded
     lengths: torch.Tensor,  # [B] int32 true prompt lengths
-    cache_k: torch.Tensor,  # [L, B, K, max_seq, hd]; [L, S, K, max_seq, hd] with slot
+    cache_k: torch.Tensor,  # [L, B, K, max_seq, hd]; [L, S, K, max_seq, hd] with slot/rows
     cache_v: torch.Tensor,
     slot: int | None = None,
     plain_attention: bool = False,
+    rows: list[int | None] | None = None,
 ):
     """Process the full prompt; returns (last-token logits [B, V] f32,
     cache_k, cache_v). K/V of every prompt position is written into the
     cache in place — at cache row ``slot`` (batch-1 tokens) for the
-    continuous-batching admission path, else at rows ``[0, B)``."""
+    continuous-batching admission path, at ``rows[b]`` for batch row b when
+    ``rows`` is given (an entry of ``None`` writes nothing: the JAX
+    ``write_gate``, so a member-coalesced admission never touches absent
+    members' rows), else at rows ``[0, B)``. With member-stacked params,
+    batch row m is member m's prompt (one per member) and attention runs as
+    one K1 launch per layer over the M rows, each at its own length."""
     _dense_only(spec)
     b, t = tokens.shape
-    positions = torch.arange(t, device=tokens.device)
+    dev = tokens.device
+    positions = torch.arange(t, device=dev)
     x = _embed(params, spec, tokens, positions)
-    cos, sin = _rope(spec, tokens.device)
-    rows = slice(slot, slot + 1) if slot is not None else slice(0, b)
+    cos, sin = _rope(spec, dev)
+    src = slice(None)
+    if rows is None:
+        dst = slice(slot, slot + 1) if slot is not None else slice(0, b)
+    else:
+        keep = [i for i, r in enumerate(rows) if r is not None]
+        dst = torch.tensor([rows[i] for i in keep], dtype=torch.long, device=dev)
+        if len(keep) < b:
+            src = torch.tensor(keep, dtype=torch.long, device=dev)
     attn_fn = prefill_attention if plain_attention else flash_prefill_attention
     blocks = params["blocks"]
 
@@ -179,8 +251,8 @@ def prefill(
             if spec.pos == "rope":
                 q = apply_rope(q, cos, sin, positions)
                 k = apply_rope(k, cos, sin, positions)
-            cache_k[l, rows, :, :t] = k  # in place (JAX: donated buffer)
-            cache_v[l, rows, :, :t] = v
+            cache_k[l, dst, :, :t] = k[src]  # in place (JAX: donated buffer)
+            cache_v[l, dst, :, :t] = v[src]
             return attn_fn(q, k, v, lengths, window=spec.sliding_window), k, v
 
         x = _block(x, _layer(blocks, l), spec, attend)
@@ -193,11 +265,15 @@ def prefill(
 def decode_token_embed(params: Params, spec: ModelSpec, token, lengths):
     """Embed one decode step's tokens: ``[B] → [B, 1, D]`` (scaled, plus the
     learned position embedding at each row's position when the spec uses
-    one)."""
-    x = _scale_emb(params["tok_emb"][token].to(_dtype(spec))[:, None, :], spec)
-    if spec.pos == "learned":
-        x = x + params["pos_emb"][lengths][:, None, :].to(x.dtype)
-    return x
+    one; member-stacked tables: row b reads its member's table)."""
+    emb, pos_emb = params["tok_emb"], params.get("pos_emb")
+    if emb.dim() == 3:
+        mi = _member_rows(emb.shape[0], token.shape[0], token.device)
+        x, pos = emb[mi, token], (pos_emb[mi, lengths] if spec.pos == "learned" else None)
+    else:
+        x, pos = emb[token], (pos_emb[lengths] if spec.pos == "learned" else None)
+    x = _scale_emb(x.to(_dtype(spec))[:, None, :], spec)
+    return x if pos is None else x + pos[:, None, :].to(x.dtype)
 
 
 def decode_step_blocks(
@@ -254,14 +330,25 @@ def decode_step(
     cache_v: torch.Tensor,
     write_mask: torch.Tensor | None = None,
     plain_attention: bool = False,
+    ensemble: int = 1,
 ):
-    """One autoregressive step. Returns (logits [B, V] f32, cache_k, cache_v)."""
+    """One autoregressive step. Returns (logits [B, V] f32, cache_k, cache_v).
+
+    ``ensemble`` = E > 1 (member-stacked params, cache rows ``e·B + b``):
+    every row runs through all E weight sets and the E members' logits are
+    averaged in f32 — the JAX engine's ``_member_call(mean=True)``."""
+    if ensemble > 1:
+        token, lengths = token.repeat(ensemble), lengths.repeat(ensemble)
+        write_mask = None if write_mask is None else write_mask.repeat(ensemble)
     x = decode_token_embed(params, spec, token, lengths)
     x, cache_k, cache_v = decode_step_blocks(
         params["blocks"], spec, x, lengths, cache_k, cache_v,
         write_mask=write_mask, plain_attention=plain_attention)
     x = _final_norm(params, spec, x)
-    return _unembed(params, spec, x[:, 0, :]), cache_k, cache_v
+    logits = _unembed(params, spec, x[:, 0, :])
+    if ensemble > 1:
+        logits = logits.view(ensemble, -1, logits.shape[-1]).mean(0)
+    return logits, cache_k, cache_v
 
 
 def decode_chunk(
@@ -278,6 +365,7 @@ def decode_chunk(
     sample_fn,
     sample_carry,
     plain_attention: bool = False,
+    ensemble: int = 1,
 ):
     """``n_steps`` decode steps with on-device finish accounting.
 
@@ -287,6 +375,9 @@ def decode_chunk(
     ``sample_fn(logits_f32 [B, V], live [B], carry) -> (next [B], carry,
     aux)`` supplies sampling; ``aux`` tuples are stacked over steps.
 
+    Member-stacked params run all M·S rows in one step (the JAX engine's
+    members branch); ``ensemble`` is passed to :func:`decode_step`.
+
     Returns ``(tokens [B, n_steps], valid [B, n_steps] bool, n_valid [B],
     live, budget, cache_k, cache_v, lengths, sample_carry, aux)``."""
     tok, lens, lv, bud = token, lengths, live, budget
@@ -294,7 +385,8 @@ def decode_chunk(
     for _ in range(n_steps):
         pos = torch.where(lv, lens, torch.zeros_like(lens))
         logits, cache_k, cache_v = decode_step(params, spec, tok, pos, cache_k, cache_v,
-                                               write_mask=lv, plain_attention=plain_attention)
+                                               write_mask=lv, plain_attention=plain_attention,
+                                               ensemble=ensemble)
         nxt, sample_carry, aux = sample_fn(logits.float(), lv, sample_carry)
         nxt = torch.where(lv, nxt.to(tok.dtype), tok)
         lens = lens + lv.to(lens.dtype)

@@ -17,19 +17,27 @@ Builds three llama-3-8b engines of the PyTorch port (bf16, seeds 0, 1, 2,
                     through ``ctypes.PyDLL``, which keeps the interpreter
                     lock during the launch instead of releasing it
 
-Each engine runs its own scheduler thread in this one process. Per
-variant: every stream's decode rate (tokens after the first over the
+Each engine runs its own scheduler thread in this one process. Then the
+three engines are freed and the same three weight sets are stacked on ONE
+engine (``members=3``, seeds 0, 1, 2 — the ``members`` phase of
+``chip_smoke.py``; both deployments do not fit the card at once):
+
+  stacked_3         one request on each member of the stacked engine
+  stacked_1         one request on member 0 of the stacked engine alone
+
+Per variant: every stream's decode rate (tokens after the first over the
 first-to-last span), the wall time, and the decode steps the engines ran.
-The variants run ``--reps`` times in turns (1 2 … n n … 2 1). Then
-``engines_3`` and ``alone`` once more under ``torch.profiler``: the card's
-busy share of the wall time. One JSON line per reading, the card's name and
-power limit first. Imports nothing of JAX.
+The variants of each deployment run ``--reps`` times in turns (1 2 … n n …
+2 1). Then ``engines_3``, ``alone`` and ``stacked_3`` once more under
+``torch.profiler``: the card's busy share of the wall time. One JSON line per
+reading, the card's name and power limit first. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import os
 import statistics
@@ -47,6 +55,10 @@ PLANS = {  # variant → requests per engine
     "engines_3": (1, 1, 1),
     "engines_3_pydll": (1, 1, 1),
 }
+STACKED_PLANS = {  # variant → the members of the stacked engine, one request each
+    "stacked_3": (0, 1, 2),
+    "stacked_1": (0,),
+}
 
 
 def bind_kernels(cuda_build, loader) -> None:
@@ -56,12 +68,13 @@ def bind_kernels(cuda_build, loader) -> None:
         cuda_build._libs[name] = loader(str(cuda_build.library_path(name)))
 
 
-def run(engines, plan, prompt, tokens, sampler) -> dict:
-    """Submit every request, drain each in its own thread, and time each
-    token's arrival."""
+def run(targets, prompt, tokens, sampler) -> dict:
+    """Submit one request per ``(engine, member)`` target, drain each in its
+    own thread, and time each token's arrival."""
+    engines = list({id(e): e for e, _ in targets}.values())
     m0 = [e.metrics()["decode_steps_total"] for e in engines]
-    reqs = [(e, e.submit(prompt, max_new_tokens=tokens, sampler=sampler))
-            for e, n in zip(engines, plan) for _ in range(n)]
+    reqs = [(e, e.submit(prompt, max_new_tokens=tokens, sampler=sampler, member=m))
+            for e, m in targets]
     stamps: list[list[float]] = [[] for _ in reqs]
 
     def drain(i, engine, req):
@@ -83,7 +96,7 @@ def run(engines, plan, prompt, tokens, sampler) -> dict:
     return {"tok_per_s_per_stream": rates, "tok_per_s_total": len(reqs) * tokens / wall,
             "wall_s": wall,
             "decode_steps": [e.metrics()["decode_steps_total"] - a
-                             for e, a in zip(engines, m0)][:len(plan)]}
+                             for e, a in zip(engines, m0)]}
 
 
 def busy_share(torch, fn) -> dict:
@@ -130,25 +143,42 @@ def main(argv=None) -> int:
     engines = [get_engine(spec, seed=s, n_slots=4, decode_chunk=8) for s in range(3)]
     prompt = list(range(3, 303))
     greedy = SamplerConfig(temperature=0.0)
-    run(engines, PLANS["engines_3"], prompt, 8, greedy)  # warm every engine and kernel
+
+    def targets(name):
+        if name in STACKED_PLANS:
+            return [(engines[0], m) for m in STACKED_PLANS[name]]
+        return [(e, 0) for e, n in zip(engines, PLANS[name]) for _ in range(n)]
 
     def variant(name):
         pydll = name.endswith("_pydll")
         if pydll:
             bind_kernels(cuda_build, ctypes.PyDLL)
         try:
-            return run(engines, PLANS[name], prompt, args.tokens, greedy)
+            return run(targets(name), prompt, args.tokens, greedy)
         finally:
             if pydll:
                 bind_kernels(cuda_build, ctypes.CDLL)
 
-    readings: dict[str, list[dict]] = {name: [] for name in PLANS}
-    order = list(PLANS)
-    for rep in range(args.reps):
-        for name in (order if rep % 2 == 0 else order[::-1]):
-            out = variant(name)
-            readings[name].append(out)
-            print(json.dumps({"variant": name, "rep": rep, **out}), flush=True)
+    readings: dict[str, list[dict]] = {name: [] for name in (*PLANS, *STACKED_PLANS)}
+
+    def sweep(plans, warm, profile):
+        run(targets(warm), prompt, 8, greedy)  # warm every engine and kernel
+        order = list(plans)
+        for rep in range(args.reps):
+            for name in (order if rep % 2 == 0 else order[::-1]):
+                out = variant(name)
+                readings[name].append(out)
+                print(json.dumps({"variant": name, "rep": rep, **out}), flush=True)
+        for name in profile:
+            out = busy_share(torch, lambda name=name: variant(name))
+            print(json.dumps({"profiled": name, **out, "card": smi}), flush=True)
+
+    sweep(PLANS, "engines_3", ("engines_3", "alone"))
+    shutdown_all_engines()
+    gc.collect()
+    torch.cuda.empty_cache()
+    engines = [get_engine(spec, seed=0, n_slots=4, decode_chunk=8, members=3)]
+    sweep(STACKED_PLANS, "stacked_3", ("stacked_3",))
     for name, outs in readings.items():
         rates = [r for o in outs for r in o["tok_per_s_per_stream"]]
         print(json.dumps({"summary": name, "tok_per_s_per_stream_min": min(rates),
@@ -156,9 +186,6 @@ def main(argv=None) -> int:
                           "tok_per_s_per_stream_max": max(rates),
                           "tok_per_s_total": [o["tok_per_s_total"] for o in outs],
                           "wall_s": [o["wall_s"] for o in outs], "card": smi}), flush=True)
-    for name in ("engines_3", "alone"):
-        out = busy_share(torch, lambda name=name: variant(name))
-        print(json.dumps({"profiled": name, **out, "card": smi}), flush=True)
     shutdown_all_engines()
     return 0
 
