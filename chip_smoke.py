@@ -24,6 +24,11 @@ result line:
   4. model    llama-3-8b widths at 2 layers: prefill + decode steps through
               the kernels against the same steps through the plain attention;
               a 2048-token prompt as 4 segments against one K1 prefill;
+              CUDA-graph replays of decode_chunk (8 steps) and decode_loop
+              (4 chunks; one row finishing in chunk 1) against eager calls
+              from the same state, greedy and with a sampled row whose noise
+              is drawn ahead (tokens and valid counts equal, caches equal bit
+              for bit, ticket counters at 0);
               then three stacked weight sets (members=3): the stacked prefill
               (K1 at B=3) and decode steps against each member alone, and the
               ensemble step against the mean of the members' logits;
@@ -38,6 +43,13 @@ result line:
               stream's longest gap, the long TTFT, ceil(n/512) segments), a
               two-turn chat through the app with and without prefix reuse
               (exact saved tokens), one segment's time per history bucket;
+ 6b. decode_graphs  every decode dispatch as one CUDA-graph replay on the same
+              model: 3 greedy streams × 128 tokens at decode_loop=1 and 4
+              (tokens equal), per-stream tok/s, per dispatch its device ms and
+              the host seconds until its tokens are read, captures with their
+              seconds and the graphs' pool bytes, chunks a row entered against
+              chunks dispatched; one eager 16-step decode_chunk against two
+              replays of the 8-step graph from the same state (tokens equal);
   7. fanout   three full 32-layer llama-3-8b members (bf16, seeds 0, 1, 2)
               behind one app, concatenate and aggregate (LLM1 aggregates):
               greedy requests one at a time on a 300-byte prompt (three
@@ -55,7 +67,12 @@ result line:
               exact token savings, TTFT with and without dedup on a
               ≈ 3 000-token prompt);
   9. kernels  one line listing both kernels (launches per phase, errors,
-              timings, route, share of the bound);
+              timings, route, share of the bound, how the main path issues
+              them: K1 eagerly, K2 inside decode-graph replays);
+
+K2 launch counts are exact in every phase: layers × (decode steps + the one
+eager warm-up step each engine runs before its first capture); a replay adds
+the K2 calls its graph captured.
 
 Kernel, plain and library times (``ms``, ``plain_ms``, ``library_ms``) are
 device time per call from one CUDA graph that replays the calls over enough
@@ -173,6 +190,12 @@ def make_graph_timer(torch, cpu: bool, median_ms):
         return statistics.median(times)
 
     return graph_ms
+
+
+def _k2_steps(m: dict) -> int:
+    """Decode steps that launched K2 once per layer in an engine: its decode
+    steps and its warm-up step before the first graph capture."""
+    return m["decode_steps_total"] + m["decode_graph_warmup_steps_total"]
 
 
 def _copies(nbytes: int) -> int:
@@ -503,6 +526,7 @@ def phase_model(torch, cpu: bool, tiny: bool) -> None:
              tol=MODEL_TOL[dtype])
         require(max(errs) <= MODEL_TOL[dtype], f"model {dtype}: logits differ by {max(errs)}")
         _model_segments(torch, spec, params, dev, gen, tiny)
+        _model_graphs(torch, spec, params, dev, gen, tiny)
         del params
         _model_stacked(torch, spec, dev, gen, bucket, n_prompt, steps)
 
@@ -544,6 +568,162 @@ def _model_segments(torch, spec, params, dev, gen, tiny: bool) -> None:
     require(bool(torch.isfinite(last).all()), "model segments: non-finite logits")
     require(cache_err <= tol, f"model segments {spec.dtype}: cache differs by {cache_err}")
     require(logit_err <= tol, f"model segments {spec.dtype}: logits differ by {logit_err}")
+
+
+def _prefilled_rows(torch, spec, params, dev, gen, lens, bucket: int):
+    """A cache of ``len(lens)`` rows with random prompts of ``lens`` tokens
+    prefilled (a 0 leaves the row empty and dead), and the decode state an
+    engine keeps for it: each row's first token (the prefill's argmax), its
+    length, live flag and EOS (none)."""
+    from quorum_tpu_torch.models.transformer import init_cache, prefill
+
+    ck, cv = init_cache(spec, len(lens), device=dev)
+    first = []
+    for row, n in enumerate(lens):
+        if not n:
+            first.append(0)
+            continue
+        toks = torch.randint(3, spec.vocab_size, (1, bucket), generator=gen).to(dev)
+        logits, _, _ = prefill(params, spec, toks, torch.tensor([n], dtype=torch.int32,
+                                                                 device=dev), ck, cv, slot=row)
+        first.append(int(logits.argmax()))
+    state = {"token": torch.tensor(first, device=dev),
+             "lengths": torch.tensor(lens, dtype=torch.int32, device=dev)}
+    eos = torch.full((len(lens),), -1, dtype=torch.int32, device=dev)
+    return ck, cv, state, eos
+
+
+def _decode_fn(torch, spec, params, n_steps: int, n_chunks: int, eos, sampler):
+    """``run(state, cache_k, cache_v)``: one engine-style decode dispatch —
+    ``decode_chunk`` for one chunk, ``decode_loop`` for more — that updates
+    ``state`` in place and returns ``[n_chunks, rows, n_steps + 1]`` (tokens,
+    then valid counts), as the engine's graphs do."""
+    from quorum_tpu_torch.models.transformer import decode_chunk, decode_loop
+
+    def run(st, ck, cv):
+        args = (st["token"], st["lengths"], st["live"], st["budget"], eos, ck, cv, sampler, 0)
+        if n_chunks == 1:
+            toks, _, n_valid, live, bud, _, _, lens, _, _ = decode_chunk(params, spec, n_steps,
+                                                                         *args)
+            toks, n_valid, tok = toks[None], n_valid[None], toks[:, -1]
+        else:
+            toks, n_valid, tok, live, bud, _, _, lens, _, _ = decode_loop(
+                params, spec, n_steps, n_chunks, *args)
+        for name, value in (("token", tok), ("live", live), ("budget", bud), ("lengths", lens)):
+            st[name].copy_(value)
+        return torch.cat([toks, n_valid[..., None].to(toks.dtype)], dim=-1)
+
+    return run
+
+
+def _replayer(torch, dev, cpu: bool):
+    """``replay(key, program, warm_up)`` on a side stream of its own (an
+    engine's way: ``engine/graphs.py``); on the CPU, an eager call."""
+    if cpu:
+        return (lambda key, program, warm_up: program()), None
+    from quorum_tpu_torch.engine.graphs import DecodeGraphs
+
+    stream = torch.cuda.Stream()
+    graphs = DecodeGraphs(torch.device(dev, torch.cuda.current_device()), stream)
+
+    def replay(key, program, warm_up):
+        stream.wait_stream(torch.cuda.current_stream())  # the inputs were set there
+        with torch.cuda.stream(stream):
+            out = graphs.replay(key, program, warm_up)
+        torch.cuda.current_stream().wait_stream(stream)
+        return out
+
+    return replay, graphs
+
+
+def _model_graphs(torch, spec, params, dev, gen, tiny: bool) -> None:
+    """Decode dispatches replayed from CUDA graphs against eager calls of the
+    same functions from the same prefilled state (4 rows: three prompts, one
+    dead row): ``decode_chunk`` of 8 steps, and ``decode_loop`` of 4 chunks
+    of 8 (row 2 finishes in chunk 1, row 3 in chunk 3, row 0 in chunk 4),
+    greedy; then ``decode_loop`` with row 3 sampled at top-p 0.9, its Gumbel
+    noise drawn ahead into a static buffer for the graph and drawn step by
+    step from an equally seeded generator for the eager call. Tokens, valid
+    counts and the carried state must be equal and the caches equal bit for
+    bit (the replay runs the same kernels in the same order); K2's ticket
+    counters at 0."""
+    from quorum_tpu_torch.ops.flash_decode import ticket_counters
+    from quorum_tpu_torch.ops.sampling import gumbel_noise, sample_token_rows
+
+    cpu = dev == "cpu"
+    vocab, n_steps = spec.vocab_size, 8
+    lens, bucket = ([40, 0, 20, 9], 64) if tiny else ([300, 0, 120, 41], 512)
+    ck0, cv0, state0, eos = _prefilled_rows(torch, spec, params, dev, gen, lens, bucket)
+    temp = torch.tensor([0.0, 0.0, 0.0, 0.8], device=dev)
+    top_p = torch.tensor([1.0, 1.0, 1.0, 0.9], device=dev)
+    top_k = torch.zeros(4, dtype=torch.int32, device=dev)
+    # The graph's static state and caches; every case starts from state0.
+    state = {k: v.clone() for k, v in state0.items()}
+    state["budget"] = torch.zeros(4, dtype=torch.int32, device=dev)
+    state["live"] = torch.zeros(4, dtype=torch.bool, device=dev)
+    gk, gv = ck0.clone(), cv0.clone()
+    ahead = torch.zeros((4 * n_steps, 4, vocab), dtype=torch.float32, device=dev)
+    replay, graphs = _replayer(torch, dev, cpu)
+    results = []
+    for name, n_chunks, budget, sampled in (
+            ("decode_chunk", 1, [20, 0, 5, 20], False),
+            ("decode_loop", 4, [30, 0, 5, 20], False),
+            ("decode_loop_sampled", 4, [30, 0, 5, 20], True)):
+        budget = torch.tensor(budget, dtype=torch.int32, device=dev)
+        eager_noise = torch.zeros((4, vocab), dtype=torch.float32, device=dev)
+        g_eager = torch.Generator(device=dev).manual_seed(11)
+
+        def eager_sample(logits, live, k, sampled=sampled):
+            if sampled:  # one draw per step, as the engine drew before graphs
+                gumbel_noise(vocab, g_eager, out=eager_noise[3])
+            return sample_token_rows(logits, temp, top_p, top_k, eager_noise,
+                                     restrict=sampled), k + 1, ()
+
+        def graph_sample(logits, live, k, sampled=sampled):
+            return sample_token_rows(logits, temp, top_p, top_k, ahead[k],
+                                     restrict=sampled), k + 1, ()
+
+        eager_state = {**{k: v.clone() for k, v in state0.items()},
+                       "budget": budget.clone(), "live": budget > 0}
+        ek, ev = ck0.clone(), cv0.clone()
+        want = _decode_fn(torch, spec, params, n_steps, n_chunks, eos, eager_sample)(
+            eager_state, ek, ev)
+        for key in state0:
+            state[key].copy_(state0[key])
+        state["budget"].copy_(budget)
+        state["live"].copy_(budget > 0)
+        gk.copy_(ck0)
+        gv.copy_(cv0)
+        if sampled:  # the dispatch's draws, ahead, in step order
+            g_ahead = torch.Generator(device=dev).manual_seed(11)
+            for k in range(n_chunks * n_steps):
+                gumbel_noise(vocab, g_ahead, out=ahead[k, 3])
+        program = _decode_fn(torch, spec, params, n_steps, n_chunks, eos, graph_sample)
+        got = replay((n_steps, n_chunks, sampled), lambda: program(state, gk, gv),
+                     lambda: _decode_fn(torch, spec, params, 1, 1, eos, graph_sample)(
+                         {k: v.clone() for k, v in state.items()}, gk.clone(), gv.clone()))
+        if not cpu:
+            torch.cuda.synchronize()
+        same_state = all(torch.equal(state[k], eager_state[k]) for k in eager_state)
+        same_cache = torch.equal(gk, ek) and torch.equal(gv, ev)
+        n_valid = got[..., -1].tolist()
+        results.append({"case": name, "n_chunks": n_chunks, "n_steps": n_steps,
+                        "tokens_equal": got.tolist() == want.tolist(),
+                        "state_equal": same_state, "caches_bit_equal": same_cache,
+                        "n_valid_by_chunk": n_valid})
+        require(got.tolist() == want.tolist() and same_state,
+                f"model graphs {spec.dtype} {name}: replay differs from eager")
+        require(same_cache, f"model graphs {spec.dtype} {name}: caches differ from eager")
+        if n_chunks > 1:
+            require(n_valid[0][2] == 5 and not any(n_valid[c][2] for c in range(1, n_chunks))
+                    and n_valid[2][3] == 4 and n_valid[3][3] == 0 and n_valid[3][0] == 6,
+                    f"model graphs {name}: rows did not finish where expected: {n_valid}")
+    tickets_zero = all(int(c.abs().sum()) == 0 for c in ticket_counters())
+    require(tickets_zero, "model graphs: K2 ticket counters are not back at 0")
+    emit("model", dtype=spec.dtype, layers=spec.n_layers, graphs=results,
+         captures=None if cpu else graphs.captures,
+         capture_s=None if cpu else round(graphs.capture_seconds, 3),
+         graph_pool_bytes=None if cpu else graphs.pool_bytes, ticket_counters_zero=tickets_zero)
 
 
 def _model_stacked(torch, spec, dev, gen, bucket: int, n_prompt: int, steps: int) -> None:
@@ -746,6 +926,7 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
             "greedy request: streamed text differs from the non-streamed text")
     admissions = m1["admissions_total"] - m0["admissions_total"]
     steps = m1["decode_steps_total"] - m0["decode_steps_total"]
+    k2_steps = _k2_steps(m1) - _k2_steps(m0)
     single_shot = m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
     segments = m1["prefill_segments_total"] - m0["prefill_segments_total"]
     require(admissions == 5, f"expected 5 admissions, engine counted {admissions}")
@@ -762,8 +943,8 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
                 f"K1 launches {launches['flash_prefill']} != {n_layers} x {single_shot}")
         require(k1_routes["wgmma"] == n_layers * single_shot,
                 f"K1 launches on the wgmma route {k1_routes} != {n_layers} x {single_shot}")
-        require(launches["flash_decode"] == n_layers * steps,
-                f"K2 launches {launches['flash_decode']} != {n_layers} x {steps}")
+        require(launches["flash_decode"] == n_layers * k2_steps,
+                f"K2 launches {launches['flash_decode']} != {n_layers} x {k2_steps}")
         require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
                 "a kernel of the path was never launched")
     completion = sum(c["usage"]["completion_tokens"] for c in checked)
@@ -783,7 +964,11 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
         "greedy_stream_matches_complete": True,
         "admissions": admissions, "single_shot_admissions": single_shot,
         "prefill_segments": segments, "prefill_chunk": chunk,
-        "decode_steps": steps, "launches": launches,
+        "decode_steps": steps, "graph_warmup_steps": k2_steps - steps,
+        "decode_graph_captures": m1["decode_graph_captures_total"],
+        "decode_graph_capture_s": m1["decode_graph_capture_seconds_total"],
+        "decode_graph_replays": m1["decode_graph_replays_total"],
+        "launches": launches,
         "k1_launches_by_route": k1_routes,
         "concurrent_wall_s": round(wall, 4),
         "concurrent_completion_tokens": completion,
@@ -1026,6 +1211,7 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     counted = [e.metrics() for e in engines]
     single_shot = sum(m["admission_dispatches_total"] for m in counted)
     steps = sum(m["decode_steps_total"] for m in counted)
+    k2_steps = sum(_k2_steps(m) for m in counted)
     segments = sum(m["prefill_segments_total"] for m in counted)
     require(all(int(c.abs().sum()) == 0 for c in ticket_counters()),
             "K2 ticket counters are not back at 0 after the scheduler phase")
@@ -1035,8 +1221,8 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
                 and k1_routes["wgmma"] == n_layers * single_shot,
                 f"K1 launches {launches['flash_prefill']} ({k1_routes}) != {n_layers} x "
                 f"{single_shot} single-shot dispatches")
-        require(launches["flash_decode"] == n_layers * steps,
-                f"K2 launches {launches['flash_decode']} != {n_layers} x {steps}")
+        require(launches["flash_decode"] == n_layers * k2_steps,
+                f"K2 launches {launches['flash_decode']} != {n_layers} x {k2_steps}")
         require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
                 "scheduler: a kernel of the path was never launched")
     peak = None if cpu else torch.cuda.max_memory_allocated()
@@ -1064,12 +1250,192 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
                      for k, r in ring.items()},
             "ring_tokens_equal": True, "long_admission": legs, "chat": chat_info,
             "single_shot_dispatches": single_shot, "prefill_segments": segments,
-            "decode_steps": steps, "launches": launches, "k1_launches_by_route": k1_routes,
+            "decode_steps": steps, "graph_warmup_steps": k2_steps - steps,
+            "launches": launches, "k1_launches_by_route": k1_routes,
             "segment_ms_by_history": seg_ms,
             "peak_mem_gb": None if cpu else round(peak / 1e9, 3),
             "peak_mem_gb_with_segment_timing": None if cpu else round(seg_peak / 1e9, 3),
             "measured_on": f"{device_info['name']} ({device_info['power_limit']})"}
     emit("scheduler", **info)
+    return info
+
+
+def phase_decode_graphs(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+    """Every decode dispatch as one CUDA-graph replay, on the full 32-layer
+    llama-3-8b (bf16, seed 0; one weight set, engines built one after
+    another, 4 slots each, the default ring depth 2):
+
+    (a) 3 greedy streams × 128 tokens from 300-token prompts at decode_loop=1
+        and at decode_loop=4, each run twice on its engine (the first run
+        captures the graphs, the second is steady): tokens equal (required);
+        per-stream tok/s;
+        per dispatch its device ms (CUDA events on the engine's stream around
+        it: mask copy, noise draws, replay, copy to the host) and the host
+        seconds from its issue until its tokens are read; captures, their
+        seconds and the graphs' pool bytes; chunks a row entered
+        (``decode_loop_chunks_total``) against chunks dispatched; K2
+        launches = 32 × (decode + warm-up steps), required;
+    (b) one eager 32-layer ``decode_chunk`` of 16 steps against two replays
+        of the 8-step graph from the same prefilled state (3 rows of 300,
+        1 200 and 41 tokens, one dead): tokens equal (required), the wall of
+        each."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine, prefill_bucket
+    from quorum_tpu_torch.models.init import init_params
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention, ticket_counters
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+
+    model = "llama-tiny" if tiny else "llama-3-8b"
+    dev = "cpu" if cpu else "cuda"
+    spec = resolve_spec(model, {"max_seq": "2048"} if tiny else {})
+    n_tokens = 32 if tiny else 128
+    _require_card_empty(torch, cpu, "decode_graphs")
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    params = init_params(spec, 0, dev)
+    gen = torch.Generator().manual_seed(9)
+    greedy = SamplerConfig(temperature=0.0)
+    prompts = [torch.randint(3, spec.vocab_size, (300,), generator=gen).tolist()
+               for _ in range(3)]
+    card = f"{device_info['name']} ({device_info['power_limit']})"
+    flash_prefill_attention.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
+    flash_decode_attention.launches = 0
+
+    legs, tokens, k2_steps = {}, {}, 0
+    for loop in (1, 4):
+        eng = InferenceEngine(spec, device=dev, params=params, decode_loop=loop)
+        dispatched = []
+        dispatch, emit_chunk = eng._dispatch_chunk, eng._emit_chunk
+
+        def timed_dispatch(active, dispatch=dispatch, dispatched=dispatched):
+            marks = None
+            if not cpu:
+                marks = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                marks[0].record()
+            t0 = time.perf_counter()
+            c = dispatch(active)
+            if marks:
+                marks[1].record()
+            dispatched.append([c, marks, t0, None])
+            return c
+
+        def timed_emit(c, emit_chunk=emit_chunk, dispatched=dispatched):
+            c.wait()
+            for rec in dispatched:
+                if rec[0] is c:
+                    rec[3] = time.perf_counter()
+            return emit_chunk(c)
+
+        eng._dispatch_chunk, eng._emit_chunk = timed_dispatch, timed_emit
+        # The same streams twice: the first run captures the engine's graphs
+        # (the JAX engine compiles at first use too), the second is steady.
+        for run in ("first", "steady"):
+            dispatched.clear()
+            m0 = eng.metrics()
+            t0 = time.perf_counter()
+            out = _stream_all(eng, [eng.submit(p, max_new_tokens=n_tokens, sampler=greedy)
+                                    for p in prompts])
+            wall = time.perf_counter() - t0
+            if not cpu:
+                torch.cuda.synchronize()
+            m1 = eng.metrics()
+            tokens[loop, run] = [t for t, _ in out]
+            require(all(len(t) == n_tokens for t in tokens[loop, run]),
+                    f"decode_graphs loop={loop}: a stream ended early")
+            k2_steps += _k2_steps(m1) - _k2_steps(m0)
+            steps = m1["decode_steps_total"] - m0["decode_steps_total"]
+            leg = legs[f"loop_{loop}_{run}"] = {
+                "wall_s": wall,
+                "tok_per_s_per_stream": [(len(t) - 1) / (ts[-1] - ts[0]) for t, ts in out],
+                "dispatches": m1["decode_chunks_total"] - m0["decode_chunks_total"],
+                "chunks_dispatched": steps // eng.decode_chunk,
+                "chunks_entered": (m1["decode_loop_chunks_total"]
+                                   - m0["decode_loop_chunks_total"]),
+                "decode_steps": steps,
+                "chunks_per_dispatch": [c.n_chunks for c, *_ in dispatched],
+                "dispatch_device_ms": [a.elapsed_time(b) for _, (a, b), *_ in dispatched]
+                if not cpu else None,
+                "dispatch_to_tokens_read_s": [t1 - t0 for _, _, t0, t1 in dispatched
+                                              if t1 is not None],
+                "captures": m1["decode_graph_captures_total"] - m0["decode_graph_captures_total"],
+                "capture_s": round(m1["decode_graph_capture_seconds_total"]
+                                   - m0["decode_graph_capture_seconds_total"], 6),
+                "replays": m1["decode_graph_replays_total"] - m0["decode_graph_replays_total"],
+                "graph_pool_bytes": m1["decode_graph_pool_bytes"],
+                "warmup_steps": (m1["decode_graph_warmup_steps_total"]
+                                 - m0["decode_graph_warmup_steps_total"]),
+                "overlapped": m1["overlapped_chunks_total"] - m0["overlapped_chunks_total"]}
+            if not cpu:
+                require(leg["replays"] == leg["dispatches"],
+                        f"decode_graphs loop={loop}: {leg['replays']} replays for "
+                        f"{leg['dispatches']} dispatches")
+        eng.shutdown()
+    require(len({tuple(map(tuple, t)) for t in tokens.values()}) == 1,
+            "decode_graphs: tokens differ between decode_loop=1 and 4 or between runs")
+    require(legs["loop_4_steady"]["dispatches"] < legs["loop_1_steady"]["dispatches"],
+            f"decode_graphs: decode_loop=4 took {legs['loop_4_steady']['dispatches']} "
+            f"dispatches, decode_loop=1 {legs['loop_1_steady']['dispatches']}")
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches}
+    if not cpu:
+        require(launches["flash_decode"] == spec.n_layers * k2_steps,
+                f"K2 launches {launches['flash_decode']} != {spec.n_layers} x {k2_steps}")
+        require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
+                "decode_graphs: a kernel of the path was never launched")
+    tickets_zero = all(int(c.abs().sum()) == 0 for c in ticket_counters())
+    require(tickets_zero, "K2 ticket counters are not back at 0 after the decode_graphs phase")
+
+    # (b) eager 16 steps against two replays of the 8-step graph
+    lens = [300, 1200, 0, 41]
+    ck, cv, state, eos = _prefilled_rows(torch, spec, params, dev, gen, lens,
+                                         prefill_bucket(max(lens), spec.max_seq))
+    state["budget"] = torch.tensor([64, 64, 0, 64], dtype=torch.int32, device=dev)
+    state["live"] = state["budget"] > 0
+
+    def argmax_sample(logits, live, k):
+        return torch.argmax(logits, dim=-1), k + 1, ()
+
+    eager_state = {k: v.clone() for k, v in state.items()}
+    ek, ev = ck.clone(), cv.clone()
+    t0 = time.perf_counter()
+    want = _decode_fn(torch, spec, params, 16, 1, eos, argmax_sample)(eager_state, ek, ev)
+    if not cpu:
+        torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    del ek, ev
+    replay, graphs = _replayer(torch, dev, cpu)
+    program = _decode_fn(torch, spec, params, 8, 1, eos, argmax_sample)
+    warm = _decode_fn(torch, spec, params, 1, 1, eos, argmax_sample)
+    got, replay_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got.append(replay((8, 1), lambda: program(state, ck, cv),
+                          lambda: warm({k: v.clone() for k, v in state.items()}, ck.clone(),
+                                       cv.clone())).clone())
+        if not cpu:
+            torch.cuda.synchronize()
+        replay_s.append(time.perf_counter() - t0)
+    got_tokens = torch.cat([g[0, :, :8] for g in got], dim=1)
+    live_rows = [i for i, n in enumerate(lens) if n]
+    equal = got_tokens[live_rows].tolist() == want[0, live_rows, :16].tolist()
+    require(equal, "decode_graphs: two 8-step replays differ from one eager 16-step chunk")
+    peak = None if cpu else torch.cuda.max_memory_allocated()
+    del params, ck, cv, state, eager_state
+    info = {"model": model, "layers": spec.n_layers, "dtype": spec.dtype, "slots": 4,
+            "tokens_per_stream": n_tokens, "legs": legs, "tokens_equal": True,
+            "launches": launches, "graph_warmup_steps": sum(
+                leg["warmup_steps"] for leg in legs.values()),
+            "ticket_counters_zero": tickets_zero,
+            "eager_vs_replay": {"steps": 16, "eager_s": eager_s,
+                                "replay_s_first_with_capture": replay_s[0],
+                                "replay_s_second": replay_s[1],
+                                "capture_s": None if cpu else graphs.capture_seconds,
+                                "tokens_equal": equal},
+            "peak_mem_gb": None if cpu else round(peak / 1e9, 3), "measured_on": card}
+    emit("decode_graphs", **info)
     return info
 
 
@@ -1297,6 +1663,7 @@ def phase_fanout(torch, cpu: bool, tiny: bool, device_info: dict, stacked: bool 
                   for a, b in zip(m0, m1)]
     segments = [b["prefill_segments_total"] - a["prefill_segments_total"] for a, b in zip(m0, m1)]
     steps = [b["decode_steps_total"] - a["decode_steps_total"] for a, b in zip(m0, m1)]
+    k2_steps = sum(_k2_steps(b) - _k2_steps(a) for a, b in zip(m0, m1))
     tickets_zero = all(int(c.abs().sum()) == 0 for c in ticket_counters())
     # Members: 3 per request (5 sequential per size, 4 in the burst); the
     # aggregator admits one more per aggregate request (3 per size, 2 in
@@ -1313,8 +1680,8 @@ def phase_fanout(torch, cpu: bool, tiny: bool, device_info: dict, stacked: bool 
                 "single-shot admission dispatches")
         require(k1_routes["wgmma"] == n_layers * sum(dispatches),
                 f"K1 launches on the wgmma route {k1_routes} != {n_layers} x {sum(dispatches)}")
-        require(launches["flash_decode"] == n_layers * sum(steps),
-                f"K2 launches {launches['flash_decode']} != {n_layers} x {sum(steps)}")
+        require(launches["flash_decode"] == n_layers * k2_steps,
+                f"K2 launches {launches['flash_decode']} != {n_layers} x {k2_steps}")
         require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
                 f"{phase}: a kernel of the path was never launched")
     total_mem = None if cpu else torch.cuda.get_device_properties(0).total_memory
@@ -1332,7 +1699,7 @@ def phase_fanout(torch, cpu: bool, tiny: bool, device_info: dict, stacked: bool 
             "prefix_tokens_saved_per_engine": [
                 b["prefix_tokens_saved_total"] - a["prefix_tokens_saved_total"]
                 for a, b in zip(m0, m1)],
-            "decode_steps_per_engine": steps,
+            "decode_steps_per_engine": steps, "graph_warmup_steps": k2_steps - sum(steps),
             "launches": launches, "k1_launches_by_route": k1_routes,
             "ticket_counters_zero": tickets_zero,
             "peak_mem_gb": None if cpu else round(peak / 1e9, 3),
@@ -1434,6 +1801,7 @@ def phase_dedup(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
                 "flash_decode": flash_decode_attention.launches}
     dispatches = m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
     steps = m1["decode_steps_total"] - m0["decode_steps_total"]
+    k2_steps = _k2_steps(m1) - _k2_steps(m0)
     prefills = m1["quorum_dedup_prefills_total"] - m0["quorum_dedup_prefills_total"]
     saved = m1["quorum_dedup_tokens_total"] - m0["quorum_dedup_tokens_total"]
     require(prefills >= 1, "members_dedup: no dedup admission was counted")
@@ -1443,8 +1811,8 @@ def phase_dedup(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
         require(launches["flash_prefill"] == n_layers * dispatches
                 and flash_prefill_attention.launches_by_route["wgmma"] == n_layers * dispatches,
                 f"K1 launches {launches['flash_prefill']} != {n_layers} x {dispatches} dispatches")
-        require(launches["flash_decode"] == n_layers * steps,
-                f"K2 launches {launches['flash_decode']} != {n_layers} x {steps}")
+        require(launches["flash_decode"] == n_layers * k2_steps,
+                f"K2 launches {launches['flash_decode']} != {n_layers} x {k2_steps}")
         require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
                 "members_dedup: a kernel of the path was never launched")
     total_mem = None if cpu else torch.cuda.get_device_properties(0).total_memory
@@ -1456,6 +1824,7 @@ def phase_dedup(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
             "app_concat_ttft_member_s": concat["ttft_member_s"],
             "dedup_prefills": prefills, "dedup_tokens_saved": saved,
             "admission_dispatches": dispatches, "decode_steps": steps,
+            "graph_warmup_steps": k2_steps - steps,
             "ttft_all_members_s": readings,
             "dedup_members_equal": checked, "launches": launches,
             "peak_mem_gb": None if cpu else round(peak / 1e9, 3),
@@ -1521,7 +1890,8 @@ def main(argv=None) -> int:
                     help="rehearsal on the CPU with the plain versions (never the default)")
     ap.add_argument("--tiny", action="store_true", help="llama-tiny shapes (rehearsal)")
     ap.add_argument("--phases",
-                    default="device,build,kernels,model,serve,scheduler,fanout,members",
+                    default="device,build,kernels,model,serve,scheduler,decode_graphs,fanout,"
+                            "members",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -1554,6 +1924,8 @@ def main(argv=None) -> int:
                  if "serve" in phases else None)
         scheduler = (phase_scheduler(torch, args.cpu, args.tiny, info)
                      if "scheduler" in phases else None)
+        graphs = (phase_decode_graphs(torch, args.cpu, args.tiny, info)
+                  if "decode_graphs" in phases else None)
         fanout = phase_fanout(torch, args.cpu, args.tiny, info) if "fanout" in phases else None
         members = dedup = None
         if "members" in phases:
@@ -1566,8 +1938,9 @@ def main(argv=None) -> int:
         return 1
     if kernels is not None:
         by_phase = {name: ph["launches"] for name, ph in (
-            ("serve", serve), ("scheduler", scheduler), ("fanout", fanout), ("members", members),
-            ("members_dedup", dedup)) if ph is not None}
+            ("serve", serve), ("scheduler", scheduler), ("decode_graphs", graphs),
+            ("fanout", fanout), ("members", members), ("members_dedup", dedup))
+            if ph is not None}
         rows = []
         for name, src, replaces in (
                 ("flash_prefill", "quorum_tpu_torch/csrc/flash_prefill.cu",
@@ -1582,7 +1955,10 @@ def main(argv=None) -> int:
                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                    "kernel_route": r["route"], "pct_of_bound": r["pct_of_bound"],
-                   "eager_ms": r["eager_ms"], "ok": True}
+                   "eager_ms": r["eager_ms"], "ok": True,
+                   # How the main path issues it: K1 from admission, eagerly;
+                   # K2 from inside every decode dispatch's graph replay.
+                   "issue": "graph" if name == "flash_decode" else "eager"}
             if name == "flash_prefill":
                 row.update(library_masked_ms=r["library_masked_ms"],
                            library_causal_ms=r["library_causal_ms"])

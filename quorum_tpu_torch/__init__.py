@@ -1,4 +1,4 @@
-"""quorum_tpu_torch: the PyTorch + CUDA port of quorum_tpu for NVIDIA Hopper.
+"""quorum_tpu_torch: the PyTorch + CUDA port of ``quorum_tpu``, for NVIDIA Hopper.
 
 The JAX package (``quorum_tpu``) stays the reference; this package serves the
 same OpenAI-compatible chat surface from an in-process model on a CUDA

@@ -18,6 +18,12 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    EOS and budget finishes are detected on the device.
                    Structural: applies when this backend constructs the
                    engine; backends sharing an engine share its depth
+  decode_loop=C    megachunk decode (default 1): one dispatch covers up to C
+                   decode chunks back to back on the card (in [1, 64],
+                   floored to a power of two; clamped per dispatch to 1
+                   under admission pressure and to the power-of-two cover
+                   of the longest remaining budget). Tokens are the same at
+                   any C. Structural like decode_pipeline
   prefill_chunk=   chunked-prefill segment size (default 512, rounded down
                    to a power of two dividing max_seq; 0 = off): prompts
                    longer than this prefill one segment per scheduler turn,
@@ -60,15 +66,25 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    averages the M members' next-token logits in f32 before
                    sampling
 
+Any other option is a ValueError naming it, before an engine is built —
+including the ``tpu://`` options the port does not serve yet (``ckpt=``,
+``kv_quant=``, ``tp=``, …): a typo or an unported knob never builds an
+engine that silently ignores it.
+
+On the card every decode dispatch is one CUDA-graph replay; there is no
+option that turns graphs (or the kernels) off.
+
 Request knobs: messages, max_tokens / max_completion_tokens, temperature,
-top_p, top_k, seed, stop, stream (+ stream_options.include_usage). Knobs the
-port does not serve yet (n > 1, logprobs, penalties, logit_bias,
-response_format, tools) are a 400, never silently ignored.
+top_p, seed, stop, stream (+ stream_options.include_usage); ``top_k`` is
+ignored, as ``tpu://`` ignores it. Knobs the port does not serve yet (n > 1,
+logprobs, penalties, logit_bias, response_format, tools) are a 400, never
+silently ignored.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import math
 import threading
@@ -79,6 +95,7 @@ from quorum_tpu_torch.backends.base import BackendError, CompletionResult, prepa
 from quorum_tpu_torch.config import BackendSpec
 from quorum_tpu_torch.engine.engine import (
     DEFAULT_DECODE_CHUNK,
+    DEFAULT_DECODE_LOOP,
     DEFAULT_DECODE_PIPELINE,
     DEFAULT_MAX_PENDING,
     DEFAULT_PREFILL_CHUNK,
@@ -86,12 +103,38 @@ from quorum_tpu_torch.engine.engine import (
     GenerationResult,
     QueueFullError,
     get_engine,
+    resolve_decode_loop,
 )
 from quorum_tpu_torch.engine.tokenizer import get_tokenizer
-from quorum_tpu_torch.models.model_config import resolve_spec
+from quorum_tpu_torch.models.model_config import ModelSpec, resolve_spec
 from quorum_tpu_torch.ops.sampling import SamplerConfig
 
 logger = logging.getLogger(__name__)
+
+# URL options a cuda:// backend serves, besides the ModelSpec fields.
+_OPTIONS = frozenset({
+    "slots", "decode_chunk", "decode_pipeline", "decode_loop", "prefill_chunk",
+    "prefix_cache", "seed", "device", "queue", "max_tokens", "members", "member",
+    "member_seeds", "quorum_dedup", "ensemble"})
+_SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
+# Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
+# the port does not serve yet.
+_NOT_YET = frozenset({
+    "ckpt", "kv_quant", "quant", "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl",
+    "flash_decode", "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "prefix_store",
+    "prefix_store_bytes", "prefix_store_chunk", "kv_pages", "kv_page_size", "kv_pool_pages",
+    "qos"})
+
+
+def _check_options(opts: dict[str, str]) -> None:
+    """Refuse every URL option outside the port's known set, naming it."""
+    for key in opts:
+        if key in _OPTIONS or key in _SPEC_FIELDS:
+            continue
+        if key in _NOT_YET:
+            raise ValueError(f"cuda:// does not serve the {key}= option yet "
+                             "(the tpu:// backend does)")
+        raise ValueError(f"unknown cuda:// option {key}=")
 
 
 def _invalid_request(message: str) -> BackendError:
@@ -138,15 +181,11 @@ def _request_number(body: dict[str, Any], key: str, default: float) -> float:
 
 
 def _request_sampler(body: dict[str, Any]) -> SamplerConfig:
-    """OpenAI knobs → the on-device sampler (2-decimal quantization of
-    temperature and top_p, as the JAX backend does)."""
-    top_k = body.get("top_k")
-    if top_k is None:
-        top_k = 0
-    if not isinstance(top_k, int) or isinstance(top_k, bool) or top_k < 0:
-        raise _invalid_request(f"Invalid value for 'top_k': {top_k!r}")
+    """OpenAI knobs → the on-device sampler: temperature and top_p with
+    2-decimal quantization, as the JAX backend does. ``top_k`` is not an
+    OpenAI knob and the JAX backend ignores it; so does this one."""
     return SamplerConfig(temperature=round(_request_number(body, "temperature", 1.0), 2),
-                         top_p=round(_request_number(body, "top_p", 1.0), 2), top_k=top_k)
+                         top_p=round(_request_number(body, "top_p", 1.0), 2))
 
 
 def _stop_list(body: dict[str, Any]) -> list[str]:
@@ -219,16 +258,19 @@ class CudaBackend:
     @classmethod
     def from_spec(cls, bspec: BackendSpec) -> "CudaBackend":
         opts = bspec.options
+        _check_options(opts)
         spec = resolve_spec(bspec.model_id, opts)
         members = int(opts.get("members", 1))
         member = int(opts.get("member", 0))
         if not 0 <= member < max(1, members):
             raise ValueError(f"member={member} out of range for members={members}")
+        decode_loop = resolve_decode_loop(int(opts.get("decode_loop", DEFAULT_DECODE_LOOP)))
         engine = get_engine(
             spec, device=opts.get("device"), seed=int(opts.get("seed", 0)),
             n_slots=int(opts.get("slots", DEFAULT_SLOTS)),
             decode_chunk=int(opts.get("decode_chunk", DEFAULT_DECODE_CHUNK)),
             decode_pipeline=int(opts.get("decode_pipeline", DEFAULT_DECODE_PIPELINE)),
+            decode_loop=decode_loop,
             prefill_chunk=int(opts.get("prefill_chunk", DEFAULT_PREFILL_CHUNK)),
             prefix_cache=_parse_bool_opt("prefix_cache", opts.get("prefix_cache", "1")),
             max_pending=int(opts.get("queue", DEFAULT_MAX_PENDING)),

@@ -25,32 +25,43 @@ concurrently. Each scheduler turn:
      reused prefix. After the last segment the row registers — token = the
      last prompt token, length = len−1, the full budget — and the next
      decode chunk samples its first token;
-  4. **fills the decode ring**: up to ``decode_pipeline`` chunks of
-     ``decode_chunk`` steps (attention through kernel K2, finish accounting
-     on the device) stay in flight, each dispatched before the host blocks
-     on the one before it, each copying its tokens and per-row valid counts
-     into a pinned host buffer behind a CUDA event. The ring runs at depth
-     1 while an admission is in progress or could start (a chunk ahead
-     would delay it), and dispatches ahead only while some row's budget
-     reaches past the chunks already in flight;
-  5. **reaps** the oldest chunk (blocking on its event) and delivers its
-     tokens, then every later chunk that has already landed.
+  4. **fills the decode ring**: up to ``decode_pipeline`` dispatches stay
+     in flight, each dispatched before the host blocks on the one before
+     it. A dispatch is one chunk of ``decode_chunk`` steps, or with
+     ``decode_loop=C`` up to C chunks back to back (``_effective_loop``:
+     one under admission pressure, else the power-of-two cover of the
+     longest remaining budget), with attention through kernel K2 and finish
+     accounting on the device. On the card a dispatch is ONE replay of a
+     CUDA graph captured per (steps, chunks, top-k/top-p) key
+     (``engine/graphs.py``); on the CPU the same program runs eagerly. Each
+     copies its tokens and per-chunk valid counts into a pinned host buffer
+     behind a CUDA event. The ring runs at depth 1 while an admission is in
+     progress or could start (a chunk ahead would delay it), and
+     dispatches ahead only while some row's budget reaches past the steps
+     already in flight, and only onto a key already captured;
+  5. **reaps** the oldest dispatch (blocking on its event) and delivers its
+     tokens chunk by chunk, then every later dispatch that has already
+     landed.
 
-Device state (tokens, lengths, live flags, budgets) is chained at dispatch
-and stream order does the rest: a chunk dispatched before its predecessor
-is read decodes from the right state, and an admission's cache writes land
-after every chunk dispatched before them. On the CPU every call is
-synchronous; the ring's bookkeeping (planned lengths, overrun, the clamp)
-runs all the same. Tokens do not depend on the ring depth, the segment size
-or prefix reuse.
+All device work of an engine runs on its scheduler thread, on the
+engine's own stream on the card. Device state (tokens, lengths, live flags,
+budgets) lives in fixed tensors that every dispatch and admission updates
+in place — a graph reads the addresses it was captured with — and stream
+order does the rest: a chunk dispatched before its predecessor is read
+decodes from the right state, and an admission's cache writes land after
+every chunk dispatched before them. On the CPU every call is synchronous;
+the ring's bookkeeping (planned lengths, overrun, the clamps) runs all the
+same. Tokens do not depend on the ring depth, ``decode_loop``, the segment
+size or prefix reuse.
 
 Sampling noise comes from one ``torch.Generator`` per request, on the
-device, seeded with the request's seed. The j-th token of a request takes
-the j-th draw on both admission routes (a registered row draws nothing
-until its first decode step), so a request's tokens are a pure function of
-(weights, prompt, sampler, seed), whatever it is co-batched with.
-Penalties, grammars, logprobs, megachunk decode and the host prefix store
-are not ported yet.
+device, seeded with the request's seed. A dispatch draws its noise ahead,
+one draw per step per sampling row into a static buffer, in step order.
+The j-th token of a request takes the j-th draw on both admission routes
+(a registered row draws nothing until its first decode step), so a
+request's tokens are a pure function of (weights, prompt, sampler, seed),
+whatever it is co-batched with. Penalties, grammars, logprobs, the
+deadline clamp and the host prefix store are not ported yet.
 
 Stacked engines (the JAX engine's ``members`` / ``ensemble`` knobs) hold M
 weight sets in one member-stacked tree (``models/init.py``) and a cache of
@@ -92,10 +103,12 @@ from typing import Iterator
 import torch
 
 from quorum_tpu_torch import resolve_device
+from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.init import init_params, init_params_stacked
 from quorum_tpu_torch.models.model_config import ModelSpec
-from quorum_tpu_torch.models.transformer import (decode_chunk, host_to_device, init_cache,
-                                                 member_params, prefill, prefill_segment)
+from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, host_to_device,
+                                                 init_cache, member_params, prefill,
+                                                 prefill_segment)
 from quorum_tpu_torch.ops.sampling import SamplerConfig, gumbel_noise, sample_token_rows
 
 logger = logging.getLogger(__name__)
@@ -107,8 +120,13 @@ DEFAULT_DECODE_CHUNK = 8
 # Chunked prefill: prompts longer than this prefill one segment per
 # scheduler turn, with decode chunks in between.
 DEFAULT_PREFILL_CHUNK = 512
-# Decode chunks kept in flight; the host blocks only on the oldest.
+# Decode dispatches kept in flight; the host blocks only on the oldest.
 DEFAULT_DECODE_PIPELINE = 2
+# Megachunk decode: chunks one dispatch may cover (decode_loop=C; 1 = one
+# chunk per dispatch). Bounded so one dispatch cannot hold the card for
+# seconds; floored to a power of two, since every per-dispatch clamp halves.
+DEFAULT_DECODE_LOOP = 1
+MAX_DECODE_LOOP = 64
 # Prefix reuse below this many tokens is not worth a chunked admission.
 MIN_PREFIX_REUSE = 16
 
@@ -123,6 +141,14 @@ def prefill_bucket(n: int, max_seq: int) -> int:
     while b < n:
         b <<= 1
     return min(b, max_seq)
+
+
+def resolve_decode_loop(decode_loop: int) -> int:
+    """``decode_loop`` as an engine runs it: in [1, MAX_DECODE_LOOP] or a
+    ValueError, floored to a power of two."""
+    if not 1 <= int(decode_loop) <= MAX_DECODE_LOOP:
+        raise ValueError(f"decode_loop={decode_loop} out of range [1, {MAX_DECODE_LOOP}]")
+    return 1 << (int(decode_loop).bit_length() - 1)
 
 
 def aligned_prefill_chunk(prefill_chunk: int, max_seq: int) -> int:
@@ -188,19 +214,26 @@ class _Admission:
 
 
 class _InflightChunk:
-    """One dispatched, not yet read decode chunk. ``host`` receives the
-    chunk's ``[rows, n_steps + 1]`` tokens and valid counts (a pinned buffer
-    on the card, returned to the pool only after the reap); ``event`` marks
-    the copy's completion on the stream (None on the CPU, where the copy
-    has happened). ``active`` holds the (row, request) pairs dispatched."""
+    """One dispatched, not yet read decode dispatch of ``n_chunks`` chunks.
+    ``host`` receives its ``[n_chunks, rows, n_steps + 1]`` tokens and
+    per-chunk valid counts (a pinned buffer on the card, returned to the
+    pool only after the reap); ``event`` marks the copy's completion on the
+    stream (None on the CPU, where the copy has happened). ``active`` holds
+    the (row, request) pairs dispatched."""
 
-    __slots__ = ("active", "n_steps", "host", "event")
+    __slots__ = ("active", "n_steps", "n_chunks", "host", "event")
 
-    def __init__(self, active, n_steps, host, event):
+    def __init__(self, active, n_steps, n_chunks, host, event):
         self.active = active
         self.n_steps = n_steps
+        self.n_chunks = n_chunks
         self.host = host
         self.event = event
+
+    @property
+    def tokens_ahead(self) -> int:
+        """Upper bound on the tokens this dispatch can produce per row."""
+        return self.n_steps * self.n_chunks
 
     def ready(self) -> bool:
         """True once the chunk's tokens are on the host (a non-blocking probe)."""
@@ -222,6 +255,7 @@ class InferenceEngine:
         seed: int = 0,
         decode_chunk: int = DEFAULT_DECODE_CHUNK,
         decode_pipeline: int = DEFAULT_DECODE_PIPELINE,
+        decode_loop: int = DEFAULT_DECODE_LOOP,
         prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
         prefix_cache: bool = True,
         params=None,
@@ -254,6 +288,7 @@ class InferenceEngine:
         self.params = params
         self.decode_chunk = max(1, int(decode_chunk))
         self.decode_pipeline = max(1, int(decode_pipeline))
+        self.decode_loop = resolve_decode_loop(decode_loop)
         self.prefill_chunk = aligned_prefill_chunk(int(prefill_chunk), spec.max_seq)
         # Reuse rides the segment path (the suffix prefills at an offset).
         self.prefix_cache = bool(prefix_cache) and self.prefill_chunk > 0
@@ -266,8 +301,13 @@ class InferenceEngine:
         # slot per weight set.
         self._rows = self.members * self.n_slots
         self._ck, self._cv = init_cache(spec, stack * self.n_slots, device=self.device)
-        # Per-row decode state, device-resident between chunks.
+        # Per-row decode state, device-resident between chunks, and the
+        # static inputs of a decode dispatch (its active rows, its noise
+        # drawn ahead). Updated in place only: graphs read these addresses.
         s, dev = self._rows, self.device
+        self._mask = torch.zeros((s,), dtype=torch.bool, device=dev)
+        self._step_noise = torch.zeros((self.decode_chunk * self.decode_loop, s, spec.vocab_size),
+                                       dtype=torch.float32, device=dev)
         self._token = torch.zeros((s,), dtype=torch.long, device=dev)
         self._lengths = torch.zeros((s,), dtype=torch.int32, device=dev)
         self._live = torch.zeros((s,), dtype=torch.bool, device=dev)
@@ -307,10 +347,19 @@ class InferenceEngine:
         self.n_decode_steps = 0
         self.n_decode_rows = 0
         self.n_overlapped = 0  # chunks dispatched ahead of the read
+        self.n_loop_chunks = 0  # chunks of dispatches that had a live row
+        self.n_graph_warmup_steps = 0  # eager decode steps run before the first capture
         self.n_overrun = 0
         self.admission_stall_s = 0.0  # wall time the ring spent clamped for admissions
         self._clamp_t0: float | None = None
         self.drain_gap_s = 0.0  # host time from a chunk's tokens landing to delivery
+        # On the card: the engine's own stream (after the set-up above) and
+        # its decode graphs.
+        self._stream = self._graphs = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._graphs = DecodeGraphs(self.device, self._stream)
         self._thread = threading.Thread(target=self._scheduler, daemon=True,
                                         name="quorum-torch-scheduler")
         self._thread.start()
@@ -398,7 +447,11 @@ class InferenceEngine:
         return out
 
     def metrics(self) -> dict:
-        """Scheduler/capacity counters (the JAX engine's names)."""
+        """Scheduler/capacity counters (the JAX engine's names; the
+        ``decode_graph_*`` ones are the port's: captures, their seconds,
+        replays, the graphs' pool bytes and the eager warm-up steps, all 0
+        on the CPU)."""
+        g = self._graphs
         with self._cond:
             return {
                 "slots": self._rows,
@@ -426,6 +479,13 @@ class InferenceEngine:
                 "overlapped_chunks_total": self.n_overlapped,
                 "overrun_tokens_total": self.n_overrun,
                 "decode_pipeline": self.decode_pipeline,
+                "decode_loop": self.decode_loop,
+                "decode_loop_chunks_total": self.n_loop_chunks,
+                "decode_graph_captures_total": g.captures if g else 0,
+                "decode_graph_capture_seconds_total": round(g.capture_seconds, 6) if g else 0.0,
+                "decode_graph_replays_total": g.replays if g else 0,
+                "decode_graph_pool_bytes": g.pool_bytes if g else 0,
+                "decode_graph_warmup_steps_total": self.n_graph_warmup_steps,
                 "prefill_chunk": self.prefill_chunk,
                 "inflight_chunks": len(self._inflight),
                 "admission_stall_seconds_total": round(self.admission_stall_s, 6),
@@ -456,6 +516,9 @@ class InferenceEngine:
         self._thread.join(timeout=timeout)
         if self._thread.is_alive():
             return  # a device call is still running; the GC reclaims state later
+        if self._stream is not None:
+            self._stream.synchronize()  # nothing of ours may still read what we free
+            self._graphs.clear()
         self.params = None
         self._ck = self._cv = None
         self._host_pool.clear()
@@ -464,9 +527,12 @@ class InferenceEngine:
 
     def _scheduler(self) -> None:
         try:
-            if self.device.type == "cuda":
+            if self._stream is None:
+                self._schedule_forever()
+            else:
                 torch.cuda.set_device(self.device)
-            self._schedule_forever()
+                with torch.cuda.stream(self._stream):
+                    self._schedule_forever()
         except BaseException as e:
             # The thread is going away: no request may wait on it forever.
             logger.exception("engine scheduler thread died")
@@ -958,8 +1024,9 @@ class InferenceEngine:
         """Accumulate the wall time the ring spends clamped to depth 1 for an
         admission (``admission_stall_seconds_total``): only the span between
         consecutive clamped observations counts, so an idle gap never reads
-        as stall. An engine at depth 1 records nothing."""
-        if self.decode_pipeline <= 1:
+        as stall. An engine whose ring cannot clamp (depth 1 and
+        ``decode_loop=1``) records nothing."""
+        if self.decode_pipeline <= 1 and self.decode_loop <= 1:
             return
         now = time.monotonic()
         if clamped and self._clamp_t0 is not None:
@@ -974,45 +1041,132 @@ class InferenceEngine:
                 return
             depth = len(self._inflight)
             # Steps already in flight: an upper bound on how far rows get
-            # before this chunk runs (rows that finish on device stop short).
-            ahead = sum(c.n_steps for c in self._inflight)
+            # before this dispatch runs (rows that finish on device stop short).
+            ahead = sum(c.tokens_ahead for c in self._inflight)
             if depth > 0 and not any(r.budget - r.emitted > ahead for _, r in active):
-                return  # no row could still be decoding in a chunk dispatched now
+                return  # no row could still be decoding in a dispatch issued now
+            if (depth > 0 and self._graphs is not None
+                    and self._dispatch_key(active) not in self._graphs):
+                # Only dispatch ahead onto a captured graph: a capture would
+                # hold back the delivery of the chunks already computed.
+                return
             self._inflight.append(self._dispatch_chunk(active))
             if depth > 0:
                 self.n_overlapped += 1
 
-    def _dispatch_chunk(self, active: list[tuple[int, _Request]]) -> _InflightChunk:
-        """Issue one batched decode chunk over ``active`` and the copy of its
-        tokens to the host, without waiting for either."""
+    def _dispatch_key(self, active) -> tuple[int, int, bool]:
+        """(steps per chunk, chunks, top-k/top-p sort) of the dispatch
+        ``active`` would get now: the graph key."""
         n_steps = max(1, min(r.chunk_hint or self.decode_chunk for _, r in active))
+        ahead = sum(c.tokens_ahead for c in self._inflight)
+        restrict = any(r.sampler.restricts and not r.sampler.greedy for _, r in active)
+        return n_steps, self._effective_loop(active, n_steps, ahead), restrict
+
+    def _effective_loop(self, active, n_steps: int, ahead: int) -> int:
+        """Chunks THIS dispatch may cover (1..``decode_loop``), clamped so
+        the fusion never costs what it saves (the JAX engine's clamps, but
+        the deadline one, which waits for per-request deadlines):
+
+        - **admission pressure** → 1: an admission waits for the ring to
+          drain, and a C-chunk dispatch in it would stretch that wait C×;
+        - **remaining budgets**: no more chunks than the longest still-live
+          row can fill past the steps already in flight, rounded up to a
+          power of two (log-many graph keys, not one per tail length)."""
+        c = self.decode_loop
+        if c <= 1 or not active:
+            return 1
+        with self._cond:
+            if self._admission_pressure():
+                return 1
+        rem = max(r.budget - r.emitted - ahead for _, r in active)
+        if rem <= 0:
+            return 1
+        need = -(-rem // n_steps)
+        cap = 1
+        while cap < need:
+            cap <<= 1
+        return min(c, cap)
+
+    def _step_noise_for(self, n_draws: int) -> torch.Tensor:
+        """The static noise buffer, grown (and every graph that read the old
+        one dropped) when a dispatch needs more steps than it holds."""
+        if self._step_noise.shape[0] < n_draws:
+            if self._graphs is not None:
+                self._stream.synchronize()  # no dispatch in flight reads the old buffer
+                self._graphs.clear()
+            self._step_noise = torch.zeros((n_draws, *self._step_noise.shape[1:]),
+                                           dtype=torch.float32, device=self.device)
+        return self._step_noise
+
+    def _decode_program(self, n_steps: int, n_chunks: int, restrict: bool) -> torch.Tensor:
+        """One decode dispatch over the rows set in ``_mask``: ``decode_chunk``
+        for one chunk, ``decode_loop`` for more. Reads the noise drawn ahead
+        (draw k of the dispatch at ``_step_noise[k]``), updates the per-row
+        state in place and returns ``[n_chunks, rows, n_steps + 1]`` int64:
+        each chunk's tokens, then each row's valid count. The card captures
+        it once per key and replays it; nothing in it syncs the host."""
+        noise = self._step_noise
+
+        def sample_fn(logits, live, k):
+            nxt = sample_token_rows(logits, self._temp, self._topp, self._topk, noise[k],
+                                    restrict=restrict)
+            return nxt, k + 1, ()
+
+        # Inactive slots run the forward (the batch is static) but their K/V
+        # write is masked off; rows that finished on device stay dead.
+        live0 = self._mask & self._live & (self._budget > 0)
+        args = (self._token, self._lengths, live0, self._budget, self._eos, self._ck, self._cv,
+                sample_fn, 0)
+        if n_chunks == 1:
+            toks, _, n_valid, live, budget, _, _, lengths, _, _ = decode_chunk(
+                self.params, self.spec, n_steps, *args, ensemble=self.ensemble)
+            toks, n_valid, token = toks[None], n_valid[None], toks[:, -1]
+        else:
+            toks, n_valid, token, live, budget, _, _, lengths, _, _ = decode_loop(
+                self.params, self.spec, n_steps, n_chunks, *args, ensemble=self.ensemble)
+        # Rows outside this dispatch's active set keep their state.
+        self._live.copy_(torch.where(self._mask, live, self._live))
+        self._token.copy_(torch.where(self._mask, token, self._token))
+        self._budget.copy_(budget)
+        self._lengths.copy_(lengths)
+        return torch.cat([toks, n_valid[..., None].to(toks.dtype)], dim=-1)
+
+    def _warm_up(self) -> None:
+        """One eager decode step with no row active (every write masked, no
+        state changed), on the capture stream, before the first capture: it
+        makes the lazy state a graph must not allocate (K2's scratch for the
+        stream, RoPE tables, cuBLAS's workspace). It launches K2 once per
+        layer (``decode_graph_warmup_steps_total``)."""
+        mask = self._mask.clone()
+        self._mask.zero_()
+        self._decode_program(1, 1, True)
+        self._mask.copy_(mask)
+        self.n_graph_warmup_steps += 1
+
+    def _dispatch_chunk(self, active: list[tuple[int, _Request]]) -> _InflightChunk:
+        """Issue one decode dispatch over ``active`` and the copy of its
+        tokens to the host, without waiting for either: one graph replay on
+        the card."""
+        key = self._dispatch_key(active)
+        n_steps, n_chunks, _ = key
         flags = [False] * self._rows
         for i, _ in active:
             flags[i] = True
-        mask = host_to_device(flags, torch.bool, self.device)
-        # Inactive slots run the forward (the batch is static) but their K/V
-        # write is masked off; rows that finished on device stay dead.
-        live0 = mask & self._live & (self._budget > 0)
-        sampling = [(i, r) for i, r in active if not r.sampler.greedy]
-        restrict = any(r.sampler.restricts for _, r in sampling)
+        host_to_device(flags, torch.bool, self.device, out=self._mask)
+        noise = self._step_noise_for(n_steps * n_chunks)
         vocab = self.spec.vocab_size
-
-        def sample_fn(logits, live, carry):
+        sampling = [(i, r) for i, r in active if not r.sampler.greedy]
+        for k in range(n_steps * n_chunks):
             for i, r in sampling:  # one draw per step from each sampling row's stream
-                gumbel_noise(vocab, r.generator, out=self._noise[i])
-            nxt = sample_token_rows(logits, self._temp, self._topp, self._topk, self._noise,
-                                    restrict=restrict)
-            return nxt, carry, ()
-
-        (toks, _valid, n_valid, live_end, self._budget, _, _, self._lengths, _, _) = decode_chunk(
-            self.params, self.spec, n_steps, self._token, self._lengths, live0, self._budget,
-            self._eos, self._ck, self._cv, sample_fn, None, ensemble=self.ensemble)
-        # Rows outside this chunk's active set keep their state.
-        self._live = torch.where(mask, live_end, self._live)
-        self._token = torch.where(mask, toks[:, -1], self._token)
-        out = torch.cat([toks, n_valid[:, None].to(toks.dtype)], dim=1)
+                gumbel_noise(vocab, r.generator, out=noise[k, i])
+        if self._graphs is None:
+            out = self._decode_program(*key)
+        else:
+            out = self._graphs.replay(key, lambda: self._decode_program(*key), self._warm_up)
         host, event = out, None
         if self.device.type == "cuda":
+            # Enqueued right after the replay: the next dispatch's replay
+            # rewrites ``out`` only after this copy has read it.
             pool = self._host_pool.setdefault(tuple(out.shape), [])
             host = pool.pop() if pool else torch.empty(out.shape, dtype=out.dtype,
                                                        pin_memory=True)
@@ -1020,9 +1174,9 @@ class InferenceEngine:
             event = torch.cuda.Event()
             event.record()
         self.n_decode_chunks += 1
-        self.n_decode_steps += n_steps
+        self.n_decode_steps += n_steps * n_chunks
         self.n_decode_rows += len(active)
-        return _InflightChunk(active, n_steps, host, event)
+        return _InflightChunk(active, n_steps, n_chunks, host, event)
 
     def _reap_oldest(self) -> None:
         """Block on the oldest chunk in flight and deliver its tokens."""
@@ -1041,28 +1195,35 @@ class InferenceEngine:
             self._reap_oldest()
 
     def _emit_chunk(self, c: _InflightChunk) -> set[int]:
-        """Deliver one chunk's tokens: row i's on-device valid count bounds
-        its delivery. Tokens for a row released (or re-admitted) while the
-        chunk was in flight, or past a host-side finish, count as overrun.
-        Returns the rows that finished in this chunk."""
+        """Deliver one dispatch's tokens, its chunks in order: row i's
+        on-device valid count in each chunk bounds its delivery there (a row
+        that finished in chunk 0 produced nothing in chunk 1). Tokens for a
+        row released (or re-admitted) while the dispatch was in flight, or
+        past a host-side finish in an earlier chunk or step, count as
+        overrun. Chunks with a live row count into
+        ``decode_loop_chunks_total``. Returns the rows that finished."""
         c.wait()
         host = c.host.tolist()
         t_fetch = time.perf_counter()
         done: set[int] = set()
-        for i, req in c.active:
-            k = host[i][c.n_steps]
-            if not k:
-                continue
-            if self._slots[i] is not req:
-                self.n_overrun += k
-                continue
-            got = 0
-            for j in range(k):
-                got += 1
-                if self._emit(req, host[i][j]):
-                    done.add(i)
-                    break
-            self.n_overrun += k - got
+        for seg in host:
+            if not any(row[c.n_steps] for row in seg):
+                continue  # no row entered this chunk (JAX's skipped chunk)
+            self.n_loop_chunks += 1
+            for i, req in c.active:
+                k = seg[i][c.n_steps]
+                if not k:
+                    continue
+                if self._slots[i] is not req or i in done:
+                    self.n_overrun += k
+                    continue
+                got = 0
+                for j in range(k):
+                    got += 1
+                    if self._emit(req, seg[i][j]):
+                        done.add(i)
+                        break
+                self.n_overrun += k - got
         self.drain_gap_s += time.perf_counter() - t_fetch
         return done
 
@@ -1146,6 +1307,7 @@ def get_engine(
     n_slots: int = DEFAULT_SLOTS,
     decode_chunk: int = DEFAULT_DECODE_CHUNK,
     decode_pipeline: int = DEFAULT_DECODE_PIPELINE,
+    decode_loop: int = DEFAULT_DECODE_LOOP,
     prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
     prefix_cache: bool = True,
     max_pending: int = DEFAULT_MAX_PENDING,
@@ -1159,8 +1321,8 @@ def get_engine(
     is structural: backends that differ only in dispatch knobs share one set
     of weights, so ``members=M&member=i`` backends share one engine and a
     dedup URL never shares a non-dedup engine. ``n_slots``,
-    ``max_pending``, ``decode_pipeline`` and ``prefill_chunk`` apply at first
-    construction. ``prefix_cache`` is not structural: a ``prefix_cache=0``
+    ``max_pending``, ``decode_pipeline``, ``decode_loop`` and
+    ``prefill_chunk`` apply at first construction. ``prefix_cache`` is not structural: a ``prefix_cache=0``
     from ANY backend turns reuse off on the shared engine (an explicit
     opt-out wins over a sharing default). ``device`` defaults to cuda and
     raises when there is none."""
@@ -1173,7 +1335,8 @@ def get_engine(
         if eng is None:
             eng = _ENGINES[key] = InferenceEngine(
                 spec, device=dev, seed=seed, n_slots=n_slots, decode_chunk=decode_chunk,
-                decode_pipeline=decode_pipeline, prefill_chunk=prefill_chunk,
+                decode_pipeline=decode_pipeline, decode_loop=decode_loop,
+                prefill_chunk=prefill_chunk,
                 prefix_cache=prefix_cache, max_pending=max_pending, members=members,
                 member_seeds=member_seeds, quorum_dedup=quorum_dedup, ensemble=ensemble)
         else:

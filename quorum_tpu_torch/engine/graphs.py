@@ -1,0 +1,104 @@
+"""CUDA graphs of an engine's decode dispatches: the port's counterpart of
+the JAX engine's compiled-program cache.
+
+The JAX engine jits one program per decode key (``_decode_fn``) and issues
+a decode chunk — or, with ``decode_loop=C``, C chunks — as one call of it.
+The port's decode program is Python that issues ≈ 40 kernels per layer per
+step. :class:`DecodeGraphs` captures it once per key into a
+``torch.cuda.CUDAGraph`` and issues every later dispatch of that key as one
+replay, so a dispatch costs the host one launch instead of thousands.
+
+What the program must keep, which the engine's decode path does:
+
+- It reads and writes fixed tensors: the engine's per-row state, the KV
+  cache, the weights and the static dispatch inputs (the active mask and the
+  noise drawn ahead), all updated in place. It returns one tensor, which is
+  the graph's static output: read it (or copy it, on the stream) after a
+  replay and before the next one.
+- Nothing in it reads a device value on the host, makes a tensor from host
+  data or allocates pinned memory.
+- Lazy state exists before the first capture: K2's scratch and ticket
+  counters for the stream, the RoPE tables, cuBLAS's workspace. The first
+  capture of a :class:`DecodeGraphs` runs the engine's ``warm_up`` eagerly
+  on the capture stream first.
+
+An engine captures and replays on its own stream, so the K2 scratch its
+graphs hold is its own. Captures run in ``thread_local`` mode (another
+engine's scheduler thread may allocate pinned memory or wait on an event
+meanwhile) under one lock for the process. All of an engine's graphs share
+one memory pool: they replay one at a time, in stream order. K2 launches
+made inside a capture are counted per graph and added to
+``flash_decode_attention.launches`` at every replay.
+
+There is no eager path on the card and no switch: a capture that fails
+raises, and the engine fails its requests.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable
+
+import torch
+
+from quorum_tpu_torch.ops.flash_decode import add_launches, captured_launches, capturing
+
+_CAPTURE_LOCK = threading.Lock()
+
+
+class DecodeGraphs:
+    """One captured graph per program key on one engine's ``stream``."""
+
+    def __init__(self, device: torch.device, stream: torch.cuda.Stream):
+        self.device = device
+        self.stream = stream
+        self.pool = torch.cuda.graph_pool_handle()
+        self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, torch.Tensor, int]] = {}
+        self._warm = False
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.replays = 0
+        self.pool_bytes = 0
+
+    def __contains__(self, key: tuple) -> bool:
+        return key in self._graphs
+
+    def replay(self, key: tuple, program: Callable[[], torch.Tensor],
+               warm_up: Callable[[], None]) -> torch.Tensor:
+        """Replay ``key``'s graph on the current stream (the engine's),
+        capturing ``program`` first if this key has none; returns the
+        graph's static output."""
+        entry = self._graphs.get(key)
+        if entry is None:
+            if not self._warm:
+                warm_up()
+                self._warm = True
+            entry = self._graphs[key] = self._capture(program)
+        graph, out, k2_launches = entry
+        graph.replay()
+        add_launches(k2_launches)
+        self.replays += 1
+        return out
+
+    def _capture(self, program):
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            n0 = captured_launches()
+            graph = torch.cuda.CUDAGraph()
+            with capturing(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                               capture_error_mode="thread_local"):
+                out = program()
+            self.captures += 1
+            self.capture_seconds += time.perf_counter() - t0
+            self.pool_bytes = sum(
+                seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
+            return graph, out, captured_launches() - n0
+
+    def clear(self) -> None:
+        """Drop every graph. Their pool goes with the last one, so later
+        captures start a new pool."""
+        self._graphs.clear()
+        self.pool = torch.cuda.graph_pool_handle()
+        self.pool_bytes = 0

@@ -51,14 +51,34 @@ from quorum_tpu_torch.ops.rotary import apply_rope, rope_cos_sin_for
 Params = dict
 
 _ROPE_TABLES: dict = {}
+_CONSTS: dict = {}
+
+
+def _made(tensors, device):
+    """A cached tensor made on a card is read on other streams (one per
+    engine) and inside graph captures: wait here until its kernels ran."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return tensors
 
 
 def _rope(spec: ModelSpec, device) -> tuple[torch.Tensor, torch.Tensor]:
     key = (spec, str(device))
     tabs = _ROPE_TABLES.get(key)
     if tabs is None:
-        tabs = _ROPE_TABLES[key] = rope_cos_sin_for(spec, device)
+        tabs = _ROPE_TABLES[key] = _made(rope_cos_sin_for(spec, device), device)
     return tabs
+
+
+def _const(value: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """A scalar of ``dtype`` on ``device``, made once: a fresh
+    ``torch.tensor`` would be a host-to-device copy, which a graph capture
+    refuses."""
+    key = (value, dtype, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = _made(torch.tensor(value, dtype=dtype, device=device), device)
+    return t
 
 
 def _dtype(spec: ModelSpec) -> torch.dtype:
@@ -85,7 +105,8 @@ def _member_rows(n_members: int, n_rows: int, device) -> torch.Tensor:
     key = (n_members, n_rows, str(device))
     idx = _MEMBER_ROWS.get(key)
     if idx is None:
-        idx = _MEMBER_ROWS[key] = torch.arange(n_rows, device=device) // (n_rows // n_members)
+        idx = _MEMBER_ROWS[key] = _made(
+            torch.arange(n_rows, device=device) // (n_rows // n_members), device)
     return idx
 
 
@@ -115,7 +136,7 @@ def _norm(x, w, b, spec: ModelSpec):
     if spec.norm == "rmsnorm":
         # gemma stores norm weights as w with the model applying (1 + w).
         if spec.norm_offset:
-            w = w + torch.tensor(spec.norm_offset, dtype=w.dtype, device=w.device)
+            w = w + _const(spec.norm_offset, w.dtype, w.device)
         return _per_member(x, w, lambda xs, ws: rmsnorm(xs, ws, spec.norm_eps))
     y = _per_member(x, w, lambda xs, ws: layernorm(xs, ws, None, spec.norm_eps))
     return y if b is None else _add(y, b)
@@ -166,7 +187,7 @@ def _attn_out(attn, block, x_dtype):
 
 def _scale_emb(x, spec: ModelSpec):
     if spec.emb_scale != 1.0:  # gemma scales embeddings by sqrt(d_model)
-        x = x * torch.tensor(spec.emb_scale, dtype=x.dtype, device=x.device)
+        x = x * _const(spec.emb_scale, x.dtype, x.device)
     return x
 
 
@@ -267,12 +288,16 @@ def prefill(
     return _unembed(params, spec, last), cache_k, cache_v
 
 
-def host_to_device(values, dtype: torch.dtype, device) -> torch.Tensor:
+def host_to_device(values, dtype: torch.dtype, device,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """A host list as a tensor on ``device`` without a stream sync: on the
     card it goes through pinned memory with a non-blocking copy (a pageable
-    copy would wait for every chunk the scheduler has in flight)."""
+    copy would wait for every chunk the scheduler has in flight). With
+    ``out``, the values land in that tensor instead of a new one."""
     device = torch.device(device)
     host = torch.tensor(values, dtype=dtype, pin_memory=device.type == "cuda")
+    if out is not None:
+        return out.copy_(host, non_blocking=True)
     return host.to(device, non_blocking=True)
 
 
@@ -484,6 +509,57 @@ def decode_chunk(
     n_valid = valid.to(torch.int32).sum(dim=1)
     aux = tuple(torch.stack(col) for col in zip(*auxs)) if auxs and auxs[0] else ()
     return (tokens, valid, n_valid, lv, bud, cache_k, cache_v, lens, sample_carry, aux)
+
+
+def decode_loop(
+    params: Params,
+    spec: ModelSpec,
+    n_steps: int,
+    n_chunks: int,
+    token: torch.Tensor,    # [B] current token ids
+    lengths: torch.Tensor,  # [B] tokens already in the cache per row
+    live: torch.Tensor,     # [B] bool: rows decoding in this dispatch
+    budget: torch.Tensor,   # [B] int32: tokens each row may still produce
+    eos: torch.Tensor,      # [B] int32: per-row EOS id (-1 = none)
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    sample_fn,
+    sample_carry,
+    plain_attention: bool = False,
+    ensemble: int = 1,
+):
+    """Megachunk decode: ``n_chunks`` :func:`decode_chunk` bodies back to
+    back in one dispatch (the JAX package's ``decode_loop``; the engine
+    captures it into one CUDA graph on the card), chaining each chunk's
+    finish state, lengths and last token into the next.
+
+    A chunk that no row enters live is JAX's ``skip_chunk``: its tokens and
+    valid counts are zeros and the carry passes through unchanged. Here it
+    still runs, with every cache write masked — a forward over rows that
+    are all dead leaves tokens, lengths, budgets and caches as they were —
+    and its outputs are selected to zeros on the device, so no step reads
+    ``live`` back to the host. ``n_chunks == 1`` is not special-cased: the
+    engine calls :func:`decode_chunk` itself for one chunk.
+
+    Returns ``(toks [n_chunks, B, n_steps], n_valid [n_chunks, B], token
+    [B], live, budget, cache_k, cache_v, lengths, sample_carry, aux)``;
+    every ``aux`` leaf gains a leading ``n_chunks`` axis."""
+    tok, lens, lv, bud = token, lengths, live, budget
+    toks_all, valid_all, auxs = [], [], []
+    for _ in range(n_chunks):
+        entered = lv.any()
+        (toks, _valid, n_valid, lv, bud, cache_k, cache_v, lens, sample_carry,
+         aux) = decode_chunk(params, spec, n_steps, tok, lens, lv, bud, eos, cache_k, cache_v,
+                             sample_fn, sample_carry, plain_attention=plain_attention,
+                             ensemble=ensemble)
+        # toks[:, -1] IS the carried token (dead rows freeze theirs).
+        tok = toks[:, -1]
+        toks_all.append(torch.where(entered, toks, torch.zeros_like(toks)))
+        valid_all.append(n_valid)  # 0 for every row of a chunk no row entered
+        auxs.append(tuple(torch.where(entered, a, torch.zeros_like(a)) for a in aux))
+    aux = tuple(torch.stack(col) for col in zip(*auxs)) if auxs and auxs[0] else ()
+    return (torch.stack(toks_all), torch.stack(valid_all), tok, lv, bud, cache_k, cache_v, lens,
+            sample_carry, aux)
 
 
 def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor) -> torch.Tensor:

@@ -28,9 +28,11 @@ engine (``members=3``, seeds 0, 1, 2 — the ``members`` phase of
 Per variant: every stream's decode rate (tokens after the first over the
 first-to-last span), the wall time, and the decode steps the engines ran.
 The variants of each deployment run ``--reps`` times in turns (1 2 … n n …
-2 1). Then ``engines_3``, ``alone`` and ``stacked_3`` once more under
-``torch.profiler``: the card's busy share of the wall time. One JSON line per
-reading, the card's name and power limit first. Imports nothing of JAX.
+2 1). Then ``engines_3``, ``alone``, ``batched_3`` and ``stacked_3`` once
+more under ``torch.profiler``: the card's busy share of the wall time. Each
+engine issues its decode dispatches as CUDA-graph replays (its first
+requests capture them). One JSON line per reading, the card's name and
+power limit first. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -173,7 +175,7 @@ def main(argv=None) -> int:
             out = busy_share(torch, lambda name=name: variant(name))
             print(json.dumps({"profiled": name, **out, "card": smi}), flush=True)
 
-    sweep(PLANS, "engines_3", ("engines_3", "alone"))
+    sweep(PLANS, "engines_3", ("engines_3", "alone", "batched_3"))
     shutdown_all_engines()
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,0 +1,144 @@
+"""``cuda://`` URL options and request knobs against ``tpu://``'s.
+
+- Every URL option outside the port's known set (its own options, the
+  ``ModelSpec`` fields, ``device``) is a ValueError at ``from_spec`` that
+  names the option, before any engine exists; the ``tpu://`` options the
+  port does not serve yet say so. Every known option still builds.
+- ``decode_loop=`` is validated at config time, as ``tpu://`` validates it
+  (tests/test_decode_loop.py::test_url_knobs_validated_at_config_time).
+- ``top_k`` in a request body is ignored, as ``tpu://`` ignores it: a body
+  with ``top_k`` samples exactly what the body without it samples, and
+  ``-1`` or ``"5"`` is not a 400.
+
+llama-tiny on the CPU.
+"""
+
+import asyncio
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from quorum_tpu.backends.tpu_backend import TpuBackend
+from quorum_tpu.engine.engine import InferenceEngine as JaxEngine
+from quorum_tpu.models.init import init_params as jax_init_params
+from quorum_tpu.models.model_config import resolve_spec as jax_resolve_spec
+from quorum_tpu_torch.backends import cuda_backend
+from quorum_tpu_torch.backends.cuda_backend import CudaBackend
+from quorum_tpu_torch.config import BackendSpec
+from quorum_tpu_torch.engine import engine as engine_mod
+from quorum_tpu_torch.engine.engine import InferenceEngine, shutdown_all_engines
+from quorum_tpu_torch.models.convert import params_from_numpy
+from quorum_tpu_torch.models.model_config import resolve_spec
+
+BASE = "cuda://llama-tiny?device=cpu&dtype=float32"
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture
+def no_engine(monkeypatch):
+    """Fail the test if a refused URL gets as far as building an engine."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("an engine was built for a URL that must be refused")
+
+    monkeypatch.setattr(cuda_backend, "get_engine", refuse)
+
+
+def _from_url(url: str) -> CudaBackend:
+    return CudaBackend.from_spec(BackendSpec(name="m", url=url, model="m"))
+
+
+@pytest.mark.parametrize("option", ["decode_lop", "slot", "n_layer", "Seed", "foo"])
+def test_unknown_options_are_refused_by_name(option, no_engine):
+    with pytest.raises(ValueError, match=rf"unknown cuda:// option {option}="):
+        _from_url(f"{BASE}&{option}=4")
+
+
+@pytest.mark.parametrize("option,value", [
+    ("ckpt", "/some/dir"), ("kv_quant", "int8"), ("quant", "int8"), ("zero_drain", "1"),
+    ("spec_model", "llama-tiny"), ("prefix_store", "host"), ("tp", "2"), ("pp", "2"),
+    ("disagg", "1+1"), ("flash_decode", "1"), ("kv_pages", "1"), ("qos", "1"),
+])
+def test_tpu_only_options_say_they_are_not_served_yet(option, value, no_engine):
+    with pytest.raises(ValueError, match=rf"does not serve the {option}= option yet"):
+        _from_url(f"{BASE}&{option}={value}")
+
+
+@pytest.mark.parametrize("value", ["0", "9999", "-2", "65"])
+def test_decode_loop_validated_at_config_time(value, no_engine):
+    with pytest.raises(ValueError, match="decode_loop"):
+        _from_url(f"{BASE}&decode_loop={value}")
+
+
+def test_every_known_option_still_builds():
+    urls = [
+        f"{BASE}&slots=2&decode_chunk=4&decode_pipeline=1&decode_loop=6&prefill_chunk=16"
+        "&prefix_cache=0&seed=3&queue=8&max_tokens=5&n_layers=1&max_seq=64&rope_theta=500000",
+        f"{BASE}&members=2&member=1&member_seeds=shared&quorum_dedup=1&slots=1&n_layers=1",
+        f"{BASE}&ensemble=2&slots=1&n_layers=1&norm_eps=1e-6",
+    ]
+    try:
+        first = _from_url(urls[0])
+        eng = first.engine
+        assert (eng.n_slots, eng.decode_chunk, eng.decode_pipeline, eng.decode_loop,
+                eng.prefill_chunk, eng.prefix_cache, eng.spec.n_layers,
+                eng.spec.max_seq) == (2, 4, 1, 4, 16, False, 1, 64)
+        assert first.default_max_tokens == 5 and eng.max_pending == 8
+        stacked = _from_url(urls[1])
+        assert (stacked.member, stacked.engine.members, stacked.engine.quorum_dedup) == (1, 2, True)
+        assert _from_url(urls[2]).engine.ensemble == 2
+        assert len(engine_mod._ENGINES) == 3
+    finally:
+        shutdown_all_engines()
+
+
+# ---- top_k on the wire ------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def backends():
+    opts = {"dtype": "float32"}
+    jspec = jax_resolve_spec("llama-tiny", opts)
+    jparams = jax.tree.map(np.asarray, jax_init_params(jspec, seed=11))
+    jeng = JaxEngine(jspec, params=jparams, decode_chunk=4)
+    teng = InferenceEngine(resolve_spec("llama-tiny", opts), device="cpu", decode_chunk=4,
+                           params=params_from_numpy(jparams, device="cpu"))
+    yield {"tpu": TpuBackend("m", jeng), "cuda": CudaBackend("m", teng, model_id="llama-tiny")}
+    jeng.shutdown()
+    teng.shutdown()
+
+
+BODY = {"model": "m", "messages": [{"role": "user", "content": "name a colour"}],
+        "max_tokens": 12, "temperature": 0.9, "top_p": 0.95, "seed": 3}
+
+
+@pytest.mark.parametrize("scheme", ["cuda", "tpu"])
+@pytest.mark.parametrize("top_k", [40, 1, -1, "5"], ids=["40", "1", "minus1", "str5"])
+def test_top_k_is_ignored_on_the_wire(backends, scheme, top_k):
+    backend = backends[scheme]
+
+    def content(body):
+        resp = asyncio.run(backend.complete(body, {}, 60))
+        assert resp.status_code == 200
+        return resp.body["choices"][0]["message"]["content"]
+
+    assert content({**BODY, "top_k": top_k}) == content(dict(BODY))
+
+
+def test_top_k_is_ignored_when_streaming(backends):
+    backend = backends["cuda"]
+
+    async def text(body):
+        out = []
+        async for chunk in backend.stream({**body, "stream": True}, {}, 60):
+            out.extend(c["delta"].get("content", "") for c in chunk.get("choices", []))
+        return "".join(out)
+
+    assert asyncio.run(text({**BODY, "top_k": 7})) == asyncio.run(text(dict(BODY)))
