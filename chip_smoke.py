@@ -78,7 +78,25 @@ result line:
               quorum_dedup=1&prefill_chunk=0 (at least one dedup admission,
               exact token savings, TTFT with and without dedup on a
               ≈ 3 000-token prompt);
-  9. kernels  one line listing both kernels (launches per phase, errors,
+  9. checkpoint  llama-3-8b (2 layers) and mixtral-8x7b (1 layer, its 8
+              experts at real shapes) at full width, bf16, written as HF
+              checkpoints over two safetensors shards by this script's own
+              writer into a temporary directory (removed at the end) and
+              loaded through the app with cuda://…?ckpt=DIR: every leaf
+              bit for bit, two greedy requests (one streamed) on the llama
+              one whose tokens equal an engine built with params= the
+              in-memory weights; bytes, write and load seconds, load GB/s,
+              RSS around each load and the process's peak;
+ 10. moe      cuda://mixtral-8x7b?n_layers=16 (full width, bf16, seed 0, 4
+              slots, the default scheduler) behind the app: the serve
+              phase's 4 concurrent requests (grouped MoE in single-shot
+              admissions and 512-token segments, dense MoE in graph-replayed
+              decode), K1 = 16 × single-shot dispatches and K2 = 16 × (decode
+              + warm-up steps) exactly, device ms per 8-step chunk against
+              the weight-read bound, tok/s, captures, peak and free memory;
+              then on layer 0 the grouped MoE against the dense oracle at
+              cf = E/k on the 3017-token prompt, and the picks cf=2 drops;
+ 11. kernels  one line listing both kernels (launches per phase, errors,
               timings, route, share of the bound, how the main path issues
               them: K1 eagerly, K2 inside decode-graph replays);
 
@@ -2229,6 +2247,482 @@ def phase_dedup(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     return info
 
 
+# ---- real checkpoints and MoE ------------------------------------------------
+
+# HF tensor names of a llama-family layer ← the port's leaves (transposed
+# where HF stores nn.Linear's [out, in]).
+_HF_LAYER = (("input_layernorm.weight", "attn_norm_w", False),
+             ("self_attn.q_proj.weight", "wq", True), ("self_attn.k_proj.weight", "wk", True),
+             ("self_attn.v_proj.weight", "wv", True), ("self_attn.o_proj.weight", "wo", True),
+             ("post_attention_layernorm.weight", "mlp_norm_w", False))
+_HF_DENSE = (("mlp.gate_proj.weight", "w_gate"), ("mlp.up_proj.weight", "w_up"),
+             ("mlp.down_proj.weight", "w_down"))
+_HF_EXPERT = (("w1.weight", "moe_w_gate"), ("w3.weight", "moe_w_up"), ("w2.weight", "moe_w_down"))
+
+
+def _hf_tensors(spec, params):
+    """(HF name, tensor view) of a llama-family tree in checkpoint order
+    (transposed views where HF stores nn.Linear's [out, in]; no copies)."""
+    b = params["blocks"]
+    yield "model.embed_tokens.weight", params["tok_emb"]
+    for i in range(spec.n_layers):
+        pre = f"model.layers.{i}."
+        for name, leaf, t in _HF_LAYER:
+            yield pre + name, b[leaf][i].T if t else b[leaf][i]
+        if spec.is_moe:
+            yield pre + "block_sparse_moe.gate.weight", b["router"][i].T
+            for e in range(spec.n_experts):
+                for name, leaf in _HF_EXPERT:
+                    yield f"{pre}block_sparse_moe.experts.{e}.{name}", b[leaf][i, e].T
+        else:
+            for name, leaf in _HF_DENSE:
+                yield pre + name, b[leaf][i].T
+    yield "model.norm.weight", params["final_norm_w"]
+    yield "lm_head.weight", params["lm_head"].T
+
+
+def _write_hf_checkpoint(torch, path: str, spec, params, model_type: str,
+                         n_shards: int = 2) -> int:
+    """The tree as an HF checkpoint directory: ``config.json``, the tensors
+    split by bytes over ``n_shards`` ``*.safetensors`` files (8-byte
+    little-endian header length, JSON header, raw little-endian bytes) and
+    their index. A writer of this script's own: the package has none.
+    Returns the bytes written."""
+    import struct
+
+    cfg = {"model_type": model_type, "vocab_size": spec.vocab_size,
+           "hidden_size": spec.d_model, "intermediate_size": spec.d_ff,
+           "num_hidden_layers": spec.n_layers, "num_attention_heads": spec.n_heads,
+           "num_key_value_heads": spec.n_kv_heads, "max_position_embeddings": spec.max_seq,
+           "rope_theta": spec.rope_theta, "rms_norm_eps": spec.norm_eps,
+           "tie_word_embeddings": spec.tied_lm_head, "torch_dtype": spec.dtype}
+    if spec.is_moe:
+        cfg.update(num_local_experts=spec.n_experts, num_experts_per_tok=spec.experts_per_token)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    tags = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+    tensors = list(_hf_tensors(spec, params))
+    total = sum(t.numel() * t.element_size() for _, t in tensors)
+    shards, acc = [[] for _ in range(n_shards)], 0
+    for name, t in tensors:
+        shards[min(n_shards - 1, acc * n_shards // total)].append((name, t))
+        acc += t.numel() * t.element_size()
+    shards = [sh for sh in shards if sh]
+    files = [f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors" for i in range(len(shards))]
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": {name: fname for fname, sh in zip(files, shards)
+                                  for name, _ in sh}}, f)
+    written = 0
+    for fname, shard in zip(files, shards):
+        header, off = {}, 0
+        for name, t in shard:
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape),
+                            "data_offsets": [off, off + n]}
+            off += n
+        raw = json.dumps(header, separators=(",", ":")).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)))
+            f.write(raw)
+            for _, t in shard:
+                f.write(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+        written += 8 + len(raw) + off
+    return written
+
+
+def _rss_gb() -> tuple[float | None, float | None]:
+    """(current RSS, peak RSS since the last reset) of this process, GB."""
+    cur = peak = None
+    try:
+        with open("/proc/self/status") as f:
+            for ln in f:
+                if ln.startswith("VmRSS:"):
+                    cur = int(ln.split()[1]) * 1024 / 1e9
+                elif ln.startswith("VmHWM:"):
+                    peak = int(ln.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return cur, peak
+
+
+class _RssSampler:
+    """The process's RSS sampled every few ms on a thread while the block
+    runs: the peak over a window (VmHWM cannot be reset everywhere)."""
+
+    def __init__(self, period_s: float = 0.002):
+        import threading
+
+        self.period_s, self.peak_gb = period_s, 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            cur, _ = _rss_gb()
+            self.peak_gb = max(self.peak_gb, cur or 0.0)
+            self._stop.wait(self.period_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def _maxrss_gb() -> float:
+    """Peak RSS of this process since it started, GB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def phase_checkpoint(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+    """Real checkpoints through ``cuda://…?ckpt=DIR``: llama-3-8b at full
+    width and 2 layers, and mixtral-8x7b at full width and 1 layer (its 8
+    experts stacked at real shapes), each built by ``init_params`` (bf16,
+    seed 0), written as an HF checkpoint over two safetensors shards into a
+    temporary directory, and loaded through the port's app with a
+    ``ckpt=`` URL. Every loaded leaf must equal the written one bit for
+    bit. On the llama checkpoint two greedy requests (one streamed) go
+    through the app; their texts and the engine's token ids must equal an
+    engine built with ``params=`` the in-memory weights. Prints bytes
+    written, seconds to write and to load (the app's build: load + engine),
+    load GB/s, and the process's RSS (peak since start, and peak over each
+    load). The directory is removed at the end."""
+    import shutil
+    import tempfile
+
+    from quorum_tpu_torch.config import Config
+    from quorum_tpu_torch.engine.engine import InferenceEngine, shutdown_all_engines
+    from quorum_tpu_torch.models.init import init_params
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.server.app import create_app
+
+    dev = "cpu" if cpu else "cuda"
+    _require_card_empty(torch, cpu, "checkpoint")
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    cases = ((("llama-tiny", "mixtral-tiny"), (2, 1)) if tiny
+             else (("llama-3-8b", "mixtral-8x7b"), (2, 1)))
+    root = tempfile.mkdtemp(prefix="quorum_ckpt_")
+    card = f"{device_info['name']} ({device_info['power_limit']})"
+    max_tokens = 16
+    out = {"measured_on": card, "tmpdir_free_gb": round(shutil.disk_usage(root).free / 1e9, 3)}
+    flash_prefill_attention.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
+    flash_decode_attention.launches = 0
+    k2_steps = single_shot = 0
+    try:
+        for model, n_layers in zip(*cases):
+            ref = None
+            spec = resolve_spec(model, {"n_layers": str(n_layers)})
+            # Short temporary space cuts the depth (reported), never the phase.
+            while _llama_family_bytes(spec) > 0.9 * shutil.disk_usage(root).free:
+                require(spec.n_layers > 1, f"checkpoint: one layer of {model} does not fit "
+                                           "the temporary directory")
+                spec = resolve_spec(model, {"n_layers": str(spec.n_layers - 1)})
+            params = init_params(spec, 0, dev)
+            path = os.path.join(root, model)
+            os.makedirs(path)
+            t0 = time.perf_counter()
+            written = _write_hf_checkpoint(torch, path, spec, params,
+                                           "mixtral" if spec.is_moe else "llama")
+            write_s = time.perf_counter() - t0
+            url = f"cuda://{model}?ckpt={path}" + ("&device=cpu" if cpu else "")
+            cfg = Config(raw={"primary_backends": [{"name": "ckpt", "url": url}],
+                              "settings": {"timeout": SERVE_TIMEOUT_S}})
+            rss_before, _ = _rss_gb()
+            with _RssSampler() as sampled:
+                t0 = time.perf_counter()
+                app = create_app(cfg)
+                if not cpu:
+                    torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+            rss_now, _ = _rss_gb()
+            backend = app.state["registry"].backends[0]
+            eng = backend.engine
+            require(eng.spec == spec, f"{model}: the checkpoint's spec {eng.spec} != {spec}")
+            loaded, want = list(_hf_params(eng.params)), list(_hf_params(params))
+            require(len(loaded) == len(want) and all(
+                a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+                for a, b in zip(loaded, want)), f"{model}: a loaded leaf differs from the written one")
+            row = {"model": model, "layers": spec.n_layers,
+                   "depth_cut_for_tmp_space": spec.n_layers < n_layers,
+                   "files": sorted(os.listdir(path)),
+                   "bytes_written": written, "write_s": round(write_s, 3),
+                   "load_s": round(load_s, 3), "load_gb_per_s": round(written / load_s / 1e9, 3),
+                   "leaves_equal": len(loaded), "rss_gb_before_load": rss_before,
+                   "rss_gb_after_load": rss_now, "rss_peak_gb_over_load": sampled.peak_gb}
+            if not spec.is_moe:
+                m0 = eng.metrics()
+                ref = InferenceEngine(spec, device=dev, params=params)
+                try:
+                    row.update(_ckpt_requests(torch, app, backend, ref, model, max_tokens,
+                                              (20, 60) if tiny else (120, 700)))
+                    mr = ref.metrics()
+                finally:
+                    ref.shutdown()
+                m1 = eng.metrics()
+                k2_steps += spec.n_layers * (_k2_steps(m1) - _k2_steps(m0) + _k2_steps(mr))
+                single_shot += spec.n_layers * (
+                    m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
+                    + mr["admission_dispatches_total"])
+            out[model] = row
+            del app, backend, eng, params, loaded, want, ref
+            shutdown_all_engines()
+            _require_card_empty(torch, cpu, f"checkpoint after {model}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches}
+    if not cpu:
+        require(launches["flash_prefill"] == single_shot > 0,
+                f"checkpoint: K1 launches {launches['flash_prefill']} != {single_shot}")
+        require(launches["flash_decode"] == k2_steps > 0,
+                f"checkpoint: K2 launches {launches['flash_decode']} != {k2_steps}")
+    out.update(launches=launches, tmpdir_removed=not os.path.exists(root),
+               peak_rss_gb_process=_maxrss_gb(),
+               peak_mem_gb=None if cpu else round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    emit("checkpoint", **out)
+    return out
+
+
+def _llama_family_bytes(spec) -> int:
+    """Bytes of a llama-family (or mixtral) checkpoint of ``spec``."""
+    d, f, e = spec.d_model, spec.d_ff, spec.n_experts
+    h, k = spec.n_heads * spec.head_dim, spec.n_kv_heads * spec.head_dim
+    mlp = d * e + 3 * e * d * f if spec.is_moe else 3 * d * f
+    layer = 2 * d + 2 * d * h + 2 * d * k + mlp
+    top = spec.vocab_size * d * (1 if spec.tied_lm_head else 2) + d
+    return (spec.n_layers * layer + top) * {"float32": 4}.get(spec.dtype, 2)
+
+
+def _hf_params(params):
+    """Every tensor leaf of a tree, top level then blocks, in key order."""
+    for k in sorted(params):
+        if k != "blocks" and params[k] is not None:
+            yield params[k]
+    for k in sorted(params["blocks"]):
+        if params["blocks"][k] is not None:
+            yield params["blocks"][k]
+
+
+def _ckpt_requests(torch, app, backend, ref, model: str, max_tokens: int,
+                   sizes: tuple[int, int]) -> dict:
+    """Two greedy requests (one streamed) through the app on the checkpoint;
+    texts equal the in-memory engine's decoded tokens, and the checkpoint
+    engine's token ids equal the in-memory engine's."""
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+
+    tok = backend.tokenizer
+    greedy = SamplerConfig(temperature=0.0)
+    bodies = [{"model": model, "messages": [{"role": "user", "content": _prompt(n, i)}],
+               "max_tokens": max_tokens, "temperature": 0, "stream": stream}
+              for i, (n, stream) in enumerate(zip(sizes, (False, True)))]
+    for b in bodies:
+        if b["stream"]:
+            b["stream_options"] = {"include_usage": True}
+
+    async def drive():
+        return await asyncio.gather(*[_call(app, b) for b in bodies])
+
+    resps = asyncio.run(asyncio.wait_for(drive(), 2 * SERVE_TIMEOUT_S))
+    checked = [_check_response(r, b, tok, max_tokens) for r, b in zip(resps, bodies)]
+    texts = []
+    for b, c in zip(bodies, checked):
+        ids = tok.encode(tok.render_chat(b["messages"]))
+        want = ref.generate(ids, max_new_tokens=max_tokens, sampler=greedy,
+                            eos_id=tok.eos_id).token_ids
+        got = backend.engine.generate(ids, max_new_tokens=max_tokens, sampler=greedy,
+                                      eos_id=tok.eos_id).token_ids
+        require(got == want, f"checkpoint engine tokens {got} != in-memory engine's {want}")
+        require(c["text"] == tok.decode(want), "app text differs from the in-memory engine's")
+        require(c["usage"]["completion_tokens"] == len(want), f"usage {c['usage']}")
+        texts.append(c["text"])
+    return {"requests": [{"stream": b["stream"], "prompt_tokens": c["usage"]["prompt_tokens"],
+                          "completion_tokens": c["usage"]["completion_tokens"],
+                          "seconds": round(c["t_end"], 4)} for b, c in zip(bodies, checked)],
+            "tokens_equal_in_memory_engine": True}
+
+
+# Grouped MoE against the dense oracle in bf16 (no drop at cf = E/k): the
+# same expert products, combined in another order and rounded once to bf16.
+MOE_TOL = 2e-2
+
+
+def phase_moe(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) -> dict:
+    """Mixtral-8x7b at full width and 16 layers (``cuda://mixtral-8x7b?
+    n_layers=16``: random init, seed 0, bf16, 4 slots, the default
+    scheduler) behind the port's app: 4 concurrent chat requests of 57,
+    317, 1217 and 3017 prompt tokens (2 streamed, 2 greedy, 2 sampled; 32
+    completion tokens each): the short two admit single-shot (grouped MoE +
+    K1), the long two in 512-token segments (grouped MoE in
+    ``prefill_segment``); decode runs the dense MoE inside graph replays
+    (K2). K1 = 16 × single-shot dispatches and K2 = 16 × (decode + warm-up
+    steps), required. Then, on layer 0 and the 3017-token prompt's normed
+    embeddings: the grouped MoE against the dense oracle at
+    ``moe_capacity_factor=4`` (= E/k, no drop) within ``MOE_TOL``, and the
+    picks the default cf=2 drops over the whole prompt and over its
+    512-token segments. Prints tok/s per stream, device ms per 8-step
+    chunk against the weight-read bound, peak memory, the free memory at
+    the start, captures and their seconds. With ``profile``, the 4
+    requests again under torch.profiler (graphs captured by then)."""
+    import dataclasses
+
+    from quorum_tpu_torch.config import Config
+    from quorum_tpu_torch.engine.engine import shutdown_all_engines
+    from quorum_tpu_torch.models import transformer as tt
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention, ticket_counters
+    from quorum_tpu_torch.server.app import create_app
+
+    _require_card_empty(torch, cpu, "moe")
+    free_gb = None if cpu else torch.cuda.mem_get_info()[0] / 1e9
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    model = "mixtral-tiny" if tiny else "mixtral-8x7b"
+    url = f"cuda://{model}?seed=0" + ("&device=cpu" if cpu else "&n_layers=16")
+    cfg = Config(raw={"primary_backends": [{"name": "moe", "url": url}],
+                      "settings": {"timeout": SERVE_TIMEOUT_S}})
+    t0 = time.perf_counter()
+    app = create_app(cfg)
+    backend = app.state["registry"].backends[0]
+    eng = backend.engine
+    if not cpu:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    spec, tok = eng.spec, backend.tokenizer
+    require(spec.is_moe and eng.n_slots == 4, f"moe: {spec}")
+    sizes = (20, 30, 50, 80) if tiny else (57, 317, 1217, 3017)
+    max_tokens = 16 if tiny else 32
+    overhead = len(tok.encode(tok.render_chat([{"role": "user", "content": ""}])))
+
+    def body(i, stream, sampled):
+        b = {"model": model, "max_tokens": max_tokens, "stream": stream,
+             "messages": [{"role": "user", "content": _prompt(sizes[i] - overhead, 10 + i)}]}
+        b.update({"temperature": 0.8, "top_p": 0.9, "seed": i} if sampled
+                 else {"temperature": 0})
+        if stream:
+            b["stream_options"] = {"include_usage": True}
+        return b
+
+    bodies = [body(0, False, False), body(1, True, False), body(2, False, True),
+              body(3, True, True)]
+    lens = [len(tok.encode(tok.render_chat(b["messages"]))) for b in bodies]
+    require(lens == list(sizes), f"moe prompts are {lens} tokens, want {sizes}")
+    recs = _timed_dispatches(torch, eng, cpu)
+    flash_prefill_attention.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
+    flash_decode_attention.launches = 0
+    m0 = eng.metrics()
+
+    async def drive():
+        return await asyncio.gather(*[_call(app, b) for b in bodies])
+
+    t0 = time.perf_counter()
+    resps = asyncio.run(asyncio.wait_for(drive(), 2 * SERVE_TIMEOUT_S))
+    wall = time.perf_counter() - t0
+    m1 = eng.metrics()
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches}
+    k1_routes = dict(flash_prefill_attention.launches_by_route)
+    checked = [_check_response(r, b, tok, max_tokens) for r, b in zip(resps, bodies)]
+    single_shot = m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
+    segments = m1["prefill_segments_total"] - m0["prefill_segments_total"]
+    steps = m1["decode_steps_total"] - m0["decode_steps_total"]
+    k2_steps = _k2_steps(m1) - _k2_steps(m0)
+    chunk = eng.prefill_chunk
+    require(single_shot == sum(1 for n in lens if not chunk or n <= chunk)
+            and segments == sum(-(-n // chunk) for n in lens if chunk and n > chunk),
+            f"moe: {single_shot} single-shot admissions and {segments} segments for {lens}")
+    if not cpu:
+        require(launches["flash_prefill"] == spec.n_layers * single_shot
+                and k1_routes["wgmma"] == launches["flash_prefill"] > 0,
+                f"moe: K1 launches {launches} ({k1_routes}) != {spec.n_layers} x {single_shot}")
+        require(launches["flash_decode"] == spec.n_layers * k2_steps > 0,
+                f"moe: K2 launches {launches['flash_decode']} != {spec.n_layers} x {k2_steps}")
+        require(all(int(c.abs().sum()) == 0 for c in ticket_counters()),
+                "K2 ticket counters are not back at 0 after the moe phase")
+    dev_ms = _device_ms(torch, cpu, recs)
+    chunk_ms = None if dev_ms is None else [
+        round(ms / c.n_chunks, 3) for (c, _), ms in zip(recs, dev_ms)
+        if c.n_steps == eng.decode_chunk]
+    blocks_bytes = sum(t.numel() * t.element_size() for k, t in eng.params["blocks"].items()
+                       if t is not None)
+    head_bytes = eng.params["lm_head"].numel() * eng.params["lm_head"].element_size()
+    bound_step_ms = (blocks_bytes + head_bytes) / HBM_BYTES_PER_S * 1e3
+    streams = [c for c in checked if c.get("ttft_s") is not None]
+    rates = [(c["usage"]["completion_tokens"] - 1) / (c["t_last_s"] - c["ttft_s"])
+             for c in streams if c["t_last_s"] > c["ttft_s"]]
+
+    # One full-width layer: grouped vs the dense oracle (no drop), drops at cf=2.
+    ids = torch.tensor([tok.encode(tok.render_chat(bodies[3]["messages"]))], device=eng.device)
+    block = {k: (None if v is None else v[0]) for k, v in eng.params["blocks"].items()}
+    with torch.no_grad():
+        x = tt._embed(eng.params, spec, ids, torch.arange(ids.shape[1], device=eng.device))
+        x = tt._norm(x, block["mlp_norm_w"], None, spec)
+        no_drop = dataclasses.replace(spec, moe_capacity_factor=spec.n_experts
+                                      / spec.experts_per_token)
+        dense = tt._moe_mlp_dense(x, block, spec).float()
+        grouped = tt._moe_mlp_grouped(x, block, no_drop).float()
+        err = float((grouped - dense).abs().max())
+        _, idx = tt._moe_router(x, block, spec)
+
+        def dropped(part) -> int:
+            load = torch.bincount(part.reshape(-1), minlength=spec.n_experts)
+            return int((load - tt.moe_capacity(spec, part.shape[0])).clamp(min=0).sum())
+
+        flat = idx[0]
+        drops_whole = dropped(flat)
+        drops_segments = sum(dropped(flat[i:i + chunk]) for i in range(0, flat.shape[0], chunk))
+    require(err <= MOE_TOL and float(dense.abs().max()) > 1e-3,
+            f"moe: grouped vs dense max abs err {err} > {MOE_TOL}")
+    info = {
+        "model": model, "layers": spec.n_layers, "slots": eng.n_slots,
+        "max_seq": spec.max_seq, "dtype": spec.dtype, "free_mem_gb_at_start": free_gb,
+        "app_build_s": round(build_s, 3),
+        "weights_gb": round((blocks_bytes + head_bytes) / 1e9, 3),
+        "requests": [{"stream": b["stream"], "sampled": "seed" in b,
+                      "prompt_tokens": c["usage"]["prompt_tokens"],
+                      "completion_tokens": c["usage"]["completion_tokens"],
+                      "finish": c["finish"], "seconds": round(c["t_end"], 4),
+                      "ttft_s": c.get("ttft_s")} for b, c in zip(bodies, checked)],
+        "concurrent_wall_s": round(wall, 4),
+        "single_shot_admissions": single_shot, "prefill_segments": segments,
+        "decode_steps": steps, "graph_warmup_steps": k2_steps - steps,
+        "decode_tok_per_s_per_stream": rates,
+        "device_ms_per_8_step_chunk": chunk_ms,
+        # 4 rows decoding: each stream gets one token per step
+        "decode_tok_per_s_per_stream_from_median_chunk": (
+            None if not chunk_ms else round(eng.decode_chunk * 1e3 / statistics.median(chunk_ms),
+                                            3)),
+        "bound_ms_per_step_weight_read": round(bound_step_ms, 3),
+        "decode_graph_captures": m1["decode_graph_captures_total"],
+        "decode_graph_capture_s": m1["decode_graph_capture_seconds_total"],
+        "launches": launches, "k1_launches_by_route": k1_routes,
+        "grouped_vs_dense_max_abs_err_cf4": err, "grouped_vs_dense_tol": MOE_TOL,
+        "dropped_picks_cf2_whole_prompt": drops_whole,
+        "dropped_picks_cf2_per_512_segments": drops_segments,
+        "picks_on_prompt": int(flat.numel()),
+        "peak_mem_gb": None if cpu else round(torch.cuda.max_memory_allocated() / 1e9, 3),
+        "measured_on": f"{device_info['name']} ({device_info['power_limit']})",
+    }
+    emit("moe", **info)
+    if profile:
+        phase_profile(torch, cpu, lambda: asyncio.run(asyncio.wait_for(
+            drive(), 2 * SERVE_TIMEOUT_S)), info["measured_on"], flash_decode_attention,
+            of="moe")
+    del app, backend, eng, block, x, dense, grouped
+    shutdown_all_engines()
+    return info
+
+
 # Kernel-name fragments → where the serve time goes.
 _KERNEL_GROUPS = (("K1 flash_prefill", ("prefill_wgmma_kernel", "flash_prefill_kernel")),
                   ("K2 flash_decode", ("flash_decode_mma_kernel", "flash_decode_kernel")),
@@ -2236,13 +2730,14 @@ _KERNEL_GROUPS = (("K1 flash_prefill", ("prefill_wgmma_kernel", "flash_prefill_k
                   ("sort (top-p/top-k)", ("sort", "radix", "scan")))
 
 
-def phase_profile(torch, cpu: bool, run_requests, card: str, decode_fn) -> None:
+def phase_profile(torch, cpu: bool, run_requests, card: str, decode_fn,
+                  of: str = "serve") -> None:
     """The same 4 concurrent requests again under torch.profiler: device time
     by kernel group and the device's busy share of the wall time. K2 must
     show one kernel name, launched once per call."""
     if cpu:
         run_requests()  # rehearse the path; there is no device to trace
-        emit("profile", skipped="cpu rehearsal: no device trace")
+        emit("profile", of=of, skipped="cpu rehearsal: no device trace")
         return
     from torch.profiler import ProfilerActivity, profile
 
@@ -2270,7 +2765,7 @@ def phase_profile(torch, cpu: bool, run_requests, card: str, decode_fn) -> None:
     require(len(k2) == 1 and k2[0][0] == decode_fn.launches,
             f"K2 in the profile: {k2}, {decode_fn.launches} calls; want one kernel per call")
     kernels.sort(reverse=True)
-    emit("profile", wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+    emit("profile", of=of, wall_ms=wall * 1e3, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / (wall * 1e3) if wall > 0 else None,
          device_ms_by_group={g: round(v, 3) for g, v in sorted(groups.items())},
          k2_kernels=[{"count": n, "name": name} for n, name in k2],
@@ -2286,7 +2781,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tiny", action="store_true", help="llama-tiny shapes (rehearsal)")
     ap.add_argument("--phases",
                     default="device,build,kernels,model,serve,scheduler,decode_graphs,knobs,"
-                            "fanout,members",
+                            "fanout,members,checkpoint,moe",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -2307,6 +2802,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     median_ms = make_timer(torch, args.cpu)
     graph_ms = make_graph_timer(torch, args.cpu, median_ms)
+    t_start = time.perf_counter()
     try:
         info = phase_device(torch, args.cpu)
         if "build" in phases:
@@ -2329,14 +2825,20 @@ def main(argv=None) -> int:
             members = phase_fanout(torch, args.cpu, args.tiny, info, stacked=True,
                                    reference=fanout)
             dedup = phase_dedup(torch, args.cpu, args.tiny, info)
+        ckpt = (phase_checkpoint(torch, args.cpu, args.tiny, info)
+                if "checkpoint" in phases else None)
+        moe = (phase_moe(torch, args.cpu, args.tiny, info, "profile" in phases)
+               if "moe" in phases else None)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    emit("run", phases=sorted(phases), seconds=round(time.perf_counter() - t_start, 3))
     if kernels is not None:
         by_phase = {name: ph["launches"] for name, ph in (
             ("serve", serve), ("scheduler", scheduler), ("decode_graphs", graphs),
-            ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup))
+            ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
+            ("checkpoint", ckpt), ("moe", moe))
             if ph is not None}
         rows = []
         for name, src, replaces in (

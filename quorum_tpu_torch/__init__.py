@@ -3,7 +3,8 @@
 The JAX package (``quorum_tpu``) stays the reference; this package serves the
 same OpenAI-compatible chat surface from an in-process model on a CUDA
 device. The path is ``cuda://`` backend → continuous-batching engine →
-dense transformer → two hand-written sm_90a attention kernels
+transformer (dense and MoE layers; random weights from a seed or a local
+HF checkpoint) → two hand-written sm_90a attention kernels
 (``ops/flash_attention.py`` for prefill, ``ops/flash_decode.py`` for
 decode), built from ``csrc/`` with nvcc at first use.
 

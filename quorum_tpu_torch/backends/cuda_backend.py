@@ -36,8 +36,20 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    suffix — multi-turn histories re-prefill nothing. Needs
                    chunked prefill. A prefix_cache=0 from any backend
                    sharing the engine turns reuse off on it
-  seed=            weight-init seed
+  seed=            weight-init seed (with ckpt=: an offset of every
+                   request's sampling seed; the weights are the checkpoint's)
   device=          torch device (default cuda; cpu runs the plain versions)
+  ckpt=DIR         real weights from a local HuggingFace checkpoint
+                   directory (config.json + *.safetensors or
+                   pytorch_model*.bin; models/hf_loader.py): gpt2, llama,
+                   mistral, qwen2, gemma or mixtral. The spec comes from
+                   its config.json (dtype= still applies; any other spec
+                   override is refused), its tokenizer serves when it
+                   ships tokenizer.json / tokenizer_config.json /
+                   vocab.json and transformers can load it (else bytes),
+                   and the engine's EOS is that tokenizer's. Backends on
+                   one checkpoint share its engine; members=, ensemble=,
+                   member_seeds= and quorum_dedup= are refused
   queue=           admission queue capacity (default 128; × members)
   max_tokens=      default completion budget (default 64)
   members=M        stacked fan-out (default 1 = off): backends whose URLs
@@ -67,8 +79,8 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    sampling
 
 Any other option is a ValueError naming it, before an engine is built —
-including the ``tpu://`` options the port does not serve yet (``ckpt=``,
-``kv_quant=``, ``tp=``, …): a typo or an unported knob never builds an
+including the ``tpu://`` options the port does not serve yet
+(``kv_quant=``, ``tp=``, …): a typo or an unported knob never builds an
 engine that silently ignores it.
 
 On the card every decode dispatch is one CUDA-graph replay; there is no
@@ -94,6 +106,7 @@ import asyncio
 import dataclasses
 import logging
 import math
+import os
 import threading
 import time
 from typing import Any, AsyncIterator
@@ -104,6 +117,7 @@ from quorum_tpu_torch import oai
 from quorum_tpu_torch.backends.base import BackendError, CompletionResult, prepare_body
 from quorum_tpu_torch.config import BackendSpec
 from quorum_tpu_torch.engine.engine import (
+    CKPT_MEMBERS_ERROR,
     DEFAULT_DECODE_CHUNK,
     DEFAULT_DECODE_LOOP,
     DEFAULT_DECODE_PIPELINE,
@@ -114,6 +128,7 @@ from quorum_tpu_torch.engine.engine import (
     GenerationResult,
     QueueFullError,
     get_engine,
+    get_engine_from_ckpt,
     resolve_decode_loop,
 )
 from quorum_tpu_torch.engine.tokenizer import get_tokenizer
@@ -126,12 +141,12 @@ logger = logging.getLogger(__name__)
 _OPTIONS = frozenset({
     "slots", "decode_chunk", "decode_pipeline", "decode_loop", "prefill_chunk",
     "prefix_cache", "seed", "device", "queue", "max_tokens", "members", "member",
-    "member_seeds", "quorum_dedup", "ensemble"})
+    "member_seeds", "quorum_dedup", "ensemble", "ckpt"})
 _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
 _NOT_YET = frozenset({
-    "ckpt", "kv_quant", "quant", "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl",
+    "kv_quant", "quant", "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl",
     "flash_decode", "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "prefix_store",
     "prefix_store_bytes", "prefix_store_chunk", "kv_pages", "kv_page_size", "kv_pool_pages",
     "qos"})
@@ -146,6 +161,28 @@ def _check_options(opts: dict[str, str]) -> None:
             raise ValueError(f"cuda:// does not serve the {key}= option yet "
                              "(the tpu:// backend does)")
         raise ValueError(f"unknown cuda:// option {key}=")
+
+
+def _check_ckpt_options(opts: dict[str, str], members: int, member_seeds: str,
+                        quorum_dedup: bool) -> None:
+    """A ``ckpt=`` URL takes its ModelSpec from the checkpoint's
+    ``config.json`` and holds one weight set: spec overrides other than
+    ``dtype=`` and the stacked-member knobs are refused, naming them (the
+    tpu:// backend ignores the overrides)."""
+    for key in opts:
+        if key in _SPEC_FIELDS and key != "dtype":
+            raise ValueError(
+                f"cuda:// ckpt= backends take the model spec from the checkpoint's "
+                f"config.json: the {key}= override does not apply (dtype= does)")
+    if members > 1:
+        raise ValueError(f"members=N does not apply to ckpt= backends "
+                         f"({CKPT_MEMBERS_ERROR}; use seed= for sampling diversity)")
+    if member_seeds != "distinct" or quorum_dedup:
+        raise ValueError(
+            "member_seeds=/quorum_dedup= do not apply to ckpt= "
+            "backends: they configure the stacked members=N init, "
+            "and members=N does not apply to ckpt= (one loaded "
+            "weight set; use seed= for sampling diversity)")
 
 
 def _invalid_request(message: str) -> BackendError:
@@ -278,7 +315,7 @@ class CudaBackend:
 
     def __init__(self, name: str, engine, *, model: str = "", model_id: str = "",
                  default_max_tokens: int = 64, decode_chunk: int | None = None,
-                 member: int = 0):
+                 member: int = 0, tokenizer_path: str | None = None, rng_offset: int = 0):
         self.name = name
         self.engine = engine
         # Stacked-members engine: which of the engine's weight sets serves
@@ -288,34 +325,51 @@ class CudaBackend:
         self.model = model or self.model_id
         self.default_max_tokens = default_max_tokens
         self.decode_chunk = decode_chunk  # None → engine default
-        self.tokenizer = get_tokenizer(engine.spec.vocab_size)
+        # ckpt= backends sharing one checkpoint's weights differ by seed=,
+        # which offsets every request's sampling seed.
+        self.rng_offset = rng_offset
+        self.tokenizer = get_tokenizer(engine.spec.vocab_size, tokenizer_path)
 
     @classmethod
     def from_spec(cls, bspec: BackendSpec) -> "CudaBackend":
         opts = bspec.options
         _check_options(opts)
-        spec = resolve_spec(bspec.model_id, opts)
         members = int(opts.get("members", 1))
         member = int(opts.get("member", 0))
         if not 0 <= member < max(1, members):
             raise ValueError(f"member={member} out of range for members={members}")
-        decode_loop = resolve_decode_loop(int(opts.get("decode_loop", DEFAULT_DECODE_LOOP)))
-        engine = get_engine(
-            spec, device=opts.get("device"), seed=int(opts.get("seed", 0)),
+        knobs = dict(
+            device=opts.get("device"),
             n_slots=int(opts.get("slots", DEFAULT_SLOTS)),
             decode_chunk=int(opts.get("decode_chunk", DEFAULT_DECODE_CHUNK)),
             decode_pipeline=int(opts.get("decode_pipeline", DEFAULT_DECODE_PIPELINE)),
-            decode_loop=decode_loop,
+            decode_loop=resolve_decode_loop(int(opts.get("decode_loop", DEFAULT_DECODE_LOOP))),
             prefill_chunk=int(opts.get("prefill_chunk", DEFAULT_PREFILL_CHUNK)),
             prefix_cache=_parse_bool_opt("prefix_cache", opts.get("prefix_cache", "1")),
             max_pending=int(opts.get("queue", DEFAULT_MAX_PENDING)),
-            members=members, member_seeds=opts.get("member_seeds", "distinct"),
-            quorum_dedup=_parse_bool_opt("quorum_dedup", opts.get("quorum_dedup", "0")),
             ensemble=int(opts.get("ensemble", 1)))
+        member_seeds = opts.get("member_seeds", "distinct")
+        quorum_dedup = _parse_bool_opt("quorum_dedup", opts.get("quorum_dedup", "0"))
+        tokenizer_path, rng_offset = None, 0
+        ckpt = opts.get("ckpt", "")
+        if ckpt:
+            _check_ckpt_options(opts, members, member_seeds, quorum_dedup)
+            engine = get_engine_from_ckpt(ckpt, dtype=opts.get("dtype"), **knobs)
+            # The checkpoint's tokenizer when it ships one (bytes when it
+            # cannot load, e.g. without transformers).
+            if any(os.path.exists(os.path.join(ckpt, f))
+                   for f in ("tokenizer.json", "tokenizer_config.json", "vocab.json")):
+                tokenizer_path = ckpt
+            rng_offset = int(opts.get("seed", 0))
+        else:
+            engine = get_engine(
+                resolve_spec(bspec.model_id, opts), seed=int(opts.get("seed", 0)),
+                members=members, member_seeds=member_seeds, quorum_dedup=quorum_dedup,
+                **knobs)
         return cls(bspec.name, engine, model=bspec.model, model_id=bspec.model_id,
                    default_max_tokens=int(opts.get("max_tokens", 64)),
                    decode_chunk=int(opts["decode_chunk"]) if "decode_chunk" in opts else None,
-                   member=member)
+                   member=member, tokenizer_path=tokenizer_path, rng_offset=rng_offset)
 
     # ---- request plumbing -------------------------------------------------
 
@@ -363,7 +417,7 @@ class CudaBackend:
             "prompt_ids": self.tokenizer.encode(prompt),
             "max_new": int(max_new),
             "sampler": _request_sampler(body),
-            "seed": int(_request_number(body, "seed", 0.0)),
+            "seed": int(_request_number(body, "seed", 0.0)) + self.rng_offset,
             "stops": _stop_list(body),
             "n": n,
             "logprobs": top_lp if want_lp else -1,

@@ -326,6 +326,12 @@ class InferenceEngine:
         self.members = max(1, int(members))
         self.ensemble = max(1, int(ensemble))
         _check_stack_knobs(self.members, self.ensemble, member_seeds, quorum_dedup)
+        if spec.is_moe and max(self.members, self.ensemble) > 1:
+            knob = "members" if self.members > 1 else "ensemble"
+            raise ValueError(
+                f"{knob}={max(self.members, self.ensemble)} does not compose with an MoE "
+                "spec on cuda:// engines yet: the stacked weight sets carry no expert "
+                f"leaves; serve one {knob}=1 engine per weight set")
         self.member_seeds = member_seeds
         self.quorum_dedup = bool(quorum_dedup)
         stack = max(self.members, self.ensemble)
@@ -897,7 +903,8 @@ class InferenceEngine:
                 for a in per_row]
         prefill_segment(params, self.spec, self._prompt_tokens(segs, bucket),
                         [a.offset if a is not None else 0 for a in per_row],
-                        self._ck, self._cv, rows=rows, history=history)
+                        self._ck, self._cv, rows=rows, history=history,
+                        n_valid=[len(seg) for seg in segs])
         self.n_prefill_segments += 1
         for adm in batch.values():
             prompt = adm.req.prompt_ids
@@ -1568,6 +1575,58 @@ def get_engine(
                 prefill_chunk=prefill_chunk,
                 prefix_cache=prefix_cache, max_pending=max_pending, members=members,
                 member_seeds=member_seeds, quorum_dedup=quorum_dedup, ensemble=ensemble)
+        else:
+            eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
+        return eng
+
+
+CKPT_ENSEMBLE_ERROR = ("ensemble members are seeded random inits; a "
+                       "checkpoint provides only one weight set")
+CKPT_MEMBERS_ERROR = ("stacked members are seeded random inits; a "
+                      "checkpoint provides only one weight set")
+
+
+def get_engine_from_ckpt(
+    ckpt_path: str,
+    *,
+    dtype: str | None = None,
+    device=None,
+    n_slots: int = DEFAULT_SLOTS,
+    decode_chunk: int = DEFAULT_DECODE_CHUNK,
+    decode_pipeline: int = DEFAULT_DECODE_PIPELINE,
+    decode_loop: int = DEFAULT_DECODE_LOOP,
+    prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
+    prefix_cache: bool = True,
+    max_pending: int = DEFAULT_MAX_PENDING,
+    ensemble: int = 1,
+) -> InferenceEngine:
+    """An engine over a local HF checkpoint directory
+    (``models/hf_loader.py``). Keyed by (real path, effective dtype,
+    device): backends pointing at one checkpoint share its weights on the
+    card, and ``dtype=None`` hits the entry of the default dtype, so a
+    checkpoint is never loaded twice. The dispatch knobs apply at first
+    construction, ``prefix_cache`` as in :func:`get_engine`. ``ensemble`` >
+    1 is refused before the checkpoint is read (its members are seeded
+    random inits; a checkpoint holds one weight set)."""
+    import os
+
+    from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+    if ensemble > 1:
+        raise ValueError(CKPT_ENSEMBLE_ERROR)
+    dev = resolve_device(device)
+    resolved = os.path.realpath(ckpt_path)
+    eff_dtype = dtype or ModelSpec().dtype
+    key = ("ckpt", resolved, eff_dtype, str(dev))
+    with _ENGINES_LOCK:
+        eng = _ENGINES.get(key)
+        if eng is None:
+            spec, params = load_hf_checkpoint(resolved, dtype=eff_dtype, device=dev)
+            eng = _ENGINES[key] = InferenceEngine(
+                spec, device=dev, params=params, n_slots=n_slots, decode_chunk=decode_chunk,
+                decode_pipeline=decode_pipeline, decode_loop=decode_loop,
+                prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+                max_pending=max_pending)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
         return eng

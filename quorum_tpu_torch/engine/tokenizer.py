@@ -3,8 +3,9 @@
 The default is the deterministic byte-level tokenizer of the JAX package
 (pad/bos/eos + one id per UTF-8 byte): no vocabulary files, works with every
 ModelSpec, and makes generated text a pure function of (weights, prompt,
-sampler, seed). A local HuggingFace tokenizer directory can replace it
-(``$QUORUM_TPU_TOKENIZER_PATH``); ``transformers`` is imported only then.
+sampler, seed). A local HuggingFace tokenizer directory can replace it (a ``ckpt=``
+checkpoint's own, or ``$QUORUM_TPU_TOKENIZER_PATH``); ``transformers`` is
+imported only then, and where it is missing the byte tokenizer serves.
 
 Incremental detokenization is UTF-8-boundary-safe: a multi-byte character
 split across decode steps is held back until complete.
@@ -93,11 +94,17 @@ class HFTokenizer:
         return HFIncrementalDetokenizer(self)
 
     def render_chat(self, messages: Sequence[dict]) -> str:
+        """The checkpoint's own chat template when it ships one; the static
+        fallback otherwise, or (with a warning) when the template raises."""
         if getattr(self._t, "chat_template", None):
             normalized = [{"role": m.get("role", "user"),
                            "content": flatten_content(m.get("content"))} for m in messages]
-            return self._t.apply_chat_template(normalized, tokenize=False,
-                                               add_generation_prompt=True)
+            try:
+                return self._t.apply_chat_template(normalized, tokenize=False,
+                                                   add_generation_prompt=True)
+            except Exception:
+                logger.warning("chat_template failed; using the static fallback template",
+                               exc_info=True)
         return render_chat(messages)
 
 
@@ -126,15 +133,23 @@ class HFIncrementalDetokenizer:
 
 
 def get_tokenizer(vocab_size: int, path: str | None = None):
-    """An explicit local HF directory, else ``$QUORUM_TPU_TOKENIZER_PATH``,
-    else the deterministic byte tokenizer."""
+    """An explicit local HF directory (a ``ckpt=`` backend's checkpoint),
+    else ``$QUORUM_TPU_TOKENIZER_PATH``, else the deterministic byte
+    tokenizer. A directory that fails to load (no ``transformers``, broken
+    files) or holds more ids than the model's vocab falls back to bytes,
+    with a warning."""
     path = path or os.environ.get("QUORUM_TPU_TOKENIZER_PATH", "")
     if path:
-        hf = HFTokenizer(path)
-        if len(hf._t) <= vocab_size:
-            return hf
-        logger.warning("tokenizer at %s has %d ids, model vocab is %d: using bytes",
-                       path, len(hf._t), vocab_size)
+        try:
+            hf = HFTokenizer(path)
+        except Exception:
+            logger.warning("failed to load the tokenizer at %s: using bytes", path,
+                           exc_info=True)
+        else:
+            if len(hf._t) <= vocab_size:
+                return hf
+            logger.warning("tokenizer at %s has %d ids, model vocab is %d: using bytes",
+                           path, len(hf._t), vocab_size)
     return ByteTokenizer(vocab_size)
 
 

@@ -1,8 +1,9 @@
 """Convert a parameter tree of numpy arrays (the JAX package's pytree, read
 back with ``numpy.asarray`` leaf by leaf) into the port's params.
 
-The tree keeps its layout: the same leaf names, ``None`` for absent leaves,
-per-layer weights stacked ``[L, …]`` under ``"blocks"``. Quantized
+The tree keeps its layout: the same leaf names (an MoE tree's ``router``
+and ``moe_w_*`` leaves too), ``None`` for absent leaves, per-layer weights
+stacked ``[L, …]`` under ``"blocks"``. Quantized
 ``{"q8", "qs"}`` leaves are refused: int8 serving is not ported yet.
 Member-stacked trees (``members=M`` / ``ensemble=M`` engines) go through
 :func:`stacked_params_from_numpy`.

@@ -1,0 +1,449 @@
+"""Local HuggingFace checkpoint directory → (ModelSpec, the port's params).
+
+The port's copy of the JAX package's ``models/hf_loader.py``: the same
+``config.json`` → ModelSpec inference (gpt2, llama, mistral, qwen2, gemma,
+mixtral) and the same weight mapping, producing the tree
+``models/init.py`` produces (per-layer weights stacked ``[L, …]``,
+projections input-major ``[d_in, d_out]``) in the spec's dtype, on the
+requested device. Nothing is ever fetched from a network.
+
+Reading needs no package beyond torch:
+
+- ``*.safetensors`` (one file or shards) are read here: an 8-byte
+  little-endian header length, a JSON header (``dtype``, ``shape``,
+  ``data_offsets`` per tensor), then the raw bytes, each tensor mapped
+  with ``mmap`` and viewed with ``torch.frombuffer``;
+- ``pytorch_model*.bin`` goes through ``torch.load(weights_only=True)``.
+
+Memory: every leaf is allocated once on the device in the spec's dtype and
+filled tensor by tensor (layer by layer for ``[L, …]`` leaves), each
+checkpoint tensor converted on its way in. A tensor is mapped only while
+it is copied (its raw bytes cross to the card through a 64 MB page-locked
+buffer), so the host holds one tensor's pages at a time, never a float32
+copy of the model (the JAX loader converts to float32 and stacks there).
+
+Conventions: HF ``nn.Linear`` stores ``[out, in]`` (transposed on load);
+GPT-2's ``Conv1D`` stores ``[in, out]`` (taken as is) and fuses q/k/v in
+``c_attn`` (split); ``o_proj.bias`` fills ``bo`` only where it exists;
+Mixtral's experts stack in gate (``w1``), up (``w3``), down (``w2``)
+order on an ``experts`` axis; an untied head without ``lm_head.weight`` is
+``tok_emb.T``. RoPE needs no permutation (the same half-split convention
+as HF Llama).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import logging
+import mmap
+import struct
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from quorum_tpu_torch import resolve_device
+from quorum_tpu_torch.models.model_config import ModelSpec
+
+logger = logging.getLogger(__name__)
+
+Params = dict
+
+# safetensors dtype tags → torch dtypes.
+ST_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+# ---- raw tensor access -----------------------------------------------------
+
+
+class SafetensorsFile:
+    """One ``.safetensors`` file. ``get`` maps one tensor's bytes
+    (copy-on-write, so ``torch.frombuffer`` gets a writable buffer; nothing
+    is ever written) and returns a CPU tensor viewing them; ``release``
+    unmaps them, so a load holds one tensor's pages at a time."""
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        self._f = open(self.path, "rb")
+        (n,) = struct.unpack("<Q", self._f.read(8))
+        header = json.loads(self._f.read(n))
+        header.pop("__metadata__", None)
+        self._base = 8 + n
+        self.entries: dict[str, dict] = header
+        self._maps: dict[str, list[mmap.mmap]] = {}
+
+    def keys(self):
+        return self.entries.keys()
+
+    def get(self, name: str) -> torch.Tensor:
+        ent = self.entries[name]
+        dtype = ST_DTYPES.get(ent["dtype"])
+        if dtype is None:
+            raise ValueError(f"{self.path}: tensor {name!r} has unsupported dtype {ent['dtype']!r}")
+        shape = tuple(ent["shape"])
+        begin, end = ent["data_offsets"]
+        start, end = self._base + begin, self._base + end
+        if end == start:
+            return torch.empty(shape, dtype=dtype)
+        lo = start - start % mmap.ALLOCATIONGRANULARITY
+        mm = mmap.mmap(self._f.fileno(), end - lo, offset=lo, access=mmap.ACCESS_COPY)
+        self._maps.setdefault(name, []).append(mm)
+        count = (end - start) // dtype.itemsize
+        return torch.frombuffer(mm, dtype=dtype, count=count, offset=start - lo).reshape(shape)
+
+    def release(self, name: str) -> None:
+        """Unmap the tensor's pages. A view still alive keeps its mapping
+        until it is collected."""
+        for mm in self._maps.pop(name, []):
+            with contextlib.suppress(BufferError):
+                mm.close()
+
+    def close(self) -> None:
+        for name in list(self._maps):
+            self.release(name)
+        self._f.close()
+
+
+class _TensorDir:
+    """Name → CPU tensor access over a checkpoint directory: its
+    safetensors shards, else its ``pytorch_model*.bin`` files."""
+
+    def __init__(self, path: Path):
+        self.path = path
+        self._files: list[SafetensorsFile] = []
+        self._where: dict[str, SafetensorsFile] = {}
+        self._tensors: dict[str, torch.Tensor] = {}
+        st_files = sorted(path.glob("*.safetensors"))
+        if st_files:
+            for f in st_files:
+                sf = SafetensorsFile(f)
+                self._files.append(sf)
+                self._where.update((name, sf) for name in sf.keys())
+            return
+        bins = sorted(path.glob("pytorch_model*.bin"))
+        if bins:
+            for f in bins:
+                self._tensors.update(torch.load(f, map_location="cpu", weights_only=True))
+            return
+        raise FileNotFoundError(f"No *.safetensors or pytorch_model*.bin in {path}")
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._where or name in self._tensors
+
+    def get(self, name: str) -> torch.Tensor | None:
+        sf = self._where.get(name)
+        if sf is not None:
+            return sf.get(name)
+        return self._tensors.get(name)
+
+    def req(self, name: str) -> torch.Tensor:
+        t = self.get(name)
+        if t is None:
+            raise KeyError(f"Missing tensor {name!r} in {self.path}")
+        return t
+
+    def release(self, name: str) -> None:
+        sf = self._where.get(name)
+        if sf is not None:
+            sf.release(name)
+
+    def close(self) -> None:
+        for sf in self._files:
+            sf.close()
+
+
+# ---- spec inference (a copy of the JAX package's) --------------------------
+
+
+def spec_from_hf_config(cfg: dict[str, Any]) -> ModelSpec:
+    """``config.json`` → ModelSpec for the supported families."""
+    mt = cfg.get("model_type", "")
+    if mt == "gpt2":
+        d = cfg["n_embd"]
+        heads = cfg["n_head"]
+        return ModelSpec(
+            family="gpt2", vocab_size=cfg["vocab_size"], d_model=d,
+            n_layers=cfg["n_layer"], n_heads=heads, n_kv_heads=heads,
+            head_dim=d // heads, d_ff=cfg.get("n_inner") or 4 * d,
+            max_seq=cfg.get("n_positions", 1024), norm="layernorm",
+            norm_eps=cfg.get("layer_norm_epsilon", 1e-5), pos="learned",
+            act="gelu", use_bias=True, tied_lm_head=True,
+        ).validate()
+    if mt in ("llama", "mistral", "qwen2"):
+        d = cfg["hidden_size"]
+        heads = cfg["num_attention_heads"]
+        return ModelSpec(
+            family="llama", vocab_size=cfg["vocab_size"], d_model=d,
+            n_layers=cfg["num_hidden_layers"], n_heads=heads,
+            n_kv_heads=cfg.get("num_key_value_heads", heads),
+            head_dim=cfg.get("head_dim") or d // heads,
+            d_ff=cfg["intermediate_size"],
+            max_seq=cfg.get("max_position_embeddings", 4096),
+            norm="rmsnorm", norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            pos="rope", rope_theta=float(cfg.get("rope_theta", 10000.0)),
+            act="swiglu",
+            use_bias=bool(cfg.get("attention_bias", mt == "qwen2")),
+            tied_lm_head=bool(cfg.get("tie_word_embeddings", False)),
+            # mistral v0.1-style sliding window; null/absent = full causal.
+            # qwen2 is deliberately not windowed: HF applies its window per
+            # layer (none in stock configs) and this runtime has one global
+            # window, so full causal matches stock HF behavior.
+            sliding_window=(int(cfg.get("sliding_window") or 0)
+                            if mt == "mistral" else 0),
+            **_rope_scaling_fields(cfg),
+        ).validate()
+    if mt == "gemma":
+        d = cfg["hidden_size"]
+        heads = cfg["num_attention_heads"]
+        return ModelSpec(
+            family="gemma", vocab_size=cfg["vocab_size"], d_model=d,
+            n_layers=cfg["num_hidden_layers"], n_heads=heads,
+            n_kv_heads=cfg.get("num_key_value_heads", heads),
+            head_dim=cfg.get("head_dim") or d // heads,
+            d_ff=cfg["intermediate_size"],
+            max_seq=cfg.get("max_position_embeddings", 8192),
+            norm="rmsnorm", norm_eps=cfg.get("rms_norm_eps", 1e-6),
+            norm_offset=1.0,                    # gemma RMSNorm applies (1 + w)
+            pos="rope", rope_theta=float(cfg.get("rope_theta", 10000.0)),
+            act="geglu",                        # GELU-gated MLP
+            emb_scale=float(d) ** 0.5,          # embeddings scaled by sqrt(d)
+            use_bias=bool(cfg.get("attention_bias", False)),
+            tied_lm_head=bool(cfg.get("tie_word_embeddings", True)),
+            **_rope_scaling_fields(cfg),
+        ).validate()
+    if mt == "mixtral":
+        d = cfg["hidden_size"]
+        heads = cfg["num_attention_heads"]
+        return ModelSpec(
+            family="mixtral", vocab_size=cfg["vocab_size"], d_model=d,
+            n_layers=cfg["num_hidden_layers"], n_heads=heads,
+            n_kv_heads=cfg.get("num_key_value_heads", heads),
+            head_dim=cfg.get("head_dim") or d // heads,
+            d_ff=cfg["intermediate_size"],
+            max_seq=cfg.get("max_position_embeddings", 4096),
+            norm="rmsnorm", norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            pos="rope", rope_theta=float(cfg.get("rope_theta", 1e6)),
+            act="swiglu", use_bias=False,
+            tied_lm_head=bool(cfg.get("tie_word_embeddings", False)),
+            n_experts=cfg["num_local_experts"],
+            experts_per_token=cfg["num_experts_per_tok"],
+            **_rope_scaling_fields(cfg),
+        ).validate()
+    raise ValueError(f"Unsupported model_type {mt!r}")
+
+
+def _rope_scaling_fields(cfg: dict) -> dict:
+    """HF ``rope_scaling`` → ModelSpec fields. Only the llama3 recipe (the
+    3.1/3.2 checkpoints) is implemented; other types fail loudly — a model
+    served with unscaled frequencies would degrade past its original
+    context without any error."""
+    rs = cfg.get("rope_scaling")
+    if not rs:
+        return {}
+    rtype = rs.get("rope_type") or rs.get("type") or "default"
+    if rtype == "default":
+        return {}
+    if rtype != "llama3":
+        raise ValueError(
+            f"Unsupported rope_scaling type {rtype!r} (only 'llama3')")
+    return {
+        "rope_scaling": "llama3",
+        "rope_scaling_factor": float(rs.get("factor", 8.0)),
+        "rope_low_freq_factor": float(rs.get("low_freq_factor", 1.0)),
+        "rope_high_freq_factor": float(rs.get("high_freq_factor", 4.0)),
+        "rope_original_max_seq": int(
+            rs.get("original_max_position_embeddings", 8192)),
+    }
+
+
+# ---- weight mapping --------------------------------------------------------
+
+
+# Host → card copies go through a page-locked buffer of this size, reused
+# chunk by chunk (a pageable copy runs at a fraction of the rate).
+STAGE_BYTES = 64 << 20
+
+
+class _Filler:
+    """Allocates leaves on the device in the spec's dtype and fills them
+    from checkpoint tensors, one tensor at a time."""
+
+    def __init__(self, t: _TensorDir, device: torch.device, dtype: torch.dtype):
+        self.t, self.device, self.dtype = t, device, dtype
+        self._stage: torch.Tensor | None = None
+
+    def empty(self, *shape: int) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.dtype, device=self.device)
+
+    def put(self, dst: torch.Tensor, src: torch.Tensor, transpose: bool = False) -> None:
+        shape = tuple(src.shape[::-1] if transpose else src.shape)
+        if shape != tuple(dst.shape):
+            raise ValueError(f"checkpoint tensor of shape {shape} where the spec needs "
+                             f"{tuple(dst.shape)}")
+        if dst.device.type != "cpu":
+            src = self._to_device(src)  # the raw bytes over; transpose and cast there
+        dst.copy_(src.T if transpose else src)
+
+    def _to_device(self, src: torch.Tensor) -> torch.Tensor:
+        flat = src.contiguous().reshape(-1).view(torch.uint8)
+        out = torch.empty(flat.numel(), dtype=torch.uint8, device=self.device)
+        if self._stage is None:
+            self._stage = torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
+        stream = torch.cuda.current_stream(self.device)
+        for o in range(0, flat.numel(), STAGE_BYTES):
+            m = min(STAGE_BYTES, flat.numel() - o)
+            self._stage[:m].copy_(flat[o:o + m])
+            out[o:o + m].copy_(self._stage[:m], non_blocking=True)
+            stream.synchronize()  # the buffer is refilled next
+        return out.view(src.dtype).view(src.shape)
+
+    def fill(self, dst: torch.Tensor, name: str, transpose: bool = False) -> torch.Tensor:
+        self.put(dst, self.t.req(name), transpose)
+        self.t.release(name)
+        return dst
+
+    def leaf(self, name: str, transpose: bool = False) -> torch.Tensor:
+        src = self.t.req(name)
+        shape = src.shape[::-1] if transpose else src.shape
+        return self.fill(self.empty(*shape), name, transpose)
+
+
+def _load_gpt2(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
+    # transformers may prefix with "transformer."
+    p = "transformer." if "transformer.wte.weight" in t else ""
+    L, D, F = spec.n_layers, spec.d_model, spec.d_ff
+    blocks = {
+        "attn_norm_w": f.empty(L, D), "attn_norm_b": f.empty(L, D),
+        "wo": f.empty(L, D, D), "bo": f.empty(L, D),
+        "mlp_norm_w": f.empty(L, D), "mlp_norm_b": f.empty(L, D),
+        "w_up": f.empty(L, D, F), "b_up": f.empty(L, F),
+        "w_down": f.empty(L, F, D), "b_down": f.empty(L, D),
+        "wq": f.empty(L, D, D), "wk": f.empty(L, D, D), "wv": f.empty(L, D, D),
+        "bq": f.empty(L, D), "bk": f.empty(L, D), "bv": f.empty(L, D),
+    }
+    for i in range(L):
+        pre = f"{p}h.{i}."
+        f.fill(blocks["attn_norm_w"][i], pre + "ln_1.weight")
+        f.fill(blocks["attn_norm_b"][i], pre + "ln_1.bias")
+        w = t.req(pre + "attn.c_attn.weight")  # Conv1D [in, 3D]
+        b = t.req(pre + "attn.c_attn.bias")    # [3D]
+        for j, (wn, bn) in enumerate((("wq", "bq"), ("wk", "bk"), ("wv", "bv"))):
+            f.put(blocks[wn][i], w[:, j * D:(j + 1) * D])
+            f.put(blocks[bn][i], b[j * D:(j + 1) * D])
+        t.release(pre + "attn.c_attn.weight")
+        f.fill(blocks["wo"][i], pre + "attn.c_proj.weight")  # [in=D, out=D]
+        f.fill(blocks["bo"][i], pre + "attn.c_proj.bias")
+        f.fill(blocks["mlp_norm_w"][i], pre + "ln_2.weight")
+        f.fill(blocks["mlp_norm_b"][i], pre + "ln_2.bias")
+        f.fill(blocks["w_up"][i], pre + "mlp.c_fc.weight")     # [D, F]
+        f.fill(blocks["b_up"][i], pre + "mlp.c_fc.bias")
+        f.fill(blocks["w_down"][i], pre + "mlp.c_proj.weight")  # [F, D]
+        f.fill(blocks["b_down"][i], pre + "mlp.c_proj.bias")
+    blocks["w_gate"] = None
+    return {
+        "tok_emb": f.leaf(p + "wte.weight"),
+        "pos_emb": f.leaf(p + "wpe.weight"),
+        "final_norm_w": f.leaf(p + "ln_f.weight"),
+        "final_norm_b": f.leaf(p + "ln_f.bias"),
+        "lm_head": None,  # tied
+        "blocks": blocks,
+    }
+
+
+def _load_llama_family(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
+    p = "model." if "model.embed_tokens.weight" in t else ""
+    L, D, F, E = spec.n_layers, spec.d_model, spec.d_ff, spec.n_experts
+    H, K = spec.n_heads * spec.head_dim, spec.n_kv_heads * spec.head_dim
+    has_o_bias = f"{p}layers.0.self_attn.o_proj.bias" in t
+    blocks: dict[str, torch.Tensor | None] = {
+        "attn_norm_w": f.empty(L, D), "wq": f.empty(L, D, H), "wk": f.empty(L, D, K),
+        "wv": f.empty(L, D, K), "wo": f.empty(L, H, D), "mlp_norm_w": f.empty(L, D),
+    }
+    if spec.use_bias:
+        blocks.update(bq=f.empty(L, H), bk=f.empty(L, K), bv=f.empty(L, K))
+        if has_o_bias:
+            blocks.update(bo=f.empty(L, D))
+    if spec.is_moe:
+        blocks.update(router=f.empty(L, D, E), moe_w_gate=f.empty(L, E, D, F),
+                      moe_w_up=f.empty(L, E, D, F), moe_w_down=f.empty(L, E, F, D))
+    else:
+        blocks.update(w_gate=f.empty(L, D, F), w_up=f.empty(L, D, F), w_down=f.empty(L, F, D))
+    for i in range(L):
+        pre = f"{p}layers.{i}."
+        f.fill(blocks["attn_norm_w"][i], pre + "input_layernorm.weight")
+        for leaf, proj in (("wq", "q"), ("wk", "k"), ("wv", "v"), ("wo", "o")):
+            f.fill(blocks[leaf][i], pre + f"self_attn.{proj}_proj.weight", transpose=True)
+        if spec.use_bias:
+            for leaf, proj in (("bq", "q"), ("bk", "k"), ("bv", "v")):
+                f.fill(blocks[leaf][i], pre + f"self_attn.{proj}_proj.bias")
+            if has_o_bias:  # llama attention_bias puts one on o_proj too
+                f.fill(blocks["bo"][i], pre + "self_attn.o_proj.bias")
+        f.fill(blocks["mlp_norm_w"][i], pre + "post_attention_layernorm.weight")
+        if spec.is_moe:
+            f.fill(blocks["router"][i], pre + "block_sparse_moe.gate.weight", transpose=True)
+            for e in range(E):
+                epre = pre + f"block_sparse_moe.experts.{e}."
+                f.fill(blocks["moe_w_gate"][i, e], epre + "w1.weight", transpose=True)  # [D, F]
+                f.fill(blocks["moe_w_up"][i, e], epre + "w3.weight", transpose=True)    # [D, F]
+                f.fill(blocks["moe_w_down"][i, e], epre + "w2.weight", transpose=True)  # [F, D]
+        else:
+            f.fill(blocks["w_gate"][i], pre + "mlp.gate_proj.weight", transpose=True)
+            f.fill(blocks["w_up"][i], pre + "mlp.up_proj.weight", transpose=True)
+            f.fill(blocks["w_down"][i], pre + "mlp.down_proj.weight", transpose=True)
+    tok_emb = f.leaf(p + "embed_tokens.weight")
+    lm_head = None
+    if not spec.tied_lm_head:
+        if "lm_head.weight" in t:
+            lm_head = f.leaf("lm_head.weight", transpose=True)
+        else:
+            lm_head = f.empty(D, spec.vocab_size)
+            lm_head.copy_(tok_emb.T)
+    if spec.norm == "rmsnorm":
+        blocks.setdefault("attn_norm_b", None)
+        blocks.setdefault("mlp_norm_b", None)
+    if not spec.use_bias:
+        blocks.update(bq=None, bk=None, bv=None)
+    blocks.setdefault("bo", None)
+    if not spec.is_moe:
+        blocks.setdefault("b_up", None)
+        blocks.setdefault("b_down", None)
+    return {
+        "tok_emb": tok_emb,
+        "pos_emb": None,
+        "final_norm_w": f.leaf(p + "norm.weight"),
+        "final_norm_b": None,
+        "lm_head": lm_head,
+        "blocks": blocks,
+    }
+
+
+def load_hf_checkpoint(path: str | Path, dtype: str | None = None,
+                       device=None) -> tuple[ModelSpec, Params]:
+    """Load (spec, params) from a local HF checkpoint directory onto
+    ``device`` (default cuda) in ``dtype`` (default the spec's bf16)."""
+    path = Path(path)
+    spec = spec_from_hf_config(json.loads((path / "config.json").read_text()))
+    if dtype:
+        spec = dataclasses.replace(spec, dtype=dtype)
+    dev = resolve_device(device)
+    tensors = _TensorDir(path)
+    try:
+        filler = _Filler(tensors, dev, getattr(torch, spec.dtype))
+        with torch.no_grad():
+            if spec.family == "gpt2":
+                params = _load_gpt2(tensors, spec, filler)
+            else:
+                params = _load_llama_family(tensors, spec, filler)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+    finally:
+        tensors.close()
+    logger.info("Loaded %s checkpoint from %s (%d layers, vocab %d)",
+                spec.family, path, spec.n_layers, spec.vocab_size)
+    return spec, params

@@ -1,7 +1,9 @@
 """Seeded random parameter initialization for any :class:`ModelSpec`.
 
 Same leaf names, shapes and scaling as the JAX package's ``init_params``
-(normal · fan_in^-0.5, identity norms, zero biases); the random bits come
+(normal · fan_in^-0.5, identity norms, zero biases; MoE specs carry
+``router [L, D, E]``, ``moe_w_gate`` / ``moe_w_up [L, E, D, F]`` and
+``moe_w_down [L, E, F, D]`` in place of the dense MLP); the random bits come
 from a ``torch.Generator`` and so differ from JAX's. Stacked ``[L, …]``
 leaves are drawn one layer at a time, so a full 8B init never holds more
 than one layer's float32 temporary beside the bf16 weights.
@@ -55,9 +57,7 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype) -> Pa
     L, D, V = spec.n_layers, spec.d_model, spec.vocab_size
     H = spec.n_heads * spec.head_dim
     K = spec.n_kv_heads * spec.head_dim
-    F = spec.d_ff
-    if spec.is_moe:
-        raise NotImplementedError("MoE specs are not ported yet (dense models only)")
+    F, E = spec.d_ff, spec.n_experts
     # Stored norm weight such that the effective multiplier (norm_offset + w)
     # is identity: 1.0 for llama-style, 0.0 for gemma's (1 + w) convention.
     norm_one = 1.0 - spec.norm_offset
@@ -76,12 +76,22 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype) -> Pa
         "bo": full((L, D), 0.0, layered=True) if bias else None,
         "mlp_norm_w": full((L, D), norm_one, layered=True),
         "mlp_norm_b": full((L, D), 0.0, layered=True) if ln else None,
-        "w_gate": w(L, D, F, layered=True) if spec.gated_mlp else None,
-        "w_up": w(L, D, F, layered=True),
-        "w_down": w(L, F, D, layered=True),
-        "b_up": full((L, F), 0.0, layered=True) if bias else None,
-        "b_down": full((L, D), 0.0, layered=True) if bias else None,
     }
+    if spec.is_moe:
+        blocks.update(
+            router=w(L, D, E, layered=True),
+            moe_w_gate=w(L, E, D, F, fan_in=D, layered=True),
+            moe_w_up=w(L, E, D, F, fan_in=D, layered=True),
+            moe_w_down=w(L, E, F, D, fan_in=F, layered=True),
+        )
+    else:
+        blocks.update(
+            w_gate=w(L, D, F, layered=True) if spec.gated_mlp else None,
+            w_up=w(L, D, F, layered=True),
+            w_down=w(L, F, D, layered=True),
+            b_up=full((L, F), 0.0, layered=True) if bias else None,
+            b_down=full((L, D), 0.0, layered=True) if bias else None,
+        )
     return {
         "tok_emb": w(V, D, fan_in=D),
         "pos_emb": w(spec.max_seq, D, fan_in=D) if spec.pos == "learned" else None,

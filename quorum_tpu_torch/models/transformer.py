@@ -1,5 +1,5 @@
-"""Decoder-only transformer forward on torch tensors: the dense half of the
-JAX package's models/transformer.py.
+"""Decoder-only transformer forward on torch tensors: the JAX package's
+models/transformer.py, dense and Mixtral-style MoE layers.
 
 Layouts match the JAX package at every public function so tests compare
 like with like: params are a dict with per-layer weights stacked
@@ -33,7 +33,18 @@ sets it.
 
 Matrix products accumulate in float32 where the JAX code asked for
 ``preferred_element_type=float32``; in bf16 on the card cuBLAS accumulates
-in float32 and rounds the output to bf16.
+in float32 and rounds the output to bf16. The MoE router is the exception:
+its logits decide which experts run, so they are computed in float32 from
+the bf16 operands (exact products, f32 sums) and never rounded to bf16.
+
+MoE layers (``spec.n_experts > 0``) follow the JAX package: a prompt
+(T > 1) runs the grouped path (:func:`_moe_mlp_grouped`: fixed-capacity
+expert buffers, overflow picks dropped, pad tokens kept out of capacity),
+a decode step (T == 1) the dense path (:func:`_moe_mlp_dense`: every
+expert on every row, static shapes, so it captures into the decode
+graphs). The expert products are batched matmuls, outside any kernel, as
+in the JAX package. Member-stacked params carry no MoE leaves (stacked
+engines refuse MoE specs).
 """
 
 from __future__ import annotations
@@ -164,6 +175,110 @@ def _dense_mlp(x, block, spec: ModelSpec):
     return out.to(x.dtype)
 
 
+def _moe_router(x, block, spec: ModelSpec):
+    """Top-k routing (Mixtral: softmax over the k selected logits). Returns
+    (top_probs [B, T, k] f32, top_idx [B, T, k] int64).
+
+    Logits are f32 (JAX: ``preferred_element_type=float32``). Ties pick
+    the lower expert index first, as ``lax.top_k`` does: a stable
+    descending sort keeps equal logits in index order (``torch.topk``
+    leaves their order unspecified)."""
+    logits = torch.matmul(x.float(), block["router"].float())
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = spec.experts_per_token
+    return torch.softmax(vals[..., :k], dim=-1), idx[..., :k]
+
+
+def _expert_ffn(xe, block, dtype):
+    """SwiGLU experts as batched products: xe [E or 1, N, D] against the
+    stacked [E, D, F] / [E, F, D] weights → [E, N, D] f32."""
+    gate = torch.matmul(xe, block["moe_w_gate"]).float()
+    up = torch.matmul(xe, block["moe_w_up"]).float()
+    h = (F.silu(gate) * up).to(dtype)
+    return torch.matmul(h, block["moe_w_down"]).float()
+
+
+def _moe_mlp_dense(x, block, spec: ModelSpec):
+    """Top-k MoE computed densely: every expert runs on every token and the
+    combine weight (zero outside the top-k) reproduces sparse routing. The
+    decode path and the oracle: at T == 1 every expert's weights are read
+    anyway. Static shapes, no host read: it runs inside decode graphs."""
+    b, t, d = x.shape
+    top_probs, top_idx = _moe_router(x, block, spec)
+    experts = torch.arange(spec.n_experts, device=x.device)
+    one_hot = (top_idx[..., None] == experts).to(top_probs.dtype)
+    combine = torch.einsum("btk,btke->bte", top_probs, one_hot).reshape(b * t, -1)
+    expert_out = _expert_ffn(x.reshape(1, b * t, d), block, x.dtype)   # [E, N, D]
+    out = torch.einsum("ne,end->nd", combine, expert_out)
+    return out.reshape(b, t, d).to(x.dtype)
+
+
+def moe_capacity(spec: ModelSpec, n: int) -> int:
+    """Rows of each expert's buffer for ``n`` tokens: the JAX package's
+    ``min(n, ceil(int(cf·k·n) / E))`` (``int`` truncates first)."""
+    e, k = spec.n_experts, spec.experts_per_token
+    return min(n, max(1, -(-int(spec.moe_capacity_factor * k * n) // e)))
+
+
+def _moe_mlp_grouped(x, block, spec: ModelSpec, token_mask=None):
+    """Sparse top-k MoE with static per-expert capacity (GShard style), the
+    JAX package's ``_moe_mlp_grouped`` step for step.
+
+    Picks are ranked within their expert in token-major, k-minor order (a
+    cumsum over the picks); a pick whose rank reaches the capacity drops
+    (it contributes nothing). ``token_mask`` [B, T] (False = right
+    padding) routes a pad token's picks to expert index E, so they take no
+    capacity. Each expert runs its buffer ``[C, D]`` in one batched
+    product; unfilled buffer rows gather a clamped row and are zeroed. No
+    host read: the dispatch is a scatter into a flat buffer whose last
+    entry takes every pick that does not land."""
+    b, t, d = x.shape
+    n = b * t
+    e, k = spec.n_experts, spec.experts_per_token
+    cap = moe_capacity(spec, n)
+    p = n * k
+    dev = x.device
+
+    top_probs, top_idx = _moe_router(x, block, spec)
+    xf = x.reshape(n, d)
+    e_p = top_idx.reshape(p)
+    prob_p = top_probs.reshape(p)
+    if token_mask is not None:
+        pick_valid = token_mask.reshape(n).repeat_interleave(k)
+        e_p = torch.where(pick_valid, e_p, torch.full_like(e_p, e))
+        prob_p = prob_p * pick_valid.to(prob_p.dtype)
+    one_hot = (e_p[:, None] == torch.arange(e, device=dev)).to(torch.int32)  # [P, E]; E → 0s
+    ranks = torch.cumsum(one_hot, dim=0) - 1
+    c_p = ranks.gather(1, e_p.clamp(max=e - 1)[:, None])[:, 0]
+    lands = (e_p < e) & (c_p < cap)
+    flat = torch.where(lands, e_p * cap + c_p, torch.full_like(e_p, e * cap))
+    pick_buf = torch.full((e * cap + 1,), p, dtype=torch.long, device=dev)
+    pick_buf.scatter_(0, flat, torch.arange(p, device=dev))
+    pick_buf = pick_buf[:e * cap].reshape(e, cap)
+    tok_buf = torch.where(pick_buf < p, pick_buf // k, torch.full_like(pick_buf, n))
+    expert_in = xf[tok_buf.clamp(max=n - 1)] * (tok_buf < n).to(xf.dtype)[..., None]
+
+    expert_out = _expert_ffn(expert_in, block, x.dtype)                 # [E, C, D]
+    valid = c_p < cap
+    out_p = expert_out[e_p.clamp(max=e - 1), c_p.clamp(max=cap - 1)]
+    out_p = out_p * (prob_p * valid.to(prob_p.dtype))[:, None]
+    return out_p.reshape(n, k, d).sum(dim=1).reshape(b, t, d).to(x.dtype)
+
+
+def _moe_mlp(x, block, spec: ModelSpec, token_mask=None):
+    # T == 1 is decode: dense reads every expert either way and keeps
+    # generation exact against the oracle.
+    if x.shape[1] == 1:
+        return _moe_mlp_dense(x, block, spec)
+    return _moe_mlp_grouped(x, block, spec, token_mask=token_mask)
+
+
+def _mlp(x, block, spec: ModelSpec, token_mask=None):
+    if spec.is_moe:
+        return _moe_mlp(x, block, spec, token_mask=token_mask)
+    return _dense_mlp(x, block, spec)
+
+
 def _qkv(x, block, spec: ModelSpec):
     """Project to contiguous q [B,H,T,hd], k/v [B,K,T,hd]."""
     b, t, _ = x.shape
@@ -220,19 +335,15 @@ def _final_norm(params, spec: ModelSpec, x):
     return _norm(x, params["final_norm_w"], params.get("final_norm_b"), spec)
 
 
-def _block(x, block, spec, q_k_v_to_attn):
-    """One transformer block around an attention callable."""
+def _block(x, block, spec, q_k_v_to_attn, token_mask=None):
+    """One transformer block around an attention callable; ``token_mask``
+    [B, T] keeps right-padding out of MoE expert capacity."""
     h = _norm(x, block["attn_norm_w"], block.get("attn_norm_b"), spec)
     q, k, v = _qkv(h, block, spec)
     attn, k, v = q_k_v_to_attn(q, k, v)
     x = x + _attn_out(attn, block, x.dtype)
     h2 = _norm(x, block["mlp_norm_w"], block.get("mlp_norm_b"), spec)
-    return x + _dense_mlp(h2, block, spec)
-
-
-def _dense_only(spec: ModelSpec) -> None:
-    if spec.is_moe:
-        raise NotImplementedError("MoE specs are not ported yet (dense models only)")
+    return x + _mlp(h2, block, spec, token_mask=token_mask)
 
 
 def prefill(
@@ -255,7 +366,6 @@ def prefill(
     members' rows), else at rows ``[0, B)``. With member-stacked params,
     batch row m is member m's prompt (one per member) and attention runs as
     one K1 launch per layer over the M rows, each at its own length."""
-    _dense_only(spec)
     b, t = tokens.shape
     dev = tokens.device
     positions = torch.arange(t, device=dev)
@@ -271,6 +381,7 @@ def prefill(
             src = host_to_device(keep, torch.long, dev)
     attn_fn = prefill_attention if plain_attention else flash_prefill_attention
     blocks = params["blocks"]
+    moe_mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]) if spec.is_moe else None
 
     for l in range(spec.n_layers):
         def attend(q, k, v, l=l):
@@ -281,7 +392,7 @@ def prefill(
             cache_v[l, dst, :, :t] = v[src]
             return attn_fn(q, k, v, lengths, window=spec.sliding_window), k, v
 
-        x = _block(x, _layer(blocks, l), spec, attend)
+        x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask)
     x = _final_norm(params, spec, x)
     # Only the last real token's logits matter for generation; gather per row.
     last = x[torch.arange(b, device=x.device), lengths.long() - 1]
@@ -310,6 +421,7 @@ def prefill_segment(
     cache_v: torch.Tensor,
     rows: list[int | None],       # [B] cache row of batch row b; None writes nothing
     history: int,                 # attend over cache[:history] of the row
+    n_valid: list[int] | None = None,  # [B] real tokens per row (MoE capacity)
 ):
     """Chunked prefill: positions ``[offsets[b], offsets[b] + T)`` of cache
     row ``rows[b]``. Each segment's K/V is written into the row in place,
@@ -331,8 +443,9 @@ def prefill_segment(
     scores ``[B, K, G, T, history]`` live for one layer. Padded tail
     positions write K/V past the prompt, which every later read masks and
     decoding overwrites. ``offset + T`` must not cross ``max_seq`` (the
-    engine keeps offsets multiples of a chunk that divides it)."""
-    _dense_only(spec)
+    engine keeps offsets multiples of a chunk that divides it).
+    ``n_valid[b]`` (default: all T) keeps row b's padded tail out of MoE
+    expert capacity (JAX: ``arange(T) < n_valid``)."""
     b, t = tokens.shape
     dev = tokens.device
     hist = min(history, spec.max_seq)
@@ -350,6 +463,10 @@ def prefill_segment(
     if spec.sliding_window > 0:
         visible = visible & (ki > positions[:, :, None] - spec.sliding_window)
     mask = visible[:, None, None]                                  # [B, 1, 1, T, hist]
+    moe_mask = None
+    if spec.is_moe and n_valid is not None:
+        moe_mask = (torch.arange(t, device=dev)[None, :]
+                    < host_to_device(n_valid, torch.long, dev)[:, None])
     blocks = params["blocks"]
 
     for l in range(spec.n_layers):
@@ -364,7 +481,7 @@ def prefill_segment(
             row_v = cache_v[l][read, :, :hist].to(q.dtype)
             return attention(q, row_k, row_v, mask), k, v
 
-        x = _block(x, _layer(blocks, l), spec, attend)
+        x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask)
     return cache_k, cache_v
 
 
@@ -397,8 +514,7 @@ def decode_step_blocks(
     ``write_mask`` False write back what the cache already held — an
     inactive slot must not clobber a freshly admitted row), attention over
     each row's ``lengths + 1`` live entries. Returns ``(x, cache_k,
-    cache_v)`` with ``x`` still pre-final-norm."""
-    _dense_only(spec)
+    cache_v)`` with ``x`` still pre-final-norm. MoE layers run dense."""
     b = x.shape[0]
     cos, sin = _rope(spec, x.device)
     rows = torch.arange(b, device=x.device)
@@ -562,12 +678,16 @@ def decode_loop(
             sample_carry, aux)
 
 
-def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor) -> torch.Tensor:
+def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor,
+                   lengths: torch.Tensor | None = None) -> torch.Tensor:
     """Full-sequence logits [B, T, V] f32 with no KV cache (the eval forward
-    and the cache-free ground truth for prefill/decode consistency)."""
-    _dense_only(spec)
+    and the cache-free ground truth for prefill/decode consistency).
+    Right-padded MoE batches pass ``lengths`` [B], which keeps pad tokens
+    out of expert capacity."""
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device)
+    moe_mask = (None if lengths is None or not spec.is_moe
+                else positions[None, :] < lengths.to(tokens.device)[:, None])
     x = _embed(params, spec, tokens, positions)
     cos, sin = _rope(spec, tokens.device)
     mask = causal_mask(t, t, window=spec.sliding_window, device=tokens.device)
@@ -579,7 +699,7 @@ def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor) -> tor
         return attention(q, k, v, mask), k, v
 
     for l in range(spec.n_layers):
-        x = _block(x, _layer(params["blocks"], l), spec, attend)
+        x = _block(x, _layer(params["blocks"], l), spec, attend, token_mask=moe_mask)
     return _unembed(params, spec, _final_norm(params, spec, x))
 
 
