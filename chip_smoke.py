@@ -8,7 +8,7 @@ Phases, each printing one JSON line; any failure exits nonzero before the
 result line:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds both kernels from csrc/ in parallel; ptxas's
+  2. build    nvcc builds the three kernels from csrc/ in parallel; ptxas's
               registers / shared memory / spills per kernel, and the count of
               HGMMA (wgmma) instructions in K1's library (must be > 0);
   3. kernels  K1 (prefill) and K2 (decode) against their plain versions on
@@ -20,7 +20,13 @@ result line:
               (bound), plus K1 at the serve phase's three largest prompt
               buckets and the scheduler phase's 8192 bucket at their real
               lengths (checked too), and at B=3 ragged rows (one
-              coalesced member admission) at the serve buckets;
+              coalesced member admission) at the serve buckets; K2q8 (int8
+              cache) against its plain version at K2's shapes (f32 and bf16
+              q, window 0 and 4096) with its time, the plain version's, its
+              bound and K2's time on the same lengths; the int8 weight
+              products (torch._int_mm) at llama-3-8b widths and 1/4/12/32
+              rows equal to the exact integer products, timed beside the
+              bf16 products;
   4. model    llama-3-8b widths at 2 layers: prefill + decode steps through
               the kernels against the same steps through the plain attention;
               a 2048-token prompt as 4 segments against one K1 prefill;
@@ -86,7 +92,9 @@ result line:
               bit for bit, two greedy requests (one streamed) on the llama
               one whose tokens equal an engine built with params= the
               in-memory weights; bytes, write and load seconds, load GB/s,
-              RSS around each load and the process's peak;
+              RSS around each load and the process's peak; the llama one
+              loaded again with quant=int8 (quantized on the card as it
+              loads), every leaf equal to the in-memory quantized tree's;
  10. moe      cuda://mixtral-8x7b?n_layers=16 (full width, bf16, seed 0, 4
               slots, the default scheduler) behind the app: the serve
               phase's 4 concurrent requests (grouped MoE in single-shot
@@ -96,13 +104,23 @@ result line:
               the weight-read bound, tok/s, captures, peak and free memory;
               then on layer 0 the grouped MoE against the dense oracle at
               cf = E/k on the 3017-token prompt, and the picks cf=2 drops;
- 11. kernels  one line listing both kernels (launches per phase, errors,
-              timings, route, share of the bound, how the main path issues
-              them: K1 eagerly, K2 inside decode-graph replays);
+ 11. quant    cuda://…?quant=int8&kv_quant=int8 behind the app, the serve
+              phase's 4 requests: llama-3-8b (32 layers) and then
+              mixtral-8x7b at all 32 layers (46.7 GB of int8 weights, one
+              card), K1 = layers × single-shot, K2q8 = layers × (decode +
+              warm-up steps), K2 = 0, device ms per 8-step chunk against the
+              int8 weight-read bound, init seconds, peak memory, the llama
+              greedy texts' token agreement with the serve phase's bf16
+              ones; an int8-cache decode chunk replayed from a graph equal
+              to its eager call bit for bit;
+ 12. kernels  one line listing the three kernels (launches per phase,
+              errors, timings, route, share of the bound, how the main path
+              issues them: K1 eagerly, K2 and K2q8 inside decode-graph
+              replays);
 
 K2 launch counts are exact in every phase: layers × (decode steps + the one
 eager warm-up step each engine runs before its first capture); a replay adds
-the K2 calls its graph captured.
+the K2 calls its graph captured. K2q8 counts the same way on int8 caches.
 
 Kernel, plain and library times (``ms``, ``plain_ms``, ``library_ms``) are
 device time per call from one CUDA graph that replays the calls over enough
@@ -132,7 +150,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Peak rates of one H100 SXM (data sheet; dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 FMA units
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,  # bf16 tensor cores; f32 FMA units
+              "int8": 1979e12}  # int8 tensor-core operations
 
 # Tolerances of kernel against plain version, per dtype: f32 differs only in
 # summation order (online vs two-pass softmax); bf16 differs by where the
@@ -144,6 +163,10 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # of bf16 matmuls and a bf16 unembed (logits are O(1); one bf16 ulp at 4 is
 # 0.03).
 MODEL_TOL = {"float32": 2e-3, "bfloat16": 0.25}
+# K2q8 is held to ops/flash_decode_q8.error_bound per output element,
+# computed from the plain version's own probabilities: only a probability
+# within 1e-5 of a rounding boundary may quantize one step apart (ps·|v8|
+# each), plus 1e-5 of the output and, for bf16, one bf16 ulp of it.
 # Per-request deadline in the serve and fanout phases: the run fails, never hangs.
 SERVE_TIMEOUT_S = 150
 
@@ -510,7 +533,133 @@ def phase_kernels(torch, cpu: bool, tiny: bool, median_ms, graph_ms) -> dict:
         require(all(int(c.abs().sum()) == 0 for c in ticket_counters()),
                 "K2 ticket counters are not back at 0 after the timed graph replays")
     emit("kernels", kernel="flash_decode", timing=results["flash_decode"])
+    results["flash_decode_q8"] = _kernels_q8(torch, cpu, tiny, rnd, median_ms, graph_ms,
+                                             results["flash_decode"]["ms"])
+    _kernels_int_mm(torch, cpu, tiny, graph_ms)
     return results
+
+
+def _kernels_q8(torch, cpu: bool, tiny: bool, rnd, median_ms, graph_ms, k2_ms) -> dict:
+    """K2q8 (int8-cache decode attention) against its plain version at K2's
+    shapes: 4 slots, T=8192, lengths 1/100/4096/8191, window 0 and 4096,
+    q in f32 and bf16 (the cache int8 with f32 per-token scales); then its
+    time, the plain version's, the bound (the live int8 rows and their
+    scales) and K2's time on the same lengths (bf16 cache)."""
+    from quorum_tpu_torch.ops.attention import (_int_dot, decode_attention_q8,
+                                                q8_probabilities, quantize_rows)
+    from quorum_tpu_torch.ops.flash_decode import decode_n_splits, decode_split_plan
+    from quorum_tpu_torch.ops.flash_decode_q8 import error_bound, flash_decode_q8_attention
+
+    dev = "cpu" if cpu else "cuda"
+    h, kv, hd = (4, 2, 64) if tiny else (32, 8, 128)
+    t = 256 if tiny else 8192
+    lens = [1, 100, 200, 255] if tiny else [1, 100, 4096, 8191]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def cache():
+        k8, ks = quantize_rows(rnd(4, kv, t, hd, dtype=torch.float32), -1)
+        v8, vs = quantize_rows(rnd(4, kv, t, hd, dtype=torch.float32), -1)
+        return k8, ks[..., 0].contiguous(), v8, vs[..., 0].contiguous()
+
+    def faults(args, w, ref, bound):
+        """Outputs of two broken kernels, each of which the limit must
+        reject: the longest row's first split's p·V partial zeroed, and the
+        first key of its range dropped."""
+        q, k8, ks, v8, vs = args
+        _, p8, ps = q8_probabilities(q, k8, ks, vs, lengths, w)
+        begin, end = decode_split_plan(lens[-1], t, decode_n_splits(4, kv), w)[0]
+        p8 = p8.clone()
+        p8[-1, ..., begin:end] = 0
+        zeroed = (_int_dot("bkgst,bktd->bkgsd", p8, v8) * ps).reshape(ref.shape)
+        span = w or lens[-1]
+        shifted = decode_attention_q8(q, k8, ks, v8, vs, lengths, window=span - 1).float()
+        return {"split_zeroed": bool(((zeroed - ref).abs() > bound).any()),
+                "first_key_dropped": bool(((shifted - ref).abs() > bound).any())}
+
+    out = {"max_abs_err": 0.0, "max_err_over_bound": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for w in ((0, 64) if tiny else (0, 4096)):
+            q = rnd(4, h, 1, hd, dtype=dtype)
+            k8, ks, v8, vs = cache()
+            n0 = flash_decode_q8_attention.launches
+            got = flash_decode_q8_attention(q, k8, ks, v8, vs, lengths, window=w)
+            ref = decode_attention_q8(q, k8, ks, v8, vs, lengths, window=w).float()
+            bound = error_bound(q, k8, ks, v8, vs, lengths, window=w)
+            diff = (got.float() - ref).abs()
+            err = diff.max().item()
+            over = (diff / bound.clamp_min(1e-30)).max().item()
+            caught = faults((q, k8, ks, v8, vs), w, ref, bound)
+            require(bool(torch.isfinite(got.float()).all()), f"K2q8 non-finite W={w}")
+            require(cpu or flash_decode_q8_attention.launches == n0 + 1,
+                    "K2q8: one call must count one launch")
+            emit("kernels", kernel="flash_decode_q8", dtype=dname, T=t, window=w, lengths=lens,
+                 max_abs_err=err, max_err_over_bound=over, max_bound=bound.max().item(),
+                 faults_caught=caught)
+            require(bool((diff <= bound).all()), f"K2q8 {dname} W={w}: err {err} beyond "
+                                                 f"error_bound ({over} of it)")
+            require(all(caught.values()), f"K2q8 {dname} W={w}: error_bound misses {caught}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["max_err_over_bound"] = max(out["max_err_over_bound"], over)
+    live = sum(lens)
+    flops = 4 * h * live * hd  # int8 products and adds of q·K and p·V
+    nbytes = live * kv * (2 * hd + 2 * 4) + 2 * 2 * 4 * h * hd + 4 * 4
+    sets = [(rnd(4, h, 1, hd, dtype=torch.bfloat16), *cache(), lengths)
+            for _ in range(1 if cpu else _copies(nbytes))]
+    bound_ms, bound_by = _bound(flops, nbytes, "int8")
+    ms = graph_ms([lambda a=a: flash_decode_q8_attention(*a) for a in sets])
+    a0 = sets[0]
+    out.update(
+        shape={"B": 4, "H": h, "K": kv, "T": t, "hd": hd, "dtype": "bfloat16", "cache": "int8",
+               "window": 0, "lengths": lens},
+        route="dp4a", ms=ms, eager_ms=median_ms(lambda: flash_decode_q8_attention(*a0)),
+        plain_ms=graph_ms([lambda a=a: decode_attention_q8(*a) for a in sets]),
+        library_ms=None, library="none: no single PyTorch call computes int8 attention",
+        flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+        pct_of_bound=100 * bound_ms / ms, k2_ms_same_lengths_bf16=k2_ms)
+    del sets
+    emit("kernels", kernel="flash_decode_q8", timing=out)
+    return out
+
+
+def _kernels_int_mm(torch, cpu: bool, tiny: bool, graph_ms) -> None:
+    """The int8 weight products (``models/quant.qeinsum``: ``torch._int_mm``
+    on the card, no kernel of this repository) at llama-3-8b widths and 1,
+    4, 12 and 32 rows: the integer product equal to the exact one (float64
+    of the same int8 operands), and the whole w8a8 product's time (quantize
+    x, int8 GEMM, rescale) beside the bf16 product of the same shape and the
+    int8 weight-read bound."""
+    from quorum_tpu_torch.models import quant as tq
+
+    dev = "cpu" if cpu else "cuda"
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    d, f, kvd, v = (64, 128, 32, 512) if tiny else (4096, 14336, 1024, 128256)
+    rows_out = []
+    for name, k, n in (("wq", d, d), ("wk", d, kvd), ("w_gate", d, f), ("w_down", f, d),
+                       ("lm_head", d, v)):
+        w = torch.randn(k, n, generator=gen).to(dev, torch.bfloat16)
+        # Copies of the weight to rotate through (an L2's worth on the card).
+        leaves = [tq.quantize_weight(w, -2) for _ in range(1 if cpu else _copies(k * n))]
+        ws = [w] + [torch.randn(k, n, generator=gen).to(dev, torch.bfloat16)
+                    for _ in range(0 if cpu else _copies(2 * k * n) - 1)]
+        for m in (1, 4, 12, 32):
+            x = torch.randn(m, k, generator=gen).to(dev, torch.bfloat16)
+            x8, _ = tq.quantize_act(x, leaves[0])
+            exact = (x8.double() @ leaves[0]["q8"].double().T).float()
+            got = tq._int_mm(x8, leaves[0]["q8"])
+            require(torch.equal(got, exact), f"qeinsum {name} rows={m}: the int8 product is "
+                                             "not the exact integer product")
+            row = {"product": name, "rows": m, "K": k, "N": n, "exact": True}
+            if m in (4, 32) or tiny:
+                b_ms, _ = _bound(2 * m * k * n, k * n + 4 * n + 2 * m * (k + n), "int8")
+                row.update(ms=graph_ms([lambda lf=lf: tq.qeinsum("...d,df->...f", x, lf)
+                                        for lf in leaves]),
+                           bf16_ms=graph_ms([lambda wt=wt: torch.matmul(x, wt) for wt in ws]),
+                           bound_ms=b_ms)
+            rows_out.append(row)
+        del leaves, ws
+    emit("kernels", kernel="qeinsum_int_mm", note="torch._int_mm, not a kernel of this repo",
+         rows=rows_out)
 
 
 def phase_model(torch, cpu: bool, tiny: bool) -> None:
@@ -983,6 +1132,26 @@ def _check_response(resp: dict, body: dict, tokenizer, max_tokens: int) -> dict:
     return out
 
 
+def _serve_bodies(model: str, tiny: bool) -> list[dict]:
+    """The serve phase's 4 concurrent requests (prompts of 57, 317, 1217
+    and 3017 byte tokens with the chat template; greedy and non-streamed,
+    greedy and streamed, sampled and non-streamed, sampled and streamed)."""
+    max_tokens = 16 if tiny else 32
+    sizes = (12, 30, 50, 80) if tiny else (40, 300, 1200, 3000)
+
+    def body(i, stream, sampled):
+        b = {"model": model, "messages": [{"role": "user", "content": _prompt(sizes[i], i)}],
+             "max_tokens": max_tokens, "stream": stream}
+        b.update({"temperature": 0.8, "top_p": 0.9, "top_k": 50, "seed": i}
+                 if sampled else {"temperature": 0})
+        if stream:
+            b["stream_options"] = {"include_usage": True}
+        return b
+
+    return [body(0, False, False), body(1, True, False), body(2, False, True),
+            body(3, True, True)]
+
+
 def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) -> dict:
     from quorum_tpu_torch.config import Config
     from quorum_tpu_torch.engine.engine import shutdown_all_engines
@@ -1003,19 +1172,7 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
     build_s = time.perf_counter() - t0
     n_layers = engine.spec.n_layers
     max_tokens = 16 if tiny else 32
-    sizes = (12, 30, 50, 80) if tiny else (40, 300, 1200, 3000)
-
-    def body(i, stream, sampled):
-        b = {"model": model, "messages": [{"role": "user", "content": _prompt(sizes[i], i)}],
-             "max_tokens": max_tokens, "stream": stream}
-        b.update({"temperature": 0.8, "top_p": 0.9, "top_k": 50, "seed": i}
-                 if sampled else {"temperature": 0})
-        if stream:
-            b["stream_options"] = {"include_usage": True}
-        return b
-
-    bodies = [body(0, False, False), body(1, True, False), body(2, False, True),
-              body(3, True, True)]
+    bodies = _serve_bodies(model, tiny)
     # Every launch counter to 0 just before the main path, read just after.
     flash_prefill_attention.launches = 0
     flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
@@ -1094,6 +1251,8 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
         "peak_mem_gb": (None if cpu else round(torch.cuda.max_memory_allocated() / 1e9, 3)),
     }
     emit("serve", **info)
+    # The greedy requests' texts, for the quant phase's agreement share.
+    info["greedy_texts"] = [c["text"] for b, c in zip(bodies, checked) if "seed" not in b]
     if profile:
         async def one_round():
             return await asyncio.gather(*[_call(app, b) for b in bodies])
@@ -1901,12 +2060,23 @@ def _parallel_complete(resp: dict) -> dict:
 def _require_card_empty(torch, cpu: bool, what: str) -> None:
     """Before a phase builds its engines, the previous phase's must be gone
     (a stacked engine's leaves are 3× larger blocks than freed
-    single-engine ones, so fragments would not do)."""
+    single-engine ones, so fragments would not do). cuBLAS keeps a
+    workspace per (handle, stream) — every engine thread and every side
+    stream of a timing adds one — which is the library's, not a leftover
+    of the phase: they are released first."""
     gc.collect()
     if not cpu:
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()
-        require(held < 1e9, f"{what}: {held / 1e9:.3f} GB still allocated before the build")
+        if held >= 1e9:
+            live = sorted(((o.numel() * o.element_size(), tuple(o.shape), str(o.dtype))
+                           for o in gc.get_objects()
+                           if isinstance(o, torch.Tensor) and o.is_cuda), reverse=True)
+            require(False, f"{what}: {held / 1e9:.3f} GB still allocated before the build; "
+                           f"largest live tensors {live[:6]}")
 
 
 def _fanout_urls(model: str, extra: str, stacked: bool, knobs: str = "") -> list[str]:
@@ -2473,6 +2643,7 @@ def phase_checkpoint(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
                 single_shot += spec.n_layers * (
                     m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
                     + mr["admission_dispatches_total"])
+                row["quant_int8_reload"] = _ckpt_quant_reload(torch, cpu, model, path, params)
             out[model] = row
             del app, backend, eng, params, loaded, want, ref
             shutdown_all_engines()
@@ -2491,6 +2662,48 @@ def phase_checkpoint(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
                peak_mem_gb=None if cpu else round(torch.cuda.max_memory_allocated() / 1e9, 3))
     emit("checkpoint", **out)
     return out
+
+
+def _ckpt_quant_reload(torch, cpu: bool, model: str, path: str, params) -> dict:
+    """The checkpoint again through the app with ``quant=int8`` (quantized
+    on the card tensor by tensor as it loads): every leaf must equal the
+    in-memory quantized engine's (``quantize_params`` of the written bf16
+    weights) bit for bit."""
+    from quorum_tpu_torch.config import Config
+    from quorum_tpu_torch.engine.engine import shutdown_all_engines
+    from quorum_tpu_torch.models.quant import quantize_params, quantized_param_bytes
+    from quorum_tpu_torch.server.app import create_app
+
+    url = f"cuda://{model}?ckpt={path}&quant=int8" + ("&device=cpu" if cpu else "")
+    cfg = Config(raw={"primary_backends": [{"name": "ckpt_q8", "url": url}],
+                      "settings": {"timeout": SERVE_TIMEOUT_S}})
+    t0 = time.perf_counter()
+    app = create_app(cfg)
+    if not cpu:
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng = app.state["registry"].backends[0].engine
+    want = quantize_params(params)
+    got_leaves, want_leaves = list(_tensors(eng.params)), list(_tensors(want))
+    require(len(got_leaves) == len(want_leaves) and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        for a, b in zip(got_leaves, want_leaves)),
+        f"{model}: a quant=int8 leaf of the checkpoint differs from the in-memory engine's")
+    out = {"load_s": round(load_s, 3), "leaves_equal": len(got_leaves),
+           "weights_gb": round(quantized_param_bytes(eng.params) / 1e9, 3)}
+    del app, eng, want, got_leaves, want_leaves
+    shutdown_all_engines()
+    return out
+
+
+def _tensors(tree):
+    """Every tensor of a (possibly quantized) tree, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        elif v is not None:
+            yield v
 
 
 def _llama_family_bytes(spec) -> int:
@@ -2723,18 +2936,238 @@ def phase_moe(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) ->
     return info
 
 
+def phase_quant(torch, cpu: bool, tiny: bool, device_info: dict, serve: dict | None,
+                profile: bool = False) -> dict:
+    """int8 weights and the int8 KV cache behind the app (``cuda://…?
+    quant=int8&kv_quant=int8``: random init, seed 0, 4 slots × the model's
+    window, the default scheduler), the serve phase's 4 requests:
+    (a) llama-3-8b at full width and 32 layers; (b) mixtral-8x7b at full
+    width and all 32 layers. Each leg requires K1 = layers × single-shot
+    dispatches, K2q8 = layers × (decode + warm-up steps) and K2 = 0
+    exactly, and prints the app's build seconds (the quantized init), the
+    device ms per 8-step chunk against the int8 weight-read bound, tok/s
+    and peak memory. The llama leg also gives its greedy texts' token
+    agreement with the serve phase's bf16 engine as a share (int8 rounds
+    differently; equality is not the contract), and (c) an 8-step
+    ``decode_chunk`` over an int8 cache on its weights replayed from a CUDA
+    graph against the eager call: tokens, state and both caches bit for
+    bit, K2q8 exact. With ``profile``, each leg's 4 requests again under
+    torch.profiler."""
+    from quorum_tpu_torch.engine.engine import shutdown_all_engines
+
+    out = {}
+    legs = ("llama-tiny", "mixtral-tiny") if tiny else ("llama-3-8b", "mixtral-8x7b")
+    for model in legs:
+        _require_card_empty(torch, cpu, f"quant {model}")
+        out[model] = _quant_leg(torch, cpu, tiny, device_info, model,
+                                serve if model == legs[0] else None, profile)
+        shutdown_all_engines()
+    _require_card_empty(torch, cpu, "quant end")
+    out["launches"] = {k: sum(out[m]["launches"][k] for m in legs)
+                       for k in out[legs[0]]["launches"]}
+    return out
+
+
+def _token_agreement(tok, got: str, want: str) -> dict:
+    a, b = tok.encode(got), tok.encode(want)
+    same = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    return {"tokens": max(len(a), len(b)), "leading_equal": same,
+            "share_equal": sum(x == y for x, y in zip(a, b)) / max(len(a), len(b), 1)}
+
+
+def _quant_leg(torch, cpu: bool, tiny: bool, device_info: dict, model: str,
+               serve: dict | None, profile: bool) -> dict:
+    from quorum_tpu_torch.config import Config
+    from quorum_tpu_torch.models.quant import is_quantized, quantized_param_bytes
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+    from quorum_tpu_torch.server.app import create_app
+
+    free_gb = None if cpu else torch.cuda.mem_get_info()[0] / 1e9
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    url = (f"cuda://{model}?seed=0&slots=4&decode_chunk=8&quant=int8&kv_quant=int8"
+           + ("&device=cpu" if cpu else ""))
+    cfg = Config(raw={"primary_backends": [{"name": "quant", "url": url}],
+                      "settings": {"timeout": SERVE_TIMEOUT_S}})
+    t0 = time.perf_counter()
+    app = create_app(cfg)
+    backend = app.state["registry"].backends[0]
+    eng = backend.engine
+    if not cpu:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    spec, tok = eng.spec, backend.tokenizer
+    require(is_quantized(eng.params["blocks"]["wq"]) and isinstance(eng._ck, tuple)
+            and eng._ck[0].dtype == torch.int8, f"quant {model}: not an int8 engine")
+    max_tokens = 16 if tiny else 32
+    bodies = _serve_bodies(model, tiny)
+    recs = _timed_dispatches(torch, eng, cpu)
+    # Every launch counter to 0 just before the main path, read just after.
+    flash_prefill_attention.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
+    flash_decode_attention.launches = 0
+    flash_decode_q8_attention.launches = 0
+    m0 = eng.metrics()
+
+    async def drive():
+        return await asyncio.gather(*[_call(app, b) for b in bodies])
+
+    t0 = time.perf_counter()
+    resps = asyncio.run(asyncio.wait_for(drive(), 2 * SERVE_TIMEOUT_S))
+    wall = time.perf_counter() - t0
+    m1 = eng.metrics()
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches,
+                "flash_decode_q8": flash_decode_q8_attention.launches}
+    k1_routes = dict(flash_prefill_attention.launches_by_route)
+    checked = [_check_response(r, b, tok, max_tokens) for r, b in zip(resps, bodies)]
+    single_shot = m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
+    segments = m1["prefill_segments_total"] - m0["prefill_segments_total"]
+    steps = m1["decode_steps_total"] - m0["decode_steps_total"]
+    q8_steps = _k2_steps(m1) - _k2_steps(m0)
+    chunk = eng.prefill_chunk
+    lens = [c["usage"]["prompt_tokens"] for c in checked]
+    require(single_shot == sum(1 for n in lens if not chunk or n <= chunk)
+            and segments == sum(-(-n // chunk) for n in lens if chunk and n > chunk),
+            f"quant {model}: {single_shot} single-shot admissions and {segments} segments "
+            f"for {lens}")
+    if not cpu:
+        require(launches["flash_prefill"] == spec.n_layers * single_shot
+                and k1_routes["wgmma"] == launches["flash_prefill"] > 0,
+                f"quant {model}: K1 launches {launches} ({k1_routes}) != "
+                f"{spec.n_layers} x {single_shot}")
+        require(launches["flash_decode_q8"] == spec.n_layers * q8_steps > 0,
+                f"quant {model}: K2q8 launches {launches['flash_decode_q8']} != "
+                f"{spec.n_layers} x {q8_steps}")
+        require(launches["flash_decode"] == 0, f"quant {model}: K2 ran on an int8 cache")
+    dev_ms = _device_ms(torch, cpu, recs)
+    chunk_ms = None if dev_ms is None else [
+        round(ms / c.n_chunks, 3) for (c, _), ms in zip(recs, dev_ms)
+        if c.n_steps == eng.decode_chunk]
+    head = eng.params["lm_head"] if eng.params["lm_head"] is not None else eng.params["tok_emb"]
+    read_bytes = quantized_param_bytes({"blocks": eng.params["blocks"], "head": head})
+    streams = [c for c in checked if c.get("ttft_s") is not None]
+    info = {
+        "model": model, "layers": spec.n_layers, "slots": eng.n_slots,
+        "max_seq": spec.max_seq, "dtype": spec.dtype, "quant": eng.quant,
+        "kv_quant": eng.kv_quant, "free_mem_gb_at_start": free_gb,
+        "app_build_s_quantized_init": round(build_s, 3),
+        "weights_gb": round(quantized_param_bytes(eng.params) / 1e9, 3),
+        "weights_gb_read_per_step": round(read_bytes / 1e9, 3),
+        "cache_gb": round(sum(t.numel() * t.element_size() for t in (*eng._ck, *eng._cv)) / 1e9,
+                          3),
+        "requests": [{"stream": b["stream"], "sampled": "seed" in b,
+                      "prompt_tokens": c["usage"]["prompt_tokens"],
+                      "completion_tokens": c["usage"]["completion_tokens"],
+                      "finish": c["finish"], "seconds": round(c["t_end"], 4),
+                      "ttft_s": c.get("ttft_s")} for b, c in zip(bodies, checked)],
+        "concurrent_wall_s": round(wall, 4),
+        "single_shot_admissions": single_shot, "prefill_segments": segments,
+        "decode_steps": steps, "graph_warmup_steps": q8_steps - steps,
+        "decode_tok_per_s_per_stream": [
+            (c["usage"]["completion_tokens"] - 1) / (c["t_last_s"] - c["ttft_s"])
+            for c in streams if c["t_last_s"] > c["ttft_s"]],
+        "device_ms_per_8_step_chunk": chunk_ms,
+        "decode_tok_per_s_per_stream_from_median_chunk": (
+            None if not chunk_ms else round(eng.decode_chunk * 1e3 / statistics.median(chunk_ms),
+                                            3)),
+        "bound_ms_per_step_weight_read": round(read_bytes / HBM_BYTES_PER_S * 1e3, 3),
+        "decode_graph_captures": m1["decode_graph_captures_total"],
+        "decode_graph_capture_s": m1["decode_graph_capture_seconds_total"],
+        "launches": launches, "k1_launches_by_route": k1_routes,
+        "peak_mem_gb": None if cpu else round(torch.cuda.max_memory_allocated() / 1e9, 3),
+        "measured_on": f"{device_info['name']} ({device_info['power_limit']})",
+    }
+    if serve is not None:
+        texts = [c["text"] for b, c in zip(bodies, checked) if "seed" not in b]
+        info["greedy_agreement_with_bf16"] = [
+            _token_agreement(tok, got, want) for got, want in zip(texts, serve["greedy_texts"])]
+    if model.startswith("llama"):
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        info["replay"] = _quant_replay(torch, spec, eng.params, eng.device, gen, tiny)
+    emit("quant", **info)
+    if profile:
+        phase_profile(torch, cpu, lambda: asyncio.run(asyncio.wait_for(
+            drive(), 2 * SERVE_TIMEOUT_S)), info["measured_on"], flash_decode_q8_attention,
+            of=f"quant {model}", decode_kernels=("q8_logits_kernel", "q8_pv_kernel",
+                                                 "q8_combine_kernel"))
+    return info
+
+
+def _quant_replay(torch, spec, params, dev, gen, tiny: bool) -> dict:
+    """An 8-step greedy ``decode_chunk`` over a 4-row int8 cache (three
+    prefilled rows, one dead) replayed from a CUDA graph against the eager
+    call from the same state: tokens, state and both int8 sides bit for
+    bit; K2q8 = layers × (1 warm-up step + 8 replayed steps)."""
+    from quorum_tpu_torch.models import transformer as tt
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+
+    cpu = torch.device(dev).type == "cpu"
+    lens, bucket = ([40, 0, 20, 9], 64) if tiny else ([300, 0, 120, 41], 512)
+    ck, cv = tt.init_cache(spec, 4, device=dev, kv_quant="int8")
+    first = []
+    for row, n in enumerate(lens):
+        if not n:
+            first.append(0)
+            continue
+        toks = torch.randint(3, spec.vocab_size, (1, bucket), generator=gen).to(dev)
+        logits, _, _ = tt.prefill(params, spec, toks, torch.tensor(
+            [n], dtype=torch.int32, device=dev), ck, cv, slot=row)
+        first.append(int(logits.argmax()))
+    state = {"token": torch.tensor(first, device=dev),
+             "lengths": torch.tensor(lens, dtype=torch.int32, device=dev),
+             "budget": torch.tensor([20, 0, 5, 20], dtype=torch.int32, device=dev)}
+    state["live"] = state["budget"] > 0
+    eos = torch.full((4,), -1, dtype=torch.int32, device=dev)
+
+    def greedy(logits, live, k):
+        return torch.argmax(logits, dim=-1), k + 1, ()
+
+    def clone(side):
+        return tuple(t.clone() for t in side)
+
+    eager_state = {k: v.clone() for k, v in state.items()}
+    ek, ev = clone(ck), clone(cv)
+    want = _decode_fn(torch, spec, params, 8, 1, eos, greedy)(eager_state, ek, ev)
+    replay, graphs = _replayer(torch, "cpu" if cpu else "cuda", cpu)
+    n0 = flash_decode_q8_attention.launches
+    program = _decode_fn(torch, spec, params, 8, 1, eos, greedy)
+    got = replay((8, 1, False), lambda: program(state, ck, cv),
+                 lambda: _decode_fn(torch, spec, params, 1, 1, eos, greedy)(
+                     {k: v.clone() for k, v in state.items()}, clone(ck), clone(cv)))
+    if not cpu:
+        torch.cuda.synchronize()
+    launched = flash_decode_q8_attention.launches - n0
+    same_state = all(torch.equal(state[k], eager_state[k]) for k in state)
+    same_cache = all(torch.equal(a, b) for a, b in zip(ck + cv, ek + ev))
+    require(got.tolist() == want.tolist() and same_state,
+            "quant replay: tokens or state differ from the eager call")
+    require(same_cache, "quant replay: the int8 caches differ from the eager call's")
+    require(cpu or launched == spec.n_layers * 9,
+            f"quant replay: K2q8 launches {launched} != {spec.n_layers} x 9")
+    return {"tokens_equal": True, "state_equal": True, "caches_bit_equal": True,
+            "k2q8_launches": launched, "n_valid": got[..., -1].tolist(),
+            "capture_s": None if cpu else round(graphs.capture_seconds, 3)}
+
+
 # Kernel-name fragments → where the serve time goes.
 _KERNEL_GROUPS = (("K1 flash_prefill", ("prefill_wgmma_kernel", "flash_prefill_kernel")),
                   ("K2 flash_decode", ("flash_decode_mma_kernel", "flash_decode_kernel")),
+                  ("K2q8 flash_decode_q8", ("q8_logits_kernel", "q8_pv_kernel",
+                                            "q8_combine_kernel")),
                   ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas", "splitk")),
                   ("sort (top-p/top-k)", ("sort", "radix", "scan")))
 
 
 def phase_profile(torch, cpu: bool, run_requests, card: str, decode_fn,
-                  of: str = "serve") -> None:
+                  of: str = "serve", decode_kernels: tuple = ("flash_decode",)) -> None:
     """The same 4 concurrent requests again under torch.profiler: device time
-    by kernel group and the device's busy share of the wall time. K2 must
-    show one kernel name, launched once per call."""
+    by kernel group and the device's busy share of the wall time. The decode
+    attention must show one kernel per name in ``decode_kernels`` (K2: one;
+    K2q8: its three launches), each launched once per counted call. Matrix
+    products on int8 operands are their own group."""
     if cpu:
         run_requests()  # rehearse the path; there is no device to trace
         emit("profile", of=of, skipped="cpu rehearsal: no device trace")
@@ -2758,12 +3191,15 @@ def phase_profile(torch, cpu: bool, run_requests, card: str, decode_fn,
         name = ev.key
         group = next((g for g, frags in _KERNEL_GROUPS
                       if any(f in name.lower() for f in frags)), "other")
+        if group == "matmul" and any(f in name.lower() for f in ("s8", "i8", "int8", "imma")):
+            group = "matmul int8"
         groups[group] = groups.get(group, 0.0) + dev_us / 1e3
         kernels.append((dev_us / 1e3, ev.count, name[:80]))
     busy_ms = sum(groups.values())
-    k2 = [(n, name) for _, n, name in kernels if "flash_decode" in name]
-    require(len(k2) == 1 and k2[0][0] == decode_fn.launches,
-            f"K2 in the profile: {k2}, {decode_fn.launches} calls; want one kernel per call")
+    k2 = [(n, name) for _, n, name in kernels if any(f in name for f in decode_kernels)]
+    require(len(k2) == len(decode_kernels) and all(n == decode_fn.launches for n, _ in k2),
+            f"decode attention in the profile: {k2}, {decode_fn.launches} calls; want "
+            f"{len(decode_kernels)} kernel(s), each once per call")
     kernels.sort(reverse=True)
     emit("profile", of=of, wall_ms=wall * 1e3, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / (wall * 1e3) if wall > 0 else None,
@@ -2781,7 +3217,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tiny", action="store_true", help="llama-tiny shapes (rehearsal)")
     ap.add_argument("--phases",
                     default="device,build,kernels,model,serve,scheduler,decode_graphs,knobs,"
-                            "fanout,members,checkpoint,moe",
+                            "fanout,members,checkpoint,moe,quant",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -2829,6 +3265,8 @@ def main(argv=None) -> int:
                 if "checkpoint" in phases else None)
         moe = (phase_moe(torch, args.cpu, args.tiny, info, "profile" in phases)
                if "moe" in phases else None)
+        quant = (phase_quant(torch, args.cpu, args.tiny, info, serve, "profile" in phases)
+                 if "quant" in phases else None)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2838,29 +3276,34 @@ def main(argv=None) -> int:
         by_phase = {name: ph["launches"] for name, ph in (
             ("serve", serve), ("scheduler", scheduler), ("decode_graphs", graphs),
             ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
-            ("checkpoint", ckpt), ("moe", moe))
+            ("checkpoint", ckpt), ("moe", moe), ("quant", quant))
             if ph is not None}
         rows = []
         for name, src, replaces in (
                 ("flash_prefill", "quorum_tpu_torch/csrc/flash_prefill.cu",
                  "quorum_tpu/ops/flash_attention.py:52"),
                 ("flash_decode", "quorum_tpu_torch/csrc/flash_decode.cu",
-                 "quorum_tpu/ops/flash_decode.py:53")):
+                 "quorum_tpu/ops/flash_decode.py:53"),
+                ("flash_decode_q8", "quorum_tpu_torch/csrc/flash_decode_q8.cu",
+                 "quorum_tpu/ops/attention.py:119 (decode_attention_q8; XLA, no Pallas "
+                 "counterpart)")):
             r = kernels[name]
             row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                   "launches": sum(ph[name] for ph in by_phase.values()),
-                   "launches_by_phase": {ph: n[name] for ph, n in by_phase.items()},
+                   "launches": sum(ph.get(name, 0) for ph in by_phase.values()),
+                   "launches_by_phase": {ph: n.get(name, 0) for ph, n in by_phase.items()},
                    "max_abs_err": r["max_abs_err"],
                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                    "kernel_route": r["route"], "pct_of_bound": r["pct_of_bound"],
                    "eager_ms": r["eager_ms"], "ok": True,
                    # How the main path issues it: K1 from admission, eagerly;
-                   # K2 from inside every decode dispatch's graph replay.
-                   "issue": "graph" if name == "flash_decode" else "eager"}
+                   # K2 and K2q8 from inside every decode dispatch's graph replay.
+                   "issue": "eager" if name == "flash_prefill" else "graph"}
             if name == "flash_prefill":
                 row.update(library_masked_ms=r["library_masked_ms"],
                            library_causal_ms=r["library_causal_ms"])
+            if name == "flash_decode_q8":
+                row.update(k2_ms_same_lengths_bf16=r["k2_ms_same_lengths_bf16"])
             rows.append(row)
         print(json.dumps({"kernels": rows}), flush=True)
     if args.cpu:

@@ -77,11 +77,23 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    (seed..seed+M-1) decode ONE shared stream — every step
                    averages the M members' next-token logits in f32 before
                    sampling
+  quant=int8       weight-only int8 with per-channel scales
+                   (models/quant.py): every weight product runs int8 × int8
+                   → int32 on the card, halving the weight bytes a decode
+                   step reads and the weights' memory (mixtral-8x7b: 46.7
+                   GB, one H100). With ckpt=, quantized on the card as the
+                   checkpoint loads
+  kv_quant=int8    int8 KV cache (per-token scales; decode attention reads
+                   it natively through K2q8): half the cache memory (at 8B
+                   an 8k window drops 1.07 → 0.54 GB per slot) and half the
+                   cache bytes a long decode step reads. Composes with
+                   quant=; quorum_dedup=1 refuses it
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet
-(``kv_quant=``, ``tp=``, …): a typo or an unported knob never builds an
-engine that silently ignores it.
+(``tp=``, ``kv_pages=``, …): a typo or an unported knob never builds an
+engine that silently ignores it; ``quant=`` and ``kv_quant=`` values are
+checked there too (``int8`` or empty).
 
 On the card every decode dispatch is one CUDA-graph replay; there is no
 option that turns graphs (or the kernels) off.
@@ -127,6 +139,7 @@ from quorum_tpu_torch.engine.engine import (
     DeadlineExceeded,
     GenerationResult,
     QueueFullError,
+    check_quant_knobs,
     get_engine,
     get_engine_from_ckpt,
     resolve_decode_loop,
@@ -141,12 +154,12 @@ logger = logging.getLogger(__name__)
 _OPTIONS = frozenset({
     "slots", "decode_chunk", "decode_pipeline", "decode_loop", "prefill_chunk",
     "prefix_cache", "seed", "device", "queue", "max_tokens", "members", "member",
-    "member_seeds", "quorum_dedup", "ensemble", "ckpt"})
+    "member_seeds", "quorum_dedup", "ensemble", "ckpt", "quant", "kv_quant"})
 _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
 _NOT_YET = frozenset({
-    "kv_quant", "quant", "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl",
+    "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl",
     "flash_decode", "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "prefix_store",
     "prefix_store_bytes", "prefix_store_chunk", "kv_pages", "kv_page_size", "kv_pool_pages",
     "qos"})
@@ -348,6 +361,8 @@ class CudaBackend:
             prefix_cache=_parse_bool_opt("prefix_cache", opts.get("prefix_cache", "1")),
             max_pending=int(opts.get("queue", DEFAULT_MAX_PENDING)),
             ensemble=int(opts.get("ensemble", 1)))
+        knobs["quant"], knobs["kv_quant"] = check_quant_knobs(opts.get("quant") or None,
+                                                              opts.get("kv_quant") or None)
         member_seeds = opts.get("member_seeds", "distinct")
         quorum_dedup = _parse_bool_opt("quorum_dedup", opts.get("quorum_dedup", "0"))
         tokenizer_path, rng_offset = None, 0

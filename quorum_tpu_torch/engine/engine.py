@@ -104,6 +104,16 @@ M·S rows, row ``m·S + s`` being member m's slot s:
 - ``ensemble=M``: one stream per slot; every model call runs the M weight
   sets and averages their logits in f32 before sampling; a segment writes
   the prompt into every weight set's row ``e·S + slot``.
+
+int8, as the JAX engine's knobs: ``quant="int8"`` holds every large weight
+as an int8 leaf with per-channel scales (``models/quant.py``; a random init
+quantizes layer slice by layer slice, ``params=`` are quantized once), and
+every product runs int8 × int8 → int32; ``kv_quant="int8"`` holds the cache
+as int8 values with per-token scales, written quantized by every admission
+route and read natively by K2q8 inside the decode graphs. Both compose with
+each other and with every scheduler path; tier-0 reuse reads the int8 rows
+as stored, so it stays exact. ``quorum_dedup`` refuses ``kv_quant``, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -120,8 +130,9 @@ import torch
 
 from quorum_tpu_torch import resolve_device
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
-from quorum_tpu_torch.models.init import init_params, init_params_stacked
+from quorum_tpu_torch.models.init import check_quant, init_params, init_params_stacked
 from quorum_tpu_torch.models.model_config import ModelSpec
+from quorum_tpu_torch.models.quant import is_quantized, quantize_params
 from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, host_to_device,
                                                  init_cache, member_params, prefill,
                                                  prefill_segment)
@@ -320,12 +331,16 @@ class InferenceEngine:
         member_seeds: str = "distinct",
         quorum_dedup: bool = False,
         ensemble: int = 1,
+        quant: str | None = None,
+        kv_quant: str | None = None,
     ):
         self.spec = spec.validate()
         self.device = resolve_device(device)
         self.members = max(1, int(members))
         self.ensemble = max(1, int(ensemble))
-        _check_stack_knobs(self.members, self.ensemble, member_seeds, quorum_dedup)
+        self.quant, self.kv_quant = check_quant_knobs(quant, kv_quant)
+        _check_stack_knobs(self.members, self.ensemble, member_seeds, quorum_dedup,
+                           self.kv_quant)
         if spec.is_moe and max(self.members, self.ensemble) > 1:
             knob = "members" if self.members > 1 else "ensemble"
             raise ValueError(
@@ -339,13 +354,16 @@ class InferenceEngine:
             if stack > 1:
                 seeds = ([seed] * stack if member_seeds == "shared"
                          else [seed + i for i in range(stack)])
-                params = init_params_stacked(spec, seeds, self.device)
+                params = init_params_stacked(spec, seeds, self.device, quant=self.quant)
             else:
-                params = init_params(spec, seed, self.device)
-        elif (params["tok_emb"].dim() == 3) != (stack > 1) or (
-                stack > 1 and params["tok_emb"].shape[0] != stack):
-            raise ValueError(f"params must be a {stack}-member stacked tree"
-                             if stack > 1 else "params must be a single-model tree")
+                params = init_params(spec, seed, self.device, quant=self.quant)
+        else:
+            emb = params["tok_emb"]["q8"] if is_quantized(params["tok_emb"]) else params["tok_emb"]
+            if (emb.dim() == 3) != (stack > 1) or (stack > 1 and emb.shape[0] != stack):
+                raise ValueError(f"params must be a {stack}-member stacked tree"
+                                 if stack > 1 else "params must be a single-model tree")
+            if self.quant:
+                params = quantize_params(params)
         self.params = params
         self.decode_chunk = max(1, int(decode_chunk))
         self.decode_pipeline = max(1, int(decode_pipeline))
@@ -361,7 +379,8 @@ class InferenceEngine:
         # slot s (S rows when members == 1). The cache holds one row per
         # slot per weight set.
         self._rows = self.members * self.n_slots
-        self._ck, self._cv = init_cache(spec, stack * self.n_slots, device=self.device)
+        self._ck, self._cv = init_cache(spec, stack * self.n_slots, device=self.device,
+                                        kv_quant=self.kv_quant)
         # Per-row decode state, device-resident between chunks, and the
         # static inputs of a decode dispatch (its active rows, its noise
         # drawn ahead). Updated in place only: graphs read these addresses.
@@ -1500,8 +1519,18 @@ class InferenceEngine:
             r.out.put(("err", exc))
 
 
+def check_quant_knobs(quant: str | None, kv_quant: str | None) -> tuple[str | None, str | None]:
+    """The JAX engine's checks of ``quant`` and ``kv_quant``, word for word;
+    each knob as the engine keeps it (None when off)."""
+    quant = check_quant(quant)
+    if kv_quant not in (None, "", "int8"):
+        raise ValueError(
+            f"unsupported kv_quant mode {kv_quant!r} (int8 or none)")
+    return quant, kv_quant or None
+
+
 def _check_stack_knobs(members: int, ensemble: int, member_seeds: str,
-                       quorum_dedup: bool) -> None:
+                       quorum_dedup: bool, kv_quant: str | None = None) -> None:
     """The JAX engine's rejections of the stacked knobs, word for word."""
     if members > 1 and ensemble > 1:
         raise ValueError(
@@ -1529,6 +1558,12 @@ def _check_stack_knobs(members: int, ensemble: int, member_seeds: str,
                 "prompt, which broadcasting member 0's K_0 cannot "
                 "produce; add member_seeds=shared (one weight set, M "
                 "sampling streams) or drop quorum_dedup")
+        if kv_quant:
+            raise ValueError(
+                "quorum_dedup=1 does not compose with kv_quant=int8: "
+                "the broadcast scatters raw K/V; the quantized cache's "
+                "(values, scales) pair would need a second quantizing "
+                "scatter the program does not carry — drop one knob")
 
 
 _ENGINES: dict[tuple, InferenceEngine] = {}
@@ -1551,9 +1586,12 @@ def get_engine(
     member_seeds: str = "distinct",
     quorum_dedup: bool = False,
     ensemble: int = 1,
+    quant: str | None = None,
+    kv_quant: str | None = None,
 ) -> InferenceEngine:
     """Engines are keyed by weight identity (spec, seed, device, members,
-    ensemble, member_seeds when members > 1) and by ``quorum_dedup``, which
+    ensemble, member_seeds when members > 1, quant), by the cache
+    representation (``kv_quant``) and by ``quorum_dedup``, which
     is structural: backends that differ only in dispatch knobs share one set
     of weights, so ``members=M&member=i`` backends share one engine and a
     dedup URL never shares a non-dedup engine. ``n_slots``,
@@ -1565,7 +1603,8 @@ def get_engine(
     dev = resolve_device(device)
     members, ensemble = max(1, int(members)), max(1, int(ensemble))
     key = (spec, int(seed), str(dev), members, ensemble,
-           member_seeds if members > 1 else None, bool(quorum_dedup))
+           member_seeds if members > 1 else None, bool(quorum_dedup), quant or None,
+           kv_quant or None)
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None:
@@ -1574,7 +1613,8 @@ def get_engine(
                 decode_pipeline=decode_pipeline, decode_loop=decode_loop,
                 prefill_chunk=prefill_chunk,
                 prefix_cache=prefix_cache, max_pending=max_pending, members=members,
-                member_seeds=member_seeds, quorum_dedup=quorum_dedup, ensemble=ensemble)
+                member_seeds=member_seeds, quorum_dedup=quorum_dedup, ensemble=ensemble,
+                quant=quant, kv_quant=kv_quant)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
         return eng
@@ -1599,12 +1639,16 @@ def get_engine_from_ckpt(
     prefix_cache: bool = True,
     max_pending: int = DEFAULT_MAX_PENDING,
     ensemble: int = 1,
+    quant: str | None = None,
+    kv_quant: str | None = None,
 ) -> InferenceEngine:
     """An engine over a local HF checkpoint directory
     (``models/hf_loader.py``). Keyed by (real path, effective dtype,
-    device): backends pointing at one checkpoint share its weights on the
-    card, and ``dtype=None`` hits the entry of the default dtype, so a
-    checkpoint is never loaded twice. The dispatch knobs apply at first
+    device, quant, kv_quant); ``quant="int8"`` quantizes on the device as
+    the checkpoint is read, never holding its bf16 form whole. Backends
+    pointing at one checkpoint share its weights on the card, and
+    ``dtype=None`` hits the entry of the default dtype, so a checkpoint is
+    never loaded twice. The dispatch knobs apply at first
     construction, ``prefix_cache`` as in :func:`get_engine`. ``ensemble`` >
     1 is refused before the checkpoint is read (its members are seeded
     random inits; a checkpoint holds one weight set)."""
@@ -1614,19 +1658,21 @@ def get_engine_from_ckpt(
 
     if ensemble > 1:
         raise ValueError(CKPT_ENSEMBLE_ERROR)
+    quant, kv_quant = check_quant_knobs(quant, kv_quant)
     dev = resolve_device(device)
     resolved = os.path.realpath(ckpt_path)
     eff_dtype = dtype or ModelSpec().dtype
-    key = ("ckpt", resolved, eff_dtype, str(dev))
+    key = ("ckpt", resolved, eff_dtype, str(dev), quant, kv_quant)
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None:
-            spec, params = load_hf_checkpoint(resolved, dtype=eff_dtype, device=dev)
+            spec, params = load_hf_checkpoint(resolved, dtype=eff_dtype, device=dev,
+                                              quant=quant)
             eng = _ENGINES[key] = InferenceEngine(
                 spec, device=dev, params=params, n_slots=n_slots, decode_chunk=decode_chunk,
                 decode_pipeline=decode_pipeline, decode_loop=decode_loop,
                 prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-                max_pending=max_pending)
+                max_pending=max_pending, quant=quant, kv_quant=kv_quant)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
         return eng

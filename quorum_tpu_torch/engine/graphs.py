@@ -17,18 +17,18 @@ What the program must keep, which the engine's decode path does:
   it, on the stream) after a replay and before the next one.
 - Nothing in it reads a device value on the host, makes a tensor from host
   data or allocates pinned memory.
-- Lazy state exists before the first capture: K2's scratch and ticket
+- Lazy state exists before the first capture: K2's (or K2q8's) scratch and ticket
   counters for the stream, the RoPE tables, cuBLAS's workspace. The first
   capture of a :class:`DecodeGraphs` runs the engine's ``warm_up`` eagerly
   on the capture stream first.
 
-An engine captures and replays on its own stream, so the K2 scratch its
+An engine captures and replays on its own stream, so the kernel scratch its
 graphs hold is its own. Captures run in ``thread_local`` mode (another
 engine's scheduler thread may allocate pinned memory or wait on an event
 meanwhile) under one lock for the process. All of an engine's graphs share
 one memory pool: they replay one at a time, in stream order. K2 launches
-made inside a capture are counted per graph and added to
-``flash_decode_attention.launches`` at every replay.
+and K2q8 launches made inside a capture are counted per graph and wrapper
+and added to each wrapper's ``launches`` at every replay.
 
 There is no eager path on the card and no switch: a capture that fails
 raises, and the engine fails its requests.
@@ -42,7 +42,7 @@ from typing import Callable
 
 import torch
 
-from quorum_tpu_torch.ops.flash_decode import add_launches, captured_launches, capturing
+from quorum_tpu_torch.ops.launches import add_launches, captured_launches, capturing
 
 _CAPTURE_LOCK = threading.Lock()
 
@@ -54,7 +54,7 @@ class DecodeGraphs:
         self.device = device
         self.stream = stream
         self.pool = torch.cuda.graph_pool_handle()
-        self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, torch.Tensor, int]] = {}
+        self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, object, dict]] = {}
         self._warm = False
         self.captures = 0
         self.capture_seconds = 0.0
@@ -75,9 +75,9 @@ class DecodeGraphs:
                 warm_up()
                 self._warm = True
             entry = self._graphs[key] = self._capture(program)
-        graph, out, k2_launches = entry
+        graph, out, launches = entry
         graph.replay()
-        add_launches(k2_launches)
+        add_launches(launches)
         self.replays += 1
         return out
 
@@ -94,7 +94,8 @@ class DecodeGraphs:
             self.pool_bytes = sum(
                 seg["total_size"] for seg in torch.cuda.memory_snapshot()
                 if tuple(seg.get("segment_pool_id", ())) == tuple(self.pool))
-            return graph, out, captured_launches() - n0
+            n1 = captured_launches()
+            return graph, out, {fn: n - n0.get(fn, 0) for fn, n in n1.items()}
 
     def clear(self) -> None:
         """Drop every graph. Their pool goes with the last one, so later

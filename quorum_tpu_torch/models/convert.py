@@ -3,8 +3,12 @@ back with ``numpy.asarray`` leaf by leaf) into the port's params.
 
 The tree keeps its layout: the same leaf names (an MoE tree's ``router``
 and ``moe_w_*`` leaves too), ``None`` for absent leaves, per-layer weights
-stacked ``[L, …]`` under ``"blocks"``. Quantized
-``{"q8", "qs"}`` leaves are refused: int8 serving is not ported yet.
+stacked ``[L, …]`` under ``"blocks"``. A quantized ``{"q8", "qs"}`` leaf
+(the JAX package's ``quantize_params``) stays int8 and float32 whatever
+``dtype`` says, in the port's layout (``models/quant.py``: contraction axis
+last, the same permutation on ``q8`` and ``qs``), so a JAX
+``quantize_params(init_params(spec))`` tree computes the same thing in the
+port; a quantized leaf where the JAX package quantizes none is refused.
 Member-stacked trees (``members=M`` / ``ensemble=M`` engines) go through
 :func:`stacked_params_from_numpy`.
 """
@@ -17,15 +21,19 @@ import numpy as np
 import torch
 
 from quorum_tpu_torch import resolve_device
+from quorum_tpu_torch.models.quant import QUANT_REDUCE_AXIS, port_layout
 
 
-def _leaf(x, device, dtype):
+def _leaf(x, device, dtype, name: str = ""):
     if isinstance(x, Mapping):
-        if "q8" in x:
-            raise ValueError(
-                "quantized {q8, qs} leaves are not supported by the port yet "
-                "(int8 serving is a later slice); convert an unquantized tree")
-        raise ValueError(f"unexpected nested mapping leaf with keys {sorted(x)}")
+        if "q8" not in x:
+            raise ValueError(f"unexpected nested mapping leaf with keys {sorted(x)}")
+        if name not in QUANT_REDUCE_AXIS:
+            raise ValueError(f"a quantized int8 {{q8, qs}} leaf at {name!r}: the JAX "
+                             f"package quantizes only {sorted(QUANT_REDUCE_AXIS)}")
+        leaf = {"q8": _leaf(x["q8"], device, torch.int8),
+                "qs": _leaf(x["qs"], device, torch.float32)}
+        return port_layout(leaf, QUANT_REDUCE_AXIS[name])
     arr = np.asarray(x)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)  # ml_dtypes bfloat16 → a dtype torch reads
@@ -41,9 +49,9 @@ def params_from_numpy(tree: Mapping, device=None, dtype=None) -> dict:
     out = {}
     for name, x in tree.items():
         if name == "blocks":
-            out[name] = {k: (None if b is None else _leaf(b, dev, dt)) for k, b in x.items()}
+            out[name] = {k: (None if b is None else _leaf(b, dev, dt, k)) for k, b in x.items()}
         else:
-            out[name] = None if x is None else _leaf(x, dev, dt)
+            out[name] = None if x is None else _leaf(x, dev, dt, name)
     return out
 
 
@@ -52,17 +60,31 @@ def stacked_params_from_numpy(tree: Mapping, device=None, dtype=None) -> dict:
     leaves ``[M, L, …]``) → the port's stacked layout: top-level leaves
     ``[M, …]``, block leaves ``[L, M, …]`` (permuted once, contiguous)."""
     out = params_from_numpy(tree, device=device, dtype=dtype)
-    out["blocks"] = {k: (None if b is None else b.transpose(0, 1).contiguous())
+    out["blocks"] = {k: _map(b, lambda t: t.transpose(0, 1).contiguous())
                      for k, b in out["blocks"].items()}
     return out
+
+
+def _map(leaf, fn):
+    """``fn`` on a leaf's tensor, or on each tensor of a quantized leaf."""
+    if leaf is None:
+        return None
+    if isinstance(leaf, Mapping):
+        return {k: fn(t) for k, t in leaf.items()}
+    return fn(leaf)
 
 
 def stack_params(trees: list[dict]) -> dict:
     """M port trees → one stacked tree in the port's layout (top-level
     leaves stacked on a new axis 0, block leaves on axis 1)."""
+    def stack(leaves, axis):
+        if leaves[0] is None:
+            return None
+        if isinstance(leaves[0], Mapping):
+            return {k: torch.stack([x[k] for x in leaves], axis) for k in leaves[0]}
+        return torch.stack(leaves, axis)
+
     first = trees[0]
-    out = {name: (None if x is None else torch.stack([t[name] for t in trees]))
-           for name, x in first.items() if name != "blocks"}
-    out["blocks"] = {k: (None if b is None else torch.stack([t["blocks"][k] for t in trees], 1))
-                     for k, b in first["blocks"].items()}
+    out = {name: stack([t[name] for t in trees], 0) for name in first if name != "blocks"}
+    out["blocks"] = {k: stack([t["blocks"][k] for t in trees], 1) for k in first["blocks"]}
     return out

@@ -22,6 +22,13 @@ it is copied (its raw bytes cross to the card through a 64 MB page-locked
 buffer), so the host holds one tensor's pages at a time, never a float32
 copy of the model (the JAX loader converts to float32 and stacks there).
 
+``quant="int8"`` quantizes on the device as it fills: a leaf of
+``QUANT_REDUCE_AXIS`` is allocated as its int8 leaf (``models/quant.py``
+layout), and each checkpoint tensor — or each layer slice of a stacked
+leaf — is filled into a staging buffer in the spec's dtype and quantized
+into its slice, so the bf16 checkpoint never exists whole on the device.
+The result equals ``quantize_params`` of the bf16 load bit for bit.
+
 Conventions: HF ``nn.Linear`` stores ``[out, in]`` (transposed on load);
 GPT-2's ``Conv1D`` stores ``[in, out]`` (taken as is) and fuses q/k/v in
 ``c_attn`` (split); ``o_proj.bias`` fills ``bo`` only where it exists;
@@ -46,6 +53,7 @@ import torch
 
 from quorum_tpu_torch import resolve_device
 from quorum_tpu_torch.models.model_config import ModelSpec
+from quorum_tpu_torch.models.quant import QUANT_REDUCE_AXIS, leaf_shapes, quantize_weight
 
 logger = logging.getLogger(__name__)
 
@@ -270,24 +278,54 @@ def _rope_scaling_fields(cfg: dict) -> dict:
 STAGE_BYTES = 64 << 20
 
 
-class _Filler:
-    """Allocates leaves on the device in the spec's dtype and fills them
-    from checkpoint tensors, one tensor at a time."""
+class _QSlot:
+    """A slice of a quantized leaf to fill: ``dst`` the int8 leaf (or one
+    index of it), ``shape`` the slice's shape in the JAX layout, ``axis``
+    its reduce axis."""
 
-    def __init__(self, t: _TensorDir, device: torch.device, dtype: torch.dtype):
-        self.t, self.device, self.dtype = t, device, dtype
+    def __init__(self, dst: dict, shape: tuple, axis: int):
+        self.dst, self.shape, self.axis = dst, shape, axis
+
+    def __getitem__(self, idx) -> "_QSlot":
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        return _QSlot({k: v[idx] for k, v in self.dst.items()}, self.shape[len(idx):], self.axis)
+
+
+class _Filler:
+    """Allocates leaves on the device in the spec's dtype (int8 leaves with
+    ``quant``) and fills them from checkpoint tensors, one tensor at a
+    time."""
+
+    def __init__(self, t: _TensorDir, device: torch.device, dtype: torch.dtype,
+                 quant: str | None = None):
+        self.t, self.device, self.dtype, self.quant = t, device, dtype, quant
         self._stage: torch.Tensor | None = None
 
-    def empty(self, *shape: int) -> torch.Tensor:
+    def empty(self, *shape: int, name: str = ""):
+        """A leaf of ``shape`` (the JAX layout); with ``quant`` and a
+        quantized ``name``, its int8 leaf, filled slice by slice."""
+        if self.quant and name in QUANT_REDUCE_AXIS:
+            axis = QUANT_REDUCE_AXIS[name]
+            dst = {k: torch.empty(s, dtype=torch.int8 if k == "q8" else torch.float32,
+                                  device=self.device)
+                   for k, s in leaf_shapes(shape, axis).items()}
+            return _QSlot(dst, shape, axis)
         return torch.empty(shape, dtype=self.dtype, device=self.device)
 
-    def put(self, dst: torch.Tensor, src: torch.Tensor, transpose: bool = False) -> None:
+    def put(self, dst, src: torch.Tensor, transpose: bool = False) -> None:
+        want = dst.shape if isinstance(dst, _QSlot) else tuple(dst.shape)
         shape = tuple(src.shape[::-1] if transpose else src.shape)
-        if shape != tuple(dst.shape):
+        if shape != tuple(want):
             raise ValueError(f"checkpoint tensor of shape {shape} where the spec needs "
-                             f"{tuple(dst.shape)}")
-        if dst.device.type != "cpu":
+                             f"{tuple(want)}")
+        if self.device.type != "cpu":
             src = self._to_device(src)  # the raw bytes over; transpose and cast there
+        if isinstance(dst, _QSlot):
+            stage = torch.empty(want, dtype=self.dtype, device=self.device)
+            stage.copy_(src.T if transpose else src)
+            for k, v in quantize_weight(stage, dst.axis).items():
+                dst.dst[k].copy_(v)
+            return
         dst.copy_(src.T if transpose else src)
 
     def _to_device(self, src: torch.Tensor) -> torch.Tensor:
@@ -303,15 +341,22 @@ class _Filler:
             stream.synchronize()  # the buffer is refilled next
         return out.view(src.dtype).view(src.shape)
 
-    def fill(self, dst: torch.Tensor, name: str, transpose: bool = False) -> torch.Tensor:
+    def fill(self, dst, name: str, transpose: bool = False):
         self.put(dst, self.t.req(name), transpose)
         self.t.release(name)
         return dst
 
-    def leaf(self, name: str, transpose: bool = False) -> torch.Tensor:
+    def leaf(self, name: str, transpose: bool = False, leaf: str = ""):
+        """One checkpoint tensor as a whole leaf (``leaf``: the tree's name
+        for it, which decides whether it is quantized)."""
         src = self.t.req(name)
-        shape = src.shape[::-1] if transpose else src.shape
-        return self.fill(self.empty(*shape), name, transpose)
+        shape = tuple(src.shape[::-1] if transpose else src.shape)
+        return _done(self.fill(self.empty(*shape, name=leaf), name, transpose))
+
+
+def _done(leaf):
+    """A filled leaf as the tree holds it (an int8 leaf's dict)."""
+    return leaf.dst if isinstance(leaf, _QSlot) else leaf
 
 
 def _load_gpt2(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
@@ -320,11 +365,12 @@ def _load_gpt2(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
     L, D, F = spec.n_layers, spec.d_model, spec.d_ff
     blocks = {
         "attn_norm_w": f.empty(L, D), "attn_norm_b": f.empty(L, D),
-        "wo": f.empty(L, D, D), "bo": f.empty(L, D),
+        "wo": f.empty(L, D, D, name="wo"), "bo": f.empty(L, D),
         "mlp_norm_w": f.empty(L, D), "mlp_norm_b": f.empty(L, D),
-        "w_up": f.empty(L, D, F), "b_up": f.empty(L, F),
-        "w_down": f.empty(L, F, D), "b_down": f.empty(L, D),
-        "wq": f.empty(L, D, D), "wk": f.empty(L, D, D), "wv": f.empty(L, D, D),
+        "w_up": f.empty(L, D, F, name="w_up"), "b_up": f.empty(L, F),
+        "w_down": f.empty(L, F, D, name="w_down"), "b_down": f.empty(L, D),
+        "wq": f.empty(L, D, D, name="wq"), "wk": f.empty(L, D, D, name="wk"),
+        "wv": f.empty(L, D, D, name="wv"),
         "bq": f.empty(L, D), "bk": f.empty(L, D), "bv": f.empty(L, D),
     }
     for i in range(L):
@@ -345,9 +391,10 @@ def _load_gpt2(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
         f.fill(blocks["b_up"][i], pre + "mlp.c_fc.bias")
         f.fill(blocks["w_down"][i], pre + "mlp.c_proj.weight")  # [F, D]
         f.fill(blocks["b_down"][i], pre + "mlp.c_proj.bias")
+    blocks = {k: _done(v) for k, v in blocks.items()}
     blocks["w_gate"] = None
     return {
-        "tok_emb": f.leaf(p + "wte.weight"),
+        "tok_emb": f.leaf(p + "wte.weight", leaf="tok_emb"),
         "pos_emb": f.leaf(p + "wpe.weight"),
         "final_norm_w": f.leaf(p + "ln_f.weight"),
         "final_norm_b": f.leaf(p + "ln_f.bias"),
@@ -361,19 +408,22 @@ def _load_llama_family(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
     L, D, F, E = spec.n_layers, spec.d_model, spec.d_ff, spec.n_experts
     H, K = spec.n_heads * spec.head_dim, spec.n_kv_heads * spec.head_dim
     has_o_bias = f"{p}layers.0.self_attn.o_proj.bias" in t
-    blocks: dict[str, torch.Tensor | None] = {
-        "attn_norm_w": f.empty(L, D), "wq": f.empty(L, D, H), "wk": f.empty(L, D, K),
-        "wv": f.empty(L, D, K), "wo": f.empty(L, H, D), "mlp_norm_w": f.empty(L, D),
+    blocks: dict = {
+        "attn_norm_w": f.empty(L, D), "wq": f.empty(L, D, H, name="wq"),
+        "wk": f.empty(L, D, K, name="wk"), "wv": f.empty(L, D, K, name="wv"),
+        "wo": f.empty(L, H, D, name="wo"), "mlp_norm_w": f.empty(L, D),
     }
     if spec.use_bias:
         blocks.update(bq=f.empty(L, H), bk=f.empty(L, K), bv=f.empty(L, K))
         if has_o_bias:
             blocks.update(bo=f.empty(L, D))
     if spec.is_moe:
-        blocks.update(router=f.empty(L, D, E), moe_w_gate=f.empty(L, E, D, F),
-                      moe_w_up=f.empty(L, E, D, F), moe_w_down=f.empty(L, E, F, D))
+        blocks.update(router=f.empty(L, D, E), moe_w_gate=f.empty(L, E, D, F, name="moe_w_gate"),
+                      moe_w_up=f.empty(L, E, D, F, name="moe_w_up"),
+                      moe_w_down=f.empty(L, E, F, D, name="moe_w_down"))
     else:
-        blocks.update(w_gate=f.empty(L, D, F), w_up=f.empty(L, D, F), w_down=f.empty(L, F, D))
+        blocks.update(w_gate=f.empty(L, D, F, name="w_gate"), w_up=f.empty(L, D, F, name="w_up"),
+                      w_down=f.empty(L, F, D, name="w_down"))
     for i in range(L):
         pre = f"{p}layers.{i}."
         f.fill(blocks["attn_norm_w"][i], pre + "input_layernorm.weight")
@@ -396,14 +446,16 @@ def _load_llama_family(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
             f.fill(blocks["w_gate"][i], pre + "mlp.gate_proj.weight", transpose=True)
             f.fill(blocks["w_up"][i], pre + "mlp.up_proj.weight", transpose=True)
             f.fill(blocks["w_down"][i], pre + "mlp.down_proj.weight", transpose=True)
-    tok_emb = f.leaf(p + "embed_tokens.weight")
+    blocks = {k: _done(v) for k, v in blocks.items()}
     lm_head = None
     if not spec.tied_lm_head:
         if "lm_head.weight" in t:
-            lm_head = f.leaf("lm_head.weight", transpose=True)
-        else:
-            lm_head = f.empty(D, spec.vocab_size)
-            lm_head.copy_(tok_emb.T)
+            lm_head = f.leaf("lm_head.weight", transpose=True, leaf="lm_head")
+        else:  # the embedding, transposed: fill both from the one tensor
+            lm_head = f.empty(D, spec.vocab_size, name="lm_head")
+            f.put(lm_head, t.req(p + "embed_tokens.weight"), transpose=True)
+            lm_head = _done(lm_head)
+    tok_emb = f.leaf(p + "embed_tokens.weight", leaf="tok_emb")
     if spec.norm == "rmsnorm":
         blocks.setdefault("attn_norm_b", None)
         blocks.setdefault("mlp_norm_b", None)
@@ -424,9 +476,10 @@ def _load_llama_family(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
 
 
 def load_hf_checkpoint(path: str | Path, dtype: str | None = None,
-                       device=None) -> tuple[ModelSpec, Params]:
+                       device=None, quant: str | None = None) -> tuple[ModelSpec, Params]:
     """Load (spec, params) from a local HF checkpoint directory onto
-    ``device`` (default cuda) in ``dtype`` (default the spec's bf16)."""
+    ``device`` (default cuda) in ``dtype`` (default the spec's bf16);
+    ``quant="int8"`` quantizes each tensor on the device as it lands."""
     path = Path(path)
     spec = spec_from_hf_config(json.loads((path / "config.json").read_text()))
     if dtype:
@@ -434,7 +487,7 @@ def load_hf_checkpoint(path: str | Path, dtype: str | None = None,
     dev = resolve_device(device)
     tensors = _TensorDir(path)
     try:
-        filler = _Filler(tensors, dev, getattr(torch, spec.dtype))
+        filler = _Filler(tensors, dev, getattr(torch, spec.dtype), quant)
         with torch.no_grad():
             if spec.family == "gpt2":
                 params = _load_gpt2(tensors, spec, filler)

@@ -14,6 +14,14 @@ leaves ``[M, …]`` and block leaves ``[L, M, …]`` (so one layer's slab of a
 weight, ``blocks[k][l]``, is one contiguous ``[M, D, N]`` tensor). Member
 ``i`` is bit-identical to ``init_params(spec, seeds[i])``: each member draws
 from its own generator, in the single init's order, straight into its slice.
+
+``quant="int8"`` (the JAX package's quantized inits) gives the tree
+``models/quant.quantize_params`` would make of the bf16 init, bit for bit,
+without ever holding a whole bf16 leaf: each layer slice of each member of
+each weight is drawn, cast to the spec's dtype and quantized into its slice
+of the int8 leaf before the next is drawn (mixtral-8x7b's ``moe_w_gate``
+alone is 30 GB in bf16; a layer slice is 0.94 GB). Scales reduce over the
+contraction axis, so a stacked tree's scales are each member's own.
 """
 
 from __future__ import annotations
@@ -22,32 +30,55 @@ import torch
 
 from quorum_tpu_torch import resolve_device
 from quorum_tpu_torch.models.model_config import ModelSpec
+from quorum_tpu_torch.models.quant import QUANT_REDUCE_AXIS, quantize_weight
 
 Params = dict
 
 
-def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype) -> Params:
+def check_quant(quant: str | None) -> str | None:
+    """The JAX engine's ``quant`` check, word for word; None when off."""
+    if quant not in (None, "", "int8"):
+        raise ValueError(f"unsupported quant mode {quant!r} (int8 or none)")
+    return quant or None
+
+
+def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
+          quant: str | None = None) -> Params:
     spec.validate()
+    quant = check_quant(quant)
     dev = resolve_device(device)
     dt = getattr(torch, dtype or spec.dtype)
     gens = [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
     lead = (len(seeds),) if stacked else ()
 
-    def parts(out, layered):
-        """(member generator, destination) pairs in each member's draw
+    def parts(full_shape, layered):
+        """(member generator, index of its part) in each member's draw
         order: layer by layer for ``[L, …]`` leaves, else the whole leaf."""
-        for l in range(out.shape[0]) if layered else (None,):
+        for l in range(full_shape[0]) if layered else (None,):
             for m, gen in enumerate(gens):
-                dst = out if l is None else out[l]
-                yield gen, (dst[m] if stacked else dst)
+                yield gen, (() if l is None else (l,)) + ((m,) if stacked else ())
 
-    def w(*shape, fan_in=None, layered=False):
+    def w(*shape, fan_in=None, layered=False, name=""):
         fan = fan_in if fan_in is not None else shape[-2] if len(shape) >= 2 else shape[-1]
         full_shape = (shape[0],) + lead + shape[1:] if layered else lead + shape
-        out = torch.empty(full_shape, dtype=dt, device=dev)
-        for gen, part in parts(out, layered):
-            part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
-                                   device=dev) * fan ** -0.5)
+
+        def draw(gen, part_shape):
+            return torch.randn(part_shape, generator=gen, dtype=torch.float32,
+                               device=dev) * fan ** -0.5
+
+        if not (quant and name in QUANT_REDUCE_AXIS):
+            out = torch.empty(full_shape, dtype=dt, device=dev)
+            for gen, idx in parts(full_shape, layered):
+                out[idx].copy_(draw(gen, full_shape[len(idx):]))
+            return out
+        out = None
+        for gen, idx in parts(full_shape, layered):
+            q = quantize_weight(draw(gen, full_shape[len(idx):]).to(dt), QUANT_REDUCE_AXIS[name])
+            if out is None:
+                out = {k: torch.empty(full_shape[:len(idx)] + v.shape, dtype=v.dtype, device=dev)
+                       for k, v in q.items()}
+            for k, v in q.items():
+                out[k][idx].copy_(v)
         return out
 
     def full(shape, value, layered=False):
@@ -66,10 +97,10 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype) -> Pa
     blocks = {
         "attn_norm_w": full((L, D), norm_one, layered=True),
         "attn_norm_b": full((L, D), 0.0, layered=True) if ln else None,
-        "wq": w(L, D, H, layered=True),
-        "wk": w(L, D, K, layered=True),
-        "wv": w(L, D, K, layered=True),
-        "wo": w(L, H, D, layered=True),
+        "wq": w(L, D, H, layered=True, name="wq"),
+        "wk": w(L, D, K, layered=True, name="wk"),
+        "wv": w(L, D, K, layered=True, name="wv"),
+        "wo": w(L, H, D, layered=True, name="wo"),
         "bq": full((L, H), 0.0, layered=True) if bias else None,
         "bk": full((L, K), 0.0, layered=True) if bias else None,
         "bv": full((L, K), 0.0, layered=True) if bias else None,
@@ -80,37 +111,39 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype) -> Pa
     if spec.is_moe:
         blocks.update(
             router=w(L, D, E, layered=True),
-            moe_w_gate=w(L, E, D, F, fan_in=D, layered=True),
-            moe_w_up=w(L, E, D, F, fan_in=D, layered=True),
-            moe_w_down=w(L, E, F, D, fan_in=F, layered=True),
+            moe_w_gate=w(L, E, D, F, fan_in=D, layered=True, name="moe_w_gate"),
+            moe_w_up=w(L, E, D, F, fan_in=D, layered=True, name="moe_w_up"),
+            moe_w_down=w(L, E, F, D, fan_in=F, layered=True, name="moe_w_down"),
         )
     else:
         blocks.update(
-            w_gate=w(L, D, F, layered=True) if spec.gated_mlp else None,
-            w_up=w(L, D, F, layered=True),
-            w_down=w(L, F, D, layered=True),
+            w_gate=w(L, D, F, layered=True, name="w_gate") if spec.gated_mlp else None,
+            w_up=w(L, D, F, layered=True, name="w_up"),
+            w_down=w(L, F, D, layered=True, name="w_down"),
             b_up=full((L, F), 0.0, layered=True) if bias else None,
             b_down=full((L, D), 0.0, layered=True) if bias else None,
         )
     return {
-        "tok_emb": w(V, D, fan_in=D),
+        "tok_emb": w(V, D, fan_in=D, name="tok_emb"),
         "pos_emb": w(spec.max_seq, D, fan_in=D) if spec.pos == "learned" else None,
         "final_norm_w": full((D,), norm_one),
         "final_norm_b": full((D,), 0.0) if ln else None,
-        "lm_head": None if spec.tied_lm_head else w(D, V),
+        "lm_head": None if spec.tied_lm_head else w(D, V, name="lm_head"),
         "blocks": blocks,
     }
 
 
-def init_params(spec: ModelSpec, seed: int = 0, device=None, dtype=None) -> Params:
-    return _init(spec, [seed], False, device, dtype)
+def init_params(spec: ModelSpec, seed: int = 0, device=None, dtype=None,
+                quant: str | None = None) -> Params:
+    return _init(spec, [seed], False, device, dtype, quant)
 
 
-def init_params_stacked(spec: ModelSpec, seeds: list[int], device=None, dtype=None) -> Params:
+def init_params_stacked(spec: ModelSpec, seeds: list[int], device=None, dtype=None,
+                        quant: str | None = None) -> Params:
     """M = ``len(seeds)`` weight sets stacked in one tree (top-level leaves
     ``[M, …]``, block leaves ``[L, M, …]``); member ``i`` equals
     ``init_params(spec, seeds[i])`` bit for bit. Never builds M trees and
     stacks them, which would need twice the weights' memory for a moment."""
     if not seeds:
         raise ValueError("init_params_stacked needs at least one seed")
-    return _init(spec, list(seeds), True, device, dtype)
+    return _init(spec, list(seeds), True, device, dtype, quant)

@@ -22,9 +22,10 @@ The KV cache is updated IN PLACE — the JAX package donates the cache
 buffers to its jitted programs instead; functions still return the cache
 tensors so call sites read the same.
 
-Attention goes through the two hand-written kernels: prefill through K1
-(ops/flash_attention.py), decode through K2 (ops/flash_decode.py). Each
-takes its plain version for CPU tensors. ``prefill_segment`` (chunked
+Attention goes through the hand-written kernels: prefill through K1
+(ops/flash_attention.py), decode through K2 (ops/flash_decode.py), or K2q8
+(ops/flash_decode_q8.py) over an int8 cache. Each takes its plain version
+for CPU tensors. ``prefill_segment`` (chunked
 prefill over a cache row's history) runs the plain ``attention`` on every
 device, as the JAX package runs XLA's plain attention there.
 ``plain_attention=True`` calls the plain versions directly on any device —
@@ -36,6 +37,18 @@ Matrix products accumulate in float32 where the JAX code asked for
 in float32 and rounds the output to bf16. The MoE router is the exception:
 its logits decide which experts run, so they are computed in float32 from
 the bf16 operands (exact products, f32 sums) and never rounded to bf16.
+
+int8 (the JAX package's ``quant=int8`` and ``kv_quant=int8``): every
+weight product goes through ``models/quant.qeinsum``, which takes a plain
+leaf or a quantized ``{q8, qs}`` leaf (the router stays plain); embedding
+rows of a quantized table are gathered in int8 and multiplied by their
+scales in the model dtype. A cache side is either a tensor ``[L, B, K,
+max_seq, hd]`` or, with ``kv_quant="int8"``, a tuple ``(q8, scale)`` of
+``[L, B, K, max_seq, hd]`` int8 and ``[L, B, K, max_seq]`` float32, value
+≈ q8 · scale per token per head (``init_cache``). Every write quantizes
+what it writes; prefill attends over the fresh K/V as the JAX package's
+does, a segment dequantizes its row's bounded history, and decode reads
+the int8 cache natively (K2q8).
 
 MoE layers (``spec.n_experts > 0``) follow the JAX package: a prompt
 (T > 1) runs the grouped path (:func:`_moe_mlp_grouped`: fixed-capacity
@@ -53,9 +66,12 @@ import torch
 import torch.nn.functional as F
 
 from quorum_tpu_torch.models.model_config import ModelSpec
-from quorum_tpu_torch.ops.attention import attention, causal_mask, decode_attention, prefill_attention
+from quorum_tpu_torch.models.quant import emb_rows, is_quantized, qeinsum, quantize_act
+from quorum_tpu_torch.ops.attention import (attention, causal_mask, decode_attention,
+                                            decode_attention_q8, prefill_attention, quantize_rows)
 from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
 from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
 from quorum_tpu_torch.ops.norms import layernorm, rmsnorm
 from quorum_tpu_torch.ops.rotary import apply_rope, rope_cos_sin_for
 
@@ -96,15 +112,31 @@ def _dtype(spec: ModelSpec) -> torch.dtype:
     return getattr(torch, spec.dtype)
 
 
+def _sub(v, idx):
+    """``v[idx]`` of a plain or quantized leaf (both of its tensors); None
+    stays None."""
+    if v is None:
+        return None
+    if is_quantized(v):
+        return {k: t[idx] for k, t in v.items()}
+    return v[idx]
+
+
+def _w(leaf) -> torch.Tensor:
+    """A weight's tensor (a quantized leaf's ``q8``), for its leading axes:
+    three of them in a member-stacked weight."""
+    return leaf["q8"] if is_quantized(leaf) else leaf
+
+
 def _layer(blocks: Params, l: int) -> Params:
-    return {k: (None if v is None else v[l]) for k, v in blocks.items()}
+    return {k: _sub(v, l) for k, v in blocks.items()}
 
 
 def member_params(params: Params, m: int) -> Params:
     """Member ``m``'s single-model view of a member-stacked tree: views,
     never copies (each layer's slab ``blocks[k][l, m]`` is contiguous)."""
-    out = {k: (None if v is None else v[m]) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {k: (None if v is None else v[:, m]) for k, v in params["blocks"].items()}
+    out = {k: _sub(v, m) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: _sub(v, (slice(None), m)) for k, v in params["blocks"].items()}
     return out
 
 
@@ -121,14 +153,18 @@ def _member_rows(n_members: int, n_rows: int, device) -> torch.Tensor:
     return idx
 
 
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w read back as float32 (the JAX einsums' f32 output). A
+def _mm(x: torch.Tensor, w, xq=None) -> torch.Tensor:
+    """x @ w read back as float32 (the JAX einsums' f32 output), through
+    ``qeinsum``: w plain or quantized, ``xq`` x already quantized. A
     member-stacked w [M, D, N] takes x's member-major rows as M groups: one
-    batched GEMM [M, rows, D] × [M, D, N]."""
-    if w.dim() == 3:
-        out = torch.matmul(x.reshape(w.shape[0], -1, x.shape[-1]), w)
-        return out.reshape(*x.shape[:-1], w.shape[-1]).float()
-    return torch.matmul(x, w).float()
+    batched GEMM [M, rows, D] × [M, D, N] (one int8 GEMM per member)."""
+    if _w(w).dim() == 3:
+        m = _w(w).shape[0]
+        if xq is not None:
+            xq = tuple(t.reshape(m, -1, t.shape[-1]) for t in xq)
+        out = qeinsum("mnd,mdf->mnf", x.reshape(m, -1, x.shape[-1]), w, xq)
+        return out.reshape(*x.shape[:-1], out.shape[-1])
+    return qeinsum("...d,df->...f", x, w, xq)
 
 
 def _per_member(x: torch.Tensor, v: torch.Tensor, op):
@@ -159,8 +195,9 @@ def _gelu(x):
 
 def _dense_mlp(x, block, spec: ModelSpec):
     if spec.gated_mlp:
-        gate = _mm(x, block["w_gate"])
-        up = _mm(x, block["w_up"])
+        xq = quantize_act(x, block["w_gate"], block["w_up"])
+        gate = _mm(x, block["w_gate"], xq)
+        up = _mm(x, block["w_up"], xq)
         # swiglu (llama/mistral) gates with SiLU; geglu (gemma) with tanh GELU.
         gated = F.silu(gate) if spec.act == "swiglu" else _gelu(gate)
         h = (gated * up).to(x.dtype)
@@ -190,12 +227,16 @@ def _moe_router(x, block, spec: ModelSpec):
 
 
 def _expert_ffn(xe, block, dtype):
-    """SwiGLU experts as batched products: xe [E or 1, N, D] against the
-    stacked [E, D, F] / [E, F, D] weights → [E, N, D] f32."""
-    gate = torch.matmul(xe, block["moe_w_gate"]).float()
-    up = torch.matmul(xe, block["moe_w_up"]).float()
+    """SwiGLU experts as batched products: xe [E, N, D] (one buffer per
+    expert) or [N, D] (every expert on every row) against the stacked
+    [E, D, F] / [E, F, D] weights → [E, N, D] f32. Gate and up share one
+    quantization of xe."""
+    form = "mnd,mdf->mnf" if xe.dim() == 3 else "nd,edf->enf"
+    xq = quantize_act(xe, block["moe_w_gate"], block["moe_w_up"])
+    gate = qeinsum(form, xe, block["moe_w_gate"], xq)
+    up = qeinsum(form, xe, block["moe_w_up"], xq)
     h = (F.silu(gate) * up).to(dtype)
-    return torch.matmul(h, block["moe_w_down"]).float()
+    return qeinsum("mnd,mdf->mnf", h, block["moe_w_down"])
 
 
 def _moe_mlp_dense(x, block, spec: ModelSpec):
@@ -208,7 +249,7 @@ def _moe_mlp_dense(x, block, spec: ModelSpec):
     experts = torch.arange(spec.n_experts, device=x.device)
     one_hot = (top_idx[..., None] == experts).to(top_probs.dtype)
     combine = torch.einsum("btk,btke->bte", top_probs, one_hot).reshape(b * t, -1)
-    expert_out = _expert_ffn(x.reshape(1, b * t, d), block, x.dtype)   # [E, N, D]
+    expert_out = _expert_ffn(x.reshape(b * t, d), block, x.dtype)      # [E, N, D]
     out = torch.einsum("ne,end->nd", combine, expert_out)
     return out.reshape(b, t, d).to(x.dtype)
 
@@ -282,7 +323,8 @@ def _mlp(x, block, spec: ModelSpec, token_mask=None):
 def _qkv(x, block, spec: ModelSpec):
     """Project to contiguous q [B,H,T,hd], k/v [B,K,T,hd]."""
     b, t, _ = x.shape
-    q, k, v = _mm(x, block["wq"]), _mm(x, block["wk"]), _mm(x, block["wv"])
+    xq = quantize_act(x, block["wq"], block["wk"], block["wv"])
+    q, k, v = _mm(x, block["wq"], xq), _mm(x, block["wk"], xq), _mm(x, block["wv"], xq)
     if block.get("bq") is not None:
         q, k, v = _add(q, block["bq"]), _add(k, block["bk"]), _add(v, block["bv"])
 
@@ -312,14 +354,14 @@ def _embed(params, spec: ModelSpec, tokens, positions):
     (``tok_emb[m, token]``)."""
     emb, pos_emb = params["tok_emb"], params.get("pos_emb")
     per_row = positions if positions.dim() == 2 else positions[None, :]
-    if emb.dim() == 3:
-        mi = _member_rows(emb.shape[0], tokens.shape[0], tokens.device)[:, None]
-        x = emb[mi, tokens]
+    if _w(emb).dim() == 3:
+        mi = _member_rows(_w(emb).shape[0], tokens.shape[0], tokens.device)[:, None]
+        x = emb_rows(emb, (mi, tokens), _dtype(spec))
         pos = pos_emb[mi, per_row] if spec.pos == "learned" else None
     else:
-        x = emb[tokens]
+        x = emb_rows(emb, tokens, _dtype(spec))
         pos = pos_emb[per_row] if spec.pos == "learned" else None
-    x = _scale_emb(x.to(_dtype(spec)), spec)
+    x = _scale_emb(x, spec)
     return x if pos is None else x + pos.to(x.dtype)
 
 
@@ -327,8 +369,11 @@ def _unembed(params, spec: ModelSpec, x):
     w = params.get("lm_head")
     if w is not None:
         return _mm(x, w)
-    # tied head: contract against the embedding table's rows directly
-    return _mm(x, params["tok_emb"].transpose(-1, -2))
+    # tied head: contract against the embedding table's rows directly; a
+    # quantized table is stored [.., V, D] like every quantized leaf, its
+    # per-row scales the per-vocab output scales.
+    emb = params["tok_emb"]
+    return _mm(x, emb if is_quantized(emb) else emb.transpose(-1, -2))
 
 
 def _final_norm(params, spec: ModelSpec, x):
@@ -344,6 +389,42 @@ def _block(x, block, spec, q_k_v_to_attn, token_mask=None):
     x = x + _attn_out(attn, block, x.dtype)
     h2 = _norm(x, block["mlp_norm_w"], block.get("mlp_norm_b"), spec)
     return x + _mlp(h2, block, spec, token_mask=token_mask)
+
+
+def kv_is_q8(cache) -> bool:
+    """True when a cache side is the int8 ``(q8, scale)`` pair."""
+    return isinstance(cache, tuple)
+
+
+def _kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., T, hd] → (int8 [..., T, hd], f32 scale [..., T]): per token per
+    head, the JAX package's ``_kv_quantize``."""
+    q8, s = quantize_rows(x, axis=-1)
+    return q8, s[..., 0]
+
+
+def _kv_dequant(q8: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q8.float() * scale[..., None]).to(dtype)
+
+
+def _kv_layer(cache, l: int):
+    """Layer ``l`` of a cache side: a tensor, or the ``(q8, scale)`` pair."""
+    return (cache[0][l], cache[1][l]) if kv_is_q8(cache) else cache[l]
+
+
+def _kv_put(side, index, value: torch.Tensor, heads_last: bool = False) -> None:
+    """``side[index] = value`` in place for one layer's cache side, value
+    ``[..., K, T, hd]`` (``heads_last``: the indexed region is ``[..., T, K,
+    hd]``, as a segment's advanced index lays it out). An int8 side stores
+    the quantized value and its scales."""
+    if not kv_is_q8(side):
+        side[index] = (value.transpose(-3, -2) if heads_last else value).to(side.dtype)
+        return
+    q8, s = _kv_quantize(value)
+    if heads_last:
+        q8, s = q8.transpose(-3, -2), s.transpose(-2, -1)
+    side[0][index] = q8
+    side[1][index] = s
 
 
 def prefill(
@@ -388,8 +469,9 @@ def prefill(
             if spec.pos == "rope":
                 q = apply_rope(q, cos, sin, positions)
                 k = apply_rope(k, cos, sin, positions)
-            cache_k[l, dst, :, :t] = k[src]  # in place (JAX: donated buffer)
-            cache_v[l, dst, :, :t] = v[src]
+            # in place (JAX: donated buffer); an int8 cache stores k, v quantized
+            _kv_put(_kv_layer(cache_k, l), (dst, slice(None), slice(None, t)), k[src])
+            _kv_put(_kv_layer(cache_v, l), (dst, slice(None), slice(None, t)), v[src])
             return attn_fn(q, k, v, lengths, window=spec.sliding_window), k, v
 
         x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask)
@@ -475,14 +557,23 @@ def prefill_segment(
                 q = apply_rope(q, cos, sin, positions)
                 k = apply_rope(k, cos, sin, positions)
             # cache[l][row, :, pos] ← [n, T, K, hd], in place
-            cache_k[l][dst, :, wpos] = k[src].transpose(1, 2).to(cache_k.dtype)
-            cache_v[l][dst, :, wpos] = v[src].transpose(1, 2).to(cache_v.dtype)
-            row_k = cache_k[l][read, :, :hist].to(q.dtype)
-            row_v = cache_v[l][read, :, :hist].to(q.dtype)
-            return attention(q, row_k, row_v, mask), k, v
+            ck, cv = _kv_layer(cache_k, l), _kv_layer(cache_v, l)
+            _kv_put(ck, (dst, slice(None), wpos), k[src], heads_last=True)
+            _kv_put(cv, (dst, slice(None), wpos), v[src], heads_last=True)
+            return attention(q, _seg_read(ck, read, hist, q.dtype),
+                             _seg_read(cv, read, hist, q.dtype), mask), k, v
 
         x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask)
     return cache_k, cache_v
+
+
+def _seg_read(side, read: torch.Tensor, hist: int, dtype) -> torch.Tensor:
+    """Rows ``read`` of one layer's cache side over ``[0, hist)`` in
+    ``dtype``; an int8 side dequantizes the bounded window (the JAX
+    package's ``seg_read``)."""
+    if kv_is_q8(side):
+        return _kv_dequant(side[0][read, :, :hist], side[1][read, :, :hist], dtype)
+    return side[read, :, :hist].to(dtype)
 
 
 def decode_token_embed(params: Params, spec: ModelSpec, token, lengths):
@@ -490,12 +581,14 @@ def decode_token_embed(params: Params, spec: ModelSpec, token, lengths):
     learned position embedding at each row's position when the spec uses
     one; member-stacked tables: row b reads its member's table)."""
     emb, pos_emb = params["tok_emb"], params.get("pos_emb")
-    if emb.dim() == 3:
-        mi = _member_rows(emb.shape[0], token.shape[0], token.device)
-        x, pos = emb[mi, token], (pos_emb[mi, lengths] if spec.pos == "learned" else None)
+    if _w(emb).dim() == 3:
+        mi = _member_rows(_w(emb).shape[0], token.shape[0], token.device)
+        x = emb_rows(emb, (mi, token), _dtype(spec))
+        pos = pos_emb[mi, lengths] if spec.pos == "learned" else None
     else:
-        x, pos = emb[token], (pos_emb[lengths] if spec.pos == "learned" else None)
-    x = _scale_emb(x.to(_dtype(spec))[:, None, :], spec)
+        x = emb_rows(emb, token, _dtype(spec))
+        pos = pos_emb[lengths] if spec.pos == "learned" else None
+    x = _scale_emb(x[:, None, :], spec)
     return x if pos is None else x + pos[:, None, :].to(x.dtype)
 
 
@@ -522,22 +615,36 @@ def decode_step_blocks(
     allow = (torch.ones((b,), dtype=torch.bool, device=x.device)
              if write_mask is None else write_mask)
     live_len = (lengths + 1).to(torch.int32)
-    attn_fn = decode_attention if plain_attention else flash_decode_attention
+    q8 = kv_is_q8(cache_k)
+    if q8:
+        attn_fn = decode_attention_q8 if plain_attention else flash_decode_q8_attention
+    else:
+        attn_fn = decode_attention if plain_attention else flash_decode_attention
 
-    def write(cache, value):
+    def put(cache, value):
+        old = cache[rows, :, pos]
+        keep = allow.reshape(-1, *([1] * (old.dim() - 1)))
+        cache[rows, :, pos] = torch.where(keep, value.to(cache.dtype), old)
+
+    def write(side, value):
         # value [B, K, 1, hd] lands at each row's own position, in place.
-        old = cache[rows, :, pos]                    # [B, K, hd]
-        cache[rows, :, pos] = torch.where(allow[:, None, None], value[:, :, 0].to(cache.dtype), old)
+        if kv_is_q8(side):
+            v8, s = _kv_quantize(value)
+            put(side[0], v8[:, :, 0])
+            put(side[1], s[:, :, 0])
+        else:
+            put(side, value[:, :, 0])
 
     for l in range(spec.n_layers):
         def attend(q, k, v, l=l):
             if spec.pos == "rope":
                 q = apply_rope(q, cos, sin, pos[:, None])
                 k = apply_rope(k, cos, sin, pos[:, None])
-            write(cache_k[l], k)
-            write(cache_v[l], v)
-            return attn_fn(q, cache_k[l], cache_v[l], live_len,
-                           window=spec.sliding_window), k, v
+            ck, cv = _kv_layer(cache_k, l), _kv_layer(cache_v, l)
+            write(ck, k)
+            write(cv, v)
+            sides = (*ck, *cv) if q8 else (ck, cv)
+            return attn_fn(q, *sides, live_len, window=spec.sliding_window), k, v
 
         x = _block(x, _layer(blocks, l), spec, attend)
     return x, cache_k, cache_v
@@ -703,10 +810,18 @@ def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor,
     return _unembed(params, spec, _final_norm(params, spec, x))
 
 
-def init_cache(spec: ModelSpec, batch: int, dtype=None, device=None):
+def init_cache(spec: ModelSpec, batch: int, dtype=None, device=None,
+               kv_quant: str | None = None):
     """Preallocated KV cache: ``[L, B, K, max_seq, hd]`` × 2, zeroed. At
-    llama-3-8b widths with an 8192 window that is 1.07 GB per slot in bf16."""
-    dt = getattr(torch, dtype) if isinstance(dtype, str) else (dtype or _dtype(spec))
+    llama-3-8b widths with an 8192 window that is 1.07 GB per slot in bf16.
+    ``kv_quant="int8"``: each side is ``(int8 values, f32 per-token
+    scales [L, B, K, max_seq])``, 0.54 GB per slot there."""
     shape = (spec.n_layers, batch, spec.n_kv_heads, spec.max_seq, spec.head_dim)
+    if kv_quant == "int8":
+        def side():
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+        return side(), side()
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else (dtype or _dtype(spec))
     return (torch.zeros(shape, dtype=dt, device=device),
             torch.zeros(shape, dtype=dt, device=device))

@@ -7,9 +7,11 @@ heads (no repeated K/V copies). Softmax runs in float32 with the finite
 ``NEG_INF`` mask value, so masked rows stay NaN-free in bf16 and f32.
 
 ``prefill_attention`` is the plain version of kernel K1
-(ops/flash_attention.py) and ``decode_attention`` of kernel K2
-(ops/flash_decode.py): each wrapper takes it for CPU tensors, and the tests
-and ``chip_smoke.py`` hold the kernels against it.
+(ops/flash_attention.py), ``decode_attention`` of kernel K2
+(ops/flash_decode.py) and ``decode_attention_q8`` (the int8 KV cache's
+decode step) of kernel K2q8 (ops/flash_decode_q8.py): each wrapper takes it
+for CPU tensors, and the tests and ``chip_smoke.py`` hold the kernels
+against it.
 """
 
 from __future__ import annotations
@@ -79,3 +81,78 @@ def decode_attention(
     if window > 0:
         valid = valid & (ki >= lengths - window)
     return attention(q, k_cache, v_cache, valid[:, None, None, None, :])
+
+
+def quantize_rows(x: torch.Tensor, axis: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization along ``axis``: ``(q8, scale)`` with
+    ``x ≈ q8 * scale`` (scale f32, keeping the reduced dim at size 1). The
+    JAX package's formulation exactly: amax/127 with a 1e-30 floor for an
+    all-zero row, round half to even (``torch.round`` as ``jnp.round``),
+    clip to ±127. models/quant.py quantizes weights and activations the same
+    way; the int8 KV cache's writes and its queries and probabilities use
+    this one."""
+    xf = x.float()
+    amax = torch.amax(xf.abs(), dim=axis, keepdim=True)
+    s = torch.clamp_min(amax, 1e-30) / 127.0
+    return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+
+def _int_dot(eq: str, a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq)`` of two int8 tensors as exact integers, read back as
+    float32 (the JAX package's int32 result cast to f32). Computed in
+    float64, exact for any sum below 2^53, since neither device multiplies
+    integer tensors in a batched product."""
+    return torch.einsum(eq, a8.double(), b8.double()).float()
+
+
+def q8_probabilities(
+    q: torch.Tensor,        # [B, H, 1, hd] bf16/f32
+    k8: torch.Tensor,       # [B, K, T, hd] int8 cache
+    k_scale: torch.Tensor,  # [B, K, T] f32
+    v_scale: torch.Tensor,  # [B, K, T] f32
+    lengths: torch.Tensor,  # [B]
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The probabilities of :func:`decode_attention_q8` with V's scale
+    folded in, ``pv`` [B, K, G, 1, T] f32, and their quantization over t:
+    ``(pv, p8, ps)`` with ``pv ≈ p8 * ps``, one scale per (row, head)."""
+    b, h, s, d = q.shape
+    n_kv = k8.shape[1]
+    qg = q.reshape(b, n_kv, h // n_kv, s, d)
+    q8, qs = quantize_rows(qg, axis=-1)                      # qs [B, K, G, 1, 1]
+    logits_i = _int_dot("bkgsd,bktd->bkgst", q8, k8)
+    logits = (logits_i * qs * k_scale[:, :, None, None, :]) * (d ** -0.5)
+    ki = torch.arange(k8.shape[2], device=q.device)[None, :]
+    lengths = lengths.to(q.device)[:, None]
+    valid = ki < lengths
+    if window > 0:
+        valid = valid & (ki >= lengths - window)
+    logits = torch.where(valid[:, None, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    probs = probs / torch.sum(probs, dim=-1, keepdim=True)
+    pv = probs * v_scale[:, :, None, None, :]                # fold v's scale in
+    p8, ps = quantize_rows(pv, axis=-1)                      # ps [B, K, G, 1, 1]
+    return pv, p8, ps
+
+
+def decode_attention_q8(
+    q: torch.Tensor,        # [B, H, 1, hd] bf16/f32
+    k8: torch.Tensor,       # [B, K, T, hd] int8 cache
+    k_scale: torch.Tensor,  # [B, K, T] f32: k ≈ k8 * k_scale[..., None]
+    v8: torch.Tensor,       # [B, K, T, hd] int8 cache
+    v_scale: torch.Tensor,  # [B, K, T] f32
+    lengths: torch.Tensor,  # [B]: valid cache entries (incl. the current token)
+    window: int = 0,
+) -> torch.Tensor:
+    """One decode step against an int8 KV cache, the JAX package's
+    ``ops/attention.decode_attention_q8`` step for step: q (one row per
+    head) and the probabilities (one row per query) are quantized amax/127;
+    both contractions are integer products. K's per-token scale lands on
+    its output position (logits · ks[t]); V's per-token scale is folded
+    into the probabilities before they are quantized over t, with one scale
+    for the row's whole range. Returns [B, H, 1, hd] in q's dtype."""
+    b, h, s, d = q.shape
+    _, p8, ps = q8_probabilities(q, k8, k_scale, v_scale, lengths, window)
+    out = _int_dot("bkgst,bktd->bkgsd", p8, v8) * ps
+    return out.reshape(b, h, s, d).to(q.dtype)

@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # The C entry points encode TMA tensor maps with the driver API
 # (cuTensorMapEncodeTiled), so the libraries link libcuda.
 LINK_FLAGS = ["-lcuda"]
-KERNEL_SOURCES = ("flash_prefill", "flash_decode")
+KERNEL_SOURCES = ("flash_prefill", "flash_decode", "flash_decode_q8")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

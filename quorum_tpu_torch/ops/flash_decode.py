@@ -34,10 +34,9 @@ Calls on one stream are ordered, so they may share a set; calls on two
 streams never do (several engines on one card, each on its own stream). The
 counters are 0 between calls. ``launches`` counts kernel launches exactly
 under concurrent callers (one scheduler thread per engine). A call made
-while its thread captures a CUDA graph (inside ``capturing()``) launches
-nothing yet: it counts into the thread's ``captured_launches()`` instead,
-and whoever replays the graph adds its launches per replay
-(``add_launches``).
+while its thread captures a CUDA graph launches nothing yet: it counts as
+captured, and whoever replays the graph adds its launches per replay
+(``ops/launches.py``).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback and no switch that turns it off.
@@ -45,13 +44,12 @@ kernel or raises — there is no fallback and no switch that turns it off.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import threading
 
 import torch
 
-from quorum_tpu_torch.ops import cuda_build
+from quorum_tpu_torch.ops import cuda_build, launches
 from quorum_tpu_torch.ops.attention import decode_attention
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
@@ -61,8 +59,7 @@ MAX_SPLITS = 32  # blocks per (row, kv head) at most (csrc MAX_SPLITS)
 N_SMS = 132  # streaming multiprocessors of an H100 SXM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
-_LOCK = threading.Lock()  # guards _SCRATCH inserts and the launch counter
-_CAPTURE = threading.local()  # .on: this thread is capturing; .n: calls it captured
+_LOCK = threading.Lock()  # guards _SCRATCH inserts
 
 
 def decode_route(dtype: torch.dtype) -> str:
@@ -131,32 +128,7 @@ def _scratch(device, stream, b, h, n_kv, hd, n_splits):
 
 
 def _count_launch() -> None:
-    if getattr(_CAPTURE, "on", False):
-        _CAPTURE.n = captured_launches() + 1
-        return
-    add_launches(1)
-
-
-@contextlib.contextmanager
-def capturing():
-    """Mark this thread as capturing a CUDA graph: its calls count as
-    captured, not launched."""
-    _CAPTURE.on = True
-    try:
-        yield
-    finally:
-        _CAPTURE.on = False
-
-
-def captured_launches() -> int:
-    """Calls this thread has captured into CUDA graphs so far."""
-    return getattr(_CAPTURE, "n", 0)
-
-
-def add_launches(n: int) -> None:
-    """Count ``n`` launches: a graph replay adds the calls it captured."""
-    with _LOCK:
-        flash_decode_attention.launches += n
+    launches.count(flash_decode_attention)
 
 
 def ticket_counters() -> list[torch.Tensor]:

@@ -157,6 +157,7 @@ def test_prefill_then_decode_equals_forward_logits():
 
 
 def test_quantized_leaves_are_refused():
+    """Where the JAX package quantizes no leaf (norms, biases, the router)."""
     with pytest.raises(ValueError, match="int8"):
-        params_from_numpy({"tok_emb": {"q8": np.zeros((2, 2), np.int8), "qs": np.ones(2)},
-                           "blocks": {}}, device="cpu")
+        params_from_numpy({"final_norm_w": {"q8": np.zeros((2, 2), np.int8),
+                                            "qs": np.ones(2)}, "blocks": {}}, device="cpu")

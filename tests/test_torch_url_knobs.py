@@ -63,7 +63,7 @@ def test_unknown_options_are_refused_by_name(option, no_engine):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("spec_ckpt", "/some/dir"), ("kv_quant", "int8"), ("quant", "int8"), ("zero_drain", "1"),
+    ("spec_ckpt", "/some/dir"), ("sp", "2"), ("kv_page_size", "16"), ("zero_drain", "1"),
     ("spec_model", "llama-tiny"), ("prefix_store", "host"), ("tp", "2"), ("pp", "2"),
     ("disagg", "1+1"), ("flash_decode", "1"), ("kv_pages", "1"), ("qos", "1"),
 ])
