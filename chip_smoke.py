@@ -22,8 +22,9 @@ result line:
               lengths (checked too), and at B=3 ragged rows (one
               coalesced member admission) at the serve buckets; K2q8 (int8
               cache) against its plain version at K2's shapes (f32 and bf16
-              q, window 0 and 4096) with its time, the plain version's, its
-              bound and K2's time on the same lengths; the int8 weight
+              q, window 0 and 4096) and at 4 slots of 32 768 keys all live,
+              each with its time, the plain version's, its bound and K2's
+              time on the same lengths; the int8 weight
               products (torch._int_mm) at llama-3-8b widths and 1/4/12/32
               rows equal to the exact integer products, timed beside the
               bf16 products;
@@ -544,81 +545,114 @@ def _kernels_q8(torch, cpu: bool, tiny: bool, rnd, median_ms, graph_ms, k2_ms) -
     shapes: 4 slots, T=8192, lengths 1/100/4096/8191, window 0 and 4096,
     q in f32 and bf16 (the cache int8 with f32 per-token scales); then its
     time, the plain version's, the bound (the live int8 rows and their
-    scales) and K2's time on the same lengths (bf16 cache)."""
+    scales) and K2's time on the same lengths (bf16 cache); then the same
+    at a long cache, 4 slots of T=32768 all live (bf16 q)."""
     from quorum_tpu_torch.ops.attention import (_int_dot, decode_attention_q8,
                                                 q8_probabilities, quantize_rows)
-    from quorum_tpu_torch.ops.flash_decode import decode_n_splits, decode_split_plan
-    from quorum_tpu_torch.ops.flash_decode_q8 import error_bound, flash_decode_q8_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import (error_bound, flash_decode_q8_attention,
+                                                      occupancy, q8_cluster_size, q8_split_plan)
 
     dev = "cpu" if cpu else "cuda"
     h, kv, hd = (4, 2, 64) if tiny else (32, 8, 128)
-    t = 256 if tiny else 8192
-    lens = [1, 100, 200, 255] if tiny else [1, 100, 4096, 8191]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
 
-    def cache():
+    def cache(t):
         k8, ks = quantize_rows(rnd(4, kv, t, hd, dtype=torch.float32), -1)
         v8, vs = quantize_rows(rnd(4, kv, t, hd, dtype=torch.float32), -1)
         return k8, ks[..., 0].contiguous(), v8, vs[..., 0].contiguous()
 
-    def faults(args, w, ref, bound):
+    def faults(args, lengths, lens, t, w, ref, bound):
         """Outputs of two broken kernels, each of which the limit must
-        reject: the longest row's first split's p·V partial zeroed, and the
+        reject: the longest row's first block's p·V sums zeroed, and the
         first key of its range dropped."""
         q, k8, ks, v8, vs = args
         _, p8, ps = q8_probabilities(q, k8, ks, vs, lengths, w)
-        begin, end = decode_split_plan(lens[-1], t, decode_n_splits(4, kv), w)[0]
+        begin, end = q8_split_plan(lens[-1], t, q8_cluster_size(4, kv, t), w)[0]
         p8 = p8.clone()
         p8[-1, ..., begin:end] = 0
         zeroed = (_int_dot("bkgst,bktd->bkgsd", p8, v8) * ps).reshape(ref.shape)
         span = w or lens[-1]
         shifted = decode_attention_q8(q, k8, ks, v8, vs, lengths, window=span - 1).float()
-        return {"split_zeroed": bool(((zeroed - ref).abs() > bound).any()),
+        return {"block_zeroed": bool(((zeroed - ref).abs() > bound).any()),
                 "first_key_dropped": bool(((shifted - ref).abs() > bound).any())}
 
-    out = {"max_abs_err": 0.0, "max_err_over_bound": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
+    def check(out, dtype, t, lens, w):
+        """One call against the plain version: every output element within
+        error_bound, one counted launch, both faults caught."""
         dname = str(dtype).removeprefix("torch.")
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = rnd(4, h, 1, hd, dtype=dtype)
+        k8, ks, v8, vs = cache(t)
+        n0 = flash_decode_q8_attention.launches
+        got = flash_decode_q8_attention(q, k8, ks, v8, vs, lengths, window=w)
+        ref = decode_attention_q8(q, k8, ks, v8, vs, lengths, window=w).float()
+        bound = error_bound(q, k8, ks, v8, vs, lengths, window=w)
+        diff = (got.float() - ref).abs()
+        err = diff.max().item()
+        over = (diff / bound.clamp_min(1e-30)).max().item()
+        caught = faults((q, k8, ks, v8, vs), lengths, lens, t, w, ref, bound)
+        require(bool(torch.isfinite(got.float()).all()), f"K2q8 non-finite T={t} W={w}")
+        require(cpu or flash_decode_q8_attention.launches == n0 + 1,
+                "K2q8: one call must count one launch")
+        emit("kernels", kernel="flash_decode_q8", dtype=dname, T=t, window=w, lengths=lens,
+             max_abs_err=err, max_err_over_bound=over, max_bound=bound.max().item(),
+             faults_caught=caught)
+        require(bool((diff <= bound).all()), f"K2q8 {dname} T={t} W={w}: err {err} beyond "
+                                             f"error_bound ({over} of it)")
+        require(all(caught.values()), f"K2q8 {dname} T={t} W={w}: error_bound misses {caught}")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["max_err_over_bound"] = max(out["max_err_over_bound"], over)
+
+    def timing(t, lens) -> dict:
+        """Time, eager time, the plain version's, the bound and K2 (bf16
+        cache) on the same lengths, bf16 q."""
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live = sum(lens)
+        flops = 4 * h * live * hd  # int8 products and adds of q·K and p·V
+        nbytes = live * kv * (2 * hd + 2 * 4) + 2 * 2 * 4 * h * hd + 4 * 4
+        sets = [(rnd(4, h, 1, hd, dtype=torch.bfloat16), *cache(t), lengths)
+                for _ in range(1 if cpu else _copies(nbytes))]
+        bound_ms, bound_by = _bound(flops, nbytes, "int8")
+        ms = graph_ms([lambda a=a: flash_decode_q8_attention(*a) for a in sets])
+        a0 = sets[0]
+        row = {"shape": {"B": 4, "H": h, "K": kv, "T": t, "hd": hd, "dtype": "bfloat16",
+                         "cache": "int8", "window": 0, "lengths": lens},
+               "cluster": q8_cluster_size(4, kv, t), "route": "mma-s8-cluster", "ms": ms,
+               "eager_ms": median_ms(lambda: flash_decode_q8_attention(*a0)),
+               "plain_ms": graph_ms([lambda a=a: decode_attention_q8(*a) for a in sets]),
+               "library_ms": None,
+               "library": "none: no single PyTorch call computes int8 attention",
+               "flops": flops, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+               "pct_of_bound": 100 * bound_ms / ms}
+        if not cpu:
+            row["occupancy"] = occupancy(hd, torch.bfloat16, row["cluster"])
+        del sets
+        return row
+
+    out = {"max_abs_err": 0.0, "max_err_over_bound": 0.0}
+    t = 256 if tiny else 8192
+    lens = [1, 100, 200, 255] if tiny else [1, 100, 4096, 8191]
+    for dtype in (torch.float32, torch.bfloat16):
         for w in ((0, 64) if tiny else (0, 4096)):
-            q = rnd(4, h, 1, hd, dtype=dtype)
-            k8, ks, v8, vs = cache()
-            n0 = flash_decode_q8_attention.launches
-            got = flash_decode_q8_attention(q, k8, ks, v8, vs, lengths, window=w)
-            ref = decode_attention_q8(q, k8, ks, v8, vs, lengths, window=w).float()
-            bound = error_bound(q, k8, ks, v8, vs, lengths, window=w)
-            diff = (got.float() - ref).abs()
-            err = diff.max().item()
-            over = (diff / bound.clamp_min(1e-30)).max().item()
-            caught = faults((q, k8, ks, v8, vs), w, ref, bound)
-            require(bool(torch.isfinite(got.float()).all()), f"K2q8 non-finite W={w}")
-            require(cpu or flash_decode_q8_attention.launches == n0 + 1,
-                    "K2q8: one call must count one launch")
-            emit("kernels", kernel="flash_decode_q8", dtype=dname, T=t, window=w, lengths=lens,
-                 max_abs_err=err, max_err_over_bound=over, max_bound=bound.max().item(),
-                 faults_caught=caught)
-            require(bool((diff <= bound).all()), f"K2q8 {dname} W={w}: err {err} beyond "
-                                                 f"error_bound ({over} of it)")
-            require(all(caught.values()), f"K2q8 {dname} W={w}: error_bound misses {caught}")
-            out["max_abs_err"] = max(out["max_abs_err"], err)
-            out["max_err_over_bound"] = max(out["max_err_over_bound"], over)
-    live = sum(lens)
-    flops = 4 * h * live * hd  # int8 products and adds of q·K and p·V
-    nbytes = live * kv * (2 * hd + 2 * 4) + 2 * 2 * 4 * h * hd + 4 * 4
-    sets = [(rnd(4, h, 1, hd, dtype=torch.bfloat16), *cache(), lengths)
-            for _ in range(1 if cpu else _copies(nbytes))]
-    bound_ms, bound_by = _bound(flops, nbytes, "int8")
-    ms = graph_ms([lambda a=a: flash_decode_q8_attention(*a) for a in sets])
-    a0 = sets[0]
-    out.update(
-        shape={"B": 4, "H": h, "K": kv, "T": t, "hd": hd, "dtype": "bfloat16", "cache": "int8",
-               "window": 0, "lengths": lens},
-        route="dp4a", ms=ms, eager_ms=median_ms(lambda: flash_decode_q8_attention(*a0)),
-        plain_ms=graph_ms([lambda a=a: decode_attention_q8(*a) for a in sets]),
-        library_ms=None, library="none: no single PyTorch call computes int8 attention",
-        flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
-        pct_of_bound=100 * bound_ms / ms, k2_ms_same_lengths_bf16=k2_ms)
-    del sets
+            check(out, dtype, t, lens, w)
+    out.update(timing(t, lens), k2_ms_same_lengths_bf16=k2_ms)
     emit("kernels", kernel="flash_decode_q8", timing=out)
+
+    # The long cache: 4 slots of 32 768 keys, all live (1 024 under --tiny).
+    t = 1024 if tiny else 32768
+    lens = [t] * 4
+    check(out, torch.bfloat16, t, lens, 0)
+    long_cache = timing(t, lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    k2_nbytes = 2 * (sum(lens) * kv * hd * 2 + 2 * 4 * h * hd) + 4 * 4
+    sets = [(rnd(4, h, 1, hd, dtype=torch.bfloat16), rnd(4, kv, t, hd, dtype=torch.bfloat16),
+             rnd(4, kv, t, hd, dtype=torch.bfloat16), lengths)
+            for _ in range(1 if cpu else _copies(k2_nbytes))]
+    long_cache["k2_ms_same_lengths_bf16"] = graph_ms(
+        [lambda a=a: flash_decode_attention(*a) for a in sets])
+    del sets
+    out["long_cache"] = long_cache
+    emit("kernels", kernel="flash_decode_q8", long_cache=long_cache)
     return out
 
 
@@ -3091,8 +3125,7 @@ def _quant_leg(torch, cpu: bool, tiny: bool, device_info: dict, model: str,
     if profile:
         phase_profile(torch, cpu, lambda: asyncio.run(asyncio.wait_for(
             drive(), 2 * SERVE_TIMEOUT_S)), info["measured_on"], flash_decode_q8_attention,
-            of=f"quant {model}", decode_kernels=("q8_logits_kernel", "q8_pv_kernel",
-                                                 "q8_combine_kernel"))
+            of=f"quant {model}", decode_kernels=("q8_decode_cluster_kernel",))
     return info
 
 
@@ -3155,8 +3188,7 @@ def _quant_replay(torch, spec, params, dev, gen, tiny: bool) -> dict:
 # Kernel-name fragments → where the serve time goes.
 _KERNEL_GROUPS = (("K1 flash_prefill", ("prefill_wgmma_kernel", "flash_prefill_kernel")),
                   ("K2 flash_decode", ("flash_decode_mma_kernel", "flash_decode_kernel")),
-                  ("K2q8 flash_decode_q8", ("q8_logits_kernel", "q8_pv_kernel",
-                                            "q8_combine_kernel")),
+                  ("K2q8 flash_decode_q8", ("q8_decode_cluster_kernel",)),
                   ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas", "splitk")),
                   ("sort (top-p/top-k)", ("sort", "radix", "scan")))
 
@@ -3165,8 +3197,8 @@ def phase_profile(torch, cpu: bool, run_requests, card: str, decode_fn,
                   of: str = "serve", decode_kernels: tuple = ("flash_decode",)) -> None:
     """The same 4 concurrent requests again under torch.profiler: device time
     by kernel group and the device's busy share of the wall time. The decode
-    attention must show one kernel per name in ``decode_kernels`` (K2: one;
-    K2q8: its three launches), each launched once per counted call. Matrix
+    attention must show one kernel per name in ``decode_kernels`` (K2 and
+    K2q8: one each), each launched once per counted call. Matrix
     products on int8 operands are their own group."""
     if cpu:
         run_requests()  # rehearse the path; there is no device to trace
@@ -3303,7 +3335,8 @@ def main(argv=None) -> int:
                 row.update(library_masked_ms=r["library_masked_ms"],
                            library_causal_ms=r["library_causal_ms"])
             if name == "flash_decode_q8":
-                row.update(k2_ms_same_lengths_bf16=r["k2_ms_same_lengths_bf16"])
+                row.update(k2_ms_same_lengths_bf16=r["k2_ms_same_lengths_bf16"],
+                           long_cache=r["long_cache"])
             rows.append(row)
         print(json.dumps({"kernels": rows}), flush=True)
     if args.cpu:

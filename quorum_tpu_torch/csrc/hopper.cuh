@@ -1,8 +1,8 @@
 // Hopper pipeline pieces shared by the port's kernels (sm_90a): mbarrier
 // operations, TMA tile loads into 128-byte-swizzled shared memory, the host
 // side encoding of their tensor maps, and bf16 packing. Included by
-// flash_prefill.cu and flash_decode.cu; each translation unit gets its own
-// copy (anonymous namespace).
+// flash_prefill.cu, flash_decode.cu and flash_decode_q8.cu; each translation
+// unit gets its own copy (anonymous namespace).
 #pragma once
 
 #include <cuda.h>

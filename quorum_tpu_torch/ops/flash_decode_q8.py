@@ -13,20 +13,23 @@ integer sums; V's scales are folded into the probabilities, which take one
 scale over the row's whole live range.
 
 What bounds it on the H100: bytes — the live int8 rows and their scales,
-Σ live · K · (2·hd + 8). Three launches per call on the caller's stream, a
-fixed grid (n_splits, K, B) with K2's split rule (``decode_n_splits``,
-``decode_split_plan``): logits and per-split softmax partials (max, sum,
-max of exp·vs) into scratch; every block merges its row's partials, so all
-of them quantize the probabilities with the row's one scale, and sums
-p8·v8 in int32 (``__dp4a``); a last launch adds the splits' integer sums
-and rescales. No tile gets a scale of its own: that would be another
-function.
+Σ live · K · (2·hd + 8). One launch per call: a grid (C, K, B) of
+thread-block clusters, one cluster of C blocks per (row, kv head), C chosen
+from the shapes (:func:`q8_cluster_size`); each block takes its chunk of
+the row's live range (:func:`q8_split_plan`), streams its K and then its V
+tiles through a TMA ring, runs q·Kᵀ and p·V on the int8 tensor cores
+(``mma.sync`` m16n8k32), keeps its logits and V's scales in shared memory
+(past :func:`logit_stride` keys they spill to a scratch, :func:`spill_keys`),
+and merges the row's softmax partials with its peers through distributed
+shared memory between two cluster barriers, so every block quantizes the
+probabilities with the row's one scale. No tile gets a scale of its own:
+that would be another function.
 
-Scratch (the logits [B, H, T] f32, the partials, the int32 sums and the
-probability scales) is cached per device, stream and shape under a lock,
-like K2's. ``launches`` counts calls that launched (one per call), exactly
-under concurrent callers; a call made while its thread captures a CUDA
-graph counts as captured and is added per replay (``ops/launches.py``).
+Scratch: only the logits spill, sized from the shapes and cached per
+device, stream and shape under a lock. ``launches`` counts calls that
+launched (one kernel per call), exactly under concurrent callers; a call
+made while its thread captures a CUDA graph counts as captured and is added
+per replay (``ops/launches.py``).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback and no switch that turns it off.
@@ -41,10 +44,11 @@ import torch
 
 from quorum_tpu_torch.ops import cuda_build, launches
 from quorum_tpu_torch.ops.attention import _int_dot, decode_attention_q8, q8_probabilities
-from quorum_tpu_torch.ops.flash_decode import (_DTYPE_CODES, MAX_GROUP, SUPPORTED_HEAD_DIMS,
-                                               decode_n_splits)
+from quorum_tpu_torch.ops.flash_decode import _DTYPE_CODES, MAX_GROUP, N_SMS, SUPPORTED_HEAD_DIMS
 
-_SCRATCH: dict[tuple, tuple[torch.Tensor, ...]] = {}
+MIN_CHUNK = 128  # keys: the least work one block takes, one ring stage (csrc MIN_CHUNK)
+CLUSTER_SIZES = (8, 16)  # portable, and the H100's non-portable maximum
+_SCRATCH: dict[tuple, torch.Tensor] = {}
 _LOCK = threading.Lock()
 # The kernel's probabilities p·vs/ps agree with the plain version's within
 # a few f32 ulps (its softmax merges split partials in another order, with
@@ -52,32 +56,97 @@ _LOCK = threading.Lock()
 PROB_REL = 1e-5
 
 
+def q8_cluster_size(batch: int, n_kv: int, cache_len: int) -> int:
+    """Blocks per (row, kv head), from the shapes alone — never the
+    lengths. 16 while the B·K clusters of 16 come to at most four blocks
+    per SM (what the card holds at hd ≤ 128) and a cache of at most 8 192
+    keys bounds a block's chunk to 512: a cluster's blocks past its row's
+    live range exit at once, so short rows free their slots for the long
+    rows' clusters. Else 8: past that, rows long enough to fill every
+    block of 16 would leave a tail of clusters the card cannot place."""
+    return 16 if batch * n_kv * 16 <= 4 * N_SMS and cache_len <= 8192 else 8
+
+
+def q8_split_plan(length: int, cache_len: int, cluster: int,
+                  window: int = 0) -> list[tuple[int, int]]:
+    """The key range [begin, end) each of a row's ``cluster`` blocks covers,
+    as ``csrc/flash_decode_q8.cu`` split_range computes it on the device;
+    an idle block gets ``(begin, begin)``. The live range is
+    [max(n − W, 0), n) with n = clamp(length, 0, cache_len); each chunk is
+    ceil(live / cluster) rounded up to a multiple of ``MIN_CHUNK`` (at
+    least ``MIN_CHUNK``). Block 0 is always active: for a row with no live
+    key it writes zeros."""
+    n = min(max(length, 0), cache_len)
+    lo = max(n - window, 0) if window > 0 else 0
+    live = n - lo
+    chunk = -(-live // cluster)
+    chunk = max(MIN_CHUNK, -(-chunk // MIN_CHUNK) * MIN_CHUNK)
+    n_act = max(1, -(-live // chunk))
+    plan = []
+    for r in range(cluster):
+        begin = lo + r * chunk
+        plan.append((begin, min(begin + chunk, n)) if r < n_act else (begin, begin))
+    return plan
+
+
+def logit_bytes(head_dim: int) -> int:
+    """Shared memory a block keeps its logits and V's scales in (csrc
+    ``Cfg<HD>::LOGIT``): 12 KB at hd ≤ 128, where four blocks share an SM,
+    28 KB at hd 256."""
+    return (28 if head_dim > 128 else 12) * 1024
+
+
+def logit_stride(group: int, head_dim: int) -> int:
+    """Keys a block keeps on chip per row of its logit store — one row per
+    query head and one of V's scales (csrc logit_stride), ≡ 8 mod 32."""
+    return (logit_bytes(head_dim) // 4 // (group + 1) - 8) // 32 * 32 + 8
+
+
+def spill_keys(cache_len: int, cluster: int, group: int, head_dim: int) -> int:
+    """Keys per row a block's logit store may spill past
+    :func:`logit_stride`: the longest chunk the cache allows (every key
+    live) beyond it."""
+    begin, end = q8_split_plan(cache_len, cache_len, cluster)[0]
+    return max(0, end - begin - logit_stride(group, head_dim))
+
+
 def _lib():
     lib = cuda_build.load("flash_decode_q8")
     fn = lib.qt_flash_decode_q8
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 7 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
+        occ = lib.qt_flash_decode_q8_occupancy
+        occ.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        occ.restype = ctypes.c_int
     return lib
 
 
-def _scratch(device, stream, b, h, t, hd, n_splits):
-    """Logits, split partials, int32 partial sums and probability scales of
-    one shape on one stream of one device (``stream``: its handle), made
-    once and reused by every later call on that stream."""
-    key = (device, stream, b, h, t, hd, n_splits)
-    bufs = _SCRATCH.get(key)
-    if bufs is None:
+def occupancy(hd: int, dtype: torch.dtype, cluster: int) -> dict:
+    """How many clusters of ``cluster`` blocks the card holds at once
+    (``cudaOccupancyMaxActiveClusters``) and a block's dynamic shared
+    memory, for the kernel of this head dim and q dtype."""
+    n, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = _lib().qt_flash_decode_q8_occupancy(hd, _DTYPE_CODES[dtype], cluster,
+                                              ctypes.byref(n), ctypes.byref(smem))
+    cuda_build.check(err, "flash_decode_q8 occupancy")
+    return {"cluster": cluster, "max_active_clusters": n.value, "smem_bytes": smem.value}
+
+
+def _scratch(device, stream, b, n_kv, cluster, group, keys):
+    """The logit store's spill [B, K, C, G + 1, keys] f32 of one shape on one stream
+    of one device (``stream``: its handle), made once and reused by every
+    later call on that stream."""
+    key = (device, stream, b, n_kv, cluster, group, keys)
+    buf = _SCRATCH.get(key)
+    if buf is None:
         with _LOCK:
-            bufs = _SCRATCH.get(key)
-            if bufs is None:
-                bufs = _SCRATCH[key] = (
-                    torch.empty((b * h * t,), dtype=torch.float32, device=device),
-                    torch.empty((b * h * n_splits * 3,), dtype=torch.float32, device=device),
-                    torch.empty((b * h * n_splits * hd,), dtype=torch.int32, device=device),
-                    torch.empty((b * h,), dtype=torch.float32, device=device))
-    return bufs
+            buf = _SCRATCH.get(key)
+            if buf is None:
+                buf = _SCRATCH[key] = torch.empty((b * n_kv * cluster * (group + 1) * keys,),
+                                                  dtype=torch.float32, device=device)
+    return buf
 
 
 def _check(q, k8, ks, v8, vs, lengths, window):
@@ -107,8 +176,8 @@ def _check(q, k8, ks, v8, vs, lengths, window):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if k8.data_ptr() % 16 or v8.data_ptr() % 16:
-        raise ValueError("k8 and v8 must be 16-byte aligned (vector loads)")
+    if any(x.data_ptr() % 16 for x in (k8, v8, ks, vs)):
+        raise ValueError("k8, v8 and their scales must be 16-byte aligned (TMA copies)")
     if lengths.shape != (b,):
         raise ValueError(f"lengths must be [B]={b}, got {tuple(lengths.shape)}")
     if window < 0:
@@ -133,15 +202,17 @@ def flash_decode_q8_attention(
     _check(q, k8, k_scale, v8, v_scale, lengths, window)
     b, h, _, hd = q.shape
     n_kv, t = k8.shape[1], k8.shape[2]
-    n_splits = decode_n_splits(b, n_kv)
+    group = h // n_kv
+    cluster = q8_cluster_size(b, n_kv, t)
+    n_spill = spill_keys(t, cluster, group, hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    logits, part, part_acc, pscale = _scratch(q.device, stream, b, h, t, hd, n_splits)
+    spill = (_scratch(q.device, stream, b, n_kv, cluster, group, n_spill).data_ptr()
+             if n_spill else None)
     out = torch.empty_like(q)
     err = _lib().qt_flash_decode_q8(
         q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(), v_scale.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), logits.data_ptr(), part.data_ptr(),
-        part_acc.data_ptr(), pscale.data_ptr(), b, h, n_kv, t, hd, window, n_splits,
-        hd ** -0.5, _DTYPE_CODES[q.dtype], stream)
+        lengths.data_ptr(), out.data_ptr(), spill, b, h, n_kv, t, hd, window, cluster,
+        n_spill, hd ** -0.5, _DTYPE_CODES[q.dtype], stream)
     cuda_build.check(err, "flash_decode_q8")
     launches.count(flash_decode_q8_attention)
     return out

@@ -12,6 +12,9 @@ checkout's kernels there, and times them at the kernels line's shapes:
   K1 flash_prefill_attention  B=1, H=32, K=8, S=2048 at full length, hd=128, bf16
   K2 flash_decode_attention   4 slots, T=8192, lengths 1/100/4096/8191,
                               H=32, K=8, hd=128, bf16
+  K2q8 flash_decode_q8_attention  the same lengths over an int8 cache with
+                              f32 scales, bf16 q; and 4 slots of T=32768,
+                              all live (``long``)
 
   graph_ms  device time per call from one CUDA graph over input copies that
             together exceed the 50 MB L2 (cold inputs, no host cost);
@@ -65,10 +68,50 @@ def host_us(torch, fn, n: int = 2000, batch: int = 50) -> float:
     return total / (n // batch * batch) * 1e6
 
 
+def _time_q8(torch, graph_ms, median_ms, copies, clusters) -> dict:
+    """K2q8 at the kernels line's shape and at the long-cache one: graph_ms
+    and eager_ms as above; with ``clusters``, graph_ms again with each
+    cluster size forced in place of the wrapper's choice."""
+    from quorum_tpu_torch.ops import flash_decode_q8 as fq
+    from quorum_tpu_torch.ops.attention import quantize_rows
+
+    h, kv, hd = 32, 8, 128
+    res = {}
+    for name, t, lens in (("main", 8192, [1, 100, 4096, 8191]), ("long", 32768, [32768] * 4)):
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+        def side():
+            x8, xs = quantize_rows(torch.randn((4, kv, t, hd), device="cuda"), -1)
+            return x8, xs[..., 0].contiguous()
+
+        sets = [(torch.randn((4, h, 1, hd), device="cuda").to(torch.bfloat16),
+                 *side(), *side(), lengths)
+                for _ in range(copies(sum(lens) * kv * (2 * hd + 8)))]
+        row = {"graph_ms": graph_ms([lambda a=a: fq.flash_decode_q8_attention(*a)
+                                     for a in sets]),
+               "eager_ms": median_ms(lambda: fq.flash_decode_q8_attention(*sets[0]))}
+        if clusters and hasattr(fq, "q8_cluster_size"):
+            chosen = fq.q8_cluster_size
+            row["cluster_chosen"] = chosen(4, kv, t)
+            try:
+                for c in clusters:
+                    fq.q8_cluster_size = lambda *shape, c=c: c
+                    row[f"graph_ms_cluster_{c}"] = graph_ms(
+                        [lambda a=a: fq.flash_decode_q8_attention(*a) for a in sets])
+            finally:
+                fq.q8_cluster_size = chosen
+        res[name] = row
+        del sets
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=REPO, help="checkout whose quorum_tpu_torch is timed")
     ap.add_argument("--label", default=None, help="name printed with the result")
+    ap.add_argument("--q8-clusters", default="",
+                    help="also time K2q8 with each of these cluster sizes forced (comma-"
+                         "separated; checkouts that choose one with q8_cluster_size)")
     args = ap.parse_args(argv)
 
     import torch
@@ -111,9 +154,14 @@ def main(argv=None) -> int:
           "host_us": host_us(torch, lambda: flash_decode_attention(*sets[0]))}
     del sets
 
+    torch.manual_seed(0)
+    k2q8 = _time_q8(torch, graph_ms, median_ms, copies,
+                    [int(c) for c in args.q8_clusters.split(",") if c])
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label or root, "flash_prefill": k1, "flash_decode": k2,
+                      "flash_decode_q8": k2q8,
                       "card": smi.splitlines()[0] if smi else None}), flush=True)
     return 0
 

@@ -6,13 +6,21 @@ Run on a machine with a card:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_quant_gpu.py
 
 - K2q8 (``csrc/flash_decode_q8.cu``) against its plain version, bf16 and
-  f32 queries, with and without a window, a length-1 row among long ones;
-  one launch counted per call. Every output element within
+  f32 queries, with and without a window (1, a few hundred, the whole
+  cache), a length-1 and a zero-length row among long ones, a 32 768-key
+  cache all live, one row in a 131 072-key cache (its logits spill past
+  the shared budget), G = 8 over one kv head at hd 256 and G = 1 at hd 64;
+  one launch counted per call, a repeat bit-equal. Every output element within
   ``ops/flash_decode_q8.error_bound`` of the plain version's: the kernel
   merges the softmax over its splits in another order than the plain
   version's one pass, so only a probability within 1e-5 of a rounding
   boundary may quantize one step apart (ps·|v8| each); plus 1e-5 of the
   output and, for bf16, one bf16 ulp.
+- K2q8's query quantization at a rounding tie: its scale is the plain
+  version's on the card (amax · fl(1/127)), bit for bit.
+- K2q8 called from two streams at once, each call more clusters than the
+  card holds: both finish (a wait between blocks outside a cluster could
+  deadlock there) and equal the same calls made one at a time.
 - ``qeinsum`` through ``torch._int_mm`` against the plain f32
   formulation of the same integer products, every form the transformer
   uses, at 1 to 40 rows (rows below 17 are padded): equal up to f32
@@ -34,6 +42,7 @@ from quorum_tpu_torch.models.init import init_params
 from quorum_tpu_torch.models.model_config import resolve_spec
 from quorum_tpu_torch.models.transformer import decode_chunk, init_cache, prefill
 from quorum_tpu_torch.ops import flash_decode as fd
+from quorum_tpu_torch.ops import flash_decode_q8 as fq
 from quorum_tpu_torch.ops.attention import decode_attention_q8, quantize_rows
 from quorum_tpu_torch.ops.flash_decode_q8 import error_bound, flash_decode_q8_attention
 from quorum_tpu_torch.ops.sampling import SamplerConfig
@@ -55,12 +64,17 @@ def _q8_cache(b, kv, t, hd, dev, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd,h,kv,lens,window", [
-    (128, 32, 8, [1, 100, 1500, 2047], 0), (128, 32, 8, [1, 100, 1500, 2047], 512),
-    (64, 4, 2, [3, 256, 77, 1], 0), (256, 8, 8, [300, 5], 64)],
-    ids=["llama3", "llama3-window", "hd64", "hd256-window"])
-def test_k2q8_matches_plain(cuda_device, dtype, hd, h, kv, lens, window):
-    b, t = len(lens), 2048 if hd == 128 else 256 if hd == 64 else 512
+@pytest.mark.parametrize("hd,h,kv,t,lens,window", [
+    (128, 32, 8, 2048, [1, 100, 1500, 2047], 0), (128, 32, 8, 2048, [1, 100, 1500, 2047], 512),
+    (64, 4, 2, 256, [3, 256, 77, 1], 0), (256, 8, 8, 512, [300, 5], 64),
+    (128, 32, 8, 32768, [32768] * 4, 0), (128, 32, 8, 131072, [131072], 0),
+    (256, 8, 1, 4096, [4096, 1000, 17], 0), (64, 4, 4, 1024, [1024, 63, 64, 65], 0),
+    (128, 32, 8, 2048, [0, 5, 0, 2047], 0), (128, 32, 8, 2048, [1, 100, 1500, 2047], 1),
+    (128, 32, 8, 2048, [0, 64, 1500, 2048], 2048)],
+    ids=["llama3", "llama3-window", "hd64", "hd256-window", "long-32k", "b1-131k",
+         "mqa-g8-hd256", "hd64-g1", "zero-length", "window-1", "window-T"])
+def test_k2q8_matches_plain(cuda_device, dtype, hd, h, kv, t, lens, window):
+    b = len(lens)
     q = torch.randn(b, h, 1, hd, generator=torch.Generator().manual_seed(1)).to(cuda_device,
                                                                                   dtype)
     k8, ks, v8, vs = _q8_cache(b, kv, t, hd, cuda_device, 2)
@@ -71,11 +85,79 @@ def test_k2q8_matches_plain(cuda_device, dtype, hd, h, kv, lens, window):
     assert flash_decode_q8_attention.launches == n + 1
     want = decode_attention_q8(q, k8, ks, v8, vs, lengths, window=window)
     assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
-    err = (got.float() - want.float()).abs()
-    bound = error_bound(q, k8, ks, v8, vs, lengths, window=window)
+    # A row with no live key writes zeros (the plain version's softmax over
+    # an empty range is a uniform mean of the masked cache instead; the
+    # engine never reads such a row). Every other row is held to the limit.
+    live = lengths > 0
+    err = (got.float() - want.float()).abs()[live]
+    bound = error_bound(q, k8, ks, v8, vs, lengths, window=window)[live]
     assert bool((err <= bound).all()), (err.max().item(), (err - bound).max().item())
+    assert not bool(got[~live].float().abs().any())
     # the same inputs again: the kernel is deterministic
     assert torch.equal(flash_decode_q8_attention(q, k8, ks, v8, vs, lengths, window=window), got)
+    assert flash_decode_q8_attention.launches == n + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2q8_query_scale_is_the_plain_versions_on_the_card(cuda_device, dtype):
+    """Every query head holds an element at a rounding tie of its int8
+    quantization: amax 2.734375 and 1.3671875, which is 63.5000038 of the
+    scale amax · fl(1/127) that PyTorch computes on the card (its division
+    by a scalar multiplies by the reciprocal) but 63.4999981 of a true
+    amax / 127. The kernel must quantize q as the plain version does there,
+    or the whole head's logits move."""
+    b, h, kv, t, hd = 4, 32, 8, 2048, 128
+    q = torch.randn(b, h, 1, hd, generator=torch.Generator().manual_seed(4)).clamp(-2.5, 2.5)
+    q[..., 0], q[..., 1] = 2.734375, 1.3671875
+    q = q.to(cuda_device, dtype)
+    k8, ks, v8, vs = _q8_cache(b, kv, t, hd, cuda_device, 5)
+    lengths = torch.tensor([2048, 1500, 700, 33], dtype=torch.int32, device=cuda_device)
+    got = flash_decode_q8_attention(q, k8, ks, v8, vs, lengths)
+    want = decode_attention_q8(q, k8, ks, v8, vs, lengths)
+    err = (got.float() - want.float()).abs()
+    bound = error_bound(q, k8, ks, v8, vs, lengths)
+    assert bool((err <= bound).all()), (err.max().item(), (err - bound).max().item())
+
+
+@pytest.mark.gpu
+def test_k2q8_two_streams_oversubscribed(cuda_device):
+    """Two streams call K2q8 at once, each call 96 clusters of 8 blocks
+    (768 blocks, more than the card holds at once, 528 at most): both
+    finish and equal the same calls made one at a time."""
+    b, h, kv, t, hd = 12, 32, 8, 4096, 128
+    assert fq.q8_cluster_size(b, kv, t) * b * kv > 4 * fd.N_SMS
+    gen = torch.Generator().manual_seed(9)
+    calls = []
+    for seed in (3, 4):
+        q = torch.randn(b, h, 1, hd, generator=gen).to(cuda_device, torch.bfloat16)
+        lens = torch.randint(1, t + 1, (b,), generator=gen).tolist()
+        calls.append((q, *_q8_cache(b, kv, t, hd, cuda_device, seed),
+                      torch.tensor(lens, dtype=torch.int32, device=cuda_device)))
+    alone = [flash_decode_q8_attention(*a) for a in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in calls]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, a) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(s):
+                outs[i].append(flash_decode_q8_attention(*a))
+    torch.cuda.synchronize()
+    for want, got in zip(alone, outs):
+        assert all(torch.equal(g, want) for g in got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_k2q8_clusters_fit_the_card(cuda_device, hd):
+    """Both cluster sizes the host may choose fit the card with the
+    kernel's shared memory, which leaves room for two blocks on an SM."""
+    for cluster in fq.CLUSTER_SIZES:
+        occ = fq.occupancy(hd, torch.bfloat16, cluster)
+        assert occ["max_active_clusters"] >= 1, occ
+        assert occ["smem_bytes"] <= 113 * 1024, occ
 
 
 @pytest.mark.gpu
