@@ -47,6 +47,18 @@ result line:
               (streamed and not, greedy and sampled; the two past 512 tokens
               prefill in segments), launch counts of both kernels (K1 = 32 ×
               single-shot admissions), first TTFT and decode-rate readings;
+  5b. constrain  response_format on the serve phase's engine (reused, not
+              built again): json_object (max_tokens 64; its text walks the
+              grammar's DFA), a finite json_schema (parses, validates, stops)
+              and a bounded regex (full match) through the app, streamed and
+              not; two constrained rows beside two plain greedy rows (plain
+              tokens unchanged); a wildcard grammar against the plain variant
+              (same tokens, dispatches and overlaps); device ms per 8-step
+              dispatch, 4 rows, tagged variant against plain, in turns; one
+              constrained stream on a decode_loop=4 engine sharing the
+              weights; compile seconds and states per grammar, the arena's
+              bucket and bytes, the tagged key's first capture, masked
+              tokens, K2 launches (> 0 inside constrained replays alone);
   6. scheduler the engine's default scheduler on the same model: the decode
               ring at depth 2 against 1 (tokens equal), a ≈ 6 000-token
               admission beside a live stream chunked and single-shot (the
@@ -1186,7 +1198,8 @@ def _serve_bodies(model: str, tiny: bool) -> list[dict]:
             body(3, True, True)]
 
 
-def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) -> dict:
+def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool,
+                keep_engine: bool = False) -> dict:
     from quorum_tpu_torch.config import Config
     from quorum_tpu_torch.engine.engine import shutdown_all_engines
     from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
@@ -1293,6 +1306,258 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool) 
 
         phase_profile(torch, cpu, lambda: asyncio.run(
             asyncio.wait_for(one_round(), 2 * SERVE_TIMEOUT_S)), card, flash_decode_attention)
+    if not keep_engine:  # else the constrain phase serves on it, then frees it
+        shutdown_all_engines()
+    return info
+
+
+# The constrain phase's grammars: a json_schema whose language is finite
+# (boolean and enum fields: it must end in EOS within 64 tokens), a bounded
+# regex, JSON mode, and a wildcard that masks nothing.
+CONSTRAIN_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"},
+    "dir": {"enum": ["N", "S", "E", "W"]},
+    "unit": {"enum": ["m", "km", None]}}}
+CONSTRAIN_FORMATS = {
+    "json_object": {"type": "json_object"},
+    "json_schema": {"type": "json_schema", "json_schema": {"schema": CONSTRAIN_SCHEMA}},
+    "regex": {"type": "regex", "pattern": "[0-9]{3}-[0-9]{4}"},
+    "wildcard": {"type": "regex", "pattern": "[\\x00-\\xff]*"},
+}
+
+
+def phase_constrain(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+    """Constrained decoding (``response_format``) on the serve phase's
+    engine — the full 32-layer llama-3-8b, bf16, 4 slots, decode_chunk 8 —
+    reused through ``get_engine``'s cache (built here when the serve phase
+    did not run):
+
+    - through the app, streamed and not: ``json_object`` with max_tokens 64
+      (first: it sizes the arena's bucket; its text walks the grammar's DFA
+      with no dead state, and parses when it stops), a finite
+      ``json_schema`` (parses and validates, finish ``stop``) and the regex
+      ``[0-9]{3}-[0-9]{4}`` (a full match);
+    - through the engine: two constrained rows beside two plain greedy rows
+      (the plain rows' tokens equal their run without the constrained
+      rows); a wildcard grammar against the plain variant on one greedy
+      prompt longer than a segment, so both admit chunked (tokens, dispatch
+      and overlap counts equal: the mask adds no host sync); the device ms per 8-step dispatch of the tagged variant
+      against the plain one, 4 rows each, in turns (plain, tagged, tagged,
+      plain); one constrained stream on a ``decode_loop=4`` engine sharing
+      the weights (its tokens equal the decode_loop=1 engine's).
+
+    Reports each grammar's compile seconds and states, the arena's bucket
+    and bytes, the tagged key's first capture seconds, masked tokens, K2's
+    launches (= layers × decode and warm-up steps, and > 0 over a
+    constrained request alone) and K1's (= layers × the plain requests'
+    single-shot admissions)."""
+    from quorum_tpu_torch.config import Config
+    from quorum_tpu_torch.constrain import compile_response_format
+    from quorum_tpu_torch.engine.engine import InferenceEngine, shutdown_all_engines
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.server.app import create_app
+
+    model = "llama-tiny" if tiny else "llama-3-8b"
+    url = f"cuda://{model}?slots=4&decode_chunk=8" + ("&device=cpu" if cpu else "")
+    cfg = Config(raw={"primary_backends": [{"name": "llama", "url": url}],
+                      "settings": {"timeout": SERVE_TIMEOUT_S}})
+    app = create_app(cfg)
+    backend = app.state["registry"].backends[0]
+    eng, tok = backend.engine, backend.tokenizer
+    reused = eng.n_requests > 0
+    spec, vocab, eos = eng.spec, eng.spec.vocab_size, tok.eos_id
+    greedy = SamplerConfig(temperature=0.0)
+    card = f"{device_info['name']} ({device_info['power_limit']})"
+    # Every launch counter to 0 just before the phase's requests, read after.
+    flash_prefill_attention.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
+    flash_decode_attention.launches = 0
+    m0 = eng.metrics()
+    grammars, compile_info = {}, {}
+    for name, rf in CONSTRAIN_FORMATS.items():
+        t0 = time.perf_counter()
+        grammars[name] = compile_response_format(rf, tok, vocab)
+        compile_info[name] = {"compile_s": round(time.perf_counter() - t0, 4),
+                              "states": grammars[name].n_states,
+                              "table_mb": round(grammars[name].table_bytes / 1e6, 3)}
+
+    def call(body):
+        return asyncio.run(asyncio.wait_for(_call(app, body), SERVE_TIMEOUT_S))
+
+    def request(name, stream, max_tokens, content):
+        body = {"model": model, "messages": [{"role": "user", "content": content}],
+                "max_tokens": max_tokens, "temperature": 0, "stream": stream,
+                "response_format": CONSTRAIN_FORMATS[name]}
+        if stream:
+            body["stream_options"] = {"include_usage": True}
+        return _check_response(call(body), body, tok, max_tokens)
+
+    # (3) JSON mode first: its 362 states size the arena's bucket, which
+    # the smaller grammars then fit.
+    texts = {}
+    for stream in (False, True):
+        out = request("json_object", stream, 64, "Reply with a JSON object.")
+        g = grammars["json_object"]
+        end = g.advance_tokens(g.start, tok.encode(out["text"]))
+        require(end >= 0, f"constrain: json_object text leaves the grammar: {out['text']!r}")
+        if out["finish"] == "stop":
+            require(bool(g.accept[end]) and isinstance(json.loads(out["text"]), dict),
+                    f"constrain: json_object stopped on an incomplete text {out['text']!r}")
+        texts["json_object", stream] = out
+    m_first = eng.metrics()
+    first_capture = {"captures": m_first["decode_graph_captures_total"]
+                     - m0["decode_graph_captures_total"],
+                     "capture_s": round(m_first["decode_graph_capture_seconds_total"]
+                                        - m0["decode_graph_capture_seconds_total"], 4)}
+    # (1) the finite json_schema, and K2 inside its constrained replays alone
+    launches0, k2_0 = flash_decode_attention.launches, _k2_steps(eng.metrics())
+    for stream in (False, True):
+        out = request("json_schema", stream, 64, "Is it north?")
+        require(out["finish"] == "stop", f"constrain: json_schema ended {out['finish']}")
+        obj = json.loads(out["text"])
+        require(list(obj) == ["ok", "dir", "unit"] and isinstance(obj["ok"], bool)
+                and obj["dir"] in ("N", "S", "E", "W") and obj["unit"] in ("m", "km", None),
+                f"constrain: json_schema output does not validate: {out['text']!r}")
+        texts["json_schema", stream] = out
+    k2_constrained = flash_decode_attention.launches - launches0
+    k2_constrained_steps = _k2_steps(eng.metrics()) - k2_0
+    if not cpu:
+        require(k2_constrained == spec.n_layers * k2_constrained_steps and k2_constrained > 0,
+                f"constrain: K2 launched {k2_constrained} times in constrained replays of "
+                f"{k2_constrained_steps} steps")
+    # (2) the bounded regex
+    import re
+
+    for stream in (False, True):
+        out = request("regex", stream, 16, "Your number?")
+        require(re.fullmatch("[0-9]{3}-[0-9]{4}", out["text"]) is not None
+                and out["finish"] == "stop", f"constrain: regex output {out!r}")
+        texts["regex", stream] = out
+    for name in ("json_object", "json_schema", "regex"):
+        if texts[name, False]["finish"] == texts[name, True]["finish"] == "stop":
+            require(texts[name, False]["text"] == texts[name, True]["text"],
+                    f"constrain: {name} streamed text differs from the non-streamed one")
+
+    def submit(prompt, n, g=None, e=eng):
+        return e.submit(tok.encode(prompt), max_new_tokens=n, sampler=greedy, eos_id=eos,
+                        grammar=g)
+
+    # (4) a mixed batch: the plain rows' tokens must not see the grammar rows
+    plain_prompts = ["the quorum of models answers", "kernels on the card stream keys"]
+    solo = [t for t, _ in _stream_all(eng, [submit(p, 48) for p in plain_prompts])]
+    with eng._cond:  # admitted in one turn: co-batched from the first chunk
+        reqs = ([submit(p, 48) for p in plain_prompts]
+                + [submit("Is it north?", 64, grammars["json_schema"]),
+                   submit("Your number?", 16, grammars["regex"])])
+    mixed = [t for t, _ in _stream_all(eng, reqs)]
+    require(mixed[:2] == solo, "constrain: plain rows changed beside constrained rows")
+    for toks, name in zip(mixed[2:], ("json_schema", "regex")):
+        g = grammars[name]
+        require(toks[-1] == eos and g.accept[g.advance_tokens(g.start, toks[:-1])],
+                f"constrain: mixed-batch {name} row did not complete its grammar")
+    # (5) the wildcard masks nothing: the same tokens, the same dispatches.
+    # A prompt longer than one segment admits chunked with or without a
+    # grammar, so both streams sample their first token in a decode step
+    # (a short plain prompt would take K1's single-shot prefill instead).
+    # llama-tiny's segment is its whole window: the rehearsal takes a short one.
+    wild_prompt = "wild card" if tiny else _prompt(eng.prefill_chunk + 88, 11)
+    n = 32
+    for g in (grammars["wildcard"], None):  # warm: both keys captured
+        _stream_all(eng, [submit(wild_prompt, n, g)])
+    legs = {}
+    for name, g in (("wildcard", grammars["wildcard"]), ("plain", None)):
+        a = eng.metrics()
+        (toks, _), = _stream_all(eng, [submit(wild_prompt, n, g)])
+        b = eng.metrics()
+        legs[name] = {"tokens": toks,
+                      "dispatches": b["decode_chunks_total"] - a["decode_chunks_total"],
+                      "overlapped": b["overlapped_chunks_total"] - a["overlapped_chunks_total"]}
+    require(legs["wildcard"]["tokens"] == legs["plain"]["tokens"],
+            "constrain: the wildcard grammar changed the greedy tokens")
+    require((legs["wildcard"]["dispatches"], legs["wildcard"]["overlapped"])
+            == (legs["plain"]["dispatches"], legs["plain"]["overlapped"]),
+            f"constrain: wildcard dispatches/overlaps {legs['wildcard']} differ from the "
+            f"plain variant's {legs['plain']}")
+    # The tagged variant's device time per 8-step dispatch against the plain
+    # one: 4 rows each, in turns.
+    prompts4 = [_prompt(200, 40 + i) for i in range(4)]
+    dispatch = eng._dispatch_chunk
+    timing = {"plain": [], "tagged": []}
+    for name in ("plain", "tagged", "tagged", "plain"):
+        recs = _timed_dispatches(torch, eng, cpu)
+        g = grammars["wildcard"] if name == "tagged" else None
+        _stream_all(eng, [submit(p, 64, g) for p in prompts4])
+        eng._dispatch_chunk = dispatch
+        ms = _device_ms(torch, cpu, recs)
+        if ms:
+            timing[name] += [t for (c, _), t in zip(recs, ms)
+                             if c.n_chunks == 1 and c.n_steps == 8 and len(c.active) == 4][1:]
+    med = {k: statistics.median(v) if v else None for k, v in timing.items()}
+    # (6) one constrained stream on a decode_loop=4 engine over the same weights
+    eng4 = InferenceEngine(spec, device=eng.device, params=eng.params, n_slots=4,
+                           decode_chunk=8, decode_loop=4)
+    try:
+        (want, _), = _stream_all(eng, [submit("Is it north?", 64, grammars["json_schema"])])
+        (got, _), = _stream_all(eng4, [submit("Is it north?", 64, grammars["json_schema"],
+                                              e=eng4)])
+        m4 = eng4.metrics()
+    finally:
+        eng4.shutdown()
+    require(got == want, "constrain: decode_loop=4 changed the constrained tokens")
+    m1 = eng.metrics()
+    k2_steps = _k2_steps(m1) - _k2_steps(m0) + _k2_steps(m4)
+    # Plain short prompts admit single-shot (K1); grammar ones in segments.
+    single_shot = (m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
+                   + m4["admission_dispatches_total"])
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches}
+    if not cpu:
+        require(launches["flash_decode"] == spec.n_layers * k2_steps,
+                f"K2 launches {launches['flash_decode']} != {spec.n_layers} x {k2_steps}")
+        require(launches["flash_prefill"] == spec.n_layers * single_shot
+                and flash_prefill_attention.launches_by_route["wgmma"] == launches["flash_prefill"],
+                f"K1 launches {launches['flash_prefill']} "
+                f"({dict(flash_prefill_attention.launches_by_route)}) != "
+                f"{spec.n_layers} x {single_shot} on the wgmma route")
+    bucket = eng._g_bucket
+    info = {
+        "model": model, "layers": spec.n_layers, "vocab": vocab, "dtype": spec.dtype,
+        "engine_reused_from_serve": reused,
+        "grammars": compile_info,
+        "arena": {"states": eng._g_states, "bucket": bucket,
+                  "bytes": bucket * vocab * 4 + bucket},
+        "first_constrained_request": first_capture,
+        "texts": {f"{name}{'_stream' if s else ''}": {"text": o["text"], "finish": o["finish"]}
+                  for (name, s), o in texts.items()},
+        "constrained_requests": m1["constrained_requests_total"]
+        - m0["constrained_requests_total"] + m4["constrained_requests_total"],
+        "masked_tokens": m1["constrain_masked_tokens_total"]
+        - m0["constrain_masked_tokens_total"] + m4["constrain_masked_tokens_total"],
+        "mixed_batch_plain_rows_equal": True,
+        "wildcard_vs_plain": {k: {"dispatches": v["dispatches"], "overlapped": v["overlapped"]}
+                              for k, v in legs.items()},
+        "dispatch_device_ms_8_steps_4_rows": {
+            "plain_median": med["plain"], "tagged_median": med["tagged"],
+            "n": {k: len(v) for k, v in timing.items()},
+            "tagged_minus_plain_per_step_ms": (None if not med["tagged"] else
+                                               (med["tagged"] - med["plain"]) / 8),
+            "tagged_over_plain": (None if not med["tagged"] else
+                                  med["tagged"] / med["plain"] - 1)},
+        "decode_loop_4": {"tokens_equal": True,
+                          "dispatches": m4["decode_chunks_total"],
+                          "captures": m4["decode_graph_captures_total"],
+                          "capture_s": m4["decode_graph_capture_seconds_total"]},
+        "k2_launches_in_constrained_requests": k2_constrained,
+        "single_shot_admissions": single_shot,
+        "prefill_segments": m1["prefill_segments_total"] - m0["prefill_segments_total"]
+        + m4["prefill_segments_total"],
+        "launches": launches,
+        "measured_on": card,
+        "peak_mem_gb": (None if cpu else round(torch.cuda.max_memory_allocated() / 1e9, 3)),
+    }
+    emit("constrain", **info)
     shutdown_all_engines()
     return info
 
@@ -3248,8 +3513,8 @@ def main(argv=None) -> int:
                     help="rehearsal on the CPU with the plain versions (never the default)")
     ap.add_argument("--tiny", action="store_true", help="llama-tiny shapes (rehearsal)")
     ap.add_argument("--phases",
-                    default="device,build,kernels,model,serve,scheduler,decode_graphs,knobs,"
-                            "fanout,members,checkpoint,moe,quant",
+                    default="device,build,kernels,model,serve,constrain,scheduler,decode_graphs,"
+                            "knobs,fanout,members,checkpoint,moe,quant",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -3279,8 +3544,11 @@ def main(argv=None) -> int:
             if "kernels" in phases else None
         if "model" in phases:
             phase_model(torch, args.cpu, args.tiny)
-        serve = (phase_serve(torch, args.cpu, args.tiny, info, "profile" in phases)
+        serve = (phase_serve(torch, args.cpu, args.tiny, info, "profile" in phases,
+                             keep_engine="constrain" in phases)
                  if "serve" in phases else None)
+        constrain = (phase_constrain(torch, args.cpu, args.tiny, info)
+                     if "constrain" in phases else None)
         scheduler = (phase_scheduler(torch, args.cpu, args.tiny, info)
                      if "scheduler" in phases else None)
         graphs = (phase_decode_graphs(torch, args.cpu, args.tiny, info)
@@ -3306,8 +3574,8 @@ def main(argv=None) -> int:
     emit("run", phases=sorted(phases), seconds=round(time.perf_counter() - t_start, 3))
     if kernels is not None:
         by_phase = {name: ph["launches"] for name, ph in (
-            ("serve", serve), ("scheduler", scheduler), ("decode_graphs", graphs),
-            ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
+            ("serve", serve), ("constrain", constrain), ("scheduler", scheduler),
+            ("decode_graphs", graphs), ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
             ("checkpoint", ckpt), ("moe", moe), ("quant", quant))
             if ph is not None}
         rows = []

@@ -105,11 +105,17 @@ seed + i·7919, usage summed over them), ``logprobs`` + ``top_logprobs``
 (0–20; entries aligned with the emitted content under stop strings),
 ``presence_penalty`` / ``frequency_penalty`` (−2 to 2) and ``logit_bias``
 (token id → −100 to 100); the penalties and the bias act inside the decode
-program on the card. The request's timeout is the engine's deadline: shed
-while queued → 503 with Retry-After, missed after admission → 504; the
-asyncio wait only backstops it ``DEADLINE_SLACK_S`` later. ``top_k`` is
-ignored, as ``tpu://`` ignores it. ``tools`` and a ``response_format``
-other than ``text`` are a 400, never silently ignored.
+program on the card. ``response_format`` ``json_object``, ``json_schema``
+and ``regex`` compile (once per grammar and tokenizer, on the request's
+thread) to a token DFA that masks every sampled token inside the decode
+graphs: a malformed grammar is a 400, one no token sequence can satisfy
+a 422 ``grammar_error``, and a full grammar arena a 503. The request's
+timeout is the engine's deadline: shed while queued → 503 with
+Retry-After, missed after admission → 504; the asyncio wait only backstops
+it ``DEADLINE_SLACK_S`` later. ``top_k`` is ignored, as ``tpu://`` ignores
+it. ``tools`` is a 400, and so are the stream-resume fields
+(``resume_tokens``, ``resume_chars``, ``stream_token_ids: true``): never
+silently ignored.
 """
 
 from __future__ import annotations
@@ -138,6 +144,7 @@ from quorum_tpu_torch.engine.engine import (
     DEFAULT_SLOTS,
     DeadlineExceeded,
     GenerationResult,
+    GrammarArenaFull,
     QueueFullError,
     check_quant_knobs,
     get_engine,
@@ -159,8 +166,7 @@ _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
 _NOT_YET = frozenset({
-    "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl",
-    "flash_decode", "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "prefix_store",
+    "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl", "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "prefix_store",
     "prefix_store_bytes", "prefix_store_chunk", "kv_pages", "kv_page_size", "kv_pool_pages",
     "qos"})
 
@@ -170,6 +176,11 @@ def _check_options(opts: dict[str, str]) -> None:
     for key in opts:
         if key in _OPTIONS or key in _SPEC_FIELDS:
             continue
+        if key == "flash_decode":
+            raise ValueError(
+                "cuda:// does not serve the flash_decode= option, and will not: "
+                "decode attention always runs its kernel on the card (the plain "
+                "version only on the CPU), and no option turns a kernel off")
         if key in _NOT_YET:
             raise ValueError(f"cuda:// does not serve the {key}= option yet "
                              "(the tpu:// backend does)")
@@ -208,6 +219,15 @@ def _overloaded(name: str, why: str) -> BackendError:
     return BackendError(msg, status_code=503,
                         body=oai.error_body(msg, type_="overloaded_error", code=503),
                         headers={"Retry-After": "1"})
+
+
+def _grammar_unsatisfiable(name: str, e: Exception) -> BackendError:
+    """422 grammar_error: the grammar compiled but admits no completion
+    under this backend's tokenizer (the request was well-formed; the
+    grammar and tokenizer pair cannot be served)."""
+    msg = f"Backend {name} cannot satisfy response_format: {e}"
+    return BackendError(msg, status_code=422,
+                        body=oai.error_body(msg, type_="grammar_error", code=422))
 
 
 def _deadline_error(name: str, e: DeadlineExceeded) -> BackendError:
@@ -393,9 +413,14 @@ class CudaBackend:
         for key in self._UNSUPPORTED:
             if body.get(key):
                 raise _invalid_request(f"{key!r} is not supported by cuda:// backends")
-        rf = body.get("response_format")
-        if rf is not None and (not isinstance(rf, dict) or rf.get("type") not in (None, "text")):
-            raise _invalid_request("'response_format' is not supported by cuda:// backends yet")
+        # Stream resume (the router's replay of a broken stream) is not
+        # served yet: refused by name, never a re-emitted prefix.
+        for key in ("resume_tokens", "resume_chars", "stream_token_ids"):
+            if body.get(key) not in (None, False):
+                raise _invalid_request(
+                    f"{key!r} is not supported by cuda:// backends yet (stream resume; "
+                    "the tpu:// backend serves it)")
+        grammar = self._plan_grammar(body.get("response_format"))
         # Explicit JSON null means "unset" for every optional knob.
         n = body.get("n")
         if n is None:
@@ -439,7 +464,34 @@ class CudaBackend:
             "presence_penalty": pp,
             "frequency_penalty": fp,
             "logit_bias": self._bias_row(body.get("logit_bias")),
+            "grammar": grammar,
         }
+
+    def _plan_grammar(self, rf: Any):
+        """``response_format`` → a compiled token-DFA grammar (None for
+        text), as ``tpu://`` plans it: compiled once per (grammar,
+        tokenizer), malformed or unsupported grammars a 400, a grammar no
+        token sequence can satisfy under this tokenizer a 422."""
+        if rf is None:
+            return None
+        if not isinstance(rf, dict):
+            raise _invalid_request(f"Invalid value for 'response_format': {rf!r}")
+        if rf.get("type") in (None, "text"):
+            return None
+        from quorum_tpu_torch.constrain import (GrammarError, GrammarUnsatisfiable,
+                                                compile_response_format)
+
+        if self.engine.prefill_chunk <= 0:
+            raise _invalid_request(
+                "response_format constrained decoding requires chunked "
+                "prefill (prefill_chunk >= 16), which this backend's "
+                "engine disables (prefill_chunk=0)")
+        try:
+            return compile_response_format(rf, self.tokenizer, self.engine.spec.vocab_size)
+        except GrammarUnsatisfiable as e:
+            raise _grammar_unsatisfiable(self.name, e) from None
+        except GrammarError as e:
+            raise _invalid_request(f"Invalid 'response_format': {e}") from None
 
     def _bias_row(self, logit_bias: Any) -> torch.Tensor | None:
         """OpenAI ``logit_bias`` ({token id: -100..100}) → a dense ``[V]``
@@ -475,7 +527,7 @@ class CudaBackend:
             cancel=cancel, decode_chunk=self.decode_chunk, member=self.member,
             presence_penalty=plan["presence_penalty"],
             frequency_penalty=plan["frequency_penalty"], logit_bias=plan["logit_bias"],
-            logprobs=plan["logprobs"], deadline=deadline)
+            logprobs=plan["logprobs"], deadline=deadline, grammar=plan["grammar"])
 
     def _submit_all(self, plan: dict[str, Any], cancels: list[threading.Event],
                     timeout: float) -> list:
@@ -592,6 +644,9 @@ class CudaBackend:
         except DeadlineExceeded as e:
             _set_all(cancels)
             raise _deadline_error(self.name, e) from None
+        except GrammarArenaFull as e:
+            _set_all(cancels)
+            raise _overloaded(self.name, str(e)) from None
         except BackendError:
             raise
         except Exception as e:
@@ -670,6 +725,8 @@ class CudaBackend:
                                         finish_reason=finishes[idx], index=idx)
                     elif isinstance(val, DeadlineExceeded):
                         raise _deadline_error(self.name, val) from val
+                    elif isinstance(val, GrammarArenaFull):
+                        raise _overloaded(self.name, str(val)) from val
                     else:
                         raise BackendError(f"Backend {self.name} failed: {val}") from val
                     yield oai.more(out) if more else out

@@ -76,8 +76,22 @@ Deadlines are the engine's: a request whose deadline has passed is shed at
 submit; each scheduler turn sheds pending ones (``DeadlineExceeded``, stage
 ``queue``) and cancels admitting (``prefill``) and active (``decode``)
 ones, and ``_effective_loop`` halves a megachunk until it fits the
-tightest deadline by the per-chunk latency EWMA. Grammars and the host
-prefix store are not ported yet.
+tightest deadline by the per-chunk latency EWMA. The host prefix store is
+not ported yet.
+
+Constrained decoding (``submit(grammar=...)``, a ``CompiledGrammar`` of
+``constrain/``): every admitted grammar's token-DFA rows live in one device
+arena ``[bucket, V]`` int32 (next state, −1 = not allowed) plus ``[bucket]``
+accept flags, at offsets that stay put for the arena's lifetime, behind the
+FREE row 0 (everything allowed, a self-loop, accepting). Each row carries
+its DFA state in ``_dfa`` (0 for an unconstrained request), written at every
+admission. A dispatch with a grammar row runs the constrained program
+variant under its own ``"dfa"``-tagged graph key: each step masks the row's
+logits by its state's allow-set (EOS allowed exactly in accepting states),
+samples, advances the state on the sampled token and counts the masked
+entries, which ride back in the dispatch's token buffer. A dispatch with no
+grammar row keeps the plain key and program. Constrained requests always
+admit chunked, so their first token is sampled by a masked decode step.
 
 Stacked engines (the JAX engine's ``members`` / ``ensemble`` knobs) hold M
 weight sets in one member-stacked tree (``models/init.py``) and a cache of
@@ -137,7 +151,8 @@ from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, host
                                                  init_cache, member_params, prefill,
                                                  prefill_segment)
 from quorum_tpu_torch.ops.sampling import (TOP_LOGPROBS, SamplerConfig, adjust_logits,
-                                           gumbel_noise, sample_token_rows, token_logprobs)
+                                           apply_token_mask, gumbel_noise, sample_token_rows,
+                                           token_logprobs)
 
 logger = logging.getLogger(__name__)
 
@@ -160,6 +175,13 @@ MIN_PREFIX_REUSE = 16
 # EWMA weight of the per-chunk dispatch-to-reap latency that the deadline
 # clamp of ``_effective_loop`` estimates a dispatch's length from.
 CHUNK_EWMA_ALPHA = 0.3
+# The grammar arena (the JAX engine's constants): it resets, once no
+# request references a grammar, only after growing past KEEP states (a
+# steady one-grammar workload keeps its table and offset), and it never
+# grows past MAX states — a state is V × 4 bytes, so at V = 128 256 the cap
+# is 4.2 GB; past it a NEW grammar's request fails alone.
+CONSTRAIN_ARENA_KEEP = 4096
+CONSTRAIN_ARENA_MAX = 8192
 
 
 class QueueFullError(Exception):
@@ -175,6 +197,13 @@ class DeadlineExceeded(Exception):
     def __init__(self, stage: str):
         super().__init__(f"request deadline exceeded ({stage})")
         self.stage = stage
+
+
+class GrammarArenaFull(RuntimeError):
+    """The device grammar arena is at capacity (CONSTRAIN_ARENA_MAX) and
+    cannot place another distinct grammar until constrained traffic
+    quiesces and the arena resets. Raised for the one request (a 503:
+    retryable; resident grammars keep serving)."""
 
 
 def _expired(req, now: float) -> bool:
@@ -229,15 +258,19 @@ class _Request:
     (None: no bias), ``want_lp`` -1 for no logprobs, else the number of
     alternatives asked for; ``lp`` gets one ``(logprob, top_ids, top_lps)``
     record per delivered token, appended before the token is put on
-    ``out``. ``deadline`` is absolute ``time.monotonic()`` or None."""
+    ``out``. ``deadline`` is absolute ``time.monotonic()`` or None.
+    ``grammar`` is a ``CompiledGrammar`` or None; ``g_start`` its start
+    state in the engine's arena, set when the grammar is placed."""
 
     __slots__ = ("prompt_ids", "budget", "sampler", "seed", "eos_id", "cancel",
                  "chunk_hint", "out", "emitted", "generator", "member", "hist",
-                 "pp", "fp", "bias_row", "want_lp", "lp", "deadline")
+                 "pp", "fp", "bias_row", "want_lp", "lp", "deadline", "grammar", "g_start")
 
     def __init__(self, prompt_ids, budget, sampler: SamplerConfig, seed, eos_id, cancel,
                  chunk_hint, member=0, pp=0.0, fp=0.0, bias_row=None, want_lp=-1,
-                 deadline=None):
+                 deadline=None, grammar=None):
+        self.grammar = grammar
+        self.g_start = 0
         self.member = member
         self.pp = float(pp)
         self.fp = float(fp)
@@ -283,11 +316,14 @@ class _InflightChunk:
     ``want_lp`` dispatch (None otherwise), pooled and copied the same way;
     ``event`` marks the copies' completion on the stream (None on the CPU,
     where the copies have happened). ``active`` holds the (row, request)
-    pairs dispatched, ``t0`` the dispatch time."""
+    pairs dispatched, ``t0`` the dispatch time. A ``constrained`` dispatch's
+    ``host`` has one more column per row: its masked vocabulary entries
+    over the chunk."""
 
-    __slots__ = ("active", "n_steps", "n_chunks", "host", "lp", "event", "t0")
+    __slots__ = ("active", "n_steps", "n_chunks", "host", "lp", "event", "t0", "constrained")
 
-    def __init__(self, active, n_steps, n_chunks, host, event, lp=None):
+    def __init__(self, active, n_steps, n_chunks, host, event, lp=None, constrained=False):
+        self.constrained = constrained
         self.active = active
         self.n_steps = n_steps
         self.n_chunks = n_chunks
@@ -404,6 +440,19 @@ class InferenceEngine:
         self._fp = torch.zeros((s,), dtype=torch.float32, device=dev)
         self._counts = torch.zeros((s, spec.vocab_size), dtype=torch.int32, device=dev)
         self._bias = torch.zeros((s, spec.vocab_size), dtype=torch.float32, device=dev)
+        # Each row's grammar-DFA state (a GLOBAL arena index; 0 = FREE),
+        # read and advanced by the constrained program variant only.
+        self._dfa = torch.zeros((s,), dtype=torch.int32, device=dev)
+        # The grammar arena: placed grammars' offsets (by grammar key), the
+        # states in use (row 0 is FREE) and the device tables, allocated at
+        # the first grammar, padded to a power-of-two bucket of states.
+        self._g_offsets: dict = {}
+        self._g_states = 1
+        self._g_trans: torch.Tensor | None = None   # [bucket, V] int32
+        self._g_accept: torch.Tensor | None = None  # [bucket] bool
+        self._g_bucket = 0
+        self.n_constrained = 0
+        self.n_constrain_masked = 0
 
         self._slots: list[_Request | None] = [None] * s
         # Tokens whose K/V each row's cache holds from position 0: what a
@@ -474,6 +523,7 @@ class InferenceEngine:
         logit_bias=None,  # [vocab] f32 additive bias (tensor or array), or None
         logprobs: int = -1,  # >= 0: record per-token logprobs + that many tops
         deadline: float | None = None,  # absolute time.monotonic() deadline
+        grammar=None,  # CompiledGrammar: constrained decoding (structured output)
     ) -> _Request | None:
         """Enqueue a generation for weight set ``member`` and return its
         handle (``None`` when there is nothing to generate). Raises
@@ -486,11 +536,31 @@ class InferenceEngine:
         top_ids, top_lps)`` record per yielded token. Penalties follow the
         OpenAI contract (presence: flat once a token has been generated;
         frequency: scaled by its count) over this request's generated
-        tokens."""
+        tokens. A ``grammar`` constrains every sampled token to its
+        language; the stream ends with EOS once the grammar completes."""
         if not 0 <= member < self.members:
             raise ValueError(
                 f"member {member} out of range for a {self.members}-member engine")
         spec = self.spec
+        if grammar is not None:
+            # The JAX engine's preconditions: grammar completion
+            # finishes the row by forcing EOS, and the first token must be
+            # sampled by a masked decode step (a chunked admission).
+            if eos_id is None:
+                raise ValueError(
+                    "constrained decoding requires an EOS id: grammar "
+                    "completion finishes the row by forcing EOS on device")
+            if self.prefill_chunk <= 0:
+                raise ValueError(
+                    "constrained decoding requires chunked prefill "
+                    "(prefill_chunk >= 16 after power-of-two alignment): "
+                    "the first constrained token is sampled by a masked "
+                    "decode chunk, not inside the single-shot admit "
+                    "program — unavailable with prefill_chunk=0")
+            if grammar.vocab_size != spec.vocab_size:
+                raise ValueError(
+                    f"grammar compiled for vocab {grammar.vocab_size} does "
+                    f"not match the model vocab {spec.vocab_size}")
         bias_row = None
         if logit_bias is not None:
             bias_row = torch.as_tensor(logit_bias, dtype=torch.float32).reshape(-1).cpu()
@@ -506,7 +576,7 @@ class InferenceEngine:
         req = _Request(prompt, budget, sampler or SamplerConfig(), int(seed), eos_id,
                        cancel if cancel is not None else threading.Event(), decode_chunk,
                        member, pp=presence_penalty, fp=frequency_penalty, bias_row=bias_row,
-                       want_lp=logprobs, deadline=deadline)
+                       want_lp=logprobs, deadline=deadline, grammar=grammar)
         if deadline is not None and time.monotonic() >= deadline:
             with self._cond:
                 self.n_deadline_exceeded += 1
@@ -595,6 +665,8 @@ class InferenceEngine:
                 "decode_busy_rows_total": self.n_decode_rows,
                 "overlapped_chunks_total": self.n_overlapped,
                 "overrun_tokens_total": self.n_overrun,
+                "constrained_requests_total": self.n_constrained,
+                "constrain_masked_tokens_total": self.n_constrain_masked,
                 "deadline_exceeded_total": self.n_deadline_exceeded,
                 "deadline_clamps_total": self.n_deadline_clamps,
                 "decode_pipeline": self.decode_pipeline,
@@ -640,6 +712,7 @@ class InferenceEngine:
             self._graphs.clear()
         self.params = None
         self._ck = self._cv = None
+        self._g_trans = self._g_accept = None
         self._host_pool.clear()
 
     # ---- scheduler --------------------------------------------------------
@@ -729,8 +802,29 @@ class InferenceEngine:
             reuse -= reuse % self.prefill_chunk
         return reuse if reuse >= MIN_PREFIX_REUSE else 0
 
-    def _goes_chunked(self, reuse: int, n_prompt: int) -> bool:
-        return bool(reuse) or (self.prefill_chunk > 0 and n_prompt > self.prefill_chunk)
+    def _goes_chunked(self, req: _Request, reuse: int) -> bool:
+        """A reused prefix, a prompt longer than one segment, or a grammar
+        (whatever the prompt's length: the single-shot admission samples
+        the first token before any mask could apply) admits chunked."""
+        return (bool(reuse) or req.grammar is not None
+                or (self.prefill_chunk > 0 and len(req.prompt_ids) > self.prefill_chunk))
+
+    def _place_grammar(self, req: _Request) -> bool:
+        """Place ``req``'s grammar in the arena (no lock held: a new table
+        is a host-to-device copy) and note its start state; on failure
+        (``GrammarArenaFull``) fail the request alone. True when ``req``
+        may admit."""
+        if req.grammar is None:
+            return True
+        try:
+            req.g_start = self._ensure_grammar(req.grammar)
+        except Exception as e:
+            logger.warning("grammar placement failed: %s", e)
+            self.n_failures += 1
+            req.out.put(("err", e))
+            return False
+        self.n_constrained += 1
+        return True
 
     def _claim_chunked(self, req: _Request, slot: int, reuse: int) -> None:
         """Start a chunked admission of ``req`` into ``slot`` past ``reuse``
@@ -744,6 +838,7 @@ class InferenceEngine:
         self._admitting.append(_Admission(req, slot, offset=reuse))
 
     def _start_admissions(self) -> None:
+        self._maybe_reset_arena()
         if self.members > 1:
             self._start_admissions_members()
             return
@@ -760,10 +855,15 @@ class InferenceEngine:
                     req.out.put(("end", None))
                     continue
                 reuse = self._reuse_len(lcp, len(req.prompt_ids))
-                if self._goes_chunked(reuse, len(req.prompt_ids)):
-                    self._claim_chunked(req, slot, reuse)
-                    continue
-                self._resident[slot] = []
+                chunked = self._goes_chunked(req, reuse)
+                if not chunked:
+                    self._resident[slot] = []
+            if chunked:
+                # Only this thread claims rows: ``slot`` is still free.
+                if self._place_grammar(req):
+                    with self._cond:
+                        self._claim_chunked(req, slot, reuse)
+                continue
             try:
                 self._admit(req, slot)
             except Exception as e:
@@ -832,6 +932,7 @@ class InferenceEngine:
         self._temp[idx] = col([r.sampler.temperature for r in reqs], torch.float32)
         self._topp[idx] = col([r.sampler.top_p for r in reqs], torch.float32)
         self._topk[idx] = col([r.sampler.top_k for r in reqs], torch.int32)
+        self._dfa[idx] = 0  # single-shot admissions are never constrained
         restrict = any(r.sampler.restricts and not r.sampler.greedy for r in reqs)
         adj = logits.float() + self._bias[idx]
         first = sample_token_rows(adj, self._temp[idx], self._topp[idx], self._topk[idx],
@@ -862,8 +963,7 @@ class InferenceEngine:
         if req.bias_row is None:
             self._bias[row].zero_()
         else:
-            src = req.bias_row.pin_memory() if self.device.type == "cuda" else req.bias_row
-            self._bias[row].copy_(src, non_blocking=True)
+            self._bias[row].copy_(self._staged(req.bias_row), non_blocking=True)
 
     def _step_admissions(self) -> None:
         """Advance every chunked admission by ONE segment — the interleaving
@@ -951,6 +1051,7 @@ class InferenceEngine:
         self._live[i] = req.budget > 0
         self._budget[i] = req.budget
         self._eos[i] = req.eos_id if req.eos_id is not None else -1
+        self._dfa[i] = req.g_start if req.grammar is not None else 0
         self._set_knobs(req, i)
         self._counts[i].zero_()
         self.n_admissions += 1
@@ -992,8 +1093,9 @@ class InferenceEngine:
 
     def _start_admissions_members(self) -> None:
         """Candidates are the FIFO head of each member's queue. A head that
-        has a resident prefix on one of its member's free rows, or is longer
-        than ``prefill_chunk``, becomes a chunked admission on that row.
+        has a resident prefix on one of its member's free rows, is longer
+        than ``prefill_chunk`` or carries a grammar becomes a chunked
+        admission on that row.
         Otherwise, anchored on each head in FIFO order, the heads sharing
         the anchor's prompt bucket form a single-shot group admitted in one
         dispatch into a common free slot index; when the group has none,
@@ -1010,34 +1112,39 @@ class InferenceEngine:
                     if r.member not in seen:
                         seen.add(r.member)
                         heads.append(r)
-                chunked = False
+                chunked = None
                 for r in heads:
                     slot, lcp = self._pick_slot(r.prompt_ids, r.member)
                     if slot is None:
                         continue
                     reuse = self._reuse_len(lcp, len(r.prompt_ids))
-                    if self._goes_chunked(reuse, len(r.prompt_ids)):
+                    if self._goes_chunked(r, reuse):
                         self._pending.remove(r)
-                        self._claim_chunked(r, slot, reuse)
-                        chunked = True
+                        chunked = (r, slot, reuse)
                         break
-                if chunked:
-                    continue  # route the remaining heads
-                row = None
-                for anchor in heads:
-                    bucket = prefill_bucket(len(anchor.prompt_ids), max_seq)
-                    group = {h.member: h for h in heads
-                             if prefill_bucket(len(h.prompt_ids), max_seq) == bucket}
-                    row = self._common_free_row(group)
-                    if row is None and len(group) > 1:
-                        group = {anchor.member: anchor}
+                if chunked is None:
+                    row = None
+                    for anchor in heads:
+                        bucket = prefill_bucket(len(anchor.prompt_ids), max_seq)
+                        group = {h.member: h for h in heads
+                                 if prefill_bucket(len(h.prompt_ids), max_seq) == bucket}
                         row = self._common_free_row(group)
-                    if row is not None:
-                        break
-                if row is None:
-                    return  # no head has a usable row this turn
-                for r in group.values():
-                    self._pending.remove(r)
+                        if row is None and len(group) > 1:
+                            group = {anchor.member: anchor}
+                            row = self._common_free_row(group)
+                        if row is not None:
+                            break
+                    if row is None:
+                        return  # no head has a usable row this turn
+                    for r in group.values():
+                        self._pending.remove(r)
+            if chunked is not None:
+                # Only this thread claims rows: ``slot`` is still free.
+                r, slot, reuse = chunked
+                if self._place_grammar(r):
+                    with self._cond:
+                        self._claim_chunked(r, slot, reuse)
+                continue  # route the remaining heads
             self._admit_members(group, row, bucket)
 
     def _admit_members(self, group: dict[int, _Request], row: int, bucket: int) -> None:
@@ -1236,22 +1343,31 @@ class InferenceEngine:
             if depth > 0:
                 self.n_overlapped += 1
 
-    def _dispatch_key(self, active) -> tuple[int, int, bool, bool]:
+    def _dispatch_key(self, active) -> tuple:
         """(steps per chunk, chunks, top-k/top-p sort, logprobs) of the
         dispatch ``active`` would get now: the graph key. Penalties and the
-        bias are in every program, so they add no key."""
+        bias are in every program, so they add no key. A dispatch with a
+        grammar row runs the constrained variant, keyed
+        ``("dfa", steps, chunks, sort, logprobs, arena bucket)``; one with
+        none keeps the plain 4-tuple and the plain program."""
         n_steps = max(1, min(r.chunk_hint or self.decode_chunk for _, r in active))
         ahead = sum(c.tokens_ahead for c in self._inflight)
         restrict = any(r.sampler.restricts and not r.sampler.greedy for _, r in active)
         want_lp = any(r.want_lp >= 0 for _, r in active)
+        constrained = any(r.grammar is not None for _, r in active)
+
+        def key(c):
+            base = (n_steps, c, restrict, want_lp)
+            return ("dfa", *base, self._g_bucket) if constrained else base
+
         c = self._effective_loop(active, n_steps, ahead)
         if self._deadline_clamped and self._graphs is not None:
             # A first capture costs seconds at full depth, more than the
             # deadline clamp saves: take the largest chunk count below the
             # clamped one that is already captured, if there is one.
             c = next((k for k in (c >> i for i in range(c.bit_length()))
-                      if (n_steps, k, restrict, want_lp) in self._graphs), c)
-        return n_steps, c, restrict, want_lp
+                      if key(k) in self._graphs), c)
+        return key(c)
 
     def _effective_loop(self, active, n_steps: int, ahead: int) -> int:
         """Chunks THIS dispatch may cover (1..``decode_loop``), clamped so
@@ -1310,8 +1426,99 @@ class InferenceEngine:
                                            dtype=torch.float32, device=self.device)
         return self._step_noise
 
-    def _decode_program(self, n_steps: int, n_chunks: int, restrict: bool,
-                        want_lp: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    # ---- constrained decoding: the grammar arena ---------------------------
+
+    def _ensure_grammar(self, grammar) -> int:
+        """Place a compiled grammar's token-DFA rows in the arena (scheduler
+        thread, no lock held) and return the GLOBAL start state a request
+        decoding under it begins in. Idempotent per grammar: its offset
+        stays put for the arena's lifetime, so rows' device states stay
+        valid as other grammars come and go. A new grammar's rows are
+        copied in place when they fit the current bucket; past it the
+        tables move to a larger bucket (``_fit_arena``)."""
+        key = grammar.key or ("anon", id(grammar))
+        off = self._g_offsets.get(key)
+        if off is None:
+            if grammar.vocab_size != self.spec.vocab_size:
+                raise ValueError(
+                    f"grammar compiled for vocab {grammar.vocab_size} "
+                    f"cannot constrain a vocab-{self.spec.vocab_size} model")
+            if self._g_states + grammar.n_states > CONSTRAIN_ARENA_MAX:
+                raise GrammarArenaFull(
+                    f"grammar arena at capacity ({self._g_states} of "
+                    f"{CONSTRAIN_ARENA_MAX} states; this grammar needs "
+                    f"{grammar.n_states} more) — retry after constrained "
+                    "traffic quiesces")
+            off = self._g_states
+            self._fit_arena(off + grammar.n_states)
+            trans = torch.from_numpy(grammar.trans)
+            rows = torch.where(trans >= 0, trans + off, -1)
+            accept = torch.from_numpy(grammar.accept.astype(bool))
+            end = off + grammar.n_states
+            self._g_trans[off:end].copy_(self._staged(rows), non_blocking=True)
+            self._g_accept[off:end].copy_(self._staged(accept), non_blocking=True)
+            self._g_states = end
+            self._g_offsets[key] = off
+        return off + grammar.start
+
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the source of an asynchronous host-to-device copy."""
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _fit_arena(self, n_states: int) -> None:
+        """Make the tables hold ``n_states`` states, padded to a power-of-two
+        bucket (padding rows allow and accept nothing). Within the bucket
+        nothing moves; a larger bucket gets new tables with the old rows
+        copied in, and every constrained graph, captured on the old
+        tables' addresses, is dropped."""
+        bucket = 1
+        while bucket < n_states:
+            bucket <<= 1
+        if bucket == self._g_bucket:
+            return
+        vocab, dev = self.spec.vocab_size, self.device
+        trans = torch.full((bucket, vocab), -1, dtype=torch.int32, device=dev)
+        accept = torch.zeros((bucket,), dtype=torch.bool, device=dev)
+        if self._g_trans is None:
+            trans[0] = 0  # FREE: every token allowed, a self-loop, accepting
+            accept[0] = True
+        else:
+            self._drop_constrained_graphs()
+            trans[:self._g_bucket].copy_(self._g_trans)
+            accept[:self._g_bucket].copy_(self._g_accept)
+        self._g_trans, self._g_accept, self._g_bucket = trans, accept, bucket
+
+    def _drop_constrained_graphs(self) -> None:
+        """Drop the graphs of the constrained variant once no dispatch in
+        flight replays them: they read the arena tables at the addresses
+        they were captured with, which are about to go."""
+        if self._graphs is not None:
+            self._stream.synchronize()
+            self._graphs.drop(lambda key: key[0] == "dfa")
+
+    def _maybe_reset_arena(self) -> None:
+        """Drop the arena once it has grown past CONSTRAIN_ARENA_KEEP states
+        AND no request (active, admitting or pending) references a grammar:
+        the only moment offsets may move. Every row's state returns to FREE,
+        so no stale state can index the next, smaller tables. Below the
+        threshold the arena stays as a warm cache."""
+        if self._g_states <= CONSTRAIN_ARENA_KEEP:
+            return
+        with self._cond:
+            busy = (any(r is not None and r.grammar is not None for r in self._slots)
+                    or any(a.req.grammar is not None for a in self._admitting)
+                    or any(r.grammar is not None for r in self._pending))
+        if busy:
+            return
+        self._drop_constrained_graphs()
+        self._dfa.zero_()
+        self._g_offsets = {}
+        self._g_states = 1
+        self._g_trans = self._g_accept = None
+        self._g_bucket = 0
+
+    def _decode_program(self, n_steps: int, n_chunks: int, restrict: bool, want_lp: bool,
+                        constrained: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
         """One decode dispatch over the rows set in ``_mask``: ``decode_chunk``
         for one chunk, ``decode_loop`` for more. Every step samples from
         ``adjust_logits`` (each row's bias, penalties and counts) and adds
@@ -1322,13 +1529,31 @@ class InferenceEngine:
         ``want_lp``, ``[n_chunks, n_steps, rows, 1 + 2·TOP_LOGPROBS]`` f32
         (the sampled token's logprob, the top logprobs, then their ids,
         exact in f32 below 2^24), else None. The card captures it once per
-        key and replays it; nothing in it syncs the host."""
+        key and replays it; nothing in it syncs the host.
+
+        ``constrained`` (the JAX engine's grammar variant): each step
+        gathers every row's arena row ``trans[dfa]`` [rows, V], allows the
+        tokens with a next state ≥ 0 and EOS exactly where the state
+        accepts, masks before sampling, advances the state of each live
+        row whose token is not EOS, and counts the masked entries of live
+        constrained rows (state > 0): a last column of the token output,
+        per row summed over the chunk's steps."""
         noise = self._step_noise
         n_top = min(TOP_LOGPROBS, self.spec.vocab_size)
+        trans, accept, eos = self._g_trans, self._g_accept, self._eos
+        if constrained:
+            eos_col = (torch.arange(self.spec.vocab_size, device=self.device)[None, :]
+                       == eos[:, None])
 
         def sample_fn(logits, live, carry):
-            k, counts = carry
+            k, counts = carry[:2]
             adj = adjust_logits(logits, self._bias, counts, self._pp, self._fp)
+            if constrained:
+                dfa = carry[2]
+                rowt = trans.index_select(0, dfa)  # [rows, V]
+                eos_ok = accept.index_select(0, dfa) & (eos >= 0)
+                allow = torch.where(eos_col, eos_ok[:, None], rowt >= 0)
+                adj = apply_token_mask(adj, allow)
             nxt = sample_token_rows(adj, self._temp, self._topp, self._topk, noise[k],
                                     restrict=restrict)
             counts = counts.scatter_add(1, nxt[:, None], live[:, None].to(counts.dtype))
@@ -1336,13 +1561,19 @@ class InferenceEngine:
             if want_lp:
                 s_lp, top_ix, top_lp = token_logprobs(adj, nxt, n_top)
                 aux = (torch.cat([s_lp[:, None], top_lp, top_ix.float()], dim=-1),)
-            return nxt, (k + 1, counts), aux
+            if not constrained:
+                return nxt, (k + 1, counts), aux
+            masked = (~allow & (live & (dfa > 0))[:, None]).sum(dim=1)
+            nxt_state = rowt.gather(1, nxt[:, None])[:, 0]
+            dfa = torch.where(live & (nxt != eos) & (nxt_state >= 0), nxt_state, dfa)
+            return nxt, (k + 1, counts, dfa), aux + (masked,)
 
         # Inactive slots run the forward (the batch is static) but their K/V
         # write is masked off; rows that finished on device stay dead.
         live0 = self._mask & self._live & (self._budget > 0)
+        carry0 = (0, self._counts, self._dfa) if constrained else (0, self._counts)
         args = (self._token, self._lengths, live0, self._budget, self._eos, self._ck, self._cv,
-                sample_fn, (0, self._counts))
+                sample_fn, carry0)
         if n_chunks == 1:
             toks, _, n_valid, live, budget, _, _, lengths, carry, aux = decode_chunk(
                 self.params, self.spec, n_steps, *args, ensemble=self.ensemble)
@@ -1357,8 +1588,11 @@ class InferenceEngine:
         self._counts.copy_(torch.where(self._mask[:, None], carry[1], self._counts))
         self._budget.copy_(budget)
         self._lengths.copy_(lengths)
-        return (torch.cat([toks, n_valid[..., None].to(toks.dtype)], dim=-1),
-                aux[0] if want_lp else None)
+        cols = [toks, n_valid[..., None].to(toks.dtype)]
+        if constrained:
+            self._dfa.copy_(torch.where(self._mask, carry[2], self._dfa))
+            cols.append(aux[-1].sum(dim=1)[..., None].to(toks.dtype))  # [C, rows, 1]
+        return torch.cat(cols, dim=-1), aux[0] if want_lp else None
 
     def _warm_up(self) -> None:
         """One eager decode step with no row active (every write masked, no
@@ -1378,7 +1612,9 @@ class InferenceEngine:
         tokens to the host, without waiting for either: one graph replay on
         the card."""
         key = self._dispatch_key(active)
-        n_steps, n_chunks = key[:2]
+        constrained = key[0] == "dfa"
+        program = (*key[1:5], True) if constrained else key
+        n_steps, n_chunks = program[:2]
         self.n_deadline_clamps += self._deadline_clamped
         flags = [False] * self._rows
         for i, _ in active:
@@ -1391,9 +1627,9 @@ class InferenceEngine:
             for i, r in sampling:  # one draw per step from each sampling row's stream
                 gumbel_noise(vocab, r.generator, out=noise[k, i])
         if self._graphs is None:
-            out, lp = self._decode_program(*key)
+            out, lp = self._decode_program(*program)
         else:
-            out, lp = self._graphs.replay(key, lambda: self._decode_program(*key),
+            out, lp = self._graphs.replay(key, lambda: self._decode_program(*program),
                                           self._warm_up)
         host, lp_host, event = out, lp, None
         if self.device.type == "cuda":
@@ -1406,7 +1642,8 @@ class InferenceEngine:
         self.n_decode_chunks += 1
         self.n_decode_steps += n_steps * n_chunks
         self.n_decode_rows += len(active)
-        return _InflightChunk(active, n_steps, n_chunks, host, event, lp=lp_host)
+        return _InflightChunk(active, n_steps, n_chunks, host, event, lp=lp_host,
+                              constrained=constrained)
 
     def _pinned(self, src: torch.Tensor) -> torch.Tensor:
         """A pinned host buffer from the pool (by shape and dtype), with an
@@ -1453,6 +1690,8 @@ class InferenceEngine:
         lps = c.lp.tolist() if c.lp is not None else None
         n_top = min(TOP_LOGPROBS, self.spec.vocab_size)
         t_fetch = time.perf_counter()
+        if c.constrained:  # the masked counts ride the token copy: no extra sync
+            self.n_constrain_masked += sum(row[c.n_steps + 1] for seg in host for row in seg)
         done: set[int] = set()
         for ci, seg in enumerate(host):
             if not any(row[c.n_steps] for row in seg):

@@ -97,6 +97,11 @@ class DecodeGraphs:
             n1 = captured_launches()
             return graph, out, {fn: n - n0.get(fn, 0) for fn, n in n1.items()}
 
+    def drop(self, which: Callable[[tuple], bool]) -> None:
+        """Drop the graphs whose key ``which`` selects (the pool stays)."""
+        for key in [k for k in self._graphs if which(k)]:
+            del self._graphs[key]
+
     def clear(self) -> None:
         """Drop every graph. Their pool goes with the last one, so later
         captures start a new pool."""

@@ -193,6 +193,29 @@ def validate_request_body(body: dict[str, Any]) -> str | None:
     stop = body.get("stop")
     if stop is not None and not isinstance(stop, (str, list)):
         return f"Invalid value for 'stop': {stop!r}"
+    # Structured output: shape-level checks before fan-out, so a malformed
+    # response_format is ONE 400, not N backend failures. Grammar
+    # compilation (and its 422) stays in the backend, which owns the
+    # tokenizer.
+    rf = body.get("response_format")
+    if rf is not None:
+        if not isinstance(rf, dict) or not isinstance(rf.get("type"), str):
+            return (f"Invalid value for 'response_format': {rf!r} (an "
+                    "object with a string 'type')")
+        rft = rf["type"]
+        if rft not in ("text", "json_object", "json_schema", "regex"):
+            return (f"Invalid response_format type {rft!r} (text, "
+                    "json_object, json_schema, or regex)")
+        if rft == "json_schema":
+            js = rf.get("json_schema")
+            if not isinstance(js, dict) or not isinstance(
+                    js.get("schema"), (dict, bool)):
+                return ("response_format type 'json_schema' requires "
+                        "json_schema.schema (an object)")
+        if rft == "regex":
+            if not isinstance(rf.get("pattern"), str) or not rf["pattern"]:
+                return ("response_format type 'regex' requires a non-empty "
+                        "'pattern' string")
     t = body.get("timeout")
     if t is not None:
         if isinstance(t, bool) or not isinstance(t, (int, float)):
@@ -202,6 +225,41 @@ def validate_request_body(body: dict[str, Any]) -> str | None:
     prio = body.get("priority")
     if prio is not None and prio not in ("interactive", "batch", "background"):
         return f"Invalid value for 'priority': {prio!r} (interactive, batch, or background)"
+    # 'tenant' names a weighted-fair accounting bucket: inert without qos=1.
+    tenant = body.get("tenant")
+    if tenant is not None and (
+            not isinstance(tenant, str) or not tenant or len(tenant) > 64):
+        return (f"Invalid value for 'tenant': {tenant!r} (a non-empty "
+                "string of at most 64 characters)")
+    # Stream-resume knobs: checked here with the JAX package's words, so a
+    # malformed body gets the same 400 from both packages. A well-formed
+    # resume is the backend's to serve or refuse.
+    rt = body.get("resume_tokens")
+    if rt is not None:
+        if not isinstance(rt, list) or not rt or not all(
+                isinstance(t, int) and not isinstance(t, bool) and t >= 0
+                for t in rt):
+            return ("Invalid value for 'resume_tokens': must be a "
+                    "non-empty array of non-negative token ids")
+        if body.get("logprobs"):
+            return ("'resume_tokens' cannot be combined with 'logprobs' "
+                    "(replayed tokens carry no logprob records)")
+        if body.get("n") not in (None, 1):
+            return "'resume_tokens' requires n=1"
+        if not body.get("stream"):
+            return "'resume_tokens' requires stream=true"
+    rc = body.get("resume_chars")
+    if rc is not None:
+        if isinstance(rc, bool) or not isinstance(rc, int) or rc < 0:
+            return (f"Invalid value for 'resume_chars': {rc!r} (a "
+                    "non-negative integer)")
+        if rt is None:
+            return "'resume_chars' requires 'resume_tokens'"
+    sti = body.get("stream_token_ids")
+    if sti is not None and not isinstance(sti, bool):
+        return f"Invalid value for 'stream_token_ids': {sti!r}"
+    if sti and body.get("n") not in (None, 1):
+        return "'stream_token_ids' requires n=1"
     q = body.get("quorum")
     if q is not None and (isinstance(q, bool) or not isinstance(q, int)
                           or not 1 <= q <= MAX_QUORUM):

@@ -65,6 +65,16 @@ def _apply_cutoffs(scaled, top_p, top_k):
                        torch.full_like(scaled, float("-inf")), scaled)
 
 
+def apply_token_mask(logits: torch.Tensor, allow: torch.Tensor) -> torch.Tensor:
+    """Grammar masking: disallowed entries drop to −inf BEFORE the sampler,
+    so temperature, top-k and top-p (all downstream of the mask) compose
+    unchanged. −inf survives the Gumbel-argmax, so masking a token that
+    would not have been sampled anyway is a strict no-op under greedy and
+    pure temperature sampling; with top-k/top-p the cutoffs are taken over
+    the masked distribution."""
+    return torch.where(allow, logits, float("-inf"))
+
+
 def sample_token_rows(
     logits: torch.Tensor,       # [S, V] float
     temperature: torch.Tensor,  # [S] float; <= 0 → greedy for that row

@@ -189,7 +189,7 @@ def test_backend_n_choices_share_one_deadline(backend):
 class _Row:
     """The slice of _Request the clamp and the graph key read."""
 
-    chunk_hint, sampler, want_lp = None, GREEDY, -1
+    chunk_hint, sampler, want_lp, grammar = None, GREEDY, -1, None
 
     def __init__(self, budget=100, emitted=0, deadline=None):
         self.budget = budget

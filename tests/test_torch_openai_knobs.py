@@ -5,8 +5,9 @@ weights.
 
 Every knob has an accept test (it changes or structures the output as
 documented) and a reject test (out-of-range or unsupported values are a 400,
-not a silent ignore or a 500). ``response_format`` other than ``text`` and
-``tools`` stay a 400 on cuda://.
+not a silent ignore or a 500). ``tools`` and a malformed or unsupported
+``response_format`` are a 400 on cuda:// (the grammars it serves are
+tests/test_torch_structured_output_api.py's).
 """
 
 import asyncio
@@ -224,10 +225,11 @@ def test_logit_bias_rejects_bad_values(backend, bad):
     ("tool_choice", "auto"),
     ("functions", [{"name": "f"}]),
     ("function_call", "auto"),
-    # Structured output is not ported: every non-text response_format is a 400.
+    # A malformed or unsupported response_format is a 400 (the well-formed
+    # grammars are served: tests/test_torch_structured_output_api.py).
     ("response_format", {"type": "json_schema", "json_schema": {}}),
-    ("response_format", {"type": "json_object"}),
-    ("response_format", {"type": "regex", "pattern": "yes|no"}),
+    ("response_format", {"type": "json_schema", "json_schema": {"schema": {"$ref": "#/x"}}}),
+    ("response_format", {"type": "regex", "pattern": "a(?=b)"}),
     ("response_format", {"type": "xml"}),
 ])
 def test_unsupported_fields_rejected(backend, field, value):

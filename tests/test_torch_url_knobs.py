@@ -68,8 +68,23 @@ def test_unknown_options_are_refused_by_name(option, no_engine):
     ("disagg", "1+1"), ("flash_decode", "1"), ("kv_pages", "1"), ("qos", "1"),
 ])
 def test_tpu_only_options_say_they_are_not_served_yet(option, value, no_engine):
-    with pytest.raises(ValueError, match=rf"does not serve the {option}= option yet"):
+    # flash_decode= is refused for good (test_flash_decode_refusal_is_permanent).
+    tail = ", and will not" if option == "flash_decode" else " yet"
+    with pytest.raises(ValueError, match=rf"does not serve the {option}= option{tail}"):
         _from_url(f"{BASE}&{option}={value}")
+
+
+@pytest.mark.parametrize("value", ["0", "1"])
+def test_flash_decode_refusal_is_permanent(value, no_engine):
+    """No option turns a kernel off on the card: the refusal of tpu://'s
+    flash_decode= switch says so, and never that it is coming."""
+    with pytest.raises(ValueError) as e:
+        _from_url(f"{BASE}&flash_decode={value}")
+    assert str(e.value) == (
+        "cuda:// does not serve the flash_decode= option, and will not: decode "
+        "attention always runs its kernel on the card (the plain version only on "
+        "the CPU), and no option turns a kernel off")
+    assert "yet" not in str(e.value)
 
 
 @pytest.mark.parametrize("value", ["0", "9999", "-2", "65"])
