@@ -59,6 +59,22 @@ result line:
               weights; compile seconds and states per grammar, the arena's
               bucket and bytes, the tagged key's first capture, masked
               tokens, K2 launches (> 0 inside constrained replays alone);
+  5c. spec    speculative decoding (llama-3-8b, bf16, 4 slots), each leg
+              against a spec_decode=0 twin on the same weights: prompt lookup
+              (?spec_decode=4, 32 layers, through the app) on an
+              aggregation-style prompt (128 greedy tokens, streamed and not)
+              and 4 requests at once (2 greedy repetitive, 1 sampled, 1
+              penalized), streams equal or their first divergence an audited
+              near-tie of the card's own forward; verify turns, drafted and
+              accepted tokens, device ms per verify turn at histories ≤ 2 048
+              and ≈ 6 000 against the twin's 8-step chunk per token, each
+              verify key's first capture, a profiler split of one verify
+              replay and its plain attention timed alone; the fused draft
+              loop (?spec_model=llama-3.2-1b) at decode_loop 1 and 4 (same
+              tokens; ms per fused turn, acceptance); an oracle draft and an
+              int8 target at 8 layers; a speculative_aggregation deployment
+              (members=3, 8 layers) that boots and serves an aggregate; K1,
+              K2 (target and draft layers) and K2q8 launches exact;
   6. scheduler the engine's default scheduler on the same model: the decode
               ring at depth 2 against 1 (tokens equal), a ≈ 6 000-token
               admission beside a live stream chunked and single-shot (the
@@ -546,10 +562,61 @@ def phase_kernels(torch, cpu: bool, tiny: bool, median_ms, graph_ms) -> dict:
         require(all(int(c.abs().sum()) == 0 for c in ticket_counters()),
                 "K2 ticket counters are not back at 0 after the timed graph replays")
     emit("kernels", kernel="flash_decode", timing=results["flash_decode"])
+    results["flash_decode"]["draft_shape"] = _kernels_k2_draft(torch, cpu, tiny, rnd, graph_ms,
+                                                                 sdpa)
+    results["flash_decode"]["max_abs_err"] = max(results["flash_decode"]["max_abs_err"],
+                                                 results["flash_decode"]["draft_shape"]
+                                                 ["max_abs_err"])
     results["flash_decode_q8"] = _kernels_q8(torch, cpu, tiny, rnd, median_ms, graph_ms,
                                              results["flash_decode"]["ms"])
     _kernels_int_mm(torch, cpu, tiny, graph_ms)
     return results
+
+
+def _kernels_k2_draft(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict:
+    """K2 at the shapes the spec phase's draft model (llama-3.2-1b: H=32,
+    K=8, hd=64, bf16) gives it inside every fused draft→verify graph: 4
+    slots over the draft's cache of the target's max_seq (8192), lengths
+    1/100/700/8191 (the fused leg's row is at ≈ 650–700), against the plain
+    version; then its time, the plain version's, SDPA's and the bound."""
+    from quorum_tpu_torch.ops.attention import decode_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention, ticket_counters
+
+    dev = "cpu" if cpu else "cuda"
+    h, kv, hd = (4, 2, 64) if tiny else (32, 8, 64)
+    t = 256 if tiny else 8192
+    lens = [1, 100, 200, 255] if tiny else [1, 100, 700, 8191]
+    dtype = torch.bfloat16
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = sum(lens)
+    flops = 4 * h * live * hd
+    nbytes = 2 * (live * kv * hd * 2 + 2 * 4 * h * hd) + 4 * 4
+    sets = [(rnd(4, h, 1, hd, dtype=dtype), rnd(4, kv, t, hd, dtype=dtype),
+             rnd(4, kv, t, hd, dtype=dtype), lengths) for _ in range(_copies(nbytes))]
+    n0 = flash_decode_attention.launches
+    got = flash_decode_attention(*sets[0])
+    ref = decode_attention(*sets[0])
+    err = (got.float() - ref.float()).abs().max().item()
+    require(bool(torch.isfinite(got.float()).all()), "K2 draft shape: non-finite output")
+    require(cpu or flash_decode_attention.launches == n0 + 1,
+            "K2 draft shape: one call must count one launch")
+    require(err <= KERNEL_TOL["bfloat16"], f"K2 draft shape (hd {hd}): err {err}")
+    dmask = (torch.arange(t, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+
+    bound_ms, bound_by = _bound(flops, nbytes)
+    ms = graph_ms([lambda a=a: flash_decode_attention(*a) for a in sets])
+    out = {"shape": {"B": 4, "H": h, "K": kv, "T": t, "hd": hd, "dtype": "bfloat16",
+                     "window": 0, "lengths": lens},
+           "max_abs_err": err, "tol": KERNEL_TOL["bfloat16"], "ms": ms,
+           "plain_ms": graph_ms([lambda a=a: decode_attention(*a) for a in sets]),
+           "library_ms": graph_ms([sdpa(a[0], a[1], a[2], dmask) for a in sets]),
+           "bound_ms": bound_ms,
+           "bound_by": bound_by, "pct_of_bound": 100 * bound_ms / ms}
+    del sets
+    require(cpu or all(int(c.abs().sum()) == 0 for c in ticket_counters()),
+            "K2 ticket counters are not back at 0 after the draft-shape replays")
+    emit("kernels", kernel="flash_decode", draft_shape=out)
+    return out
 
 
 def _kernels_q8(torch, cpu: bool, tiny: bool, rnd, median_ms, graph_ms, k2_ms) -> dict:
@@ -1000,8 +1067,8 @@ def _model_knobs(torch, spec, params, dev, gen, tiny: bool) -> None:
         eng._bias[2, prior[1, :8].to(dev)] = 5.0
         g = torch.Generator(device=dev).manual_seed(11)
         for k in range(32):
-            gumbel_noise(spec.vocab_size, g, out=eng._step_noise[k, 3])
-        names = ("_token", "_lengths", "_live", "_budget", "_counts", "_ck", "_cv")
+            gumbel_noise(spec.vocab_size, g, out=eng._noise_ring[k, 3])
+        names = ("_token", "_lengths", "_live", "_budget", "_counts", "_ntok", "_ck", "_cv")
         start = {n: getattr(eng, n).clone() for n in names}
         ctx = contextlib.nullcontext() if cpu else torch.cuda.stream(eng._stream)
         with ctx:
@@ -3451,6 +3518,595 @@ def _quant_replay(torch, spec, params, dev, gen, tiny: bool) -> dict:
 
 
 # Kernel-name fragments → where the serve time goes.
+# Greedy near-tie audit tolerance on the card's own forward: bf16 logits of
+# two programs (a T-token verify, a T = 1 step through K2) differ by a few
+# bf16 ulps of O(1) logits after 32 layers (the model phase's MODEL_TOL).
+SPEC_TIE_TOL = {"float32": 2e-3, "bfloat16": 0.25}
+
+
+def _spec_audit(torch, eng, prompt: list[int], a: list[int], b: list[int], *,
+                temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
+                pp: float = 0.0, fp: float = 0.0, bias=None) -> dict:
+    """Two streams of one request (plain ``a``, speculative ``b``): equal, or
+    their first divergence is a near-tie of the card's own cache-free
+    forward at that position (the JAX package's ``_assert_same_or_tie_flip``):
+    both tokens' scores within SPEC_TIE_TOL of the best, where the score is
+    the adjusted logit (the request's bias, penalties from the tokens
+    generated before it) over the temperature plus, for a sampled request, the
+    request's own draw for that token index, among the tokens top-p keeps
+    (its cutoff loosened by the tolerance). Fails otherwise."""
+    from quorum_tpu_torch.models.transformer import forward_logits
+    from quorum_tpu_torch.ops.sampling import gumbel_noise
+
+    if a == b:
+        return {"equal": True}
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    require(i is not None, f"spec: streams differ in length only ({len(a)} vs {len(b)})")
+    tol = SPEC_TIE_TOL[eng.spec.dtype]
+    seq = torch.tensor([list(prompt) + a[:i]], device=eng.device)
+    with torch.no_grad():
+        lg = forward_logits(eng.params, eng.spec, seq)[0, -1].float()
+    counts = torch.zeros_like(lg)
+    for t in a[:i]:
+        counts[t] += 1
+    adj = lg - fp * counts - pp * (counts > 0).float()
+    if bias is not None:
+        adj = adj + bias.to(adj.device)
+    if temperature > 0.0:
+        scaled = adj / temperature
+        gen = torch.Generator(device=eng.device).manual_seed(seed)
+        for _ in range(i + 1):
+            noise = gumbel_noise(lg.shape[0], gen)
+        probs = torch.softmax(scaled, dim=-1)
+        order = torch.argsort(scaled, descending=True)
+        cum = torch.cumsum(probs[order], dim=0)
+        n_keep = int(((cum - probs[order]) < top_p).sum())
+        cutoff = float(scaled[order[n_keep - 1]]) - tol / temperature
+        score = torch.where(scaled >= cutoff, scaled + noise, torch.full_like(scaled, -1e30))
+        tol = tol / temperature
+    else:
+        score = adj
+    top = float(score.max())
+    gaps = (top - float(score[a[i]]), top - float(score[b[i]]))
+    require(max(gaps) < tol, f"spec: divergence at token {i} is not a near-tie: score gaps "
+                             f"{gaps} to the best (tolerance {tol})")
+    return {"equal": False, "first_divergence": i, "score_gaps": gaps}
+
+
+def _recorded_submits(eng) -> list:
+    """Wrap ``eng.submit`` so every request it queues is kept: its handle
+    carries the prompt, the sampler, the knobs and the delivered tokens
+    (``hist``). ``del eng.submit`` unwraps it."""
+    reqs = []
+    submit = eng.submit
+
+    def recorded(*a, **k):
+        r = submit(*a, **k)
+        if r is not None:
+            reqs.append(r)
+        return r
+
+    eng.submit = recorded
+    return reqs
+
+
+def _audit_requests(torch, eng, a_reqs: list, b_reqs: list) -> list[dict]:
+    """``_spec_audit`` of each request of ``b_reqs`` (speculative engine
+    ``eng``) against the request of ``a_reqs`` (its plain twin) with the
+    same prompt, on the request's own sampler, seed, penalties and bias."""
+    out = []
+    for b in b_reqs:
+        a = [r for r in a_reqs if r.prompt_ids == b.prompt_ids]
+        require(len(a) == 1, f"spec: {len(a)} twin requests for one prompt")
+        n = len(b.prompt_ids)
+        out.append(_spec_audit(torch, eng, b.prompt_ids, a[0].hist[n:], b.hist[n:],
+                               temperature=b.sampler.temperature, top_p=b.sampler.top_p,
+                               seed=b.seed, pp=b.pp, fp=b.fp, bias=b.bias_row))
+    return out
+
+
+def phase_spec(torch, cpu: bool, tiny: bool, device_info: dict, graph_ms) -> dict:
+    """Speculative decoding on ``cuda://`` engines (llama-3-8b at full width,
+    bf16, 4 slots, decode_chunk 8, random weights of seed 0, byte prompts),
+    each leg against a ``spec_decode=0`` twin engine on the same weights:
+
+    (a) prompt lookup, ``?spec_decode=4``, 32 layers, behind the app: an
+        aggregation-style prompt (three ≈ 400-byte member answers quoted,
+        then the instruction: ≈ 1 300 tokens) greedy for 128 tokens, not
+        streamed and streamed; then 4 at once (2 greedy repetitive prompts,
+        1 sampled at temperature 0.8 / top-p 0.9, 1 greedy with
+        presence_penalty 0.6) for 64 tokens. Greedy streams equal the
+        twin's or diverge at an audited near-tie (``_spec_audit``); the
+        sampled and penalty streams are checked the same way and reported
+        as exact or not, through the app (each request's token ids) and
+        co-batched. Verify turns, drafted, accepted, tokens per turn,
+        overlapped turns; device ms per verify turn (CUDA events, medians)
+        at a history ≤ 2 048 (1 and 4 rows) and ≈ 6 000 (1 row), against
+        the twin's 8-step chunk per token; each verify key's first capture;
+        a torch.profiler split of one verify replay (matmul kernels, the
+        rest) beside the plain verify attention of the turn timed alone
+        (32 layers by CUDA graph).
+    (b) the fused draft loop, ``?spec_model=llama-3.2-1b`` (16 layers, hd
+        64; random weights: acceptance near 0 is expected), at decode_loop
+        1 and 4 (same tokens): ms per fused dispatch and per turn, and
+        acceptance.
+    (c) an oracle draft at 8 layers (the target's own spec and seed, by
+        ``get_engine(..., draft_spec=, draft_seed=)``): streams equal the
+        twin's (audited), accepted tokens per turn; then
+        ``quant=int8&kv_quant=int8`` at 8 layers with ``spec_decode=4``
+        against its twin.
+    (d) ``speculative_aggregation: true``: the shipped three-member
+        deployment (``members=3``) at 8 layers with ``spec_decode=4``
+        boots and serves one aggregate request.
+
+    Launch counts are exact: K1 = layers × single-shot admissions; K2 =
+    the target's layers × (decode + warm-up steps) plus the draft's layers ×
+    its decode steps (``spec_draft_steps_total``: the extension steps
+    captured in each fused graph × its replays, masked turns included, and
+    the eager warm-up turns); K2q8 likewise on the int8 engine."""
+    from quorum_tpu_torch.backends.cuda_backend import CudaBackend
+    from quorum_tpu_torch.config import Config
+    from quorum_tpu_torch.engine.engine import (InferenceEngine, get_engine,
+                                                shutdown_all_engines)
+    from quorum_tpu_torch.models import transformer as tf
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.server.app import create_app
+
+    model = "llama-tiny" if tiny else "llama-3-8b"
+    draft_model = "llama-tiny" if tiny else "llama-3.2-1b"
+    extra = "&max_seq=2048&device=cpu" if tiny else ("&device=cpu" if cpu else "")
+    card = f"{device_info['name']} ({device_info['power_limit']})"
+    greedy = SamplerConfig(temperature=0.0)
+    _require_card_empty(torch, cpu, "spec")
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    # Every launch counter to 0 just before the phase's main path, read after.
+    flash_prefill_attention.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
+    flash_decode_attention.launches = 0
+    flash_decode_q8_attention.launches = 0
+    finals: list[tuple] = []  # (engine, its metrics at the end, draft layers)
+
+    def finish(eng):
+        rt = eng._draft_rt
+        finals.append((eng, eng.metrics(), rt.spec.n_layers if rt is not None else 0))
+
+    def raw_for(url):
+        return {"primary_backends": [{"name": "llama", "url": url}],
+                "settings": {"timeout": SERVE_TIMEOUT_S}}
+
+    def call(app, body):
+        return asyncio.run(asyncio.wait_for(_call(app, body), SERVE_TIMEOUT_S))
+
+    def body(content, max_tokens, stream=False, **knobs):
+        b = {"model": model, "messages": [{"role": "user", "content": content}],
+             "max_tokens": max_tokens, "stream": stream, "temperature": 0, **knobs}
+        if stream:
+            b["stream_options"] = {"include_usage": True}
+        return b
+
+    def timed_spec(eng):
+        """CUDA events around each spec dispatch of ``eng``: [chunk, marks]."""
+        recs = []
+        dispatch = eng._dispatch_spec
+
+        def timed(*a, **k):
+            marks = None
+            if not cpu:
+                marks = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                marks[0].record()
+            c = dispatch(*a, **k)
+            if marks:
+                marks[1].record()
+            recs.append([c, marks])
+            return c
+
+        eng._dispatch_spec = timed
+        return recs
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+
+    def bias_row(b):
+        if not b:
+            return None
+        row = torch.zeros(vocab)
+        for t, v in b.items():
+            row[int(t)] = float(v)
+        return row
+
+    def spec_counts(m0, m1, one_row=False):
+        keys = ("spec_turns_total", "spec_draft_tokens_total", "spec_accepted_total",
+                "spec_overlapped_total")
+        d = {k: m1[k] - m0[k] for k in keys}
+        turns, drafted = d["spec_turns_total"], d["spec_draft_tokens_total"]
+        # Per turn over every row it carried; a drafting row emits 1 +
+        # its accepted drafts per turn (g + 1 at most).
+        d["accepted_per_turn"] = d["spec_accepted_total"] / turns if turns else None
+        d["acceptance"] = d["spec_accepted_total"] / drafted if drafted else None
+        if one_row and turns:  # one row: the tokens each turn emitted
+            d["tokens_per_turn"] = (d["spec_accepted_total"] + turns) / turns
+        return d
+
+    # ---- (a) prompt lookup, 32 layers -------------------------------------
+    t_a = time.perf_counter()
+    url = f"cuda://{model}?slots=4&decode_chunk=8&spec_decode=4{extra}"
+    app = create_app(Config(raw=raw_for(url)))
+    backend = app.state["registry"].backends[0]
+    eng, tok = backend.engine, backend.tokenizer
+    spec, vocab = eng.spec, eng.spec.vocab_size
+    twin = InferenceEngine(spec, device=eng.device, params=eng.params, n_slots=4, decode_chunk=8)
+    twin_app = create_app(Config(raw=raw_for(url)),
+                          llama=CudaBackend("llama", twin, model=model, model_id=model))
+    sep = "\n\n---\n\n"
+    answer_bytes = 40 if tiny else 400
+    agg_content = ("You have received the following responses regarding the user's query:\n"
+                   + sep.join(_prompt(answer_bytes, 60 + i) for i in range(3))
+                   + "\nSynthesize these responses into a single, comprehensive answer.")
+    n_agg = 16 if tiny else 128
+    m0 = eng.metrics()
+    recs = timed_spec(eng)
+    out_a = {}
+    for stream in (False, True):
+        out_a[stream] = _check_response(call(app, body(agg_content, n_agg, stream)),
+                                        body(agg_content, n_agg, stream), tok, n_agg)
+    require(out_a[False]["text"] == out_a[True]["text"],
+            "spec: the streamed aggregation text differs from the non-streamed one")
+    twin_agg = _check_response(call(twin_app, body(agg_content, n_agg)), body(agg_content, n_agg),
+                               tok, n_agg)
+    agg_ids = tok.encode(tok.render_chat([{"role": "user", "content": agg_content}]))
+    audits = {}
+    if twin_agg["text"] != out_a[False]["text"]:
+        (a_ids, _), = _stream_all(twin, [twin.submit(agg_ids, max_new_tokens=n_agg,
+                                                     sampler=greedy)])
+        (b_ids, _), = _stream_all(eng, [eng.submit(agg_ids, max_new_tokens=n_agg,
+                                                   sampler=greedy)])
+        audits["aggregation"] = _spec_audit(torch, eng, agg_ids, a_ids, b_ids)
+    else:
+        audits["aggregation"] = {"equal": True}
+    m_agg = eng.metrics()
+    agg_turns = list(recs)
+    # 4 at once: 2 greedy repetitive, 1 sampled, 1 penalized. Random weights
+    # do not repeat text by themselves: the repetitive rows' logit_bias
+    # (+100 on the prompt's own tokens) makes their continuation periodic,
+    # so prompt lookup finds drafts.
+    n4 = 48 if tiny else 64
+    rep = ["ab ab ab ab " * (4 if tiny else 12), "the quorum answers " * (4 if tiny else 12)]
+
+    def forced(text):
+        return {str(t): 100 for t in sorted(set(tok.encode(text)))}
+
+    bias = [forced("a"), forced("quorm ")]
+    bodies4 = [body(rep[0], n4, logit_bias=bias[0]), body(rep[1], n4, logit_bias=bias[1]),
+               body(_prompt(120 if tiny else 300, 71), n4, temperature=0.8, top_p=0.9, seed=7),
+               body(_prompt(120 if tiny else 300, 72), n4, presence_penalty=0.6)]
+
+    async def four(the_app):
+        return await asyncio.gather(*[_call(the_app, b) for b in bodies4])
+
+    twin_recs = _timed_dispatches(torch, twin, cpu)
+    twin_subs, subs = _recorded_submits(twin), _recorded_submits(eng)
+    want4 = [_check_response(r, b, tok, n4) for r, b in zip(
+        asyncio.run(asyncio.wait_for(four(twin_app), 2 * SERVE_TIMEOUT_S)), bodies4)]
+    n_before = len(recs)
+    got4 = [_check_response(r, b, tok, n4) for r, b in zip(
+        asyncio.run(asyncio.wait_for(four(app), 2 * SERVE_TIMEOUT_S)), bodies4)]
+    four_turns = recs[n_before:]
+    del twin.submit, eng.submit
+    m_four = eng.metrics()
+    names4 = ("greedy_repetitive_0", "greedy_repetitive_1", "sampled", "presence_penalty")
+    app_exact4 = {name: w["text"] == g["text"] for name, w, g in zip(names4, want4, got4)}
+    # Through the app each request was admitted as it arrived: its token ids
+    # against the twin's, equal or the first divergence audited.
+    require(len(subs) == len(twin_subs) == len(bodies4),
+            f"spec: {len(subs)} and {len(twin_subs)} requests reached the engines")
+    audits["through_app"] = _audit_requests(torch, eng, twin_subs, subs)
+    # The same 4 co-batched on each engine (admitted in one turn), token ids
+    # compared row by row: equal, or the first divergence audited.
+    kws4 = []
+    for b in bodies4:
+        kws4.append((tok.encode(tok.render_chat(b["messages"])), dict(
+            max_new_tokens=n4, seed=b.get("seed", 0),
+            sampler=SamplerConfig(temperature=b["temperature"], top_p=b.get("top_p", 1.0)),
+            presence_penalty=b.get("presence_penalty", 0.0),
+            logit_bias=bias_row(b.get("logit_bias")))))
+
+    def cobatched(e):
+        with e._cond:
+            reqs = [e.submit(ids, **kw) for ids, kw in kws4]
+        return [t for t, _ in _stream_all(e, reqs)]
+
+    want_ids, got_ids = cobatched(twin), cobatched(eng)
+    exact4 = {}
+    for name, b, (ids, kw), a_ids, b_ids in zip(names4, bodies4, kws4, want_ids, got_ids):
+        exact4[name] = a_ids == b_ids
+        audits[name] = _spec_audit(torch, eng, ids, a_ids, b_ids,
+                                   temperature=b["temperature"], top_p=b.get("top_p", 1.0),
+                                   seed=b.get("seed", 0), pp=b.get("presence_penalty", 0.0),
+                                   bias=kw["logit_bias"])
+    m_cob = eng.metrics()
+    # history ≈ 6 000: one repetitive long prompt, greedy (chunked admission)
+    long_content = "ab ab ab ab ab ab the long record " * (6 if tiny else 180)
+    n_long = 48 if tiny else 64
+    long_ids = tok.encode(tok.render_chat([{"role": "user", "content": long_content}]))
+    long_kw = dict(max_new_tokens=n_long, sampler=greedy, logit_bias=bias_row(bias[0]))
+    n_before = len(recs)
+    (long_b, _), = _stream_all(eng, [eng.submit(long_ids, **long_kw)])
+    (long_a, _), = _stream_all(twin, [twin.submit(long_ids, **long_kw)])
+    audits["long"] = _spec_audit(torch, eng, long_ids, long_a, long_b,
+                                 bias=long_kw["logit_bias"])
+    long_turns = recs[n_before:]
+    del eng._dispatch_spec
+    m_a = eng.metrics()
+    ms_all = _device_ms(torch, cpu, recs)
+
+    def turn_ms(rows, sel):
+        if ms_all is None:
+            return None
+        chosen = {id(r[0]) for r in sel}
+        picked = [t for (c, _), t in zip(recs, ms_all)
+                  if id(c) in chosen and len(c.active) == rows]
+        return {"median_ms": med(picked[1:] or picked), "n": len(picked)}
+
+    twin_ms = _device_ms(torch, cpu, twin_recs)
+    del twin._dispatch_chunk
+    plain_per_token = None
+    if twin_ms:
+        per = [t / 8 for (c, _), t in zip(twin_recs, twin_ms)
+               if c.n_steps == 8 and c.n_chunks == 1 and len(c.active) == 4]
+        plain_per_token = {"median_ms_per_token_4_rows": med(per[1:] or per), "n": len(per)}
+    # Each greedy verify key's replay with no row active (the same kernels
+    # as a turn: every row's forward runs, its writes masked), timed and
+    # profiled, beside the turn's plain attention alone at its history
+    # bucket: 32 layers of [4 rows, 5 queries] over [0, history).
+    split = {}
+    keys = sorted(k for k in (eng._graphs._graphs if eng._graphs else ())
+                  if k[0] == "verify" and not k[2] and not k[3])
+    if keys:
+        from torch.profiler import ProfilerActivity, profile
+
+        with eng._cond:
+            require(not eng._inflight and not any(eng._slots), "spec: engine busy")
+        mask = eng._mask.clone()
+        eng._mask.zero_()
+    for key in keys:
+        hist = key[4]
+
+        def replay(key=key, hist=hist):
+            with torch.cuda.stream(eng._stream):
+                eng._graphs.replay(key, lambda: eng._verify_program(4, False, False, False,
+                                                                    hist), eng._warm_up)
+
+        replay()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        times = []
+        for _ in range(5):
+            with torch.cuda.stream(eng._stream):
+                ev[0].record()
+            replay()
+            with torch.cuda.stream(eng._stream):
+                ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            replay()
+            torch.cuda.synchronize()
+        groups: dict[str, float] = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0:
+                g = ("matmul" if any(f in e.key.lower() for f in _KERNEL_GROUPS[3][1])
+                     else "other")
+                groups[g] = groups.get(g, 0.0) + us / 1e3
+        q = torch.randn((4, spec.n_heads, 5, spec.head_dim), dtype=getattr(torch, spec.dtype),
+                        device=eng.device)
+        pos = torch.arange(5, device=eng.device)[None, :] + torch.tensor(
+            [hist // 2, hist - 8, hist // 4, hist - 40], device=eng.device)[:, None]
+        ki = torch.arange(hist, device=eng.device)[None, None, :]
+        vmask = (ki <= pos[:, :, None])[:, None, None]
+        layer_ms = graph_ms([(lambda l=l: tf.attention(
+            q, eng._ck[l][:, :, :hist], eng._cv[l][:, :, :hist], vmask))
+            for l in range(spec.n_layers)])
+        turn = statistics.median(times)
+        split[str(key)] = {
+            "replay_ms_no_row_active": turn,
+            "profiler_ms_by_group": {k: round(v, 4) for k, v in groups.items()},
+            "plain_verify_attention_ms": layer_ms * spec.n_layers,
+            "attention_share_of_turn": layer_ms * spec.n_layers / turn if turn else None}
+    if keys:
+        eng._mask.copy_(mask)
+    verify_captures = {str(k): round(v, 4) for k, v in (
+        eng._graphs.capture_seconds_by_key.items() if eng._graphs else ())
+        if k[0] in ("verify", "dfa_verify")}
+    leg_a = {
+        "aggregation_prompt_tokens": len(agg_ids),
+        "aggregation": {"completion_tokens": out_a[False]["usage"]["completion_tokens"],
+                        "seconds": round(out_a[False]["t_end"], 4),
+                        "twin_seconds": round(twin_agg["t_end"], 4),
+                        **spec_counts(m0, m_agg, one_row=True)},
+        "four_at_once": {"exact_through_app": app_exact4, "exact_cobatched_ids": exact4,
+                         **spec_counts(m_agg, m_four),
+                         "seconds": [round(g["t_end"], 4) for g in got4],
+                         "twin_seconds": [round(w["t_end"], 4) for w in want4]},
+        "long": {"prompt_tokens": len(long_ids), **spec_counts(m_cob, m_a, one_row=True)},
+        "audits": audits,
+        "verify_turn_device_ms": {
+            "history_le_2048_1_row": turn_ms(1, agg_turns),
+            "history_le_2048_4_rows": turn_ms(4, four_turns),
+            "history_6000_1_row": turn_ms(1, long_turns)},
+        "twin_plain_chunk": plain_per_token,
+        "verify_first_capture_s": verify_captures,
+        "verify_split": split,
+        "noise_ring_bytes": eng._noise_ring.numel() * 4,
+        "seconds": round(time.perf_counter() - t_a, 3),
+    }
+    emit("spec", leg="prompt_lookup", model=model, layers=spec.n_layers, **leg_a,
+         measured_on=card)
+    require(m_a["spec_turns_total"] > 0 and m_a["spec_accepted_total"] > 0,
+            "spec: prompt lookup never drafted an accepted token")
+    finish(eng)
+    finish(twin)
+    del app, twin_app, backend
+    eng.shutdown()
+    twin.shutdown()
+    shutdown_all_engines()
+    del eng, twin
+    _require_card_empty(torch, cpu, "spec (b)")
+
+    # ---- (b) the fused draft loop, full width -----------------------------
+    t_b = time.perf_counter()
+    url_b = f"cuda://{model}?slots=4&decode_chunk=8&spec_model={draft_model}{extra}"
+    app_b = create_app(Config(raw=raw_for(url_b)))
+    eng_b = app_b.state["registry"].backends[0].engine
+    rt = eng_b._draft_rt
+    eng_b4 = InferenceEngine(eng_b.spec, device=eng_b.device, params=eng_b.params, n_slots=4,
+                             decode_chunk=8, decode_loop=4, spec_decode=4, draft_spec=rt.spec,
+                             draft_params=rt.params)
+    content_b = _prompt(200 if tiny else 600, 81)
+    ids_b = tok.encode(tok.render_chat([{"role": "user", "content": content_b}]))
+    fused = {}
+    toks_b = {}
+    for name, e in (("decode_loop_1", eng_b), ("decode_loop_4", eng_b4)):
+        m_b0 = e.metrics()
+        recs_b = timed_spec(e)
+        if name == "decode_loop_1":
+            out_b = _check_response(call(app_b, body(content_b, n4)), body(content_b, n4), tok, n4)
+        (toks_b[name], _), = _stream_all(e, [e.submit(ids_b, max_new_tokens=n4, sampler=greedy)])
+        del e._dispatch_spec
+        m_b1 = e.metrics()
+        ms_b = _device_ms(torch, cpu, recs_b)
+        turns = sum(c.n_chunks for c, _ in recs_b)
+        # Per dispatched turn (masked turns of a C-turn graph included); a
+        # row's first dispatch also carries its eager draft resync, which
+        # the median leaves out.
+        per_turn = [t / c.n_chunks for (c, _), t in zip(recs_b, ms_b or [])]
+        fused[name] = {**spec_counts(m_b0, m_b1),
+                       "dispatches": len(recs_b), "turns_dispatched": turns,
+                       "ms_per_turn_median": med(per_turn[1:] or per_turn),
+                       "dispatch_ms_max": max(ms_b) if ms_b else None,
+                       "first_capture_s": {str(k): round(v, 4) for k, v in (
+                           e._graphs.capture_seconds_by_key.items() if e._graphs else ())
+                           if k[0] == "spec_loop"}}
+    require(toks_b["decode_loop_1"] == toks_b["decode_loop_4"],
+            "spec: the fused loop's tokens differ between decode_loop 1 and 4")
+    emit("spec", leg="fused_draft", model=model, draft=draft_model,
+         draft_layers=rt.spec.n_layers, draft_head_dim=rt.spec.head_dim,
+         app_completion_tokens=out_b["usage"]["completion_tokens"], fused=fused,
+         acceptance_note="random weights: the draft and the target agree by chance only",
+         seconds=round(time.perf_counter() - t_b, 3), measured_on=card)
+    require(all(f["spec_turns_total"] > 0 for f in fused.values()),
+            "spec: the fused draft loop ran no turn")
+    finish(eng_b)
+    finish(eng_b4)
+    del app_b
+    eng_b4.shutdown()
+    shutdown_all_engines()
+    del eng_b, eng_b4, rt
+    _require_card_empty(torch, cpu, "spec (c)")
+
+    # ---- (c) an oracle draft and an int8 target, 8 layers -----------------
+    t_c = time.perf_counter()
+    spec8 = resolve_spec(model, {"n_layers": "2" if tiny else "8",
+                                 **({"max_seq": "2048"} if tiny else {})})
+    dev = "cpu" if cpu else None
+    eng_c = get_engine(spec8, device=dev, seed=0, n_slots=4, decode_chunk=8, spec_decode=4,
+                       draft_spec=spec8, draft_seed=0)
+    twin_c = InferenceEngine(spec8, device=eng_c.device, params=eng_c.params, n_slots=4,
+                             decode_chunk=8)
+    prompts_c = [agg_ids, tok.encode(_prompt(300, 91)), tok.encode(rep[1])]
+    want_c = _stream_all(twin_c, [twin_c.submit(p, max_new_tokens=n4, sampler=greedy)
+                                  for p in prompts_c])
+    mc0 = eng_c.metrics()
+    got_c = _stream_all(eng_c, [eng_c.submit(p, max_new_tokens=n4, sampler=greedy)
+                                for p in prompts_c])
+    mc1 = eng_c.metrics()
+    audit_c = [_spec_audit(torch, eng_c, p, w, g)
+               for p, (w, _), (g, _) in zip(prompts_c, want_c, got_c)]
+    oracle = spec_counts(mc0, mc1)
+    require(oracle["spec_turns_total"] > 0
+            and oracle["spec_accepted_total"] >= 0.5 * 4 * oracle["spec_turns_total"],
+            f"spec: the oracle draft accepted too little: {oracle}")
+    finish(eng_c)
+    finish(twin_c)
+    twin_c.shutdown()
+    shutdown_all_engines()
+    del eng_c, twin_c
+    q8 = get_engine(spec8, device=dev, seed=0, n_slots=4, decode_chunk=8, spec_decode=4,
+                    quant="int8", kv_quant="int8")
+    q8_twin = InferenceEngine(spec8, device=q8.device, params=q8.params, n_slots=4,
+                              decode_chunk=8, quant="int8", kv_quant="int8")
+    q8_prompts = [tok.encode(rep[0]), tok.encode(rep[1])]
+    want_q = _stream_all(q8_twin, [q8_twin.submit(p, max_new_tokens=n4, sampler=greedy)
+                                   for p in q8_prompts])
+    got_q = _stream_all(q8, [q8.submit(p, max_new_tokens=n4, sampler=greedy)
+                             for p in q8_prompts])
+    audit_q = [_spec_audit(torch, q8, p, w, g)
+               for p, (w, _), (g, _) in zip(q8_prompts, want_q, got_q)]
+    mq = q8.metrics()
+    emit("spec", leg="oracle_and_int8", layers=spec8.n_layers, oracle=oracle,
+         oracle_audits=audit_c, int8={"audits": audit_q, **spec_counts(
+             {k: 0 for k in mq}, mq)},
+         seconds=round(time.perf_counter() - t_c, 3), measured_on=card)
+    require(mq["spec_turns_total"] > 0, "spec: the int8 target never verified")
+    finish(q8)
+    finish(q8_twin)
+    q8_twin.shutdown()
+    shutdown_all_engines()
+    del q8, q8_twin
+    _require_card_empty(torch, cpu, "spec (d)")
+
+    # ---- (d) speculative_aggregation: true --------------------------------
+    t_d = time.perf_counter()
+    layers_d = "&n_layers=2" if tiny else "&n_layers=8"
+    urls = _fanout_urls(model, extra, True, knobs=f"{layers_d}&spec_decode=4")
+    raw_d = {"settings": {"timeout": SERVE_TIMEOUT_S},
+             "primary_backends": [{"name": f"LLM{i + 1}", "url": u, "model": model}
+                                  for i, u in enumerate(urls)],
+             "iterations": {"aggregation": {"strategy": "aggregate"}},
+             "strategy": {"aggregate": {"aggregator_backend": "LLM1",
+                                        "speculative_aggregation": True}}}
+    agg_app = create_app(Config(raw=raw_d))
+    eng_d = agg_app.state["registry"].backends[0].engine
+    md0 = eng_d.metrics()
+    agg = _parallel_complete(call(agg_app, {"model": model, "max_tokens": 32, "temperature": 0,
+                                            "messages": [{"role": "user",
+                                                          "content": _prompt(300, 5)}]}))
+    require(agg["degraded"] is None and agg["text"], f"spec: aggregate degraded {agg}")
+    md1 = eng_d.metrics()
+    emit("spec", leg="speculative_aggregation", layers=eng_d.spec.n_layers,
+         members=eng_d.members, aggregate_s=round(agg["t_end"], 4),
+         engine_spec=spec_counts(md0, md1), seconds=round(time.perf_counter() - t_d, 3),
+         measured_on=card)
+    finish(eng_d)
+    del agg_app
+    shutdown_all_engines()
+    del eng_d
+
+    # ---- launch counts over the phase ---------------------------------------
+    k1 = sum(e.spec.n_layers * m["admission_dispatches_total"] for e, m, _ in finals)
+    k2 = sum(e.spec.n_layers * _k2_steps(m) + dl * m["spec_draft_steps_total"]
+             for e, m, dl in finals if not e.kv_quant)
+    k2q8 = sum(e.spec.n_layers * _k2_steps(m) for e, m, _ in finals if e.kv_quant)
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches,
+                "flash_decode_q8": flash_decode_q8_attention.launches}
+    if not cpu:
+        require(launches == {"flash_prefill": k1, "flash_decode": k2, "flash_decode_q8": k2q8},
+                f"spec: launches {launches} != expected K1 {k1}, K2 {k2}, K2q8 {k2q8}")
+    draft_steps = sum(m["spec_draft_steps_total"] for _, m, _ in finals)
+    info = {"launches": launches, "draft_decode_steps": draft_steps,
+            "peak_mem_gb": (None if cpu else round(torch.cuda.max_memory_allocated() / 1e9, 3)),
+            "measured_on": card}
+    emit("spec", leg="launches", **info)
+    return info
+
+
 _KERNEL_GROUPS = (("K1 flash_prefill", ("prefill_wgmma_kernel", "flash_prefill_kernel")),
                   ("K2 flash_decode", ("flash_decode_mma_kernel", "flash_decode_kernel")),
                   ("K2q8 flash_decode_q8", ("q8_decode_cluster_kernel",)),
@@ -3513,8 +4169,8 @@ def main(argv=None) -> int:
                     help="rehearsal on the CPU with the plain versions (never the default)")
     ap.add_argument("--tiny", action="store_true", help="llama-tiny shapes (rehearsal)")
     ap.add_argument("--phases",
-                    default="device,build,kernels,model,serve,constrain,scheduler,decode_graphs,"
-                            "knobs,fanout,members,checkpoint,moe,quant",
+                    default="device,build,kernels,model,serve,constrain,spec,scheduler,"
+                            "decode_graphs,knobs,fanout,members,checkpoint,moe,quant",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -3549,6 +4205,8 @@ def main(argv=None) -> int:
                  if "serve" in phases else None)
         constrain = (phase_constrain(torch, args.cpu, args.tiny, info)
                      if "constrain" in phases else None)
+        spec = (phase_spec(torch, args.cpu, args.tiny, info, graph_ms)
+                if "spec" in phases else None)
         scheduler = (phase_scheduler(torch, args.cpu, args.tiny, info)
                      if "scheduler" in phases else None)
         graphs = (phase_decode_graphs(torch, args.cpu, args.tiny, info)
@@ -3574,7 +4232,7 @@ def main(argv=None) -> int:
     emit("run", phases=sorted(phases), seconds=round(time.perf_counter() - t_start, 3))
     if kernels is not None:
         by_phase = {name: ph["launches"] for name, ph in (
-            ("serve", serve), ("constrain", constrain), ("scheduler", scheduler),
+            ("serve", serve), ("constrain", constrain), ("spec", spec), ("scheduler", scheduler),
             ("decode_graphs", graphs), ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
             ("checkpoint", ckpt), ("moe", moe), ("quant", quant))
             if ph is not None}
@@ -3602,6 +4260,8 @@ def main(argv=None) -> int:
             if name == "flash_prefill":
                 row.update(library_masked_ms=r["library_masked_ms"],
                            library_causal_ms=r["library_causal_ms"])
+            if name == "flash_decode":
+                row.update(draft_shape=r["draft_shape"])
             if name == "flash_decode_q8":
                 row.update(k2_ms_same_lengths_bf16=r["k2_ms_same_lengths_bf16"],
                            long_cache=r["long_cache"])

@@ -88,10 +88,36 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    an 8k window drops 1.07 → 0.54 GB per slot) and half the
                    cache bytes a long decode step reads. Composes with
                    quant=; quorum_dedup=1 refuses it
+  spec_decode=G    speculative decoding (default 0 = off, at most 16): a
+                   verify turn scores up to G draft tokens per row in one
+                   multi-token forward, so an accepted run advances G+1
+                   tokens for one read of the weights. Drafts come from
+                   prompt lookup (the request's own earlier 2-grams; an
+                   aggregation prompt quotes the members' answers) unless a
+                   draft model is named. Per row: penalties and logprobs
+                   rows ride at draft length 0, biased and response_format
+                   rows draft (constrained ones through the dfa-verify
+                   variant). Verify turns enter the decode_pipeline ring.
+                   Greedy or sampled, the tokens equal spec_decode=0's: a
+                   draft token is accepted only when it equals the token
+                   the model samples there, each token with its own noise
+                   draw. Structural (part of the engine key)
+  spec_model=<id>  draft-model speculation: the named preset (random init,
+  spec_seed=       seeded by spec_seed=, default 0; the target's vocab,
+                   window and sliding window) proposes the G-token drafts;
+                   its own cache tracks each row, and draft and verify run
+                   fused in one graph of up to decode_loop=C turns. Implies
+                   spec_decode=4 when spec_decode= is absent (an explicit
+                   0 beside a draft is refused); refused beside ckpt= and
+                   beside spec_ckpt=
+  spec_ckpt=<dir>  draft-model speculation from a local HF checkpoint (same
+                   vocabulary as the target; window raised to the
+                   target's; the target's dtype). Works with ckpt= and
+                   random-init targets; implies spec_decode=4 when unset
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet
-(``tp=``, ``kv_pages=``, …): a typo or an unported knob never builds an
+(``tp=``, ``kv_pages=``, ``prefix_store_bytes=``, …): a typo or an unported knob never builds an
 engine that silently ignores it; ``quant=`` and ``kv_quant=`` values are
 checked there too (``int8`` or empty).
 
@@ -161,12 +187,13 @@ logger = logging.getLogger(__name__)
 _OPTIONS = frozenset({
     "slots", "decode_chunk", "decode_pipeline", "decode_loop", "prefill_chunk",
     "prefix_cache", "seed", "device", "queue", "max_tokens", "members", "member",
-    "member_seeds", "quorum_dedup", "ensemble", "ckpt", "quant", "kv_quant"})
+    "member_seeds", "quorum_dedup", "ensemble", "ckpt", "quant", "kv_quant",
+    "spec_decode", "spec_model", "spec_ckpt", "spec_seed"})
 _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
 _NOT_YET = frozenset({
-    "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl", "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "prefix_store",
+    "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl", "prefix_store",
     "prefix_store_bytes", "prefix_store_chunk", "kv_pages", "kv_page_size", "kv_pool_pages",
     "qos"})
 
@@ -207,6 +234,23 @@ def _check_ckpt_options(opts: dict[str, str], members: int, member_seeds: str,
             "backends: they configure the stacked members=N init, "
             "and members=N does not apply to ckpt= (one loaded "
             "weight set; use seed= for sampling diversity)")
+
+
+def _check_spec_options(ckpt: str, spec_model: str, spec_ckpt: str) -> None:
+    """The tpu:// backend's refusals of the draft knobs, word for word,
+    before any weights load."""
+    if spec_model and ckpt:
+        raise ValueError(
+            "spec_model= (a random-init draft) would draft for real "
+            "ckpt= weights with ~0 acceptance — pure overhead; point "
+            "spec_ckpt= at a small same-tokenizer checkpoint instead")
+    if spec_model and spec_ckpt:
+        raise ValueError("spec_model= and spec_ckpt= are mutually "
+                         "exclusive draft sources")
+    if spec_ckpt and not os.path.exists(os.path.join(spec_ckpt, "config.json")):
+        raise ValueError(
+            f"spec_ckpt={spec_ckpt!r} is not a checkpoint dir "
+            "(no config.json)")
 
 
 def _invalid_request(message: str) -> BackendError:
@@ -387,6 +431,14 @@ class CudaBackend:
         quorum_dedup = _parse_bool_opt("quorum_dedup", opts.get("quorum_dedup", "0"))
         tokenizer_path, rng_offset = None, 0
         ckpt = opts.get("ckpt", "")
+        spec_model, spec_ckpt = opts.get("spec_model", ""), opts.get("spec_ckpt", "")
+        _check_spec_options(ckpt, spec_model, spec_ckpt)
+        # A draft implies speculation: g = 4 unless spec_decode= says
+        # otherwise (an explicit 0 beside a draft is the engine's refusal).
+        knobs["spec_decode"] = int(opts.get(
+            "spec_decode", "4" if (spec_model or spec_ckpt) else "0"))
+        if spec_ckpt:
+            knobs["draft_ckpt"] = spec_ckpt
         if ckpt:
             _check_ckpt_options(opts, members, member_seeds, quorum_dedup)
             engine = get_engine_from_ckpt(ckpt, dtype=opts.get("dtype"), **knobs)
@@ -397,8 +449,17 @@ class CudaBackend:
                 tokenizer_path = ckpt
             rng_offset = int(opts.get("seed", 0))
         else:
+            spec = resolve_spec(bspec.model_id, opts)
+            if spec_model:
+                # The draft runs the target's vocabulary and window: drafted
+                # ids must be the target's, the draft cache must reach every
+                # target position, and its attention span is the target's.
+                knobs["draft_spec"] = resolve_spec(spec_model, {
+                    "max_seq": str(spec.max_seq), "vocab_size": str(spec.vocab_size),
+                    "sliding_window": str(spec.sliding_window)})
+                knobs["draft_seed"] = int(opts.get("spec_seed", 0))
             engine = get_engine(
-                resolve_spec(bspec.model_id, opts), seed=int(opts.get("seed", 0)),
+                spec, seed=int(opts.get("seed", 0)),
                 members=members, member_seeds=member_seeds, quorum_dedup=quorum_dedup,
                 **knobs)
         return cls(bspec.name, engine, model=bspec.model, model_id=bspec.model_id,

@@ -55,12 +55,54 @@ same. Tokens do not depend on the ring depth, ``decode_loop``, the segment
 size or prefix reuse.
 
 Sampling noise comes from one ``torch.Generator`` per request, on the
-device, seeded with the request's seed. A dispatch draws its noise ahead,
-one draw per step per sampling row into a static buffer, in step order.
-The j-th token of a request takes the j-th draw on both admission routes
-(a registered row draws nothing until its first decode step), so a
-request's tokens are a pure function of (weights, prompt, sampler, seed),
-whatever it is co-batched with.
+device, seeded with the request's seed, and is indexed by TOKEN: the n-th
+token of a request reads the n-th draw of its generator, whatever program
+samples it (a decode step, a verify turn that samples g+1 positions and
+emits e of them, a fused draft→verify turn). Each row has a device ring of
+draws ``_noise_ring[n mod R, row]``; before a dispatch the host tops every
+sampling row's ring up, in token order, to the draws the dispatch can read
+(``emitted`` + the tokens already in flight + the tokens it can emit), and
+every program picks its slots from the row's device token counter
+``_ntok``, which it advances by the tokens it emits. No generator is ever
+rewound, and R (the most positions one dispatch samples; on a spec engine,
+whose rows' counters the host only bounds, the ring depth times that) keeps
+a slot from being overwritten before every dispatch that may read it has
+run (writes and reads share the engine's stream). A single-shot
+admission takes draw 0 for the first token at admission (counter 1), a
+chunked one draws nothing until its first decode step (counter 0), so a
+request's noise is a function of its seed and token index alone, whatever
+it is co-batched with and however it is speculated. On the CPU its tokens
+are then a pure function of (weights, prompt, sampler, seed). On the card a
+row that rides a verify turn (also at draft length 0, beside a row that
+drafts) takes its logits from ``decode_multi``'s plain attention, not from
+K2 at T=1, so its tokens equal the plain engine's up to a near-tie, as the
+JAX engine states of its own verify path.
+
+Speculative decoding (the JAX engine's ``spec_decode=G``): a verify turn
+scores ``[anchor token, g draft tokens]`` per row in one ``decode_multi``
+forward (plain attention over a history bucket, cap-safe writes), samples
+all g+1 positions from ``adjust_logits`` with the turn-start counts and each
+position's token-indexed noise, accepts the longest draft prefix equal to
+the sampled chain (``cumprod``) and emits it plus the model's own next
+token, truncated at the first EOS and at the budget, with every per-row
+state advanced on the device — so the ring holds verify turns like chunks.
+Drafts come from prompt lookup (the lagged 2-gram index of each request's
+history, continued by an optimistic cursor while turns are in flight) or,
+with a draft model (``draft_spec``), from a fused draft→verify program: per
+turn the draft model ingests the last emitted chain through a
+``decode_multi`` of width g+1, extends g−1 greedy steps through K2, and the
+target verifies — up to ``decode_loop`` turns per dispatch, with no host
+input. A draft token is accepted only when it equals the token the model
+itself samples there, so speculation changes speed, never content (on the
+card, up to the near-tie above). Rows
+with penalties or logprobs ride at draft length 0; constrained rows
+verify through the ``"dfa_verify"`` variant (each position masked by its
+draft-prefix DFA state). On the card every spec dispatch is one graph
+replay (keys ``("verify", g, sort, lp, history)``, ``("dfa_verify", g,
+sort, lp, history, bucket)``, ``("spec_loop", C, g, sort, lp, history[,
+"dfa", bucket])``, ``history`` the power-of-two bucket the verify attention
+reads); an engine whose traffic never drafts dispatches only the plain
+keys.
 
 The OpenAI knobs run inside the decode program (every key, no host round
 trip per step): each row's ``logit_bias`` row, presence/frequency penalty
@@ -147,9 +189,9 @@ from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.init import check_quant, init_params, init_params_stacked
 from quorum_tpu_torch.models.model_config import ModelSpec
 from quorum_tpu_torch.models.quant import is_quantized, quantize_params
-from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, host_to_device,
-                                                 init_cache, member_params, prefill,
-                                                 prefill_segment)
+from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, decode_multi,
+                                                 decode_step, host_to_device, init_cache,
+                                                 member_params, prefill, prefill_segment)
 from quorum_tpu_torch.ops.sampling import (TOP_LOGPROBS, SamplerConfig, adjust_logits,
                                            apply_token_mask, gumbel_noise, sample_token_rows,
                                            token_logprobs)
@@ -182,6 +224,8 @@ CHUNK_EWMA_ALPHA = 0.3
 # is 4.2 GB; past it a NEW grammar's request fails alone.
 CONSTRAIN_ARENA_KEEP = 4096
 CONSTRAIN_ARENA_MAX = 8192
+# Speculative decoding: the largest draft length an engine verifies.
+MAX_SPEC_DECODE = 16
 
 
 class QueueFullError(Exception):
@@ -260,17 +304,30 @@ class _Request:
     record per delivered token, appended before the token is put on
     ``out``. ``deadline`` is absolute ``time.monotonic()`` or None.
     ``grammar`` is a ``CompiledGrammar`` or None; ``g_start`` its start
-    state in the engine's arena, set when the grammar is placed."""
+    state in the engine's arena, set when the grammar is placed, and
+    ``dfa_host`` the host's shadow of its LOCAL state (−1: unknown), which
+    only the grammar-aware draft filter reads. ``n_drawn`` counts the
+    noise draws taken from ``generator`` (draw n is token n's).
+
+    Prompt-lookup state: ``ngram`` maps each 2-gram of ``hist`` to the
+    position of its second token, "lagged" — a pair is recorded only once a
+    token follows it, so the trailing pair is never in the index and every
+    stored position has a continuation; ``spec_state`` is the optimistic
+    draft cursor while turns are in flight (None: none), ``n_inflight`` the
+    dispatches in flight that carry this request."""
 
     __slots__ = ("prompt_ids", "budget", "sampler", "seed", "eos_id", "cancel",
                  "chunk_hint", "out", "emitted", "generator", "member", "hist",
-                 "pp", "fp", "bias_row", "want_lp", "lp", "deadline", "grammar", "g_start")
+                 "pp", "fp", "bias_row", "want_lp", "lp", "deadline", "grammar", "g_start",
+                 "dfa_host", "n_drawn", "ngram", "spec_state", "n_inflight")
 
     def __init__(self, prompt_ids, budget, sampler: SamplerConfig, seed, eos_id, cancel,
                  chunk_hint, member=0, pp=0.0, fp=0.0, bias_row=None, want_lp=-1,
                  deadline=None, grammar=None):
         self.grammar = grammar
         self.g_start = 0
+        self.dfa_host = grammar.start if grammar is not None else 0
+        self.n_drawn = 0
         self.member = member
         self.pp = float(pp)
         self.fp = float(fp)
@@ -289,6 +346,22 @@ class _Request:
         self.emitted = 0
         self.generator: torch.Generator | None = None
         self.hist: list[int] = list(prompt_ids)
+        self.ngram: dict = {(prompt_ids[n - 2], prompt_ids[n - 1]): n - 1
+                            for n in range(2, len(prompt_ids))}
+        self.spec_state = None
+        self.n_inflight = 0
+
+    @property
+    def spec_draft_ok(self) -> bool:
+        """May carry a nonzero draft length in a speculative dispatch (the
+        JAX engine's rule). Sampled, biased and constrained rows qualify:
+        the verify turn samples every position with the row's own noise,
+        its static bias and its draft-prefix grammar state. Rows with
+        presence/frequency penalties (which depend on the counts position by
+        position) or logprobs (one record per token) ride at draft length 0:
+        a −1 sentinel draft never matches, so they emit exactly the model's
+        own next token."""
+        return self.pp == 0.0 and self.fp == 0.0 and self.want_lp < 0
 
 
 class _Admission:
@@ -318,11 +391,17 @@ class _InflightChunk:
     where the copies have happened). ``active`` holds the (row, request)
     pairs dispatched, ``t0`` the dispatch time. A ``constrained`` dispatch's
     ``host`` has one more column per row: its masked vocabulary entries
-    over the chunk."""
+    over the chunk. A ``spec_turn`` dispatch is ``n_chunks`` verify turns
+    of ``n_steps`` = g+1 sampled positions each, a row's valid count its
+    emitted tokens; ``drafted`` is the real draft tokens per turn."""
 
-    __slots__ = ("active", "n_steps", "n_chunks", "host", "lp", "event", "t0", "constrained")
+    __slots__ = ("active", "n_steps", "n_chunks", "host", "lp", "event", "t0", "constrained",
+                 "spec_turn", "drafted")
 
-    def __init__(self, active, n_steps, n_chunks, host, event, lp=None, constrained=False):
+    def __init__(self, active, n_steps, n_chunks, host, event, lp=None, constrained=False,
+                 spec_turn=False, drafted=0):
+        self.spec_turn = spec_turn
+        self.drafted = drafted
         self.constrained = constrained
         self.active = active
         self.n_steps = n_steps
@@ -344,6 +423,173 @@ class _InflightChunk:
     def wait(self) -> None:
         if self.event is not None:
             self.event.synchronize()
+
+
+def _bite(n_left: int, pos: int, max_seq: int, bite: int) -> int:
+    """Tokens one draft ``decode_multi`` call takes: at most ``bite``,
+    rounded up to a power of two (few shapes), never letting the pad-write
+    span ``[pos, pos + T)`` run past ``max_seq`` (``len(hist) <= max_seq``
+    keeps it ≥ 1)."""
+    t = min(bite, n_left, max_seq - pos)
+    t = 1 << (t - 1).bit_length()
+    return t >> 1 if t > max_seq - pos else t
+
+
+class _DraftRuntime:
+    """Draft-model state for speculative decoding (``draft_spec``): the JAX
+    engine's ``_DraftRuntime``. A small model proposes each verify turn's
+    g-token draft instead of prompt lookup. Correctness never depends on
+    the draft: a token is accepted only when it equals the one the target
+    itself samples there, so stale, random or mid-resync draft state costs
+    acceptance only. Everything runs on the engine's scheduler thread.
+
+    State: the draft model's own dense cache (one row per engine row), per
+    row the request it tracks (``reqs``) and the tokens fed (``synced``),
+    and the fused loop's chain carry: the last verify turn's emitted tokens
+    per row (``chain [rows, g+1]``, ``chain_n [rows]``), which the next
+    turn re-ingests through a ``decode_multi`` of the verify's own width.
+    The serving path is the fused program (``InferenceEngine._spec_loop_program``);
+    the host work here is :meth:`resync`, which brings a newly assigned
+    row's cache to the request's history in ``decode_multi`` bites of at
+    most ``BITE`` tokens before its first fused dispatch.
+    :meth:`draft_all` (advance in bites, then g−1 greedy ``decode_step``
+    extensions) is the host-paced reference the unit tests drive. Drafted
+    and pad positions sit past ``synced`` and the next ingest overwrites
+    them: nothing is ever rolled back."""
+
+    BITE = 16  # the most tokens one advance call feeds (T: powers of two up to it)
+
+    def __init__(self, spec: ModelSpec, target_spec: ModelSpec, rows: int, device,
+                 seed: int = 0, params=None):
+        if spec.vocab_size != target_spec.vocab_size:
+            raise ValueError(
+                f"draft model vocab {spec.vocab_size} != target vocab "
+                f"{target_spec.vocab_size}: drafted ids would be meaningless "
+                "(and can index out of the target embedding)")
+        if spec.max_seq < target_spec.max_seq:
+            raise ValueError(
+                f"draft model max_seq {spec.max_seq} < target max_seq "
+                f"{target_spec.max_seq}: the draft cache must hold every "
+                "position the target can reach")
+        self.spec = spec.validate()
+        self.device = device
+        self.params = params if params is not None else init_params(spec, seed, device)
+        self.rows = rows
+        self.ck, self.cv = init_cache(spec, rows, device=device)
+        self.synced = [0] * rows
+        self.reqs: list = [None] * rows
+        self.chain: torch.Tensor | None = None
+        self.chain_n: torch.Tensor | None = None
+        self.chain_w = 0
+
+    def _advance(self, tokens: list[list[int]], lengths: list[int], wmask: list[bool],
+                 history: int) -> torch.Tensor:
+        """One draft ``decode_multi`` over every row (writes only where
+        ``wmask``); the greedy next token after each fed position."""
+        dev = self.device
+        logits, _, _ = decode_multi(
+            self.params, self.spec, host_to_device(tokens, torch.long, dev),
+            host_to_device(lengths, torch.int32, dev), self.ck, self.cv,
+            write_mask=host_to_device(wmask, torch.bool, dev), history=history)
+        return logits.argmax(dim=-1)
+
+    def _history(self, n: int, g: int) -> int:
+        return prefill_bucket(min(n + g + 1, self.spec.max_seq), self.spec.max_seq)
+
+    def draft_all(self, active, g: int) -> dict:
+        """g-token draft per active row: feed the unsynced history, then
+        extend greedily. Returns ``{row: [t0 .. t_{g-1}]}``."""
+        for i, r in active:
+            if self.reqs[i] is not r:  # row reassigned: full resync
+                self.reqs[i] = r
+                self.synced[i] = 0
+        max_seq = self.spec.max_seq
+        history = self._history(max(len(r.hist) for _, r in active), g)
+        # Feed hist[pos:] (at least one token: hist[-1] again when synced —
+        # the same write, done only for its next-token logits).
+        rem = {i: max(1, len(r.hist) - self.synced[i]) for i, r in active}
+        pos = {i: len(r.hist) - rem[i] for i, r in active}
+        first: dict[int, int] = {}
+        while any(v > 0 for v in rem.values()):
+            left = [i for i, _ in active if rem[i] > 0]
+            t = _bite(max(rem[i] for i in left), max(pos[i] for i in left), max_seq, self.BITE)
+            tokens = [[0] * t for _ in range(self.rows)]
+            lengths, wmask = [0] * self.rows, [False] * self.rows
+            for i, r in active:
+                if rem[i] <= 0:
+                    continue
+                k = min(rem[i], t)
+                seg = r.hist[pos[i]:pos[i] + k]
+                tokens[i] = seg + [seg[-1]] * (t - k)
+                lengths[i], wmask[i] = pos[i], True
+            nxt = self._advance(tokens, lengths, wmask, history).tolist()
+            for i, r in active:
+                if rem[i] <= 0:
+                    continue
+                k = min(rem[i], t)
+                pos[i] += k
+                rem[i] -= k
+                if rem[i] == 0:
+                    first[i] = nxt[i][k - 1]
+                    self.synced[i] = len(r.hist)
+        drafts = {i: [first[i]] for i, _ in active}
+        if g > 1:
+            dev = self.device
+            token = [0] * self.rows
+            lengths, wmask = [0] * self.rows, [False] * self.rows
+            for i, r in active:
+                token[i], lengths[i], wmask[i] = first[i], len(r.hist), True
+            tok = host_to_device(token, torch.long, dev)
+            lens = host_to_device(lengths, torch.int32, dev)
+            live = host_to_device(wmask, torch.bool, dev)
+            steps = []
+            for _ in range(g - 1):
+                logits, _, _ = decode_step(self.params, self.spec, tok,
+                                           lens.clamp(max=max_seq - 1), self.ck, self.cv,
+                                           write_mask=live)
+                tok = logits.argmax(dim=-1)
+                lens = lens + 1
+                steps.append(tok)
+            rest = torch.stack(steps, dim=1).tolist()
+            for i, _ in active:
+                drafts[i].extend(rest[i])
+        return drafts
+
+    def ensure_chain(self, g: int) -> None:
+        """Allocate the fused loop's chain carry at width g+1; a new width
+        forgets every row's assignment, so :meth:`resync` rebuilds a coherent
+        chain (draft quality only)."""
+        if self.chain_w == g + 1:
+            return
+        self.chain = torch.zeros((self.rows, g + 1), dtype=torch.long, device=self.device)
+        self.chain_n = torch.ones((self.rows,), dtype=torch.long, device=self.device)
+        self.chain_w = g + 1
+        self.reqs = [None] * self.rows
+
+    def resync(self, i: int, r, g: int) -> None:
+        """Bring draft row ``i`` to the fused loop's invariant for a newly
+        assigned request: the cache holds ``hist[:-1]`` and the chain holds
+        the one token the target anchors on (``hist[-1]``, which the fused
+        ingest writes at the target's ``lengths``). Its calls run on the
+        engine's stream behind any fused dispatch still writing the row:
+        the later write wins, and pad writes land past the true length."""
+        self.reqs[i] = r
+        n = len(r.hist) - 1
+        self.synced[i] = n
+        self.chain[i, 0] = r.hist[-1]
+        self.chain_n[i] = 1
+        history = self._history(len(r.hist), g)
+        pos = 0
+        while pos < n:
+            t = _bite(n - pos, pos, self.spec.max_seq, self.BITE)
+            k = min(n - pos, t)
+            seg = r.hist[pos:pos + k]
+            tokens = [[0] * t for _ in range(self.rows)]
+            tokens[i] = seg + [seg[-1]] * (t - k)
+            lengths, wmask = [0] * self.rows, [False] * self.rows
+            lengths[i], wmask[i] = pos, True
+            self._advance(tokens, lengths, wmask, history)
+            pos += k
 
 
 class InferenceEngine:
@@ -369,6 +615,10 @@ class InferenceEngine:
         ensemble: int = 1,
         quant: str | None = None,
         kv_quant: str | None = None,
+        spec_decode: int = 0,
+        draft_spec: ModelSpec | None = None,
+        draft_seed: int = 0,
+        draft_params=None,
     ):
         self.spec = spec.validate()
         self.device = resolve_device(device)
@@ -415,15 +665,45 @@ class InferenceEngine:
         # slot s (S rows when members == 1). The cache holds one row per
         # slot per weight set.
         self._rows = self.members * self.n_slots
+        # Speculative decoding: draft length g (0 = off), and the draft
+        # model's runtime when one proposes the drafts (the JAX engine's
+        # guards, word for word).
+        self.spec_decode = max(0, min(int(spec_decode), MAX_SPEC_DECODE))
+        self._draft_rt = None
+        if draft_spec is not None:
+            if self.members > 1 or self.ensemble > 1:
+                raise ValueError(
+                    "draft-model decoding (spec_model=/spec_ckpt=) does "
+                    "not compose with members/ensemble engines")
+            if self.spec_decode <= 0:
+                raise ValueError(
+                    "a draft model requires spec_decode > 0 (the backend "
+                    "defaults spec_decode=4 when spec_model=/spec_ckpt= is "
+                    "set and spec_decode= is absent; an explicit 0 means "
+                    "off — drop the draft knob instead)")
+            self._draft_rt = _DraftRuntime(draft_spec, self.spec, self._rows, self.device,
+                                           seed=draft_seed, params=draft_params)
         self._ck, self._cv = init_cache(spec, stack * self.n_slots, device=self.device,
                                         kv_quant=self.kv_quant)
         # Per-row decode state, device-resident between chunks, and the
-        # static inputs of a decode dispatch (its active rows, its noise
-        # drawn ahead). Updated in place only: graphs read these addresses.
+        # static inputs of a decode dispatch (its active rows, the drafts of
+        # a verify turn, which rows may draft in a fused turn). Updated in
+        # place only: graphs read these addresses.
         s, dev = self._rows, self.device
         self._mask = torch.zeros((s,), dtype=torch.bool, device=dev)
-        self._step_noise = torch.zeros((self.decode_chunk * self.decode_loop, s, spec.vocab_size),
+        self._draft_buf = torch.full((s, max(1, self.spec_decode)), -1, dtype=torch.long,
+                                     device=dev)
+        self._spec_ok = torch.zeros((s,), dtype=torch.bool, device=dev)
+        # Token-indexed sampling noise: row i's draw n at slot n mod R, and
+        # each row's next token index. R covers a dispatch's reach
+        # (``_draw_noise``): one dispatch's positions on a plain engine, the
+        # ring depth's on a spec engine.
+        per_dispatch = max(self.decode_chunk * self.decode_loop,
+                           (self.spec_decode + 1) * (self.decode_loop if draft_spec else 1))
+        depth = self.decode_pipeline if self.spec_decode else 1
+        self._noise_ring = torch.zeros((depth * per_dispatch, s, spec.vocab_size),
                                        dtype=torch.float32, device=dev)
+        self._ntok = torch.zeros((s,), dtype=torch.long, device=dev)
         self._token = torch.zeros((s,), dtype=torch.long, device=dev)
         self._lengths = torch.zeros((s,), dtype=torch.int32, device=dev)
         self._live = torch.zeros((s,), dtype=torch.bool, device=dev)
@@ -488,6 +768,19 @@ class InferenceEngine:
         self.n_overrun = 0
         self.n_deadline_exceeded = 0
         self.n_deadline_clamps = 0  # dispatches the deadline clamp shortened
+        # Speculation, as the JAX engine counts it: executed verify turns,
+        # draft tokens proposed and accepted, spec dispatches issued ahead.
+        self.n_spec_turns = 0
+        self.n_spec_accepted = 0
+        self.n_spec_drafted = 0
+        self.n_spec_overlapped = 0
+        # Draft-model decode steps run (each launches K2 once per draft
+        # layer): the extension steps captured in each fused graph times its
+        # replays, plus the eager warm-up turns before a first capture.
+        self.n_draft_steps = 0
+        # Program keys dispatched (graph keys on the card; recorded on every
+        # device): which program families an engine's traffic reached.
+        self.dispatched_keys: set = set()
         self._deadline_clamped = False
         # Per-chunk dispatch-to-reap latency (s), EWMA; 0 until the first reap.
         self._chunk_ewma_s = 0.0
@@ -637,7 +930,11 @@ class InferenceEngine:
         """Scheduler/capacity counters (the JAX engine's names; the
         ``decode_graph_*`` ones are the port's: captures, their seconds,
         replays, the graphs' pool bytes and the eager warm-up steps, all 0
-        on the CPU)."""
+        on the CPU; ``spec_draft_steps_total`` counts the draft model's
+        decode steps, K2's launches per draft layer on the card).
+        ``decode_chunks_total`` counts every dispatch,
+        verify turns included; ``decode_steps_total`` only the plain
+        chunks' steps."""
         g = self._graphs
         with self._cond:
             return {
@@ -668,6 +965,11 @@ class InferenceEngine:
                 "constrained_requests_total": self.n_constrained,
                 "constrain_masked_tokens_total": self.n_constrain_masked,
                 "deadline_exceeded_total": self.n_deadline_exceeded,
+                "spec_turns_total": self.n_spec_turns,
+                "spec_accepted_total": self.n_spec_accepted,
+                "spec_draft_tokens_total": self.n_spec_drafted,
+                "spec_overlapped_total": self.n_spec_overlapped,
+                "spec_draft_steps_total": self.n_draft_steps,
                 "deadline_clamps_total": self.n_deadline_clamps,
                 "decode_pipeline": self.decode_pipeline,
                 "decode_loop": self.decode_loop,
@@ -712,6 +1014,7 @@ class InferenceEngine:
             self._graphs.clear()
         self.params = None
         self._ck = self._cv = None
+        self._draft_rt = None
         self._g_trans = self._g_accept = None
         self._host_pool.clear()
 
@@ -929,6 +1232,8 @@ class InferenceEngine:
             if not r.sampler.greedy:
                 r.generator = torch.Generator(device=dev).manual_seed(r.seed)
                 gumbel_noise(vocab, r.generator, out=self._noise[row])
+                r.n_drawn = 1
+        self._ntok[idx] = 1  # the next token is token 1
         self._temp[idx] = col([r.sampler.temperature for r in reqs], torch.float32)
         self._topp[idx] = col([r.sampler.top_p for r in reqs], torch.float32)
         self._topk[idx] = col([r.sampler.top_k for r in reqs], torch.int32)
@@ -1052,6 +1357,7 @@ class InferenceEngine:
         self._budget[i] = req.budget
         self._eos[i] = req.eos_id if req.eos_id is not None else -1
         self._dfa[i] = req.g_start if req.grammar is not None else 0
+        self._ntok[i] = 0
         self._set_knobs(req, i)
         self._counts[i].zero_()
         self.n_admissions += 1
@@ -1334,12 +1640,22 @@ class InferenceEngine:
             ahead = sum(c.tokens_ahead for c in self._inflight)
             if depth > 0 and not any(r.budget - r.emitted > ahead for _, r in active):
                 return  # no row could still be decoding in a dispatch issued now
+            g = self.spec_decode
+            if g > 0 and any(r.spec_draft_ok for _, r in active):
+                disp = self._try_spec_dispatch(active, g, ahead, depth)
+                if disp == "dispatched":
+                    continue
+                if disp == "stop":
+                    return
+                # "chunk": no draft anywhere, none in flight — a plain chunk.
             if (depth > 0 and self._graphs is not None
                     and self._dispatch_key(active) not in self._graphs):
                 # Only dispatch ahead onto a captured graph: a capture would
                 # hold back the delivery of the chunks already computed.
                 return
             self._inflight.append(self._dispatch_chunk(active))
+            for _, r in active:
+                r.n_inflight += 1
             if depth > 0:
                 self.n_overlapped += 1
 
@@ -1360,14 +1676,18 @@ class InferenceEngine:
             base = (n_steps, c, restrict, want_lp)
             return ("dfa", *base, self._g_bucket) if constrained else base
 
+        return key(self._loop_count(active, n_steps, ahead, key))
+
+    def _loop_count(self, active, n_steps: int, ahead: int, key) -> int:
+        """``_effective_loop``'s chunk (or fused turn) count; when the
+        deadline clamped it, the largest count below that is already
+        captured (a first capture costs seconds at full depth, more than the
+        clamp saves), if there is one."""
         c = self._effective_loop(active, n_steps, ahead)
         if self._deadline_clamped and self._graphs is not None:
-            # A first capture costs seconds at full depth, more than the
-            # deadline clamp saves: take the largest chunk count below the
-            # clamped one that is already captured, if there is one.
             c = next((k for k in (c >> i for i in range(c.bit_length()))
                       if key(k) in self._graphs), c)
-        return key(c)
+        return c
 
     def _effective_loop(self, active, n_steps: int, ahead: int) -> int:
         """Chunks THIS dispatch may cover (1..``decode_loop``), clamped so
@@ -1415,16 +1735,63 @@ class InferenceEngine:
                 self._deadline_clamped = True
         return c
 
-    def _step_noise_for(self, n_draws: int) -> torch.Tensor:
-        """The static noise buffer, grown (and every graph that read the old
-        one dropped) when a dispatch needs more steps than it holds."""
-        if self._step_noise.shape[0] < n_draws:
-            if self._graphs is not None:
-                self._stream.synchronize()  # no dispatch in flight reads the old buffer
-                self._graphs.clear()
-            self._step_noise = torch.zeros((n_draws, *self._step_noise.shape[1:]),
-                                           dtype=torch.float32, device=self.device)
-        return self._step_noise
+    def _draw_noise(self, active, n_pos: int) -> None:
+        """Top up the noise ring of every sampling row in ``active`` for a
+        dispatch that samples up to ``n_pos`` positions. A row's device
+        token counter is then at most ``emitted + ahead``, ``ahead`` being
+        the tokens of the dispatches in flight that carry the row, so the
+        dispatch reads draws below ``emitted + ahead + n_pos``, drawn here
+        in token order. A slot is overwritten only by draw ``n + R``: every
+        dispatch issued before the write reads its draws first (stream
+        order), and R ≥ ``slack + n_pos`` keeps this dispatch's own, where
+        ``slack`` is how far below that bound the counter may be. A plain
+        engine's live rows advance by exactly the steps in flight (slack 0,
+        R = one dispatch's positions); a spec engine's verify turns emit
+        an unknown count (slack ``ahead``, R = the ring depth × one
+        dispatch's positions). Greedy rows draw nothing."""
+        ahead: dict[int, int] = {}
+        for c in self._inflight:
+            for _, r in c.active:
+                ahead[id(r)] = ahead.get(id(r), 0) + c.tokens_ahead
+        rows = [(i, r, r.emitted + ahead.get(id(r), 0) + n_pos)
+                for i, r in active if not r.sampler.greedy]
+        slack = max((ahead.get(id(r), 0) for _, r, _ in rows), default=0)
+        ring = self._ring_for(n_pos + (slack if self.spec_decode else 0))
+        depth, vocab = ring.shape[0], self.spec.vocab_size
+        for i, r, reach in rows:
+            for n in range(r.n_drawn, reach):
+                gumbel_noise(vocab, r.generator, out=ring[n % depth, i])
+            r.n_drawn = max(r.n_drawn, reach)
+
+    def _ring_for(self, need: int) -> torch.Tensor:
+        """The noise ring, deepened to ``need`` slots when a dispatch reaches
+        further (a request's chunk hint above ``decode_chunk``): after a
+        stream sync every graph that read the old ring is dropped and each
+        sampling row's draws not yet read move to their slots in the new
+        one."""
+        old = self._noise_ring
+        if old.shape[0] >= need:
+            return old
+        if self._graphs is not None:
+            self._stream.synchronize()  # no dispatch in flight reads the old ring
+            self._graphs.clear()
+        new = torch.zeros((need, *old.shape[1:]), dtype=old.dtype, device=self.device)
+        ntok = self._ntok.tolist()
+        with self._cond:
+            rows = [(i, r) for i, r in enumerate(self._slots) if r is not None]
+        for i, r in rows:
+            for n in range(ntok[i], r.n_drawn):
+                new[n % need, i].copy_(old[n % old.shape[0], i])
+        self._noise_ring = new
+        return new
+
+    def _noise_at(self, ntok: torch.Tensor) -> torch.Tensor:
+        """``[rows, *ntok.shape[1:], V]`` draws at token indices ``ntok``
+        (``[rows]`` or ``[rows, n]``), read from the ring on the device."""
+        ring = self._noise_ring
+        rows = torch.arange(ntok.shape[0], device=ntok.device)
+        rows = rows.view(-1, *([1] * (ntok.dim() - 1)))
+        return ring[torch.remainder(ntok, ring.shape[0]), rows]
 
     # ---- constrained decoding: the grammar arena ---------------------------
 
@@ -1494,7 +1861,7 @@ class InferenceEngine:
         they were captured with, which are about to go."""
         if self._graphs is not None:
             self._stream.synchronize()
-            self._graphs.drop(lambda key: key[0] == "dfa")
+            self._graphs.drop(_constrained_key)
 
     def _maybe_reset_arena(self) -> None:
         """Drop the arena once it has grown past CONSTRAIN_ARENA_KEEP states
@@ -1523,7 +1890,7 @@ class InferenceEngine:
         for one chunk, ``decode_loop`` for more. Every step samples from
         ``adjust_logits`` (each row's bias, penalties and counts) and adds
         the sampled token to the row's counts. Reads the noise drawn ahead
-        (draw k of the dispatch at ``_step_noise[k]``), updates the per-row
+        (each row's token-indexed draws in ``_noise_ring``), updates the per-row
         state in place and returns ``[n_chunks, rows, n_steps + 1]`` int64
         (each chunk's tokens, then each row's valid count) and, when
         ``want_lp``, ``[n_chunks, n_steps, rows, 1 + 2·TOP_LOGPROBS]`` f32
@@ -1537,41 +1904,38 @@ class InferenceEngine:
         accepts, masks before sampling, advances the state of each live
         row whose token is not EOS, and counts the masked entries of live
         constrained rows (state > 0): a last column of the token output,
-        per row summed over the chunk's steps."""
-        noise = self._step_noise
+        per row summed over the chunk's steps. Each row's noise is its next
+        token's draw (``_ntok``, advanced per live step)."""
         n_top = min(TOP_LOGPROBS, self.spec.vocab_size)
-        trans, accept, eos = self._g_trans, self._g_accept, self._eos
-        if constrained:
-            eos_col = (torch.arange(self.spec.vocab_size, device=self.device)[None, :]
-                       == eos[:, None])
+        trans, eos = self._g_trans, self._eos
 
         def sample_fn(logits, live, carry):
-            k, counts = carry[:2]
+            ntok, counts = carry[:2]
             adj = adjust_logits(logits, self._bias, counts, self._pp, self._fp)
             if constrained:
                 dfa = carry[2]
-                rowt = trans.index_select(0, dfa)  # [rows, V]
-                eos_ok = accept.index_select(0, dfa) & (eos >= 0)
-                allow = torch.where(eos_col, eos_ok[:, None], rowt >= 0)
+                allow = self._allow(dfa)  # [rows, V]
                 adj = apply_token_mask(adj, allow)
-            nxt = sample_token_rows(adj, self._temp, self._topp, self._topk, noise[k],
-                                    restrict=restrict)
+            nxt = sample_token_rows(adj, self._temp, self._topp, self._topk,
+                                    self._noise_at(ntok), restrict=restrict)
             counts = counts.scatter_add(1, nxt[:, None], live[:, None].to(counts.dtype))
+            ntok = ntok + live.to(ntok.dtype)
             aux = ()
             if want_lp:
                 s_lp, top_ix, top_lp = token_logprobs(adj, nxt, n_top)
                 aux = (torch.cat([s_lp[:, None], top_lp, top_ix.float()], dim=-1),)
             if not constrained:
-                return nxt, (k + 1, counts), aux
+                return nxt, (ntok, counts), aux
             masked = (~allow & (live & (dfa > 0))[:, None]).sum(dim=1)
-            nxt_state = rowt.gather(1, nxt[:, None])[:, 0]
+            nxt_state = trans[dfa.long(), nxt]
             dfa = torch.where(live & (nxt != eos) & (nxt_state >= 0), nxt_state, dfa)
-            return nxt, (k + 1, counts, dfa), aux + (masked,)
+            return nxt, (ntok, counts, dfa), aux + (masked,)
 
         # Inactive slots run the forward (the batch is static) but their K/V
         # write is masked off; rows that finished on device stay dead.
         live0 = self._mask & self._live & (self._budget > 0)
-        carry0 = (0, self._counts, self._dfa) if constrained else (0, self._counts)
+        carry0 = ((self._ntok, self._counts, self._dfa) if constrained
+                  else (self._ntok, self._counts))
         args = (self._token, self._lengths, live0, self._budget, self._eos, self._ck, self._cv,
                 sample_fn, carry0)
         if n_chunks == 1:
@@ -1586,6 +1950,7 @@ class InferenceEngine:
         self._live.copy_(torch.where(self._mask, live, self._live))
         self._token.copy_(torch.where(self._mask, token, self._token))
         self._counts.copy_(torch.where(self._mask[:, None], carry[1], self._counts))
+        self._ntok.copy_(torch.where(self._mask, carry[0], self._ntok))
         self._budget.copy_(budget)
         self._lengths.copy_(lengths)
         cols = [toks, n_valid[..., None].to(toks.dtype)]
@@ -1616,21 +1981,31 @@ class InferenceEngine:
         program = (*key[1:5], True) if constrained else key
         n_steps, n_chunks = program[:2]
         self.n_deadline_clamps += self._deadline_clamped
+        self._set_mask(active)
+        self._draw_noise(active, n_steps * n_chunks)
+        self.n_decode_steps += n_steps * n_chunks
+        return self._issue(key, lambda: self._decode_program(*program), active, n_steps,
+                           n_chunks, constrained)
+
+    def _set_mask(self, active) -> None:
         flags = [False] * self._rows
         for i, _ in active:
             flags[i] = True
         host_to_device(flags, torch.bool, self.device, out=self._mask)
-        noise = self._step_noise_for(n_steps * n_chunks)
-        vocab = self.spec.vocab_size
-        sampling = [(i, r) for i, r in active if not r.sampler.greedy]
-        for k in range(n_steps * n_chunks):
-            for i, r in sampling:  # one draw per step from each sampling row's stream
-                gumbel_noise(vocab, r.generator, out=noise[k, i])
+
+    def _issue(self, key: tuple, program, active, n_steps: int, n_chunks: int,
+               constrained: bool, spec_turn: bool = False, drafted: int = 0,
+               warm_up=None) -> _InflightChunk:
+        """Run one dispatch's program (one graph replay on the card, eagerly
+        on the CPU) and enqueue the copy of its outputs to the host. A spec
+        dispatch brings the ``warm_up`` of its key family (``key[0]``)."""
+        self.dispatched_keys.add(key)
         if self._graphs is None:
-            out, lp = self._decode_program(*program)
+            out, lp = program()
+        elif spec_turn:
+            out, lp = self._graphs.replay(key, program, warm_up, family=key[0])
         else:
-            out, lp = self._graphs.replay(key, lambda: self._decode_program(*program),
-                                          self._warm_up)
+            out, lp = self._graphs.replay(key, program, self._warm_up)
         host, lp_host, event = out, lp, None
         if self.device.type == "cuda":
             # Enqueued right after the replay: the next dispatch's replay
@@ -1640,10 +2015,449 @@ class InferenceEngine:
             event = torch.cuda.Event()
             event.record()
         self.n_decode_chunks += 1
-        self.n_decode_steps += n_steps * n_chunks
         self.n_decode_rows += len(active)
         return _InflightChunk(active, n_steps, n_chunks, host, event, lp=lp_host,
-                              constrained=constrained)
+                              constrained=constrained, spec_turn=spec_turn, drafted=drafted)
+
+    # ---- speculative decoding ----------------------------------------------
+
+    def _spec_key(self, active, g: int, n_turns: int, ahead: int) -> tuple:
+        """The graph key of a spec dispatch over ``active``: a verify turn
+        ``("verify", g, sort, lp, history)`` (constrained: ``("dfa_verify",
+        g, sort, lp, history, arena bucket)``) or ``n_turns`` fused
+        draft→verify turns ``("spec_loop", C, g, sort, lp, history[, "dfa",
+        arena bucket])``. ``history`` is the power-of-two bucket of the
+        longest position any row can reach in the dispatch (the JAX
+        engine's rule): the verify's plain attention reads ``[0, history)``
+        of each row, not the whole window."""
+        restrict = any(r.sampler.restricts and not r.sampler.greedy for _, r in active)
+        want_lp = any(r.want_lp >= 0 for _, r in active)
+        constrained = any(r.grammar is not None for _, r in active)
+        max_seq = self.spec.max_seq
+        planned = max(len(r.prompt_ids) + r.emitted for _, r in active) + ahead
+        history = prefill_bucket(min(planned + (g + 1) * n_turns, max_seq), max_seq)
+        if self._draft_rt is None:
+            if constrained:
+                return ("dfa_verify", g, restrict, want_lp, history, self._g_bucket)
+            return ("verify", g, restrict, want_lp, history)
+        key = ("spec_loop", n_turns, g, restrict, want_lp, history)
+        return (*key, "dfa", self._g_bucket) if constrained else key
+
+    def _try_spec_dispatch(self, active, g: int, ahead: int, depth: int) -> str:
+        """Try to make the next ring entry a speculative dispatch (the JAX
+        engine's rules). Returns ``"dispatched"`` (an entry was appended),
+        ``"chunk"`` (no draft anywhere and no verify turn in flight: a plain
+        chunk should go instead) or ``"stop"`` (leave the ring as it is: a
+        verify turn is in flight or a row looks repetitive but is only stale,
+        so a chunk now would run rows past the host's view and spoil every
+        later draft; or the key is not captured yet and a capture would
+        hold back the dispatches in flight; or a fused engine must resync a
+        reassigned row, which waits for the ring to drain)."""
+        rt = self._draft_rt
+        n_turns = 1
+        self._deadline_clamped = False  # a verify turn is one turn: nothing to clamp
+        if rt is not None:
+            n_turns = self._loop_count(active, g + 1, ahead,
+                                       lambda c: self._spec_key(active, g, c, ahead))
+        key = self._spec_key(active, g, n_turns, ahead)
+        if depth > 0 and self._graphs is not None and key not in self._graphs:
+            return "stop"
+        if rt is not None and depth > 0 and any(rt.reqs[i] is not r for i, r in active):
+            return "stop"
+        drafts: dict[int, list[int]] = {}
+        if rt is None:
+            for i, r in active:
+                if r.spec_draft_ok:
+                    d = self._form_draft(r, g)
+                    if d is not None:
+                        drafts[i] = d
+            if not drafts:
+                # A draftless verify turn emits one token per dispatch and
+                # forfeits the chunk's amortization for nothing.
+                if any(c.spec_turn for c in self._inflight):
+                    return "stop"
+                if any(r.spec_draft_ok and r.n_inflight > 0
+                       and (r.spec_state is not None
+                            or (len(r.hist) >= 4
+                                and (r.hist[-2], r.hist[-1]) in r.ngram))
+                       for _, r in active):
+                    # A repetitive row only stale (dispatches in flight hide
+                    # its true tail): hold the ring; it drains within K reaps
+                    # and a fresh draft re-engages speculation. Rows with no
+                    # n-gram signal never hold it.
+                    return "stop"
+                return "chunk"
+        self.n_deadline_clamps += self._deadline_clamped
+        self._inflight.append(self._dispatch_spec(key, active, g, n_turns, drafts))
+        for _, r in active:
+            r.n_inflight += 1
+        if depth > 0:
+            self.n_overlapped += 1
+            self.n_spec_overlapped += 1
+        return "dispatched"
+
+    def _dispatch_spec(self, key: tuple, active, g: int, n_turns: int,
+                       drafts: dict) -> _InflightChunk:
+        """Issue one speculative dispatch: a verify turn over host-formed
+        drafts (``_draft_buf``, −1 = no draft), or ``n_turns`` fused
+        draft→verify turns whose drafts the device makes (``_spec_ok``
+        marks the rows that may draft). Before a key family's first capture
+        its program runs once eagerly with no row active, making the lazy
+        state a capture must not allocate."""
+        constrained = _constrained_key(key)
+        restrict, want_lp, history = key[3:6] if key[0] == "spec_loop" else key[2:5]
+        rt = self._draft_rt
+        self._set_mask(active)
+        if rt is None:
+            rows = [[-1] * g for _ in range(self._rows)]
+            drafted = 0
+            for i, d in drafts.items():
+                rows[i] = list(d)
+                drafted += sum(1 for t in d if t >= 0)
+            host_to_device(rows, torch.long, self.device, out=self._draft_buf[:, :g])
+
+            def program():
+                return self._verify_program(g, restrict, want_lp, constrained, history)
+        else:
+            rt.ensure_chain(g)
+            for i, r in active:
+                if rt.reqs[i] is not r:
+                    rt.resync(i, r, g)
+            ok = [False] * self._rows
+            for i, r in active:
+                ok[i] = r.spec_draft_ok
+            host_to_device(ok, torch.bool, self.device, out=self._spec_ok)
+            drafted = g * sum(ok)
+
+            def program():
+                return self._spec_loop_program(n_turns, g, restrict, want_lp, constrained,
+                                               history)
+        self._draw_noise(active, (g + 1) * n_turns)
+        if rt is not None:
+            self.n_draft_steps += (g - 1) * n_turns
+        return self._issue(key, program, active, g + 1, n_turns, constrained,
+                           spec_turn=True, drafted=drafted,
+                           warm_up=lambda: self._warm_spec(g, restrict, want_lp, constrained,
+                                                           history))
+
+    def _warm_spec(self, g: int, restrict: bool, want_lp: bool, constrained: bool,
+                   history: int) -> None:
+        """One eager spec turn with no row active (every write masked, no
+        state changed) on the capture stream: K2's scratch at the draft's
+        shapes, its RoPE tables, the batched products' workspaces. A fused
+        turn launches K2 once per draft layer and extension step
+        (``spec_draft_steps_total``)."""
+        mask = self._mask.clone()
+        self._mask.zero_()
+        if self._draft_rt is None:
+            self._verify_program(g, restrict, want_lp, constrained, history)
+        else:
+            self._spec_loop_program(1, g, restrict, want_lp, constrained, history)
+            self.n_draft_steps += g - 1
+        self._mask.copy_(mask)
+
+    def _state(self) -> dict:
+        return {"token": self._token, "lengths": self._lengths, "live": self._live,
+                "budget": self._budget, "ntok": self._ntok, "counts": self._counts,
+                "dfa": self._dfa}
+
+    def _set_state(self, st: dict) -> None:
+        for name, t in st.items():
+            getattr(self, "_" + name).copy_(t)
+
+    def _allow(self, states: torch.Tensor) -> torch.Tensor:
+        """The grammar allow-set of arena states ``[rows, ...]`` →
+        ``[rows, ..., V]``: next state ≥ 0, EOS exactly where the state
+        accepts (and the row has an EOS)."""
+        eos = self._eos.view(-1, *([1] * states.dim()))
+        vocab = torch.arange(self.spec.vocab_size, device=states.device)
+        eos_ok = (self._g_accept[states.long()] & (self._eos >= 0).view(
+            -1, *([1] * (states.dim() - 1))))[..., None]
+        return torch.where(vocab == eos, eos_ok, self._g_trans[states.long()] >= 0)
+
+    def _verify_turn(self, st: dict, draft: torch.Tensor, g: int, restrict: bool,
+                     want_lp: bool, constrained: bool, history: int):
+        """One verify turn over the rows in ``_mask`` (the JAX engine's
+        ``_verify_core``): a ``decode_multi`` over ``[anchor, g drafts]``
+        (−1 sentinels gather token 0 and are never accepted), every
+        position's logits adjusted with the turn-start counts (exact: rows
+        that may emit more than one token have no penalty, and a static
+        bias), all g+1 positions sampled at once, each with the row's draw
+        for that token index, then chain acceptance ``cumprod(draft ==
+        sampled[:, :-1])``, emission cut at the first EOS and at the budget.
+        ``constrained`` walks the arena over the draft up front and masks
+        position j by its draft-prefix state's allow-set; the carried state
+        advances over the emitted chain. Returns the new state and
+        ``(sampled [rows, g+1], e [rows], lp [g+1, rows, 41] | None,
+        masked [rows] | None)``."""
+        n, vocab = g + 1, self.spec.vocab_size
+        token, lengths, budget, counts, ntok, dfa = (
+            st[k] for k in ("token", "lengths", "budget", "counts", "ntok", "dfa"))
+        eos = self._eos
+        live = self._mask & st["live"] & (budget > 0)
+        tokens = torch.cat([torch.where(live, token, 0)[:, None], draft.clamp(min=0)], dim=1)
+        logits, _, _ = decode_multi(self.params, self.spec, tokens, torch.where(live, lengths, 0),
+                                    self._ck, self._cv, write_mask=live, history=history,
+                                    clamp_writes=True, ensemble=self.ensemble)
+        adj = adjust_logits(logits, self._bias[:, None], counts[:, None], self._pp[:, None],
+                            self._fp[:, None])                                # [rows, n, V]
+        rows = adj.shape[0]
+        if constrained:
+            states = [dfa]
+            for j in range(g):
+                d = draft[:, j]
+                nxt = self._g_trans[states[-1].long(), d.clamp(min=0)]
+                states.append(torch.where((d >= 0) & (nxt >= 0), nxt, torch.zeros_like(nxt)))
+            states = torch.stack(states, dim=1)                               # [rows, n]
+            allow = self._allow(states)                                       # [rows, n, V]
+            adj = apply_token_mask(adj, allow)
+        j = torch.arange(n, device=adj.device)
+        noise = self._noise_at(ntok[:, None] + j[None, :])                    # [rows, n, V]
+
+        def per_pos(t):
+            return t.repeat_interleave(n)
+
+        flat = adj.reshape(rows * n, vocab)
+        sampled = sample_token_rows(flat, per_pos(self._temp), per_pos(self._topp),
+                                    per_pos(self._topk), noise.reshape(rows * n, vocab),
+                                    restrict=restrict).view(rows, n)
+        ok = torch.cumprod((draft == sampled[:, :-1]).to(torch.int32), dim=1)
+        not_eos = (sampled[:, :-1] != eos[:, None]) | (eos < 0)[:, None]
+        cont = ok.bool() & not_eos & (budget[:, None] > j[None, 1:])
+        emit = torch.cat([torch.ones_like(ok[:, :1]), torch.cumprod(cont.to(torch.int32), 1)],
+                         dim=1) * live[:, None].to(torch.int32)               # [rows, n]
+        e = emit.sum(dim=1)
+        e1 = e.clamp(min=1)
+        last = sampled.gather(1, (e1 - 1)[:, None].long())[:, 0]
+        budget_new = budget - e.to(budget.dtype)
+        fin = live & ((last == eos) | (budget_new <= 0))
+        new = {
+            "token": torch.where(live, last, token),
+            "lengths": lengths + e.to(lengths.dtype),
+            "live": torch.where(self._mask, live & ~fin, st["live"]),
+            "budget": budget_new,
+            "ntok": ntok + e.to(ntok.dtype),
+            "counts": counts.scatter_add(1, sampled, emit.to(counts.dtype)),
+            "dfa": dfa,
+        }
+        lp = masked = None
+        if want_lp:
+            s_lp, top_ix, top_lp = token_logprobs(flat, sampled.reshape(-1),
+                                                  min(TOP_LOGPROBS, vocab))
+            lp = torch.cat([s_lp[:, None], top_lp, top_ix.float()], dim=-1)
+            lp = lp.view(rows, n, -1).transpose(0, 1)
+        if constrained:
+            con = live & (dfa > 0)
+            masked = (~allow & con[:, None, None] & (emit[:, :, None] > 0)).sum(dim=(1, 2))
+            st_last = states.gather(1, (e1 - 1)[:, None].long())[:, 0]
+            nd = self._g_trans[st_last.long(), last]
+            adv = (last != eos) & (nd >= 0)
+            new["dfa"] = torch.where(live, torch.where(adv, nd, st_last), dfa)
+        return new, (sampled, e, lp, masked)
+
+    def _spec_out(self, sampled, e, masked) -> torch.Tensor:
+        """One turn's token columns: ``[rows, g+1]`` sampled tokens, the
+        emitted count (and the masked entries of a constrained turn)."""
+        cols = [sampled, e[:, None].to(sampled.dtype)]
+        if masked is not None:
+            cols.append(masked[:, None].to(sampled.dtype))
+        return torch.cat(cols, dim=1)
+
+    def _verify_program(self, g: int, restrict: bool, want_lp: bool, constrained: bool,
+                        history: int):
+        """One verify turn over ``_draft_buf``: returns ``[1, rows, g+2]``
+        int64 (g+1 sampled tokens, then the emitted count; constrained: one
+        more column, the masked entries) and, when ``want_lp``, ``[1, g+1,
+        rows, 1 + 2·TOP_LOGPROBS]`` records — a chunk's payload with
+        n_steps = g+1."""
+        new, (sampled, e, lp, masked) = self._verify_turn(
+            self._state(), self._draft_buf[:, :g], g, restrict, want_lp, constrained, history)
+        self._set_state(new)
+        return self._spec_out(sampled, e, masked)[None], None if lp is None else lp[None]
+
+    def _spec_loop_program(self, n_turns: int, g: int, restrict: bool, want_lp: bool,
+                           constrained: bool, history: int):
+        """Up to ``n_turns`` fused draft→verify turns (the JAX engine's
+        ``_spec_loop_fn``). Each turn: (1) the draft model ingests the last
+        verify turn's emitted chain (ending at the target's carried token)
+        through a ``decode_multi`` of width g+1 — the verify's own width, so
+        an oracle draft's K/V reassociates like the target's — and picks
+        its first token; (2) g−1 greedy draft steps through ``decode_step``
+        (K2 on the card), each pick masked by its draft-prefix grammar state
+        when constrained; (3) the verify turn, rows that may not draft
+        (``_spec_ok`` False) carrying −1 sentinels. A turn no row enters
+        runs with every write masked and returns zeros (the megachunk's
+        skipped chunk). Returns ``[n_turns, rows, g+2(+1)]`` and, when
+        ``want_lp``, ``[n_turns, g+1, rows, 41]``."""
+        rt = self._draft_rt
+        dspec = rt.spec
+        st = self._state()
+        chain, chain_n = rt.chain, rt.chain_n
+        col = torch.arange(g + 1, device=chain.device)
+        outs, lps = [], []
+
+        def pick(lg, state):
+            lg = lg.float()
+            if constrained:
+                lg = apply_token_mask(lg, self._allow(state))
+            return lg.argmax(dim=-1)
+
+        for _ in range(n_turns):
+            live = self._mask & st["live"] & (st["budget"] > 0)
+            entered = live.any()
+            feed = chain.gather(1, torch.minimum(col[None, :], chain_n[:, None] - 1))
+            pos0 = torch.where(live, st["lengths"] - chain_n.to(st["lengths"].dtype) + 1, 0)
+            dlg, _, _ = decode_multi(rt.params, dspec, feed, pos0, rt.ck, rt.cv,
+                                     write_mask=live, history=history, clamp_writes=True)
+            dlg = dlg.gather(1, (chain_n - 1).view(-1, 1, 1).expand(-1, 1, dlg.shape[-1]))[:, 0]
+            state = st["dfa"]
+            tok = pick(dlg, state)
+            drafted = [tok]
+            dlen = torch.where(live, st["lengths"] + 1, 0)
+            for _ in range(g - 1):
+                # Near the cap extension writes past max_seq land on its last
+                # position: draft cache only, rewritten as the stream gets
+                # there (the verify drops its own out-of-range writes).
+                lg, _, _ = decode_step(rt.params, dspec, tok, dlen.clamp(max=dspec.max_seq - 1),
+                                       rt.ck, rt.cv, write_mask=live)
+                if constrained:
+                    nd = self._g_trans[state.long(), tok]
+                    state = torch.where(nd >= 0, nd, torch.zeros_like(nd))
+                tok = pick(lg, state)
+                drafted.append(tok)
+                dlen = dlen + 1
+            draft = torch.where(self._spec_ok[:, None], torch.stack(drafted, dim=1), -1)
+            st, (sampled, e, lp, masked) = self._verify_turn(st, draft, g, restrict, want_lp,
+                                                             constrained, history)
+            chain = torch.where(live[:, None], sampled, chain)
+            chain_n = torch.where(live, e.clamp(min=1).to(chain_n.dtype), chain_n)
+            out = self._spec_out(sampled, e, masked)
+            outs.append(torch.where(entered, out, torch.zeros_like(out)))
+            if lp is not None:
+                lps.append(torch.where(entered, lp, torch.zeros_like(lp)))
+        self._set_state(st)
+        rt.chain.copy_(chain)
+        rt.chain_n.copy_(chain_n)
+        return torch.stack(outs), torch.stack(lps) if lps else None
+
+    def _form_draft(self, req: _Request, g: int) -> list[int] | None:
+        """Per-row prompt-lookup draft for the next verify dispatch (the JAX
+        engine's). Nothing in flight for the row: :meth:`_draft` on the true
+        history, remembering its source when the draft is the index's own
+        continuation. Turns in flight: continue from that source,
+        assuming the in-flight turns accept in full — a full-accept turn
+        emits its g drafts plus one undrafted bonus token, and the next
+        turn's first draft proposes that turn's own first sample, so the
+        cursor skips one between drafts; off the real history it re-anchors
+        through the index on the last two optimistic tokens. A wrong
+        assumption costs acceptance only: the reap resets the cursor."""
+        if req.n_inflight == 0:
+            d = self._draft(req, g)
+            req.spec_state = None
+            if d is None:
+                return None
+            if req.grammar is not None:
+                d = self._filter_draft(req, req.dfa_host, d)
+            if d is not None and all(t >= 0 for t in d) and len(req.hist) >= 4:
+                pos = req.ngram.get((req.hist[-2], req.hist[-1]))
+                if pos is not None:
+                    cont = req.hist[pos + 1:pos + 1 + g]
+                    if d == cont + [cont[-1]] * (g - len(cont)):
+                        opt = (req.hist + d)[-2:]
+                        odfa = self._advance_local(req, req.dfa_host, d)
+                        req.spec_state = (pos + 1 + g, opt[0], opt[1], odfa)
+            return d
+        state = req.spec_state
+        if state is None:
+            return None
+        cont: list[int] = []
+        truncated = False
+        for k in range(g + 1):
+            step = self._spec_take(req, state)
+            if step is None:
+                state = None
+                break
+            state, tok = step
+            if req.grammar is not None:
+                src, t1, t2, odfa = state
+                odfa = int(req.grammar.trans[odfa, tok]) if odfa >= 0 else -1
+                if odfa < 0:
+                    # The optimistic stream leaves the grammar here: the
+                    # full-accept assumption cannot extend past it.
+                    state = None
+                    truncated = True
+                    break
+                state = (src, t1, t2, odfa)
+            if k >= 1:  # the first token taken is the undrafted bonus
+                cont.append(tok)
+        req.spec_state = state
+        if not cont:
+            return None
+        if len(cont) < g:
+            cont = cont + [-1 if truncated else cont[-1]] * (g - len(cont))
+        return cont
+
+    @staticmethod
+    def _spec_take(req: _Request, state):
+        """Advance the optimistic cursor one source token: ``(new state,
+        token)``, or None when it dies. Off the real history it re-anchors
+        through the index on the optimistic stream's trailing pair."""
+        src, t1, t2, odfa = state
+        if src >= len(req.hist):
+            pos = req.ngram.get((t1, t2))
+            if pos is None or pos + 1 >= len(req.hist):
+                return None
+            src = pos + 1
+        tok = req.hist[src]
+        return (src + 1, t2, tok, odfa), tok
+
+    @staticmethod
+    def _advance_local(req: _Request, state: int, d: list[int]) -> int:
+        """Walk a host-side LOCAL DFA state over draft tokens (−1 = unknown,
+        stays unknown). Draft quality only: the device mask decides."""
+        if req.grammar is None:
+            return -1
+        for t in d:
+            if state < 0 or t < 0:
+                return -1
+            state = int(req.grammar.trans[state, t])
+        return state
+
+    @staticmethod
+    def _filter_draft(req: _Request, state: int, d: list[int]):
+        """Cut a prompt-lookup draft at its first token the grammar refuses
+        from the LOCAL ``state`` (−1: unknown, no filtering), padding with
+        −1 sentinels: the draft never proposes a token the mask would
+        remove. A stale state costs acceptance only."""
+        if state < 0:
+            return d
+        out: list[int] = []
+        for t in d:
+            if t < 0:
+                break
+            nxt = int(req.grammar.trans[state, t])
+            if nxt < 0:
+                break
+            out.append(t)
+            state = nxt
+        if not out:
+            return None
+        return out + [-1] * (len(d) - len(out))
+
+    @staticmethod
+    def _draft(req: _Request, g: int) -> list[int] | None:
+        """Prompt-lookup draft: the most recent earlier occurrence of the
+        trailing 2-gram, continued for g tokens (the last one repeated when
+        the history runs out). Suggestions only: verification accepts a
+        token iff it equals what the model itself samples there."""
+        hist = req.hist
+        if len(hist) < 4:
+            return None
+        pos = req.ngram.get((hist[-2], hist[-1]))
+        if pos is None:
+            return None
+        cont = hist[pos + 1:pos + 1 + g]
+        return cont + [cont[-1]] * (g - len(cont))
 
     def _pinned(self, src: torch.Tensor) -> torch.Tensor:
         """A pinned host buffer from the pool (by shape and dtype), with an
@@ -1657,12 +2471,27 @@ class InferenceEngine:
         the per-chunk latency EWMA (dispatch to delivery over the chunks a
         row entered) that the deadline clamp reads."""
         c = self._inflight.popleft()
-        n0 = self.n_loop_chunks
-        done = self._emit_chunk(c)
-        per_chunk = (time.perf_counter() - c.t0) / max(1, self.n_loop_chunks - n0)
+        done, n_exec, delivered = self._emit_chunk(c)
+        # Per executed chunk or verify turn: the deadline clamp estimates a
+        # fused dispatch's length from the same EWMA either way.
+        per_chunk = (time.perf_counter() - c.t0) / max(1, n_exec)
         self._chunk_ewma_s = (per_chunk if self._chunk_ewma_s == 0.0 else
                               (1 - CHUNK_EWMA_ALPHA) * self._chunk_ewma_s
                               + CHUNK_EWMA_ALPHA * per_chunk)
+        for _, req in c.active:
+            req.n_inflight = max(0, req.n_inflight - 1)
+        if c.spec_turn:
+            self.n_spec_turns += n_exec
+            self.n_spec_drafted += c.drafted * n_exec
+            for i, req in c.active:
+                got, segs = delivered.get(i, (0, 0))
+                if req.spec_state is not None and (segs < c.n_chunks
+                                                   or got < segs * c.n_steps):
+                    # A rejection breaks the full-accept assumption every
+                    # pipelined draft was formed under.
+                    req.spec_state = None
+        else:
+            self.n_loop_chunks += n_exec
         if c.event is not None:  # the buffers may be reused only now
             for buf in (c.host, c.lp):
                 if buf is not None:
@@ -1677,14 +2506,16 @@ class InferenceEngine:
         while self._inflight:
             self._reap_oldest()
 
-    def _emit_chunk(self, c: _InflightChunk) -> set[int]:
-        """Deliver one dispatch's tokens, its chunks in order: row i's
-        on-device valid count in each chunk bounds its delivery there (a row
-        that finished in chunk 0 produced nothing in chunk 1). Tokens for a
-        row released (or re-admitted) while the dispatch was in flight, or
-        past a host-side finish in an earlier chunk or step, count as
-        overrun. Chunks with a live row count into
-        ``decode_loop_chunks_total``. Returns the rows that finished."""
+    def _emit_chunk(self, c: _InflightChunk) -> tuple[set[int], int, dict]:
+        """Deliver one dispatch's tokens, its chunks (or verify turns) in
+        order: row i's on-device valid count in each bounds its delivery
+        there (a row that finished in chunk 0 produced nothing in chunk 1).
+        Tokens for a row released (or re-admitted) while the dispatch was in
+        flight, or past a host-side finish in an earlier chunk or step,
+        count as overrun. A verify turn's tokens beyond the row's first are
+        its accepted drafts. Returns the rows that finished, the chunks or
+        turns a live row entered, and per row (tokens delivered, chunks
+        with a delivery)."""
         c.wait()
         host = c.host.tolist()
         lps = c.lp.tolist() if c.lp is not None else None
@@ -1693,10 +2524,12 @@ class InferenceEngine:
         if c.constrained:  # the masked counts ride the token copy: no extra sync
             self.n_constrain_masked += sum(row[c.n_steps + 1] for seg in host for row in seg)
         done: set[int] = set()
+        delivered: dict[int, tuple[int, int]] = {}
+        n_exec = 0
         for ci, seg in enumerate(host):
             if not any(row[c.n_steps] for row in seg):
                 continue  # no row entered this chunk (JAX's skipped chunk)
-            self.n_loop_chunks += 1
+            n_exec += 1
             for i, req in c.active:
                 k = seg[i][c.n_steps]
                 if not k:
@@ -1715,8 +2548,12 @@ class InferenceEngine:
                         done.add(i)
                         break
                 self.n_overrun += k - got
+                d0, s0 = delivered.get(i, (0, 0))
+                delivered[i] = (d0 + got, s0 + 1)
+                if c.spec_turn:
+                    self.n_spec_accepted += max(0, got - 1)
         self.drain_gap_s += time.perf_counter() - t_fetch
-        return done
+        return done, n_exec, delivered
 
     def _emit(self, req: _Request, tok: int, lp=None) -> bool:
         """Deliver one token (its logprob record ``lp`` first, when there
@@ -1728,7 +2565,14 @@ class InferenceEngine:
         if lp is not None:
             req.lp.append(lp)
         req.emitted += 1
-        req.hist.append(tok)
+        hist = req.hist
+        hist.append(tok)
+        if len(hist) >= 3:  # the lagged 2-gram index (see _Request)
+            req.ngram[(hist[-3], hist[-2])] = len(hist) - 2
+        if req.grammar is not None and req.dfa_host >= 0 and tok != req.eos_id:
+            # The host's shadow of the LOCAL DFA state, for the draft
+            # filter; a dead transition means it lost sync: unknown.
+            req.dfa_host = int(req.grammar.trans[req.dfa_host, tok])
         self.n_tokens += 1
         self.n_member_tokens[req.member] += 1
         req.out.put(("tok", tok))
@@ -1756,6 +2600,12 @@ class InferenceEngine:
         for r in doomed:
             self.n_failures += 1
             r.out.put(("err", exc))
+
+
+def _constrained_key(key: tuple) -> bool:
+    """A graph key of a constrained program variant (it reads the grammar
+    arena's tables)."""
+    return key[0] in ("dfa", "dfa_verify") or "dfa" in key[1:]
 
 
 def check_quant_knobs(quant: str | None, kv_quant: str | None) -> tuple[str | None, str | None]:
@@ -1827,36 +2677,69 @@ def get_engine(
     ensemble: int = 1,
     quant: str | None = None,
     kv_quant: str | None = None,
+    spec_decode: int = 0,
+    draft_spec: ModelSpec | None = None,
+    draft_seed: int = 0,
+    draft_ckpt: str | None = None,
 ) -> InferenceEngine:
     """Engines are keyed by weight identity (spec, seed, device, members,
     ensemble, member_seeds when members > 1, quant), by the cache
-    representation (``kv_quant``) and by ``quorum_dedup``, which
-    is structural: backends that differ only in dispatch knobs share one set
-    of weights, so ``members=M&member=i`` backends share one engine and a
-    dedup URL never shares a non-dedup engine. ``n_slots``,
+    representation (``kv_quant``), by ``quorum_dedup`` and by speculation
+    (``spec_decode`` and the draft: its spec and seed, or its checkpoint's
+    real path), which are structural: backends that differ only in dispatch
+    knobs share one set of weights, so ``members=M&member=i`` backends
+    share one engine and a dedup URL never shares a non-dedup engine.
+    ``draft_ckpt`` loads a local HF checkpoint as the draft model, its
+    window raised to the target's (:func:`_load_draft_ckpt`). ``n_slots``,
     ``max_pending``, ``decode_pipeline``, ``decode_loop`` and
     ``prefill_chunk`` apply at first construction. ``prefix_cache`` is not structural: a ``prefix_cache=0``
     from ANY backend turns reuse off on the shared engine (an explicit
     opt-out wins over a sharing default). ``device`` defaults to cuda and
     raises when there is none."""
+    import os
+
+    if draft_ckpt and draft_spec is not None:
+        raise ValueError("draft_spec and draft_ckpt are mutually exclusive")
     dev = resolve_device(device)
     members, ensemble = max(1, int(members)), max(1, int(ensemble))
+    draft_ckpt = os.path.realpath(draft_ckpt) if draft_ckpt else None
     key = (spec, int(seed), str(dev), members, ensemble,
            member_seeds if members > 1 else None, bool(quorum_dedup), quant or None,
-           kv_quant or None)
+           kv_quant or None, int(spec_decode), draft_spec,
+           int(draft_seed) if draft_spec is not None else None, draft_ckpt)
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None:
+            draft_params = None
+            if draft_ckpt:
+                draft_spec, draft_params = _load_draft_ckpt(draft_ckpt, spec.max_seq, dev)
             eng = _ENGINES[key] = InferenceEngine(
                 spec, device=dev, seed=seed, n_slots=n_slots, decode_chunk=decode_chunk,
                 decode_pipeline=decode_pipeline, decode_loop=decode_loop,
                 prefill_chunk=prefill_chunk,
                 prefix_cache=prefix_cache, max_pending=max_pending, members=members,
                 member_seeds=member_seeds, quorum_dedup=quorum_dedup, ensemble=ensemble,
-                quant=quant, kv_quant=kv_quant)
+                quant=quant, kv_quant=kv_quant, spec_decode=spec_decode,
+                draft_spec=draft_spec, draft_seed=draft_seed, draft_params=draft_params)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
         return eng
+
+
+def _load_draft_ckpt(draft_ckpt: str, target_max_seq: int, device, dtype: str | None = None):
+    """(spec, params) of a draft checkpoint, window-matched to the target:
+    the draft cache must hold every position the target can reach, so its
+    ``max_seq`` is raised to the target's (RoPE tables extend; positions
+    past the draft's trained range can only lower acceptance — drafts are
+    speed only). The engine's draft runtime checks the vocabularies."""
+    import dataclasses
+
+    from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+    dspec, dparams = load_hf_checkpoint(draft_ckpt, dtype=dtype, device=device)
+    if dspec.max_seq < target_max_seq:
+        dspec = dataclasses.replace(dspec, max_seq=target_max_seq)
+    return dspec, dparams
 
 
 CKPT_ENSEMBLE_ERROR = ("ensemble members are seeded random inits; a "
@@ -1880,10 +2763,16 @@ def get_engine_from_ckpt(
     ensemble: int = 1,
     quant: str | None = None,
     kv_quant: str | None = None,
+    spec_decode: int = 0,
+    draft_spec: ModelSpec | None = None,
+    draft_seed: int = 0,
+    draft_ckpt: str | None = None,
 ) -> InferenceEngine:
     """An engine over a local HF checkpoint directory
     (``models/hf_loader.py``). Keyed by (real path, effective dtype,
-    device, quant, kv_quant); ``quant="int8"`` quantizes on the device as
+    device, quant, kv_quant, spec_decode, the draft: its spec and seed or
+    its checkpoint's real path, which follows the target's ``dtype``);
+    ``quant="int8"`` quantizes on the device as
     the checkpoint is read, never holding its bf16 form whole. Backends
     pointing at one checkpoint share its weights on the card, and
     ``dtype=None`` hits the entry of the default dtype, so a checkpoint is
@@ -1899,19 +2788,31 @@ def get_engine_from_ckpt(
         raise ValueError(CKPT_ENSEMBLE_ERROR)
     quant, kv_quant = check_quant_knobs(quant, kv_quant)
     dev = resolve_device(device)
+    if draft_ckpt and draft_spec is not None:
+        raise ValueError("draft_spec and draft_ckpt are mutually exclusive")
     resolved = os.path.realpath(ckpt_path)
+    draft_resolved = os.path.realpath(draft_ckpt) if draft_ckpt else None
     eff_dtype = dtype or ModelSpec().dtype
-    key = ("ckpt", resolved, eff_dtype, str(dev), quant, kv_quant)
+    key = ("ckpt", resolved, eff_dtype, str(dev), quant, kv_quant, int(spec_decode),
+           draft_spec, int(draft_seed) if draft_spec is not None else None, draft_resolved)
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None:
             spec, params = load_hf_checkpoint(resolved, dtype=eff_dtype, device=dev,
                                               quant=quant)
+            draft_params = None
+            if draft_resolved:
+                # The draft follows the target's dtype: a mixed pair rounds
+                # differently and lowers acceptance for nothing.
+                draft_spec, draft_params = _load_draft_ckpt(draft_resolved, spec.max_seq,
+                                                            dev, dtype=eff_dtype)
             eng = _ENGINES[key] = InferenceEngine(
                 spec, device=dev, params=params, n_slots=n_slots, decode_chunk=decode_chunk,
                 decode_pipeline=decode_pipeline, decode_loop=decode_loop,
                 prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-                max_pending=max_pending, quant=quant, kv_quant=kv_quant)
+                max_pending=max_pending, quant=quant, kv_quant=kv_quant,
+                spec_decode=spec_decode, draft_spec=draft_spec, draft_seed=draft_seed,
+                draft_params=draft_params)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
         return eng

@@ -19,8 +19,9 @@ What the program must keep, which the engine's decode path does:
   data or allocates pinned memory.
 - Lazy state exists before the first capture: K2's (or K2q8's) scratch and ticket
   counters for the stream, the RoPE tables, cuBLAS's workspace. The first
-  capture of a :class:`DecodeGraphs` runs the engine's ``warm_up`` eagerly
-  on the capture stream first.
+  capture of each key family (the engine's plain decode keys, and each
+  speculative program) runs that family's ``warm_up`` eagerly on the
+  capture stream first.
 
 An engine captures and replays on its own stream, so the kernel scratch its
 graphs hold is its own. Captures run in ``thread_local`` mode (another
@@ -55,9 +56,10 @@ class DecodeGraphs:
         self.stream = stream
         self.pool = torch.cuda.graph_pool_handle()
         self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, object, dict]] = {}
-        self._warm = False
+        self._warmed: set = set()  # key families whose warm-up has run
         self.captures = 0
         self.capture_seconds = 0.0
+        self.capture_seconds_by_key: dict[tuple, float] = {}  # each key's last capture
         self.replays = 0
         self.pool_bytes = 0
 
@@ -65,16 +67,19 @@ class DecodeGraphs:
         return key in self._graphs
 
     def replay(self, key: tuple, program: Callable[[], object],
-               warm_up: Callable[[], None]):
+               warm_up: Callable[[], None], family: str | None = None):
         """Replay ``key``'s graph on the current stream (the engine's),
         capturing ``program`` first if this key has none; returns the
-        graph's static output."""
+        graph's static output. ``warm_up`` runs once per ``family`` (None:
+        the plain decode keys), before that family's first capture."""
         entry = self._graphs.get(key)
         if entry is None:
-            if not self._warm:
+            if family not in self._warmed:
                 warm_up()
-                self._warm = True
+                self._warmed.add(family)
+            t0 = time.perf_counter()
             entry = self._graphs[key] = self._capture(program)
+            self.capture_seconds_by_key[key] = time.perf_counter() - t0
         graph, out, launches = entry
         graph.replay()
         add_launches(launches)

@@ -314,8 +314,10 @@ def _moe_mlp(x, block, spec: ModelSpec, token_mask=None):
     return _moe_mlp_grouped(x, block, spec, token_mask=token_mask)
 
 
-def _mlp(x, block, spec: ModelSpec, token_mask=None):
+def _mlp(x, block, spec: ModelSpec, token_mask=None, dense_moe: bool = False):
     if spec.is_moe:
+        if dense_moe:
+            return _moe_mlp_dense(x, block, spec)
         return _moe_mlp(x, block, spec, token_mask=token_mask)
     return _dense_mlp(x, block, spec)
 
@@ -380,15 +382,16 @@ def _final_norm(params, spec: ModelSpec, x):
     return _norm(x, params["final_norm_w"], params.get("final_norm_b"), spec)
 
 
-def _block(x, block, spec, q_k_v_to_attn, token_mask=None):
+def _block(x, block, spec, q_k_v_to_attn, token_mask=None, dense_moe: bool = False):
     """One transformer block around an attention callable; ``token_mask``
-    [B, T] keeps right-padding out of MoE expert capacity."""
+    [B, T] keeps right-padding out of MoE expert capacity; ``dense_moe``
+    runs MoE layers densely whatever T is."""
     h = _norm(x, block["attn_norm_w"], block.get("attn_norm_b"), spec)
     q, k, v = _qkv(h, block, spec)
     attn, k, v = q_k_v_to_attn(q, k, v)
     x = x + _attn_out(attn, block, x.dtype)
     h2 = _norm(x, block["mlp_norm_w"], block.get("mlp_norm_b"), spec)
-    return x + _mlp(h2, block, spec, token_mask=token_mask)
+    return x + _mlp(h2, block, spec, token_mask=token_mask, dense_moe=dense_moe)
 
 
 def kv_is_q8(cache) -> bool:
@@ -732,6 +735,115 @@ def decode_chunk(
     n_valid = valid.to(torch.int32).sum(dim=1)
     aux = tuple(torch.stack(col) for col in zip(*auxs)) if auxs and auxs[0] else ()
     return (tokens, valid, n_valid, lv, bud, cache_k, cache_v, lens, sample_carry, aux)
+
+
+def decode_multi(
+    params: Params,
+    spec: ModelSpec,
+    tokens: torch.Tensor,   # [B, T] current token + T-1 proposed continuations
+    lengths: torch.Tensor,  # [B] position of tokens[:, 0] per row
+    cache_k,
+    cache_v,
+    write_mask: torch.Tensor | None = None,  # [B] bool: rows allowed to write
+    history: int | None = None,
+    clamp_writes: bool = False,
+    ensemble: int = 1,
+):
+    """T-token decode: logits for positions ``lengths .. lengths+T-1`` of
+    each row in ONE forward (the JAX package's ``decode_multi``, the
+    speculative-verification step). Returns ``(logits [B, T, V] f32,
+    cache_k, cache_v)``; T = 1 is :func:`decode_step`.
+
+    K/V of all T positions is written into each row in place, as
+    :func:`decode_step_blocks` writes one (rows with ``write_mask`` False
+    write back what the cache held). Rejected positions land past the
+    row's advanced length, where every later read masks them and
+    generation overwrites them. ``clamp_writes`` makes a row whose span
+    runs past ``max_seq`` drop exactly the out-of-range positions: the
+    window start moves back by the overflow and the values roll right by
+    the same amount, the slots below it writing the old contents back —
+    never a valid entry overwritten. Without it the start clamps back and
+    the values do not roll (JAX's ``dynamic_update_slice``). Positions
+    past the tables (RoPE, learned embeddings) gather the last entry, as
+    JAX's clamped gathers do; their logits are never accepted.
+
+    Attention is the plain :func:`ops.attention.attention` over each row's
+    ``[0, history)`` (the whole window by default) with a per-row causal
+    mask and sliding window: JAX runs XLA's plain attention here too. It
+    contracts the cache in its own dtype into f32 scores, so the window is
+    never copied to f32; an int8 side is dequantized over the window, as
+    JAX's does. MoE layers run dense, never grouped: verify logits must
+    match the T = 1 path. Member-stacked params run member-major rows as
+    :func:`decode_chunk` does; ``ensemble`` = E > 1 runs every row through
+    the E weight sets (cache rows ``e·B + b``) and averages their logits."""
+    if ensemble > 1:
+        tokens, lengths = tokens.repeat(ensemble, 1), lengths.repeat(ensemble)
+        write_mask = None if write_mask is None else write_mask.repeat(ensemble)
+    b, t = tokens.shape
+    dev = tokens.device
+    max_seq = spec.max_seq
+    hist = max_seq if history is None else min(history, max_seq)
+    j = torch.arange(t, device=dev)
+    pos = lengths.long()[:, None] + j[None, :]                      # [B, T]
+    pos_in = pos.clamp(max=max_seq - 1)
+    x = _embed(params, spec, tokens, pos_in)
+    cos, sin = _rope(spec, dev)
+    allow = (torch.ones((b,), dtype=torch.bool, device=dev)
+             if write_mask is None else write_mask)
+    # The write window per row: start moved back by the overflow past max_seq.
+    delta = (lengths.long() + t - max_seq).clamp(min=0)             # [B]
+    wpos = (lengths.long() - delta)[:, None] + j[None, :]           # [B, T], in range
+    rows = torch.arange(b, device=dev)[:, None]
+    if clamp_writes:
+        src = (j[None, :] - delta[:, None]).clamp(min=0)            # slot → value index
+        keep = (j[None, :] >= delta[:, None]) & allow[:, None]      # [B, T]
+    else:
+        src, keep = None, allow[:, None].expand(b, t)
+
+    def put(cache, value):
+        # value [B, K, T, ...] → cache[row, :, wpos] laid out [B, T, K, ...]
+        value = value.transpose(1, 2)
+        if src is not None:
+            idx = src.reshape(b, t, *([1] * (value.dim() - 2))).expand_as(value)
+            value = value.gather(1, idx)
+        old = cache[rows, :, wpos]
+        mask = keep.reshape(b, t, *([1] * (value.dim() - 2)))
+        cache[rows, :, wpos] = torch.where(mask, value.to(cache.dtype), old)
+
+    def write(side, value):
+        if kv_is_q8(side):
+            v8, s = _kv_quantize(value)
+            put(side[0], v8)
+            put(side[1], s)
+        else:
+            put(side, value)
+
+    def read(side, dtype):
+        if kv_is_q8(side):
+            return _kv_dequant(side[0][:, :, :hist], side[1][:, :, :hist], dtype)
+        return side[:, :, :hist]
+
+    ki = torch.arange(hist, device=dev)[None, None, :]
+    visible = ki <= pos[:, :, None]
+    if spec.sliding_window > 0:
+        visible = visible & (ki > pos[:, :, None] - spec.sliding_window)
+    mask = visible[:, None, None]                                   # [B, 1, 1, T, hist]
+
+    for l in range(spec.n_layers):
+        def attend(q, k, v, l=l):
+            if spec.pos == "rope":
+                q = apply_rope(q, cos, sin, pos_in)
+                k = apply_rope(k, cos, sin, pos_in)
+            ck, cv = _kv_layer(cache_k, l), _kv_layer(cache_v, l)
+            write(ck, k)
+            write(cv, v)
+            return attention(q, read(ck, q.dtype), read(cv, q.dtype), mask), k, v
+
+        x = _block(x, _layer(params["blocks"], l), spec, attend, dense_moe=True)
+    logits = _unembed(params, spec, _final_norm(params, spec, x))
+    if ensemble > 1:
+        logits = logits.view(ensemble, -1, *logits.shape[1:]).mean(0)
+    return logits, cache_k, cache_v
 
 
 def decode_loop(

@@ -27,18 +27,34 @@ def attention(
     v: torch.Tensor,  # [B, K, S_kv, hd]
     mask: torch.Tensor | None = None,  # broadcastable to [B, 1, 1, S, S_kv], True=keep
 ) -> torch.Tensor:
-    """Full attention over the given K/V. Returns [B, H, S, hd]."""
+    """Full attention over the given K/V. Returns [B, H, S, hd]. The
+    scores are f32 products of q and k in their own dtype (JAX's
+    ``preferred_element_type=float32``): on the card a 16-bit k is
+    contracted as it is, never copied to f32."""
     b, h, s, d = q.shape
     n_kv = k.shape[1]
     qg = q.reshape(b, n_kv, h // n_kv, s, d)
     scale = d ** -0.5
-    logits = torch.einsum("bkgsd,bktd->bkgst", qg.float(), k.float()) * scale
+    logits = _scores(qg, k) * scale
     if mask is not None:
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
     probs = probs / torch.sum(probs, dim=-1, keepdim=True)
     out = torch.einsum("bkgst,bktd->bkgsd", probs.to(v.dtype), v)
     return out.reshape(b, h, s, d)
+
+
+def _scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``einsum("bkgsd,bktd->bkgst")`` in f32: one batched product with an
+    f32 output over 16-bit operands on the card (f32 accumulation, no
+    rounding of the scores, no f32 copy of k), else in f32."""
+    if qg.is_cuda and qg.dtype == k.dtype and qg.dtype in (torch.bfloat16, torch.float16):
+        b, n_kv, g, s, d = qg.shape
+        t = k.shape[2]
+        out = torch.bmm(qg.reshape(b * n_kv, g * s, d), k.reshape(b * n_kv, t, d).transpose(1, 2),
+                        out_dtype=torch.float32)
+        return out.reshape(b, n_kv, g, s, t)
+    return torch.einsum("bkgsd,bktd->bkgst", qg.float(), k.float())
 
 
 def causal_mask(s_q: int, s_kv: int, q_offset: int = 0, window: int = 0,

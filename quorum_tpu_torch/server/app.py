@@ -134,9 +134,13 @@ def _relayable(o) -> bool:
 
 
 def _validate_speculative_aggregation(cfg: Config, reg: BackendRegistry) -> None:
-    """Boot-time check of ``speculative_aggregation: true``: the aggregator
-    must be a local model whose engine runs speculative decoding. No
-    ``cuda://`` engine runs speculation yet, so the option is refused."""
+    """Boot-time check of ``speculative_aggregation: true`` (the JAX
+    package's): spec_decode is an engine knob, not a per-request lever, so
+    the opt-in is an assertion — the aggregator must be a local ``cuda://``
+    backend whose engine runs speculation (``spec_decode=G``; the
+    aggregation prompt quotes the members' answers, which is what prompt
+    lookup drafts the aggregate from). Failing at boot beats aggregating
+    unaccelerated."""
     if cfg.strategy_name != "aggregate" or not cfg.aggregate.speculative_aggregation:
         return
     p = cfg.aggregate

@@ -93,10 +93,10 @@ def test_constrained_program_replay_equals_eager(cuda_device, dtype):
         eng._dfa.copy_(torch.tensor([starts[0], starts[1], starts[0], 0], dtype=torch.int32))
         g = torch.Generator(device=cuda_device).manual_seed(3)
         for k in range(16):
-            gumbel_noise(spec.vocab_size, g, out=eng._step_noise[k, 2])
+            gumbel_noise(spec.vocab_size, g, out=eng._noise_ring[k, 2])
         key = ("dfa", 4, 4, False, False, eng._g_bucket)
         program = (4, 4, False, False, True)
-        names = ("_token", "_lengths", "_live", "_budget", "_counts", "_dfa", "_ck", "_cv")
+        names = ("_token", "_lengths", "_live", "_budget", "_counts", "_ntok", "_dfa", "_ck", "_cv")
         start = {n: getattr(eng, n).clone() for n in names}
         with torch.cuda.stream(eng._stream):
             want = eng._decode_program(*program)[0].clone()

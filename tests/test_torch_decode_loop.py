@@ -368,7 +368,7 @@ def test_state_tensors_are_updated_in_place(shut):
                           decode_loop=4, prefill_chunk=16)
     shut(eng)
     names = ("_token", "_lengths", "_live", "_budget", "_eos", "_temp", "_topp", "_topk",
-             "_mask", "_step_noise", "_ck", "_cv", "_pp", "_fp", "_counts", "_bias")
+             "_mask", "_noise_ring", "_ntok", "_ck", "_cv", "_pp", "_fp", "_counts", "_bias")
     before = {n: (getattr(eng, n), getattr(eng, n).data_ptr()) for n in names}
     long_prompt = [(3 + 11 * i) % 500 for i in range(40)]
     bias = torch.zeros(SPEC.vocab_size)

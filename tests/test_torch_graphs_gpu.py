@@ -209,7 +209,7 @@ def test_noise_buffer_growth_recaptures(cuda_device):
         small.generate([5, 6, 7], max_new_tokens=9, sampler=smp, seed=3)  # captures 4-step keys
         req = small.submit([5, 6, 7], max_new_tokens=20, sampler=smp, seed=3, decode_chunk=8)
         assert list(small.stream_results(req)) == want
-        assert small._step_noise.shape[0] == 8
+        assert small._noise_ring.shape[0] == 8
         m = small.metrics()
         assert m["failures_total"] == 0 and m["decode_graph_captures_total"] >= 2
     finally:

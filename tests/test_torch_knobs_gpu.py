@@ -73,8 +73,8 @@ def test_logprob_program_replay_equals_eager(cuda_device, dtype):
         eng._bias[2, :32] = 4.0
         g = torch.Generator(device=cuda_device).manual_seed(3)
         for k in range(16):
-            gumbel_noise(spec.vocab_size, g, out=eng._step_noise[k, 3])
-        names = ("_token", "_lengths", "_live", "_budget", "_counts", "_ck", "_cv")
+            gumbel_noise(spec.vocab_size, g, out=eng._noise_ring[k, 3])
+        names = ("_token", "_lengths", "_live", "_budget", "_counts", "_ntok", "_ck", "_cv")
         start = {n: getattr(eng, n).clone() for n in names}
         launches = fd.flash_decode_attention.launches
         with torch.cuda.stream(eng._stream):

@@ -275,9 +275,9 @@ async def test_app_matches_jax_app(scenario, monkeypatch):
 
 
 def test_speculative_aggregation_is_refused_at_boot():
-    """No cuda:// engine runs speculation yet: the port refuses the option
-    for every kind of aggregator, with the JAX package's messages (its
-    local scheme in place of tpu://)."""
+    """An aggregator that is missing, has no engine (an HTTP upstream, a
+    fake) or whose engine runs no speculation is refused at boot, with the
+    JAX package's messages (its local scheme in place of tpu://)."""
     for aggregator in ("LLM1", "nope"):
         raw = _config("aggregate", aggregate={"speculative_aggregation": True,
                                               "aggregator_backend": aggregator})
@@ -295,3 +295,34 @@ def test_speculative_aggregation_is_refused_at_boot():
     raw = _config("aggregate", aggregate={"speculative_aggregation": True})
     with pytest.raises(ValueError, match=r"runs no speculation \(spec_decode=0\)"):
         create_app(Config(raw=raw), **{name: EngineBackend(name) for name in NAMES})
+
+
+def test_speculative_aggregation_boots_with_a_spec_engine():
+    """An aggregator whose engine runs speculation (spec_decode=4) boots, in
+    the port as in the JAX package; a real cuda://…?spec_decode=4
+    aggregator boots too."""
+    import types
+
+    from quorum_tpu_torch.backends.cuda_backend import CudaBackend
+    from quorum_tpu_torch.config import BackendSpec
+    from quorum_tpu_torch.engine.engine import shutdown_all_engines
+
+    raw = _config("aggregate", aggregate={"speculative_aggregation": True})
+    spec_engine = types.SimpleNamespace(spec_decode=4)
+
+    class PortSpec(FakeBackend):
+        engine = spec_engine
+
+    class JaxSpec(JaxFake):
+        engine = spec_engine
+
+    assert create_app(Config(raw=raw), **{n: PortSpec(n) for n in NAMES}) is not None
+    assert jax_create_app(JaxConfig(raw=raw), **{n: JaxSpec(n) for n in NAMES}) is not None
+    try:
+        agg = CudaBackend.from_spec(BackendSpec(
+            name="LLM1", url="cuda://llama-tiny?device=cpu&dtype=float32&n_layers=1"
+                             "&spec_decode=4", model="m"))
+        assert agg.engine.spec_decode == 4
+        assert create_app(Config(raw=raw), LLM1=agg, **{n: FakeBackend(n) for n in NAMES[1:]})
+    finally:
+        shutdown_all_engines()

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from quorum_tpu.backends.tpu_backend import TpuBackend
+from quorum_tpu.config import BackendSpec as JaxBackendSpec
 from quorum_tpu.engine.engine import InferenceEngine as JaxEngine
 from quorum_tpu.models.init import init_params as jax_init_params
 from quorum_tpu.models.model_config import resolve_spec as jax_resolve_spec
@@ -63,8 +64,8 @@ def test_unknown_options_are_refused_by_name(option, no_engine):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("spec_ckpt", "/some/dir"), ("sp", "2"), ("kv_page_size", "16"), ("zero_drain", "1"),
-    ("spec_model", "llama-tiny"), ("prefix_store", "host"), ("tp", "2"), ("pp", "2"),
+    ("prefix_store_bytes", "1G"), ("sp", "2"), ("kv_page_size", "16"), ("zero_drain", "1"),
+    ("kv_pool_pages", "64"), ("prefix_store", "host"), ("tp", "2"), ("pp", "2"),
     ("disagg", "1+1"), ("flash_decode", "1"), ("kv_pages", "1"), ("qos", "1"),
 ])
 def test_tpu_only_options_say_they_are_not_served_yet(option, value, no_engine):
@@ -72,6 +73,31 @@ def test_tpu_only_options_say_they_are_not_served_yet(option, value, no_engine):
     tail = ", and will not" if option == "flash_decode" else " yet"
     with pytest.raises(ValueError, match=rf"does not serve the {option}= option{tail}"):
         _from_url(f"{BASE}&{option}={value}")
+
+
+def _jax_refusal(url: str) -> str:
+    with pytest.raises(ValueError) as e:
+        TpuBackend.from_spec(JaxBackendSpec(name="m", url=url, model="m"))
+    return str(e.value)
+
+
+@pytest.mark.parametrize("tail", [
+    "&ckpt={dir}&spec_model=llama-tiny",
+    "&spec_model=llama-tiny&spec_ckpt={dir}",
+    "&spec_ckpt={dir}",
+    "&spec_model=llama-tiny&spec_decode=0&n_layers=1&max_seq=64",
+], ids=["spec_model-with-ckpt", "spec_model-with-spec_ckpt", "spec_ckpt-without-config",
+        "draft-with-spec_decode-0"])
+def test_spec_knob_misuse_is_refused_in_jax_words(tail, tmp_path):
+    """The four refusals of the draft knobs: a random-init draft beside
+    real ckpt= weights, two draft sources, a spec_ckpt= directory with no
+    config.json (before any weights load), and an explicit spec_decode=0
+    beside a draft (the engine's). Each message is the tpu:// backend's."""
+    url = tail.format(dir=tmp_path)
+    with pytest.raises(ValueError) as e:
+        _from_url(f"{BASE}{url}")
+    assert str(e.value) == _jax_refusal(f"tpu://llama-tiny?dtype=float32{url}")
+    shutdown_all_engines()
 
 
 @pytest.mark.parametrize("value", ["0", "1"])
@@ -99,6 +125,7 @@ def test_every_known_option_still_builds():
         "&prefix_cache=0&seed=3&queue=8&max_tokens=5&n_layers=1&max_seq=64&rope_theta=500000",
         f"{BASE}&members=2&member=1&member_seeds=shared&quorum_dedup=1&slots=1&n_layers=1",
         f"{BASE}&ensemble=2&slots=1&n_layers=1&norm_eps=1e-6",
+        f"{BASE}&spec_model=llama-tiny&spec_seed=1&spec_decode=2&slots=1&n_layers=1",
     ]
     try:
         first = _from_url(urls[0])
@@ -110,7 +137,9 @@ def test_every_known_option_still_builds():
         stacked = _from_url(urls[1])
         assert (stacked.member, stacked.engine.members, stacked.engine.quorum_dedup) == (1, 2, True)
         assert _from_url(urls[2]).engine.ensemble == 2
-        assert len(engine_mod._ENGINES) == 3
+        drafted = _from_url(urls[3]).engine
+        assert drafted.spec_decode == 2 and drafted._draft_rt is not None
+        assert len(engine_mod._ENGINES) == 4
     finally:
         shutdown_all_engines()
 
