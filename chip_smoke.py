@@ -4114,6 +4114,322 @@ _KERNEL_GROUPS = (("K1 flash_prefill", ("prefill_wgmma_kernel", "flash_prefill_k
                   ("sort (top-p/top-k)", ("sort", "radix", "scan")))
 
 
+# Leg (b)'s prediction, written before the first chip run: the paged
+# program gathers each layer's window of both sides, reading and writing
+# 4 rows × history × 8 kv heads × 128 × 2 B per side, 32 layers a step.
+PAGED_GATHER_BYTES_PER_STEP = {h: 2 * 2 * 4 * h * 8 * 128 * 2 * 32 for h in (2048, 8192)}
+
+
+def _paged_streams(eng, prompts, n_tok: int, sampler, **knobs) -> list:
+    """Submit ``prompts`` at once and stream them: each request's handle
+    (prompt, delivered tokens) after its stream ends."""
+    reqs = [eng.submit(p, max_new_tokens=n_tok, sampler=sampler, seed=i, **knobs)
+            for i, p in enumerate(prompts)]
+    _stream_all(eng, reqs)
+    return reqs
+
+
+def _paged_equal(torch, name: str, dense, paged, a_reqs, b_reqs) -> dict:
+    """Each paged stream equals its dense twin's, or their first divergence
+    is an audited near-tie of the card's own cache-free forward."""
+    audits = []
+    for a, b in zip(a_reqs, b_reqs):
+        n = len(a.prompt_ids)
+        audits.append(_spec_audit(torch, paged, a.prompt_ids, a.hist[n:], b.hist[n:],
+                                  temperature=b.sampler.temperature, top_p=b.sampler.top_p,
+                                  seed=b.seed))
+    return {"leg": name, "streams": len(a_reqs),
+            "tokens": [len(b.hist) - len(b.prompt_ids) for b in b_reqs],
+            "equal": [x["equal"] for x in audits],
+            "near_ties": [x for x in audits if not x["equal"]],
+            "paged_keys": sorted({str(k) for k in paged.dispatched_keys})[:8]}
+
+
+def _paged_dispatch_ms(torch, cpu: bool, eng, prompts, n_tok: int, greedy, hist) -> dict:
+    """Device ms of the engine's 8-step dispatches over all 4 rows (a
+    paged engine's at history bucket ``hist`` only), from CUDA events
+    around each replay on the engine's stream."""
+    recs = _timed_dispatches(torch, eng, cpu)
+    _paged_streams(eng, prompts, n_tok, greedy)
+    del eng._dispatch_chunk
+    ms = _device_ms(torch, cpu, recs)
+    keep = [i for i, (c, _) in enumerate(recs)
+            if len(c.active) == 4 and c.n_steps == 8 and c.n_chunks == 1]
+    keys = sorted({str(k) for k in eng.dispatched_keys if k[0] == "paged"})
+    if ms is None:
+        return {"dispatches": len(keep), "ms": None, "keys": keys}
+    vals = sorted(ms[i] for i in keep)
+    require(vals, f"paged: no 4-row 8-step dispatch at history {hist}")
+    return {"dispatches": len(vals), "median_ms": statistics.median(vals),
+            "min_ms": vals[0], "keys": keys}
+
+
+def _ttft(eng, prompt, sampler, n_tok: int = 4) -> tuple[float, list[int]]:
+    t0 = time.perf_counter()
+    it = eng.generate_stream(prompt, max_new_tokens=n_tok, sampler=sampler)
+    first = next(it)
+    t1 = time.perf_counter()
+    return t1 - t0, [first] + list(it)
+
+
+def phase_paged(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+    """Paged KV (``kv_pages=1``) and the host prefix store
+    (``prefix_store=host``) on llama-3-8b at full width (bf16, random
+    weights of seed 0, max_seq 8192, 4 slots, the default scheduler; the
+    default page is the 512-token segment and the default pool the dense
+    rectangle's 64 pages):
+
+    (a) equality: the serve phase's four prompts (57–3017 tokens, greedy,
+        32 tokens) through a dense engine and a paged one, then with
+        kv_quant=int8 (K2q8 on the gathered windows), with spec_decode=4 on
+        a repetitive prompt (verify turns over paged rows) and one
+        json_object request: streams equal, or the first divergence an
+        audited near-tie (``_spec_audit``);
+    (b) the gather's cost: device ms of an 8-step, 4-row dispatch, paged
+        against dense, at history buckets 2 048 and 8 192;
+    (c) aliasing: a two-turn chat (≈ 1 600-token turn 1) on the paged
+        engine: alias hits, COW copies (0 at 512-token pages, 1 at 1 024),
+        turn 2's TTFT against a cold admission of the same prompt;
+    (d) capacity: llama-3.1-8b at max_seq 131 072, kv_pages=1, 32 slots,
+        a 256-page pool (17.2 GB): 32 concurrent streams of 300–3 000-token
+        prompts × 32 tokens, all served; peak pages, peak memory,
+        aggregate tok/s, beside the dense rectangle's computed size;
+    (e) the store: prefix_store=host on a dense and a paged engine; a
+        ≈ 4 000-token prompt, every slot churned, the prompt again:
+        restored tokens, restore seconds and GB/s, snapshot bytes, TTFT
+        against a cold admission, streams equal to the cold stream;
+
+    with the launch counts of K1, K2 and K2q8 over the phase, exact."""
+    from quorum_tpu_torch.constrain import compile_response_format
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.engine.tokenizer import ByteTokenizer
+    from quorum_tpu_torch.models.init import init_params
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+
+    model = "llama-tiny" if tiny else "llama-3-8b"
+    dev = "cpu" if cpu else "cuda"
+    spec = resolve_spec(model, {"max_seq": "2048"} if tiny else {})
+    n_tok = 16 if tiny else 32
+    _require_card_empty(torch, cpu, "paged")
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = init_params(spec, 0, dev)
+    tok = ByteTokenizer(spec.vocab_size)
+    greedy = SamplerConfig(temperature=0.0)
+    gen = torch.Generator().manual_seed(13)
+
+    def rand(n):
+        return torch.randint(3, spec.vocab_size, (n,), generator=gen).tolist()
+
+    prompts = [tok.encode(tok.render_chat(b["messages"])) for b in _serve_bodies(model, tiny)]
+    engines: list = []
+    by_kind = {"bf16": [], "int8": []}
+
+    def engine(spec_=spec, **kw):
+        eng = InferenceEngine(spec_, device=dev, params=params, n_slots=kw.pop("n_slots", 4), **kw)
+        engines.append(eng)
+        by_kind["int8" if kw.get("kv_quant") else "bf16"].append(eng)
+        return eng
+
+    def done(*engs):
+        for e in engs:
+            e._final_metrics = e.metrics()
+            e.shutdown()
+
+    # Every launch counter to 0 just before the main path, read just after.
+    flash_prefill_attention.launches = 0
+    flash_decode_attention.launches = 0
+    flash_decode_q8_attention.launches = 0
+
+    # (a) equality, bf16 then int8, spec and constrained
+    legs = []
+    dense, paged = engine(), engine(kv_pages=True)
+    require(paged.kv_page_size == min(512, spec.max_seq)
+            and paged.kv_pool_pages == 4 * spec.max_seq // paged.kv_page_size,
+            f"paged defaults: page {paged.kv_page_size}, pool {paged.kv_pool_pages}")
+    legs.append(_paged_equal(torch, "bf16", dense, paged,
+                             _paged_streams(dense, prompts, n_tok, greedy),
+                             _paged_streams(paged, prompts, n_tok, greedy)))
+    g = compile_response_format({"type": "json_object"}, tok, spec.vocab_size)
+    cprompt = [prompts[2]]
+    legs.append(_paged_equal(
+        torch, "constrained", dense, paged,
+        _paged_streams(dense, cprompt, 48, greedy, eos_id=tok.eos_id, grammar=g),
+        _paged_streams(paged, cprompt, 48, greedy, eos_id=tok.eos_id, grammar=g)))
+    require(any(k[0] == "paged" and "dfa" in k for k in paged.dispatched_keys),
+            "paged: the constrained request never ran the paged dfa program")
+    q_dense, q_paged = engine(kv_quant="int8"), engine(kv_quant="int8", kv_pages=True)
+    legs.append(_paged_equal(torch, "int8", q_dense, q_paged,
+                             _paged_streams(q_dense, prompts, n_tok, greedy),
+                             _paged_streams(q_paged, prompts, n_tok, greedy)))
+    done(q_dense, q_paged)
+    s_dense, s_paged = engine(spec_decode=4), engine(spec_decode=4, kv_pages=True)
+    rep = tok.encode(tok.render_chat([{"role": "user", "content": (
+        "Summarize: " + _prompt(120 if tiny else 400, 7) + " ") * 4}]))
+    legs.append(_paged_equal(torch, "spec_decode=4", s_dense, s_paged,
+                             _paged_streams(s_dense, [rep], 64, greedy),
+                             _paged_streams(s_paged, [rep], 64, greedy)))
+    spec_turns = s_paged.metrics()["spec_turns_total"]
+    require(spec_turns > 0 and any(k[0] == "paged" and k[1] == "verify"
+                                   for k in s_paged.dispatched_keys),
+            f"paged: no verify turn over paged rows ({spec_turns})")
+    done(s_dense, s_paged)
+    for leg in legs:
+        emit("paged_equal", **leg)
+
+    # (b) the gather's cost: 8-step dispatches of 4 rows at two buckets
+    gather = {}
+    for hist in ((256, 1024) if tiny else (2048, 8192)):
+        n_p = hist - hist // 8 - 48  # planned + 8 stays inside the bucket for 48 tokens
+        rows = [rand(n_p - 16 * i) for i in range(4)]
+        gather[hist] = {"dense": _paged_dispatch_ms(torch, cpu, dense, rows, 48, greedy, hist),
+                        "paged": _paged_dispatch_ms(torch, cpu, paged, rows, 48, greedy, hist)}
+        g_ = gather[hist]
+        if not cpu:
+            g_["paged_minus_dense_ms_per_step"] = (
+                g_["paged"]["median_ms"] - g_["dense"]["median_ms"]) / 8
+            g_["paged_minus_dense_min_ms_per_step"] = (
+                g_["paged"]["min_ms"] - g_["dense"]["min_ms"]) / 8
+            g_["predicted_ms_per_step"] = PAGED_GATHER_BYTES_PER_STEP.get(hist, 0) / HBM_BYTES_PER_S * 1e3
+            g_["gather_bytes_per_step"] = PAGED_GATHER_BYTES_PER_STEP.get(hist)
+        emit("paged_gather", history=hist, **g_)
+
+    # (c) aliasing: a two-turn chat, 512-token pages then 1 024
+    alias = {}
+    turn1 = rand(1600)
+    for ps in (None, 1024):
+        eng = paged if ps is None else engine(kv_pages=True, kv_page_size=ps)
+        m0 = eng.metrics()
+        reply = eng.generate(turn1, max_new_tokens=n_tok, sampler=greedy).token_ids
+        turn2 = turn1 + reply + rand(40)
+        m1 = eng.metrics()
+        ttft_reuse, toks_reuse = _ttft(eng, turn2, greedy)
+        m2 = eng.metrics()
+        eng.prefix_cache = False
+        ttft_cold, toks_cold = _ttft(eng, turn2, greedy)
+        eng.prefix_cache = True
+        a = {"page_size": eng.kv_page_size, "turn1_tokens": len(turn1),
+             "turn2_tokens": len(turn2),
+             "alias_hits": m2["kv_page_alias_hits_total"] - m1["kv_page_alias_hits_total"],
+             "cow_copies": m2["kv_page_cow_copies_total"] - m1["kv_page_cow_copies_total"],
+             "reused_tokens": m2["prefix_tokens_saved_total"] - m1["prefix_tokens_saved_total"],
+             "turn2_ttft_s_reuse": ttft_reuse, "turn2_ttft_s_cold": ttft_cold,
+             "turn2_equal_cold": toks_reuse == toks_cold,
+             "turn1_alias_hits": m1["kv_page_alias_hits_total"] - m0["kv_page_alias_hits_total"]}
+        want_cow = 1 if a["reused_tokens"] % eng.kv_page_size else 0
+        require(a["alias_hits"] >= 1 and a["cow_copies"] == want_cow,
+                f"paged aliasing at {eng.kv_page_size}-token pages: {a}")
+        alias[eng.kv_page_size] = a
+        emit("paged_alias", **a)
+        if ps is not None:
+            done(eng)
+
+    # (e) the store, dense then paged, against the dense engine as cold
+    store = {}
+    long_p = rand(1200 if tiny else 4000)
+    dense.prefix_cache = False
+    cold_ttft, cold_toks = _ttft(dense, long_p, greedy, n_tok)
+    for kv_pages in (False, True):
+        eng = engine(kv_pages=kv_pages, prefix_store="host")
+        first = eng.generate(long_p, max_new_tokens=n_tok, sampler=greedy).token_ids
+        eng.drain_prefix_store()
+        snap_prompt = eng.metrics()["prefix_store_snapshot_bytes_total"]
+        _paged_streams(eng, [rand(600) for _ in range(4)], 8, greedy)
+        eng.drain_prefix_store()
+        m0 = eng.metrics()
+        ttft, toks = _ttft(eng, long_p, greedy, n_tok)
+        m1 = eng.metrics()
+        restored = m1["prefix_store_restored_tokens_total"] - m0["prefix_store_restored_tokens_total"]
+        r_s = m1["prefix_store_restore_seconds_total"] - m0["prefix_store_restore_seconds_total"]
+        r_b = m1["prefix_store_restore_bytes_total"] - m0["prefix_store_restore_bytes_total"]
+        st = {"kv_pages": kv_pages, "prompt_tokens": len(long_p),
+              "hits": m1["prefix_store_hits_total"] - m0["prefix_store_hits_total"],
+              "restored_tokens": restored, "restore_s": r_s, "restore_bytes": r_b,
+              "restore_gb_per_s": (r_b / r_s / 1e9) if r_s else None,
+              "snapshot_bytes_prompt": snap_prompt,
+              "snapshot_bytes": m1["prefix_store_snapshot_bytes_total"],
+              "store_bytes": m1["prefix_store_bytes"], "store_entries": m1["prefix_store_entries"],
+              "ttft_s_restore": ttft, "ttft_s_cold": cold_ttft,
+              "stream_equal_cold": toks == cold_toks, "first_equal_cold": first == cold_toks}
+        require(st["hits"] == 1 and restored >= len(long_p) - 2 * eng.prefill_chunk,
+                f"store leg: {st}")
+        require(toks == cold_toks, f"store leg: restored stream differs from the cold one ({st})")
+        store["paged" if kv_pages else "dense"] = st
+        emit("paged_store", **st)
+        done(eng)
+    done(dense, paged)
+
+    # (d) capacity: llama-3.1-8b at its 131 072-token window from a page pool
+    cap_seq = 8192 if tiny else 131072
+    spec31 = resolve_spec("llama-tiny" if tiny else "llama-3.1-8b", {"max_seq": str(cap_seq)})
+    require(all(getattr(spec31, f) == getattr(spec, f) for f in
+                ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size")),
+            "capacity leg: llama-3.1-8b's shapes differ from the weights built")
+    big = engine(spec31, n_slots=32, kv_pages=True, kv_pool_pages=256)
+    pool_bytes = (256 * big.kv_page_size * spec.n_layers * spec.n_kv_heads * spec.head_dim
+                  * 2 * 2)
+    rect = lambda slots: slots * cap_seq * spec.n_layers * spec.n_kv_heads * spec.head_dim * 4  # noqa: E731
+    lens = [30 + 9 * i for i in range(32)] if tiny else [300 + 87 * i for i in range(32)]
+    peak_pages = [0]
+    stop = [False]
+
+    def watch():
+        while not stop[0]:
+            peak_pages[0] = max(peak_pages[0], big.metrics()["kv_pages_allocated"])
+            time.sleep(0.01)
+
+    import threading
+
+    th = threading.Thread(target=watch, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    reqs = _paged_streams(big, [rand(n) for n in lens], n_tok, greedy)
+    wall = time.perf_counter() - t0
+    stop[0] = True
+    th.join()
+    served = [len(r.hist) - len(r.prompt_ids) for r in reqs]
+    require(all(n == n_tok for n in served), f"capacity leg: streams ended early {served}")
+    cap = {"model": "llama-tiny" if tiny else "llama-3.1-8b",
+           "max_seq": cap_seq, "slots": 32, "page_size": big.kv_page_size,
+           "pool_pages": 256, "pool_gb": pool_bytes / 1e9, "streams": 32,
+           "prompt_tokens": [lens[0], lens[-1]], "tokens_each": n_tok,
+           "peak_pages_allocated": peak_pages[0], "wall_s": wall,
+           "aggregate_tok_per_s": sum(served) / wall,
+           "peak_mem_gb": None if cpu else torch.cuda.max_memory_allocated() / 1e9,
+           "dense_rectangle_gb_4_slots": rect(4) / 1e9,
+           "dense_rectangle_gb_32_slots": rect(32) / 1e9}
+    emit("paged_capacity", **cap)
+    done(big)
+    if not cpu:
+        torch.cuda.synchronize()
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches,
+                "flash_decode_q8": flash_decode_q8_attention.launches}
+    single = sum(e._final_metrics["admission_dispatches_total"] for e in engines)
+    k2 = sum(_k2_steps(e._final_metrics) for e in by_kind["bf16"])
+    k2q8 = sum(_k2_steps(e._final_metrics) for e in by_kind["int8"])
+    if not cpu:
+        want = {"flash_prefill": spec.n_layers * single, "flash_decode": spec.n_layers * k2,
+                "flash_decode_q8": spec.n_layers * k2q8}
+        require(launches == want, f"paged launches {launches} != {want}")
+        require(all(n > 0 for n in launches.values()),
+                f"paged: a kernel of the path was never launched ({launches})")
+    del params, engines, dense, paged, big
+    info = {"model": model, "layers": spec.n_layers, "dtype": spec.dtype, "slots": 4,
+            "equal_legs": [(x["leg"], all(x["equal"])) for x in legs],
+            "gather": gather, "alias": alias, "store": store, "capacity": cap,
+            "launches": launches, "seconds": time.perf_counter() - t_phase,
+            "measured_on": f"{device_info['name']} ({device_info['power_limit']})"}
+    emit("paged", **{k: v for k, v in info.items() if k not in ("gather", "alias", "store",
+                                                                "capacity")})
+    return info
+
+
 def phase_profile(torch, cpu: bool, run_requests, card: str, decode_fn,
                   of: str = "serve", decode_kernels: tuple = ("flash_decode",)) -> None:
     """The same 4 concurrent requests again under torch.profiler: device time
@@ -4170,7 +4486,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tiny", action="store_true", help="llama-tiny shapes (rehearsal)")
     ap.add_argument("--phases",
                     default="device,build,kernels,model,serve,constrain,spec,scheduler,"
-                            "decode_graphs,knobs,fanout,members,checkpoint,moe,quant",
+                            "decode_graphs,knobs,fanout,members,checkpoint,moe,quant,paged",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -4225,6 +4541,7 @@ def main(argv=None) -> int:
                if "moe" in phases else None)
         quant = (phase_quant(torch, args.cpu, args.tiny, info, serve, "profile" in phases)
                  if "quant" in phases else None)
+        paged = phase_paged(torch, args.cpu, args.tiny, info) if "paged" in phases else None
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4234,7 +4551,7 @@ def main(argv=None) -> int:
         by_phase = {name: ph["launches"] for name, ph in (
             ("serve", serve), ("constrain", constrain), ("spec", spec), ("scheduler", scheduler),
             ("decode_graphs", graphs), ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
-            ("checkpoint", ckpt), ("moe", moe), ("quant", quant))
+            ("checkpoint", ckpt), ("moe", moe), ("quant", quant), ("paged", paged))
             if ph is not None}
         rows = []
         for name, src, replaces in (

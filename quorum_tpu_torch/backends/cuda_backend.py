@@ -114,10 +114,42 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    vocabulary as the target; window raised to the
                    target's; the target's dtype). Works with ckpt= and
                    random-init targets; implies spec_decode=4 when unset
+  kv_pages=0|1     paged KV slot memory (default 0): the dense
+                   [n_slots, max_seq] cache rectangle becomes a page pool
+                   + per-row page table — rows hold pages proportional to
+                   their actual length, and tier-0 prefix reuse becomes
+                   refcounted page aliasing (copy-on-write boundary page).
+                   Admission reserves a row's full span up front: pool
+                   exhaustion sheds at admission (503 + Retry-After) when
+                   the span can never fit, and queues when it fits later,
+                   never mid-stream. Decode attention (K2, K2q8) runs on
+                   the page-gathered window of each dispatch's history
+                   bucket. Structural (part of the engine key); composes
+                   with kv_quant=int8, members=M, quorum_dedup=1,
+                   response_format and prompt-lookup spec_decode; refused
+                   with ensemble>1 and draft-model speculation
+  kv_page_size=    tokens per KV page (default: prefill_chunk, else
+                   min(64, max_seq)); power of two dividing max_seq
+  kv_pool_pages=   physical pages in the pool (default: n_slots × max_seq
+                   / page_size, the dense rectangle's worth; set lower to
+                   oversubscribe slots)
+  prefix_store=host  host-RAM prefix store (default off): released slots'
+                   KV prefixes are copied device→host into a
+                   chunk-granular trie (byte-budget LRU), and an admission
+                   whose store match beats the slot-resident reuse
+                   restores the prefix host→device and prefills only the
+                   tail. Holds the cache's native representation
+                   (kv_quant=int8 halves host bytes). Applies when this
+                   backend constructs the engine; refused with members=N
+                   and ensemble=, and needs chunked prefill
+  prefix_store_bytes=  host byte budget for the store (default 1g); a
+                   plain byte count or a k/m/g binary suffix (512m)
+  prefix_store_chunk=  store granularity in tokens (default: the
+                   engine's prefill_chunk)
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet
-(``tp=``, ``kv_pages=``, ``prefix_store_bytes=``, …): a typo or an unported knob never builds an
+(``tp=``, ``zero_drain=``, ``qos=``, …): a typo or an unported knob never builds an
 engine that silently ignores it; ``quant=`` and ``kv_quant=`` values are
 checked there too (``int8`` or empty).
 
@@ -188,14 +220,13 @@ _OPTIONS = frozenset({
     "slots", "decode_chunk", "decode_pipeline", "decode_loop", "prefill_chunk",
     "prefix_cache", "seed", "device", "queue", "max_tokens", "members", "member",
     "member_seeds", "quorum_dedup", "ensemble", "ckpt", "quant", "kv_quant",
-    "spec_decode", "spec_model", "spec_ckpt", "spec_seed"})
+    "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "kv_pages", "kv_page_size",
+    "kv_pool_pages", "prefix_store", "prefix_store_bytes", "prefix_store_chunk"})
 _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
 _NOT_YET = frozenset({
-    "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl", "prefix_store",
-    "prefix_store_bytes", "prefix_store_chunk", "kv_pages", "kv_page_size", "kv_pool_pages",
-    "qos"})
+    "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl", "qos"})
 
 
 def _check_options(opts: dict[str, str]) -> None:
@@ -291,6 +322,56 @@ def _timeout_error(name: str, timeout: float) -> BackendError:
     return BackendError(msg, status_code=504,
                         body=oai.error_body(msg, type_="timeout_error", code=504),
                         headers={"Retry-After": "1"})
+
+
+def _parse_bytes_opt(name: str, raw: str) -> int:
+    """Byte-count URL option: a plain integer or a k/m/g binary suffix
+    (``prefix_store_bytes=512m``), as ``tpu://`` parses it."""
+    val = str(raw).strip().lower()
+    mult = 1
+    if val and val[-1] in "kmg":
+        mult = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30}[val[-1]]
+        val = val[:-1]
+    try:
+        out = int(val) * mult
+    except ValueError:
+        raise ValueError(
+            f"invalid {name}={raw!r} (an integer byte count, optionally "
+            "with a k/m/g suffix)") from None
+    if out < 1:
+        raise ValueError(f"invalid {name}={raw!r} (must be positive)")
+    return out
+
+
+def _store_knobs(opts: dict[str, str], members: int) -> dict:
+    """The ``prefix_store*`` options as engine knobs, with ``tpu://``'s
+    checks and words."""
+    store = str(opts.get("prefix_store", "")).strip().lower()
+    if store in ("", "0", "none", "off"):
+        store = ""
+    elif store != "host":
+        raise ValueError(
+            f"invalid prefix_store={opts.get('prefix_store')!r} "
+            "(host, or none/0/off to disable)")
+    if not store:
+        if "prefix_store_bytes" in opts or "prefix_store_chunk" in opts:
+            raise ValueError(
+                "prefix_store_bytes=/prefix_store_chunk= have no effect "
+                "without prefix_store=host — a silently ignored sizing "
+                "knob hides a misconfiguration")
+        return {}
+    if members > 1:
+        raise ValueError(
+            "prefix_store=host does not compose with members=N "
+            "(the stacked cache carries a member axis the "
+            "snapshot/restore programs do not address) — run "
+            "separate engines or drop prefix_store")
+    knobs = {"prefix_store": store,
+             "prefix_store_chunk": int(opts.get("prefix_store_chunk", 0))}
+    if "prefix_store_bytes" in opts:
+        knobs["prefix_store_bytes"] = _parse_bytes_opt("prefix_store_bytes",
+                                                       opts["prefix_store_bytes"])
+    return knobs
 
 
 def _parse_bool_opt(name: str, raw: str) -> bool:
@@ -424,7 +505,11 @@ class CudaBackend:
             prefill_chunk=int(opts.get("prefill_chunk", DEFAULT_PREFILL_CHUNK)),
             prefix_cache=_parse_bool_opt("prefix_cache", opts.get("prefix_cache", "1")),
             max_pending=int(opts.get("queue", DEFAULT_MAX_PENDING)),
-            ensemble=int(opts.get("ensemble", 1)))
+            ensemble=int(opts.get("ensemble", 1)),
+            kv_pages=_parse_bool_opt("kv_pages", opts.get("kv_pages", "0")),
+            kv_page_size=int(opts.get("kv_page_size", 0)),
+            kv_pool_pages=int(opts.get("kv_pool_pages", 0)))
+        knobs.update(_store_knobs(opts, members))
         knobs["quant"], knobs["kv_quant"] = check_quant_knobs(opts.get("quant") or None,
                                                               opts.get("kv_quant") or None)
         member_seeds = opts.get("member_seeds", "distinct")

@@ -118,8 +118,7 @@ Deadlines are the engine's: a request whose deadline has passed is shed at
 submit; each scheduler turn sheds pending ones (``DeadlineExceeded``, stage
 ``queue``) and cancels admitting (``prefill``) and active (``decode``)
 ones, and ``_effective_loop`` halves a megachunk until it fits the
-tightest deadline by the per-chunk latency EWMA. The host prefix store is
-not ported yet.
+tightest deadline by the per-chunk latency EWMA.
 
 Constrained decoding (``submit(grammar=...)``, a ``CompiledGrammar`` of
 ``constrain/``): every admitted grammar's token-DFA rows live in one device
@@ -170,6 +169,28 @@ route and read natively by K2q8 inside the decode graphs. Both compose with
 each other and with every scheduler path; tier-0 reuse reads the int8 rows
 as stored, so it stays exact. ``quorum_dedup`` refuses ``kv_quant``, as in
 JAX.
+
+Paged KV (``kv_pages=1``, the JAX engine's knob; ``cache/paging.py``): the
+cache is a page pool plus one device page table ``[rows, max_seq/ps]`` that
+the host writes in place at admission and release boundaries. Admission
+reserves a request's whole span (prompt + budget + the speculative
+overshoot); a span that can never fit the pool is a ``QueueFullError`` at
+submit, one that fits later waits in the queue. Tier-0 reuse shares the
+slot's retained page chain by reference, copying only a partly filled
+boundary page; released chains stay as reuse donors until the pool needs
+their pages (LRU). Every decode program gathers the window of its history
+bucket through the table and hands it to K2 or K2q8 unchanged, so a paged
+key is ``("paged", *dense key, history)``; a ``kv_pages=0`` engine's keys
+and programs are the dense ones. Composes with members (a slot group's M
+rows share one chain, reuse off), quorum_dedup, int8 KV, grammars and prompt
+lookup; refuses ensembles and draft models, in JAX's words.
+
+The host prefix store (``prefix_store="host"``; ``cache/prefix_store.py``):
+a released slot's prefix is cloned out of the cache on the engine's stream
+at the next scheduler turn and copied to pinned host memory, chunk by
+chunk, by a worker thread on a side stream; an admission whose store match
+beats the slot-resident reuse gets the tail past that overlap written back
+into its slot (or pages) before its first segment, and prefills the rest.
 """
 
 from __future__ import annotations
@@ -185,6 +206,10 @@ from typing import Iterator
 import torch
 
 from quorum_tpu_torch import resolve_device
+from quorum_tpu_torch.cache import kv_transfer, prefix_wire
+from quorum_tpu_torch.cache.paging import (PageAllocator, init_paged_cache, paged_copy_page,
+                                           validate_page_config)
+from quorum_tpu_torch.cache.prefix_store import DEFAULT_PREFIX_STORE_BYTES, PrefixStore
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.init import check_quant, init_params, init_params_stacked
 from quorum_tpu_torch.models.model_config import ModelSpec
@@ -226,6 +251,10 @@ CONSTRAIN_ARENA_KEEP = 4096
 CONSTRAIN_ARENA_MAX = 8192
 # Speculative decoding: the largest draft length an engine verifies.
 MAX_SPEC_DECODE = 16
+# Prefix store: snapshots waiting for the worker at most (each holds a
+# device copy of its slice until fetched); past it a snapshot is dropped,
+# a future store miss.
+SNAP_QUEUE_MAX = 8
 
 
 class QueueFullError(Exception):
@@ -619,6 +648,12 @@ class InferenceEngine:
         draft_spec: ModelSpec | None = None,
         draft_seed: int = 0,
         draft_params=None,
+        kv_pages: bool = False,
+        kv_page_size: int = 0,
+        kv_pool_pages: int = 0,
+        prefix_store: str | None = None,
+        prefix_store_bytes: int = DEFAULT_PREFIX_STORE_BYTES,
+        prefix_store_chunk: int = 0,
     ):
         self.spec = spec.validate()
         self.device = resolve_device(device)
@@ -669,6 +704,8 @@ class InferenceEngine:
         # model's runtime when one proposes the drafts (the JAX engine's
         # guards, word for word).
         self.spec_decode = max(0, min(int(spec_decode), MAX_SPEC_DECODE))
+        self._init_paging(kv_pages, kv_page_size, kv_pool_pages, draft_spec)
+        self._init_store(prefix_store, prefix_store_bytes, prefix_store_chunk)
         self._draft_rt = None
         if draft_spec is not None:
             if self.members > 1 or self.ensemble > 1:
@@ -683,8 +720,16 @@ class InferenceEngine:
                     "off — drop the draft knob instead)")
             self._draft_rt = _DraftRuntime(draft_spec, self.spec, self._rows, self.device,
                                            seed=draft_seed, params=draft_params)
-        self._ck, self._cv = init_cache(spec, stack * self.n_slots, device=self.device,
-                                        kv_quant=self.kv_quant)
+        if self.kv_pages:
+            # One device table shared by both sides, rewritten in place.
+            self._ck, self._cv = init_paged_cache(
+                spec, self.n_slots, self.kv_pool_pages, self.kv_page_size,
+                kv_quant=self.kv_quant, members=self.members if self.members > 1 else None,
+                device=self.device)
+            self._table = self._ck.table
+        else:
+            self._ck, self._cv = init_cache(spec, stack * self.n_slots, device=self.device,
+                                            kv_quant=self.kv_quant)
         # Per-row decode state, device-resident between chunks, and the
         # static inputs of a decode dispatch (its active rows, the drafts of
         # a verify turn, which rows may draft in a fused turn). Updated in
@@ -879,6 +924,14 @@ class InferenceEngine:
                 raise RuntimeError("engine has been shut down")
             if len(self._pending) >= self.max_pending:
                 raise QueueFullError(f"admission queue full ({self.max_pending} pending)")
+            if self.kv_pages:
+                need = self._paged_need(len(prompt), budget)
+                if need > self.kv_pool_pages:
+                    # A span that can never fit: shed now (a 503); a span
+                    # that fits only later waits in the queue.
+                    raise QueueFullError(
+                        f"request span of {need} pages exceeds the kv page "
+                        f"pool ({self.kv_pool_pages} pages)")
             self._pending.append(req)
             self.n_requests += 1
             self._cond.notify_all()
@@ -934,7 +987,9 @@ class InferenceEngine:
         decode steps, K2's launches per draft layer on the card).
         ``decode_chunks_total`` counts every dispatch,
         verify turns included; ``decode_steps_total`` only the plain
-        chunks' steps."""
+        chunks' steps. The ``prefix_store_restore_*`` and
+        ``prefix_store_snapshot_bytes_total`` ones are the port's: the
+        restores' blocking seconds and the bytes moved each way."""
         g = self._graphs
         with self._cond:
             return {
@@ -980,6 +1035,24 @@ class InferenceEngine:
                 "decode_graph_pool_bytes": g.pool_bytes if g else 0,
                 "decode_graph_warmup_steps_total": self.n_graph_warmup_steps,
                 "prefill_chunk": self.prefill_chunk,
+                "kv_pages": 1 if self.kv_pages else 0,
+                "kv_page_size": self.kv_page_size,
+                "kv_pages_allocated": self._page_alloc.allocated_pages if self.kv_pages else 0,
+                "kv_pages_free": self._page_alloc.free_pages if self.kv_pages else 0,
+                "kv_page_alias_hits_total": self.kv_page_alias_hits,
+                "kv_page_cow_copies_total": self.kv_page_cow_copies,
+                "prefix_store_hits_total": self.prefix_store_hits,
+                "prefix_store_restored_tokens_total": self.prefix_store_tokens_restored,
+                "prefix_store_snapshots_dropped_total": self.prefix_store_snapshots_dropped,
+                "prefix_store_restore_seconds_total": round(self.prefix_store_restore_s, 6),
+                "prefix_store_restore_bytes_total": self.prefix_store_restore_bytes,
+                "prefix_store_snapshot_bytes_total": self.prefix_store_snapshot_bytes,
+                "prefix_store_evictions_total": (self.prefix_store.n_evictions
+                                                 if self.prefix_store is not None else 0),
+                "prefix_store_bytes": (self.prefix_store.bytes_held
+                                       if self.prefix_store is not None else 0),
+                "prefix_store_entries": (self.prefix_store.n_entries
+                                         if self.prefix_store is not None else 0),
                 "inflight_chunks": len(self._inflight),
                 "admission_stall_seconds_total": round(self.admission_stall_s, 6),
                 "drain_gap_seconds_total": round(self.drain_gap_s, 6),
@@ -1007,16 +1080,521 @@ class InferenceEngine:
                     r.cancel.set()
             self._cond.notify_all()
         self._thread.join(timeout=timeout)
+        if self.prefix_store is not None:
+            self._snap_queue.put(None)
+            self._snap_thread.join(timeout=timeout)
+            self.prefix_store.clear()
         if self._thread.is_alive():
             return  # a device call is still running; the GC reclaims state later
         if self._stream is not None:
             self._stream.synchronize()  # nothing of ours may still read what we free
             self._graphs.clear()
         self.params = None
-        self._ck = self._cv = None
+        self._ck = self._cv = self._table = None
         self._draft_rt = None
         self._g_trans = self._g_accept = None
         self._host_pool.clear()
+
+    # ---- paged KV and the host prefix store: construction ------------------
+
+    def _init_paging(self, kv_pages, kv_page_size, kv_pool_pages, draft_spec) -> None:
+        """Paged KV slot memory (``kv_pages=1``), with the JAX engine's
+        checks and defaults: the page size defaults to ``prefill_chunk``
+        (else ``min(64, max_seq)``), the pool to the dense rectangle's
+        ``n_slots × max_seq / page_size`` pages. The host owns the page
+        table (``_table_host [n_slots, max_pages]``, under ``_cond``) and
+        uploads it in place at admission and release boundaries; one claim
+        count per slot group (on a stacked engine the M member rows of slot
+        s share ONE chain, each member reading its own pool copy)."""
+        self.kv_pages = bool(kv_pages)
+        self.kv_page_size = self.kv_pool_pages = 0
+        self._page_alloc: PageAllocator | None = None
+        self.kv_page_alias_hits = self.kv_page_cow_copies = 0
+        if not self.kv_pages:
+            return
+        if self.ensemble > 1:
+            raise ValueError(
+                "kv_pages=1 does not compose with ensemble>1: member m "
+                "reads its history through its OWN pool copy — "
+                "pool[m, table[m, slot]] — but the host allocator keeps "
+                f"one page chain per slot group ({self.n_slots} "
+                f"chains), not one per member row ({self.ensemble}x"
+                f"{self.n_slots}), so per-member tables can never "
+                "diverge. Stacked members=M share each slot group's "
+                "history by construction (one prompt per group, one "
+                "chain) and compose; consensus rows would need "
+                "per-member chains — run ensemble cells dense or drop "
+                "one knob")
+        if draft_spec is not None:
+            raise ValueError(
+                "kv_pages=1 does not compose with a draft model "
+                "(spec_model=/spec_ckpt=): the draft runtime keeps its "
+                "own dense cache and the fused draft→verify scan would "
+                "mix layouts in one program — prompt-lookup "
+                "spec_decode composes")
+        ps = int(kv_page_size) or self.prefill_chunk or min(64, self.spec.max_seq)
+        validate_page_config(self.spec.max_seq, ps)
+        self.kv_page_size = ps
+        mp = self.spec.max_seq // ps
+        n_data = int(kv_pool_pages) or self.n_slots * mp
+        if n_data < 1:
+            raise ValueError(f"kv_pool_pages={kv_pool_pages} must be >= 1")
+        self.kv_pool_pages = n_data
+        self._page_alloc = PageAllocator(n_data, ps)
+        self._table_host = torch.zeros((self.n_slots, mp), dtype=torch.int32)
+        self._page_claims = [0] * self.n_slots
+        self._table_dirty = False
+
+    def _init_store(self, prefix_store, prefix_store_bytes, prefix_store_chunk) -> None:
+        """The host prefix store (``prefix_store=host``), with the JAX
+        engine's checks: released slots' prefixes are snapshotted to host
+        RAM by a worker thread, and an admission whose store match beats
+        the slot-resident reuse restores it and prefills only the tail."""
+        mode = (prefix_store or "").strip().lower() or None
+        if mode not in (None, "host"):
+            raise ValueError(
+                f"unsupported prefix_store mode {prefix_store!r} "
+                "(host or none)")
+        self.prefix_store: PrefixStore | None = None
+        # Releases whose snapshot waits for the next scheduler turn, and
+        # the snapshots not yet handed to the worker.
+        self._pending_snaps: list[tuple[int, list[int]]] = []
+        self._snap_backlog = 0
+        self.prefix_store_hits = 0
+        self.prefix_store_tokens_restored = 0
+        self.prefix_store_snapshots_dropped = 0
+        self.prefix_store_restore_s = 0.0
+        self.prefix_store_restore_bytes = 0
+        self.prefix_store_snapshot_bytes = 0
+        if not mode:
+            return
+        if self.members > 1:
+            raise ValueError(
+                "prefix_store does not compose with members>1: the "
+                "stacked cache carries a member axis the single-slot "
+                "snapshot/restore programs do not address — run "
+                "separate engines or drop prefix_store")
+        if self.ensemble > 1:
+            raise ValueError(
+                "prefix_store does not compose with ensemble>1 (the "
+                "member-stacked cache is not snapshot/restored)")
+        if self.prefill_chunk <= 0:
+            raise ValueError(
+                "prefix_store requires chunked prefill (prefill_chunk "
+                ">= 16 after power-of-two alignment): restoring a "
+                "prefix prefills only the tail, through the segment "
+                "machinery")
+        chunk = int(prefix_store_chunk) or self.prefill_chunk
+        if chunk > self.spec.max_seq:
+            raise ValueError(
+                f"prefix_store_chunk={chunk} exceeds max_seq="
+                f"{self.spec.max_seq}: no prefix could ever be stored")
+        self.prefix_store = PrefixStore(chunk, int(prefix_store_bytes))
+        self._snap_queue: queue.Queue = queue.Queue()
+        self._snap_thread = threading.Thread(target=self._snapshot_worker, daemon=True,
+                                             name="quorum-torch-prefix-store")
+        self._snap_thread.start()
+
+    # ---- paged KV bookkeeping (kv_pages=1) ---------------------------------
+    #
+    # Admission reserves a row's FULL page span up front (prompt + budget +
+    # the speculative overshoot), so a live row's table entries never change
+    # while it decodes and a short pool sheds or queues at admission instead
+    # of failing a running stream. Allocator and mirror change under _cond;
+    # the COW copies and the table upload run on the scheduler thread, on
+    # the engine's stream, before the admission's first cache write.
+    #
+    # A row whose entries change while a dispatch issued earlier still
+    # reads them is dead in that dispatch or was released by the host: a
+    # released row is masked out of every later dispatch, and a dispatch
+    # issued before the release runs before the upload and the new
+    # tenant's writes (one stream), which overwrite whatever it wrote.
+
+    def _paged_need(self, n_prompt: int, budget: int) -> int:
+        """Pages covering every position a request could write: prompt,
+        budget and the speculative-verify overshoot (a verify turn writes
+        up to spec_decode+1 positions past the accepted length)."""
+        need_t = min(self.spec.max_seq, n_prompt + budget + self.spec_decode + 1)
+        return self._page_alloc.pages_for(need_t)
+
+    def _paged_fits(self, row: int, req: _Request) -> bool:
+        """Whether a claim of ``row`` for ``req`` can succeed after LRU
+        reclaim: the admission's head-of-line check (caller holds
+        ``_cond``). A fresh claim of a slot group may drop its OWN retained
+        donor, so those pages count as available too."""
+        a = self._page_alloc
+        sg = row % self.n_slots
+        n_need = self._paged_need(len(req.prompt_ids), req.budget)
+        if self._page_claims[sg]:
+            n_need -= len(a.chain(sg) or [])
+            return n_need <= a.free_pages + a.reclaimable_pages(protect=(sg,))
+        return n_need <= a.free_pages + a.reclaimable_pages()
+
+    def _paged_reclaim(self, n: int, protect=()) -> bool:
+        """Evict least-recently-retained chains until ``n`` pages are free
+        (caller holds ``_cond``). An evicted row loses its resident prefix:
+        its KV bytes are gone."""
+        a = self._page_alloc
+        while a.free_pages < n:
+            victim = a.evict_lru(protect=protect)
+            if victim is None:
+                return False
+            if not self._page_claims[victim]:
+                for m in range(self.members):
+                    self._resident[m * self.n_slots + victim] = []
+                self._table_host[victim, :] = 0
+            self._table_dirty = True
+        return True
+
+    def _paged_claim(self, row: int, req: _Request, reuse: int):
+        """Reserve flat row ``row``'s full page span for ``req`` (caller
+        holds ``_cond``): ``(reuse, cow_pairs)`` — the tier-0 reuse, clamped
+        to what the slot's retained chain still covers, and the (dst, src)
+        boundary pages to copy before the admission's first write — or
+        None when the pool cannot cover the span even after reclaim.
+
+        Reuse SHARES the retained chain's pages (refcount bump; the donor
+        entry stays), and a partly filled boundary page is replaced by a
+        private copy. On stacked engines reuse is 0: the M member rows of a
+        slot group share one chain, and a later member joining a live
+        chain only extends it."""
+        a = self._page_alloc
+        sg = row % self.n_slots
+        ps = self.kv_page_size
+        n_need = self._paged_need(len(req.prompt_ids), req.budget)
+        cow: list[tuple[int, int]] = []
+        if self.members > 1:
+            reuse = 0
+        if self._page_claims[sg]:
+            chain = a.chain(sg) or []
+            extra = n_need - len(chain)
+            if extra > 0:
+                if not self._paged_reclaim(extra, protect=(sg,)):
+                    return None
+                fresh = a.alloc(extra)
+                if fresh is None:  # pragma: no cover - reclaim guarantees
+                    return None
+                base = len(chain)
+                a.extend(sg, fresh)
+                self._table_host[sg, base:base + extra] = torch.tensor(fresh, dtype=torch.int32)
+                self._table_dirty = True
+            self._page_claims[sg] += 1
+            return 0, cow
+        held = a.retained_chain(sg)
+        if reuse and (held is None or len(held) * ps < reuse):
+            reuse = 0
+        p_keep = a.pages_for(reuse)
+        partial = bool(reuse % ps)
+        n_new = n_need - p_keep + (1 if partial else 0)
+        # Share the reused prefix BEFORE any donor drop or reclaim.
+        keep = a.share(held[:p_keep]) if p_keep else []
+        if n_new > a.free_pages:
+            # The group's own retained donor is a page source for its own
+            # claim (the kept prefix survives through the share above).
+            a.drop_retained(sg)
+        fresh: list[int] = []
+        if n_new > 0:
+            if not self._paged_reclaim(n_new, protect=(sg,)):
+                if keep:
+                    a.free(keep)
+                return None
+            got = a.alloc(n_new)
+            if got is None:  # pragma: no cover - reclaim guarantees
+                if keep:
+                    a.free(keep)
+                return None
+            fresh = got
+        a.touch(sg)
+        if partial:
+            repl = fresh.pop()
+            cow.append((repl, keep[-1]))
+            a.free([keep[-1]])
+            keep[-1] = repl
+        chain = keep + fresh
+        a.assign(sg, chain)
+        self._table_host[sg, :] = 0
+        self._table_host[sg, :len(chain)] = torch.tensor(chain, dtype=torch.int32)
+        self._table_dirty = True
+        self._page_claims[sg] = 1
+        if reuse:
+            self.kv_page_alias_hits += 1
+        return reuse, cow
+
+    def _paged_release_row(self, row: int) -> None:
+        """Drop one live claim on ``row``'s slot group (caller holds
+        ``_cond``); with the last one, retain the chain's pages covering the
+        resident tokens as a reuse donor and clear the table's tail. No-op
+        on dense engines."""
+        if not self.kv_pages:
+            return
+        a = self._page_alloc
+        sg = row % self.n_slots
+        if not self._page_claims[sg]:
+            return
+        self._page_claims[sg] -= 1
+        if self._page_claims[sg]:
+            return
+        keep = 0 if self.members > 1 else len(self._resident[sg])
+        chain = a.chain(sg) or []
+        a.release(sg, keep_tokens=keep)
+        kept = min(a.pages_for(keep), len(chain))
+        if len(chain) > kept:
+            self._table_host[sg, kept:len(chain)] = 0
+            self._table_dirty = True
+
+    def _paged_sync_table(self) -> None:
+        """Upload the host table into the device table IN PLACE, on the
+        engine's stream (graphs captured its address), each member's rows
+        offset into that member's pool copy. The source is a fresh pinned
+        tensor per upload: the caching host allocator keeps its block until
+        the copy has run, so a later upload never overwrites a copy still
+        queued."""
+        if not self.kv_pages:
+            return
+        with self._cond:
+            if not self._table_dirty:
+                return
+            tab = self._table_host.clone()
+            self._table_dirty = False
+        m = self.members
+        if m > 1:
+            off = (torch.arange(m, dtype=torch.int32) * (self.kv_pool_pages + 1))
+            tab = tab.repeat(m, 1) + off.repeat_interleave(self.n_slots)[:, None]
+        self._table.copy_(self._staged(tab), non_blocking=True)
+
+    def _paged_install(self, cow) -> None:
+        """The device half of a claim: the copy-on-write page copies, then
+        the table upload, on the engine's stream before the admission's
+        first cache write."""
+        for dst, src in cow:
+            paged_copy_page(self._ck, dst, src, members=self.members)
+            paged_copy_page(self._cv, dst, src, members=self.members)
+            self.kv_page_cow_copies += 1
+        self._paged_sync_table()
+
+    def _paged_claim_or_fail(self, req: _Request, slot: int, reuse: int) -> int | None:
+        """Claim ``slot``'s pages for ``req`` and install them; the reuse
+        the claim allows, or None (the request failed) when the pool came
+        up short after the fits check."""
+        with self._cond:
+            claim = self._paged_claim(slot, req, reuse)
+        if claim is None:
+            self.n_failures += 1
+            req.out.put(("err", RuntimeError(
+                "kv page claim failed after passing the fits check")))
+            return None
+        self._paged_install(claim[1])
+        return claim[0]
+
+    # ---- the host prefix store ---------------------------------------------
+
+    def _queue_snapshot(self, slot: int) -> None:
+        """Note a released slot whose prefix should reach the store (caller
+        holds ``_cond``); the slice is issued at the next scheduler turn
+        (``_dispatch_snapshots``), before any admission can claim it."""
+        if self.prefix_store is None:
+            return
+        tokens = self._resident[slot]
+        c = self.prefix_store.chunk_tokens
+        n = len(tokens) - len(tokens) % c
+        if n >= max(c, MIN_PREFIX_REUSE):
+            self._pending_snaps.append((slot, tokens[:n]))
+            self._snap_backlog += 1
+
+    def _dispatch_snapshots(self) -> None:
+        """Issue the deferred snapshot slices (scheduler thread, lock not
+        held): only the chunks the store does not cover yet, cloned out of
+        the cache on the engine's stream (a slot re-admitted at once cannot
+        change them), handed to the worker behind an event."""
+        if self.prefix_store is None:
+            return
+        with self._cond:
+            pending, self._pending_snaps = self._pending_snaps, []
+        for slot, tokens in pending:
+            try:
+                with self._cond:
+                    stale = self._resident[slot][:len(tokens)] != tokens
+                if stale:
+                    continue
+                if self._snap_queue.qsize() >= SNAP_QUEUE_MAX:
+                    self.prefix_store_snapshots_dropped += 1
+                    continue
+                have = self.prefix_store.covered(tokens)
+                if have >= len(tokens):
+                    continue
+                payload = kv_transfer.slice_rows((self._ck, self._cv), slot, have,
+                                                 len(tokens) - have)
+                event = None
+                if self._stream is not None:
+                    event = torch.cuda.Event()
+                    event.record()
+                self._snap_queue.put((tokens, have, payload, event))
+            except Exception:
+                # Snapshots are opportunistic: a failure loses one.
+                logger.exception("prefix-store snapshot dispatch failed")
+            finally:
+                with self._cond:
+                    self._snap_backlog -= 1
+
+    def _snapshot_worker(self) -> None:
+        """Copy dispatched snapshot slices to the host, chunk by chunk into
+        pinned buffers on a side stream (after the slice's event), and
+        insert them into the store."""
+        side = None
+        while True:
+            item = self._snap_queue.get()
+            try:
+                if item is None:
+                    return
+                tokens, have, payload, event = item
+                c = self.prefix_store.chunk_tokens
+                leaves = kv_transfer.chunk_leaves(payload)
+                n_chunks = (len(tokens) - have) // c
+                parts = [[x[:, :, i * c:(i + 1) * c] for x in leaves] for i in range(n_chunks)]
+                if event is None:
+                    chunks = [kv_transfer.fetch_to_host(part) for part in parts]
+                else:
+                    if side is None:
+                        torch.cuda.set_device(self.device)
+                        side = torch.cuda.Stream(self.device)
+                    with torch.cuda.stream(side):
+                        side.wait_event(event)
+                        chunks = [kv_transfer.fetch_to_host(part, out=[
+                            torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in part])
+                            for part in parts]
+                        done = torch.cuda.Event()
+                        done.record()
+                    done.synchronize()
+                del parts
+                del payload, leaves
+                self.prefix_store_snapshot_bytes += sum(a.nbytes for ch in chunks for a in ch)
+                self.prefix_store.insert(tokens, have, chunks)
+            except Exception:
+                logger.exception("prefix-store snapshot insert failed")
+            finally:
+                self._snap_queue.task_done()
+
+    def drain_prefix_store(self) -> None:
+        """Block until every snapshot queued so far is in the store (tests
+        and measurements; serving never waits): engine quiescence first (a
+        finished request's slot is released just after its end sentinel),
+        then the deferred slices, then the worker's queue."""
+        if self.prefix_store is None:
+            return
+        while True:
+            with self._cond:
+                busy = (bool(self._pending) or bool(self._admitting) or any(self._slots)
+                        or bool(self._inflight) or self._snap_backlog)
+                if busy:
+                    self._cond.notify_all()
+            if busy:
+                time.sleep(0.002)
+                continue
+            self._snap_queue.join()
+            with self._cond:
+                if not self._snap_backlog:
+                    return
+
+    def _wire_leaf_specs(self) -> list[tuple[tuple, torch.dtype]]:
+        """(shape, dtype) of each leaf of a one-chunk wire payload."""
+        spec, c = self.spec, self.prefix_store.chunk_tokens
+        vals = (spec.n_layers, spec.n_kv_heads, c, spec.head_dim)
+        if self.kv_quant:
+            side = [(vals, torch.int8), (vals[:3], torch.float32)]
+        else:
+            side = [(vals, getattr(torch, spec.dtype))]
+        return side * 2
+
+    def export_prefix_chunks(self, max_bytes: int | None = None) -> bytes:
+        """The store's restorable chunk chains in the migration wire format
+        (``cache/prefix_wire.py``). Host work only."""
+        if self.prefix_store is None:
+            raise ValueError(
+                "no host prefix store on this engine (prefix_store=host "
+                "is not configured)")
+        return prefix_wire.serialize_chains(
+            self.prefix_store.export_chains(max_bytes=max_bytes),
+            self.prefix_store.chunk_tokens)
+
+    def import_prefix_chunks(self, blob: bytes) -> dict:
+        """Seed the store from a wire blob, validated against this engine's
+        cache layout (chunk size, leaf count, each leaf's dtype and shape)
+        before anything is inserted. Returns the insert accounting."""
+        if self.prefix_store is None:
+            raise ValueError(
+                "no host prefix store on this engine (prefix_store=host "
+                "is not configured)")
+        chunk_tokens, chains = prefix_wire.parse(blob)
+        c = self.prefix_store.chunk_tokens
+        if chunk_tokens != c:
+            raise ValueError(
+                f"payload chunk_tokens={chunk_tokens} does not match this "
+                f"engine's prefix_store_chunk={c}")
+        expected = self._wire_leaf_specs()
+        for chain in chains:
+            for arrays in chain.payloads:
+                if len(arrays) != len(expected):
+                    raise ValueError(
+                        f"chunk carries {len(arrays)} arrays, this cache "
+                        f"has {len(expected)} leaves")
+                for a, (shape, dtype) in zip(arrays, expected):
+                    if tuple(a.shape) != shape or a.dtype != dtype:
+                        raise ValueError(
+                            f"chunk leaf {tuple(a.shape)}/{a.dtype} does not "
+                            f"match the cache layout {shape}/{dtype}")
+        tokens_imported = chains_imported = 0
+        for chain in chains:
+            got = self.prefix_store.import_chain(chain.tokens, chain.payloads)
+            if got:
+                chains_imported += 1
+                tokens_imported += got
+        return {"chains": len(chains), "chains_imported": chains_imported,
+                "tokens_imported": tokens_imported,
+                "store_bytes": self.prefix_store.bytes_held,
+                "store_entries": self.prefix_store.n_entries}
+
+    def _store_lookup(self, prompt: list[int], slot_reuse: int):
+        """``(restore_len, chunk payloads, first chunk index)`` when the
+        store's longest match beats the slot-resident reuse, else None.
+        The restore length obeys ``_reuse_len``'s rules: capped at len−1,
+        aligned down to a ``prefill_chunk`` multiple, at least
+        ``MIN_PREFIX_REUSE``."""
+        if self.prefix_store is None:
+            return None
+        cap = len(prompt) - 1
+        matched, payloads = self.prefix_store.longest_match(prompt[:cap])
+        r = min(matched, cap)
+        if self.prefill_chunk:
+            r -= r % self.prefill_chunk
+        if r < MIN_PREFIX_REUSE or r <= slot_reuse:
+            return None
+        return r, payloads
+
+    def _restore_into(self, slot: int, start: int, end: int, payloads) -> None:
+        """Write the stored prefix's positions ``[start, end)`` into
+        ``slot``'s cache rows (a paged slot's reserved pages), chunk by
+        chunk from the host, on the engine's stream: only the tail past
+        the slot-resident overlap ``[0, start)`` moves. Blocks until the
+        copies have landed: the restore's honest latency."""
+        t0 = time.perf_counter()
+        c = self.prefix_store.chunk_tokens
+        q8 = self.kv_quant is not None
+        moved = 0
+        for k in range(start // c, -(-end // c)):
+            lo, hi = max(start, k * c), min(end, (k + 1) * c)
+            leaves = [x.to(self.device, non_blocking=True)[:, :, lo - k * c:hi - k * c]
+                      for x in payloads[k]]
+            moved += sum(x.nbytes for x in leaves)
+            kv_transfer.write_rows((self._ck, self._cv),
+                                   kv_transfer.chunk_from_leaves(leaves, q8), slot, lo)
+        if self._stream is not None:
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        self.prefix_store_hits += 1
+        self.prefix_store_tokens_restored += end - start
+        self.prefix_store_restore_s += time.perf_counter() - t0
+        self.prefix_store_restore_bytes += moved
 
     # ---- scheduler --------------------------------------------------------
 
@@ -1045,7 +1623,8 @@ class InferenceEngine:
 
     def _has_work(self) -> bool:
         """Caller holds ``_cond``."""
-        return bool(self._pending or self._admitting or any(self._slots) or self._inflight)
+        return bool(self._pending or self._admitting or any(self._slots) or self._inflight
+                    or self._pending_snaps)
 
     def _schedule_forever(self) -> None:
         while True:
@@ -1129,19 +1708,23 @@ class InferenceEngine:
         self.n_constrained += 1
         return True
 
-    def _claim_chunked(self, req: _Request, slot: int, reuse: int) -> None:
+    def _claim_chunked(self, req: _Request, slot: int, reuse: int,
+                       offset: int | None = None) -> None:
         """Start a chunked admission of ``req`` into ``slot`` past ``reuse``
-        resident tokens. Caller holds ``_cond``."""
+        resident tokens (``offset``: past a restored prefix that ends
+        there). Caller holds ``_cond``."""
         if reuse:
             self.prefix_hits += 1
             self.prefix_tokens_saved += reuse
+        offset = reuse if offset is None else offset
         self._claimed.add(slot)
-        # Beyond the reused prefix the row is in flux; advertise only what is valid.
-        self._resident[slot] = req.prompt_ids[:reuse]
-        self._admitting.append(_Admission(req, slot, offset=reuse))
+        # Beyond the valid prefix the row is in flux; advertise only what is valid.
+        self._resident[slot] = req.prompt_ids[:offset]
+        self._admitting.append(_Admission(req, slot, offset=offset))
 
     def _start_admissions(self) -> None:
         self._maybe_reset_arena()
+        self._dispatch_snapshots()
         if self.members > 1:
             self._start_admissions_members()
             return
@@ -1152,27 +1735,43 @@ class InferenceEngine:
                 slot, lcp = self._pick_slot(self._pending[0].prompt_ids)
                 if slot is None:
                     return
+                if self.kv_pages and not self._paged_fits(slot, self._pending[0]):
+                    # The head waits for pages (order kept): releases wake us.
+                    return
                 req = self._pending.popleft()
                 if req.cancel.is_set():
                     self.n_cancelled += 1
                     req.out.put(("end", None))
                     continue
                 reuse = self._reuse_len(lcp, len(req.prompt_ids))
-                chunked = self._goes_chunked(req, reuse)
-                if not chunked:
-                    self._resident[slot] = []
-            if chunked:
-                # Only this thread claims rows: ``slot`` is still free.
-                if self._place_grammar(req):
-                    with self._cond:
-                        self._claim_chunked(req, slot, reuse)
+            # Only this thread claims rows: ``slot`` is still free.
+            if not self._place_grammar(req):
                 continue
+            if self.kv_pages:
+                reuse = self._paged_claim_or_fail(req, slot, reuse)
+                if reuse is None:
+                    continue
+            restore = self._store_lookup(req.prompt_ids, reuse)
+            if restore is not None:
+                n_restore, payloads = restore
+                with self._cond:
+                    self._claim_chunked(req, slot, reuse, offset=n_restore)
+                self._restore_into(slot, reuse, n_restore, payloads)
+                continue
+            if self._goes_chunked(req, reuse):
+                with self._cond:
+                    self._claim_chunked(req, slot, reuse)
+                continue
+            with self._cond:
+                self._resident[slot] = []
             try:
                 self._admit(req, slot)
             except Exception as e:
                 # This request's own prefill failed: doom it alone; the slot
-                # never activated.
+                # never activated, so its page claim unwinds.
                 logger.exception("admission failed")
+                with self._cond:
+                    self._paged_release_row(slot)
                 self.n_failures += 1
                 req.out.put(("err", e))
 
@@ -1370,12 +1969,15 @@ class InferenceEngine:
             if adm in self._admitting:
                 self._admitting.remove(adm)
             self._claimed.discard(adm.slot)
+            if self._slots[adm.slot] is not adm.req:
+                # Cancelled or failed before the row went live.
+                self._paged_release_row(adm.slot)
 
     def _fail_admissions(self, adms: list[_Admission], exc: Exception) -> None:
         for adm in adms:
-            self._release_admission(adm)
             with self._cond:
                 self._resident[adm.slot] = []  # the row's content is unknown now
+            self._release_admission(adm)
             self.n_failures += 1
             adm.req.out.put(("err", exc))
 
@@ -1425,6 +2027,11 @@ class InferenceEngine:
                         continue
                     reuse = self._reuse_len(lcp, len(r.prompt_ids))
                     if self._goes_chunked(r, reuse):
+                        if self.kv_pages:
+                            claim = self._paged_claim(slot, r, reuse)
+                            if claim is None:
+                                continue  # this member waits for pages
+                            reuse = claim[0]  # 0 on stacked engines: no copy
                         self._pending.remove(r)
                         chunked = (r, slot, reuse)
                         break
@@ -1442,14 +2049,30 @@ class InferenceEngine:
                             break
                     if row is None:
                         return  # no head has a usable row this turn
+                    if self.kv_pages:
+                        # One claim per group member on the slot group's
+                        # shared chain, sized by the largest need.
+                        n_claimed = 0
+                        for r in group.values():
+                            if self._paged_claim(row, r, 0) is None:
+                                break
+                            n_claimed += 1
+                        if n_claimed < len(group):
+                            for _ in range(n_claimed):
+                                self._paged_release_row(row)
+                            return  # the group waits for pages
                     for r in group.values():
                         self._pending.remove(r)
+            self._paged_sync_table()
             if chunked is not None:
                 # Only this thread claims rows: ``slot`` is still free.
                 r, slot, reuse = chunked
                 if self._place_grammar(r):
                     with self._cond:
                         self._claim_chunked(r, slot, reuse)
+                else:
+                    with self._cond:
+                        self._paged_release_row(slot)
                 continue  # route the remaining heads
             self._admit_members(group, row, bucket)
 
@@ -1463,6 +2086,8 @@ class InferenceEngine:
             if req.cancel.is_set():
                 self.n_cancelled += 1
                 req.out.put(("end", None))
+                with self._cond:
+                    self._paged_release_row(m * s + row)  # its claim on the group
             else:
                 live[m] = req
         if not live:
@@ -1486,7 +2111,17 @@ class InferenceEngine:
                                        self._prompt_tokens([prompt], bucket),
                                        self._lengths_of([prompt]), self._ck, self._cv,
                                        slot=rows[0])
-                if use_dedup:
+                if use_dedup and self.kv_pages:
+                    # Member 0's pages into every member's pool copy.
+                    with self._cond:
+                        chain = list(self._page_alloc.chain(row) or [])
+                    for p in chain[:self._page_alloc.pages_for(len(prompt))]:
+                        for cache in (self._ck, self._cv):
+                            stride = self.kv_pool_pages + 1
+                            src = cache.pool[:, p]
+                            for m in range(1, n_mem):
+                                cache.pool[:, m * stride + p].copy_(src)
+                elif use_dedup:
                     n = len(prompt)
                     for cache in (self._ck, self._cv):
                         by_member = cache.view(cache.shape[0], n_mem, s, *cache.shape[2:])
@@ -1505,8 +2140,11 @@ class InferenceEngine:
             firsts, lps = self._start_rows(list(live.values()), rows, logits)
         except Exception as e:
             # The group's own prefill failed: doom its members alone; no
-            # row went live.
+            # row went live, so their page claims unwind.
             logger.exception("admission failed")
+            with self._cond:
+                for flat in rows:
+                    self._paged_release_row(flat)
             for req in live.values():
                 self.n_failures += 1
                 req.out.put(("err", e))
@@ -1532,6 +2170,8 @@ class InferenceEngine:
         prefix stays reusable. Caller holds ``_cond``."""
         self._slots[i] = None
         self._resident[i] = req.hist[:-1]
+        self._paged_release_row(i)
+        self._queue_snapshot(i)
 
     def _sweep_cancelled(self) -> None:
         """Release rows whose consumer went away (or hit a stop string): they
@@ -1665,7 +2305,9 @@ class InferenceEngine:
         bias are in every program, so they add no key. A dispatch with a
         grammar row runs the constrained variant, keyed
         ``("dfa", steps, chunks, sort, logprobs, arena bucket)``; one with
-        none keeps the plain 4-tuple and the plain program."""
+        none keeps the plain 4-tuple and the plain program. A paged engine's
+        key is ``("paged", *that key, history)``: its program gathers a
+        window of ``history`` positions (``_history``)."""
         n_steps = max(1, min(r.chunk_hint or self.decode_chunk for _, r in active))
         ahead = sum(c.tokens_ahead for c in self._inflight)
         restrict = any(r.sampler.restricts and not r.sampler.greedy for _, r in active)
@@ -1674,9 +2316,21 @@ class InferenceEngine:
 
         def key(c):
             base = (n_steps, c, restrict, want_lp)
-            return ("dfa", *base, self._g_bucket) if constrained else base
+            base = ("dfa", *base, self._g_bucket) if constrained else base
+            if self.kv_pages:
+                return ("paged", *base, self._history(active, ahead, n_steps * c))
+            return base
 
         return key(self._loop_count(active, n_steps, ahead, key))
+
+    def _history(self, active, ahead: int, n_pos: int) -> int:
+        """The power-of-two bucket of the longest position any row of
+        ``active`` can reach in a dispatch of ``n_pos`` positions after
+        ``ahead`` in flight (the JAX engine's rule): the window a paged
+        program gathers and a verify turn's attention reads."""
+        max_seq = self.spec.max_seq
+        planned = max(len(r.prompt_ids) + r.emitted for _, r in active) + ahead
+        return prefill_bucket(min(planned + n_pos, max_seq), max_seq)
 
     def _loop_count(self, active, n_steps: int, ahead: int, key) -> int:
         """``_effective_loop``'s chunk (or fused turn) count; when the
@@ -1885,7 +2539,8 @@ class InferenceEngine:
         self._g_bucket = 0
 
     def _decode_program(self, n_steps: int, n_chunks: int, restrict: bool, want_lp: bool,
-                        constrained: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+                        constrained: bool = False,
+                        history: int | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """One decode dispatch over the rows set in ``_mask``: ``decode_chunk``
         for one chunk, ``decode_loop`` for more. Every step samples from
         ``adjust_logits`` (each row's bias, penalties and counts) and adds
@@ -1905,7 +2560,8 @@ class InferenceEngine:
         row whose token is not EOS, and counts the masked entries of live
         constrained rows (state > 0): a last column of the token output,
         per row summed over the chunk's steps. Each row's noise is its next
-        token's draw (``_ntok``, advanced per live step)."""
+        token's draw (``_ntok``, advanced per live step). ``history`` is a
+        paged cache's gathered window (None on a dense cache)."""
         n_top = min(TOP_LOGPROBS, self.spec.vocab_size)
         trans, eos = self._g_trans, self._eos
 
@@ -1940,12 +2596,13 @@ class InferenceEngine:
                 sample_fn, carry0)
         if n_chunks == 1:
             toks, _, n_valid, live, budget, _, _, lengths, carry, aux = decode_chunk(
-                self.params, self.spec, n_steps, *args, ensemble=self.ensemble)
+                self.params, self.spec, n_steps, *args, ensemble=self.ensemble, history=history)
             toks, n_valid, token = toks[None], n_valid[None], toks[:, -1]
             aux = tuple(a[None] for a in aux)
         else:
             toks, n_valid, token, live, budget, _, _, lengths, carry, aux = decode_loop(
-                self.params, self.spec, n_steps, n_chunks, *args, ensemble=self.ensemble)
+                self.params, self.spec, n_steps, n_chunks, *args, ensemble=self.ensemble,
+                history=history)
         # Rows outside this dispatch's active set keep their state.
         self._live.copy_(torch.where(self._mask, live, self._live))
         self._token.copy_(torch.where(self._mask, token, self._token))
@@ -1959,16 +2616,18 @@ class InferenceEngine:
             cols.append(aux[-1].sum(dim=1)[..., None].to(toks.dtype))  # [C, rows, 1]
         return torch.cat(cols, dim=-1), aux[0] if want_lp else None
 
-    def _warm_up(self) -> None:
+    def _warm_up(self, history: int | None = None) -> None:
         """One eager decode step with no row active (every write masked, no
         state changed), on the capture stream, before the first capture: it
         makes the lazy state a graph must not allocate (K2's scratch for the
         stream, RoPE tables, cuBLAS's workspace, the logprob variant's
         top-k). It launches K2 once per layer
-        (``decode_graph_warmup_steps_total``)."""
+        (``decode_graph_warmup_steps_total``). A paged engine warms each
+        history bucket before its first capture: K2q8's scratch is sized
+        from the window it reads."""
         mask = self._mask.clone()
         self._mask.zero_()
-        self._decode_program(1, 1, True, True)
+        self._decode_program(1, 1, True, True, history=history)
         self._mask.copy_(mask)
         self.n_graph_warmup_steps += 1
 
@@ -1977,15 +2636,17 @@ class InferenceEngine:
         tokens to the host, without waiting for either: one graph replay on
         the card."""
         key = self._dispatch_key(active)
-        constrained = key[0] == "dfa"
-        program = (*key[1:5], True) if constrained else key
+        history = key[-1] if key[0] == "paged" else None
+        body = key[1:-1] if key[0] == "paged" else key
+        constrained = body[0] == "dfa"
+        program = (*body[1:5], True) if constrained else body
         n_steps, n_chunks = program[:2]
         self.n_deadline_clamps += self._deadline_clamped
         self._set_mask(active)
         self._draw_noise(active, n_steps * n_chunks)
         self.n_decode_steps += n_steps * n_chunks
-        return self._issue(key, lambda: self._decode_program(*program), active, n_steps,
-                           n_chunks, constrained)
+        return self._issue(key, lambda: self._decode_program(*program, history=history), active,
+                           n_steps, n_chunks, constrained)
 
     def _set_mask(self, active) -> None:
         flags = [False] * self._rows
@@ -2003,7 +2664,10 @@ class InferenceEngine:
         if self._graphs is None:
             out, lp = program()
         elif spec_turn:
-            out, lp = self._graphs.replay(key, program, warm_up, family=key[0])
+            out, lp = self._graphs.replay(key, program, warm_up, family=_spec_family(key))
+        elif key[0] == "paged":
+            out, lp = self._graphs.replay(key, program, lambda: self._warm_up(key[-1]),
+                                          family=("paged", key[-1]))
         else:
             out, lp = self._graphs.replay(key, program, self._warm_up)
         host, lp_host, event = out, lp, None
@@ -2033,13 +2697,12 @@ class InferenceEngine:
         restrict = any(r.sampler.restricts and not r.sampler.greedy for _, r in active)
         want_lp = any(r.want_lp >= 0 for _, r in active)
         constrained = any(r.grammar is not None for _, r in active)
-        max_seq = self.spec.max_seq
-        planned = max(len(r.prompt_ids) + r.emitted for _, r in active) + ahead
-        history = prefill_bucket(min(planned + (g + 1) * n_turns, max_seq), max_seq)
+        history = self._history(active, ahead, (g + 1) * n_turns)
         if self._draft_rt is None:
+            key = ("verify", g, restrict, want_lp, history)
             if constrained:
-                return ("dfa_verify", g, restrict, want_lp, history, self._g_bucket)
-            return ("verify", g, restrict, want_lp, history)
+                key = ("dfa_verify", *key[1:], self._g_bucket)
+            return ("paged", *key) if self.kv_pages else key
         key = ("spec_loop", n_turns, g, restrict, want_lp, history)
         return (*key, "dfa", self._g_bucket) if constrained else key
 
@@ -2105,7 +2768,8 @@ class InferenceEngine:
         its program runs once eagerly with no row active, making the lazy
         state a capture must not allocate."""
         constrained = _constrained_key(key)
-        restrict, want_lp, history = key[3:6] if key[0] == "spec_loop" else key[2:5]
+        body = key[1:] if key[0] == "paged" else key
+        restrict, want_lp, history = body[3:6] if body[0] == "spec_loop" else body[2:5]
         rt = self._draft_rt
         self._set_mask(active)
         if rt is None:
@@ -2596,6 +3260,15 @@ class InferenceEngine:
             self._claimed.clear()
             self._inflight.clear()
             self._resident = [[] for _ in range(self._rows)]
+            self._snap_backlog -= len(self._pending_snaps)
+            self._pending_snaps = []
+            if self.kv_pages:
+                # No row survives: every chain and claim goes, the table
+                # points at the sinks again at the next upload.
+                self._page_alloc.reset()
+                self._table_host.zero_()
+                self._page_claims = [0] * self.n_slots
+                self._table_dirty = True
             self.n_rebuilds += 1
         for r in doomed:
             self.n_failures += 1
@@ -2605,7 +3278,12 @@ class InferenceEngine:
 def _constrained_key(key: tuple) -> bool:
     """A graph key of a constrained program variant (it reads the grammar
     arena's tables)."""
-    return key[0] in ("dfa", "dfa_verify") or "dfa" in key[1:]
+    return any(k in ("dfa", "dfa_verify") for k in key if isinstance(k, str))
+
+
+def _spec_family(key: tuple) -> str:
+    """The warm-up family of a speculative dispatch's key (its program)."""
+    return key[1] if key[0] == "paged" else key[0]
 
 
 def check_quant_knobs(quant: str | None, kv_quant: str | None) -> tuple[str | None, str | None]:
@@ -2681,18 +3359,26 @@ def get_engine(
     draft_spec: ModelSpec | None = None,
     draft_seed: int = 0,
     draft_ckpt: str | None = None,
+    kv_pages: bool = False,
+    kv_page_size: int = 0,
+    kv_pool_pages: int = 0,
+    prefix_store: str | None = None,
+    prefix_store_bytes: int = DEFAULT_PREFIX_STORE_BYTES,
+    prefix_store_chunk: int = 0,
 ) -> InferenceEngine:
     """Engines are keyed by weight identity (spec, seed, device, members,
     ensemble, member_seeds when members > 1, quant), by the cache
     representation (``kv_quant``), by ``quorum_dedup`` and by speculation
     (``spec_decode`` and the draft: its spec and seed, or its checkpoint's
-    real path), which are structural: backends that differ only in dispatch
-    knobs share one set of weights, so ``members=M&member=i`` backends
+    real path) and the page layout (``kv_pages`` with its page size and
+    pool, as the JAX engine keys it), which are structural: backends that
+    differ only in dispatch knobs share one set of weights, so ``members=M&member=i`` backends
     share one engine and a dedup URL never shares a non-dedup engine.
     ``draft_ckpt`` loads a local HF checkpoint as the draft model, its
     window raised to the target's (:func:`_load_draft_ckpt`). ``n_slots``,
     ``max_pending``, ``decode_pipeline``, ``decode_loop`` and
-    ``prefill_chunk`` apply at first construction. ``prefix_cache`` is not structural: a ``prefix_cache=0``
+    ``prefill_chunk`` apply at first construction, as do the ``prefix_store``
+    knobs (as on ``tpu://``). ``prefix_cache`` is not structural: a ``prefix_cache=0``
     from ANY backend turns reuse off on the shared engine (an explicit
     opt-out wins over a sharing default). ``device`` defaults to cuda and
     raises when there is none."""
@@ -2706,7 +3392,8 @@ def get_engine(
     key = (spec, int(seed), str(dev), members, ensemble,
            member_seeds if members > 1 else None, bool(quorum_dedup), quant or None,
            kv_quant or None, int(spec_decode), draft_spec,
-           int(draft_seed) if draft_spec is not None else None, draft_ckpt)
+           int(draft_seed) if draft_spec is not None else None, draft_ckpt,
+           (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None)
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None:
@@ -2720,7 +3407,10 @@ def get_engine(
                 prefix_cache=prefix_cache, max_pending=max_pending, members=members,
                 member_seeds=member_seeds, quorum_dedup=quorum_dedup, ensemble=ensemble,
                 quant=quant, kv_quant=kv_quant, spec_decode=spec_decode,
-                draft_spec=draft_spec, draft_seed=draft_seed, draft_params=draft_params)
+                draft_spec=draft_spec, draft_seed=draft_seed, draft_params=draft_params,
+                kv_pages=kv_pages, kv_page_size=kv_page_size, kv_pool_pages=kv_pool_pages,
+                prefix_store=prefix_store, prefix_store_bytes=prefix_store_bytes,
+                prefix_store_chunk=prefix_store_chunk)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
         return eng
@@ -2767,6 +3457,12 @@ def get_engine_from_ckpt(
     draft_spec: ModelSpec | None = None,
     draft_seed: int = 0,
     draft_ckpt: str | None = None,
+    kv_pages: bool = False,
+    kv_page_size: int = 0,
+    kv_pool_pages: int = 0,
+    prefix_store: str | None = None,
+    prefix_store_bytes: int = DEFAULT_PREFIX_STORE_BYTES,
+    prefix_store_chunk: int = 0,
 ) -> InferenceEngine:
     """An engine over a local HF checkpoint directory
     (``models/hf_loader.py``). Keyed by (real path, effective dtype,
@@ -2794,7 +3490,8 @@ def get_engine_from_ckpt(
     draft_resolved = os.path.realpath(draft_ckpt) if draft_ckpt else None
     eff_dtype = dtype or ModelSpec().dtype
     key = ("ckpt", resolved, eff_dtype, str(dev), quant, kv_quant, int(spec_decode),
-           draft_spec, int(draft_seed) if draft_spec is not None else None, draft_resolved)
+           draft_spec, int(draft_seed) if draft_spec is not None else None, draft_resolved,
+           (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None)
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None:
@@ -2812,7 +3509,9 @@ def get_engine_from_ckpt(
                 prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
                 max_pending=max_pending, quant=quant, kv_quant=kv_quant,
                 spec_decode=spec_decode, draft_spec=draft_spec, draft_seed=draft_seed,
-                draft_params=draft_params)
+                draft_params=draft_params, kv_pages=kv_pages, kv_page_size=kv_page_size,
+                kv_pool_pages=kv_pool_pages, prefix_store=prefix_store,
+                prefix_store_bytes=prefix_store_bytes, prefix_store_chunk=prefix_store_chunk)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
         return eng

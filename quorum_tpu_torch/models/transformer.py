@@ -65,6 +65,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from quorum_tpu_torch.cache.paging import (kv_is_paged, page_read, page_read_row, page_write,
+                                           window_index, write_slots)
 from quorum_tpu_torch.models.model_config import ModelSpec
 from quorum_tpu_torch.models.quant import emb_rows, is_quantized, qeinsum, quantize_act
 from quorum_tpu_torch.ops.attention import (attention, causal_mask, decode_attention,
@@ -395,7 +397,10 @@ def _block(x, block, spec, q_k_v_to_attn, token_mask=None, dense_moe: bool = Fal
 
 
 def kv_is_q8(cache) -> bool:
-    """True when a cache side is the int8 ``(q8, scale)`` pair."""
+    """True when a cache side is the int8 ``(q8, scale)`` pair, dense or a
+    paged pool's."""
+    if kv_is_paged(cache):
+        return cache.is_q8
     return isinstance(cache, tuple)
 
 
@@ -411,7 +416,10 @@ def _kv_dequant(q8: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _kv_layer(cache, l: int):
-    """Layer ``l`` of a cache side: a tensor, or the ``(q8, scale)`` pair."""
+    """Layer ``l`` of a cache side: a tensor, the ``(q8, scale)`` pair, or a
+    paged side's layer view."""
+    if kv_is_paged(cache):
+        return cache.layer(l)
     return (cache[0][l], cache[1][l]) if kv_is_q8(cache) else cache[l]
 
 
@@ -463,6 +471,11 @@ def prefill(
         dst = host_to_device([rows[i] for i in keep], torch.long, dev)
         if len(keep) < b:
             src = host_to_device(keep, torch.long, dev)
+    if kv_is_paged(cache_k):
+        # The page slots of the rows' positions 0..T, for every layer and side.
+        prow = (dst if isinstance(dst, torch.Tensor)
+                else torch.arange(dst.start, dst.stop, device=dev))
+        wslots = write_slots(cache_k.layer(0), prow, positions[None, :].expand(prow.shape[0], t))
     attn_fn = prefill_attention if plain_attention else flash_prefill_attention
     blocks = params["blocks"]
     moe_mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]) if spec.is_moe else None
@@ -473,8 +486,12 @@ def prefill(
                 q = apply_rope(q, cos, sin, positions)
                 k = apply_rope(k, cos, sin, positions)
             # in place (JAX: donated buffer); an int8 cache stores k, v quantized
-            _kv_put(_kv_layer(cache_k, l), (dst, slice(None), slice(None, t)), k[src])
-            _kv_put(_kv_layer(cache_v, l), (dst, slice(None), slice(None, t)), v[src])
+            if kv_is_paged(cache_k):
+                page_write(_kv_layer(cache_k, l), k[src], slots=wslots)
+                page_write(_kv_layer(cache_v, l), v[src], slots=wslots)
+            else:
+                _kv_put(_kv_layer(cache_k, l), (dst, slice(None), slice(None, t)), k[src])
+                _kv_put(_kv_layer(cache_v, l), (dst, slice(None), slice(None, t)), v[src])
             return attn_fn(q, k, v, lengths, window=spec.sliding_window), k, v
 
         x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask)
@@ -553,6 +570,12 @@ def prefill_segment(
         moe_mask = (torch.arange(t, device=dev)[None, :]
                     < host_to_device(n_valid, torch.long, dev)[:, None])
     blocks = params["blocks"]
+    ridx = None
+    if kv_is_paged(cache_k):
+        # Page slots and window blocks, the same for every layer and side.
+        first = cache_k.layer(0)
+        wslots = write_slots(first, dst[:, 0], wpos, wpos < spec.max_seq)
+        ridx = window_index(first.table[read], hist, first.page_size, spec.n_kv_heads)
 
     for l in range(spec.n_layers):
         def attend(q, k, v, l=l):
@@ -561,19 +584,26 @@ def prefill_segment(
                 k = apply_rope(k, cos, sin, positions)
             # cache[l][row, :, pos] ← [n, T, K, hd], in place
             ck, cv = _kv_layer(cache_k, l), _kv_layer(cache_v, l)
-            _kv_put(ck, (dst, slice(None), wpos), k[src], heads_last=True)
-            _kv_put(cv, (dst, slice(None), wpos), v[src], heads_last=True)
-            return attention(q, _seg_read(ck, read, hist, q.dtype),
-                             _seg_read(cv, read, hist, q.dtype), mask), k, v
+            if ridx is not None:
+                page_write(ck, k[src], slots=wslots)
+                page_write(cv, v[src], slots=wslots)
+            else:
+                _kv_put(ck, (dst, slice(None), wpos), k[src], heads_last=True)
+                _kv_put(cv, (dst, slice(None), wpos), v[src], heads_last=True)
+            return attention(q, _seg_read(ck, read, hist, q.dtype, ridx),
+                             _seg_read(cv, read, hist, q.dtype, ridx), mask), k, v
 
         x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask)
     return cache_k, cache_v
 
 
-def _seg_read(side, read: torch.Tensor, hist: int, dtype) -> torch.Tensor:
+def _seg_read(side, read: torch.Tensor, hist: int, dtype, index=None) -> torch.Tensor:
     """Rows ``read`` of one layer's cache side over ``[0, hist)`` in
     ``dtype``; an int8 side dequantizes the bounded window (the JAX
-    package's ``seg_read``)."""
+    package's ``seg_read``); a paged side gathers it through the table
+    (``index``: the rows' ``window_index``)."""
+    if kv_is_paged(side):
+        return page_read_row(side, read, hist, dtype, index)
     if kv_is_q8(side):
         return _kv_dequant(side[0][read, :, :hist], side[1][read, :, :hist], dtype)
     return side[read, :, :hist].to(dtype)
@@ -604,13 +634,20 @@ def decode_step_blocks(
     cache_v: torch.Tensor,
     write_mask: torch.Tensor | None = None,  # [B] bool: rows allowed to write
     plain_attention: bool = False,
+    history: int | None = None,
 ):
     """The layer loop of :func:`decode_step` on pre-embedded hidden states:
     per-row RoPE at ``lengths``, per-row K/V write at ``lengths`` (rows with
     ``write_mask`` False write back what the cache already held — an
     inactive slot must not clobber a freshly admitted row), attention over
     each row's ``lengths + 1`` live entries. Returns ``(x, cache_k,
-    cache_v)`` with ``x`` still pre-final-norm. MoE layers run dense."""
+    cache_v)`` with ``x`` still pre-final-norm. MoE layers run dense.
+
+    A paged cache (``cache/paging.py``) writes through its page table and
+    hands attention the gathered window of each row's first ``history``
+    positions (the whole window by default), which K2 or K2q8 read as they
+    read a dense cache; a dense cache ignores ``history`` (K2 reads each
+    row's exact length)."""
     b = x.shape[0]
     cos, sin = _rope(spec, x.device)
     rows = torch.arange(b, device=x.device)
@@ -638,14 +675,28 @@ def decode_step_blocks(
         else:
             put(side, value[:, :, 0])
 
+    paged = kv_is_paged(cache_k)
+    if paged:
+        # Page slots of this step's writes and the window's blocks: the
+        # same for every layer and both sides, built once a step.
+        first = cache_k.layer(0)
+        hist = min(history or spec.max_seq, spec.max_seq)
+        wslots = write_slots(first, rows, pos[:, None], (allow & (pos < spec.max_seq))[:, None])
+        ridx = window_index(first.table, hist, first.page_size, spec.n_kv_heads)
+
     for l in range(spec.n_layers):
         def attend(q, k, v, l=l):
             if spec.pos == "rope":
                 q = apply_rope(q, cos, sin, pos[:, None])
                 k = apply_rope(k, cos, sin, pos[:, None])
             ck, cv = _kv_layer(cache_k, l), _kv_layer(cache_v, l)
-            write(ck, k)
-            write(cv, v)
+            if paged:
+                page_write(ck, k, slots=wslots)
+                page_write(cv, v, slots=wslots)
+                ck, cv = page_read(ck, hist, ridx), page_read(cv, hist, ridx)
+            else:
+                write(ck, k)
+                write(cv, v)
             sides = (*ck, *cv) if q8 else (ck, cv)
             return attn_fn(q, *sides, live_len, window=spec.sliding_window), k, v
 
@@ -663,6 +714,7 @@ def decode_step(
     write_mask: torch.Tensor | None = None,
     plain_attention: bool = False,
     ensemble: int = 1,
+    history: int | None = None,
 ):
     """One autoregressive step. Returns (logits [B, V] f32, cache_k, cache_v).
 
@@ -675,7 +727,7 @@ def decode_step(
     x = decode_token_embed(params, spec, token, lengths)
     x, cache_k, cache_v = decode_step_blocks(
         params["blocks"], spec, x, lengths, cache_k, cache_v,
-        write_mask=write_mask, plain_attention=plain_attention)
+        write_mask=write_mask, plain_attention=plain_attention, history=history)
     x = _final_norm(params, spec, x)
     logits = _unembed(params, spec, x[:, 0, :])
     if ensemble > 1:
@@ -698,6 +750,7 @@ def decode_chunk(
     sample_carry,
     plain_attention: bool = False,
     ensemble: int = 1,
+    history: int | None = None,
 ):
     """``n_steps`` decode steps with on-device finish accounting.
 
@@ -708,7 +761,8 @@ def decode_chunk(
     aux)`` supplies sampling; ``aux`` tuples are stacked over steps.
 
     Member-stacked params run all M·S rows in one step (the JAX engine's
-    members branch); ``ensemble`` is passed to :func:`decode_step`.
+    members branch); ``ensemble`` and ``history`` (a paged cache's window)
+    are passed to :func:`decode_step`.
 
     Returns ``(tokens [B, n_steps], valid [B, n_steps] bool, n_valid [B],
     live, budget, cache_k, cache_v, lengths, sample_carry, aux)``."""
@@ -718,7 +772,7 @@ def decode_chunk(
         pos = torch.where(lv, lens, torch.zeros_like(lens))
         logits, cache_k, cache_v = decode_step(params, spec, tok, pos, cache_k, cache_v,
                                                write_mask=lv, plain_attention=plain_attention,
-                                               ensemble=ensemble)
+                                               ensemble=ensemble, history=history)
         nxt, sample_carry, aux = sample_fn(logits.float(), lv, sample_carry)
         nxt = torch.where(lv, nxt.to(tok.dtype), tok)
         lens = lens + lv.to(lens.dtype)
@@ -773,7 +827,9 @@ def decode_multi(
     contracts the cache in its own dtype into f32 scores, so the window is
     never copied to f32; an int8 side is dequantized over the window, as
     JAX's does. MoE layers run dense, never grouped: verify logits must
-    match the T = 1 path. Member-stacked params run member-major rows as
+    match the T = 1 path. A paged cache writes through its page table
+    (positions past ``max_seq`` drop, ``clamp_writes`` or not) and reads
+    the gathered window. Member-stacked params run member-major rows as
     :func:`decode_chunk` does; ``ensemble`` = E > 1 runs every row through
     the E weight sets (cache rows ``e·B + b``) and averages their logits."""
     if ensemble > 1:
@@ -810,8 +866,19 @@ def decode_multi(
         mask = keep.reshape(b, t, *([1] * (value.dim() - 2)))
         cache[rows, :, wpos] = torch.where(mask, value.to(cache.dtype), old)
 
+    ridx = None
+    if kv_is_paged(cache_k):
+        # Out-of-window positions drop exactly (no roll to work around);
+        # slots and window blocks built once for every layer and side.
+        first = cache_k.layer(0)
+        wslots = write_slots(first, torch.arange(b, device=dev), pos,
+                             allow[:, None] & (pos < max_seq))
+        ridx = window_index(first.table, hist, first.page_size, spec.n_kv_heads)
+
     def write(side, value):
-        if kv_is_q8(side):
+        if kv_is_paged(side):
+            page_write(side, value, slots=wslots)
+        elif kv_is_q8(side):
             v8, s = _kv_quantize(value)
             put(side[0], v8)
             put(side[1], s)
@@ -819,6 +886,9 @@ def decode_multi(
             put(side, value)
 
     def read(side, dtype):
+        if kv_is_paged(side):
+            r = page_read(side, hist, ridx)
+            return _kv_dequant(r[0], r[1], dtype) if side.is_q8 else r
         if kv_is_q8(side):
             return _kv_dequant(side[0][:, :, :hist], side[1][:, :, :hist], dtype)
         return side[:, :, :hist]
@@ -862,6 +932,7 @@ def decode_loop(
     sample_carry,
     plain_attention: bool = False,
     ensemble: int = 1,
+    history: int | None = None,
 ):
     """Megachunk decode: ``n_chunks`` :func:`decode_chunk` bodies back to
     back in one dispatch (the JAX package's ``decode_loop``; the engine
@@ -886,7 +957,7 @@ def decode_loop(
         (toks, _valid, n_valid, lv, bud, cache_k, cache_v, lens, sample_carry,
          aux) = decode_chunk(params, spec, n_steps, tok, lens, lv, bud, eos, cache_k, cache_v,
                              sample_fn, sample_carry, plain_attention=plain_attention,
-                             ensemble=ensemble)
+                             ensemble=ensemble, history=history)
         # toks[:, -1] IS the carried token (dead rows freeze theirs).
         tok = toks[:, -1]
         toks_all.append(torch.where(entered, toks, torch.zeros_like(toks)))

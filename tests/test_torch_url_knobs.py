@@ -4,6 +4,10 @@
   ``ModelSpec`` fields, ``device``) is a ValueError at ``from_spec`` that
   names the option, before any engine exists; the ``tpu://`` options the
   port does not serve yet say so. Every known option still builds.
+- The six paging and prefix-store options (``kv_pages``, ``kv_page_size``,
+  ``kv_pool_pages``, ``prefix_store``, ``prefix_store_bytes``,
+  ``prefix_store_chunk``) parse and build the engine they name; their
+  misuse is refused in ``tpu://``'s words.
 - ``decode_loop=`` is validated at config time, as ``tpu://`` validates it
   (tests/test_decode_loop.py::test_url_knobs_validated_at_config_time).
 - ``top_k`` in a request body is ignored, as ``tpu://`` ignores it: a body
@@ -64,15 +68,53 @@ def test_unknown_options_are_refused_by_name(option, no_engine):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("prefix_store_bytes", "1G"), ("sp", "2"), ("kv_page_size", "16"), ("zero_drain", "1"),
-    ("kv_pool_pages", "64"), ("prefix_store", "host"), ("tp", "2"), ("pp", "2"),
-    ("disagg", "1+1"), ("flash_decode", "1"), ("kv_pages", "1"), ("qos", "1"),
+    ("sp", "2"), ("zero_drain", "1"), ("tp", "2"), ("pp", "2"),
+    ("disagg", "1+1"), ("flash_decode", "1"), ("qos", "1"),
 ])
 def test_tpu_only_options_say_they_are_not_served_yet(option, value, no_engine):
     # flash_decode= is refused for good (test_flash_decode_refusal_is_permanent).
     tail = ", and will not" if option == "flash_decode" else " yet"
     with pytest.raises(ValueError, match=rf"does not serve the {option}= option{tail}"):
         _from_url(f"{BASE}&{option}={value}")
+
+
+@pytest.mark.parametrize("tail,want", [
+    ("&kv_pages=1", {"kv_pages": True, "kv_page_size": 16, "kv_pool_pages": 2 * 8}),
+    ("&kv_pages=1&kv_page_size=32&kv_pool_pages=5&kv_quant=int8",
+     {"kv_pages": True, "kv_page_size": 32, "kv_pool_pages": 5}),
+    ("&prefix_store=host&prefix_store_bytes=512m&prefix_store_chunk=32",
+     {"store": (512 << 20, 32)}),
+    ("&kv_pages=yes&prefix_store=host", {"kv_pages": True, "store": (1 << 30, 16)}),
+    ("&kv_pages=1&kv_page_size=24", "refused"),
+    ("&prefix_store_bytes=1g", "refused"),
+    ("&prefix_store=host&members=3&member=0", "refused"),
+    ("&kv_pages=1&ensemble=2", "refused"),
+    ("&prefix_store=host&prefix_store_bytes=0", "refused"),
+], ids=["kv_pages", "page-geometry-int8", "store-sized", "both", "page-size-24",
+        "store-bytes-alone", "store-members", "pages-ensemble", "store-bytes-0"])
+def test_paging_and_store_options_build_or_refuse_in_tpu_words(tail, want):
+    """The six paging and prefix-store options parse and build the engine
+    they name (``slots=2&max_seq=128&prefill_chunk=16``: 16-token pages,
+    a 16-page default pool); their misuse is refused in tpu://'s words."""
+    base = "&slots=2&max_seq=128&prefill_chunk=16&n_layers=1"
+    try:
+        if want == "refused":
+            with pytest.raises(ValueError) as got:
+                _from_url(f"{BASE}{base}{tail}")
+            assert str(got.value) == _jax_refusal(f"tpu://llama-tiny?dtype=float32{base}{tail}")
+            return
+        eng = _from_url(f"{BASE}{base}{tail}").engine
+        for name in ("kv_pages", "kv_page_size", "kv_pool_pages"):
+            if name in want:
+                assert getattr(eng, name) == want[name], name
+        if "store" in want:
+            assert (eng.prefix_store.max_bytes, eng.prefix_store.chunk_tokens) == want["store"]
+        else:
+            assert eng.prefix_store is None
+        if eng.kv_pages:  # a dense URL of the same model never shares the paged engine
+            assert _from_url(f"{BASE}{base}").engine is not eng
+    finally:
+        shutdown_all_engines()
 
 
 def _jax_refusal(url: str) -> str:
