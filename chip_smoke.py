@@ -1180,10 +1180,13 @@ def _prompt(n_bytes: int, seed: int) -> str:
     return " ".join(out)[:n_bytes]
 
 
-async def _call(app, body: dict) -> dict:
+async def _call(app, body: dict, headers: dict | None = None, method: str = "POST",
+                path: str = "/v1/chat/completions", query: str = "",
+                raw: bytes | None = None) -> dict:
     """Drive the ASGI app directly (no HTTP client needed) and time the
-    response's body messages."""
-    raw = json.dumps(body).encode()
+    response's body messages: a chat by default; ``headers`` are added to
+    the request's, ``raw`` replaces the JSON body."""
+    raw = json.dumps(body).encode() if raw is None else raw
     sent = []
     t0 = time.perf_counter()
     done = False
@@ -1198,9 +1201,10 @@ async def _call(app, body: dict) -> dict:
     async def send(message):
         sent.append((time.perf_counter() - t0, message))
 
-    scope = {"type": "http", "method": "POST", "path": "/v1/chat/completions",
+    scope = {"type": "http", "method": method, "path": path, "query_string": query.encode(),
              "headers": [(b"authorization", b"Bearer smoke"),
-                         (b"content-type", b"application/json")]}
+                         (b"content-type", b"application/json")]
+             + [(k.encode(), v.encode()) for k, v in (headers or {}).items()]}
     await app(scope, receive, send)
     status = sent[0][1]["status"]
     headers = {k.decode().lower(): v.decode() for k, v in sent[0][1]["headers"]}
@@ -2241,10 +2245,11 @@ def phase_knobs(torch, cpu: bool, tiny: bool, device_info: dict, graph_ms) -> di
         # starts beside it once it is in the engine (a request that arrives
         # behind two dispatches of C chunks in flight waits for them before
         # its admission: the queue-shed leg below reads that wait). Twice:
-        # cold, where a clamped dispatch may capture its key first (a
-        # capture is bounded by no deadline: reported, not asserted), then
+        # cold, where a clamped dispatch may capture its key first (the
+        # engine's deadline watch answers the 504 during the capture), then
         # warm, after 9- and 17-token requests have captured the 1- and
-        # 2-chunk keys a clamped dispatch can take (asserted).
+        # 2-chunk keys a clamped dispatch can take (no capture: asserted).
+        # Both 504s are the engine's, within 0.3 s of the deadline.
         side = prompt(200)
         solo, _ = run(eng, side, n=64)
         deaths = eng.metrics()["deadline_exceeded_total"]
@@ -2276,7 +2281,11 @@ def phase_knobs(torch, cpu: bool, tiny: bool, device_info: dict, graph_ms) -> di
             resp, waited = box["resp"], box["waited"]
             m_r1 = eng.metrics()
             # Each dispatch of the run: its chunks and when it was issued.
+            # The 504 is the engine's, also while a first capture holds the
+            # scheduler (its deadline watch answers it).
+            message = json.loads(resp["data"] or b"{}").get("error", {}).get("message", "")
             leg[f"timeout_{run_name}"] = {
+                "engine_deadline": "deadline exceeded during" in message,
                 "status": resp["status"], "after_s": waited, "deadline_to_504_s": waited - 0.5,
                 "captures": (m_r1["decode_graph_captures_total"]
                              - m_r0["decode_graph_captures_total"]),
@@ -2288,8 +2297,8 @@ def phase_knobs(torch, cpu: bool, tiny: bool, device_info: dict, graph_ms) -> di
                     f"{resp['data'][:200]!r}")
             require(live_toks == solo, f"knobs loop={loop}: the live stream changed beside "
                     "the timed-out request")
-        require(waited <= 0.5 + 0.3, f"knobs loop={loop}: the warm 504 came {waited:.3f} s "
-                "after a 0.5 s timeout")
+            require(waited <= 0.5 + 0.3, f"knobs loop={loop}: the {run_name} 504 came "
+                    f"{waited:.3f} s after a 0.5 s timeout")
         require(leg["timeout_warm"]["captures"] == 0, f"knobs loop={loop}: the warm timeout "
                 "run captured a graph")
         # (f) a request queued behind four busy slots past its deadline → 503
@@ -4479,6 +4488,521 @@ def phase_profile(torch, cpu: bool, run_requests, card: str, decode_fn,
          measured_on=card)
 
 
+# K1's and K2's kernel names as a profiler trace shows them.
+_K1_NAMES = _KERNEL_GROUPS[0][1]
+_K2_NAMES = _KERNEL_GROUPS[1][1]
+
+
+def _engine_bytes(eng) -> int:
+    """Device bytes of an engine's weights and KV cache."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                yield from leaves(v)
+        elif hasattr(tree, "nbytes"):
+            yield tree
+
+    return sum(t.nbytes for t in leaves([eng.params, eng._ck, eng._cv]))
+
+
+def _counts(text: str, family: str, labels: str = "") -> float:
+    import re
+
+    m = re.search(rf"^{family}_count{re.escape(labels)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def _quiet(eng) -> None:
+    """Wait until ``eng`` holds no request and no dispatch (its scheduler
+    thread then waits on its condition)."""
+    t0 = time.perf_counter()
+    while True:
+        m = eng.metrics()
+        if not (m["busy_slots"] or m["admitting"] or m["pending"] or m["inflight_chunks"]):
+            break
+        require(time.perf_counter() - t0 < SERVE_TIMEOUT_S, "the engine never went idle")
+        time.sleep(0.01)
+    time.sleep(0.1)
+
+
+def _scrape(torch, cpu: bool, app, path: str = "/metrics") -> tuple[dict, float]:
+    """One GET of ``path`` timed on the host; on the card under
+    ``set_sync_debug_mode("error")``, so a device sync in it raises (the
+    engines must be idle: the mode holds for every thread)."""
+    for b in app.state["registry"].backends:
+        _quiet(b.engine)
+    if not cpu:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        resp = asyncio.run(_call(app, {}, method="GET", path=path, raw=b""))
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if not cpu:
+            torch.cuda.set_sync_debug_mode("default")
+    require(resp["status"] == 200, f"GET {path}: {resp['status']} {resp['data'][:200]!r}")
+    return resp, ms
+
+
+def _trace_kernels(profile_dir: str) -> dict:
+    """Kernel events of a /debug/profile Chrome trace: K1's and K2's, and
+    all kernels."""
+    import collections
+
+    with open(os.path.join(profile_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"kernel_events": len(kernels),
+            "k1": sum(1 for n in kernels if any(f in n for f in _K1_NAMES)),
+            "k2": sum(1 for n in kernels if any(f in n for f in _K2_NAMES)),
+            "categories": dict(collections.Counter(str(e.get("cat")) for e in events))}
+
+
+def phase_observe(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+    """Serving surfaces and observability (the app's /ready, /metrics,
+    /debug/* routes, the flight recorder, CUDA-event device time, the
+    failure breaker, fault sites with verify containment, hot reload):
+
+    (a) serving under observation, full width (llama-3-8b, 32 layers, bf16,
+        4 slots, decode_chunk 8): the serve phase's 4 chats through the app,
+        each with its own ``traceparent`` — every trace found by its request
+        id with that trace id and the engine's spans; /metrics' histogram
+        counts up by the requests served; /metrics, /health and
+        /debug/telemetry scraped under ``set_sync_debug_mode("error")``
+        (a device sync raises) and timed on the host; 4 greedy rows × 64
+        tokens with the recorder on, off, off, on (streams equal; device and
+        host ms per 8-step 4-row dispatch); each such dispatch's CUDA-event
+        time (``quorum_tpu_dispatch_device_seconds{family="plain"}``)
+        against replays of the same captured graph timed alone;
+        ``POST /debug/profile?seconds=2`` during a live stream with an
+        admission inside the window: the trace names K2 and K1, and a second
+        POST meanwhile gets 409;
+    (b) faults and the breaker (8 layers): ``engine.decode`` armed three
+        times opens the breaker, /ready is a 503 with Retry-After, a chat
+        sheds with 503; after the cool-down (set to 1 s here) a probe admits
+        and the breaker closes; device memory does not grow;
+    (c) verify containment (8 layers, ``spec_decode=4``, an oracle draft):
+        ``engine.verify`` armed once fails the turn's 2 rows alone, and the
+        queued request's stream equals its fault-free twin's;
+    (d) hot reload (8 layers): a config edit drops one of two engines, and
+        ``memory_allocated`` falls by at least its weights and cache;
+    (e) prefix chunks (8 layers, ``prefix_store=host``): GET from one
+        engine's app, PUT into another's, the same ≈ 4 000-token prompt
+        there: restored tokens, TTFT against cold, streams equal;
+
+    with K1 and K2 launches over the phase exact."""
+    import tempfile
+    import uuid
+
+    from quorum_tpu_torch import faults
+    from quorum_tpu_torch.backends.cuda_backend import CudaBackend
+    from quorum_tpu_torch.config import Config, load_config
+    from quorum_tpu_torch.engine.engine import _ENGINES, InferenceEngine, shutdown_all_engines
+    from quorum_tpu_torch.models.init import init_params
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.server.app import create_app
+    from quorum_tpu_torch.telemetry.metrics import validate_exposition
+    from quorum_tpu_torch.telemetry.recorder import RECORDER
+
+    model = "llama-tiny" if tiny else "llama-3-8b"
+    dev = "cpu" if cpu else "cuda"
+    dev_q = "&device=cpu" if cpu else ""
+    card = f"{device_info['name']} ({device_info['power_limit']})"
+    _require_card_empty(torch, cpu, "observe")
+    t_phase = time.perf_counter()
+    greedy = SamplerConfig(temperature=0.0)
+    gen = torch.Generator().manual_seed(14)
+    ledger: list = []  # (layers, metrics at the start, engine) of every engine of the phase
+
+    def track(eng):
+        ledger.append((eng.spec.n_layers, eng.metrics(), eng))
+        return eng
+
+    def rand(vocab, n):
+        return torch.randint(3, vocab, (n,), generator=gen).tolist()
+
+    def run(coro, timeout=2 * SERVE_TIMEOUT_S):
+        return asyncio.run(asyncio.wait_for(coro, timeout))
+
+    # Every launch counter to 0 just before the main path, read at the end.
+    flash_prefill_attention.launches = 0
+    flash_decode_attention.launches = 0
+
+    # (a) serving under observation
+    url = f"cuda://{model}?slots=4&decode_chunk=8{dev_q}"
+    app = create_app(Config(raw={"primary_backends": [{"name": "llama", "url": url}],
+                                 "settings": {"timeout": SERVE_TIMEOUT_S}}))
+    backend = app.state["registry"].backends[0]
+    eng = track(backend.engine)
+    bodies = _serve_bodies(model, tiny)
+    trace_ids = [uuid.uuid4().hex for _ in bodies]
+    before, _ = _scrape(torch, cpu, app)
+    RECORDER.reset()
+    async def traced():
+        return await asyncio.gather(*[
+            _call(app, b, headers={"traceparent": f"00-{tid}-{uuid.uuid4().hex[:16]}-01"})
+            for b, tid in zip(bodies, trace_ids)])
+
+    resps = run(traced())
+    max_tokens = 16 if tiny else 32
+    for r, b in zip(resps, bodies):
+        _check_response(r, b, backend.tokenizer, max_tokens)
+    traces = []
+    for r, b, tid in zip(resps, bodies, trace_ids):
+        rid = r["headers"]["x-request-id"]
+        require(r["headers"]["traceparent"].split("-")[1] == tid,
+                f"traceparent not echoed: {r['headers'].get('traceparent')}")
+        t = json.loads(run(_call(app, {}, method="GET", path=f"/debug/traces/{rid}",
+                                 raw=b""))["data"])
+        names = [s["name"] for s in t["spans"]]
+        want = {"queue-wait", "prefill", "decode"} | ({"sse-flush"} if b["stream"] else
+                                                       {"fanout", "backend-generate"})
+        require(t["trace_id"] == tid and t["status"] == 200 and want <= set(names),
+                f"trace {rid}: trace id {t.get('trace_id')} (sent {tid}), spans {names}")
+        traces.append({"stream": b["stream"], "spans": len(names), "ttft_ms": t["ttft_ms"],
+                       "duration_ms": t["duration_ms"]})
+    after, _ = _scrape(torch, cpu, app)
+    text, text0 = after["data"].decode(), before["data"].decode()
+    problems = validate_exposition(text)
+    require(not problems, f"/metrics does not validate: {problems[:5]}")
+    deltas = {fam: _counts(text, fam, lab) - _counts(text0, fam, lab) for fam, lab in (
+        ("quorum_tpu_request_duration_seconds", '{status="2xx"}'),
+        ("quorum_tpu_queue_wait_seconds", ""), ("quorum_tpu_ttft_seconds", ""))}
+    require(deltas == {"quorum_tpu_request_duration_seconds": 4,
+                       "quorum_tpu_queue_wait_seconds": 4, "quorum_tpu_ttft_seconds": 2},
+            f"/metrics histogram counts after 4 requests (2 streamed): {deltas}")
+    scrape_ms = {path: statistics.median(_scrape(torch, cpu, app, path)[1] for _ in range(7))
+                 for path in ("/metrics", "/health", "/debug/telemetry")}
+    emit("observe_serve", requests=len(bodies), traces=traces, histogram_deltas=deltas,
+         scrape_host_ms=scrape_ms, scrape_synced_device=False, metrics_bytes=len(text),
+         measured_on=card)
+
+    # 4 greedy rows × 64 tokens: the recorder on, off, off, on.
+    vocab = eng.spec.vocab_size
+    four = [rand(vocab, 40 if tiny else 200) for _ in range(4)]
+    rounds = {}
+    dispatch = eng._dispatch_chunk
+
+    def timed(active):
+        marks = None
+        if not cpu:
+            marks = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            marks[0].record()
+        t0 = time.perf_counter()
+        c = dispatch(active)
+        host = time.perf_counter() - t0
+        if marks:
+            marks[1].record()
+        recs.append((c, marks, host))
+        return c
+
+    eng._dispatch_chunk = timed
+    try:
+        for i, enabled in enumerate((True, False, False, True)):
+            RECORDER.enabled = enabled
+            recs: list = []
+            with eng._cond:  # one admission turn for the 4 rows
+                reqs = [eng.submit(p, max_new_tokens=64, sampler=greedy) for p in four]
+            toks = [t for t, _ in _stream_all(eng, reqs)]
+            if not cpu:
+                torch.cuda.synchronize()
+            keep = [(m, h) for c, m, h in recs
+                    if len(c.active) == 4 and c.n_steps == 8 and c.n_chunks == 1]
+            require(keep, "observe: no 4-row 8-step dispatch")
+            rounds[i] = {"recorder": enabled, "tokens": toks,
+                         "device_ms": None if cpu else statistics.median(
+                             a.elapsed_time(b) for (a, b), _ in keep),
+                         "host_ms": statistics.median(h for _, h in keep) * 1e3,
+                         "dispatches": len(keep)}
+    finally:
+        RECORDER.enabled = True
+        del eng._dispatch_chunk
+    require(all(r["tokens"] == rounds[0]["tokens"] for r in rounds.values()),
+            "observe: streams differ with the recorder on and off")
+    on = [r for r in rounds.values() if r["recorder"]]
+    off = [r for r in rounds.values() if not r["recorder"]]
+
+    def med(rs, k):
+        vals = [r[k] for r in rs if r[k] is not None]
+        return statistics.median(vals) if vals else None
+
+    recorder_leg = {"device_ms_on": med(on, "device_ms"), "device_ms_off": med(off, "device_ms"),
+                    "host_ms_on": med(on, "host_ms"), "host_ms_off": med(off, "host_ms"),
+                    "by_round": [{k: v for k, v in r.items() if k != "tokens"}
+                                 for r in rounds.values()]}
+    if not cpu:
+        recorder_leg["device_on_over_off"] = (recorder_leg["device_ms_on"]
+                                              / recorder_leg["device_ms_off"])
+    # Each plain 4-row 8-step dispatch's CUDA-event time, from the recorder's
+    # reap events, against replays of the same graph timed alone.
+    events = [e for e in RECORDER.snapshot() if e.get("engine") == eng._tag]
+    plain8 = {e["seq"] for e in events if e["kind"] == "dispatch" and e["family"] == "plain"
+              and e["steps"] == 8 and e["chunks"] == 1 and len(e["rids"]) == 4}
+    event_ms = sorted(e["device_s"] * 1e3 for e in events
+                      if e["kind"] == "reap" and e["seq"] in plain8)
+    require(event_ms, "observe: no plain 8-step 4-row reap on the recorder")
+    family = {"event_ms_median": statistics.median(event_ms), "event_ms_min": event_ms[0],
+              "samples": len(event_ms), "latency_model": eng.latency.snapshot()}
+    if not cpu:
+        key = (8, 1, False, False)
+        require(key in eng._graphs, f"observe: no captured graph for {key}")
+        graph = eng._graphs._graphs[key][0]
+        pairs = []
+        with torch.cuda.stream(eng._stream):  # the engine is idle: its rows are dead
+            for _ in range(12):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                graph.replay()
+                b.record()
+                pairs.append((a, b))
+        torch.cuda.synchronize()
+        family["graph_timer_ms"] = statistics.median(a.elapsed_time(b) for a, b in pairs)
+        family["event_over_graph_timer"] = family["event_ms_median"] / family["graph_timer_ms"]
+    emit("observe_device_time", recorder=recorder_leg, plain_8_step_4_rows=family,
+         measured_on=card)
+
+    # /debug/profile during a live stream, an admission inside the window.
+    # EOS banned: the stream runs its whole length, through the window.
+    long_body = {"model": model, "stream": True, "max_tokens": 64 if tiny else 640,
+                 "temperature": 0, "logit_bias": {str(backend.tokenizer.eos_id): -100},
+                 "messages": [{"role": "user", "content": _prompt(60, 7)}]}
+    short_body = {"model": model, "max_tokens": 8, "temperature": 0,
+                  "messages": [{"role": "user", "content": _prompt(50, 8)}]}
+    seconds = 0.5 if cpu else 2.0
+
+    async def profiled():
+        chunks0 = eng.metrics()["decode_chunks_total"]
+        live = asyncio.create_task(_call(app, long_body))
+        while eng.metrics()["decode_chunks_total"] < chunks0 + 3:  # the stream decodes
+            await asyncio.sleep(0.01)
+        first = asyncio.create_task(_call(app, {}, path="/debug/profile", raw=b"",
+                                          query=f"seconds={seconds}"))
+        await asyncio.sleep(0.3)
+        second = await _call(app, {}, path="/debug/profile", raw=b"", query="seconds=1")
+        await asyncio.sleep(0.2)
+        short = await _call(app, short_body)
+        return await first, second, short, await live
+
+    t_leg = time.perf_counter()
+    first, second, short, live = run(profiled())
+    leg_s = time.perf_counter() - t_leg
+    require(first["status"] == 200, f"/debug/profile: {first['status']} {first['data'][:300]!r}")
+    require(second["status"] == 409 and second["headers"].get("retry-after") == "5"
+            and json.loads(second["data"])["error"]["type"] == "conflict_error",
+            f"a second /debug/profile must be a 409: {second['status']} {second['data'][:200]!r}")
+    require(short["status"] == 200 and live["status"] == 200, "profiled requests failed")
+    prof_dir = json.loads(first["data"])["profile_dir"]
+    profile = {"seconds": seconds, "second_post": second["status"], "leg_s": leg_s}
+    if not cpu:
+        t_parse = time.perf_counter()
+        profile.update(_trace_kernels(prof_dir))
+        profile["trace_mb"] = os.path.getsize(os.path.join(prof_dir, "trace.json")) / 1e6
+        profile["parse_s"] = time.perf_counter() - t_parse
+        require(profile["k2"] > 0 and profile["k1"] > 0,
+                f"the profile must name K2 and K1 (an admission landed in it): {profile}")
+    emit("observe_profile", **profile, measured_on=card)
+    final = [(n, m0, e.metrics()) for n, m0, e in ledger]
+    ledger.clear()
+    del app, backend, eng
+    shutdown_all_engines()
+    _require_card_empty(torch, cpu, "observe (8 layers)")
+
+    # (b)–(e) at 8 layers (llama-tiny keeps its 2)
+    spec8 = resolve_spec(model, {"max_seq": "2048"} if tiny else {"n_layers": "8"})
+    params8 = init_params(spec8, 0, dev)
+    vocab = spec8.vocab_size
+
+    def engine(**kw):
+        return track(InferenceEngine(spec8, device=dev, params=params8,
+                                     n_slots=kw.pop("n_slots", 4), **kw))
+
+    def app_of(eng):
+        return create_app(Config(raw={"primary_backends": [{"name": "llama", "url": url}],
+                                      "settings": {"timeout": SERVE_TIMEOUT_S}}),
+                          llama=CudaBackend("llama", eng, model=model, model_id=model))
+
+    def mem() -> int:
+        if cpu:
+            return 0
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    chat = {"model": model, "max_tokens": 8, "temperature": 0,
+            "messages": [{"role": "user", "content": _prompt(40, 9)}]}
+
+    # (b) faults and the breaker
+    eng = engine()
+    app = app_of(eng)
+    require(run(_call(app, chat))["status"] == 200, "observe breaker: the warm-up chat failed")
+    mem0 = mem()
+    eng.breaker.cooldown = 1.0
+    failed = []
+    for _ in range(3):
+        faults.arm("engine.decode", times=1)
+        failed.append(run(_call(app, chat))["status"])
+    faults.disarm()
+    ready = run(_call(app, {}, method="GET", path="/ready", raw=b""))
+    shed = run(_call(app, chat))
+    state_open = eng.breaker.state
+    time.sleep(1.1)
+    probe = run(_call(app, chat))
+    ready2 = run(_call(app, {}, method="GET", path="/ready", raw=b""))
+    grown = mem() - mem0
+    breaker = {"failed_statuses": failed, "state_after_faults": state_open,
+               "ready_status": ready["status"], "ready_retry_after": ready["headers"].get(
+                   "retry-after"), "shed_status": shed["status"],
+               "shed_retry_after": shed["headers"].get("retry-after"),
+               "probe_status": probe["status"], "state_after_probe": eng.breaker.state,
+               "ready_after_probe": ready2["status"], "rebuilds": eng.n_rebuilds,
+               "device_bytes_grown": grown}
+    require(failed == [500] * 3 and state_open == "open" and ready["status"] == 503
+            and ready["headers"].get("retry-after") and shed["status"] == 503
+            and shed["headers"].get("retry-after") and probe["status"] == 200
+            and eng.breaker.state == "closed" and ready2["status"] == 200
+            and grown <= 1 << 20, f"observe breaker: {breaker}")
+    emit("observe_breaker", **breaker, measured_on=card)
+    final += [(n, m0, e.metrics()) for n, m0, e in ledger]
+    ledger.clear()
+    eng.shutdown()
+    del eng, app
+
+    # (c) verify containment on a spec_decode=4 engine
+    eng = engine(n_slots=2, spec_decode=4)
+    eng._draft = lambda req, g: [1] * g  # every row drafts: a verify turn first
+    survivor = rand(vocab, 120)
+    twin = eng.generate(survivor, max_new_tokens=24, sampler=greedy).token_ids
+    m0 = eng.metrics()
+    faults.arm("engine.verify", times=1)
+    with eng._cond:  # two victims admitted in one turn, the survivor queued
+        victims = [eng.submit(rand(vocab, 100 + i), max_new_tokens=24, sampler=greedy)
+                   for i in range(2)]
+        late = eng.submit(survivor, max_new_tokens=24, sampler=greedy)
+    errors = []
+    for v in victims:
+        try:
+            list(eng.stream_results(v))
+        except faults.FaultInjected as e:
+            errors.append(type(e).__name__)
+    got = list(eng.stream_results(late))
+    faults.disarm()
+    m1 = eng.metrics()
+    contain = {"victims_failed": errors, "survivor_equals_twin": got == twin[:len(got)]
+               and len(got) == len(twin),
+               "failures": m1["failures_total"] - m0["failures_total"],
+               "rebuilds": m1["rebuilds_total"] - m0["rebuilds_total"],
+               "spec_turns": m1["spec_turns_total"] - m0["spec_turns_total"]}
+    require(errors == ["FaultInjected"] * 2 and contain["survivor_equals_twin"]
+            and contain["failures"] == 2 and contain["rebuilds"] == 0
+            and contain["spec_turns"] > 0, f"observe verify containment: {contain}")
+    emit("observe_containment", **contain, measured_on=card)
+    final += [(n, m0, e.metrics()) for n, m0, e in ledger]
+    ledger.clear()
+    eng.shutdown()
+    del eng
+
+    # (d) hot reload: an edit drops one of two engines
+    import yaml
+
+    work = tempfile.mkdtemp(prefix="observe-")
+    cfg_path = os.path.join(work, "config.yaml")
+
+    def write(seeds):
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump({"settings": {"timeout": SERVE_TIMEOUT_S}, "primary_backends": [
+                {"name": f"b{s}", "model": model,
+                 "url": f"cuda://{model}?n_layers={spec8.n_layers}&seed={s}&slots=4{dev_q}"}
+                for s in seeds]}, f)
+        st = os.stat(cfg_path)
+        os.utime(cfg_path, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000))
+
+    write((1, 2))
+    app = create_app(load_config(cfg_path), watch_config=True)
+    dropped = app.state["registry"].get("b2").engine
+    for e in (app.state["registry"].get("b1").engine, dropped):
+        track(e)
+    require(run(_call(app, chat))["status"] == 200, "observe reload: the first chat failed")
+    final += [(n, m0, e.metrics()) for n, m0, e in ledger]  # their counts end here
+    ledger.clear()
+    drop_bytes, pool = _engine_bytes(dropped), dropped.metrics()["decode_graph_pool_bytes"]
+    mem0 = mem()
+    write((1,))
+    time.sleep(0.6)  # the watcher stats the file at most every 0.5 s
+    models = json.loads(run(_call(app, {}, method="GET", path="/v1/models", raw=b""))["data"])
+    freed = mem0 - mem()
+    reload = {"backends_after": [m["owned_by"] for m in models["data"]],
+              "dropped_weights_and_cache_bytes": drop_bytes, "dropped_graph_pool_bytes": pool,
+              "freed_bytes": freed, "evicted": not any(e is dropped for e in _ENGINES.values()),
+              "dropped_params_released": dropped.params is None}
+    require(reload["backends_after"] == ["b1"] and reload["evicted"]
+            and reload["dropped_params_released"] and (cpu or freed >= drop_bytes),
+            f"observe reload: {reload}")
+    emit("observe_reload", **reload, measured_on=card)
+    del app, dropped
+    shutdown_all_engines()
+
+    # (e) prefix chunks: export from one engine's app, import into another's
+    e1, e2 = engine(prefix_store="host"), engine(prefix_store="host")
+    app1, app2 = app_of(e1), app_of(e2)
+    long_p = rand(vocab, 1200 if tiny else 4000)
+    n_tok = 16
+    for e in (e1, e2):  # first captures and segment shapes, off the timed admissions
+        e.generate(rand(vocab, 1100 if tiny else 3900), max_new_tokens=n_tok, sampler=greedy)
+    cold_ttft, cold = _ttft(e1, long_p, greedy, n_tok)
+    e1.drain_prefix_store()
+    exported = run(_call(app1, {}, method="GET", path="/debug/prefix/chunks", raw=b""))
+    require(exported["status"] == 200, f"prefix export: {exported['status']}")
+    imported = run(_call(app2, {}, method="PUT", path="/debug/prefix/chunks",
+                         raw=exported["data"]))
+    require(imported["status"] == 200, f"prefix import: {imported['data'][:300]!r}")
+    stats = json.loads(imported["data"])
+    hits0, m_restore = e2.prefix_store_hits, e2.metrics()
+    warm_ttft, warm = _ttft(e2, long_p, greedy, n_tok)
+    m_restored = e2.metrics()
+    chunks = {"blob_bytes": len(exported["data"]), "import": stats,
+              "restored_tokens": (m_restored["prefix_store_restored_tokens_total"]
+                                  - m_restore["prefix_store_restored_tokens_total"]),
+              "restore_s": (m_restored["prefix_store_restore_seconds_total"]
+                            - m_restore["prefix_store_restore_seconds_total"]),
+              "store_hits": e2.prefix_store_hits - hits0, "ttft_s_restored": warm_ttft,
+              "ttft_s_cold": cold_ttft, "streams_equal": warm == cold}
+    require(chunks["store_hits"] == 1 and chunks["streams_equal"]
+            and stats["tokens_imported"] > 0, f"observe prefix chunks: {chunks}")
+    emit("observe_prefix_chunks", **chunks, measured_on=card)
+    final += [(n, m0, e.metrics()) for n, m0, e in ledger]
+    ledger.clear()
+    del e1, e2, app1, app2
+    shutdown_all_engines()
+
+    if not cpu:
+        torch.cuda.synchronize()
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches}
+    want = {"flash_prefill": sum(n * (m1["admission_dispatches_total"]
+                                      - m0["admission_dispatches_total"]) for n, m0, m1 in final),
+            "flash_decode": sum(n * (_k2_steps(m1) - _k2_steps(m0)) for n, m0, m1 in final)}
+    if not cpu:
+        require(launches == want, f"observe launches {launches} != {want}")
+        require(all(v > 0 for v in launches.values()),
+                f"observe: a kernel of the path was never launched ({launches})")
+    info = {"model": model, "layers": [32 if not tiny else 2, spec8.n_layers],
+            "launches": launches, "seconds": time.perf_counter() - t_phase,
+            "recorder": {k: v for k, v in recorder_leg.items() if k != "by_round"},
+            "plain_dispatch": {k: v for k, v in family.items() if k != "latency_model"},
+            "scrape_host_ms": scrape_ms, "profile": profile, "breaker": breaker,
+            "containment": contain, "reload": reload,
+            "prefix_chunks": {k: v for k, v in chunks.items() if k != "import"},
+            "measured_on": card}
+    emit("observe", **info)
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
@@ -4486,7 +5010,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tiny", action="store_true", help="llama-tiny shapes (rehearsal)")
     ap.add_argument("--phases",
                     default="device,build,kernels,model,serve,constrain,spec,scheduler,"
-                            "decode_graphs,knobs,fanout,members,checkpoint,moe,quant,paged",
+                            "decode_graphs,knobs,fanout,members,checkpoint,moe,quant,paged,"
+                            "observe",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -4542,6 +5067,8 @@ def main(argv=None) -> int:
         quant = (phase_quant(torch, args.cpu, args.tiny, info, serve, "profile" in phases)
                  if "quant" in phases else None)
         paged = phase_paged(torch, args.cpu, args.tiny, info) if "paged" in phases else None
+        observe = (phase_observe(torch, args.cpu, args.tiny, info)
+                   if "observe" in phases else None)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4551,7 +5078,8 @@ def main(argv=None) -> int:
         by_phase = {name: ph["launches"] for name, ph in (
             ("serve", serve), ("constrain", constrain), ("spec", spec), ("scheduler", scheduler),
             ("decode_graphs", graphs), ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
-            ("checkpoint", ckpt), ("moe", moe), ("quant", quant), ("paged", paged))
+            ("checkpoint", ckpt), ("moe", moe), ("quant", quant), ("paged", paged),
+            ("observe", observe))
             if ph is not None}
         rows = []
         for name, src, replaces in (

@@ -190,6 +190,7 @@ from typing import Any, AsyncIterator
 import torch
 
 from quorum_tpu_torch import oai
+from quorum_tpu_torch import observability as obs
 from quorum_tpu_torch.backends.base import BackendError, CompletionResult, prepare_body
 from quorum_tpu_torch.config import BackendSpec
 from quorum_tpu_torch.engine.engine import (
@@ -201,6 +202,7 @@ from quorum_tpu_torch.engine.engine import (
     DEFAULT_PREFILL_CHUNK,
     DEFAULT_SLOTS,
     DeadlineExceeded,
+    EngineBreakerOpen,
     GenerationResult,
     GrammarArenaFull,
     QueueFullError,
@@ -289,11 +291,17 @@ def _invalid_request(message: str) -> BackendError:
                         body=oai.error_body(message, type_="invalid_request_error", code=400))
 
 
-def _overloaded(name: str, why: str) -> BackendError:
+def _overloaded(name: str, why: str, retry_after: float = 1.0) -> BackendError:
     msg = f"Backend {name} is overloaded: {why}; retry later"
     return BackendError(msg, status_code=503,
                         body=oai.error_body(msg, type_="overloaded_error", code=503),
-                        headers={"Retry-After": "1"})
+                        headers={"Retry-After": str(max(1, math.ceil(retry_after)))})
+
+
+def _breaker_open(name: str, e: EngineBreakerOpen) -> BackendError:
+    """503 + Retry-After while the engine's failure breaker rejects new
+    admissions (repeated failed scheduler turns)."""
+    return _overloaded(name, f"engine circuit breaker is open ({e})", retry_after=e.retry_after)
 
 
 def _grammar_unsatisfiable(name: str, e: Exception) -> BackendError:
@@ -318,6 +326,10 @@ def _deadline_error(name: str, e: DeadlineExceeded) -> BackendError:
 
 
 def _timeout_error(name: str, timeout: float) -> BackendError:
+    """The asyncio-side wait outlived the backend timeout (the backstop
+    behind the engine's deadline): a 504, counted as a backend-stage
+    deadline miss."""
+    obs.DEADLINE_EXCEEDED.inc(stage="backend")
     msg = f"Backend {name} timed out after {timeout}s"
     return BackendError(msg, status_code=504,
                         body=oai.error_body(msg, type_="timeout_error", code=504),
@@ -633,11 +645,13 @@ class CudaBackend:
                 "prefill (prefill_chunk >= 16), which this backend's "
                 "engine disables (prefill_chunk=0)")
         try:
-            return compile_response_format(rf, self.tokenizer, self.engine.spec.vocab_size)
+            grammar = compile_response_format(rf, self.tokenizer, self.engine.spec.vocab_size)
         except GrammarUnsatisfiable as e:
             raise _grammar_unsatisfiable(self.name, e) from None
         except GrammarError as e:
             raise _invalid_request(f"Invalid 'response_format': {e}") from None
+        obs.CONSTRAINED_REQUESTS.inc()
+        return grammar
 
     def _bias_row(self, logit_bias: Any) -> torch.Tensor | None:
         """OpenAI ``logit_bias`` ({token id: -100..100}) → a dense ``[V]``
@@ -678,8 +692,9 @@ class CudaBackend:
     def _submit_all(self, plan: dict[str, Any], cancels: list[threading.Event],
                     timeout: float) -> list:
         """Submit every choice with the engine deadline ``timeout`` from
-        now; a full queue or an expired deadline is a 503 before any
-        response starts (choices already queued are cancelled)."""
+        now; a full queue, an open failure breaker or an expired deadline
+        is a 503 before any response starts (choices already queued are
+        cancelled)."""
         deadline = time.monotonic() + timeout
         try:
             return [self._submit_choice(plan, i, cancels[i], deadline)
@@ -687,6 +702,9 @@ class CudaBackend:
         except QueueFullError as e:
             _set_all(cancels)
             raise _overloaded(self.name, str(e)) from None
+        except EngineBreakerOpen as e:
+            _set_all(cancels)
+            raise _breaker_open(self.name, e) from None
         except DeadlineExceeded as e:
             _set_all(cancels)
             raise _deadline_error(self.name, e) from None
@@ -782,8 +800,13 @@ class CudaBackend:
 
         task = asyncio.ensure_future(asyncio.to_thread(run))
         try:
-            outs = await asyncio.wait_for(asyncio.shield(task),
-                                          timeout + self.DEADLINE_SLACK_S)
+            # A span over the whole generation (submit to the last token
+            # drained): the engine's queue-wait, prefill and decode spans
+            # nest inside it on /debug/traces.
+            with obs.trace_span(obs.current_trace(), "backend-generate", backend=self.name,
+                                choices=plan["n"], prompt_tokens=len(plan["prompt_ids"])):
+                outs = await asyncio.wait_for(asyncio.shield(task),
+                                              timeout + self.DEADLINE_SLACK_S)
         except asyncio.TimeoutError:
             _set_all(cancels)
             raise _timeout_error(self.name, timeout) from None

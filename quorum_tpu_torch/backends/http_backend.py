@@ -30,7 +30,8 @@ from typing import Any, AsyncIterator
 
 import httpx
 
-from quorum_tpu_torch import oai, sse
+from quorum_tpu_torch import faults, oai, sse
+from quorum_tpu_torch.observability import BACKEND_RETRIES
 from quorum_tpu_torch.backends.base import BackendError, CompletionResult, prepare_body
 
 logger = logging.getLogger(__name__)
@@ -42,8 +43,9 @@ _SKIP_HEADERS = {"host", "content-length", "transfer-encoding", "connection"}
 RETRY_BASE_S = 0.05
 RETRY_CAP_S = 2.0
 # Failures where the request never reached the upstream, so a second attempt
-# cannot duplicate its work (a read failure mid-body is not retried).
-_RETRYABLE_EXC = (httpx.ConnectError, httpx.ConnectTimeout)
+# cannot duplicate its work (a read failure mid-body is not retried); an
+# injected fault at the request sites stands for one.
+_RETRYABLE_EXC = (httpx.ConnectError, httpx.ConnectTimeout, faults.FaultInjected)
 
 
 def _clean_headers(headers: dict[str, str]) -> dict[str, str]:
@@ -91,13 +93,15 @@ class HttpBackend:
 
     async def _backoff(self, attempt: int, deadline: float, floor: float = 0.0) -> bool:
         """Sleep before retry ``attempt + 1``; False when the retry count or
-        the deadline is spent and the failure must surface instead."""
+        the deadline is spent and the failure must surface instead. Each
+        retry counts into ``quorum_tpu_backend_retries_total{backend=}``."""
         if attempt >= self.retries:
             return False
         delay = min(RETRY_CAP_S, RETRY_BASE_S * (2 ** attempt))
         delay = max(delay * (0.5 + random.random()), floor)
         if time.monotonic() + delay >= deadline:
             return False
+        BACKEND_RETRIES.inc(backend=self.name)
         await asyncio.sleep(delay)
         return True
 
@@ -109,6 +113,7 @@ class HttpBackend:
         attempt = 0
         while True:
             try:
+                faults.fire("http.request")
                 resp = await self._client.post(
                     self._endpoint, json=req_body, headers=_clean_headers(headers),
                     timeout=max(0.001, deadline - time.monotonic()))
@@ -146,6 +151,7 @@ class HttpBackend:
         while True:  # attempts before the first byte only
             cm = None
             try:
+                faults.fire("http.stream")
                 cm = self._client.stream("POST", self._endpoint, json=req_body,
                                          headers=_clean_headers(headers),
                                          timeout=max(0.001, deadline - time.monotonic()))

@@ -23,11 +23,19 @@ logger = logging.getLogger(__name__)
 class BackendRegistry:
     def __init__(self, backends: Iterable[Any] = ()):
         self._by_name: dict[str, Any] = {}
+        # The BackendSpec each backend was built from, where known: the
+        # identity a config reload compares to reuse a live backend.
+        self._spec_by_name: dict[str, BackendSpec] = {}
         for b in backends:
             self.add(b)
 
-    def add(self, backend) -> None:
+    def add(self, backend, spec: BackendSpec | None = None) -> None:
         self._by_name[backend.name] = backend
+        if spec is not None:
+            self._spec_by_name[backend.name] = spec
+
+    def spec_of(self, name: str) -> BackendSpec | None:
+        return self._spec_by_name.get(name)
 
     def get(self, name: str):
         return self._by_name.get(name)
@@ -88,18 +96,35 @@ def build_registry(config: Config, **overrides: Any) -> BackendRegistry:
     """Construct a backend for every configured backend with a url.
     ``overrides`` maps a backend name to a pre-built instance (tests inject
     backends built on converted weights this way)."""
+    return rebuild_registry(config, BackendRegistry(), overrides)[0]
+
+
+def rebuild_registry(config: Config, old: BackendRegistry,
+                     overrides: dict[str, Any]) -> tuple[BackendRegistry, list]:
+    """The registry of ``config``, reusing every backend of ``old`` whose
+    name, url, model and retries are unchanged (a config edit never tears
+    down a ``cuda://`` engine it did not touch). Returns ``(registry,
+    dropped)``: the old backends no longer referenced, for the caller to
+    close. A backend that fails to build raises, and a reload keeps the
+    old registry."""
     reg = BackendRegistry()
     for spec in config.valid_backends:
         if spec.name in overrides:
             reg.add(overrides[spec.name])
+            continue
+        prev, prev_spec = old.get(spec.name), old.spec_of(spec.name)
+        if (prev is not None and prev_spec is not None and prev_spec.url == spec.url
+                and prev_spec.model == spec.model and prev_spec.retries == spec.retries):
+            reg.add(prev, spec=spec)
             continue
         factory = SCHEME_FACTORIES.get(spec.scheme)
         if factory is None:
             logger.warning("backend %s: URL scheme %r is not served by the port yet, skipped",
                            spec.name, spec.scheme)
             continue
-        reg.add(factory(spec))
+        reg.add(factory(spec), spec=spec)
     for name, backend in overrides.items():
         if name not in reg:
             reg.add(backend)
-    return reg
+    kept = {id(b) for b in reg.backends}
+    return reg, [b for b in old.backends if id(b) not in kept]

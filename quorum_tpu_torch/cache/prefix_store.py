@@ -29,6 +29,7 @@ from collections import OrderedDict
 
 import torch
 
+from quorum_tpu_torch import observability as obs
 
 # Default byte budget for a host prefix store (1 GiB). Sized for "a few
 # hundred conversations of tiny-model history or a handful of 8B-scale
@@ -253,6 +254,7 @@ class PrefixStore:
             # prefix chunks the new suffix depends on.
             self._touch_chain(walked)
             self._evict_to_budget()
+            obs.PREFIX_STORE_BYTES.set(self.bytes_held)
         return True
 
     def _evict_to_budget(self) -> None:
@@ -265,6 +267,7 @@ class PrefixStore:
             self.bytes_held -= node.entry.nbytes
             node.entry = None
             self.n_evictions += 1
+            obs.PREFIX_STORE_EVICTIONS.inc()
             while (node.parent is not None and node.entry is None
                    and not node.children):
                 parent = node.parent
@@ -276,6 +279,7 @@ class PrefixStore:
             self._root = _Node(None, None)
             self._lru.clear()
             self.bytes_held = 0
+            obs.PREFIX_STORE_BYTES.set(0)
 
     def stats(self) -> dict:
         with self._lock:

@@ -164,6 +164,9 @@ class AggregateParams:
 @dataclass
 class Config:
     raw: dict[str, Any]
+    # The file it was loaded from (None for a dict config): what a reload
+    # watches.
+    source_path: Path | None = None
 
     @property
     def backends(self) -> list[BackendSpec]:
@@ -218,4 +221,4 @@ def load_config(path: str | os.PathLike | None = None) -> Config:
         return Config(raw=copy.deepcopy(DEFAULT_CONFIG))
     if not isinstance(raw, dict):
         raise ValueError(f"config root must be a mapping, got {type(raw).__name__}")
-    return Config(raw=raw)
+    return Config(raw=raw, source_path=cand)

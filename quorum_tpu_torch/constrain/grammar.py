@@ -24,9 +24,10 @@ form keeps the automaton small and the output trivially ``json.loads``-able;
 it is a strict subset of what the schema admits, never a superset.
 
 Compilation is cached per (grammar, tokenizer) — the tables are pure
-functions of that pair. The module keeps its own counters of cache hits,
-misses and compile seconds (:func:`compile_cache_info`), where the JAX
-package feeds its metrics registry.
+functions of that pair. Hits, misses and compile seconds feed the
+``quorum_tpu_constrain_cache_{hits,misses}_total`` and
+``quorum_tpu_constrain_compile_seconds`` families, which
+:func:`compile_cache_info` reads back.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from quorum_tpu_torch import observability as obs
 from quorum_tpu_torch.constrain.regex_dfa import (
     ByteDFA,
     GrammarError,
@@ -429,9 +431,6 @@ def lift_to_tokens(dfa: ByteDFA, token_bytes: "list[bytes | None]",
 _CACHE_MAX = 64
 _cache: "OrderedDict[tuple, CompiledGrammar]" = OrderedDict()
 _cache_lock = threading.Lock()
-# Cache hits, misses and the seconds spent compiling misses, since import
-# (under _cache_lock).
-_stats = {"hits": 0, "misses": 0, "compile_seconds": 0.0}
 
 
 def _tokenizer_key(tokenizer, vocab_size: int) -> tuple:
@@ -443,9 +442,13 @@ def _tokenizer_key(tokenizer, vocab_size: int) -> tuple:
 
 def compile_cache_info() -> dict:
     """Entries and capacity of the compile cache, and its hit, miss and
-    compile-seconds counters."""
+    compile-seconds counters (the process's metric families)."""
     with _cache_lock:
-        return {"entries": len(_cache), "max": _CACHE_MAX, **_stats}
+        entries = len(_cache)
+    return {"entries": entries, "max": _CACHE_MAX,
+            "hits": obs.CONSTRAIN_CACHE_HITS.value,
+            "misses": obs.CONSTRAIN_CACHE_MISSES.value,
+            "compile_seconds": sum(s["sum"] for s in obs.CONSTRAIN_COMPILE.snapshot().values())}
 
 
 def clear_compile_cache() -> None:
@@ -505,16 +508,17 @@ def compile_response_format(rf: dict, tokenizer,
         hit = _cache.get(key)
         if hit is not None:
             _cache.move_to_end(key)
-            _stats["hits"] += 1
-            return hit
-        _stats["misses"] += 1
+    if hit is not None:
+        obs.CONSTRAIN_CACHE_HITS.inc()
+        return hit
+    obs.CONSTRAIN_CACHE_MISSES.inc()
     t0 = time.perf_counter()
     dfa = compile_ast(_build_ast(gkey, rf))
     grammar = lift_to_tokens(dfa, _token_byte_table(tokenizer, vocab_size))
     grammar = CompiledGrammar(trans=grammar.trans, accept=grammar.accept,
                               start=grammar.start, key=key)
+    obs.CONSTRAIN_COMPILE.observe(time.perf_counter() - t0)
     with _cache_lock:
-        _stats["compile_seconds"] += time.perf_counter() - t0
         _cache[key] = grammar
         while len(_cache) > _CACHE_MAX:
             _cache.popitem(last=False)

@@ -118,7 +118,10 @@ Deadlines are the engine's: a request whose deadline has passed is shed at
 submit; each scheduler turn sheds pending ones (``DeadlineExceeded``, stage
 ``queue``) and cancels admitting (``prefill``) and active (``decode``)
 ones, and ``_effective_loop`` halves a megachunk until it fits the
-tightest deadline by the per-chunk latency EWMA.
+tightest deadline by the per-chunk latency EWMA. A first capture holds the
+scheduler for seconds at full depth; meanwhile a watcher thread answers
+the deadlines that pass (``_deadline_watch``), and the next turn's sweep
+releases their rows.
 
 Constrained decoding (``submit(grammar=...)``, a ``CompiledGrammar`` of
 ``constrain/``): every admitted grammar's token-DFA rows live in one device
@@ -195,6 +198,7 @@ into its slot (or pages) before its first segment, and prefills the rest.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import queue
 import threading
@@ -205,7 +209,9 @@ from typing import Iterator
 
 import torch
 
-from quorum_tpu_torch import resolve_device
+from quorum_tpu_torch import faults, resolve_device
+from quorum_tpu_torch import observability as obs
+from quorum_tpu_torch.breaker import Breaker
 from quorum_tpu_torch.cache import kv_transfer, prefix_wire
 from quorum_tpu_torch.cache.paging import (PageAllocator, init_paged_cache, paged_copy_page,
                                            validate_page_config)
@@ -220,6 +226,9 @@ from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, deco
 from quorum_tpu_torch.ops.sampling import (TOP_LOGPROBS, SamplerConfig, adjust_logits,
                                            apply_token_mask, gumbel_noise, sample_token_rows,
                                            token_logprobs)
+from quorum_tpu_torch.telemetry import tracecontext
+from quorum_tpu_torch.telemetry.latency import LatencyModel
+from quorum_tpu_torch.telemetry.recorder import RECORDER as FLIGHT
 
 logger = logging.getLogger(__name__)
 
@@ -255,10 +264,28 @@ MAX_SPEC_DECODE = 16
 # device copy of its slice until fetched); past it a snapshot is dropped,
 # a future store miss.
 SNAP_QUEUE_MAX = 8
+# How often the watcher answers deadlines while a capture holds the scheduler.
+DEADLINE_WATCH_S = 0.005
+# A stacked engine's single-shot group waits at most this long after its
+# oldest member's submit for the other members' heads: two of the
+# interpreter's 5 ms switch intervals, so a group submitted from threads
+# that lose the interpreter lock to the scheduler in between still admits
+# as one dispatch.
+MEMBER_GROUP_WAIT_S = 0.01
 
 
 class QueueFullError(Exception):
     """The admission queue is at capacity (callers map it to a 503)."""
+
+
+class EngineBreakerOpen(Exception):
+    """The engine's failure breaker is open: repeated failed scheduler turns
+    inside the sliding window mean new admissions would likely hit the same
+    fault. Surface as a 503 with ``Retry-After: ceil(retry_after)``."""
+
+    def __init__(self, retry_after: float):
+        super().__init__(f"engine circuit breaker is open; retry in {retry_after:.1f}s")
+        self.retry_after = retry_after
 
 
 class DeadlineExceeded(Exception):
@@ -343,12 +370,21 @@ class _Request:
     token follows it, so the trailing pair is never in the index and every
     stored position has a continuation; ``spec_state`` is the optimistic
     draft cursor while turns are in flight (None: none), ``n_inflight`` the
-    dispatches in flight that carry this request."""
+    dispatches in flight that carry this request.
+
+    Tracing: ``trace`` is the request trace bound where ``submit`` ran (the
+    scheduler appends its spans there), ``rid`` the flight-recorder
+    correlation id (the trace's W3C trace-id, else a fresh one),
+    ``t_submit`` the submit stamp (``time.perf_counter``) and ``tspans``
+    the last span and turn count of each per-turn span kind.
+    ``deadline_answered``: its DeadlineExceeded frame went out (the
+    consumer is gone); the scheduler's sweep has yet to release it."""
 
     __slots__ = ("prompt_ids", "budget", "sampler", "seed", "eos_id", "cancel",
                  "chunk_hint", "out", "emitted", "generator", "member", "hist",
                  "pp", "fp", "bias_row", "want_lp", "lp", "deadline", "grammar", "g_start",
-                 "dfa_host", "n_drawn", "ngram", "spec_state", "n_inflight")
+                 "dfa_host", "n_drawn", "ngram", "spec_state", "n_inflight", "trace", "rid",
+                 "t_submit", "tspans", "deadline_answered")
 
     def __init__(self, prompt_ids, budget, sampler: SamplerConfig, seed, eos_id, cancel,
                  chunk_hint, member=0, pp=0.0, fp=0.0, bias_row=None, want_lp=-1,
@@ -379,6 +415,15 @@ class _Request:
                             for n in range(2, len(prompt_ids))}
         self.spec_state = None
         self.n_inflight = 0
+        self.trace = obs.current_trace()
+        if self.trace is not None:
+            self.rid = self.trace.trace_id or self.trace.request_id
+        else:
+            self.rid = tracecontext.new_trace_id()
+            obs.TRACE_PROPAGATED.inc(source="engine")
+        self.t_submit = time.perf_counter()
+        self.tspans: dict = {}
+        self.deadline_answered = False
 
     @property
     def spec_draft_ok(self) -> bool:
@@ -399,13 +444,14 @@ class _Admission:
     reused prefix (``offset0``): the row's cache already holds those
     positions of this prompt."""
 
-    __slots__ = ("req", "slot", "offset", "offset0", "t_start")
+    __slots__ = ("req", "slot", "offset", "offset0", "restored", "t_start")
 
-    def __init__(self, req: _Request, slot: int, offset: int = 0):
+    def __init__(self, req: _Request, slot: int, offset: int = 0, restored: int = 0):
         self.req = req
         self.slot = slot
         self.offset = offset
         self.offset0 = offset
+        self.restored = restored  # of offset0, the tokens the prefix store restored
         self.t_start = time.perf_counter()
 
 
@@ -422,13 +468,25 @@ class _InflightChunk:
     ``host`` has one more column per row: its masked vocabulary entries
     over the chunk. A ``spec_turn`` dispatch is ``n_chunks`` verify turns
     of ``n_steps`` = g+1 sampled positions each, a row's valid count its
-    emitted tokens; ``drafted`` is the real draft tokens per turn."""
+    emitted tokens; ``drafted`` is the real draft tokens per turn.
+    ``family`` is the key's program family (:func:`program_family`),
+    ``seq`` the flight recorder's dispatch number, ``depth`` the ring depth
+    it was issued at, and ``timing`` the CUDA-event pair recorded around its
+    graph replay (None on the CPU), read at reap."""
 
     __slots__ = ("active", "n_steps", "n_chunks", "host", "lp", "event", "t0", "constrained",
-                 "spec_turn", "drafted")
+                 "spec_turn", "drafted", "family", "seq", "depth", "timing", "t_issue",
+                 "t_ready")
 
     def __init__(self, active, n_steps, n_chunks, host, event, lp=None, constrained=False,
                  spec_turn=False, drafted=0):
+        self.family = "unknown"
+        self.seq = 0
+        self.depth = 0
+        self.timing = None
+        # Host stamps of the dispatch's issue and of the first probe that
+        # found its outputs landed (the CPU's device-time attribution).
+        self.t_issue = self.t_ready = None
         self.spec_turn = spec_turn
         self.drafted = drafted
         self.constrained = constrained
@@ -447,7 +505,10 @@ class _InflightChunk:
 
     def ready(self) -> bool:
         """True once the chunk's tokens are on the host (a non-blocking probe)."""
-        return self.event is None or self.event.query()
+        ok = self.event is None or self.event.query()
+        if ok and self.t_ready is None:
+            self.t_ready = time.perf_counter()
+        return ok
 
     def wait(self) -> None:
         if self.event is not None:
@@ -827,18 +888,27 @@ class InferenceEngine:
         # device): which program families an engine's traffic reached.
         self.dispatched_keys: set = set()
         self._deadline_clamped = False
+        self._program_issued = False  # a dispatch's program ran on the engine's state
         # Per-chunk dispatch-to-reap latency (s), EWMA; 0 until the first reap.
         self._chunk_ewma_s = 0.0
         self.admission_stall_s = 0.0  # wall time the ring spent clamped for admissions
         self._clamp_t0: float | None = None
         self.drain_gap_s = 0.0  # host time from a chunk's tokens landing to delivery
+        # Robustness and telemetry: the failure breaker that gates submit;
+        # this engine's tag on flight-recorder events; the dispatch
+        # sequence pairing a ring entry's dispatch and reap events; the
+        # per-family device-time model.
+        self.breaker = Breaker()
+        self._tag = f"engine-{id(self):x}"
+        self._dispatch_seq = 0
+        self.latency = LatencyModel(alpha=CHUNK_EWMA_ALPHA)
         # On the card: the engine's own stream (after the set-up above) and
         # its decode graphs.
         self._stream = self._graphs = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            self._graphs = DecodeGraphs(self.device, self._stream)
+            self._graphs = DecodeGraphs(self.device, self._stream, hold=self._deadline_watch)
         self._thread = threading.Thread(target=self._scheduler, daemon=True,
                                         name="quorum-torch-scheduler")
         self._thread.start()
@@ -866,8 +936,9 @@ class InferenceEngine:
         """Enqueue a generation for weight set ``member`` and return its
         handle (``None`` when there is nothing to generate). Raises
         :class:`QueueFullError` synchronously when the admission queue is at
-        capacity, and :class:`DeadlineExceeded` (stage ``queue``) when
-        ``deadline`` has already passed. ``deadline`` bounds the request's
+        capacity, :class:`DeadlineExceeded` (stage ``queue``) when
+        ``deadline`` has already passed, and :class:`EngineBreakerOpen`
+        while the failure breaker rejects new admissions. ``deadline`` bounds the request's
         whole life: pending past it, it is shed (stage ``queue``); admitted,
         it is cancelled with a ``DeadlineExceeded`` error frame. When
         ``logprobs`` >= 0 the handle's ``lp`` list carries one ``(logprob,
@@ -918,7 +989,10 @@ class InferenceEngine:
         if deadline is not None and time.monotonic() >= deadline:
             with self._cond:
                 self.n_deadline_exceeded += 1
+            obs.DEADLINE_EXCEEDED.inc(stage="queue")
             raise DeadlineExceeded("queue")
+        if not self.breaker.allow():
+            raise EngineBreakerOpen(self.breaker.retry_after())
         with self._cond:
             if self._stop:
                 raise RuntimeError("engine has been shut down")
@@ -1026,6 +1100,7 @@ class InferenceEngine:
                 "spec_overlapped_total": self.n_spec_overlapped,
                 "spec_draft_steps_total": self.n_draft_steps,
                 "deadline_clamps_total": self.n_deadline_clamps,
+                "breaker_state": self.breaker.state_code,
                 "decode_pipeline": self.decode_pipeline,
                 "decode_loop": self.decode_loop,
                 "decode_loop_chunks_total": self.n_loop_chunks,
@@ -1059,11 +1134,16 @@ class InferenceEngine:
             }
 
     def health(self) -> dict:
-        """Liveness signals for /health: every field is an observation."""
+        """Liveness signals for /health and /ready: every field is an
+        observation (thread liveness, breaker state, queue depth), never a
+        hardcoded OK. Host state only: no device sync."""
         with self._cond:
             pending, stopped = len(self._pending), self._stop
         return {
             "scheduler_alive": self._thread.is_alive() and not stopped,
+            "snapshot_worker_alive": (self.prefix_store is None
+                                      or self._snap_thread.is_alive()),
+            "breaker": self.breaker.state,
             "pending": pending,
             "queue_limit": self.max_pending,
             "rebuilds_total": self.n_rebuilds,
@@ -1210,6 +1290,13 @@ class InferenceEngine:
     # issued before the release runs before the upload and the new
     # tenant's writes (one stream), which overwrite whatever it wrote.
 
+    def _paged_note_occupancy(self) -> None:
+        """Refresh the pool-occupancy gauges after an allocator change
+        (caller holds ``_cond``); last writer wins across engines."""
+        a = self._page_alloc
+        obs.KV_PAGES_ALLOCATED.set(a.allocated_pages)
+        obs.KV_PAGES_FREE.set(a.free_pages)
+
     def _paged_need(self, n_prompt: int, budget: int) -> int:
         """Pages covering every position a request could write: prompt,
         budget and the speculative-verify overshoot (a verify turn writes
@@ -1278,6 +1365,7 @@ class InferenceEngine:
                 a.extend(sg, fresh)
                 self._table_host[sg, base:base + extra] = torch.tensor(fresh, dtype=torch.int32)
                 self._table_dirty = True
+                self._paged_note_occupancy()
             self._page_claims[sg] += 1
             return 0, cow
         held = a.retained_chain(sg)
@@ -1318,6 +1406,8 @@ class InferenceEngine:
         self._page_claims[sg] = 1
         if reuse:
             self.kv_page_alias_hits += 1
+            obs.KV_PAGE_ALIAS_HITS.inc()
+        self._paged_note_occupancy()
         return reuse, cow
 
     def _paged_release_row(self, row: int) -> None:
@@ -1337,6 +1427,7 @@ class InferenceEngine:
         keep = 0 if self.members > 1 else len(self._resident[sg])
         chain = a.chain(sg) or []
         a.release(sg, keep_tokens=keep)
+        self._paged_note_occupancy()
         kept = min(a.pages_for(keep), len(chain))
         if len(chain) > kept:
             self._table_host[sg, kept:len(chain)] = 0
@@ -1370,6 +1461,7 @@ class InferenceEngine:
             paged_copy_page(self._ck, dst, src, members=self.members)
             paged_copy_page(self._cv, dst, src, members=self.members)
             self.kv_page_cow_copies += 1
+            obs.KV_PAGE_COW_COPIES.inc()
         self._paged_sync_table()
 
     def _paged_claim_or_fail(self, req: _Request, slot: int, reuse: int) -> int | None:
@@ -1447,6 +1539,7 @@ class InferenceEngine:
                 if item is None:
                     return
                 tokens, have, payload, event = item
+                faults.fire("engine.snapshot")
                 c = self.prefix_store.chunk_tokens
                 leaves = kv_transfer.chunk_leaves(payload)
                 n_chunks = (len(tokens) - have) // c
@@ -1570,12 +1663,14 @@ class InferenceEngine:
             return None
         return r, payloads
 
-    def _restore_into(self, slot: int, start: int, end: int, payloads) -> None:
+    def _restore_into(self, req: _Request, slot: int, start: int, end: int,
+                      payloads) -> None:
         """Write the stored prefix's positions ``[start, end)`` into
         ``slot``'s cache rows (a paged slot's reserved pages), chunk by
         chunk from the host, on the engine's stream: only the tail past
         the slot-resident overlap ``[0, start)`` moves. Blocks until the
-        copies have landed: the restore's honest latency."""
+        copies have landed: the restore's honest latency, observed on the
+        restore histogram and as a ``prefix-restore`` span of ``req``."""
         t0 = time.perf_counter()
         c = self.prefix_store.chunk_tokens
         q8 = self.kv_quant is not None
@@ -1591,10 +1686,67 @@ class InferenceEngine:
             done = torch.cuda.Event()
             done.record()
             done.synchronize()
+        t1 = time.perf_counter()
+        obs.PREFIX_STORE_RESTORE.observe(t1 - t0)
+        self._observe_device_time("restore", t1 - t0)
+        obs.PREFIX_STORE_HITS.inc()
+        obs.PREFIX_STORE_RESTORED_TOKENS.inc(end - start)
         self.prefix_store_hits += 1
         self.prefix_store_tokens_restored += end - start
-        self.prefix_store_restore_s += time.perf_counter() - t0
+        self.prefix_store_restore_s += t1 - t0
         self.prefix_store_restore_bytes += moved
+        if req.trace is not None:
+            req.trace.add_span_abs("prefix-restore", t0, t1, tokens=end - start, slot=slot)
+
+    # ---- telemetry: traces, the flight recorder, device time --------------
+
+    # Per-turn spans of one kind kept per request; past it a kind's last
+    # span is extended (steps and accepted summed, turns counted).
+    TURN_SPAN_CAP = 32
+
+    def _turn_span(self, req: _Request, name: str, t0: float, t1: float, **meta) -> None:
+        """Record one decode or verify turn on ``req``'s trace."""
+        trace = req.trace
+        if trace is None:
+            return
+        span, count = req.tspans.get(name, (None, 0))
+        count += 1
+        if span is not None and count > self.TURN_SPAN_CAP:
+            span.end = trace.rel(t1)
+            for k in ("steps", "accepted"):
+                if k in meta and isinstance(span.meta.get(k), int):
+                    span.meta[k] += meta[k]
+            if "occupancy" in meta:
+                span.meta["occupancy"] = max(span.meta.get("occupancy", 0), meta["occupancy"])
+            span.meta["coalesced_turns"] = count - self.TURN_SPAN_CAP + 1
+        else:
+            span = trace.add_span_abs(name, t0, t1, **meta)
+        req.tspans[name] = (span, count)
+
+    def _note_admitted(self, req: _Request) -> None:
+        """A pending request just claimed a row: close its queue wait (the
+        histogram, its ``queue-wait`` span) and record the admission."""
+        now = time.perf_counter()
+        obs.QUEUE_WAIT.observe(now - req.t_submit)
+        FLIGHT.record("admit", rid=req.rid, engine=self._tag, loop="decode",
+                      queue_wait_s=round(now - req.t_submit, 6))
+        if req.trace is not None:
+            req.trace.add_span_abs("queue-wait", req.t_submit, now, member=req.member)
+
+    def _observe_device_time(self, family: str, seconds: float) -> None:
+        """One per-family device-time observation: the engine's latency
+        model and the process-wide ``quorum_tpu_dispatch_device_seconds``."""
+        self.latency.observe(family, seconds)
+        obs.DISPATCH_DEVICE_SECONDS.observe(max(0.0, seconds), family=family)
+
+    def _record_breaker_failure(self) -> None:
+        """Feed the failure breaker; on the transition to open only, record
+        the breaker event and dump the flight recorder."""
+        was_open = self.breaker.state == "open"
+        self.breaker.record_failure()
+        if not was_open and self.breaker.state == "open":
+            FLIGHT.record("breaker", engine=self._tag, state="open")
+            FLIGHT.dump("breaker-open")
 
     # ---- scheduler --------------------------------------------------------
 
@@ -1716,11 +1868,12 @@ class InferenceEngine:
         if reuse:
             self.prefix_hits += 1
             self.prefix_tokens_saved += reuse
+        restored = 0 if offset is None else offset - reuse
         offset = reuse if offset is None else offset
         self._claimed.add(slot)
         # Beyond the valid prefix the row is in flux; advertise only what is valid.
         self._resident[slot] = req.prompt_ids[:offset]
-        self._admitting.append(_Admission(req, slot, offset=offset))
+        self._admitting.append(_Admission(req, slot, offset=offset, restored=restored))
 
     def _start_admissions(self) -> None:
         self._maybe_reset_arena()
@@ -1744,6 +1897,7 @@ class InferenceEngine:
                     req.out.put(("end", None))
                     continue
                 reuse = self._reuse_len(lcp, len(req.prompt_ids))
+            self._note_admitted(req)
             # Only this thread claims rows: ``slot`` is still free.
             if not self._place_grammar(req):
                 continue
@@ -1756,7 +1910,7 @@ class InferenceEngine:
                 n_restore, payloads = restore
                 with self._cond:
                     self._claim_chunked(req, slot, reuse, offset=n_restore)
-                self._restore_into(slot, reuse, n_restore, payloads)
+                self._restore_into(req, slot, reuse, n_restore, payloads)
                 continue
             if self._goes_chunked(req, reuse):
                 with self._cond:
@@ -1790,6 +1944,8 @@ class InferenceEngine:
         its first token (one host read). An ensemble prefills the prompt
         through every weight set (rows ``e·S + slot``) and samples from the
         members' mean logits."""
+        faults.fire("engine.admit")
+        t0 = time.perf_counter()
         spec, n_ens = self.spec, self.ensemble
         bucket = prefill_bucket(len(req.prompt_ids), spec.max_seq)
         prompts = [req.prompt_ids] * n_ens
@@ -1803,6 +1959,15 @@ class InferenceEngine:
                                    slot=slot)
         self.n_admission_dispatches += 1
         (first,), (lp,) = self._start_rows([req], [slot], logits)
+        t1 = time.perf_counter()
+        # The admission blocks on its first token: dispatch to fetch is the
+        # prefill's time.
+        obs.PREFILL.observe(t1 - t0)
+        self._observe_device_time("single_shot", t1 - t0)
+        self.breaker.record_success()  # a half-open probe admitted cleanly
+        if req.trace is not None:
+            req.trace.add_span_abs("prefill", t0, t1, tokens=len(req.prompt_ids),
+                                   bucket=bucket, slot=slot, reused=0, restored=0)
         with self._cond:
             self._resident[slot] = list(req.prompt_ids)
             if not self._emit(req, first, lp):
@@ -1910,6 +2075,7 @@ class InferenceEngine:
         engine (absent members write nothing; a lone member runs through
         its own weight views), else the one admission, repeated into every
         weight set's row on an ensemble."""
+        faults.fire("engine.prefill_segment")
         chunk, s = self.prefill_chunk, self.n_slots
         params = self.params
         if self.members > 1 and len(batch) > 1:
@@ -1924,10 +2090,18 @@ class InferenceEngine:
             rows = [e * s + adm.slot for e in range(self.ensemble)]
         segs = [a.req.prompt_ids[a.offset:a.offset + chunk] if a is not None else []
                 for a in per_row]
+        t0 = time.perf_counter()
         prefill_segment(params, self.spec, self._prompt_tokens(segs, bucket),
                         [a.offset if a is not None else 0 for a in per_row],
                         self._ck, self._cv, rows=rows, history=history,
                         n_valid=[len(seg) for seg in segs])
+        # Enqueue time on the card (the segment does not block): a lower
+        # bound, labelled by its family all the same.
+        self._observe_device_time("mseg" if self.members > 1 else "seg",
+                                  time.perf_counter() - t0)
+        FLIGHT.record("segment", engine=self._tag, loop="decode", t=t0, bucket=bucket,
+                      history=history, rids=[a.req.rid for a in batch.values()],
+                      offsets=[a.offset for a in batch.values()])
         self.n_prefill_segments += 1
         for adm in batch.values():
             prompt = adm.req.prompt_ids
@@ -1944,6 +2118,7 @@ class InferenceEngine:
         recomputes the last position's logits and samples token 1."""
         req, i = adm.req, adm.slot
         prompt = req.prompt_ids
+        t_reg = time.perf_counter()
         if not req.sampler.greedy:
             req.generator = torch.Generator(device=self.device).manual_seed(req.seed)
         # Scalar fills on the device: no host read, no stream sync.
@@ -1960,9 +2135,20 @@ class InferenceEngine:
         self._set_knobs(req, i)
         self._counts[i].zero_()
         self.n_admissions += 1
+        t1 = time.perf_counter()
+        self._observe_device_time("register", t1 - t_reg)
+        FLIGHT.record("register", rid=req.rid, engine=self._tag, loop="decode", slot=i,
+                      tokens=len(prompt), reused=adm.offset0, restored=adm.restored)
+        # From slot claim to cache-complete: the decode turns interleaved
+        # between segments are the latency this admission saw.
+        obs.PREFILL.observe(t1 - adm.t_start)
+        if req.trace is not None:
+            req.trace.add_span_abs("prefill", adm.t_start, t1, tokens=len(prompt), slot=i,
+                                   chunked=True, reused=adm.offset0, restored=adm.restored)
         with self._cond:
             self._slots[i] = req
         self._release_admission(adm)
+        self.breaker.record_success()
 
     def _release_admission(self, adm: _Admission) -> None:
         with self._cond:
@@ -2000,7 +2186,10 @@ class InferenceEngine:
         return best
 
     def _start_admissions_members(self) -> None:
-        """Candidates are the FIFO head of each member's queue. A head that
+        """Candidates are the FIFO head of each member's queue. Until every
+        member has a head, they wait up to ``MEMBER_GROUP_WAIT_S`` after the
+        oldest head's submit (decode turns run meanwhile), so a group whose
+        submits the scheduler thread interleaves still coalesces. A head that
         has a resident prefix on one of its member's free rows, is longer
         than ``prefill_chunk`` or carries a grammar becomes a chunked
         admission on that row.
@@ -2010,6 +2199,7 @@ class InferenceEngine:
         the anchor alone (so one busy member's full slots never starve idle
         members)."""
         max_seq = self.spec.max_seq
+        routed = False  # a head was routed this turn: the rest go now too
         while True:
             with self._cond:
                 if not self._pending:
@@ -2020,6 +2210,14 @@ class InferenceEngine:
                     if r.member not in seen:
                         seen.add(r.member)
                         heads.append(r)
+                wait = (0.0 if routed or len(heads) == self.members else
+                        heads[0].t_submit + MEMBER_GROUP_WAIT_S - time.perf_counter())
+                if wait > 0:
+                    # The group's other members may be on their way.
+                    if any(self._slots) or self._admitting or self._inflight:
+                        return  # decode runs meanwhile; a later turn routes it
+                    self._cond.wait(wait)  # a member's submit wakes us
+                    continue
                 chunked = None
                 for r in heads:
                     slot, lcp = self._pick_slot(r.prompt_ids, r.member)
@@ -2063,10 +2261,12 @@ class InferenceEngine:
                             return  # the group waits for pages
                     for r in group.values():
                         self._pending.remove(r)
+                routed = True
             self._paged_sync_table()
             if chunked is not None:
                 # Only this thread claims rows: ``slot`` is still free.
                 r, slot, reuse = chunked
+                self._note_admitted(r)
                 if self._place_grammar(r):
                     with self._cond:
                         self._claim_chunked(r, slot, reuse)
@@ -2103,7 +2303,11 @@ class InferenceEngine:
         # the M-row prefill (the tokens are the same either way).
         use_dedup = (self.quorum_dedup and len(live) == n_mem
                      and all(r.prompt_ids == prompt for r in live.values()))
+        for req in live.values():
+            self._note_admitted(req)
         try:
+            faults.fire("engine.admit")
+            t0 = time.perf_counter()
             if use_dedup or len(live) == 1:
                 # One prompt through one member's weight views (member 0's
                 # under dedup): 1/M of the stacked prefill's work.
@@ -2138,6 +2342,7 @@ class InferenceEngine:
                     logits = logits[host_to_device(members, torch.long, self.device)]
             self.n_admission_dispatches += 1
             firsts, lps = self._start_rows(list(live.values()), rows, logits)
+            t1 = time.perf_counter()
         except Exception as e:
             # The group's own prefill failed: doom its members alone; no
             # row went live, so their page claims unwind.
@@ -2149,9 +2354,18 @@ class InferenceEngine:
                 self.n_failures += 1
                 req.out.put(("err", e))
             return
+        obs.PREFILL.observe(t1 - t0)
+        self._observe_device_time("dedup" if use_dedup else "single_shot", t1 - t0)
         if use_dedup:
             self.quorum_dedup_tokens += (n_mem - 1) * len(prompt)
             self.quorum_dedup_prefills += 1
+            obs.QUORUM_DEDUP_TOKENS.inc((n_mem - 1) * len(prompt))
+        self.breaker.record_success()
+        for req in live.values():
+            if req.trace is not None:
+                req.trace.add_span_abs("prefill", t0, t1, tokens=len(req.prompt_ids),
+                                       bucket=bucket, slot=row, coalesced=len(live), reused=0,
+                                       restored=0, dedup=int(use_dedup))
         with self._cond:
             for flat, req, first, lp in zip(rows, live.values(), firsts, lps):
                 self._resident[flat] = list(req.prompt_ids)
@@ -2187,25 +2401,75 @@ class InferenceEngine:
         """Retire one request past its deadline: the error frame first (the
         consumer must see DeadlineExceeded, not a clean end), then cancel,
         so work in flight masks the row out at the next boundary."""
-        with self._cond:  # submit's shed counts from the callers' threads
-            self.n_deadline_exceeded += 1
-        req.out.put(("err", DeadlineExceeded(stage)))
+        self._answer_deadline(req, stage)
         req.cancel.set()
+
+    def _answer_deadline(self, req: _Request, stage: str) -> None:
+        """Count ``req``'s deadline and send its error frame, once (the
+        watcher may have answered it during a capture)."""
+        with self._cond:  # submit's shed and the watcher count from other threads
+            if req.deadline_answered:
+                return
+            req.deadline_answered = True
+            self.n_deadline_exceeded += 1
+        obs.DEADLINE_EXCEEDED.inc(stage=stage)
+        if req.trace is not None:
+            now = time.perf_counter()
+            req.trace.add_span_abs("deadline-exceeded", now, now, stage=stage)
+        FLIGHT.record("deadline", rid=req.rid, engine=self._tag, loop="decode", stage=stage)
+        req.out.put(("err", DeadlineExceeded(stage)))
+
+    @contextlib.contextmanager
+    def _deadline_watch(self) -> Iterator[None]:
+        """Held around a graph capture (``DecodeGraphs(hold=)``), which keeps
+        the scheduler thread for seconds at full depth: a watcher thread
+        answers the deadlines that pass meanwhile, so each client gets its
+        DeadlineExceeded on time. Queued requests are shed outright; an
+        admitting or active row only gets its frame (it rides the dispatch
+        under capture, and the reap skips its tokens) and the next turn's
+        sweep releases it."""
+        done = threading.Event()
+
+        def watch() -> None:
+            while not done.wait(DEADLINE_WATCH_S):
+                now = time.monotonic()
+                with self._cond:
+                    shed = [r for r in self._pending if _expired(r, now)]
+                    for r in shed:
+                        self._pending.remove(r)
+                    held = ([(a.req, "prefill") for a in self._admitting]
+                            + [(r, "decode") for r in self._slots if r is not None])
+                for r in shed:
+                    self._expire(r, "queue")
+                for r, stage in held:
+                    if _expired(r, now):
+                        self._answer_deadline(r, stage)
+
+        th = threading.Thread(target=watch, daemon=True, name="quorum-torch-deadline-watch")
+        th.start()
+        try:
+            yield
+        finally:
+            done.set()
+            th.join()
 
     def _sweep_deadlines(self) -> None:
         """Once per scheduler turn: shed pending requests past their deadline
         (stage ``queue``: never served, a 503 the client can retry
         elsewhere) and cancel admitted ones (``prefill`` while chunked
         admission runs, ``decode`` once active: a 504, the work is lost).
-        Runs on the scheduler thread, so it cannot race the cancel sweep."""
+        Runs on the scheduler thread, so it cannot race the cancel sweep.
+        Rows the deadline watch answered during a capture are released here
+        too (their consumer may have cancelled since: still a deadline)."""
         now = time.monotonic()
         with self._cond:
             shed = [r for r in self._pending if _expired(r, now)]
             for r in shed:
                 self._pending.remove(r)
-            late_adm = [a for a in self._admitting if _expired(a.req, now)]
+            late_adm = [a for a in self._admitting
+                        if _expired(a.req, now) or a.req.deadline_answered]
             late_active = [(i, r) for i, r in enumerate(self._slots)
-                           if r is not None and _expired(r, now)]
+                           if r is not None and (_expired(r, now) or r.deadline_answered)]
         for r in shed:
             self._expire(r, "queue")
         for a in late_adm:
@@ -2264,14 +2528,22 @@ class InferenceEngine:
         if self.decode_pipeline <= 1 and self.decode_loop <= 1:
             return
         now = time.monotonic()
+        # Clamp transitions ride the flight recorder (changes only).
+        if clamped and self._clamp_t0 is None:
+            FLIGHT.record("clamp", engine=self._tag, loop="decode", state="on")
+        elif not clamped and self._clamp_t0 is not None:
+            FLIGHT.record("clamp", engine=self._tag, loop="decode", state="off",
+                          stalled_s=round(self.admission_stall_s, 6))
         if clamped and self._clamp_t0 is not None:
             self.admission_stall_s += now - self._clamp_t0
+            obs.ADMISSION_STALL_SECONDS.inc(now - self._clamp_t0)
         self._clamp_t0 = now if clamped else None
 
     def _fill_inflight(self) -> None:
         target = self._target_depth()
         while len(self._inflight) < target:
-            active = [(i, r) for i, r in self._active_rows() if not r.cancel.is_set()]
+            active = [(i, r) for i, r in self._active_rows()
+                      if not (r.cancel.is_set() or r.deadline_answered)]
             if not active:
                 return
             depth = len(self._inflight)
@@ -2634,7 +2906,9 @@ class InferenceEngine:
     def _dispatch_chunk(self, active: list[tuple[int, _Request]]) -> _InflightChunk:
         """Issue one decode dispatch over ``active`` and the copy of its
         tokens to the host, without waiting for either: one graph replay on
-        the card."""
+        the card. The ``engine.decode`` fault site fires first, on the host,
+        before anything is enqueued."""
+        faults.fire("engine.decode")
         key = self._dispatch_key(active)
         history = key[-1] if key[0] == "paged" else None
         body = key[1:-1] if key[0] == "paged" else key
@@ -2659,17 +2933,28 @@ class InferenceEngine:
                warm_up=None) -> _InflightChunk:
         """Run one dispatch's program (one graph replay on the card, eagerly
         on the CPU) and enqueue the copy of its outputs to the host. A spec
-        dispatch brings the ``warm_up`` of its key family (``key[0]``)."""
+        dispatch brings the ``warm_up`` of its key family (``key[0]``). On
+        the card a pair of timing events brackets the replay on the engine's
+        stream (outside any capture), read at reap; the flight recorder
+        gets the dispatch event. From here on the dispatch's program runs on
+        the engine's state (``_program_issued``)."""
+        self._program_issued = True
         self.dispatched_keys.add(key)
+        t_issue = time.perf_counter()
+        timing = None
         if self._graphs is None:
             out, lp = program()
-        elif spec_turn:
-            out, lp = self._graphs.replay(key, program, warm_up, family=_spec_family(key))
-        elif key[0] == "paged":
-            out, lp = self._graphs.replay(key, program, lambda: self._warm_up(key[-1]),
-                                          family=("paged", key[-1]))
         else:
-            out, lp = self._graphs.replay(key, program, self._warm_up)
+            timing = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            if spec_turn:
+                out, lp = self._graphs.replay(key, program, warm_up,
+                                              family=_spec_family(key), timing=timing)
+            elif key[0] == "paged":
+                out, lp = self._graphs.replay(key, program, lambda: self._warm_up(key[-1]),
+                                              family=("paged", key[-1]), timing=timing)
+            else:
+                out, lp = self._graphs.replay(key, program, self._warm_up, timing=timing)
         host, lp_host, event = out, lp, None
         if self.device.type == "cuda":
             # Enqueued right after the replay: the next dispatch's replay
@@ -2680,8 +2965,17 @@ class InferenceEngine:
             event.record()
         self.n_decode_chunks += 1
         self.n_decode_rows += len(active)
-        return _InflightChunk(active, n_steps, n_chunks, host, event, lp=lp_host,
-                              constrained=constrained, spec_turn=spec_turn, drafted=drafted)
+        c = _InflightChunk(active, n_steps, n_chunks, host, event, lp=lp_host,
+                           constrained=constrained, spec_turn=spec_turn, drafted=drafted)
+        self._dispatch_seq += 1
+        c.family, c.seq, c.depth = program_family(key), self._dispatch_seq, len(self._inflight)
+        c.timing, c.t_issue = timing, t_issue
+        FLIGHT.record("dispatch", engine=self._tag, loop="decode", t=t_issue, seq=c.seq,
+                      family=c.family, depth=c.depth, chunks=n_chunks, steps=n_steps,
+                      **({"drafted": drafted} if spec_turn else {}),
+                      rids=[r.rid for _, r in active])
+        obs.PIPELINE_DEPTH.set(c.depth + 1)
+        return c
 
     # ---- speculative decoding ----------------------------------------------
 
@@ -2751,7 +3045,16 @@ class InferenceEngine:
                     return "stop"
                 return "chunk"
         self.n_deadline_clamps += self._deadline_clamped
-        self._inflight.append(self._dispatch_spec(key, active, g, n_turns, drafts))
+        self._program_issued = False
+        try:
+            faults.fire("engine.verify")
+            chunk = self._dispatch_spec(key, active, g, n_turns, drafts)
+        except Exception as exc:
+            if self._program_issued:
+                raise  # it ran on the engine's state: the turn's failure (``_fail_all``)
+            self._contain_verify_failure(active, exc)
+            return "stop"
+        self._inflight.append(chunk)
         for _, r in active:
             r.n_inflight += 1
         if depth > 0:
@@ -2803,6 +3106,35 @@ class InferenceEngine:
                            spec_turn=True, drafted=drafted,
                            warm_up=lambda: self._warm_spec(g, restrict, want_lp, constrained,
                                                            history))
+
+    def _contain_verify_failure(self, active, exc: Exception) -> None:
+        """A speculative dispatch failed (fault injection, host-side error)
+        before its program was issued (``_issue``: a capture, a replay or
+        the eager program): doom only this turn's rows. What the dispatch
+        enqueued before that writes only its own inputs, which every
+        dispatch rewrites (the mask, the drafts, the draft flags), and the
+        turn's own rows (their noise, the fused draft's resync of a
+        reassigned row, which waits for an empty ring). Older dispatches in
+        flight reap normally (their tokens for the released rows count as
+        overrun) and pending requests keep their place. A failure once the
+        program was issued is the scheduler turn's, and ``_fail_all`` takes
+        it: the port's counterpart of the JAX engine's donated-buffer
+        check."""
+        FLIGHT.record("containment", engine=self._tag, loop="decode", site="verify",
+                      error=f"{type(exc).__name__}: {exc}"[:200],
+                      rids=[r.rid for _, r in active])
+        FLIGHT.dump("containment")
+        self.n_failures += len(active)
+        for _, r in active:
+            if r.trace is not None:
+                now = time.perf_counter()
+                r.trace.add_span_abs("engine-failure", now, now, error=type(exc).__name__,
+                                     contained=True)
+            r.out.put(("err", exc))
+        with self._cond:
+            for i, r in active:
+                if self._slots[i] is r:
+                    self._release_slot(i, r)
 
     def _warm_spec(self, g: int, restrict: bool, want_lp: bool, constrained: bool,
                    history: int) -> None:
@@ -3135,7 +3467,22 @@ class InferenceEngine:
         the per-chunk latency EWMA (dispatch to delivery over the chunks a
         row entered) that the deadline clamp reads."""
         c = self._inflight.popleft()
+        t0 = time.perf_counter()
         done, n_exec, delivered = self._emit_chunk(c)
+        t1 = time.perf_counter()
+        obs.DECODE_CHUNK.observe(t1 - t0)
+        # Device time by family: on the card the replay's CUDA events (both
+        # complete: the reap waited on an event recorded after them), on
+        # the CPU issue to the first stamp the outputs were seen landed.
+        t_ready = c.t_ready if c.t_ready is not None else t1
+        device_s = (c.timing[0].elapsed_time(c.timing[1]) / 1e3 if c.timing is not None
+                    else t_ready - c.t_issue)
+        self._observe_device_time(c.family, device_s)
+        FLIGHT.record("reap", engine=self._tag, loop="decode", seq=c.seq, family=c.family,
+                      depth=c.depth, t_issue=round(c.t_issue, 6), t_ready=round(t_ready, 6),
+                      device_s=round(device_s, 6), chunks=n_exec, spec=c.spec_turn,
+                      rids=[r.rid for _, r in c.active])
+        obs.PIPELINE_DEPTH.set(len(self._inflight))
         # Per executed chunk or verify turn: the deadline clamp estimates a
         # fused dispatch's length from the same EWMA either way.
         per_chunk = (time.perf_counter() - c.t0) / max(1, n_exec)
@@ -3147,6 +3494,8 @@ class InferenceEngine:
         if c.spec_turn:
             self.n_spec_turns += n_exec
             self.n_spec_drafted += c.drafted * n_exec
+            obs.SPEC_TURNS.inc(n_exec)
+            obs.SPEC_DRAFT_TOKENS.inc(c.drafted * n_exec)
             for i, req in c.active:
                 got, segs = delivered.get(i, (0, 0))
                 if req.spec_state is not None and (segs < c.n_chunks
@@ -3154,8 +3503,20 @@ class InferenceEngine:
                     # A rejection breaks the full-accept assumption every
                     # pipelined draft was formed under.
                     req.spec_state = None
+                if self._slots[i] is req or i in done:
+                    self._turn_span(req, "spec-verify", t0, t1, drafted=c.n_steps - 1,
+                                    accepted=max(0, got - max(1, segs)),
+                                    occupancy=len(c.active), depth=c.depth,
+                                    inflight=round(t0 - c.t_issue, 6))
         else:
             self.n_loop_chunks += n_exec
+            obs.DECODE_LOOP_CHUNKS.observe(n_exec)
+            meta = {"chunks": c.n_chunks} if c.n_chunks > 1 else {}
+            for i, req in c.active:
+                if self._slots[i] is req or i in done:
+                    self._turn_span(req, "decode", t0, t1, steps=c.n_steps,
+                                    occupancy=len(c.active), depth=c.depth,
+                                    inflight=round(t0 - c.t_issue, 6), **meta)
         if c.event is not None:  # the buffers may be reused only now
             for buf in (c.host, c.lp):
                 if buf is not None:
@@ -3186,7 +3547,10 @@ class InferenceEngine:
         n_top = min(TOP_LOGPROBS, self.spec.vocab_size)
         t_fetch = time.perf_counter()
         if c.constrained:  # the masked counts ride the token copy: no extra sync
-            self.n_constrain_masked += sum(row[c.n_steps + 1] for seg in host for row in seg)
+            n_masked = sum(row[c.n_steps + 1] for seg in host for row in seg)
+            self.n_constrain_masked += n_masked
+            if n_masked:
+                obs.CONSTRAIN_MASKED_TOKENS.inc(n_masked)
         done: set[int] = set()
         delivered: dict[int, tuple[int, int]] = {}
         n_exec = 0
@@ -3198,7 +3562,7 @@ class InferenceEngine:
                 k = seg[i][c.n_steps]
                 if not k:
                     continue
-                if self._slots[i] is not req or i in done:
+                if self._slots[i] is not req or i in done or req.deadline_answered:
                     self.n_overrun += k
                     continue
                 got = 0
@@ -3215,7 +3579,10 @@ class InferenceEngine:
                 d0, s0 = delivered.get(i, (0, 0))
                 delivered[i] = (d0 + got, s0 + 1)
                 if c.spec_turn:
-                    self.n_spec_accepted += max(0, got - 1)
+                    acc = max(0, got - 1)
+                    self.n_spec_accepted += acc
+                    obs.SPEC_ACCEPTED_TOKENS.inc(acc)
+                    obs.SPEC_ACCEPTANCE.observe(acc)
         self.drain_gap_s += time.perf_counter() - t_fetch
         return done, n_exec, delivered
 
@@ -3270,8 +3637,20 @@ class InferenceEngine:
                 self._page_claims = [0] * self.n_slots
                 self._table_dirty = True
             self.n_rebuilds += 1
+        obs.PIPELINE_DEPTH.set(0)
+        # The post-mortem artifact: the ring holds the timeline that led
+        # here. Then the breaker: a retry storm of a poison pill opens it.
+        FLIGHT.record("fail-all", engine=self._tag, loop="decode",
+                      error=f"{type(exc).__name__}: {exc}"[:200], doomed=len(doomed),
+                      rids=[r.rid for r in doomed])
+        FLIGHT.dump("fail-all")
+        self._record_breaker_failure()
         for r in doomed:
             self.n_failures += 1
+            if r.trace is not None:
+                now = time.perf_counter()
+                r.trace.add_span_abs("engine-failure", now, now, error=type(exc).__name__,
+                                     contained=False)
             r.out.put(("err", exc))
 
 
@@ -3284,6 +3663,25 @@ def _constrained_key(key: tuple) -> bool:
 def _spec_family(key: tuple) -> str:
     """The warm-up family of a speculative dispatch's key (its program)."""
     return key[1] if key[0] == "paged" else key[0]
+
+
+def program_family(key: tuple) -> str:
+    """The JAX engine's program-family name of a dispatch key, the label of
+    its device time: ``plain`` / ``loop`` (one chunk or more),
+    ``dfa`` / ``loop_dfa`` (the grammar variant), ``verify``,
+    ``dfa_verify``, ``spec_loop`` / ``spec_loop_dfa`` (fused draft→verify),
+    each with a ``paged_`` prefix on a paged engine."""
+    if key[0] == "paged":
+        return "paged_" + program_family(key[1:-1] if key[1] not in ("verify", "dfa_verify")
+                                         else key[1:])
+    if key[0] in ("verify", "dfa_verify"):
+        return key[0]
+    if key[0] == "spec_loop":
+        return "spec_loop_dfa" if "dfa" in key[1:] else "spec_loop"
+    constrained = key[0] == "dfa"
+    n_chunks = key[2] if constrained else key[1]
+    return ("loop_dfa" if constrained else "loop") if n_chunks > 1 else (
+        "dfa" if constrained else "plain")
 
 
 def check_quant_knobs(quant: str | None, kv_quant: str | None) -> tuple[str | None, str | None]:
@@ -3515,6 +3913,17 @@ def get_engine_from_ckpt(
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
         return eng
+
+
+def release_engine(engine: InferenceEngine, timeout: float = 30.0) -> None:
+    """Shut ONE engine down and evict it from the shared cache (hot reload
+    of a dropped backend): without the eviction, the cache's reference keeps
+    its weights, KV cache and graphs on the card."""
+    with _ENGINES_LOCK:
+        for key, eng in list(_ENGINES.items()):
+            if eng is engine:
+                del _ENGINES[key]
+    engine.shutdown(timeout=timeout)
 
 
 def shutdown_all_engines(timeout: float = 30.0) -> None:

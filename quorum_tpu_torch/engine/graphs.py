@@ -31,19 +31,24 @@ one memory pool: they replay one at a time, in stream order. K2 launches
 and K2q8 launches made inside a capture are counted per graph and wrapper
 and added to each wrapper's ``launches`` at every replay.
 
+A first capture holds the engine's scheduler thread for seconds at full
+depth: the engine's ``hold`` context runs around it (its deadline watcher).
+
 There is no eager path on the card and no switch: a capture that fails
 raises, and the engine fails its requests.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from typing import Callable
+from typing import Callable, ContextManager
 
 import torch
 
-from quorum_tpu_torch.ops.launches import add_launches, captured_launches, capturing
+from quorum_tpu_torch.ops.launches import (GRAPH_LAUNCH_GATE, add_launches, captured_launches,
+                                           capturing)
 
 _CAPTURE_LOCK = threading.Lock()
 
@@ -51,9 +56,11 @@ _CAPTURE_LOCK = threading.Lock()
 class DecodeGraphs:
     """One captured graph per program key on one engine's ``stream``."""
 
-    def __init__(self, device: torch.device, stream: torch.cuda.Stream):
+    def __init__(self, device: torch.device, stream: torch.cuda.Stream,
+                 hold: Callable[[], ContextManager] = contextlib.nullcontext):
         self.device = device
         self.stream = stream
+        self.hold = hold  # entered around each first capture and its warm-up
         self.pool = torch.cuda.graph_pool_handle()
         self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, object, dict]] = {}
         self._warmed: set = set()  # key families whose warm-up has run
@@ -67,21 +74,29 @@ class DecodeGraphs:
         return key in self._graphs
 
     def replay(self, key: tuple, program: Callable[[], object],
-               warm_up: Callable[[], None], family: str | None = None):
+               warm_up: Callable[[], None], family: str | None = None, timing=None):
         """Replay ``key``'s graph on the current stream (the engine's),
         capturing ``program`` first if this key has none; returns the
         graph's static output. ``warm_up`` runs once per ``family`` (None:
-        the plain decode keys), before that family's first capture."""
+        the plain decode keys), before that family's first capture.
+        ``timing``, a pair of timing CUDA events, is recorded around the
+        replay alone (never inside a capture): the replay's device time."""
         entry = self._graphs.get(key)
         if entry is None:
-            if family not in self._warmed:
-                warm_up()
-                self._warmed.add(family)
-            t0 = time.perf_counter()
-            entry = self._graphs[key] = self._capture(program)
-            self.capture_seconds_by_key[key] = time.perf_counter() - t0
+            with self.hold():
+                if family not in self._warmed:
+                    warm_up()
+                    self._warmed.add(family)
+                t0 = time.perf_counter()
+                entry = self._graphs[key] = self._capture(program)
+                self.capture_seconds_by_key[key] = time.perf_counter() - t0
         graph, out, launches = entry
-        graph.replay()
+        if timing is not None:
+            timing[0].record()
+        with GRAPH_LAUNCH_GATE:  # never beside a profiler's start or stop
+            graph.replay()
+        if timing is not None:
+            timing[1].record()
         add_launches(launches)
         self.replays += 1
         return out

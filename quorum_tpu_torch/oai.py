@@ -266,4 +266,14 @@ def validate_request_body(body: dict[str, Any]) -> str | None:
         return f"Invalid value for 'quorum': {q!r} (an integer in [1, {MAX_QUORUM}])"
     if "messages" in body and not isinstance(body["messages"], list):
         return "Invalid value for 'messages': must be an array"
+    # A W3C traceparent as a body knob, for clients that cannot set headers:
+    # consumed by the server, never forwarded; a malformed value is a 400,
+    # not a silently minted trace-id.
+    tp = body.get("traceparent")
+    if tp is not None:
+        from quorum_tpu_torch.telemetry import tracecontext
+
+        if not isinstance(tp, str) or tracecontext.parse_traceparent(tp) is None:
+            return (f"Invalid value for 'traceparent': {tp!r} (W3C "
+                    "trace-context: 00-<32 hex>-<16 hex>-<2 hex flags>)")
     return None

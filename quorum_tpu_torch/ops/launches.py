@@ -4,6 +4,9 @@ kernel. An eager call adds one to ``wrapper.launches``; a call made while
 its thread captures a graph (:func:`capturing`) counts as captured, and
 ``engine/graphs.py`` adds a graph's captured calls on every replay
 (:func:`add_launches`). Exact under concurrent callers (one lock).
+
+:data:`GRAPH_LAUNCH_GATE` is the rule for the launches themselves: a graph
+replay and a profiler session's start or stop never run at once.
 """
 
 from __future__ import annotations
@@ -14,6 +17,15 @@ from typing import Callable
 
 _LOCK = threading.Lock()
 _CAPTURE = threading.local()  # .on: this thread is capturing; .n: calls it captured
+
+# CUDA graph launches and a profiler session's start and stop exclude each
+# other: torch.profiler stopping while another thread launches a CUDA graph
+# can deadlock inside CUDA (seen on the H100 with 32-layer decode graphs:
+# the stop and ``CUDAGraph.replay`` each waiting inside CUDA). A replay holds
+# this gate for its enqueue (``engine/graphs.py``); a session takes it for
+# its start and its stop (``observability._session``), so every engine's
+# replays wait those out.
+GRAPH_LAUNCH_GATE = threading.Lock()
 
 
 def count(wrapper: Callable) -> None:

@@ -1,8 +1,18 @@
 """The OpenAI-compatible application.
 
   POST /chat/completions, /v1/chat/completions   streamed (SSE) or not
-  GET  /health, /v1/health                       engine liveness
+  GET  /health, /v1/health                       engine liveness (200/503)
+  GET  /ready, /v1/ready                         would new work be admitted?
   GET  /models, /v1/models                       configured model ids
+  GET  /metrics, /v1/metrics                     Prometheus text exposition
+  GET  /debug/traces[/{request_id}]              request span timelines
+  GET  /debug/engine/timeline[?format=perfetto]  the engine flight recorder
+  GET  /debug/telemetry                          compact host-side snapshot
+  POST /debug/profile?seconds=N                  torch.profiler, whole process
+  GET/PUT /debug/prefix/chunks                   prefix-store export/import
+
+(each also under ``/v1``). The status codes, error types and body keys are
+the JAX package's server's.
 
 Request handling follows the JAX package's server: a missing Authorization
 header falls back to ``$OPENAI_API_KEY``, else 401; malformed knobs are one
@@ -22,16 +32,27 @@ error is relayed as is; any other all-failed case is one 500.
 
 from __future__ import annotations
 
+import asyncio
+import contextlib
 import logging
 import os
 import time
+import uuid
 from typing import Any, AsyncIterator
 
 from quorum_tpu_torch import oai, sse
 from quorum_tpu_torch.backends.base import BackendError
 from quorum_tpu_torch.backends.registry import BackendRegistry, build_registry
 from quorum_tpu_torch.config import Config, load_config
+from quorum_tpu_torch.observability import (FLIGHT_RECORDER_EVENTS, METRICS, TRACE_PROPAGATED,
+                                            TRACES, ProfilerBusy, RequestTrace,
+                                            finish_request_trace, maybe_profile,
+                                            prepare_profiler, profile_process, use_trace)
 from quorum_tpu_torch.server.asgi import App, JSONResponse, Request, Response, StreamingResponse
+from quorum_tpu_torch.server.reload import ConfigWatcher, Runtime
+from quorum_tpu_torch.telemetry import slo as slo_mod
+from quorum_tpu_torch.telemetry import tracecontext
+from quorum_tpu_torch.telemetry.recorder import RECORDER
 from quorum_tpu_torch.strategies.combine import combine_outcomes, degraded_headers
 from quorum_tpu_torch.strategies.fanout import fanout_complete
 from quorum_tpu_torch.strategies.streaming import StreamPlan, parallel_stream
@@ -162,34 +183,132 @@ def _validate_speculative_aggregation(cfg: Config, reg: BackendRegistry) -> None
             "what prompt-lookup speculation drafts from.")
 
 
+# Engine metrics exposed as gauges (the rest are counters); the JAX server's
+# list, plus the port's graph pool bytes.
+_ENGINE_GAUGES = frozenset({
+    "slots", "members", "busy_slots", "admitting", "pending", "queue_limit",
+    "decode_pipeline", "decode_loop", "inflight_chunks", "prefix_store_bytes",
+    "prefix_store_entries", "breaker_state", "kv_pages", "kv_page_size",
+    "kv_pages_allocated", "kv_pages_free", "decode_graph_pool_bytes"})
+
+
+def _distinct_engines(reg: BackendRegistry):
+    """(backend name, engine) per DISTINCT engine: backends sharing an
+    engine (``members=M&member=i``) count it once, and HTTP relays hold no
+    local state."""
+    seen: set[int] = set()
+    for backend in reg.backends:
+        engine = getattr(backend, "engine", None)
+        if engine is None or id(engine) in seen:
+            continue
+        seen.add(id(engine))
+        yield backend.name, engine
+
+
+def _engine_health(reg: BackendRegistry) -> tuple[str, list[dict]]:
+    """One check row per distinct engine. ``unhealthy``: a serving thread
+    (scheduler, prefix-store snapshot worker) is dead, and only a restart
+    recovers. ``degraded``: the breaker is not closed or the queue is full —
+    alive but shedding — or (``QUORUM_TPU_SLO_READY_BURN``) an SLO class
+    burns past its threshold."""
+    checks = []
+    for name, engine in _distinct_engines(reg):
+        row = engine.health()
+        row["backend"] = name
+        checks.append(row)
+    status = "healthy"
+    for row in checks:
+        if not row["scheduler_alive"] or not row["snapshot_worker_alive"]:
+            return "unhealthy", checks
+        if row["breaker"] != "closed" or row["pending"] >= row["queue_limit"]:
+            status = "degraded"
+    if status == "healthy" and checks and slo_mod.burning_class() is not None:
+        status = "degraded"
+    return status, checks
+
+
+def _metrics_lines(reg: BackendRegistry) -> list[str]:
+    """The engines' ``quorum_tpu_engine_*`` families: one snapshot per
+    distinct engine, each family's TYPE line once with its samples grouped.
+    A per-member list is one sample per member."""
+    snapshots = [(name, engine.metrics()) for name, engine in _distinct_engines(reg)]
+    lines: list[str] = []
+    if not snapshots:
+        return lines
+    for key in snapshots[0][1]:
+        lines.append(f"# TYPE quorum_tpu_engine_{key} "
+                     f"{'gauge' if key in _ENGINE_GAUGES else 'counter'}")
+        for name, m in snapshots:
+            val = m[key]
+            if isinstance(val, list):
+                lines.extend(f'quorum_tpu_engine_{key}{{backend="{name}",member="{i}"}} {v}'
+                             for i, v in enumerate(val))
+            else:
+                lines.append(f'quorum_tpu_engine_{key}{{backend="{name}"}} {val}')
+    return lines
+
+
 def create_app(config: Config | None = None, registry: BackendRegistry | None = None,
-               **backend_overrides) -> App:
+               watch_config: bool | None = None, **backend_overrides) -> App:
     """Build the ASGI application. Tests inject backends via
     ``backend_overrides`` (name → backend) or a ready ``registry``. Raises
-    ValueError for a config the app must refuse at boot."""
+    ValueError for a config the app must refuse at boot.
+
+    ``watch_config`` (default: ``QUORUM_TPU_CONFIG_WATCH=1``) turns on hot
+    reload of a file-backed config (``server/reload.py``): each request
+    checks the file (rate-limited) and an edit swaps in a rebuilt registry
+    that keeps every untouched backend and releases the dropped engines."""
     cfg = config if config is not None else load_config()
     reg = registry if registry is not None else build_registry(cfg, **backend_overrides)
     _validate_speculative_aggregation(cfg, reg)
+    rt = Runtime(cfg, reg)
+    if watch_config is None:
+        watch_config = os.environ.get("QUORUM_TPU_CONFIG_WATCH", "") == "1"
+    watcher = (ConfigWatcher(cfg.source_path, rt, backend_overrides)
+               if watch_config and cfg.source_path is not None and registry is None else None)
     app = App()
+    app.state["runtime"] = rt
     app.state["config"] = cfg
     app.state["registry"] = reg
+    started = time.monotonic()
+
+    async def current() -> tuple[Config, BackendRegistry]:
+        """The live (config, registry) pair, after a reload when watching."""
+        if watcher is not None:
+            await watcher.poll()
+            app.state["config"], app.state["registry"] = rt.cfg, rt.reg
+        return rt.cfg, rt.reg
 
     @app.route("GET", "/health", "/v1/health")
     async def health(request: Request) -> Response:
-        checks = []
-        for b in reg.backends:
-            engine = getattr(b, "engine", None)
-            if engine is not None:
-                checks.append({"backend": b.name, **engine.health()})
-        alive = all(c["scheduler_alive"] for c in checks)
-        status = "healthy" if alive else "unhealthy"
+        """``healthy`` / ``degraded`` (200: the process serves, perhaps
+        shedding) / ``unhealthy`` (503: rotate it out). With no engine the
+        body is the bare ``{"status": "healthy"}``."""
+        _, reg = await current()
+        status, checks = _engine_health(reg)
         body: dict[str, Any] = {"status": status}
         if checks:
             body["checks"] = checks
-        return JSONResponse(body, status_code=200 if alive else 503)
+            body["slo"] = slo_mod.SLO.snapshot()
+        if status == "unhealthy":
+            return JSONResponse(body, status_code=503, headers={"Retry-After": "5"})
+        return JSONResponse(body)
+
+    @app.route("GET", "/ready", "/v1/ready")
+    async def ready(request: Request) -> Response:
+        """200 only while new work would be admitted: a dead serving thread,
+        a breaker not closed or a full queue is a 503 with Retry-After."""
+        _, reg = await current()
+        status, checks = _engine_health(reg)
+        if status == "healthy":
+            return JSONResponse({"status": "ready"})
+        return JSONResponse({"status": "unready", "reason": status,
+                             **({"checks": checks} if checks else {})},
+                            status_code=503, headers={"Retry-After": "5"})
 
     @app.route("GET", "/models", "/v1/models")
     async def models(request: Request) -> Response:
+        _, reg = await current()
         owners: dict[str, list[str]] = {}
         for b in reg.backends:
             mid = getattr(b, "model", "") or getattr(b, "model_id", "")
@@ -199,8 +318,219 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
                 for mid, names in sorted(owners.items())]
         return JSONResponse({"object": "list", "data": data})
 
+    @app.route("GET", "/metrics", "/v1/metrics")
+    async def metrics(request: Request) -> Response:
+        """Prometheus text: uptime, each distinct engine's counters and
+        gauges, then the registered families. Host counters only: a scrape
+        never syncs the device."""
+        _, reg = await current()
+        lines = ["# TYPE quorum_tpu_uptime_seconds gauge",
+                 f"quorum_tpu_uptime_seconds {time.monotonic() - started:.3f}"]
+        lines.extend(_metrics_lines(reg))
+        FLIGHT_RECORDER_EVENTS.set(RECORDER.depth())
+        lines.extend(METRICS.expose())
+        return Response(("\n".join(lines) + "\n").encode(),
+                        media_type="text/plain; version=0.0.4")
+
+    @app.route("GET", "/debug/traces", "/v1/debug/traces")
+    async def debug_traces(request: Request) -> Response:
+        """The in-flight traces and the ring of completed ones (summaries)."""
+        return JSONResponse(TRACES.snapshot())
+
+    @app.route("GET", "/debug/traces/{request_id}", "/v1/debug/traces/{request_id}")
+    async def debug_trace_one(request: Request) -> Response:
+        trace = TRACES.get(request.path_params["request_id"])
+        if trace is None:
+            return _error("trace not found (expired from the ring buffer, or the id was "
+                          "never traced)", "invalid_request_error", 404)
+        return JSONResponse(trace.to_dict())
+
+    @app.route("GET", "/debug/engine/timeline", "/v1/debug/engine/timeline")
+    async def debug_timeline(request: Request) -> Response:
+        """The flight recorder's ring; ``?format=perfetto`` is Chrome
+        trace-event JSON (open it in ui.perfetto.dev). The JSON form adds
+        each engine's per-family device-time statistics and the SLO
+        snapshot."""
+        _, reg = await current()
+        fmt = request.query_params.get("format", "json")
+        if fmt in ("perfetto", "trace", "chrome"):
+            return JSONResponse({"displayTimeUnit": "ms",
+                                 "traceEvents": RECORDER.to_trace_events()})
+        if fmt != "json":
+            return _error(f"unknown format {fmt!r} (json or perfetto)",
+                          "invalid_request_error", 400)
+        return JSONResponse({
+            "clock": "perf_counter",
+            "capacity": RECORDER.capacity,
+            "recorded_total": RECORDER.total(),
+            "events": RECORDER.snapshot(),
+            "device_time": {name: engine.latency.snapshot()
+                            for name, engine in _distinct_engines(reg)},
+            "slo": slo_mod.SLO.snapshot(),
+        })
+
+    @app.route("GET", "/debug/telemetry", "/v1/debug/telemetry")
+    async def debug_telemetry(request: Request) -> Response:
+        """A compact host-side snapshot (no device sync): SLO burn, queue
+        depth, breaker states, per-family latency, prefix-store bytes and
+        a sample of this process's ``perf_counter`` clock. ``sched`` stays
+        empty: the port's engines have no QoS cost model."""
+        _, reg = await current()
+        status, checks = _engine_health(reg)
+        store_bytes = 0
+        for _, engine in _distinct_engines(reg):
+            if engine.prefix_store is not None:
+                store_bytes += int(engine.prefix_store.bytes_held or 0)
+        return JSONResponse({
+            "clock": time.perf_counter(),
+            "time": time.time(),
+            "status": status,
+            "slo": slo_mod.SLO.snapshot(),
+            "queue_depth": sum(int(row.get("pending", 0) or 0) for row in checks),
+            "breaker": {row["backend"]: row.get("breaker", "closed") for row in checks},
+            "latency": {name: engine.latency.snapshot()
+                        for name, engine in _distinct_engines(reg)},
+            "prefix_store_bytes": store_bytes,
+            "sched": {},
+        })
+
+    @app.route("POST", "/debug/profile", "/v1/debug/profile")
+    async def debug_profile(request: Request) -> Response:
+        """A whole-process ``torch.profiler`` trace of the next N seconds
+        (``?seconds=N``, default 1, in (0, 60]); returns the directory of
+        its Chrome trace (``trace.json``). Single-flight: a second request
+        meanwhile gets a 409 ``conflict_error``."""
+        raw = request.query_params.get("seconds", "1")
+        try:
+            seconds = float(raw)
+        except ValueError:
+            seconds = -1.0
+        if not 0.0 < seconds <= 60.0:
+            return _error(f"'seconds' must be a number in (0, 60], got {raw!r}",
+                          "invalid_request_error", 400)
+        prepare_profiler()  # here, on the loop's thread: see its docstring
+        try:
+            out_dir = await asyncio.to_thread(profile_process, seconds)
+        except ProfilerBusy:
+            return _error("profiler busy: another profile (on-demand or per-request) is in "
+                          "flight", "conflict_error", 409, headers={"Retry-After": "5"})
+        except Exception as e:
+            return _error(f"profiling failed: {e}", "proxy_error", 500)
+        return JSONResponse({"profile_dir": out_dir, "seconds": seconds})
+
+    def _store_engine(reg: BackendRegistry, name: str | None):
+        """The engine whose host prefix store the chunk routes serve:
+        ``?backend=`` by name, else the first with a store."""
+        rows = [(n, e) for n, e in _distinct_engines(reg)
+                if e.prefix_store is not None and (not name or n == name)]
+        return rows[0] if rows else (None, None)
+
+    def _no_store() -> JSONResponse:
+        return _error("no engine with a host prefix store (prefix_store=host) is configured",
+                      "invalid_request_error", 404)
+
+    @app.route("GET", "/debug/prefix/chunks", "/v1/debug/prefix/chunks")
+    async def prefix_chunks_export(request: Request) -> Response:
+        """The store's restorable chunk chains in the migration wire format
+        (``cache/prefix_wire.py``); ``?max_bytes=`` bounds the export."""
+        _, reg = await current()
+        name, engine = _store_engine(reg, request.query_params.get("backend"))
+        if engine is None:
+            return _no_store()
+        raw_max = request.query_params.get("max_bytes")
+        max_bytes = None
+        if raw_max is not None:
+            # A caller who asked for a bound gets one: a bad value is a 400,
+            # never a silent full export.
+            try:
+                max_bytes = int(raw_max)
+            except ValueError:
+                max_bytes = -1
+            if max_bytes < 1:
+                return _error(f"'max_bytes' must be a positive integer, got {raw_max!r}",
+                              "invalid_request_error", 400)
+        blob = await asyncio.to_thread(engine.export_prefix_chunks, max_bytes)
+        return Response(blob, media_type="application/octet-stream",
+                        headers={"X-Prefix-Chunk-Tokens": str(engine.prefix_store.chunk_tokens),
+                                 "X-Prefix-Backend": name})
+
+    @app.route("PUT", "/debug/prefix/chunks", "/v1/debug/prefix/chunks")
+    async def prefix_chunks_import(request: Request) -> Response:
+        """Seed the store from a peer's export, validated against this
+        engine's cache layout: a mismatched blob is a 400."""
+        _, reg = await current()
+        name, engine = _store_engine(reg, request.query_params.get("backend"))
+        if engine is None:
+            return _no_store()
+        blob = await request.body()
+        try:
+            stats = await asyncio.to_thread(engine.import_prefix_chunks, blob)
+        except ValueError as e:
+            return _error(f"prefix-chunk import rejected: {e}", "invalid_request_error", 400)
+        stats["backend"] = name
+        return JSONResponse(stats)
+
     @app.route("POST", "/chat/completions", "/v1/chat/completions")
     async def chat_completions(request: Request) -> Response:
+        """Request id, trace and profiler scope around the dispatch. The
+        trace id comes from a valid W3C ``traceparent`` (the header, else
+        the body knob), or this server mints one; the response echoes
+        ``X-Request-Id`` and ``traceparent``. A stream's scope closes when
+        its iterator ends, after the device work the ASGI server drives."""
+        rid = f"req-{uuid.uuid4().hex[:16]}"
+        parsed = tracecontext.parse_traceparent(request.headers.get("traceparent"))
+        if parsed is None:
+            with contextlib.suppress(Exception):
+                raw = await request.json()
+                if isinstance(raw, dict):
+                    parsed = tracecontext.parse_traceparent(raw.get("traceparent"))
+        if parsed is not None:
+            trace_id = parsed[0]
+            TRACE_PROPAGATED.inc(source="client")
+        else:
+            trace_id = tracecontext.new_trace_id()
+            TRACE_PROPAGATED.inc(source="server")
+        span_id = tracecontext.new_span_id()
+        trace = TRACES.start(RequestTrace(rid, trace_id=trace_id, span_id=span_id))
+        scope = contextlib.ExitStack()
+        scope.enter_context(maybe_profile(rid))
+        try:
+            with use_trace(trace):
+                response = await _chat_impl(request, trace)
+        except (asyncio.CancelledError, GeneratorExit):
+            scope.close()
+            finish_request_trace(trace, status=499)  # the client went away
+            raise
+        except BaseException:
+            scope.close()
+            finish_request_trace(trace, status=500)
+            raise
+        response.headers.setdefault("X-Request-Id", rid)
+        response.headers.setdefault("traceparent",
+                                    tracecontext.format_traceparent(trace_id, span_id))
+        if isinstance(response, StreamingResponse):
+            response.iterator = _finish_scope_after(
+                sse.instrument_stream(response.iterator, trace), scope, trace,
+                response.status_code)
+        else:
+            scope.close()
+            finish_request_trace(trace, status=response.status_code, mode="complete")
+        return response
+
+    async def _finish_scope_after(iterator: AsyncIterator[bytes], scope: contextlib.ExitStack,
+                                  trace: RequestTrace, status: int) -> AsyncIterator[bytes]:
+        try:
+            async for chunk in iterator:
+                yield chunk
+        except (GeneratorExit, asyncio.CancelledError):
+            status = 499
+            raise
+        finally:
+            scope.close()
+            finish_request_trace(trace, status=status, mode="stream")
+
+    async def _chat_impl(request: Request, trace: RequestTrace) -> Response:
+        cfg, reg = await current()
         try:
             body = await request.json()
             if not isinstance(body, dict):
@@ -216,6 +546,7 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
             return _error(invalid, "invalid_request_error", 400)
         if len(reg) == 0:
             return _error("No valid backends configured", "configuration_error", 500)
+        body.pop("traceparent", None)  # a carrier only, never forwarded
         if (body.pop("quorum", None) or 1) > 1:
             return _error("'quorum' requires the router tier: this server is a single cell "
                           "and cannot fan out across replicas", "invalid_request_error", 400)
@@ -225,6 +556,7 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
         # gets what the fan-out left of it.
         timeout = float(body.pop("timeout", None) or cfg.timeout)
         deadline = time.monotonic() + timeout
+        trace.meta["slo"] = slo_mod.classify(timeout)
         # The aggregate strategy fans out to source_backends only; the model
         # check looks at the actual targets.
         if is_parallel and cfg.strategy_name == "aggregate":
@@ -237,14 +569,19 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
         if "model" not in body and not any(b.model for b in targets):
             return _error("Model must be specified when config.yaml model is blank",
                           "invalid_request_error", 400)
+        trace.meta["mode"] = (("parallel-" if is_parallel else "single-")
+                              + ("stream" if is_streaming else "complete"))
+        trace.meta["backends"] = [b.name for b in targets]
 
         if is_streaming:
             if is_parallel:
                 plan = StreamPlan.from_config(cfg, reg, body)
-                return StreamingResponse(parallel_stream(plan, body, headers, timeout))
+                return StreamingResponse(parallel_stream(plan, body, headers, timeout,
+                                                         trace=trace))
             return await _single_stream(targets[0], body, headers, timeout)
 
-        outcomes = await fanout_complete(targets, body, headers, timeout)
+        with trace.span("fanout", backends=len(targets)):
+            outcomes = await fanout_complete(targets, body, headers, timeout)
         successes = [o for o in outcomes if o.ok]
         if not successes:
             if all(_relayable(o) for o in outcomes):
@@ -254,9 +591,10 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
             return _error(f"All backends failed. First error: {outcomes[0].error_message}",
                           "proxy_error", 500)
         if is_parallel:
-            combined, agg_outcome = await combine_outcomes(
-                cfg, reg, outcomes, body, headers,
-                aggregator_timeout=max(0.001, deadline - time.monotonic()))
+            with trace.span("aggregate", strategy=cfg.strategy_name):
+                combined, agg_outcome = await combine_outcomes(
+                    cfg, reg, outcomes, body, headers,
+                    aggregator_timeout=max(0.001, deadline - time.monotonic()))
             return JSONResponse(combined, headers=degraded_headers(agg_outcome))
         result = successes[0].result
         resp_headers = {k: v for k, v in result.headers.items()

@@ -18,6 +18,9 @@ class Request:
         self.scope = scope
         self._receive = receive
         self._body: bytes | None = None
+        # Filled by the router for routes registered with a trailing
+        # ``/{param}`` segment (``/debug/traces/{request_id}``).
+        self.path_params: dict[str, str] = {}
 
     @property
     def method(self) -> str:
@@ -26,6 +29,15 @@ class Request:
     @property
     def path(self) -> str:
         return self.scope["path"]
+
+    @property
+    def query_params(self) -> dict[str, str]:
+        """Decoded query-string parameters (the last value wins); routes
+        match on ``path`` alone, so ``?seconds=5`` knobs read from here."""
+        from urllib.parse import parse_qsl
+
+        raw = self.scope.get("query_string", b"") or b""
+        return dict(parse_qsl(raw.decode("latin-1"), keep_blank_values=True))
 
     @property
     def headers(self) -> dict[str, str]:
@@ -118,15 +130,43 @@ class App:
 
     def __init__(self) -> None:
         self._routes: dict[tuple[str, str], Handler] = {}
+        # (method, prefix, param name, handler) of ``.../{param}`` routes:
+        # matched when the exact table misses and the rest of the path after
+        # the prefix is one non-empty segment.
+        self._param_routes: list[tuple[str, str, str, Handler]] = []
         self.state: dict[str, Any] = {}
 
     def route(self, method: str, *paths: str) -> Callable[[Handler], Handler]:
         def register(handler: Handler) -> Handler:
             for p in paths:
-                self._routes[(method.upper(), p)] = handler
+                if p.endswith("}") and "/{" in p:
+                    prefix, _, param = p.rpartition("/")
+                    self._param_routes.append((method.upper(), prefix + "/", param[1:-1],
+                                               handler))
+                else:
+                    self._routes[(method.upper(), p)] = handler
             return handler
 
         return register
+
+    @staticmethod
+    def _tail_segment(path: str, prefix: str) -> str | None:
+        """The one non-empty segment after ``prefix``, or None: the single
+        matching rule of dispatch and of the 405-versus-404 decision."""
+        if not path.startswith(prefix):
+            return None
+        rest = path[len(prefix):]
+        return rest if rest and "/" not in rest else None
+
+    def _match_param_route(self, request: Request) -> Handler | None:
+        for method, prefix, param, handler in self._param_routes:
+            if method != request.method:
+                continue
+            rest = self._tail_segment(request.path, prefix)
+            if rest is not None:
+                request.path_params[param] = rest
+                return handler
+        return None
 
     async def __call__(self, scope, receive, send) -> None:
         if scope["type"] == "lifespan":
@@ -140,9 +180,14 @@ class App:
         if scope["type"] != "http":
             return
         request = Request(scope, receive)
-        handler = self._routes.get((request.method, request.path))
+        handler = (self._routes.get((request.method, request.path))
+                   or self._match_param_route(request))
         if handler is None:
-            known = request.path in {p for (_, p) in self._routes}
+            # A path known under another method is a 405, a param route's
+            # included (POST /debug/traces/abc, like POST /metrics).
+            known = (request.path in {p for (_, p) in self._routes}
+                     or any(self._tail_segment(request.path, prefix) is not None
+                            for (_, prefix, _, _) in self._param_routes))
             response: Response = JSONResponse(
                 {"error": {"message": "Method not allowed" if known else "Not found",
                            "type": "invalid_request_error"}},

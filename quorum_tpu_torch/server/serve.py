@@ -137,10 +137,13 @@ def main() -> None:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--config", default=None, help="path to config.yaml")
     parser.add_argument("--log-level", default="INFO")
+    parser.add_argument("--watch", action="store_true",
+                        help="hot-reload config.yaml edits in process, keeping the cuda:// "
+                             "engines an edit does not touch (QUORUM_TPU_CONFIG_WATCH=1)")
     args = parser.parse_args()
     logging.basicConfig(level=getattr(logging, args.log_level.upper(), logging.INFO),
                         format="%(levelname)s:%(asctime)s:%(name)s: %(message)s")
-    app = create_app(load_config(args.config))
+    app = create_app(load_config(args.config), watch_config=True if args.watch else None)
     try:
         asyncio.run(serve(app, args.host, args.port))
     except KeyboardInterrupt:

@@ -6,7 +6,7 @@ events; the HTTP relay parses an upstream's byte stream with
 from __future__ import annotations
 
 import json
-from typing import Any, Iterator
+from typing import Any, AsyncIterator, Iterator
 
 DONE = "[DONE]"
 
@@ -20,6 +20,34 @@ def encode_event(payload: dict[str, Any] | str) -> bytes:
 
 def encode_done() -> bytes:
     return encode_event(DONE)
+
+
+async def instrument_stream(iterator: AsyncIterator[bytes], trace) -> AsyncIterator[bytes]:
+    """Pass SSE bytes through, marking every flush on the request's trace
+    (``RequestTrace.mark_flush``): TTFT and inter-token gaps measured at the
+    last point before the ASGI send, detokenization and JSON encoding
+    included. A flush counts its content-bearing ``data:`` frames (a
+    coalesced write carries several; role chunks and ``[DONE]`` carry none),
+    and an ``sse-flush`` span covers the first to the last write."""
+    if trace is None:
+        async for chunk in iterator:
+            yield chunk
+        return
+    span = None
+    try:
+        async for chunk in iterator:
+            if span is None:
+                span = trace.add_span("sse-flush", trace.now())
+            # Every frame is encode_event's compact JSON, so a non-empty
+            # content delta serializes with text after '"content":"'.
+            n_content = sum(1 for frame in chunk.split(b"\n\n")
+                            if (b'"content":' in frame and b'"content":""' not in frame
+                                and b'"content":null' not in frame))
+            trace.mark_flush(n_content)
+            yield chunk
+    finally:
+        if span is not None:
+            span.end = trace.now()
 
 
 class SSEParser:

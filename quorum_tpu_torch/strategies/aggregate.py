@@ -20,6 +20,8 @@ from typing import Any, AsyncIterator, Sequence
 from quorum_tpu_torch import oai
 from quorum_tpu_torch.backends.base import Backend
 from quorum_tpu_torch.config import AggregateParams
+from quorum_tpu_torch.observability import AGGREGATE_DEGRADED, current_trace, trace_span
+from quorum_tpu_torch.telemetry.recorder import RECORDER
 
 aggregation_logger = logging.getLogger("aggregation")
 
@@ -94,6 +96,11 @@ def _hop_headers(aggregator: Backend, headers: dict[str, str] | None) -> dict[st
 
 
 def _degrade(reason: str, fallback: str, error: str | None = None) -> AggregateOutcome:
+    """Count and record the fallback: ``quorum_tpu_aggregate_degraded_total``
+    and an ``aggregate-degraded`` flight-recorder event."""
+    AGGREGATE_DEGRADED.inc(reason=reason)
+    RECORDER.record("aggregate-degraded", reason=reason,
+                    **({"error": error[:200]} if error else {}))
     aggregation_logger.error("aggregation degraded (%s): %s", reason, error or "")
     return AggregateOutcome(fallback, degraded_reason=reason, error=error)
 
@@ -113,8 +120,11 @@ async def aggregate_with_status(labeled_sources: Sequence[tuple[str, str]],
     if clean_headers is None:
         return _degrade("no_credentials", fallback)
     try:
-        result = await aggregator.complete(aggregation_body(prompt, aggregator, params),
-                                           clean_headers, timeout)
+        # The synthesis hop often dominates an aggregate request's latency:
+        # its span names the aggregator.
+        with trace_span(current_trace(), "aggregator-call", backend=aggregator.name):
+            result = await aggregator.complete(aggregation_body(prompt, aggregator, params),
+                                               clean_headers, timeout)
     except Exception as e:
         return _degrade("error", fallback, error=str(e)[:500])
     if not result.ok:
@@ -152,11 +162,13 @@ async def stream_aggregate_deltas(labeled_sources: Sequence[tuple[str, str]],
     body["stream"] = True
     sent: list[str] = []
     try:
-        async for chunk in aggregator.stream(body, clean_headers, timeout):
-            text = oai.extract_delta_content(chunk)
-            if text:
-                sent.append(text)
-                yield text
+        with trace_span(current_trace(), "aggregator-call", backend=aggregator.name,
+                        streamed=1):
+            async for chunk in aggregator.stream(body, clean_headers, timeout):
+                text = oai.extract_delta_content(chunk)
+                if text:
+                    sent.append(text)
+                    yield text
     except Exception as e:
         if not sent:
             yield fallback

@@ -9,6 +9,7 @@ from dataclasses import dataclass
 from typing import Any
 
 from quorum_tpu_torch.backends.base import Backend, BackendError, CompletionResult
+from quorum_tpu_torch.observability import current_trace, trace_span, use_trace
 
 
 @dataclass
@@ -44,10 +45,15 @@ class BackendOutcome:
 
 
 async def _call_one(backend: Backend, body: dict[str, Any], headers: dict[str, str],
-                    timeout: float) -> BackendOutcome:
+                    timeout: float, trace=None) -> BackendOutcome:
     try:
-        return BackendOutcome(backend=backend,
-                              result=await backend.complete(body, headers, timeout))
+        # gather() runs each call as its own task: the request trace is
+        # bound again so a cuda:// backend's engine spans attach to it.
+        with use_trace(trace), trace_span(trace, "fanout-call", backend=backend.name) as span:
+            result = await backend.complete(body, headers, timeout)
+            if span is not None:
+                span.meta["status"] = result.status_code
+        return BackendOutcome(backend=backend, result=result)
     except BackendError as e:
         return BackendOutcome(backend=backend, error=e)
     except Exception as e:  # any other failure is one backend's error outcome
@@ -57,5 +63,6 @@ async def _call_one(backend: Backend, body: dict[str, Any], headers: dict[str, s
 async def fanout_complete(backends: list[Backend], body: dict[str, Any],
                           headers: dict[str, str], timeout: float) -> list[BackendOutcome]:
     """Call every backend concurrently; outcomes in backend order."""
-    return list(await asyncio.gather(*[_call_one(b, body, headers, timeout)
+    trace = current_trace()
+    return list(await asyncio.gather(*[_call_one(b, body, headers, timeout, trace)
                                        for b in backends]))

@@ -29,6 +29,7 @@ from quorum_tpu_torch.backends.base import Backend
 from quorum_tpu_torch.backends.registry import BackendRegistry
 from quorum_tpu_torch.config import AggregateParams, Config
 from quorum_tpu_torch.filtering import ThinkingTagFilter, strip_thinking_tags
+from quorum_tpu_torch.observability import trace_span, use_trace
 from quorum_tpu_torch.strategies.aggregate import (AggregateOutcome, aggregate_with_status,
                                                    stream_aggregate_deltas)
 
@@ -82,14 +83,19 @@ class StreamPlan:
 
 
 async def _pump(index: int, backend: Backend, body: dict[str, Any], headers: dict[str, str],
-                timeout: float, queue: asyncio.Queue) -> None:
+                timeout: float, queue: asyncio.Queue, trace=None) -> None:
     """Drive one member stream, putting (index, text) and at the end
-    (index, _DONE) into the merge queue; a failure ends the member."""
+    (index, _DONE) into the merge queue; a failure ends the member. The
+    request trace is bound again in this task: a ``cuda://`` member submits
+    to its engine at the stream's first ``__anext__``, here, after the
+    handler returned, and its engine spans must still attach."""
     try:
-        async for chunk in backend.stream(body, headers, timeout):
-            text = oai.extract_delta_content(chunk)
-            if text:
-                await queue.put((index, text))
+        with use_trace(trace), trace_span(trace, "fanout-stream", backend=backend.name,
+                                          index=index):
+            async for chunk in backend.stream(body, headers, timeout):
+                text = oai.extract_delta_content(chunk)
+                if text:
+                    await queue.put((index, text))
     except Exception as e:
         logger.warning("Backend %s (%d) stream failed: %s", backend.name, index, e)
     finally:
@@ -120,15 +126,17 @@ async def _live_aggregate(plan: StreamPlan, labeled: list[tuple[str, str]],
 
 
 async def parallel_stream(plan: StreamPlan, body: dict[str, Any], headers: dict[str, str],
-                          timeout: float,
-                          aggregator_timeout: float | None = None) -> AsyncIterator[bytes]:
-    """Merge N member streams into one OpenAI-compatible SSE byte stream."""
+                          timeout: float, aggregator_timeout: float | None = None,
+                          trace=None) -> AsyncIterator[bytes]:
+    """Merge N member streams into one OpenAI-compatible SSE byte stream;
+    ``trace`` gets the members' ``fanout-stream`` spans and the final
+    hop's ``aggregate`` span."""
     yield sse.encode_event(oai.role_chunk(PROXY_MODEL_NAME))
     n = len(plan.backends)
     filters = [ThinkingTagFilter(plan.thinking_tags) for _ in range(n)]
     collected = ["" for _ in range(n)]
     queue: asyncio.Queue = asyncio.Queue()
-    tasks = [asyncio.create_task(_pump(i, b, body, headers, timeout, queue))
+    tasks = [asyncio.create_task(_pump(i, b, body, headers, timeout, queue, trace))
              for i, b in enumerate(plan.backends)]
     try:
         finished = 0
@@ -164,19 +172,28 @@ async def parallel_stream(plan: StreamPlan, body: dict[str, Any], headers: dict[
         elif (plan.strategy_name == "aggregate" and plan.aggregator is not None
               and plan.aggregate_params):
             hop_timeout = aggregator_timeout or timeout
+            # Bound again: this body runs under the ASGI server, outside the
+            # handler's context, and the hop's own spans must attach.
             if plan.aggregate_params.stream_aggregate:
-                async for frame in _live_aggregate(plan, labeled, headers, hop_timeout):
-                    yield frame
+                with use_trace(trace), trace_span(trace, "aggregate",
+                                                  strategy=plan.strategy_name,
+                                                  aggregator=plan.aggregator.name, streamed=1):
+                    async for frame in _live_aggregate(plan, labeled, headers, hop_timeout):
+                        yield frame
             else:
-                outcome = await aggregate_with_status(labeled, plan.aggregator,
-                                                      plan.aggregate_params, plan.user_query,
-                                                      headers, hop_timeout)
+                with use_trace(trace), trace_span(trace, "aggregate",
+                                                  strategy=plan.strategy_name,
+                                                  aggregator=plan.aggregator.name):
+                    outcome = await aggregate_with_status(labeled, plan.aggregator,
+                                                          plan.aggregate_params,
+                                                          plan.user_query, headers, hop_timeout)
                 combined = outcome.content
                 if plan.hide_final:
                     combined = strip_thinking_tags(combined, plan.thinking_tags, hide=True)
                 yield sse.encode_event(oai.final_chunk(combined, model=PROXY_MODEL_NAME))
         else:
-            combined = plan.separator.join(text for _, text in labeled)
+            with trace_span(trace, "aggregate", strategy=plan.strategy_name):
+                combined = plan.separator.join(text for _, text in labeled)
             aggregation_logger.info("Final aggregated streaming content: %s", combined)
             yield sse.encode_event(oai.final_chunk(combined, model=PROXY_MODEL_NAME))
     yield sse.encode_done()
