@@ -59,6 +59,15 @@ result line:
               weights; compile seconds and states per grammar, the arena's
               bucket and bytes, the tagged key's first capture, masked
               tokens, K2 launches (> 0 inside constrained replays alone);
+  5s. surfaces  embeddings, prompt scoring and /completions on the serve
+              phase's engine (the cache-free forwards through K1, on the
+              engine's forward stream): 64 ragged inputs and a 9 000-token
+              one against the plain attention, a forward that ignores the
+              lengths below the same threshold, 64 × 2 048 scoring (peak
+              memory, device and host parts timed apart), a live stream's
+              longest gap beside a forward; drain with park, the 503s, and
+              each parked stream resumed from its journal equal to an
+              unbroken twin; K1 = 32 × (forwards + admissions);
   5c. spec    speculative decoding (llama-3-8b, bf16, 4 slots), each leg
               against a spec_decode=0 twin on the same weights: prompt lookup
               (?spec_decode=4, 32 layers, through the app) on an
@@ -141,7 +150,10 @@ result line:
               int8 weight-read bound, init seconds, peak memory, the llama
               greedy texts' token agreement with the serve phase's bf16
               ones; an int8-cache decode chunk replayed from a graph equal
-              to its eager call bit for bit;
+              to its eager call bit for bit; on mixtral a 64 × 2 048
+              scoring request (one unsplit forward: its capacity can bind)
+              beside the 4 requests, its peak over the footprint, and
+              64 × 2 049 refused with a 400;
  12. kernels  one line listing the three kernels (launches per phase,
               errors, timings, route, share of the bound, how the main path
               issues them: K1 eagerly, K2 and K2q8 inside decode-graph
@@ -168,7 +180,9 @@ import argparse
 import asyncio
 import gc
 import json
+import math
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -1377,7 +1391,7 @@ def phase_serve(torch, cpu: bool, tiny: bool, device_info: dict, profile: bool,
 
         phase_profile(torch, cpu, lambda: asyncio.run(
             asyncio.wait_for(one_round(), 2 * SERVE_TIMEOUT_S)), card, flash_decode_attention)
-    if not keep_engine:  # else the constrain phase serves on it, then frees it
+    if not keep_engine:  # else the constrain or surfaces phase serves on it, then frees it
         shutdown_all_engines()
     return info
 
@@ -1397,7 +1411,8 @@ CONSTRAIN_FORMATS = {
 }
 
 
-def phase_constrain(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+def phase_constrain(torch, cpu: bool, tiny: bool, device_info: dict,
+                    keep_engine: bool = False) -> dict:
     """Constrained decoding (``response_format``) on the serve phase's
     engine — the full 32-layer llama-3-8b, bf16, 4 slots, decode_chunk 8 —
     reused through ``get_engine``'s cache (built here when the serve phase
@@ -1629,6 +1644,556 @@ def phase_constrain(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
         "peak_mem_gb": (None if cpu else round(torch.cuda.max_memory_allocated() / 1e9, 3)),
     }
     emit("constrain", **info)
+    if not keep_engine:  # else the surfaces phase serves on it, then frees it
+        shutdown_all_engines()
+    return info
+
+
+# Surfaces phase: the cosine the K1 forward's pooled vectors must reach
+# against the plain attention's (bf16 rounds P before P·V in the plain
+# version only; 32 layers compound it: 1 − cos read 3e-5 on an H100), and
+# an input's vector alone against the same input in the batch (read 1.0);
+# the same forward pooled over its whole padded bucket (lengths ignored)
+# must fall below SURFACES_COSINE_PLAIN, or the check could not see such a
+# fault. Then the bounds on the scores: per-token logprob differences of
+# the same bf16 forward, mean and largest.
+SURFACES_COSINE_PLAIN = 0.9995
+SURFACES_COSINE_ALONE = 0.9999
+SURFACES_LP_MEAN_TOL = 0.05
+SURFACES_LP_MAX_TOL = 1.0
+# Device memory a scoring request may add over the engine's footprint: one
+# FORWARD_TOKENS sub-batch's activations and the two float32 tensors of one
+# SCORE_CHUNK_TOKENS unembed chunk (logits, log-softmax), with room to spare.
+SURFACES_SCORE_EXTRA_GB = 12.0
+
+
+def _forward_flops(spec, b: int, t: int) -> float:
+    """A cache-free forward's operations over b full rows of t tokens: the
+    block stack's products (2 per weight per token) and causal attention
+    (QKᵀ and PV, 4·H·hd per kept query/key pair)."""
+    d, hd = spec.d_model, spec.head_dim
+    per_layer = (d * spec.n_heads * hd * 2 + d * spec.n_kv_heads * hd * 2
+                 + 3 * d * spec.d_ff)
+    return b * (2.0 * spec.n_layers * per_layer * t
+                + spec.n_layers * 4.0 * spec.n_heads * hd * t * (t + 1) / 2)
+
+
+def _weight_bytes(eng) -> int:
+    return sum(t.nbytes for t in _tensors(eng.params))
+
+
+def _received(resp: dict, k: int | None = None) -> tuple[list[int], str, str | None, dict | None]:
+    """A chat stream's (qt_tokens, text, finish_reason, error chunk) over its
+    first ``k`` content chunks (all when None)."""
+    from quorum_tpu_torch import sse
+
+    events = [e for e in sse.iter_data_events(resp["data"]) if isinstance(e, dict)]
+    err = next((e for e in events if e.get("id") == "error"), None)
+    content = [e for e in events if e.get("choices") and e is not err
+               and e["choices"][0]["delta"].get("content")]
+    content = content if k is None else content[:k]
+    finish = next((e["choices"][0]["finish_reason"] for e in events
+                   if e.get("choices") and e["choices"][0].get("finish_reason")), None)
+    return ([t for e in content for t in e.get("qt_tokens") or ()],
+            "".join(e["choices"][0]["delta"]["content"] for e in content), finish, err)
+
+
+def phase_surfaces(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+    """Embeddings, prompt scoring and ``/completions`` (the cache-free
+    forwards through K1), then drain, park and stream resume, on the serve
+    phase's engine (the full 32-layer llama-3-8b, bf16, 4 slots, reused
+    through ``get_engine``'s cache; built here when the serve phase did not
+    run) behind the app:
+
+    (a) ``/v1/embeddings``: 64 inputs of ragged lengths 16–2 048 and one of
+        9 000 tokens (its first 8 192 kept); each vector against the same
+        forward with the plain attention on the card (cosine ≥
+        SURFACES_COSINE_PLAIN, and a forward that ignores the lengths
+        below it), unit norm, an input alone against the same input in the
+        batch (≥ SURFACES_COSINE_ALONE), ``dimensions`` and base64; a live greedy stream's
+        longest inter-token gap while the 64-input forward runs against the
+        same stream alone; peak device memory;
+    (b) scoring (``echo``, ``logprobs=5``, ``max_tokens=0``): 8 prompts of
+        512–2 048 tokens against the plain attention's scores, the chosen
+        token in the top-5 wherever it ranks; then 64 × 2 048, whose peak
+        stays within SURFACES_SCORE_EXTRA_GB of the engine's footprint, and
+        its device part (``score_token_batch``) and host part (the legacy
+        logprobs objects and the JSON) timed apart;
+    (c) ``/v1/completions``: greedy raw-prompt text equal to the engine's
+        own stream of the same ids, the streamed legacy frames joined equal
+        to it, ``echo`` with ``logprobs=2`` offsets aligned;
+    (d) 4 live streams and a queued non-streamed request, then
+        ``POST /admin/drain?park=1``: the streams end ``parked``, the
+        queued request is a 503 with Retry-After; while draining a chat is
+        a 503, ``/ready`` a 503, ``/health`` ``degraded``, ``GET
+        /admin/drain`` reaches ``resident: 0``; device memory does not grow;
+        ``/admin/undrain`` serves again;
+    (e) each parked stream resumed from its ``qt_tokens`` journal (and
+        ``resume_chars``): text equal to an unbroken twin's, greedy and
+        seeded-sampled, ``replayed_tokens_total`` grown by the journals'
+        sizes; a resume on a second engine (8 layers, seed 0, next to an
+        identical one that served the first part); a forged journal ending
+        in ``ReplayDivergence``'s error chunk; ``qt_tokens`` only when asked.
+
+    K1 launches = layers × (forwards + single-shot admissions); K2 = layers
+    × (decode + warm-up steps), over both engines. Then, off the counted
+    path: ms per forward by (B, T) against its bound, and a scoring
+    request's ms against its bound."""
+    import base64
+    import dataclasses
+    import random
+    import statistics as st
+    import struct
+    import threading
+
+    from quorum_tpu_torch.config import Config
+    from quorum_tpu_torch.engine import embed as embed_mod
+    from quorum_tpu_torch.engine import score as score_mod
+    from quorum_tpu_torch.engine.engine import InferenceEngine, shutdown_all_engines
+    from quorum_tpu_torch.models.transformer import forward_hidden
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.server.app import create_app
+
+    t_phase = time.perf_counter()
+    model = "llama-tiny" if tiny else "llama-3-8b"
+    url = f"cuda://{model}?slots=4&decode_chunk=8" + ("&device=cpu" if cpu else "")
+    cfg = Config(raw={"primary_backends": [{"name": "llama", "url": url}],
+                      "settings": {"timeout": SERVE_TIMEOUT_S}})
+    app = create_app(cfg)
+    backend = app.state["registry"].backends[0]
+    eng, tok = backend.engine, backend.tokenizer
+    spec, dev = eng.spec, eng.device
+    reused = eng.n_requests > 0
+    card = f"{device_info['name']} ({device_info['power_limit']})"
+    max_seq, vocab, layers = spec.max_seq, spec.vocab_size, spec.n_layers
+    rng = random.Random(15)
+
+    def ids(n):
+        return [rng.randrange(3, vocab) for _ in range(n)]
+
+    def call(body, path="/v1/chat/completions", method="POST", query=""):
+        return asyncio.run(asyncio.wait_for(
+            _call(app, body, method=method, path=path, query=query,
+                  raw=b"" if method == "GET" else None), SERVE_TIMEOUT_S))
+
+    def sync():
+        if not cpu:
+            torch.cuda.synchronize()
+
+    def mem():
+        return 0 if cpu else torch.cuda.memory_allocated()
+
+    def forwards(lens, busy=False):
+        """Forwards of a request of ``lens``; ``busy``: beside live decode."""
+        return len(embed_mod.row_groups(spec, lens, embed_mod.FORWARD_TOKENS_BUSY if busy
+                                        else None))
+
+    top_len = 128 if tiny else 2048
+    long_len = 200 if tiny else 9000
+    footprint = mem()
+    # Every launch counter to 0 just before the phase's main path, read after.
+    flash_prefill_attention.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
+    flash_decode_attention.launches = 0
+    m0 = eng.metrics()
+    n_fwd = 0
+
+    # (a) embeddings: one live greedy stream alone, then beside the
+    # 64-input request.
+    lens64 = [16] + [rng.randint(16, top_len) for _ in range(62)] + [top_len]
+    inputs = [ids(n) for n in lens64]
+    long_input = ids(long_len)
+    live_prompt = tok.encode(tok.render_chat([{"role": "user",
+                                               "content": _prompt(30 if tiny else 300, 7)}]))
+    greedy = SamplerConfig(temperature=0.0)
+
+    def live_gaps(during=None):
+        """The longest gap between a live greedy stream's token deliveries
+        (chunk to chunk), alone or while ``during()`` runs."""
+        req = eng.submit(live_prompt, max_new_tokens=48 if tiny else 512, sampler=greedy)
+        stamps = []
+        th = threading.Thread(target=lambda: stamps.extend(
+            time.perf_counter() for _ in eng.stream_results(req)), daemon=True)
+        th.start()
+        while len(stamps) < 16:
+            require(th.is_alive() or len(stamps) >= 16, "surfaces: the live stream ended early")
+            time.sleep(0.002)
+        t0 = time.perf_counter()
+        out = during() if during is not None else time.sleep(0.5 if tiny else 2.0)
+        t1 = time.perf_counter()
+        th.join(timeout=2 * SERVE_TIMEOUT_S)
+        require(not th.is_alive(), "surfaces: the live stream never finished")
+        window = [b - a for a, b in zip(stamps, stamps[1:]) if b >= t0 and a <= t1]
+        return out, (max(window) * 1e3 if window else None), (t1 - t0) * 1e3
+
+    _, gap_alone_ms, _ = live_gaps()
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    resp64, gap_fwd_ms, fwd_wall_ms = live_gaps(
+        lambda: call({"model": model, "input": inputs}, path="/v1/embeddings"))
+    peak_embed = 0 if cpu else torch.cuda.max_memory_allocated()
+    n_fwd += forwards(lens64, busy=True)  # beside the live stream
+    require(resp64["status"] == 200, f"embeddings: {resp64['status']} {resp64['data'][:300]!r}")
+    js64 = json.loads(resp64["data"])
+    vecs = torch.tensor([d["embedding"] for d in js64["data"]])
+    require(vecs.shape == (64, spec.d_model), f"embeddings: shape {tuple(vecs.shape)}")
+    require(js64["usage"]["prompt_tokens"] == sum(lens64), f"embeddings usage {js64['usage']}")
+    norms = torch.linalg.vector_norm(vecs, dim=-1)
+    require(bool(((norms - 1).abs() < 1e-3).all()), f"embeddings: norms {norms.tolist()[:4]}")
+    resp_long = call({"model": model, "input": [long_input]}, path="/v1/embeddings")
+    n_fwd += 1
+    js_long = json.loads(resp_long["data"])
+    require(js_long["usage"]["prompt_tokens"] == max_seq,
+            f"the {long_len}-token input keeps its first {max_seq}: {js_long['usage']}")
+    i_alone = lens64.index(max(lens64[1:-1]))
+    alone = json.loads(call({"model": model, "input": [inputs[i_alone]]},
+                            path="/v1/embeddings")["data"])["data"][0]["embedding"]
+    n_fwd += 1
+    dims = 32 if tiny else 256
+    cut = json.loads(call({"model": model, "input": [inputs[i_alone]], "dimensions": dims},
+                          path="/v1/embeddings")["data"])["data"][0]["embedding"]
+    b64 = json.loads(call({"model": model, "input": [inputs[i_alone]],
+                           "encoding_format": "base64"}, path="/v1/embeddings")["data"])
+    n_fwd += 2
+
+    # (b) scoring: 8 prompts of 512-2048 tokens with the top-5, then 64 ×
+    # 2 048.
+    # Prompt 0 ends in the engine's own greedy continuation, where the
+    # chosen token is the top-1: the top-5 containment check has positions.
+    base = ids(top_len // 4)
+    cont = list(eng.generate_stream(base, max_new_tokens=32, sampler=greedy))
+    lens8 = [len(base) + len(cont)] + [rng.randint(top_len // 4, top_len)
+                                       for _ in range(6)] + [top_len]
+    prompts8 = [base + cont] + [ids(n) for n in lens8[1:]]
+    r8 = call({"model": model, "prompt": prompts8, "echo": True, "logprobs": 5, "max_tokens": 0},
+              path="/v1/completions")
+    n_fwd += forwards(lens8)
+    require(r8["status"] == 200, f"scoring: {r8['status']} {r8['data'][:300]!r}")
+    choices8 = json.loads(r8["data"])["choices"]
+    prompts64 = [ids(top_len) for _ in range(64)]
+    if not cpu:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r64 = call({"model": model, "prompt": prompts64, "echo": True, "logprobs": 1,
+                "max_tokens": 0}, path="/v1/completions")
+    score64_s = time.perf_counter() - t0
+    peak_score = 0 if cpu else torch.cuda.max_memory_allocated()
+    n_fwd += forwards([top_len] * 64)
+    require(r64["status"] == 200, f"64 x {top_len} scoring: {r64['status']} {r64['data'][:300]!r}")
+    lp64 = [c["logprobs"]["token_logprobs"] for c in json.loads(r64["data"])["choices"]]
+    require(len(lp64) == 64 and all(len(x) == top_len and x[0] is None
+                                    and all(v is not None and v <= 0 for v in x[1:])
+                                    for x in lp64), "64-prompt scoring: malformed logprobs")
+
+    # (c) /completions generation over raw prompt ids.
+    gen_ids = ids(40)
+    gen_body = {"model": model, "prompt": [gen_ids], "max_tokens": 24, "temperature": 0}
+    flat = json.loads(call(gen_body, path="/v1/completions")["data"])
+    own = list(eng.generate_stream(gen_ids, max_new_tokens=24, sampler=greedy,
+                                   eos_id=tok.eos_id))
+    if own and own[-1] == tok.eos_id:
+        own = own[:-1]
+    require(flat["choices"][0]["text"] == tok.decode(own),
+            "completions: the raw-prompt text differs from the engine's own stream")
+    streamed = call({**gen_body, "stream": True}, path="/v1/completions")
+    from quorum_tpu_torch import sse
+
+    frames = [e for e in sse.iter_data_events(streamed["data"]) if isinstance(e, dict)]
+    require(all(f["object"] == "text_completion" for f in frames), "legacy frames")
+    require("".join(f["choices"][0]["text"] for f in frames if f["choices"])
+            == flat["choices"][0]["text"], "completions: streamed frames != the flat text")
+    echo_prompt = "echo " + _prompt(60 if tiny else 200, 3)
+    echo = json.loads(call({"model": model, "prompt": echo_prompt, "echo": True, "logprobs": 2,
+                            "max_tokens": 8, "temperature": 0},
+                           path="/v1/completions")["data"])["choices"][0]
+    n_fwd += 1
+    lpe = echo["logprobs"]
+    n_echo = len(tok.encode(echo_prompt))
+    # The echoed prompt's tokens index the text exactly (incremental
+    # detokenizer); the generated ones' per-token texts only keep order.
+    pos = 0
+    for t, o in zip(lpe["tokens"][:n_echo], lpe["text_offset"][:n_echo]):
+        require(o == pos and echo["text"][o:o + len(t)] == t,
+                f"echo offsets drift at {o} (expected {pos})")
+        pos += len(t)
+    require(pos == len(echo_prompt) and echo["text"].startswith(echo_prompt)
+            and n_echo < len(lpe["tokens"]) <= n_echo + 8 and lpe["text_offset"] == sorted(
+                lpe["text_offset"]) and all(len(d) <= 2 for d in lpe["top_logprobs"][n_echo:]),
+            "echo: offsets or logprobs misaligned")
+
+    # (d) drain with park: 4 live streams and a queued non-streamed request.
+    n_stream = 48 if tiny else 160
+
+    def chat(i, stream=True, sampled=False, **extra):
+        n_chars = (8 + 4 * i) if tiny else (60 + 40 * i)
+        b = {"model": model, "messages": [{"role": "user", "content": _prompt(n_chars, 20 + i)}],
+             "max_tokens": n_stream, "stream": stream, **extra}
+        b.update({"temperature": 0.8, "top_p": 0.9, "seed": 100 + i} if sampled
+                 else {"temperature": 0})
+        return b
+
+    bodies = [chat(i, sampled=i % 2 == 1, stream_token_ids=True) for i in range(4)]
+    def call_all(bs):
+        async def run():
+            return await asyncio.gather(*[_call(app, b) for b in bs])
+
+        return asyncio.run(asyncio.wait_for(run(), 2 * SERVE_TIMEOUT_S))
+
+    twins = [_received(r) for r in call_all(bodies)]
+    require(all(t[2] in ("stop", "length") and t[3] is None for t in twins), "twins unfinished")
+    _quiet(eng)
+
+    async def drain_leg():
+        tasks = [asyncio.create_task(_call(app, b)) for b in bodies]
+        t0 = time.perf_counter()
+        while eng.metrics()["busy_slots"] < 4:
+            require(time.perf_counter() - t0 < SERVE_TIMEOUT_S, "drain: 4 streams never ran")
+            await asyncio.sleep(0.005)
+        queued = asyncio.create_task(_call(app, chat(9, stream=False)))
+        while eng.metrics()["pending"] < 1:
+            await asyncio.sleep(0.002)
+        t_first = eng.metrics()["tokens_total"]
+        while eng.metrics()["tokens_total"] < t_first + 32:
+            await asyncio.sleep(0.002)
+        mem0 = mem()
+        drained = await _call(app, {}, path="/admin/drain", query="park=1", raw=b"")
+        during = {"chat": await _call(app, chat(8, stream=False)),
+                  "ready": await _call(app, {}, method="GET", path="/v1/ready", raw=b""),
+                  "health": await _call(app, {}, method="GET", path="/health", raw=b"")}
+        streams = await asyncio.gather(*tasks)
+        shed = await queued
+        t0 = time.perf_counter()
+        while True:
+            status = json.loads((await _call(app, {}, method="GET", path="/v1/admin/drain",
+                                             raw=b""))["data"])
+            if status["resident"] == 0:
+                break
+            require(time.perf_counter() - t0 < SERVE_TIMEOUT_S, "drain: residents remain")
+            await asyncio.sleep(0.01)
+        mem1 = mem()
+        undrained = await _call(app, {}, path="/admin/undrain", raw=b"")
+        after = await _call(app, chat(8, stream=False, max_tokens=8))
+        return drained, during, streams, shed, status, mem1 - mem0, undrained, after
+
+    m_drain0 = eng.metrics()
+    drained, during, streams, shed, status, mem_growth, undrained, after = asyncio.run(
+        asyncio.wait_for(drain_leg(), 2 * SERVE_TIMEOUT_S))
+    parked = [_received(r) for r in streams]
+    require(drained["status"] == 200, f"drain: {drained['status']}")
+    require(all(p[2] == "parked" and p[3] is None for p in parked),
+            f"drain: finishes {[p[2] for p in parked]}")
+    require(shed["status"] == 503 and shed["headers"].get("retry-after") == "1",
+            f"a parked non-streamed request: {shed['status']} {shed['data'][:200]!r}")
+    require(during["chat"]["status"] == 503 and during["chat"]["headers"].get("retry-after"),
+            f"a chat while draining: {during['chat']['status']}")
+    require(during["ready"]["status"] == 503, "/ready while draining")
+    require(json.loads(during["health"]["data"])["status"] == "degraded", "/health while draining")
+    require(mem_growth <= 0, f"drain: device memory grew by {mem_growth} B")
+    require(undrained["status"] == 200 and after["status"] == 200, "undrain: not serving again")
+    m_drain1 = eng.metrics()
+    require(m_drain1["drain_parked_total"] - m_drain0["drain_parked_total"] == 5,
+            "drain: parked count")
+
+    # (e) resume each parked stream from its journal.
+    r0 = eng.metrics()["replayed_tokens_total"]
+    # The parked runs asked for qt_tokens; the resumes do not, and get none.
+    resumed = call_all([{**{k: v for k, v in b.items() if k != "stream_token_ids"},
+                         "resume_tokens": p[0], "resume_chars": len(p[1])}
+                        for b, p in zip(bodies, parked)])
+    journals = [len(p[0]) for p in parked]
+    require(all(0 < n < n_stream for n in journals), f"journals {journals}")
+    for i, (p, r, twin) in enumerate(zip(parked, resumed, twins)):
+        rest = _received(r)
+        require(rest[3] is None, f"resume {i}: {rest[3]}")
+        require(rest[0] == [], f"resume {i}: qt_tokens without stream_token_ids")
+        require(p[1] + rest[1] == twin[1], f"resume {i} ({'sampled' if i % 2 else 'greedy'}): "
+                f"the joined text differs from the unbroken twin's")
+    replayed = eng.metrics()["replayed_tokens_total"] - r0
+    require(replayed == sum(journals), f"replayed {replayed} != journals {sum(journals)}")
+    forged = list(parked[0][0])
+    forged[len(forged) // 2] = (forged[len(forged) // 2] + 1) % vocab
+    err = _received(call({**bodies[0], "resume_tokens": forged}))[3]
+    require(err is not None and err.get("qt_error") == "resume_diverged"
+            and "replay diverged at position" in err["choices"][0]["delta"]["content"],
+            f"forged journal: {err}")
+    # A sibling: two 8-layer engines of one seed; the first serves a
+    # prefix, the second resumes it.
+    sib_spec = dataclasses.replace(spec, n_layers=2 if tiny else 8)
+    sib_a = InferenceEngine(sib_spec, device=dev, seed=0, n_slots=2, decode_chunk=8)
+    sib_b = InferenceEngine(sib_spec, device=dev, seed=0, n_slots=2, decode_chunk=8)
+    ms_a0, ms_b0 = sib_a.metrics(), sib_b.metrics()
+    sampled = SamplerConfig(temperature=0.8, top_p=0.9)
+    full = list(sib_a.generate_stream(live_prompt, max_new_tokens=64, sampler=sampled, seed=5))
+    req = sib_b.submit(live_prompt, max_new_tokens=64, sampler=sampled, seed=5,
+                       resume_tokens=full[:20])
+    require(list(sib_b.stream_results(req)) == full[20:],
+            "sibling resume: the continuation differs from the first engine's")
+    ms_a1, ms_b1 = sib_a.metrics(), sib_b.metrics()
+    launches = {"flash_prefill": flash_prefill_attention.launches,
+                "flash_decode": flash_decode_attention.launches}
+    k1_routes = dict(flash_prefill_attention.launches_by_route)
+    m1 = eng.metrics()
+    sib_layers = sib_spec.n_layers
+    single = m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
+    sib_single = sum(b["admission_dispatches_total"] - a["admission_dispatches_total"]
+                     for a, b in ((ms_a0, ms_a1), (ms_b0, ms_b1)))
+    k2_steps = _k2_steps(m1) - _k2_steps(m0)
+    sib_k2 = sum(_k2_steps(b) - _k2_steps(a) for a, b in ((ms_a0, ms_a1), (ms_b0, ms_b1)))
+    want_k1 = layers * (n_fwd + single) + sib_layers * sib_single
+    want_k2 = layers * k2_steps + sib_layers * sib_k2
+    if not cpu:
+        require(launches["flash_prefill"] == want_k1,
+                f"K1 launches {launches['flash_prefill']} != {layers} x ({n_fwd} forwards + "
+                f"{single} admissions) + {sib_layers} x {sib_single}")
+        require(launches["flash_decode"] == want_k2,
+                f"K2 launches {launches['flash_decode']} != {want_k2}")
+    sib_a.shutdown()
+    sib_b.shutdown()
+
+    # Off the counted path: the same forwards with the plain attention.
+    ref = embed_mod.embed_token_batch(eng, inputs, plain_attention=True)
+    cos = (vecs * ref).sum(-1) / (torch.linalg.vector_norm(vecs, dim=-1)
+                                  * torch.linalg.vector_norm(ref, dim=-1))
+    ref_long = embed_mod.embed_token_batch(eng, [long_input], plain_attention=True)[0]
+    cos_long = float((torch.tensor(js_long["data"][0]["embedding"]) * ref_long).sum())
+    require(float(cos.min()) >= SURFACES_COSINE_PLAIN and cos_long >= SURFACES_COSINE_PLAIN,
+            f"embeddings: cosine to the plain attention {float(cos.min())}, long {cos_long}")
+    cos_alone = float((torch.tensor(alone) * vecs[i_alone]).sum())
+    require(cos_alone >= SURFACES_COSINE_ALONE,
+            f"embeddings: alone vs batched cosine {cos_alone}")
+    # A known-wrong forward: each input pooled over its whole padded bucket.
+    wrong = []
+    with eng.forward_scope():
+        for rows in embed_mod.row_groups(spec, lens64):
+            toks, _ = embed_mod.padded_batch(spec, inputs, rows, dev)
+            h = forward_hidden(eng.params, spec, toks).float().mean(dim=1)[: len(rows)]
+            wrong += list(zip(rows, (h / torch.linalg.vector_norm(h, dim=-1,
+                                                                  keepdim=True)).cpu()))
+    wrong_t = torch.stack([v for _, v in sorted(wrong, key=lambda r: r[0])])
+    cos_wrong = (wrong_t * ref).sum(-1)
+    require(float(cos_wrong.min()) < SURFACES_COSINE_PLAIN,
+            f"embeddings: a forward that ignores the lengths still reaches cosine "
+            f"{float(cos_wrong.min())} >= {SURFACES_COSINE_PLAIN}")
+    full_alone = torch.tensor(alone)
+    want_cut = full_alone[:dims] / torch.linalg.vector_norm(full_alone[:dims])
+    require(float((torch.tensor(cut) - want_cut).abs().max()) < 1e-5, f"dimensions={dims}")
+    dec = struct.unpack(f"<{spec.d_model}f", base64.b64decode(b64["data"][0]["embedding"]))
+    require(float((torch.tensor(dec) - full_alone).abs().max()) < 1e-5, "base64")
+    ref8 = score_mod.score_token_batch(eng, prompts8, top_k=5, plain_attention=True)
+    diffs = [abs(c["logprobs"]["token_logprobs"][j] - r["token_logprobs"][j])
+             for c, r in zip(choices8, ref8) for j in range(1, len(r["token_logprobs"]))]
+    diffs_t = torch.tensor(diffs)
+    lp_mean, lp_max = float(diffs_t.mean()), float(diffs_t.max())
+    require(lp_mean <= SURFACES_LP_MEAN_TOL and lp_max <= SURFACES_LP_MAX_TOL,
+            f"scoring: |lp - plain| mean {lp_mean}, max {lp_max}")
+    kern8 = score_mod.score_token_batch(eng, prompts8, top_k=5)
+    ranked = contained = 0
+    top_overlap = []
+    for p, k, r in zip(prompts8, kern8, ref8):
+        for j in range(1, len(p)):
+            ids_k, lps_k = k["top"][j]
+            top_overlap.append(len(set(ids_k) & set(r["top"][j][0])) / 5)
+            if k["token_logprobs"][j] >= lps_k[-1]:
+                ranked += 1
+                contained += p[j] in ids_k
+    require(contained == ranked and ranked >= len(cont) - 1,
+            f"scoring: the chosen token missing from the top-5 at {ranked - contained} of "
+            f"{ranked} positions where it ranks (the greedy continuation gives "
+            f"{len(cont) - 1})")
+
+    # The 64 × 2 048 scoring request apart: the device part (the forwards,
+    # the unembed chunks, the fetch) and the host part (the legacy logprobs
+    # objects, then the JSON).
+    t0 = time.perf_counter()
+    scores64 = score_mod.score_token_batch(eng, prompts64, top_k=1)
+    t1 = time.perf_counter()
+    rendered = [backend._legacy_logprobs(p, sc, None) for p, sc in zip(prompts64, scores64)]
+    t2 = time.perf_counter()
+    json.dumps(rendered)
+    t3 = time.perf_counter()
+    score_split = {"score_token_batch_s": round(t1 - t0, 4),
+                   "legacy_logprobs_s": round(t2 - t1, 4), "json_s": round(t3 - t2, 4)}
+
+    # Timings off the counted path: ms per forward at (B, T), and its bound.
+    def time_forward(b, t):
+        toks = torch.randint(3, vocab, (b, t), device=dev)
+        lens = torch.full((b,), t, dtype=torch.int32, device=dev)
+        with eng.forward_scope():
+            forward_hidden(eng.params, spec, toks, lens)
+            s = torch.cuda.current_stream() if not cpu else None
+            reps = 3
+            if cpu:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    forward_hidden(eng.params, spec, toks, lens)
+                ms = (time.perf_counter() - t0) * 1e3 / reps
+            else:
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record(s)
+                for _ in range(reps):
+                    forward_hidden(eng.params, spec, toks, lens)
+                e1.record(s)
+                e1.synchronize()
+                ms = e0.elapsed_time(e1) / reps
+        bound, by = _bound(_forward_flops(spec, b, t),
+                           _weight_bytes(eng) + b * t * (8 + spec.d_model * 2))
+        return {"B": b, "T": t, "ms": round(ms, 4), "tokens_per_s": round(b * t / ms * 1e3, 1),
+                "bound_ms": round(bound, 4), "bound_by": by,
+                "pct_of_bound": round(100 * bound / ms, 1)}
+
+    buckets = ([(1, 128), (8, 128), (64, 16)] if tiny
+               else [(1, 2048), (8, 2048), (64, 256), (1, 8192)])
+    per_forward = [time_forward(b, t) for b, t in buckets]
+    unembed_flops = 2.0 * spec.d_model * vocab * 64 * top_len
+    score_bound, score_by = _bound(_forward_flops(spec, 64, top_len) + unembed_flops,
+                                   _weight_bytes(eng) + 64 * top_len * (8 + 4 + 5 * 12))
+    info = {
+        "model": model, "layers": layers, "dtype": spec.dtype, "engine_reused_from_serve": reused,
+        "forward_tokens": embed_mod.FORWARD_TOKENS,
+        "forward_tokens_busy": embed_mod.FORWARD_TOKENS_BUSY,
+        "score_chunk_tokens": score_mod.SCORE_CHUNK_TOKENS,
+        "embeddings": {
+            "inputs": 64, "lengths": [min(lens64), max(lens64)],
+            "forwards": forwards(lens64, busy=True),
+            "cosine_to_plain_min": float(cos.min()),
+            "cosine_to_plain_median": float(cos.median()), "cosine_long_input": cos_long,
+            "cosine_alone_vs_batched": cos_alone,
+            "cosine_lengths_ignored_min": float(cos_wrong.min()),
+            "cosine_lengths_ignored_median": float(cos_wrong.median()),
+            "norm_max_err": float((norms - 1).abs().max()),
+            "request_wall_ms": round(fwd_wall_ms, 3),
+            "peak_gb_over_footprint": (None if cpu else round((peak_embed - footprint) / 1e9, 3)),
+            "live_stream_longest_gap_ms": {"alone": gap_alone_ms, "during_forward": gap_fwd_ms}},
+        "scoring": {
+            "prompts_8": {"lengths": lens8, "lp_abs_diff_mean": lp_mean,
+                          "lp_abs_diff_max": lp_max,
+                          "top5_overlap_mean": st.mean(top_overlap),
+                          "ranked_positions": ranked, "chosen_in_top5": contained},
+            "prompts_64": {"tokens": 64 * top_len, "forwards": forwards([top_len] * 64),
+                           "request_s": round(score64_s, 4), "split": score_split,
+                           "bound_ms": round(score_bound, 3), "bound_by": score_by,
+                           "peak_gb": None if cpu else round(peak_score / 1e9, 3),
+                           "footprint_gb": None if cpu else round(footprint / 1e9, 3),
+                           "one_whole_f32_tensor_gb": round(64 * top_len * vocab * 4 / 1e9, 2)}},
+        "completions": {"greedy_equals_engine_stream": True, "streamed_equals_flat": True,
+                        "echo_offsets_aligned": True},
+        "drain": {"parked_streams": 4, "queued_503": True, "memory_growth_bytes": mem_growth,
+                  "status_after": status, "journal_tokens": journals},
+        "resume": {"replayed_tokens": replayed, "joined_equal_twins": True,
+                   "sibling_equal": True, "forged_diverged": True},
+        "forward_ms_by_bucket": per_forward,
+        "n_forwards": n_fwd, "single_shot_admissions": single,
+        "launches": launches, "k1_launches_by_route": k1_routes,
+        "measured_on": card, "phase_s": round(time.perf_counter() - t_phase, 3),
+    }
+    if not cpu:
+        require(peak_score - footprint < SURFACES_SCORE_EXTRA_GB * 1e9,
+                f"64 x {top_len} scoring peaked {peak_score / 1e9:.2f} GB over a "
+                f"{footprint / 1e9:.2f} GB footprint")
+    emit("surfaces", **info)
     shutdown_all_engines()
     return info
 
@@ -3323,7 +3888,9 @@ def phase_quant(torch, cpu: bool, tiny: bool, device_info: dict, serve: dict | N
     device ms per 8-step chunk against the int8 weight-read bound, tok/s
     and peak memory. The llama leg also gives its greedy texts' token
     agreement with the serve phase's bf16 engine as a share (int8 rounds
-    differently; equality is not the contract), and (c) an 8-step
+    differently; equality is not the contract); the mixtral leg then a
+    64 × 2 048 scoring request beside its 4 requests (``_moe_scoring``);
+    and (c) an 8-step
     ``decode_chunk`` over an int8 cache on its weights replayed from a CUDA
     graph against the eager call: tokens, state and both caches bit for
     bit, K2q8 exact. With ``profile``, each leg's 4 requests again under
@@ -3341,6 +3908,92 @@ def phase_quant(torch, cpu: bool, tiny: bool, device_info: dict, serve: dict | N
     out["launches"] = {k: sum(out[m]["launches"][k] for m in legs)
                        for k in out[legs[0]]["launches"]}
     return out
+
+
+# Device memory the mixtral leg's 64 × 2 048 scoring request may add over
+# the engine's footprint, its 4 live streams included: one unsplit
+# 131 072-token forward (the capacity can bind) with its expert buffers in
+# MOE_SLOT_ROWS slices — 4.3 GB of per-pick float32 outputs, the residual
+# stream, its norms and the attention's operands.
+MOE_SCORE_EXTRA_GB = 20.0
+
+
+def _moe_scoring(torch, cpu: bool, tiny: bool, app, eng, model: str, bodies: list[dict],
+                 tok, max_tokens: int) -> dict:
+    """The largest scoring request the API takes (64 prompts of 2 048
+    tokens, ``echo``, ``logprobs=1``, ``max_tokens=0``) on an MoE engine
+    whose expert capacity can bind (never split: one 131 072-token
+    forward), beside the serve phase's 4 requests as live traffic: it
+    completes with every logprob finite and ≤ 0 and adds at most
+    MOE_SCORE_EXTRA_GB over the footprint, K1 = layers × (1 forward +
+    single-shot admissions), and the 4 requests finish whole; 64 × 2 049
+    (a 4 096 bucket) is a 400 naming ``MOE_FORWARD_TOKENS``."""
+    from quorum_tpu_torch.engine import embed as embed_mod
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+
+    spec = eng.spec
+    require(tiny or not embed_mod.moe_split_exact(spec),
+            f"{model}: expected an expert capacity that can bind")
+    n_tok = 100 if tiny else 2048
+    rng = random.Random(8)
+
+    def prompts(n):
+        return [[rng.randrange(3, spec.vocab_size) for _ in range(n)] for _ in range(64)]
+
+    score_body = {"model": model, "prompt": prompts(n_tok), "echo": True, "logprobs": 1,
+                  "max_tokens": 0}
+    footprint = 0 if cpu else torch.cuda.memory_allocated()
+    if not cpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    flash_prefill_attention.launches = 0
+    m0 = eng.metrics()
+
+    async def drive():
+        async def timed(b, path):
+            t0 = time.perf_counter()
+            r = await _call(app, b, path=path)
+            return r, time.perf_counter() - t0
+
+        return await asyncio.gather(
+            timed(score_body, "/v1/completions"),
+            *[timed(b, "/v1/chat/completions") for b in bodies])
+
+    (scored, score_s), *live = asyncio.run(asyncio.wait_for(drive(), 2 * SERVE_TIMEOUT_S))
+    peak = 0 if cpu else torch.cuda.max_memory_allocated()
+    m1 = eng.metrics()
+    k1 = flash_prefill_attention.launches
+    require(scored["status"] == 200,
+            f"{model} 64 x {n_tok} scoring: {scored['status']} {scored['data'][:300]!r}")
+    lps = [c["logprobs"]["token_logprobs"] for c in json.loads(scored["data"])["choices"]]
+    require(len(lps) == 64 and all(len(x) == n_tok and x[0] is None and all(
+        v is not None and math.isfinite(v) and v <= 0 for v in x[1:]) for x in lps),
+            f"{model} 64 x {n_tok} scoring: malformed logprobs")
+    checked = [_check_response(r, b, tok, max_tokens) for (r, _), b in zip(live, bodies)]
+    single = m1["admission_dispatches_total"] - m0["admission_dispatches_total"]
+    if not cpu:
+        require(k1 == spec.n_layers * (1 + single),
+                f"{model} scoring: K1 launches {k1} != {spec.n_layers} x (1 + {single})")
+        require(peak - footprint < MOE_SCORE_EXTRA_GB * 1e9,
+                f"{model} 64 x {n_tok} scoring peaked {(peak - footprint) / 1e9:.2f} GB over "
+                f"a {footprint / 1e9:.2f} GB footprint")
+    refused = None
+    if not tiny:
+        over = asyncio.run(asyncio.wait_for(_call(app, {**score_body, "prompt": prompts(
+            n_tok + 1)}, path="/v1/completions"), SERVE_TIMEOUT_S))
+        refused = json.loads(over["data"]).get("error", {}).get("message", "")
+        require(over["status"] == 400 and f"{embed_mod.MOE_FORWARD_TOKENS}-token forward"
+                in refused, f"{model} 64 x {n_tok + 1}: {over['status']} {refused!r}")
+    return {"prompts": 64, "tokens_each": n_tok, "request_s": round(score_s, 4),
+            "forward_tokens_limit": embed_mod.MOE_FORWARD_TOKENS,
+            "footprint_gb": None if cpu else round(footprint / 1e9, 3),
+            "peak_gb_over_footprint": None if cpu else round((peak - footprint) / 1e9, 3),
+            "extra_limit_gb": MOE_SCORE_EXTRA_GB, "k1_launches": k1,
+            "live_requests": [{"stream": b["stream"], "finish": c["finish"],
+                               "completion_tokens": c["usage"]["completion_tokens"],
+                               "seconds": round(t, 4)}
+                              for b, c, (_, t) in zip(bodies, checked, live)],
+            "over_limit_refused": refused}
 
 
 def _token_agreement(tok, got: str, want: str) -> dict:
@@ -3462,6 +4115,9 @@ def _quant_leg(torch, cpu: bool, tiny: bool, device_info: dict, model: str,
     if model.startswith("llama"):
         gen = torch.Generator(device="cpu").manual_seed(7)
         info["replay"] = _quant_replay(torch, spec, eng.params, eng.device, gen, tiny)
+    else:
+        info["scoring_64"] = _moe_scoring(torch, cpu, tiny, app, eng, model, bodies, tok,
+                                          max_tokens)
     emit("quant", **info)
     if profile:
         phase_profile(torch, cpu, lambda: asyncio.run(asyncio.wait_for(
@@ -3554,7 +4210,7 @@ def _spec_audit(torch, eng, prompt: list[int], a: list[int], b: list[int], *,
     tol = SPEC_TIE_TOL[eng.spec.dtype]
     seq = torch.tensor([list(prompt) + a[:i]], device=eng.device)
     with torch.no_grad():
-        lg = forward_logits(eng.params, eng.spec, seq)[0, -1].float()
+        lg = forward_logits(eng.params, eng.spec, seq, plain_attention=True)[0, -1].float()
     counts = torch.zeros_like(lg)
     for t in a[:i]:
         counts[t] += 1
@@ -5009,7 +5665,7 @@ def main(argv=None) -> int:
                     help="rehearsal on the CPU with the plain versions (never the default)")
     ap.add_argument("--tiny", action="store_true", help="llama-tiny shapes (rehearsal)")
     ap.add_argument("--phases",
-                    default="device,build,kernels,model,serve,constrain,spec,scheduler,"
+                    default="device,build,kernels,model,serve,constrain,surfaces,spec,scheduler,"
                             "decode_graphs,knobs,fanout,members,checkpoint,moe,quant,paged,"
                             "observe",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
@@ -5042,10 +5698,13 @@ def main(argv=None) -> int:
         if "model" in phases:
             phase_model(torch, args.cpu, args.tiny)
         serve = (phase_serve(torch, args.cpu, args.tiny, info, "profile" in phases,
-                             keep_engine="constrain" in phases)
+                             keep_engine=bool({"constrain", "surfaces"} & phases))
                  if "serve" in phases else None)
-        constrain = (phase_constrain(torch, args.cpu, args.tiny, info)
+        constrain = (phase_constrain(torch, args.cpu, args.tiny, info,
+                                     keep_engine="surfaces" in phases)
                      if "constrain" in phases else None)
+        surfaces = (phase_surfaces(torch, args.cpu, args.tiny, info)
+                    if "surfaces" in phases else None)
         spec = (phase_spec(torch, args.cpu, args.tiny, info, graph_ms)
                 if "spec" in phases else None)
         scheduler = (phase_scheduler(torch, args.cpu, args.tiny, info)
@@ -5076,7 +5735,8 @@ def main(argv=None) -> int:
     emit("run", phases=sorted(phases), seconds=round(time.perf_counter() - t_start, 3))
     if kernels is not None:
         by_phase = {name: ph["launches"] for name, ph in (
-            ("serve", serve), ("constrain", constrain), ("spec", spec), ("scheduler", scheduler),
+            ("serve", serve), ("constrain", constrain), ("surfaces", surfaces), ("spec", spec),
+            ("scheduler", scheduler),
             ("decode_graphs", graphs), ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
             ("checkpoint", ckpt), ("moe", moe), ("quant", quant), ("paged", paged),
             ("observe", observe))
@@ -5099,9 +5759,11 @@ def main(argv=None) -> int:
                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                    "kernel_route": r["route"], "pct_of_bound": r["pct_of_bound"],
                    "eager_ms": r["eager_ms"], "ok": True,
-                   # How the main path issues it: K1 from admission, eagerly;
-                   # K2 and K2q8 from inside every decode dispatch's graph replay.
-                   "issue": "eager" if name == "flash_prefill" else "graph"}
+                   # How the main path issues it: K1 eagerly, from admissions
+                   # and the embedding and scoring forwards; K2 and K2q8 from
+                   # inside every decode dispatch's graph replay.
+                   "issue": ("eager (admission; embedding and scoring forwards)"
+                             if name == "flash_prefill" else "graph")}
             if name == "flash_prefill":
                 row.update(library_masked_ms=r["library_masked_ms"],
                            library_causal_ms=r["library_causal_ms"])

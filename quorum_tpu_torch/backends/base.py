@@ -16,14 +16,17 @@ from quorum_tpu_torch import oai
 
 class BackendError(Exception):
     """A backend call failed: the normalized error body plus any response
-    headers the relay must keep (``Retry-After`` on 503s)."""
+    headers the relay must keep (``Retry-After`` on 503s). ``code`` is an
+    optional machine-readable failure class (``"resume_diverged"``) that a
+    stream's error chunk carries as ``qt_error``."""
 
     def __init__(self, message: str, *, status_code: int = 500, body: dict | None = None,
-                 headers: dict[str, str] | None = None):
+                 headers: dict[str, str] | None = None, code: str | None = None):
         super().__init__(message)
         self.status_code = status_code
         self.body = body or oai.error_body(message, code=status_code)
         self.headers = dict(headers or {})
+        self.code = code
 
 
 @dataclass

@@ -171,20 +171,39 @@ a 422 ``grammar_error``, and a full grammar arena a 503. The request's
 timeout is the engine's deadline: shed while queued → 503 with
 Retry-After, missed after admission → 504; the asyncio wait only backstops
 it ``DEADLINE_SLACK_S`` later. ``top_k`` is ignored, as ``tpu://`` ignores
-it. ``tools`` is a 400, and so are the stream-resume fields
-(``resume_tokens``, ``resume_chars``, ``stream_token_ids: true``): never
-silently ignored.
+it. ``tools`` is a 400, never silently ignored.
+
+Stream resume, as ``tpu://`` serves it: a streamed request with
+``resume_tokens`` (the ids a client already received; n = 1, no logprobs,
+no longer than the budget) regenerates them behind the engine's replay
+guard and streams only what follows, rendered through a fresh detokenizer
+and stop matcher fed the journal first; ``resume_chars`` must equal the
+journal's rendered length, and a stop string inside the journal is a
+divergence (the error chunk's ``qt_error`` is ``resume_diverged``).
+``stream_token_ids: true`` ships each chunk's token ids as ``qt_tokens``.
+A request a draining engine parks ends ``finish_reason: "parked"`` when
+streamed and is a retryable 503 when not.
+
+Besides chat: ``embed`` (``/embeddings``: mean-pooled final-norm hidden
+states, ``engine/embed.py``) and ``text_complete`` (legacy
+``/completions``: raw-prompt generation through the chat plan, and the
+``echo`` + ``logprobs`` scoring mode, ``engine/score.py``), with the
+``tpu://`` backend's grammar, limits and messages. Their forwards pass a
+per-engine gate of ``SCORE_GATE_SLOTS``; a saturated gate is a 503.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
 import dataclasses
 import logging
 import math
 import os
+import struct
 import threading
 import time
+import uuid
 from typing import Any, AsyncIterator
 
 import torch
@@ -206,6 +225,7 @@ from quorum_tpu_torch.engine.engine import (
     GenerationResult,
     GrammarArenaFull,
     QueueFullError,
+    ReplayDivergence,
     check_quant_knobs,
     get_engine,
     get_engine_from_ckpt,
@@ -284,6 +304,37 @@ def _check_spec_options(ckpt: str, spec_model: str, spec_ckpt: str) -> None:
         raise ValueError(
             f"spec_ckpt={spec_ckpt!r} is not a checkpoint dir "
             "(no config.json)")
+
+
+class _DrainParked(RuntimeError):
+    """A draining engine parked this request mid-generation. A stream
+    finishes ``"parked"`` (a router resumes it from its journal); a
+    non-streamed request has no journal, so its partial text becomes a
+    retryable 503, never a truncated 200."""
+
+
+def _reject_mixed(items: list, field: str) -> None:
+    """The OpenAI schemas take a list of strings OR a list of token arrays,
+    never a mix."""
+    if (any(isinstance(x, str) for x in items)
+            and any(isinstance(x, list) for x in items)):
+        raise _invalid_request(f"'{field}' must not mix strings and token arrays")
+
+
+def _top_dict(pairs) -> dict[str, float]:
+    """Legacy ``top_logprobs`` dict keyed by token TEXT; distinct ids can
+    decode to the same text, and the first (highest) logprob wins."""
+    out: dict[str, float] = {}
+    for text, lp in pairs:
+        if text not in out:
+            out[text] = float(lp)
+    return out
+
+
+def _token_ids_ok(x: Any, vocab: int) -> bool:
+    """A non-empty list of in-vocabulary int ids (bools are not ids)."""
+    return isinstance(x, list) and bool(x) and all(
+        isinstance(t, int) and not isinstance(t, bool) and 0 <= t < vocab for t in x)
 
 
 def _invalid_request(message: str) -> BackendError:
@@ -564,6 +615,43 @@ class CudaBackend:
                    decode_chunk=int(opts["decode_chunk"]) if "decode_chunk" in opts else None,
                    member=member, tokenizer_path=tokenizer_path, rng_offset=rng_offset)
 
+    # ---- the embedding and scoring gate ----------------------------------
+
+    def _acquire_score_slot(self) -> None:
+        """Admit one embedding or scoring forward or raise a 503: the gate
+        (``engine.score_gate``) is the engine's, shared by every backend on
+        it, and bounds the device work these forwards add beside decode."""
+        if not self.engine.score_gate.acquire(blocking=False):
+            raise _overloaded(self.name, "scoring/embedding gate saturated")
+
+    def _release_score_slot(self) -> None:
+        self.engine.score_gate.release()
+
+    async def _shielded_to_thread(self, fn, timeout: float):
+        """Run ``fn`` on a thread the event loop cannot cancel: it runs
+        exactly once even when the wait times out or the client goes (its
+        own ``finally`` always runs). Raises asyncio.TimeoutError on expiry
+        while the device work continues."""
+        task = asyncio.create_task(asyncio.to_thread(fn))
+        task.add_done_callback(lambda t: t.cancelled() or t.exception())
+        return await asyncio.wait_for(asyncio.shield(task), timeout=timeout)
+
+    async def _gated_to_thread(self, fn, timeout: float):
+        """A gated forward: take a slot (503 when saturated), run ``fn``
+        shielded, and free the slot when the DEVICE work ends, not when the
+        client's wait does."""
+        self._acquire_score_slot()
+
+        def gated():
+            try:
+                return fn()
+            finally:
+                self._release_score_slot()
+
+        # No await between the acquire and the task's creation: no
+        # cancellation point can leak the slot.
+        return await self._shielded_to_thread(gated, timeout)
+
     # ---- request plumbing -------------------------------------------------
 
     def _plan(self, body: dict[str, Any]) -> dict[str, Any]:
@@ -571,13 +659,6 @@ class CudaBackend:
         for key in self._UNSUPPORTED:
             if body.get(key):
                 raise _invalid_request(f"{key!r} is not supported by cuda:// backends")
-        # Stream resume (the router's replay of a broken stream) is not
-        # served yet: refused by name, never a re-emitted prefix.
-        for key in ("resume_tokens", "resume_chars", "stream_token_ids"):
-            if body.get(key) not in (None, False):
-                raise _invalid_request(
-                    f"{key!r} is not supported by cuda:// backends yet (stream resume; "
-                    "the tpu:// backend serves it)")
         grammar = self._plan_grammar(body.get("response_format"))
         # Explicit JSON null means "unset" for every optional knob.
         n = body.get("n")
@@ -609,10 +690,36 @@ class CudaBackend:
         max_new = _request_number(body, key, float(self.default_max_tokens))
         if max_new < 1:
             raise _invalid_request(f"Invalid value for {key!r}: must be >= 1")
-        prompt = self.tokenizer.render_chat(body.get("messages") or [])
+        vocab = self.engine.spec.vocab_size
+        # The legacy /completions path sets raw prompt ids (no template); the
+        # app strips the field from the wire.
+        raw_ids = body.get("_raw_prompt_ids")
+        if raw_ids is not None:
+            if not _token_ids_ok(raw_ids, vocab):
+                raise _invalid_request(
+                    "prompt token ids must be a non-empty list of in-vocab integers")
+            ids = list(raw_ids)
+        else:
+            ids = self.tokenizer.encode(self.tokenizer.render_chat(body.get("messages") or []))
+        # Stream resume: the edge checked the shapes (oai.validate_request_body);
+        # the vocabulary and the budget are checked here.
+        rt = body.get("resume_tokens")
+        if rt is not None:
+            if not _token_ids_ok(rt, vocab):
+                raise _invalid_request(
+                    "'resume_tokens' must be a non-empty list of in-vocab token ids")
+            if n != 1:
+                raise _invalid_request("'resume_tokens' requires n=1")
+            if want_lp:
+                raise _invalid_request("'resume_tokens' cannot be combined with 'logprobs'")
+            if len(rt) > int(max_new):
+                raise _invalid_request(
+                    f"'resume_tokens' ({len(rt)} ids) exceeds the completion budget "
+                    f"({int(max_new)})")
+        rc = body.get("resume_chars")
         return {
             "model": effective["model"],
-            "prompt_ids": self.tokenizer.encode(prompt),
+            "prompt_ids": ids,
             "max_new": int(max_new),
             "sampler": _request_sampler(body),
             "seed": int(_request_number(body, "seed", 0.0)) + self.rng_offset,
@@ -623,6 +730,10 @@ class CudaBackend:
             "frequency_penalty": fp,
             "logit_bias": self._bias_row(body.get("logit_bias")),
             "grammar": grammar,
+            "resume_tokens": list(rt) if rt else None,
+            "resume_chars": int(rc) if rc is not None else None,
+            # Ship each chunk's token ids (``qt_tokens``) for a resume journal.
+            "stream_token_ids": bool(body.get("stream_token_ids")),
         }
 
     def _plan_grammar(self, rf: Any):
@@ -687,27 +798,35 @@ class CudaBackend:
             cancel=cancel, decode_chunk=self.decode_chunk, member=self.member,
             presence_penalty=plan["presence_penalty"],
             frequency_penalty=plan["frequency_penalty"], logit_bias=plan["logit_bias"],
-            logprobs=plan["logprobs"], deadline=deadline, grammar=plan["grammar"])
+            logprobs=plan["logprobs"], deadline=deadline, grammar=plan["grammar"],
+            # n == 1 whenever a journal is set: only choice 0 carries one.
+            resume_tokens=plan.get("resume_tokens") if idx == 0 else None)
 
-    def _submit_all(self, plan: dict[str, Any], cancels: list[threading.Event],
-                    timeout: float) -> list:
-        """Submit every choice with the engine deadline ``timeout`` from
-        now; a full queue, an open failure breaker or an expired deadline
-        is a 503 before any response starts (choices already queued are
+    def _submit_all(self, plans: list[dict[str, Any]], cancels: list[threading.Event],
+                    deadline: float) -> list:
+        """Submit every choice (one plan with n choices, or one choice per
+        plan) with the engine deadline ``deadline``; a full queue, a
+        draining engine, an open failure breaker or an expired deadline is
+        a 503 before any response starts, an engine ``ValueError`` (a
+        resume journal past the budget) a 400 (choices already queued are
         cancelled)."""
-        deadline = time.monotonic() + timeout
+        pairs = ([(plans[0], i) for i in range(plans[0]["n"])] if len(plans) == 1
+                 else [(p, 0) for p in plans])
         try:
-            return [self._submit_choice(plan, i, cancels[i], deadline)
-                    for i in range(plan["n"])]
+            return [self._submit_choice(p, i, c, deadline) for (p, i), c in zip(pairs, cancels)]
         except QueueFullError as e:
             _set_all(cancels)
-            raise _overloaded(self.name, str(e)) from None
+            raise _overloaded(self.name, str(e) or "admission queue full",
+                              retry_after=getattr(e, "retry_after", 1.0)) from None
         except EngineBreakerOpen as e:
             _set_all(cancels)
             raise _breaker_open(self.name, e) from None
         except DeadlineExceeded as e:
             _set_all(cancels)
             raise _deadline_error(self.name, e) from None
+        except ValueError as e:
+            _set_all(cancels)
+            raise _invalid_request(str(e)) from None
 
     def _lp_entry(self, tid: int, record, top_n: int) -> dict[str, Any]:
         """One OpenAI ``logprobs.content[]`` element from an engine record
@@ -737,26 +856,44 @@ class CudaBackend:
             used += len(e["token"])
         return out
 
-    def _drain(self, plan: dict[str, Any], req, on_text) -> GenerationResult:
-        """Consume one choice's tokens, passing each piece of visible text
-        and its logprob entries (None without ``logprobs``) to
-        ``on_text(text, entries)``. Without a stop hit, entries the text
-        did not cover (a split UTF-8 character decodes longer alone than
-        in context) ship last with empty text."""
+    def _drain(self, plan: dict[str, Any], req, on_text,
+               resume: list[int] | None = None) -> GenerationResult:
+        """Consume one choice's tokens, passing each piece of visible text,
+        its logprob entries (None without ``logprobs``) and the token ids
+        consumed since the last piece to ``on_text(text, entries, ids)``.
+        Without a stop hit, entries the text did not cover (a split UTF-8
+        character decodes longer alone than in context) ship last with
+        empty text. ``resume``: the journal of a resumed stream, fed to the
+        detokenizer and the stop matcher first so the continuation renders
+        exactly where the delivered text stopped (a stop string inside it,
+        or a rendered length other than ``resume_chars``, is a
+        :class:`ReplayDivergence`). A parked request finishes ``"parked"``
+        with its detokenizer tail held back: the resumed stream renders it."""
         result = GenerationResult()
         detok = self.tokenizer.detokenizer()
         matcher = _StopMatcher(plan["stops"])
         want_lp, top_n = plan["logprobs"] >= 0, max(0, plan["logprobs"])
         pending: list = []
+        ids: list[int] = []
 
         def emit(text: str) -> None:
-            on_text(text, self._take_aligned(pending, len(text)) if want_lp else None)
+            taken, ids[:] = list(ids), []
+            on_text(text, self._take_aligned(pending, len(text)) if want_lp else None, taken)
 
+        if resume:
+            prefix = "".join(matcher.feed(detok.feed(t)) for t in resume)
+            want = plan["resume_chars"]
+            if matcher.hit or (want is not None and len(prefix) != want):
+                why = ", stop string inside the journal" if matcher.hit else ""
+                raise ReplayDivergence(len(resume), message=(
+                    "resume replay diverged before admission: journal renders "
+                    f"{len(prefix)} chars (client received {want}{why})"))
         for i, t in enumerate(self.engine.stream_results(req)):
             if t == self.tokenizer.eos_id:
                 result.finish_reason = "stop"
                 break
             result.token_ids.append(t)
+            ids.append(t)
             if want_lp and i < len(req.lp):
                 pending.append(self._lp_entry(t, req.lp[i], top_n))
             text = matcher.feed(detok.feed(t))
@@ -764,49 +901,62 @@ class CudaBackend:
                 emit(text)
             if matcher.hit:  # stop string matched: abort decoding now
                 break
+        if getattr(req, "parked", False):
+            result.finish_reason = "parked"
+            return result
         tail = matcher.feed(detok.flush()) + matcher.flush()
         if tail:
             emit(tail)
         if matcher.hit:
             result.finish_reason = "stop"
         elif pending:
-            on_text("", pending)
+            on_text("", pending, [])
         return result
+
+    def _consume(self, plan: dict[str, Any], req) -> tuple:
+        """One non-streamed choice: (result, text, logprob entries or
+        None). A parked request raises :class:`_DrainParked`."""
+        pieces: list[str] = []
+        entries: list = []
+
+        def on_text(text, lp, _ids):
+            pieces.append(text)
+            entries.extend(lp or ())
+
+        result = self._drain(plan, req, on_text)
+        if result.finish_reason == "parked":
+            raise _DrainParked("request parked by a draining engine before completion")
+        return result, "".join(pieces), entries if plan["logprobs"] >= 0 else None
 
     # ---- backend protocol -------------------------------------------------
 
-    async def complete(self, body: dict[str, Any], headers: dict[str, str],
-                       timeout: float) -> CompletionResult:
-        plan = self._plan(body)
+    async def _generate(self, plans: list[dict[str, Any]], timeout: float,
+                        deadline: float) -> list:
+        """Submit ``plans`` (one plan's n choices, or one choice per plan)
+        and wait, on a thread the event loop cannot cancel, for each
+        choice's ``(result, text, logprobs)`` until ``deadline`` plus
+        ``DEADLINE_SLACK_S``. The engine's failures become the backend's
+        errors (``timeout`` is the request's budget, for their words), and
+        every exit but success frees the choices' slots."""
+        n = plans[0]["n"] if len(plans) == 1 else len(plans)
         # One cancel event PER choice: stream_results sets its request's
         # event when that choice finishes, which must not end its siblings.
-        cancels = [threading.Event() for _ in range(plan["n"])]
-        reqs = self._submit_all(plan, cancels, timeout)
+        cancels = [threading.Event() for _ in range(n)]
+        reqs = self._submit_all(plans, cancels, deadline)
 
         def run():
-            outs = []
-            for req in reqs:
-                pieces: list[str] = []
-                entries: list = []
+            return [self._consume(plans[i if len(plans) > 1 else 0], r)
+                    for i, r in enumerate(reqs)]
 
-                def on_text(text, lp, pieces=pieces, entries=entries):
-                    pieces.append(text)
-                    entries.extend(lp or ())
-
-                result = self._drain(plan, req, on_text)
-                outs.append((result, "".join(pieces),
-                             entries if plan["logprobs"] >= 0 else None))
-            return outs
-
-        task = asyncio.ensure_future(asyncio.to_thread(run))
         try:
             # A span over the whole generation (submit to the last token
             # drained): the engine's queue-wait, prefill and decode spans
             # nest inside it on /debug/traces.
             with obs.trace_span(obs.current_trace(), "backend-generate", backend=self.name,
-                                choices=plan["n"], prompt_tokens=len(plan["prompt_ids"])):
-                outs = await asyncio.wait_for(asyncio.shield(task),
-                                              timeout + self.DEADLINE_SLACK_S)
+                                choices=n,
+                                prompt_tokens=sum(len(p["prompt_ids"]) for p in plans)):
+                return await self._shielded_to_thread(
+                    run, max(0.0, deadline - time.monotonic()) + self.DEADLINE_SLACK_S)
         except asyncio.TimeoutError:
             _set_all(cancels)
             raise _timeout_error(self.name, timeout) from None
@@ -816,6 +966,10 @@ class CudaBackend:
         except GrammarArenaFull as e:
             _set_all(cancels)
             raise _overloaded(self.name, str(e)) from None
+        except _DrainParked:
+            # No journal without a stream: the router re-places the request.
+            _set_all(cancels)
+            raise _overloaded(self.name, "replica is draining (request parked)") from None
         except BackendError:
             raise
         except Exception as e:
@@ -825,6 +979,11 @@ class CudaBackend:
         except BaseException:  # client disconnect / cancellation: free the slots
             _set_all(cancels)
             raise
+
+    async def complete(self, body: dict[str, Any], headers: dict[str, str],
+                       timeout: float) -> CompletionResult:
+        plan = self._plan(body)
+        outs = await self._generate([plan], timeout, time.monotonic() + timeout)
         resp = oai.completion(
             content=outs[0][1], model=plan["model"],
             usage=self._usage(len(plan["prompt_ids"]),
@@ -852,7 +1011,7 @@ class CudaBackend:
         cancels = [threading.Event() for _ in range(n)]
         # Submit BEFORE the first yield: a full queue or an expired deadline
         # is a 503 response, not an error chunk inside a started 200 stream.
-        reqs = self._submit_all(plan, cancels, timeout)
+        reqs = self._submit_all([plan], cancels, time.monotonic() + timeout)
 
         def put(*event):
             loop.call_soon_threadsafe(events.put_nowait, event)
@@ -860,7 +1019,9 @@ class CudaBackend:
         def produce(idx: int, req):
             """Drain one choice; events are (kind, choice index, payload)."""
             try:
-                result = self._drain(plan, req, lambda text, lp: put("text", idx, (text, lp)))
+                result = self._drain(
+                    plan, req, lambda text, lp, ids: put("text", idx, (text, lp, ids)),
+                    resume=plan["resume_tokens"] if idx == 0 else None)
                 counts[idx], finishes[idx] = result.completion_tokens, result.finish_reason
                 put("end", idx, None)
             except Exception as e:  # surfaced on the consumer side
@@ -883,11 +1044,15 @@ class CudaBackend:
                 for pos, (kind, idx, val) in enumerate(batch):
                     more = pos < len(batch) - 1
                     if kind == "text":
-                        text, lp = val
+                        text, lp, ids = val
                         out = oai.chunk(id=chunk_id, model=model, delta={"content": text},
                                         index=idx)
                         if lp is not None:
                             out["choices"][0]["logprobs"] = {"content": lp, "refusal": None}
+                        if plan["stream_token_ids"] and ids:
+                            # The ids whose text this chunk carries: a
+                            # resume journal's entries.
+                            out["qt_tokens"] = ids
                     elif kind == "end":
                         ended += 1
                         out = oai.chunk(id=chunk_id, model=model, delta={},
@@ -896,6 +1061,11 @@ class CudaBackend:
                         raise _deadline_error(self.name, val) from val
                     elif isinstance(val, GrammarArenaFull):
                         raise _overloaded(self.name, str(val)) from val
+                    elif isinstance(val, ReplayDivergence):
+                        # A resume that must not be retried: the code, not
+                        # the message, says so.
+                        raise BackendError(f"Backend {self.name} failed: {val}",
+                                           code="resume_diverged") from val
                     else:
                         raise BackendError(f"Backend {self.name} failed: {val}") from val
                     yield oai.more(out) if more else out
@@ -912,6 +1082,283 @@ class CudaBackend:
             usage_chunk["choices"] = []
             usage_chunk["usage"] = self._usage(len(plan["prompt_ids"]), sum(counts))
             yield usage_chunk
+
+    # ---- embeddings and legacy completions --------------------------------
+
+    async def embed(self, body: dict[str, Any], headers: dict[str, str],
+                    timeout: float) -> CompletionResult:
+        """OpenAI ``/embeddings`` from the engine's resident weights.
+
+        ``input``: a string, a list of strings, one token-id list, or a
+        list of them; mixed lists, empty input, out-of-vocab ids, more than
+        64 items, an ``encoding_format`` other than float/base64 and
+        ``dimensions`` outside 1..d_model are 400s. Vectors are mean-pooled
+        final-norm hidden states, L2-normalised; ``dimensions`` truncates
+        then renormalises; an input past ``max_seq`` keeps its head."""
+        from quorum_tpu_torch.engine.embed import (MAX_BATCH, embed_token_batch,
+                                                   forward_tokens_error)
+
+        effective = prepare_body(body, self.model)  # 400 when no model anywhere
+        token_lists = [self.tokenizer.encode(x) if isinstance(x, str) else x
+                       for x in self._token_inputs(body.get("input"), "input", MAX_BATCH)]
+        spec = self.engine.spec
+        fmt = body.get("encoding_format", "float")
+        if fmt not in ("float", "base64"):
+            raise _invalid_request("'encoding_format' must be 'float' or 'base64'")
+        dims = body.get("dimensions", spec.d_model)
+        if not isinstance(dims, int) or isinstance(dims, bool) or not 1 <= dims <= spec.d_model:
+            raise _invalid_request(f"'dimensions' must be an integer in 1..{spec.d_model}")
+        refused = forward_tokens_error(
+            spec, [max(min(len(t), spec.max_seq), 1) for t in token_lists])
+        if refused:
+            raise _invalid_request(refused)
+
+        def run():
+            return embed_token_batch(self.engine, token_lists, member=self.member)
+
+        try:
+            vectors = await self._gated_to_thread(run, timeout)
+        except asyncio.TimeoutError:
+            raise _timeout_error(self.name, timeout) from None
+        except BackendError:
+            raise
+        except Exception as e:
+            logger.exception("cuda backend %s embeddings failed", self.name)
+            raise BackendError(f"Backend {self.name} failed: {e}") from e
+        if dims < spec.d_model:
+            vectors = vectors[:, :dims]
+            vectors = vectors / torch.linalg.vector_norm(
+                vectors, dim=-1, keepdim=True).clamp(min=1e-9)
+        data = []
+        for i, v in enumerate(vectors.tolist()):
+            emb: Any = (base64.b64encode(struct.pack(f"<{len(v)}f", *v)).decode("ascii")
+                        if fmt == "base64" else v)
+            data.append({"object": "embedding", "index": i, "embedding": emb})
+        n_tokens = sum(min(len(t), spec.max_seq) for t in token_lists)
+        resp = {"object": "list", "data": data,
+                "model": effective.get("model") or self.model,
+                "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+                "backend": self.name}
+        return CompletionResult(backend_name=self.name, status_code=200, body=resp)
+
+    def _token_inputs(self, raw: Any, field: str, limit: int | None = None) -> list:
+        """The OpenAI ``input`` / ``prompt`` grammar — a string, a list of
+        strings, one token-id list or a list of them, never a mix — as a
+        list of strings and in-vocabulary id lists; anything else, or more
+        than ``limit`` items, is a 400."""
+        if isinstance(raw, str):
+            if not raw:
+                raise _invalid_request(f"'{field}' must not be an empty string")
+            items: list[Any] = [raw]
+        elif isinstance(raw, list) and raw and all(
+                isinstance(x, int) and not isinstance(x, bool) for x in raw):
+            items = [raw]  # one pre-tokenized input
+        elif isinstance(raw, list) and raw:
+            items = raw
+            _reject_mixed(items, field)
+        else:
+            raise _invalid_request(
+                f"'{field}' must be a non-empty string, list of strings, or token array(s)")
+        if limit is not None and len(items) > limit:
+            raise _invalid_request(f"at most {limit} inputs per embeddings request")
+        vocab = self.engine.spec.vocab_size
+        for x in items:
+            if not ((isinstance(x, str) and x) or _token_ids_ok(x, vocab)):
+                raise _invalid_request(
+                    f"each '{field}' item must be a string or a non-empty list of in-vocab "
+                    "token ids")
+        return items
+
+    def _parse_prompts(self, raw: Any) -> list[tuple[str, list[int]]]:
+        """The /completions ``prompt`` → [(text, token ids)]; a pre-tokenized
+        prompt's text comes from the tokenizer, so ``echo`` always has
+        something to echo."""
+        return [(x, self.tokenizer.encode(x)) if isinstance(x, str)
+                else (self.tokenizer.decode(x), list(x))
+                for x in self._token_inputs(raw, "prompt")]
+
+    @staticmethod
+    def _validate_completions_common(body: dict[str, Any]) -> None:
+        """/completions rules of both the flat and the streamed path;
+        ``best_of=1`` and ``n=1`` are the OpenAI defaults (no-ops)."""
+        if body.get("n") not in (None, 1):
+            raise _invalid_request(
+                "'n' > 1 is not supported on /completions — send a list of prompts instead")
+        if body.get("best_of") not in (None, 1):
+            raise _invalid_request("'best_of' is not supported by cuda:// backends")
+        if body.get("suffix"):
+            raise _invalid_request("'suffix' is not supported by cuda:// backends")
+
+    def plan_text_stream(self, body: dict[str, Any]) -> tuple[dict[str, Any], str]:
+        """Validate a streamed /completions request and build the chat body
+        its stream runs on: ``(stream body, model)``. One prompt, no
+        ``echo``/``logprobs`` (the legacy wire has no streamed form of
+        them), and the legacy default of 16 tokens."""
+        effective = prepare_body(body, self.model)
+        self._validate_completions_common(body)
+        # logprobs=false is the serialized default, not a request for them.
+        if body.get("echo") or body.get("logprobs") not in (None, False):
+            raise _invalid_request(
+                "'echo'/'logprobs' are not supported with 'stream' on /completions")
+        prompts = self._parse_prompts(body.get("prompt"))
+        if len(prompts) != 1:
+            raise _invalid_request("streaming /completions takes exactly one prompt")
+        sbody = {k: v for k, v in body.items()
+                 if k not in ("prompt", "echo", "logprobs", "stream", "n", "best_of", "suffix")}
+        if "max_tokens" not in sbody and "max_completion_tokens" not in sbody:
+            sbody["max_tokens"] = 16
+        sbody["_raw_prompt_ids"] = prompts[0][1]
+        return sbody, effective["model"]
+
+    @staticmethod
+    def _parse_completions_logprobs(body: dict[str, Any]) -> int | None:
+        lp = body.get("logprobs")
+        if lp is None or lp is False:
+            return None
+        if lp is True:  # chat-style boolean: the chosen token only
+            return 0
+        if not isinstance(lp, int) or isinstance(lp, bool) or not 0 <= lp <= 5:
+            raise _invalid_request(
+                f"Invalid value for 'logprobs': {lp!r} (must be an integer in [0, 5])")
+        return lp
+
+    async def text_complete(self, body: dict[str, Any], headers: dict[str, str],
+                            timeout: float) -> CompletionResult:
+        """Legacy OpenAI ``/completions``: raw-prompt generation and
+        teacher-forced scoring from the same resident weights.
+
+        ``echo=true`` with ``logprobs=k`` returns every PROMPT token's
+        logprob (the first ``null``) from one forward (``engine/score.py``);
+        ``max_tokens=0`` is allowed only in that mode. Generation runs the
+        chat plan over the raw prompt ids (no template). At most 8 prompts
+        when generating (one slot each), 64 when only scoring; one deadline
+        covers both phases."""
+        from quorum_tpu_torch.engine.embed import MAX_BATCH, forward_tokens_error
+        from quorum_tpu_torch.engine.score import score_token_batch
+
+        effective = prepare_body(body, self.model)
+        self._validate_completions_common(body)
+        prompts = self._parse_prompts(body.get("prompt"))
+        echo = bool(body.get("echo", False))
+        lp = self._parse_completions_logprobs(body)
+        mt = body.get("max_tokens")
+        if mt is None:
+            mt = 16  # the OpenAI default for /completions
+        if not isinstance(mt, int) or isinstance(mt, bool) or mt < 0:
+            raise _invalid_request(f"Invalid value for 'max_tokens': {mt!r} (integer >= 0)")
+        scoring = echo and lp is not None
+        if mt == 0 and not scoring:
+            raise _invalid_request(
+                "'max_tokens': 0 requires 'echo': true with 'logprobs' set (the pure "
+                "scoring mode)")
+        max_seq = self.engine.spec.max_seq
+        if scoring:
+            too_long = max(len(ids) for _, ids in prompts)
+            if too_long > max_seq:
+                raise _invalid_request(
+                    f"prompt of {too_long} tokens exceeds max_seq={max_seq} — a truncated "
+                    "prompt cannot be scored faithfully")
+            if len(prompts) > MAX_BATCH:
+                raise _invalid_request(f"at most {MAX_BATCH} prompts per scoring request")
+            refused = forward_tokens_error(self.engine.spec, [len(ids) for _, ids in prompts])
+            if refused:
+                raise _invalid_request(refused)
+        if mt >= 1 and len(prompts) > self.MAX_N:
+            raise _invalid_request(f"at most {self.MAX_N} prompts per generation request")
+        # One deadline for both phases: scoring then generating must not
+        # take twice the timeout.
+        deadline = time.monotonic() + timeout
+
+        scores = None
+        if scoring:
+            def run_score():
+                return score_token_batch(self.engine, [ids for _, ids in prompts],
+                                         member=self.member, top_k=lp)
+
+            try:
+                scores = await self._gated_to_thread(
+                    run_score, max(0.0, deadline - time.monotonic()))
+            except asyncio.TimeoutError:
+                raise _timeout_error(self.name, timeout) from None
+            except BackendError:
+                raise
+            except Exception as e:
+                logger.exception("cuda backend %s scoring failed", self.name)
+                raise BackendError(f"Backend {self.name} failed: {e}") from e
+
+        outs: list = []
+        if mt >= 1:
+            plan_body = {k: v for k, v in body.items()
+                         if k not in ("prompt", "echo", "logprobs", "stream", "max_tokens",
+                                      "max_completion_tokens")}
+            plan_body["max_tokens"] = mt
+            if lp is not None:
+                plan_body["logprobs"] = True
+                plan_body["top_logprobs"] = lp
+            plans = [self._plan({**plan_body, "_raw_prompt_ids": ids}) for _, ids in prompts]
+            outs = await self._generate(plans, timeout, deadline)
+
+        choices = []
+        total_completion = 0
+        for i, (text, ids) in enumerate(prompts):
+            gen_text, finish, lp_content = "", "length", None
+            if outs:
+                result, gen_text, lp_content = outs[i]
+                finish = result.finish_reason
+                total_completion += result.completion_tokens
+            choice: dict[str, Any] = {"index": i,
+                                      "text": (text + gen_text) if echo else gen_text,
+                                      "finish_reason": finish}
+            choice["logprobs"] = (None if lp is None else
+                                  self._legacy_logprobs(ids, scores[i] if echo else None,
+                                                        lp_content))
+            choices.append(choice)
+        resp = {"id": f"cmpl-{uuid.uuid4().hex[:24]}", "object": "text_completion",
+                "created": oai.now(), "model": effective["model"], "choices": choices,
+                "usage": self._usage(sum(len(ids) for _, ids in prompts), total_completion),
+                "backend": self.name}
+        return CompletionResult(backend_name=self.name, status_code=200, body=resp)
+
+    def _legacy_logprobs(self, ids: list[int], score: dict | None,
+                         lp_content: list | None) -> dict[str, Any]:
+        """The legacy ``logprobs`` object of one choice: the echoed prompt's
+        tokens (``score``, from the scoring forward), then the generated
+        ones (``lp_content``). Echoed token texts come from the incremental
+        detokenizer, which emits whole characters only, so every
+        ``text_offset`` indexes the returned text even where byte tokens
+        split a multi-byte character."""
+        tokens: list[str] = []
+        token_lps: list = []
+        tops: list = []
+        offsets: list[int] = []
+        pos = 0
+        if score is not None:
+            top = score.get("top")
+            detok = self.tokenizer.detokenizer()
+            for j, tid in enumerate(ids):
+                ttext = detok.feed(int(tid))
+                if j == len(ids) - 1:
+                    ttext += detok.flush()
+                tokens.append(ttext)
+                offsets.append(pos)
+                pos += len(ttext)
+                token_lps.append(score["token_logprobs"][j])
+                if j == 0:
+                    tops.append(None)  # no prefix: nothing to rank
+                elif top is not None:
+                    t_ids, t_lps = top[j]
+                    tops.append(_top_dict((self.tokenizer.decode([int(t)]), float(v))
+                                          for t, v in zip(t_ids, t_lps)))
+                else:
+                    tops.append({})
+        for e in lp_content or ():
+            tokens.append(e["token"])
+            offsets.append(pos)
+            pos += len(e["token"])
+            token_lps.append(e["logprob"])
+            tops.append(_top_dict((t["token"], t["logprob"]) for t in e.get("top_logprobs", [])))
+        return {"tokens": tokens, "token_logprobs": token_lps, "top_logprobs": tops,
+                "text_offset": offsets}
 
     async def aclose(self) -> None:
         return None

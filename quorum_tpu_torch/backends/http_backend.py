@@ -5,7 +5,8 @@ One pooled ``httpx.AsyncClient`` per backend; streams are relayed as the
 upstream's bytes arrive (``SSEParser``). Error contract: a transport failure
 is a :class:`BackendError` with a 500 ``proxy_error`` body; a non-2xx upstream
 status passes its status and parsed body through; a successful body is tagged
-with the backend's name.
+with the backend's name. ``embed`` and ``text_complete`` relay
+``/embeddings`` and legacy ``/completions`` the same way (not streamed).
 
 Retries (``retries: N`` on the backend's config entry, default 0): up to N
 extra attempts on connect errors and upstream 5xx, with capped exponential
@@ -109,13 +110,33 @@ class HttpBackend:
                        timeout: float) -> CompletionResult:
         req_body = prepare_body(body, self.model)
         req_body["stream"] = False
+        return await self._post_json(self._endpoint, req_body, headers, timeout)
+
+    async def embed(self, body: dict[str, Any], headers: dict[str, str],
+                    timeout: float) -> CompletionResult:
+        """Relay ``/embeddings`` upstream, with :meth:`complete`'s model
+        precedence, retries and error normalization."""
+        return await self._post_json(f"{self.url}/embeddings", prepare_body(body, self.model),
+                                     headers, timeout)
+
+    async def text_complete(self, body: dict[str, Any], headers: dict[str, str],
+                            timeout: float) -> CompletionResult:
+        """Relay legacy ``/completions`` upstream, not streamed."""
+        req_body = prepare_body(body, self.model)
+        req_body["stream"] = False
+        return await self._post_json(f"{self.url}/completions", req_body, headers, timeout)
+
+    async def _post_json(self, url: str, req_body: dict[str, Any], headers: dict[str, str],
+                         timeout: float) -> CompletionResult:
+        """POST a JSON body (retrying as the class docstring says) and return
+        the upstream's status and body, tagged with the backend's name."""
         deadline = time.monotonic() + timeout
         attempt = 0
         while True:
             try:
                 faults.fire("http.request")
                 resp = await self._client.post(
-                    self._endpoint, json=req_body, headers=_clean_headers(headers),
+                    url, json=req_body, headers=_clean_headers(headers),
                     timeout=max(0.001, deadline - time.monotonic()))
             except Exception as e:
                 if isinstance(e, _RETRYABLE_EXC) and await self._backoff(attempt, deadline):

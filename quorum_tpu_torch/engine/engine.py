@@ -194,6 +194,21 @@ at the next scheduler turn and copied to pinned host memory, chunk by
 chunk, by a worker thread on a side stream; an admission whose store match
 beats the slot-resident reuse gets the tail past that overlap written back
 into its slot (or pages) before its first segment, and prefills the rest.
+
+The cache-free forwards (``engine/embed.py``, ``engine/score.py``) run on
+the caller's thread, outside the scheduler, inside :meth:`forward_scope`:
+on the card on a second stream of the engine's own, below the decode
+ring's in priority, at most ``SCORE_GATE_SLOTS`` at once (``score_gate``).
+
+Lifecycle, as the JAX engine's: :meth:`drain` shuts submit (a
+``QueueFullError`` with ``retry_after`` 1 s) and, with ``park``, retires
+queued requests at once and active rows at the next scheduler turn
+(``parked`` set before a clean end) through the cancel sweep's release;
+:meth:`undrain` reopens. ``submit(resume_tokens=...)`` resumes a stream:
+the delivered ids are regenerated — token-indexed noise makes draw n the
+same whatever the dispatch shapes and admission path — and the replay
+guard in :meth:`_emit` compares and swallows each, ending the stream with
+:class:`ReplayDivergence` on a mismatch.
 """
 
 from __future__ import annotations
@@ -272,6 +287,14 @@ DEADLINE_WATCH_S = 0.005
 # that lose the interpreter lock to the scheduler in between still admits
 # as one dispatch.
 MEMBER_GROUP_WAIT_S = 0.01
+# Embedding and scoring forwards in flight per engine (``score_gate``): they
+# run on the request's thread, outside the scheduler's queue, so this bounds
+# the device work they add beside live decode; a request past it is a 503.
+SCORE_GATE_SLOTS = 2
+# CUDA priority of the decode ring's stream (lower runs first); the forward
+# stream keeps the default 0. ``scripts/torch_ring_priority_ab.py`` holds
+# −1 against 0.
+RING_STREAM_PRIORITY = -1
 
 
 class QueueFullError(Exception):
@@ -297,6 +320,22 @@ class DeadlineExceeded(Exception):
     def __init__(self, stage: str):
         super().__init__(f"request deadline exceeded ({stage})")
         self.stage = stage
+
+
+class ReplayDivergence(RuntimeError):
+    """A replay guard byte-compare failed: a token regenerated for a resumed
+    stream (``submit(resume_tokens=...)``) did not equal the token already
+    delivered to the client. The stream fails with this distinct error, so a
+    caller can tell "this resume must not be retried" apart from an ordinary
+    transport failure it may fail over."""
+
+    def __init__(self, position: int, regenerated: int | None = None,
+                 delivered: int | None = None, *, message: str | None = None):
+        super().__init__(
+            message if message is not None else
+            f"replay diverged at position {position}: regenerated token "
+            f"{regenerated} != delivered token {delivered}")
+        self.position = position
 
 
 class GrammarArenaFull(RuntimeError):
@@ -378,13 +417,19 @@ class _Request:
     ``t_submit`` the submit stamp (``time.perf_counter``) and ``tspans``
     the last span and turn count of each per-turn span kind.
     ``deadline_answered``: its DeadlineExceeded frame went out (the
-    consumer is gone); the scheduler's sweep has yet to release it."""
+    consumer is gone); the scheduler's sweep has yet to release it.
+
+    Lifecycle: ``replay`` is the list of already-delivered token ids a
+    resumed stream must regenerate before anything new reaches ``out``
+    (None: not resuming); ``parked`` is set, before the end frame, when a
+    draining engine retired the stream mid-generation (its consumer
+    finishes it ``"parked"``)."""
 
     __slots__ = ("prompt_ids", "budget", "sampler", "seed", "eos_id", "cancel",
                  "chunk_hint", "out", "emitted", "generator", "member", "hist",
                  "pp", "fp", "bias_row", "want_lp", "lp", "deadline", "grammar", "g_start",
                  "dfa_host", "n_drawn", "ngram", "spec_state", "n_inflight", "trace", "rid",
-                 "t_submit", "tspans", "deadline_answered")
+                 "t_submit", "tspans", "deadline_answered", "replay", "parked")
 
     def __init__(self, prompt_ids, budget, sampler: SamplerConfig, seed, eos_id, cancel,
                  chunk_hint, member=0, pp=0.0, fp=0.0, bias_row=None, want_lp=-1,
@@ -424,6 +469,8 @@ class _Request:
         self.t_submit = time.perf_counter()
         self.tspans: dict = {}
         self.deadline_answered = False
+        self.replay: list[int] | None = None
+        self.parked = False
 
     @property
     def spec_draft_ok(self) -> bool:
@@ -902,13 +949,30 @@ class InferenceEngine:
         self._tag = f"engine-{id(self):x}"
         self._dispatch_seq = 0
         self.latency = LatencyModel(alpha=CHUNK_EWMA_ALPHA)
-        # On the card: the engine's own stream (after the set-up above) and
-        # its decode graphs.
-        self._stream = self._graphs = None
+        # Embedding and scoring forwards (engine/embed.py, engine/score.py)
+        # admitted at once, by the backends' gate.
+        self.score_gate = threading.Semaphore(SCORE_GATE_SLOTS)
+        # The drain lifecycle: ``draining`` shuts submit (a retryable 503);
+        # with ``_draining_park`` every resident stream is retired at the
+        # next scheduler turn with a ``parked`` finish. Replayed tokens are
+        # the regenerated ones a resume's guard swallowed.
+        self.draining = False
+        self._draining_park = False
+        self.n_drain_parked = 0
+        self.n_replayed_tokens = 0
+        # On the card: the engine's own stream (after the set-up above), its
+        # decode graphs, and the stream the cache-free forwards run on — a
+        # second one, so a long forward shares the SMs with live decode
+        # rather than queueing behind the ring. The ring's stream has the
+        # higher priority: as a forward's blocks retire, the SMs go to
+        # pending decode blocks first, and a stream's tokens keep coming.
+        self._stream = self._graphs = self._fwd_stream = None
         if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
+            self._stream = torch.cuda.Stream(self.device, priority=RING_STREAM_PRIORITY)
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             self._graphs = DecodeGraphs(self.device, self._stream, hold=self._deadline_watch)
+            self._fwd_stream = torch.cuda.Stream(self.device)
+            self._fwd_stream.wait_stream(torch.cuda.current_stream(self.device))
         self._thread = threading.Thread(target=self._scheduler, daemon=True,
                                         name="quorum-torch-scheduler")
         self._thread.start()
@@ -932,11 +996,13 @@ class InferenceEngine:
         logprobs: int = -1,  # >= 0: record per-token logprobs + that many tops
         deadline: float | None = None,  # absolute time.monotonic() deadline
         grammar=None,  # CompiledGrammar: constrained decoding (structured output)
+        resume_tokens: list[int] | None = None,  # already-delivered ids to replay
     ) -> _Request | None:
         """Enqueue a generation for weight set ``member`` and return its
         handle (``None`` when there is nothing to generate). Raises
         :class:`QueueFullError` synchronously when the admission queue is at
-        capacity, :class:`DeadlineExceeded` (stage ``queue``) when
+        capacity or the engine is draining (``retry_after`` 1 s),
+        :class:`DeadlineExceeded` (stage ``queue``) when
         ``deadline`` has already passed, and :class:`EngineBreakerOpen`
         while the failure breaker rejects new admissions. ``deadline`` bounds the request's
         whole life: pending past it, it is shed (stage ``queue``); admitted,
@@ -946,10 +1012,26 @@ class InferenceEngine:
         OpenAI contract (presence: flat once a token has been generated;
         frequency: scaled by its count) over this request's generated
         tokens. A ``grammar`` constrains every sampled token to its
-        language; the stream ends with EOS once the grammar completes."""
+        language; the stream ends with EOS once the grammar completes.
+
+        ``resume_tokens`` resumes a stream this or another engine already
+        delivered part of: the request admits as usual, regenerates those
+        ids from (prompt, seed, sampler) — sampling noise is drawn per token
+        index, so draw n is the same as on first delivery — and
+        :meth:`_emit`'s replay guard compares each with the delivered id and
+        swallows it before anything new reaches the consumer. A mismatch
+        ends the stream with :class:`ReplayDivergence`, never a silent
+        fork. Out-of-vocabulary ids and a journal longer than the budget
+        are ``ValueError``s."""
         if not 0 <= member < self.members:
             raise ValueError(
                 f"member {member} out of range for a {self.members}-member engine")
+        if self.draining:
+            # A draining engine admits nothing new: the 503 this becomes is
+            # a failure before the first byte, which a router fails over.
+            err = QueueFullError("engine draining")
+            err.retry_after = 1.0
+            raise err
         spec = self.spec
         if grammar is not None:
             # The JAX engine's preconditions: grammar completion
@@ -982,10 +1064,20 @@ class InferenceEngine:
         budget = min(int(max_new_tokens), spec.max_seq - len(prompt))
         if budget <= 0 or (cancel is not None and cancel.is_set()):
             return None
+        replay = None
+        if resume_tokens:
+            replay = [int(t) for t in resume_tokens]
+            if any(not 0 <= t < spec.vocab_size for t in replay):
+                raise ValueError("resume_tokens contains out-of-vocabulary ids")
+            if len(replay) > budget:
+                raise ValueError(
+                    f"resume_tokens longer ({len(replay)}) than the "
+                    f"generation budget ({budget})")
         req = _Request(prompt, budget, sampler or SamplerConfig(), int(seed), eos_id,
                        cancel if cancel is not None else threading.Event(), decode_chunk,
                        member, pp=presence_penalty, fp=frequency_penalty, bias_row=bias_row,
                        want_lp=logprobs, deadline=deadline, grammar=grammar)
+        req.replay = replay
         if deadline is not None and time.monotonic() >= deadline:
             with self._cond:
                 self.n_deadline_exceeded += 1
@@ -1063,7 +1155,11 @@ class InferenceEngine:
         verify turns included; ``decode_steps_total`` only the plain
         chunks' steps. The ``prefix_store_restore_*`` and
         ``prefix_store_snapshot_bytes_total`` ones are the port's: the
-        restores' blocking seconds and the bytes moved each way."""
+        restores' blocking seconds and the bytes moved each way. The drain
+        lifecycle's: ``draining`` (1 while submit is shut),
+        ``drain_parked_total`` (streams a park retired) and
+        ``replayed_tokens_total`` (regenerated tokens a resume's guard
+        swallowed)."""
         g = self._graphs
         with self._cond:
             return {
@@ -1131,6 +1227,9 @@ class InferenceEngine:
                 "inflight_chunks": len(self._inflight),
                 "admission_stall_seconds_total": round(self.admission_stall_s, 6),
                 "drain_gap_seconds_total": round(self.drain_gap_s, 6),
+                "replayed_tokens_total": self.n_replayed_tokens,
+                "draining": 1 if self.draining else 0,
+                "drain_parked_total": self.n_drain_parked,
             }
 
     def health(self) -> dict:
@@ -1147,7 +1246,70 @@ class InferenceEngine:
             "pending": pending,
             "queue_limit": self.max_pending,
             "rebuilds_total": self.n_rebuilds,
+            # A draining engine still answers /health but sheds /ready.
+            "draining": self.draining,
         }
+
+    def busy(self) -> bool:
+        """Whether a slot holds a request: read without the lock, a hint
+        for the forwards' sub-batch budget (``embed.forward_budget``)."""
+        return any(r is not None for r in self._slots)
+
+    @contextlib.contextmanager
+    def forward_scope(self) -> Iterator[None]:
+        """Where an embedding or scoring forward runs, on the caller's
+        thread: without autograd, and on the card on the engine's forward
+        stream. The host syncs only when it fetches the results."""
+        with torch.no_grad():
+            if self._fwd_stream is None:
+                yield
+                return
+            with torch.cuda.device(self.device), torch.cuda.stream(self._fwd_stream):
+                yield
+
+    def drain(self, park: bool = False) -> dict:
+        """Begin a graceful drain: submit sheds with a retryable
+        ``QueueFullError`` from now on, and residents either finish
+        (default) or are parked (``park=True``): queued requests end
+        ``parked`` at once, active rows at the next scheduler turn
+        (:meth:`_sweep_drain_parks`). Idempotent; returns
+        :meth:`drain_status`."""
+        parked_pending: list[_Request] = []
+        with self._cond:
+            self.draining = True
+            if park:
+                self._draining_park = True
+                # Queued requests never touched device state: retired here,
+                # not after rows that are being parked themselves.
+                parked_pending = list(self._pending)
+                self._pending.clear()
+                self.n_drain_parked += len(parked_pending)
+            self._cond.notify_all()
+        for r in parked_pending:
+            r.parked = True
+            r.out.put(("end", None))
+            FLIGHT.record("drain-park", rid=r.rid, engine=self._tag, loop="decode", row=-1,
+                          emitted=r.emitted)
+        return self.drain_status()
+
+    def undrain(self) -> dict:
+        """Reopen submit (clears both drain flags); returns
+        :meth:`drain_status`."""
+        with self._cond:
+            self.draining = False
+            self._draining_park = False
+            self._cond.notify_all()
+        return self.drain_status()
+
+    def drain_status(self) -> dict:
+        """Drain progress: ``resident`` counts every stream still attached
+        (active rows, chunked admissions, the queue); 0 means the engine
+        holds no client state."""
+        with self._cond:
+            busy = sum(1 for r in self._slots if r is not None)
+            return {"draining": self.draining, "park": self._draining_park,
+                    "resident": busy + len(self._admitting) + len(self._pending),
+                    "parked_total": self.n_drain_parked}
 
     def shutdown(self, timeout: float = 30.0) -> None:
         """Cancel pending/active requests, join the scheduler thread, and drop
@@ -1788,6 +1950,7 @@ class InferenceEngine:
             try:
                 with torch.no_grad():
                     self._sweep_deadlines()
+                    self._sweep_drain_parks()
                     self._start_admissions()
                     self._step_admissions()
                     if any(self._slots) or self._inflight:
@@ -2396,6 +2559,27 @@ class InferenceEngine:
                 r.out.put(("end", None))
                 with self._cond:
                     self._release_slot(i, r)
+
+    def _sweep_drain_parks(self) -> None:
+        """Drain with park: retire every active row at this turn's start,
+        through the cancel sweep's release — the row leaves every chunk not
+        yet dispatched, tokens of chunks in flight for it count as overrun,
+        a later admission's writes land behind those chunks in stream
+        order, and a paged row's pages go back to the pool. Its prefix stays
+        resident for reuse, as a finished stream's would. The consumer sees
+        ``parked`` then a clean end, never an error."""
+        if not self._draining_park:
+            return
+        for i, req in self._active_rows():
+            with self._cond:
+                if self._slots[i] is not req or req.cancel.is_set():
+                    continue  # finished or cancelled since: the cancel sweep's
+                self._release_slot(i, req)
+                self.n_drain_parked += 1
+            req.parked = True  # before the end frame: read when the stream ends
+            req.out.put(("end", None))
+            FLIGHT.record("drain-park", rid=req.rid, engine=self._tag, loop="decode", row=i,
+                          emitted=req.emitted)
 
     def _expire(self, req: _Request, stage: str) -> None:
         """Retire one request past its deadline: the error frame first (the
@@ -3588,12 +3772,28 @@ class InferenceEngine:
 
     def _emit(self, req: _Request, tok: int, lp=None) -> bool:
         """Deliver one token (its logprob record ``lp`` first, when there
-        is one); returns True when the request just finished."""
+        is one); returns True when the request just finished.
+
+        The replay guard: while ``req.replay`` holds ids, the token is one
+        the consumer already has. It is compared with the delivered id and
+        swallowed — history, the 2-gram index and the DFA shadow advance as
+        on first delivery, but nothing is queued or counted as a new token.
+        A mismatch ends the stream with :class:`ReplayDivergence`."""
         if req.cancel.is_set():
             self.n_cancelled += 1
             req.out.put(("end", None))
             return True
-        if lp is not None:
+        replaying = req.replay is not None
+        if replaying:
+            expect = req.replay.pop(0)
+            if not req.replay:
+                req.replay = None
+            if tok != expect:
+                req.replay = None
+                req.out.put(("err", ReplayDivergence(req.emitted, tok, expect)))
+                req.cancel.set()
+                return True
+        elif lp is not None:
             req.lp.append(lp)
         req.emitted += 1
         hist = req.hist
@@ -3604,6 +3804,14 @@ class InferenceEngine:
             # The host's shadow of the LOCAL DFA state, for the draft
             # filter; a dead transition means it lost sync: unknown.
             req.dfa_host = int(req.grammar.trans[req.dfa_host, tok])
+        if replaying:
+            # Delivered before: swallowed. A journal never holds an EOS (it
+            # ended the stream then), but it may cover the whole budget.
+            self.n_replayed_tokens += 1
+            if req.emitted >= req.budget:
+                req.out.put(("end", "length"))
+                return True
+            return False
         self.n_tokens += 1
         self.n_member_tokens[req.member] += 1
         req.out.put(("tok", tok))

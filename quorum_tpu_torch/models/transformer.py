@@ -22,8 +22,10 @@ The KV cache is updated IN PLACE — the JAX package donates the cache
 buffers to its jitted programs instead; functions still return the cache
 tensors so call sites read the same.
 
-Attention goes through the hand-written kernels: prefill through K1
-(ops/flash_attention.py), decode through K2 (ops/flash_decode.py), or K2q8
+Attention goes through the hand-written kernels: prefill and the cache-free
+forwards (``forward_hidden``, ``forward_logits``: embeddings and prompt
+scoring) through K1 (ops/flash_attention.py), decode through K2
+(ops/flash_decode.py), or K2q8
 (ops/flash_decode_q8.py) over an int8 cache. Each takes its plain version
 for CPU tensors. ``prefill_segment`` (chunked
 prefill over a cache row's history) runs the plain ``attention`` on every
@@ -256,6 +258,13 @@ def _moe_mlp_dense(x, block, spec: ModelSpec):
     return out.reshape(b, t, d).to(x.dtype)
 
 
+# Expert-buffer rows (E × capacity) whose products one grouped MoE launch
+# runs; more run in slices of the capacity axis. At mixtral-8x7b widths a
+# slice's float32 gate and up products are 16 384 × 14 336 × 4 B = 0.94 GB
+# each.
+MOE_SLOT_ROWS = 16384
+
+
 def moe_capacity(spec: ModelSpec, n: int) -> int:
     """Rows of each expert's buffer for ``n`` tokens: the JAX package's
     ``min(n, ceil(int(cf·k·n) / E))`` (``int`` truncates first)."""
@@ -274,7 +283,13 @@ def _moe_mlp_grouped(x, block, spec: ModelSpec, token_mask=None):
     capacity. Each expert runs its buffer ``[C, D]`` in one batched
     product; unfilled buffer rows gather a clamped row and are zeroed. No
     host read: the dispatch is a scatter into a flat buffer whose last
-    entry takes every pick that does not land."""
+    entry takes every pick that does not land.
+
+    Buffers of more than ``MOE_SLOT_ROWS`` rows in all (E × C: a long
+    cache-free forward) run in slices of the capacity axis, each slice's
+    outputs copied straight to its picks, so no ``[E, C, F]`` product is
+    held whole. The routing, the drops and every product are those of the
+    whole buffer: a buffer row's output depends on that row alone."""
     b, t, d = x.shape
     n = b * t
     e, k = spec.n_experts, spec.experts_per_token
@@ -298,13 +313,27 @@ def _moe_mlp_grouped(x, block, spec: ModelSpec, token_mask=None):
     pick_buf = torch.full((e * cap + 1,), p, dtype=torch.long, device=dev)
     pick_buf.scatter_(0, flat, torch.arange(p, device=dev))
     pick_buf = pick_buf[:e * cap].reshape(e, cap)
-    tok_buf = torch.where(pick_buf < p, pick_buf // k, torch.full_like(pick_buf, n))
-    expert_in = xf[tok_buf.clamp(max=n - 1)] * (tok_buf < n).to(xf.dtype)[..., None]
+    weight_p = prob_p * (c_p < cap).to(prob_p.dtype)
 
-    expert_out = _expert_ffn(expert_in, block, x.dtype)                 # [E, C, D]
-    valid = c_p < cap
-    out_p = expert_out[e_p.clamp(max=e - 1), c_p.clamp(max=cap - 1)]
-    out_p = out_p * (prob_p * valid.to(prob_p.dtype))[:, None]
+    def expert_rows(picks):
+        """The FFN of buffer rows holding ``picks`` [E, s] (p: empty)."""
+        tok = torch.where(picks < p, picks // k, torch.full_like(picks, n))
+        expert_in = xf[tok.clamp(max=n - 1)] * (tok < n).to(xf.dtype)[..., None]
+        return _expert_ffn(expert_in, block, x.dtype)                   # [E, s, D]
+
+    if e * cap <= MOE_SLOT_ROWS:
+        expert_out = expert_rows(pick_buf)
+        out_p = expert_out[e_p.clamp(max=e - 1), c_p.clamp(max=cap - 1)]
+        out_p = out_p * weight_p[:, None]
+    else:
+        # Row p takes the empty slots' outputs and is dropped.
+        out_p = torch.zeros((p + 1, d), dtype=torch.float32, device=dev)
+        step = max(1, MOE_SLOT_ROWS // e)
+        for c0 in range(0, cap, step):
+            picks = pick_buf[:, c0:c0 + step]
+            y = expert_rows(picks) * weight_p[picks.clamp(max=p - 1)][..., None]
+            out_p.index_copy_(0, picks.reshape(-1), y.reshape(-1, d))
+        out_p = out_p[:p]
     return out_p.reshape(n, k, d).sum(dim=1).reshape(b, t, d).to(x.dtype)
 
 
@@ -369,7 +398,9 @@ def _embed(params, spec: ModelSpec, tokens, positions):
     return x if pos is None else x + pos.to(x.dtype)
 
 
-def _unembed(params, spec: ModelSpec, x):
+def unembed(params, spec: ModelSpec, x):
+    """Hidden states [..., D] → logits [..., V] f32 (the lm head, or the
+    tied embedding table)."""
     w = params.get("lm_head")
     if w is not None:
         return _mm(x, w)
@@ -498,7 +529,7 @@ def prefill(
     x = _final_norm(params, spec, x)
     # Only the last real token's logits matter for generation; gather per row.
     last = x[torch.arange(b, device=x.device), lengths.long() - 1]
-    return _unembed(params, spec, last), cache_k, cache_v
+    return unembed(params, spec, last), cache_k, cache_v
 
 
 def host_to_device(values, dtype: torch.dtype, device,
@@ -729,7 +760,7 @@ def decode_step(
         params["blocks"], spec, x, lengths, cache_k, cache_v,
         write_mask=write_mask, plain_attention=plain_attention, history=history)
     x = _final_norm(params, spec, x)
-    logits = _unembed(params, spec, x[:, 0, :])
+    logits = unembed(params, spec, x[:, 0, :])
     if ensemble > 1:
         logits = logits.view(ensemble, -1, logits.shape[-1]).mean(0)
     return logits, cache_k, cache_v
@@ -910,7 +941,7 @@ def decode_multi(
             return attention(q, read(ck, q.dtype), read(cv, q.dtype), mask), k, v
 
         x = _block(x, _layer(params["blocks"], l), spec, attend, dense_moe=True)
-    logits = _unembed(params, spec, _final_norm(params, spec, x))
+    logits = unembed(params, spec, _final_norm(params, spec, x))
     if ensemble > 1:
         logits = logits.view(ensemble, -1, *logits.shape[1:]).mean(0)
     return logits, cache_k, cache_v
@@ -968,29 +999,56 @@ def decode_loop(
             sample_carry, aux)
 
 
-def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor,
-                   lengths: torch.Tensor | None = None) -> torch.Tensor:
-    """Full-sequence logits [B, T, V] f32 with no KV cache (the eval forward
-    and the cache-free ground truth for prefill/decode consistency).
-    Right-padded MoE batches pass ``lengths`` [B], which keeps pad tokens
-    out of expert capacity."""
+def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
+                   lengths: torch.Tensor | None = None,
+                   plain_attention: bool = False) -> torch.Tensor:
+    """Final-norm hidden states [B, T, D] with no KV cache: the embeddings
+    forward, :func:`forward_logits` without the unembed.
+
+    Attention is K1 (``flash_prefill_attention`` at each row's ``lengths``,
+    T for every row when None), the kernel admissions run; a CPU tensor
+    takes its plain version. Positions at or past a row's length come out
+    of K1 as 0 and differ from the plain masked attention's, which attends
+    them: callers read only the positions below each length, and causal
+    attention keeps every such position independent of the padding behind
+    it. ``plain_attention=True`` runs the plain masked attention on any
+    device (the ground truth the kernel path is held against on the card).
+    Right-padded MoE batches pass ``lengths``: pad tokens then take no
+    expert capacity."""
     b, t = tokens.shape
-    positions = torch.arange(t, device=tokens.device)
+    dev = tokens.device
+    positions = torch.arange(t, device=dev)
+    lens = (torch.full((b,), t, dtype=torch.int32, device=dev) if lengths is None
+            else lengths.to(device=dev, dtype=torch.int32))
     moe_mask = (None if lengths is None or not spec.is_moe
-                else positions[None, :] < lengths.to(tokens.device)[:, None])
+                else positions[None, :] < lens[:, None])
     x = _embed(params, spec, tokens, positions)
-    cos, sin = _rope(spec, tokens.device)
-    mask = causal_mask(t, t, window=spec.sliding_window, device=tokens.device)
+    cos, sin = _rope(spec, dev)
+    mask = (causal_mask(t, t, window=spec.sliding_window, device=dev)
+            if plain_attention else None)
 
     def attend(q, k, v):
         if spec.pos == "rope":
             q = apply_rope(q, cos, sin, positions)
             k = apply_rope(k, cos, sin, positions)
-        return attention(q, k, v, mask), k, v
+        if plain_attention:
+            return attention(q, k, v, mask), k, v
+        return flash_prefill_attention(q, k, v, lens, window=spec.sliding_window), k, v
 
     for l in range(spec.n_layers):
         x = _block(x, _layer(params["blocks"], l), spec, attend, token_mask=moe_mask)
-    return _unembed(params, spec, _final_norm(params, spec, x))
+    return _final_norm(params, spec, x)
+
+
+def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor,
+                   lengths: torch.Tensor | None = None,
+                   plain_attention: bool = False) -> torch.Tensor:
+    """Full-sequence logits [B, T, V] f32 with no KV cache (the eval forward
+    and the cache-free ground truth for prefill/decode consistency):
+    :func:`forward_hidden` and the unembed, with its ``lengths`` and
+    ``plain_attention``."""
+    return unembed(params, spec, forward_hidden(params, spec, tokens, lengths,
+                                                 plain_attention=plain_attention))
 
 
 def init_cache(spec: ModelSpec, batch: int, dtype=None, device=None,

@@ -70,9 +70,14 @@ def final_chunk(content: str, *, model: str) -> dict[str, Any]:
                  finish_reason="stop")
 
 
-def error_chunk(message: str, *, model: str) -> dict[str, Any]:
-    """Failure chunk of a stream: id "error", finish_reason "error"."""
-    return chunk(id="error", model=model, delta={"content": message}, finish_reason="error")
+def error_chunk(message: str, *, model: str, code: str | None = None) -> dict[str, Any]:
+    """Failure chunk of a stream: id "error", finish_reason "error".
+    ``code`` rides as ``qt_error``, a machine-readable failure class
+    (``"resume_diverged"``) a caller branches on instead of the message."""
+    out = chunk(id="error", model=model, delta={"content": message}, finish_reason="error")
+    if code:
+        out["qt_error"] = code
+    return out
 
 
 def empty_usage() -> dict[str, int]:

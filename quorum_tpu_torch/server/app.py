@@ -1,6 +1,8 @@
 """The OpenAI-compatible application.
 
   POST /chat/completions, /v1/chat/completions   streamed (SSE) or not
+  POST /embeddings, /v1/embeddings               one backend's vectors
+  POST /completions, /v1/completions             legacy completions and scoring
   GET  /health, /v1/health                       engine liveness (200/503)
   GET  /ready, /v1/ready                         would new work be admitted?
   GET  /models, /v1/models                       configured model ids
@@ -10,6 +12,8 @@
   GET  /debug/telemetry                          compact host-side snapshot
   POST /debug/profile?seconds=N                  torch.profiler, whole process
   GET/PUT /debug/prefix/chunks                   prefix-store export/import
+  POST /admin/drain[?park=1], GET /admin/drain   begin a drain, its progress
+  POST /admin/undrain                            reopen admissions
 
 (each also under ``/v1``). The status codes, error types and body keys are
 the JAX package's server's.
@@ -28,6 +32,21 @@ non-streamed request still calls every backend at once and returns the
 first success verbatim; a streamed one is served by the first backend alone.
 When every backend fails with a client error, a 503 or a 504, the first
 error is relayed as is; any other all-failed case is one 500.
+
+``/embeddings`` and ``/completions`` never fan out: one embedding space (or
+one scoring model) per response. The target is the backend whose
+configured model is the request's; with no model in the request, the first
+backend that serves the route; a requested model no such backend is pinned
+to falls to a blank-model relay, else a 404 ``model_not_found``. Streamed
+``/completions`` (one prompt, no echo or logprobs) runs on the backend's
+chat stream over the raw prompt ids and is sent as legacy
+``text_completion`` frames.
+
+Drain: ``POST /admin/drain`` shuts every engine's admissions (new work gets
+a retryable 503, ``/health`` turns ``degraded`` and ``/ready`` 503) and lets
+residents finish; ``?park=1`` also parks them — a stream ends
+``finish_reason: "parked"`` for a router to resume elsewhere, a
+non-streamed request gets a 503. ``POST /admin/undrain`` reopens.
 """
 
 from __future__ import annotations
@@ -68,6 +87,11 @@ def _error(message: str, type_: str, status: int, headers=None) -> JSONResponse:
                         headers=headers)
 
 
+def _auth_error() -> JSONResponse:
+    return _error("Authorization header is required and OPENAI_API_KEY environment variable "
+                  "is not set", "auth_error", 401)
+
+
 def _resolve_headers(request_headers: dict[str, str]) -> dict[str, str] | None:
     """Forward headers minus host; normalize/inject Authorization. Returns
     None when no credential is available (→ 401)."""
@@ -83,6 +107,27 @@ def _resolve_headers(request_headers: dict[str, str]) -> dict[str, str] | None:
     if "content-type" not in lower_to_orig:
         headers["Content-Type"] = "application/json"
     return headers
+
+
+class _SSECoalescer:
+    """MoreChunk runs buffered into one flush: ``add`` returns the bytes to
+    write now (b"" while buffering); ``drain`` whatever is still buffered,
+    before an error frame or ``[DONE]``."""
+
+    def __init__(self) -> None:
+        self._buf: list[bytes] = []
+
+    def add(self, chunk: dict[str, Any], frame: bytes | None) -> bytes:
+        if frame is not None:
+            self._buf.append(frame)
+        if not oai.has_more(chunk) and self._buf:
+            return self.drain()
+        return b""
+
+    def drain(self) -> bytes:
+        out = b"".join(self._buf)
+        self._buf.clear()
+        return out
 
 
 def _relay_backend_error(e: BackendError) -> Response:
@@ -103,32 +148,65 @@ async def _stream_with_role(first_chunk: dict[str, Any] | None,
     chunk on mid-stream failure, and ``data: [DONE]`` always last."""
     yield sse.encode_event(oai.chunk(id="chatcmpl-role", model=model,
                                      delta={"role": "assistant"}))
-    buf: list[bytes] = []
-
-    def add(chunk) -> bytes:
-        buf.append(sse.encode_event(chunk))
-        if oai.has_more(chunk):
-            return b""
-        out = b"".join(buf)
-        buf.clear()
-        return out
-
+    co = _SSECoalescer()
     try:
         if first_chunk is not None:
             delta = (first_chunk.get("choices") or [{}])[0].get("delta") or {}
             if not (delta.get("role") and not delta.get("content")):
-                if out := add(first_chunk):
+                if out := co.add(first_chunk, sse.encode_event(first_chunk)):
                     yield out
         async for chunk in rest:
-            if out := add(chunk):
+            if out := co.add(chunk, sse.encode_event(chunk)):
                 yield out
     except BackendError as e:
-        if buf:
-            yield b"".join(buf)
-            buf.clear()
-        yield sse.encode_event(oai.error_chunk(f"Backend failed: {e}", model=model))
-    if buf:
-        yield b"".join(buf)
+        if out := co.drain():
+            yield out
+        yield sse.encode_event(oai.error_chunk(f"Backend failed: {e}", model=model,
+                                               code=e.code))
+    if out := co.drain():
+        yield out
+    yield sse.encode_done()
+
+
+async def _completions_stream(first_chunk: dict[str, Any] | None,
+                              rest: AsyncIterator[dict[str, Any]],
+                              model: str) -> AsyncIterator[bytes]:
+    """Chat chunks as legacy ``text_completion`` SSE frames (``choices[].text``,
+    no role or delta), an error frame on a failure mid-stream, ``[DONE]``
+    last."""
+    cid = f"cmpl-{uuid.uuid4().hex[:24]}"
+    created = int(time.time())
+
+    def frame(choices: list, **extra) -> bytes:
+        return sse.encode_event({"id": cid, "object": "text_completion", "created": created,
+                                 "model": model, "choices": choices, **extra})
+
+    def encode(chunk: dict[str, Any]) -> bytes | None:
+        choice = (chunk.get("choices") or [{}])[0]
+        content = (choice.get("delta") or {}).get("content")
+        finish = choice.get("finish_reason")
+        if content or finish:
+            return frame([{"index": 0, "text": content or "", "logprobs": None,
+                           "finish_reason": finish}])
+        if chunk.get("usage") is not None and not chunk.get("choices"):
+            return frame([], usage=chunk["usage"])
+        return None  # a role-only chunk has no legacy form
+
+    co = _SSECoalescer()
+    try:
+        if first_chunk is not None:
+            if out := co.add(first_chunk, encode(first_chunk)):
+                yield out
+        async for chunk in rest:
+            if out := co.add(chunk, encode(chunk)):
+                yield out
+    except BackendError as e:
+        if out := co.drain():
+            yield out
+        yield frame([{"index": 0, "text": f"Backend failed: {e}", "logprobs": None,
+                      "finish_reason": "error"}])
+    if out := co.drain():
+        yield out
     yield sse.encode_done()
 
 
@@ -189,7 +267,7 @@ _ENGINE_GAUGES = frozenset({
     "slots", "members", "busy_slots", "admitting", "pending", "queue_limit",
     "decode_pipeline", "decode_loop", "inflight_chunks", "prefix_store_bytes",
     "prefix_store_entries", "breaker_state", "kv_pages", "kv_page_size",
-    "kv_pages_allocated", "kv_pages_free", "decode_graph_pool_bytes"})
+    "kv_pages_allocated", "kv_pages_free", "decode_graph_pool_bytes", "draining"})
 
 
 def _distinct_engines(reg: BackendRegistry):
@@ -208,9 +286,10 @@ def _distinct_engines(reg: BackendRegistry):
 def _engine_health(reg: BackendRegistry) -> tuple[str, list[dict]]:
     """One check row per distinct engine. ``unhealthy``: a serving thread
     (scheduler, prefix-store snapshot worker) is dead, and only a restart
-    recovers. ``degraded``: the breaker is not closed or the queue is full —
-    alive but shedding — or (``QUORUM_TPU_SLO_READY_BURN``) an SLO class
-    burns past its threshold."""
+    recovers. ``degraded``: the breaker is not closed, the queue is full or
+    the engine is draining — alive but shedding — or
+    (``QUORUM_TPU_SLO_READY_BURN``) an SLO class burns past its
+    threshold."""
     checks = []
     for name, engine in _distinct_engines(reg):
         row = engine.health()
@@ -220,7 +299,8 @@ def _engine_health(reg: BackendRegistry) -> tuple[str, list[dict]]:
     for row in checks:
         if not row["scheduler_alive"] or not row["snapshot_worker_alive"]:
             return "unhealthy", checks
-        if row["breaker"] != "closed" or row["pending"] >= row["queue_limit"]:
+        if (row["breaker"] != "closed" or row["pending"] >= row["queue_limit"]
+                or row.get("draining")):
             status = "degraded"
     if status == "healthy" and checks and slo_mod.burning_class() is not None:
         status = "degraded"
@@ -470,13 +550,67 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
         stats["backend"] = name
         return JSONResponse(stats)
 
+    @app.route("POST", "/admin/drain", "/v1/admin/drain")
+    async def admin_drain(request: Request) -> Response:
+        """Begin a graceful drain of every distinct engine: new work sheds
+        with a retryable 503 and ``/ready`` answers 503, residents finish;
+        ``?park=1`` parks them instead (streams end ``"parked"``, a
+        non-streamed request gets a 503). Idempotent; per-engine status."""
+        _, reg = await current()
+        park = request.query_params.get("park", "0") not in ("0", "", None)
+        rows = []
+        for name, engine in _distinct_engines(reg):
+            row = await asyncio.to_thread(engine.drain, park)
+            row["backend"] = name
+            rows.append(row)
+        if not rows:
+            return _error("no engine-backed backend to drain", "invalid_request_error", 404)
+        return JSONResponse({"draining": True, "engines": rows})
+
+    @app.route("GET", "/admin/drain", "/v1/admin/drain")
+    async def admin_drain_status(request: Request) -> Response:
+        """Drain progress: ``resident`` sums every engine's attached
+        streams (active, admitting, queued); 0 means the process holds no
+        client state."""
+        _, reg = await current()
+        rows = []
+        for name, engine in _distinct_engines(reg):
+            row = engine.drain_status()
+            row["backend"] = name
+            rows.append(row)
+        return JSONResponse({"draining": any(r["draining"] for r in rows),
+                             "resident": sum(r["resident"] for r in rows), "engines": rows})
+
+    @app.route("POST", "/admin/undrain", "/v1/admin/undrain")
+    async def admin_undrain(request: Request) -> Response:
+        """Reopen admissions after a drain; idempotent."""
+        _, reg = await current()
+        rows = []
+        for name, engine in _distinct_engines(reg):
+            row = engine.undrain()
+            row["backend"] = name
+            rows.append(row)
+        return JSONResponse({"draining": False, "engines": rows})
+
     @app.route("POST", "/chat/completions", "/v1/chat/completions")
     async def chat_completions(request: Request) -> Response:
-        """Request id, trace and profiler scope around the dispatch. The
-        trace id comes from a valid W3C ``traceparent`` (the header, else
-        the body knob), or this server mints one; the response echoes
-        ``X-Request-Id`` and ``traceparent``. A stream's scope closes when
-        its iterator ends, after the device work the ASGI server drives."""
+        return await _traced(request, _chat_impl)
+
+    @app.route("POST", "/embeddings", "/v1/embeddings")
+    async def embeddings(request: Request) -> Response:
+        return await _traced(request, _embeddings_impl)
+
+    @app.route("POST", "/completions", "/v1/completions")
+    async def completions(request: Request) -> Response:
+        return await _traced(request, _completions_impl)
+
+    async def _traced(request: Request, impl) -> Response:
+        """Request id, trace and profiler scope around a POST route's
+        ``impl(request, trace)``. The trace id comes from a valid W3C
+        ``traceparent`` (the header, else the body knob), or this server
+        mints one; the response echoes ``X-Request-Id`` and
+        ``traceparent``. A stream's scope closes when its iterator ends,
+        after the device work the ASGI server drives."""
         rid = f"req-{uuid.uuid4().hex[:16]}"
         parsed = tracecontext.parse_traceparent(request.headers.get("traceparent"))
         if parsed is None:
@@ -496,7 +630,7 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
         scope.enter_context(maybe_profile(rid))
         try:
             with use_trace(trace):
-                response = await _chat_impl(request, trace)
+                response = await impl(request, trace)
         except (asyncio.CancelledError, GeneratorExit):
             scope.close()
             finish_request_trace(trace, status=499)  # the client went away
@@ -537,10 +671,12 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
                 raise ValueError("request body must be a JSON object")
         except ValueError as e:
             return _error(f"Invalid JSON body: {e}", "invalid_request_error", 400)
+        # The /completions raw-prompt plan field, never accepted from the
+        # wire: it would bypass the chat template.
+        body.pop("_raw_prompt_ids", None)
         headers = _resolve_headers(request.headers)
         if headers is None:
-            return _error("Authorization header is required and OPENAI_API_KEY "
-                          "environment variable is not set", "auth_error", 401)
+            return _auth_error()
         invalid = oai.validate_request_body(body)
         if invalid is not None:
             return _error(invalid, "invalid_request_error", 400)
@@ -600,5 +736,83 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
         resp_headers = {k: v for k, v in result.headers.items()
                         if k.lower() not in _PASSTHROUGH_SKIP}
         return JSONResponse(result.body, status_code=result.status_code, headers=resp_headers)
+
+    async def _single_backend_request(request: Request, capability: str, what: str):
+        """The no-fan-out routes' preamble: parse and authorize, drop the
+        internal ``_raw_prompt_ids``, and pick the one target — the backend
+        whose configured model is the request's; with no model in the
+        request, the first backend with ``capability``; a requested model
+        none of them is pinned to falls to a blank-model one (only an
+        http(s):// relay is blank: it forwards the name upstream), else a
+        404 ``model_not_found``. Returns ``(cfg, body, headers, target)`` or
+        an error response."""
+        cfg, reg = await current()
+        try:
+            body = await request.json()
+            if not isinstance(body, dict):
+                raise ValueError("request body must be a JSON object")
+        except ValueError as e:
+            return _error(f"Invalid JSON body: {e}", "invalid_request_error", 400)
+        body.pop("_raw_prompt_ids", None)
+        body.pop("traceparent", None)  # a carrier only, never forwarded
+        headers = _resolve_headers(request.headers)
+        if headers is None:
+            return _auth_error()
+        candidates = [b for b in reg.backends if hasattr(b, capability)]
+        if not candidates:
+            return _error(f"No backend supports {what}", "configuration_error", 500)
+        req_model = body.get("model")
+        target = next((b for b in candidates if req_model and b.model == req_model), None)
+        if target is None and req_model:
+            target = next((b for b in candidates if not b.model), None)
+            if target is None:
+                return JSONResponse({"error": {
+                    "message": f"The model '{req_model}' does not exist or is not served "
+                               f"by any backend with {what} support",
+                    "type": "invalid_request_error", "param": "model",
+                    "code": "model_not_found"}}, status_code=404)
+        return cfg, body, headers, target or candidates[0]
+
+    async def _embeddings_impl(request: Request, trace: RequestTrace) -> Response:
+        got = await _single_backend_request(request, "embed", "embeddings")
+        if isinstance(got, Response):
+            return got
+        cfg, body, headers, target = got
+        trace.meta["mode"], trace.meta["backends"] = "embeddings", [target.name]
+        try:
+            result = await target.embed(body, headers, cfg.timeout)
+        except BackendError as e:
+            return _relay_backend_error(e)
+        return JSONResponse(result.body, status_code=result.status_code)
+
+    async def _completions_impl(request: Request, trace: RequestTrace) -> Response:
+        got = await _single_backend_request(request, "text_complete", "/completions")
+        if isinstance(got, Response):
+            return got
+        cfg, body, headers, target = got
+        stream = bool(body.get("stream"))
+        trace.meta["mode"] = "completions-" + ("stream" if stream else "complete")
+        trace.meta["backends"] = [target.name]
+        if stream:
+            if not hasattr(target, "plan_text_stream"):
+                return _error("streaming /completions is only served by cuda:// backends",
+                              "invalid_request_error", 400)
+            try:
+                sbody, model = target.plan_text_stream(body)
+            except BackendError as e:
+                return _relay_backend_error(e)
+            chunks = target.stream(sbody, headers, cfg.timeout)
+            try:
+                first_chunk = await chunks.__anext__()
+            except StopAsyncIteration:
+                first_chunk = None
+            except BackendError as e:
+                return _relay_backend_error(e)
+            return StreamingResponse(_completions_stream(first_chunk, chunks, model))
+        try:
+            result = await target.text_complete(body, headers, cfg.timeout)
+        except BackendError as e:
+            return _relay_backend_error(e)
+        return JSONResponse(result.body, status_code=result.status_code)
 
     return app

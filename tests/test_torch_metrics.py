@@ -47,11 +47,10 @@ PORT_ONLY = {f"quorum_tpu_engine_{k}" for k in (
     "prefix_store_snapshot_bytes_total", "quorum_dedup_prefills_total",
     "quorum_dedup_tokens_total", "spec_draft_steps_total")}
 # The JAX package's families of paths the port does not serve yet, by the
-# roadmap item that brings them: drain/QoS (7), the router and cross-cell
-# quorum (8), disaggregated/pipelined serving and the compile budget (10).
+# roadmap item that brings them: QoS (7), the router and cross-cell quorum
+# (8), disaggregated/pipelined serving and the compile budget (10).
 DEFERRED = {f"quorum_tpu_engine_{k}" for k in (
-    "draining", "drain_parked_total", "qos", "preemptions_total", "preempted_tokens_total",
-    "replayed_tokens_total", "predictive_sheds_total",
+    "qos", "preemptions_total", "preempted_tokens_total", "predictive_sheds_total",
     "disagg", "decode_pp", "prefill_sp", "prefill_group_devices", "decode_group_devices",
     "prefill_group_active", "decode_group_active", "zero_drain", "admission_overlap_total",
     "kv_handoffs_total", "kv_handoff_bytes_total", "kv_handoff_seconds_total")} | {

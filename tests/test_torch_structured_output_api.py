@@ -12,10 +12,11 @@ port's), llama-tiny on the CPU.
   both, finish_reason ``stop``; logprobs under a grammar that allows fewer
   tokens than ``top_logprobs`` stay finite (``json.dumps(allow_nan=False)``).
 - The resume bodies of ROADMAP queue 3 (llama-tiny, seed 1, "hi", 8
-  greedy tokens, ``resume_tokens`` [266, 442, 448]): ``tpu://`` streams the
-  continuation; ``cuda://`` answers a 400 naming the field, and never
-  re-emits the prefix. ``stream_token_ids: false`` and a ``tenant`` are
-  served exactly as without them.
+  greedy tokens, ``resume_tokens`` [266, 442, 448]; the port's engine on
+  the JAX engine's bf16 weights): ``cuda://`` streams what ``tpu://``
+  streams — the continuation only, never the prefix again, with the same
+  ``qt_tokens``. ``stream_token_ids: false`` and a ``tenant`` are served
+  exactly as without them.
 """
 
 import json
@@ -259,14 +260,16 @@ async def test_constrained_logprobs_are_json_safe(apps, temperature):
 
 @pytest.fixture(scope="module")
 def resume_apps():
-    """ROADMAP queue 3's probe: llama-tiny, seed 1, the default dtype."""
+    """ROADMAP queue 3's probe: llama-tiny, seed 1, the default dtype (bf16);
+    the port's engine holds the JAX engine's weights."""
     jb = TpuBackend.from_spec(JaxBackendSpec(name="llama", url="tpu://llama-tiny?seed=1",
                                              model="m"))
-    tb = CudaBackend.from_spec(BackendSpec(name="llama",
-                                           url="cuda://llama-tiny?seed=1&device=cpu", model="m"))
-    yield _apps(jb, tb)
+    params = params_from_numpy(jax.tree.map(np.asarray, jb.engine.params), device="cpu",
+                               dtype=torch.bfloat16)
+    teng = InferenceEngine(resolve_spec("llama-tiny", {}), device="cpu", params=params)
+    yield _apps(jb, CudaBackend("llama", teng, model="m", model_id="llama-tiny"))
     jb.engine.shutdown()
-    tb.engine.shutdown()
+    teng.shutdown()
 
 
 @pytest.mark.parametrize("field,extra", [
@@ -276,17 +279,22 @@ def resume_apps():
     ("stream_token_ids", {"stream_token_ids": True}),
 ], ids=["resume_tokens", "resume_chars", "stream_token_ids"])
 async def test_resume_bodies_are_refused_by_name_on_cuda(resume_apps, field, extra):
+    """Named for the refusal ``cuda://`` answered before it served stream
+    resume: the bodies now stream on ``cuda://`` exactly as on ``tpu://``."""
     (js, _, jb), (ts, _, tb) = await _both(resume_apps, {**RESUME, **extra})
-    assert ts == 400
-    msg = json.loads(tb)["error"]["message"]
-    assert f"'{field}'" in msg and "cuda://" in msg
-    assert js == 200  # tpu:// serves them
-    events = [e for e in _events(jb) if e.get("choices")]
-    ids = [t for e in events for t in e.get("qt_tokens") or ()]
+    assert js == ts == 200
+    want, got = ([e for e in _events(b) if e.get("choices")] for b in (jb, tb))
+    ids = [t for e in got for t in e.get("qt_tokens") or ()]
+    assert ids == [t for e in want for t in e.get("qt_tokens") or ()]
+    assert [(e["choices"][0]["delta"], e["choices"][0]["finish_reason"]) for e in got] == [
+        (e["choices"][0]["delta"], e["choices"][0]["finish_reason"]) for e in want]
+    assert not any(e.get("id") == "error" for e in _events(tb))
     if "resume_tokens" in extra:
         # Only the continuation: 8 tokens less the 3 already delivered.
         assert len(ids) == RESUME["max_tokens"] - len(RESUME_TOKENS)
+        assert ids[:len(RESUME_TOKENS)] != RESUME_TOKENS
     else:
+        assert ids[:len(RESUME_TOKENS)] == RESUME_TOKENS
         assert len(ids) == RESUME["max_tokens"]
 
 
