@@ -89,7 +89,9 @@ result line:
               admission beside a live stream chunked and single-shot (the
               stream's longest gap, the long TTFT, ceil(n/512) segments), a
               two-turn chat through the app with and without prefix reuse
-              (exact saved tokens), one segment's time per history bucket;
+              (exact saved tokens), zero-drain staging against drain-based
+              twins (also beside a 64-input forward) and the QoS preemption
+              drill, one segment's time per history bucket;
  6b. decode_graphs  every decode dispatch as one CUDA-graph replay on the same
               model: 3 greedy streams × 128 tokens at decode_loop=1 and 4
               (tokens equal), per-stream tok/s, per dispatch its device ms and
@@ -2230,12 +2232,14 @@ def _long_beside_live(eng, live_prompt, long_prompt, greedy) -> dict:
 
     live = eng.submit(live_prompt, max_new_tokens=1024, sampler=greedy)
     times: list[float] = []
+    live_ids: list[int] = []
     stop = threading.Event()
 
     def consume_live():
         it = eng.stream_results(live)
-        for _ in it:
+        for t in it:
             times.append(time.perf_counter())
+            live_ids.append(t)
             if stop.is_set():
                 break
         it.close()  # the consumer leaves: the row is released at the next turn
@@ -2267,7 +2271,355 @@ def _long_beside_live(eng, live_prompt, long_prompt, greedy) -> dict:
             "single_shot_admissions": (m1["admission_dispatches_total"]
                                        - m0["admission_dispatches_total"]),
             "admission_stall_s": round(m1["admission_stall_seconds_total"]
-                                       - m0["admission_stall_seconds_total"], 6)}
+                                       - m0["admission_stall_seconds_total"], 6),
+            "admission_overlap": (m1["admission_overlap_total"]
+                                  - m0["admission_overlap_total"]),
+            "live_ids": live_ids, "long_ids": toks}
+
+
+def _public(leg: dict) -> dict:
+    """A leg's numbers without its token lists."""
+    return {k: v for k, v in leg.items() if not k.endswith("_ids")}
+
+
+def _staging_bytes(spec, rows: int, kv_quant: str | None) -> int:
+    """The staging cache a zero-drain engine adds, reckoned from the spec:
+    2 sides × layers × rows × kv_heads × max_seq × (head_dim × element
+    size), or with int8 KV (head_dim × 1 B + one f32 scale)."""
+    per_pos = spec.n_layers * rows * spec.n_kv_heads * spec.max_seq
+    if kv_quant == "int8":
+        return 2 * per_pos * (spec.head_dim + 4)
+    return 2 * per_pos * spec.head_dim * (4 if spec.dtype == "float32" else 2)
+
+
+def _launch_counts() -> dict:
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+
+    return {"flash_prefill": flash_prefill_attention.launches,
+            "flash_decode": flash_decode_attention.launches,
+            "flash_decode_q8": flash_decode_q8_attention.launches}
+
+
+def _require_exact_launches(cpu: bool, n_layers: int, what: str, c0: dict, c1: dict,
+                            single_shot: int, k2_steps: int, q8: bool = False,
+                            forwards: int = 0) -> dict:
+    """The launches one leg's engine made between ``c0`` and ``c1`` (it was
+    quiet at both): K1 once per layer per single-shot admission and per
+    cache-free forward, K2 (or K2q8 on an int8 cache) once per layer per
+    decode and warm-up step."""
+    got = {k: c1[k] - c0[k] for k in c0}
+    if not cpu:
+        dec, other = ("flash_decode_q8", "flash_decode") if q8 else ("flash_decode",
+                                                                     "flash_decode_q8")
+        want = {"flash_prefill": n_layers * (single_shot + forwards),
+                dec: n_layers * k2_steps, other: 0}
+        require(got == want and k2_steps > 0, f"{what}: launches {got} != {want}")
+    return got
+
+
+def _staged_beside_forward(torch, cpu: bool, spec, eng, live_prompt, staged_prompt, inputs,
+                           greedy, twin_live) -> dict:
+    """On a zero-drain engine, beside one live greedy stream: a staged
+    admission of ``staged_prompt`` alone, then the same admission submitted
+    just after a 64-input embedding forward (``inputs``) has started on
+    another thread. Each admission's TTFT and the live stream's longest gap
+    while it was in the engine, the forward's wall and sub-batches. Its
+    tokens equal the lone admission's, the live stream's equal
+    ``twin_live`` and the vectors are unit norm (required)."""
+    import threading
+
+    from quorum_tpu_torch.engine import embed as embed_mod
+
+    live = eng.submit(live_prompt, max_new_tokens=1024, sampler=greedy)
+    times: list[float] = []
+    live_ids: list[int] = []
+    stop = threading.Event()
+
+    def consume_live():
+        it = eng.stream_results(live)
+        for t in it:
+            times.append(time.perf_counter())
+            live_ids.append(t)
+            if stop.is_set():
+                break
+        it.close()
+
+    th = threading.Thread(target=consume_live, daemon=True)
+    th.start()
+    deadline = time.perf_counter() + SERVE_TIMEOUT_S
+    while len(times) < 16 and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    require(len(times) >= 16, "zero-drain beside a forward: the live stream did not start")
+
+    def admit():
+        t0 = time.perf_counter()
+        (toks, ts), = _stream_all(eng, [eng.submit(staged_prompt, max_new_tokens=4,
+                                                   sampler=greedy)])
+        gaps = [b - a for a, b in zip(times, times[1:]) if b > t0 and a < ts[-1]]
+        return toks, {"ttft_s": ts[0] - t0, "live_max_gap_s": max(gaps) if gaps else None}
+
+    alone_ids, alone = admit()
+    lens = [len(x) for x in inputs]
+    groups = len(embed_mod.row_groups(spec, lens, embed_mod.FORWARD_TOKENS_BUSY))
+    fwd: dict = {}
+    started = threading.Event()
+
+    def forward():
+        started.set()
+        t0 = time.perf_counter()
+        fwd["vecs"] = embed_mod.embed_token_batch(eng, inputs)
+        fwd["wall_s"] = time.perf_counter() - t0
+
+    th_f = threading.Thread(target=forward, daemon=True)
+    th_f.start()
+    started.wait()
+    beside_ids, beside = admit()
+    th_f.join(timeout=SERVE_TIMEOUT_S)
+    require(not th_f.is_alive() and "vecs" in fwd,
+            "zero-drain beside a forward: the forward did not finish")
+    n_done = len(times)
+    while len(times) < n_done + eng.decode_chunk and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    stop.set()
+    th.join(timeout=SERVE_TIMEOUT_S)
+    require(not th.is_alive(), "zero-drain beside a forward: the live stream did not stop")
+    vecs = fwd["vecs"]
+    norms = torch.linalg.vector_norm(vecs, dim=-1)
+    require(tuple(vecs.shape) == (len(inputs), spec.d_model)
+            and bool(torch.isfinite(vecs).all()) and bool(((norms - 1).abs() < 1e-3).all()),
+            f"zero-drain beside a forward: vectors {tuple(vecs.shape)}, norms "
+            f"{norms.tolist()[:4]}")
+    require(beside_ids == alone_ids and len(alone_ids) == 4,
+            "zero-drain beside a forward: the staged admission's tokens changed")
+    n = min(len(live_ids), len(twin_live))
+    require(n >= 16 and live_ids[:n] == twin_live[:n],
+            "zero-drain beside a forward: the live stream differs from the twin's")
+    return {"staged_prompt_tokens": len(staged_prompt), "forward_inputs": len(inputs),
+            "forward_tokens": sum(lens), "forward_sub_batches": groups,
+            "forward_wall_s": fwd["wall_s"], "alone": alone, "beside_forward": beside,
+            "tokens_equal": True}
+
+
+def _zero_drain_legs(torch, cpu: bool, spec, built, twin_leg: dict, main_bytes: int,
+                     live_prompt, long_prompt, greedy, prompt) -> tuple[dict, object]:
+    """Leg (d): leg (b) on zero_drain=1 engines against drain-based twins:
+    at the defaults against leg (b)'s chunked run on the same prompts
+    (``twin_leg``, the engine built with ``main_bytes``), then on the same
+    engine a staged admission beside a 64-input forward
+    (``_staged_beside_forward``); at decode_pipeline=4 × decode_loop=4
+    (with ``decode_chunk=4``, the JAX package's pinned shape) against a
+    fresh twin; then two streams on an int8-KV zero-drain engine against
+    its twin. Returns the numbers (``forwards``: the forward's
+    sub-batches, K1 calls per layer) and the default zero-drain engine,
+    which leg (e) reuses."""
+    out: dict = {}
+    rows = 4  # the phase's slots
+    keep = None
+    deep = {"decode_pipeline": 4, "decode_loop": 4, "decode_chunk": 4}
+    for name, knobs in (("default", {}), ("k4c4", deep)):
+        t0 = time.perf_counter()
+        legs = {} if knobs else {"twin": twin_leg}
+        if knobs:
+            twin, twin_bytes = built(**knobs)
+        zeng, z_bytes = built(zero_drain=True, **knobs)
+        for kind in (["twin"] if knobs else []) + ["zero_drain"]:
+            eng = twin if kind == "twin" else zeng
+            _quiet(eng)
+            c0, m0 = _launch_counts(), eng.metrics()
+            legs[kind] = _long_beside_live(eng, live_prompt, long_prompt, greedy)
+            _quiet(eng)
+            c1, m1 = _launch_counts(), eng.metrics()
+            legs[kind]["launches"] = _require_exact_launches(
+                cpu, spec.n_layers, f"zero-drain leg {name} {kind}", c0, c1,
+                m1["admission_dispatches_total"] - m0["admission_dispatches_total"],
+                _k2_steps(m1) - _k2_steps(m0))
+            legs[kind]["capture_s"] = round(m1["decode_graph_capture_seconds_total"]
+                                            - m0["decode_graph_capture_seconds_total"], 3)
+        t, z = legs["twin"], legs["zero_drain"]
+        n = min(len(t["live_ids"]), len(z["live_ids"]))
+        require(z["long_ids"] == t["long_ids"] and n >= 16
+                and z["live_ids"][:n] == t["live_ids"][:n],
+                f"zero-drain leg {name}: tokens differ from the drain-based twin's")
+        require(z["admission_stall_s"] == 0.0 and z["admission_overlap"] > 0,
+                f"zero-drain leg {name}: stall {z['admission_stall_s']}, "
+                f"overlap {z['admission_overlap']}")
+        require(z["single_shot_admissions"] == 0 and z["launches"]["flash_prefill"] == 0,
+                f"zero-drain leg {name}: a single-shot admission ran")
+        require(z["prefill_segments"] == t["prefill_segments"],
+                f"zero-drain leg {name}: segments differ from the twin's")
+        reckoned = _staging_bytes(spec, rows, None)
+        grown = z_bytes - (twin_bytes if knobs else main_bytes)
+        if not cpu:
+            require(abs(grown - reckoned) <= 0.01 * reckoned,
+                    f"zero-drain leg {name}: device memory grew {grown} B beyond the twin's, "
+                    f"the staging cache is reckoned at {reckoned} B")
+        out[name] = {**{k: _public(v) for k, v in legs.items()}, "tokens_equal": True,
+                     "staging_bytes_reckoned": reckoned,
+                     "device_memory_grown_bytes": None if cpu else grown}
+        if knobs:
+            zeng.shutdown()
+            twin.shutdown()
+        else:
+            keep = zeng
+            # The forward runs on the engine's forward stream, the segments
+            # on its staging stream: neither queues behind the other.
+            inputs = [prompt(256) for _ in range(64)]
+            c0, m0 = _launch_counts(), zeng.metrics()
+            fwd = _staged_beside_forward(torch, cpu, spec, zeng, live_prompt,
+                                         prompt(3 * zeng.prefill_chunk + 88), inputs, greedy,
+                                         t["live_ids"])
+            _quiet(zeng)
+            c1, m1 = _launch_counts(), zeng.metrics()
+            fwd["launches"] = _require_exact_launches(
+                cpu, spec.n_layers, "zero-drain beside a forward", c0, c1,
+                m1["admission_dispatches_total"] - m0["admission_dispatches_total"],
+                _k2_steps(m1) - _k2_steps(m0), forwards=fwd["forward_sub_batches"])
+            out["forwards"] = fwd["forward_sub_batches"]
+            out[name]["beside_forward"] = fwd
+        out[name]["seconds"] = round(time.perf_counter() - t0, 3)
+    # int8 KV: two streams (prompts longer than a segment: both engines
+    # admit them chunked) on a zero-drain engine and its twin.
+    t0 = time.perf_counter()
+    prompts = [prompt(len(live_prompt)), prompt(2 * len(live_prompt))]
+    got = {}
+    for kind, knobs in (("twin", {}), ("zero_drain", {"zero_drain": True})):
+        eng, nbytes = built(kv_quant="int8", **knobs)
+        c0 = _launch_counts()
+        streams = _stream_all(eng, [eng.submit(p, max_new_tokens=32, sampler=greedy)
+                                    for p in prompts])
+        _quiet(eng)
+        m = eng.metrics()
+        got[kind] = {"tokens": [t for t, _ in streams], "bytes": nbytes,
+                     "launches": _require_exact_launches(
+                         cpu, spec.n_layers, f"zero-drain int8 {kind}", c0, _launch_counts(),
+                         m["admission_dispatches_total"], _k2_steps(m), q8=True),
+                     "stall_s": m["admission_stall_seconds_total"]}
+        eng.shutdown()
+    require(got["zero_drain"]["tokens"] == got["twin"]["tokens"]
+            and all(len(t) == 32 for t in got["twin"]["tokens"]),
+            "zero-drain int8: tokens differ from the drain-based twin's")
+    require(got["zero_drain"]["stall_s"] == 0.0, "zero-drain int8: the ring clamped")
+    reckoned = _staging_bytes(spec, rows, "int8")
+    grown = got["zero_drain"]["bytes"] - got["twin"]["bytes"]
+    if not cpu:
+        require(abs(grown - reckoned) <= 0.01 * reckoned,
+                f"zero-drain int8: memory grew {grown} B, reckoned {reckoned} B")
+    out["int8"] = {"streams": len(prompts), "tokens_equal": True,
+                   "k2q8_launches": got["zero_drain"]["launches"]["flash_decode_q8"],
+                   "staging_bytes_reckoned": reckoned,
+                   "device_memory_grown_bytes": None if cpu else grown,
+                   "seconds": round(time.perf_counter() - t0, 3)}
+    return out, keep
+
+
+def _batch_streams(eng, prompts, samplers, n_tok: int) -> list:
+    return [eng.submit(p, max_new_tokens=n_tok, sampler=s, seed=i, priority="batch")
+            for i, (p, s) in enumerate(zip(prompts, samplers))]
+
+
+def _qos_drill(eng, prompts, samplers, inter_prompt, n_tok: int, inter_tok: int) -> dict:
+    """Leg (e)'s submission on a 4-slot engine: the four batch streams, and
+    one interactive chat once every stream has 32 tokens. Returns the
+    streams, the chat, its TTFT, the preempted streams and the engine's
+    counters over it."""
+    import threading
+
+    _quiet(eng)
+    m0 = eng.metrics()
+    reqs = _batch_streams(eng, prompts, samplers, n_tok)
+    out: list = [None] * len(reqs)
+
+    def consume(i):
+        out[i] = list(eng.stream_results(reqs[i]))
+
+    threads = [threading.Thread(target=consume, args=(i,), daemon=True) for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + SERVE_TIMEOUT_S
+    while min(r.emitted for r in reqs) < 32 and time.perf_counter() < deadline:
+        time.sleep(0.002)
+    require(min(r.emitted for r in reqs) >= 32, "qos drill: the batch streams did not start")
+    require(max(r.emitted for r in reqs) < n_tok, "qos drill: a batch stream already ended")
+    ttft, chat = _ttft(eng, inter_prompt, samplers[0], inter_tok, priority="interactive")
+    for t in threads:
+        t.join(timeout=2 * SERVE_TIMEOUT_S)
+    require(not any(t.is_alive() for t in threads), "qos drill: a batch stream never finished")
+    _quiet(eng)
+    m1 = eng.metrics()
+    return {"streams": out, "chat": chat, "chat_ttft_s": ttft,
+            "victims": [i for i, r in enumerate(reqs) if r.n_preempts],
+            "delta": {k: m1[k] - m0[k] for k in (
+                "preemptions_total", "preempted_tokens_total", "replayed_tokens_total",
+                "admission_dispatches_total", "prefill_segments_total")},
+            "metrics": m1}
+
+
+def _qos_legs(torch, cpu: bool, spec, built, prompt, n_tok: int, main, zeng) -> dict:
+    """Leg (e): four batch streams (two greedy, two sampled) fill a 4-slot
+    engine's rows; once each has 32 tokens an interactive chat arrives. On
+    ``main`` with qos off (FIFO: the chat waits for a row; the streams are
+    the dense twins), then with qos on, on a paged engine and on leg (d)'s
+    zero-drain engine: exactly one stream is parked and resumes token for
+    token. ``qos`` is host policy only, so the same engines turn it on."""
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+
+    # Sampled without a cutoff: one graph key for every row mix.
+    samplers = [SamplerConfig(temperature=0.0)] * 2 + [SamplerConfig(temperature=0.9)] * 2
+    prompts = [prompt(64) for _ in range(4)]
+    inter = prompt(32)
+    t0 = time.perf_counter()
+    fifo = _qos_drill(main, prompts, samplers, inter, n_tok, 32)
+    require(len(fifo["chat"]) == 32 and fifo["delta"]["preemptions_total"] == 0
+            and not fifo["victims"], "qos=0: the chat or a preemption")
+    out: dict = {"fifo_interactive_ttft_s": fifo["chat_ttft_s"]}
+    paged, _ = built(qos=True, kv_pages=True)
+    for name, eng in (("dense", main), ("paged", paged), ("zero_drain", zeng)):
+        eng.qos = True
+        c0 = _launch_counts()
+        d0 = eng.metrics()
+        if eng is main:
+            twins = fifo["streams"]
+        else:
+            twins = [t for t, _ in _stream_all(eng, _batch_streams(eng, prompts, samplers,
+                                                                   n_tok))]
+        r = _qos_drill(eng, prompts, samplers, inter, n_tok, 32)
+        m, d = r["metrics"], r["delta"]
+        launches = _require_exact_launches(
+            cpu, spec.n_layers, f"qos {name}", c0, _launch_counts(),
+            m["admission_dispatches_total"] - d0["admission_dispatches_total"],
+            _k2_steps(m) - _k2_steps(d0))
+        require(d["preemptions_total"] == 1 and len(r["victims"]) == 1,
+                f"qos {name}: {d['preemptions_total']} preemptions, victims {r['victims']}")
+        require(r["streams"] == twins, f"qos {name}: a batch stream differs from its twin")
+        require(len(r["chat"]) == 32, f"qos {name}: the interactive chat did not complete")
+        require(d["replayed_tokens_total"] == d["preempted_tokens_total"] > 0,
+                f"qos {name}: replayed {d['replayed_tokens_total']} != "
+                f"preempted {d['preempted_tokens_total']}")
+        if eng is paged:
+            with eng._cond:
+                claims = list(eng._page_claims)
+            require(m["kv_pages_allocated"] + m["kv_pages_free"] == eng.kv_pool_pages
+                    and not any(claims), f"qos paged: pages leaked ({m}, claims {claims})")
+        if eng is zeng:
+            require(d["admission_dispatches_total"] == 0, "qos zero_drain: a single-shot ran")
+        else:
+            # The 4 streams, the chat and the victim's re-admission.
+            require(d["admission_dispatches_total"] == 6,
+                    f"qos {name}: {d['admission_dispatches_total']} single-shot admissions "
+                    "in the drill, want 6 (the victim's re-admission included)")
+        out[name] = {"preemptions": d["preemptions_total"],
+                     "preempted_tokens": d["preempted_tokens_total"],
+                     "replayed_tokens": d["replayed_tokens_total"],
+                     "victim": r["victims"][0], "streams_equal_twins": True,
+                     "interactive_ttft_s": r["chat_ttft_s"],
+                     "single_shot_admissions": d["admission_dispatches_total"],
+                     "launches": launches}
+    paged.shutdown()
+    zeng.shutdown()
+    out["seconds"] = round(time.perf_counter() - t0, 3)
+    return out
 
 
 def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
@@ -2286,9 +2638,22 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
         turn 1; a prefix hit saving exactly the reuse rounded down to 512
         (required), TTFT with and without prefix_cache, text equality
         reported;
+    (d) zero-drain staging: (b)'s long admission beside a live stream on
+        zero_drain=1 engines against drain-based twins, at the defaults and
+        at decode_pipeline=4 × decode_loop=4 — tokens equal, stall 0,
+        overlap > 0, the device memory grown by exactly the reckoned
+        staging cache, K1 0 and K2 exact (required); at the defaults a
+        staged admission's TTFT and the live gap alone and beside a
+        64-input embedding forward (tokens unchanged, K1 = 32 × the
+        forward's sub-batches); then two streams on an int8-KV zero-drain
+        engine against its twin (K2q8);
+    (e) QoS preemption: four batch streams fill a qos=1 engine, an
+        interactive chat parks exactly one, which resumes token for token
+        (required, on dense, paged and zero-drain engines, with K1 = 32 ×
+        single-shot admissions); the chat's TTFT against a qos=0 engine;
     plus the device time of one 32-layer segment at histories 512 to 8192
-    (the plain attention inside it), and launch counts of both kernels over
-    the phase."""
+    (the plain attention inside it), and launch counts of the three kernels
+    over the phase."""
     from quorum_tpu_torch.backends.cuda_backend import CudaBackend
     from quorum_tpu_torch.config import Config
     from quorum_tpu_torch.engine.engine import InferenceEngine, prefill_bucket
@@ -2297,6 +2662,7 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     from quorum_tpu_torch.models.transformer import init_cache, prefill_segment
     from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
     from quorum_tpu_torch.ops.flash_decode import flash_decode_attention, ticket_counters
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
     from quorum_tpu_torch.ops.sampling import SamplerConfig
     from quorum_tpu_torch.server.app import create_app
 
@@ -2323,7 +2689,17 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
         engines.append(eng)
         return eng
 
-    main = engine()  # the default knobs
+    def built(**knobs):
+        """An engine and the device bytes its construction allocated."""
+        if not cpu:
+            torch.cuda.synchronize()
+        m0 = 0 if cpu else torch.cuda.memory_allocated()
+        eng = engine(**knobs)
+        if not cpu:
+            torch.cuda.synchronize()
+        return eng, (0 if cpu else torch.cuda.memory_allocated() - m0)
+
+    main, main_bytes = built()  # the default knobs
     chunk = main.prefill_chunk
     require((main.decode_pipeline, main.prefix_cache) == (2, True) and chunk == min(512, spec.max_seq),
             f"default knobs: depth {main.decode_pipeline}, chunk {chunk}, reuse {main.prefix_cache}")
@@ -2334,6 +2710,7 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     flash_prefill_attention.launches = 0
     flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
     flash_decode_attention.launches = 0
+    flash_decode_q8_attention.launches = 0
 
     # (a) the ring, K=2 then K=1, on the same prompts
     ring_prompts = [prompt(300) for _ in range(3)]
@@ -2364,8 +2741,10 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     engines[-1].shutdown()
 
     # (b) a long admission beside a live stream, chunked then single-shot
-    long_prompt = prompt(long_n)
-    legs = {"chunked": _long_beside_live(main, prompt(300), long_prompt, greedy)}
+    # The live prompt is longer than a segment, so a zero-drain engine and
+    # this drain-based one admit it alike (chunked): leg (d) compares them.
+    long_prompt, live_prompt = prompt(long_n), prompt(chunk + 88)
+    legs = {"chunked": _long_beside_live(main, live_prompt, long_prompt, greedy)}
     whole = engine(prefill_chunk=0)
     legs["single_shot"] = _long_beside_live(whole, prompt(300), long_prompt, greedy)
     whole.shutdown()
@@ -2413,27 +2792,40 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
                  "turn2_ttft_s_no_reuse": cold_reply["ttft_s"],
                  "turn2_text_equal": again["text"] == cold_reply["text"]}
     cold.shutdown()
+
+    # (d) zero-drain staging, (e) QoS preemption, on the same weights; a
+    # live prompt longer than a segment admits chunked on both twins.
+    t_legs = time.perf_counter()
+    zero_drain, zeng = _zero_drain_legs(torch, cpu, spec, built, legs["chunked"], main_bytes,
+                                        live_prompt, long_prompt, greedy, prompt)
+    t_qos = time.perf_counter()
+    qos = _qos_legs(torch, cpu, spec, built, prompt, 96 if tiny else 256, main, zeng)
+    t_legs_end = time.perf_counter()
     if not cpu:
         torch.cuda.synchronize()
-    launches = {"flash_prefill": flash_prefill_attention.launches,
-                "flash_decode": flash_decode_attention.launches}
+    launches = _launch_counts()
     k1_routes = dict(flash_prefill_attention.launches_by_route)
     counted = [e.metrics() for e in engines]
     single_shot = sum(m["admission_dispatches_total"] for m in counted)
     steps = sum(m["decode_steps_total"] for m in counted)
-    k2_steps = sum(_k2_steps(m) for m in counted)
+    k2_steps = sum(_k2_steps(m) for e, m in zip(engines, counted) if not e.kv_quant)
+    q8_steps = sum(_k2_steps(m) for e, m in zip(engines, counted) if e.kv_quant)
     segments = sum(m["prefill_segments_total"] for m in counted)
     require(all(int(c.abs().sum()) == 0 for c in ticket_counters()),
             "K2 ticket counters are not back at 0 after the scheduler phase")
     if not cpu:
         n_layers = spec.n_layers
-        require(launches["flash_prefill"] == n_layers * single_shot
-                and k1_routes["wgmma"] == n_layers * single_shot,
+        k1_calls = single_shot + zero_drain["forwards"]
+        require(launches["flash_prefill"] == n_layers * k1_calls
+                and k1_routes["wgmma"] == n_layers * k1_calls,
                 f"K1 launches {launches['flash_prefill']} ({k1_routes}) != {n_layers} x "
-                f"{single_shot} single-shot dispatches")
+                f"({single_shot} single-shot dispatches + {zero_drain['forwards']} forwards)")
         require(launches["flash_decode"] == n_layers * k2_steps,
                 f"K2 launches {launches['flash_decode']} != {n_layers} x {k2_steps}")
-        require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
+        require(launches["flash_decode_q8"] == n_layers * q8_steps,
+                f"K2q8 launches {launches['flash_decode_q8']} != {n_layers} x {q8_steps}")
+        require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0
+                and launches["flash_decode_q8"] > 0,
                 "scheduler: a kernel of the path was never launched")
     peak = None if cpu else torch.cuda.max_memory_allocated()
 
@@ -2458,9 +2850,12 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
             "build_s": round(build_s, 3), "prefill_chunk": chunk,
             "ring": {k: {key: v for key, v in r.items() if key != "tokens"}
                      for k, r in ring.items()},
-            "ring_tokens_equal": True, "long_admission": legs, "chat": chat_info,
+            "ring_tokens_equal": True,
+            "long_admission": {k: _public(v) for k, v in legs.items()}, "chat": chat_info,
+            "zero_drain": zero_drain, "qos": qos,
+            "leg_d_s": round(t_qos - t_legs, 3), "leg_e_s": round(t_legs_end - t_qos, 3),
             "single_shot_dispatches": single_shot, "prefill_segments": segments,
-            "decode_steps": steps, "graph_warmup_steps": k2_steps - steps,
+            "decode_steps": steps, "graph_warmup_steps": k2_steps + q8_steps - steps,
             "launches": launches, "k1_launches_by_route": k1_routes,
             "segment_ms_by_history": seg_ms,
             "peak_mem_gb": None if cpu else round(peak / 1e9, 3),
@@ -4829,9 +5224,9 @@ def _paged_dispatch_ms(torch, cpu: bool, eng, prompts, n_tok: int, greedy, hist)
             "min_ms": vals[0], "keys": keys}
 
 
-def _ttft(eng, prompt, sampler, n_tok: int = 4) -> tuple[float, list[int]]:
+def _ttft(eng, prompt, sampler, n_tok: int = 4, **knobs) -> tuple[float, list[int]]:
     t0 = time.perf_counter()
-    it = eng.generate_stream(prompt, max_new_tokens=n_tok, sampler=sampler)
+    it = eng.generate_stream(prompt, max_new_tokens=n_tok, sampler=sampler, **knobs)
     first = next(it)
     t1 = time.perf_counter()
     return t1 - t0, [first] + list(it)

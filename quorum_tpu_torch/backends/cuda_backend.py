@@ -146,10 +146,35 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    plain byte count or a k/m/g binary suffix (512m)
   prefix_store_chunk=  store granularity in tokens (default: the
                    engine's prefill_chunk)
+  qos=0|1          QoS scheduler (default 0 = FIFO): weighted-fair
+                   admission across priority classes (interactive / batch /
+                   background — the 'priority' body knob, else derived from
+                   the deadline headroom; 'tenant' weights a request within
+                   its class), earliest deadline headroom first within a
+                   class, the predictive infeasible-deadline shed (503 +
+                   Retry-After from the queue evidence), and mid-decode
+                   preemption: an interactive admission with no free row
+                   parks a lower-class resident row at a scheduler turn,
+                   which later resumes token for token behind the replay
+                   guard. Not structural: outside the engine key, and an
+                   explicit qos=1 from any backend turns it on for the
+                   shared engine
+  zero_drain=0|1   zero-drain staging (default 0): every admission prefills
+                   chunked into a staging cache (the decode cache's dense
+                   layout, its bytes again: 2 × layers × slots × kv_heads ×
+                   max_seq × head_dim × element size) on a second stream,
+                   and its rows are written into the claimed decode row at
+                   a turn boundary — the decode_pipeline × decode_loop ring
+                   never clamps for an admission
+                   (admission_stall_seconds_total stays 0). Tokens equal the
+                   drain-based engine's. Tier-0 prefix reuse is off (the
+                   host prefix store restores into the staging row).
+                   Structural (part of the engine key); requires chunked
+                   prefill
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet
-(``tp=``, ``zero_drain=``, ``qos=``, …): a typo or an unported knob never builds an
+(``tp=``, ``disagg=``, …): a typo or an unported knob never builds an
 engine that silently ignores it; ``quant=`` and ``kv_quant=`` values are
 checked there too (``int8`` or empty).
 
@@ -243,12 +268,12 @@ _OPTIONS = frozenset({
     "prefix_cache", "seed", "device", "queue", "max_tokens", "members", "member",
     "member_seeds", "quorum_dedup", "ensemble", "ckpt", "quant", "kv_quant",
     "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "kv_pages", "kv_page_size",
-    "kv_pool_pages", "prefix_store", "prefix_store_bytes", "prefix_store_chunk"})
+    "kv_pool_pages", "prefix_store", "prefix_store_bytes", "prefix_store_chunk", "qos",
+    "zero_drain"})
 _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
-_NOT_YET = frozenset({
-    "zero_drain", "disagg", "tp", "dp", "sp", "pp", "sp_impl", "qos"})
+_NOT_YET = frozenset({"disagg", "tp", "dp", "sp", "pp", "sp_impl"})
 
 
 def _check_options(opts: dict[str, str]) -> None:
@@ -571,7 +596,9 @@ class CudaBackend:
             ensemble=int(opts.get("ensemble", 1)),
             kv_pages=_parse_bool_opt("kv_pages", opts.get("kv_pages", "0")),
             kv_page_size=int(opts.get("kv_page_size", 0)),
-            kv_pool_pages=int(opts.get("kv_pool_pages", 0)))
+            kv_pool_pages=int(opts.get("kv_pool_pages", 0)),
+            qos=_parse_bool_opt("qos", opts.get("qos", "0")),
+            zero_drain=_parse_bool_opt("zero_drain", opts.get("zero_drain", "0")))
         knobs.update(_store_knobs(opts, members))
         knobs["quant"], knobs["kv_quant"] = check_quant_knobs(opts.get("quant") or None,
                                                               opts.get("kv_quant") or None)
@@ -730,6 +757,10 @@ class CudaBackend:
             "frequency_penalty": fp,
             "logit_bias": self._bias_row(body.get("logit_bias")),
             "grammar": grammar,
+            # QoS knobs (checked at the edge and by engine.submit); inert
+            # unless the engine runs qos=1.
+            "priority": body.get("priority"),
+            "tenant": body.get("tenant"),
             "resume_tokens": list(rt) if rt else None,
             "resume_chars": int(rc) if rc is not None else None,
             # Ship each chunk's token ids (``qt_tokens``) for a resume journal.
@@ -799,6 +830,7 @@ class CudaBackend:
             presence_penalty=plan["presence_penalty"],
             frequency_penalty=plan["frequency_penalty"], logit_bias=plan["logit_bias"],
             logprobs=plan["logprobs"], deadline=deadline, grammar=plan["grammar"],
+            priority=plan.get("priority"), tenant=plan.get("tenant"),
             # n == 1 whenever a journal is set: only choice 0 carries one.
             resume_tokens=plan.get("resume_tokens") if idx == 0 else None)
 

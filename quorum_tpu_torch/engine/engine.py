@@ -209,6 +209,33 @@ the delivered ids are regenerated — token-indexed noise makes draw n the
 same whatever the dispatch shapes and admission path — and the replay
 guard in :meth:`_emit` compares and swallows each, ending the stream with
 :class:`ReplayDivergence` on a mismatch.
+
+The QoS scheduler (``qos=True``, the JAX engine's knob; ``sched/``): every
+request gets a dispatch class (``priority`` interactive / batch /
+background, else derived from its deadline headroom); admission takes the
+weighted-fair pick across classes, earliest deadline headroom first within
+one; the cost model is the one shed point of ``submit`` (deadline, breaker,
+queue full, pool span and, warm, the predictive infeasible-deadline shed,
+each with its Retry-After); and a head that finds no row (or no pages) flags
+a strictly lower-class resident row, which the next turn parks through the
+ordinary release (``_sweep_preemptions``): its prefix stays resident, the
+request rewinds to its submitted state (``begin_replay``) and re-enters the
+queue at the head, and its delivered tokens are regenerated behind the
+replay guard. With ``qos`` off, admission is FIFO and nothing is preempted;
+the cost model still decides every shed.
+
+Zero-drain staging (``zero_drain=True``, the JAX engine's knob): every
+admission prefills chunked into a staging cache of the decode cache's
+dense slot layout (dense even on a paged engine), on the engine's forward
+stream, so segments share the card with the ring instead of queueing in it;
+after each segment the rows it completed are sliced into pieces behind a
+CUDA event, and at a later turn, once the event has passed, the pieces are
+written into the claimed decode row on the ring's stream and the row
+registers. The ring never clamps for an admission (``_admission_pressure``
+is False), so ``admission_stall_seconds_total`` stays 0, and
+``admission_overlap_total`` counts registrations onto a live ring. Tier-0
+prefix reuse is off (the segments cannot attend over the decode cache); a
+host prefix store restores into the staging row.
 """
 
 from __future__ import annotations
@@ -241,6 +268,8 @@ from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, deco
 from quorum_tpu_torch.ops.sampling import (TOP_LOGPROBS, SamplerConfig, adjust_logits,
                                            apply_token_mask, gumbel_noise, sample_token_rows,
                                            token_logprobs)
+from quorum_tpu_torch.sched import (PRIORITY_CLASSES, CostModel, PreemptionController,
+                                   SchedPolicy)
 from quorum_tpu_torch.telemetry import tracecontext
 from quorum_tpu_torch.telemetry.latency import LatencyModel
 from quorum_tpu_torch.telemetry.recorder import RECORDER as FLIGHT
@@ -345,12 +374,6 @@ class GrammarArenaFull(RuntimeError):
     retryable; resident grammars keep serving)."""
 
 
-def _expired(req, now: float) -> bool:
-    """The per-turn deadline sweep's expiry predicate (a cancelled request
-    is the cancel sweep's)."""
-    return req.deadline is not None and now > req.deadline and not req.cancel.is_set()
-
-
 def prefill_bucket(n: int, max_seq: int) -> int:
     """Smallest power-of-two ≥ n, clamped to [MIN_BUCKET, max_seq]."""
     b = MIN_BUCKET
@@ -423,17 +446,26 @@ class _Request:
     resumed stream must regenerate before anything new reaches ``out``
     (None: not resuming); ``parked`` is set, before the end frame, when a
     draining engine retired the stream mid-generation (its consumer
-    finishes it ``"parked"``)."""
+    finishes it ``"parked"``).
+
+    QoS: ``priority`` and ``tenant`` as submitted, ``sched_class`` the
+    dispatch class ``submit`` resolved, ``n_preempts`` how often it was
+    preempted (the budget against livelock, and the admission's epoch:
+    dispatches issued before a preemption no longer deliver to it),
+    ``preempt_flag`` set under ``_cond`` while a park order for it is
+    outstanding, ``t_admit`` the last admission stamp (``perf_counter``;
+    the cost model's service clock)."""
 
     __slots__ = ("prompt_ids", "budget", "sampler", "seed", "eos_id", "cancel",
                  "chunk_hint", "out", "emitted", "generator", "member", "hist",
                  "pp", "fp", "bias_row", "want_lp", "lp", "deadline", "grammar", "g_start",
                  "dfa_host", "n_drawn", "ngram", "spec_state", "n_inflight", "trace", "rid",
-                 "t_submit", "tspans", "deadline_answered", "replay", "parked")
+                 "t_submit", "tspans", "deadline_answered", "replay", "parked", "priority",
+                 "tenant", "sched_class", "n_preempts", "preempt_flag", "t_admit")
 
     def __init__(self, prompt_ids, budget, sampler: SamplerConfig, seed, eos_id, cancel,
                  chunk_hint, member=0, pp=0.0, fp=0.0, bias_row=None, want_lp=-1,
-                 deadline=None, grammar=None):
+                 deadline=None, grammar=None, priority=None, tenant=None):
         self.grammar = grammar
         self.g_start = 0
         self.dfa_host = grammar.start if grammar is not None else 0
@@ -471,6 +503,39 @@ class _Request:
         self.deadline_answered = False
         self.replay: list[int] | None = None
         self.parked = False
+        self.priority = priority
+        self.tenant = tenant
+        self.sched_class = "batch"
+        self.n_preempts = 0
+        self.preempt_flag = False
+        self.t_admit: float | None = None
+
+    def begin_replay(self) -> int:
+        """Rewind to the as-submitted request for a preemption resume and
+        record the delivered tokens as the replay expectation (after any
+        not yet re-swallowed from an earlier preemption). Host state goes
+        back to the prompt: ``hist``, the 2-gram index, the DFA shadow, the
+        draft cursor, ``emitted``, ``n_inflight`` and the noise index
+        ``n_drawn`` (the generator is reseeded when the row registers or
+        admits single-shot, so token n reads draw n again). ``lp`` stays:
+        its records were delivered, the replay guard appends none, and a
+        logprobs request is never a victim. Re-admission rides the
+        ordinary admission routes; :meth:`InferenceEngine._emit`'s guard
+        swallows the regenerated tokens. Returns the parked token count."""
+        generated = self.hist[len(self.prompt_ids):]
+        self.replay = generated + (self.replay or [])
+        prompt = self.prompt_ids
+        self.hist = list(prompt)
+        self.ngram = {(prompt[n - 2], prompt[n - 1]): n - 1 for n in range(2, len(prompt))}
+        self.dfa_host = self.grammar.start if self.grammar is not None else 0
+        self.spec_state = None
+        self.emitted = 0
+        self.n_inflight = 0
+        self.n_drawn = 0
+        self.generator = None
+        self.n_preempts += 1
+        self.t_admit = None
+        return len(generated)
 
     @property
     def spec_draft_ok(self) -> bool:
@@ -489,9 +554,15 @@ class _Admission:
     """An in-progress chunked prefill of one request into ``slot`` (a flat
     row), advanced one segment per scheduler turn. ``offset`` starts at the
     reused prefix (``offset0``): the row's cache already holds those
-    positions of this prompt."""
+    positions of this prompt. Zero-drain staging: positions ``[0, handed)``
+    of the staging row are queued as pieces for the decode row,
+    ``final_sent`` marks the whole prompt queued (the register waits in
+    the queue behind its pieces), and ``dead`` makes the queue drop this
+    admission's pieces (it was released: its decode row may already hold
+    another request)."""
 
-    __slots__ = ("req", "slot", "offset", "offset0", "restored", "t_start")
+    __slots__ = ("req", "slot", "offset", "offset0", "restored", "t_start", "handed",
+                 "final_sent", "dead")
 
     def __init__(self, req: _Request, slot: int, offset: int = 0, restored: int = 0):
         self.req = req
@@ -500,6 +571,9 @@ class _Admission:
         self.offset0 = offset
         self.restored = restored  # of offset0, the tokens the prefix store restored
         self.t_start = time.perf_counter()
+        self.handed = 0
+        self.final_sent = False
+        self.dead = False
 
 
 class _InflightChunk:
@@ -519,11 +593,14 @@ class _InflightChunk:
     ``family`` is the key's program family (:func:`program_family`),
     ``seq`` the flight recorder's dispatch number, ``depth`` the ring depth
     it was issued at, and ``timing`` the CUDA-event pair recorded around its
-    graph replay (None on the CPU), read at reap."""
+    graph replay (None on the CPU), read at reap. ``epochs`` holds each
+    active request's ``n_preempts`` at issue: a preempted request no
+    longer takes this dispatch's tokens (nor counts it in flight), even
+    once it is re-admitted into the same row."""
 
     __slots__ = ("active", "n_steps", "n_chunks", "host", "lp", "event", "t0", "constrained",
                  "spec_turn", "drafted", "family", "seq", "depth", "timing", "t_issue",
-                 "t_ready")
+                 "t_ready", "epochs")
 
     def __init__(self, active, n_steps, n_chunks, host, event, lp=None, constrained=False,
                  spec_turn=False, drafted=0):
@@ -538,6 +615,7 @@ class _InflightChunk:
         self.drafted = drafted
         self.constrained = constrained
         self.active = active
+        self.epochs = [r.n_preempts for _, r in active]
         self.n_steps = n_steps
         self.n_chunks = n_chunks
         self.host = host
@@ -549,6 +627,11 @@ class _InflightChunk:
     def tokens_ahead(self) -> int:
         """Upper bound on the tokens this dispatch can produce per row."""
         return self.n_steps * self.n_chunks
+
+    def carries(self) -> list[tuple[int, _Request]]:
+        """The (row, request) pairs this dispatch still serves: those not
+        preempted since it was issued."""
+        return [(i, r) for (i, r), ep in zip(self.active, self.epochs) if r.n_preempts == ep]
 
     def ready(self) -> bool:
         """True once the chunk's tokens are on the host (a non-blocking probe)."""
@@ -762,14 +845,29 @@ class InferenceEngine:
         prefix_store: str | None = None,
         prefix_store_bytes: int = DEFAULT_PREFIX_STORE_BYTES,
         prefix_store_chunk: int = 0,
+        qos: bool = False,
+        zero_drain: bool = False,
     ):
         self.spec = spec.validate()
         self.device = resolve_device(device)
         self.members = max(1, int(members))
         self.ensemble = max(1, int(ensemble))
         self.quant, self.kv_quant = check_quant_knobs(quant, kv_quant)
+        # Zero-drain staging: every admission prefills chunked into the
+        # staging cache and its rows reach the decode row at a later turn.
+        self.zero_drain = bool(zero_drain)
+        if self.zero_drain and aligned_prefill_chunk(int(prefill_chunk), spec.max_seq) <= 0:
+            raise ValueError(
+                "zero_drain requires chunked prefill (prefill_chunk >= "
+                "16 after power-of-two alignment): admissions prefill "
+                "into the staging cache segment by segment and inject "
+                "at a reap boundary — the single-shot admit program "
+                "blocks the host on its first-token fetch, which "
+                "behind a full dispatch ring is exactly the stall "
+                "zero_drain exists to remove")
+        self.staged = self.zero_drain
         _check_stack_knobs(self.members, self.ensemble, member_seeds, quorum_dedup,
-                           self.kv_quant)
+                           self.kv_quant, self.staged)
         if spec.is_moe and max(self.members, self.ensemble) > 1:
             knob = "members" if self.members > 1 else "ensemble"
             raise ValueError(
@@ -799,7 +897,10 @@ class InferenceEngine:
         self.decode_loop = resolve_decode_loop(decode_loop)
         self.prefill_chunk = aligned_prefill_chunk(int(prefill_chunk), spec.max_seq)
         # Reuse rides the segment path (the suffix prefills at an offset).
-        self.prefix_cache = bool(prefix_cache) and self.prefill_chunk > 0
+        # Off under staging: the resident K/V lives in the decode cache,
+        # which the staging segments cannot attend over (the host prefix
+        # store restores into the staging row instead).
+        self.prefix_cache = bool(prefix_cache) and self.prefill_chunk > 0 and not self.staged
         self.n_slots = max(1, int(n_slots))
         # A stacked engine absorbs the whole fan-out's admissions in one
         # queue: M members carry the capacity M separate engines would have.
@@ -838,6 +939,20 @@ class InferenceEngine:
         else:
             self._ck, self._cv = init_cache(spec, stack * self.n_slots, device=self.device,
                                             kv_quant=self.kv_quant)
+        # The staging cache of a zero-drain engine: the decode cache's dense
+        # slot layout (staging row i stages decode row i), dense even on a
+        # paged engine, in the cache's representation. Its bytes are
+        # 2 × layers × rows × kv_heads × max_seq × head_dim × the element
+        # size (+ the int8 sides' f32 scales).
+        self._sck = self._scv = None
+        if self.staged:
+            self._sck, self._scv = init_cache(spec, stack * self.n_slots, device=self.device,
+                                              kv_quant=self.kv_quant)
+        # Staged rows on their way to the decode cache: ("kv", admission,
+        # [(row, chunk)], start, event) pieces and ("final", admission)
+        # registers, in order (``_drain_handoffs``).
+        self._handoffs: deque = deque()
+        self.n_admission_overlap = 0
         # Per-row decode state, device-resident between chunks, and the
         # static inputs of a decode dispatch (its active rows, the drafts of
         # a verify turn, which rows may draft in a fused turn). Updated in
@@ -949,6 +1064,17 @@ class InferenceEngine:
         self._tag = f"engine-{id(self):x}"
         self._dispatch_seq = 0
         self.latency = LatencyModel(alpha=CHUNK_EWMA_ALPHA)
+        # The QoS scheduler: the admission policy and the preemption
+        # controller act only with ``qos``; the cost model is always the
+        # submit path's one shed point. Park orders (row, victim,
+        # beneficiary) wait for the next turn (``_sweep_preemptions``).
+        self.qos = bool(qos)
+        self._policy = SchedPolicy()
+        self._preempt = PreemptionController()
+        self.cost_model = CostModel(self.latency)
+        self._preempt_pending: list[tuple[int, _Request, _Request]] = []
+        self.n_preemptions = 0
+        self.n_preempted_tokens = 0
         # Embedding and scoring forwards (engine/embed.py, engine/score.py)
         # admitted at once, by the backends' gate.
         self.score_gate = threading.Semaphore(SCORE_GATE_SLOTS)
@@ -966,13 +1092,18 @@ class InferenceEngine:
         # rather than queueing behind the ring. The ring's stream has the
         # higher priority: as a forward's blocks retire, the SMs go to
         # pending decode blocks first, and a stream's tokens keep coming.
-        self._stream = self._graphs = self._fwd_stream = None
+        # A zero-drain engine stages on a third stream of its own, so its
+        # segments queue neither behind the ring nor behind a forward.
+        self._stream = self._graphs = self._fwd_stream = self._stage_stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device, priority=RING_STREAM_PRIORITY)
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             self._graphs = DecodeGraphs(self.device, self._stream, hold=self._deadline_watch)
             self._fwd_stream = torch.cuda.Stream(self.device)
             self._fwd_stream.wait_stream(torch.cuda.current_stream(self.device))
+            if self.staged:
+                self._stage_stream = torch.cuda.Stream(self.device)
+                self._stage_stream.wait_stream(torch.cuda.current_stream(self.device))
         self._thread = threading.Thread(target=self._scheduler, daemon=True,
                                         name="quorum-torch-scheduler")
         self._thread.start()
@@ -997,14 +1128,22 @@ class InferenceEngine:
         deadline: float | None = None,  # absolute time.monotonic() deadline
         grammar=None,  # CompiledGrammar: constrained decoding (structured output)
         resume_tokens: list[int] | None = None,  # already-delivered ids to replay
+        priority: str | None = None,  # QoS class: interactive, batch or background
+        tenant: str | None = None,  # QoS weighted-fair accounting bucket
     ) -> _Request | None:
         """Enqueue a generation for weight set ``member`` and return its
-        handle (``None`` when there is nothing to generate). Raises
-        :class:`QueueFullError` synchronously when the admission queue is at
-        capacity or the engine is draining (``retry_after`` 1 s),
-        :class:`DeadlineExceeded` (stage ``queue``) when
-        ``deadline`` has already passed, and :class:`EngineBreakerOpen`
-        while the failure breaker rejects new admissions. ``deadline`` bounds the request's
+        handle (``None`` when there is nothing to generate). Every shed
+        goes through the cost model (``sched/cost.py``), in its order:
+        :class:`DeadlineExceeded` (stage ``queue``) when ``deadline`` has
+        already passed (or, with ``qos``, when warm queue evidence says it
+        cannot survive the queue), :class:`EngineBreakerOpen` while the
+        failure breaker rejects new admissions, and :class:`QueueFullError`
+        with the cost model's text and ``retry_after`` when the queue is at
+        capacity or (paged) the request's span exceeds the page pool. A
+        draining engine raises ``QueueFullError`` (``retry_after`` 1 s)
+        first. ``priority`` (one of ``PRIORITY_CLASSES``, else a
+        ValueError) and ``tenant`` act only on a ``qos`` engine.
+        ``deadline`` bounds the request's
         whole life: pending past it, it is shed (stage ``queue``); admitted,
         it is cancelled with a ``DeadlineExceeded`` error frame. When
         ``logprobs`` >= 0 the handle's ``lp`` list carries one ``(logprob,
@@ -1026,6 +1165,10 @@ class InferenceEngine:
         if not 0 <= member < self.members:
             raise ValueError(
                 f"member {member} out of range for a {self.members}-member engine")
+        if priority is not None and priority not in PRIORITY_CLASSES:
+            raise ValueError(
+                f"priority must be one of {PRIORITY_CLASSES}, "
+                f"got {priority!r}")
         if self.draining:
             # A draining engine admits nothing new: the 503 this becomes is
             # a failure before the first byte, which a router fails over.
@@ -1076,32 +1219,47 @@ class InferenceEngine:
         req = _Request(prompt, budget, sampler or SamplerConfig(), int(seed), eos_id,
                        cancel if cancel is not None else threading.Event(), decode_chunk,
                        member, pp=presence_penalty, fp=frequency_penalty, bias_row=bias_row,
-                       want_lp=logprobs, deadline=deadline, grammar=grammar)
+                       want_lp=logprobs, deadline=deadline, grammar=grammar,
+                       priority=priority, tenant=tenant)
         req.replay = replay
-        if deadline is not None and time.monotonic() >= deadline:
-            with self._cond:
-                self.n_deadline_exceeded += 1
-            obs.DEADLINE_EXCEEDED.inc(stage="queue")
-            raise DeadlineExceeded("queue")
-        if not self.breaker.allow():
-            raise EngineBreakerOpen(self.breaker.retry_after())
+        now = time.monotonic()
+        req.sched_class = self._policy.classify(priority, deadline, now)
+        shed = self.cost_model.presubmit(now=now, deadline=deadline, breaker=self.breaker)
+        if shed is not None:
+            self._raise_shed(shed)
         with self._cond:
             if self._stop:
                 raise RuntimeError("engine has been shut down")
-            if len(self._pending) >= self.max_pending:
-                raise QueueFullError(f"admission queue full ({self.max_pending} pending)")
-            if self.kv_pages:
-                need = self._paged_need(len(prompt), budget)
-                if need > self.kv_pool_pages:
-                    # A span that can never fit: shed now (a 503); a span
-                    # that fits only later waits in the queue.
-                    raise QueueFullError(
-                        f"request span of {need} pages exceeds the kv page "
-                        f"pool ({self.kv_pool_pages} pages)")
+            # A span that can never fit the page pool is shed now; one that
+            # fits only later waits in the queue.
+            shed = self.cost_model.queue_check(
+                now=now, deadline=deadline, n_pending=len(self._pending),
+                max_pending=self.max_pending, qos=self.qos,
+                page_need=self._paged_need(len(prompt), budget) if self.kv_pages else 0,
+                pool_pages=self.kv_pool_pages if self.kv_pages else 0)
+            if shed is not None:
+                self._raise_shed(shed)
             self._pending.append(req)
             self.n_requests += 1
             self._cond.notify_all()
         return req
+
+    def _raise_shed(self, shed) -> None:
+        """Raise a cost-model :class:`~quorum_tpu_torch.sched.ShedDecision`
+        as the engine's exception: a deadline shed counts like the
+        scheduler's queue-stage expiry, a capacity shed carries the model's
+        Retry-After hint on the ``QueueFullError``. ``_cond`` may be held
+        (it is re-entrant)."""
+        if shed.kind == "deadline":
+            with self._cond:  # callers' threads race the scheduler's counts
+                self.n_deadline_exceeded += 1
+            obs.DEADLINE_EXCEEDED.inc(stage="queue")
+            raise DeadlineExceeded("queue")
+        if shed.kind == "breaker":
+            raise EngineBreakerOpen(shed.retry_after)
+        err = QueueFullError(shed.detail)
+        err.retry_after = shed.retry_after
+        raise err
 
     def stream_results(self, req: _Request | None) -> Iterator[int]:
         """Yield a submitted request's tokens as the scheduler produces them."""
@@ -1158,8 +1316,12 @@ class InferenceEngine:
         restores' blocking seconds and the bytes moved each way. The drain
         lifecycle's: ``draining`` (1 while submit is shut),
         ``drain_parked_total`` (streams a park retired) and
-        ``replayed_tokens_total`` (regenerated tokens a resume's guard
-        swallowed)."""
+        ``replayed_tokens_total`` (regenerated tokens a resume's or a
+        preemption's guard swallowed). The QoS scheduler's: ``qos``,
+        ``preemptions_total``, ``preempted_tokens_total`` (delivered tokens
+        the victims parked) and ``predictive_sheds_total``; zero-drain
+        staging's: ``zero_drain`` and ``admission_overlap_total``
+        (staged admissions that registered onto a live ring)."""
         g = self._graphs
         with self._cond:
             return {
@@ -1225,8 +1387,14 @@ class InferenceEngine:
                 "prefix_store_entries": (self.prefix_store.n_entries
                                          if self.prefix_store is not None else 0),
                 "inflight_chunks": len(self._inflight),
+                "zero_drain": 1 if self.zero_drain else 0,
+                "admission_overlap_total": self.n_admission_overlap,
                 "admission_stall_seconds_total": round(self.admission_stall_s, 6),
                 "drain_gap_seconds_total": round(self.drain_gap_s, 6),
+                "qos": 1 if self.qos else 0,
+                "preemptions_total": self.n_preemptions,
+                "preempted_tokens_total": self.n_preempted_tokens,
+                "predictive_sheds_total": self.cost_model.n_predictive_sheds,
                 "replayed_tokens_total": self.n_replayed_tokens,
                 "draining": 1 if self.draining else 0,
                 "drain_parked_total": self.n_drain_parked,
@@ -1240,6 +1408,9 @@ class InferenceEngine:
             pending, stopped = len(self._pending), self._stop
         return {
             "scheduler_alive": self._thread.is_alive() and not stopped,
+            # The JAX engine's second loop (disaggregated prefill) has no
+            # counterpart here: one loop schedules everything.
+            "prefill_scheduler_alive": True,
             "snapshot_worker_alive": (self.prefix_store is None
                                       or self._snap_thread.is_alive()),
             "breaker": self.breaker.state,
@@ -1330,9 +1501,14 @@ class InferenceEngine:
             return  # a device call is still running; the GC reclaims state later
         if self._stream is not None:
             self._stream.synchronize()  # nothing of ours may still read what we free
+            self._fwd_stream.synchronize()
+            if self._stage_stream is not None:
+                self._stage_stream.synchronize()
             self._graphs.clear()
         self.params = None
         self._ck = self._cv = self._table = None
+        self._sck = self._scv = None
+        self._handoffs.clear()
         self._draft_rt = None
         self._g_trans = self._g_accept = None
         self._host_pool.clear()
@@ -1826,13 +2002,16 @@ class InferenceEngine:
         return r, payloads
 
     def _restore_into(self, req: _Request, slot: int, start: int, end: int,
-                      payloads) -> None:
+                      payloads, stage: bool = False) -> None:
         """Write the stored prefix's positions ``[start, end)`` into
         ``slot``'s cache rows (a paged slot's reserved pages), chunk by
-        chunk from the host, on the engine's stream: only the tail past
-        the slot-resident overlap ``[0, start)`` moves. Blocks until the
-        copies have landed: the restore's honest latency, observed on the
-        restore histogram and as a ``prefix-restore`` span of ``req``."""
+        chunk from the host, on the current stream: only the tail past
+        the slot-resident overlap ``[0, start)`` moves. ``stage`` writes
+        the staging row instead (zero-drain: the tail's segments attend
+        over it there, and the whole prefix reaches the decode row with the
+        pieces). Blocks until the copies have landed: the restore's honest
+        latency, observed on the restore histogram and as a
+        ``prefix-restore`` span of ``req``."""
         t0 = time.perf_counter()
         c = self.prefix_store.chunk_tokens
         q8 = self.kv_quant is not None
@@ -1842,7 +2021,7 @@ class InferenceEngine:
             leaves = [x.to(self.device, non_blocking=True)[:, :, lo - k * c:hi - k * c]
                       for x in payloads[k]]
             moved += sum(x.nbytes for x in leaves)
-            kv_transfer.write_rows((self._ck, self._cv),
+            kv_transfer.write_rows((self._sck, self._scv) if stage else (self._ck, self._cv),
                                    kv_transfer.chunk_from_leaves(leaves, q8), slot, lo)
         if self._stream is not None:
             done = torch.cuda.Event()
@@ -1887,9 +2066,14 @@ class InferenceEngine:
 
     def _note_admitted(self, req: _Request) -> None:
         """A pending request just claimed a row: close its queue wait (the
-        histogram, its ``queue-wait`` span) and record the admission."""
+        histogram, the cost model's queue-wait EWMA, its ``queue-wait``
+        span) and record the admission. A resumed victim's submit-to-admit
+        gap holds its earlier service: no queue-wait observation."""
         now = time.perf_counter()
-        obs.QUEUE_WAIT.observe(now - req.t_submit)
+        req.t_admit = now
+        if req.n_preempts == 0:
+            obs.QUEUE_WAIT.observe(now - req.t_submit)
+            self.cost_model.observe_queue_wait(now - req.t_submit)
         FLIGHT.record("admit", rid=req.rid, engine=self._tag, loop="decode",
                       queue_wait_s=round(now - req.t_submit, 6))
         if req.trace is not None:
@@ -1938,9 +2122,12 @@ class InferenceEngine:
     def _has_work(self) -> bool:
         """Caller holds ``_cond``."""
         return bool(self._pending or self._admitting or any(self._slots) or self._inflight
-                    or self._pending_snaps)
+                    or self._pending_snaps or self._handoffs)
 
     def _schedule_forever(self) -> None:
+        """The JAX engine's turn order: deadlines, preemptions, drain
+        parks, admissions (start, one segment each, then under zero-drain
+        the staged pieces and registers), then the ring."""
         while True:
             with self._cond:
                 while not (self._stop or self._has_work()):
@@ -1950,9 +2137,12 @@ class InferenceEngine:
             try:
                 with torch.no_grad():
                     self._sweep_deadlines()
+                    self._sweep_preemptions()
                     self._sweep_drain_parks()
                     self._start_admissions()
                     self._step_admissions()
+                    if self.staged:
+                        self._drain_handoffs()
                     if any(self._slots) or self._inflight:
                         self._run_chunk_steps()
                     else:
@@ -2000,10 +2190,11 @@ class InferenceEngine:
         return reuse if reuse >= MIN_PREFIX_REUSE else 0
 
     def _goes_chunked(self, req: _Request, reuse: int) -> bool:
-        """A reused prefix, a prompt longer than one segment, or a grammar
+        """A reused prefix, a prompt longer than one segment, a grammar
         (whatever the prompt's length: the single-shot admission samples
-        the first token before any mask could apply) admits chunked."""
-        return (bool(reuse) or req.grammar is not None
+        the first token before any mask could apply) or a staging engine
+        admits chunked."""
+        return (bool(reuse) or req.grammar is not None or self.staged
                 or (self.prefill_chunk > 0 and len(req.prompt_ids) > self.prefill_chunk))
 
     def _place_grammar(self, req: _Request) -> bool:
@@ -2039,6 +2230,11 @@ class InferenceEngine:
         self._admitting.append(_Admission(req, slot, offset=offset, restored=restored))
 
     def _start_admissions(self) -> None:
+        """Admit pending requests into free rows: the FIFO head, or with
+        ``qos`` the policy's weighted-fair pick (charged when popped). A
+        head that finds no row, or no pages, may flag a lower-class
+        resident for parking (``_maybe_flag_preemption_locked``) and waits.
+        Under zero-drain every admission is staged (``_admit_staged``)."""
         self._maybe_reset_arena()
         self._dispatch_snapshots()
         if self.members > 1:
@@ -2048,19 +2244,31 @@ class InferenceEngine:
             with self._cond:
                 if not self._pending:
                     return
-                slot, lcp = self._pick_slot(self._pending[0].prompt_ids)
+                idx = (0 if not self.qos or len(self._pending) <= 1
+                       else self._policy.pick(self._pending, time.monotonic()))
+                head = self._pending[idx]
+                slot, lcp = self._pick_slot(head.prompt_ids)
                 if slot is None:
+                    self._maybe_flag_preemption_locked(head)
                     return
-                if self.kv_pages and not self._paged_fits(slot, self._pending[0]):
-                    # The head waits for pages (order kept): releases wake us.
+                if self.kv_pages and not self._paged_fits(slot, head):
+                    # The head waits for pages (order kept): releases wake
+                    # us; a lower-class row's claim is a page source too.
+                    self._maybe_flag_preemption_locked(head)
                     return
-                req = self._pending.popleft()
+                req = head
+                del self._pending[idx]
+                if self.qos:
+                    self._policy.charge(req)
                 if req.cancel.is_set():
                     self.n_cancelled += 1
                     req.out.put(("end", None))
                     continue
                 reuse = self._reuse_len(lcp, len(req.prompt_ids))
             self._note_admitted(req)
+            if self.staged:
+                self._admit_staged(req, slot)
+                continue
             # Only this thread claims rows: ``slot`` is still free.
             if not self._place_grammar(req):
                 continue
@@ -2202,13 +2410,16 @@ class InferenceEngine:
         unit: decode chunks for active rows run between any two segments.
         On a stacked engine, admissions sharing a (segment bucket, history
         bucket) pair coalesce into one stacked call, at most one admission
-        per member in it."""
+        per member in it. A staged admission whose prompt is all queued
+        waits for its register in the handoff queue."""
         groups: dict[tuple[int, int], list[_Admission]] = {}
         for adm in list(self._admitting):
             if adm.req.cancel.is_set():
                 self.n_cancelled += 1
                 adm.req.out.put(("end", None))
                 self._release_admission(adm)
+                continue
+            if adm.final_sent:
                 continue
             seg = min(self.prefill_chunk, len(adm.req.prompt_ids) - adm.offset)
             key = (prefill_bucket(seg, self.prefill_chunk),
@@ -2237,7 +2448,10 @@ class InferenceEngine:
         """One segment call: batch row m is member m's admission on a stacked
         engine (absent members write nothing; a lone member runs through
         its own weight views), else the one admission, repeated into every
-        weight set's row on an ensemble."""
+        weight set's row on an ensemble. Under zero-drain the segment writes
+        the staging rows, on the staging stream, and the rows it completed
+        are queued as pieces (``_stage_piece``); after the last segment the
+        register is queued behind them."""
         faults.fire("engine.prefill_segment")
         chunk, s = self.prefill_chunk, self.n_slots
         params = self.params
@@ -2253,11 +2467,16 @@ class InferenceEngine:
             rows = [e * s + adm.slot for e in range(self.ensemble)]
         segs = [a.req.prompt_ids[a.offset:a.offset + chunk] if a is not None else []
                 for a in per_row]
+        cache = (self._sck, self._scv) if self.staged else (self._ck, self._cv)
         t0 = time.perf_counter()
-        prefill_segment(params, self.spec, self._prompt_tokens(segs, bucket),
-                        [a.offset if a is not None else 0 for a in per_row],
-                        self._ck, self._cv, rows=rows, history=history,
-                        n_valid=[len(seg) for seg in segs])
+        with self._stage_scope():
+            prefill_segment(params, self.spec, self._prompt_tokens(segs, bucket),
+                            [a.offset if a is not None else 0 for a in per_row], *cache,
+                            rows=rows, history=history, n_valid=[len(seg) for seg in segs])
+            for adm in batch.values():
+                adm.offset = min(adm.offset + chunk, len(adm.req.prompt_ids))
+                if self.staged:
+                    self._stage_piece(adm)
         # Enqueue time on the card (the segment does not block): a lower
         # bound, labelled by its family all the same.
         self._observe_device_time("mseg" if self.members > 1 else "seg",
@@ -2268,7 +2487,11 @@ class InferenceEngine:
         self.n_prefill_segments += 1
         for adm in batch.values():
             prompt = adm.req.prompt_ids
-            adm.offset = min(adm.offset + chunk, len(prompt))
+            if self.staged:
+                if adm.offset >= len(prompt):
+                    adm.final_sent = True
+                    self._handoffs.append(("final", adm, None, 0, None))
+                continue
             with self._cond:
                 self._resident[adm.slot] = prompt[:adm.offset]
             if adm.offset >= len(prompt):
@@ -2314,6 +2537,9 @@ class InferenceEngine:
         self.breaker.record_success()
 
     def _release_admission(self, adm: _Admission) -> None:
+        """Drop a finished, cancelled or failed admission (its staged pieces
+        still queued are dropped with it)."""
+        adm.dead = True
         with self._cond:
             if adm in self._admitting:
                 self._admitting.remove(adm)
@@ -2329,6 +2555,175 @@ class InferenceEngine:
             self._release_admission(adm)
             self.n_failures += 1
             adm.req.out.put(("err", exc))
+
+    # ---- zero-drain staging (zero_drain=1) ----------------------------------
+    #
+    # Streams on the card: segments (and a store restore into the staging
+    # row) run on the engine's staging stream, which nothing else uses (on
+    # the forward stream a segment would queue behind an embedding or
+    # scoring forward for as long as it runs); each piece is sliced there
+    # right after its segment and an event recorded behind it. The injection
+    # writes the piece into the decode row on the ring's stream after
+    # waiting on that event, and only at a turn where the event has already
+    # passed while the ring has work (so the ring never waits for a
+    # segment). The hazards this rules out:
+    #
+    # - an injection reading a staging row before its segment ran: it
+    #   reads the piece, sliced after the segment on the same stream, and
+    #   waits on the event behind the slice;
+    # - a segment overwriting a staging row an injection has not read: the
+    #   injection never reads the staging row, only the piece (a copy);
+    #   the piece's memory is marked as used by the ring's stream
+    #   (``record_stream``), so it is not reused before the write ran;
+    # - a decode replay in flight writing the claimed row after the
+    #   injection: the injection is enqueued on the ring's stream behind
+    #   every dispatch issued before it, and a claimed row is not in the
+    #   mask of any dispatch issued before its register, so no replay
+    #   writes it (decode writes are gated by mask & live);
+    # - a first capture beside a running segment: the capture and the
+    #   segment's launches are issued by this one thread, one after the
+    #   other, and a capture in thread-local mode ignores work already
+    #   queued on another stream.
+    #
+    # Failures: a staged admission whose restore, segment, injection or
+    # register fails is doomed alone (``_fail_admissions``: released and
+    # marked dead, its queued pieces dropped, a paged claim unwound);
+    # active rows, other admissions and the queue go on, and nothing is
+    # rebuilt. The staging cache is never rebuilt: torch donates no
+    # buffers, so a failed call cannot consume it, and a failure leaves
+    # garbage only in the failed admission's own staging row, at positions
+    # the row's next admission writes (from 0, or from its restore) before
+    # any segment attends over them. A failure that breaks the device
+    # context takes the whole engine, which no rebuild would help.
+
+    def _stage_scope(self):
+        """Where segments run: a zero-drain engine's on the card on its
+        staging stream, every other on the current stream (the ring's)."""
+        if self._stage_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stage_stream)
+
+    def _admit_staged(self, req: _Request, slot: int, claimed: bool = False) -> None:
+        """Claim decode row ``slot`` for ``req`` and start its staged
+        admission: every segment prefills into the staging row, from the
+        host prefix store's match when there is one (restored into the
+        staging row first). A paged row's pages are reserved here unless
+        the caller ``claimed`` them; the table is uploaded before the first
+        injection. Grammar placement waits for the register."""
+        try:
+            faults.fire("engine.admit")
+            restore = self._store_lookup(req.prompt_ids, 0)
+            if self.kv_pages and not claimed:
+                with self._cond:
+                    claim = self._paged_claim(slot, req, 0)
+                if claim is None:
+                    raise RuntimeError("kv page claim failed after passing the fits check")
+        except Exception as e:
+            # Nothing was claimed yet: the request fails alone.
+            logger.exception("staged admission failed")
+            self.n_failures += 1
+            req.out.put(("err", e))
+            return
+        offset = restore[0] if restore is not None else 0
+        adm = _Admission(req, slot, offset=offset, restored=offset)
+        FLIGHT.record("stage-admit", rid=req.rid, engine=self._tag, loop="decode", slot=slot,
+                      restored=offset)
+        with self._cond:
+            self._claimed.add(slot)
+            self._resident[slot] = []
+            self._admitting.append(adm)
+        if restore is not None:
+            try:
+                with self._stage_scope():
+                    self._restore_into(req, slot, 0, offset, restore[1], stage=True)
+            except Exception as e:
+                logger.exception("staging restore failed")
+                self._fail_admissions([adm], e)
+
+    def _stage_piece(self, adm: _Admission) -> None:
+        """Queue staging positions ``[handed, offset)`` of ``adm``'s rows
+        (its flat row; on an ensemble the slot's row of every weight set)
+        as one piece: slices (copies) on the current stream, then an event
+        behind them (None on the CPU)."""
+        lo, hi = adm.handed, adm.offset
+        if hi <= lo:
+            return
+        rows = ([adm.slot] if self.members > 1
+                else [e * self.n_slots + adm.slot for e in range(self.ensemble)])
+        pieces = [(row, kv_transfer.slice_rows((self._sck, self._scv), row, lo, hi - lo))
+                  for row in rows]
+        event = None
+        if self._stream is not None:
+            event = torch.cuda.Event()
+            event.record()
+        adm.handed = hi
+        self._handoffs.append(("kv", adm, pieces, lo, event))
+
+    def _drain_handoffs(self) -> None:
+        """Inject queued pieces into their claimed decode rows and register
+        the admissions whose prompt is all injected, in queue order. A
+        piece whose segment is still running stays queued while the ring
+        has work (a later turn takes it); with nothing to decode the host
+        waits for it. A dead admission's entries are dropped: its row may
+        already hold another request. Scheduler thread only."""
+        while self._handoffs:
+            kind, adm, pieces, start, event = self._handoffs[0]
+            if not adm.dead and event is not None and not event.query():
+                with self._cond:
+                    busy = any(r is not None for r in self._slots)
+                if busy or self._inflight:
+                    return
+                event.synchronize()
+            self._handoffs.popleft()
+            if adm.dead:
+                continue
+            if kind == "kv":
+                self._inject(adm, pieces, start, event)
+            else:
+                self._register_staged(adm)
+
+    def _inject(self, adm: _Admission, pieces, start: int, event) -> None:
+        """Write one piece into the decode cache on the ring's stream, after
+        the table upload (paged) and the piece's event."""
+        try:
+            self._paged_sync_table()
+            if event is not None:
+                self._stream.wait_event(event)
+            for row, chunk in pieces:
+                kv_transfer.write_rows((self._ck, self._cv), chunk, row, start)
+                if self._stream is not None:
+                    for leaf in kv_transfer.chunk_leaves(chunk):
+                        leaf.record_stream(self._stream)
+            FLIGHT.record("inject", rid=adm.req.rid, engine=self._tag, loop="decode",
+                          slot=adm.slot, tokens=adm.handed - start)
+        except Exception as e:
+            logger.exception("staged injection failed")
+            self._fail_admissions([adm], e)
+
+    def _register_staged(self, adm: _Admission) -> None:
+        """Register a fully injected admission (grammar placed now: the
+        arena is decode-side state); a registration onto a live ring counts
+        in ``admission_overlap_total``."""
+        req = adm.req
+        if req.cancel.is_set():
+            self.n_cancelled += 1
+            req.out.put(("end", None))
+            self._release_admission(adm)
+            return
+        if not self._place_grammar(req):
+            self._release_admission(adm)
+            return
+        try:
+            with self._cond:
+                self._resident[adm.slot] = list(req.prompt_ids)
+                live = any(r is not None for r in self._slots)
+            if live or self._inflight:
+                self.n_admission_overlap += 1
+                obs.ADMISSION_OVERLAP.inc()
+            self._finish_admission(adm)
+        except Exception as e:
+            logger.exception("staged register failed")
+            self._fail_admissions([adm], e)
 
     # ---- stacked members: the JAX engine's ``_start_admissions_members`` ----
 
@@ -2360,7 +2755,10 @@ class InferenceEngine:
         the anchor's prompt bucket form a single-shot group admitted in one
         dispatch into a common free slot index; when the group has none,
         the anchor alone (so one busy member's full slots never starve idle
-        members)."""
+        members). With ``qos`` the heads come in the policy's order and
+        every popped request is charged; when no head has a row, each may
+        flag a lower-class victim among its own member's rows. Under
+        zero-drain every head is staged on its member's best row."""
         max_seq = self.spec.max_seq
         routed = False  # a head was routed this turn: the rest go now too
         while True:
@@ -2369,7 +2767,9 @@ class InferenceEngine:
                     return
                 heads: list[_Request] = []
                 seen: set[int] = set()
-                for r in self._pending:
+                src = (self._policy.order(self._pending, time.monotonic()) if self.qos
+                       else self._pending)
+                for r in src:
                     if r.member not in seen:
                         seen.add(r.member)
                         heads.append(r)
@@ -2394,6 +2794,8 @@ class InferenceEngine:
                                 continue  # this member waits for pages
                             reuse = claim[0]  # 0 on stacked engines: no copy
                         self._pending.remove(r)
+                        if self.qos:
+                            self._policy.charge(r)
                         chunked = (r, slot, reuse)
                         break
                 if chunked is None:
@@ -2409,7 +2811,11 @@ class InferenceEngine:
                         if row is not None:
                             break
                     if row is None:
-                        return  # no head has a usable row this turn
+                        # No head has a usable row this turn: each may park a
+                        # lower-class row of its own member (member-local).
+                        for h in heads:
+                            self._maybe_flag_preemption_locked(h)
+                        return
                     if self.kv_pages:
                         # One claim per group member on the slot group's
                         # shared chain, sized by the largest need.
@@ -2424,13 +2830,17 @@ class InferenceEngine:
                             return  # the group waits for pages
                     for r in group.values():
                         self._pending.remove(r)
+                        if self.qos:
+                            self._policy.charge(r)
                 routed = True
             self._paged_sync_table()
             if chunked is not None:
                 # Only this thread claims rows: ``slot`` is still free.
                 r, slot, reuse = chunked
                 self._note_admitted(r)
-                if self._place_grammar(r):
+                if self.staged:
+                    self._admit_staged(r, slot, claimed=True)
+                elif self._place_grammar(r):
                     with self._cond:
                         self._claim_chunked(r, slot, reuse)
                 else:
@@ -2542,12 +2952,15 @@ class InferenceEngine:
             return [(i, r) for i, r in enumerate(self._slots) if r is not None]
 
     def _release_slot(self, i: int, req: _Request) -> None:
-        """Free a finished or cancelled row. Its cache holds K/V for
-        everything but the last delivered token (never fed back): that
-        prefix stays reusable. Caller holds ``_cond``."""
+        """Free a finished, cancelled or parked row. Its cache holds K/V
+        for everything but the last delivered token (never fed back): that
+        prefix stays reusable. The row's occupancy feeds the cost model's
+        service EWMA. Caller holds ``_cond``."""
         self._slots[i] = None
         self._resident[i] = req.hist[:-1]
         self._paged_release_row(i)
+        if req.t_admit is not None:
+            self.cost_model.observe_service(time.perf_counter() - req.t_admit)
         self._queue_snapshot(i)
 
     def _sweep_cancelled(self) -> None:
@@ -2580,6 +2993,81 @@ class InferenceEngine:
             req.out.put(("end", None))
             FLIGHT.record("drain-park", rid=req.rid, engine=self._tag, loop="decode", row=i,
                           emitted=req.emitted)
+
+    # ---- QoS preemption (qos=1) ---------------------------------------------
+
+    def _maybe_flag_preemption_locked(self, head: _Request) -> None:
+        """The picked admission found no usable row (or no pages): with
+        ``qos``, flag ONE strictly lower-class resident row of the head's
+        member for parking at the next turn (:meth:`_sweep_preemptions`).
+        Caller holds ``_cond``. Ensemble engines never preempt (a row is
+        one request across every weight set); one park order is
+        outstanding per beneficiary."""
+        if not self.qos or head.cancel.is_set() or head.preempt_flag:
+            return
+        if self.ensemble != 1:
+            return
+        if any(b is head for _, _, b in self._preempt_pending):
+            return
+        lo = head.member * self.n_slots
+        picked = self._preempt.pick_victim(head, self._slots, lo, lo + self.n_slots)
+        if picked is None:
+            return
+        row, victim = picked
+        victim.preempt_flag = True
+        self._preempt_pending.append((row, victim, head))
+        self._cond.notify_all()
+
+    def _sweep_preemptions(self) -> None:
+        """Execute the park orders at this turn's start. Parking is the
+        ordinary release (``_release_slot``): the victim's K/V stays
+        resident (a paged row's pages stay retained as a reuse donor, a
+        host prefix store snapshots it), dispatches in flight that carry it
+        no longer deliver to it (its epoch moved), and later dispatches
+        leave the row out. The victim then rewinds (``begin_replay``) and
+        re-enters the queue at the head; its resume regenerates the
+        delivered tokens behind the replay guard. An ``engine.preempt``
+        fault mid-park dooms the victim alone."""
+        if not self.qos:
+            return
+        with self._cond:
+            if not self._preempt_pending:
+                return
+            work = list(self._preempt_pending)
+            self._preempt_pending.clear()
+        for row, victim, ben in work:
+            try:
+                faults.fire("engine.preempt")
+                with self._cond:
+                    if self._slots[row] is not victim or victim.cancel.is_set():
+                        victim.preempt_flag = False  # finished or cancelled since
+                        continue
+                    self._release_slot(row, victim)
+                    parked = victim.begin_replay()
+                    victim.preempt_flag = False
+                    self._pending.appendleft(victim)
+                    self.n_preemptions += 1
+                    self.n_preempted_tokens += parked
+                    self._cond.notify_all()
+                if self._draft_rt is not None:
+                    self._draft_rt.reqs[row] = None  # resync the draft row on re-admission
+                obs.PREEMPTIONS.inc(**{"class": victim.sched_class})
+                obs.PREEMPTED_TOKENS.inc(parked)
+                FLIGHT.record("preempt", rid=victim.rid, engine=self._tag, loop="decode",
+                              row=row, victim_class=victim.sched_class, beneficiary=ben.rid,
+                              parked_tokens=parked)
+            except Exception as e:
+                with self._cond:
+                    victim.preempt_flag = False
+                    if self._slots[row] is victim:
+                        self._release_slot(row, victim)
+                    if victim in self._pending:
+                        self._pending.remove(victim)
+                    self.n_failures += 1
+                victim.out.put(("err", e))
+                victim.cancel.set()
+                FLIGHT.record("preempt-fault", rid=victim.rid, engine=self._tag,
+                              loop="decode", row=row, error=f"{type(e).__name__}: {e}"[:200])
 
     def _expire(self, req: _Request, stage: str) -> None:
         """Retire one request past its deadline: the error frame first (the
@@ -2618,7 +3106,7 @@ class InferenceEngine:
             while not done.wait(DEADLINE_WATCH_S):
                 now = time.monotonic()
                 with self._cond:
-                    shed = [r for r in self._pending if _expired(r, now)]
+                    shed = [r for r in self._pending if self.cost_model.expired(r, now)]
                     for r in shed:
                         self._pending.remove(r)
                     held = ([(a.req, "prefill") for a in self._admitting]
@@ -2626,7 +3114,7 @@ class InferenceEngine:
                 for r in shed:
                     self._expire(r, "queue")
                 for r, stage in held:
-                    if _expired(r, now):
+                    if self.cost_model.expired(r, now):
                         self._answer_deadline(r, stage)
 
         th = threading.Thread(target=watch, daemon=True, name="quorum-torch-deadline-watch")
@@ -2644,16 +3132,23 @@ class InferenceEngine:
         admission runs, ``decode`` once active: a 504, the work is lost).
         Runs on the scheduler thread, so it cannot race the cancel sweep.
         Rows the deadline watch answered during a capture are released here
-        too (their consumer may have cancelled since: still a deadline)."""
+        too (their consumer may have cancelled since: still a deadline).
+        The expiry predicate is the cost model's; with ``qos`` the sweep
+        also sets the per-class queue-depth gauge. A staged admission's
+        release marks it dead, so its queued pieces are dropped."""
         now = time.monotonic()
+        expired = self.cost_model.expired
         with self._cond:
-            shed = [r for r in self._pending if _expired(r, now)]
+            shed = [r for r in self._pending if expired(r, now)]
             for r in shed:
                 self._pending.remove(r)
             late_adm = [a for a in self._admitting
-                        if _expired(a.req, now) or a.req.deadline_answered]
+                        if expired(a.req, now) or a.req.deadline_answered]
             late_active = [(i, r) for i, r in enumerate(self._slots)
-                           if r is not None and (_expired(r, now) or r.deadline_answered)]
+                           if r is not None and (expired(r, now) or r.deadline_answered)]
+            depths = self._policy.queue_depths(self._pending) if self.qos else {}
+        for cls, n in depths.items():
+            obs.SCHED_QUEUE_DEPTH.set(n, **{"class": cls})
         for r in shed:
             self._expire(r, "queue")
         for a in late_adm:
@@ -2682,8 +3177,13 @@ class InferenceEngine:
     def _admission_pressure(self) -> bool:
         """A chunked admission is mid-prefill, or a pending request could
         claim a row right now (pending requests with no free row are not
-        pressure: a deeper ring finishes rows sooner). Caller holds
+        pressure: a deeper ring finishes rows sooner). Never under
+        zero-drain staging: that is the knob's contract — the segments run
+        on another stream into the staging cache, and the injection and
+        register are small writes at a turn's boundary. Caller holds
         ``_cond``."""
+        if self.zero_drain:
+            return False
         if self._admitting:
             return True
         s = self.n_slots
@@ -2861,7 +3361,7 @@ class InferenceEngine:
         dispatch's positions). Greedy rows draw nothing."""
         ahead: dict[int, int] = {}
         for c in self._inflight:
-            for _, r in c.active:
+            for _, r in c.carries():
                 ahead[id(r)] = ahead.get(id(r), 0) + c.tokens_ahead
         rows = [(i, r, r.emitted + ahead.get(id(r), 0) + n_pos)
                 for i, r in active if not r.sampler.greedy]
@@ -3673,7 +4173,7 @@ class InferenceEngine:
         self._chunk_ewma_s = (per_chunk if self._chunk_ewma_s == 0.0 else
                               (1 - CHUNK_EWMA_ALPHA) * self._chunk_ewma_s
                               + CHUNK_EWMA_ALPHA * per_chunk)
-        for _, req in c.active:
+        for _, req in c.carries():
             req.n_inflight = max(0, req.n_inflight - 1)
         if c.spec_turn:
             self.n_spec_turns += n_exec
@@ -3742,11 +4242,12 @@ class InferenceEngine:
             if not any(row[c.n_steps] for row in seg):
                 continue  # no row entered this chunk (JAX's skipped chunk)
             n_exec += 1
-            for i, req in c.active:
+            for (i, req), epoch in zip(c.active, c.epochs):
                 k = seg[i][c.n_steps]
                 if not k:
                     continue
-                if self._slots[i] is not req or i in done or req.deadline_answered:
+                if (self._slots[i] is not req or i in done or req.deadline_answered
+                        or req.n_preempts != epoch):
                     self.n_overrun += k
                     continue
                 got = 0
@@ -3826,10 +4327,14 @@ class InferenceEngine:
     def _fail_all(self, exc: Exception) -> None:
         """A scheduler turn failed: fail the requests whose rows were active
         or admitting and forget what every row held; pending requests stay
-        queued."""
+        queued. Staged pieces are dropped; the staging cache itself stays
+        (the zero-drain section gives the rule)."""
         with self._cond:
             doomed = ([r for r in self._slots if r is not None]
                       + [a.req for a in self._admitting])
+            for a in self._admitting:
+                a.dead = True  # their staged pieces are dropped
+            self._handoffs.clear()
             self._slots = [None] * self._rows
             self._admitting.clear()
             self._claimed.clear()
@@ -3903,7 +4408,8 @@ def check_quant_knobs(quant: str | None, kv_quant: str | None) -> tuple[str | No
 
 
 def _check_stack_knobs(members: int, ensemble: int, member_seeds: str,
-                       quorum_dedup: bool, kv_quant: str | None = None) -> None:
+                       quorum_dedup: bool, kv_quant: str | None = None,
+                       staged: bool = False) -> None:
     """The JAX engine's rejections of the stacked knobs, word for word."""
     if members > 1 and ensemble > 1:
         raise ValueError(
@@ -3931,6 +4437,12 @@ def _check_stack_knobs(members: int, ensemble: int, member_seeds: str,
                 "prompt, which broadcasting member 0's K_0 cannot "
                 "produce; add member_seeds=shared (one weight set, M "
                 "sampling streams) or drop quorum_dedup")
+        if staged:
+            raise ValueError(
+                "quorum_dedup=1 does not compose with disagg/zero_drain: "
+                "staged engines admit every prompt through the chunked "
+                "segment path, and the dedup broadcast rides the "
+                "member-coalesced single-shot program — drop one knob")
         if kv_quant:
             raise ValueError(
                 "quorum_dedup=1 does not compose with kv_quant=int8: "
@@ -3971,6 +4483,8 @@ def get_engine(
     prefix_store: str | None = None,
     prefix_store_bytes: int = DEFAULT_PREFIX_STORE_BYTES,
     prefix_store_chunk: int = 0,
+    qos: bool = False,
+    zero_drain: bool = False,
 ) -> InferenceEngine:
     """Engines are keyed by weight identity (spec, seed, device, members,
     ensemble, member_seeds when members > 1, quant), by the cache
@@ -3986,8 +4500,12 @@ def get_engine(
     ``prefill_chunk`` apply at first construction, as do the ``prefix_store``
     knobs (as on ``tpu://``). ``prefix_cache`` is not structural: a ``prefix_cache=0``
     from ANY backend turns reuse off on the shared engine (an explicit
-    opt-out wins over a sharing default). ``device`` defaults to cuda and
-    raises when there is none."""
+    opt-out wins over a sharing default). ``zero_drain`` is structural (the
+    staging cache and the staged routing exist from construction), so it
+    is part of the key. ``qos`` is not: it is host policy only, and an
+    explicit ``qos=True`` from any backend turns it on for the shared
+    engine (an opt-in wins). ``device`` defaults to cuda and raises when
+    there is none."""
     import os
 
     if draft_ckpt and draft_spec is not None:
@@ -3999,7 +4517,8 @@ def get_engine(
            member_seeds if members > 1 else None, bool(quorum_dedup), quant or None,
            kv_quant or None, int(spec_decode), draft_spec,
            int(draft_seed) if draft_spec is not None else None, draft_ckpt,
-           (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None)
+           (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None,
+           bool(zero_drain))
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None:
@@ -4016,9 +4535,10 @@ def get_engine(
                 draft_spec=draft_spec, draft_seed=draft_seed, draft_params=draft_params,
                 kv_pages=kv_pages, kv_page_size=kv_page_size, kv_pool_pages=kv_pool_pages,
                 prefix_store=prefix_store, prefix_store_bytes=prefix_store_bytes,
-                prefix_store_chunk=prefix_store_chunk)
+                prefix_store_chunk=prefix_store_chunk, qos=qos, zero_drain=zero_drain)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
+            eng.qos = eng.qos or bool(qos)
         return eng
 
 
@@ -4069,6 +4589,8 @@ def get_engine_from_ckpt(
     prefix_store: str | None = None,
     prefix_store_bytes: int = DEFAULT_PREFIX_STORE_BYTES,
     prefix_store_chunk: int = 0,
+    qos: bool = False,
+    zero_drain: bool = False,
 ) -> InferenceEngine:
     """An engine over a local HF checkpoint directory
     (``models/hf_loader.py``). Keyed by (real path, effective dtype,
@@ -4079,7 +4601,8 @@ def get_engine_from_ckpt(
     pointing at one checkpoint share its weights on the card, and
     ``dtype=None`` hits the entry of the default dtype, so a checkpoint is
     never loaded twice. The dispatch knobs apply at first
-    construction, ``prefix_cache`` as in :func:`get_engine`. ``ensemble`` >
+    construction, ``prefix_cache``, ``qos`` and ``zero_drain`` (keyed) as
+    in :func:`get_engine`. ``ensemble`` >
     1 is refused before the checkpoint is read (its members are seeded
     random inits; a checkpoint holds one weight set)."""
     import os
@@ -4097,7 +4620,8 @@ def get_engine_from_ckpt(
     eff_dtype = dtype or ModelSpec().dtype
     key = ("ckpt", resolved, eff_dtype, str(dev), quant, kv_quant, int(spec_decode),
            draft_spec, int(draft_seed) if draft_spec is not None else None, draft_resolved,
-           (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None)
+           (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None,
+           bool(zero_drain))
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None:
@@ -4117,9 +4641,11 @@ def get_engine_from_ckpt(
                 spec_decode=spec_decode, draft_spec=draft_spec, draft_seed=draft_seed,
                 draft_params=draft_params, kv_pages=kv_pages, kv_page_size=kv_page_size,
                 kv_pool_pages=kv_pool_pages, prefix_store=prefix_store,
-                prefix_store_bytes=prefix_store_bytes, prefix_store_chunk=prefix_store_chunk)
+                prefix_store_bytes=prefix_store_bytes, prefix_store_chunk=prefix_store_chunk,
+                qos=qos, zero_drain=zero_drain)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
+            eng.qos = eng.qos or bool(qos)
         return eng
 
 

@@ -16,11 +16,12 @@ dispatch's first device work is enqueued:
   ``engine.decode``           decode dispatch (one graph replay on the card)
   ``engine.verify``           speculative verify / fused draft→verify dispatch
   ``engine.snapshot``         prefix-store snapshot worker fetch/insert
+  ``engine.preempt``          QoS preemption: parking one victim row
   ``http.request``            HTTP backend non-streaming request I/O
   ``http.stream``             HTTP backend streaming request I/O
 
-The JAX package's other sites (``engine.kv_handoff``, ``engine.preempt``,
-``router.resume``) belong to paths the port does not have yet.
+The JAX package's other sites (``engine.kv_handoff``, ``router.resume``)
+belong to paths the port does not have yet.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ SITES = (
     "engine.decode",
     "engine.verify",
     "engine.snapshot",
+    "engine.preempt",
     "http.request",
     "http.stream",
 )

@@ -111,11 +111,37 @@ KV_PAGE_COW_COPIES = METRICS.counter(
     "(one page) before the new tenant's suffix writes. Full pages "
     "alias by reference and never pay this.")
 
-# Wall time the decode ring spent clamped to depth 1 for an admission.
+# Wall time the decode ring spent clamped to depth 1 for an admission, and
+# (zero_drain=1) staged admissions that registered onto a live ring.
 ADMISSION_STALL_SECONDS = METRICS.counter(
     "quorum_tpu_admission_stall_seconds_total",
     "Wall time the decode dispatch ring spent clamped to depth 1 for an "
-    "admission (the drain-based coupling).")
+    "admission (the drain-based coupling). Structurally 0 under "
+    "zero_drain=1, where admission pressure never clamps the ring.")
+ADMISSION_OVERLAP = METRICS.counter(
+    "quorum_tpu_admission_overlap_total",
+    "Staged-injection admissions that registered onto a live ring "
+    "(in-flight dispatches or active resident rows the admission never "
+    "drained or clamped). Structurally 0 on drain-based engines, whose "
+    "admissions never ride the injection queue.")
+
+# The QoS scheduler (qos=1, sched/): mid-decode preemptions by victim class,
+# the delivered tokens they parked (regenerated on resume), and the pending
+# queue's depth per priority class (refreshed each scheduler turn).
+PREEMPTIONS = METRICS.counter(
+    "quorum_tpu_preemptions_total",
+    "Mid-decode preemptions by victim class (class=batch|background): a "
+    "lower-class row parked at a scheduler turn so a higher-class "
+    "admission could take its slot (qos=1 engines only).")
+PREEMPTED_TOKENS = METRICS.counter(
+    "quorum_tpu_preempted_tokens_total",
+    "Generated tokens parked at preemption — already delivered to their "
+    "consumers, regenerated token-for-token on resume (the replay the "
+    "engine checks against the delivered stream).")
+SCHED_QUEUE_DEPTH = METRICS.gauge(
+    "quorum_tpu_sched_queue_depth",
+    "Pending admissions by priority class "
+    "(class=interactive|batch|background).")
 
 # The host prefix store (prefix_store=host).
 PREFIX_STORE_HITS = METRICS.counter(

@@ -267,7 +267,8 @@ _ENGINE_GAUGES = frozenset({
     "slots", "members", "busy_slots", "admitting", "pending", "queue_limit",
     "decode_pipeline", "decode_loop", "inflight_chunks", "prefix_store_bytes",
     "prefix_store_entries", "breaker_state", "kv_pages", "kv_page_size",
-    "kv_pages_allocated", "kv_pages_free", "decode_graph_pool_bytes", "draining"})
+    "kv_pages_allocated", "kv_pages_free", "decode_graph_pool_bytes", "draining", "qos",
+    "zero_drain"})
 
 
 def _distinct_engines(reg: BackendRegistry):
@@ -285,8 +286,8 @@ def _distinct_engines(reg: BackendRegistry):
 
 def _engine_health(reg: BackendRegistry) -> tuple[str, list[dict]]:
     """One check row per distinct engine. ``unhealthy``: a serving thread
-    (scheduler, prefix-store snapshot worker) is dead, and only a restart
-    recovers. ``degraded``: the breaker is not closed, the queue is full or
+    (scheduler, prefill scheduler, prefix-store snapshot worker) is dead,
+    and only a restart recovers. ``degraded``: the breaker is not closed, the queue is full or
     the engine is draining — alive but shedding — or
     (``QUORUM_TPU_SLO_READY_BURN``) an SLO class burns past its
     threshold."""
@@ -297,7 +298,8 @@ def _engine_health(reg: BackendRegistry) -> tuple[str, list[dict]]:
         checks.append(row)
     status = "healthy"
     for row in checks:
-        if not row["scheduler_alive"] or not row["snapshot_worker_alive"]:
+        if (not row["scheduler_alive"] or not row.get("prefill_scheduler_alive", True)
+                or not row["snapshot_worker_alive"]):
             return "unhealthy", checks
         if (row["breaker"] != "closed" or row["pending"] >= row["queue_limit"]
                 or row.get("draining")):
@@ -452,15 +454,22 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
     @app.route("GET", "/debug/telemetry", "/v1/debug/telemetry")
     async def debug_telemetry(request: Request) -> Response:
         """A compact host-side snapshot (no device sync): SLO burn, queue
-        depth, breaker states, per-family latency, prefix-store bytes and
-        a sample of this process's ``perf_counter`` clock. ``sched`` stays
-        empty: the port's engines have no QoS cost model."""
+        depth, breaker states, per-family latency, prefix-store bytes, the
+        QoS block per distinct engine (``qos``, the cost model's EWMAs and
+        shed counters, the pending queue by class) and a sample of this
+        process's ``perf_counter`` clock."""
         _, reg = await current()
         status, checks = _engine_health(reg)
         store_bytes = 0
-        for _, engine in _distinct_engines(reg):
+        sched = {}
+        for name, engine in _distinct_engines(reg):
             if engine.prefix_store is not None:
                 store_bytes += int(engine.prefix_store.bytes_held or 0)
+            entry = dict(engine.cost_model.snapshot())
+            entry["qos"] = bool(engine.qos)
+            with engine._cond:
+                entry["queue_depths"] = engine._policy.queue_depths(engine._pending)
+            sched[name] = entry
         return JSONResponse({
             "clock": time.perf_counter(),
             "time": time.time(),
@@ -471,7 +480,7 @@ def create_app(config: Config | None = None, registry: BackendRegistry | None = 
             "latency": {name: engine.latency.snapshot()
                         for name, engine in _distinct_engines(reg)},
             "prefix_store_bytes": store_bytes,
-            "sched": {},
+            "sched": sched,
         })
 
     @app.route("POST", "/debug/profile", "/v1/debug/profile")

@@ -551,6 +551,7 @@ def test_kv_quant_url_builds_its_own_engine():
     """``kv_quant`` is structural: the same model with and without it are
     two engines; two backends with it share one."""
     base = "cuda://llama-tiny?device=cpu&n_layers=1&slots=1"
+    shutdown_all_engines()  # engines an earlier file on this worker left cached
     try:
         plain = CudaBackend.from_spec(_spec(base))
         q1 = CudaBackend.from_spec(_spec(base + "&kv_quant=int8"))

@@ -47,22 +47,19 @@ PORT_ONLY = {f"quorum_tpu_engine_{k}" for k in (
     "prefix_store_snapshot_bytes_total", "quorum_dedup_prefills_total",
     "quorum_dedup_tokens_total", "spec_draft_steps_total")}
 # The JAX package's families of paths the port does not serve yet, by the
-# roadmap item that brings them: QoS (7), the router and cross-cell quorum
-# (8), disaggregated/pipelined serving and the compile budget (10).
+# roadmap item that brings them: the router and cross-cell quorum (8),
+# disaggregated/pipelined serving and the compile budget (10).
 DEFERRED = {f"quorum_tpu_engine_{k}" for k in (
-    "qos", "preemptions_total", "preempted_tokens_total", "predictive_sheds_total",
     "disagg", "decode_pp", "prefill_sp", "prefill_group_devices", "decode_group_devices",
-    "prefill_group_active", "decode_group_active", "zero_drain", "admission_overlap_total",
+    "prefill_group_active", "decode_group_active",
     "kv_handoffs_total", "kv_handoff_bytes_total", "kv_handoff_seconds_total")} | {
     f"quorum_tpu_{k}" for k in (
-        "sched_queue_depth", "preemptions_total", "preempted_tokens_total",
         "router_requests_total", "router_affinity_hits_total", "router_affinity_misses_total",
         "router_failovers_total", "router_migrated_bytes_total", "router_migrated_chains_total",
         "router_stream_resumes_total", "router_replica_burn", "router_burn_demotions_total",
         "telemetry_poll_seconds", "quorum_degraded_total", "quorum_requests_total",
         "kv_handoff_bytes_total", "kv_handoff_seconds", "decode_stage_occupancy",
-        "prefill_group_active", "decode_group_active", "admission_overlap_total",
-        "recompiles_total")}
+        "prefill_group_active", "decode_group_active", "recompiles_total")}
 
 
 @pytest.fixture(autouse=True)

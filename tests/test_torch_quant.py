@@ -463,6 +463,7 @@ def test_quant_urls_key_their_own_engines():
     two backends with it share one. Both knobs are served options now."""
     assert not {"quant", "kv_quant"} & cuda_backend._NOT_YET
     base = "cuda://llama-tiny?device=cpu&n_layers=1&slots=1"
+    shutdown_all_engines()  # engines an earlier file on this worker left cached
     try:
         plain = CudaBackend.from_spec(_spec(base))
         q1 = CudaBackend.from_spec(_spec(base + "&quant=int8"))

@@ -94,10 +94,10 @@ def test_faults_arm_fire_autodisarm():
 
 
 @pytest.mark.parametrize("site", ["engine.nonexistent", "engine.kv_handoff",
-                                  "engine.preempt", "router.resume"])
+                                  "router.resume"])
 def test_faults_reject_unknown_and_deferred_sites(site):
     """A site the port does not fire is refused like a typo; the JAX
-    package has the deferred three."""
+    package has the deferred two."""
     with pytest.raises(ValueError):
         faults.arm(site)
     assert (site in jax_faults.SITES) == (site != "engine.nonexistent")
@@ -106,8 +106,7 @@ def test_faults_reject_unknown_and_deferred_sites(site):
 
 
 def test_fault_sites_are_the_jax_package_sites_the_port_fires():
-    assert set(faults.SITES) == set(jax_faults.SITES) - {
-        "engine.kv_handoff", "engine.preempt", "router.resume"}
+    assert set(faults.SITES) == set(jax_faults.SITES) - {"engine.kv_handoff", "router.resume"}
 
 
 def test_faults_delay_mode_sleeps_instead_of_raising():

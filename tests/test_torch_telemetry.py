@@ -360,7 +360,10 @@ async def test_timeline_and_telemetry_routes_equal_jax():
     assert bad.json()["error"]["type"] == jbad.json()["error"]["type"]
     assert set(tel) == set(jtel)
     assert tel["breaker"] == jtel["breaker"] == {"T": "closed"}
-    assert tel["sched"] == {} and tel["status"] == jtel["status"] == "healthy"
+    assert set(tel["sched"]) == set(jtel["sched"]) == {"T"}
+    assert set(tel["sched"]["T"]) == set(jtel["sched"]["T"])
+    assert tel["sched"]["T"]["qos"] is jtel["sched"]["T"]["qos"] is False
+    assert tel["status"] == jtel["status"] == "healthy"
     assert tel["queue_depth"] == jtel["queue_depth"] == 0
     assert set(tel["latency"]["T"]) >= {"single_shot", "plain"}
 
