@@ -165,7 +165,27 @@ result line:
               without a spare), a stream resumed after its replica dies, a
               drain of two live streams, the fleet timeline; K1 and K2
               launches exact over the three engines;
- 12. kernels  one line listing the three kernels (launches per phase,
+ 12. train    training (run last; the card's free memory printed first):
+              (a) llama-3-8b, all 32 layers, bf16, seed 0, remat, three
+              steps of the default recipe on one repeated 1 × 2 048 batch
+              through make_train_step: the loss finite and falling, every
+              leaf's step-1 gradient finite and nonzero (each layer's
+              slice), forward_logits on the K1 path refusing the grad
+              leaves; ms per step (median of steps 2–3; forward + backward
+              and optimizer apart, split by the step's grads_hook),
+              tokens/s, the share of the step's bound, peak memory; (b)
+              llama-tiny in float32, three steps on the card against the
+              CPU; (c) llama-3-8b widths at 2 layers: save after step 2,
+              restore, step 3 equal to the uninterrupted one bit for bit
+              (bytes, seconds, GB/s), accum_steps=2 against one step over
+              both micro-batches (the updates' L2 difference a share of
+              the step's, two planted faults failing the same bound),
+              restore_params growing memory by the params alone, an engine
+              on them serving 8 greedy tokens against the plain forward's
+              argmax chain, its log-probabilities held against the
+              forward's (K1 and K2 launches exact); the training steps
+              launch no kernel;
+ 13. kernels  one line listing the three kernels (launches per phase,
               errors, timings, route, share of the bound, how the main path
               issues them: K1 eagerly, K2 and K2q8 inside decode-graph
               replays);
@@ -3800,9 +3820,9 @@ def _write_hf_checkpoint(torch, path: str, spec, params, model_type: str,
     """The tree as an HF checkpoint directory: ``config.json``, the tensors
     split by bytes over ``n_shards`` ``*.safetensors`` files (8-byte
     little-endian header length, JSON header, raw little-endian bytes) and
-    their index. A writer of this script's own: the package has none.
+    their index (each shard by ``models/hf_loader.write_safetensors``).
     Returns the bytes written."""
-    import struct
+    from quorum_tpu_torch.models.hf_loader import HostStage, write_safetensors
 
     cfg = {"model_type": model_type, "vocab_size": spec.vocab_size,
            "hidden_size": spec.d_model, "intermediate_size": spec.d_ff,
@@ -3814,7 +3834,6 @@ def _write_hf_checkpoint(torch, path: str, spec, params, model_type: str,
         cfg.update(num_local_experts=spec.n_experts, num_experts_per_tok=spec.experts_per_token)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cfg, f)
-    tags = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
     tensors = list(_hf_tensors(spec, params))
     total = sum(t.numel() * t.element_size() for _, t in tensors)
     shards, acc = [[] for _ in range(n_shards)], 0
@@ -3827,23 +3846,9 @@ def _write_hf_checkpoint(torch, path: str, spec, params, model_type: str,
         json.dump({"metadata": {"total_size": total},
                    "weight_map": {name: fname for fname, sh in zip(files, shards)
                                   for name, _ in sh}}, f)
-    written = 0
-    for fname, shard in zip(files, shards):
-        header, off = {}, 0
-        for name, t in shard:
-            n = t.numel() * t.element_size()
-            header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape),
-                            "data_offsets": [off, off + n]}
-            off += n
-        raw = json.dumps(header, separators=(",", ":")).encode()
-        raw += b" " * (-len(raw) % 8)
-        with open(os.path.join(path, fname), "wb") as f:
-            f.write(struct.pack("<Q", len(raw)))
-            f.write(raw)
-            for _, t in shard:
-                f.write(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
-        written += 8 + len(raw) + off
-    return written
+    stage = HostStage()
+    return sum(write_safetensors(os.path.join(path, fname), dict(shard), stage=stage)
+               for fname, shard in zip(files, shards))
 
 
 def _rss_gb() -> tuple[float | None, float | None]:
@@ -6649,6 +6654,450 @@ def phase_router(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     return info
 
 
+# ---- train (training on one card) -----------------------------------------
+
+TRAIN_TOKENS = 2048
+TRAIN_STEPS = 3
+# Leg (b), the card's float32 steps against the CPU's: losses within 1e-5
+# relative; params within 1e-5 of each leaf's scale plus 5 % of the steps'
+# learning rate (Adam's m / (sqrt(v) + eps) on an element whose gradient is
+# near eps, 1e-8, is decided by rounding).
+TRAIN_PARITY_REL = 1e-5
+TRAIN_ADAM_SLACK = 0.05
+# Leg (c), accumulation of two micro-batches against one step over both, bf16
+# params: the two updates' difference as a share of the big step's, in the
+# L2 norm over every element (‖Δacc − Δbig‖ / ‖Δbig‖). A fault that applies
+# no update reads 1; one that applies a single micro-batch's about 1 too.
+TRAIN_ACCUM_REL = 0.2
+# Leg (c), served greedy tokens against the argmax chain of the plain-attention
+# forward, the engine's log-probabilities of its top TRAIN_SERVE_TOP ids a
+# step held against the forward's (see _serve_check).
+TRAIN_SERVE_TOKENS = 8
+TRAIN_SERVE_TOP = 20
+
+def _sync(torch, cpu: bool) -> None:
+    if not cpu:
+        torch.cuda.synchronize()
+
+
+def _train_tokens(torch, vocab: int, batch: int, n: int, seed: int, dev):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(1, vocab, (batch, n), generator=g).to(dev)
+
+
+def _tree_to(torch, tree, dev):
+    """A training state's tree on ``dev``: every tensor of rank ≥ 1 moved
+    (the counts and the step stay 0-d on the host)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev, copy=True) if tree.dim() else tree.clone()
+    if isinstance(tree, dict):
+        return {k: _tree_to(torch, v, dev) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_to(torch, v, dev) for v in tree))
+    return tuple(_tree_to(torch, v, dev) for v in tree)
+
+
+def _tree_bytes(tree) -> int:
+    from quorum_tpu_torch.training.checkpoint import _named
+
+    return sum(t.numel() * t.element_size() for _, t in _named(tree))
+
+
+def _train_bound(spec, params, batch: int, t: int) -> dict:
+    """The least time one step could take on the card: the products of the
+    forward, the backward (twice the forward) and remat's recomputed forward,
+    8·N·tokens for N non-embedding parameters (the lm head included), and
+    full plain attention (no causal skip: QKᵀ and PV, 4·T²·d a layer a
+    forward, four forwards' worth) at the bf16 peak; plus AdamW's traffic
+    (read p, g, m, v; write p, m, v) at the memory rate."""
+    from quorum_tpu_torch.training.optim import tree_leaves
+
+    leaves = tree_leaves(params)
+    n_all = sum(x.numel() for x in leaves)
+    n = n_all - params["tok_emb"].numel()
+    d = spec.n_heads * spec.head_dim
+    flops = 8 * n * batch * t + 16 * spec.n_layers * batch * t * t * d
+    adam_bytes = 7 * sum(x.numel() * x.element_size() for x in leaves)
+    ops_s, bytes_s = flops / PEAK_FLOPS[spec.dtype], adam_bytes / HBM_BYTES_PER_S
+    return {"flops": flops, "non_embedding_params": n, "adamw_bytes": adam_bytes,
+            "ops_bound_s": ops_s, "adamw_bound_s": bytes_s, "bound_s": ops_s + bytes_s}
+
+
+def _train_full(torch, cpu: bool, spec, dev, n_tokens: int) -> dict:
+    """Leg (a): ``TRAIN_STEPS`` steps of the default recipe (remat) on one
+    repeated batch of 1 × ``n_tokens`` seeded tokens, each through
+    ``make_train_step``, its forward + backward and its optimizer update
+    timed apart by its ``grads_hook``. The loss is finite and falls at every
+    step; every leaf's step-1 gradient (every layer's slice of a block leaf)
+    is finite and nonzero; ``forward_logits`` on its kernel path refuses the
+    grad leaves. The checks run in step 1's hook and are left out of its
+    time."""
+    from quorum_tpu_torch.models import transformer
+    from quorum_tpu_torch.training import trainer
+    from quorum_tpu_torch.training.optim import tree_leaves
+
+    marks = {}
+    grad_report = {}
+
+    def hook(state, loss, grads):
+        _sync(torch, cpu)
+        marks["grads"] = time.perf_counter()
+        if not grad_report:
+            grad_report.update(_check_grads(torch, grads))
+            leaves = trainer._grad_leaves(state.params, grads)
+            try:
+                transformer.forward_logits(leaves, spec, tokens[:, :16])
+                refused = None
+            except RuntimeError as e:
+                refused = str(e)
+            require(refused is not None and "plain_attention=True" in refused,
+                    f"train (a): forward_logits on the kernel path did not refuse grad: {refused}")
+            del leaves
+            _sync(torch, cpu)
+        marks["update"] = time.perf_counter()
+
+    opt = trainer.make_optimizer()
+    step = trainer.make_train_step(spec, device=dev, optimizer=opt, grads_hook=hook)
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.train_init(spec, device=dev, seed=0, optimizer=opt)
+    _sync(torch, cpu)
+    init_s = time.perf_counter() - t0
+    tokens = _train_tokens(torch, spec.vocab_size, 1, n_tokens, 0, dev)
+    losses, fwd_bwd_s, opt_s, step_s = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        _sync(torch, cpu)
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        _sync(torch, cpu)
+        t1 = time.perf_counter()
+        losses.append(float(loss))
+        fwd_bwd_s.append(marks["grads"] - t0)
+        opt_s.append(t1 - marks["update"])
+        step_s.append((t1 - t0) - (marks["update"] - marks["grads"]))
+    params = state.params
+    require(all(math.isfinite(x) for x in losses), f"train (a): losses {losses}")
+    require(all(b < a for a, b in zip(losses, losses[1:])), f"train (a): loss did not fall: {losses}")
+    ms = statistics.median(step_s[1:]) * 1e3
+    bound = _train_bound(spec, params, 1, n_tokens - 1)
+    state_bytes = 4 * _tree_bytes(params)  # params, gradients, mu, nu
+    out = {"model": f"{spec.family} d={spec.d_model} L={spec.n_layers} V={spec.vocab_size}",
+           "dtype": spec.dtype, "tokens_per_step": n_tokens, "remat": True,
+           "init_s": round(init_s, 3), "losses": losses,
+           "step_ms": [round(s * 1e3, 2) for s in step_s],
+           "fwd_bwd_ms": [round(s * 1e3, 2) for s in fwd_bwd_s],
+           "optimizer_ms": [round(s * 1e3, 2) for s in opt_s],
+           "ms_per_step": round(ms, 2), "tokens_per_s": round(n_tokens / ms * 1e3, 1),
+           "bound_ms": round(bound["bound_s"] * 1e3, 2),
+           "ops_bound_ms": round(bound["ops_bound_s"] * 1e3, 2),
+           "adamw_bound_ms": round(bound["adamw_bound_s"] * 1e3, 2),
+           "pct_of_bound": round(100 * bound["bound_s"] * 1e3 / ms, 1),
+           "flops_per_step": bound["flops"], "non_embedding_params": bound["non_embedding_params"],
+           "state_gb": round(state_bytes / 1e9, 3), "grads": grad_report,
+           "kernel_path_refused": True,
+           "leaves": len(tree_leaves(params))}
+    if not cpu:
+        out.update(peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+                   reserved_peak_gb=round(torch.cuda.max_memory_reserved() / 1e9, 3))
+    return out
+
+
+def _check_grads(torch, grads) -> dict:
+    """Every leaf's gradient finite and nonzero, each layer's slice of a
+    block leaf on its own (norms in f32, one slice at a time)."""
+    norms, names = [], []
+    for name, g in grads.items():
+        if name == "blocks" or g is None:
+            continue
+        norms.append(torch.linalg.vector_norm(g.float()))
+        names.append(name)
+    for name, g in grads["blocks"].items():
+        if g is None:
+            continue
+        for l in range(g.shape[0]):
+            norms.append(torch.linalg.vector_norm(g[l].float()))
+            names.append(f"blocks.{name}[{l}]")
+    vals = torch.stack(norms).cpu().tolist()
+    bad = [(n, v) for n, v in zip(names, vals) if not (math.isfinite(v) and v > 0)]
+    require(not bad, f"train (a): gradients not finite and nonzero: {bad[:8]}")
+    return {"slices_checked": len(vals), "min_norm": min(vals), "max_norm": max(vals)}
+
+
+def _train_parity(torch, cpu: bool, dev) -> dict:
+    """Leg (b): llama-tiny in float32, the same three steps (default recipe,
+    remat) on the card and on the CPU from the same state."""
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.training import trainer
+    from quorum_tpu_torch.training.checkpoint import _named
+
+    spec = resolve_spec("llama-tiny", {"dtype": "float32", "max_seq": "64"})
+    host = trainer.train_init(spec, device="cpu", seed=0)
+    card = _tree_to(torch, host, dev)
+    tokens = _train_tokens(torch, spec.vocab_size, 2, 48, 1, "cpu")
+    tokens[1, -9:] = 0  # right padding on one row
+    steps = {d: trainer.make_train_step(spec, device=d) for d in ("cpu", dev)}
+    worst_loss = 0.0
+    for _ in range(TRAIN_STEPS):
+        host, lh = steps["cpu"](host, tokens)
+        card, lc = steps[dev](card, tokens)
+        rel = abs(float(lc) - float(lh)) / abs(float(lh))
+        require(rel <= TRAIN_PARITY_REL, f"train (b): loss {float(lc)} on the card, "
+                                         f"{float(lh)} on the CPU")
+        worst_loss = max(worst_loss, rel)
+    slack = TRAIN_ADAM_SLACK * 3e-4 * TRAIN_STEPS
+    worst = 0.0
+    for (name, a), (_, b) in zip(_named(card.params), _named(host.params)):
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max())
+        require(err <= TRAIN_PARITY_REL * scale + slack,
+                f"train (b): {name} differs by {err} (scale {scale})")
+        worst = max(worst, err / scale)
+    return {"model": "llama-tiny", "dtype": "float32", "steps": TRAIN_STEPS,
+            "loss_max_rel_err": worst_loss, "params_max_rel_err": worst,
+            "tolerance": f"{TRAIN_PARITY_REL} relative (+{TRAIN_ADAM_SLACK} lr a step)"}
+
+
+def _train_checkpoint(torch, cpu: bool, spec, dev, n_tokens: int, root: str) -> dict:
+    """Leg (c) at ``spec`` (llama-3-8b widths, 2 layers, bf16): save after
+    step 2, restore, step 3 equal to the uninterrupted step 3 bit for bit;
+    accumulation over two equal micro-batches against one step over both;
+    ``restore_params`` growing device memory by the params alone; an
+    engine on the restored params serving greedy tokens checked against the
+    argmax chain of the plain-attention forward, its K1 and K2 launches
+    exact."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.transformer import forward_logits
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.training import checkpoint as ckpt
+    from quorum_tpu_torch.training import trainer
+
+    out = {"model": f"{spec.family} d={spec.d_model} L={spec.n_layers}", "dtype": spec.dtype}
+    tokens = _train_tokens(torch, spec.vocab_size, 1, n_tokens, 2, dev)
+    step = trainer.make_train_step(spec, device=dev)
+    state = trainer.train_init(spec, device=dev, seed=0)
+    for _ in range(2):
+        state, _ = step(state, tokens)
+    path = os.path.join(root, "ckpt")
+    _sync(torch, cpu)
+    t0 = time.perf_counter()
+    nbytes = ckpt.save_checkpoint(path, state)
+    save_s = time.perf_counter() - t0
+    state, loss3 = step(state, tokens)
+    t0 = time.perf_counter()
+    restored = ckpt.restore_checkpoint(path, spec, device=dev)
+    _sync(torch, cpu)
+    restore_s = time.perf_counter() - t0
+    restored, loss3r = step(restored, tokens)
+    a, b = list(ckpt._named(restored)), list(ckpt._named(state))
+    require([n for n, _ in a] == [n for n, _ in b] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+        and torch.equal(loss3, loss3r), "train (c): the resumed step 3 differs from the "
+                                        "uninterrupted one")
+    out.update(checkpoint_bytes=nbytes, save_s=round(save_s, 3), restore_s=round(restore_s, 3),
+               save_gb_per_s=round(nbytes / save_s / 1e9, 3),
+               restore_gb_per_s=round(nbytes / restore_s / 1e9, 3),
+               resume_bit_for_bit=True, leaves_compared=len(a), loss3=float(loss3))
+    del state, restored, a, b
+
+    # accumulation: two micro-batches of equal real-token counts (no pads)
+    out.update(_train_accumulation(torch, spec, dev, n_tokens))
+    gc.collect()
+
+    # restore_params: the params' bytes, nothing more
+    _sync(torch, cpu)
+    before = None if cpu else torch.cuda.memory_allocated()
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ckpt.restore_params(path, spec, device=dev)
+    _sync(torch, cpu)
+    out["restore_params_s"] = round(time.perf_counter() - t0, 3)
+    pbytes = _tree_bytes(params)
+    if not cpu:
+        grown = torch.cuda.memory_allocated() - before
+        peak = torch.cuda.max_memory_allocated() - before
+        n_leaves = len(list(ckpt._named(params)))
+        require(pbytes <= grown <= pbytes + 512 * n_leaves and peak <= grown + 512,
+                f"train (c): restore_params grew device memory by {grown} B (peak {peak}) "
+                f"for {pbytes} B of params")
+        out.update(restore_params_grown_bytes=grown, restore_params_peak_bytes=peak)
+    out["params_bytes"] = pbytes
+
+    # serve from the restored params
+    prompt = _train_tokens(torch, spec.vocab_size, 1, 40, 4, "cpu")[0].tolist()
+    eng = InferenceEngine(spec, device=dev, params=params)
+    try:
+        c0 = _launch_counts()
+        req = eng.submit(prompt, max_new_tokens=TRAIN_SERVE_TOKENS,
+                         sampler=SamplerConfig(temperature=0.0), logprobs=TRAIN_SERVE_TOP)
+        got = list(eng.stream_results(req))
+        m = eng.metrics()
+        c1 = _launch_counts()
+    finally:
+        eng.shutdown()
+    launches = _require_exact_launches(cpu, spec.n_layers, "train (c) serve", c0, c1,
+                                       m["admission_dispatches_total"], _k2_steps(m))
+    require(len(got) == TRAIN_SERVE_TOKENS and len(req.lp) == TRAIN_SERVE_TOKENS,
+            f"train (c): served {len(got)} tokens, {len(req.lp)} logprob records")
+    with torch.no_grad():
+        seq = torch.tensor([prompt + got], device=dev)
+        logits = forward_logits(params, spec, seq, plain_attention=True)[0, len(prompt) - 1:-1]
+        plain = torch.log_softmax(logits.float(), -1).cpu()
+    out.update(_serve_check(torch, got, req.lp, plain), serve_launches=launches)
+    return out
+
+
+def _serve_check(torch, got: list[int], records, plain) -> dict:
+    """The served greedy tokens against the argmax chain of the plain
+    forward's log-probabilities ``plain`` [n, V] over the served sequence.
+    The engine's own log-probabilities (``records``: its top
+    ``TRAIN_SERVE_TOP`` ids and values a step) are held against the plain
+    ones at the same ids: the largest difference, δ, must stay within the
+    model tolerance. A served token may differ from the plain argmax ``a``
+    only where the engine recorded ``a`` too and the plain gap between them
+    is within twice the difference measured at those two ids at that step
+    (each path's values within it of the other's: a near-tie that
+    rounding decides), never by a fixed tolerance over the vocabulary."""
+    deltas, ties, gaps = [], [], []
+    argmax = plain.argmax(-1).tolist()
+    for i, (tok, (tok_lp, ids, lps)) in enumerate(zip(got, records)):
+        ids = [int(x) for x in ids]
+        lps = torch.tensor([float(x) for x in lps])
+        require(float(tok_lp) == float(lps[0]), f"train (c): step {i} served {tok} at "
+                                                f"{tok_lp}, below the engine's top {lps[0]}")
+        diff = (lps - plain[i, ids]).abs()
+        tok_diff = abs(float(tok_lp) - float(plain[i, tok]))
+        deltas.append(max(float(diff.max()), tok_diff))
+        a = argmax[i]
+        if tok == a:
+            continue
+        require(a in ids, f"train (c): step {i}: the plain argmax {a} is not among the "
+                          f"engine's top {len(ids)} ids {ids}")
+        step_delta = max(float(diff[ids.index(a)]), tok_diff)
+        gap = float(plain[i, a] - plain[i, tok])
+        require(gap <= 2 * step_delta, f"train (c): step {i} served {tok} (plain gap {gap}) "
+                                       f"over {a}; the paths differ by {step_delta} there")
+        ties.append(i)
+        gaps.append(gap)
+    delta = max(deltas)
+    require(delta <= MODEL_TOL["bfloat16"],
+            f"train (c): the engine's log-probabilities differ from the plain forward's by "
+            f"{delta} (> {MODEL_TOL['bfloat16']})")
+    return {"served": got, "argmax_chain": argmax, "near_ties": ties, "near_tie_gaps": gaps,
+            "serve_logprob_max_diff": delta, "serve_logprob_diff_by_step": deltas,
+            "serve_ids_compared": sum(len(r[1]) + 1 for r in records)}
+
+
+def _train_accumulation(torch, spec, dev, n_tokens: int) -> dict:
+    """``accum_steps=2`` over two micro-batches of equal real-token counts
+    against one step over both (grad_clip 1.0, the default rate), both from
+    the seed's params. The moves of the two from the start are compared as
+    a whole: ``‖Δacc − Δbig‖ / ‖Δbig‖`` within ``TRAIN_ACCUM_REL`` (Adam's
+    first update is about ±lr whatever the gradient's size, so a sign that
+    rounding decides moves an element by 2·lr: an element-wise tolerance
+    would have to pass anything). Two planted faults must fail the same
+    bound, showing it can: no update applied (the params left at the
+    start), and the update of one micro-batch alone (a plain step on the
+    second)."""
+    from quorum_tpu_torch.training import trainer
+    from quorum_tpu_torch.training.checkpoint import _named
+
+    both = _train_tokens(torch, spec.vocab_size, 2, n_tokens // 2 + 1, 3, dev)
+
+    def run(accum: int, batches):
+        opt = trainer.make_optimizer(grad_clip=1.0, accum_steps=accum)
+        st = trainer.train_init(spec, device=dev, seed=0, optimizer=opt)
+        step = trainer.make_train_step(spec, device=dev, optimizer=opt)
+        for b in batches:
+            st, _ = step(st, b)
+        return dict(_named(st.params))
+
+    base = dict(_named(trainer.train_init(spec, device=dev, seed=0).params))
+    big = run(1, [both])
+    big_sq = sum(float((big[n].float() - base[n].float()).square().sum()) for n in base)
+
+    def rel(params) -> float:
+        sq = sum(float((params[n].float() - big[n].float()).square().sum()) for n in base)
+        return math.sqrt(sq / big_sq)
+
+    opt = trainer.make_optimizer(grad_clip=1.0, accum_steps=2)
+    acc = trainer.train_init(spec, device=dev, seed=0, optimizer=opt)
+    acc_step = trainer.make_train_step(spec, device=dev, optimizer=opt)
+    acc, _ = acc_step(acc, both[:1])
+    require(all(torch.equal(t, base[n]) for n, t in _named(acc.params)),
+            "train (c): the first micro-step moved the params")
+    acc, _ = acc_step(acc, both[1:])
+    got = rel(dict(_named(acc.params)))
+    del acc
+    faults = {"no_update": rel(base), "one_micro_batch": rel(run(1, [both[1:]]))}
+    require(got <= TRAIN_ACCUM_REL, f"train (c): the accumulated update differs from the big "
+                                    f"step's by {got} of its size (> {TRAIN_ACCUM_REL})")
+    require(all(v > TRAIN_ACCUM_REL for v in faults.values()),
+            f"train (c): a planted fault passes the accumulation bound: {faults}")
+    return {"accum_rel_diff": got, "accum_tolerance": TRAIN_ACCUM_REL,
+            "accum_planted_faults_rel": faults,
+            "big_step_move_norm": math.sqrt(big_sq),
+            "big_step_max_move": max(float((big[n].float() - base[n].float()).abs().max())
+                                     for n in base)}
+
+
+def phase_train(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+    """Training on the card (run last): (a) llama-3-8b at all 32 layers,
+    bf16, 3 steps on 1 × 2 048 tokens; (b) llama-tiny float32, card against
+    CPU; (c) llama-3-8b widths at 2 layers: checkpoint resume, accumulation,
+    serve from the checkpoint. The training steps launch no kernel (plain attention): the phase's K1 and K2 launches are
+    leg (c)'s engine's alone."""
+    import shutil
+    import tempfile
+
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+
+    dev = "cpu" if cpu else "cuda"
+    _require_card_empty(torch, cpu, "train")
+    t_phase = time.perf_counter()
+    out = {"measured_on": f"{device_info['name']} ({device_info['power_limit']})"}
+    if not cpu:
+        free, total = torch.cuda.mem_get_info()
+        out.update(free_gb_at_start=round(free / 1e9, 3), total_gb=round(total / 1e9, 3))
+    for w in (flash_prefill_attention, flash_decode_attention, flash_decode_q8_attention):
+        w.launches = 0
+    flash_prefill_attention.launches_by_route.update(wgmma=0, fma=0)
+    model = "llama-tiny" if tiny else "llama-3-8b"
+    n_tokens = 64 if tiny else TRAIN_TOKENS
+    timings = {}
+    t0 = time.perf_counter()
+    out["a"] = _train_full(torch, cpu, resolve_spec(model, {}), dev, n_tokens)
+    timings["a"] = time.perf_counter() - t0
+    gc.collect()
+    _require_card_empty(torch, cpu, "train after (a)")
+    t0 = time.perf_counter()
+    out["b"] = _train_parity(torch, cpu, dev)
+    timings["b"] = time.perf_counter() - t0
+    require(_launch_counts() == {"flash_prefill": 0, "flash_decode": 0, "flash_decode_q8": 0},
+            f"train: the training steps launched kernels: {_launch_counts()}")
+    root = tempfile.mkdtemp(prefix="quorum_train_")
+    t0 = time.perf_counter()
+    try:
+        out["c"] = _train_checkpoint(torch, cpu, resolve_spec(model, {"n_layers": "2"}), dev,
+                                     n_tokens, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    timings["c"] = time.perf_counter() - t0
+    gc.collect()
+    _require_card_empty(torch, cpu, "train after (c)")
+    launches = _launch_counts()
+    out.update(launches=launches, leg_s={k: round(v, 3) for k, v in timings.items()},
+               phase_s=round(time.perf_counter() - t_phase, 3), tmpdir_removed=not os.path.exists(root))
+    emit("train", **out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true",
@@ -6657,7 +7106,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="device,build,kernels,model,serve,constrain,surfaces,spec,scheduler,"
                             "decode_graphs,knobs,fanout,members,checkpoint,moe,quant,paged,"
-                            "observe,router",
+                            "observe,router,train",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -6720,6 +7169,7 @@ def main(argv=None) -> int:
                    if "observe" in phases else None)
         router = (phase_router(torch, args.cpu, args.tiny, info)
                   if "router" in phases else None)
+        train = phase_train(torch, args.cpu, args.tiny, info) if "train" in phases else None
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6731,7 +7181,7 @@ def main(argv=None) -> int:
             ("scheduler", scheduler),
             ("decode_graphs", graphs), ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
             ("checkpoint", ckpt), ("moe", moe), ("quant", quant), ("paged", paged),
-            ("observe", observe), ("router", router))
+            ("observe", observe), ("router", router), ("train", train))
             if ph is not None}
         rows = []
         for name, src, replaces in (

@@ -10,7 +10,8 @@ last, the same permutation on ``q8`` and ``qs``), so a JAX
 ``quantize_params(init_params(spec))`` tree computes the same thing in the
 port; a quantized leaf where the JAX package quantizes none is refused.
 Member-stacked trees (``members=M`` / ``ensemble=M`` engines) go through
-:func:`stacked_params_from_numpy`.
+:func:`stacked_params_from_numpy`; a JAX TrainState (params, optax state,
+step) through :func:`train_state_from_numpy`.
 """
 
 from __future__ import annotations
@@ -88,3 +89,48 @@ def stack_params(trees: list[dict]) -> dict:
     out = {name: stack([t[name] for t in trees], 0) for name in first if name != "blocks"}
     out["blocks"] = {k: stack([t["blocks"][k] for t in trees], 1) for k in first["blocks"]}
     return out
+
+
+def _as_tensor(x, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own dtype (bfloat16 kept bfloat16):
+    0-d leaves (counts, the step) on the host, the rest on ``device``."""
+    arr = np.asarray(x)
+    bf16 = arr.dtype.name == "bfloat16"
+    t = torch.from_numpy(np.array(arr.astype(np.float32) if bf16 else arr, order="C"))
+    if bf16:
+        t = t.to(torch.bfloat16)  # exact: every bfloat16 is a float32
+    return t if t.dim() == 0 else t.to(device)
+
+
+def _state_from_numpy(x, device):
+    from quorum_tpu_torch.training.optim import STATE_TYPES
+
+    if x is None:
+        return None
+    if isinstance(x, Mapping):
+        return {k: _state_from_numpy(v, device) for k, v in x.items()}
+    if hasattr(x, "_fields"):
+        cls = STATE_TYPES.get(type(x).__name__)
+        if cls is None or cls._fields != x._fields:
+            raise ValueError(f"optimizer state {type(x).__name__}{x._fields} has no "
+                             f"counterpart in the port ({sorted(STATE_TYPES)})")
+        return cls(*(_state_from_numpy(v, device) for v in x))
+    if isinstance(x, (tuple, list)):
+        return tuple(_state_from_numpy(v, device) for v in x)
+    return _as_tensor(x, device)
+
+
+def train_state_from_numpy(params: Mapping, opt_state, step, device=None):
+    """A JAX TrainState, every leaf read back as numpy (``jax.tree.map(
+    numpy.asarray, state)``: optax's NamedTuples kept), as the port's
+    ``training.TrainState`` on ``device`` (``None`` means cuda): each leaf
+    keeps its dtype (bf16 params and moments stay bf16), optax's state
+    NamedTuples become the port's of the same name (``training/optim.py``),
+    the counts and the step 0-d int32 tensors on the host. A JAX run resumes
+    in the port from it."""
+    from quorum_tpu_torch.training.trainer import TrainState
+
+    dev = resolve_device(device)
+    tparams = _state_from_numpy(dict(params), dev)
+    return TrainState(tparams, _state_from_numpy(opt_state, dev),
+                      torch.tensor(int(np.asarray(step)), dtype=torch.int32))

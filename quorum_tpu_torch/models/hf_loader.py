@@ -81,7 +81,7 @@ class SafetensorsFile:
         self._f = open(self.path, "rb")
         (n,) = struct.unpack("<Q", self._f.read(8))
         header = json.loads(self._f.read(n))
-        header.pop("__metadata__", None)
+        self.metadata: dict[str, str] = header.pop("__metadata__", None) or {}
         self._base = 8 + n
         self.entries: dict[str, dict] = header
         self._maps: dict[str, list[mmap.mmap]] = {}
@@ -116,6 +116,88 @@ class SafetensorsFile:
         for name in list(self._maps):
             self.release(name)
         self._f.close()
+
+
+ST_TAGS = {dt: tag for tag, dt in ST_DTYPES.items()}
+
+# Host → card copies go through a page-locked buffer of this size, reused
+# chunk by chunk (a pageable copy runs at a fraction of the rate).
+STAGE_BYTES = 64 << 20
+
+
+class HostStage:
+    """One page-locked buffer of ``STAGE_BYTES`` through which tensors cross
+    between the host and the card piece by piece, so neither side ever holds
+    a second whole copy of a tensor (allocated at first use)."""
+
+    def __init__(self):
+        self._buf: torch.Tensor | None = None
+
+    def _stage(self) -> torch.Tensor:
+        if self._buf is None:
+            self._buf = torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
+        return self._buf
+
+    def fill(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """``dst`` (contiguous, any device) ← the host tensor ``src``, raw
+        bytes of the same dtype and element count."""
+        out = dst.view(-1).view(torch.uint8)
+        flat = src.contiguous().reshape(-1).view(torch.uint8)
+        if out.numel() != flat.numel():
+            raise ValueError(f"{flat.numel()} bytes into a {out.numel()}-byte tensor")
+        if dst.device.type == "cpu":
+            out.copy_(flat)
+            return
+        stage = self._stage()
+        stream = torch.cuda.current_stream(dst.device)
+        for o in range(0, flat.numel(), STAGE_BYTES):
+            m = min(STAGE_BYTES, flat.numel() - o)
+            stage[:m].copy_(flat[o:o + m])
+            out[o:o + m].copy_(stage[:m], non_blocking=True)
+            stream.synchronize()  # the buffer is refilled next
+
+    def pieces(self, src: torch.Tensor):
+        """The raw bytes of ``src`` (any device) as host buffers of at most
+        ``STAGE_BYTES``, each valid until the next is taken."""
+        flat = src.contiguous().view(-1).view(torch.uint8)
+        if src.device.type == "cpu":
+            yield flat.numpy()
+            return
+        stage = self._stage()
+        for o in range(0, flat.numel(), STAGE_BYTES):
+            m = min(STAGE_BYTES, flat.numel() - o)
+            stage[:m].copy_(flat[o:o + m])  # synchronous: the host reads it next
+            yield stage[:m].numpy()
+
+
+def write_safetensors(path: str | Path, tensors: dict[str, torch.Tensor],
+                      metadata: dict[str, str] | None = None,
+                      stage: HostStage | None = None) -> int:
+    """``tensors`` (on any device) as one ``.safetensors`` file, the format
+    :class:`SafetensorsFile` reads: 8-byte little-endian header length, the
+    JSON header (padded with spaces to 8 bytes; ``metadata`` under
+    ``__metadata__``), the raw bytes in the header's order. Each tensor
+    crosses to the host through ``stage`` piece by piece. Returns the bytes
+    written."""
+    stage = stage or HostStage()
+    header: dict[str, Any] = {"__metadata__": dict(metadata)} if metadata else {}
+    off = 0
+    for name, t in tensors.items():
+        if t.dtype not in ST_TAGS:
+            raise ValueError(f"tensor {name!r}: dtype {t.dtype} has no safetensors tag")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_TAGS[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            for piece in stage.pieces(t):
+                f.write(piece)
+    return 8 + len(raw) + off
 
 
 class _TensorDir:
@@ -273,11 +355,6 @@ def _rope_scaling_fields(cfg: dict) -> dict:
 # ---- weight mapping --------------------------------------------------------
 
 
-# Host → card copies go through a page-locked buffer of this size, reused
-# chunk by chunk (a pageable copy runs at a fraction of the rate).
-STAGE_BYTES = 64 << 20
-
-
 class _QSlot:
     """A slice of a quantized leaf to fill: ``dst`` the int8 leaf (or one
     index of it), ``shape`` the slice's shape in the JAX layout, ``axis``
@@ -299,7 +376,7 @@ class _Filler:
     def __init__(self, t: _TensorDir, device: torch.device, dtype: torch.dtype,
                  quant: str | None = None):
         self.t, self.device, self.dtype, self.quant = t, device, dtype, quant
-        self._stage: torch.Tensor | None = None
+        self._stage = HostStage()
 
     def empty(self, *shape: int, name: str = ""):
         """A leaf of ``shape`` (the JAX layout); with ``quant`` and a
@@ -329,17 +406,9 @@ class _Filler:
         dst.copy_(src.T if transpose else src)
 
     def _to_device(self, src: torch.Tensor) -> torch.Tensor:
-        flat = src.contiguous().reshape(-1).view(torch.uint8)
-        out = torch.empty(flat.numel(), dtype=torch.uint8, device=self.device)
-        if self._stage is None:
-            self._stage = torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
-        stream = torch.cuda.current_stream(self.device)
-        for o in range(0, flat.numel(), STAGE_BYTES):
-            m = min(STAGE_BYTES, flat.numel() - o)
-            self._stage[:m].copy_(flat[o:o + m])
-            out[o:o + m].copy_(self._stage[:m], non_blocking=True)
-            stream.synchronize()  # the buffer is refilled next
-        return out.view(src.dtype).view(src.shape)
+        out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        self._stage.fill(out, src)
+        return out
 
     def fill(self, dst, name: str, transpose: bool = False):
         self.put(dst, self.t.req(name), transpose)

@@ -48,7 +48,10 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
     quant = check_quant(quant)
     dev = resolve_device(device)
     dt = getattr(torch, dtype or spec.dtype)
-    gens = [torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
+    # device="meta": the tree's shapes and dtypes with no memory and no draws
+    # (a checkpoint's restore target).
+    gens = [None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(int(s))
+            for s in seeds]
     lead = (len(seeds),) if stacked else ()
 
     def parts(full_shape, layered):

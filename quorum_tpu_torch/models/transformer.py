@@ -31,8 +31,9 @@ for CPU tensors. ``prefill_segment`` (chunked
 prefill over a cache row's history) runs the plain ``attention`` on every
 device, as the JAX package runs XLA's plain attention there.
 ``plain_attention=True`` calls the plain versions directly on any device —
-only for holding the kernels against them on the card; the engine never
-sets it.
+for holding the kernels against them on the card, and for training
+(``training/trainer.py``: the kernels have no backward and refuse inputs
+that require grad); the engine never sets it.
 
 Matrix products accumulate in float32 where the JAX code asked for
 ``preferred_element_type=float32``; in bf16 on the card cuBLAS accumulates
@@ -66,6 +67,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from quorum_tpu_torch.cache.paging import (kv_is_paged, page_read, page_read_row, page_write,
                                            window_index, write_slots)
@@ -1001,7 +1003,7 @@ def decode_loop(
 
 def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
                    lengths: torch.Tensor | None = None,
-                   plain_attention: bool = False) -> torch.Tensor:
+                   plain_attention: bool = False, remat: bool = False) -> torch.Tensor:
     """Final-norm hidden states [B, T, D] with no KV cache: the embeddings
     forward, :func:`forward_logits` without the unembed.
 
@@ -1014,7 +1016,14 @@ def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
     it. ``plain_attention=True`` runs the plain masked attention on any
     device (the ground truth the kernel path is held against on the card).
     Right-padded MoE batches pass ``lengths``: pad tokens then take no
-    expert capacity."""
+    expert capacity.
+
+    Gradients: the kernel path refuses grad-requiring inputs under grad
+    mode (K1 has no backward); training runs ``plain_attention=True``, the
+    JAX package's XLA attention. ``remat=True`` runs each layer under
+    ``torch.utils.checkpoint`` (non-reentrant), the JAX package's
+    ``jax.checkpoint`` per scanned layer: a layer's activations are
+    recomputed in the backward instead of kept."""
     b, t = tokens.shape
     dev = tokens.device
     positions = torch.arange(t, device=dev)
@@ -1035,20 +1044,27 @@ def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
             return attention(q, k, v, mask), k, v
         return flash_prefill_attention(q, k, v, lens, window=spec.sliding_window), k, v
 
+    def layer(x, block):
+        return _block(x, block, spec, attend, token_mask=moe_mask)
+
     for l in range(spec.n_layers):
-        x = _block(x, _layer(params["blocks"], l), spec, attend, token_mask=moe_mask)
+        block = _layer(params["blocks"], l)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer, x, block, use_reentrant=False)
+        else:
+            x = layer(x, block)
     return _final_norm(params, spec, x)
 
 
 def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor,
                    lengths: torch.Tensor | None = None,
-                   plain_attention: bool = False) -> torch.Tensor:
-    """Full-sequence logits [B, T, V] f32 with no KV cache (the eval forward
-    and the cache-free ground truth for prefill/decode consistency):
-    :func:`forward_hidden` and the unembed, with its ``lengths`` and
-    ``plain_attention``."""
+                   plain_attention: bool = False, remat: bool = False) -> torch.Tensor:
+    """Full-sequence logits [B, T, V] f32 with no KV cache (the eval and
+    training forward, and the cache-free ground truth for prefill/decode
+    consistency): :func:`forward_hidden` and the unembed, with its
+    ``lengths``, ``plain_attention`` and ``remat``."""
     return unembed(params, spec, forward_hidden(params, spec, tokens, lengths,
-                                                 plain_attention=plain_attention))
+                                                 plain_attention=plain_attention, remat=remat))
 
 
 def init_cache(spec: ModelSpec, batch: int, dtype=None, device=None,

@@ -21,6 +21,18 @@ import torch
 NEG_INF = -2.0**30  # large-but-finite: keeps masked softmax NaN-free in bf16/f32
 
 
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel wrapper would drop gradients: the kernels write
+    their outputs through raw pointers, so an output has no ``grad_fn``.
+    Checked on every device (a CPU test then catches a caller that would
+    train a different model on the card), before the plain version runs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: its output would carry no gradient. Pass "
+            "plain_attention=True where gradients are needed, or call it under "
+            "torch.no_grad()")
+
+
 def attention(
     q: torch.Tensor,  # [B, H, S, hd]
     k: torch.Tensor,  # [B, K, S_kv, hd]
@@ -47,8 +59,13 @@ def attention(
 def _scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """``einsum("bkgsd,bktd->bkgst")`` in f32: one batched product with an
     f32 output over 16-bit operands on the card (f32 accumulation, no
-    rounding of the scores, no f32 copy of k), else in f32."""
-    if qg.is_cuda and qg.dtype == k.dtype and qg.dtype in (torch.bfloat16, torch.float16):
+    rounding of the scores, no f32 copy of k), else in f32. That product
+    (``bmm`` with ``out_dtype``) has no derivative, so a call that needs
+    gradients takes the f32 einsum of f32 copies: the same contraction of
+    the same values, differentiable."""
+    needs_grad = torch.is_grad_enabled() and (qg.requires_grad or k.requires_grad)
+    if (qg.is_cuda and not needs_grad and qg.dtype == k.dtype
+            and qg.dtype in (torch.bfloat16, torch.float16)):
         b, n_kv, g, s, d = qg.shape
         t = k.shape[2]
         out = torch.bmm(qg.reshape(b * n_kv, g * s, d), k.reshape(b * n_kv, t, d).transpose(1, 2),

@@ -39,6 +39,8 @@ Both skip every key tile above the causal diagonal or left of the window
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback and no switch that turns it off.
+The kernel has no backward: under grad mode, inputs that require grad are
+refused on both devices (``ops/attention.refuse_autograd``).
 ``launches`` and ``launches_by_route`` count launches exactly under
 concurrent callers (one scheduler thread per engine).
 """
@@ -51,7 +53,7 @@ import threading
 import torch
 
 from quorum_tpu_torch.ops import cuda_build
-from quorum_tpu_torch.ops.attention import prefill_attention
+from quorum_tpu_torch.ops.attention import prefill_attention, refuse_autograd
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128)
@@ -155,7 +157,9 @@ def flash_prefill_attention(
     window: int = 0,
 ) -> torch.Tensor:
     """Causal, length-masked prefill attention. Returns [B, H, S, hd]; on the
-    card, rows at or past ``lengths[b]`` are 0."""
+    card, rows at or past ``lengths[b]`` are 0. Refuses grad-requiring
+    inputs under grad mode (:func:`refuse_autograd`)."""
+    refuse_autograd("flash_prefill_attention", q, k, v)
     if q.device.type == "cpu":
         return prefill_attention(q, k, v, lengths, window=window)
     if q.device.type != "cuda":

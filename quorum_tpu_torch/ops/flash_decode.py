@@ -40,6 +40,8 @@ captured, and whoever replays the graph adds its launches per replay
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback and no switch that turns it off.
+The kernel has no backward: under grad mode, inputs that require grad are
+refused on both devices (``ops/attention.refuse_autograd``).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import threading
 import torch
 
 from quorum_tpu_torch.ops import cuda_build, launches
-from quorum_tpu_torch.ops.attention import decode_attention
+from quorum_tpu_torch.ops.attention import decode_attention, refuse_autograd
 
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8  # query heads per kv head one block holds (csrc GMAX)
@@ -173,7 +175,9 @@ def flash_decode_attention(
     lengths: torch.Tensor,  # [B]: valid entries per row, including the current token
     window: int = 0,
 ) -> torch.Tensor:
-    """Per-row-exact decode attention. Returns [B, H, 1, hd]."""
+    """Per-row-exact decode attention. Returns [B, H, 1, hd]. Refuses
+    grad-requiring inputs under grad mode."""
+    refuse_autograd("flash_decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention(q, k_cache, v_cache, lengths, window=window)
     if q.device.type != "cuda":

@@ -33,6 +33,8 @@ per replay (``ops/launches.py``).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises — there is no fallback and no switch that turns it off.
+The kernel has no backward: under grad mode, inputs that require grad are
+refused on both devices (``ops/attention.refuse_autograd``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ import threading
 import torch
 
 from quorum_tpu_torch.ops import cuda_build, launches
-from quorum_tpu_torch.ops.attention import _int_dot, decode_attention_q8, q8_probabilities
+from quorum_tpu_torch.ops.attention import (_int_dot, decode_attention_q8, q8_probabilities,
+                                            refuse_autograd)
 from quorum_tpu_torch.ops.flash_decode import _DTYPE_CODES, MAX_GROUP, N_SMS, SUPPORTED_HEAD_DIMS
 
 MIN_CHUNK = 128  # keys: the least work one block takes, one ring stage (csrc MIN_CHUNK)
@@ -193,7 +196,9 @@ def flash_decode_q8_attention(
     lengths: torch.Tensor,  # [B]: valid entries per row, including the current token
     window: int = 0,
 ) -> torch.Tensor:
-    """Decode attention over the int8 cache. Returns [B, H, 1, hd] in q's dtype."""
+    """Decode attention over the int8 cache. Returns [B, H, 1, hd] in q's
+    dtype. Refuses grad-requiring inputs under grad mode."""
+    refuse_autograd("flash_decode_q8_attention", q, k_scale, v_scale)
     if q.device.type == "cpu":
         return decode_attention_q8(q, k8, k_scale, v8, v_scale, lengths, window=window)
     if q.device.type != "cuda":
