@@ -20,7 +20,10 @@ result line:
               (bound), plus K1 at the serve phase's three largest prompt
               buckets and the scheduler phase's 8192 bucket at their real
               lengths (checked too), and at B=3 ragged rows (one
-              coalesced member admission) at the serve buckets; K2q8 (int8
+              coalesced member admission) at the serve buckets; K1 and K2
+              at the head counts one mesh rank gives them (tp=2: H=16/K=4,
+              tp=4: H=8/K=2; K1 also at H=16 over 8 192 keys, Ulysses at
+              sp=2), each timed beside its plain version; K2q8 (int8
               cache) against its plain version at K2's shapes (f32 and bf16
               q, window 0 and 4096) and at 4 slots of 32 768 keys all live,
               each with its time, the plain version's, its bound and K2's
@@ -84,7 +87,7 @@ result line:
               int8 target at 8 layers; a speculative_aggregation deployment
               (members=3, 8 layers) that boots and serves an aggregate; K1,
               K2 (target and draft layers) and K2q8 launches exact;
-  6. scheduler the engine's default scheduler on the same model: the decode
+  6. scheduler the engine's default scheduler on the same model at 8 layers: the decode
               ring at depth 2 against 1 (tokens equal), a ≈ 6 000-token
               admission beside a live stream chunked and single-shot (the
               stream's longest gap, the long TTFT, ceil(n/512) segments), a
@@ -158,13 +161,25 @@ result line:
               64 × 2 049 refused with a 400;
  11b. paged, observe  paged KV and the host store; serving surfaces and
               observability (each phase's docstring lists its legs);
- 11c. router  the port's router in front of three llama-3-8b replicas (32
+ 11c. router  the port's router in front of three llama-3-8b replicas (8
               layers, one engine each over one weight set, prefix_store=host)
               on loopback sockets: affinity, the router's first-byte cost, a
               prefix migration, quorum 2 and 3 (a member killed with and
               without a spare), a stream resumed after its replica dies, a
               drain of two live streams, the fleet timeline; K1 and K2
               launches exact over the three engines;
+ 11d. mesh    tensor- and sequence-parallel serving (parallel/) on
+              llama-3-8b at full width against the single-device engine on
+              the same weights: (a) a one-rank NCCL mesh through the app
+              (greedy tokens equal; the decode graphs capture the
+              collectives); (b) tp=2, two ranks sharing the card over gloo
+              (eager decode) through the app, greedy streams held by the
+              top-20 log-probabilities, the worker fed rank 0's tokens,
+              each rank half the weights; (c) sp=2 ring, then Ulysses, on
+              an 8 191-token prompt (first token and top-20 held, the
+              admission's seconds, each rank's peak memory); (d) a worker
+              killed mid-stream (an error, the breaker open, no process
+              left); K1 and K2 launches on every rank;
  12. train    training (run last; the card's free memory printed first):
               (a) llama-3-8b, all 32 layers, bf16, seed 0, remat, three
               steps of the default recipe on one repeated 1 × 2 048 batch
@@ -612,6 +627,11 @@ def phase_kernels(torch, cpu: bool, tiny: bool, median_ms, graph_ms) -> dict:
     results["flash_decode"]["max_abs_err"] = max(results["flash_decode"]["max_abs_err"],
                                                  results["flash_decode"]["draft_shape"]
                                                  ["max_abs_err"])
+    per_rank = _kernels_per_rank(torch, cpu, tiny, rnd, graph_ms, sdpa)
+    for name in ("flash_prefill", "flash_decode"):
+        results[name]["per_rank"] = per_rank[name]
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           per_rank["max_abs_err"][name])
     results["flash_decode_q8"] = _kernels_q8(torch, cpu, tiny, rnd, median_ms, graph_ms,
                                              results["flash_decode"]["ms"])
     _kernels_int_mm(torch, cpu, tiny, graph_ms)
@@ -661,6 +681,90 @@ def _kernels_k2_draft(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict
     require(cpu or all(int(c.abs().sum()) == 0 for c in ticket_counters()),
             "K2 ticket counters are not back at 0 after the draft-shape replays")
     emit("kernels", kernel="flash_decode", draft_shape=out)
+    return out
+
+
+def _kernels_per_rank(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict:
+    """K1 and K2 at the head counts one rank of a mesh gives them (the mesh
+    phase's path): llama-3-8b's 32/8 heads cut by tp=2 (H=16, K=4) and tp=4
+    (H=8, K=2); K1 at a 2048-token admission and, for Ulysses at sp=2
+    (H=16, K=4 over the whole prompt), at 8192; K2 over 4 slots × 8192 keys
+    with lengths 1/100/4096/8191. Each against its plain version, then its
+    time, the plain version's, SDPA's and the bound."""
+    import numpy as np
+
+    from quorum_tpu_torch.ops.attention import decode_attention, prefill_attention
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention, ticket_counters
+
+    dev = "cpu" if cpu else "cuda"
+    hd = 64 if tiny else 128
+    dtype = torch.bfloat16
+    tol = KERNEL_TOL["bfloat16"]
+    cuts = ([("tp2", 2, 1), ("tp4", 1, 1)] if tiny else [("tp2", 16, 4), ("tp4", 8, 2)])
+    out = {"flash_prefill": [], "flash_decode": [], "max_abs_err": {"flash_prefill": 0.0,
+                                                                     "flash_decode": 0.0}}
+    k1_shapes = [(name, h, kv, 128 if tiny else 2048) for name, h, kv in cuts]
+    k1_shapes.append(("sp2_ulysses", cuts[0][1], cuts[0][2], 128 if tiny else 8192))
+    for name, h, kv, s in k1_shapes:
+        n = s - 1 if name == "sp2_ulysses" else s
+        flops = 4 * h * _prefill_pairs(np, [n], s, 0) * hd
+        nbytes = 2 * (h * n * hd + 2 * kv * n * hd + h * s * hd) + 4
+        lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+        sets = [(rnd(1, h, s, hd, dtype=dtype), rnd(1, kv, s, hd, dtype=dtype),
+                 rnd(1, kv, s, hd, dtype=dtype), lengths) for _ in range(_copies(nbytes))]
+        n0 = flash_prefill_attention.launches
+        got = flash_prefill_attention(*sets[0])
+        ref = prefill_attention(*sets[0])
+        err = (got[0, :, :n].float() - ref[0, :, :n].float()).abs().max().item()
+        del ref
+        require(cpu or flash_prefill_attention.launches == n0 + 1,
+                f"K1 {name}: one call must count one launch")
+        require(cpu or bool((got[0, :, n:] == 0).all()), f"K1 {name}: a row past {n} is not 0")
+        require(err <= tol, f"K1 per-rank {name} (H={h}, K={kv}, S={s}): err {err}")
+        del got
+        ar = torch.arange(s, device=dev)
+        mask = ((ar[None, :] <= ar[:, None]) & (ar[None, :] < n))[None, None]
+        b_ms, b_by = _bound(flops, nbytes)
+        t = graph_ms([lambda a=a: flash_prefill_attention(*a) for a in sets])
+        row = {"cut": name, "B": 1, "H": h, "K": kv, "S": s, "length": n, "hd": hd,
+               "max_abs_err": err, "tol": tol, "ms": t,
+               "plain_ms": graph_ms([lambda a=a: prefill_attention(*a) for a in sets]),
+               "library_ms": graph_ms([sdpa(a[0], a[1], a[2], mask) for a in sets]),
+               "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100 * b_ms / t}
+        del sets, mask
+        out["flash_prefill"].append(row)
+        out["max_abs_err"]["flash_prefill"] = max(out["max_abs_err"]["flash_prefill"], err)
+    t_keys = 256 if tiny else 8192
+    lens = [1, 100, 200, 255] if tiny else [1, 100, 4096, 8191]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = sum(lens)
+    for name, h, kv in cuts:
+        flops = 4 * h * live * hd
+        nbytes = 2 * (live * kv * hd * 2 + 2 * 4 * h * hd) + 4 * 4
+        sets = [(rnd(4, h, 1, hd, dtype=dtype), rnd(4, kv, t_keys, hd, dtype=dtype),
+                 rnd(4, kv, t_keys, hd, dtype=dtype), lengths) for _ in range(_copies(nbytes))]
+        n0 = flash_decode_attention.launches
+        got = flash_decode_attention(*sets[0])
+        err = (got.float() - decode_attention(*sets[0]).float()).abs().max().item()
+        require(cpu or flash_decode_attention.launches == n0 + 1,
+                f"K2 {name}: one call must count one launch")
+        require(bool(torch.isfinite(got.float()).all()), f"K2 {name}: non-finite output")
+        require(err <= tol, f"K2 per-rank {name} (H={h}, K={kv}): err {err}")
+        dmask = (torch.arange(t_keys, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        b_ms, b_by = _bound(flops, nbytes)
+        t = graph_ms([lambda a=a: flash_decode_attention(*a) for a in sets])
+        out["flash_decode"].append({
+            "cut": name, "B": 4, "H": h, "K": kv, "T": t_keys, "hd": hd, "lengths": lens,
+            "max_abs_err": err, "tol": tol, "ms": t,
+            "plain_ms": graph_ms([lambda a=a: decode_attention(*a) for a in sets]),
+            "library_ms": graph_ms([sdpa(a[0], a[1], a[2], dmask) for a in sets]),
+            "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100 * b_ms / t})
+        del sets, got
+        out["max_abs_err"]["flash_decode"] = max(out["max_abs_err"]["flash_decode"], err)
+    require(cpu or all(int(c.abs().sum()) == 0 for c in ticket_counters()),
+            "K2 ticket counters are not back at 0 after the per-rank replays")
+    emit("kernels", per_rank=out)
     return out
 
 
@@ -2652,9 +2756,10 @@ def _qos_legs(torch, cpu: bool, spec, built, prompt, n_tok: int, main, zeng) -> 
 
 
 def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
-    """The JAX engine's default scheduler on the full 32-layer llama-3-8b
-    (bf16, seed 0): engines built one after another over ONE weight set,
-    each with its own 4-slot cache.
+    """The JAX engine's default scheduler on llama-3-8b at full width, cut
+    to 8 layers to keep the script inside its time (bf16, seed 0): engines
+    built one after another over ONE weight set, each with its own 4-slot
+    cache.
 
     (a) ring: three greedy streams of 128 tokens at decode_pipeline=2, then
         at 1 — tokens equal (required), per-stream tok/s, overlapped chunks,
@@ -2673,14 +2778,14 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
         overlap > 0, the device memory grown by exactly the reckoned
         staging cache, K1 0 and K2 exact (required); at the defaults a
         staged admission's TTFT and the live gap alone and beside a
-        64-input embedding forward (tokens unchanged, K1 = 32 × the
+        64-input embedding forward (tokens unchanged, K1 = layers × the
         forward's sub-batches); then two streams on an int8-KV zero-drain
         engine against its twin (K2q8);
     (e) QoS preemption: four batch streams fill a qos=1 engine, an
         interactive chat parks exactly one, which resumes token for token
-        (required, on dense, paged and zero-drain engines, with K1 = 32 ×
+        (required, on dense, paged and zero-drain engines, with K1 = layers ×
         single-shot admissions); the chat's TTFT against a qos=0 engine;
-    plus the device time of one 32-layer segment at histories 512 to 8192
+    plus the device time of one segment (every layer) at histories 512 to 8192
     (the plain attention inside it), and launch counts of the three kernels
     over the phase."""
     from quorum_tpu_torch.backends.cuda_backend import CudaBackend
@@ -2698,7 +2803,7 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     model = "llama-tiny" if tiny else "llama-3-8b"
     dev = "cpu" if cpu else "cuda"
     # llama-tiny's 128-token window cannot hold the long prompts.
-    spec = resolve_spec(model, {"max_seq": "2048"} if tiny else {})
+    spec = resolve_spec(model, {"max_seq": "2048"} if tiny else {"n_layers": "8"})
     ring_n, long_n, chat_bytes = (32, 1500, 600) if tiny else (128, 6000, 2500)
     _require_card_empty(torch, cpu, "scheduler")
     if not cpu:
@@ -2858,7 +2963,7 @@ def phase_scheduler(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
                 "scheduler: a kernel of the path was never launched")
     peak = None if cpu else torch.cuda.max_memory_allocated()
 
-    # One 32-layer segment at each history bucket, on a scratch cache row
+    # One segment through every layer at each history bucket, on a scratch cache row
     # (its time is the plain attention's case for a segment kernel).
     seg_ms = {}
     ck, cv = init_cache(spec, 1, device=dev)
@@ -5188,10 +5293,12 @@ _KERNEL_GROUPS = (("K1 flash_prefill", ("prefill_wgmma_kernel", "flash_prefill_k
                   ("sort (top-p/top-k)", ("sort", "radix", "scan")))
 
 
-# Leg (b)'s prediction, written before the first chip run: the paged
-# program gathers each layer's window of both sides, reading and writing
-# 4 rows × history × 8 kv heads × 128 × 2 B per side, 32 layers a step.
-PAGED_GATHER_BYTES_PER_STEP = {h: 2 * 2 * 4 * h * 8 * 128 * 2 * 32 for h in (2048, 8192)}
+def _paged_gather_bytes(spec, history: int) -> int:
+    """Leg (b)'s prediction, written before the first chip run: the paged
+    program gathers each layer's window of both sides, reading and writing
+    4 rows × history × kv heads × head_dim × 2 B per side, every layer a
+    step."""
+    return 2 * 2 * 4 * history * spec.n_kv_heads * spec.head_dim * 2 * spec.n_layers
 
 
 def _paged_streams(eng, prompts, n_tok: int, sampler, **knobs) -> list:
@@ -5248,8 +5355,9 @@ def _ttft(eng, prompt, sampler, n_tok: int = 4, **knobs) -> tuple[float, list[in
 
 def phase_paged(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     """Paged KV (``kv_pages=1``) and the host prefix store
-    (``prefix_store=host``) on llama-3-8b at full width (bf16, random
-    weights of seed 0, max_seq 8192, 4 slots, the default scheduler; the
+    (``prefix_store=host``) on llama-3-8b at full width, cut to 8 layers to
+    keep the script inside its time (bf16, random weights of seed 0,
+    max_seq 8192, 4 slots, the default scheduler; the
     default page is the 512-token segment and the default pool the dense
     rectangle's 64 pages):
 
@@ -5264,8 +5372,8 @@ def phase_paged(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     (c) aliasing: a two-turn chat (≈ 1 600-token turn 1) on the paged
         engine: alias hits, COW copies (0 at 512-token pages, 1 at 1 024),
         turn 2's TTFT against a cold admission of the same prompt;
-    (d) capacity: llama-3.1-8b at max_seq 131 072, kv_pages=1, 32 slots,
-        a 256-page pool (17.2 GB): 32 concurrent streams of 300–3 000-token
+    (d) capacity: llama-3.1-8b (8 layers) at max_seq 131 072, kv_pages=1,
+        32 slots, a 256-page pool (4.3 GB): 32 concurrent streams of 300–3 000-token
         prompts × 32 tokens, all served; peak pages, peak memory,
         aggregate tok/s, beside the dense rectangle's computed size;
     (e) the store: prefix_store=host on a dense and a paged engine; a
@@ -5286,7 +5394,7 @@ def phase_paged(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
 
     model = "llama-tiny" if tiny else "llama-3-8b"
     dev = "cpu" if cpu else "cuda"
-    spec = resolve_spec(model, {"max_seq": "2048"} if tiny else {})
+    spec = resolve_spec(model, {"max_seq": "2048"} if tiny else {"n_layers": "8"})
     n_tok = 16 if tiny else 32
     _require_card_empty(torch, cpu, "paged")
     if not cpu:
@@ -5369,8 +5477,8 @@ def phase_paged(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
                 g_["paged"]["median_ms"] - g_["dense"]["median_ms"]) / 8
             g_["paged_minus_dense_min_ms_per_step"] = (
                 g_["paged"]["min_ms"] - g_["dense"]["min_ms"]) / 8
-            g_["predicted_ms_per_step"] = PAGED_GATHER_BYTES_PER_STEP.get(hist, 0) / HBM_BYTES_PER_S * 1e3
-            g_["gather_bytes_per_step"] = PAGED_GATHER_BYTES_PER_STEP.get(hist)
+            g_["gather_bytes_per_step"] = _paged_gather_bytes(spec, hist)
+            g_["predicted_ms_per_step"] = g_["gather_bytes_per_step"] / HBM_BYTES_PER_S * 1e3
         emit("paged_gather", history=hist, **g_)
 
     # (c) aliasing: a two-turn chat, 512-token pages then 1 024
@@ -5440,7 +5548,8 @@ def phase_paged(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
 
     # (d) capacity: llama-3.1-8b at its 131 072-token window from a page pool
     cap_seq = 8192 if tiny else 131072
-    spec31 = resolve_spec("llama-tiny" if tiny else "llama-3.1-8b", {"max_seq": str(cap_seq)})
+    spec31 = resolve_spec("llama-tiny" if tiny else "llama-3.1-8b",
+                          {"max_seq": str(cap_seq), "n_layers": str(spec.n_layers)})
     require(all(getattr(spec31, f) == getattr(spec, f) for f in
                 ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size")),
             "capacity leg: llama-3.1-8b's shapes differ from the weights built")
@@ -5642,7 +5751,7 @@ def phase_observe(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
         host ms per 8-step 4-row dispatch); each such dispatch's CUDA-event
         time (``quorum_tpu_dispatch_device_seconds{family="plain"}``)
         against replays of the same captured graph timed alone;
-        ``POST /debug/profile?seconds=2`` during a live stream with an
+        ``POST /debug/profile?seconds=1`` during a live stream with an
         admission inside the window: the trace names K2 and K1, and a second
         POST meanwhile gets 409;
     (b) faults and the breaker (8 layers): ``engine.decode`` armed three
@@ -5834,12 +5943,12 @@ def phase_observe(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
 
     # /debug/profile during a live stream, an admission inside the window.
     # EOS banned: the stream runs its whole length, through the window.
-    long_body = {"model": model, "stream": True, "max_tokens": 64 if tiny else 640,
+    long_body = {"model": model, "stream": True, "max_tokens": 64 if tiny else 320,
                  "temperature": 0, "logit_bias": {str(backend.tokenizer.eos_id): -100},
                  "messages": [{"role": "user", "content": _prompt(60, 7)}]}
     short_body = {"model": model, "max_tokens": 8, "temperature": 0,
                   "messages": [{"role": "user", "content": _prompt(50, 8)}]}
-    seconds = 0.5 if cpu else 2.0
+    seconds = 0.5 if cpu else 1.0
 
     async def profiled():
         chunks0 = eng.metrics()["decode_chunks_total"]
@@ -6169,7 +6278,8 @@ async def _chat_json(client, url: str, body: dict) -> dict:
 
 def phase_router(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     """The router tier in front of three ``cuda://`` replicas: the port's app
-    over its own ``InferenceEngine`` each (llama-3-8b, 32 layers, bf16, 4
+    over its own ``InferenceEngine`` each (llama-3-8b at full width, cut to
+    8 layers to keep the script inside its time, bf16, 4
     slots × 8 192 positions, ``prefix_store=host``, one weight set, seed 0),
     every replica and the router served by the port's socket server
     (httpx + h11, real loopback sockets). A replica dies in place through
@@ -6227,7 +6337,7 @@ def phase_router(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     t_phase = time.perf_counter()
     if not cpu:
         torch.cuda.reset_peak_memory_stats()
-    spec = resolve_spec(model, {"max_seq": "2048"} if tiny else {})
+    spec = resolve_spec(model, {"max_seq": "2048"} if tiny else {"n_layers": "8"})
     params = init_params(spec, 0, dev)
     engines = [InferenceEngine(spec, device=dev, params=params, n_slots=4,
                                prefix_store="host") for _ in names]
@@ -7044,6 +7154,402 @@ def _train_accumulation(torch, spec, dev, n_tokens: int) -> dict:
                                      for n in base)}
 
 
+# Leg bounds of the mesh phase: a multi-rank engine's log-probabilities
+# against the single-device engine's, where the tp all-reduce (or sp's
+# block-wise prefill) sums the same bf16 products in another order.
+MESH_LP_TOL = 0.25
+# Seconds a killed worker's stream may take to end with an error (the
+# groups' timeout bounds it; gloo sees the peer's socket close at once).
+MESH_GROUP_TIMEOUT_S = 60.0
+
+
+def _lp_stream(eng, ids: list[int], n: int, timeout: float = 2 * SERVE_TIMEOUT_S):
+    """One greedy request on the engine's API with the top-20
+    log-probabilities of every step: (tokens, records, seconds)."""
+    import threading
+
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+
+    t0 = time.perf_counter()
+    req = eng.submit(ids, max_new_tokens=n, sampler=SamplerConfig(temperature=0.0),
+                     logprobs=20)
+    out: list = []
+    th = threading.Thread(target=lambda: out.extend(eng.stream_results(req)), daemon=True)
+    th.start()
+    th.join(timeout)
+    require(not th.is_alive(), "mesh: a stream never finished")
+    return out, list(req.lp), time.perf_counter() - t0
+
+
+def _hold_lp(what: str, ref, got, forced: bool = False) -> dict:
+    """Stream ``got`` (tokens, top-20 records) held against ``ref`` step by
+    step: δ is the largest difference of the two log-probabilities at the
+    ids both list (and at each served token); a token may differ only where
+    the other's is in the reference's top-20 and the reference's gap
+    between the two is within 2δ of that step (a near-tie the summation
+    order decides). Two engines' streams part at a differing token and are
+    not compared past it; ``forced``: ``ref`` scored ``got``'s own tokens
+    (``_rescore_lp``), so every step is held."""
+    deltas, ties = [], []
+    for i, (rt, gt, (r_lp, r_ids, r_lps), (g_lp, g_ids, g_lps)) in enumerate(
+            zip(ref[0], got[0], ref[1], got[1])):
+        rmap = dict(zip((int(x) for x in r_ids), (float(x) for x in r_lps)))
+        gmap = dict(zip((int(x) for x in g_ids), (float(x) for x in g_lps)))
+        shared = set(rmap) & set(gmap)
+        require(shared, f"{what}: step {i}: no id in both top-20 lists")
+        step = max(abs(rmap[j] - gmap[j]) for j in shared)
+        deltas.append(step)
+        if rt != gt:
+            require(gt in rmap, f"{what}: step {i} served {gt}, not in the reference top-20")
+            gap = rmap[rt] - rmap[gt]
+            require(gap <= 2 * step, f"{what}: step {i} served {gt} over {rt} "
+                                     f"(reference gap {gap}, δ {step})")
+            ties.append({"step": i, "gap": gap, "delta": step})
+            if not forced:
+                break
+    require(len(deltas) == len(got[0]) or ties, f"{what}: {len(deltas)} of {len(got[0])} "
+                                                "steps compared")
+    delta = max(deltas)
+    require(delta <= MESH_LP_TOL, f"{what}: log-probabilities differ by {delta} "
+                                  f"(> {MESH_LP_TOL})")
+    return {"steps_compared": len(deltas), "logprob_max_diff": delta, "near_ties": ties,
+            "equal": list(ref[0]) == list(got[0])}
+
+
+def _rescore_lp(torch, spec, params, prompt: list[int], tokens: list[int]):
+    """The single-device model's greedy token and top-20 log-probabilities
+    at each step of a stream that served ``tokens`` after ``prompt``,
+    scored on the stream's own tokens (one cache-free forward over the
+    prompt and the tokens but the last): (tokens, records) in
+    ``_lp_stream``'s form."""
+    from quorum_tpu_torch.models.transformer import forward_hidden, unembed
+
+    dev = params["tok_emb"].device
+    ids = torch.tensor([prompt + tokens[:-1]], device=dev)
+    with torch.inference_mode():
+        h = forward_hidden(params, spec, ids)[:, len(prompt) - 1:]
+        lp = torch.log_softmax(unembed(params, spec, h).float(), dim=-1)[0]
+        top = lp.topk(20, dim=-1)
+    vals, idx = top.values.cpu(), top.indices.cpu()
+    return ([int(i[0]) for i in idx],
+            [(float(v[0]), i.tolist(), v.tolist()) for v, i in zip(vals, idx)])
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _mesh_chats(app, bodies, backend, max_tokens: int):
+    async def drive():
+        return await asyncio.gather(*[_call(app, b) for b in bodies])
+
+    resps = asyncio.run(asyncio.wait_for(drive(), 2 * SERVE_TIMEOUT_S))
+    return [_check_response(r, b, backend.tokenizer, max_tokens) for r, b in zip(resps, bodies)]
+
+
+def _graph_collectives(eng) -> dict:
+    """Collectives captured in the engine's decode graphs, by kind, summed
+    over its graphs (each replay launches them again)."""
+    from quorum_tpu_torch.parallel import COLLECTIVES
+
+    out = {k: 0 for k in COLLECTIVES}
+    for _, _, counts in (eng._graphs._graphs.values() if eng._graphs else ()):
+        for fn, n in counts.items():
+            if getattr(fn, "name", None) in out:
+                out[fn.name] += n
+    return out
+
+
+def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+    """Tensor- and sequence-parallel serving (``parallel/``; a mesh engine is
+    rank 0 here, the other ranks are spawned processes) on llama-3-8b at
+    full width (32 layers, bf16, seed 0, 4 slots × 8192), against the
+    single-device engine on the same weights. One card, so: (a) a one-rank
+    NCCL mesh, whose decode graphs capture the collectives: 4 chats through
+    the app, greedy tokens equal to the single-device engine's; (b) tp=2
+    with two ranks sharing the card over gloo (host-staged collectives,
+    eager decode): 2 chats through the app, greedy streams held by the
+    top-20 log-probabilities (to where they part at a near-tie, then whole
+    against the single-device model scored on the mesh's own tokens),
+    every worker fed rank 0's tokens, each
+    rank's weights half and cache 2.15 GB; (c) sp=2 ring, then Ulysses, on
+    one 8192-token prompt: the first token and its top-20 held the same
+    way, the admission's seconds and each rank's peak memory; (d) a worker
+    of (b)'s engine killed mid-stream: the stream ends with an error inside
+    the groups' timeout, the breaker opens, no process is left. K1 and K2
+    launches are counted on every rank (workers report theirs)."""
+    from quorum_tpu_torch.backends.cuda_backend import CudaBackend
+    from quorum_tpu_torch.config import Config
+    from quorum_tpu_torch.engine.engine import EngineBreakerOpen, InferenceEngine
+    from quorum_tpu_torch.models.init import init_params
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.parallel import (MeshConfig, collective_counts, make_mesh,
+                                           single_device_mesh)
+    from quorum_tpu_torch.server.app import create_app
+
+    _require_card_empty(torch, cpu, "mesh")
+    t_phase = time.perf_counter()
+    model = "llama-tiny" if tiny else "llama-3-8b"
+    spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16"} if tiny else {})
+    dev = "cpu" if cpu else "cuda:0"
+    two = ["cpu"] * 2 if cpu else ["cuda:0", "cuda:0"]
+    knobs = dict(n_slots=4, decode_chunk=8, seed=0)
+    card = f"{device_info['name']} ({device_info['power_limit']})"
+    n_tok = 16 if tiny else 32
+    bodies = _serve_bodies(model, tiny)
+    gen = random.Random(11)
+    long_ids = [gen.randrange(spec.vocab_size) for _ in range(spec.max_seq - 1)]
+    launches = {"flash_prefill": 0, "flash_decode": 0}
+
+    def zero():
+        flash_prefill_attention.launches = 0
+        flash_decode_attention.launches = 0
+
+    def add(reports=()):
+        launches["flash_prefill"] += flash_prefill_attention.launches + sum(
+            r["launches"]["flash_prefill"] for r in reports)
+        launches["flash_decode"] += flash_decode_attention.launches + sum(
+            r["launches"]["flash_decode"] for r in reports)
+
+    def peak_reset():
+        if not cpu:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return None if cpu else torch.cuda.max_memory_allocated()
+
+    def app_for(name, eng):
+        backend = CudaBackend(name, eng, model=model, model_id=model)
+        raw = {"primary_backends": [{"name": name, "url": f"x://{model}", "model": model}],
+               "settings": {"timeout": SERVE_TIMEOUT_S}}
+        return create_app(Config(raw=raw), **{name: backend}), backend
+
+    out = {"model": model, "layers": spec.n_layers, "slots": 4, "max_seq": spec.max_seq,
+           "dtype": spec.dtype, "measured_on": card}
+
+    # The single-device engine: the reference streams, then freed.
+    t0 = time.perf_counter()
+    ref_eng = InferenceEngine(spec, device=dev, **knobs)
+    tok = CudaBackend("ref", ref_eng, model=model, model_id=model).tokenizer
+    prompts = [tok.encode(tok.render_chat(b["messages"])) for b in bodies[:2]]
+    full_bytes = _tree_bytes(ref_eng.params)
+    ref = [_lp_stream(ref_eng, p, n_tok) for p in prompts]
+    peak_reset()
+    ref_long = _lp_stream(ref_eng, long_ids, 1)
+    out["single"] = {"build_and_streams_s": round(time.perf_counter() - t0, 3),
+                     "weight_bytes": full_bytes, "long_admission_s": round(ref_long[2], 4),
+                     "long_peak_bytes": peak()}
+    ref_eng.shutdown()
+    del ref_eng
+    _require_card_empty(torch, cpu, "mesh (a)")
+
+    # (a) A one-rank NCCL mesh (gloo on the CPU rehearsal).
+    zero()
+    c0 = collective_counts()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(spec, mesh=single_device_mesh(dev), **knobs)
+    build_s = time.perf_counter() - t0
+    app, backend = app_for("mesh1", eng)
+    chats = _mesh_chats(app, bodies, backend, n_tok)
+    got = [_lp_stream(eng, p, n_tok) for p in prompts]
+    m = eng.metrics()
+    c1 = collective_counts()
+    add()
+    require(all(g[0] == r[0] for g, r in zip(got, ref)),
+            "mesh (a): a one-rank mesh's greedy tokens differ from the single-device engine's")
+    in_graphs = _graph_collectives(eng)
+    if not cpu:
+        require(eng.mesh.backend == "nccl" and eng._graphs is not None,
+                "mesh (a): a one-rank NCCL mesh must decode from graphs")
+        require(m["decode_graph_captures_total"] > 0 and in_graphs["all_reduce"] > 0
+                and in_graphs["broadcast"] > 0,
+                f"mesh (a): the decode graphs captured no collectives ({in_graphs})")
+        require(flash_prefill_attention.launches == spec.n_layers * m["admission_dispatches_total"]
+                and flash_decode_attention.launches == spec.n_layers * _k2_steps(m),
+                f"mesh (a): K1/K2 launches {flash_prefill_attention.launches}/"
+                f"{flash_decode_attention.launches} for {m['admission_dispatches_total']} "
+                f"admissions and {_k2_steps(m)} decode steps")
+    out["a_nccl_one_rank"] = {
+        "backend": eng.mesh.backend, "build_s": round(build_s, 3),
+        "chats": [{"stream": b["stream"], "finish": c["finish"],
+                   "completion_tokens": c["usage"]["completion_tokens"],
+                   "seconds": round(c["t_end"], 4)} for b, c in zip(bodies, chats)],
+        "greedy_equal": True, "captures": m["decode_graph_captures_total"],
+        "replays": m["decode_graph_replays_total"],
+        "collectives_in_graphs": in_graphs,
+        "collectives_issued": {k: c1[k] - c0[k] for k in c1},
+        "k1_launches": flash_prefill_attention.launches,
+        "k2_launches": flash_decode_attention.launches}
+    emit("mesh", leg="a", **out["a_nccl_one_rank"])
+    eng.shutdown()
+    del eng, app, backend
+    _require_card_empty(torch, cpu, "mesh (b)")
+
+    # (b) tp=2: two ranks sharing the card over gloo.
+    zero()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(tp=2), two, backend="gloo",
+                                               timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
+    build_s = time.perf_counter() - t0
+    app, backend = app_for("tp2", eng)
+    # Two of the chats (greedy streamed, sampled not) and half the tokens:
+    # each eager step here costs 0.2–0.4 s of host-staged collectives.
+    b_tok = n_tok // 2
+    chats = _mesh_chats(app, [{**b, "max_tokens": b_tok} for b in bodies[1:3]], backend,
+                        b_tok)
+    got = []
+    for i, p in enumerate(prompts):
+        eng.rank_reports()  # clears what earlier requests fed
+        got.append(_lp_stream(eng, p, b_tok))
+        reports = eng.rank_reports()
+        # The stream's row fed every token rank 0 served but the last
+        # (after the last prompt token when the admission was chunked).
+        fed = [f for f in reports[0]["fed"] if f]
+        require(len(fed) == 1 and fed[0][len(fed[0]) - len(got[i][0]) + 1:] == got[i][0][:-1],
+                f"mesh (b): the worker rank did not feed rank 0's tokens of stream {i}")
+    held = [_hold_lp(f"mesh (b) stream {i}", (r[0][:b_tok], r[1][:b_tok]), g)
+            for i, (r, g) in enumerate(zip(ref, got))]
+    w_bytes = [_tree_bytes(eng.params), reports[0]["weight_bytes"]]
+    c_bytes = [sum(t.numel() * t.element_size() for t in (eng._ck, eng._cv)),
+               reports[0]["cache_bytes"]]
+    want_cache = 2 * spec.n_layers * 4 * (spec.n_kv_heads // 2) * spec.max_seq * spec.head_dim * 2
+    require(w_bytes[0] == w_bytes[1] and abs(w_bytes[0] - full_bytes / 2) <= 0.001 * full_bytes,
+            f"mesh (b): rank weight bytes {w_bytes}, not half of {full_bytes}")
+    require(c_bytes == [want_cache] * 2, f"mesh (b): rank cache bytes {c_bytes} != {want_cache}")
+    step_ms = [1e3 * g[2] / len(g[0]) for g in got]
+    out["b_tp2_gloo"] = {
+        "backend": eng.mesh.backend, "decode": eng.health()["mesh"]["decode"],
+        "build_s": round(build_s, 3),
+        "chats": [{"stream": b["stream"], "finish": c["finish"],
+                   "completion_tokens": c["usage"]["completion_tokens"],
+                   "seconds": round(c["t_end"], 4)} for b, c in zip(bodies[1:3], chats)],
+        "held": held, "worker_fed_rank0_tokens": True,
+        "weight_bytes_per_rank": w_bytes, "single_weight_bytes": full_bytes,
+        "cache_bytes_per_rank": c_bytes,
+        "eager_ms_per_token_one_stream": step_ms,
+        "eager_note": "two ranks sharing one card over host-staged gloo, eager decode: "
+                      "not a tp=2 deployment's step time",
+        "worker_collectives": reports[0]["collectives"]}
+    emit("mesh", leg="b", **out["b_tp2_gloo"])
+
+    # (d) Worker rank 1 killed mid-stream.
+    import threading
+
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+
+    pids = eng.worker_pids()
+    req = eng.submit(prompts[0], max_new_tokens=200 if not tiny else 100,
+                     sampler=SamplerConfig(temperature=0.0))
+    seen, ended = [], {}
+
+    def consume():
+        try:
+            for t in eng.stream_results(req):
+                seen.append(t)
+        except Exception as e:  # noqa: BLE001 - the leg's finding
+            ended["error"] = f"{type(e).__name__}: {e}"[:300]
+        ended["t"] = time.perf_counter()
+
+    th = threading.Thread(target=consume, daemon=True)
+    th.start()
+    deadline = time.monotonic() + SERVE_TIMEOUT_S
+    while len(seen) < 16 and th.is_alive() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    t_kill = time.perf_counter()
+    eng._ranks.kill(1)
+    th.join(MESH_GROUP_TIMEOUT_S + 30)
+    require(not th.is_alive(), "mesh (d): the stream did not end after its worker died")
+    require("error" in ended, f"mesh (d): the stream ended without an error after "
+                              f"{len(seen)} tokens")
+    end_s = ended["t"] - t_kill
+    require(end_s <= MESH_GROUP_TIMEOUT_S, f"mesh (d): the stream took {end_s} s to fail")
+    require(eng.breaker.state == "open", "mesh (d): the breaker did not open")
+    try:
+        eng.submit([1, 2, 3], max_new_tokens=4)
+        refused = False
+    except EngineBreakerOpen:
+        refused = True
+    require(refused, "mesh (d): a submit after the loss was not refused")
+    resp = asyncio.run(_call(app, bodies[0]))
+    require(resp["status"] == 503, f"mesh (d): status {resp['status']} after the loss")
+    reports_b = reports
+    eng.shutdown()
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    require(not alive and not eng.worker_pids(), f"mesh (d): processes left: {alive}")
+    add(reports_b)
+    out["d_worker_killed"] = {"tokens_before_error": len(seen), "error": ended["error"],
+                              "seconds_to_error": round(end_s, 4), "breaker": "open",
+                              "status_after": 503, "processes_left": 0}
+    emit("mesh", leg="d", **out["d_worker_killed"])
+    del eng, app, backend
+    _require_card_empty(torch, cpu, "mesh (b) re-scored")
+
+    # (b) again: each tp=2 stream held whole against the single-device
+    # model scored on the stream's own tokens (past a near-tie the two
+    # engines' streams part; the scoring follows the mesh's).
+    t0 = time.perf_counter()
+    params = init_params(spec, 0, dev)
+    rescored = [_hold_lp(f"mesh (b) stream {i} re-scored",
+                         _rescore_lp(torch, spec, params, p, g[0]), g, forced=True)
+                for i, (p, g) in enumerate(zip(prompts, got))]
+    out["b_tp2_gloo"]["held_rescored"] = rescored
+    emit("mesh", leg="b_rescored", held_rescored=rescored,
+         seconds=round(time.perf_counter() - t0, 3))
+    del params
+    _require_card_empty(torch, cpu, "mesh (c)")
+
+    # (c) sp=2 on one 8192-token prompt: the ring, then Ulysses.
+    for impl in ("ring", "ulysses"):
+        zero()
+        t0 = time.perf_counter()
+        eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(sp=2), two, backend="gloo",
+                                                   timeout_s=MESH_GROUP_TIMEOUT_S),
+                              sp_impl=impl, **knobs)
+        build_s = time.perf_counter() - t0
+        eng.rank_reports(reset_peak=True)
+        peak_reset()
+        got_long = _lp_stream(eng, long_ids, 1)
+        rank0_peak = peak()
+        reports = eng.rank_reports()
+        add(reports)
+        held = _hold_lp(f"mesh (c) {impl}", ref_long, got_long)
+        row = {"build_s": round(build_s, 3), "prompt_tokens": len(long_ids),
+               "admission_s": round(got_long[2], 4), "first_token": got_long[0][0],
+               "single_first_token": ref_long[0][0], **held,
+               "peak_bytes_per_rank": [rank0_peak, reports[0]["peak_bytes"]],
+               "single_peak_bytes": out["single"]["long_peak_bytes"],
+               "worker_k1_launches": reports[0]["launches"]["flash_prefill"],
+               "worker_collectives": reports[0]["collectives"]}
+        if impl == "ring":
+            s_loc = (spec.max_seq) // 2
+            row["ring_hop_scores_bytes"] = 4 * spec.n_heads * s_loc * s_loc
+        if not cpu and impl == "ulysses":
+            require(reports[0]["launches"]["flash_prefill"] == spec.n_layers,
+                    f"mesh (c): Ulysses launched K1 {reports[0]['launches']['flash_prefill']} "
+                    f"times on rank 1, not once per layer")
+        out[f"c_sp2_{impl}"] = row
+        emit("mesh", leg=f"c_{impl}", **row)
+        eng.shutdown()
+        del eng
+        _require_card_empty(torch, cpu, f"mesh (c) {impl}")
+    out["launches"] = launches
+    if not cpu:
+        require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
+                "mesh: a kernel of the path was never launched")
+    out["seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit("mesh", launches=launches, seconds=out["seconds"], measured_on=card)
+    return out
+
+
 def phase_train(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     """Training on the card (run last): (a) llama-3-8b at all 32 layers,
     bf16, 3 steps on 1 × 2 048 tokens; (b) llama-tiny float32, card against
@@ -7106,7 +7612,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="device,build,kernels,model,serve,constrain,surfaces,spec,scheduler,"
                             "decode_graphs,knobs,fanout,members,checkpoint,moe,quant,paged,"
-                            "observe,router,train",
+                            "observe,router,mesh,train",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     args = ap.parse_args(argv)
@@ -7169,6 +7675,7 @@ def main(argv=None) -> int:
                    if "observe" in phases else None)
         router = (phase_router(torch, args.cpu, args.tiny, info)
                   if "router" in phases else None)
+        mesh = phase_mesh(torch, args.cpu, args.tiny, info) if "mesh" in phases else None
         train = phase_train(torch, args.cpu, args.tiny, info) if "train" in phases else None
     except Exception:
         traceback.print_exc()
@@ -7181,7 +7688,7 @@ def main(argv=None) -> int:
             ("scheduler", scheduler),
             ("decode_graphs", graphs), ("knobs", knobs), ("fanout", fanout), ("members", members), ("members_dedup", dedup),
             ("checkpoint", ckpt), ("moe", moe), ("quant", quant), ("paged", paged),
-            ("observe", observe), ("router", router), ("train", train))
+            ("observe", observe), ("router", router), ("mesh", mesh), ("train", train))
             if ph is not None}
         rows = []
         for name, src, replaces in (
@@ -7208,9 +7715,9 @@ def main(argv=None) -> int:
                              if name == "flash_prefill" else "graph")}
             if name == "flash_prefill":
                 row.update(library_masked_ms=r["library_masked_ms"],
-                           library_causal_ms=r["library_causal_ms"])
+                           library_causal_ms=r["library_causal_ms"], per_rank=r["per_rank"])
             if name == "flash_decode":
-                row.update(draft_shape=r["draft_shape"])
+                row.update(draft_shape=r["draft_shape"], per_rank=r["per_rank"])
             if name == "flash_decode_q8":
                 row.update(k2_ms_same_lengths_bf16=r["k2_ms_same_lengths_bf16"],
                            long_cache=r["long_cache"])

@@ -171,15 +171,31 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    host prefix store restores into the staging row).
                    Structural (part of the engine key); requires chunked
                    prefill
+  tp=N, sp=N       a multi-rank engine (``parallel/``): tp × sp ranks, rank
+  sp_impl=         0 in this process and the others spawned, with
+                   device=cpu on the CPU over gloo. On cards (rank r on
+                   ``cuda:r``) it is refused for now: fewer cards than ranks
+                   is an error naming both counts, and NCCL meshes of
+                   several ranks hang (ROADMAP queue 3), so ``make_mesh``
+                   refuses them. tp cuts heads, MLP hidden and vocab (Megatron);
+                   sp > 1 admits every prompt single-shot, sequence-parallel
+                   by ring attention (sp_impl=ring, the default) or Ulysses
+                   (sp_impl=ulysses; windowed specs need it). MoE specs,
+                   members, ensemble, quant, kv_quant, speculation,
+                   kv_pages, prefix_store, zero_drain, ckpt=,
+                   response_format, embeddings and scoring are refused on it
+                   (not yet on a multi-rank engine)
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet
-(``tp=``, ``disagg=``, …): a typo or an unported knob never builds an
+(``dp=``, ``pp=``, ``disagg=``): a typo or an unported knob never builds an
 engine that silently ignores it; ``quant=`` and ``kv_quant=`` values are
 checked there too (``int8`` or empty).
 
-On the card every decode dispatch is one CUDA-graph replay; there is no
-option that turns graphs (or the kernels) off.
+On the card every decode dispatch of a one-card or NCCL engine is one
+CUDA-graph replay; there is no option that turns graphs (or the kernels)
+off. (A mesh whose ranks share a card runs over gloo and decodes eagerly:
+only ``parallel.make_mesh(..., backend="gloo")`` builds one.)
 
 Request knobs, as ``tpu://`` serves them: messages, max_tokens /
 max_completion_tokens, temperature, top_p, seed, stop, stream (+
@@ -269,11 +285,11 @@ _OPTIONS = frozenset({
     "member_seeds", "quorum_dedup", "ensemble", "ckpt", "quant", "kv_quant",
     "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "kv_pages", "kv_page_size",
     "kv_pool_pages", "prefix_store", "prefix_store_bytes", "prefix_store_chunk", "qos",
-    "zero_drain"})
+    "zero_drain", "tp", "sp", "sp_impl"})
 _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
-_NOT_YET = frozenset({"disagg", "tp", "dp", "sp", "pp", "sp_impl"})
+_NOT_YET = frozenset({"disagg", "dp", "pp"})
 
 
 def _check_options(opts: dict[str, str]) -> None:
@@ -290,6 +306,31 @@ def _check_options(opts: dict[str, str]) -> None:
             raise ValueError(f"cuda:// does not serve the {key}= option yet "
                              "(the tpu:// backend does)")
         raise ValueError(f"unknown cuda:// option {key}=")
+
+
+def _url_mesh(opts: dict[str, str]):
+    """``tp=``/``sp=`` (``sp_impl=``) → a ``parallel/mesh.Mesh``, or None
+    for one rank. With ``device=cpu`` the ranks run on the CPU over gloo.
+    On cards they would take ``cuda:0..N−1`` over NCCL: fewer cards than
+    ranks is an error naming both counts, and ``make_mesh`` refuses an
+    NCCL mesh of several ranks (an open fault)."""
+    from quorum_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    tp, sp = int(opts.get("tp", 1)), int(opts.get("sp", 1))
+    if tp < 1 or sp < 1:
+        raise ValueError(f"invalid tp={tp} sp={sp} (each must be >= 1)")
+    n = tp * sp
+    if n == 1:
+        return None
+    dev = torch.device(opts.get("device") or "cuda")
+    if dev.type == "cpu":
+        return make_mesh(MeshConfig(tp=tp, sp=sp), ["cpu"] * n)
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        raise ValueError(
+            f"tp={tp} x sp={sp} needs {n} CUDA devices (one per rank), this machine has "
+            f"{have}")
+    return make_mesh(MeshConfig(tp=tp, sp=sp), [f"cuda:{i}" for i in range(n)])
 
 
 def _check_ckpt_options(opts: dict[str, str], members: int, member_seeds: str,
@@ -616,6 +657,9 @@ class CudaBackend:
             knobs["draft_ckpt"] = spec_ckpt
         if ckpt:
             _check_ckpt_options(opts, members, member_seeds, quorum_dedup)
+            if _url_mesh(opts) is not None:
+                raise ValueError("ckpt= with tp=/sp=: a checkpoint's weights are not yet on "
+                                 "a multi-rank engine")
             engine = get_engine_from_ckpt(ckpt, dtype=opts.get("dtype"), **knobs)
             # The checkpoint's tokenizer when it ships one (bytes when it
             # cannot load, e.g. without transformers).
@@ -633,10 +677,13 @@ class CudaBackend:
                     "max_seq": str(spec.max_seq), "vocab_size": str(spec.vocab_size),
                     "sliding_window": str(spec.sliding_window)})
                 knobs["draft_seed"] = int(opts.get("spec_seed", 0))
+            mesh = _url_mesh(opts)
+            if mesh is not None:
+                knobs["device"] = None
             engine = get_engine(
                 spec, seed=int(opts.get("seed", 0)),
                 members=members, member_seeds=member_seeds, quorum_dedup=quorum_dedup,
-                **knobs)
+                mesh=mesh, sp_impl=opts.get("sp_impl", "ring"), **knobs)
         return cls(bspec.name, engine, model=bspec.model, model_id=bspec.model_id,
                    default_max_tokens=int(opts.get("max_tokens", 64)),
                    decode_chunk=int(opts["decode_chunk"]) if "decode_chunk" in opts else None,
@@ -780,6 +827,11 @@ class CudaBackend:
             return None
         from quorum_tpu_torch.constrain import (GrammarError, GrammarUnsatisfiable,
                                                 compile_response_format)
+
+        if getattr(self.engine, "mesh", None) is not None:
+            raise _invalid_request(
+                "response_format constrained decoding is not yet on a multi-rank engine "
+                "(tp=/sp= backends)")
 
         if self.engine.prefill_chunk <= 0:
             raise _invalid_request(
@@ -1131,6 +1183,9 @@ class CudaBackend:
                                                    forward_tokens_error)
 
         effective = prepare_body(body, self.model)  # 400 when no model anywhere
+        if getattr(self.engine, "mesh", None) is not None:
+            raise _invalid_request("embeddings are not yet on a multi-rank engine "
+                                   "(tp=/sp= backends)")
         token_lists = [self.tokenizer.encode(x) if isinstance(x, str) else x
                        for x in self._token_inputs(body.get("input"), "input", MAX_BATCH)]
         spec = self.engine.spec
@@ -1279,6 +1334,9 @@ class CudaBackend:
         if not isinstance(mt, int) or isinstance(mt, bool) or mt < 0:
             raise _invalid_request(f"Invalid value for 'max_tokens': {mt!r} (integer >= 0)")
         scoring = echo and lp is not None
+        if scoring and getattr(self.engine, "mesh", None) is not None:
+            raise _invalid_request("prompt scoring (echo with logprobs) is not yet on a "
+                                   "multi-rank engine (tp=/sp= backends)")
         if mt == 0 and not scoring:
             raise _invalid_request(
                 "'max_tokens': 0 requires 'echo': true with 'logprobs' set (the pure "

@@ -55,6 +55,14 @@ class Breaker:
                 self.state = "open"
                 self._open_until = now + self.cooldown
 
+    def trip(self, now: float | None = None) -> None:
+        """Open at once: a failure no retry can fix (an engine that lost a
+        rank of its mesh)."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            self.state = "open"
+            self._open_until = now + self.cooldown
+
     def record_success(self) -> None:
         with self._lock:
             if self.state != "closed":

@@ -147,7 +147,10 @@ def padded_batch(spec, token_lists: list[list[int]], rows: list[int], device,
 
 def engine_params(engine, member: int):
     """The weight set a forward runs: member ``member`` of a stacked engine
-    (views, no copy), the engine's params otherwise."""
+    (views, no copy), the engine's params otherwise. A multi-rank engine's
+    params are one rank's shard: refused."""
+    if getattr(engine, "mesh", None) is not None:
+        raise ValueError("embeddings and scoring: not yet on a multi-rank engine")
     if engine.members > 1 or engine.ensemble > 1:
         return member_params(engine.params, member)
     return engine.params

@@ -236,6 +236,29 @@ is False), so ``admission_stall_seconds_total`` stays 0, and
 ``admission_overlap_total`` counts registrations onto a live ring. Tier-0
 prefix reuse is off (the segments cannot attend over the decode cache); a
 host prefix store restores into the staging row.
+
+Multi-rank engines (``mesh=``, a ``parallel/mesh.Mesh``; the JAX engine's
+mesh argument, ``tp`` and ``sp`` axes): this engine is rank 0, on the
+mesh's first device, and holds rank 0's shard of the weights and of the KV
+cache (its kv heads); the other ranks are worker processes
+(``parallel/ranks.RankGroup``, each an ``engine/follower.Follower``). The
+one scheduler is rank 0's. Before it issues a device program — a
+single-shot admission, a segment, a decode dispatch — it sends the
+workers a plan naming it and its host inputs, and each runs the same
+program on its shard in the same order, so the collectives pair up. Rank 0 samples; each decode step
+broadcasts its token, positions and write mask, so every rank feeds the
+same token. With sp > 1 every admission is single-shot and sequence-
+parallel (ring or Ulysses, ``sp_impl``). A mesh over NCCL (one rank for
+now) decodes from graphs that capture the collectives; one over gloo
+(ranks sharing a card) decodes eagerly, as ``health()["mesh"]`` says. A
+worker found dead before a plan (or a collective failing under it) fails
+the engine's requests and opens its breaker for good: every later submit
+is a 503 (``EngineBreakerOpen``); ``shutdown`` stops and joins the workers
+(killed past a timeout). The dense families, both admission routes, tier-0 reuse,
+the request knobs and deadlines, QoS, drain, park and resume carry; MoE,
+members, ensembles, int8, speculation, paging, the host store, zero-drain,
+grammars, embeddings and scoring are refused (not yet on a multi-rank
+engine).
 """
 
 from __future__ import annotations
@@ -259,12 +282,18 @@ from quorum_tpu_torch.cache.paging import (PageAllocator, init_paged_cache, page
                                            validate_page_config)
 from quorum_tpu_torch.cache.prefix_store import DEFAULT_PREFIX_STORE_BYTES, PrefixStore
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
-from quorum_tpu_torch.models.init import check_quant, init_params, init_params_stacked
+from quorum_tpu_torch.models.convert import shard_params
+from quorum_tpu_torch.models.init import (check_quant, init_params, init_params_shard,
+                                          init_params_stacked)
 from quorum_tpu_torch.models.model_config import ModelSpec
 from quorum_tpu_torch.models.quant import is_quantized, quantize_params
 from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, decode_multi,
                                                  decode_step, host_to_device, init_cache,
                                                  member_params, prefill, prefill_segment)
+from quorum_tpu_torch.parallel.mesh import AXIS_SP
+from quorum_tpu_torch.parallel.ranks import RankGroup, WorkerLost, to_host
+from quorum_tpu_torch.parallel.sharding import rank_kv_heads
+from quorum_tpu_torch.parallel.ulysses import ulysses_supported
 from quorum_tpu_torch.ops.sampling import (TOP_LOGPROBS, SamplerConfig, adjust_logits,
                                            apply_token_mask, gumbel_noise, sample_token_rows,
                                            token_logprobs)
@@ -813,7 +842,8 @@ class _DraftRuntime:
 
 
 class InferenceEngine:
-    """One loaded model on one device, serving many requests concurrently."""
+    """One loaded model on one device (or rank 0 of a mesh), serving many
+    requests concurrently."""
 
     def __init__(
         self,
@@ -847,8 +877,24 @@ class InferenceEngine:
         prefix_store_chunk: int = 0,
         qos: bool = False,
         zero_drain: bool = False,
+        mesh=None,
+        sp_impl: str = "ring",
     ):
         self.spec = spec.validate()
+        # A mesh engine (``mesh``, a parallel/mesh.Mesh): this engine is
+        # rank 0, on the mesh's first device; the other ranks are worker
+        # processes started below (the module docstring's "Multi-rank
+        # engines").
+        self.mesh = mesh
+        if sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"unknown sp_impl {sp_impl!r} (ring or ulysses)")
+        self.sp_impl = sp_impl
+        self._use_sp = mesh is not None and mesh.shape[AXIS_SP] > 1
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.devices[0]:
+                raise ValueError(f"device={device} is not the mesh's rank-0 device "
+                                 f"{mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.members = max(1, int(members))
         self.ensemble = max(1, int(ensemble))
@@ -877,7 +923,14 @@ class InferenceEngine:
         self.member_seeds = member_seeds
         self.quorum_dedup = bool(quorum_dedup)
         stack = max(self.members, self.ensemble)
-        if params is None:
+        self._ranks: RankGroup | None = None
+        self._rmesh = None
+        if mesh is not None:
+            _check_mesh_knobs(self, spec, mesh, sp_impl, spec_decode, draft_spec, kv_pages,
+                              prefix_store)
+        if mesh is not None:
+            params = self._start_ranks(spec, mesh, seed, params, n_slots)
+        elif params is None:
             if stack > 1:
                 seeds = ([seed] * stack if member_seeds == "shared"
                          else [seed + i for i in range(stack)])
@@ -896,6 +949,10 @@ class InferenceEngine:
         self.decode_pipeline = max(1, int(decode_pipeline))
         self.decode_loop = resolve_decode_loop(decode_loop)
         self.prefill_chunk = aligned_prefill_chunk(int(prefill_chunk), spec.max_seq)
+        if self._use_sp:
+            # The JAX engine's rule: the sp ring (or Ulysses) IS the long-
+            # prompt answer; every admission prefills single-shot.
+            self.prefill_chunk = 0
         # Reuse rides the segment path (the suffix prefills at an offset).
         # Off under staging: the resident K/V lives in the decode cache,
         # which the staging segments cannot attend over (the host prefix
@@ -937,8 +994,12 @@ class InferenceEngine:
                 device=self.device)
             self._table = self._ck.table
         else:
+            n_kv = None
+            if mesh is not None:
+                lo, hi = rank_kv_heads(spec.n_heads, spec.n_kv_heads, mesh.shape["tp"], 0)
+                n_kv = hi - lo
             self._ck, self._cv = init_cache(spec, stack * self.n_slots, device=self.device,
-                                            kv_quant=self.kv_quant)
+                                            kv_quant=self.kv_quant, n_kv_heads=n_kv)
         # The staging cache of a zero-drain engine: the decode cache's dense
         # slot layout (staging row i stages decode row i), dense even on a
         # paged engine, in the cache's representation. Its bytes are
@@ -1098,7 +1159,10 @@ class InferenceEngine:
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device, priority=RING_STREAM_PRIORITY)
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
-            self._graphs = DecodeGraphs(self.device, self._stream, hold=self._deadline_watch)
+            # A mesh over gloo stages its collectives through the host,
+            # which no graph can capture: that engine decodes eagerly.
+            if self._rmesh is None or self._rmesh.graphs_ok:
+                self._graphs = DecodeGraphs(self.device, self._stream, hold=self._deadline_watch)
             self._fwd_stream = torch.cuda.Stream(self.device)
             self._fwd_stream.wait_stream(torch.cuda.current_stream(self.device))
             if self.staged:
@@ -1169,6 +1233,9 @@ class InferenceEngine:
             raise ValueError(
                 f"priority must be one of {PRIORITY_CLASSES}, "
                 f"got {priority!r}")
+        if self._ranks_lost():
+            # A lost rank never comes back: every submit is a fast 503.
+            raise EngineBreakerOpen(self.breaker.retry_after())
         if self.draining:
             # A draining engine admits nothing new: the 503 this becomes is
             # a failure before the first byte, which a router fails over.
@@ -1176,6 +1243,8 @@ class InferenceEngine:
             err.retry_after = 1.0
             raise err
         spec = self.spec
+        if grammar is not None and self.mesh is not None:
+            raise ValueError(f"constrained decoding: {_NOT_ON_MESH}")
         if grammar is not None:
             # The JAX engine's preconditions: grammar completion
             # finishes the row by forcing EOS, and the first token must be
@@ -1419,6 +1488,16 @@ class InferenceEngine:
             "rebuilds_total": self.n_rebuilds,
             # A draining engine still answers /health but sheds /ready.
             "draining": self.draining,
+            # A mesh engine: its ranks, their backend, whether every worker
+            # is alive, and how it decodes (graphs over NCCL on a card;
+            # eagerly over gloo, whose collectives go through the host).
+            "mesh": None if self.mesh is None else {
+                "ranks": self.mesh.size, "shape": self.mesh.shape,
+                "backend": self.mesh.backend, "sp_impl": self.sp_impl,
+                "workers_alive": self._ranks.lost is None and len(self._ranks.alive_pids())
+                == self.mesh.size - 1,
+                "decode": ("graphs" if self._graphs is not None
+                           else "eager (gloo)" if self.device.type == "cuda" else "eager")},
         }
 
     def busy(self) -> bool:
@@ -1497,6 +1576,10 @@ class InferenceEngine:
             self._snap_queue.put(None)
             self._snap_thread.join(timeout=timeout)
             self.prefix_store.clear()
+        if self._ranks is not None:
+            # Workers stop (killed past the timeout) even when a device call
+            # of ours still runs: a collective waiting on them then fails.
+            self._ranks.stop(timeout_s=min(timeout, 30.0))
         if self._thread.is_alive():
             return  # a device call is still running; the GC reclaims state later
         if self._stream is not None:
@@ -1504,7 +1587,8 @@ class InferenceEngine:
             self._fwd_stream.synchronize()
             if self._stage_stream is not None:
                 self._stage_stream.synchronize()
-            self._graphs.clear()
+            if self._graphs is not None:
+                self._graphs.clear()
         self.params = None
         self._ck = self._cv = self._table = None
         self._sck = self._scv = None
@@ -1512,6 +1596,77 @@ class InferenceEngine:
         self._draft_rt = None
         self._g_trans = self._g_accept = None
         self._host_pool.clear()
+
+    # ---- multi-rank engines ------------------------------------------------
+
+    def _start_ranks(self, spec: ModelSpec, mesh, seed: int, params, n_slots: int):
+        """Start the mesh's worker ranks (``parallel/ranks.RankGroup``; each
+        builds an ``engine/follower.Follower``), build this rank's shard of
+        the weights while they start, then join the groups. Returns rank
+        0's shard. Given ``params`` (a full tree) are cut for every rank and
+        the workers' cuts sent at their spawn; else every rank draws its
+        own cut of ``init_params(spec, seed)``."""
+        rows = max(1, int(n_slots))
+        dtype = None
+        if params is not None:
+            dtype = str(params["tok_emb"].dtype).removeprefix("torch.")
+
+        def setup(rank: int):
+            shard = None
+            if params is not None:
+                shard = (to_host(shard_params(params, mesh, rank, spec)), dtype)
+            return ("quorum_tpu_torch.engine.follower:Follower",
+                    dict(spec=spec, seed=int(seed), rows=rows, sp_impl=self.sp_impl,
+                         shard=shard))
+
+        self._ranks = RankGroup(mesh, setup=setup).spawn()
+        try:
+            mine = (init_params_shard(spec, seed, mesh, 0, self.device) if params is None
+                    else shard_params(params, mesh, 0, spec))
+            self._rmesh = self._ranks.join()
+        except BaseException:
+            self._ranks.stop()
+            raise
+        return mine
+
+    def _plan(self, op: str, *args) -> None:
+        """Send the workers the plan of the device program rank 0 is about
+        to issue (a no-op without a mesh). A lost worker raises
+        ``WorkerLost`` and trips the breaker."""
+        if self._ranks is not None:
+            if self._ranks_lost():
+                raise self._ranks.lost
+            self._ranks.plan(op, *args)
+
+    def _ranks_lost(self) -> bool:
+        """Whether a worker rank is gone (checked now); the first time,
+        the breaker opens at once and stays open: every later submit is a
+        503 (``EngineBreakerOpen``)."""
+        if self._ranks is None:
+            return False
+        if self._ranks.lost is None:
+            try:
+                self._ranks.check()
+                return False
+            except WorkerLost as e:
+                logger.error("engine lost a rank of its mesh: %s", e)
+                FLIGHT.record("breaker", engine=self._tag, state="open",
+                              error=str(e)[:200])
+        self.breaker.trip()
+        return True
+
+    def rank_reports(self, reset_peak: bool = False) -> list[dict]:
+        """Every worker rank's ``Follower.report`` (rank 1 first): the
+        tokens it fed per row since the last report, its launches,
+        collectives, bytes and peak memory. [] without a mesh. Called from
+        any thread while the engine is idle (it is a plan)."""
+        if self._ranks is None or self._ranks.size == 1:
+            return []
+        return self._ranks.plan("report", reset_peak, reply=True)
+
+    def worker_pids(self) -> list[int]:
+        """The live worker ranks' process ids ([] without a mesh)."""
+        return [] if self._ranks is None else self._ranks.alive_pids()
 
     # ---- paged KV and the host prefix store: construction ------------------
 
@@ -2326,8 +2481,9 @@ class InferenceEngine:
                                    rows=[e * self.n_slots + slot for e in range(n_ens)])
             logits = logits.mean(0, keepdim=True)
         else:
+            self._plan("prefill", req.prompt_ids, bucket, slot)
             logits, _, _ = prefill(self.params, spec, tokens, lengths, self._ck, self._cv,
-                                   slot=slot)
+                                   slot=slot, mesh=self._rmesh, sp_impl=self.sp_impl)
         self.n_admission_dispatches += 1
         (first,), (lp,) = self._start_rows([req], [slot], logits)
         t1 = time.perf_counter()
@@ -2468,11 +2624,14 @@ class InferenceEngine:
         segs = [a.req.prompt_ids[a.offset:a.offset + chunk] if a is not None else []
                 for a in per_row]
         cache = (self._sck, self._scv) if self.staged else (self._ck, self._cv)
+        offsets = [a.offset if a is not None else 0 for a in per_row]
+        n_valid = [len(seg) for seg in segs]
         t0 = time.perf_counter()
+        self._plan("segment", segs, bucket, offsets, rows, history, n_valid)
         with self._stage_scope():
-            prefill_segment(params, self.spec, self._prompt_tokens(segs, bucket),
-                            [a.offset if a is not None else 0 for a in per_row], *cache,
-                            rows=rows, history=history, n_valid=[len(seg) for seg in segs])
+            prefill_segment(params, self.spec, self._prompt_tokens(segs, bucket), offsets,
+                            *cache, rows=rows, history=history, n_valid=n_valid,
+                            mesh=self._rmesh)
             for adm in batch.values():
                 adm.offset = min(adm.offset + chunk, len(adm.req.prompt_ids))
                 if self.staged:
@@ -3552,13 +3711,14 @@ class InferenceEngine:
                 sample_fn, carry0)
         if n_chunks == 1:
             toks, _, n_valid, live, budget, _, _, lengths, carry, aux = decode_chunk(
-                self.params, self.spec, n_steps, *args, ensemble=self.ensemble, history=history)
+                self.params, self.spec, n_steps, *args, ensemble=self.ensemble, history=history,
+                mesh=self._rmesh)
             toks, n_valid, token = toks[None], n_valid[None], toks[:, -1]
             aux = tuple(a[None] for a in aux)
         else:
             toks, n_valid, token, live, budget, _, _, lengths, carry, aux = decode_loop(
                 self.params, self.spec, n_steps, n_chunks, *args, ensemble=self.ensemble,
-                history=history)
+                history=history, mesh=self._rmesh)
         # Rows outside this dispatch's active set keep their state.
         self._live.copy_(torch.where(self._mask, live, self._live))
         self._token.copy_(torch.where(self._mask, token, self._token))
@@ -3622,6 +3782,8 @@ class InferenceEngine:
         stream (outside any capture), read at reap; the flight recorder
         gets the dispatch event. From here on the dispatch's program runs on
         the engine's state (``_program_issued``)."""
+        if self._ranks is not None:
+            self._plan("decode", n_steps, n_chunks)  # the workers' half: the same steps
         self._program_issued = True
         self.dispatched_keys.add(key)
         t_issue = time.perf_counter()
@@ -4357,7 +4519,8 @@ class InferenceEngine:
                       error=f"{type(exc).__name__}: {exc}"[:200], doomed=len(doomed),
                       rids=[r.rid for r in doomed])
         FLIGHT.dump("fail-all")
-        self._record_breaker_failure()
+        if not self._ranks_lost():  # a lost rank tripped it for good
+            self._record_breaker_failure()
         for r in doomed:
             self.n_failures += 1
             if r.trace is not None:
@@ -4455,6 +4618,65 @@ _ENGINES: dict[tuple, InferenceEngine] = {}
 _ENGINES_LOCK = threading.Lock()
 
 
+_NOT_ON_MESH = "not yet on a multi-rank engine"
+
+
+def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
+                      spec_decode: int, draft_spec, kv_pages: bool, prefix_store) -> None:
+    """A mesh engine's refusals: the JAX engine's sequence-parallel ones in
+    its words, then what the port's mesh path does not carry yet, by name."""
+    if eng._use_sp:
+        if sp_impl == "ulysses" and not ulysses_supported(spec.n_heads, spec.n_kv_heads, mesh):
+            raise ValueError(
+                f"sp_impl=ulysses needs the per-device head counts "
+                f"to split over sp "
+                f"(heads={spec.n_heads}, "
+                f"kv_heads={spec.n_kv_heads}, mesh "
+                f"{dict(mesh.shape)}) — a silent dense "
+                "fallback would replicate full attention at "
+                "exactly the lengths sp exists for")
+        if spec.sliding_window > 0 and sp_impl == "ring":
+            raise ValueError(
+                "sliding_window specs (mistral) do not compose with "
+                "ring-attention sp>1 (full causal attention would "
+                "silently widen the receptive field); use "
+                "sp_impl=ulysses, whose full-sequence local attention "
+                "applies windows unchanged")
+        if eng.ensemble > 1:
+            raise ValueError(
+                "ensemble decoding does not compose with sp>1 "
+                "(ring attention inside the member vmap)")
+        if eng.members > 1:
+            raise ValueError(
+                "members does not compose with sp>1 "
+                "(ring attention inside the member vmap)")
+        if kv_pages:
+            raise ValueError(
+                "kv_pages=1 does not compose with sp>1: ring attention "
+                "shards the position axis, which the page-table "
+                "indirection scatters — drop one knob")
+        if prefix_store:
+            raise ValueError(
+                "prefix_store does not compose with sp>1: sequence-"
+                "parallel serving disables chunked prefill, which the "
+                "restore path's nonzero-offset tail prefill rides")
+    refused = [name for name, on in (
+        ("MoE specs", spec.is_moe), ("members", eng.members > 1),
+        ("ensemble", eng.ensemble > 1), ("quant", bool(eng.quant)),
+        ("kv_quant", bool(eng.kv_quant)), ("speculative decoding",
+                                           int(spec_decode) > 0 or draft_spec is not None),
+        ("kv_pages", bool(kv_pages)), ("prefix_store", bool(prefix_store)),
+        ("zero_drain", eng.zero_drain)) if on]
+    if refused:
+        raise ValueError(f"{', '.join(refused)}: {_NOT_ON_MESH} (tp/sp serve the dense "
+                         "families with the default scheduler)")
+    tp = mesh.shape["tp"]
+    if spec.n_heads % tp:
+        raise ValueError(f"tp={tp} does not divide n_heads={spec.n_heads}: each rank holds "
+                         "whole query heads")
+    rank_kv_heads(spec.n_heads, spec.n_kv_heads, tp, 0)  # refuses uneven group cuts
+
+
 def get_engine(
     spec: ModelSpec,
     *,
@@ -4485,8 +4707,10 @@ def get_engine(
     prefix_store_chunk: int = 0,
     qos: bool = False,
     zero_drain: bool = False,
+    mesh=None,
+    sp_impl: str = "ring",
 ) -> InferenceEngine:
-    """Engines are keyed by weight identity (spec, seed, device, members,
+    """Engines are keyed by weight identity (spec, seed, device or mesh, members,
     ensemble, member_seeds when members > 1, quant), by the cache
     representation (``kv_quant``), by ``quorum_dedup`` and by speculation
     (``spec_decode`` and the draft: its spec and seed, or its checkpoint's
@@ -4505,15 +4729,18 @@ def get_engine(
     is part of the key. ``qos`` is not: it is host policy only, and an
     explicit ``qos=True`` from any backend turns it on for the shared
     engine (an opt-in wins). ``device`` defaults to cuda and raises when
-    there is none."""
+    there is none; a ``mesh`` (``parallel/mesh.Mesh``) puts rank 0 on its
+    first device and is part of the key, as is ``sp_impl`` when sp > 1
+    (inert otherwise, as the JAX engine keys it)."""
     import os
 
     if draft_ckpt and draft_spec is not None:
         raise ValueError("draft_spec and draft_ckpt are mutually exclusive")
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     members, ensemble = max(1, int(members)), max(1, int(ensemble))
     draft_ckpt = os.path.realpath(draft_ckpt) if draft_ckpt else None
-    key = (spec, int(seed), str(dev), members, ensemble,
+    sp_key = sp_impl if mesh is not None and mesh.shape[AXIS_SP] > 1 else None
+    key = (spec, int(seed), str(dev), mesh, sp_key, members, ensemble,
            member_seeds if members > 1 else None, bool(quorum_dedup), quant or None,
            kv_quant or None, int(spec_decode), draft_spec,
            int(draft_seed) if draft_spec is not None else None, draft_ckpt,
@@ -4535,7 +4762,8 @@ def get_engine(
                 draft_spec=draft_spec, draft_seed=draft_seed, draft_params=draft_params,
                 kv_pages=kv_pages, kv_page_size=kv_page_size, kv_pool_pages=kv_pool_pages,
                 prefix_store=prefix_store, prefix_store_bytes=prefix_store_bytes,
-                prefix_store_chunk=prefix_store_chunk, qos=qos, zero_drain=zero_drain)
+                prefix_store_chunk=prefix_store_chunk, qos=qos, zero_drain=zero_drain,
+                mesh=mesh, sp_impl=sp_impl)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
             eng.qos = eng.qos or bool(qos)

@@ -91,6 +91,32 @@ def stack_params(trees: list[dict]) -> dict:
     return out
 
 
+def shard_params(params: Mapping, mesh, rank: int, spec) -> dict:
+    """Rank ``rank``'s shard of a full single-model tree (``params_from_numpy``
+    of the JAX package's parameters, or ``init_params``) on ``mesh`` (a
+    ``parallel/mesh.Mesh`` or ``RankMesh``): each leaf cut by
+    ``parallel/sharding``'s rules for ``spec`` (heads, MLP hidden and vocab
+    over tp; each rank's kv heads those its query heads read), as
+    contiguous tensors on the leaves' device. Member-stacked, quantized and
+    MoE trees are refused: not yet on a multi-rank engine."""
+    from quorum_tpu_torch.parallel.sharding import rank_cut
+
+    cut = rank_cut(spec, mesh, rank)
+
+    def leaf(name, x):
+        if x is None:
+            return None
+        if isinstance(x, Mapping):
+            raise ValueError(f"quantized leaf {name!r}: quant is not yet on a multi-rank engine")
+        return cut(name, x).contiguous()
+
+    if params["tok_emb"].dim() != 2:
+        raise ValueError("member-stacked trees are not yet on a multi-rank engine")
+    out = {k: leaf(k, v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: leaf(k, v) for k, v in params["blocks"].items()}
+    return out
+
+
 def _as_tensor(x, device) -> torch.Tensor:
     """A numpy leaf as a tensor of its own dtype (bfloat16 kept bfloat16):
     0-d leaves (counts, the step) on the host, the rest on ``device``."""

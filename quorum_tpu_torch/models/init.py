@@ -43,7 +43,7 @@ def check_quant(quant: str | None) -> str | None:
 
 
 def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
-          quant: str | None = None) -> Params:
+          quant: str | None = None, cut=None) -> Params:
     spec.validate()
     quant = check_quant(quant)
     dev = resolve_device(device)
@@ -69,6 +69,16 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
             return torch.randn(part_shape, generator=gen, dtype=torch.float32,
                                device=dev) * fan ** -0.5
 
+        if cut is not None:
+            # A rank's shard: every part drawn whole, in the init's order,
+            # and cut before the next is drawn.
+            part = full_shape[1:] if layered else full_shape
+            kept = cut(name, torch.empty(part, device="meta"), layered).shape
+            out = torch.empty(((full_shape[0],) if layered else ()) + tuple(kept),
+                              dtype=dt, device=dev)
+            for gen, idx in parts(full_shape, layered):
+                out[idx].copy_(cut(name, draw(gen, part), layered))
+            return out
         if not (quant and name in QUANT_REDUCE_AXIS):
             out = torch.empty(full_shape, dtype=dt, device=dev)
             for gen, idx in parts(full_shape, layered):
@@ -84,9 +94,10 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
                 out[k][idx].copy_(v)
         return out
 
-    def full(shape, value, layered=False):
+    def full(shape, value, layered=False, name=""):
         full_shape = (shape[0],) + lead + shape[1:] if layered else lead + shape
-        return torch.full(full_shape, value, dtype=dt, device=dev)
+        out = torch.full(full_shape, value, dtype=dt, device=dev)
+        return out if cut is None else cut(name, out).contiguous()
 
     L, D, V = spec.n_layers, spec.d_model, spec.vocab_size
     H = spec.n_heads * spec.head_dim
@@ -104,9 +115,9 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
         "wk": w(L, D, K, layered=True, name="wk"),
         "wv": w(L, D, K, layered=True, name="wv"),
         "wo": w(L, H, D, layered=True, name="wo"),
-        "bq": full((L, H), 0.0, layered=True) if bias else None,
-        "bk": full((L, K), 0.0, layered=True) if bias else None,
-        "bv": full((L, K), 0.0, layered=True) if bias else None,
+        "bq": full((L, H), 0.0, layered=True, name="bq") if bias else None,
+        "bk": full((L, K), 0.0, layered=True, name="bk") if bias else None,
+        "bv": full((L, K), 0.0, layered=True, name="bv") if bias else None,
         "bo": full((L, D), 0.0, layered=True) if bias else None,
         "mlp_norm_w": full((L, D), norm_one, layered=True),
         "mlp_norm_b": full((L, D), 0.0, layered=True) if ln else None,
@@ -123,12 +134,12 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
             w_gate=w(L, D, F, layered=True, name="w_gate") if spec.gated_mlp else None,
             w_up=w(L, D, F, layered=True, name="w_up"),
             w_down=w(L, F, D, layered=True, name="w_down"),
-            b_up=full((L, F), 0.0, layered=True) if bias else None,
+            b_up=full((L, F), 0.0, layered=True, name="b_up") if bias else None,
             b_down=full((L, D), 0.0, layered=True) if bias else None,
         )
     return {
         "tok_emb": w(V, D, fan_in=D, name="tok_emb"),
-        "pos_emb": w(spec.max_seq, D, fan_in=D) if spec.pos == "learned" else None,
+        "pos_emb": w(spec.max_seq, D, fan_in=D, name="pos_emb") if spec.pos == "learned" else None,
         "final_norm_w": full((D,), norm_one),
         "final_norm_b": full((D,), 0.0) if ln else None,
         "lm_head": None if spec.tied_lm_head else w(D, V, name="lm_head"),
@@ -139,6 +150,20 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
 def init_params(spec: ModelSpec, seed: int = 0, device=None, dtype=None,
                 quant: str | None = None) -> Params:
     return _init(spec, [seed], False, device, dtype, quant)
+
+
+def init_params_shard(spec: ModelSpec, seed: int, mesh, rank: int, device=None,
+                      dtype=None) -> Params:
+    """Rank ``rank``'s shard of ``init_params(spec, seed)`` on ``mesh`` (a
+    ``parallel/mesh.Mesh`` or ``RankMesh``), bit for bit its cut
+    (``parallel/sharding.rank_cut``): each layer slice is drawn whole from
+    the same generator in the same order, cut, and only the cut kept, so a
+    rank holds its share of the weights plus one layer's float32 draw."""
+    from quorum_tpu_torch.parallel.sharding import rank_cut
+
+    if spec.is_moe:
+        raise ValueError("MoE specs are not yet on a multi-rank engine")
+    return _init(spec, [seed], False, device, dtype, cut=rank_cut(spec, mesh, rank))
 
 
 def init_params_stacked(spec: ModelSpec, seeds: list[int], device=None, dtype=None,

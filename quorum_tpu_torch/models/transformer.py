@@ -53,6 +53,19 @@ what it writes; prefill attends over the fresh K/V as the JAX package's
 does, a segment dequantizes its row's bounded history, and decode reads
 the int8 cache natively (K2q8).
 
+On a mesh (``mesh=``, a ``parallel/comm.RankMesh``; params and cache this
+rank's shard, ``models/convert.shard_params``), the functions add what
+GSPMD adds in the JAX package: the row-parallel output and down
+projections' partial sums all-reduced over tp (their biases added once,
+after), the vocab-cut embedding gathered by an all-reduce and the vocab-cut
+logits all-gathered; head counts come from the projections' widths. A
+decode step takes rank 0's token, positions and write mask by one
+broadcast (``RankMesh.sync_step``: rank 0 samples, every rank feeds the
+same token; a worker runs :func:`follow_decode_step`). With sp > 1,
+:func:`prefill` and :func:`forward_logits_sp` run each rank's sequence block
+through ring attention or Ulysses (``parallel/``). The collectives are
+called whatever the group's size, so a one-rank mesh's graphs capture them.
+
 MoE layers (``spec.n_experts > 0``) follow the JAX package: a prompt
 (T > 1) runs the grouped path (:func:`_moe_mlp_grouped`: fixed-capacity
 expert buffers, overflow picks dropped, pad tokens kept out of capacity),
@@ -199,7 +212,15 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _dense_mlp(x, block, spec: ModelSpec):
+def _tp_sum(out: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel product's partial sums over the tp ranks (f32, in
+    place): the all-reduce GSPMD puts after the JAX package's down and
+    output projections. Called on every mesh, whatever tp is, so a
+    one-rank group's decode graphs capture it too."""
+    return out if mesh is None else mesh.tp.all_reduce(out)
+
+
+def _dense_mlp(x, block, spec: ModelSpec, mesh=None):
     if spec.gated_mlp:
         xq = quantize_act(x, block["w_gate"], block["w_up"])
         gate = _mm(x, block["w_gate"], xq)
@@ -212,8 +233,8 @@ def _dense_mlp(x, block, spec: ModelSpec):
         if block.get("b_up") is not None:
             up = _add(up, block["b_up"])
         h = _gelu(up).to(x.dtype)
-    out = _mm(h, block["w_down"])
-    if block.get("b_down") is not None:
+    out = _tp_sum(_mm(h, block["w_down"]), mesh)
+    if block.get("b_down") is not None:  # once, after the reduction
         out = _add(out, block["b_down"])
     return out.to(x.dtype)
 
@@ -347,16 +368,19 @@ def _moe_mlp(x, block, spec: ModelSpec, token_mask=None):
     return _moe_mlp_grouped(x, block, spec, token_mask=token_mask)
 
 
-def _mlp(x, block, spec: ModelSpec, token_mask=None, dense_moe: bool = False):
+def _mlp(x, block, spec: ModelSpec, token_mask=None, dense_moe: bool = False, mesh=None):
     if spec.is_moe:
+        if mesh is not None:
+            raise ValueError("MoE specs are not yet on a multi-rank engine")
         if dense_moe:
             return _moe_mlp_dense(x, block, spec)
         return _moe_mlp(x, block, spec, token_mask=token_mask)
-    return _dense_mlp(x, block, spec)
+    return _dense_mlp(x, block, spec, mesh)
 
 
 def _qkv(x, block, spec: ModelSpec):
-    """Project to contiguous q [B,H,T,hd], k/v [B,K,T,hd]."""
+    """Project to contiguous q [B,H,T,hd], k/v [B,K,T,hd]; H and K are the
+    projections' widths over head_dim (a tp rank's share of the heads)."""
     b, t, _ = x.shape
     xq = quantize_act(x, block["wq"], block["wk"], block["wv"])
     q, k, v = _mm(x, block["wq"], xq), _mm(x, block["wk"], xq), _mm(x, block["wv"], xq)
@@ -366,13 +390,14 @@ def _qkv(x, block, spec: ModelSpec):
     def heads(y, n):
         return y.to(x.dtype).reshape(b, t, n, spec.head_dim).transpose(1, 2).contiguous()
 
-    return heads(q, spec.n_heads), heads(k, spec.n_kv_heads), heads(v, spec.n_kv_heads)
+    hd = spec.head_dim
+    return heads(q, q.shape[-1] // hd), heads(k, k.shape[-1] // hd), heads(v, v.shape[-1] // hd)
 
 
-def _attn_out(attn, block, x_dtype):
+def _attn_out(attn, block, x_dtype, mesh=None):
     b, h, t, d = attn.shape
-    out = _mm(attn.transpose(1, 2).reshape(b, t, h * d), block["wo"])
-    if block.get("bo") is not None:
+    out = _tp_sum(_mm(attn.transpose(1, 2).reshape(b, t, h * d), block["wo"]), mesh)
+    if block.get("bo") is not None:  # once, after the reduction
         out = _add(out, block["bo"])
     return out.to(x_dtype)
 
@@ -383,10 +408,24 @@ def _scale_emb(x, spec: ModelSpec):
     return x
 
 
-def _embed(params, spec: ModelSpec, tokens, positions):
+def _emb_lookup(emb, tokens, spec: ModelSpec, mesh):
+    """Embedding rows of ``tokens``; a vocab-cut table (a tp rank's block of
+    rows, fewer than the vocabulary) gives its own tokens' rows and zeros
+    for the rest, summed over the tp ranks (exact: one nonzero term)."""
+    rows = _w(emb).shape[0]
+    if mesh is None or rows == spec.vocab_size:
+        return emb_rows(emb, tokens, _dtype(spec))
+    local = tokens - mesh.tp_rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = emb_rows(emb, local.clamp(0, rows - 1), _dtype(spec))
+    return mesh.tp.all_reduce(torch.where(inside[..., None], x, torch.zeros_like(x)))
+
+
+def _embed(params, spec: ModelSpec, tokens, positions, mesh=None):
     """tokens [B, T] → [B, T, D] at ``positions`` ([T] shared, or [B, T]
     per row); with member-stacked tables row b reads its member's table
-    (``tok_emb[m, token]``)."""
+    (``tok_emb[m, token]``); on a mesh the table may be a tp rank's vocab
+    block (:func:`_emb_lookup`)."""
     emb, pos_emb = params["tok_emb"], params.get("pos_emb")
     per_row = positions if positions.dim() == 2 else positions[None, :]
     if _w(emb).dim() == 3:
@@ -394,39 +433,48 @@ def _embed(params, spec: ModelSpec, tokens, positions):
         x = emb_rows(emb, (mi, tokens), _dtype(spec))
         pos = pos_emb[mi, per_row] if spec.pos == "learned" else None
     else:
-        x = emb_rows(emb, tokens, _dtype(spec))
+        x = _emb_lookup(emb, tokens, spec, mesh)
         pos = pos_emb[per_row] if spec.pos == "learned" else None
     x = _scale_emb(x, spec)
     return x if pos is None else x + pos.to(x.dtype)
 
 
-def unembed(params, spec: ModelSpec, x):
+def unembed(params, spec: ModelSpec, x, mesh=None):
     """Hidden states [..., D] → logits [..., V] f32 (the lm head, or the
-    tied embedding table)."""
+    tied embedding table). A tp rank's vocab-cut head gives its block of
+    the logits, all-gathered over the tp ranks into the whole vocabulary
+    (gemma's tied head reads the same cut table)."""
     w = params.get("lm_head")
     if w is not None:
-        return _mm(x, w)
-    # tied head: contract against the embedding table's rows directly; a
-    # quantized table is stored [.., V, D] like every quantized leaf, its
-    # per-row scales the per-vocab output scales.
-    emb = params["tok_emb"]
-    return _mm(x, emb if is_quantized(emb) else emb.transpose(-1, -2))
+        logits = _mm(x, w)
+    else:
+        # tied head: contract against the embedding table's rows directly; a
+        # quantized table is stored [.., V, D] like every quantized leaf, its
+        # per-row scales the per-vocab output scales.
+        emb = params["tok_emb"]
+        logits = _mm(x, emb if is_quantized(emb) else emb.transpose(-1, -2))
+    if mesh is not None and logits.shape[-1] != spec.vocab_size:
+        logits = mesh.tp.all_gather(logits, dim=-1)
+    return logits
 
 
 def _final_norm(params, spec: ModelSpec, x):
     return _norm(x, params["final_norm_w"], params.get("final_norm_b"), spec)
 
 
-def _block(x, block, spec, q_k_v_to_attn, token_mask=None, dense_moe: bool = False):
+def _block(x, block, spec, q_k_v_to_attn, token_mask=None, dense_moe: bool = False,
+           mesh=None):
     """One transformer block around an attention callable; ``token_mask``
     [B, T] keeps right-padding out of MoE expert capacity; ``dense_moe``
-    runs MoE layers densely whatever T is."""
+    runs MoE layers densely whatever T is. On a mesh (a tp rank's shard)
+    the output and down projections' partial sums are all-reduced over the
+    tp ranks; norms, RoPE and the residual stay replicated."""
     h = _norm(x, block["attn_norm_w"], block.get("attn_norm_b"), spec)
     q, k, v = _qkv(h, block, spec)
     attn, k, v = q_k_v_to_attn(q, k, v)
-    x = x + _attn_out(attn, block, x.dtype)
+    x = x + _attn_out(attn, block, x.dtype, mesh)
     h2 = _norm(x, block["mlp_norm_w"], block.get("mlp_norm_b"), spec)
-    return x + _mlp(h2, block, spec, token_mask=token_mask, dense_moe=dense_moe)
+    return x + _mlp(h2, block, spec, token_mask=token_mask, dense_moe=dense_moe, mesh=mesh)
 
 
 def kv_is_q8(cache) -> bool:
@@ -481,6 +529,8 @@ def prefill(
     slot: int | None = None,
     plain_attention: bool = False,
     rows: list[int | None] | None = None,
+    mesh=None,
+    sp_impl: str = "ring",
 ):
     """Process the full prompt; returns (last-token logits [B, V] f32,
     cache_k, cache_v). K/V of every prompt position is written into the
@@ -490,11 +540,23 @@ def prefill(
     ``write_gate``, so a member-coalesced admission never touches absent
     members' rows), else at rows ``[0, B)``. With member-stacked params,
     batch row m is member m's prompt (one per member) and attention runs as
-    one K1 launch per layer over the M rows, each at its own length."""
+    one K1 launch per layer over the M rows, each at its own length.
+
+    ``mesh`` (a ``parallel/comm.RankMesh``; params and cache this rank's
+    shard) adds the tp collectives and, with sp > 1, the JAX package's
+    sequence-parallel admission: each sp rank runs its block of T/sp
+    positions (when sp divides T; else every rank runs the whole prompt)
+    and attention is ring attention or, ``sp_impl="ulysses"``, Ulysses
+    (``parallel/``). The K/V written to the cache is the whole prompt's,
+    on every sp rank (all-gathered over sp), as the JAX package keeps the
+    cache's position axis replicated: decode does not depend on sp. A
+    windowed spec refuses the ring, in JAX's words."""
     b, t = tokens.shape
     dev = tokens.device
-    positions = torch.arange(t, device=dev)
-    x = _embed(params, spec, tokens, positions)
+    n_sp = _sp_blocks(mesh, t, spec, sp_impl)
+    lo, s_loc = (mesh.sp_rank * (t // n_sp), t // n_sp) if n_sp > 1 else (0, t)
+    positions = torch.arange(lo, lo + s_loc, device=dev)
+    x = _embed(params, spec, tokens[:, lo:lo + s_loc], positions, mesh)
     cos, sin = _rope(spec, dev)
     src = slice(None)
     if rows is None:
@@ -518,20 +580,69 @@ def prefill(
             if spec.pos == "rope":
                 q = apply_rope(q, cos, sin, positions)
                 k = apply_rope(k, cos, sin, positions)
+            kw, vw = k, v
+            if n_sp > 1:  # every sp rank writes the whole prompt's K/V
+                kw, vw = mesh.sp.all_gather(k, dim=2), mesh.sp.all_gather(v, dim=2)
             # in place (JAX: donated buffer); an int8 cache stores k, v quantized
             if kv_is_paged(cache_k):
-                page_write(_kv_layer(cache_k, l), k[src], slots=wslots)
-                page_write(_kv_layer(cache_v, l), v[src], slots=wslots)
+                page_write(_kv_layer(cache_k, l), kw[src], slots=wslots)
+                page_write(_kv_layer(cache_v, l), vw[src], slots=wslots)
             else:
-                _kv_put(_kv_layer(cache_k, l), (dst, slice(None), slice(None, t)), k[src])
-                _kv_put(_kv_layer(cache_v, l), (dst, slice(None), slice(None, t)), v[src])
+                _kv_put(_kv_layer(cache_k, l), (dst, slice(None), slice(None, t)), kw[src])
+                _kv_put(_kv_layer(cache_v, l), (dst, slice(None), slice(None, t)), vw[src])
+            if n_sp > 1:
+                return _sp_attention(q, k, v, lengths, mesh, spec, sp_impl), k, v
             return attn_fn(q, k, v, lengths, window=spec.sliding_window), k, v
 
-        x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask)
+        x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask, mesh=mesh)
     x = _final_norm(params, spec, x)
     # Only the last real token's logits matter for generation; gather per row.
-    last = x[torch.arange(b, device=x.device), lengths.long() - 1]
-    return unembed(params, spec, last), cache_k, cache_v
+    last = _last_rows(x, lengths, lo, mesh if n_sp > 1 else None)
+    return unembed(params, spec, last, mesh), cache_k, cache_v
+
+
+def _sp_blocks(mesh, t: int, spec: ModelSpec, sp_impl: str) -> int:
+    """The sequence blocks a prompt of ``t`` positions runs in: the mesh's
+    sp when it divides ``t``, else 1 (a short admission bucket runs whole
+    on every rank, as the JAX ring falls back to the dense path). Checks
+    ``sp_impl`` and the ring's refusal of windowed specs (the JAX
+    package's words)."""
+    if mesh is None or mesh.sp_size == 1:
+        return 1
+    if sp_impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_impl {sp_impl!r} (ring or ulysses)")
+    if spec.sliding_window > 0 and sp_impl == "ring":
+        raise ValueError(
+            "sliding_window specs cannot use ring-attention admission "
+            "(sp>1): the ring computes full causal attention and would "
+            "silently widen the receptive field (use sp_impl=ulysses — "
+            "each device sees the full sequence, windows apply unchanged)")
+    return mesh.sp_size if t % mesh.sp_size == 0 else 1
+
+
+def _sp_attention(q, k, v, lengths, mesh, spec: ModelSpec, sp_impl: str):
+    """This sp rank's block of sequence-parallel attention."""
+    from quorum_tpu_torch.parallel.ring_attention import ring_prefill_attention
+    from quorum_tpu_torch.parallel.ulysses import ulysses_prefill_attention
+
+    if sp_impl == "ulysses":
+        return ulysses_prefill_attention(q, k, v, lengths, mesh, window=spec.sliding_window)
+    return ring_prefill_attention(q, k, v, lengths, mesh)
+
+
+def _last_rows(x, lengths, lo: int, sp_mesh=None):
+    """Each row's hidden state at its last prompt position ``lengths − 1``;
+    with ``sp_mesh`` x is this rank's block from position ``lo``, and the
+    rank holding the position gives it (a sum over sp with zeros from the
+    others: exact)."""
+    b, s = x.shape[0], x.shape[1]
+    idx = lengths.to(x.device).long() - 1 - lo
+    rows = torch.arange(b, device=x.device)
+    if sp_mesh is None:
+        return x[rows, idx]
+    inside = (idx >= 0) & (idx < s)
+    last = x[rows, idx.clamp(0, s - 1)]
+    return sp_mesh.sp.all_reduce(torch.where(inside[:, None], last, torch.zeros_like(last)))
 
 
 def host_to_device(values, dtype: torch.dtype, device,
@@ -557,6 +668,7 @@ def prefill_segment(
     rows: list[int | None],       # [B] cache row of batch row b; None writes nothing
     history: int,                 # attend over cache[:history] of the row
     n_valid: list[int] | None = None,  # [B] real tokens per row (MoE capacity)
+    mesh=None,
 ):
     """Chunked prefill: positions ``[offsets[b], offsets[b] + T)`` of cache
     row ``rows[b]``. Each segment's K/V is written into the row in place,
@@ -580,13 +692,15 @@ def prefill_segment(
     decoding overwrites. ``offset + T`` must not cross ``max_seq`` (the
     engine keeps offsets multiples of a chunk that divides it).
     ``n_valid[b]`` (default: all T) keeps row b's padded tail out of MoE
-    expert capacity (JAX: ``arange(T) < n_valid``)."""
+    expert capacity (JAX: ``arange(T) < n_valid``). ``mesh``: a tp rank's
+    shard, with the tp collectives (segments never run sequence-parallel:
+    sp > 1 turns chunked prefill off)."""
     b, t = tokens.shape
     dev = tokens.device
     hist = min(history, spec.max_seq)
     positions = (host_to_device(offsets, torch.long, dev)[:, None]
                  + torch.arange(t, device=dev)[None, :])          # [B, T]
-    x = _embed(params, spec, tokens, positions)
+    x = _embed(params, spec, tokens, positions, mesh)
     cos, sin = _rope(spec, dev)
     keep = [i for i, r in enumerate(rows) if r is not None]
     read = host_to_device([r if r is not None else 0 for r in rows], torch.long, dev)
@@ -626,7 +740,7 @@ def prefill_segment(
             return attention(q, _seg_read(ck, read, hist, q.dtype, ridx),
                              _seg_read(cv, read, hist, q.dtype, ridx), mask), k, v
 
-        x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask)
+        x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask, mesh=mesh)
     return cache_k, cache_v
 
 
@@ -642,7 +756,7 @@ def _seg_read(side, read: torch.Tensor, hist: int, dtype, index=None) -> torch.T
     return side[read, :, :hist].to(dtype)
 
 
-def decode_token_embed(params: Params, spec: ModelSpec, token, lengths):
+def decode_token_embed(params: Params, spec: ModelSpec, token, lengths, mesh=None):
     """Embed one decode step's tokens: ``[B] → [B, 1, D]`` (scaled, plus the
     learned position embedding at each row's position when the spec uses
     one; member-stacked tables: row b reads its member's table)."""
@@ -652,7 +766,7 @@ def decode_token_embed(params: Params, spec: ModelSpec, token, lengths):
         x = emb_rows(emb, (mi, token), _dtype(spec))
         pos = pos_emb[mi, lengths] if spec.pos == "learned" else None
     else:
-        x = emb_rows(emb, token, _dtype(spec))
+        x = _emb_lookup(emb, token, spec, mesh)
         pos = pos_emb[lengths] if spec.pos == "learned" else None
     x = _scale_emb(x[:, None, :], spec)
     return x if pos is None else x + pos[:, None, :].to(x.dtype)
@@ -668,6 +782,7 @@ def decode_step_blocks(
     write_mask: torch.Tensor | None = None,  # [B] bool: rows allowed to write
     plain_attention: bool = False,
     history: int | None = None,
+    mesh=None,
 ):
     """The layer loop of :func:`decode_step` on pre-embedded hidden states:
     per-row RoPE at ``lengths``, per-row K/V write at ``lengths`` (rows with
@@ -733,7 +848,7 @@ def decode_step_blocks(
             sides = (*ck, *cv) if q8 else (ck, cv)
             return attn_fn(q, *sides, live_len, window=spec.sliding_window), k, v
 
-        x = _block(x, _layer(blocks, l), spec, attend)
+        x = _block(x, _layer(blocks, l), spec, attend, mesh=mesh)
     return x, cache_k, cache_v
 
 
@@ -748,24 +863,50 @@ def decode_step(
     plain_attention: bool = False,
     ensemble: int = 1,
     history: int | None = None,
+    mesh=None,
 ):
     """One autoregressive step. Returns (logits [B, V] f32, cache_k, cache_v).
 
     ``ensemble`` = E > 1 (member-stacked params, cache rows ``e·B + b``):
     every row runs through all E weight sets and the E members' logits are
-    averaged in f32 — the JAX engine's ``_member_call(mean=True)``."""
+    averaged in f32 — the JAX engine's ``_member_call(mean=True)``.
+
+    ``mesh``: this rank's shard of a mesh. The step's ``token``, ``lengths``
+    and ``write_mask`` are rank 0's on every rank (one broadcast,
+    ``RankMesh.sync_step``: rank 0 samples, the others follow), so every
+    rank feeds the same token; the logits are all-gathered over tp."""
+    if mesh is not None:
+        token, lengths, write_mask = mesh.sync_step(token, lengths, write_mask)
     if ensemble > 1:
         token, lengths = token.repeat(ensemble), lengths.repeat(ensemble)
         write_mask = None if write_mask is None else write_mask.repeat(ensemble)
-    x = decode_token_embed(params, spec, token, lengths)
-    x, cache_k, cache_v = decode_step_blocks(
-        params["blocks"], spec, x, lengths, cache_k, cache_v,
-        write_mask=write_mask, plain_attention=plain_attention, history=history)
-    x = _final_norm(params, spec, x)
-    logits = unembed(params, spec, x[:, 0, :])
+    logits = _step_forward(params, spec, token, lengths, cache_k, cache_v, write_mask,
+                           plain_attention, history, mesh)
     if ensemble > 1:
         logits = logits.view(ensemble, -1, logits.shape[-1]).mean(0)
     return logits, cache_k, cache_v
+
+
+def _step_forward(params, spec, token, lengths, cache_k, cache_v, write_mask,
+                  plain_attention=False, history=None, mesh=None):
+    x = decode_token_embed(params, spec, token, lengths, mesh)
+    x, cache_k, cache_v = decode_step_blocks(
+        params["blocks"], spec, x, lengths, cache_k, cache_v,
+        write_mask=write_mask, plain_attention=plain_attention, history=history, mesh=mesh)
+    x = _final_norm(params, spec, x)
+    return unembed(params, spec, x[:, 0, :], mesh)
+
+
+def follow_decode_step(params: Params, spec: ModelSpec, token: torch.Tensor,
+                       lengths: torch.Tensor, write_mask: torch.Tensor, cache_k, cache_v, mesh):
+    """A worker rank's decode step: rank 0's inputs from the broadcast
+    (``token``, ``lengths`` and ``write_mask`` give only their shapes and
+    dtypes), then the step's forward on this rank's shard, collective for
+    collective the one rank 0's :func:`decode_step` runs. Returns the
+    token and write mask it fed."""
+    token, lengths, write_mask = mesh.sync_step(token, lengths, write_mask)
+    _step_forward(params, spec, token, lengths, cache_k, cache_v, write_mask, mesh=mesh)
+    return token, write_mask
 
 
 def decode_chunk(
@@ -784,6 +925,7 @@ def decode_chunk(
     plain_attention: bool = False,
     ensemble: int = 1,
     history: int | None = None,
+    mesh=None,
 ):
     """``n_steps`` decode steps with on-device finish accounting.
 
@@ -794,8 +936,8 @@ def decode_chunk(
     aux)`` supplies sampling; ``aux`` tuples are stacked over steps.
 
     Member-stacked params run all M·S rows in one step (the JAX engine's
-    members branch); ``ensemble`` and ``history`` (a paged cache's window)
-    are passed to :func:`decode_step`.
+    members branch); ``ensemble``, ``history`` (a paged cache's window) and
+    ``mesh`` are passed to :func:`decode_step`.
 
     Returns ``(tokens [B, n_steps], valid [B, n_steps] bool, n_valid [B],
     live, budget, cache_k, cache_v, lengths, sample_carry, aux)``."""
@@ -805,7 +947,7 @@ def decode_chunk(
         pos = torch.where(lv, lens, torch.zeros_like(lens))
         logits, cache_k, cache_v = decode_step(params, spec, tok, pos, cache_k, cache_v,
                                                write_mask=lv, plain_attention=plain_attention,
-                                               ensemble=ensemble, history=history)
+                                               ensemble=ensemble, history=history, mesh=mesh)
         nxt, sample_carry, aux = sample_fn(logits.float(), lv, sample_carry)
         nxt = torch.where(lv, nxt.to(tok.dtype), tok)
         lens = lens + lv.to(lens.dtype)
@@ -966,6 +1108,7 @@ def decode_loop(
     plain_attention: bool = False,
     ensemble: int = 1,
     history: int | None = None,
+    mesh=None,
 ):
     """Megachunk decode: ``n_chunks`` :func:`decode_chunk` bodies back to
     back in one dispatch (the JAX package's ``decode_loop``; the engine
@@ -990,7 +1133,7 @@ def decode_loop(
         (toks, _valid, n_valid, lv, bud, cache_k, cache_v, lens, sample_carry,
          aux) = decode_chunk(params, spec, n_steps, tok, lens, lv, bud, eos, cache_k, cache_v,
                              sample_fn, sample_carry, plain_attention=plain_attention,
-                             ensemble=ensemble, history=history)
+                             ensemble=ensemble, history=history, mesh=mesh)
         # toks[:, -1] IS the carried token (dead rows freeze theirs).
         tok = toks[:, -1]
         toks_all.append(torch.where(entered, toks, torch.zeros_like(toks)))
@@ -1067,13 +1210,53 @@ def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor,
                                                  plain_attention=plain_attention, remat=remat))
 
 
+def forward_logits_sp(params: Params, spec: ModelSpec, tokens: torch.Tensor,
+                      lengths: torch.Tensor, mesh, sp_impl: str = "ring") -> torch.Tensor:
+    """Sequence-parallel full-sequence logits [B, T, V] f32 (the JAX
+    package's ``forward_logits_sp``): this rank runs its sp block of the T
+    positions (T divisible by the mesh's sp) through every layer, with
+    ring attention or Ulysses over sp and the tp collectives; the blocks'
+    logits are all-gathered over sp, so every rank returns the whole
+    sequence's. Windowed specs refuse the ring, in JAX's words. ``params``
+    are this rank's shard (``models/convert.shard_params``)."""
+    if spec.sliding_window > 0 and sp_impl != "ulysses":
+        raise ValueError(
+            "sliding_window specs cannot use ring attention (sp>1): the "
+            "ring computes full causal attention and would silently widen "
+            "the model's receptive field (sp_impl=ulysses supports windows)")
+    if sp_impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown sp_impl {sp_impl!r} (ring or ulysses)")
+    b, t = tokens.shape
+    if t % mesh.sp_size:
+        raise ValueError(f"forward_logits_sp needs T divisible by sp: T={t}, sp={mesh.sp_size}")
+    s_loc = t // mesh.sp_size
+    lo = mesh.sp_rank * s_loc
+    dev = tokens.device
+    positions = torch.arange(lo, lo + s_loc, device=dev)
+    x = _embed(params, spec, tokens[:, lo:lo + s_loc], positions, mesh)
+    cos, sin = _rope(spec, dev)
+
+    def attend(q, k, v):
+        if spec.pos == "rope":
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+        return _sp_attention(q, k, v, lengths, mesh, spec, sp_impl), k, v
+
+    for l in range(spec.n_layers):
+        x = _block(x, _layer(params["blocks"], l), spec, attend, mesh=mesh)
+    logits = unembed(params, spec, _final_norm(params, spec, x), mesh)
+    return mesh.sp.all_gather(logits, dim=1)
+
+
 def init_cache(spec: ModelSpec, batch: int, dtype=None, device=None,
-               kv_quant: str | None = None):
+               kv_quant: str | None = None, n_kv_heads: int | None = None):
     """Preallocated KV cache: ``[L, B, K, max_seq, hd]`` × 2, zeroed. At
     llama-3-8b widths with an 8192 window that is 1.07 GB per slot in bf16.
     ``kv_quant="int8"``: each side is ``(int8 values, f32 per-token
-    scales [L, B, K, max_seq])``, 0.54 GB per slot there."""
-    shape = (spec.n_layers, batch, spec.n_kv_heads, spec.max_seq, spec.head_dim)
+    scales [L, B, K, max_seq])``, 0.54 GB per slot there. ``n_kv_heads``
+    overrides K (a tp rank's kv heads)."""
+    shape = (spec.n_layers, batch, n_kv_heads or spec.n_kv_heads, spec.max_seq,
+             spec.head_dim)
     if kv_quant == "int8":
         def side():
             return (torch.zeros(shape, dtype=torch.int8, device=device),

@@ -68,7 +68,7 @@ def test_unknown_options_are_refused_by_name(option, no_engine):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("sp", "2"), ("tp", "2"), ("pp", "2"),
+    ("dp", "2"), ("pp", "2"),
     ("disagg", "1+1"), ("flash_decode", "1"),
 ])
 def test_tpu_only_options_say_they_are_not_served_yet(option, value, no_engine):
