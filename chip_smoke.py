@@ -168,7 +168,7 @@ result line:
               without a spare), a stream resumed after its replica dies, a
               drain of two live streams, the fleet timeline; K1 and K2
               launches exact over the three engines;
- 11d. mesh    tensor- and sequence-parallel serving (parallel/) on
+ 11d. mesh    data-, tensor- and sequence-parallel serving (parallel/) on
               llama-3-8b at full width against the single-device engine on
               the same weights: (a) a one-rank NCCL mesh through the app
               (greedy tokens equal; the decode graphs capture the
@@ -179,7 +179,18 @@ result line:
               an 8 191-token prompt (first token and top-20 held, the
               admission's seconds, each rank's peak memory); (d) a worker
               killed mid-stream (an error, the breaker open, no process
-              left); K1 and K2 launches on every rank;
+              left); (e) dp=2, two ranks sharing the card over gloo, 4
+              chats through the app, greedy streams held, each rank's
+              weight, cache and peak bytes, all-gathers and launches; (f)
+              dp=2 × tp=2, four gloo ranks, 8 layers, greedy held; (g)
+              dp=2 training, 4 layers, 3 steps on 2 × 2 048 tokens against
+              the one-rank step (losses within one bf16 rounding), the
+              state saved, restored onto one rank with every leaf equal and
+              served one greedy chat; (h) with two or more cards only, tp=2
+              and dp=2 over NCCL on cards of their own (graphs on every
+              rank, greedy held, the shutdown timed) — one card prints that
+              these need two; each new leg's seconds; K1 and K2 launches on
+              every rank;
  12. train    training (run last; the card's free memory printed first):
               (a) llama-3-8b, all 32 layers, bf16, seed 0, remat, three
               steps of the default recipe on one repeated 1 × 2 048 batch
@@ -7261,7 +7272,7 @@ def _graph_collectives(eng) -> dict:
 
 
 def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
-    """Tensor- and sequence-parallel serving (``parallel/``; a mesh engine is
+    """Data-, tensor- and sequence-parallel serving (``parallel/``; a mesh engine is
     rank 0 here, the other ranks are spawned processes) on llama-3-8b at
     full width (32 layers, bf16, seed 0, 4 slots × 8192), against the
     single-device engine on the same weights. One card, so: (a) a one-rank
@@ -7276,8 +7287,10 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     one 8192-token prompt: the first token and its top-20 held the same
     way, the admission's seconds and each rank's peak memory; (d) a worker
     of (b)'s engine killed mid-stream: the stream ends with an error inside
-    the groups' timeout, the breaker opens, no process is left. K1 and K2
-    launches are counted on every rank (workers report theirs)."""
+    the groups' timeout, the breaker opens, no process is left; (e)–(h):
+    ``_mesh_dp2``, ``_mesh_dp2_tp2``, ``_mesh_dp2_train``,
+    ``_mesh_nccl_cards``. K1 and K2 launches are counted on every rank
+    (workers report theirs)."""
     from quorum_tpu_torch.backends.cuda_backend import CudaBackend
     from quorum_tpu_torch.config import Config
     from quorum_tpu_torch.engine.engine import EngineBreakerOpen, InferenceEngine
@@ -7541,12 +7554,327 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
         eng.shutdown()
         del eng
         _require_card_empty(torch, cpu, f"mesh (c) {impl}")
+    leg_s = {}
+    t0 = time.perf_counter()
+    out["e_dp2_gloo"] = _mesh_dp2(torch, cpu, spec, two, knobs, prompts, ref, bodies, app_for,
+                                  zero, add, full_bytes)
+    leg_s["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["f_dp2_tp2_gloo"] = _mesh_dp2_tp2(torch, cpu, tiny, model, ["cpu"] * 4 if cpu
+                                          else ["cuda:0"] * 4, knobs, prompts, zero, add)
+    leg_s["f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["g_dp2_train"] = _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add)
+    leg_s["g"] = time.perf_counter() - t0
+    n_cards = 0 if cpu else torch.cuda.device_count()
+    if n_cards >= 2:
+        t0 = time.perf_counter()
+        out["h_nccl_cards"] = _mesh_nccl_cards(torch, spec, knobs, prompts, ref, zero, add)
+        leg_s["h"] = time.perf_counter() - t0
+    else:
+        print(f"mesh: the NCCL legs over cards of their own (dp=2, tp=2) need two cards; "
+              f"this machine has {n_cards}", flush=True)
+    out["new_leg_s"] = {k: round(v, 3) for k, v in leg_s.items()}
+    emit("mesh", new_leg_s=out["new_leg_s"])
     out["launches"] = launches
     if not cpu:
         require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
                 "mesh: a kernel of the path was never launched")
     out["seconds"] = round(time.perf_counter() - t_phase, 3)
     emit("mesh", launches=launches, seconds=out["seconds"], measured_on=card)
+    return out
+
+
+def _rank_row(eng, reports, collectives0, n_tokens: int, seconds: float) -> dict:
+    """Per-rank bytes, launches and collectives of a mesh engine (rank 0
+    here, the workers' from their reports)."""
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.parallel import collective_counts
+
+    c1 = collective_counts()
+    import torch
+
+    dev = eng.device
+    rank0 = {"rank": 0, "weight_bytes": _tree_bytes(eng.params),
+             "cache_bytes": sum(t.numel() * t.element_size() for t in (eng._ck, eng._cv)),
+             "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
+             "launches": {"flash_prefill": flash_prefill_attention.launches,
+                          "flash_decode": flash_decode_attention.launches},
+             "collectives": {k: c1[k] - collectives0[k] for k in c1}}
+    rows = [rank0] + [{k: r[k] for k in ("rank", "weight_bytes", "cache_bytes", "peak_bytes",
+                                         "launches", "collectives")} for r in reports]
+    return {"per_rank": rows, "ms_per_token_one_stream": round(1e3 * seconds / n_tokens, 3)}
+
+
+def _mesh_dp2(torch, cpu, spec, two, knobs, prompts, ref, bodies, app_for, zero, add,
+              full_bytes) -> dict:
+    """Leg (e): dp=2 at full width, two ranks sharing the card over gloo,
+    each holding the whole weights and 2 of the 4 slots: 4 chats through
+    the app (greedy and sampled, 16 tokens), then each greedy stream held
+    against the single-device engine's by its top-20 log-probabilities
+    (``_hold_lp``; re-scored on the stream's own tokens where a near-tie
+    parts them), every worker feeding its own rows."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.init import init_params
+    from quorum_tpu_torch.parallel import MeshConfig, collective_counts, make_mesh
+
+    n = 16
+    zero()
+    c0 = collective_counts()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(dp=2), two, backend="gloo",
+                                                timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
+    build_s = time.perf_counter() - t0
+    require(eng.health()["mesh"]["slot_rows"] == "sharded", "mesh (e): dp=2 did not cut the slots")
+    app, backend = app_for("dp2", eng)
+    eng.rank_reports(reset_peak=True)
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chats = _mesh_chats(app, [{**b, "max_tokens": n} for b in bodies], backend, n)
+    chats_s = time.perf_counter() - t0
+    got = [_lp_stream(eng, p, n) for p in prompts]
+    reports = eng.rank_reports()
+    held = [_hold_lp(f"mesh (e) stream {i}", (r[0][:n], r[1][:n]), g)
+            for i, (r, g) in enumerate(zip(ref, got))]
+    row = _rank_row(eng, reports, c0, sum(len(g[0]) for g in got), sum(g[2] for g in got))
+    want_cache = 2 * spec.n_layers * 2 * spec.n_kv_heads * spec.max_seq * spec.head_dim * \
+        torch.empty((), dtype=getattr(torch, spec.dtype)).element_size()
+    for r in row["per_rank"]:
+        require(r["weight_bytes"] == full_bytes, f"mesh (e): rank {r['rank']} holds "
+                                                 f"{r['weight_bytes']} weight bytes, not {full_bytes}")
+        require(r["cache_bytes"] == want_cache, f"mesh (e): rank {r['rank']} cache "
+                                                f"{r['cache_bytes']} != {want_cache}")
+    fed = reports[0]["fed"]
+    require(not fed[0] and not fed[1] and any(fed[2:]) or not any(fed),
+            f"mesh (e): the worker fed rows outside its dp block: {[len(f) for f in fed]}")
+    if not cpu:
+        require(all(r["launches"]["flash_prefill"] > 0 or r["rank"] == 0
+                    for r in row["per_rank"]) and
+                all(r["launches"]["flash_decode"] > 0 for r in row["per_rank"]),
+                f"mesh (e): a rank launched no kernel: {[r['launches'] for r in row['per_rank']]}")
+    add(reports)
+    out = {"backend": eng.mesh.backend, "decode": eng.health()["mesh"]["decode"],
+           "build_s": round(build_s, 3), "chats_s": round(chats_s, 3),
+           "chats": [{"stream": b["stream"], "temperature": b.get("temperature"),
+                      "finish": c["finish"], "completion_tokens": c["usage"]["completion_tokens"]}
+                     for b, c in zip(bodies, chats)],
+           "held": held, **row,
+           "gathers_issued": [r["collectives"]["all_gather"] for r in row["per_rank"]],
+           "eager_note": "two dp ranks sharing one card over host-staged gloo, eager decode"}
+    eng.shutdown()
+    del eng, app, backend
+    _require_card_empty(torch, cpu, "mesh (e)")
+    if not all(h["equal"] for h in held):  # a near-tie parted them: hold each whole
+        params = init_params(spec, 0, "cpu" if cpu else "cuda:0")
+        out["held_rescored"] = [
+            _hold_lp(f"mesh (e) stream {i} re-scored", _rescore_lp(torch, spec, params, p, g[0]),
+                     g, forced=True) for i, (p, g) in enumerate(zip(prompts, got))]
+        del params
+        _require_card_empty(torch, cpu, "mesh (e) re-scored")
+    emit("mesh", leg="e", **out)
+    return out
+
+
+def _mesh_dp2_tp2(torch, cpu, tiny, model, four, knobs, prompts, zero, add) -> dict:
+    """Leg (f): dp=2 × tp=2, four gloo ranks sharing the card, at the
+    model's widths and 8 layers (2.8 GB of weights a rank at llama-3-8b):
+    the greedy streams held against the single-device engine's at the same
+    depth."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.parallel import MeshConfig, collective_counts, make_mesh
+
+    n = 16
+    spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16", "n_kv_heads": "4"}
+                         if tiny else {"n_layers": "8"})
+    ref_eng = InferenceEngine(spec, device="cpu" if cpu else "cuda:0", **knobs)
+    ref = [_lp_stream(ref_eng, p, n) for p in prompts]
+    ref_eng.shutdown()
+    del ref_eng
+    _require_card_empty(torch, cpu, "mesh (f) reference")
+    zero()
+    c0 = collective_counts()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(dp=2, tp=2), four, backend="gloo",
+                                                timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
+    build_s = time.perf_counter() - t0
+    got = [_lp_stream(eng, p, n) for p in prompts]
+    reports = eng.rank_reports()
+    held = [_hold_lp(f"mesh (f) stream {i}", r, g) for i, (r, g) in enumerate(zip(ref, got))]
+    require(all(h["equal"] or h["near_ties"] for h in held), f"mesh (f): {held}")
+    row = _rank_row(eng, reports, c0, sum(len(g[0]) for g in got), sum(g[2] for g in got))
+    add(reports)
+    out = {"layers": spec.n_layers, "build_s": round(build_s, 3), "held": held, **row,
+           "gathers_issued": [r["collectives"]["all_gather"] for r in row["per_rank"]]}
+    eng.shutdown()
+    del eng
+    _require_card_empty(torch, cpu, "mesh (f)")
+    emit("mesh", leg="f", **out)
+    return out
+
+
+# Leg (g): the dp=2 step's losses against the one-rank step's on the same
+# two rows, relative: one bfloat16 rounding (2^-8; the ranks' one-row
+# GEMMs and the one rank's two-row ones round differently).
+TRAIN_DP_LOSS_REL = 2.0 ** -8
+
+
+def _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add) -> dict:
+    """Leg (g): dp=2 training, two ranks sharing the card over gloo, at the
+    model's widths and 4 layers: 3 steps on 2 × 2048 tokens (one row a
+    rank) against the one-rank step on the same 2-row batch (losses within
+    ``TRAIN_DP_LOSS_REL``); the dp state saved, restored onto one rank with
+    every leaf equal (``tree_digest``), and one greedy chat served from it
+    through the app (K1 and K2 launch)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.parallel import MeshConfig, RankGroup, make_mesh
+    from quorum_tpu_torch.training import checkpoint, trainer
+
+    spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16"} if tiny
+                         else {"n_layers": "4"})
+    n_tokens = 64 if tiny else TRAIN_TOKENS
+    dev = "cpu" if cpu else "cuda:0"
+    tokens = np.random.default_rng(7).integers(1, spec.vocab_size, (2, n_tokens))
+    # One rank on the whole batch.
+    t0 = time.perf_counter()
+    opt = trainer.make_optimizer()
+    state = trainer.train_init(spec, device=dev, seed=0, optimizer=opt)
+    step = trainer.make_train_step(spec, device=dev, optimizer=opt)
+    want = []
+    for _ in range(TRAIN_STEPS):
+        state, loss = step(state, tokens)
+        want.append(float(loss))
+    one_s = time.perf_counter() - t0
+    del state, step
+    gc.collect()
+    _require_card_empty(torch, cpu, "mesh (g) one rank")
+    # dp=2: rank 0 here, rank 1 spawned; each takes its row.
+    root = tempfile.mkdtemp(prefix="quorum_dp_train_")
+    path = os.path.join(root, "ckpt")
+    try:
+        t0 = time.perf_counter()
+        grp = RankGroup(make_mesh(MeshConfig(dp=2), two, backend="gloo",
+                                  timeout_s=MESH_GROUP_TIMEOUT_S))
+        grp.start()
+        try:
+            start_s = time.perf_counter() - t0
+            runs = grp.run("quorum_tpu_torch.training.trainer:train_steps",
+                           [(spec, tokens)] * 2,
+                           [dict(seed=0, steps=TRAIN_STEPS, save=path, digest=True)] * 2)
+        finally:
+            grp.stop()
+        dp_s = time.perf_counter() - t0
+        gc.collect()
+        _require_card_empty(torch, cpu, "mesh (g) dp=2")
+        got = runs[0]["losses"]
+        require(runs[1]["losses"] == got, f"mesh (g): the ranks' losses differ: "
+                                          f"{got} / {runs[1]['losses']}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        require(max(rel) <= TRAIN_DP_LOSS_REL,
+                f"mesh (g): dp=2 losses {got} vs one rank {want} (relative {rel})")
+        require(runs[0]["digest"] == runs[1]["digest"], "mesh (g): the dp replicas differ")
+        # Restored onto one rank: every leaf as saved.
+        t0 = time.perf_counter()
+        restored = checkpoint.restore_checkpoint(path, spec, device=dev, optimizer=opt)
+        restore_s = time.perf_counter() - t0
+        require(int(restored.step) == TRAIN_STEPS, f"mesh (g): restored step {restored.step}")
+        require({"params": checkpoint.tree_digest(restored.params),
+                 "opt_state": checkpoint.tree_digest(restored.opt_state)} == runs[0]["digest"],
+                "mesh (g): the restored leaves differ from the dp=2 state's")
+        params = restored.params
+        del restored
+        gc.collect()
+        # One greedy chat from the restored weights, through the app.
+        zero()
+        eng = InferenceEngine(spec, device=dev, params=params, n_slots=2, seed=0)
+        app, backend = app_for("dp_ckpt", eng)
+        body = {"model": model, "messages": [{"role": "user", "content": "Say hello."}],
+                "max_tokens": 8, "temperature": 0.0, "stream": False}
+        (chat,) = _mesh_chats(app, [body], backend, 8)
+        from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+        from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+
+        k1, k2 = flash_prefill_attention.launches, flash_decode_attention.launches
+        if not cpu:
+            require(k1 > 0 and k2 > 0, f"mesh (g): the served chat launched K1 {k1}, K2 {k2}")
+        add()
+        eng.shutdown()
+        del eng, app, backend, params
+        gc.collect()
+        _require_card_empty(torch, cpu, "mesh (g)")
+        saved = runs[0]["saved_bytes"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"layers": spec.n_layers, "tokens_per_rank_step": n_tokens, "steps": TRAIN_STEPS,
+           "losses_dp2": got, "losses_one_rank": want, "loss_rel_diff": rel,
+           "one_rank_s": round(one_s, 3), "group_start_s": round(start_s, 3),
+           "dp2_s": round(dp_s, 3),
+           "ms_per_step": [round(1e3 * x, 2) for x in runs[0]["step_s"]],
+           "grad_allreduce_s": round(runs[0]["grad_allreduce_s"], 3),
+           "grad_allreduce_bytes": runs[0]["grad_allreduce_bytes"],
+           "peak_bytes_per_rank": [r["peak_bytes"] for r in runs],
+           "saved_bytes": saved, "restore_s": round(restore_s, 3), "leaves_equal": True,
+           "served_chat": {"finish": chat["finish"],
+                           "completion_tokens": chat["usage"]["completion_tokens"],
+                           "k1_launches": k1, "k2_launches": k2}}
+    emit("mesh", leg="g", **out)
+    return out
+
+
+def _mesh_nccl_cards(torch, spec, knobs, prompts, ref, zero, add) -> dict:
+    """Leg (h), on a machine with two or more cards only: dp=2 and tp=2 over
+    NCCL, each rank on a card of its own, decoding from graphs on every
+    rank: the greedy streams held against the single-device engine's, one
+    stream again once its key is captured (its ms a token, admission
+    included), then the shutdown timed."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.parallel import MeshConfig, collective_counts, make_mesh
+
+    n = 16
+    out = {}
+    for name, axes in (("tp2", dict(tp=2)), ("dp2", dict(dp=2))):
+        zero()
+        c0 = collective_counts()
+        t0 = time.perf_counter()
+        eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(**axes), ["cuda:0", "cuda:1"],
+                                                    timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
+        build_s = time.perf_counter() - t0
+        require(eng.mesh.backend == "nccl" and eng.health()["mesh"]["decode"] == "graphs",
+                f"mesh (h) {name}: not NCCL with graphs")
+        got = [_lp_stream(eng, p, n) for p in prompts]
+        # Once the key is captured: a stream's decode from graph replays.
+        warm = _lp_stream(eng, prompts[0], n)
+        require(warm[0] == got[0][0], f"mesh (h) {name}: a second stream differs")
+        reports = eng.rank_reports()
+        held = [_hold_lp(f"mesh (h) {name} stream {i}", (r[0][:n], r[1][:n]), g)
+                for i, (r, g) in enumerate(zip(ref, got))]
+        require(all(h["equal"] or h["near_ties"] for h in held), f"mesh (h) {name}: {held}")
+        row = _rank_row(eng, reports, c0, sum(len(g[0]) for g in got), sum(g[2] for g in got))
+        require(all(r["launches"]["flash_decode"] > 0 for r in row["per_rank"]),
+                f"mesh (h) {name}: a rank launched no K2")
+        add(reports)
+        pids = eng.worker_pids()
+        t0 = time.perf_counter()
+        eng.shutdown()
+        shutdown_s = time.perf_counter() - t0
+        left = [p for p in pids if os.path.exists(f"/proc/{p}")]
+        require(not left and shutdown_s < 15.0,
+                f"mesh (h) {name}: shutdown took {shutdown_s:.1f} s, processes left {left}")
+        out[name] = {"build_s": round(build_s, 3), "held": held, **row,
+                     "ms_per_token_warm_stream": round(1e3 * warm[2] / len(warm[0]), 3),
+                     "captures": eng.metrics()["decode_graph_captures_total"],
+                     "shutdown_s": round(shutdown_s, 3)}
+        del eng
+        _require_card_empty(torch, False, f"mesh (h) {name}")
+        emit("mesh", leg=f"h_{name}", **out[name])
     return out
 
 

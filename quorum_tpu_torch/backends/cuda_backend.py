@@ -171,13 +171,14 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    host prefix store restores into the staging row).
                    Structural (part of the engine key); requires chunked
                    prefill
-  tp=N, sp=N       a multi-rank engine (``parallel/``): tp × sp ranks, rank
-  sp_impl=         0 in this process and the others spawned, with
-                   device=cpu on the CPU over gloo. On cards (rank r on
-                   ``cuda:r``) it is refused for now: fewer cards than ranks
-                   is an error naming both counts, and NCCL meshes of
-                   several ranks hang (ROADMAP queue 3), so ``make_mesh``
-                   refuses them. tp cuts heads, MLP hidden and vocab (Megatron);
+  dp=N, tp=N,      a multi-rank engine (``parallel/``): dp × sp × tp ranks,
+  sp=N, sp_impl=   rank 0 in this process and the others spawned, with
+                   device=cpu on the CPU over gloo; on cards rank r on
+                   ``cuda:r`` over NCCL (fewer cards than ranks is an error
+                   naming both counts). dp cuts the slot rows: each dp
+                   group of tp × sp ranks serves its own block of them
+                   (every row when dp does not divide slots=), rank 0
+                   samples every row. tp cuts heads, MLP hidden and vocab (Megatron);
                    sp > 1 admits every prompt single-shot, sequence-parallel
                    by ring attention (sp_impl=ring, the default) or Ulysses
                    (sp_impl=ulysses; windowed specs need it). MoE specs,
@@ -188,7 +189,8 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet
-(``dp=``, ``pp=``, ``disagg=``): a typo or an unported knob never builds an
+(``pp=``, ``disagg=``; ``disagg=`` beside ``dp=`` in the ``tpu://``
+backend's own words): a typo or an unported knob never builds an
 engine that silently ignores it; ``quant=`` and ``kv_quant=`` values are
 checked there too (``int8`` or empty).
 
@@ -285,11 +287,11 @@ _OPTIONS = frozenset({
     "member_seeds", "quorum_dedup", "ensemble", "ckpt", "quant", "kv_quant",
     "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "kv_pages", "kv_page_size",
     "kv_pool_pages", "prefix_store", "prefix_store_bytes", "prefix_store_chunk", "qos",
-    "zero_drain", "tp", "sp", "sp_impl"})
+    "zero_drain", "dp", "tp", "sp", "sp_impl"})
 _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
-_NOT_YET = frozenset({"disagg", "dp", "pp"})
+_NOT_YET = frozenset({"disagg", "pp"})
 
 
 def _check_options(opts: dict[str, str]) -> None:
@@ -302,6 +304,11 @@ def _check_options(opts: dict[str, str]) -> None:
                 "cuda:// does not serve the flash_decode= option, and will not: "
                 "decode attention always runs its kernel on the card (the plain "
                 "version only on the CPU), and no option turns a kernel off")
+        if key == "disagg" and int(opts.get("dp", 1)) > 1:
+            raise ValueError(
+                "disagg= device groups are data-disjoint by "
+                "construction; dp= does not compose with it (scale "
+                "request throughput with the replica tier instead)")
         if key in _NOT_YET:
             raise ValueError(f"cuda:// does not serve the {key}= option yet "
                              "(the tpu:// backend does)")
@@ -309,28 +316,29 @@ def _check_options(opts: dict[str, str]) -> None:
 
 
 def _url_mesh(opts: dict[str, str]):
-    """``tp=``/``sp=`` (``sp_impl=``) → a ``parallel/mesh.Mesh``, or None
-    for one rank. With ``device=cpu`` the ranks run on the CPU over gloo.
-    On cards they would take ``cuda:0..N−1`` over NCCL: fewer cards than
-    ranks is an error naming both counts, and ``make_mesh`` refuses an
-    NCCL mesh of several ranks (an open fault)."""
+    """``dp=``/``tp=``/``sp=`` (``sp_impl=``) → a ``parallel/mesh.Mesh``,
+    as ``tpu://`` builds ``make_mesh(MeshConfig(dp=…, sp=…, tp=…))``, or
+    None for one rank. With ``device=cpu`` the ranks run on the CPU over
+    gloo; on cards they take ``cuda:0..N−1`` over NCCL, and fewer cards
+    than ranks is an error naming the counts."""
     from quorum_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
-    tp, sp = int(opts.get("tp", 1)), int(opts.get("sp", 1))
-    if tp < 1 or sp < 1:
-        raise ValueError(f"invalid tp={tp} sp={sp} (each must be >= 1)")
-    n = tp * sp
+    dp, tp, sp = int(opts.get("dp", 1)), int(opts.get("tp", 1)), int(opts.get("sp", 1))
+    if dp < 1 or tp < 1 or sp < 1:
+        raise ValueError(f"invalid dp={dp} tp={tp} sp={sp} (each must be >= 1)")
+    cfg = MeshConfig(dp=dp, sp=sp, tp=tp)
+    n = cfg.n_devices
     if n == 1:
         return None
     dev = torch.device(opts.get("device") or "cuda")
     if dev.type == "cpu":
-        return make_mesh(MeshConfig(tp=tp, sp=sp), ["cpu"] * n)
+        return make_mesh(cfg, ["cpu"] * n)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < n:
+        shape = f"dp={dp} x tp={tp} x sp={sp}" if dp > 1 else f"tp={tp} x sp={sp}"
         raise ValueError(
-            f"tp={tp} x sp={sp} needs {n} CUDA devices (one per rank), this machine has "
-            f"{have}")
-    return make_mesh(MeshConfig(tp=tp, sp=sp), [f"cuda:{i}" for i in range(n)])
+            f"{shape} needs {n} CUDA devices (one per rank), this machine has {have}")
+    return make_mesh(cfg, [f"cuda:{i}" for i in range(n)])
 
 
 def _check_ckpt_options(opts: dict[str, str], members: int, member_seeds: str,
@@ -658,7 +666,7 @@ class CudaBackend:
         if ckpt:
             _check_ckpt_options(opts, members, member_seeds, quorum_dedup)
             if _url_mesh(opts) is not None:
-                raise ValueError("ckpt= with tp=/sp=: a checkpoint's weights are not yet on "
+                raise ValueError("ckpt= with dp=/tp=/sp=: a checkpoint's weights are not yet on "
                                  "a multi-rank engine")
             engine = get_engine_from_ckpt(ckpt, dtype=opts.get("dtype"), **knobs)
             # The checkpoint's tokenizer when it ships one (bytes when it
@@ -831,7 +839,7 @@ class CudaBackend:
         if getattr(self.engine, "mesh", None) is not None:
             raise _invalid_request(
                 "response_format constrained decoding is not yet on a multi-rank engine "
-                "(tp=/sp= backends)")
+                "(dp=/tp=/sp= backends)")
 
         if self.engine.prefill_chunk <= 0:
             raise _invalid_request(
@@ -1185,7 +1193,7 @@ class CudaBackend:
         effective = prepare_body(body, self.model)  # 400 when no model anywhere
         if getattr(self.engine, "mesh", None) is not None:
             raise _invalid_request("embeddings are not yet on a multi-rank engine "
-                                   "(tp=/sp= backends)")
+                                   "(dp=/tp=/sp= backends)")
         token_lists = [self.tokenizer.encode(x) if isinstance(x, str) else x
                        for x in self._token_inputs(body.get("input"), "input", MAX_BATCH)]
         spec = self.engine.spec
@@ -1336,7 +1344,7 @@ class CudaBackend:
         scoring = echo and lp is not None
         if scoring and getattr(self.engine, "mesh", None) is not None:
             raise _invalid_request("prompt scoring (echo with logprobs) is not yet on a "
-                                   "multi-rank engine (tp=/sp= backends)")
+                                   "multi-rank engine (dp=/tp=/sp= backends)")
         if mt == 0 and not scoring:
             raise _invalid_request(
                 "'max_tokens': 0 requires 'echo': true with 'logprobs' set (the pure "

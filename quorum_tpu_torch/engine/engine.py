@@ -238,23 +238,32 @@ prefix reuse is off (the segments cannot attend over the decode cache); a
 host prefix store restores into the staging row.
 
 Multi-rank engines (``mesh=``, a ``parallel/mesh.Mesh``; the JAX engine's
-mesh argument, ``tp`` and ``sp`` axes): this engine is rank 0, on the
-mesh's first device, and holds rank 0's shard of the weights and of the KV
-cache (its kv heads); the other ranks are worker processes
+mesh argument, ``dp``, ``tp`` and ``sp`` axes): this engine is rank 0, on
+the mesh's first device, and holds rank 0's shard of the weights and of the
+KV cache (its kv heads, and with dp its dp group's block of the slot rows:
+every row when dp does not divide ``n_slots``, the JAX package's rule); the
+other ranks are worker processes
 (``parallel/ranks.RankGroup``, each an ``engine/follower.Follower``). The
 one scheduler is rank 0's. Before it issues a device program — a
 single-shot admission, a segment, a decode dispatch — it sends the
 workers a plan naming it and its host inputs, and each runs the same
-program on its shard in the same order, so the collectives pair up. Rank 0 samples; each decode step
+program on its shard in the same order, so the collectives pair up. Rank 0 samples every row; each decode step
 broadcasts its token, positions and write mask, so every rank feeds the
-same token. With sp > 1 every admission is single-shot and sequence-
-parallel (ring or Ulysses, ``sp_impl``). A mesh over NCCL (one rank for
-now) decodes from graphs that capture the collectives; one over gloo
-(ranks sharing a card) decodes eagerly, as ``health()["mesh"]`` says. A
-worker found dead before a plan (or a collective failing under it) fails
-the engine's requests and opens its breaker for good: every later submit
-is a 503 (``EngineBreakerOpen``); ``shutdown`` stops and joins the workers
-(killed past a timeout). The dense families, both admission routes, tier-0 reuse,
+same token. With dp each dp group runs its own rows through the layers and
+the step all-gathers the hidden states over dp (``models/transformer``), so
+rank 0 samples every row with the single engine's noise and sampler state:
+sampled streams equal the single engine's by construction. An admission
+runs on the dp group that owns its slot. With sp > 1 every admission is single-shot and sequence-
+parallel (ring or Ulysses, ``sp_impl``). A mesh over NCCL (ranks on cards
+of their own) decodes from graphs that capture the collectives, on every
+rank (a worker mirrors rank 0's warm-up step); one over gloo (ranks
+sharing a card) decodes eagerly, as ``health()["mesh"]`` says. A worker
+that exits is seen at once (``parallel/ranks``: rank 0's NCCL groups are
+aborted, so no host read of ours waits on it); that, or a collective
+failing, fails the engine's requests and opens its breaker for good: every
+later submit is a 503 (``EngineBreakerOpen``); ``shutdown`` stops the
+workers through one teardown of every rank and joins them (killed past a
+timeout). The dense families, both admission routes, tier-0 reuse,
 the request knobs and deadlines, QoS, drain, park and resume carry; MoE,
 members, ensembles, int8, speculation, paging, the host store, zero-drain,
 grammars, embeddings and scoring are refused (not yet on a multi-rank
@@ -994,11 +1003,13 @@ class InferenceEngine:
                 device=self.device)
             self._table = self._ck.table
         else:
-            n_kv = None
+            n_kv, cache_rows = None, stack * self.n_slots
             if mesh is not None:
                 lo, hi = rank_kv_heads(spec.n_heads, spec.n_kv_heads, mesh.shape["tp"], 0)
                 n_kv = hi - lo
-            self._ck, self._cv = init_cache(spec, stack * self.n_slots, device=self.device,
+                lo, hi, _ = self._rmesh.slots
+                cache_rows = hi - lo  # rank 0's dp block of the slot rows
+            self._ck, self._cv = init_cache(spec, cache_rows, device=self.device,
                                             kv_quant=self.kv_quant, n_kv_heads=n_kv)
         # The staging cache of a zero-drain engine: the decode cache's dense
         # slot layout (staging row i stages decode row i), dense even on a
@@ -1494,6 +1505,11 @@ class InferenceEngine:
             "mesh": None if self.mesh is None else {
                 "ranks": self.mesh.size, "shape": self.mesh.shape,
                 "backend": self.mesh.backend, "sp_impl": self.sp_impl,
+                # The slot rows' layout over dp: each dp group's block, or
+                # every row on every group when dp does not divide them.
+                "dp": self.mesh.shape["dp"],
+                "slot_rows": ("sharded" if self._rmesh.splits_slots else "replicated"),
+                "rank0_rows": list(self._rmesh.slots[:2]),
                 "workers_alive": self._ranks.lost is None and len(self._ranks.alive_pids())
                 == self.mesh.size - 1,
                 "decode": ("graphs" if self._graphs is not None
@@ -1577,6 +1593,12 @@ class InferenceEngine:
             self._snap_thread.join(timeout=timeout)
             self.prefix_store.clear()
         if self._ranks is not None:
+            if not self._thread.is_alive() and self._graphs is not None:
+                # Our graphs hold their NCCL collectives' resources, which
+                # the groups' shutdown waits for: destroy them first.
+                self._stream.synchronize()
+                self._graphs.clear()
+                torch.cuda.synchronize(self.device)
             # Workers stop (killed past the timeout) even when a device call
             # of ours still runs: a collective waiting on them then fails.
             self._ranks.stop(timeout_s=min(timeout, 30.0))
@@ -1624,6 +1646,7 @@ class InferenceEngine:
             mine = (init_params_shard(spec, seed, mesh, 0, self.device) if params is None
                     else shard_params(params, mesh, 0, spec))
             self._rmesh = self._ranks.join()
+            self._rmesh.hold_slots(rows)
         except BaseException:
             self._ranks.stop()
             raise
@@ -1654,6 +1677,13 @@ class InferenceEngine:
                               error=str(e)[:200])
         self.breaker.trip()
         return True
+
+    def _raise_if_rank_lost(self) -> None:
+        """After a host read of device outputs: a worker lost meanwhile
+        (its groups aborted under the read) voids them."""
+        if self._ranks is not None and self._ranks.lost is not None:
+            self._ranks_lost()
+            raise self._ranks.lost
 
     def rank_reports(self, reset_peak: bool = False) -> list[dict]:
         """Every worker rank's ``Follower.report`` (rank 1 first): the
@@ -2543,6 +2573,7 @@ class InferenceEngine:
         self._eos[idx] = eos
         self.n_admissions += len(reqs)
         firsts = first.tolist()
+        self._raise_if_rank_lost()
         lps: list = [None] * len(reqs)
         if any(r.want_lp >= 0 for r in reqs):
             s_lp, top_ix, top_lp = (t.tolist() for t in token_logprobs(adj, first))
@@ -3783,7 +3814,10 @@ class InferenceEngine:
         gets the dispatch event. From here on the dispatch's program runs on
         the engine's state (``_program_issued``)."""
         if self._ranks is not None:
-            self._plan("decode", n_steps, n_chunks)  # the workers' half: the same steps
+            # The workers' half: the same steps, and the eager warm-up step
+            # a first capture runs first (mesh dispatches are plain keys).
+            warm = self._graphs is not None and self._graphs.will_warm(key)
+            self._plan("decode", n_steps, n_chunks, warm)
         self._program_issued = True
         self.dispatched_keys.add(key)
         t_issue = time.perf_counter()
@@ -4389,6 +4423,7 @@ class InferenceEngine:
         with a delivery)."""
         c.wait()
         host = c.host.tolist()
+        self._raise_if_rank_lost()  # an abort ended the wait: the tokens are void
         lps = c.lp.tolist() if c.lp is not None else None
         n_top = min(TOP_LOGPROBS, self.spec.vocab_size)
         t_fetch = time.perf_counter()

@@ -7,15 +7,20 @@ arrive — collective for collective what rank 0's engine runs:
 - ``segment``: one chunked-prefill segment call;
 - ``decode``: one decode dispatch of ``n_steps × n_chunks`` steps, each
   step's token, positions and write mask broadcast by rank 0 (rank 0
-  samples; every rank feeds the same token), run eagerly: workers exist
-  only on gloo meshes (``make_mesh`` refuses NCCL meshes of several
-  ranks), whose host-staged collectives no graph can capture;
+  samples; every rank feeds the same token). Over NCCL on a card the
+  dispatch is one replay of a CUDA graph per step count, as rank 0's is,
+  and when rank 0's dispatch starts with its eager warm-up step (its first
+  capture) the plan says so and this rank runs one eager step first:
+  collective for collective the same sequence. Over gloo (host-staged
+  collectives, which no graph captures) it runs eagerly;
 - ``report``: what this rank saw and holds — the tokens it fed per cache
   row (while the row was live) since the last report, its kernel launches
   and collectives, its weight and cache bytes and peak device memory.
 
 The rank's own rank 0 state (sampling, the scheduler's bookkeeping) does not
-exist here: a worker keeps no per-request state.
+exist here: a worker keeps no per-request state. On a mesh whose dp cuts
+the slot rows the rank's cache holds its dp group's rows
+(``RankMesh.hold_slots``); the plans name global rows.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import contextlib
 
 import torch
 
+from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.convert import params_from_numpy
 from quorum_tpu_torch.models.init import init_params_shard
 from quorum_tpu_torch.models.transformer import (follow_decode_step, host_to_device,
@@ -45,7 +51,8 @@ def _tensors(tree):
 class Follower:
     """One worker rank of an engine on ``mesh`` (its ``RankMesh``): weights
     from ``seed`` (cut by ``init_params_shard``) or the given ``shard`` (a
-    host tree and its dtype), a cache of ``rows`` rows of its kv heads."""
+    host tree and its dtype), a cache of its kv heads for its dp group's
+    share of ``rows`` slot rows."""
 
     def __init__(self, mesh, *, spec, seed: int, rows: int, sp_impl: str = "ring",
                  shard=None):
@@ -59,15 +66,19 @@ class Follower:
             tree, dtype = shard
             self.params = params_from_numpy(tree, device=dev, dtype=dtype)
         lo, hi = rank_kv_heads(spec.n_heads, spec.n_kv_heads, mesh.tp_size, mesh.tp_rank)
-        self._ck, self._cv = init_cache(spec, rows, device=dev, n_kv_heads=hi - lo)
+        self._own = mesh.hold_slots(rows)
+        self._ck, self._cv = init_cache(spec, self._own[1] - self._own[0], device=dev,
+                                        n_kv_heads=hi - lo)
         self._tok = torch.zeros((rows,), dtype=torch.long, device=dev)
         self._pos = torch.zeros((rows,), dtype=torch.int32, device=dev)
         self._wm = torch.zeros((rows,), dtype=torch.bool, device=dev)
         self.fed: list[list[int]] = [[] for _ in range(rows)]
-        self._stream = None
+        self._stream = self._graphs = None
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)
             self._stream.wait_stream(torch.cuda.current_stream(dev))
+            if mesh.graphs_ok:
+                self._graphs = DecodeGraphs(dev, self._stream)
 
     @contextlib.contextmanager
     def _scope(self):
@@ -108,12 +119,23 @@ class Follower:
             out.append(torch.stack([tok, wm.long()]))
         return torch.stack(out)
 
-    def decode(self, n_steps: int, n_chunks: int) -> None:
+    def decode(self, n_steps: int, n_chunks: int, warm: bool = False) -> None:
+        """One dispatch of ``n_steps × n_chunks`` steps; ``warm``: rank 0
+        runs its eager warm-up step first, and so does this rank."""
+        n = n_steps * n_chunks
         with self._scope():
-            fed = self._program(n_steps * n_chunks).cpu()
+            if warm:
+                self._program(1)
+            if self._graphs is None:
+                fed = self._program(n)
+            else:
+                fed = self._graphs.replay((n,), lambda: self._program(n), lambda: None)
+            fed = fed.cpu()
+        lo, hi = self._own
         for step in fed:
             for row in torch.nonzero(step[1]).flatten().tolist():
-                self.fed[row].append(int(step[0, row]))
+                if lo <= row < hi:
+                    self.fed[row].append(int(step[0, row]))
 
     def report(self, reset_peak: bool = False) -> dict:
         """The rank's observations since the last report (fed tokens are
@@ -135,6 +157,12 @@ class Follower:
         return out
 
     def close(self) -> None:
+        """Finish this rank's device work and destroy its graphs: the
+        rank then leaves its groups (``parallel/ranks``), whose NCCL
+        shutdown waits until no graph holds a collective of theirs."""
         if self._stream is not None:
             self._stream.synchronize()
+        if self._graphs is not None:
+            self._graphs.clear()
+            torch.cuda.synchronize(self.device)
         self.params = self._ck = self._cv = None

@@ -73,6 +73,12 @@ class DecodeGraphs:
     def __contains__(self, key: tuple) -> bool:
         return key in self._graphs
 
+    def will_warm(self, key: tuple) -> bool:
+        """Whether :meth:`replay` of plain decode key ``key`` would run the
+        plain keys' warm-up first (a multi-rank engine's workers mirror
+        that step)."""
+        return key not in self._graphs and None not in self._warmed
+
     def replay(self, key: tuple, program: Callable[[], object],
                warm_up: Callable[[], None], family: str | None = None, timing=None):
         """Replay ``key``'s graph on the current stream (the engine's),
@@ -123,8 +129,12 @@ class DecodeGraphs:
             del self._graphs[key]
 
     def clear(self) -> None:
-        """Drop every graph. Their pool goes with the last one, so later
-        captures start a new pool."""
+        """Drop every graph (each reset at once: a graph that captured NCCL
+        collectives holds its communicator's resources until it is
+        destroyed, and the communicator's shutdown waits for them). Their
+        pool goes with the last one, so later captures start a new pool."""
+        for graph, _, _ in self._graphs.values():
+            graph.reset()
         self._graphs.clear()
         self.pool = torch.cuda.graph_pool_handle()
         self.pool_bytes = 0

@@ -96,7 +96,8 @@ def shard_params(params: Mapping, mesh, rank: int, spec) -> dict:
     of the JAX package's parameters, or ``init_params``) on ``mesh`` (a
     ``parallel/mesh.Mesh`` or ``RankMesh``): each leaf cut by
     ``parallel/sharding``'s rules for ``spec`` (heads, MLP hidden and vocab
-    over tp; each rank's kv heads those its query heads read), as
+    over tp; each rank's kv heads those its query heads read; replicated
+    over dp, so a dp rank receives its tp cut and nothing less), as
     contiguous tensors on the leaves' device. Member-stacked, quantized and
     MoE trees are refused: not yet on a multi-rank engine."""
     from quorum_tpu_torch.parallel.sharding import rank_cut
@@ -128,35 +129,47 @@ def _as_tensor(x, device) -> torch.Tensor:
     return t if t.dim() == 0 else t.to(device)
 
 
-def _state_from_numpy(x, device):
+def _state_from_numpy(x, device, cut=None, name: str = ""):
     from quorum_tpu_torch.training.optim import STATE_TYPES
 
     if x is None:
         return None
     if isinstance(x, Mapping):
-        return {k: _state_from_numpy(v, device) for k, v in x.items()}
+        return {k: _state_from_numpy(v, device, cut, k) for k, v in x.items()}
     if hasattr(x, "_fields"):
         cls = STATE_TYPES.get(type(x).__name__)
         if cls is None or cls._fields != x._fields:
             raise ValueError(f"optimizer state {type(x).__name__}{x._fields} has no "
                              f"counterpart in the port ({sorted(STATE_TYPES)})")
-        return cls(*(_state_from_numpy(v, device) for v in x))
+        return cls(*(_state_from_numpy(v, device, cut, f) for f, v in zip(x._fields, x)))
     if isinstance(x, (tuple, list)):
-        return tuple(_state_from_numpy(v, device) for v in x)
-    return _as_tensor(x, device)
+        return tuple(_state_from_numpy(v, device, cut) for v in x)
+    t = _as_tensor(x, device)
+    return t if cut is None or t.dim() == 0 else cut(name, t).contiguous()
 
 
-def train_state_from_numpy(params: Mapping, opt_state, step, device=None):
+def train_state_from_numpy(params: Mapping, opt_state, step, device=None, *, mesh=None,
+                           spec=None):
     """A JAX TrainState, every leaf read back as numpy (``jax.tree.map(
     numpy.asarray, state)``: optax's NamedTuples kept), as the port's
     ``training.TrainState`` on ``device`` (``None`` means cuda): each leaf
     keeps its dtype (bf16 params and moments stay bf16), optax's state
     NamedTuples become the port's of the same name (``training/optim.py``),
     the counts and the step 0-d int32 tensors on the host. A JAX run resumes
-    in the port from it."""
+    in the port from it. With ``mesh`` (a ``RankMesh``) and ``spec``: the
+    rank's tp cut of the state on the rank's device (each leaf cut by its
+    name, ``parallel/sharding.rank_cut``), to resume on a mesh."""
     from quorum_tpu_torch.training.trainer import TrainState
 
-    dev = resolve_device(device)
-    tparams = _state_from_numpy(dict(params), dev)
-    return TrainState(tparams, _state_from_numpy(opt_state, dev),
+    cut = None
+    if mesh is not None:
+        from quorum_tpu_torch.parallel.sharding import rank_cut
+
+        if spec is None:
+            raise ValueError("a state resumed onto a mesh needs its spec")
+        dev, cut = mesh.device, rank_cut(spec, mesh, mesh.rank)
+    else:
+        dev = resolve_device(device)
+    tparams = _state_from_numpy(dict(params), dev, cut)
+    return TrainState(tparams, _state_from_numpy(opt_state, dev, cut),
                       torch.tensor(int(np.asarray(step)), dtype=torch.int32))

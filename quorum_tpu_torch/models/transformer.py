@@ -64,7 +64,24 @@ broadcast (``RankMesh.sync_step``: rank 0 samples, every rank feeds the
 same token; a worker runs :func:`follow_decode_step`). With sp > 1,
 :func:`prefill` and :func:`forward_logits_sp` run each rank's sequence block
 through ring attention or Ulysses (``parallel/``). The collectives are
-called whatever the group's size, so a one-rank mesh's graphs capture them.
+called whatever the group's size, so a one-rank NCCL mesh's graphs capture
+them (a one-rank gloo group skips them, ``parallel/comm``).
+
+On a mesh with dp > 1 whose dp divides the slot rows (the rank's cache then
+holds its dp group's block, ``RankMesh.hold_slots``), a decode step runs
+each group's own rows through the layers and all-gathers the hidden states
+over dp before the final norm and the unembed, so every rank — rank 0,
+which samples, among them — has every row's logits. A single-shot admission
+runs on the group that owns its slot, whose last hidden state is then
+broadcast over dp; a prefill segment runs on the owning group alone (it
+returns nothing). Where dp does not divide the slot rows every group holds
+and computes every row, and nothing crosses dp.
+
+Training differentiates through the mesh forward (:func:`forward_logits`
+with ``mesh=``): the column-parallel products' inputs enter through
+``parallel/comm.tp_enter`` (their gradient summed over tp), so every tp
+rank ends with the whole gradient of each replicated leaf and its own
+block of each cut one.
 
 MoE layers (``spec.n_experts > 0``) follow the JAX package: a prompt
 (T > 1) runs the grouped path (:func:`_moe_mlp_grouped`: fixed-capacity
@@ -93,6 +110,7 @@ from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
 from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
 from quorum_tpu_torch.ops.norms import layernorm, rmsnorm
 from quorum_tpu_torch.ops.rotary import apply_rope, rope_cos_sin_for
+from quorum_tpu_torch.parallel.comm import tp_enter
 
 Params = dict
 
@@ -445,6 +463,10 @@ def unembed(params, spec: ModelSpec, x, mesh=None):
     the logits, all-gathered over the tp ranks into the whole vocabulary
     (gemma's tied head reads the same cut table)."""
     w = params.get("lm_head")
+    if mesh is not None and x.requires_grad and torch.is_grad_enabled():
+        n = w.shape[-1] if w is not None else params["tok_emb"].shape[0]
+        if n != spec.vocab_size:  # a vocab-cut head: its input's gradient is partial
+            x = tp_enter(x, mesh)
     if w is not None:
         logits = _mm(x, w)
     else:
@@ -469,11 +491,11 @@ def _block(x, block, spec, q_k_v_to_attn, token_mask=None, dense_moe: bool = Fal
     runs MoE layers densely whatever T is. On a mesh (a tp rank's shard)
     the output and down projections' partial sums are all-reduced over the
     tp ranks; norms, RoPE and the residual stay replicated."""
-    h = _norm(x, block["attn_norm_w"], block.get("attn_norm_b"), spec)
+    h = tp_enter(_norm(x, block["attn_norm_w"], block.get("attn_norm_b"), spec), mesh)
     q, k, v = _qkv(h, block, spec)
     attn, k, v = q_k_v_to_attn(q, k, v)
     x = x + _attn_out(attn, block, x.dtype, mesh)
-    h2 = _norm(x, block["mlp_norm_w"], block.get("mlp_norm_b"), spec)
+    h2 = tp_enter(_norm(x, block["mlp_norm_w"], block.get("mlp_norm_b"), spec), mesh)
     return x + _mlp(h2, block, spec, token_mask=token_mask, dense_moe=dense_moe, mesh=mesh)
 
 
@@ -550,9 +572,21 @@ def prefill(
     (``parallel/``). The K/V written to the cache is the whole prompt's,
     on every sp rank (all-gathered over sp), as the JAX package keeps the
     cache's position axis replicated: decode does not depend on sp. A
-    windowed spec refuses the ring, in JAX's words."""
+    windowed spec refuses the ring, in JAX's words. Where the mesh's dp
+    cuts the slot rows, ``slot`` is the global slot: the dp group owning it
+    prefills, and the last hidden state is broadcast over dp from there
+    before the unembed (a non-owning group computes nothing else)."""
     b, t = tokens.shape
     dev = tokens.device
+    owner = None
+    if mesh is not None and mesh.splits_slots and slot is not None and rows is None:
+        s_lo, s_hi, _ = mesh.slots
+        owner = slot // (s_hi - s_lo)
+        if owner != mesh.dp_rank:
+            last = mesh.dp.broadcast(
+                torch.zeros((b, spec.d_model), dtype=_dtype(spec), device=dev), owner)
+            return unembed(params, spec, last, mesh), cache_k, cache_v
+        slot -= s_lo
     n_sp = _sp_blocks(mesh, t, spec, sp_impl)
     lo, s_loc = (mesh.sp_rank * (t // n_sp), t // n_sp) if n_sp > 1 else (0, t)
     positions = torch.arange(lo, lo + s_loc, device=dev)
@@ -598,6 +632,8 @@ def prefill(
     x = _final_norm(params, spec, x)
     # Only the last real token's logits matter for generation; gather per row.
     last = _last_rows(x, lengths, lo, mesh if n_sp > 1 else None)
+    if owner is not None:
+        last = mesh.dp.broadcast(last.contiguous(), owner)
     return unembed(params, spec, last, mesh), cache_k, cache_v
 
 
@@ -694,7 +730,18 @@ def prefill_segment(
     ``n_valid[b]`` (default: all T) keeps row b's padded tail out of MoE
     expert capacity (JAX: ``arange(T) < n_valid``). ``mesh``: a tp rank's
     shard, with the tp collectives (segments never run sequence-parallel:
-    sp > 1 turns chunked prefill off)."""
+    sp > 1 turns chunked prefill off); where its dp cuts the slot rows,
+    ``rows`` are global and only the owning group's rows run here."""
+    if mesh is not None and mesh.splits_slots:
+        s_lo, s_hi, _ = mesh.slots
+        mine = [i for i, r in enumerate(rows) if r is not None and s_lo <= r < s_hi]
+        if not mine:
+            return cache_k, cache_v
+        if len(mine) < len(rows):
+            tokens = tokens[host_to_device(mine, torch.long, tokens.device)]
+            offsets = [offsets[i] for i in mine]
+            n_valid = None if n_valid is None else [n_valid[i] for i in mine]
+        rows = [rows[i] - s_lo for i in mine]
     b, t = tokens.shape
     dev = tokens.device
     hist = min(history, spec.max_seq)
@@ -874,7 +921,10 @@ def decode_step(
     ``mesh``: this rank's shard of a mesh. The step's ``token``, ``lengths``
     and ``write_mask`` are rank 0's on every rank (one broadcast,
     ``RankMesh.sync_step``: rank 0 samples, the others follow), so every
-    rank feeds the same token; the logits are all-gathered over tp."""
+    rank feeds the same token; the logits are all-gathered over tp. Where
+    the mesh's dp cuts the slot rows, each dp group runs its own rows and
+    the hidden states are all-gathered over dp: the logits are every
+    row's."""
     if mesh is not None:
         token, lengths, write_mask = mesh.sync_step(token, lengths, write_mask)
     if ensemble > 1:
@@ -889,10 +939,17 @@ def decode_step(
 
 def _step_forward(params, spec, token, lengths, cache_k, cache_v, write_mask,
                   plain_attention=False, history=None, mesh=None):
+    split = mesh is not None and mesh.splits_slots
+    if split:  # this dp group's rows; the others' hidden states come by all-gather
+        lo, hi, _ = mesh.slots
+        token, lengths = token[lo:hi], lengths[lo:hi]
+        write_mask = None if write_mask is None else write_mask[lo:hi]
     x = decode_token_embed(params, spec, token, lengths, mesh)
     x, cache_k, cache_v = decode_step_blocks(
         params["blocks"], spec, x, lengths, cache_k, cache_v,
         write_mask=write_mask, plain_attention=plain_attention, history=history, mesh=mesh)
+    if split:
+        x = mesh.dp.all_gather(x, dim=0)
     x = _final_norm(params, spec, x)
     return unembed(params, spec, x[:, 0, :], mesh)
 
@@ -1146,7 +1203,8 @@ def decode_loop(
 
 def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
                    lengths: torch.Tensor | None = None,
-                   plain_attention: bool = False, remat: bool = False) -> torch.Tensor:
+                   plain_attention: bool = False, remat: bool = False,
+                   mesh=None) -> torch.Tensor:
     """Final-norm hidden states [B, T, D] with no KV cache: the embeddings
     forward, :func:`forward_logits` without the unembed.
 
@@ -1166,7 +1224,9 @@ def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
     JAX package's XLA attention. ``remat=True`` runs each layer under
     ``torch.utils.checkpoint`` (non-reentrant), the JAX package's
     ``jax.checkpoint`` per scanned layer: a layer's activations are
-    recomputed in the backward instead of kept."""
+    recomputed in the backward instead of kept. ``mesh`` (a
+    ``parallel/comm.RankMesh``, params this rank's tp shard): the tp
+    collectives, differentiable (the module docstring's training note)."""
     b, t = tokens.shape
     dev = tokens.device
     positions = torch.arange(t, device=dev)
@@ -1174,7 +1234,7 @@ def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
             else lengths.to(device=dev, dtype=torch.int32))
     moe_mask = (None if lengths is None or not spec.is_moe
                 else positions[None, :] < lens[:, None])
-    x = _embed(params, spec, tokens, positions)
+    x = _embed(params, spec, tokens, positions, mesh)
     cos, sin = _rope(spec, dev)
     mask = (causal_mask(t, t, window=spec.sliding_window, device=dev)
             if plain_attention else None)
@@ -1188,7 +1248,7 @@ def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
         return flash_prefill_attention(q, k, v, lens, window=spec.sliding_window), k, v
 
     def layer(x, block):
-        return _block(x, block, spec, attend, token_mask=moe_mask)
+        return _block(x, block, spec, attend, token_mask=moe_mask, mesh=mesh)
 
     for l in range(spec.n_layers):
         block = _layer(params["blocks"], l)
@@ -1201,13 +1261,16 @@ def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
 
 def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor,
                    lengths: torch.Tensor | None = None,
-                   plain_attention: bool = False, remat: bool = False) -> torch.Tensor:
+                   plain_attention: bool = False, remat: bool = False,
+                   mesh=None) -> torch.Tensor:
     """Full-sequence logits [B, T, V] f32 with no KV cache (the eval and
     training forward, and the cache-free ground truth for prefill/decode
     consistency): :func:`forward_hidden` and the unembed, with its
-    ``lengths``, ``plain_attention`` and ``remat``."""
+    ``lengths``, ``plain_attention``, ``remat`` and ``mesh`` (on a mesh the
+    logits are the whole vocabulary's, all-gathered over tp)."""
     return unembed(params, spec, forward_hidden(params, spec, tokens, lengths,
-                                                 plain_attention=plain_attention, remat=remat))
+                                                 plain_attention=plain_attention, remat=remat,
+                                                 mesh=mesh), mesh)
 
 
 def forward_logits_sp(params: Params, spec: ModelSpec, tokens: torch.Tensor,

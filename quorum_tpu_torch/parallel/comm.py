@@ -3,12 +3,21 @@ process groups: what GSPMD inserts for the JAX package (its
 ``parallel/sharding.py`` lets XLA place the all-reduces; its ring and
 Ulysses run ``ppermute`` and ``all_to_all`` inside ``shard_map``).
 
-A :class:`Group` is one rank's view of one axis subgroup (the mesh's tp
-ranks, its sp ranks, or all of them): all-reduce (sum), all-gather along a
+A :class:`Group` is one rank's view of one axis subgroup (the mesh's dp,
+tp or sp ranks, or all of them): all-reduce (sum), all-gather along a
 dimension, broadcast, all-to-all and the ring's pass to the next rank. A
 :class:`RankMesh` is the mesh as one rank sees it: the layout
-(``parallel/mesh.Mesh``), the rank, its coordinates and its ``world``,
-``tp`` and ``sp`` groups. :func:`join` builds one from a rendezvous store.
+(``parallel/mesh.Mesh``), the rank, its coordinates, its ``world``, ``dp``,
+``tp`` and ``sp`` groups and, on an engine, the slot rows its KV cache
+holds (:meth:`RankMesh.hold_slots`). :func:`join` builds one from a
+rendezvous store.
+
+Training differentiates through the tp collectives (Megatron's f and g):
+:func:`tp_enter` is the identity forward and sums the gradient over the
+group backward, :meth:`Group.all_reduce` of a tensor that requires grad is
+the sum forward and the identity backward, and an all-gather's backward
+keeps the rank's own slice of the gradient. Every tp rank then computes
+the whole loss and the whole gradient of each replicated leaf.
 
 The groups are the c10d backends themselves (``ProcessGroupNCCL`` or
 ``ProcessGroupGloo``), made per mesh from a prefix of the mesh's own store,
@@ -19,22 +28,25 @@ NCCL works on device tensors and its collectives record into CUDA graphs:
 the engine's decode graphs capture them. Gloo works on host tensors, so a
 CUDA tensor is staged through a host copy around each collective (a sum
 widens 16-bit floats to float32, exactly; a move keeps their bits) — a host round trip no graph can capture,
-so an engine over gloo on CUDA decodes eagerly. Each call counts one
-collective of its kind (:data:`COLLECTIVES`), counted as captured inside a
-capture and added per replay (``ops/launches.py``), as the kernels' launches
-are.
+so an engine over gloo on CUDA decodes eagerly. A gloo group of one rank
+(tp on a dp-only mesh) skips its collectives: they are the identity. Each
+call counts one collective of its kind (:data:`COLLECTIVES`), counted as
+captured inside a capture and added per replay (``ops/launches.py``), as
+the kernels' launches are.
 """
 
 from __future__ import annotations
 
 import datetime
 import logging
+import os
+import threading
 
 import torch
 import torch.distributed as dist
 
 from quorum_tpu_torch.ops import launches
-from quorum_tpu_torch.parallel.mesh import AXIS_SP, AXIS_TP, Mesh
+from quorum_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, AXIS_TP, Mesh
 
 logger = logging.getLogger(__name__)
 
@@ -63,13 +75,24 @@ def _timeout(seconds: float) -> datetime.timedelta:
     return datetime.timedelta(seconds=seconds)
 
 
-def new_process_group(backend: str, store, rank: int, size: int, timeout_s: float):
+def _gloo_device(hosts: int):
+    """Loopback while the mesh's ranks share one host; across hosts the
+    interface ``GLOO_SOCKET_IFNAME`` names, else the host name's."""
+    if hosts <= 1:
+        return dist.ProcessGroupGloo.create_device(hostname="127.0.0.1")
+    ifname = os.environ.get("GLOO_SOCKET_IFNAME")
+    if ifname:
+        return dist.ProcessGroupGloo.create_device(interface=ifname.split(",")[0])
+    return dist.ProcessGroupGloo.create_default_device()
+
+
+def new_process_group(backend: str, store, rank: int, size: int, timeout_s: float,
+                      hosts: int = 1):
     """A c10d backend over ``store`` (a prefix of the mesh's store)."""
     if backend == "gloo":
         opts = dist.ProcessGroupGloo._Options()
         opts._timeout = _timeout(timeout_s)
-        # Loopback: the ranks of a mesh share one host.
-        opts._devices = [dist.ProcessGroupGloo.create_device(hostname="127.0.0.1")]
+        opts._devices = [_gloo_device(hosts)]
         return dist.ProcessGroupGloo(store, rank, size, opts)
     opts = dist.ProcessGroupNCCL.Options()
     opts._timeout = _timeout(timeout_s)
@@ -90,6 +113,14 @@ class Group:
 
     def __repr__(self) -> str:
         return f"Group({self.name}, ranks={self.ranks}, rank={self.rank}, {self.backend})"
+
+    @property
+    def alone(self) -> bool:
+        """A gloo group of one rank: its collectives are the identity and
+        are skipped (and not counted), where staging them would copy
+        through the host for nothing. A one-rank NCCL group still issues
+        them, so a one-rank mesh's graphs capture what a wider one's do."""
+        return self.size == 1 and self.backend == "gloo"
 
     # ---- host staging (gloo on CUDA tensors) -------------------------------
 
@@ -115,7 +146,13 @@ class Group:
     # ---- collectives -------------------------------------------------------
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the group, in place; returns ``x``."""
+        """Sum ``x`` over the group, in place; returns ``x``. A tensor that
+        requires grad is summed into a new one instead (the identity
+        backward: Megatron's g)."""
+        if self.alone:
+            return x
+        if x.requires_grad and torch.is_grad_enabled():
+            return _SumOut.apply(x, self)
         launches.count(COLLECTIVES["all_reduce"])
         h = self._stage(x, reduce=True)
         self.pg.allreduce([h]).wait()
@@ -124,7 +161,12 @@ class Group:
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """Every rank's ``x`` concatenated along ``dim``, in group order."""
+        """Every rank's ``x`` concatenated along ``dim``, in group order
+        (differentiable: the gradient's own slice goes back)."""
+        if self.alone:
+            return x
+        if x.requires_grad and torch.is_grad_enabled():
+            return _GatherOut.apply(x, self, dim)
         launches.count(COLLECTIVES["all_gather"])
         h = self._stage(x)
         out = torch.empty((self.size * h.numel(),), dtype=h.dtype, device=h.device)
@@ -134,6 +176,8 @@ class Group:
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Group rank ``src``'s ``x`` into every rank's ``x``, in place."""
+        if self.alone:
+            return x
         launches.count(COLLECTIVES["broadcast"])
         h = self._stage(x)
         opts = dist.BroadcastOptions()
@@ -146,6 +190,8 @@ class Group:
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` [size·n, …]: chunk j (along dim 0) goes to group rank j;
         returns [size·n, …] whose chunk j came from group rank j."""
+        if self.alone:
+            return x
         launches.count(COLLECTIVES["all_to_all"])
         h = self._stage(x)
         out = torch.empty_like(h)
@@ -178,10 +224,60 @@ class Group:
         return [self._back(r, t) for r, t in zip(recvs, tensors)]
 
 
+class _SumOut(torch.autograd.Function):
+    """Megatron's g: the group's sum forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.detach().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Megatron's f: the identity forward, the group's sum backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous().clone()), None
+
+
+class _GatherOut(torch.autograd.Function):
+    """An all-gather along ``dim`` forward; backward, this rank's slice of
+    the gradient (every rank holds the same whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.rank, ctx.dim, ctx.n = group.rank, dim, x.shape[dim]
+        return group.all_gather(x.detach(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def tp_enter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` (replicated over tp) entering this rank's column-parallel
+    products: itself, whose gradient is summed over tp backward. The
+    identity where nothing is differentiated or there is no mesh."""
+    if mesh is None or not (x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _Enter.apply(x, mesh.tp)
+
+
 class RankMesh:
     """The mesh as rank ``rank`` sees it: the layout, this rank's
-    coordinates and device, and its ``world``, ``tp`` and ``sp`` groups
-    (a subgroup with the world's ranks shares the world's backend)."""
+    coordinates and device, and its ``world``, ``dp``, ``tp`` and ``sp``
+    groups (a subgroup with the world's ranks shares the world's backend).
+    ``slots``: ``(lo, hi, n)``, the slot rows ``[lo, hi)`` of ``n`` this
+    rank's KV cache holds, once an engine set them (:meth:`hold_slots`)."""
 
     def __init__(self, mesh: Mesh, rank: int, groups: dict[str, Group]):
         self.mesh = mesh
@@ -189,8 +285,12 @@ class RankMesh:
         self.coords = mesh.coords(rank)
         self.device = mesh.devices[rank]
         self.world = groups["world"]
+        self.dp = groups[AXIS_DP]
         self.tp = groups[AXIS_TP]
         self.sp = groups[AXIS_SP]
+        self.slots: tuple[int, int, int] | None = None
+        self._aborted = False
+        self._abort_thread: threading.Thread | None = None
 
     def __repr__(self) -> str:
         return f"RankMesh(rank={self.rank}/{self.size}, {self.coords}, {self.mesh.backend})"
@@ -202,6 +302,30 @@ class RankMesh:
     @property
     def backend(self) -> str:
         return self.mesh.backend
+
+    @property
+    def dp_rank(self) -> int:
+        return self.coords[AXIS_DP]
+
+    @property
+    def dp_size(self) -> int:
+        return self.mesh.shape[AXIS_DP]
+
+    def hold_slots(self, n_slots: int) -> tuple[int, int]:
+        """Record and return the slot rows ``[lo, hi)`` of ``n_slots`` this
+        rank's cache holds: its dp group's block, or every row when dp
+        does not divide ``n_slots`` (``parallel/sharding.slot_rows``)."""
+        from quorum_tpu_torch.parallel.sharding import slot_rows
+
+        lo, hi = slot_rows(n_slots, self.dp_size, self.dp_rank)
+        self.slots = (lo, hi, n_slots)
+        return lo, hi
+
+    @property
+    def splits_slots(self) -> bool:
+        """Whether this rank's cache holds a block of the slot rows (dp
+        divides them) rather than all of them."""
+        return self.slots is not None and self.slots[1] - self.slots[0] < self.slots[2]
 
     @property
     def tp_rank(self) -> int:
@@ -238,35 +362,85 @@ class RankMesh:
             return token, lengths, write_mask
         return buf[0].to(token.dtype), buf[1].to(lengths.dtype), buf[2].bool()
 
-    def shutdown(self) -> None:
-        """Release the groups' resources, each rank on its own."""
-        seen = set()
-        for g in (self.world, self.tp, self.sp):
-            if id(g.pg) in seen:
-                continue
-            seen.add(id(g.pg))
-            try:
-                g.pg.shutdown()
-            except Exception:
-                logger.warning("rank %d: releasing group %s failed", self.rank, g.name,
-                               exc_info=True)
+    def _pgs(self) -> list:
+        seen, out = set(), []
+        for g in (self.world, self.dp, self.tp, self.sp):
+            if id(g.pg) not in seen:
+                seen.add(id(g.pg))
+                out.append(g)
+        return out
+
+    def shutdown(self, timeout_s: float = 10.0) -> bool:
+        """Leave the groups: an orderly shutdown of each, bounded by
+        ``timeout_s`` in all, then an abort of what is left. Every rank of
+        the mesh calls this at the same point (``RankGroup.stop``): an
+        NCCL group's orderly shutdown completes its peers' outstanding
+        work first. Returns whether every group shut down in order."""
+        if self._aborted:
+            return False
+        if not self._on_each_group("shutdown", timeout_s).is_alive():
+            return True
+        logger.error("rank %d: the groups did not shut down within %.0f s; aborting them",
+                     self.rank, timeout_s)
+        self.abort()
+        return False
+
+    def _on_each_group(self, op: str, wait_s: float) -> threading.Thread:
+        """Call ``pg.<op>()`` on each group in a thread of its own, waiting
+        for it at most ``wait_s``; returns the thread."""
+        groups = self._pgs()
+
+        def run():
+            for g in groups:
+                try:
+                    getattr(g.pg, op)()
+                except Exception:
+                    logger.warning("rank %d: %s of group %s failed", self.rank, op, g.name,
+                                   exc_info=True)
+
+        t = threading.Thread(target=run, name=f"rank{self.rank}-{op}", daemon=True)
+        t.start()
+        t.join(wait_s)
+        return t
+
+    def abort(self, wait_s: float = 5.0) -> None:
+        """Abort every NCCL group, with no peer: work that waits on a lost
+        rank (a collective inside a replayed graph, which no timeout
+        watches) ends, and the groups are unusable from then on. Once only,
+        and the caller waits at most ``wait_s``: the abort raises each
+        communicator's abort flag first, which ends the waiting kernels,
+        and may then wait for the resources graphs still hold. Gloo groups
+        need none: a lost peer's connection fails their collectives."""
+        if self.backend != "nccl" or self._aborted:
+            return
+        self._aborted = True
+        self._abort_thread = self._on_each_group("abort", wait_s)
+
+    def wait_abort(self, timeout_s: float) -> bool:
+        """Wait up to ``timeout_s`` for an abort to finish (its communicators
+        released once no graph holds their collectives); True when none
+        runs. A process must not end while one does."""
+        t = self._abort_thread
+        if t is not None:
+            t.join(timeout_s)
+        return t is None or not t.is_alive()
 
 
 def join(mesh: Mesh, rank: int, store) -> RankMesh:
-    """Rank ``rank``'s view of ``mesh``: its world group and its tp and sp
-    subgroups over prefixes of ``store`` (every rank of the mesh calls this
-    with the same store). NCCL groups run one collective at once: NCCL
+    """Rank ``rank``'s view of ``mesh``: its world group and its dp, tp and
+    sp subgroups over prefixes of ``store`` (every rank of the mesh calls
+    this with the same store). NCCL groups run one collective at once: NCCL
     creates its communicator lazily, which a graph capture must not do."""
     size = mesh.size
     world_ranks = list(range(size))
 
     def group(name: str, ranks: list[int]) -> Group:
         pg = new_process_group(mesh.backend, dist.PrefixStore(f"{name}/{ranks[0]}", store),
-                               ranks.index(rank), len(ranks), mesh.timeout_s)
+                               ranks.index(rank), len(ranks), mesh.timeout_s, mesh.hosts)
         return Group(name, pg, ranks, rank, mesh.backend)
 
     groups = {"world": group("world", world_ranks)}
-    for axis in (AXIS_TP, AXIS_SP):
+    for axis in (AXIS_DP, AXIS_TP, AXIS_SP):
         ranks = mesh.axis_ranks(rank, axis)
         if ranks == world_ranks:
             w = groups["world"]

@@ -4,7 +4,9 @@
 
 Axis conventions are the JAX package's:
 
-  ``dp``  data parallel      — refused for now (the next slice);
+  ``dp``  data parallel      — the KV cache's slot rows (each dp group of
+                               ranks serves its own rows; training: each
+                               dp group its own batch rows);
   ``pp``  pipeline parallel  — refused for now;
   ``sp``  sequence parallel  — prompt blocks for ring attention or Ulysses;
   ``tp``  tensor parallel    — attention heads, MLP hidden, vocab shards.
@@ -19,9 +21,12 @@ sees it as a ``parallel/comm.RankMesh``, which holds the axis subgroups.
 The backend is NCCL for CUDA devices and gloo for the CPU. NCCL refuses two
 ranks of one communicator on one card, so a mesh whose ranks share a card
 must ask for ``backend="gloo"`` itself: gloo then stages every collective
-through host copies, and nothing switches over silently. An NCCL mesh is
-one rank for now: several NCCL ranks on cards of their own hung an engine
-(ROADMAP queue 3), so :func:`make_mesh` refuses them, naming gloo.
+through host copies, and nothing switches over silently. Ranks on cards of
+their own run over NCCL.
+
+A mesh may span hosts (``parallel/distributed.hybrid_mesh``): ``hosts``
+groups of consecutive ranks, one group per host, so dp — the outermost
+axis — is the one that crosses them.
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ class Mesh:
     devices: tuple
     backend: str
     timeout_s: float = DEFAULT_GROUP_TIMEOUT_S
+    hosts: int = 1
 
     @property
     def shape(self) -> dict[str, int]:
@@ -124,15 +130,13 @@ def make_mesh(cfg: MeshConfig | None = None, devices=None, *, backend: str | Non
     """Lay a ``(dp, pp, sp, tp)`` mesh over ``devices`` (default: every CUDA
     device; ``["cpu"] * n`` for CPU ranks), one rank per device entry, in
     order. ``backend`` defaults to NCCL on CUDA devices and gloo on the CPU;
-    NCCL over ranks that share a card, or over more than one rank, raises,
-    naming ``backend="gloo"``."""
+    NCCL over ranks that share a card raises, naming ``backend="gloo"``."""
     devs = _devices(devices)
     cfg = cfg or MeshConfig(tp=len(devs))
-    if cfg.dp > 1 or cfg.pp > 1:
-        axis = "dp" if cfg.dp > 1 else "pp"
+    if cfg.pp > 1:
         raise ValueError(
-            f"{axis}={getattr(cfg, axis)} is not served on cuda:// meshes yet (tp and sp "
-            "are; the tpu:// backend serves dp and pp)")
+            f"pp={cfg.pp} is not served on cuda:// meshes yet (dp, tp and sp are; the "
+            "tpu:// backend serves pp)")
     if min(cfg.dp, cfg.pp, cfg.sp, cfg.tp) < 1:
         raise ValueError(f"invalid mesh {cfg} (every axis must be >= 1)")
     if cfg.n_devices > len(devs):
@@ -153,13 +157,6 @@ def make_mesh(cfg: MeshConfig | None = None, devices=None, *, backend: str | Non
                 f"NCCL refuses two ranks of one communicator on one card (devices "
                 f"{[str(d) for d in devs]}): pass backend=\"gloo\" to share a card "
                 "(host-staged collectives, eager decode)")
-        if len(devs) > 1:
-            raise ValueError(
-                f"NCCL meshes of several ranks are not served yet (devices "
-                f"{[str(d) for d in devs]}): an engine over NCCL ranks on cards of their "
-                "own hangs (ROADMAP queue 3, an open fault). A one-rank NCCL mesh is "
-                "served; pass backend=\"gloo\" for several ranks (host-staged "
-                "collectives, eager decode)")
     if timeout_s <= 0:
         raise ValueError(f"timeout_s must be positive, got {timeout_s}")
     return Mesh(cfg, devs, backend, float(timeout_s))

@@ -20,10 +20,17 @@ device of a mesh — the port builds here:
   function of the port by name with the rank's mesh as ``mesh=`` (the
   tests' use);
 - **lifecycle**: rank 0 checks that every worker is alive before each plan
-  (:class:`WorkerLost` otherwise, with the worker's exit code and error);
-  :meth:`RankGroup.stop` sends each a stop, joins it within a timeout and
-  kills it on expiry. Each group has the mesh's timeout, so a collective
-  whose peer died fails instead of hanging.
+  (:class:`WorkerLost` otherwise, with the worker's exit code and error),
+  and a watcher thread sees a worker exit the moment it does: it records
+  the loss and aborts rank 0's NCCL groups, so work waiting on the lost
+  rank inside a replayed graph (which no collective timeout watches) ends
+  at once; gloo collectives fail on the lost peer's connection, each group
+  bounded by the mesh's timeout. :meth:`RankGroup.stop` gives every rank
+  one teardown: each worker closes its handler and acknowledges the stop,
+  and once every live worker has acknowledged, every rank leaves its
+  groups at the same time (bounded, an abort past the bound), then rank 0
+  joins the workers within a timeout and kills any left. No rank waits in
+  NCCL for a peer that has already gone.
 
 CPU workers run one intra-op thread each (``torch.set_num_threads(1)``):
 N ranks share one host. Host inputs travel as Python lists and numpy arrays
@@ -34,10 +41,13 @@ its tensor results come back as numpy arrays).
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import importlib
 import logging
 import multiprocessing
+import multiprocessing.connection
 import os
+import threading
 import time
 import traceback
 
@@ -54,6 +64,11 @@ logger = logging.getLogger(__name__)
 # imports, its handler's set-up), and stop within STOP_TIMEOUT_S of a stop.
 SPAWN_TIMEOUT_S = 300.0
 STOP_TIMEOUT_S = 30.0
+# Seconds every rank gives its groups' orderly shutdown before it aborts them.
+LEAVE_TIMEOUT_S = 10.0
+# A worker dumps its threads' stacks to stderr every this many seconds when
+# set (a hang's diagnosis; scripts/torch_mesh_probe.py sets it).
+STACKS_ENV = "QUORUM_RANK_STACKS_S"
 # Only functions and handlers of the port may be named in a plan.
 _PACKAGE = "quorum_tpu_torch."
 
@@ -106,6 +121,9 @@ def worker_main(rank: int, mesh: Mesh, port: int, conn, setup) -> None:
     then run plans until a stop or until rank 0's pipe closes. An error
     is sent to rank 0 and ends the process (rank 0 then sees it dead)."""
     rmesh = None
+    stacks = float(os.environ.get(STACKS_ENV, "0") or 0)
+    if stacks > 0:  # a hang's diagnosis: every rank's stacks every so often
+        faulthandler.dump_traceback_later(stacks, repeat=True)
     try:
         dev = mesh.devices[rank]
         if dev.type == "cpu":
@@ -126,6 +144,18 @@ def worker_main(rank: int, mesh: Mesh, port: int, conn, setup) -> None:
                 break  # rank 0 is gone
             op, args, reply = msg
             if op == "stop":
+                close = getattr(handler, "close", None)
+                if close is not None:
+                    close()
+                handler = None
+                # Acknowledge, then leave the groups when rank 0 says every
+                # rank has stopped (or its pipe closes, or the bound passes).
+                conn.send(("stopped", rank))
+                if conn.poll(STOP_TIMEOUT_S):
+                    try:
+                        conn.recv()
+                    except (EOFError, OSError):
+                        pass
                 break
             if op == "run":
                 fn = _resolve(args[0])
@@ -147,7 +177,7 @@ def worker_main(rank: int, mesh: Mesh, port: int, conn, setup) -> None:
         os._exit(1)
     finally:
         if rmesh is not None:
-            rmesh.shutdown()
+            rmesh.shutdown(LEAVE_TIMEOUT_S)
 
 
 class RankGroup:
@@ -168,6 +198,8 @@ class RankGroup:
         self._store = None
         self._lost: WorkerLost | None = None
         self._errors: dict[int, str] = {}
+        self._stopping = threading.Event()
+        self._watcher: threading.Thread | None = None
 
     @property
     def size(self) -> int:
@@ -215,7 +247,26 @@ class RankGroup:
         self._expect("hello", SPAWN_TIMEOUT_S)
         self.rank_mesh = join(self.mesh, 0, self._store)
         self._expect("ready", SPAWN_TIMEOUT_S)
+        if self.procs:
+            self._watcher = threading.Thread(target=self._watch, name="quorum-rank-watch",
+                                             daemon=True)
+            self._watcher.start()
         return self.rank_mesh
+
+    def _watch(self) -> None:
+        """Until :meth:`stop`: the moment a worker exits, record the loss
+        and abort rank 0's NCCL groups (the module docstring's lifecycle)."""
+        sentinels = {p.sentinel: r for r, p in enumerate(self.procs, start=1)}
+        while not self._stopping.is_set():
+            gone = multiprocessing.connection.wait(list(sentinels), timeout=0.2)
+            if not gone or self._stopping.is_set():
+                continue
+            r = sentinels[gone[0]]
+            self._lose(f"rank {r} exited with code {self.procs[r - 1].exitcode}")
+            logger.error("mesh rank %d exited; aborting rank 0's groups", r)
+            if self.rank_mesh is not None:
+                self.rank_mesh.abort()
+            return
 
     def start(self) -> RankMesh:
         return self.spawn().join()
@@ -293,25 +344,59 @@ class RankGroup:
         self.procs[rank - 1].kill()
 
     def stop(self, timeout_s: float = STOP_TIMEOUT_S) -> None:
-        """Stop every worker: a stop plan, a join within ``timeout_s``, a
-        kill on expiry; then rank 0 leaves its groups."""
+        """Stop every worker, every rank through one teardown: a stop plan
+        to each live worker, which closes its handler and acknowledges
+        (within ``timeout_s``); then every rank leaves its groups at once —
+        an orderly shutdown when every worker acknowledged and none was
+        lost, an abort otherwise —; then a join within the rest of
+        ``timeout_s`` and a kill on expiry."""
+        self._stopping.set()
+        deadline = time.monotonic() + timeout_s
+        asked = []
         for p, c in zip(self.procs, self._conns):
             if p.is_alive():
                 try:
                     c.send(("stop", (), False))
+                    asked.append((p, c))
                 except (BrokenPipeError, OSError):
                     pass
-        deadline = time.monotonic() + timeout_s
+        acked = []
+        for p, c in asked:
+            while time.monotonic() < deadline:
+                try:
+                    if c.poll(0.05):
+                        if c.recv()[0] == "stopped":
+                            acked.append(c)
+                            break
+                        continue
+                except (EOFError, OSError):
+                    break
+                if not p.is_alive():
+                    break
+        for c in acked:
+            try:
+                c.send(("leave", (), False))
+            except (BrokenPipeError, OSError):
+                pass
+        if self.rank_mesh is not None:
+            everyone = len(acked) == len(self.procs) and self._lost is None
+            if everyone or self.mesh.backend != "nccl":
+                self.rank_mesh.shutdown(LEAVE_TIMEOUT_S)
+            else:
+                self.rank_mesh.abort()
+            if not self.rank_mesh.wait_abort(LEAVE_TIMEOUT_S):
+                logger.error("rank 0's group abort is still running after %.0f s",
+                             LEAVE_TIMEOUT_S)
+            self.rank_mesh = None
         for p in self.procs:
-            p.join(max(0.0, deadline - time.monotonic()))
+            p.join(max(0.0, deadline + LEAVE_TIMEOUT_S - time.monotonic()))
             if p.is_alive():
                 p.kill()
                 p.join(5.0)
         for c in self._conns:
             c.close()
-        if self.rank_mesh is not None:
-            self.rank_mesh.shutdown()
-            self.rank_mesh = None
+        if self._watcher is not None:
+            self._watcher.join(1.0)
         self._store = None
 
     def alive_pids(self) -> list[int]:

@@ -12,6 +12,12 @@ cuts each rank's shard wherever the same table's spec names ``tp``
 (``parallel/comm.py``, ``models/transformer.py``): Megatron-style tensor
 parallelism, heads, MLP hidden and vocab over ``tp``.
 
+The KV cache's slot (batch) axis is cut over dp as the JAX package's
+``kv_cache_sharding`` cuts it (:func:`kv_cache_spec`, :func:`slot_rows`):
+each dp group of ranks holds a contiguous block of the slot rows, or every
+row when dp does not divide their count. The weights are replicated over dp
+(each dp rank holds its tp cut).
+
 One rule differs: where ``n_kv_heads`` does not divide tp (2 kv heads on
 tp=4), the JAX package replicates the kv heads (its ``kv_cache_sharding``
 and ``replicate_kv_heads``) and shards the query heads' projections by the
@@ -75,6 +81,32 @@ PARAM_LOGICAL_AXES: dict[str, tuple[str | None, ...]] = {
 
 # KV cache: [layers, batch, kv_heads, max_seq, head_dim]
 KV_CACHE_AXES: tuple[str | None, ...] = ("layers", "batch", "kv_heads", "seq", "head_dim")
+
+
+def kv_cache_spec(n_kv_heads: int, tp: int, dp: int = 1,
+                  batch: int | None = None) -> tuple[str | None, ...]:
+    """The KV cache's spec ``[layers, batch, kv_heads, max_seq, head_dim]``
+    as the JAX package's ``kv_cache_sharding`` gives it: kv heads over tp
+    unless tp does not divide them (then replicated there, and each port
+    rank keeps the heads its query heads read, :func:`rank_kv_heads`), the
+    slot axis over dp unless dp does not divide ``batch``."""
+    axes = list(KV_CACHE_AXES)
+    if n_kv_heads % tp != 0:
+        axes[2] = None
+    if batch is not None and batch % dp != 0:
+        axes[1] = None
+    return logical_to_spec(tuple(axes))
+
+
+def slot_rows(n_slots: int, dp: int, dp_rank: int) -> tuple[int, int]:
+    """Slot rows ``[lo, hi)`` that dp rank ``dp_rank``'s cache holds:
+    ``n_slots / dp`` contiguous rows, or all of them when dp does not
+    divide ``n_slots`` (:func:`kv_cache_spec`'s replicated slot axis:
+    every dp group then computes every row)."""
+    if dp <= 1 or n_slots % dp:
+        return 0, n_slots
+    per = n_slots // dp
+    return dp_rank * per, (dp_rank + 1) * per
 
 
 def logical_to_spec(axes: tuple[str | None, ...]) -> tuple[str | None, ...]:

@@ -24,6 +24,12 @@ dict keys, NamedTuple field names and tuple indices joined by dots
 - ``restore_params`` reads the params item alone and never opens
   ``opt_state/``: serving a checkpoint needs the weights' memory only. Its
   tree feeds ``InferenceEngine(spec, device=..., params=...)``.
+- Meshes: a checkpoint always holds whole leaves, so one written from any
+  mesh restores onto any other or onto one device. Saving a rank's cut of a
+  state (``mesh=``, ``spec=``; every rank of the mesh calls it) gathers each
+  cut leaf whole over tp in dp group 0 and rank 0 writes; restoring onto a
+  mesh (``mesh=``) fills each leaf whole on the rank's device and keeps
+  only the rank's cut (``parallel/sharding.rank_cut``, by leaf name).
 """
 
 from __future__ import annotations
@@ -65,13 +71,80 @@ def _named(tree: Any, prefix: str = ""):
         yield from _named(sub, f"{prefix}.{key}" if prefix else str(key))
 
 
+@torch.no_grad()
+def tree_digest(tree: Any) -> dict[str, int]:
+    """Tensor name → an exact fingerprint of its bytes: the sum of its
+    16-bit words weighted by their position (mod 65 521, plus 1), in int64
+    on the tensor's device, piece by piece. Equal trees give equal digests;
+    a changed, missing or moved element changes its leaf's (a restore held
+    against the state it came from without moving either to the host)."""
+    out = {}
+    for name, t in _named(tree):
+        words = t.detach().contiguous().view(-1).view(torch.int16)
+        total = 0
+        for i in range(0, words.numel(), 1 << 24):
+            w = words[i:i + (1 << 24)].long()
+            pos = torch.arange(i, i + w.numel(), device=w.device) % 65521 + 1
+            total += int((w * pos).sum())
+        out[name] = total
+    return out
+
+
 def _item_file(path: Path, item: str) -> Path:
     return path / item / f"{item}.safetensors"
 
 
-def save_checkpoint(path: str, state: TrainState) -> int:
+def _whole_shapes(spec: ModelSpec) -> dict[str, tuple]:
+    """Leaf name → the whole leaf's shape (leaf names are unique in a
+    params tree, top level and blocks)."""
+    out: dict[str, tuple] = {}
+    for name, t in _named(init_params(spec, device="meta")):
+        out[name.split(".")[-1]] = tuple(t.shape)
+    return out
+
+
+def _gathered(state: TrainState, mesh, spec: ModelSpec) -> TrainState:
+    """``state`` (a tp rank's cut) with every cut leaf all-gathered whole
+    over tp, along the dimension its cut took."""
+    whole = _whole_shapes(spec)
+
+    def walk(tree: Any, prefix: str = "") -> Any:
+        if tree is None:
+            return None
+        if isinstance(tree, torch.Tensor):
+            want = whole.get(prefix.split(".")[-1])
+            if want is None or tree.dim() == 0 or tuple(tree.shape) == want:
+                return tree
+            dim = next(d for d, (a, b) in enumerate(zip(tree.shape, want)) if a != b)
+            return mesh.tp.all_gather(tree.contiguous(), dim=dim)
+
+        def sub(key, t):
+            return walk(t, f"{prefix}.{key}" if prefix else str(key))
+
+        if isinstance(tree, dict):
+            return {k: sub(k, v) for k, v in tree.items()}
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(sub(f, v) for f, v in zip(tree._fields, tree)))
+        return tuple(sub(i, v) for i, v in enumerate(tree))
+
+    return TrainState(walk(state.params), walk(state.opt_state), state.step)
+
+
+def save_checkpoint(path: str, state: TrainState, *, mesh=None,
+                    spec: ModelSpec | None = None) -> int:
     """Write the full TrainState to ``path`` (a directory; an older
-    checkpoint there is replaced). Returns the bytes written."""
+    checkpoint there is replaced). Returns the bytes written. With ``mesh``
+    (a ``RankMesh``; ``state`` the rank's cut, ``spec`` its model) every
+    rank calls this: dp group 0 gathers the cut leaves whole over tp and
+    rank 0 writes them (other ranks return 0)."""
+    if mesh is not None:
+        if spec is None:
+            raise ValueError("saving a mesh's state needs its spec (the whole leaves' shapes)")
+        if mesh.dp_rank != 0:
+            return 0
+        state = _gathered(state, mesh, spec)
+        if mesh.rank != 0:
+            return 0
     path = Path(os.path.abspath(path))
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix=f".{path.name}-", dir=path.parent))
@@ -95,9 +168,10 @@ def save_checkpoint(path: str, state: TrainState) -> int:
 
 
 def _restore_item(path: Path, item: str, target: Any, device: torch.device,
-                  stage: HostStage, exact_dtype: bool) -> Any:
+                  stage: HostStage, exact_dtype: bool, cut=None) -> Any:
     """The ``item`` tree of the checkpoint at ``path``, shaped like
-    ``target`` (meta tensors; 0-d leaves restored on the host)."""
+    ``target`` (meta tensors; 0-d leaves restored on the host); ``cut(name,
+    x)`` keeps a rank's cut of each filled leaf (by its leaf name)."""
     sf = SafetensorsFile(_item_file(path, item))
     try:
         want = dict(_named(target))
@@ -117,6 +191,8 @@ def _restore_item(path: Path, item: str, target: Any, device: torch.device,
                               device=device if t.dim() else torch.device("cpu"))
             stage.fill(out, src)
             sf.release(name)
+            if cut is not None and out.dim():
+                out = cut(name.split(".")[-1], out).contiguous()
             filled[name] = out
     finally:
         sf.close()
@@ -139,26 +215,40 @@ def _rebuild(target: Any, filled: dict, prefix: str = "") -> Any:
     return tuple(sub(i, v) for i, v in enumerate(target))
 
 
+def _rank_cut(spec: ModelSpec, mesh):
+    if mesh is None:
+        return None
+    from quorum_tpu_torch.parallel.sharding import rank_cut
+
+    return rank_cut(spec, mesh, mesh.rank)
+
+
 def restore_checkpoint(path: str, spec: ModelSpec, *, device="cuda",
-                       optimizer: Optimizer | None = None) -> TrainState:
+                       optimizer: Optimizer | None = None, mesh=None) -> TrainState:
     """The full TrainState saved at ``path``, on ``device``; ``optimizer``
     (the recipe the state was trained with; the default recipe when None)
-    gives the optimizer state's tree."""
+    gives the optimizer state's tree. With ``mesh`` (a ``RankMesh``) the
+    state is the rank's cut of it, on the rank's device."""
     opt = optimizer or make_optimizer()
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    cut = _rank_cut(spec, mesh)
     path = Path(os.path.abspath(path))
     meta = init_params(spec, device="meta")
     stage = HostStage()
-    params = _restore_item(path, "params", meta, dev, stage, exact_dtype=True)
-    opt_state = _restore_item(path, "opt_state", opt.init(meta), dev, stage, exact_dtype=False)
+    params = _restore_item(path, "params", meta, dev, stage, exact_dtype=True, cut=cut)
+    opt_state = _restore_item(path, "opt_state", opt.init(meta), dev, stage, exact_dtype=False,
+                              cut=cut)
     step = _restore_item(path, "step", {"step": torch.zeros((), dtype=torch.int32)}, dev, stage,
                          exact_dtype=True)["step"]
     return TrainState(params, opt_state, step)
 
 
-def restore_params(path: str, spec: ModelSpec, *, device="cuda") -> dict:
+def restore_params(path: str, spec: ModelSpec, *, device="cuda", mesh=None) -> dict:
     """Only the params item of a training checkpoint, on ``device`` (for
-    serving: ``InferenceEngine(spec, device=..., params=restore_params(...))``);
-    the optimizer's item is never opened."""
+    serving: ``InferenceEngine(spec, device=..., params=restore_params(...))``,
+    or with a mesh engine's whole tree, which it cuts for each rank); the
+    optimizer's item is never opened. With ``mesh`` (a ``RankMesh``) the
+    rank's cut, on its device."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     return _restore_item(Path(os.path.abspath(path)), "params", init_params(spec, device="meta"),
-                         resolve_device(device), HostStage(), exact_dtype=True)
+                         dev, HostStage(), exact_dtype=True, cut=_rank_cut(spec, mesh))

@@ -42,6 +42,10 @@ tensor's dtype as JAX rounds weak-typed scalars; the moments update as
 ``mu.lerp_(g, 1 − b1)`` and ``nu·b2 + (1 − b2)·g²`` (one rounding fewer than
 optax's two products and a sum). The global norm sums the squares in f32 and
 rounds once to the gradients' dtype (optax sums bf16 squares in bf16).
+On a mesh (``update(..., mesh=, cut=)``, a tp rank's cut of the state) the
+squares of cut leaves are summed over tp and those of replicated leaves
+counted once, so the norm is the whole tree's; AdamW and weight decay stay
+elementwise on each shard.
 """
 
 from __future__ import annotations
@@ -229,17 +233,20 @@ class Optimizer:
     # -- update --------------------------------------------------------------
 
     @torch.no_grad()
-    def update(self, grads, state, params) -> Any:
+    def update(self, grads, state, params, *, mesh=None, cut=None) -> Any:
         """One optimizer step: ``params`` updated in place; returns the new
-        state (its tensors updated in place where their dtype stays)."""
+        state (its tensors updated in place where their dtype stays). On a
+        ``mesh`` (a ``RankMesh``), ``cut`` (a tree of bools like the params:
+        the leaves that are tp cuts) makes clipping's norm the whole
+        tree's."""
         if self.accum_steps == 1:
-            return self._inner_update(grads, state, params)
+            return self._inner_update(grads, state, params, mesh, cut)
         _, ms = state
         k = self.accum_steps
         mini = int(ms.mini_step)
         acc = tree_map(lambda a, g: _welford(a, g, mini), ms.acc_grads, grads)
         if mini == k - 1:
-            inner = self._inner_update(acc, ms.inner_opt_state, params)
+            inner = self._inner_update(acc, ms.inner_opt_state, params, mesh, cut)
             tree_map(torch.Tensor.zero_, acc)
             gstep = _inc(ms.gradient_step)
         else:
@@ -247,10 +254,10 @@ class Optimizer:
             gstep = ms.gradient_step.clone()
         return (EmptyState(), MultiStepsState(_count((mini + 1) % k), gstep, inner, acc, ()))
 
-    def _inner_update(self, grads, state, params):
+    def _inner_update(self, grads, state, params, mesh=None, cut=None):
         if self.grad_clip is not None:
             clip_state, state = state
-            clip_by_global_norm_(grads, self.grad_clip)
+            clip_by_global_norm_(grads, self.grad_clip, mesh=mesh, cut=cut)
         adam, decay_state, lr_state = state
         count = _inc(adam.count)
         lr = (self.learning_rate(int(lr_state.count)) if callable(self.learning_rate)
@@ -318,28 +325,45 @@ def _welford(acc: torch.Tensor, g: torch.Tensor, mini: int) -> torch.Tensor:
     return out
 
 
-@torch.no_grad()
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, accumulated in f32 (a
-    0-d f32 tensor on the leaves' device)."""
+def _square_sum(leaves) -> torch.Tensor | None:
     total = None
-    for leaf in tree_leaves(grads):
+    for leaf in leaves:
         for c in _pieces(leaf):
             s = torch.sum(torch.square(c.float()))
             total = s if total is None else total + s
-    return torch.sqrt(total)
+    return total
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads, max_norm: float) -> float:
+def global_norm(grads, *, mesh=None, cut=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, accumulated in f32 (a
+    0-d f32 tensor on the leaves' device). On a ``mesh``, ``cut`` (a tree
+    of bools like ``grads``) names the tp-cut leaves: their squares are
+    summed over tp, the replicated leaves' counted once."""
+    if mesh is None or mesh.tp_size == 1:
+        return torch.sqrt(_square_sum(tree_leaves(grads)))
+    flags = []
+    tree_map(flags.append, cut)
+    leaves = tree_leaves(grads)
+    mine = _square_sum([g for g, c in zip(leaves, flags) if c])
+    once = _square_sum([g for g, c in zip(leaves, flags) if not c])
+    dev = leaves[0].device
+    mine = torch.zeros((), device=dev) if mine is None else mine
+    total = mesh.tp.all_reduce(mine.reshape(1).clone())[0]
+    return torch.sqrt(total if once is None else total + once)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float, *, mesh=None, cut=None) -> float:
     """optax's ``clip_by_global_norm`` in place: when the global norm
     (rounded to the gradients' dtype) is not below ``max_norm``, every leaf
-    becomes ``(g / norm) · max_norm``. Returns the norm (one host read)."""
+    becomes ``(g / norm) · max_norm``. Returns the norm (one host read).
+    ``mesh``/``cut``: :func:`global_norm`'s, on a tp rank's cut."""
     leaves = tree_leaves(grads)
     dtype = leaves[0].dtype
     for leaf in leaves[1:]:
         dtype = torch.promote_types(dtype, leaf.dtype)
-    norm = _rounded(float(global_norm(grads)), dtype)
+    norm = _rounded(float(global_norm(grads, mesh=mesh, cut=cut)), dtype)
     if not norm < max_norm:
         for leaf in leaves:
             n = _rounded(norm, leaf.dtype)

@@ -181,10 +181,11 @@ def test_rank_heads_and_kv_heads():
 
 
 def test_mesh_refusals_name_the_reason(monkeypatch):
-    with pytest.raises(ValueError, match=r"dp=2 is not served on cuda:// meshes yet"):
-        make_mesh(MeshConfig(dp=2), ["cpu"] * 2)
     with pytest.raises(ValueError, match=r"pp=2 is not served on cuda:// meshes yet"):
         make_mesh(MeshConfig(pp=2), ["cpu"] * 2)
+    with pytest.raises(ValueError, match=r"pp=2 is not served on cuda:// meshes yet"):
+        make_mesh(MeshConfig(dp=2, pp=2), ["cpu"] * 4)
+    assert make_mesh(MeshConfig(dp=2), ["cpu"] * 2).shape["dp"] == 2
     with pytest.raises(ValueError, match=r"needs 4 devices, have 2"):
         make_mesh(MeshConfig(tp=4), ["cpu"] * 2)
     with pytest.raises(ValueError, match="CPU ranks run over gloo"):
@@ -204,16 +205,18 @@ def test_mesh_refusals_name_the_reason(monkeypatch):
     # cuda://…?tp=2 on a one-card machine: both counts named.
     with pytest.raises(ValueError, match=r"tp=2 x sp=1 needs 2 CUDA devices .* has 1"):
         cuda_backend._url_mesh({"tp": "2"})
-    # Several NCCL ranks on cards of their own: refused (the open fault),
-    # naming gloo; over gloo they are a mesh.
+    # Several NCCL ranks on cards of their own are a mesh; NCCL stays
+    # refused where ranks share a card, naming gloo.
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     for devices in (["cuda:0", "cuda:1"], ["cuda:0", "cuda:1", "cuda:2", "cuda:3"]):
         cfg = MeshConfig(tp=2, sp=len(devices) // 2)
-        with pytest.raises(ValueError, match=r'not served yet.*ROADMAP queue 3.*backend="gloo"'):
-            make_mesh(cfg, devices)
+        assert make_mesh(cfg, devices).backend == "nccl"
+        with pytest.raises(ValueError, match=r'one card .*backend="gloo"'):
+            make_mesh(cfg, ["cuda:0"] * len(devices))
         assert make_mesh(cfg, devices, backend="gloo").devices == tuple(map(torch.device,
                                                                             devices))
-    with pytest.raises(ValueError, match="NCCL meshes of several ranks are not served yet"):
-        cuda_backend._url_mesh({"tp": "2", "sp": "2"})
+    assert cuda_backend._url_mesh({"tp": "2", "sp": "2"}).backend == "nccl"
+    assert cuda_backend._url_mesh({"dp": "2", "tp": "2"}).shape == {"dp": 2, "pp": 1, "sp": 1,
+                                                                      "tp": 2}
     assert cuda_backend._url_mesh({"tp": "1", "sp": "1"}) is None
     assert cuda_backend._url_mesh({"tp": "2", "sp": "2", "device": "cpu"}).size == 4

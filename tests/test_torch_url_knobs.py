@@ -73,6 +73,13 @@ def test_unknown_options_are_refused_by_name(option, no_engine):
 ])
 def test_tpu_only_options_say_they_are_not_served_yet(option, value, no_engine):
     # flash_decode= is refused for good (test_flash_decode_refusal_is_permanent).
+    # dp= is served now; beside disagg= it is refused in the tpu:// backend's
+    # words, before disagg='s own refusal.
+    if option == "dp":
+        with pytest.raises(ValueError, match=r"disagg= device groups are data-disjoint by "
+                                             r"construction; dp= does not compose with it"):
+            _from_url(f"{BASE}&dp={value}&disagg=1+1")
+        return
     tail = ", and will not" if option == "flash_decode" else " yet"
     with pytest.raises(ValueError, match=rf"does not serve the {option}= option{tail}"):
         _from_url(f"{BASE}&{option}={value}")
