@@ -700,8 +700,10 @@ def _kernels_per_rank(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict
     phase's path): llama-3-8b's 32/8 heads cut by tp=2 (H=16, K=4) and tp=4
     (H=8, K=2); K1 at a 2048-token admission and, for Ulysses at sp=2
     (H=16, K=4 over the whole prompt), at 8192; K2 over 4 slots × 8192 keys
-    with lengths 1/100/4096/8191. Each against its plain version, then its
-    time, the plain version's, SDPA's and the bound."""
+    with lengths 1/100/4096/8191, and at a pipeline stage's row group of
+    them at the whole model's heads (pp=2: the 4096/8191 rows; pp=4: the
+    8191 row). Each against its plain version, then its time, the plain
+    version's, SDPA's and the bound."""
     import numpy as np
 
     from quorum_tpu_torch.ops.attention import decode_attention, prefill_attention
@@ -747,14 +749,21 @@ def _kernels_per_rank(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict
         out["flash_prefill"].append(row)
         out["max_abs_err"]["flash_prefill"] = max(out["max_abs_err"]["flash_prefill"], err)
     t_keys = 256 if tiny else 8192
-    lens = [1, 100, 200, 255] if tiny else [1, 100, 4096, 8191]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    live = sum(lens)
-    for name, h, kv in cuts:
+    all_lens = [1, 100, 200, 255] if tiny else [1, 100, 4096, 8191]
+    # A pipeline stage's row group (pp=2: 2 of the 4 slots, the longer
+    # group; pp=4: one slot) at the whole model's heads (pp cuts none).
+    whole = (4, 2) if tiny else (32, 8)
+    k2_cuts = [(name, h, kv, all_lens) for name, h, kv in cuts] + [
+        ("pp2_group", *whole, all_lens[2:]), ("pp4_group", *whole, all_lens[3:])]
+    for name, h, kv, lens in k2_cuts:
+        rows = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live = sum(lens)
         flops = 4 * h * live * hd
-        nbytes = 2 * (live * kv * hd * 2 + 2 * 4 * h * hd) + 4 * 4
-        sets = [(rnd(4, h, 1, hd, dtype=dtype), rnd(4, kv, t_keys, hd, dtype=dtype),
-                 rnd(4, kv, t_keys, hd, dtype=dtype), lengths) for _ in range(_copies(nbytes))]
+        nbytes = 2 * (live * kv * hd * 2 + 2 * rows * h * hd) + 4 * rows
+        sets = [(rnd(rows, h, 1, hd, dtype=dtype), rnd(rows, kv, t_keys, hd, dtype=dtype),
+                 rnd(rows, kv, t_keys, hd, dtype=dtype), lengths)
+                for _ in range(_copies(nbytes))]
         n0 = flash_decode_attention.launches
         got = flash_decode_attention(*sets[0])
         err = (got.float() - decode_attention(*sets[0]).float()).abs().max().item()
@@ -766,7 +775,7 @@ def _kernels_per_rank(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict
         b_ms, b_by = _bound(flops, nbytes)
         t = graph_ms([lambda a=a: flash_decode_attention(*a) for a in sets])
         out["flash_decode"].append({
-            "cut": name, "B": 4, "H": h, "K": kv, "T": t_keys, "hd": hd, "lengths": lens,
+            "cut": name, "B": rows, "H": h, "K": kv, "T": t_keys, "hd": hd, "lengths": lens,
             "max_abs_err": err, "tol": tol, "ms": t,
             "plain_ms": graph_ms([lambda a=a: decode_attention(*a) for a in sets]),
             "library_ms": graph_ms([sdpa(a[0], a[1], a[2], dmask) for a in sets]),
@@ -3943,8 +3952,8 @@ def _write_hf_checkpoint(torch, path: str, spec, params, model_type: str,
     cfg = {"model_type": model_type, "vocab_size": spec.vocab_size,
            "hidden_size": spec.d_model, "intermediate_size": spec.d_ff,
            "num_hidden_layers": spec.n_layers, "num_attention_heads": spec.n_heads,
-           "num_key_value_heads": spec.n_kv_heads, "max_position_embeddings": spec.max_seq,
-           "rope_theta": spec.rope_theta, "rms_norm_eps": spec.norm_eps,
+           "num_key_value_heads": spec.n_kv_heads, "head_dim": spec.head_dim,
+           "max_position_embeddings": spec.max_seq, "rope_theta": spec.rope_theta, "rms_norm_eps": spec.norm_eps,
            "tie_word_embeddings": spec.tied_lm_head, "torch_dtype": spec.dtype}
     if spec.is_moe:
         cfg.update(num_local_experts=spec.n_experts, num_experts_per_tok=spec.experts_per_token)
@@ -7174,16 +7183,18 @@ MESH_LP_TOL = 0.25
 MESH_GROUP_TIMEOUT_S = 60.0
 
 
-def _lp_stream(eng, ids: list[int], n: int, timeout: float = 2 * SERVE_TIMEOUT_S):
-    """One greedy request on the engine's API with the top-20
-    log-probabilities of every step: (tokens, records, seconds)."""
+def _lp_stream(eng, ids: list[int], n: int, timeout: float = 2 * SERVE_TIMEOUT_S,
+               sampler=None, seed: int = 0):
+    """One greedy (or ``sampler``'s, at ``seed``) request on the engine's
+    API with the top-20 log-probabilities of every step: (tokens, records,
+    seconds)."""
     import threading
 
     from quorum_tpu_torch.ops.sampling import SamplerConfig
 
     t0 = time.perf_counter()
-    req = eng.submit(ids, max_new_tokens=n, sampler=SamplerConfig(temperature=0.0),
-                     logprobs=20)
+    req = eng.submit(ids, max_new_tokens=n, sampler=sampler or SamplerConfig(temperature=0.0),
+                     logprobs=20, seed=seed)
     out: list = []
     th = threading.Thread(target=lambda: out.extend(eng.stream_results(req)), daemon=True)
     th.start()
@@ -7271,7 +7282,8 @@ def _graph_collectives(eng) -> dict:
     return out
 
 
-def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
+def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
+               cards_only: bool = False) -> dict:
     """Data-, tensor- and sequence-parallel serving (``parallel/``; a mesh engine is
     rank 0 here, the other ranks are spawned processes) on llama-3-8b at
     full width (32 layers, bf16, seed 0, 4 slots × 8192), against the
@@ -7298,6 +7310,7 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     from quorum_tpu_torch.models.model_config import resolve_spec
     from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
     from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
     from quorum_tpu_torch.parallel import (MeshConfig, collective_counts, make_mesh,
                                            single_device_mesh)
     from quorum_tpu_torch.server.app import create_app
@@ -7350,6 +7363,9 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     prompts = [tok.encode(tok.render_chat(b["messages"])) for b in bodies[:2]]
     full_bytes = _tree_bytes(ref_eng.params)
     ref = [_lp_stream(ref_eng, p, n_tok) for p in prompts]
+    ref_sampled = [_lp_stream(ref_eng, p, n_tok, sampler=SamplerConfig(temperature=0.8,
+                                                                        top_p=0.9), seed=7)
+                   for p in prompts]
     peak_reset()
     ref_long = _lp_stream(ref_eng, long_ids, 1)
     out["single"] = {"build_and_streams_s": round(time.perf_counter() - t0, 3),
@@ -7359,213 +7375,222 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     del ref_eng
     _require_card_empty(torch, cpu, "mesh (a)")
 
-    # (a) A one-rank NCCL mesh (gloo on the CPU rehearsal).
-    zero()
-    c0 = collective_counts()
-    t0 = time.perf_counter()
-    eng = InferenceEngine(spec, mesh=single_device_mesh(dev), **knobs)
-    build_s = time.perf_counter() - t0
-    app, backend = app_for("mesh1", eng)
-    chats = _mesh_chats(app, bodies, backend, n_tok)
-    got = [_lp_stream(eng, p, n_tok) for p in prompts]
-    m = eng.metrics()
-    c1 = collective_counts()
-    add()
-    require(all(g[0] == r[0] for g, r in zip(got, ref)),
-            "mesh (a): a one-rank mesh's greedy tokens differ from the single-device engine's")
-    in_graphs = _graph_collectives(eng)
-    if not cpu:
-        require(eng.mesh.backend == "nccl" and eng._graphs is not None,
-                "mesh (a): a one-rank NCCL mesh must decode from graphs")
-        require(m["decode_graph_captures_total"] > 0 and in_graphs["all_reduce"] > 0
-                and in_graphs["broadcast"] > 0,
-                f"mesh (a): the decode graphs captured no collectives ({in_graphs})")
-        require(flash_prefill_attention.launches == spec.n_layers * m["admission_dispatches_total"]
-                and flash_decode_attention.launches == spec.n_layers * _k2_steps(m),
-                f"mesh (a): K1/K2 launches {flash_prefill_attention.launches}/"
-                f"{flash_decode_attention.launches} for {m['admission_dispatches_total']} "
-                f"admissions and {_k2_steps(m)} decode steps")
-    out["a_nccl_one_rank"] = {
-        "backend": eng.mesh.backend, "build_s": round(build_s, 3),
-        "chats": [{"stream": b["stream"], "finish": c["finish"],
-                   "completion_tokens": c["usage"]["completion_tokens"],
-                   "seconds": round(c["t_end"], 4)} for b, c in zip(bodies, chats)],
-        "greedy_equal": True, "captures": m["decode_graph_captures_total"],
-        "replays": m["decode_graph_replays_total"],
-        "collectives_in_graphs": in_graphs,
-        "collectives_issued": {k: c1[k] - c0[k] for k in c1},
-        "k1_launches": flash_prefill_attention.launches,
-        "k2_launches": flash_decode_attention.launches}
-    emit("mesh", leg="a", **out["a_nccl_one_rank"])
-    eng.shutdown()
-    del eng, app, backend
-    _require_card_empty(torch, cpu, "mesh (b)")
+    leg_s = {}
+    # One card: (a)–(g) and (i)–(k); --mesh-cards-only runs the legs over
+    # cards of their own alone ((h), (l)), against the same reference.
+    if not cards_only:
+        # (a) A one-rank NCCL mesh (gloo on the CPU rehearsal).
+        zero()
+        c0 = collective_counts()
+        t0 = time.perf_counter()
+        eng = InferenceEngine(spec, mesh=single_device_mesh(dev), **knobs)
+        build_s = time.perf_counter() - t0
+        app, backend = app_for("mesh1", eng)
+        chats = _mesh_chats(app, bodies, backend, n_tok)
+        got = [_lp_stream(eng, p, n_tok) for p in prompts]
+        m = eng.metrics()
+        c1 = collective_counts()
+        add()
+        require(all(g[0] == r[0] for g, r in zip(got, ref)),
+                "mesh (a): a one-rank mesh's greedy tokens differ from the single-device engine's")
+        in_graphs = _graph_collectives(eng)
+        if not cpu:
+            require(eng.mesh.backend == "nccl" and eng._graphs is not None,
+                    "mesh (a): a one-rank NCCL mesh must decode from graphs")
+            require(m["decode_graph_captures_total"] > 0 and in_graphs["all_reduce"] > 0
+                    and in_graphs["broadcast"] > 0,
+                    f"mesh (a): the decode graphs captured no collectives ({in_graphs})")
+            require(flash_prefill_attention.launches == spec.n_layers * m["admission_dispatches_total"]
+                    and flash_decode_attention.launches == spec.n_layers * _k2_steps(m),
+                    f"mesh (a): K1/K2 launches {flash_prefill_attention.launches}/"
+                    f"{flash_decode_attention.launches} for {m['admission_dispatches_total']} "
+                    f"admissions and {_k2_steps(m)} decode steps")
+        out["a_nccl_one_rank"] = {
+            "backend": eng.mesh.backend, "build_s": round(build_s, 3),
+            "chats": [{"stream": b["stream"], "finish": c["finish"],
+                       "completion_tokens": c["usage"]["completion_tokens"],
+                       "seconds": round(c["t_end"], 4)} for b, c in zip(bodies, chats)],
+            "greedy_equal": True, "captures": m["decode_graph_captures_total"],
+            "replays": m["decode_graph_replays_total"],
+            "collectives_in_graphs": in_graphs,
+            "collectives_issued": {k: c1[k] - c0[k] for k in c1},
+            "k1_launches": flash_prefill_attention.launches,
+            "k2_launches": flash_decode_attention.launches}
+        emit("mesh", leg="a", **out["a_nccl_one_rank"])
+        eng.shutdown()
+        del eng, app, backend
+        _require_card_empty(torch, cpu, "mesh (b)")
 
-    # (b) tp=2: two ranks sharing the card over gloo.
-    zero()
-    t0 = time.perf_counter()
-    eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(tp=2), two, backend="gloo",
-                                               timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
-    build_s = time.perf_counter() - t0
-    app, backend = app_for("tp2", eng)
-    # Two of the chats (greedy streamed, sampled not) and half the tokens:
-    # each eager step here costs 0.2–0.4 s of host-staged collectives.
-    b_tok = n_tok // 2
-    chats = _mesh_chats(app, [{**b, "max_tokens": b_tok} for b in bodies[1:3]], backend,
-                        b_tok)
-    got = []
-    for i, p in enumerate(prompts):
-        eng.rank_reports()  # clears what earlier requests fed
-        got.append(_lp_stream(eng, p, b_tok))
-        reports = eng.rank_reports()
-        # The stream's row fed every token rank 0 served but the last
-        # (after the last prompt token when the admission was chunked).
-        fed = [f for f in reports[0]["fed"] if f]
-        require(len(fed) == 1 and fed[0][len(fed[0]) - len(got[i][0]) + 1:] == got[i][0][:-1],
-                f"mesh (b): the worker rank did not feed rank 0's tokens of stream {i}")
-    held = [_hold_lp(f"mesh (b) stream {i}", (r[0][:b_tok], r[1][:b_tok]), g)
-            for i, (r, g) in enumerate(zip(ref, got))]
-    w_bytes = [_tree_bytes(eng.params), reports[0]["weight_bytes"]]
-    c_bytes = [sum(t.numel() * t.element_size() for t in (eng._ck, eng._cv)),
-               reports[0]["cache_bytes"]]
-    want_cache = 2 * spec.n_layers * 4 * (spec.n_kv_heads // 2) * spec.max_seq * spec.head_dim * 2
-    require(w_bytes[0] == w_bytes[1] and abs(w_bytes[0] - full_bytes / 2) <= 0.001 * full_bytes,
-            f"mesh (b): rank weight bytes {w_bytes}, not half of {full_bytes}")
-    require(c_bytes == [want_cache] * 2, f"mesh (b): rank cache bytes {c_bytes} != {want_cache}")
-    step_ms = [1e3 * g[2] / len(g[0]) for g in got]
-    out["b_tp2_gloo"] = {
-        "backend": eng.mesh.backend, "decode": eng.health()["mesh"]["decode"],
-        "build_s": round(build_s, 3),
-        "chats": [{"stream": b["stream"], "finish": c["finish"],
-                   "completion_tokens": c["usage"]["completion_tokens"],
-                   "seconds": round(c["t_end"], 4)} for b, c in zip(bodies[1:3], chats)],
-        "held": held, "worker_fed_rank0_tokens": True,
-        "weight_bytes_per_rank": w_bytes, "single_weight_bytes": full_bytes,
-        "cache_bytes_per_rank": c_bytes,
-        "eager_ms_per_token_one_stream": step_ms,
-        "eager_note": "two ranks sharing one card over host-staged gloo, eager decode: "
-                      "not a tp=2 deployment's step time",
-        "worker_collectives": reports[0]["collectives"]}
-    emit("mesh", leg="b", **out["b_tp2_gloo"])
-
-    # (d) Worker rank 1 killed mid-stream.
-    import threading
-
-    from quorum_tpu_torch.ops.sampling import SamplerConfig
-
-    pids = eng.worker_pids()
-    req = eng.submit(prompts[0], max_new_tokens=200 if not tiny else 100,
-                     sampler=SamplerConfig(temperature=0.0))
-    seen, ended = [], {}
-
-    def consume():
-        try:
-            for t in eng.stream_results(req):
-                seen.append(t)
-        except Exception as e:  # noqa: BLE001 - the leg's finding
-            ended["error"] = f"{type(e).__name__}: {e}"[:300]
-        ended["t"] = time.perf_counter()
-
-    th = threading.Thread(target=consume, daemon=True)
-    th.start()
-    deadline = time.monotonic() + SERVE_TIMEOUT_S
-    while len(seen) < 16 and th.is_alive() and time.monotonic() < deadline:
-        time.sleep(0.01)
-    t_kill = time.perf_counter()
-    eng._ranks.kill(1)
-    th.join(MESH_GROUP_TIMEOUT_S + 30)
-    require(not th.is_alive(), "mesh (d): the stream did not end after its worker died")
-    require("error" in ended, f"mesh (d): the stream ended without an error after "
-                              f"{len(seen)} tokens")
-    end_s = ended["t"] - t_kill
-    require(end_s <= MESH_GROUP_TIMEOUT_S, f"mesh (d): the stream took {end_s} s to fail")
-    require(eng.breaker.state == "open", "mesh (d): the breaker did not open")
-    try:
-        eng.submit([1, 2, 3], max_new_tokens=4)
-        refused = False
-    except EngineBreakerOpen:
-        refused = True
-    require(refused, "mesh (d): a submit after the loss was not refused")
-    resp = asyncio.run(_call(app, bodies[0]))
-    require(resp["status"] == 503, f"mesh (d): status {resp['status']} after the loss")
-    reports_b = reports
-    eng.shutdown()
-    alive = []
-    for pid in pids:
-        try:
-            os.kill(pid, 0)
-            alive.append(pid)
-        except ProcessLookupError:
-            pass
-    require(not alive and not eng.worker_pids(), f"mesh (d): processes left: {alive}")
-    add(reports_b)
-    out["d_worker_killed"] = {"tokens_before_error": len(seen), "error": ended["error"],
-                              "seconds_to_error": round(end_s, 4), "breaker": "open",
-                              "status_after": 503, "processes_left": 0}
-    emit("mesh", leg="d", **out["d_worker_killed"])
-    del eng, app, backend
-    _require_card_empty(torch, cpu, "mesh (b) re-scored")
-
-    # (b) again: each tp=2 stream held whole against the single-device
-    # model scored on the stream's own tokens (past a near-tie the two
-    # engines' streams part; the scoring follows the mesh's).
-    t0 = time.perf_counter()
-    params = init_params(spec, 0, dev)
-    rescored = [_hold_lp(f"mesh (b) stream {i} re-scored",
-                         _rescore_lp(torch, spec, params, p, g[0]), g, forced=True)
-                for i, (p, g) in enumerate(zip(prompts, got))]
-    out["b_tp2_gloo"]["held_rescored"] = rescored
-    emit("mesh", leg="b_rescored", held_rescored=rescored,
-         seconds=round(time.perf_counter() - t0, 3))
-    del params
-    _require_card_empty(torch, cpu, "mesh (c)")
-
-    # (c) sp=2 on one 8192-token prompt: the ring, then Ulysses.
-    for impl in ("ring", "ulysses"):
+        # (b) tp=2: two ranks sharing the card over gloo.
         zero()
         t0 = time.perf_counter()
-        eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(sp=2), two, backend="gloo",
-                                                   timeout_s=MESH_GROUP_TIMEOUT_S),
-                              sp_impl=impl, **knobs)
+        eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(tp=2), two, backend="gloo",
+                                                   timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
         build_s = time.perf_counter() - t0
-        eng.rank_reports(reset_peak=True)
-        peak_reset()
-        got_long = _lp_stream(eng, long_ids, 1)
-        rank0_peak = peak()
-        reports = eng.rank_reports()
-        add(reports)
-        held = _hold_lp(f"mesh (c) {impl}", ref_long, got_long)
-        row = {"build_s": round(build_s, 3), "prompt_tokens": len(long_ids),
-               "admission_s": round(got_long[2], 4), "first_token": got_long[0][0],
-               "single_first_token": ref_long[0][0], **held,
-               "peak_bytes_per_rank": [rank0_peak, reports[0]["peak_bytes"]],
-               "single_peak_bytes": out["single"]["long_peak_bytes"],
-               "worker_k1_launches": reports[0]["launches"]["flash_prefill"],
-               "worker_collectives": reports[0]["collectives"]}
-        if impl == "ring":
-            s_loc = (spec.max_seq) // 2
-            row["ring_hop_scores_bytes"] = 4 * spec.n_heads * s_loc * s_loc
-        if not cpu and impl == "ulysses":
-            require(reports[0]["launches"]["flash_prefill"] == spec.n_layers,
-                    f"mesh (c): Ulysses launched K1 {reports[0]['launches']['flash_prefill']} "
-                    f"times on rank 1, not once per layer")
-        out[f"c_sp2_{impl}"] = row
-        emit("mesh", leg=f"c_{impl}", **row)
+        app, backend = app_for("tp2", eng)
+        # Two of the chats (greedy streamed, sampled not) and half the tokens:
+        # each eager step here costs 0.2–0.4 s of host-staged collectives.
+        b_tok = n_tok // 2
+        chats = _mesh_chats(app, [{**b, "max_tokens": b_tok} for b in bodies[1:3]], backend,
+                            b_tok)
+        got = []
+        for i, p in enumerate(prompts):
+            eng.rank_reports()  # clears what earlier requests fed
+            got.append(_lp_stream(eng, p, b_tok))
+            reports = eng.rank_reports()
+            # The stream's row fed every token rank 0 served but the last
+            # (after the last prompt token when the admission was chunked).
+            fed = [f for f in reports[0]["fed"] if f]
+            require(len(fed) == 1 and fed[0][len(fed[0]) - len(got[i][0]) + 1:] == got[i][0][:-1],
+                    f"mesh (b): the worker rank did not feed rank 0's tokens of stream {i}")
+        held = [_hold_lp(f"mesh (b) stream {i}", (r[0][:b_tok], r[1][:b_tok]), g)
+                for i, (r, g) in enumerate(zip(ref, got))]
+        w_bytes = [_tree_bytes(eng.params), reports[0]["weight_bytes"]]
+        c_bytes = [sum(t.numel() * t.element_size() for t in (eng._ck, eng._cv)),
+                   reports[0]["cache_bytes"]]
+        want_cache = 2 * spec.n_layers * 4 * (spec.n_kv_heads // 2) * spec.max_seq * spec.head_dim * 2
+        require(w_bytes[0] == w_bytes[1] and abs(w_bytes[0] - full_bytes / 2) <= 0.001 * full_bytes,
+                f"mesh (b): rank weight bytes {w_bytes}, not half of {full_bytes}")
+        require(c_bytes == [want_cache] * 2, f"mesh (b): rank cache bytes {c_bytes} != {want_cache}")
+        step_ms = [1e3 * g[2] / len(g[0]) for g in got]
+        out["b_tp2_gloo"] = {
+            "backend": eng.mesh.backend, "decode": eng.health()["mesh"]["decode"],
+            "build_s": round(build_s, 3),
+            "chats": [{"stream": b["stream"], "finish": c["finish"],
+                       "completion_tokens": c["usage"]["completion_tokens"],
+                       "seconds": round(c["t_end"], 4)} for b, c in zip(bodies[1:3], chats)],
+            "held": held, "worker_fed_rank0_tokens": True,
+            "weight_bytes_per_rank": w_bytes, "single_weight_bytes": full_bytes,
+            "cache_bytes_per_rank": c_bytes,
+            "eager_ms_per_token_one_stream": step_ms,
+            "eager_note": "two ranks sharing one card over host-staged gloo, eager decode: "
+                          "not a tp=2 deployment's step time",
+            "worker_collectives": reports[0]["collectives"]}
+        emit("mesh", leg="b", **out["b_tp2_gloo"])
+
+        # (d) Worker rank 1 killed mid-stream.
+        import threading
+
+        pids = eng.worker_pids()
+        req = eng.submit(prompts[0], max_new_tokens=200 if not tiny else 100,
+                         sampler=SamplerConfig(temperature=0.0))
+        seen, ended = [], {}
+
+        def consume():
+            try:
+                for t in eng.stream_results(req):
+                    seen.append(t)
+            except Exception as e:  # noqa: BLE001 - the leg's finding
+                ended["error"] = f"{type(e).__name__}: {e}"[:300]
+            ended["t"] = time.perf_counter()
+
+        th = threading.Thread(target=consume, daemon=True)
+        th.start()
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        while len(seen) < 16 and th.is_alive() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        t_kill = time.perf_counter()
+        eng._ranks.kill(1)
+        th.join(MESH_GROUP_TIMEOUT_S + 30)
+        require(not th.is_alive(), "mesh (d): the stream did not end after its worker died")
+        require("error" in ended, f"mesh (d): the stream ended without an error after "
+                                  f"{len(seen)} tokens")
+        end_s = ended["t"] - t_kill
+        require(end_s <= MESH_GROUP_TIMEOUT_S, f"mesh (d): the stream took {end_s} s to fail")
+        require(eng.breaker.state == "open", "mesh (d): the breaker did not open")
+        try:
+            eng.submit([1, 2, 3], max_new_tokens=4)
+            refused = False
+        except EngineBreakerOpen:
+            refused = True
+        require(refused, "mesh (d): a submit after the loss was not refused")
+        resp = asyncio.run(_call(app, bodies[0]))
+        require(resp["status"] == 503, f"mesh (d): status {resp['status']} after the loss")
+        reports_b = reports
         eng.shutdown()
-        del eng
-        _require_card_empty(torch, cpu, f"mesh (c) {impl}")
-    leg_s = {}
-    t0 = time.perf_counter()
-    out["e_dp2_gloo"] = _mesh_dp2(torch, cpu, spec, two, knobs, prompts, ref, bodies, app_for,
-                                  zero, add, full_bytes)
-    leg_s["e"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["f_dp2_tp2_gloo"] = _mesh_dp2_tp2(torch, cpu, tiny, model, ["cpu"] * 4 if cpu
-                                          else ["cuda:0"] * 4, knobs, prompts, zero, add)
-    leg_s["f"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["g_dp2_train"] = _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add)
-    leg_s["g"] = time.perf_counter() - t0
+        alive = []
+        for pid in pids:
+            try:
+                os.kill(pid, 0)
+                alive.append(pid)
+            except ProcessLookupError:
+                pass
+        require(not alive and not eng.worker_pids(), f"mesh (d): processes left: {alive}")
+        add(reports_b)
+        out["d_worker_killed"] = {"tokens_before_error": len(seen), "error": ended["error"],
+                                  "seconds_to_error": round(end_s, 4), "breaker": "open",
+                                  "status_after": 503, "processes_left": 0}
+        emit("mesh", leg="d", **out["d_worker_killed"])
+        del eng, app, backend
+        _require_card_empty(torch, cpu, "mesh (b) re-scored")
+
+        # (b) again: each tp=2 stream held whole against the single-device
+        # model scored on the stream's own tokens (past a near-tie the two
+        # engines' streams part; the scoring follows the mesh's).
+        t0 = time.perf_counter()
+        params = init_params(spec, 0, dev)
+        rescored = [_hold_lp(f"mesh (b) stream {i} re-scored",
+                             _rescore_lp(torch, spec, params, p, g[0]), g, forced=True)
+                    for i, (p, g) in enumerate(zip(prompts, got))]
+        out["b_tp2_gloo"]["held_rescored"] = rescored
+        emit("mesh", leg="b_rescored", held_rescored=rescored,
+             seconds=round(time.perf_counter() - t0, 3))
+        del params
+        _require_card_empty(torch, cpu, "mesh (c)")
+
+        # (c) sp=2 on one 8192-token prompt: the ring, then Ulysses.
+        for impl in ("ring", "ulysses"):
+            zero()
+            t0 = time.perf_counter()
+            eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(sp=2), two, backend="gloo",
+                                                       timeout_s=MESH_GROUP_TIMEOUT_S),
+                                  sp_impl=impl, **knobs)
+            build_s = time.perf_counter() - t0
+            eng.rank_reports(reset_peak=True)
+            peak_reset()
+            got_long = _lp_stream(eng, long_ids, 1)
+            rank0_peak = peak()
+            reports = eng.rank_reports()
+            add(reports)
+            held = _hold_lp(f"mesh (c) {impl}", ref_long, got_long)
+            row = {"build_s": round(build_s, 3), "prompt_tokens": len(long_ids),
+                   "admission_s": round(got_long[2], 4), "first_token": got_long[0][0],
+                   "single_first_token": ref_long[0][0], **held,
+                   "peak_bytes_per_rank": [rank0_peak, reports[0]["peak_bytes"]],
+                   "single_peak_bytes": out["single"]["long_peak_bytes"],
+                   "worker_k1_launches": reports[0]["launches"]["flash_prefill"],
+                   "worker_collectives": reports[0]["collectives"]}
+            if impl == "ring":
+                s_loc = (spec.max_seq) // 2
+                row["ring_hop_scores_bytes"] = 4 * spec.n_heads * s_loc * s_loc
+            if not cpu and impl == "ulysses":
+                require(reports[0]["launches"]["flash_prefill"] == spec.n_layers,
+                        f"mesh (c): Ulysses launched K1 {reports[0]['launches']['flash_prefill']} "
+                        f"times on rank 1, not once per layer")
+            out[f"c_sp2_{impl}"] = row
+            emit("mesh", leg=f"c_{impl}", **row)
+            eng.shutdown()
+            del eng
+            _require_card_empty(torch, cpu, f"mesh (c) {impl}")
+        t0 = time.perf_counter()
+        out["e_dp2_gloo"] = _mesh_dp2(torch, cpu, spec, two, knobs, prompts, ref, bodies, app_for,
+                                      zero, add, full_bytes)
+        leg_s["e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["f_dp2_tp2_gloo"] = _mesh_dp2_tp2(torch, cpu, tiny, model, ["cpu"] * 4 if cpu
+                                              else ["cuda:0"] * 4, knobs, prompts, zero, add)
+        leg_s["f"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["g_dp2_train"] = _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add)
+        leg_s["g"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt_legs = _mesh_ckpt(torch, cpu, tiny, two, knobs, app_for, zero, add)
+        out["i_ckpt_tp2_dp2"], out["j_ckpt_moe_tp2"] = ckpt_legs["i"], ckpt_legs["j"]
+        leg_s["ij"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["k_pp2_gloo"] = _mesh_pp2(torch, cpu, spec, two, knobs, prompts, ref, ref_sampled,
+                                      bodies, app_for, zero, add)
+        leg_s["k"] = time.perf_counter() - t0
     n_cards = 0 if cpu else torch.cuda.device_count()
     if n_cards >= 2:
         t0 = time.perf_counter()
@@ -7574,6 +7599,13 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     else:
         print(f"mesh: the NCCL legs over cards of their own (dp=2, tp=2) need two cards; "
               f"this machine has {n_cards}", flush=True)
+    if n_cards >= 4:
+        t0 = time.perf_counter()
+        out["l_moe_cards"] = _mesh_cards_moe(torch, zero, add)
+        leg_s["l"] = time.perf_counter() - t0
+    else:
+        print(f"mesh: leg (l), mixtral-8x7b at 32 layers as pp=4 and tp=4 over NCCL, needs "
+              f"four cards; this machine has {n_cards}", flush=True)
     out["new_leg_s"] = {k: round(v, 3) for k, v in leg_s.items()}
     emit("mesh", new_leg_s=out["new_leg_s"])
     out["launches"] = launches
@@ -7878,6 +7910,419 @@ def _mesh_nccl_cards(torch, spec, knobs, prompts, ref, zero, add) -> dict:
     return out
 
 
+def _hold_sampled(torch, what: str, spec, params_of, prompt, ref, got, seed: int,
+                  temperature: float, top_p: float) -> dict:
+    """A sampled stream ``got`` against ``ref`` (the same seed, so the same
+    Gumbel noise: the request's generator draws one row a token, in token
+    order). Equal, or parted at step K only at a near-tie: the
+    single-device model (``params_of()``) scores the shared prefix, the
+    noise of token K is drawn again from the seed, and the score gap
+    (log-probability / T + noise, top-p applied) between the two tokens
+    served there must be within 2 (δ + ε) / T, δ the two streams'
+    log-probability difference at step K (shared top-20 ids), ε the
+    re-scoring's own against the reference's record."""
+    from quorum_tpu_torch.models.transformer import forward_hidden, unembed
+    from quorum_tpu_torch.ops.sampling import _apply_cutoffs, gumbel_noise
+
+    def diff(a, b):
+        amap = dict(zip((int(x) for x in a[1]), (float(x) for x in a[2])))
+        bmap = dict(zip((int(x) for x in b[1]), (float(x) for x in b[2])))
+        shared = set(amap) & set(bmap)
+        return max((abs(amap[j] - bmap[j]) for j in shared), default=0.0)
+
+    parted = next((i for i, (a, b) in enumerate(zip(ref[0], got[0])) if a != b), None)
+    steps = len(got[0]) if parted is None else parted + 1
+    deltas = [diff(r, g) for r, g in zip(ref[1][:steps], got[1][:steps])]
+    require(max(deltas) <= MESH_LP_TOL, f"{what}: log-probabilities differ by {max(deltas)}")
+    if parted is None:
+        require(len(got[0]) == len(ref[0]), f"{what}: {len(got[0])} tokens, the reference "
+                                            f"{len(ref[0])}")
+        return {"equal": True, "logprob_max_diff": max(deltas)}
+    params = params_of()
+    dev = params["tok_emb"].device
+    with torch.inference_mode():
+        ids = torch.tensor([list(prompt) + list(got[0][:parted])], device=dev)
+        lp = torch.log_softmax(unembed(params, spec, forward_hidden(params, spec, ids)[:, -1])
+                               .float(), dim=-1)[0]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for _ in range(parted + 1):
+            noise = gumbel_noise(spec.vocab_size, gen)
+        scaled = _apply_cutoffs((lp / temperature)[None], torch.tensor([top_p], device=dev),
+                                torch.tensor([0], device=dev))[0]
+        score = scaled + noise
+        rt, gt = ref[0][parted], got[0][parted]
+        gap = float(score[rt] - score[gt])
+        r_rec = ref[1][parted]
+        eps = max(abs(float(lp[int(j)]) - float(v)) for j, v in zip(r_rec[1], r_rec[2]))
+    delta = deltas[parted]
+    require(gap == gap and gap <= 2 * (delta + eps) / temperature,
+            f"{what}: step {parted} served {gt} over {rt}: score gap {gap} > "
+            f"2 (δ {delta} + ε {eps}) / T")
+    return {"equal": False, "parted_at": parted, "score_gap": gap, "delta": delta,
+            "rescore_eps": eps, "logprob_max_diff": max(deltas)}
+
+
+def _rank_digests(torch, params, mesh, spec) -> list[dict]:
+    """``training/checkpoint.tree_digest`` of every rank's cut of the whole
+    tree ``params`` (``models/convert.shard_params``), rank 0 first."""
+    from quorum_tpu_torch.models.convert import shard_params
+    from quorum_tpu_torch.training.checkpoint import tree_digest
+
+    out = []
+    for r in range(mesh.size):
+        cut = shard_params(params, mesh, r, spec)
+        out.append(tree_digest(cut))
+        del cut
+    return out
+
+
+def _mesh_ckpt(torch, cpu, tiny, two, knobs, app_for, zero, add) -> dict:
+    """Legs (i) and (j): local HF checkpoints on multi-rank engines, ranks
+    sharing the card over gloo. (i) llama-3-8b at full width and 4 layers,
+    written by ``_write_hf_checkpoint`` and served through
+    ``get_engine_from_ckpt(mesh=)`` at tp=2 and at dp=2; (j) mixtral-8x7b at
+    full width and 1 layer at tp=2 (4 of its 8 experts a rank), in float32:
+    in bf16 the tp sums' rounding moves the residual enough to flip a
+    near-tied expert pick, after which the streams part by more than any
+    token near-tie (seen on the H100: a token outside the reference's
+    top-20 at step 7). On each
+    engine: no weights shipped (every worker's set-up names the checkpoint,
+    no shard); every rank's leaves equal the matching cut of the written
+    tree bit for bit (rank 0's by ``torch.equal``, each worker's by its
+    ``tree_digest``); each rank's weight bytes its cut's; one chat through
+    the app; each greedy stream held against the single-device engine's on
+    the written tree (``_hold_lp``)."""
+    import shutil
+    import tempfile
+
+    from quorum_tpu_torch.engine.engine import (InferenceEngine, get_engine_from_ckpt,
+                                                release_engine)
+    from quorum_tpu_torch.models.convert import shard_params
+    from quorum_tpu_torch.models.init import init_params
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.parallel import MeshConfig, collective_counts, make_mesh
+
+    dev = "cpu" if cpu else "cuda:0"
+    n = 16
+    out = {}
+    root = tempfile.mkdtemp(prefix="quorum_mesh_ckpt_")
+    cases = (("i", "llama-tiny" if tiny else "llama-3-8b", "llama",
+              {"head_dim": "64", "n_layers": "4"} if tiny else {"n_layers": "4"},
+              (("tp2", dict(tp=2)), ("dp2", dict(dp=2)))),
+             ("j", "mixtral-tiny" if tiny else "mixtral-8x7b", "mixtral",
+              {"head_dim": "64", "n_layers": "1", "dtype": "float32"} if tiny
+              else {"n_layers": "1", "dtype": "float32"},
+              (("tp2", dict(tp=2)),)))
+    try:
+        for leg, model, model_type, opts, meshes in cases:
+            t_leg = time.perf_counter()
+            spec = resolve_spec(model, opts)
+            params = init_params(spec, 0, dev)
+            path = os.path.join(root, model)
+            os.makedirs(path)
+            t0 = time.perf_counter()
+            written = _write_hf_checkpoint(torch, path, spec, params, model_type)
+            write_s = time.perf_counter() - t0
+            ref_eng = InferenceEngine(spec, device=dev, params=params, n_slots=4, decode_chunk=8)
+            tok = _backend_tokenizer(ref_eng, model)
+            bodies = _serve_bodies(model, tiny)
+            prompts = [tok.encode(tok.render_chat(b["messages"])) for b in bodies[:2]]
+            ref = [_lp_stream(ref_eng, p, n) for p in prompts]
+            ref_eng.shutdown()
+            del ref_eng
+            digests = None
+            rows = {}
+            for name, axes in meshes:
+                zero()
+                c0 = collective_counts()
+                mesh = make_mesh(MeshConfig(**axes), two, backend="gloo",
+                                 timeout_s=MESH_GROUP_TIMEOUT_S)
+                t0 = time.perf_counter()
+                eng = get_engine_from_ckpt(path, dtype=spec.dtype, mesh=mesh, n_slots=4,
+                                           decode_chunk=8)
+                load_s = time.perf_counter() - t0
+                setup = eng._ranks._setup(1)[1]
+                require(setup["shard"] is None and setup["ckpt"][0] == os.path.realpath(path),
+                        f"mesh ({leg}) {name}: rank 0 ships weights to its workers")
+                mine = shard_params(params, mesh, 0, spec)
+                got0, want0 = list(_hf_params(eng.params)), list(_hf_params(mine))
+                require(len(got0) == len(want0) and all(
+                    a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+                    for a, b in zip(got0, want0)),
+                    f"mesh ({leg}) {name}: a rank-0 leaf differs from its cut of the written tree")
+                del got0, want0, mine
+                digests = _rank_digests(torch, params, mesh, spec)
+                reports = eng.rank_reports(digest=True)
+                for r, rep in enumerate(reports, start=1):
+                    require(rep["digest"] == digests[r],
+                            f"mesh ({leg}) {name}: rank {r}'s leaves differ from its cut")
+                cut_bytes = [_tree_bytes(shard_params(params, mesh, r, spec))
+                             for r in range(mesh.size)]
+                have = [_tree_bytes(eng.params)] + [rep["weight_bytes"] for rep in reports]
+                require(have == cut_bytes, f"mesh ({leg}) {name}: weight bytes {have}, the "
+                                           f"cuts {cut_bytes}")
+                if spec.is_moe:
+                    per = eng.params["blocks"]["moe_w_up"].shape[1]
+                    require(per == spec.n_experts // 2,
+                            f"mesh ({leg}) {name}: rank 0 holds {per} experts")
+                app, backend = app_for(f"{leg}_{name}", eng)
+                (chat,) = _mesh_chats(app, [{**bodies[0], "max_tokens": 8}], backend, 8)
+                got = [_lp_stream(eng, p, n) for p in prompts]
+                held = [_hold_lp(f"mesh ({leg}) {name} stream {i}", r, g)
+                        for i, (r, g) in enumerate(zip(ref, got))]
+                reports = eng.rank_reports()
+                row = _rank_row(eng, reports, c0, sum(len(g[0]) for g in got),
+                                sum(g[2] for g in got))
+                if not cpu:  # every tp rank admits; under dp the slot's owner does
+                    k1 = [r["launches"]["flash_prefill"] > 0 for r in row["per_rank"]]
+                    require((all(k1) if "tp" in axes else any(k1)) and all(
+                        r["launches"]["flash_decode"] > 0 for r in row["per_rank"]),
+                            f"mesh ({leg}) {name}: a rank launched no kernel: "
+                            f"{[r['launches'] for r in row['per_rank']]}")
+                add(reports)
+                rows[name] = {"load_s": round(load_s, 3), "weight_bytes_per_rank": have,
+                              "leaves_equal_cut": True, "shipped_weights": False,
+                              "chat": {"finish": chat["finish"],
+                                       "completion_tokens": chat["usage"]["completion_tokens"]},
+                              "held": held, **row}
+                release_engine(eng)
+                del eng, app, backend
+            out[leg] = {"model": model, "layers": spec.n_layers, "bytes_written": written,
+                        "write_s": round(write_s, 3), **rows,
+                        "seconds": round(time.perf_counter() - t_leg, 3)}
+            emit("mesh", leg=leg, **out[leg])
+            del params
+            shutil.rmtree(path, ignore_errors=True)
+            _require_card_empty(torch, cpu, f"mesh ({leg})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _backend_tokenizer(eng, model):
+    """The tokenizer a ``cuda://`` backend over ``eng`` serves with."""
+    from quorum_tpu_torch.backends.cuda_backend import CudaBackend
+
+    return CudaBackend("tok", eng, model=model, model_id=model).tokenizer
+
+
+def _stage_occupancy_seen(eng, prompt, n) -> dict:
+    """The staged engine's ``decode_stage_occupancy`` gauge read while one
+    stream decodes: the largest value each stage's series showed."""
+    import threading
+
+    from quorum_tpu_torch import observability as obs
+
+    seen: dict[str, float] = {}
+    th = threading.Thread(target=lambda: _lp_stream(eng, prompt, n), daemon=True)
+    th.start()
+    while th.is_alive():
+        for ln in obs.DECODE_STAGE_OCCUPANCY.expose():
+            if ln.startswith("quorum_tpu_decode_stage_occupancy{"):
+                stage = ln.split('stage="')[1].split('"')[0]
+                seen[stage] = max(seen.get(stage, 0.0), float(ln.rsplit(" ", 1)[1]))
+        time.sleep(0.002)
+    th.join()
+    return seen
+
+
+def _mesh_pp2(torch, cpu, spec, two, knobs, prompts, ref, ref_sampled, bodies, app_for,
+              zero, add) -> dict:
+    """Leg (k): pp=2 at full depth (32 layers of llama-3-8b, 16 a stage),
+    two stages sharing the card over gloo (host-staged hops, eager decode):
+    each stage holds its 16 layers' weights and cache; one chat through the
+    app; the greedy and the sampled streams held against the single-device
+    engine's (a sampled one to where it parts at a near-tie of the
+    sampled scores, ``_hold_sampled``); ``decode_stage_occupancy`` seen
+    non-zero on a stage while a stream decodes; K1 and K2 launched on both stages, K2 once per layer
+    per group step (each stage L × decode steps), K1 once per stage layer
+    per admission; ms a token of one stream."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.init import init_params
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.parallel import MeshConfig, collective_counts, make_mesh
+
+    n = len(ref[0][0])
+    zero()
+    c0 = collective_counts()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(pp=2), two, backend="gloo",
+                                                timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
+    build_s = time.perf_counter() - t0
+    half = spec.n_layers // 2
+    require(eng.decode_pp == 2 and eng._ck.shape[0] == half
+            and eng.params["blocks"]["wq"].shape[0] == half,
+            "mesh (k): stage 0 does not hold half the layers")
+    app, backend = app_for("pp2", eng)
+    (chat,) = _mesh_chats(app, [{**bodies[0], "max_tokens": 8}], backend, 8)
+    m0 = eng.metrics()
+    got = [_lp_stream(eng, p, n) for p in prompts]
+    sampled = [_lp_stream(eng, p, n, sampler=SamplerConfig(temperature=0.8, top_p=0.9), seed=7)
+               for p in prompts]
+    occupancy = _stage_occupancy_seen(eng, prompts[0], 8)
+    m1 = eng.metrics()
+    reports = eng.rank_reports()
+    held = [_hold_lp(f"mesh (k) stream {i}", r, g) for i, (r, g) in enumerate(zip(ref, got))]
+    require(any(v > 0 for v in occupancy.values()) and set(occupancy) >= {"0", "1"},
+            f"mesh (k): decode_stage_occupancy not live: {occupancy}")
+    row = _rank_row(eng, reports, c0, sum(len(g[0]) for g in got), sum(g[2] for g in got))
+    steps = m1["decode_steps_total"]
+    admissions = m1["admission_dispatches_total"]
+    k1 = [r["launches"]["flash_prefill"] for r in row["per_rank"]]
+    k2 = [r["launches"]["flash_decode"] for r in row["per_rank"]]
+    if not cpu:
+        require(k1 == [half * admissions] * 2 and k2 == [spec.n_layers * steps] * 2,
+                f"mesh (k): K1/K2 by stage {k1}/{k2} for {admissions} admissions and "
+                f"{steps} decode steps")
+    cache = [r["cache_bytes"] for r in row["per_rank"]]
+    require(cache[0] == cache[1] and row["per_rank"][1]["weight_bytes"]
+            < row["per_rank"][0]["weight_bytes"],
+            f"mesh (k): stage bytes {[r['weight_bytes'] for r in row['per_rank']]}, cache {cache}")
+    add(reports)
+    health = eng.health()["mesh"]["decode"]
+    eng.shutdown()
+    del eng, app, backend
+    _require_card_empty(torch, cpu, "mesh (k)")
+    model = []  # the single-device model, built only to re-score a parted stream
+
+    def params_of():
+        if not model:
+            model.append(init_params(spec, 0, "cpu" if cpu else "cuda:0"))
+        return model[0]
+
+    held_s = [_hold_sampled(torch, f"mesh (k) sampled stream {i}", spec, params_of, p, r, g, 7,
+                            0.8, 0.9)
+              for i, (p, r, g) in enumerate(zip(prompts, ref_sampled, sampled))]
+    del model
+    _require_card_empty(torch, cpu, "mesh (k) re-scored")
+    out = {"layers": spec.n_layers, "layers_per_stage": half, "build_s": round(build_s, 3),
+           "decode": health, "decode_pp": m1["decode_pp"],
+           "chat": {"finish": chat["finish"],
+                    "completion_tokens": chat["usage"]["completion_tokens"]},
+           "held": held, "held_sampled": held_s, "occupancy_max_by_stage": occupancy,
+           "k1_by_stage": k1, "k2_by_stage": k2, "decode_steps": steps,
+           "decode_steps_streams": m1["decode_steps_total"] - m0["decode_steps_total"],
+           "admissions": admissions, **row,
+           "eager_note": "two stages sharing one card over host-staged gloo, eager decode: "
+                         "not a pp=2 deployment's step time"}
+    emit("mesh", leg="k", **out)
+    return out
+
+
+def _lp_compare(ref, got) -> dict:
+    """Two greedy streams side by side, without a verdict: the steps they
+    agree on, the first step they part at, and the largest top-20
+    log-probability difference to there."""
+    parted, deltas = None, []
+    for i, (rt, gt, (_, r_ids, r_lps), (_, g_ids, g_lps)) in enumerate(
+            zip(ref[0], got[0], ref[1], got[1])):
+        rmap = dict(zip((int(x) for x in r_ids), (float(x) for x in r_lps)))
+        gmap = dict(zip((int(x) for x in g_ids), (float(x) for x in g_lps)))
+        deltas.append(max((abs(rmap[j] - gmap[j]) for j in set(rmap) & set(gmap)),
+                          default=float("inf")))
+        if rt != gt:
+            parted = i
+            break
+    return {"steps_compared": len(deltas), "parted_at": parted,
+            "logprob_max_diff": max(deltas), "equal": list(ref[0]) == list(got[0])}
+
+
+def _mesh_cards_moe(torch, zero, add) -> dict:
+    """Leg (l), four cards or more: mixtral-8x7b at all 32 layers, seed 0,
+    no single card holding it, served as pp=4 over NCCL (staged graphs,
+    stage s on ``cuda:s``) and as tp=4 (2 of 8 experts a rank): in bf16
+    (≈ 93 GB) and again in float32 (≈ 187 GB). Each rank's weight bytes
+    within its share, its peak memory, K1 and K2 launched on every rank; a
+    first greedy stream (its first capture inside) and a second, warm one
+    timed apart; both engines admit single-shot (pp=4 does; an MoE
+    prompt's expert capacity is sized by the admitted batch). The two
+    engines' greedy streams are held against each other (``_hold_lp``) in
+    float32; in bf16 they are set side by side
+    (``_lp_compare``) and not held, because there either engine's rounding
+    can flip a near-tied expert pick in one of 32 layers, which moves the
+    log-probabilities by more than any token near-tie (leg (j) in bf16
+    parted outside the top-20 for that reason)."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.parallel import MeshConfig, collective_counts, make_mesh
+
+    gen = random.Random(23)
+    n = 24
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        spec = resolve_spec("mixtral-8x7b", {"dtype": dtype})
+        prompts = [[gen.randrange(spec.vocab_size) for _ in range(k)] for k in (200, 900)]
+        streams = {}
+        for name, axes in (("pp4", dict(pp=4)), ("tp4", dict(tp=4))):
+            zero()
+            c0 = collective_counts()
+            t0 = time.perf_counter()
+            # Both admit single-shot (pp does; prefill_chunk=0 for tp): an MoE
+            # prompt's expert capacity is sized by the admitted batch, so a
+            # chunked admission drops other picks than a whole one.
+            eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(**axes),
+                                                        [f"cuda:{i}" for i in range(4)],
+                                                        timeout_s=MESH_GROUP_TIMEOUT_S),
+                                  n_slots=4, decode_chunk=8, seed=0, prefill_chunk=0)
+            build_s = time.perf_counter() - t0
+            what = f"mesh (l) {dtype} {name}"
+            require(eng.mesh.backend == "nccl" and eng.health()["mesh"]["decode"] == "graphs",
+                    f"{what}: not NCCL with graphs")
+            eng.rank_reports(reset_peak=True)
+            torch.cuda.reset_peak_memory_stats()
+            first = [_lp_stream(eng, p, n) for p in prompts]
+            warm = _lp_stream(eng, prompts[0], n)
+            require(warm[0] == first[0][0], f"{what}: the warm stream differs")
+            reports = eng.rank_reports()
+            row = _rank_row(eng, reports, c0, sum(len(g[0]) for g in first),
+                            sum(g[2] for g in first))
+            total = sum(r["weight_bytes"] for r in row["per_rank"])
+            model_bytes = total_model_bytes(spec)
+            for r in row["per_rank"]:
+                require(r["weight_bytes"] <= 0.27 * model_bytes,
+                        f"{what}: rank {r['rank']} holds {r['weight_bytes']} bytes")
+                require(r["launches"]["flash_decode"] > 0 and r["launches"]["flash_prefill"] > 0,
+                        f"{what}: rank {r['rank']} launched no K1 or K2")
+            streams[name] = first
+            add(reports)
+            m = eng.metrics()
+            pids = eng.worker_pids()
+            t0 = time.perf_counter()
+            eng.shutdown()
+            shutdown_s = time.perf_counter() - t0
+            left = [p for p in pids if os.path.exists(f"/proc/{p}")]
+            require(not left, f"{what}: processes left {left}")
+            row = {"build_s": round(build_s, 3), "model_bytes": model_bytes,
+                   "weight_bytes_all_ranks": total,
+                   "layers_per_rank": spec.n_layers // axes.get("pp", 1), **row,
+                   "first_stream_s": round(first[0][2], 3),
+                   "ms_per_token_first_stream": round(1e3 * first[0][2] / len(first[0][0]), 3),
+                   "ms_per_token_warm_stream": round(1e3 * warm[2] / len(warm[0]), 3),
+                   "captures": m["decode_graph_captures_total"],
+                   "capture_s": m["decode_graph_capture_seconds_total"],
+                   "shutdown_s": round(shutdown_s, 3)}
+            out[f"{name}_{dtype}"] = row
+            del eng
+            _require_card_empty(torch, False, what)
+            emit("mesh", leg=f"l_{name}_{dtype}", **row)
+        pairs = list(enumerate(zip(streams["pp4"], streams["tp4"])))
+        if dtype == "float32":
+            out["held_tp4_against_pp4"] = [_hold_lp(f"mesh (l) float32 stream {i}", r, g)
+                                           for i, (r, g) in pairs]
+        else:
+            out["bfloat16_side_by_side"] = [_lp_compare(r, g) for _, (r, g) in pairs]
+    emit("mesh", leg="l_held", held=out["held_tp4_against_pp4"],
+         bfloat16_side_by_side=out["bfloat16_side_by_side"])
+    return out
+
+
+def total_model_bytes(spec) -> int:
+    """The whole model's weight bytes (``init_params`` on the meta device)."""
+    from quorum_tpu_torch.models.init import init_params
+
+    return _tree_bytes(init_params(spec, device="meta"))
+
+
 def phase_train(torch, cpu: bool, tiny: bool, device_info: dict) -> dict:
     """Training on the card (run last): (a) llama-3-8b at all 32 layers,
     bf16, 3 steps on 1 × 2 048 tokens; (b) llama-tiny float32, card against
@@ -7943,6 +8388,8 @@ def main(argv=None) -> int:
                             "observe,router,mesh,train",
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
+    ap.add_argument("--mesh-cards-only", action="store_true",
+                    help="the mesh phase's legs over cards of their own alone (h, l)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -8003,7 +8450,8 @@ def main(argv=None) -> int:
                    if "observe" in phases else None)
         router = (phase_router(torch, args.cpu, args.tiny, info)
                   if "router" in phases else None)
-        mesh = phase_mesh(torch, args.cpu, args.tiny, info) if "mesh" in phases else None
+        mesh = (phase_mesh(torch, args.cpu, args.tiny, info, args.mesh_cards_only)
+                if "mesh" in phases else None)
         train = phase_train(torch, args.cpu, args.tiny, info) if "train" in phases else None
     except Exception:
         traceback.print_exc()

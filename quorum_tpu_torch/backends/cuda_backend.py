@@ -171,25 +171,32 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    host prefix store restores into the staging row).
                    Structural (part of the engine key); requires chunked
                    prefill
-  dp=N, tp=N,      a multi-rank engine (``parallel/``): dp × sp × tp ranks,
-  sp=N, sp_impl=   rank 0 in this process and the others spawned, with
+  dp=N, tp=N,      a multi-rank engine (``parallel/``): dp × pp × sp × tp
+  sp=N, sp_impl=,  ranks,
+  pp=N             rank 0 in this process and the others spawned, with
                    device=cpu on the CPU over gloo; on cards rank r on
                    ``cuda:r`` over NCCL (fewer cards than ranks is an error
                    naming both counts). dp cuts the slot rows: each dp
                    group of tp × sp ranks serves its own block of them
                    (every row when dp does not divide slots=), rank 0
-                   samples every row. tp cuts heads, MLP hidden and vocab (Megatron);
-                   sp > 1 admits every prompt single-shot, sequence-parallel
-                   by ring attention (sp_impl=ring, the default) or Ulysses
-                   (sp_impl=ulysses; windowed specs need it). MoE specs,
-                   members, ensemble, quant, kv_quant, speculation,
-                   kv_pages, prefix_store, zero_drain, ckpt=,
-                   response_format, embeddings and scoring are refused on it
-                   (not yet on a multi-rank engine)
+                   samples every row. tp cuts heads, experts, MLP hidden
+                   and vocab (Megatron; a dim tp does not divide is whole
+                   on every rank); sp > 1 admits every prompt single-shot,
+                   sequence-parallel by ring attention (sp_impl=ring, the
+                   default) or Ulysses (sp_impl=ulysses; windowed specs
+                   need it). pp=K stages the layers (L/K each) and decodes
+                   the slot rows as K row groups through them
+                   (``parallel/pipeline.py``; tp=dp=sp=1, K divides the
+                   layers and slots=, single-shot admission). With ckpt=
+                   each rank reads its own cut of the checkpoint. Members,
+                   ensemble, quant, kv_quant, speculation, kv_pages,
+                   prefix_store, zero_drain, response_format, embeddings
+                   and scoring are refused on it (not yet on a multi-rank
+                   engine)
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet
-(``pp=``, ``disagg=``; ``disagg=`` beside ``dp=`` in the ``tpu://``
+(``disagg=``; ``disagg=`` beside ``dp=`` in the ``tpu://``
 backend's own words): a typo or an unported knob never builds an
 engine that silently ignores it; ``quant=`` and ``kv_quant=`` values are
 checked there too (``int8`` or empty).
@@ -269,6 +276,7 @@ from quorum_tpu_torch.engine.engine import (
     GrammarArenaFull,
     QueueFullError,
     ReplayDivergence,
+    check_pp_axes,
     check_quant_knobs,
     get_engine,
     get_engine_from_ckpt,
@@ -287,11 +295,11 @@ _OPTIONS = frozenset({
     "member_seeds", "quorum_dedup", "ensemble", "ckpt", "quant", "kv_quant",
     "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "kv_pages", "kv_page_size",
     "kv_pool_pages", "prefix_store", "prefix_store_bytes", "prefix_store_chunk", "qos",
-    "zero_drain", "dp", "tp", "sp", "sp_impl"})
+    "zero_drain", "dp", "tp", "sp", "sp_impl", "pp"})
 _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
-_NOT_YET = frozenset({"disagg", "pp"})
+_NOT_YET = frozenset({"disagg"})
 
 
 def _check_options(opts: dict[str, str]) -> None:
@@ -316,17 +324,26 @@ def _check_options(opts: dict[str, str]) -> None:
 
 
 def _url_mesh(opts: dict[str, str]):
-    """``dp=``/``tp=``/``sp=`` (``sp_impl=``) → a ``parallel/mesh.Mesh``,
-    as ``tpu://`` builds ``make_mesh(MeshConfig(dp=…, sp=…, tp=…))``, or
-    None for one rank. With ``device=cpu`` the ranks run on the CPU over
-    gloo; on cards they take ``cuda:0..N−1`` over NCCL, and fewer cards
-    than ranks is an error naming the counts."""
+    """``dp=``/``tp=``/``sp=``/``pp=`` (``sp_impl=``) → a
+    ``parallel/mesh.Mesh``, as ``tpu://`` builds ``make_mesh(MeshConfig(dp=…,
+    sp=…, tp=…, pp=…))``, or None for one rank. With ``device=cpu`` the
+    ranks run on the CPU over gloo; on cards they take ``cuda:0..N−1`` over
+    NCCL, and fewer cards than ranks is an error naming the counts."""
     from quorum_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
     dp, tp, sp = int(opts.get("dp", 1)), int(opts.get("tp", 1)), int(opts.get("sp", 1))
-    if dp < 1 or tp < 1 or sp < 1:
-        raise ValueError(f"invalid dp={dp} tp={tp} sp={sp} (each must be >= 1)")
-    cfg = MeshConfig(dp=dp, sp=sp, tp=tp)
+    pp = int(opts.get("pp", 1))
+    if dp < 1 or tp < 1 or sp < 1 or pp < 1:
+        raise ValueError(f"invalid dp={dp} tp={tp} sp={sp} pp={pp} (each must be >= 1)")
+    if pp > 1 and _parse_bool_opt("zero_drain", opts.get("zero_drain", "0")):
+        # The tpu:// backend's config-time check, in its words (the engine
+        # re-checks).
+        raise ValueError(
+            "pp>1 does not compose with zero_drain=1: use "
+            "disagg=P+D&pp=K (the handoff feeds stage-sharded rows) "
+            "or drop one knob")
+    check_pp_axes({"dp": dp, "pp": pp, "sp": sp, "tp": tp})
+    cfg = MeshConfig(dp=dp, sp=sp, tp=tp, pp=pp)
     n = cfg.n_devices
     if n == 1:
         return None
@@ -336,6 +353,7 @@ def _url_mesh(opts: dict[str, str]):
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if have < n:
         shape = f"dp={dp} x tp={tp} x sp={sp}" if dp > 1 else f"tp={tp} x sp={sp}"
+        shape = f"pp={pp} x {shape}" if pp > 1 else shape
         raise ValueError(
             f"{shape} needs {n} CUDA devices (one per rank), this machine has {have}")
     return make_mesh(cfg, [f"cuda:{i}" for i in range(n)])
@@ -665,10 +683,11 @@ class CudaBackend:
             knobs["draft_ckpt"] = spec_ckpt
         if ckpt:
             _check_ckpt_options(opts, members, member_seeds, quorum_dedup)
-            if _url_mesh(opts) is not None:
-                raise ValueError("ckpt= with dp=/tp=/sp=: a checkpoint's weights are not yet on "
-                                 "a multi-rank engine")
-            engine = get_engine_from_ckpt(ckpt, dtype=opts.get("dtype"), **knobs)
+            mesh = _url_mesh(opts)
+            if mesh is not None:  # every rank reads its own cut of the checkpoint
+                knobs["device"] = None
+            engine = get_engine_from_ckpt(ckpt, dtype=opts.get("dtype"), mesh=mesh,
+                                          sp_impl=opts.get("sp_impl", "ring"), **knobs)
             # The checkpoint's tokenizer when it ships one (bytes when it
             # cannot load, e.g. without transformers).
             if any(os.path.exists(os.path.join(ckpt, f))

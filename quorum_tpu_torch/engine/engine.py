@@ -263,11 +263,25 @@ aborted, so no host read of ours waits on it); that, or a collective
 failing, fails the engine's requests and opens its breaker for good: every
 later submit is a 503 (``EngineBreakerOpen``); ``shutdown`` stops the
 workers through one teardown of every rank and joins them (killed past a
-timeout). The dense families, both admission routes, tier-0 reuse,
-the request knobs and deadlines, QoS, drain, park and resume carry; MoE,
-members, ensembles, int8, speculation, paging, the host store, zero-drain,
-grammars, embeddings and scoring are refused (not yet on a multi-rank
-engine).
+timeout). The dense and MoE families (experts cut over tp), every tp size
+(a dim tp does not divide is whole on every rank), both admission routes,
+tier-0 reuse, the request knobs and deadlines, QoS, drain, park and resume
+carry; a local checkpoint (``ckpt=``, :func:`get_engine_from_ckpt` with a
+mesh) is read by every rank, each its own cut; members, ensembles, int8,
+speculation, paging, the host store, zero-drain, grammars, embeddings and
+scoring are refused (not yet on a multi-rank engine).
+
+Pipeline-staged engines (a mesh with pp > 1; the JAX engine's ``pp=K``):
+this rank is stage 0 and holds the embedding, the final norm, the head and
+its L/pp layers; each worker a later stage's layers and their cache. A
+decode dispatch runs ``parallel/pipeline.staged_decode_chunk`` / ``_loop``
+(the slot rows as pp row groups flowing stage to stage; keys ``("pp",
+…)``, the JAX engine's families ``pp_plain`` / ``pp_loop``), an admission
+``staged_prefill`` (single-shot only: ``prefill_chunk`` is 0, as under
+sp). The JAX engine's pp refusals hold in its words (zero_drain, sp, tp or
+dp beside pp, members and ensembles, speculation, pp not dividing the
+layers or the slots); ``quorum_tpu_decode_stage_occupancy{stage=}`` counts
+each row group's live rows.
 """
 
 from __future__ import annotations
@@ -299,9 +313,11 @@ from quorum_tpu_torch.models.quant import is_quantized, quantize_params
 from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, decode_multi,
                                                  decode_step, host_to_device, init_cache,
                                                  member_params, prefill, prefill_segment)
-from quorum_tpu_torch.parallel.mesh import AXIS_SP
+from quorum_tpu_torch.parallel.mesh import AXIS_DP, AXIS_PP, AXIS_SP, AXIS_TP
 from quorum_tpu_torch.parallel.ranks import RankGroup, WorkerLost, to_host
-from quorum_tpu_torch.parallel.sharding import rank_kv_heads
+from quorum_tpu_torch.parallel.pipeline import (staged_decode_chunk, staged_decode_loop,
+                                                staged_prefill)
+from quorum_tpu_torch.parallel.sharding import rank_kv_index, stage_layers
 from quorum_tpu_torch.parallel.ulysses import ulysses_supported
 from quorum_tpu_torch.ops.sampling import (TOP_LOGPROBS, SamplerConfig, adjust_logits,
                                            apply_token_mask, gumbel_noise, sample_token_rows,
@@ -888,6 +904,7 @@ class InferenceEngine:
         zero_drain: bool = False,
         mesh=None,
         sp_impl: str = "ring",
+        ckpt: tuple[str, str] | None = None,
     ):
         self.spec = spec.validate()
         # A mesh engine (``mesh``, a parallel/mesh.Mesh): this engine is
@@ -899,6 +916,12 @@ class InferenceEngine:
             raise ValueError(f"unknown sp_impl {sp_impl!r} (ring or ulysses)")
         self.sp_impl = sp_impl
         self._use_sp = mesh is not None and mesh.shape[AXIS_SP] > 1
+        # Pipeline-staged decode (pp > 1): this rank is stage 0
+        # (parallel/pipeline.py).
+        self.decode_pp = 1 if mesh is None else mesh.shape[AXIS_PP]
+        if ckpt is not None and (mesh is None or params is not None):
+            raise ValueError("ckpt= (each rank loads its own cut) is for mesh engines "
+                             "without params=")
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.devices[0]:
                 raise ValueError(f"device={device} is not the mesh's rank-0 device "
@@ -936,9 +959,9 @@ class InferenceEngine:
         self._rmesh = None
         if mesh is not None:
             _check_mesh_knobs(self, spec, mesh, sp_impl, spec_decode, draft_spec, kv_pages,
-                              prefix_store)
+                              prefix_store, n_slots)
         if mesh is not None:
-            params = self._start_ranks(spec, mesh, seed, params, n_slots)
+            params = self._start_ranks(spec, mesh, seed, params, n_slots, ckpt)
         elif params is None:
             if stack > 1:
                 seeds = ([seed] * stack if member_seeds == "shared"
@@ -958,9 +981,11 @@ class InferenceEngine:
         self.decode_pipeline = max(1, int(decode_pipeline))
         self.decode_loop = resolve_decode_loop(decode_loop)
         self.prefill_chunk = aligned_prefill_chunk(int(prefill_chunk), spec.max_seq)
-        if self._use_sp:
+        if self._use_sp or self.decode_pp > 1:
             # The JAX engine's rule: the sp ring (or Ulysses) IS the long-
-            # prompt answer; every admission prefills single-shot.
+            # prompt answer; every admission prefills single-shot. A
+            # pipeline-staged engine admits single-shot too, stage by stage
+            # (parallel/pipeline.staged_prefill).
             self.prefill_chunk = 0
         # Reuse rides the segment path (the suffix prefills at an offset).
         # Off under staging: the resident K/V lives in the decode cache,
@@ -1003,14 +1028,16 @@ class InferenceEngine:
                 device=self.device)
             self._table = self._ck.table
         else:
-            n_kv, cache_rows = None, stack * self.n_slots
+            n_kv, cache_rows, layers = None, stack * self.n_slots, None
             if mesh is not None:
-                lo, hi = rank_kv_heads(spec.n_heads, spec.n_kv_heads, mesh.shape["tp"], 0)
-                n_kv = hi - lo
+                n_kv = len(rank_kv_index(spec.n_heads, spec.n_kv_heads, mesh.shape["tp"], 0))
                 lo, hi, _ = self._rmesh.slots
                 cache_rows = hi - lo  # rank 0's dp block of the slot rows
+                lo, hi = stage_layers(spec.n_layers, self.decode_pp, 0)
+                layers = hi - lo  # stage 0's layers
             self._ck, self._cv = init_cache(spec, cache_rows, device=self.device,
-                                            kv_quant=self.kv_quant, n_kv_heads=n_kv)
+                                            kv_quant=self.kv_quant, n_kv_heads=n_kv,
+                                            layers=layers)
         # The staging cache of a zero-drain engine: the decode cache's dense
         # slot layout (staging row i stages decode row i), dense even on a
         # paged engine, in the cache's representation. Its bytes are
@@ -1468,6 +1495,7 @@ class InferenceEngine:
                                          if self.prefix_store is not None else 0),
                 "inflight_chunks": len(self._inflight),
                 "zero_drain": 1 if self.zero_drain else 0,
+                "decode_pp": self.decode_pp,
                 "admission_overlap_total": self.n_admission_overlap,
                 "admission_stall_seconds_total": round(self.admission_stall_s, 6),
                 "drain_gap_seconds_total": round(self.drain_gap_s, 6),
@@ -1508,6 +1536,8 @@ class InferenceEngine:
                 # The slot rows' layout over dp: each dp group's block, or
                 # every row on every group when dp does not divide them.
                 "dp": self.mesh.shape["dp"],
+                # Pipeline stages (pp > 1: staged decode and admission).
+                "decode_pp": self.decode_pp,
                 "slot_rows": ("sharded" if self._rmesh.splits_slots else "replicated"),
                 "rank0_rows": list(self._rmesh.slots[:2]),
                 "workers_alive": self._ranks.lost is None and len(self._ranks.alive_pids())
@@ -1621,13 +1651,16 @@ class InferenceEngine:
 
     # ---- multi-rank engines ------------------------------------------------
 
-    def _start_ranks(self, spec: ModelSpec, mesh, seed: int, params, n_slots: int):
+    def _start_ranks(self, spec: ModelSpec, mesh, seed: int, params, n_slots: int,
+                     ckpt: tuple[str, str] | None = None):
         """Start the mesh's worker ranks (``parallel/ranks.RankGroup``; each
         builds an ``engine/follower.Follower``), build this rank's shard of
         the weights while they start, then join the groups. Returns rank
         0's shard. Given ``params`` (a full tree) are cut for every rank and
-        the workers' cuts sent at their spawn; else every rank draws its
-        own cut of ``init_params(spec, seed)``."""
+        the workers' cuts sent at their spawn; given ``ckpt`` (a local HF
+        checkpoint's path and dtype) every rank reads its own cut from the
+        mapped files (``models/hf_loader``) and nothing is shipped; else
+        every rank draws its own cut of ``init_params(spec, seed)``."""
         rows = max(1, int(n_slots))
         dtype = None
         if params is not None:
@@ -1639,12 +1672,19 @@ class InferenceEngine:
                 shard = (to_host(shard_params(params, mesh, rank, spec)), dtype)
             return ("quorum_tpu_torch.engine.follower:Follower",
                     dict(spec=spec, seed=int(seed), rows=rows, sp_impl=self.sp_impl,
-                         shard=shard))
+                         shard=shard, ckpt=ckpt))
 
         self._ranks = RankGroup(mesh, setup=setup).spawn()
         try:
-            mine = (init_params_shard(spec, seed, mesh, 0, self.device) if params is None
-                    else shard_params(params, mesh, 0, spec))
+            if ckpt is not None:
+                from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+                mine = load_hf_checkpoint(ckpt[0], dtype=ckpt[1], device=self.device,
+                                          mesh=mesh, rank=0)[1]
+            elif params is None:
+                mine = init_params_shard(spec, seed, mesh, 0, self.device)
+            else:
+                mine = shard_params(params, mesh, 0, spec)
             self._rmesh = self._ranks.join()
             self._rmesh.hold_slots(rows)
         except BaseException:
@@ -1685,14 +1725,15 @@ class InferenceEngine:
             self._ranks_lost()
             raise self._ranks.lost
 
-    def rank_reports(self, reset_peak: bool = False) -> list[dict]:
-        """Every worker rank's ``Follower.report`` (rank 1 first): the
-        tokens it fed per row since the last report, its launches,
-        collectives, bytes and peak memory. [] without a mesh. Called from
-        any thread while the engine is idle (it is a plan)."""
+    def rank_reports(self, reset_peak: bool = False, digest: bool = False) -> list[dict]:
+        """Every worker rank's ``Follower.report`` (rank 1 first): its
+        pipeline stage, the tokens it fed per row since the last report,
+        its launches, collectives, bytes and peak memory, and with
+        ``digest`` its weight leaves' fingerprints. [] without a mesh.
+        Called from any thread while the engine is idle (it is a plan)."""
         if self._ranks is None or self._ranks.size == 1:
             return []
-        return self._ranks.plan("report", reset_peak, reply=True)
+        return self._ranks.plan("report", reset_peak, digest, reply=True)
 
     def worker_pids(self) -> list[int]:
         """The live worker ranks' process ids ([] without a mesh)."""
@@ -2510,6 +2551,10 @@ class InferenceEngine:
             logits, _, _ = prefill(self.params, spec, tokens, lengths, self._ck, self._cv,
                                    rows=[e * self.n_slots + slot for e in range(n_ens)])
             logits = logits.mean(0, keepdim=True)
+        elif self.decode_pp > 1:
+            self._plan("prefill", req.prompt_ids, bucket, slot)
+            logits, _, _ = staged_prefill(self.params, spec, tokens, lengths, self._ck,
+                                          self._cv, slot, self._rmesh)
         else:
             self._plan("prefill", req.prompt_ids, bucket, slot)
             logits, _, _ = prefill(self.params, spec, tokens, lengths, self._ck, self._cv,
@@ -3354,6 +3399,7 @@ class InferenceEngine:
         self._sweep_cancelled()
         if not self._active_rows():
             self._note_admission_clamp(False)
+            self._note_stage_occupancy([])  # drained stages read 0
             self._drain_inflight()
             return
         self._fill_inflight()
@@ -3444,6 +3490,21 @@ class InferenceEngine:
                 r.n_inflight += 1
             if depth > 0:
                 self.n_overlapped += 1
+            self._note_stage_occupancy(active)
+
+    def _note_stage_occupancy(self, active) -> None:
+        """Per-stage decode occupancy for pipeline-staged engines
+        (``quorum_tpu_decode_stage_occupancy{stage=}``): stage g's rows are
+        the contiguous row group [g·S/pp, (g+1)·S/pp), its microbatch slot
+        in the staged ring. Refreshed on every dispatch and on the idle
+        transition; a no-op at pp == 1 (the family keeps its bare 0
+        sample). The JAX engine's, word for word."""
+        if self.decode_pp <= 1:
+            return
+        sg = self._rows // self.decode_pp
+        for g in range(self.decode_pp):
+            n = sum(1 for i, _ in active if g * sg <= i < (g + 1) * sg)
+            obs.DECODE_STAGE_OCCUPANCY.set(n, stage=str(g))
 
     def _dispatch_key(self, active) -> tuple:
         """(steps per chunk, chunks, top-k/top-p sort, logprobs) of the
@@ -3453,7 +3514,9 @@ class InferenceEngine:
         ``("dfa", steps, chunks, sort, logprobs, arena bucket)``; one with
         none keeps the plain 4-tuple and the plain program. A paged engine's
         key is ``("paged", *that key, history)``: its program gathers a
-        window of ``history`` positions (``_history``)."""
+        window of ``history`` positions (``_history``). A pipeline-staged
+        engine's key is ``("pp", *that key)``: its program is the staged
+        schedule (``parallel/pipeline.py``), never an unstaged one."""
         n_steps = max(1, min(r.chunk_hint or self.decode_chunk for _, r in active))
         ahead = sum(c.tokens_ahead for c in self._inflight)
         restrict = any(r.sampler.restricts and not r.sampler.greedy for _, r in active)
@@ -3463,6 +3526,8 @@ class InferenceEngine:
         def key(c):
             base = (n_steps, c, restrict, want_lp)
             base = ("dfa", *base, self._g_bucket) if constrained else base
+            if self.decode_pp > 1:
+                return ("pp", *base)
             if self.kv_pages:
                 return ("paged", *base, self._history(active, ahead, n_steps * c))
             return base
@@ -3740,7 +3805,19 @@ class InferenceEngine:
                   else (self._ntok, self._counts))
         args = (self._token, self._lengths, live0, self._budget, self._eos, self._ck, self._cv,
                 sample_fn, carry0)
-        if n_chunks == 1:
+        if self.decode_pp > 1:
+            # Pipeline-staged (parallel/pipeline.py): the same contracts as
+            # a row-group pipeline over the stages, this rank stage 0.
+            if n_chunks == 1:
+                toks, _, n_valid, live, budget, _, _, lengths, carry, aux = staged_decode_chunk(
+                    self.params, self.spec, self._rmesh, n_steps, *args)
+                toks, n_valid, token = toks[None], n_valid[None], toks[:, -1]
+                aux = tuple(a[None] for a in aux)
+            else:
+                toks, n_valid, token, live, budget, _, _, lengths, carry, aux = (
+                    staged_decode_loop(self.params, self.spec, self._rmesh, n_steps, n_chunks,
+                                       *args))
+        elif n_chunks == 1:
             toks, _, n_valid, live, budget, _, _, lengths, carry, aux = decode_chunk(
                 self.params, self.spec, n_steps, *args, ensemble=self.ensemble, history=history,
                 mesh=self._rmesh)
@@ -3786,7 +3863,7 @@ class InferenceEngine:
         faults.fire("engine.decode")
         key = self._dispatch_key(active)
         history = key[-1] if key[0] == "paged" else None
-        body = key[1:-1] if key[0] == "paged" else key
+        body = key[1:-1] if key[0] == "paged" else key[1:] if key[0] == "pp" else key
         constrained = body[0] == "dfa"
         program = (*body[1:5], True) if constrained else body
         n_steps, n_chunks = program[:2]
@@ -4581,7 +4658,10 @@ def program_family(key: tuple) -> str:
     its device time: ``plain`` / ``loop`` (one chunk or more),
     ``dfa`` / ``loop_dfa`` (the grammar variant), ``verify``,
     ``dfa_verify``, ``spec_loop`` / ``spec_loop_dfa`` (fused draft→verify),
-    each with a ``paged_`` prefix on a paged engine."""
+    each with a ``paged_`` prefix on a paged engine, and ``pp_`` on a
+    pipeline-staged one (``pp_plain``, ``pp_loop``)."""
+    if key[0] == "pp":
+        return "pp_" + program_family(key[1:])
     if key[0] == "paged":
         return "paged_" + program_family(key[1:-1] if key[1] not in ("verify", "dfa_verify")
                                          else key[1:])
@@ -4656,10 +4736,68 @@ _ENGINES_LOCK = threading.Lock()
 _NOT_ON_MESH = "not yet on a multi-rank engine"
 
 
+def check_pp_axes(mesh_shape: dict) -> None:
+    """The JAX engine's refusal of tp or dp beside pp, in its words (the
+    staged schedule runs tp=1/dp=1 within each stage)."""
+    npp = mesh_shape.get(AXIS_PP, 1)
+    if npp > 1 and (mesh_shape.get(AXIS_TP, 1) > 1 or mesh_shape.get(AXIS_DP, 1) > 1):
+        raise ValueError(
+            f"pipeline-staged decode runs tp=1/dp=1 within each "
+            f"stage (pp={npp} with tp="
+            f"{mesh_shape.get(AXIS_TP, 1)}, dp="
+            f"{mesh_shape.get(AXIS_DP, 1)} on the decode mesh): "
+            "make pp the whole group, or drop one knob")
+
+
+def _check_pp_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, spec_decode: int,
+                    draft_spec, n_slots: int) -> None:
+    """A pipeline-staged engine's refusals (pp > 1), the JAX engine's, word
+    for word."""
+    npp = eng.decode_pp
+    if eng.zero_drain:
+        raise ValueError(
+            "pp>1 does not compose with zero_drain=1: staged-"
+            "injection admissions write one stage's KV shard from "
+            "outside the stage ring — use disagg=P+D&pp=K (the "
+            "handoff feeds stage-sharded rows) or drop one knob")
+    if eng._use_sp:
+        raise ValueError(
+            "pp>1 does not compose with sp>1 on the decode mesh: "
+            "the staged row-group schedule owns the non-tp axes — "
+            "under disagg, sp= shards the PREFILL group instead")
+    check_pp_axes(dict(mesh.shape))
+    if eng.members > 1 or eng.ensemble > 1:
+        raise ValueError(
+            "pp>1 does not compose with members/ensemble engines: "
+            "the staged decode program is not member-vmapped — run "
+            "separate cells or drop one knob")
+    if int(spec_decode) > 0 or draft_spec is not None:
+        raise ValueError(
+            "pp>1 does not compose with spec_decode/spec_model: "
+            "verify turns run the full layer stack in one program, "
+            "which is exactly what a staged decode group cannot "
+            "hold — drop one knob")
+    if spec.n_layers % npp:
+        raise ValueError(
+            f"pp={npp} does not divide n_layers="
+            f"{spec.n_layers}: stages hold equal contiguous "
+            "layer shards — pick a dividing pp or pad the model")
+    if max(1, int(n_slots)) % npp:
+        raise ValueError(
+            f"pp={npp} does not divide slots={max(1, int(n_slots))}: the "
+            "slot batch splits into pp row groups (the pipeline's "
+            "microbatches) — pick slots as a multiple of pp")
+
+
 def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
-                      spec_decode: int, draft_spec, kv_pages: bool, prefix_store) -> None:
-    """A mesh engine's refusals: the JAX engine's sequence-parallel ones in
-    its words, then what the port's mesh path does not carry yet, by name."""
+                      spec_decode: int, draft_spec, kv_pages: bool, prefix_store,
+                      n_slots: int) -> None:
+    """A mesh engine's refusals: the JAX engine's pipeline and sequence-
+    parallel ones in its words, then what the port's mesh path does not
+    carry yet, by name. Every tp serves (a dim tp does not divide is whole
+    on every rank, ``parallel/sharding``)."""
+    if eng.decode_pp > 1:
+        _check_pp_knobs(eng, spec, mesh, spec_decode, draft_spec, n_slots)
     if eng._use_sp:
         if sp_impl == "ulysses" and not ulysses_supported(spec.n_heads, spec.n_kv_heads, mesh):
             raise ValueError(
@@ -4696,20 +4834,15 @@ def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
                 "parallel serving disables chunked prefill, which the "
                 "restore path's nonzero-offset tail prefill rides")
     refused = [name for name, on in (
-        ("MoE specs", spec.is_moe), ("members", eng.members > 1),
+        ("members", eng.members > 1),
         ("ensemble", eng.ensemble > 1), ("quant", bool(eng.quant)),
         ("kv_quant", bool(eng.kv_quant)), ("speculative decoding",
                                            int(spec_decode) > 0 or draft_spec is not None),
         ("kv_pages", bool(kv_pages)), ("prefix_store", bool(prefix_store)),
         ("zero_drain", eng.zero_drain)) if on]
     if refused:
-        raise ValueError(f"{', '.join(refused)}: {_NOT_ON_MESH} (tp/sp serve the dense "
-                         "families with the default scheduler)")
-    tp = mesh.shape["tp"]
-    if spec.n_heads % tp:
-        raise ValueError(f"tp={tp} does not divide n_heads={spec.n_heads}: each rank holds "
-                         "whole query heads")
-    rank_kv_heads(spec.n_heads, spec.n_kv_heads, tp, 0)  # refuses uneven group cuts
+        raise ValueError(f"{', '.join(refused)}: {_NOT_ON_MESH} (dp/tp/sp/pp serve the "
+                         "dense and MoE families with the default scheduler)")
 
 
 def get_engine(
@@ -4854,11 +4987,17 @@ def get_engine_from_ckpt(
     prefix_store_chunk: int = 0,
     qos: bool = False,
     zero_drain: bool = False,
+    mesh=None,
+    sp_impl: str = "ring",
 ) -> InferenceEngine:
     """An engine over a local HF checkpoint directory
     (``models/hf_loader.py``). Keyed by (real path, effective dtype,
-    device, quant, kv_quant, spec_decode, the draft: its spec and seed or
-    its checkpoint's real path, which follows the target's ``dtype``);
+    device or mesh, quant, kv_quant, spec_decode, the draft: its spec and
+    seed or its checkpoint's real path, which follows the target's
+    ``dtype``; ``sp_impl`` when sp > 1). On a ``mesh`` every rank reads
+    only its own cut of the checkpoint from the mapped files, rank 0 too:
+    nothing is loaded whole or shipped to the workers, which open the
+    checkpoint themselves;
     ``quant="int8"`` quantizes on the device as
     the checkpoint is read, never holding its bf16 form whole. Backends
     pointing at one checkpoint share its weights on the card, and
@@ -4875,19 +5014,31 @@ def get_engine_from_ckpt(
     if ensemble > 1:
         raise ValueError(CKPT_ENSEMBLE_ERROR)
     quant, kv_quant = check_quant_knobs(quant, kv_quant)
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     if draft_ckpt and draft_spec is not None:
         raise ValueError("draft_spec and draft_ckpt are mutually exclusive")
     resolved = os.path.realpath(ckpt_path)
     draft_resolved = os.path.realpath(draft_ckpt) if draft_ckpt else None
     eff_dtype = dtype or ModelSpec().dtype
-    key = ("ckpt", resolved, eff_dtype, str(dev), quant, kv_quant, int(spec_decode),
-           draft_spec, int(draft_seed) if draft_spec is not None else None, draft_resolved,
-           (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None,
+    sp_key = sp_impl if mesh is not None and mesh.shape[AXIS_SP] > 1 else None
+    key = ("ckpt", resolved, eff_dtype, str(dev), mesh, sp_key, quant, kv_quant,
+           int(spec_decode), draft_spec, int(draft_seed) if draft_spec is not None else None,
+           draft_resolved, (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None,
            bool(zero_drain))
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
-        if eng is None:
+        if eng is None and mesh is not None:
+            from quorum_tpu_torch.models.hf_loader import checkpoint_spec
+
+            eng = _ENGINES[key] = InferenceEngine(
+                checkpoint_spec(resolved, eff_dtype), mesh=mesh, sp_impl=sp_impl,
+                ckpt=(resolved, eff_dtype), n_slots=n_slots, decode_chunk=decode_chunk,
+                decode_pipeline=decode_pipeline, decode_loop=decode_loop,
+                prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+                max_pending=max_pending, quant=quant, kv_quant=kv_quant,
+                spec_decode=spec_decode, draft_spec=draft_spec, draft_seed=draft_seed,
+                kv_pages=kv_pages, prefix_store=prefix_store, qos=qos, zero_drain=zero_drain)
+        elif eng is None:
             spec, params = load_hf_checkpoint(resolved, dtype=eff_dtype, device=dev,
                                               quant=quant)
             draft_params = None

@@ -21,6 +21,16 @@ The rank's own rank 0 state (sampling, the scheduler's bookkeeping) does not
 exist here: a worker keeps no per-request state. On a mesh whose dp cuts
 the slot rows the rank's cache holds its dp group's rows
 (``RankMesh.hold_slots``); the plans name global rows.
+
+On a pipeline-staged mesh (pp > 1) the rank is a later stage: it holds its
+layers and their cache slice only, a ``prefill`` plan runs its layers on
+the hidden states the previous stage hands it (``parallel/pipeline``), and
+a ``decode`` plan runs the staged schedule's half of this stage (one graph
+replay of it over NCCL on a card).
+
+The weights: the rank's cut of ``init_params(spec, seed)``, or a cut rank 0
+sent (``params=`` engines), or, on a checkpoint engine, its own cut read
+from the checkpoint's mapped files (``models/hf_loader``).
 """
 
 from __future__ import annotations
@@ -37,7 +47,8 @@ from quorum_tpu_torch.models.transformer import (follow_decode_step, host_to_dev
 from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
 from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
 from quorum_tpu_torch.parallel.comm import collective_counts
-from quorum_tpu_torch.parallel.sharding import rank_kv_heads
+from quorum_tpu_torch.parallel.pipeline import follow_staged_decode, follow_staged_prefill
+from quorum_tpu_torch.parallel.sharding import rank_kv_index, stage_layers
 
 
 def _tensors(tree):
@@ -50,25 +61,33 @@ def _tensors(tree):
 
 class Follower:
     """One worker rank of an engine on ``mesh`` (its ``RankMesh``): weights
-    from ``seed`` (cut by ``init_params_shard``) or the given ``shard`` (a
-    host tree and its dtype), a cache of its kv heads for its dp group's
-    share of ``rows`` slot rows."""
+    from ``seed`` (cut by ``init_params_shard``), the given ``shard`` (a
+    host tree and its dtype) or its cut of the checkpoint ``ckpt`` (path,
+    dtype), a cache of its kv heads and its stage's layers for its dp
+    group's share of ``rows`` slot rows."""
 
     def __init__(self, mesh, *, spec, seed: int, rows: int, sp_impl: str = "ring",
-                 shard=None):
+                 shard=None, ckpt=None):
         self.mesh = mesh
         self.spec = spec
         self.sp_impl = sp_impl
+        self.rows = rows
         self.device = dev = mesh.device
-        if shard is None:
+        if ckpt is not None:
+            from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+            self.params = load_hf_checkpoint(ckpt[0], dtype=ckpt[1], device=dev, mesh=mesh,
+                                             rank=mesh.rank)[1]
+        elif shard is None:
             self.params = init_params_shard(spec, seed, mesh, mesh.rank, dev)
         else:
             tree, dtype = shard
             self.params = params_from_numpy(tree, device=dev, dtype=dtype)
-        lo, hi = rank_kv_heads(spec.n_heads, spec.n_kv_heads, mesh.tp_size, mesh.tp_rank)
+        n_kv = len(rank_kv_index(spec.n_heads, spec.n_kv_heads, mesh.tp_size, mesh.tp_rank))
+        lo, hi = stage_layers(spec.n_layers, mesh.pp_size, mesh.pp_rank)
         self._own = mesh.hold_slots(rows)
         self._ck, self._cv = init_cache(spec, self._own[1] - self._own[0], device=dev,
-                                        n_kv_heads=hi - lo)
+                                        n_kv_heads=n_kv, layers=hi - lo)
         self._tok = torch.zeros((rows,), dtype=torch.long, device=dev)
         self._pos = torch.zeros((rows,), dtype=torch.int32, device=dev)
         self._wm = torch.zeros((rows,), dtype=torch.bool, device=dev)
@@ -90,6 +109,14 @@ class Follower:
                     yield
 
     def prefill(self, prompt: list[int], bucket: int, slot: int) -> None:
+        if self.mesh.pp_size > 1:
+            with self._scope():
+                lengths = host_to_device([max(1, len(prompt))], torch.int32, self.device)
+                follow_staged_prefill(self.params["blocks"], self.spec,
+                                      (1, bucket, self.spec.d_model), lengths, self._ck,
+                                      self._cv, slot, self.mesh)
+            self.fed[slot] = []
+            return
         with self._scope():
             tokens = host_to_device([prompt + [0] * (bucket - len(prompt))], torch.long,
                                     self.device)
@@ -119,9 +146,25 @@ class Follower:
             out.append(torch.stack([tok, wm.long()]))
         return torch.stack(out)
 
+    def _staged(self, n_steps: int, n_chunks: int) -> None:
+        follow_staged_decode(self.params["blocks"], self.spec, self.mesh, n_steps, n_chunks,
+                             self.rows, self._ck, self._cv)
+
     def decode(self, n_steps: int, n_chunks: int, warm: bool = False) -> None:
         """One dispatch of ``n_steps × n_chunks`` steps; ``warm``: rank 0
-        runs its eager warm-up step first, and so does this rank."""
+        runs its eager warm-up step first, and so does this rank. A later
+        pipeline stage runs its half of the staged schedule, which feeds it
+        no tokens (``fed`` stays empty)."""
+        if self.mesh.pp_size > 1:
+            with self._scope():
+                if warm:
+                    self._staged(1, 1)
+                if self._graphs is None:
+                    self._staged(n_steps, n_chunks)
+                else:
+                    self._graphs.replay(("pp", n_steps, n_chunks),
+                                        lambda: self._staged(n_steps, n_chunks), lambda: None)
+            return
         n = n_steps * n_chunks
         with self._scope():
             if warm:
@@ -137,13 +180,16 @@ class Follower:
                 if lo <= row < hi:
                     self.fed[row].append(int(step[0, row]))
 
-    def report(self, reset_peak: bool = False) -> dict:
+    def report(self, reset_peak: bool = False, digest: bool = False) -> dict:
         """The rank's observations since the last report (fed tokens are
-        handed over and cleared)."""
+        handed over and cleared); with ``digest``, an exact fingerprint of
+        each of its weight leaves (``training/checkpoint.tree_digest``: its
+        cut held against a tree without moving either to the host)."""
         fed, self.fed = self.fed, [[] for _ in self.fed]
         dev = self.device
         out = {
             "rank": self.mesh.rank,
+            "stage": self.mesh.pp_rank,
             "fed": fed,
             "launches": {"flash_prefill": flash_prefill_attention.launches,
                          "flash_decode": flash_decode_attention.launches},
@@ -152,6 +198,10 @@ class Follower:
             "cache_bytes": sum(t.numel() * t.element_size() for t in (self._ck, self._cv)),
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
         }
+        if digest:
+            from quorum_tpu_torch.training.checkpoint import tree_digest
+
+            out["digest"] = tree_digest(self.params)
         if reset_peak and dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         return out

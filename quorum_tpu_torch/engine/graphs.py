@@ -34,6 +34,13 @@ and added to each wrapper's ``launches`` at every replay.
 A first capture holds the engine's scheduler thread for seconds at full
 depth: the engine's ``hold`` context runs around it (its deadline watcher).
 
+Keys are the engine's (``InferenceEngine._dispatch_key``): a pipeline-staged
+engine's are ``("pp", steps, chunks, sort, lp)``, its program the staged
+schedule of ``parallel/pipeline.py`` with its stage-to-stage hops (NCCL
+point-to-point sends and receives, captured like any collective); a later
+stage's worker captures its half under ``("pp", steps, chunks)``. A staged
+key never shares a graph with an unstaged one.
+
 There is no eager path on the card and no switch: a capture that fails
 raises, and the engine fails its requests.
 """

@@ -95,11 +95,12 @@ def shard_params(params: Mapping, mesh, rank: int, spec) -> dict:
     """Rank ``rank``'s shard of a full single-model tree (``params_from_numpy``
     of the JAX package's parameters, or ``init_params``) on ``mesh`` (a
     ``parallel/mesh.Mesh`` or ``RankMesh``): each leaf cut by
-    ``parallel/sharding``'s rules for ``spec`` (heads, MLP hidden and vocab
-    over tp; each rank's kv heads those its query heads read; replicated
-    over dp, so a dp rank receives its tp cut and nothing less), as
-    contiguous tensors on the leaves' device. Member-stacked, quantized and
-    MoE trees are refused: not yet on a multi-rank engine."""
+    ``parallel/sharding``'s rules for ``spec`` (heads, experts, MLP hidden
+    and vocab over tp; each rank's kv heads those its query heads read;
+    layers over pp, a later stage holding no embedding, final norm or
+    head; replicated over dp, so a dp rank receives its cut and nothing
+    less), as contiguous tensors on the leaves' device. Member-stacked and
+    quantized trees are refused: not yet on a multi-rank engine."""
     from quorum_tpu_torch.parallel.sharding import rank_cut
 
     cut = rank_cut(spec, mesh, rank)
@@ -109,7 +110,8 @@ def shard_params(params: Mapping, mesh, rank: int, spec) -> dict:
             return None
         if isinstance(x, Mapping):
             raise ValueError(f"quantized leaf {name!r}: quant is not yet on a multi-rank engine")
-        return cut(name, x).contiguous()
+        x = cut(name, x)
+        return None if x is None else x.contiguous()
 
     if params["tok_emb"].dim() != 2:
         raise ValueError("member-stacked trees are not yet on a multi-rank engine")

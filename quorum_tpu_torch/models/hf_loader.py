@@ -371,16 +371,26 @@ class _QSlot:
 class _Filler:
     """Allocates leaves on the device in the spec's dtype (int8 leaves with
     ``quant``) and fills them from checkpoint tensors, one tensor at a
-    time."""
+    time. With ``cut`` (a mesh rank's ``parallel/sharding.RankCut``) every
+    leaf is the rank's share: its stage's layers, its experts, its tp cut
+    of each tensor, sliced from the mapped tensor on the host before any
+    byte moves; a tensor of a layer or expert the rank does not hold is
+    never read, nor a leaf it does not hold at all."""
 
     def __init__(self, t: _TensorDir, device: torch.device, dtype: torch.dtype,
-                 quant: str | None = None):
+                 quant: str | None = None, cut=None):
         self.t, self.device, self.dtype, self.quant = t, device, dtype, quant
+        self.cut = cut
         self._stage = HostStage()
 
     def empty(self, *shape: int, name: str = ""):
         """A leaf of ``shape`` (the JAX layout); with ``quant`` and a
-        quantized ``name``, its int8 leaf, filled slice by slice."""
+        quantized ``name``, its int8 leaf, filled slice by slice; with a
+        cut, the rank's share of it (None for a leaf it does not hold)."""
+        if self.cut is not None:
+            if not self.cut.keeps(name):
+                return None
+            shape = tuple(self.cut(name, torch.empty(shape, device="meta")).shape)
         if self.quant and name in QUANT_REDUCE_AXIS:
             axis = QUANT_REDUCE_AXIS[name]
             dst = {k: torch.empty(s, dtype=torch.int8 if k == "q8" else torch.float32,
@@ -410,6 +420,48 @@ class _Filler:
         self._stage.fill(out, src)
         return out
 
+    def _part(self, leaf: str, src: torch.Tensor, transpose: bool, layer_part: bool):
+        """The rank's cut of checkpoint tensor ``src`` (the HF layout; the
+        JAX layout is its transpose when ``transpose``), as a host tensor in
+        the HF layout holding only those bytes."""
+        if self.cut is None:
+            return src
+        jax = src.T if transpose else src
+        part = self.cut(leaf, jax, layer_part)
+        if part is jax:
+            return src
+        return (part.T if transpose else part).contiguous()
+
+    def _index(self, i: int, expert: int | None):
+        """Where layer ``i`` (expert ``expert``) lands in a rank's leaf, or
+        None when the rank does not hold it."""
+        if self.cut is None:
+            return i if expert is None else (i, expert)
+        lo, hi = self.cut.layers
+        if not lo <= i < hi:
+            return None
+        if expert is None:
+            return i - lo
+        e_lo, e_hi = self.cut.experts
+        return (i - lo, expert - e_lo) if e_lo <= expert < e_hi else None
+
+    def fill_at(self, blocks: dict, leaf: str, i: int, name: str = "", transpose: bool = False,
+                expert: int | None = None, src: torch.Tensor | None = None) -> None:
+        """Layer ``i`` (of expert ``expert``) of ``blocks[leaf]`` from
+        checkpoint tensor ``name`` (or the given ``src``), cut to the rank's
+        share; skipped, unread, where the rank does not hold it."""
+        idx = self._index(i, expert)
+        if idx is None:
+            return
+        own = src is None
+        if own:
+            src = self.t.req(name)
+        if expert is None:
+            src = self._part(leaf, src, transpose, True)
+        self.put(blocks[leaf][idx], src, transpose)
+        if own:
+            self.t.release(name)
+
     def fill(self, dst, name: str, transpose: bool = False):
         self.put(dst, self.t.req(name), transpose)
         self.t.release(name)
@@ -417,10 +469,15 @@ class _Filler:
 
     def leaf(self, name: str, transpose: bool = False, leaf: str = ""):
         """One checkpoint tensor as a whole leaf (``leaf``: the tree's name
-        for it, which decides whether it is quantized)."""
+        for it, which decides whether it is quantized and how a rank cuts
+        it); None, unread, for a leaf the rank does not hold."""
+        if self.cut is not None and not self.cut.keeps(leaf):
+            return None
         src = self.t.req(name)
-        shape = tuple(src.shape[::-1] if transpose else src.shape)
-        return _done(self.fill(self.empty(*shape, name=leaf), name, transpose))
+        dst = self.empty(*(src.shape[::-1] if transpose else src.shape), name=leaf)
+        self.put(dst, self._part(leaf, src, transpose, False), transpose)
+        self.t.release(name)
+        return _done(dst)
 
 
 def _done(leaf):
@@ -432,41 +489,37 @@ def _load_gpt2(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
     # transformers may prefix with "transformer."
     p = "transformer." if "transformer.wte.weight" in t else ""
     L, D, F = spec.n_layers, spec.d_model, spec.d_ff
-    blocks = {
-        "attn_norm_w": f.empty(L, D), "attn_norm_b": f.empty(L, D),
-        "wo": f.empty(L, D, D, name="wo"), "bo": f.empty(L, D),
-        "mlp_norm_w": f.empty(L, D), "mlp_norm_b": f.empty(L, D),
-        "w_up": f.empty(L, D, F, name="w_up"), "b_up": f.empty(L, F),
-        "w_down": f.empty(L, F, D, name="w_down"), "b_down": f.empty(L, D),
-        "wq": f.empty(L, D, D, name="wq"), "wk": f.empty(L, D, D, name="wk"),
-        "wv": f.empty(L, D, D, name="wv"),
-        "bq": f.empty(L, D), "bk": f.empty(L, D), "bv": f.empty(L, D),
-    }
+    shapes = {"attn_norm_w": (L, D), "attn_norm_b": (L, D), "wo": (L, D, D), "bo": (L, D),
+              "mlp_norm_w": (L, D), "mlp_norm_b": (L, D), "w_up": (L, D, F), "b_up": (L, F),
+              "w_down": (L, F, D), "b_down": (L, D), "wq": (L, D, D), "wk": (L, D, D),
+              "wv": (L, D, D), "bq": (L, D), "bk": (L, D), "bv": (L, D)}
+    blocks = {k: f.empty(*v, name=k) for k, v in shapes.items()}
     for i in range(L):
         pre = f"{p}h.{i}."
-        f.fill(blocks["attn_norm_w"][i], pre + "ln_1.weight")
-        f.fill(blocks["attn_norm_b"][i], pre + "ln_1.bias")
-        w = t.req(pre + "attn.c_attn.weight")  # Conv1D [in, 3D]
-        b = t.req(pre + "attn.c_attn.bias")    # [3D]
-        for j, (wn, bn) in enumerate((("wq", "bq"), ("wk", "bk"), ("wv", "bv"))):
-            f.put(blocks[wn][i], w[:, j * D:(j + 1) * D])
-            f.put(blocks[bn][i], b[j * D:(j + 1) * D])
-        t.release(pre + "attn.c_attn.weight")
-        f.fill(blocks["wo"][i], pre + "attn.c_proj.weight")  # [in=D, out=D]
-        f.fill(blocks["bo"][i], pre + "attn.c_proj.bias")
-        f.fill(blocks["mlp_norm_w"][i], pre + "ln_2.weight")
-        f.fill(blocks["mlp_norm_b"][i], pre + "ln_2.bias")
-        f.fill(blocks["w_up"][i], pre + "mlp.c_fc.weight")     # [D, F]
-        f.fill(blocks["b_up"][i], pre + "mlp.c_fc.bias")
-        f.fill(blocks["w_down"][i], pre + "mlp.c_proj.weight")  # [F, D]
-        f.fill(blocks["b_down"][i], pre + "mlp.c_proj.bias")
+        f.fill_at(blocks, "attn_norm_w", i, pre + "ln_1.weight")
+        f.fill_at(blocks, "attn_norm_b", i, pre + "ln_1.bias")
+        if f._index(i, None) is not None:
+            w = t.req(pre + "attn.c_attn.weight")  # Conv1D [in, 3D]
+            b = t.req(pre + "attn.c_attn.bias")    # [3D]
+            for j, (wn, bn) in enumerate((("wq", "bq"), ("wk", "bk"), ("wv", "bv"))):
+                f.fill_at(blocks, wn, i, src=w[:, j * D:(j + 1) * D])
+                f.fill_at(blocks, bn, i, src=b[j * D:(j + 1) * D])
+            t.release(pre + "attn.c_attn.weight")
+        f.fill_at(blocks, "wo", i, pre + "attn.c_proj.weight")  # [in=D, out=D]
+        f.fill_at(blocks, "bo", i, pre + "attn.c_proj.bias")
+        f.fill_at(blocks, "mlp_norm_w", i, pre + "ln_2.weight")
+        f.fill_at(blocks, "mlp_norm_b", i, pre + "ln_2.bias")
+        f.fill_at(blocks, "w_up", i, pre + "mlp.c_fc.weight")     # [D, F]
+        f.fill_at(blocks, "b_up", i, pre + "mlp.c_fc.bias")
+        f.fill_at(blocks, "w_down", i, pre + "mlp.c_proj.weight")  # [F, D]
+        f.fill_at(blocks, "b_down", i, pre + "mlp.c_proj.bias")
     blocks = {k: _done(v) for k, v in blocks.items()}
     blocks["w_gate"] = None
     return {
         "tok_emb": f.leaf(p + "wte.weight", leaf="tok_emb"),
-        "pos_emb": f.leaf(p + "wpe.weight"),
-        "final_norm_w": f.leaf(p + "ln_f.weight"),
-        "final_norm_b": f.leaf(p + "ln_f.bias"),
+        "pos_emb": f.leaf(p + "wpe.weight", leaf="pos_emb"),
+        "final_norm_w": f.leaf(p + "ln_f.weight", leaf="final_norm_w"),
+        "final_norm_b": f.leaf(p + "ln_f.bias", leaf="final_norm_b"),
         "lm_head": None,  # tied
         "blocks": blocks,
     }
@@ -477,53 +530,46 @@ def _load_llama_family(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
     L, D, F, E = spec.n_layers, spec.d_model, spec.d_ff, spec.n_experts
     H, K = spec.n_heads * spec.head_dim, spec.n_kv_heads * spec.head_dim
     has_o_bias = f"{p}layers.0.self_attn.o_proj.bias" in t
-    blocks: dict = {
-        "attn_norm_w": f.empty(L, D), "wq": f.empty(L, D, H, name="wq"),
-        "wk": f.empty(L, D, K, name="wk"), "wv": f.empty(L, D, K, name="wv"),
-        "wo": f.empty(L, H, D, name="wo"), "mlp_norm_w": f.empty(L, D),
-    }
+    shapes: dict = {"attn_norm_w": (L, D), "wq": (L, D, H), "wk": (L, D, K), "wv": (L, D, K),
+                    "wo": (L, H, D), "mlp_norm_w": (L, D)}
     if spec.use_bias:
-        blocks.update(bq=f.empty(L, H), bk=f.empty(L, K), bv=f.empty(L, K))
+        shapes.update(bq=(L, H), bk=(L, K), bv=(L, K))
         if has_o_bias:
-            blocks.update(bo=f.empty(L, D))
+            shapes.update(bo=(L, D))
     if spec.is_moe:
-        blocks.update(router=f.empty(L, D, E), moe_w_gate=f.empty(L, E, D, F, name="moe_w_gate"),
-                      moe_w_up=f.empty(L, E, D, F, name="moe_w_up"),
-                      moe_w_down=f.empty(L, E, F, D, name="moe_w_down"))
+        shapes.update(router=(L, D, E), moe_w_gate=(L, E, D, F), moe_w_up=(L, E, D, F),
+                      moe_w_down=(L, E, F, D))
     else:
-        blocks.update(w_gate=f.empty(L, D, F, name="w_gate"), w_up=f.empty(L, D, F, name="w_up"),
-                      w_down=f.empty(L, F, D, name="w_down"))
+        shapes.update(w_gate=(L, D, F), w_up=(L, D, F), w_down=(L, F, D))
+    blocks = {k: f.empty(*v, name=k) for k, v in shapes.items()}
     for i in range(L):
         pre = f"{p}layers.{i}."
-        f.fill(blocks["attn_norm_w"][i], pre + "input_layernorm.weight")
+        f.fill_at(blocks, "attn_norm_w", i, pre + "input_layernorm.weight")
         for leaf, proj in (("wq", "q"), ("wk", "k"), ("wv", "v"), ("wo", "o")):
-            f.fill(blocks[leaf][i], pre + f"self_attn.{proj}_proj.weight", transpose=True)
+            f.fill_at(blocks, leaf, i, pre + f"self_attn.{proj}_proj.weight", transpose=True)
         if spec.use_bias:
             for leaf, proj in (("bq", "q"), ("bk", "k"), ("bv", "v")):
-                f.fill(blocks[leaf][i], pre + f"self_attn.{proj}_proj.bias")
+                f.fill_at(blocks, leaf, i, pre + f"self_attn.{proj}_proj.bias")
             if has_o_bias:  # llama attention_bias puts one on o_proj too
-                f.fill(blocks["bo"][i], pre + "self_attn.o_proj.bias")
-        f.fill(blocks["mlp_norm_w"][i], pre + "post_attention_layernorm.weight")
+                f.fill_at(blocks, "bo", i, pre + "self_attn.o_proj.bias")
+        f.fill_at(blocks, "mlp_norm_w", i, pre + "post_attention_layernorm.weight")
         if spec.is_moe:
-            f.fill(blocks["router"][i], pre + "block_sparse_moe.gate.weight", transpose=True)
+            f.fill_at(blocks, "router", i, pre + "block_sparse_moe.gate.weight", transpose=True)
             for e in range(E):
                 epre = pre + f"block_sparse_moe.experts.{e}."
-                f.fill(blocks["moe_w_gate"][i, e], epre + "w1.weight", transpose=True)  # [D, F]
-                f.fill(blocks["moe_w_up"][i, e], epre + "w3.weight", transpose=True)    # [D, F]
-                f.fill(blocks["moe_w_down"][i, e], epre + "w2.weight", transpose=True)  # [F, D]
+                for leaf, w in (("moe_w_gate", "w1"), ("moe_w_up", "w3"), ("moe_w_down", "w2")):
+                    # [D, F], [D, F], [F, D]
+                    f.fill_at(blocks, leaf, i, epre + f"{w}.weight", transpose=True, expert=e)
         else:
-            f.fill(blocks["w_gate"][i], pre + "mlp.gate_proj.weight", transpose=True)
-            f.fill(blocks["w_up"][i], pre + "mlp.up_proj.weight", transpose=True)
-            f.fill(blocks["w_down"][i], pre + "mlp.down_proj.weight", transpose=True)
+            f.fill_at(blocks, "w_gate", i, pre + "mlp.gate_proj.weight", transpose=True)
+            f.fill_at(blocks, "w_up", i, pre + "mlp.up_proj.weight", transpose=True)
+            f.fill_at(blocks, "w_down", i, pre + "mlp.down_proj.weight", transpose=True)
     blocks = {k: _done(v) for k, v in blocks.items()}
     lm_head = None
     if not spec.tied_lm_head:
-        if "lm_head.weight" in t:
-            lm_head = f.leaf("lm_head.weight", transpose=True, leaf="lm_head")
-        else:  # the embedding, transposed: fill both from the one tensor
-            lm_head = f.empty(D, spec.vocab_size, name="lm_head")
-            f.put(lm_head, t.req(p + "embed_tokens.weight"), transpose=True)
-            lm_head = _done(lm_head)
+        # Without its own tensor the head is the embedding, transposed.
+        head = "lm_head.weight" if "lm_head.weight" in t else p + "embed_tokens.weight"
+        lm_head = f.leaf(head, transpose=True, leaf="lm_head")
     tok_emb = f.leaf(p + "embed_tokens.weight", leaf="tok_emb")
     if spec.norm == "rmsnorm":
         blocks.setdefault("attn_norm_b", None)
@@ -537,26 +583,41 @@ def _load_llama_family(t: _TensorDir, spec: ModelSpec, f: _Filler) -> Params:
     return {
         "tok_emb": tok_emb,
         "pos_emb": None,
-        "final_norm_w": f.leaf(p + "norm.weight"),
+        "final_norm_w": f.leaf(p + "norm.weight", leaf="final_norm_w"),
         "final_norm_b": None,
         "lm_head": lm_head,
         "blocks": blocks,
     }
 
 
+def checkpoint_spec(path: str | Path, dtype: str | None = None) -> ModelSpec:
+    """The spec of a local HF checkpoint (its ``config.json``), in ``dtype``
+    when given."""
+    spec = spec_from_hf_config(json.loads((Path(path) / "config.json").read_text()))
+    return dataclasses.replace(spec, dtype=dtype) if dtype else spec
+
+
 def load_hf_checkpoint(path: str | Path, dtype: str | None = None,
-                       device=None, quant: str | None = None) -> tuple[ModelSpec, Params]:
+                       device=None, quant: str | None = None, *, mesh=None,
+                       rank: int = 0) -> tuple[ModelSpec, Params]:
     """Load (spec, params) from a local HF checkpoint directory onto
     ``device`` (default cuda) in ``dtype`` (default the spec's bf16);
-    ``quant="int8"`` quantizes each tensor on the device as it lands."""
+    ``quant="int8"`` quantizes each tensor on the device as it lands. With
+    ``mesh`` (a ``parallel/mesh.Mesh`` or ``RankMesh``): rank ``rank``'s
+    shard only (``parallel/sharding.rank_cut``), each tensor sliced on the
+    host from the mapped file before it moves, bit for bit the matching
+    cut of the whole tree."""
     path = Path(path)
-    spec = spec_from_hf_config(json.loads((path / "config.json").read_text()))
-    if dtype:
-        spec = dataclasses.replace(spec, dtype=dtype)
+    spec = checkpoint_spec(path, dtype)
     dev = resolve_device(device)
+    cut = None
+    if mesh is not None:
+        from quorum_tpu_torch.parallel.sharding import rank_cut
+
+        cut = rank_cut(spec, mesh, rank)
     tensors = _TensorDir(path)
     try:
-        filler = _Filler(tensors, dev, getattr(torch, spec.dtype), quant)
+        filler = _Filler(tensors, dev, getattr(torch, spec.dtype), quant, cut=cut)
         with torch.no_grad():
             if spec.family == "gpt2":
                 params = _load_gpt2(tensors, spec, filler)

@@ -71,13 +71,24 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
 
         if cut is not None:
             # A rank's shard: every part drawn whole, in the init's order,
-            # and cut before the next is drawn.
+            # and cut before the next is drawn; a pipeline stage keeps its
+            # own layers' parts (the others are drawn all the same, so the
+            # generator reaches each part where the whole init does) and
+            # a later stage skips the leaves it does not hold (all of them
+            # drawn after every block leaf).
+            if not cut.keeps(name):
+                return None
             part = full_shape[1:] if layered else full_shape
             kept = cut(name, torch.empty(part, device="meta"), layered).shape
-            out = torch.empty(((full_shape[0],) if layered else ()) + tuple(kept),
+            lo, hi = cut.layers if layered else (0, 1)
+            out = torch.empty(((hi - lo,) if layered else ()) + tuple(kept),
                               dtype=dt, device=dev)
             for gen, idx in parts(full_shape, layered):
-                out[idx].copy_(cut(name, draw(gen, part), layered))
+                piece = cut(name, draw(gen, part), layered)
+                if not layered:
+                    out.copy_(piece)
+                elif lo <= idx[0] < hi:
+                    out[idx[0] - lo].copy_(piece)
             return out
         if not (quant and name in QUANT_REDUCE_AXIS):
             out = torch.empty(full_shape, dtype=dt, device=dev)
@@ -97,7 +108,10 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
     def full(shape, value, layered=False, name=""):
         full_shape = (shape[0],) + lead + shape[1:] if layered else lead + shape
         out = torch.full(full_shape, value, dtype=dt, device=dev)
-        return out if cut is None else cut(name, out).contiguous()
+        if cut is None:
+            return out
+        out = cut(name, out)
+        return None if out is None else out.contiguous()
 
     L, D, V = spec.n_layers, spec.d_model, spec.vocab_size
     H = spec.n_heads * spec.head_dim
@@ -109,8 +123,8 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
     ln = spec.norm == "layernorm"
     bias = spec.use_bias
     blocks = {
-        "attn_norm_w": full((L, D), norm_one, layered=True),
-        "attn_norm_b": full((L, D), 0.0, layered=True) if ln else None,
+        "attn_norm_w": full((L, D), norm_one, layered=True, name="attn_norm_w"),
+        "attn_norm_b": full((L, D), 0.0, layered=True, name="attn_norm_b") if ln else None,
         "wq": w(L, D, H, layered=True, name="wq"),
         "wk": w(L, D, K, layered=True, name="wk"),
         "wv": w(L, D, K, layered=True, name="wv"),
@@ -118,13 +132,13 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
         "bq": full((L, H), 0.0, layered=True, name="bq") if bias else None,
         "bk": full((L, K), 0.0, layered=True, name="bk") if bias else None,
         "bv": full((L, K), 0.0, layered=True, name="bv") if bias else None,
-        "bo": full((L, D), 0.0, layered=True) if bias else None,
-        "mlp_norm_w": full((L, D), norm_one, layered=True),
-        "mlp_norm_b": full((L, D), 0.0, layered=True) if ln else None,
+        "bo": full((L, D), 0.0, layered=True, name="bo") if bias else None,
+        "mlp_norm_w": full((L, D), norm_one, layered=True, name="mlp_norm_w"),
+        "mlp_norm_b": full((L, D), 0.0, layered=True, name="mlp_norm_b") if ln else None,
     }
     if spec.is_moe:
         blocks.update(
-            router=w(L, D, E, layered=True),
+            router=w(L, D, E, layered=True, name="router"),
             moe_w_gate=w(L, E, D, F, fan_in=D, layered=True, name="moe_w_gate"),
             moe_w_up=w(L, E, D, F, fan_in=D, layered=True, name="moe_w_up"),
             moe_w_down=w(L, E, F, D, fan_in=F, layered=True, name="moe_w_down"),
@@ -135,13 +149,13 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
             w_up=w(L, D, F, layered=True, name="w_up"),
             w_down=w(L, F, D, layered=True, name="w_down"),
             b_up=full((L, F), 0.0, layered=True, name="b_up") if bias else None,
-            b_down=full((L, D), 0.0, layered=True) if bias else None,
+            b_down=full((L, D), 0.0, layered=True, name="b_down") if bias else None,
         )
     return {
         "tok_emb": w(V, D, fan_in=D, name="tok_emb"),
         "pos_emb": w(spec.max_seq, D, fan_in=D, name="pos_emb") if spec.pos == "learned" else None,
-        "final_norm_w": full((D,), norm_one),
-        "final_norm_b": full((D,), 0.0) if ln else None,
+        "final_norm_w": full((D,), norm_one, name="final_norm_w"),
+        "final_norm_b": full((D,), 0.0, name="final_norm_b") if ln else None,
         "lm_head": None if spec.tied_lm_head else w(D, V, name="lm_head"),
         "blocks": blocks,
     }
@@ -158,11 +172,11 @@ def init_params_shard(spec: ModelSpec, seed: int, mesh, rank: int, device=None,
     ``parallel/mesh.Mesh`` or ``RankMesh``), bit for bit its cut
     (``parallel/sharding.rank_cut``): each layer slice is drawn whole from
     the same generator in the same order, cut, and only the cut kept, so a
-    rank holds its share of the weights plus one layer's float32 draw."""
+    rank holds its share of the weights plus one layer's float32 draw (a
+    pipeline stage: its own layers, and only stage 0 the embedding, final
+    norm and head)."""
     from quorum_tpu_torch.parallel.sharding import rank_cut
 
-    if spec.is_moe:
-        raise ValueError("MoE specs are not yet on a multi-rank engine")
     return _init(spec, [seed], False, device, dtype, cut=rank_cut(spec, mesh, rank))
 
 

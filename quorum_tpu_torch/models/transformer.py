@@ -57,8 +57,15 @@ On a mesh (``mesh=``, a ``parallel/comm.RankMesh``; params and cache this
 rank's shard, ``models/convert.shard_params``), the functions add what
 GSPMD adds in the JAX package: the row-parallel output and down
 projections' partial sums all-reduced over tp (their biases added once,
-after), the vocab-cut embedding gathered by an all-reduce and the vocab-cut
-logits all-gathered; head counts come from the projections' widths. A
+after), an MoE layer's experts' partial outputs (each rank runs its E/tp
+experts on every token, routed alike on every rank) likewise, the
+vocab-cut embedding gathered by an all-reduce and the vocab-cut logits
+all-gathered; head counts come from the projections' widths. A leaf tp
+does not divide is whole on every rank and its product's sum is skipped
+(:func:`_tp_cut`); K/V projections whole over unevenly cut query-head
+groups give each rank its own kv heads by selection (:func:`_kv_select`).
+The layer loops run the layers the blocks hold (:func:`n_layers`): a
+pipeline stage's share (``parallel/pipeline.py``). A
 decode step takes rank 0's token, positions and write mask by one
 broadcast (``RankMesh.sync_step``: rank 0 samples, every rank feeds the
 same token; a worker runs :func:`follow_decode_step`). With sp > 1,
@@ -90,7 +97,7 @@ a decode step (T == 1) the dense path (:func:`_moe_mlp_dense`: every
 expert on every row, static shapes, so it captures into the decode
 graphs). The expert products are batched matmuls, outside any kernel, as
 in the JAX package. Member-stacked params carry no MoE leaves (stacked
-engines refuse MoE specs).
+engines refuse MoE specs). On a tp rank the experts are its E/tp.
 """
 
 from __future__ import annotations
@@ -169,6 +176,12 @@ def _layer(blocks: Params, l: int) -> Params:
     return {k: _sub(v, l) for k, v in blocks.items()}
 
 
+def n_layers(blocks: Params) -> int:
+    """The layers a ``blocks`` tree holds: the spec's, or a pipeline
+    stage's share of them."""
+    return blocks["attn_norm_w"].shape[0]
+
+
 def member_params(params: Params, m: int) -> Params:
     """Member ``m``'s single-model view of a member-stacked tree: views,
     never copies (each layer's slab ``blocks[k][l, m]`` is contiguous)."""
@@ -234,8 +247,25 @@ def _tp_sum(out: torch.Tensor, mesh) -> torch.Tensor:
     """A row-parallel product's partial sums over the tp ranks (f32, in
     place): the all-reduce GSPMD puts after the JAX package's down and
     output projections. Called on every mesh, whatever tp is, so a
-    one-rank group's decode graphs capture it too."""
+    one-rank group's decode graphs capture it too; a caller whose leaf is
+    whole on every rank (:func:`_tp_cut`) passes no mesh."""
     return out if mesh is None else mesh.tp.all_reduce(out)
+
+
+def _in_width(w) -> int:
+    """A weight's contraction width (a quantized leaf keeps it last)."""
+    return w["q8"].shape[-1] if is_quantized(w) else w.shape[-2]
+
+
+def _tp_cut(mesh, width: int, whole: int):
+    """``mesh`` where this rank's share of a tp-cut product is a part
+    (``width`` < ``whole``, or one rank), else None: a leaf tp does not
+    divide is whole on every rank (``parallel/sharding``), its output is
+    already the sum, and neither its collective nor its input's gradient
+    sum (``tp_enter``) may run."""
+    if mesh is None or (width == whole and mesh.tp_size > 1):
+        return None
+    return mesh
 
 
 def _dense_mlp(x, block, spec: ModelSpec, mesh=None):
@@ -284,18 +314,32 @@ def _expert_ffn(xe, block, dtype):
     return qeinsum("mnd,mdf->mnf", h, block["moe_w_down"])
 
 
-def _moe_mlp_dense(x, block, spec: ModelSpec):
+def _expert_range(block, spec: ModelSpec, mesh) -> tuple[int, int]:
+    """The experts ``[lo, hi)`` this rank's expert leaves hold: E/tp on a
+    tp rank (``parallel/sharding.rank_experts``), else all of them."""
+    n = _w(block["moe_w_down"]).shape[0]
+    if mesh is None or n == spec.n_experts:
+        return 0, spec.n_experts
+    return mesh.tp_rank * n, (mesh.tp_rank + 1) * n
+
+
+def _moe_mlp_dense(x, block, spec: ModelSpec, mesh=None):
     """Top-k MoE computed densely: every expert runs on every token and the
     combine weight (zero outside the top-k) reproduces sparse routing. The
     decode path and the oracle: at T == 1 every expert's weights are read
-    anyway. Static shapes, no host read: it runs inside decode graphs."""
+    anyway. Static shapes, no host read: it runs inside decode graphs. On
+    a tp rank holding experts ``[lo, hi)`` those run, and the partial
+    outputs are summed over tp in f32 before the cast."""
     b, t, d = x.shape
+    lo, hi = _expert_range(block, spec, mesh)
     top_probs, top_idx = _moe_router(x, block, spec)
-    experts = torch.arange(spec.n_experts, device=x.device)
+    experts = torch.arange(lo, hi, device=x.device)
     one_hot = (top_idx[..., None] == experts).to(top_probs.dtype)
     combine = torch.einsum("btk,btke->bte", top_probs, one_hot).reshape(b * t, -1)
     expert_out = _expert_ffn(x.reshape(b * t, d), block, x.dtype)      # [E, N, D]
     out = torch.einsum("ne,end->nd", combine, expert_out)
+    if hi - lo < spec.n_experts:
+        out = _tp_sum(out, mesh)
     return out.reshape(b, t, d).to(x.dtype)
 
 
@@ -313,7 +357,7 @@ def moe_capacity(spec: ModelSpec, n: int) -> int:
     return min(n, max(1, -(-int(spec.moe_capacity_factor * k * n) // e)))
 
 
-def _moe_mlp_grouped(x, block, spec: ModelSpec, token_mask=None):
+def _moe_mlp_grouped(x, block, spec: ModelSpec, token_mask=None, mesh=None):
     """Sparse top-k MoE with static per-expert capacity (GShard style), the
     JAX package's ``_moe_mlp_grouped`` step for step.
 
@@ -324,7 +368,10 @@ def _moe_mlp_grouped(x, block, spec: ModelSpec, token_mask=None):
     capacity. Each expert runs its buffer ``[C, D]`` in one batched
     product; unfilled buffer rows gather a clamped row and are zeroed. No
     host read: the dispatch is a scatter into a flat buffer whose last
-    entry takes every pick that does not land.
+    entry takes every pick that does not land. On a tp rank holding experts
+    ``[lo, hi)`` the routing, capacities and drops are the whole layer's
+    (every rank routes every token alike); only its experts' buffers run,
+    and the partial outputs are summed over tp in f32 before the cast.
 
     Buffers of more than ``MOE_SLOT_ROWS`` rows in all (E × C: a long
     cache-free forward) run in slices of the capacity axis, each slice's
@@ -337,6 +384,7 @@ def _moe_mlp_grouped(x, block, spec: ModelSpec, token_mask=None):
     cap = moe_capacity(spec, n)
     p = n * k
     dev = x.device
+    e_lo, e_hi = _expert_range(block, spec, mesh)
 
     top_probs, top_idx = _moe_router(x, block, spec)
     xf = x.reshape(n, d)
@@ -353,8 +401,9 @@ def _moe_mlp_grouped(x, block, spec: ModelSpec, token_mask=None):
     flat = torch.where(lands, e_p * cap + c_p, torch.full_like(e_p, e * cap))
     pick_buf = torch.full((e * cap + 1,), p, dtype=torch.long, device=dev)
     pick_buf.scatter_(0, flat, torch.arange(p, device=dev))
-    pick_buf = pick_buf[:e * cap].reshape(e, cap)
-    weight_p = prob_p * (c_p < cap).to(prob_p.dtype)
+    pick_buf = pick_buf[:e * cap].reshape(e, cap)[e_lo:e_hi]
+    mine = (e_p >= e_lo) & (e_p < e_hi)
+    weight_p = prob_p * ((c_p < cap) & mine).to(prob_p.dtype)
 
     def expert_rows(picks):
         """The FFN of buffer rows holding ``picks`` [E, s] (p: empty)."""
@@ -362,54 +411,135 @@ def _moe_mlp_grouped(x, block, spec: ModelSpec, token_mask=None):
         expert_in = xf[tok.clamp(max=n - 1)] * (tok < n).to(xf.dtype)[..., None]
         return _expert_ffn(expert_in, block, x.dtype)                   # [E, s, D]
 
-    if e * cap <= MOE_SLOT_ROWS:
+    e_own = e_hi - e_lo
+    if e_own * cap <= MOE_SLOT_ROWS:
         expert_out = expert_rows(pick_buf)
-        out_p = expert_out[e_p.clamp(max=e - 1), c_p.clamp(max=cap - 1)]
+        out_p = expert_out[(e_p - e_lo).clamp(0, e_own - 1), c_p.clamp(max=cap - 1)]
         out_p = out_p * weight_p[:, None]
     else:
         # Row p takes the empty slots' outputs and is dropped.
         out_p = torch.zeros((p + 1, d), dtype=torch.float32, device=dev)
-        step = max(1, MOE_SLOT_ROWS // e)
+        step = max(1, MOE_SLOT_ROWS // e_own)
         for c0 in range(0, cap, step):
             picks = pick_buf[:, c0:c0 + step]
             y = expert_rows(picks) * weight_p[picks.clamp(max=p - 1)][..., None]
             out_p.index_copy_(0, picks.reshape(-1), y.reshape(-1, d))
         out_p = out_p[:p]
-    return out_p.reshape(n, k, d).sum(dim=1).reshape(b, t, d).to(x.dtype)
+    out = out_p.reshape(n, k, d).sum(dim=1)
+    if e_own < e:
+        out = _tp_sum(out, mesh)
+    return out.reshape(b, t, d).to(x.dtype)
 
 
-def _moe_mlp(x, block, spec: ModelSpec, token_mask=None):
+def _moe_mlp(x, block, spec: ModelSpec, token_mask=None, mesh=None):
     # T == 1 is decode: dense reads every expert either way and keeps
     # generation exact against the oracle.
     if x.shape[1] == 1:
-        return _moe_mlp_dense(x, block, spec)
-    return _moe_mlp_grouped(x, block, spec, token_mask=token_mask)
+        return _moe_mlp_dense(x, block, spec, mesh)
+    return _moe_mlp_grouped(x, block, spec, token_mask=token_mask, mesh=mesh)
 
 
 def _mlp(x, block, spec: ModelSpec, token_mask=None, dense_moe: bool = False, mesh=None):
     if spec.is_moe:
-        if mesh is not None:
-            raise ValueError("MoE specs are not yet on a multi-rank engine")
         if dense_moe:
-            return _moe_mlp_dense(x, block, spec)
-        return _moe_mlp(x, block, spec, token_mask=token_mask)
+            return _moe_mlp_dense(x, block, spec, mesh)
+        return _moe_mlp(x, block, spec, token_mask=token_mask, mesh=mesh)
     return _dense_mlp(x, block, spec, mesh)
 
 
-def _qkv(x, block, spec: ModelSpec):
+def _mlp_mesh(block, spec: ModelSpec, mesh):
+    """The mesh the MLP's tp collectives run on (None where its leaves are
+    whole on every rank, :func:`_tp_cut`)."""
+    if spec.is_moe:
+        return _tp_cut(mesh, _w(block["moe_w_down"]).shape[0], spec.n_experts)
+    return _tp_cut(mesh, _in_width(block["w_down"]), spec.d_ff)
+
+
+_KV_SELECT: dict = {}
+
+
+def _kv_select(spec: ModelSpec, mesh, device):
+    """The kv-head entries this tp rank takes from whole K/V projections
+    (``parallel/sharding.kv_select``: query-head groups that tp cuts
+    unevenly), as a cached index tensor; None where its projections are
+    already cut to its heads."""
+    if mesh is None or mesh.tp_size == 1:
+        return None
+    from quorum_tpu_torch.parallel.sharding import kv_select
+
+    sel = kv_select(spec.n_heads, spec.n_kv_heads, mesh.tp_size, mesh.tp_rank)
+    if sel is None:
+        return None
+    key = (tuple(sel), str(device))
+    idx = _KV_SELECT.get(key)
+    if idx is None:
+        idx = _KV_SELECT[key] = _made(torch.tensor(sel, device=device), device)
+    return idx
+
+
+class _SharedGrad(torch.autograd.Function):
+    """A kv cut several tp ranks hold (``parallel/sharding.kv_sharers``):
+    the identity forward; backward, the gradients of every rank holding
+    the same heads summed (each has only its own query heads' part)."""
+
+    @staticmethod
+    def forward(ctx, w, group, sharers):
+        ctx.group, ctx.sharers = group, sharers
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        every = ctx.group.all_gather(g.contiguous()[None], dim=0)
+        return every[list(ctx.sharers)].sum(dim=0), None, None
+
+
+def _kv_weights(block, spec: ModelSpec, mesh, selecting: bool):
+    """The K/V projections (and biases) as this rank's products take them:
+    where the rank's gradient of them is partial — whole projections it
+    selects from, or a cut other ranks hold too — they enter so that the
+    gradient is summed over the ranks holding them (``tp_enter`` over tp,
+    or :class:`_SharedGrad` over the sharers). Themselves otherwise, and
+    whenever nothing is differentiated."""
+    names = ("wk", "wv", "bk", "bv")
+    leaves = [block.get(n) for n in names]
+    w = leaves[0]
+    if mesh is None or mesh.tp_size == 1 or not (
+            isinstance(w, torch.Tensor) and w.requires_grad and torch.is_grad_enabled()):
+        return leaves
+    if selecting:
+        return [None if t is None else tp_enter(t, mesh) for t in leaves]
+    from quorum_tpu_torch.parallel.sharding import kv_sharers
+
+    sharers = kv_sharers(spec.n_heads, spec.n_kv_heads, mesh.tp_size, mesh.tp_rank)
+    if len(sharers) == 1:
+        return leaves
+    return [None if t is None else _SharedGrad.apply(t, mesh.tp, tuple(sharers))
+            for t in leaves]
+
+
+def _qkv(x, block, spec: ModelSpec, mesh=None):
     """Project to contiguous q [B,H,T,hd], k/v [B,K,T,hd]; H and K are the
-    projections' widths over head_dim (a tp rank's share of the heads)."""
+    projections' widths over head_dim (a tp rank's share of the heads). A
+    tp rank whose K/V projections are whole takes its cache's kv heads
+    from them (:func:`_kv_select`). In training a K/V weight whose rank
+    gradient is partial has it summed over the ranks holding it
+    (:func:`_kv_weights`)."""
     b, t, _ = x.shape
-    xq = quantize_act(x, block["wq"], block["wk"], block["wv"])
-    q, k, v = _mm(x, block["wq"], xq), _mm(x, block["wk"], xq), _mm(x, block["wv"], xq)
+    sel = _kv_select(spec, mesh, x.device)
+    wk, wv, bk, bv = _kv_weights(block, spec, mesh, sel is not None)
+    xq = quantize_act(x, block["wq"], wk, wv)
+    q, k, v = _mm(x, block["wq"], xq), _mm(x, wk, xq), _mm(x, wv, xq)
     if block.get("bq") is not None:
-        q, k, v = _add(q, block["bq"]), _add(k, block["bk"]), _add(v, block["bv"])
+        q, k, v = _add(q, block["bq"]), _add(k, bk), _add(v, bv)
 
     def heads(y, n):
         return y.to(x.dtype).reshape(b, t, n, spec.head_dim).transpose(1, 2).contiguous()
 
     hd = spec.head_dim
-    return heads(q, q.shape[-1] // hd), heads(k, k.shape[-1] // hd), heads(v, v.shape[-1] // hd)
+    q, k, v = heads(q, q.shape[-1] // hd), heads(k, k.shape[-1] // hd), heads(v, v.shape[-1] // hd)
+    if sel is not None:
+        k, v = k.index_select(1, sel), v.index_select(1, sel)
+    return q, k, v
 
 
 def _attn_out(attn, block, x_dtype, mesh=None):
@@ -489,14 +619,18 @@ def _block(x, block, spec, q_k_v_to_attn, token_mask=None, dense_moe: bool = Fal
     """One transformer block around an attention callable; ``token_mask``
     [B, T] keeps right-padding out of MoE expert capacity; ``dense_moe``
     runs MoE layers densely whatever T is. On a mesh (a tp rank's shard)
-    the output and down projections' partial sums are all-reduced over the
-    tp ranks; norms, RoPE and the residual stay replicated."""
-    h = tp_enter(_norm(x, block["attn_norm_w"], block.get("attn_norm_b"), spec), mesh)
-    q, k, v = _qkv(h, block, spec)
+    the output and down projections' partial sums (the experts' on an MoE
+    layer) are all-reduced over the tp ranks, except where the leaves are
+    whole on every rank (:func:`_tp_cut`); norms, RoPE and the residual
+    stay replicated."""
+    attn_mesh = _tp_cut(mesh, _in_width(block["wo"]), spec.n_heads * spec.head_dim)
+    h = tp_enter(_norm(x, block["attn_norm_w"], block.get("attn_norm_b"), spec), attn_mesh)
+    q, k, v = _qkv(h, block, spec, mesh)
     attn, k, v = q_k_v_to_attn(q, k, v)
-    x = x + _attn_out(attn, block, x.dtype, mesh)
-    h2 = tp_enter(_norm(x, block["mlp_norm_w"], block.get("mlp_norm_b"), spec), mesh)
-    return x + _mlp(h2, block, spec, token_mask=token_mask, dense_moe=dense_moe, mesh=mesh)
+    x = x + _attn_out(attn, block, x.dtype, attn_mesh)
+    mlp_mesh = _mlp_mesh(block, spec, mesh)
+    h2 = tp_enter(_norm(x, block["mlp_norm_w"], block.get("mlp_norm_b"), spec), mlp_mesh)
+    return x + _mlp(h2, block, spec, token_mask=token_mask, dense_moe=dense_moe, mesh=mlp_mesh)
 
 
 def kv_is_q8(cache) -> bool:
@@ -609,7 +743,7 @@ def prefill(
     blocks = params["blocks"]
     moe_mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]) if spec.is_moe else None
 
-    for l in range(spec.n_layers):
+    for l in range(n_layers(blocks)):
         def attend(q, k, v, l=l):
             if spec.pos == "rope":
                 q = apply_rope(q, cos, sin, positions)
@@ -771,7 +905,7 @@ def prefill_segment(
         wslots = write_slots(first, dst[:, 0], wpos, wpos < spec.max_seq)
         ridx = window_index(first.table[read], hist, first.page_size, spec.n_kv_heads)
 
-    for l in range(spec.n_layers):
+    for l in range(n_layers(blocks)):
         def attend(q, k, v, l=l):
             if spec.pos == "rope":
                 q = apply_rope(q, cos, sin, positions)
@@ -879,7 +1013,7 @@ def decode_step_blocks(
         wslots = write_slots(first, rows, pos[:, None], (allow & (pos < spec.max_seq))[:, None])
         ridx = window_index(first.table, hist, first.page_size, spec.n_kv_heads)
 
-    for l in range(spec.n_layers):
+    for l in range(n_layers(blocks)):
         def attend(q, k, v, l=l):
             if spec.pos == "rope":
                 q = apply_rope(q, cos, sin, pos[:, None])
@@ -1312,13 +1446,14 @@ def forward_logits_sp(params: Params, spec: ModelSpec, tokens: torch.Tensor,
 
 
 def init_cache(spec: ModelSpec, batch: int, dtype=None, device=None,
-               kv_quant: str | None = None, n_kv_heads: int | None = None):
+               kv_quant: str | None = None, n_kv_heads: int | None = None,
+               layers: int | None = None):
     """Preallocated KV cache: ``[L, B, K, max_seq, hd]`` × 2, zeroed. At
     llama-3-8b widths with an 8192 window that is 1.07 GB per slot in bf16.
     ``kv_quant="int8"``: each side is ``(int8 values, f32 per-token
     scales [L, B, K, max_seq])``, 0.54 GB per slot there. ``n_kv_heads``
-    overrides K (a tp rank's kv heads)."""
-    shape = (spec.n_layers, batch, n_kv_heads or spec.n_kv_heads, spec.max_seq,
+    overrides K (a tp rank's kv heads), ``layers`` L (a pipeline stage's)."""
+    shape = (layers or spec.n_layers, batch, n_kv_heads or spec.n_kv_heads, spec.max_seq,
              spec.head_dim)
     if kv_quant == "int8":
         def side():

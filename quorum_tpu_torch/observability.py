@@ -77,6 +77,14 @@ DECODE_CHUNK = METRICS.histogram(
     buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
              1.0, 2.5, 5.0, 10.0))
 
+# Pipeline-staged engines (pp > 1): active rows per row group.
+DECODE_STAGE_OCCUPANCY = METRICS.gauge(
+    "quorum_tpu_decode_stage_occupancy",
+    "Active decode rows per pipeline-staged row group (pp>1 engines: "
+    "group g's rows are stage g's microbatch slot in the staged ring — "
+    "docs/scaling.md). Bare sample stays 0 on unstaged engines; "
+    "last-writer-wins across engines sharing the process.")
+
 # The decode ring: dispatches in flight now, and the chunks one dispatch
 # (decode_loop=C) produced tokens for.
 PIPELINE_DEPTH = METRICS.gauge(

@@ -4,11 +4,12 @@ process groups: what GSPMD inserts for the JAX package (its
 Ulysses run ``ppermute`` and ``all_to_all`` inside ``shard_map``).
 
 A :class:`Group` is one rank's view of one axis subgroup (the mesh's dp,
-tp or sp ranks, or all of them): all-reduce (sum), all-gather along a
-dimension, broadcast, all-to-all and the ring's pass to the next rank. A
+pp, tp or sp ranks, or all of them): all-reduce (sum), all-gather along a
+dimension, broadcast, all-to-all, the ring's pass to the next rank and the
+pipeline's one-way hop (:meth:`Group.shift`). A
 :class:`RankMesh` is the mesh as one rank sees it: the layout
 (``parallel/mesh.Mesh``), the rank, its coordinates, its ``world``, ``dp``,
-``tp`` and ``sp`` groups and, on an engine, the slot rows its KV cache
+``pp``, ``tp`` and ``sp`` groups and, on an engine, the slot rows its KV cache
 holds (:meth:`RankMesh.hold_slots`). :func:`join` builds one from a
 rendezvous store.
 
@@ -46,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from quorum_tpu_torch.ops import launches
-from quorum_tpu_torch.parallel.mesh import AXIS_DP, AXIS_SP, AXIS_TP, Mesh
+from quorum_tpu_torch.parallel.mesh import AXIS_DP, AXIS_PP, AXIS_SP, AXIS_TP, Mesh
 
 logger = logging.getLogger(__name__)
 
@@ -63,7 +64,7 @@ class _Counter:
 
 
 COLLECTIVES = {name: _Counter(name) for name in
-               ("all_reduce", "all_gather", "broadcast", "all_to_all", "ring_pass")}
+               ("all_reduce", "all_gather", "broadcast", "all_to_all", "ring_pass", "p2p")}
 
 
 def collective_counts() -> dict[str, int]:
@@ -224,6 +225,35 @@ class Group:
         return [self._back(r, t) for r, t in zip(recvs, tensors)]
 
 
+    def shift(self, out: torch.Tensor | None = None,
+              like: torch.Tensor | None = None) -> torch.Tensor | None:
+        """One hop along the group's ring: send ``out`` (if given) to the
+        next group rank and receive, into a tensor shaped like ``like`` (if
+        given), what the previous rank sent; returns the received tensor.
+        The pipeline's stage-to-stage hand-off. Even ranks send first and
+        odd ranks receive first, as :meth:`ring_pass` pairs them, so the
+        hops of one tick never wait on each other in a cycle, whichever
+        ranks take part. Each send and each receive counts one ``p2p``; on
+        NCCL both are recorded into a capture like any collective."""
+        nxt, prv = (self.rank + 1) % self.size, (self.rank - 1) % self.size
+        got = None if like is None else torch.empty_like(self._stage(like))
+
+        def send():
+            launches.count(COLLECTIVES["p2p"])
+            return self.pg.send([self._stage(out)], nxt, 0)
+
+        def recv():
+            launches.count(COLLECTIVES["p2p"])
+            return self.pg.recv([got], prv, 0)
+
+        steps = [send, recv] if self.rank % 2 == 0 else [recv, send]
+        for step in steps:
+            if (step is send and out is None) or (step is recv and like is None):
+                continue
+            step().wait()
+        return None if like is None else self._back(got, like)
+
+
 class _SumOut(torch.autograd.Function):
     """Megatron's g: the group's sum forward, the identity backward."""
 
@@ -274,8 +304,8 @@ def tp_enter(x: torch.Tensor, mesh) -> torch.Tensor:
 
 class RankMesh:
     """The mesh as rank ``rank`` sees it: the layout, this rank's
-    coordinates and device, and its ``world``, ``dp``, ``tp`` and ``sp``
-    groups (a subgroup with the world's ranks shares the world's backend).
+    coordinates and device, and its ``world``, ``dp``, ``pp``, ``tp`` and
+    ``sp`` groups (a subgroup with the world's ranks shares the world's backend).
     ``slots``: ``(lo, hi, n)``, the slot rows ``[lo, hi)`` of ``n`` this
     rank's KV cache holds, once an engine set them (:meth:`hold_slots`)."""
 
@@ -288,6 +318,7 @@ class RankMesh:
         self.dp = groups[AXIS_DP]
         self.tp = groups[AXIS_TP]
         self.sp = groups[AXIS_SP]
+        self.pp = groups[AXIS_PP]
         self.slots: tuple[int, int, int] | None = None
         self._aborted = False
         self._abort_thread: threading.Thread | None = None
@@ -336,6 +367,15 @@ class RankMesh:
         return self.mesh.shape[AXIS_TP]
 
     @property
+    def pp_rank(self) -> int:
+        """This rank's pipeline stage."""
+        return self.coords[AXIS_PP]
+
+    @property
+    def pp_size(self) -> int:
+        return self.mesh.shape[AXIS_PP]
+
+    @property
     def sp_rank(self) -> int:
         return self.coords[AXIS_SP]
 
@@ -364,7 +404,7 @@ class RankMesh:
 
     def _pgs(self) -> list:
         seen, out = set(), []
-        for g in (self.world, self.dp, self.tp, self.sp):
+        for g in (self.world, self.dp, self.tp, self.sp, self.pp):
             if id(g.pg) not in seen:
                 seen.add(id(g.pg))
                 out.append(g)
@@ -378,16 +418,18 @@ class RankMesh:
         work first. Returns whether every group shut down in order."""
         if self._aborted:
             return False
-        if not self._on_each_group("shutdown", timeout_s).is_alive():
+        t = self._on_each_group("shutdown")
+        t.join(timeout_s)
+        if not t.is_alive():
             return True
         logger.error("rank %d: the groups did not shut down within %.0f s; aborting them",
                      self.rank, timeout_s)
         self.abort()
         return False
 
-    def _on_each_group(self, op: str, wait_s: float) -> threading.Thread:
-        """Call ``pg.<op>()`` on each group in a thread of its own, waiting
-        for it at most ``wait_s``; returns the thread."""
+    def _on_each_group(self, op: str) -> threading.Thread:
+        """Start calling ``pg.<op>()`` on each group in a thread of its own;
+        returns the thread, started."""
         groups = self._pgs()
 
         def run():
@@ -400,7 +442,6 @@ class RankMesh:
 
         t = threading.Thread(target=run, name=f"rank{self.rank}-{op}", daemon=True)
         t.start()
-        t.join(wait_s)
         return t
 
     def abort(self, wait_s: float = 5.0) -> None:
@@ -414,12 +455,17 @@ class RankMesh:
         if self.backend != "nccl" or self._aborted:
             return
         self._aborted = True
-        self._abort_thread = self._on_each_group("abort", wait_s)
+        # The thread is recorded before the wait: a caller of wait_abort on
+        # another thread meanwhile must find it (a process that ends while
+        # an abort still runs dies in it: CUDA is torn down under it).
+        self._abort_thread = self._on_each_group("abort")
+        self._abort_thread.join(wait_s)
 
     def wait_abort(self, timeout_s: float) -> bool:
         """Wait up to ``timeout_s`` for an abort to finish (its communicators
         released once no graph holds their collectives); True when none
-        runs. A process must not end while one does."""
+        runs. A process must not end while one does: each group's abort is
+        bounded by the group's timeout, so a wait of that long suffices."""
         t = self._abort_thread
         if t is not None:
             t.join(timeout_s)
@@ -440,7 +486,7 @@ def join(mesh: Mesh, rank: int, store) -> RankMesh:
         return Group(name, pg, ranks, rank, mesh.backend)
 
     groups = {"world": group("world", world_ranks)}
-    for axis in (AXIS_DP, AXIS_TP, AXIS_SP):
+    for axis in (AXIS_DP, AXIS_PP, AXIS_TP, AXIS_SP):
         ranks = mesh.axis_ranks(rank, axis)
         if ranks == world_ranks:
             w = groups["world"]

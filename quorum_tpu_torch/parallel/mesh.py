@@ -7,7 +7,9 @@ Axis conventions are the JAX package's:
   ``dp``  data parallel      — the KV cache's slot rows (each dp group of
                                ranks serves its own rows; training: each
                                dp group its own batch rows);
-  ``pp``  pipeline parallel  — refused for now;
+  ``pp``  pipeline parallel  — decode stages: stage s holds layers
+                               [s·L/pp, (s+1)·L/pp) and their cache
+                               (``parallel/pipeline.py``);
   ``sp``  sequence parallel  — prompt blocks for ring attention or Ulysses;
   ``tp``  tensor parallel    — attention heads, MLP hidden, vocab shards.
 
@@ -133,10 +135,6 @@ def make_mesh(cfg: MeshConfig | None = None, devices=None, *, backend: str | Non
     NCCL over ranks that share a card raises, naming ``backend="gloo"``."""
     devs = _devices(devices)
     cfg = cfg or MeshConfig(tp=len(devs))
-    if cfg.pp > 1:
-        raise ValueError(
-            f"pp={cfg.pp} is not served on cuda:// meshes yet (dp, tp and sp are; the "
-            "tpu:// backend serves pp)")
     if min(cfg.dp, cfg.pp, cfg.sp, cfg.tp) < 1:
         raise ValueError(f"invalid mesh {cfg} (every axis must be >= 1)")
     if cfg.n_devices > len(devs):

@@ -176,8 +176,8 @@ def worker_main(rank: int, mesh: Mesh, port: int, conn, setup) -> None:
         logger.error("rank %d failed:\n%s", rank, text)
         os._exit(1)
     finally:
-        if rmesh is not None:
-            rmesh.shutdown(LEAVE_TIMEOUT_S)
+        if rmesh is not None and not rmesh.shutdown(LEAVE_TIMEOUT_S):
+            rmesh.wait_abort(mesh.timeout_s)
 
 
 class RankGroup:
@@ -384,9 +384,11 @@ class RankGroup:
                 self.rank_mesh.shutdown(LEAVE_TIMEOUT_S)
             else:
                 self.rank_mesh.abort()
-            if not self.rank_mesh.wait_abort(LEAVE_TIMEOUT_S):
+            # Every group's abort is bounded by the mesh's timeout; the
+            # process must not go on to its exit while one still runs.
+            if not self.rank_mesh.wait_abort(self.mesh.timeout_s + LEAVE_TIMEOUT_S):
                 logger.error("rank 0's group abort is still running after %.0f s",
-                             LEAVE_TIMEOUT_S)
+                             self.mesh.timeout_s + LEAVE_TIMEOUT_S)
             self.rank_mesh = None
         for p in self.procs:
             p.join(max(0.0, deadline + LEAVE_TIMEOUT_S - time.monotonic()))

@@ -18,16 +18,27 @@ each dp group of ranks holds a contiguous block of the slot rows, or every
 row when dp does not divide their count. The weights are replicated over dp
 (each dp rank holds its tp cut).
 
-One rule differs: where ``n_kv_heads`` does not divide tp (2 kv heads on
-tp=4), the JAX package replicates the kv heads (its ``kv_cache_sharding``
-and ``replicate_kv_heads``) and shards the query heads' projections by the
-flat head dimension; each port rank keeps the kv heads that its own query
-heads read (:func:`rank_kv_heads`), so its K/V projections and its cache
-hold exactly those.
+A dim tp does not divide is whole on every rank, as the JAX package's
+``_fit_spec`` leaves it, at the granularity the port cuts: whole query
+heads (every head on every rank when tp does not divide H), whole experts
+(E/tp each; every expert when tp does not divide E; the router replicated),
+MLP-hidden and vocab blocks. Where tp does not divide ``n_kv_heads`` the
+JAX package replicates the kv heads (its ``kv_cache_sharding`` and
+``replicate_kv_heads``); each port rank's cache keeps the kv heads that its
+own query heads read (:func:`rank_kv_index`): its K/V projections are cut
+to them where the query-head groups cut evenly, and whole (replicated, as
+JAX's) where they do not, the rank then selecting its heads after the
+projection (:func:`kv_select`).
+
+Pipeline stages (pp) cut the layer axis (:func:`stage_layers`): stage s
+holds layers ``[s·L/pp, (s+1)·L/pp)`` of every ``[L, …]`` leaf and of the
+KV cache, and only stage 0 holds the embedding, the final norm and the
+head (:class:`RankCut`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Mapping
 
 from quorum_tpu_torch.parallel.mesh import AXIS_DP, AXIS_PP, AXIS_SP, AXIS_TP
@@ -144,72 +155,177 @@ def param_partition_specs(params: Mapping[str, Any], lead_axes: int = 0, *,
 
 def rank_heads(n_heads: int, tp: int, tp_rank: int) -> tuple[int, int]:
     """Query heads ``[lo, hi)`` of tp rank ``tp_rank``: contiguous, H/tp
-    each."""
+    each; every head on every rank where tp does not divide H (the JAX
+    package's ``_fit_spec`` replicates a dim the mesh does not divide; the
+    port cuts only whole heads)."""
     if n_heads % tp:
-        raise ValueError(f"tp={tp} does not divide n_heads={n_heads}: each rank holds "
-                         "whole query heads")
+        return 0, n_heads
     per = n_heads // tp
     return tp_rank * per, (tp_rank + 1) * per
 
 
-def rank_kv_heads(n_heads: int, n_kv_heads: int, tp: int, tp_rank: int) -> tuple[int, int]:
-    """KV heads ``[lo, hi)`` that tp rank ``tp_rank``'s query heads read
-    (query head i reads kv head i // G, G = H/K): K/tp of them when tp
-    divides K, else the one or few groups its heads fall in (two ranks may
-    then hold the same kv head). Refused where a rank's heads would cut
-    groups unevenly (its local GQA grouping must stay i // G')."""
+def kv_cut_evenly(n_heads: int, n_kv_heads: int, tp: int) -> bool:
+    """Whether every tp rank's query heads fall in whole kv groups, or
+    within one (its heads per rank a multiple or a divisor of the group
+    size H/K): its K/V projections and its cache are then cut to the
+    contiguous kv heads it reads (:func:`rank_kv_heads`; where tp does not
+    divide K, two ranks hold the same head). Otherwise the K/V projections
+    are whole on every rank (the JAX package's ``replicate_kv_heads``) and
+    each rank selects the kv heads its own query heads read after the
+    projection (:func:`kv_select`); in training each rank's gradient of
+    them is then partial and summed over tp."""
+    lo, hi = rank_heads(n_heads, tp, 0)
+    per, g = hi - lo, n_heads // n_kv_heads
+    return per % g == 0 or g % per == 0
+
+
+def rank_kv_index(n_heads: int, n_kv_heads: int, tp: int, tp_rank: int) -> list[int]:
+    """The kv heads tp rank ``tp_rank``'s cache holds, in the order its
+    query heads read them: its local query head j reads entry ``j // G'``
+    (G' its heads per entry), so the attention kernels' GQA-by-index
+    grouping holds on every rank. Query head i reads kv head ``i // G``
+    (G = H/K). Where the groups cut evenly the entries are the contiguous
+    kv heads the rank reads (K/tp of them when tp divides K; two ranks may
+    hold the same one); otherwise G' = gcd(heads per rank, G), and a kv
+    head may stand in several entries."""
     lo, hi = rank_heads(n_heads, tp, tp_rank)
     g = n_heads // n_kv_heads
-    per = hi - lo
-    if per % g and g % per:
-        raise ValueError(
-            f"tp={tp} cuts the query-head groups of n_heads={n_heads}, "
-            f"n_kv_heads={n_kv_heads} unevenly ({per} heads per rank, {g} per kv head)")
-    return lo // g, (hi - 1) // g + 1
+    if kv_cut_evenly(n_heads, n_kv_heads, tp):
+        return list(range(lo // g, (hi - 1) // g + 1))
+    step = math.gcd(hi - lo, g)
+    return [(lo + j) // g for j in range(0, hi - lo, step)]
+
+
+def rank_kv_heads(n_heads: int, n_kv_heads: int, tp: int, tp_rank: int) -> tuple[int, int]:
+    """KV heads ``[lo, hi)`` that tp rank ``tp_rank``'s K/V projections
+    are cut to: where the groups cut evenly, those its query heads read
+    (K/tp of them when tp divides K; else the one or few groups its heads
+    fall in, two ranks then holding the same head), every kv head where
+    they do not (:func:`kv_cut_evenly`)."""
+    if not kv_cut_evenly(n_heads, n_kv_heads, tp):
+        return 0, n_kv_heads
+    idx = rank_kv_index(n_heads, n_kv_heads, tp, tp_rank)
+    return idx[0], idx[-1] + 1
+
+
+def kv_select(n_heads: int, n_kv_heads: int, tp: int, tp_rank: int) -> list[int] | None:
+    """The entries a rank takes from its whole K/V projections' heads
+    (:func:`rank_kv_index`), or None where the projections are already cut
+    to them."""
+    if tp <= 1 or kv_cut_evenly(n_heads, n_kv_heads, tp):
+        return None
+    return rank_kv_index(n_heads, n_kv_heads, tp, tp_rank)
+
+
+def kv_sharers(n_heads: int, n_kv_heads: int, tp: int, tp_rank: int) -> list[int]:
+    """The tp ranks whose K/V projections are cut to the same kv heads as
+    ``tp_rank``'s (itself included, in rank order): more than one where the
+    groups cut evenly but tp does not divide K. Training sums those ranks'
+    gradients of the shared cut, and the first of them counts it in the
+    global norm."""
+    if n_heads % tp or not kv_cut_evenly(n_heads, n_kv_heads, tp):
+        return [tp_rank]  # whole on every rank: each computes the whole gradient
+    mine = rank_kv_heads(n_heads, n_kv_heads, tp, tp_rank)
+    return [r for r in range(tp) if rank_kv_heads(n_heads, n_kv_heads, tp, r) == mine]
+
+
+def rank_experts(n_experts: int, tp: int, tp_rank: int) -> tuple[int, int]:
+    """Experts ``[lo, hi)`` of tp rank ``tp_rank``: E/tp whole experts each
+    (expert parallelism shares the tp axis, the JAX package's rule), or
+    every expert on every rank where tp does not divide E."""
+    if n_experts % tp:
+        return 0, n_experts
+    per = n_experts // tp
+    return tp_rank * per, (tp_rank + 1) * per
+
+
+def stage_layers(n_layers: int, pp: int, pp_rank: int) -> tuple[int, int]:
+    """Layers ``[lo, hi)`` of pipeline stage ``pp_rank``: L/pp contiguous
+    layers each (the JAX package's ``P(pp)`` over the layer axis)."""
+    if n_layers % pp:
+        raise ValueError(f"pp={pp} does not divide n_layers={n_layers}: stages hold equal "
+                         "contiguous layer shards — pick a dividing pp or pad the model")
+    per = n_layers // pp
+    return pp_rank * per, (pp_rank + 1) * per
 
 
 def _cut(x, dim: int, lo: int, hi: int):
     return x.narrow(dim, lo, hi - lo)
 
 
-def rank_cut(spec, mesh, rank: int):
-    """``cut(name, x, layer_part=False)``: rank ``rank``'s view of leaf
-    ``name`` of ``spec``'s tree on ``mesh`` (a ``Mesh`` or ``RankMesh``)."""
+class RankCut:
+    """``cut(name, x, layer_part=False)``: one rank's view of leaf ``name``
+    (:func:`shard_leaf`), or None for a leaf the rank does not hold (a
+    later pipeline stage holds no embedding, final norm or head). ``layers``
+    is the rank's stage's ``[lo, hi)`` of the layer axis (all layers
+    without pp): a ``[L, …]`` leaf is cut to it, a ``layer_part`` slice of
+    a layer outside it is the caller's to skip."""
+
+    def __init__(self, spec, tp: int, tp_rank: int, pp: int = 1, pp_rank: int = 0):
+        self.spec, self.tp, self.tp_rank = spec, tp, tp_rank
+        self.pp_rank = pp_rank
+        self.layers = stage_layers(spec.n_layers, pp, pp_rank)
+        self.experts = rank_experts(spec.n_experts, tp, tp_rank) if spec.n_experts else (0, 0)
+
+    def keeps(self, name: str) -> bool:
+        """Whether the rank holds leaf ``name`` at all."""
+        axes = PARAM_LOGICAL_AXES.get(name)
+        return self.pp_rank == 0 or (axes is not None and axes[0] == "layers")
+
+    def __call__(self, name: str, x, layer_part: bool = False):
+        if x is None or not self.keeps(name):
+            return None
+        axes = PARAM_LOGICAL_AXES.get(name)
+        if axes is not None and axes[0] == "layers" and not layer_part:
+            lo, hi = self.layers
+            if (lo, hi) != (0, x.shape[0]):
+                x = _cut(x, 0, lo, hi)
+        s = self.spec
+        return shard_leaf(name, x, tp=self.tp, tp_rank=self.tp_rank, n_heads=s.n_heads,
+                          n_kv_heads=s.n_kv_heads, head_dim=s.head_dim,
+                          vocab_size=s.vocab_size, layer_part=layer_part,
+                          n_experts=s.n_experts)
+
+
+def rank_cut(spec, mesh, rank: int) -> RankCut:
+    """Rank ``rank``'s :class:`RankCut` of ``spec``'s tree on ``mesh`` (a
+    ``Mesh`` or ``RankMesh``): its tp cut and its pipeline stage's
+    layers."""
     layout = mesh.mesh if hasattr(mesh, "mesh") else mesh
-    tp, tp_rank = layout.shape[AXIS_TP], layout.coords(rank)[AXIS_TP]
-
-    def cut(name: str, x, layer_part: bool = False):
-        return shard_leaf(name, x, tp=tp, tp_rank=tp_rank, n_heads=spec.n_heads,
-                          n_kv_heads=spec.n_kv_heads, head_dim=spec.head_dim,
-                          vocab_size=spec.vocab_size, layer_part=layer_part)
-
-    return cut
+    c = layout.coords(rank)
+    return RankCut(spec, layout.shape[AXIS_TP], c[AXIS_TP], layout.shape[AXIS_PP], c[AXIS_PP])
 
 
 def shard_leaf(name: str, x, *, tp: int, tp_rank: int, n_heads: int, n_kv_heads: int,
-               head_dim: int, vocab_size: int, layer_part: bool = False):
+               head_dim: int, vocab_size: int, layer_part: bool = False, n_experts: int = 0):
     """Tp rank ``tp_rank``'s cut of leaf ``name`` (a view), along every dim
     that :func:`logical_to_spec` maps to ``tp``: by whole heads (query
-    heads, or the kv heads the rank reads), or by MLP-hidden or vocab
-    blocks. A vocab or hidden dim tp does not divide is replicated (the JAX
-    package's ``_fit_spec``). ``layer_part``: ``x`` is one layer's slice of
-    a ``[L, …]`` leaf."""
+    heads, or the kv heads the rank reads), whole experts, or MLP-hidden
+    or vocab blocks. A dim tp does not divide is whole on every rank (the
+    JAX package's ``_fit_spec``): query heads when tp does not divide H,
+    kv heads when the groups cut unevenly (:func:`kv_cut_evenly`), experts
+    when tp does not divide E; the product that would have summed its
+    partial outputs then skips its collective (``models/transformer``).
+    ``layer_part``: ``x`` is one layer's slice of a ``[L, …]`` leaf."""
     axes = PARAM_LOGICAL_AXES.get(name)
-    if axes is None or x is None:
+    if axes is None or x is None or tp <= 1:
         return x
     if layer_part and axes[0] == "layers":
         axes = axes[1:]
     for dim, (axis, mesh_axis) in enumerate(zip(axes, logical_to_spec(axes))):
         if mesh_axis != AXIS_TP:
             continue
-        if axis == "experts":
-            raise ValueError(f"MoE leaf {name!r}: MoE specs are not yet on a multi-rank engine")
         if axis == "heads":
             lo, hi = rank_heads(n_heads, tp, tp_rank)
             x = _cut(x, dim, lo * head_dim, hi * head_dim)
         elif axis == "kv_heads":
             lo, hi = rank_kv_heads(n_heads, n_kv_heads, tp, tp_rank)
             x = _cut(x, dim, lo * head_dim, hi * head_dim)
+        elif axis == "experts":
+            if name == "router":
+                continue  # replicated: every rank routes every token alike
+            lo, hi = rank_experts(n_experts or x.shape[dim], tp, tp_rank)
+            x = _cut(x, dim, lo, hi)
         else:
             n = x.shape[dim]
             if axis == "vocab" and n != vocab_size:

@@ -28,7 +28,7 @@ import torch
 
 from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
 from quorum_tpu_torch.parallel.mesh import AXIS_SP, AXIS_TP
-from quorum_tpu_torch.parallel.sharding import rank_kv_heads
+from quorum_tpu_torch.parallel.sharding import rank_kv_index
 
 
 def _dest_kv(hq: int, hk: int, sp: int) -> list[tuple[int, int]] | None:
@@ -53,11 +53,8 @@ def ulysses_supported(h: int, n_kv: int, mesh, sp: str = AXIS_SP) -> bool:
     tp, n_sp = shape[AXIS_TP], shape[sp]
     if h % tp:
         return False
-    try:
-        cuts = [rank_kv_heads(h, n_kv, tp, r) for r in range(tp)]
-    except ValueError:
-        return False
-    return all(_dest_kv(h // tp, hi - lo, n_sp) is not None for lo, hi in cuts)
+    return all(_dest_kv(h // tp, len(rank_kv_index(h, n_kv, tp, r)), n_sp) is not None
+               for r in range(tp))
 
 
 def ulysses_prefill_attention(

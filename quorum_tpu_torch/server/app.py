@@ -268,7 +268,7 @@ _ENGINE_GAUGES = frozenset({
     "decode_pipeline", "decode_loop", "inflight_chunks", "prefix_store_bytes",
     "prefix_store_entries", "breaker_state", "kv_pages", "kv_page_size",
     "kv_pages_allocated", "kv_pages_free", "decode_graph_pool_bytes", "draining", "qos",
-    "zero_drain"})
+    "zero_drain", "decode_pp"})
 
 
 def _distinct_engines(reg: BackendRegistry):

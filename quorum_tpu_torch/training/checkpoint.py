@@ -105,8 +105,13 @@ def _whole_shapes(spec: ModelSpec) -> dict[str, tuple]:
 
 def _gathered(state: TrainState, mesh, spec: ModelSpec) -> TrainState:
     """``state`` (a tp rank's cut) with every cut leaf all-gathered whole
-    over tp, along the dimension its cut took."""
+    over tp, along the dimension its cut took (kv heads that several ranks
+    hold taken once, from the first of them)."""
+    from quorum_tpu_torch.parallel.sharding import kv_sharers
+
     whole = _whole_shapes(spec)
+    firsts = sorted({kv_sharers(spec.n_heads, spec.n_kv_heads, mesh.tp_size, r)[0]
+                     for r in range(mesh.tp_size)})
 
     def walk(tree: Any, prefix: str = "") -> Any:
         if tree is None:
@@ -116,7 +121,11 @@ def _gathered(state: TrainState, mesh, spec: ModelSpec) -> TrainState:
             if want is None or tree.dim() == 0 or tuple(tree.shape) == want:
                 return tree
             dim = next(d for d, (a, b) in enumerate(zip(tree.shape, want)) if a != b)
-            return mesh.tp.all_gather(tree.contiguous(), dim=dim)
+            out = mesh.tp.all_gather(tree.contiguous(), dim=dim)
+            if out.shape[dim] > want[dim]:  # kv heads several ranks share: each once
+                parts = out.chunk(mesh.tp_size, dim=dim)
+                out = torch.cat([parts[r] for r in firsts], dim=dim)
+            return out
 
         def sub(key, t):
             return walk(t, f"{prefix}.{key}" if prefix else str(key))

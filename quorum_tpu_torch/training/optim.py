@@ -338,15 +338,16 @@ def _square_sum(leaves) -> torch.Tensor | None:
 def global_norm(grads, *, mesh=None, cut=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, accumulated in f32 (a
     0-d f32 tensor on the leaves' device). On a ``mesh``, ``cut`` (a tree
-    of bools like ``grads``) names the tp-cut leaves: their squares are
-    summed over tp, the replicated leaves' counted once."""
+    of flags like ``grads``, ``trainer.tp_cut_flags``) names the tp-cut
+    leaves: their squares are summed over tp, the replicated leaves'
+    counted once, and a cut another rank counts (``"shared"``) not here."""
     if mesh is None or mesh.tp_size == 1:
         return torch.sqrt(_square_sum(tree_leaves(grads)))
     flags = []
     tree_map(flags.append, cut)
     leaves = tree_leaves(grads)
-    mine = _square_sum([g for g, c in zip(leaves, flags) if c])
-    once = _square_sum([g for g, c in zip(leaves, flags) if not c])
+    mine = _square_sum([g for g, c in zip(leaves, flags) if c is True])
+    once = _square_sum([g for g, c in zip(leaves, flags) if c is False])
     dev = leaves[0].device
     mine = torch.zeros((), device=dev) if mine is None else mine
     total = mesh.tp.all_reduce(mine.reshape(1).clone())[0]

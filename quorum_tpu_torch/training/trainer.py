@@ -46,6 +46,7 @@ from quorum_tpu_torch import resolve_device
 from quorum_tpu_torch.models.init import init_params, init_params_shard
 from quorum_tpu_torch.models.model_config import ModelSpec
 from quorum_tpu_torch.models.transformer import forward_logits
+from quorum_tpu_torch.parallel.sharding import kv_sharers
 from quorum_tpu_torch.training.optim import (CHUNK, Optimizer, global_norm, linear_schedule,
                                              tree_leaves, tree_map,
                                              warmup_cosine_decay_schedule)
@@ -173,20 +174,16 @@ def make_optimizer(
 
 def check_train_mesh(spec: ModelSpec, mesh) -> None:
     """Refuse what the mesh forms of training do not carry, by name: sp and
-    pp (not ported), MoE specs, and tp cuts a rank's gradients would not
-    cover alone (kv heads or MLP hidden that tp does not divide)."""
+    pp (not ported) and MoE specs. Every tp trains: a dim tp does not divide
+    is whole on every rank (``parallel/sharding``), and a leaf whose rank
+    gradient is partial (kv projections whole or shared by several ranks)
+    has it summed over the ranks that hold it (``models/transformer``)."""
     shape = mesh.mesh.shape
     if shape["sp"] > 1 or shape["pp"] > 1:
         raise ValueError(f"training on a mesh with sp or pp > 1 ({dict(shape)}) is not ported "
                          "yet: dp and tp are")
     if spec.is_moe:
-        raise ValueError("MoE specs are not yet on a multi-rank engine or trainer")
-    tp = shape["tp"]
-    for name, n in (("n_heads", spec.n_heads), ("n_kv_heads", spec.n_kv_heads),
-                    ("d_ff", spec.d_ff)):
-        if n % tp:
-            raise ValueError(f"tp={tp} does not divide {name}={n}: a training rank holds whole "
-                             "blocks of each cut leaf")
+        raise ValueError("MoE specs are not yet on a multi-rank trainer")
 
 
 def train_init(spec: ModelSpec, *, device="cuda", seed: int = 0,
@@ -233,7 +230,7 @@ def make_train_step(spec: ModelSpec, *, device="cuda", optimizer: Optimizer | No
             opt_state = opt.update(grads, state.opt_state, state.params)
         else:
             if not cut:
-                cut.append(tp_cut_flags(state.params, spec))
+                cut.append(tp_cut_flags(state.params, spec, mesh))
             opt_state = opt.update(grads, state.opt_state, state.params, mesh=mesh,
                                    cut=cut[0])
         return TrainState(state.params, opt_state, state.step + 1), loss
@@ -242,11 +239,21 @@ def make_train_step(spec: ModelSpec, *, device="cuda", optimizer: Optimizer | No
     return step
 
 
-def tp_cut_flags(params, spec: ModelSpec):
+def tp_cut_flags(params, spec: ModelSpec, mesh=None):
     """A tree like ``params``: True where the leaf is a tp rank's cut (its
-    shape is not the whole leaf's), False where it is replicated."""
+    shape is not the whole leaf's), False where it is replicated, and
+    ``"shared"`` where it is a cut another rank holds too (kv heads shared by
+    several ranks, ``parallel/sharding.kv_sharers``) and not this rank's to
+    count in the global norm: the first of those ranks counts it."""
     whole = init_params(spec, device="meta")
-    return tree_map(lambda p, w: tuple(p.shape) != tuple(w.shape), params, whole)
+    flags = tree_map(lambda p, w: tuple(p.shape) != tuple(w.shape), params, whole)
+    if mesh is not None:
+        sharers = kv_sharers(spec.n_heads, spec.n_kv_heads, mesh.tp_size, mesh.tp_rank)
+        if sharers[0] != mesh.tp_rank:
+            for name in ("wk", "wv", "bk", "bv"):
+                if flags["blocks"].get(name):
+                    flags["blocks"][name] = "shared"
+    return flags
 
 
 def train_steps(spec: ModelSpec, tokens, *, mesh, seed: int = 0, steps: int = 1,
@@ -282,7 +289,7 @@ def train_steps(spec: ModelSpec, tokens, *, mesh, seed: int = 0, steps: int = 1,
         state = TrainState(mine, optimizer.init(mine), torch.zeros((), dtype=torch.int32))
     rows = None if tokens is None else assemble_global_batch(tokens, mesh, len(tokens))
     norms: list[float] = []
-    cut = tp_cut_flags(state.params, spec)
+    cut = tp_cut_flags(state.params, spec, mesh)
 
     def record_norm(st, loss, grads):  # the whole tree's norm, before clipping
         norms.append(float(global_norm(grads, mesh=mesh, cut=cut)))

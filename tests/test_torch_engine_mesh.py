@@ -11,7 +11,9 @@ gpt2-tiny in float32, the JAX package's weights:
 - every worker fed rank 0's tokens (the broadcast of each step's inputs);
 - gpt2-tiny's output and down-projection biases are added once, after the
   all-reduce (random biases: added on both ranks the tokens differ);
-- the refused compositions are named; ``cuda://llama-tiny?tp=2&device=cpu``
+- the refused compositions are named (MoE specs and tp sizes that do not
+  divide the heads serve now: ``tests/test_torch_mesh_moe.py``,
+  ``tests/test_torch_tp_fit.py``); ``cuda://llama-tiny?tp=2&device=cpu``
   answers through the app; a killed worker ends its stream with an error
   and every later request is a 503, not a hang; no process is left after
   shutdown; a spawned rank imports neither jax nor quorum_tpu.
@@ -196,14 +198,14 @@ def test_refused_compositions_are_named(knobs, match):
 
 
 @pytest.mark.parametrize("model,axes,impl,knobs,match", [
-    ("mixtral-tiny", dict(tp=2), "ring", {}, "MoE specs: not yet on a multi-rank engine"),
+    ("llama-tiny", dict(pp=2, tp=2), "ring", {}, "tp=1/dp=1 within each stage"),
     ("llama-tiny", dict(sp=2), "bogus", {}, "unknown sp_impl"),
     ("llama-tiny", dict(sp=8), "ulysses", {}, "head counts"),
     ("mistral-tiny", dict(sp=2), "ring", {}, "ulysses"),
     ("llama-tiny", dict(sp=2), "ring", dict(members=2), "members does not compose with sp>1"),
     ("llama-tiny", dict(sp=2), "ring", dict(kv_pages=True),
      "kv_pages=1 does not compose with sp>1"),
-    ("llama-tiny", dict(tp=4), "ring", {"n_heads": "6", "n_kv_heads": "3"}, "does not divide"),
+    ("llama-tiny", dict(pp=2), "ring", {"n_layers": "3"}, "pp=2 does not divide n_layers=3"),
 ])
 def test_refused_mesh_specs_in_jax_words(model, axes, impl, knobs, match):
     spec_opts = {k: v for k, v in knobs.items() if isinstance(v, str)}

@@ -31,7 +31,8 @@ from quorum_tpu_torch.models.convert import params_from_numpy, shard_params
 from quorum_tpu_torch.models.init import init_params, init_params_shard
 from quorum_tpu_torch.models.model_config import resolve_spec
 from quorum_tpu_torch.parallel import (MeshConfig, make_mesh, param_partition_specs,
-                                       rank_heads, rank_kv_heads, ulysses_supported)
+                                       rank_heads, rank_kv_heads, rank_kv_index,
+                                       ulysses_supported)
 from quorum_tpu_torch.parallel.sharding import PARAM_LOGICAL_AXES
 
 MODELS = ["llama-tiny", "gpt2-tiny", "gemma-tiny"]
@@ -174,17 +175,22 @@ def test_rank_heads_and_kv_heads():
     # tp divides K: K/tp each; else the groups a rank's heads fall in.
     assert [rank_kv_heads(8, 4, 2, r) for r in range(2)] == [(0, 2), (2, 4)]
     assert [rank_kv_heads(4, 2, 4, r) for r in range(4)] == [(0, 1), (0, 1), (1, 2), (1, 2)]
-    with pytest.raises(ValueError, match="does not divide n_heads"):
-        rank_heads(6, 4, 0)
-    with pytest.raises(ValueError, match="unevenly"):
-        rank_kv_heads(12, 3, 2, 0)
+    # tp does not divide H: every head on every rank (the JAX package's
+    # _fit_spec replicates a dim the mesh does not divide).
+    assert [rank_heads(6, 4, r) for r in range(4)] == [(0, 6)] * 4
+    # Query-head groups tp cuts unevenly (12 heads over 3 kv heads on tp=2):
+    # the kv projections whole on every rank, each rank's cache the kv heads
+    # its own query heads read, in their order.
+    assert [rank_kv_heads(12, 3, 2, r) for r in range(2)] == [(0, 3), (0, 3)]
+    assert [rank_kv_index(12, 3, 2, r) for r in range(2)] == [[0, 0, 1], [1, 2, 2]]
 
 
 def test_mesh_refusals_name_the_reason(monkeypatch):
-    with pytest.raises(ValueError, match=r"pp=2 is not served on cuda:// meshes yet"):
-        make_mesh(MeshConfig(pp=2), ["cpu"] * 2)
-    with pytest.raises(ValueError, match=r"pp=2 is not served on cuda:// meshes yet"):
-        make_mesh(MeshConfig(dp=2, pp=2), ["cpu"] * 4)
+    # pp meshes are laid out like any other (the engine refuses pp beside
+    # dp or tp, in the JAX engine's words).
+    assert make_mesh(MeshConfig(pp=2), ["cpu"] * 2).shape["pp"] == 2
+    assert make_mesh(MeshConfig(dp=2, pp=2), ["cpu"] * 4).coords(3) == {
+        "dp": 1, "pp": 1, "sp": 0, "tp": 0}
     assert make_mesh(MeshConfig(dp=2), ["cpu"] * 2).shape["dp"] == 2
     with pytest.raises(ValueError, match=r"needs 4 devices, have 2"):
         make_mesh(MeshConfig(tp=4), ["cpu"] * 2)

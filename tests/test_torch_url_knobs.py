@@ -74,11 +74,17 @@ def test_unknown_options_are_refused_by_name(option, no_engine):
 def test_tpu_only_options_say_they_are_not_served_yet(option, value, no_engine):
     # flash_decode= is refused for good (test_flash_decode_refusal_is_permanent).
     # dp= is served now; beside disagg= it is refused in the tpu:// backend's
-    # words, before disagg='s own refusal.
+    # words, before disagg='s own refusal. pp= is served now; beside dp= it
+    # is refused in the tpu:// engine's words, before any engine is built.
     if option == "dp":
         with pytest.raises(ValueError, match=r"disagg= device groups are data-disjoint by "
                                              r"construction; dp= does not compose with it"):
             _from_url(f"{BASE}&dp={value}&disagg=1+1")
+        return
+    if option == "pp":
+        with pytest.raises(ValueError, match=r"pipeline-staged decode runs tp=1/dp=1 within "
+                                             r"each stage"):
+            _from_url(f"{BASE}&pp={value}&dp=2")
         return
     tail = ", and will not" if option == "flash_decode" else " yet"
     with pytest.raises(ValueError, match=rf"does not serve the {option}= option{tail}"):
