@@ -189,8 +189,25 @@ result line:
               served one greedy chat; (h) with two or more cards only, tp=2
               and dp=2 over NCCL on cards of their own (graphs on every
               rank, greedy held, the shutdown timed) — one card prints that
-              these need two; each new leg's seconds; K1 and K2 launches on
-              every rank;
+              these need two; (i)–(k) checkpoints on meshes, mixtral tp=2
+              and pp=2 staged decode; (l) with four cards, mixtral-8x7b as
+              pp=4 and tp=4 over NCCL; (m) pp=2 training, two stages sharing
+              the card over gloo, 4 layers, 3 steps on 2 × 1 024 tokens
+              (2 microbatches) against the one-rank step (losses within one
+              bf16 rounding, falling), ms a step, each stage's peak against
+              the whole state; (n) disagg=1+1 with both groups on the card,
+              8 layers: greedy streams held against the colocated engine,
+              the handoffs' count and bytes (the prompts' K/V bytes),
+              route direct, K1/K2 launches by group; with two cards, (o)
+              cuda://…&disagg=1+1 across cuda:0 and cuda:1 at 32 layers: a
+              live stream's longest gap beside a 6 000-token admission
+              against the colocated zero-drain engine's, the admission's
+              TTFT, the handoffs' bytes and GB/s; with four cards, (p) pp=4
+              training over NCCL at 32 layers, 4 × 512 tokens in 4
+              microbatches, against the one-card step, and (q)
+              disagg=2+2 with tp=2 in each group over NCCL, greedy held
+              against the colocated tp=2 engine; each new leg's seconds;
+              K1 and K2 launches on every rank;
  12. train    training (run last; the card's free memory printed first):
               (a) llama-3-8b, all 32 layers, bf16, seed 0, remat, three
               steps of the default recipe on one repeated 1 × 2 048 batch
@@ -7301,8 +7318,13 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     of (b)'s engine killed mid-stream: the stream ends with an error inside
     the groups' timeout, the breaker opens, no process is left; (e)–(h):
     ``_mesh_dp2``, ``_mesh_dp2_tp2``, ``_mesh_dp2_train``,
-    ``_mesh_nccl_cards``. K1 and K2 launches are counted on every rank
-    (workers report theirs)."""
+    ``_mesh_nccl_cards``; (i)–(l): ``_mesh_ckpt``, ``_mesh_pp2``,
+    ``_mesh_cards_moe``; (m) and (p): ``_mesh_pp_train`` (pp=2 over gloo on
+    one card, pp=4 over NCCL on four); (n), (o) and (q): ``_mesh_disagg_card``,
+    ``_mesh_disagg_cards`` and ``_mesh_disagg_tp_cards`` (disagg=1+1 on one
+    card, then across two; 2+2 with tp=2 on four).
+    K1 and K2 launches are counted on every rank (workers report theirs),
+    and by group on the disaggregated engines."""
     from quorum_tpu_torch.backends.cuda_backend import CudaBackend
     from quorum_tpu_torch.config import Config
     from quorum_tpu_torch.engine.engine import EngineBreakerOpen, InferenceEngine
@@ -7376,8 +7398,9 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     _require_card_empty(torch, cpu, "mesh (a)")
 
     leg_s = {}
-    # One card: (a)–(g) and (i)–(k); --mesh-cards-only runs the legs over
-    # cards of their own alone ((h), (l)), against the same reference.
+    # One card: (a)–(g), (i)–(k), (m) and (n); --mesh-cards-only runs the
+    # legs over cards of their own alone ((h), (l), (o), (p), (q)), against
+    # the same reference.
     if not cards_only:
         # (a) A one-rank NCCL mesh (gloo on the CPU rehearsal).
         zero()
@@ -7606,6 +7629,49 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     else:
         print(f"mesh: leg (l), mixtral-8x7b at 32 layers as pp=4 and tp=4 over NCCL, needs "
               f"four cards; this machine has {n_cards}", flush=True)
+    by_group = {"prefill": {"flash_prefill": 0, "flash_decode": 0},
+                "decode": {"flash_prefill": 0, "flash_decode": 0}}
+
+    def count_groups(leg):
+        for g, n in leg["launches_by_group"].items():
+            for k, v in n.items():
+                by_group[g][k] += v
+
+    if not cards_only:
+        # (m) pp=2 training, two stages sharing the card over gloo; (n)
+        # disagg with both one-rank groups on the card.
+        t0 = time.perf_counter()
+        out["m_pp2_train_gloo"] = _mesh_pp_train(
+            torch, cpu, tiny, model, two, "m", 4, 2, 64 if tiny else TRAIN_TOKENS // 2, "gloo")
+        leg_s["m"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["n_disagg_one_card"] = _mesh_disagg_card(torch, cpu, tiny, model, knobs, n_tok,
+                                                     zero, add)
+        count_groups(out["n_disagg_one_card"])
+        leg_s["n"] = time.perf_counter() - t0
+    if n_cards >= 2:
+        t0 = time.perf_counter()
+        out["o_disagg_cards"] = _mesh_disagg_cards(torch, cpu, model, zero, add)
+        count_groups(out["o_disagg_cards"]["disagg_1p1"])
+        leg_s["o"] = time.perf_counter() - t0
+    else:
+        print(f"mesh: leg (o), disagg=1+1 across two cards, needs two cards; this machine has "
+              f"{n_cards}", flush=True)
+    if n_cards >= 4:
+        t0 = time.perf_counter()
+        out["p_pp4_train_nccl"] = _mesh_pp_train(
+            torch, cpu, tiny, model, [f"cuda:{i}" for i in range(4)], "p", 32, 4,
+            TRAIN_TOKENS // 4, None)
+        leg_s["p"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["q_disagg_tp2_cards"] = _mesh_disagg_tp_cards(torch, spec, knobs, prompts, zero,
+                                                          add)
+        count_groups(out["q_disagg_tp2_cards"])
+        leg_s["q"] = time.perf_counter() - t0
+    else:
+        print(f"mesh: legs (p) and (q), pp=4 training and disagg=2+2 with tp=2 over NCCL at "
+              f"32 layers, need four cards; this machine has {n_cards}", flush=True)
+    out["disagg_launches_by_group"] = by_group
     out["new_leg_s"] = {k: round(v, 3) for k, v in leg_s.items()}
     emit("mesh", new_leg_s=out["new_leg_s"])
     out["launches"] = launches
@@ -8316,6 +8382,315 @@ def _mesh_cards_moe(torch, zero, add) -> dict:
     return out
 
 
+def _kv_token_bytes(torch, spec) -> int:
+    """K and V bytes of one token over every layer and kv head."""
+    size = torch.empty((), dtype=getattr(torch, spec.dtype)).element_size()
+    return 2 * spec.n_layers * spec.n_kv_heads * spec.head_dim * size
+
+
+def _pp_train_tokens(np, vocab: int, rows: int, n_tokens: int):
+    return np.random.default_rng(7).integers(1, vocab, (rows, n_tokens))
+
+
+def _mesh_pp_train(torch, cpu, tiny, model, devices, label: str, n_layers: int, rows: int,
+                   n_tokens: int, backend: str | None) -> dict:
+    """Legs (m) and (p): pipelined training (``parallel/pipeline.py``'s GPipe
+    step) at the model's widths and ``n_layers`` layers, bf16, remat,
+    ``rows`` rows of ``n_tokens`` tokens in ``rows`` microbatches (one row
+    each), one stage a device of ``devices``: ``TRAIN_STEPS`` steps against
+    the one-rank step on the same seed and batch (losses within
+    ``TRAIN_DP_LOSS_REL``), each step's ms, each stage's peak memory
+    against the one-rank state's bytes and peak, the bubble's share by
+    schedule. The training forward attends through the plain attention:
+    no kernel launches (K1 has no backward)."""
+    import numpy as np
+
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.parallel import MeshConfig, RankGroup, make_mesh
+    from quorum_tpu_torch.training import trainer
+
+    pp = len(devices)
+    spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16", "n_layers": str(n_layers)}
+                         if tiny else {"n_layers": str(n_layers)})
+    dev = "cpu" if cpu else "cuda:0"
+    tokens = _pp_train_tokens(np, spec.vocab_size, rows, n_tokens)
+    k0 = (flash_prefill_attention.launches, flash_decode_attention.launches)
+    # One rank on the whole batch.
+    if not cpu:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt = trainer.make_optimizer()
+    state = trainer.train_init(spec, device=dev, seed=0, optimizer=opt)
+    state_bytes = _tree_bytes(state.params) + sum(
+        t.numel() * t.element_size() for t in _state_tensors(state.opt_state))
+    step = trainer.make_train_step(spec, device=dev, optimizer=opt)
+    want, one_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, loss = step(state, tokens)
+        want.append(float(loss))
+        one_ms.append(1e3 * (time.perf_counter() - t1))
+    one_s = time.perf_counter() - t0
+    one_peak = None if cpu else torch.cuda.max_memory_allocated()
+    del state, step
+    gc.collect()
+    _require_card_empty(torch, cpu, f"mesh ({label}) one rank")
+    t0 = time.perf_counter()
+    grp = RankGroup(make_mesh(MeshConfig(pp=pp), devices, backend=backend,
+                              timeout_s=MESH_GROUP_TIMEOUT_S))
+    grp.start()
+    try:
+        start_s = time.perf_counter() - t0
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        runs = grp.run("quorum_tpu_torch.training.trainer:train_steps",
+                       [(spec, tokens)] * pp,
+                       [dict(seed=0, steps=TRAIN_STEPS, n_micro=rows)] * pp)
+    finally:
+        grp.stop()
+    pp_s = time.perf_counter() - t0
+    gc.collect()
+    _require_card_empty(torch, cpu, f"mesh ({label}) pp={pp}")
+    got = runs[0]["losses"]
+    require(all(r["losses"] == got for r in runs),
+            f"mesh ({label}): the stages' losses differ: {[r['losses'] for r in runs]}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    require(max(rel) <= TRAIN_DP_LOSS_REL,
+            f"mesh ({label}): pp={pp} losses {got} vs one rank {want} (relative {rel})")
+    require(got[-1] < got[0], f"mesh ({label}): the loss did not fall: {got}")
+    k1 = flash_prefill_attention.launches - k0[0]
+    k2 = flash_decode_attention.launches - k0[1]
+    require(k1 == 0 and k2 == 0, f"mesh ({label}): training launched K1 {k1}, K2 {k2}")
+    out = {"pp": pp, "backend": grp.mesh.backend, "devices": [str(d) for d in devices],
+           "layers": spec.n_layers, "rows": rows, "tokens_per_row": n_tokens,
+           "n_micro": rows, "steps": TRAIN_STEPS, "losses_pp": got, "losses_one_rank": want,
+           "loss_rel_diff": rel, "ms_per_step": [round(1e3 * x, 2) for x in runs[0]["step_s"]],
+           "one_rank_ms_per_step": [round(x, 2) for x in one_ms],
+           "one_rank_s": round(one_s, 3), "group_start_s": round(start_s, 3),
+           "pp_s": round(pp_s, 3), "peak_bytes_per_stage": [r["peak_bytes"] for r in runs],
+           "one_rank_state_bytes": state_bytes, "one_rank_peak_bytes": one_peak,
+           "bubble_share_by_schedule": round((pp - 1) / (rows + pp - 1), 4),
+           "k1_launches": k1, "k2_launches": k2}
+    emit("mesh", leg=label, **out)
+    return out
+
+
+def _state_tensors(tree):
+    """The tensors of an optimizer state (NamedTuples, tuples, dicts)."""
+    if tree is None:
+        return []
+    if hasattr(tree, "numel"):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _state_tensors(v)]
+    return [t for v in tree for t in _state_tensors(v)]
+
+
+def _mesh_disagg_card(torch, cpu, tiny, model, knobs, n_tok: int, zero, add) -> dict:
+    """Leg (n): disaggregated serving with both one-rank groups on one card
+    (the explicit API: ``prefill_mesh`` on ``cuda:0`` beside a decode
+    device ``cuda:0``; SMs shared, so a correctness leg), llama-3-8b widths
+    at 8 layers: three greedy streams (one segment, three, five) held
+    against the colocated engine's (``_hold_lp``); every admission staged
+    and handed off, the handoff bytes equal to the prompts' K/V bytes
+    (32 KiB a token at 8 layers), route ``direct``; K2 launched by the
+    decode group once per layer per decode step, K1 by the prefill group
+    not at all (segments attend through the plain attention)."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.parallel import make_mesh
+
+    spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16"} if tiny
+                         else {"n_layers": "8"})
+    dev = "cpu" if cpu else "cuda:0"
+    chunk = 16 if tiny else 512
+    gen = random.Random(23)
+    prompts = [[gen.randrange(1, spec.vocab_size) for _ in range(n)]
+               for n in ((9, 40, 70) if tiny else (57, 1217, 2300))]
+    kw = dict(knobs, prefill_chunk=chunk)
+    t0 = time.perf_counter()
+    col = InferenceEngine(spec, device=dev, **kw)
+    ref = [_lp_stream(col, p, n_tok) for p in prompts]
+    col_s = time.perf_counter() - t0
+    col.shutdown()
+    del col
+    _require_card_empty(torch, cpu, "mesh (n) colocated")
+    zero()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(spec, device=dev, prefill_mesh=make_mesh(devices=[dev]), **kw)
+    build_s = time.perf_counter() - t0
+    got = [_lp_stream(eng, p, n_tok) for p in prompts]
+    m = eng.metrics()
+    k1, k2 = flash_prefill_attention.launches, flash_decode_attention.launches
+    held = [_hold_lp(f"mesh (n) stream {i}", r, g) for i, (r, g) in enumerate(zip(ref, got))]
+    per_token = _kv_token_bytes(torch, spec)
+    want_bytes = per_token * sum(len(p) for p in prompts)
+    require(m["kv_handoff_bytes_total"] == want_bytes,
+            f"mesh (n): handoff bytes {m['kv_handoff_bytes_total']} != {want_bytes}")
+    require(m["kv_handoffs_total"] == sum(-(-len(p) // eng.prefill_chunk) for p in prompts)
+            and m["admission_dispatches_total"] == 0,
+            f"mesh (n): {m['kv_handoffs_total']} handoffs, "
+            f"{m['admission_dispatches_total']} single-shot admissions")
+    if not cpu:
+        require(k2 == spec.n_layers * _k2_steps(m) and k1 == 0,
+                f"mesh (n): K1/K2 launches {k1}/{k2} for {_k2_steps(m)} decode steps")
+    health = eng.health()
+    require(health["prefill_scheduler_alive"] and health["disagg"]["route"] == "direct",
+            f"mesh (n): health {health['disagg']}")
+    add()
+    eng.shutdown()
+    del eng
+    _require_card_empty(torch, cpu, "mesh (n)")
+    out = {"layers": spec.n_layers, "prompt_tokens": [len(p) for p in prompts],
+           "prefill_chunk": chunk, "colocated_s": round(col_s, 3), "build_s": round(build_s, 3),
+           "held": held, "kv_handoffs": m["kv_handoffs_total"],
+           "kv_handoff_bytes": m["kv_handoff_bytes_total"], "kv_bytes_per_token": per_token,
+           "kv_handoff_s": m["kv_handoff_seconds_total"], "route": "direct",
+           "launches_by_group": {"prefill": {"flash_prefill": k1, "flash_decode": 0},
+                                 "decode": {"flash_prefill": 0, "flash_decode": k2}},
+           "note": "both groups on one card (SMs shared): a correctness leg"}
+    emit("mesh", leg="n", **out)
+    return out
+
+
+def _mesh_disagg_cards(torch, cpu, model, zero, add, n_long: int = 6000) -> dict:
+    """Leg (o), two cards or more: ``cuda://llama-3-8b?disagg=1+1`` through
+    the backend (prefill group ``cuda:0``, decode group ``cuda:1``) at all
+    32 layers, against the colocated zero-drain engine on ``cuda:1``: a
+    live greedy stream's longest gap while a 6 000-token admission runs, the
+    admission's time to first token, the handoffs' route, bytes and GB/s
+    (device time of the copies), and the live stream's tokens held equal
+    against the colocated engine's while no admission ran beside it
+    (``_hold_lp``: greedy, same prompt)."""
+    from quorum_tpu_torch.backends.cuda_backend import CudaBackend
+    from quorum_tpu_torch.config import BackendSpec
+    from quorum_tpu_torch.engine.engine import release_engine
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+
+    greedy = SamplerConfig(temperature=0.0)
+    gen = random.Random(17)
+    vocab = 500 if cpu else 128000
+    live = [gen.randrange(1, vocab) for _ in range(30 if cpu else 300)]
+    long_p = [gen.randrange(1, vocab) for _ in range(n_long)]
+    out = {}
+    extra = "&device=cpu&prefill_chunk=16&dtype=float32" if cpu else ""
+    for label, tail in (("colocated_zero_drain",
+                         "&zero_drain=1" + (extra if cpu else "&device=cuda:1")),
+                        ("disagg_1p1", "&disagg=1+1" + extra)):
+        zero()
+        t0 = time.perf_counter()
+        b = CudaBackend.from_spec(BackendSpec(
+            name=label, url=f"cuda://{model}?slots=4&decode_chunk=8&seed=0{tail}", model=model))
+        eng = b.engine
+        build_s = time.perf_counter() - t0
+        solo = _lp_stream(eng, live, 32)
+        leg = _long_beside_live(eng, live, long_p, greedy)
+        m = eng.metrics()
+        k1, k2 = flash_prefill_attention.launches, flash_decode_attention.launches
+        row = {"build_s": round(build_s, 3), **_public(leg), "solo": solo,
+               "live_prefix_equal_solo": leg["live_ids"][:32] == solo[0],
+               "k1_launches": k1, "k2_launches": k2,
+               "decode_steps": _k2_steps(m)}
+        if label == "disagg_1p1":
+            h = eng.health()["disagg"]
+            require(cpu or (h["prefill_devices"] == ["cuda:0"] and h["decode_devices"]
+                            == ["cuda:1"]) and h["route"] == "direct", f"mesh (o): groups {h}")
+            per_token = _kv_token_bytes(torch, eng.spec)
+            moved = m["kv_handoff_bytes_total"]
+            require(moved == per_token * (2 * len(live) + len(long_p)),
+                    f"mesh (o): handoff bytes {moved}")
+            require(cpu or (k2 == eng.spec.n_layers * _k2_steps(m) and k1 == 0),
+                    f"mesh (o): K1/K2 launches {k1}/{k2}")
+            row.update(groups=h, kv_handoffs=m["kv_handoffs_total"], kv_handoff_bytes=moved,
+                       peer_access=None if cpu else torch.cuda.can_device_access_peer(0, 1),
+                       kv_handoff_s=m["kv_handoff_seconds_total"],
+                       kv_handoff_gb_per_s=round(moved / m["kv_handoff_seconds_total"] / 1e9, 3)
+                       if m["kv_handoff_seconds_total"] else None,
+                       launches_by_group={"prefill": {"flash_prefill": k1, "flash_decode": 0},
+                                          "decode": {"flash_prefill": 0, "flash_decode": k2}})
+        add()
+        release_engine(eng)
+        del eng, b
+        gc.collect()
+        out[label] = row
+        emit("mesh", leg=f"o_{label}", **{k: v for k, v in row.items() if k != "solo"})
+    out["held"] = _hold_lp("mesh (o) disagg against colocated",
+                           out["colocated_zero_drain"].pop("solo")[:2],
+                           out["disagg_1p1"].pop("solo")[:2])
+    emit("mesh", leg="o_held", **out["held"])
+    return out
+
+
+def _mesh_disagg_tp_cards(torch, spec, knobs, prompts, zero, add, cards=None) -> dict:
+    """Leg (q), four cards: disagg=2+2 with tp=2 in each group over NCCL at
+    all 32 layers (prefill ``cuda:0-1``, decode ``cuda:2-3``; the pieces
+    gathered over the prefill group's tp, one copy between the first
+    ranks, broadcast over the decode group's), against the colocated tp=2
+    engine on ``cuda:0-1``: greedy streams held (``_hold_lp``), the
+    handoffs' route ``direct``, bytes (the prompts' K/V bytes) and
+    seconds; K2 on both decode ranks once per layer per decode step, K1 on
+    no prefill rank (segments attend through the plain attention)."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.parallel import MeshConfig, make_mesh
+    from quorum_tpu_torch.parallel.mesh import disagg_meshes
+
+    cpu = cards is not None and cards[0] == "cpu"  # a rehearsal's CPU ranks
+    cards = cards or [f"cuda:{i}" for i in range(4)]
+    n = 32
+    t0 = time.perf_counter()
+    col = InferenceEngine(spec, mesh=make_mesh(MeshConfig(tp=2), cards[:2],
+                                               timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
+    ref = [_lp_stream(col, p, n) for p in prompts]
+    col_s = time.perf_counter() - t0
+    col.shutdown()
+    del col
+    _require_card_empty(torch, cpu, "mesh (q) colocated")
+    zero()
+    t0 = time.perf_counter()
+    pm, dm = disagg_meshes(2, 2, cards, tp=2)
+    eng = InferenceEngine(spec, mesh=dm, prefill_mesh=pm, **knobs)
+    build_s = time.perf_counter() - t0
+    got = [_lp_stream(eng, p, n) for p in prompts]
+    m = eng.metrics()
+    reports, preports = eng.rank_reports(), eng.prefill_rank_reports()
+    k1 = [flash_prefill_attention.launches] + [r["launches"]["flash_prefill"] for r in preports]
+    k2 = [flash_decode_attention.launches] + [r["launches"]["flash_decode"] for r in reports]
+    held = [_hold_lp(f"mesh (q) stream {i}", r, g) for i, (r, g) in enumerate(zip(ref, got))]
+    per_token = _kv_token_bytes(torch, spec)
+    want_bytes = per_token * sum(len(p) for p in prompts)
+    h = eng.health()
+    require(h["disagg"]["route"] == ("host-bounce" if cpu else "direct")
+            and h["disagg"]["prefill_workers_alive"]
+            and h["mesh"]["workers_alive"], f"mesh (q): health {h['disagg']}, {h['mesh']}")
+    require(m["kv_handoff_bytes_total"] == want_bytes,
+            f"mesh (q): handoff bytes {m['kv_handoff_bytes_total']} != {want_bytes}")
+    require(k1 == [0, 0] and (cpu or k2 == [spec.n_layers * _k2_steps(m)] * 2),
+            f"mesh (q): K1 by prefill rank {k1}, K2 by decode rank {k2}, "
+            f"{_k2_steps(m)} decode steps")
+    add(reports + preports)
+    eng.shutdown()
+    del eng
+    _require_card_empty(torch, cpu, "mesh (q)")
+    out = {"layers": spec.n_layers, "groups": "2+2", "tp": 2, "colocated_s": round(col_s, 3),
+           "build_s": round(build_s, 3), "held": held, "route": h["disagg"]["route"],
+           "kv_handoffs": m["kv_handoffs_total"], "kv_handoff_bytes": m["kv_handoff_bytes_total"],
+           "kv_handoff_s": m["kv_handoff_seconds_total"],
+           "ms_per_token": [round(1e3 * g[2] / len(g[0]), 2) for g in got],
+           "launches_by_group": {"prefill": {"flash_prefill": sum(k1), "flash_decode": 0},
+                                 "decode": {"flash_prefill": 0, "flash_decode": sum(k2)}},
+           "k1_by_prefill_rank": k1, "k2_by_decode_rank": k2}
+    emit("mesh", leg="q", **out)
+    return out
+
+
 def total_model_bytes(spec) -> int:
     """The whole model's weight bytes (``init_params`` on the meta device)."""
     from quorum_tpu_torch.models.init import init_params
@@ -8389,7 +8764,7 @@ def main(argv=None) -> int:
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     ap.add_argument("--mesh-cards-only", action="store_true",
-                    help="the mesh phase's legs over cards of their own alone (h, l)")
+                    help="the mesh phase's legs over cards of their own alone (h, l, o, p, q)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -8494,6 +8869,10 @@ def main(argv=None) -> int:
                            library_causal_ms=r["library_causal_ms"], per_rank=r["per_rank"])
             if name == "flash_decode":
                 row.update(draft_shape=r["draft_shape"], per_rank=r["per_rank"])
+            if mesh is not None and name in ("flash_prefill", "flash_decode"):
+                # The disaggregated legs' launches, by group (prefill, decode).
+                row["launches_by_group"] = {
+                    g: n[name] for g, n in mesh["disagg_launches_by_group"].items()}
             if name == "flash_decode_q8":
                 row.update(k2_ms_same_lengths_bf16=r["k2_ms_same_lengths_bf16"],
                            long_cache=r["long_cache"])

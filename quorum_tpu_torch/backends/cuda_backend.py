@@ -295,11 +295,11 @@ _OPTIONS = frozenset({
     "member_seeds", "quorum_dedup", "ensemble", "ckpt", "quant", "kv_quant",
     "spec_decode", "spec_model", "spec_ckpt", "spec_seed", "kv_pages", "kv_page_size",
     "kv_pool_pages", "prefix_store", "prefix_store_bytes", "prefix_store_chunk", "qos",
-    "zero_drain", "dp", "tp", "sp", "sp_impl", "pp"})
+    "zero_drain", "dp", "tp", "sp", "sp_impl", "pp", "disagg"})
 _SPEC_FIELDS = frozenset(f.name for f in dataclasses.fields(ModelSpec))
 # Options of the JAX package's tpu:// backend (TpuBackend.from_spec) that
 # the port does not serve yet.
-_NOT_YET = frozenset({"disagg"})
+_NOT_YET: frozenset[str] = frozenset()
 
 
 def _check_options(opts: dict[str, str]) -> None:
@@ -312,15 +312,51 @@ def _check_options(opts: dict[str, str]) -> None:
                 "cuda:// does not serve the flash_decode= option, and will not: "
                 "decode attention always runs its kernel on the card (the plain "
                 "version only on the CPU), and no option turns a kernel off")
-        if key == "disagg" and int(opts.get("dp", 1)) > 1:
-            raise ValueError(
-                "disagg= device groups are data-disjoint by "
-                "construction; dp= does not compose with it (scale "
-                "request throughput with the replica tier instead)")
         if key in _NOT_YET:
             raise ValueError(f"cuda:// does not serve the {key}= option yet "
                              "(the tpu:// backend does)")
         raise ValueError(f"unknown cuda:// option {key}=")
+
+
+def _url_disagg(opts: dict[str, str]):
+    """``disagg=P+D`` → ``(prefill_mesh, decode_mesh or None, decode
+    device)`` as ``tpu://`` builds ``disagg_meshes(P, D, tp=…, sp=…,
+    pp=…)``, with its refusals in its words (``zero_drain=`` and ``dp=``
+    beside it, a factorization that does not fit the groups, fewer devices
+    than P+D); ``tp=`` cuts each group (each group's size when absent). The
+    groups take ``cuda:0..P−1`` (prefill) and ``cuda:P..P+D−1`` (decode),
+    over NCCL, or CPU ranks over gloo with ``device=cpu``. ``sp=`` in the
+    prefill group and ``pp=`` in the decode group are refused by name: not
+    served yet."""
+    from quorum_tpu_torch.parallel.mesh import disagg_meshes, parse_disagg
+
+    if _parse_bool_opt("zero_drain", opts.get("zero_drain", "0")):
+        raise ValueError(
+            "zero_drain=1 does not compose with disagg=P+D: "
+            "disaggregated admissions already run on their own "
+            "device group with the ring at full depth — zero-drain "
+            "is structural there (drop one knob)")
+    n_p, n_d = parse_disagg(opts["disagg"])
+    if int(opts.get("dp", 1)) > 1:
+        raise ValueError(
+            "disagg= device groups are data-disjoint by "
+            "construction; dp= does not compose with it (scale "
+            "request throughput with the replica tier instead)")
+    tp, sp, pp = int(opts.get("tp", 1)), int(opts.get("sp", 1)), int(opts.get("pp", 1))
+    dev = torch.device(opts.get("device") or "cuda")
+    if dev.type == "cpu":
+        devices = ["cpu"] * (n_p + n_d)
+    else:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [f"cuda:{i}" for i in range(have)]
+    for knob, value in (("sp", sp), ("pp", pp)):
+        if value > 1:
+            raise ValueError(
+                f"cuda:// does not serve the disagg= option yet with {knob}={value} inside "
+                "the groups (the tpu:// backend does)")
+    prefill, decode = disagg_meshes(n_p, n_d, devices, tp=tp if "tp" in opts else None,
+                                    sp=sp, pp=pp)
+    return prefill, (decode if decode.size > 1 else None), decode.devices[0]
 
 
 def _url_mesh(opts: dict[str, str]):
@@ -667,6 +703,11 @@ class CudaBackend:
             qos=_parse_bool_opt("qos", opts.get("qos", "0")),
             zero_drain=_parse_bool_opt("zero_drain", opts.get("zero_drain", "0")))
         knobs.update(_store_knobs(opts, members))
+        prefill_mesh = disagg_mesh = None
+        if opts.get("disagg"):
+            prefill_mesh, disagg_mesh, knobs["device"] = _url_disagg(opts)
+            if disagg_mesh is not None:
+                knobs["device"] = None
         knobs["quant"], knobs["kv_quant"] = check_quant_knobs(opts.get("quant") or None,
                                                               opts.get("kv_quant") or None)
         member_seeds = opts.get("member_seeds", "distinct")
@@ -683,11 +724,12 @@ class CudaBackend:
             knobs["draft_ckpt"] = spec_ckpt
         if ckpt:
             _check_ckpt_options(opts, members, member_seeds, quorum_dedup)
-            mesh = _url_mesh(opts)
+            mesh = disagg_mesh if prefill_mesh is not None else _url_mesh(opts)
             if mesh is not None:  # every rank reads its own cut of the checkpoint
                 knobs["device"] = None
             engine = get_engine_from_ckpt(ckpt, dtype=opts.get("dtype"), mesh=mesh,
-                                          sp_impl=opts.get("sp_impl", "ring"), **knobs)
+                                          sp_impl=opts.get("sp_impl", "ring"),
+                                          prefill_mesh=prefill_mesh, **knobs)
             # The checkpoint's tokenizer when it ships one (bytes when it
             # cannot load, e.g. without transformers).
             if any(os.path.exists(os.path.join(ckpt, f))
@@ -704,13 +746,14 @@ class CudaBackend:
                     "max_seq": str(spec.max_seq), "vocab_size": str(spec.vocab_size),
                     "sliding_window": str(spec.sliding_window)})
                 knobs["draft_seed"] = int(opts.get("spec_seed", 0))
-            mesh = _url_mesh(opts)
+            mesh = disagg_mesh if prefill_mesh is not None else _url_mesh(opts)
             if mesh is not None:
                 knobs["device"] = None
             engine = get_engine(
                 spec, seed=int(opts.get("seed", 0)),
                 members=members, member_seeds=member_seeds, quorum_dedup=quorum_dedup,
-                mesh=mesh, sp_impl=opts.get("sp_impl", "ring"), **knobs)
+                mesh=mesh, sp_impl=opts.get("sp_impl", "ring"), prefill_mesh=prefill_mesh,
+                **knobs)
         return cls(bspec.name, engine, model=bspec.model, model_id=bspec.model_id,
                    default_max_tokens=int(opts.get("max_tokens", 64)),
                    decode_chunk=int(opts["decode_chunk"]) if "decode_chunk" in opts else None,

@@ -1,7 +1,7 @@
-"""Chunk-granular KV movement between the engine's cache and the host (the
-JAX package's ``cache/kv_transfer.py``: ``slice_rows``, ``write_rows`` and
-``fetch_to_host``; its device-to-device ``transfer`` serves disaggregated
-serving, which the port does not have yet).
+"""Chunk-granular KV movement between the engine's cache, the host and
+another device group (the JAX package's ``cache/kv_transfer.py``:
+``slice_rows``, ``write_rows``, ``fetch_to_host`` and the
+device-to-device :func:`transfer` of disaggregated serving).
 
 The wire layout is the one the prefix store holds and the migration format
 ships: a cache side's positions ``[start, start+n)`` of one flat row as
@@ -15,8 +15,11 @@ order: K's values (then its scales), V's values (then its scales).
 
 from __future__ import annotations
 
+import time
+
 import torch
 
+from quorum_tpu_torch import observability as obs
 from quorum_tpu_torch.cache.paging import kv_is_paged, paged_slice_rows, paged_write_rows
 
 
@@ -77,3 +80,113 @@ def chunk_from_leaves(leaves: list[torch.Tensor], q8: bool):
     if q8:
         return (leaves[0], leaves[1]), (leaves[2], leaves[3])
     return leaves[0], leaves[1]
+
+
+# The routes a handoff between device groups takes, as the JAX package
+# labels them: ``direct`` (same layout on both sides), ``reshard`` (the
+# groups cut the kv heads differently) and ``host-bounce`` (through host
+# memory). ``resident`` is zero-drain's, where nothing moves.
+ROUTES = ("direct", "reshard", "host-bounce")
+
+
+def handoff_route(prefill_mesh, decode_mesh) -> str:
+    """The route of a disaggregated engine's handoffs, from the groups'
+    layout alone, before the first one (the JAX package picks it per call
+    and falls back through the host when a direct put is refused; the port
+    never falls back). Two one-rank groups move each piece with one copy
+    onto the decode device: ``direct``. Groups of several ranks move it
+    through their first ranks (the prefill group's gathered over its tp,
+    one copy, the decode group's broadcast over its tp): ``host-bounce``
+    where a group runs over gloo (its collectives staged through the host:
+    the CPU, or ranks sharing a card), else ``direct`` where both groups
+    cut the kv heads alike and ``reshard`` where they do not."""
+    meshes = [m for m in (prefill_mesh, decode_mesh) if m is not None and m.size > 1]
+    if not meshes:
+        return "direct"
+    if any(m.backend == "gloo" for m in meshes):
+        return "host-bounce"
+    tp_d = 1 if decode_mesh is None else decode_mesh.shape["tp"]
+    return "direct" if prefill_mesh.shape["tp"] == tp_d else "reshard"
+
+
+def _head_order(spec, tp: int) -> list[int]:
+    """For each kv head, its entry in the tp ranks' entries concatenated in
+    rank order (``parallel/sharding.rank_kv_index``; the first where
+    several ranks hold it)."""
+    from quorum_tpu_torch.parallel.sharding import rank_kv_index
+
+    order = [h for r in range(tp) for h in rank_kv_index(spec.n_heads, spec.n_kv_heads, tp, r)]
+    return [order.index(h) for h in range(spec.n_kv_heads)]
+
+
+def gather_heads(chunk, mesh, spec):
+    """A wire chunk of one tp rank's kv-head entries → the chunk of every kv
+    head, in order: each leaf all-gathered over the mesh's tp (every rank of
+    it calls this) and each head taken once."""
+    if mesh.tp_size == 1:
+        return chunk
+    idx = torch.tensor(_head_order(spec, mesh.tp_size), device=chunk_leaves(chunk)[0].device)
+    return _map_chunk(chunk, lambda x: mesh.tp.all_gather(x.contiguous(), dim=1)
+                      .index_select(1, idx))
+
+
+def select_heads(chunk, mesh, spec):
+    """A wire chunk of every kv head → this tp rank's entries
+    (``rank_kv_index``: the heads its cache holds, in its order)."""
+    from quorum_tpu_torch.parallel.sharding import rank_kv_index
+
+    if mesh.tp_size == 1:
+        return chunk
+    mine = rank_kv_index(spec.n_heads, spec.n_kv_heads, mesh.tp_size, mesh.tp_rank)
+    idx = torch.tensor(mine, device=chunk_leaves(chunk)[0].device)
+    return _map_chunk(chunk, lambda x: x.index_select(1, idx))
+
+
+def transfer(chunk, device, *, route: str = "direct", stream=None, after=None,
+             record: bool = True):
+    """Move a sliced chunk onto ``device`` (the decode group's) and wait
+    until it lands: every leaf copied into a new tensor there (a real copy
+    even when the source lies on that device already). On a card the
+    copies run on ``stream`` (a stream of ``device``; its current one when
+    None) after ``after`` (an event, e.g. the segment's that wrote the
+    source; a cross-device wait where the groups differ), with no host
+    staging; the seconds are the copies' own, between two CUDA events
+    around them, and this thread blocks until the second has passed (a
+    copy that fails raises here: the caller's fault path, never another
+    route). Returns ``(moved, n_bytes, seconds, route)`` with ``moved`` in
+    the chunk's structure; with ``record`` the bytes and seconds land on
+    the route-labelled ``quorum_tpu_kv_handoff_{bytes_total,seconds}``."""
+    device = torch.device(device)
+    leaves = chunk_leaves(chunk)
+    n_bytes = int(sum(x.numel() * x.element_size() for x in leaves))
+
+    def copy(x):
+        out = torch.empty(x.shape, dtype=x.dtype, device=device)
+        out.copy_(x, non_blocking=device.type == "cuda")
+        return out
+
+    if device.type == "cuda":
+        stream = stream or torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            if after is not None:
+                stream.wait_event(after)
+            start.record(stream)
+            moved = _map_chunk(chunk, copy)
+            end.record(stream)
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        moved = _map_chunk(chunk, copy)
+        seconds = time.perf_counter() - t0
+    if record:
+        obs.KV_HANDOFF_BYTES.inc(n_bytes, route=route)
+        obs.KV_HANDOFF_SECONDS.observe(seconds, route=route)
+    return moved, n_bytes, seconds, route
+
+
+def _map_chunk(chunk, fn):
+    return tuple(tuple(fn(a) for a in side) if isinstance(side, tuple) else fn(side)
+                 for side in chunk)

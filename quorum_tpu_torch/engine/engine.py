@@ -237,6 +237,22 @@ is False), so ``admission_stall_seconds_total`` stays 0, and
 prefix reuse is off (the segments cannot attend over the decode cache); a
 host prefix store restores into the staging row.
 
+Disaggregated prefill/decode (``prefill_mesh=``, a ``parallel/mesh.Mesh``;
+the JAX engine's ``disagg=P+D``): admissions run on their own device group.
+This engine's device (or ``mesh``) is the decode group: the decode cache,
+the slot state and the ring. The prefill group holds a second weight copy
+(its tp cut on a group of several ranks, whose workers it starts) and the
+staging cache, and a second scheduler thread, the prefill loop, takes the
+queue: every admission is staged as under zero-drain, its pieces handed
+off into the claimed decode row (``kv_transfer.transfer``; the route set
+by the groups' layout) after the next segments are queued, and the decode
+loop injects them and registers the row (the section at
+``_prefill_scheduler``). The JAX engine's refusals hold in its words
+(groups overlapping, a draft model, ``prefill_chunk`` 0, ``zero_drain``,
+``quorum_dedup``); one-rank groups compose with what a one-device engine
+composes with on the staged path, groups of several ranks with what a mesh
+engine does; ``sp`` and ``pp`` inside the groups are refused by name.
+
 Multi-rank engines (``mesh=``, a ``parallel/mesh.Mesh``; the JAX engine's
 mesh argument, ``dp``, ``tp`` and ``sp`` axes): this engine is rank 0, on
 the mesh's first device, and holds rank 0's shard of the weights and of the
@@ -905,6 +921,7 @@ class InferenceEngine:
         mesh=None,
         sp_impl: str = "ring",
         ckpt: tuple[str, str] | None = None,
+        prefill_mesh=None,
     ):
         self.spec = spec.validate()
         # A mesh engine (``mesh``, a parallel/mesh.Mesh): this engine is
@@ -931,6 +948,18 @@ class InferenceEngine:
         self.members = max(1, int(members))
         self.ensemble = max(1, int(ensemble))
         self.quant, self.kv_quant = check_quant_knobs(quant, kv_quant)
+        # Disaggregated prefill/decode (``prefill_mesh``, the JAX engine's
+        # disagg=P+D; the module docstring's section): the decode group is
+        # this engine's device, the prefill group's device holds a second
+        # weight copy and the staging cache.
+        self.prefill_mesh = prefill_mesh
+        self.disagg = prefill_mesh is not None
+        self.prefill_sp = 1
+        self.prefill_device = self.device
+        if self.disagg:
+            _check_disagg_knobs(self, spec, mesh, prefill_mesh, draft_spec, prefill_chunk,
+                                zero_drain)
+            self.prefill_device = prefill_mesh.devices[0]
         # Zero-drain staging: every admission prefills chunked into the
         # staging cache and its rows reach the decode row at a later turn.
         self.zero_drain = bool(zero_drain)
@@ -943,7 +972,7 @@ class InferenceEngine:
                 "blocks the host on its first-token fetch, which "
                 "behind a full dispatch ring is exactly the stall "
                 "zero_drain exists to remove")
-        self.staged = self.zero_drain
+        self.staged = self.zero_drain or self.disagg
         _check_stack_knobs(self.members, self.ensemble, member_seeds, quorum_dedup,
                            self.kv_quant, self.staged)
         if spec.is_moe and max(self.members, self.ensemble) > 1:
@@ -957,9 +986,15 @@ class InferenceEngine:
         stack = max(self.members, self.ensemble)
         self._ranks: RankGroup | None = None
         self._rmesh = None
-        if mesh is not None:
-            _check_mesh_knobs(self, spec, mesh, sp_impl, spec_decode, draft_spec, kv_pages,
-                              prefix_store, n_slots)
+        # The prefill group's ranks beside rank 0 of it (disagg with a
+        # prefill group of several ranks; ``_start_prefill_group``).
+        self._pranks: RankGroup | None = None
+        self._prmesh = None
+        given = params
+        for m in (mesh, prefill_mesh if self.disagg and prefill_mesh.size > 1 else None):
+            if m is not None:
+                _check_mesh_knobs(self, spec, m, sp_impl, spec_decode, draft_spec, kv_pages,
+                                  prefix_store, n_slots)
         if mesh is not None:
             params = self._start_ranks(spec, mesh, seed, params, n_slots, ckpt)
         elif params is None:
@@ -977,6 +1012,16 @@ class InferenceEngine:
             if self.quant:
                 params = quantize_params(params)
         self.params = params
+        # The prefill group's weights (``_start_prefill_group``).
+        self._prefill_params = None
+        if self.disagg:
+            try:
+                self._prefill_params = self._start_prefill_group(spec, seed, given, n_slots,
+                                                                 ckpt)
+            except BaseException:
+                if self._ranks is not None:
+                    self._ranks.stop()
+                raise
         self.decode_chunk = max(1, int(decode_chunk))
         self.decode_pipeline = max(1, int(decode_pipeline))
         self.decode_loop = resolve_decode_loop(decode_loop)
@@ -1045,13 +1090,25 @@ class InferenceEngine:
         # size (+ the int8 sides' f32 scales).
         self._sck = self._scv = None
         if self.staged:
-            self._sck, self._scv = init_cache(spec, stack * self.n_slots, device=self.device,
-                                              kv_quant=self.kv_quant)
+            n_kv = (None if self._prmesh is None else
+                    len(rank_kv_index(spec.n_heads, spec.n_kv_heads, self._prmesh.tp_size, 0)))
+            self._sck, self._scv = init_cache(spec, stack * self.n_slots,
+                                              device=self.prefill_device,
+                                              kv_quant=self.kv_quant, n_kv_heads=n_kv)
         # Staged rows on their way to the decode cache: ("kv", admission,
         # [(row, chunk)], start, event) pieces and ("final", admission)
         # registers, in order (``_drain_handoffs``).
         self._handoffs: deque = deque()
         self.n_admission_overlap = 0
+        # Under disagg the prefill loop's pieces wait in its outbox until
+        # their handoff (``_commit_handoffs``); the route is the groups'
+        # layout's, chosen here (``kv_transfer.handoff_route``).
+        self._outbox: deque = deque()
+        self.n_kv_handoffs = 0
+        self.kv_handoff_bytes = 0
+        self.kv_handoff_s = 0.0
+        self.handoff_route = (kv_transfer.handoff_route(prefill_mesh, mesh)
+                              if self.disagg else None)
         # Per-row decode state, device-resident between chunks, and the
         # static inputs of a decode dispatch (its active rows, the drafts of
         # a verify turn, which rows may draft in a fused turn). Updated in
@@ -1194,6 +1251,7 @@ class InferenceEngine:
         # A zero-drain engine stages on a third stream of its own, so its
         # segments queue neither behind the ring nor behind a forward.
         self._stream = self._graphs = self._fwd_stream = self._stage_stream = None
+        self._handoff_stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device, priority=RING_STREAM_PRIORITY)
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -1204,11 +1262,23 @@ class InferenceEngine:
             self._fwd_stream = torch.cuda.Stream(self.device)
             self._fwd_stream.wait_stream(torch.cuda.current_stream(self.device))
             if self.staged:
-                self._stage_stream = torch.cuda.Stream(self.device)
-                self._stage_stream.wait_stream(torch.cuda.current_stream(self.device))
+                # Under disagg on the prefill group's device, whose work
+                # the set-up above (its weight copy, the staging cache)
+                # queued on that device's current stream.
+                dev = self.prefill_device
+                self._stage_stream = torch.cuda.Stream(dev)
+                self._stage_stream.wait_stream(torch.cuda.current_stream(dev))
+            if self.disagg:
+                self._handoff_stream = torch.cuda.Stream(self.device)
+                self._handoff_stream.wait_stream(torch.cuda.current_stream(self.device))
         self._thread = threading.Thread(target=self._scheduler, daemon=True,
                                         name="quorum-torch-scheduler")
         self._thread.start()
+        self._prefill_thread = None
+        if self.disagg:
+            self._prefill_thread = threading.Thread(target=self._prefill_scheduler, daemon=True,
+                                                    name="quorum-torch-prefill")
+            self._prefill_thread.start()
 
     # ---- public API -------------------------------------------------------
 
@@ -1428,7 +1498,10 @@ class InferenceEngine:
         ``preemptions_total``, ``preempted_tokens_total`` (delivered tokens
         the victims parked) and ``predictive_sheds_total``; zero-drain
         staging's: ``zero_drain`` and ``admission_overlap_total``
-        (staged admissions that registered onto a live ring)."""
+        (staged admissions that registered onto a live ring); disaggregated
+        serving's (the JAX engine's): ``disagg``, ``prefill_sp``, each
+        group's devices and occupancy, and the handoffs' count, bytes and
+        seconds."""
         g = self._graphs
         with self._cond:
             return {
@@ -1496,6 +1569,17 @@ class InferenceEngine:
                 "inflight_chunks": len(self._inflight),
                 "zero_drain": 1 if self.zero_drain else 0,
                 "decode_pp": self.decode_pp,
+                "disagg": 1 if self.disagg else 0,
+                "prefill_sp": self.prefill_sp,
+                "prefill_group_devices": self.prefill_mesh.size if self.disagg else 0,
+                "decode_group_devices": ((self.mesh.size if self.mesh is not None else 1)
+                                         if self.disagg else 0),
+                "prefill_group_active": len(self._admitting) if self.disagg else 0,
+                "decode_group_active": (sum(1 for r in self._slots if r is not None)
+                                        if self.disagg else 0),
+                "kv_handoffs_total": self.n_kv_handoffs,
+                "kv_handoff_bytes_total": self.kv_handoff_bytes,
+                "kv_handoff_seconds_total": round(self.kv_handoff_s, 6),
                 "admission_overlap_total": self.n_admission_overlap,
                 "admission_stall_seconds_total": round(self.admission_stall_s, 6),
                 "drain_gap_seconds_total": round(self.drain_gap_s, 6),
@@ -1516,9 +1600,10 @@ class InferenceEngine:
             pending, stopped = len(self._pending), self._stop
         return {
             "scheduler_alive": self._thread.is_alive() and not stopped,
-            # The JAX engine's second loop (disaggregated prefill) has no
-            # counterpart here: one loop schedules everything.
-            "prefill_scheduler_alive": True,
+            # The second loop of a disaggregated engine (the prefill
+            # group's); a colocated engine has one loop.
+            "prefill_scheduler_alive": (self._prefill_thread.is_alive() and not stopped
+                                        if self.disagg else True),
             "snapshot_worker_alive": (self.prefix_store is None
                                       or self._snap_thread.is_alive()),
             "breaker": self.breaker.state,
@@ -1544,6 +1629,16 @@ class InferenceEngine:
                 == self.mesh.size - 1,
                 "decode": ("graphs" if self._graphs is not None
                            else "eager (gloo)" if self.device.type == "cuda" else "eager")},
+            # Disaggregated serving: each group's devices and the handoff's
+            # route (chosen from the layout before the first handoff).
+            "disagg": None if not self.disagg else {
+                "prefill_devices": [str(d) for d in self.prefill_mesh.devices],
+                "decode_devices": ([str(d) for d in self.mesh.devices] if self.mesh is not None
+                                   else [str(self.device)]),
+                "prefill_workers_alive": (self._pranks is None or (
+                    self._pranks.lost is None
+                    and len(self._pranks.alive_pids()) == self.prefill_mesh.size - 1)),
+                "route": self.handoff_route},
         }
 
     def busy(self) -> bool:
@@ -1617,6 +1712,8 @@ class InferenceEngine:
                 if r is not None:
                     r.cancel.set()
             self._cond.notify_all()
+        if self._prefill_thread is not None:
+            self._prefill_thread.join(timeout=timeout)
         self._thread.join(timeout=timeout)
         if self.prefix_store is not None:
             self._snap_queue.put(None)
@@ -1632,19 +1729,24 @@ class InferenceEngine:
             # Workers stop (killed past the timeout) even when a device call
             # of ours still runs: a collective waiting on them then fails.
             self._ranks.stop(timeout_s=min(timeout, 30.0))
-        if self._thread.is_alive():
+        if self._pranks is not None:
+            self._pranks.stop(timeout_s=min(timeout, 30.0))
+        if self._thread.is_alive() or (self._prefill_thread is not None
+                                       and self._prefill_thread.is_alive()):
             return  # a device call is still running; the GC reclaims state later
         if self._stream is not None:
             self._stream.synchronize()  # nothing of ours may still read what we free
             self._fwd_stream.synchronize()
-            if self._stage_stream is not None:
-                self._stage_stream.synchronize()
+            for extra in (self._stage_stream, self._handoff_stream):
+                if extra is not None:
+                    extra.synchronize()
             if self._graphs is not None:
                 self._graphs.clear()
-        self.params = None
+        self.params = self._prefill_params = None
         self._ck = self._cv = self._table = None
         self._sck = self._scv = None
         self._handoffs.clear()
+        self._outbox.clear()
         self._draft_rt = None
         self._g_trans = self._g_accept = None
         self._host_pool.clear()
@@ -1691,6 +1793,72 @@ class InferenceEngine:
             self._ranks.stop()
             raise
         return mine
+
+    def _start_prefill_group(self, spec: ModelSpec, seed: int, given, n_slots: int,
+                             ckpt: tuple[str, str] | None):
+        """The prefill group's weights on its first device (disagg): with
+        one device beside a one-device decode group, a copy of the decode
+        weights (the same tensors when both share a device); beside a
+        decode mesh, the whole weights drawn or read there; a group of
+        several ranks starts its workers (``engine/follower.Follower``s
+        whose cache is their cut of the staging cache) as
+        :meth:`_start_ranks` does and returns rank 0's cut."""
+        pm, dev = self.prefill_mesh, self.prefill_device
+        if pm.size == 1:
+            if self.mesh is None:
+                return _params_on(self.params, dev)
+            if ckpt is not None:
+                from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+                return load_hf_checkpoint(ckpt[0], dtype=ckpt[1], device=dev)[1]
+            return (_params_on(given, dev) if given is not None
+                    else init_params(spec, seed, dev, quant=self.quant))
+        rows = max(1, int(n_slots))
+        dtype = None if given is None else str(given["tok_emb"].dtype).removeprefix("torch.")
+
+        def setup(rank: int):
+            shard = None
+            if given is not None:
+                shard = (to_host(shard_params(given, pm, rank, spec)), dtype)
+            return ("quorum_tpu_torch.engine.follower:Follower",
+                    dict(spec=spec, seed=int(seed), rows=rows, sp_impl=self.sp_impl,
+                         shard=shard, ckpt=ckpt))
+
+        self._pranks = RankGroup(pm, setup=setup).spawn()
+        try:
+            if ckpt is not None:
+                from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+                mine = load_hf_checkpoint(ckpt[0], dtype=ckpt[1], device=dev, mesh=pm,
+                                          rank=0)[1]
+            elif given is None:
+                mine = init_params_shard(spec, seed, pm, 0, dev)
+            else:
+                mine = shard_params(given, pm, 0, spec)
+            self._prmesh = self._pranks.join()
+            self._prmesh.hold_slots(rows)
+        except BaseException:
+            self._pranks.stop()
+            self._pranks = None
+            raise
+        return mine
+
+    def _pplan(self, op: str, *args) -> None:
+        """:meth:`_plan` for the prefill group's workers (disagg); a lost
+        one raises ``WorkerLost`` and opens the breaker for good."""
+        if self._pranks is not None:
+            try:
+                self._pranks.plan(op, *args)
+            except WorkerLost:
+                self.breaker.trip()
+                raise
+
+    def prefill_rank_reports(self, reset_peak: bool = False) -> list[dict]:
+        """The prefill group's workers' ``Follower.report`` (disagg with a
+        prefill group of several ranks; empty otherwise)."""
+        if self._pranks is None:
+            return []
+        return self._pranks.plan("report", reset_peak, False, reply=True)
 
     def _plan(self, op: str, *args) -> None:
         """Send the workers the plan of the device program rank 0 is about
@@ -2244,12 +2412,13 @@ class InferenceEngine:
         moved = 0
         for k in range(start // c, -(-end // c)):
             lo, hi = max(start, k * c), min(end, (k + 1) * c)
-            leaves = [x.to(self.device, non_blocking=True)[:, :, lo - k * c:hi - k * c]
+            leaves = [x.to(self.prefill_device if stage else self.device,
+                           non_blocking=True)[:, :, lo - k * c:hi - k * c]
                       for x in payloads[k]]
             moved += sum(x.nbytes for x in leaves)
             kv_transfer.write_rows((self._sck, self._scv) if stage else (self._ck, self._cv),
                                    kv_transfer.chunk_from_leaves(leaves, q8), slot, lo)
-        if self._stream is not None:
+        if (self.prefill_device if stage else self.device).type == "cuda":
             done = torch.cuda.Event()
             done.record()
             done.synchronize()
@@ -2300,7 +2469,7 @@ class InferenceEngine:
         if req.n_preempts == 0:
             obs.QUEUE_WAIT.observe(now - req.t_submit)
             self.cost_model.observe_queue_wait(now - req.t_submit)
-        FLIGHT.record("admit", rid=req.rid, engine=self._tag, loop="decode",
+        FLIGHT.record("admit", rid=req.rid, engine=self._tag, loop=self._admit_loop,
                       queue_wait_s=round(now - req.t_submit, 6))
         if req.trace is not None:
             req.trace.add_span_abs("queue-wait", req.t_submit, now, member=req.member)
@@ -2346,8 +2515,11 @@ class InferenceEngine:
             raise
 
     def _has_work(self) -> bool:
-        """Caller holds ``_cond``."""
-        return bool(self._pending or self._admitting or any(self._slots) or self._inflight
+        """Caller holds ``_cond``. Under disagg the queue and the admissions
+        are the prefill loop's work (:meth:`_prefill_work`), not this
+        loop's."""
+        return bool((not self.disagg and (self._pending or self._admitting))
+                    or any(self._slots) or self._inflight
                     or self._pending_snaps or self._handoffs)
 
     def _schedule_forever(self) -> None:
@@ -2357,16 +2529,29 @@ class InferenceEngine:
         while True:
             with self._cond:
                 while not (self._stop or self._has_work()):
+                    if self.disagg:
+                        obs.DECODE_GROUP_ACTIVE.set(sum(1 for r in self._slots
+                                                        if r is not None))
                     self._cond.wait()
                 if self._stop and not self._has_work():
-                    return
+                    if not (self.disagg and self._prefill_thread.is_alive()):
+                        return
+                    # The prefill loop still hands off its last pieces.
+                    self._cond.wait(0.01)
+                    continue
             try:
                 with torch.no_grad():
                     self._sweep_deadlines()
                     self._sweep_preemptions()
                     self._sweep_drain_parks()
-                    self._start_admissions()
-                    self._step_admissions()
+                    if self.disagg:
+                        # The decode-side state work the colocated loop
+                        # runs inside _start_admissions.
+                        self._maybe_reset_arena()
+                        self._dispatch_snapshots()
+                    else:
+                        self._start_admissions()
+                        self._step_admissions()
                     if self.staged:
                         self._drain_handoffs()
                     if any(self._slots) or self._inflight:
@@ -2460,9 +2645,11 @@ class InferenceEngine:
         ``qos`` the policy's weighted-fair pick (charged when popped). A
         head that finds no row, or no pages, may flag a lower-class
         resident for parking (``_maybe_flag_preemption_locked``) and waits.
-        Under zero-drain every admission is staged (``_admit_staged``)."""
-        self._maybe_reset_arena()
-        self._dispatch_snapshots()
+        Under zero-drain and disagg every admission is staged
+        (``_admit_staged``); under disagg this runs on the prefill loop."""
+        if not self.disagg:
+            self._maybe_reset_arena()
+            self._dispatch_snapshots()
         if self.members > 1:
             self._start_admissions_members()
             return
@@ -2526,11 +2713,12 @@ class InferenceEngine:
                 self.n_failures += 1
                 req.out.put(("err", e))
 
-    def _prompt_tokens(self, prompts: list[list[int]], bucket: int) -> torch.Tensor:
-        """Right-padded ``[len(prompts), bucket]`` tokens on the device (an
-        empty prompt stands for an absent member)."""
+    def _prompt_tokens(self, prompts: list[list[int]], bucket: int,
+                       device=None) -> torch.Tensor:
+        """Right-padded ``[len(prompts), bucket]`` tokens on the device (or
+        ``device``; an empty prompt stands for an absent member)."""
         return host_to_device([p + [0] * (bucket - len(p)) for p in prompts], torch.long,
-                              self.device)
+                              device or self.device)
 
     def _lengths_of(self, prompts: list[list[int]]) -> torch.Tensor:
         # An absent member's length is 1: it keeps the last-token gather valid.
@@ -2646,6 +2834,8 @@ class InferenceEngine:
         waits for its register in the handoff queue."""
         groups: dict[tuple[int, int], list[_Admission]] = {}
         for adm in list(self._admitting):
+            if adm.dead or (self.disagg and adm.final_sent):
+                continue  # under disagg the decode loop registers (or ends) it
             if adm.req.cancel.is_set():
                 self.n_cancelled += 1
                 adm.req.out.put(("end", None))
@@ -2686,7 +2876,7 @@ class InferenceEngine:
         register is queued behind them."""
         faults.fire("engine.prefill_segment")
         chunk, s = self.prefill_chunk, self.n_slots
-        params = self.params
+        params = self._prefill_params if self.disagg else self.params
         if self.members > 1 and len(batch) > 1:
             per_row = [batch.get(m) for m in range(self.members)]
             rows = [a.slot if a is not None else None for a in per_row]
@@ -2703,11 +2893,15 @@ class InferenceEngine:
         offsets = [a.offset if a is not None else 0 for a in per_row]
         n_valid = [len(seg) for seg in segs]
         t0 = time.perf_counter()
-        self._plan("segment", segs, bucket, offsets, rows, history, n_valid)
+        if self.disagg:
+            self._pplan("segment", segs, bucket, offsets, rows, history, n_valid)
+        else:
+            self._plan("segment", segs, bucket, offsets, rows, history, n_valid)
         with self._stage_scope():
-            prefill_segment(params, self.spec, self._prompt_tokens(segs, bucket), offsets,
+            prefill_segment(params, self.spec,
+                            self._prompt_tokens(segs, bucket, self.prefill_device), offsets,
                             *cache, rows=rows, history=history, n_valid=n_valid,
-                            mesh=self._rmesh)
+                            mesh=self._prmesh if self.disagg else self._rmesh)
             for adm in batch.values():
                 adm.offset = min(adm.offset + chunk, len(adm.req.prompt_ids))
                 if self.staged:
@@ -2716,7 +2910,7 @@ class InferenceEngine:
         # bound, labelled by its family all the same.
         self._observe_device_time("mseg" if self.members > 1 else "seg",
                                   time.perf_counter() - t0)
-        FLIGHT.record("segment", engine=self._tag, loop="decode", t=t0, bucket=bucket,
+        FLIGHT.record("segment", engine=self._tag, loop=self._admit_loop, t=t0, bucket=bucket,
                       history=history, rids=[a.req.rid for a in batch.values()],
                       offsets=[a.offset for a in batch.values()])
         self.n_prefill_segments += 1
@@ -2725,7 +2919,8 @@ class InferenceEngine:
             if self.staged:
                 if adm.offset >= len(prompt):
                     adm.final_sent = True
-                    self._handoffs.append(("final", adm, None, 0, None))
+                    (self._outbox if self.disagg else self._handoffs).append(
+                        ("final", adm, None, 0, None))
                 continue
             with self._cond:
                 self._resident[adm.slot] = prompt[:adm.offset]
@@ -2782,6 +2977,8 @@ class InferenceEngine:
             if self._slots[adm.slot] is not adm.req:
                 # Cancelled or failed before the row went live.
                 self._paged_release_row(adm.slot)
+            if self.disagg:
+                self._cond.notify_all()
 
     def _fail_admissions(self, adms: list[_Admission], exc: Exception) -> None:
         for adm in adms:
@@ -2861,7 +3058,8 @@ class InferenceEngine:
             return
         offset = restore[0] if restore is not None else 0
         adm = _Admission(req, slot, offset=offset, restored=offset)
-        FLIGHT.record("stage-admit", rid=req.rid, engine=self._tag, loop="decode", slot=slot,
+        FLIGHT.record("stage-admit", rid=req.rid, engine=self._tag, loop=self._admit_loop,
+                      slot=slot,
                       restored=offset)
         with self._cond:
             self._claimed.add(slot)
@@ -2885,14 +3083,24 @@ class InferenceEngine:
             return
         rows = ([adm.slot] if self.members > 1
                 else [e * self.n_slots + adm.slot for e in range(self.ensemble)])
-        pieces = [(row, kv_transfer.slice_rows((self._sck, self._scv), row, lo, hi - lo))
-                  for row in rows]
+        pieces = [(row, self._staged_rows(row, lo, hi - lo)) for row in rows]
         event = None
-        if self._stream is not None:
+        if self._stage_stream is not None:
             event = torch.cuda.Event()
             event.record()
         adm.handed = hi
-        self._handoffs.append(("kv", adm, pieces, lo, event))
+        (self._outbox if self.disagg else self._handoffs).append(("kv", adm, pieces, lo, event))
+
+    def _staged_rows(self, row: int, lo: int, n: int):
+        """Staging positions ``[lo, lo+n)`` of ``row`` as a wire chunk of
+        every kv head: on a prefill group of several ranks each rank's
+        entries gathered over its tp (``kv_transfer.gather_heads``; the
+        workers take part through a ``handoff`` plan)."""
+        chunk = kv_transfer.slice_rows((self._sck, self._scv), row, lo, n)
+        if self._prmesh is None:
+            return chunk
+        self._pplan("handoff", row, lo, n)
+        return kv_transfer.gather_heads(chunk, self._prmesh, self.spec)
 
     def _drain_handoffs(self) -> None:
         """Inject queued pieces into their claimed decode rows and register
@@ -2925,6 +3133,14 @@ class InferenceEngine:
             if event is not None:
                 self._stream.wait_event(event)
             for row, chunk in pieces:
+                if self._ranks is not None:
+                    # A decode group of several ranks: the whole piece
+                    # broadcast from rank 0, each rank writing its entries.
+                    n = kv_transfer.chunk_leaves(chunk)[0].shape[2]
+                    self._plan("inject", row, start, n)
+                    for leaf in kv_transfer.chunk_leaves(chunk):
+                        self._rmesh.tp.broadcast(leaf, 0)
+                    chunk = kv_transfer.select_heads(chunk, self._rmesh, self.spec)
                 kv_transfer.write_rows((self._ck, self._cv), chunk, row, start)
                 if self._stream is not None:
                     for leaf in kv_transfer.chunk_leaves(chunk):
@@ -2959,6 +3175,118 @@ class InferenceEngine:
         except Exception as e:
             logger.exception("staged register failed")
             self._fail_admissions([adm], e)
+
+    # ---- disaggregated prefill/decode (prefill_mesh=, disagg=P+D) ----------
+    #
+    # Two loops share the engine's state under ``_cond``. The prefill loop
+    # (:meth:`_prefill_scheduler`, on the prefill group's device) takes the
+    # queue: it admits into the staging cache there, runs every segment and
+    # slices each segment's rows into pieces, exactly as a zero-drain
+    # admission does, but queues them in its ``_outbox``; each piece's
+    # handoff (:meth:`_commit_handoffs`: ``kv_transfer.transfer``, a copy
+    # onto the decode group's device on the handoff stream, after the
+    # segment's event) is made at the next turn, once the next segments
+    # are queued, so the copy of chunk i overlaps the prefill of chunk
+    # i+1; the moved pieces and the register go into ``_handoffs``. The
+    # decode loop (:meth:`_scheduler`) keeps the ring, the decode-side
+    # state (grammar arena, prefix snapshots) and ``_drain_handoffs``:
+    # every write into the decode cache and every register stays on one
+    # thread. An admission is the prefill loop's until its register is
+    # queued, then the decode loop's. A failed handoff (the
+    # ``engine.kv_handoff`` fault site, or a copy that raises) dooms only its
+    # own admission: no retry, no other route (the route is the layout's).
+
+    @property
+    def _admit_loop(self) -> str:
+        """The flight recorder's ``loop`` of admission events."""
+        return "prefill" if self.disagg else "decode"
+
+    def _prefill_work(self) -> bool:
+        """Whether the prefill loop has work now: pieces to hand off, an
+        admission with segments to run (or cancelled before its register
+        was queued), or a pending request that could claim a row. Caller
+        holds ``_cond``."""
+        if self._outbox:
+            return True
+        for a in self._admitting:
+            if not a.final_sent and not a.dead:
+                return True
+        if not self._pending:
+            return False
+        s = self.n_slots
+        for m in {r.member for r in self._pending}:
+            for i in range(m * s, (m + 1) * s):
+                if self._slots[i] is None and i not in self._claimed:
+                    return True
+        return False
+
+    def _prefill_scheduler(self) -> None:
+        """The prefill group's loop (disagg only): admit, one segment per
+        admission, hand off the pieces of earlier turns (all of them when
+        no segment is left to overlap), until stopped and idle."""
+        if self.prefill_device.type == "cuda":
+            torch.cuda.set_device(self.prefill_device)
+        while True:
+            with self._cond:
+                while not (self._stop or self._prefill_work()):
+                    obs.PREFILL_GROUP_ACTIVE.set(len(self._admitting))
+                    self._cond.wait()
+                if self._stop and not self._prefill_work():
+                    return
+            obs.PREFILL_GROUP_ACTIVE.set(len(self._admitting))
+            try:
+                with torch.no_grad():
+                    self._start_admissions()
+                    older = len(self._outbox)
+                    self._step_admissions()
+                    more = any(not a.final_sent and not a.dead for a in list(self._admitting))
+                    self._commit_handoffs(older if more else len(self._outbox))
+            except Exception as e:  # the prefill group's blast radius only
+                logger.exception("prefill loop turn failed")
+                with self._cond:
+                    adms = [a for a in self._admitting if not a.final_sent]
+                self._record_breaker_failure()
+                self._fail_admissions(adms, e)
+
+    def _commit_handoffs(self, n: int) -> None:
+        """Hand off the first ``n`` outbox entries, in order: each piece
+        moves onto the decode group's device (``kv_transfer.transfer``,
+        which blocks this loop until it lands) and joins ``_handoffs`` with
+        the register markers behind it. The ``engine.kv_handoff`` fault
+        site fires before each move; a failure dooms that admission."""
+        for _ in range(n):
+            kind, adm, pieces, start, event = self._outbox.popleft()
+            if adm.dead:
+                continue
+            if kind == "kv":
+                try:
+                    faults.fire("engine.kv_handoff")
+                    t0 = time.perf_counter()
+                    moved, n_bytes, secs = [], 0, 0.0
+                    for row, chunk in pieces:
+                        out, b, dt, route = kv_transfer.transfer(
+                            chunk, self.device, route=self.handoff_route,
+                            stream=self._handoff_stream, after=event)
+                        moved.append((row, out))
+                        n_bytes, secs = n_bytes + b, secs + dt
+                    self.n_kv_handoffs += 1
+                    self.kv_handoff_bytes += n_bytes
+                    self.kv_handoff_s += secs
+                    if adm.req.trace is not None:
+                        adm.req.trace.add_span_abs("kv-handoff", t0, time.perf_counter(),
+                                                   slot=adm.slot, bytes=n_bytes, route=route)
+                    FLIGHT.record("handoff", rid=adm.req.rid, engine=self._tag, loop="prefill",
+                                  slot=adm.slot, bytes=n_bytes, route=route)
+                except Exception as e:
+                    logger.exception("kv handoff failed")
+                    self._fail_admissions([adm], e)
+                    continue
+                entry = ("kv", adm, moved, start, None)
+            else:
+                entry = ("final", adm, None, 0, None)
+            with self._cond:
+                self._handoffs.append(entry)
+                self._cond.notify_all()
 
     # ---- stacked members: the JAX engine's ``_start_admissions_members`` ----
 
@@ -3197,6 +3525,8 @@ class InferenceEngine:
         if req.t_admit is not None:
             self.cost_model.observe_service(time.perf_counter() - req.t_admit)
         self._queue_snapshot(i)
+        if self.disagg:
+            self._cond.notify_all()  # the prefill loop may admit into the row
 
     def _sweep_cancelled(self) -> None:
         """Release rows whose consumer went away (or hit a stop string): they
@@ -3418,7 +3748,7 @@ class InferenceEngine:
         on another stream into the staging cache, and the injection and
         register are small writes at a turn's boundary. Caller holds
         ``_cond``."""
-        if self.zero_drain:
+        if self.staged:
             return False
         if self._admitting:
             return True
@@ -4624,6 +4954,7 @@ class InferenceEngine:
                 self._page_claims = [0] * self.n_slots
                 self._table_dirty = True
             self.n_rebuilds += 1
+            self._cond.notify_all()
         obs.PIPELINE_DEPTH.set(0)
         # The post-mortem artifact: the ring holds the timeline that led
         # here. Then the breaker: a retry storm of a poison pill opens it.
@@ -4734,6 +5065,62 @@ _ENGINES_LOCK = threading.Lock()
 
 
 _NOT_ON_MESH = "not yet on a multi-rank engine"
+
+
+def _params_on(params, device):
+    """A params tree (quantized leaves are dicts) on ``device``: the same
+    tensors where they already live there, else copies."""
+    if params is None or isinstance(params, torch.Tensor):
+        return None if params is None else params.to(device)
+    return {k: _params_on(v, device) for k, v in params.items()}
+
+
+def _check_disagg_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, prefill_mesh, draft_spec,
+                        prefill_chunk: int, zero_drain: bool) -> None:
+    """A disaggregated engine's refusals, the JAX engine's, in its words
+    and order, then what the port does not serve yet, by name. Two
+    one-rank groups may share a device (the CPU, or one card through this
+    API: SMs shared, a correctness set-up); groups of several ranks never
+    do."""
+    decode = ([str(d) for d in mesh.devices] if mesh is not None else [str(eng.device)])
+    prefill = [str(d) for d in prefill_mesh.devices]
+    overlap = set(decode) & set(prefill) - {"cpu"}
+    if overlap and (len(decode) > 1 or len(prefill) > 1):
+        raise ValueError(
+            f"disagg device groups must be disjoint; {len(overlap)} "
+            "device(s) appear in both the prefill and decode mesh")
+    if draft_spec is not None:
+        raise ValueError(
+            "draft-model speculation (spec_model=/spec_ckpt=) does "
+            "not compose with disagg: the draft runtime is not "
+            "group-placed (prompt-lookup spec_decode composes)")
+    if mesh is not None and mesh.shape[AXIS_SP] > 1:
+        raise ValueError(
+            "sp>1 in the decode group does not compose with "
+            "disagg: sequence-parallel serving disables chunked "
+            "prefill, which every disaggregated admission rides — "
+            "under disagg, sp= shards the PREFILL group instead")
+    if aligned_prefill_chunk(int(prefill_chunk), spec.max_seq) <= 0:
+        raise ValueError(
+            "disagg requires chunked prefill (prefill_chunk >= 16 "
+            "after power-of-two alignment): admissions prefill "
+            "into the prefill group's staging cache segment by "
+            "segment and register on the decode group — the "
+            "single-shot admit program samples its first token "
+            "inside prefill, on the wrong device group")
+    if zero_drain:
+        raise ValueError(
+            "zero_drain=1 does not compose with disagg=P+D: "
+            "disaggregated admissions already run on their own "
+            "device group with the ring at full depth — zero-drain "
+            "is structural there (drop one knob)")
+    for what, m, axis in (("prefill", prefill_mesh, AXIS_SP), ("decode", mesh, AXIS_PP),
+                          ("prefill", prefill_mesh, AXIS_DP), ("decode", mesh, AXIS_DP),
+                          ("prefill", prefill_mesh, AXIS_PP), ("decode", mesh, AXIS_SP)):
+        if m is not None and m.shape[axis] > 1:
+            raise ValueError(
+                f"disagg with {axis}={m.shape[axis]} in the {what} group is not served by "
+                "cuda:// engines yet: tp= cuts each group")
 
 
 def check_pp_axes(mesh_shape: dict) -> None:
@@ -4877,6 +5264,7 @@ def get_engine(
     zero_drain: bool = False,
     mesh=None,
     sp_impl: str = "ring",
+    prefill_mesh=None,
 ) -> InferenceEngine:
     """Engines are keyed by weight identity (spec, seed, device or mesh, members,
     ensemble, member_seeds when members > 1, quant), by the cache
@@ -4899,7 +5287,9 @@ def get_engine(
     engine (an opt-in wins). ``device`` defaults to cuda and raises when
     there is none; a ``mesh`` (``parallel/mesh.Mesh``) puts rank 0 on its
     first device and is part of the key, as is ``sp_impl`` when sp > 1
-    (inert otherwise, as the JAX engine keys it)."""
+    (inert otherwise, as the JAX engine keys it). ``prefill_mesh`` (disagg)
+    is structural too: the prefill group carries a second weight copy and
+    the staging cache, so colocated and disaggregated engines never share."""
     import os
 
     if draft_ckpt and draft_spec is not None:
@@ -4913,7 +5303,8 @@ def get_engine(
            kv_quant or None, int(spec_decode), draft_spec,
            int(draft_seed) if draft_spec is not None else None, draft_ckpt,
            (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None,
-           bool(zero_drain))
+           bool(zero_drain),
+           tuple(map(str, prefill_mesh.devices)) if prefill_mesh is not None else None)
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None:
@@ -4931,7 +5322,7 @@ def get_engine(
                 kv_pages=kv_pages, kv_page_size=kv_page_size, kv_pool_pages=kv_pool_pages,
                 prefix_store=prefix_store, prefix_store_bytes=prefix_store_bytes,
                 prefix_store_chunk=prefix_store_chunk, qos=qos, zero_drain=zero_drain,
-                mesh=mesh, sp_impl=sp_impl)
+                mesh=mesh, sp_impl=sp_impl, prefill_mesh=prefill_mesh)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
             eng.qos = eng.qos or bool(qos)
@@ -4989,6 +5380,7 @@ def get_engine_from_ckpt(
     zero_drain: bool = False,
     mesh=None,
     sp_impl: str = "ring",
+    prefill_mesh=None,
 ) -> InferenceEngine:
     """An engine over a local HF checkpoint directory
     (``models/hf_loader.py``). Keyed by (real path, effective dtype,
@@ -5024,7 +5416,8 @@ def get_engine_from_ckpt(
     key = ("ckpt", resolved, eff_dtype, str(dev), mesh, sp_key, quant, kv_quant,
            int(spec_decode), draft_spec, int(draft_seed) if draft_spec is not None else None,
            draft_resolved, (True, int(kv_page_size), int(kv_pool_pages)) if kv_pages else None,
-           bool(zero_drain))
+           bool(zero_drain),
+           tuple(map(str, prefill_mesh.devices)) if prefill_mesh is not None else None)
     with _ENGINES_LOCK:
         eng = _ENGINES.get(key)
         if eng is None and mesh is not None:
@@ -5037,7 +5430,8 @@ def get_engine_from_ckpt(
                 prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
                 max_pending=max_pending, quant=quant, kv_quant=kv_quant,
                 spec_decode=spec_decode, draft_spec=draft_spec, draft_seed=draft_seed,
-                kv_pages=kv_pages, prefix_store=prefix_store, qos=qos, zero_drain=zero_drain)
+                kv_pages=kv_pages, prefix_store=prefix_store, qos=qos, zero_drain=zero_drain,
+                prefill_mesh=prefill_mesh)
         elif eng is None:
             spec, params = load_hf_checkpoint(resolved, dtype=eff_dtype, device=dev,
                                               quant=quant)
@@ -5056,7 +5450,7 @@ def get_engine_from_ckpt(
                 draft_params=draft_params, kv_pages=kv_pages, kv_page_size=kv_page_size,
                 kv_pool_pages=kv_pool_pages, prefix_store=prefix_store,
                 prefix_store_bytes=prefix_store_bytes, prefix_store_chunk=prefix_store_chunk,
-                qos=qos, zero_drain=zero_drain)
+                qos=qos, zero_drain=zero_drain, prefill_mesh=prefill_mesh)
         else:
             eng.prefix_cache = eng.prefix_cache and bool(prefix_cache)
             eng.qos = eng.qos or bool(qos)

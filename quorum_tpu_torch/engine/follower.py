@@ -13,6 +13,11 @@ arrive — collective for collective what rank 0's engine runs:
   capture) the plan says so and this rank runs one eager step first:
   collective for collective the same sequence. Over gloo (host-staged
   collectives, which no graph captures) it runs eagerly;
+- ``handoff`` (a disaggregated engine's prefill group, whose cache is the
+  rank's cut of the staging cache): a staged row's positions sliced and
+  all-gathered over tp, so rank 0 holds the piece of every kv head;
+- ``inject`` (its decode group): the piece of every kv head broadcast
+  from rank 0, the rank's entries written into its cache row;
 - ``report``: what this rank saw and holds — the tokens it fed per cache
   row (while the row was live) since the last report, its kernel launches
   and collectives, its weight and cache bytes and peak device memory.
@@ -39,6 +44,7 @@ import contextlib
 
 import torch
 
+from quorum_tpu_torch.cache import kv_transfer
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.convert import params_from_numpy
 from quorum_tpu_torch.models.init import init_params_shard
@@ -135,6 +141,23 @@ class Follower:
         for r, off in zip(rows, offsets):
             if r is not None and off == 0:
                 self.fed[r] = []
+
+    def handoff(self, row: int, start: int, n: int) -> None:
+        with self._scope():
+            chunk = kv_transfer.slice_rows((self._ck, self._cv), row, start, n)
+            kv_transfer.gather_heads(chunk, self.mesh, self.spec)
+
+    def inject(self, row: int, start: int, n: int) -> None:
+        s = self.spec
+        with self._scope():
+            whole = tuple(torch.empty((s.n_layers, s.n_kv_heads, n, s.head_dim),
+                                      dtype=self._ck.dtype, device=self.device)
+                          for _ in range(2))
+            for leaf in whole:
+                self.mesh.tp.broadcast(leaf, 0)
+            kv_transfer.write_rows((self._ck, self._cv),
+                                   kv_transfer.select_heads(whole, self.mesh, s), row, start)
+        self.fed[row] = []
 
     def _program(self, n: int) -> torch.Tensor:
         """``n`` decode steps fed by rank 0; returns ``[n, 2, rows]`` (each

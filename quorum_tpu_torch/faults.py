@@ -16,6 +16,7 @@ dispatch's first device work is enqueued:
   ``engine.decode``           decode dispatch (one graph replay on the card)
   ``engine.verify``           speculative verify / fused draft→verify dispatch
   ``engine.snapshot``         prefix-store snapshot worker fetch/insert
+  ``engine.kv_handoff``       disaggregated prefill→decode KV chunk handoff
   ``engine.preempt``          QoS preemption: parking one victim row
   ``http.request``            HTTP backend non-streaming request I/O
   ``http.stream``             HTTP backend streaming request I/O
@@ -36,6 +37,7 @@ SITES = (
     "engine.decode",
     "engine.verify",
     "engine.snapshot",
+    "engine.kv_handoff",
     "engine.preempt",
     "http.request",
     "http.stream",

@@ -126,6 +126,33 @@ ADMISSION_STALL_SECONDS = METRICS.counter(
     "Wall time the decode dispatch ring spent clamped to depth 1 for an "
     "admission (the drain-based coupling). Structurally 0 under "
     "zero_drain=1, where admission pressure never clamps the ring.")
+# Disaggregated prefill/decode serving (cuda://…&disagg=P+D): admission
+# prefill runs on its own device group and a completed segment's KV hands
+# off into the claimed decode-group slot (cache/kv_transfer.py). The JAX
+# package's families, in its words.
+KV_HANDOFF_BYTES = METRICS.counter(
+    "quorum_tpu_kv_handoff_bytes_total",
+    "KV cache bytes handed off between device groups (prefill-group "
+    "staging -> decode-group slot), labelled route= direct (same-layout "
+    "device->device put), reshard (either side partitioned: per-group tp= "
+    "or an sp-sharded staging cache, re-laid-out on the fly), host-bounce "
+    "(the explicit d2h+h2d fallback), or resident (zero-drain same-mesh "
+    "injection: 0 bytes cross any boundary).")
+KV_HANDOFF_SECONDS = METRICS.histogram(
+    "quorum_tpu_kv_handoff_seconds",
+    "One chunk-granular KV handoff between device groups (slice dispatch "
+    "to landed-on-target), blocking on the prefill scheduler thread; "
+    "route= labels as on quorum_tpu_kv_handoff_bytes_total.",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 0.5, 1.0, 2.5, 5.0))
+PREFILL_GROUP_ACTIVE = METRICS.gauge(
+    "quorum_tpu_prefill_group_active",
+    "In-flight chunked admissions occupying the prefill device group "
+    "right now (last-writer-wins across engines sharing the process).")
+DECODE_GROUP_ACTIVE = METRICS.gauge(
+    "quorum_tpu_decode_group_active",
+    "Busy decode-group slots right now (last-writer-wins across engines "
+    "sharing the process).")
 ADMISSION_OVERLAP = METRICS.counter(
     "quorum_tpu_admission_overlap_total",
     "Staged-injection admissions that registered onto a live ring "

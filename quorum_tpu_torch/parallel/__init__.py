@@ -6,9 +6,10 @@ package and the port must build — the collectives (``comm.py``) and the
 rank runtime (``ranks.py``: spawned worker ranks, the plan channel, the
 lifecycle).
 
-``pipeline.py`` is the serving half of the JAX package's (pipeline-staged
-decode and admission over pp stages); its pp train step and the disagg
-helpers of ``mesh.py`` are not ported yet (ROADMAP queue 1).
+``pipeline.py`` is the JAX package's pipeline: staged decode and
+admission over pp stages, and the GPipe train step; ``mesh.py`` also holds
+the disaggregated groups' helpers (``parse_disagg``,
+``group_mesh_configs``, ``disagg_meshes``).
 """
 
 from quorum_tpu_torch.parallel.comm import (COLLECTIVES, Group, RankMesh, collective_counts,

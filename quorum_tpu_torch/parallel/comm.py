@@ -224,18 +224,23 @@ class Group:
             w.wait()
         return [self._back(r, t) for r, t in zip(recvs, tensors)]
 
-
     def shift(self, out: torch.Tensor | None = None,
-              like: torch.Tensor | None = None) -> torch.Tensor | None:
+              like: torch.Tensor | None = None,
+              reverse: bool = False) -> torch.Tensor | None:
         """One hop along the group's ring: send ``out`` (if given) to the
         next group rank and receive, into a tensor shaped like ``like`` (if
         given), what the previous rank sent; returns the received tensor.
-        The pipeline's stage-to-stage hand-off. Even ranks send first and
-        odd ranks receive first, as :meth:`ring_pass` pairs them, so the
-        hops of one tick never wait on each other in a cycle, whichever
-        ranks take part. Each send and each receive counts one ``p2p``; on
-        NCCL both are recorded into a capture like any collective."""
+        The pipeline's stage-to-stage hand-off; ``reverse`` hops the other
+        way (to the previous rank, from the next: the hop's adjoint, which
+        carries a training step's gradients back a stage). Even ranks send
+        first and odd ranks receive first, as :meth:`ring_pass` pairs them,
+        so the hops of one tick never wait on each other in a cycle,
+        whichever ranks take part. Each send and each receive counts one
+        ``p2p``; on NCCL both are recorded into a capture like any
+        collective."""
         nxt, prv = (self.rank + 1) % self.size, (self.rank - 1) % self.size
+        if reverse:
+            nxt, prv = prv, nxt
         got = None if like is None else torch.empty_like(self._stage(like))
 
         def send():

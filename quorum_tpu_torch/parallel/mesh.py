@@ -164,3 +164,73 @@ def single_device_mesh(device=None, *, backend: str | None = None) -> Mesh:
     """A 1×1×1×1 mesh on one device: a one-rank group whose collectives
     the decode graphs capture like any other's."""
     return make_mesh(MeshConfig(), [resolve_device(device)], backend=backend)
+
+
+def parse_disagg(raw: str) -> tuple[int, int]:
+    """``"4+4"`` → ``(n_prefill, n_decode)`` (the JAX package's
+    ``parse_disagg``, in its words). Strict: the knob is structural, so a
+    typo fails at config time. URL query parsing decodes ``+`` to a space,
+    so a bare space separator is accepted too."""
+    import re
+
+    m = re.fullmatch(r"(\d+)[+ ](\d+)", str(raw).strip())
+    if not m:
+        raise ValueError(
+            f"invalid disagg={raw!r} (expected P+D device counts, e.g. 4+4)")
+    n_p, n_d = int(m.group(1)), int(m.group(2))
+    if n_p < 1 or n_d < 1:
+        raise ValueError(
+            f"invalid disagg={raw!r} (both device groups need >= 1 device)")
+    return n_p, n_d
+
+
+def group_mesh_configs(n_prefill: int, n_decode: int, *, tp: int | None = None, sp: int = 1,
+                       pp: int = 1) -> tuple[MeshConfig, MeshConfig]:
+    """Each group's mesh shape for ``disagg=P+D`` (the JAX package's
+    ``group_mesh_configs``, its refusals in its words): ``tp`` cuts both
+    groups (None: each group's whole size), ``sp`` the prefill group,
+    ``pp`` stages the decode group."""
+    if sp < 1 or pp < 1 or (tp is not None and tp < 1):
+        raise ValueError(
+            f"invalid sharding knobs tp={tp} sp={sp} pp={pp} beside "
+            "disagg= (each must be >= 1)")
+    tp_p = tp if tp is not None else n_prefill // sp
+    tp_d = tp if tp is not None else n_decode // pp
+    if tp_p < 1 or sp * tp_p != n_prefill:
+        raise ValueError(
+            f"prefill group of disagg={n_prefill}+{n_decode} does not "
+            f"factor as sp={sp} x tp={tp_p} ({sp * max(tp_p, 0)} != "
+            f"{n_prefill} devices) — pick tp/sp whose product is the "
+            "prefill group size, or resize the group")
+    if tp_d < 1 or pp * tp_d != n_decode:
+        raise ValueError(
+            f"decode group of disagg={n_prefill}+{n_decode} does not "
+            f"factor as pp={pp} x tp={tp_d} ({pp * max(tp_d, 0)} != "
+            f"{n_decode} devices) — pick tp/pp whose product is the "
+            "decode group size, or resize the group")
+    if pp > 1 and tp_d > 1:
+        raise ValueError(
+            f"pipeline-staged decode runs tp=1 within each stage "
+            f"(pp={pp} with tp={tp_d} in the decode group): make pp the "
+            "whole decode group, or drop one knob")
+    return MeshConfig(sp=sp, tp=tp_p), MeshConfig(pp=pp, tp=tp_d)
+
+
+def disagg_meshes(n_prefill: int, n_decode: int, devices=None, *, tp: int | None = None,
+                  sp: int = 1, pp: int = 1) -> tuple[Mesh, Mesh]:
+    """Two disjoint groups for disaggregated serving (the JAX package's
+    ``disagg_meshes``): the first ``n_prefill`` of ``devices`` (default:
+    every CUDA device; ``["cpu"] * n`` for CPU groups) become the prefill
+    group's mesh, the next ``n_decode`` the decode group's, each shaped by
+    :func:`group_mesh_configs`. The inter-group hop is the engine's KV
+    handoff (``cache/kv_transfer.transfer``), never a collective spanning
+    both."""
+    devs = list(_devices(devices))
+    need = n_prefill + n_decode
+    if need > len(devs):
+        raise ValueError(
+            f"disagg={n_prefill}+{n_decode} needs {need} devices, have "
+            f"{len(devs)}")
+    pre_cfg, dec_cfg = group_mesh_configs(n_prefill, n_decode, tp=tp, sp=sp, pp=pp)
+    return (make_mesh(pre_cfg, devs[:n_prefill]),
+            make_mesh(dec_cfg, devs[n_prefill:need]))

@@ -1,6 +1,8 @@
-"""Pipeline-staged serving over the mesh's ``pp`` stages: the serving half
-of the JAX package's ``parallel/pipeline.py`` (``_row_groups``,
-``staged_decode_chunk``, ``staged_decode_loop``), over the port's ranks.
+"""Pipeline parallelism over the mesh's ``pp`` stages: the JAX package's
+``parallel/pipeline.py`` over the port's ranks — staged serving
+(``_row_groups``, ``staged_decode_chunk``, ``staged_decode_loop``) and,
+at the end of this module, the GPipe train step (``pp_loss_fn``,
+``pp_train_init``, ``make_pp_train_step``).
 
 Stage s is one rank. It holds layers ``[s·L/pp, (s+1)·L/pp)`` of every
 ``[L, …]`` leaf and those layers' KV cache ``[L/pp, S, K, max_seq, hd]``
@@ -45,13 +47,14 @@ launches a stage per chunk, and K1 once per layer in each admission.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from quorum_tpu_torch.models.model_config import ModelSpec
 from quorum_tpu_torch.models.transformer import (_block, _dtype, _embed, _final_norm, _kv_layer,
                                                  _kv_put, _last_rows, _layer, _rope,
                                                  decode_step_blocks, decode_token_embed,
                                                  n_layers, unembed)
-from quorum_tpu_torch.ops.attention import prefill_attention
+from quorum_tpu_torch.ops.attention import attention, causal_mask, prefill_attention
 from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
 from quorum_tpu_torch.ops.rotary import apply_rope
 
@@ -296,3 +299,219 @@ def follow_staged_decode(blocks, spec: ModelSpec, mesh, n_steps: int, n_chunks: 
                 ran += 1
             buf = mesh.pp.shift(out, like if _active(s, t + 1, pp, n_steps) else None)
     return ran
+
+
+# ---- training: the GPipe step (the JAX package's pp_loss_fn and
+# make_pp_train_step) ---------------------------------------------------------
+
+
+def _check_pp_mesh(mesh, spec: ModelSpec) -> int:
+    """The pipelined step's mesh is dp × pp: tp or sp beside pp, or pp not
+    dividing the layers, is refused in the JAX package's words. Returns
+    pp."""
+    shape = mesh.mesh.shape if hasattr(mesh, "mesh") else mesh.shape
+    npp = shape["pp"]
+    if shape["tp"] != 1 or shape["sp"] != 1:
+        raise ValueError(
+            "the pipelined path composes with dp only; build the mesh as "
+            f"dp×pp (got tp={shape['tp']}, sp={shape['sp']})")
+    if spec.n_layers % npp:
+        raise ValueError(f"n_layers={spec.n_layers} must divide into pp={npp} stages")
+    return npp
+
+
+def _hop(mesh, out, like, reverse: bool = False):
+    """The step's hop (:meth:`Group.shift`); on a one-stage mesh the stage
+    hands its output to itself."""
+    if mesh.pp_size == 1:
+        return out if like is not None else None
+    return mesh.pp.shift(out, like, reverse=reverse)
+
+
+def _stage_blocks(blocks, spec: ModelSpec, x: torch.Tensor, n: int, remat: bool) -> torch.Tensor:
+    """A stage's ``n`` layers over hidden states ``x`` [mb, T, d] with the
+    plain causal attention (the training forward's: K1 has no backward),
+    each layer under ``torch.utils.checkpoint`` with ``remat``."""
+    t, dev = x.shape[1], x.device
+    positions = torch.arange(t, device=dev)
+    cos, sin = _rope(spec, dev)
+    mask = causal_mask(t, t, window=spec.sliding_window, device=dev)
+
+    def attend(q, k, v):
+        if spec.pos == "rope":
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+        return attention(q, k, v, mask), k, v
+
+    def layer(x, block):
+        return _block(x, block, spec, attend)
+
+    for l in range(n):
+        block = _layer(blocks, l)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer, x, block, use_reentrant=False)
+        else:
+            x = layer(x, block)
+    return x
+
+
+def _nll_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Sum of the next-token nll over non-pad targets (``trainer.loss_fn``'s
+    numerator)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return torch.sum(nll * (targets != 0).float())
+
+
+def pp_value_and_grad(params, spec: ModelSpec, tokens: torch.Tensor, mesh, n_micro: int = 2,
+                      remat: bool = True, comm: dict | None = None):
+    """One rank's ``(loss, grads)`` of :func:`pp_loss_fn`: GPipe over
+    ``n_micro`` microbatches of ``tokens`` [B, T] (this dp group's rows;
+    every stage of the group is given them, stage 0 alone reads them).
+
+    The schedule is explicit and the same on every rank. Forward, tick
+    ``t`` of ``n_micro + pp − 1``: stage s runs its layers on microbatch
+    ``t − s`` (stage 0 embeds it first) and every rank makes one hop
+    (:meth:`Group.shift`): the stage's output on to the next stage, the
+    last stage's back to stage 0, which at once runs the final norm, the
+    head and the microbatch's loss and its backward down to the received
+    hidden state. Backward, ticks in reverse: each rank first computes the
+    gradient of what it received at forward tick ``t`` (stage 0: the
+    head's, kept from the forward; a later stage: its layers' backward for
+    that microbatch from the output gradient it received a tick before),
+    then one reverse hop sends it to the stage it came from and receives
+    the gradient of what this rank sent at ``t`` (stage 0 then runs its
+    layers' and the embedding's backward for that microbatch). Every rank
+    runs backward on its own graph only, from the gradients it receives.
+
+    The loss is the sum of the microbatches' nll over the count of non-pad
+    targets of the whole global batch (stage 0's count all-reduced over
+    dp), as ``trainer.loss_fn(mesh=)`` divides it; it is summed over dp and
+    then broadcast from stage 0, so every rank returns it. The gradients
+    (a tree like ``params``: the stage's layers, and on stage 0 the
+    embedding, the final norm and the head) are summed over dp in float32
+    (``trainer.dp_sum_grads``; ``comm`` accumulates its seconds and
+    bytes)."""
+    from quorum_tpu_torch.training.optim import tree_map
+    from quorum_tpu_torch.training.trainer import _grad_leaves, dp_sum_grads
+
+    npp = _check_pp_mesh(mesh, spec)
+    s = mesh.pp_rank
+    b, t_len = tokens.shape
+    if b % n_micro:
+        raise ValueError(f"batch {b} must divide into {n_micro} microbatches")
+    mb, t = b // n_micro, t_len - 1
+    dev = tokens.device
+    n = n_layers(params["blocks"])
+    grads = tree_map(torch.zeros_like, params)
+    leaves = _grad_leaves(params, grads)
+    inp, targets = tokens[:, :-1], tokens[:, 1:]
+    like = torch.empty((mb, t, spec.d_model), dtype=_dtype(spec), device=dev)
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    if s == 0:
+        count = (targets != 0).float().sum()
+        count = torch.clamp_min(mesh.dp.all_reduce(count.reshape(1).clone())[0], 1.0)
+        positions = torch.arange(t, device=dev)
+
+    def active(stage: int, tick: int) -> bool:
+        return 0 <= tick - stage < n_micro
+
+    def rows(m: int) -> slice:
+        return slice(m * mb, (m + 1) * mb)
+
+    ticks = n_micro + npp - 1
+    received: dict[int, torch.Tensor] = {}  # microbatch -> the stage's input leaf (s > 0)
+    outputs: dict[int, torch.Tensor] = {}   # microbatch -> the stage's output, in its graph
+    heads: dict[int, torch.Tensor] = {}     # microbatch -> d loss / d last stage's output
+    with torch.enable_grad():
+        buf = None
+        for tick in range(ticks):
+            out = None
+            if active(s, tick):
+                m = tick - s
+                if s == 0:
+                    x = _embed(leaves, spec, inp[rows(m)], positions)
+                else:
+                    x = received[m] = buf.requires_grad_()
+                outputs[m] = _stage_blocks(leaves["blocks"], spec, x, n, remat)
+                out = outputs[m].detach().contiguous()
+            got = _hop(mesh, out, like if active((s - 1) % npp, tick) else None)
+            if s == 0 and got is not None:
+                m = tick - (npp - 1)
+                h = got.requires_grad_()
+                part = _nll_sum(unembed(leaves, spec, _final_norm(leaves, spec, h)),
+                                targets[rows(m)]) / count
+                part.backward()
+                heads[m] = h.grad
+                loss += part.detach()
+            else:
+                buf = got
+        pending: dict[int, torch.Tensor] = {}  # microbatch -> d loss / d this stage's output
+        for tick in reversed(range(ticks)):
+            back = None
+            if s == 0:
+                back = heads.pop(tick - (npp - 1), None)
+            elif active(s, tick + 1):
+                m = tick + 1 - s
+                torch.autograd.backward(outputs.pop(m), pending.pop(m))
+                back = received.pop(m).grad
+            got = _hop(mesh, back, like if active(s, tick) else None, reverse=True)
+            if got is not None:
+                if s == 0:
+                    torch.autograd.backward(outputs.pop(tick), got)
+                else:
+                    pending[tick - s] = got
+    dp_sum_grads(grads, mesh, comm)
+    if s == 0:
+        loss = mesh.dp.all_reduce(loss.reshape(1).clone())[0]
+    loss = mesh.pp.broadcast(loss.reshape(1).clone(), 0)[0]
+    return loss, grads
+
+
+def pp_loss_fn(params, spec: ModelSpec, tokens, mesh, n_micro: int, remat: bool = True):
+    """Mean next-token cross-entropy through the pipeline (the same contract
+    as ``trainer.loss_fn``): :func:`pp_value_and_grad`'s loss, which every
+    rank of the mesh calls and returns."""
+    return pp_value_and_grad(params, spec, torch.as_tensor(tokens), mesh, n_micro, remat)[0]
+
+
+def pp_train_init(spec: ModelSpec, mesh, *, seed: int = 0, optimizer=None):
+    """This rank's TrainState of a pp (× dp) mesh: its stage's cut of the
+    seeded init (``models/init.init_params_shard``: its layers, and on
+    stage 0 the embedding, the final norm and the head), the optimizer's
+    zero state over it, step 0 (the JAX package's ``pp_train_init``)."""
+    from quorum_tpu_torch.training.trainer import train_init
+
+    _check_pp_mesh(mesh, spec)
+    return train_init(spec, seed=seed, optimizer=optimizer, mesh=mesh)
+
+
+def make_pp_train_step(spec: ModelSpec, mesh, *, n_micro: int = 2, optimizer=None,
+                       remat: bool = True, grads_hook=None):
+    """One pipelined AdamW step, ``step(state, tokens [B, T]) → (state,
+    loss)`` (the JAX package's ``make_pp_train_step``): every rank of the
+    mesh calls it in the same order with its dp group's rows;
+    :func:`pp_value_and_grad`, then the optimizer's update where each
+    stage's weights live (in place), clipping's norm summed over the
+    stages (``training/optim.global_norm``). ``grads_hook(state, loss,
+    grads)`` runs between the two; ``step.comm`` holds the dp all-reduce's
+    seconds and bytes."""
+    from quorum_tpu_torch.training.trainer import TrainState, make_optimizer, tp_cut_flags
+
+    _check_pp_mesh(mesh, spec)
+    opt = optimizer or make_optimizer()
+    cut: list = []
+
+    def step(state, tokens):
+        tokens = torch.as_tensor(tokens).to(device=mesh.device, dtype=torch.long)
+        loss, grads = pp_value_and_grad(state.params, spec, tokens, mesh, n_micro, remat,
+                                        step.comm)
+        if grads_hook is not None:
+            grads_hook(state, loss, grads)
+        if not cut:
+            cut.append(tp_cut_flags(state.params, spec, mesh))
+        opt_state = opt.update(grads, state.opt_state, state.params, mesh=mesh, cut=cut[0])
+        return TrainState(state.params, opt_state, state.step + 1), loss
+
+    step.comm = {"grad_allreduce_s": 0.0, "grad_allreduce_bytes": 0}
+    return step

@@ -66,6 +66,9 @@ SPAWN_TIMEOUT_S = 300.0
 STOP_TIMEOUT_S = 30.0
 # Seconds every rank gives its groups' orderly shutdown before it aborts them.
 LEAVE_TIMEOUT_S = 10.0
+# Seconds a failed ``run`` on rank 0 waits to see whether a worker's exit
+# caused it (a dying peer fails the collective before its process is gone).
+LOST_GRACE_S = 5.0
 # A worker dumps its threads' stacks to stderr every this many seconds when
 # set (a hang's diagnosis; scripts/torch_mesh_probe.py sets it).
 STACKS_ENV = "QUORUM_RANK_STACKS_S"
@@ -329,15 +332,48 @@ class RankGroup:
         """Call port function ``path`` as ``fn(*args, mesh=rank_mesh, **kwargs)``
         on every rank with rank r's ``per_rank_args[r]`` (numpy arrays
         become tensors on r's device); returns every rank's result, rank 0
-        first, tensors as numpy arrays."""
+        first, tensors as numpy arrays. A worker lost meanwhile raises
+        :class:`WorkerLost` (a training step over a lost stage ends so)."""
         kw = per_rank_kwargs or [{} for _ in range(self.size)]
         self.check()
         for r, c in enumerate(self._conns, start=1):
             c.send(("run", (path, per_rank_args[r], kw[r]), True))
         dev = self.mesh.devices[0]
-        mine = _resolve(path)(*_to_rank(per_rank_args[0], dev), mesh=self.rank_mesh,
-                              **_to_rank(kw[0], dev))
+        try:
+            mine = _resolve(path)(*_to_rank(per_rank_args[0], dev), mesh=self.rank_mesh,
+                                  **_to_rank(kw[0], dev))
+        except Exception as e:
+            # A collective that failed because a worker died (its peer's
+            # connection closed, or its groups aborted by the watcher) is
+            # that loss: WorkerLost, once the exit is seen.
+            lost = self._await_loss(LOST_GRACE_S)
+            if lost is not None:
+                raise lost from e
+            raise
         return [to_host(mine)] + self.replies()
+
+    def _await_loss(self, timeout_s: float) -> WorkerLost | None:
+        """A worker lost within ``timeout_s``: one that exited without
+        sending an error of its own (a worker that failed on the plan, as
+        rank 0 did, is not lost). None once every worker has exited with
+        its error, or at the deadline."""
+        deadline = time.monotonic() + timeout_s
+        failed: set[int] = set()
+        while True:
+            for r, (p, c) in enumerate(zip(self.procs, self._conns), start=1):
+                if r in failed or p.is_alive():
+                    continue
+                try:
+                    while c.poll(0):
+                        if c.recv()[0] == "err":
+                            failed.add(r)
+                except (EOFError, OSError):
+                    pass
+                if r not in failed:
+                    return self._lose(f"rank {r} exited with code {p.exitcode}")
+            if len(failed) == len(self.procs) or time.monotonic() >= deadline:
+                return None
+            time.sleep(0.05)
 
     def kill(self, rank: int) -> None:
         """Kill worker ``rank`` at once (SIGKILL): the drill of a lost rank."""

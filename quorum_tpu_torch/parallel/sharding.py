@@ -109,6 +109,19 @@ def kv_cache_spec(n_kv_heads: int, tp: int, dp: int = 1,
     return logical_to_spec(tuple(axes))
 
 
+def paged_kv_spec(n_kv_heads: int, tp: int) -> tuple[str | None, ...]:
+    """The page pool's spec ``[layers, pages, kv_heads, page_size,
+    head_dim]`` as the JAX package's ``paged_kv_sharding`` gives it: the
+    page axis never cut (a row's chain scatters over the whole pool), kv
+    heads over tp with :func:`kv_cache_spec`'s rule, the layer axis over
+    pp. A paged engine is one rank, so its pool is whole (this rule names
+    the cut a multi-rank paged pool would take)."""
+    axes: list = ["layers", None, "kv_heads", None, None]
+    if n_kv_heads % tp != 0:
+        axes[2] = None
+    return logical_to_spec(tuple(axes))
+
+
 def slot_rows(n_slots: int, dp: int, dp_rank: int) -> tuple[int, int]:
     """Slot rows ``[lo, hi)`` that dp rank ``dp_rank``'s cache holds:
     ``n_slots / dp`` contiguous rows, or all of them when dp does not
@@ -272,11 +285,22 @@ class RankCut:
         axes = PARAM_LOGICAL_AXES.get(name)
         return self.pp_rank == 0 or (axes is not None and axes[0] == "layers")
 
-    def __call__(self, name: str, x, layer_part: bool = False):
+    def stage_rows(self, name: str, n: int) -> tuple[int, int] | None:
+        """The rows ``[lo, hi)`` of an ``n``-layer leaf ``name`` this rank's
+        stage holds, or None where it holds the whole leaf (no pp, or not a
+        layer leaf)."""
+        axes = PARAM_LOGICAL_AXES.get(name)
+        if axes is None or axes[0] != "layers" or self.layers == (0, n):
+            return None
+        return self.layers
+
+    def __call__(self, name: str, x, layer_part: bool = False, layers_cut: bool = False):
+        """``layers_cut``: ``x`` is already the stage's rows of the leaf
+        (:meth:`stage_rows`)."""
         if x is None or not self.keeps(name):
             return None
         axes = PARAM_LOGICAL_AXES.get(name)
-        if axes is not None and axes[0] == "layers" and not layer_part:
+        if axes is not None and axes[0] == "layers" and not (layer_part or layers_cut):
             lo, hi = self.layers
             if (lo, hi) != (0, x.shape[0]):
                 x = _cut(x, 0, lo, hi)

@@ -268,7 +268,8 @@ _ENGINE_GAUGES = frozenset({
     "decode_pipeline", "decode_loop", "inflight_chunks", "prefix_store_bytes",
     "prefix_store_entries", "breaker_state", "kv_pages", "kv_page_size",
     "kv_pages_allocated", "kv_pages_free", "decode_graph_pool_bytes", "draining", "qos",
-    "zero_drain", "decode_pp"})
+    "zero_drain", "decode_pp", "disagg", "prefill_sp", "prefill_group_devices",
+    "decode_group_devices", "prefill_group_active", "decode_group_active"})
 
 
 def _distinct_engines(reg: BackendRegistry):

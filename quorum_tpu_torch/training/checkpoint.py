@@ -27,9 +27,13 @@ dict keys, NamedTuple field names and tuple indices joined by dots
 - Meshes: a checkpoint always holds whole leaves, so one written from any
   mesh restores onto any other or onto one device. Saving a rank's cut of a
   state (``mesh=``, ``spec=``; every rank of the mesh calls it) gathers each
-  cut leaf whole over tp in dp group 0 and rank 0 writes; restoring onto a
-  mesh (``mesh=``) fills each leaf whole on the rank's device and keeps
-  only the rank's cut (``parallel/sharding.rank_cut``, by leaf name).
+  cut leaf whole in dp group 0 — over tp, or on a pp mesh each layer leaf
+  over the stages, in stage order, so every layer sits at its global index
+  — and rank 0 (stage 0, which holds the embedding, the final norm and the
+  head) writes; restoring onto a mesh (``mesh=``) fills each leaf on the
+  rank's device and keeps only the rank's cut (``parallel/sharding.
+  rank_cut``, by leaf name): a pipeline stage reads only its own layers'
+  rows of each layer leaf, and no row of a leaf it does not hold.
 """
 
 from __future__ import annotations
@@ -104,12 +108,14 @@ def _whole_shapes(spec: ModelSpec) -> dict[str, tuple]:
 
 
 def _gathered(state: TrainState, mesh, spec: ModelSpec) -> TrainState:
-    """``state`` (a tp rank's cut) with every cut leaf all-gathered whole
-    over tp, along the dimension its cut took (kv heads that several ranks
-    hold taken once, from the first of them)."""
+    """``state`` (a tp rank's cut, or a pipeline stage's) with every cut
+    leaf all-gathered whole over tp (over pp on a pp mesh, whose tp is 1),
+    along the dimension its cut took (kv heads that several ranks hold
+    taken once, from the first of them)."""
     from quorum_tpu_torch.parallel.sharding import kv_sharers
 
     whole = _whole_shapes(spec)
+    group = mesh.pp if mesh.pp_size > 1 else mesh.tp
     firsts = sorted({kv_sharers(spec.n_heads, spec.n_kv_heads, mesh.tp_size, r)[0]
                      for r in range(mesh.tp_size)})
 
@@ -121,7 +127,7 @@ def _gathered(state: TrainState, mesh, spec: ModelSpec) -> TrainState:
             if want is None or tree.dim() == 0 or tuple(tree.shape) == want:
                 return tree
             dim = next(d for d, (a, b) in enumerate(zip(tree.shape, want)) if a != b)
-            out = mesh.tp.all_gather(tree.contiguous(), dim=dim)
+            out = group.all_gather(tree.contiguous(), dim=dim)
             if out.shape[dim] > want[dim]:  # kv heads several ranks share: each once
                 parts = out.chunk(mesh.tp_size, dim=dim)
                 out = torch.cat([parts[r] for r in firsts], dim=dim)
@@ -196,12 +202,22 @@ def _restore_item(path: Path, item: str, target: Any, device: torch.device,
                                  f"{tuple(t.shape)}")
             if src.dtype != t.dtype and (exact_dtype or src.dtype != torch.float32):
                 raise ValueError(f"{sf.path}: {name} is {src.dtype}, the target {t.dtype}")
+            leaf = name.split(".")[-1]
+            layers = None
+            if cut is not None and t.dim():
+                if not cut.keeps(leaf):  # a later stage: no embedding, norm or head
+                    sf.release(name)
+                    filled[name] = None
+                    continue
+                layers = cut.stage_rows(leaf, src.shape[0])
+            if layers is not None:  # read only this stage's layers
+                src = src.narrow(0, layers[0], layers[1] - layers[0])
             out = torch.empty(src.shape, dtype=src.dtype,
                               device=device if t.dim() else torch.device("cpu"))
             stage.fill(out, src)
             sf.release(name)
             if cut is not None and out.dim():
-                out = cut(name.split(".")[-1], out).contiguous()
+                out = cut(leaf, out, layers_cut=layers is not None).contiguous()
             filled[name] = out
     finally:
         sf.close()

@@ -44,8 +44,9 @@ optax's two products and a sum). The global norm sums the squares in f32 and
 rounds once to the gradients' dtype (optax sums bf16 squares in bf16).
 On a mesh (``update(..., mesh=, cut=)``, a tp rank's cut of the state) the
 squares of cut leaves are summed over tp and those of replicated leaves
-counted once, so the norm is the whole tree's; AdamW and weight decay stay
-elementwise on each shard.
+counted once, so the norm is the whole tree's; on a pp mesh each stage's
+sum is summed over the stages. AdamW and weight decay stay elementwise on
+each shard.
 """
 
 from __future__ import annotations
@@ -340,7 +341,13 @@ def global_norm(grads, *, mesh=None, cut=None) -> torch.Tensor:
     0-d f32 tensor on the leaves' device). On a ``mesh``, ``cut`` (a tree
     of flags like ``grads``, ``trainer.tp_cut_flags``) names the tp-cut
     leaves: their squares are summed over tp, the replicated leaves'
-    counted once, and a cut another rank counts (``"shared"``) not here."""
+    counted once, and a cut another rank counts (``"shared"``) not here.
+    On a pp mesh (tp 1 beside it) every leaf lives on one stage: the
+    stages' sums of squares are summed over pp before the root, so every
+    stage scales by the whole tree's norm."""
+    if mesh is not None and mesh.pp_size > 1:
+        local = _square_sum(tree_leaves(grads))
+        return torch.sqrt(mesh.pp.all_reduce(local.reshape(1).clone())[0])
     if mesh is None or mesh.tp_size == 1:
         return torch.sqrt(_square_sum(tree_leaves(grads)))
     flags = []

@@ -28,11 +28,14 @@ rows' nll by the count of non-pad targets over the whole global batch (the
 per-rank count all-reduced over dp first), so unequal padding across ranks
 gives the one-device loss; the gradients are summed over dp in float32 and
 cast once; clipping's global norm sums the squares of cut leaves over tp
-and counts replicated ones once (``training/optim.global_norm``). sp- and
-pp-sharded training are not ported: a mesh with sp or pp > 1 is refused.
-A spawned group of ranks is driven through ``RankGroup.run`` with
-:func:`train_steps`. The step updates the state in place (JAX donates it)
-and returns it.
+and counts replicated ones once (``training/optim.global_norm``). A mesh
+with pp > 1 (dp × pp only, the JAX package's rule) trains through the
+pipelined step of ``parallel/pipeline.py`` (``make_pp_train_step``, GPipe
+over ``n_micro`` microbatches), which :func:`train_init` and
+:func:`make_train_step` reach with such a mesh. sp-sharded training is not
+ported: a mesh with sp > 1 is refused. A spawned group of ranks is driven
+through ``RankGroup.run`` with :func:`train_steps`. The step updates the
+state in place (JAX donates it) and returns it.
 """
 
 from __future__ import annotations
@@ -173,15 +176,21 @@ def make_optimizer(
 
 
 def check_train_mesh(spec: ModelSpec, mesh) -> None:
-    """Refuse what the mesh forms of training do not carry, by name: sp and
-    pp (not ported) and MoE specs. Every tp trains: a dim tp does not divide
-    is whole on every rank (``parallel/sharding``), and a leaf whose rank
-    gradient is partial (kv projections whole or shared by several ranks)
-    has it summed over the ranks that hold it (``models/transformer``)."""
+    """Refuse what the mesh forms of training do not carry, by name: sp
+    (not ported), pp beside tp or sp and pp not dividing the layers (the
+    JAX package's words, ``parallel/pipeline._check_pp_mesh``), and MoE
+    specs. Every tp trains: a dim tp does not divide is whole on every rank
+    (``parallel/sharding``), and a leaf whose rank gradient is partial (kv
+    projections whole or shared by several ranks) has it summed over the
+    ranks that hold it (``models/transformer``)."""
     shape = mesh.mesh.shape
-    if shape["sp"] > 1 or shape["pp"] > 1:
-        raise ValueError(f"training on a mesh with sp or pp > 1 ({dict(shape)}) is not ported "
-                         "yet: dp and tp are")
+    if shape["pp"] > 1:
+        from quorum_tpu_torch.parallel.pipeline import _check_pp_mesh
+
+        _check_pp_mesh(mesh, spec)
+    elif shape["sp"] > 1:
+        raise ValueError(f"training on a mesh with sp > 1 ({dict(shape)}) is not ported "
+                         "yet: dp, tp and pp are")
     if spec.is_moe:
         raise ValueError("MoE specs are not yet on a multi-rank trainer")
 
@@ -201,7 +210,7 @@ def train_init(spec: ModelSpec, *, device="cuda", seed: int = 0,
 
 
 def make_train_step(spec: ModelSpec, *, device="cuda", optimizer: Optimizer | None = None,
-                    remat: bool = True, grads_hook=None, mesh=None):
+                    remat: bool = True, grads_hook=None, mesh=None, n_micro: int = 2):
     """``step(state, tokens) -> (state, loss)``: one optimizer step on
     ``tokens`` [B, T] (any integer array; moved to ``device``). The params
     and the optimizer state are updated in place; ``loss`` is a 0-d f32
@@ -214,11 +223,18 @@ def make_train_step(spec: ModelSpec, *, device="cuda", optimizer: Optimizer | No
     the same order) ``tokens`` are this rank's dp group's rows
     (``parallel/distributed.assemble_global_batch`` cuts them) and ``loss``
     is the global batch's, the same on every rank. ``step.comm`` holds the
-    dp gradient all-reduce's seconds and bytes so far."""
+    dp gradient all-reduce's seconds and bytes so far. A mesh with pp > 1
+    gets the pipelined step (``parallel/pipeline.make_pp_train_step``,
+    ``n_micro`` microbatches)."""
     opt = optimizer or make_optimizer()
     dev = resolve_device(device) if mesh is None else mesh.device
     if mesh is not None:
         check_train_mesh(spec, mesh)
+        if mesh.pp_size > 1:
+            from quorum_tpu_torch.parallel.pipeline import make_pp_train_step
+
+            return make_pp_train_step(spec, mesh, n_micro=n_micro, optimizer=opt, remat=remat,
+                                      grads_hook=grads_hook)
     cut: list = []  # the params' tp-cut flags, built at the first step
 
     def step(state: TrainState, tokens) -> tuple[TrainState, torch.Tensor]:
@@ -259,7 +275,8 @@ def tp_cut_flags(params, spec: ModelSpec, mesh=None):
 def train_steps(spec: ModelSpec, tokens, *, mesh, seed: int = 0, steps: int = 1,
                 opt: dict | None = None, remat: bool = True, params=None,
                 resume: str | None = None, save: str | None = None,
-                return_params: bool = False, digest: bool = False) -> dict:
+                return_params: bool = False, digest: bool = False, n_micro: int = 2,
+                return_grads: bool = False) -> dict:
     """A ``RankGroup.run`` driver: every rank builds its cut of the state
     (from ``seed``; or ``params``, a whole host tree of numpy arrays cut by
     ``models/convert.shard_params``; or the checkpoint at ``resume``), takes
@@ -269,7 +286,8 @@ def train_steps(spec: ModelSpec, tokens, *, mesh, seed: int = 0, steps: int = 1,
     every rank taking part). Returns the losses, each step's seconds, the dp
     all-reduce's seconds and bytes, each step's gradient norm (the whole
     tree's, before clipping), and with ``return_params`` the rank's
-    params."""
+    params (``return_grads``: the last step's gradients, before clipping).
+    A pp mesh runs the pipelined step over ``n_micro`` microbatches."""
     from quorum_tpu_torch.models.convert import params_from_numpy, shard_params
     from quorum_tpu_torch.parallel.distributed import assemble_global_batch
 
@@ -291,11 +309,15 @@ def train_steps(spec: ModelSpec, tokens, *, mesh, seed: int = 0, steps: int = 1,
     norms: list[float] = []
     cut = tp_cut_flags(state.params, spec, mesh)
 
+    last: dict = {}
+
     def record_norm(st, loss, grads):  # the whole tree's norm, before clipping
         norms.append(float(global_norm(grads, mesh=mesh, cut=cut)))
+        if return_grads:
+            last["grads"] = tree_map(torch.clone, grads)
 
     step = make_train_step(spec, optimizer=optimizer, remat=remat, mesh=mesh,
-                           grads_hook=record_norm)
+                           grads_hook=record_norm, n_micro=n_micro)
     losses, seconds = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -316,4 +338,6 @@ def train_steps(spec: ModelSpec, tokens, *, mesh, seed: int = 0, steps: int = 1,
                          "opt_state": tree_digest(state.opt_state)}
     if return_params:
         out["params"] = state.params
+    if return_grads:
+        out["grads"] = last["grads"]
     return out

@@ -96,10 +96,10 @@ def test_faults_arm_fire_autodisarm():
 @pytest.mark.parametrize("site", ["engine.nonexistent", "engine.kv_handoff",
                                   "router.resume"])
 def test_faults_reject_unknown_and_deferred_sites(site):
-    """A site the port does not fire is refused like a typo; the JAX
-    package has the deferred one. ``router.resume`` came with the port's
-    router tier and now arms like any served site."""
-    if site == "router.resume":
+    """A site the port does not fire is refused like a typo. ``router.resume``
+    came with the port's router tier and ``engine.kv_handoff`` with its
+    disaggregated serving: both arm like any served site."""
+    if site in ("router.resume", "engine.kv_handoff"):
         faults.arm(site, times=1)
         try:
             with pytest.raises(faults.FaultInjected):
@@ -115,7 +115,7 @@ def test_faults_reject_unknown_and_deferred_sites(site):
 
 
 def test_fault_sites_are_the_jax_package_sites_the_port_fires():
-    assert set(faults.SITES) == set(jax_faults.SITES) - {"engine.kv_handoff"}
+    assert set(faults.SITES) == set(jax_faults.SITES)
 
 
 def test_faults_delay_mode_sleeps_instead_of_raising():

@@ -128,8 +128,12 @@ def test_zero_drain_url_refusals_in_tpu_words(tail):
 
 
 def test_zero_drain_beside_disagg_is_refused_by_name():
-    with pytest.raises(ValueError, match="does not serve the disagg= option yet"):
+    # disagg= is served: the two knobs refuse each other in tpu://'s words.
+    with pytest.raises(ValueError, match="zero_drain=1 does not compose with disagg=P.D") as got:
         _build("cuda://llama-tiny?device=cpu&zero_drain=1&disagg=1+1")
+    with pytest.raises(ValueError) as want:
+        _build_jax("tpu://llama-tiny?zero_drain=1&disagg=1+1")
+    assert str(got.value) == str(want.value)
 
 
 def test_zero_drain_url_builds_a_staging_engine():
