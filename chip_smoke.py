@@ -23,7 +23,8 @@ result line:
               coalesced member admission) at the serve buckets; K1 and K2
               at the head counts one mesh rank gives them (tp=2: H=16/K=4,
               tp=4: H=8/K=2; K1 also at H=16 over 8 192 keys, Ulysses at
-              sp=2), each timed beside its plain version; K2q8 (int8
+              sp=2; K2q8 at both cuts), each timed beside its plain
+              version; K2q8 (int8
               cache) against its plain version at K2's shapes (f32 and bf16
               q, window 0 and 4096) and at 4 slots of 32 768 keys all live,
               each with its time, the plain version's, its bound and K2's
@@ -204,10 +205,19 @@ result line:
               against the colocated zero-drain engine's, the admission's
               TTFT, the handoffs' bytes and GB/s; with four cards, (p) pp=4
               training over NCCL at 32 layers, 4 × 512 tokens in 4
-              microbatches, against the one-card step, and (q)
+              microbatches, against the one-card step, (q)
               disagg=2+2 with tp=2 in each group over NCCL, greedy held
-              against the colocated tp=2 engine; each new leg's seconds;
-              K1 and K2 launches on every rank;
+              against the colocated tp=2 engine, and (s) tp=2 × dp=2 with
+              quant=int8, kv_quant=int8 and members=2 at 32 layers against
+              the one-card engine (greedy equal token for token, warm tok/s
+              a card, K2q8's device ms inside rank 0's replays), then
+              disagg=2+2 with tp=2, kv_quant=int8 and members=2 against
+              the colocated tp=2 engine (equal); on one card (r) tp=2 over
+              gloo with quant=int8, kv_quant=int8 and members=2 (4 layers)
+              and ensemble=2 (2 layers) against one-card twins, greedy
+              equal token for token, and a json_schema chat through the
+              app; each new leg's seconds; K1, K2 and K2q8 launches on
+              every rank;
  12. train    training (run last; the card's free memory printed first):
               (a) llama-3-8b, all 32 layers, bf16, seed 0, remat, three
               steps of the default recipe on one repeated 1 × 2 048 batch
@@ -662,6 +672,9 @@ def phase_kernels(torch, cpu: bool, tiny: bool, median_ms, graph_ms) -> dict:
                                            per_rank["max_abs_err"][name])
     results["flash_decode_q8"] = _kernels_q8(torch, cpu, tiny, rnd, median_ms, graph_ms,
                                              results["flash_decode"]["ms"])
+    results["flash_decode_q8"]["per_rank"] = per_rank["flash_decode_q8"]
+    results["flash_decode_q8"]["max_abs_err"] = max(results["flash_decode_q8"]["max_abs_err"],
+                                                    per_rank["max_abs_err"]["flash_decode_q8"])
     _kernels_int_mm(torch, cpu, tiny, graph_ms)
     return results
 
@@ -713,14 +726,15 @@ def _kernels_k2_draft(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict
 
 
 def _kernels_per_rank(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict:
-    """K1 and K2 at the head counts one rank of a mesh gives them (the mesh
-    phase's path): llama-3-8b's 32/8 heads cut by tp=2 (H=16, K=4) and tp=4
-    (H=8, K=2); K1 at a 2048-token admission and, for Ulysses at sp=2
+    """K1, K2 and K2q8 at the head counts one rank of a mesh gives them (the
+    mesh phase's path): llama-3-8b's 32/8 heads cut by tp=2 (H=16, K=4) and
+    tp=4 (H=8, K=2); K1 at a 2048-token admission and, for Ulysses at sp=2
     (H=16, K=4 over the whole prompt), at 8192; K2 over 4 slots × 8192 keys
     with lengths 1/100/4096/8191, and at a pipeline stage's row group of
     them at the whole model's heads (pp=2: the 4096/8191 rows; pp=4: the
-    8191 row). Each against its plain version, then its time, the plain
-    version's, SDPA's and the bound."""
+    8191 row); K2q8 over the same 4 slots at tp=2 and tp=4
+    (:func:`_kernels_q8_per_rank`). Each against its plain version, then its
+    time, the plain version's, SDPA's (none for K2q8) and the bound."""
     import numpy as np
 
     from quorum_tpu_torch.ops.attention import decode_attention, prefill_attention
@@ -801,8 +815,60 @@ def _kernels_per_rank(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict
         out["max_abs_err"]["flash_decode"] = max(out["max_abs_err"]["flash_decode"], err)
     require(cpu or all(int(c.abs().sum()) == 0 for c in ticket_counters()),
             "K2 ticket counters are not back at 0 after the per-rank replays")
+    out["flash_decode_q8"] = _kernels_q8_per_rank(torch, cpu, cuts, hd, t_keys, all_lens, rnd,
+                                                  graph_ms)
+    out["max_abs_err"]["flash_decode_q8"] = max(r["max_abs_err"] for r in out["flash_decode_q8"])
     emit("kernels", per_rank=out)
     return out
+
+
+def _kernels_q8_per_rank(torch, cpu: bool, cuts, hd: int, t_keys: int, lens, rnd,
+                         graph_ms) -> list[dict]:
+    """K2q8 at the head counts a tp rank's int8 cache gives it (tp=2: H=16,
+    K=4; tp=4: H=8, K=2) over the kernels line's 4 slots and lengths, bf16
+    q: every output element within ``error_bound`` of the plain version,
+    one counted launch a call, then its time, the plain version's and the
+    bound (the live int8 rows and their scales)."""
+    from quorum_tpu_torch.ops.attention import decode_attention_q8, quantize_rows
+    from quorum_tpu_torch.ops.flash_decode_q8 import (error_bound, flash_decode_q8_attention,
+                                                      q8_cluster_size)
+
+    dev = "cpu" if cpu else "cuda"
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    live = sum(lens)
+    rows = []
+    for name, h, kv in cuts:
+        def args():
+            k8, ks = quantize_rows(rnd(4, kv, t_keys, hd, dtype=torch.float32), -1)
+            v8, vs = quantize_rows(rnd(4, kv, t_keys, hd, dtype=torch.float32), -1)
+            return (rnd(4, h, 1, hd, dtype=torch.bfloat16), k8, ks[..., 0].contiguous(), v8,
+                    vs[..., 0].contiguous(), lengths)
+
+        flops = 4 * h * live * hd
+        nbytes = live * kv * (2 * hd + 2 * 4) + 2 * 2 * 4 * h * hd + 4 * 4
+        sets = [args() for _ in range(1 if cpu else _copies(nbytes))]
+        n0 = flash_decode_q8_attention.launches
+        got = flash_decode_q8_attention(*sets[0])
+        require(cpu or flash_decode_q8_attention.launches == n0 + 1,
+                f"K2q8 {name}: one call must count one launch")
+        ref = decode_attention_q8(*sets[0]).float()
+        diff = (got.float() - ref).abs()
+        bound = error_bound(*sets[0])
+        err = diff.max().item()
+        require(bool(torch.isfinite(got.float()).all()), f"K2q8 {name}: non-finite output")
+        require(bool((diff <= bound).all()),
+                f"K2q8 per-rank {name} (H={h}, K={kv}): err {err} beyond error_bound")
+        b_ms, b_by = _bound(flops, nbytes, "int8")
+        t = graph_ms([lambda a=a: flash_decode_q8_attention(*a) for a in sets])
+        rows.append({"cut": name, "B": 4, "H": h, "K": kv, "T": t_keys, "hd": hd,
+                     "lengths": list(lens), "cluster": q8_cluster_size(4, kv, t_keys),
+                     "max_abs_err": err, "max_err_over_bound":
+                         (diff / bound.clamp_min(1e-30)).max().item(), "ms": t,
+                     "plain_ms": graph_ms([lambda a=a: decode_attention_q8(*a) for a in sets]),
+                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                     "pct_of_bound": 100 * b_ms / t})
+        del sets, got, ref
+    return rows
 
 
 def _kernels_q8(torch, cpu: bool, tiny: bool, rnd, median_ms, graph_ms, k2_ms) -> dict:
@@ -7322,9 +7388,12 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     ``_mesh_cards_moe``; (m) and (p): ``_mesh_pp_train`` (pp=2 over gloo on
     one card, pp=4 over NCCL on four); (n), (o) and (q): ``_mesh_disagg_card``,
     ``_mesh_disagg_cards`` and ``_mesh_disagg_tp_cards`` (disagg=1+1 on one
-    card, then across two; 2+2 with tp=2 on four).
-    K1 and K2 launches are counted on every rank (workers report theirs),
-    and by group on the disaggregated engines."""
+    card, then across two; 2+2 with tp=2 on four); (r) and (s):
+    ``_mesh_int8_members`` (int8 weights and KV, members, an ensemble and a
+    grammar on tp=2 sharing the card) and ``_mesh_int8_cards`` (int8
+    members on dp=2 × tp=2 and on disagg=2+2 with tp=2 over NCCL on four).
+    K1, K2 and K2q8 launches are counted on every rank (workers report
+    theirs), and K1 and K2 by group on the disaggregated engines."""
     from quorum_tpu_torch.backends.cuda_backend import CudaBackend
     from quorum_tpu_torch.config import Config
     from quorum_tpu_torch.engine.engine import EngineBreakerOpen, InferenceEngine
@@ -7332,6 +7401,7 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     from quorum_tpu_torch.models.model_config import resolve_spec
     from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
     from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
     from quorum_tpu_torch.ops.sampling import SamplerConfig
     from quorum_tpu_torch.parallel import (MeshConfig, collective_counts, make_mesh,
                                            single_device_mesh)
@@ -7349,17 +7419,17 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     bodies = _serve_bodies(model, tiny)
     gen = random.Random(11)
     long_ids = [gen.randrange(spec.vocab_size) for _ in range(spec.max_seq - 1)]
-    launches = {"flash_prefill": 0, "flash_decode": 0}
+    launches = {"flash_prefill": 0, "flash_decode": 0, "flash_decode_q8": 0}
+    counters = {"flash_prefill": flash_prefill_attention, "flash_decode": flash_decode_attention,
+                "flash_decode_q8": flash_decode_q8_attention}
 
     def zero():
-        flash_prefill_attention.launches = 0
-        flash_decode_attention.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
 
     def add(reports=()):
-        launches["flash_prefill"] += flash_prefill_attention.launches + sum(
-            r["launches"]["flash_prefill"] for r in reports)
-        launches["flash_decode"] += flash_decode_attention.launches + sum(
-            r["launches"]["flash_decode"] for r in reports)
+        for name, fn in counters.items():
+            launches[name] += fn.launches + sum(r["launches"].get(name, 0) for r in reports)
 
     def peak_reset():
         if not cpu:
@@ -7398,8 +7468,8 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     _require_card_empty(torch, cpu, "mesh (a)")
 
     leg_s = {}
-    # One card: (a)–(g), (i)–(k), (m) and (n); --mesh-cards-only runs the
-    # legs over cards of their own alone ((h), (l), (o), (p), (q)), against
+    # One card: (a)–(g), (i)–(k), (m), (n) and (r); --mesh-cards-only runs
+    # the legs over cards of their own alone ((h), (l), (o), (p), (q), (s)), against
     # the same reference.
     if not cards_only:
         # (a) A one-rank NCCL mesh (gloo on the CPU rehearsal).
@@ -7649,6 +7719,12 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
                                                      zero, add)
         count_groups(out["n_disagg_one_card"])
         leg_s["n"] = time.perf_counter() - t0
+        # (r) int8 weights and KV, members, an ensemble and a grammar on tp=2
+        # (two ranks sharing the card over gloo).
+        t0 = time.perf_counter()
+        out["r_int8_members_gloo"] = _mesh_int8_members(torch, cpu, tiny, model, two, app_for,
+                                                        zero, add)
+        leg_s["r"] = time.perf_counter() - t0
     if n_cards >= 2:
         t0 = time.perf_counter()
         out["o_disagg_cards"] = _mesh_disagg_cards(torch, cpu, model, zero, add)
@@ -7668,16 +7744,21 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
                                                           add)
         count_groups(out["q_disagg_tp2_cards"])
         leg_s["q"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["s_int8_members_cards"] = _mesh_int8_cards(torch, cpu, model, card, zero, add)
+        leg_s["s"] = time.perf_counter() - t0
     else:
-        print(f"mesh: legs (p) and (q), pp=4 training and disagg=2+2 with tp=2 over NCCL at "
-              f"32 layers, need four cards; this machine has {n_cards}", flush=True)
+        print(f"mesh: legs (p), (q) and (s), pp=4 training, disagg=2+2 with tp=2 and int8 "
+              f"members on dp=2 × tp=2 over NCCL at 32 layers, need four cards; this machine "
+              f"has {n_cards}", flush=True)
     out["disagg_launches_by_group"] = by_group
     out["new_leg_s"] = {k: round(v, 3) for k, v in leg_s.items()}
     emit("mesh", new_leg_s=out["new_leg_s"])
     out["launches"] = launches
     if not cpu:
-        require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0,
-                "mesh: a kernel of the path was never launched")
+        require(launches["flash_prefill"] > 0 and launches["flash_decode"] > 0
+                and (launches["flash_decode_q8"] > 0 or (cards_only and n_cards < 4)),
+                f"mesh: a kernel of the path was never launched ({launches})")
     out["seconds"] = round(time.perf_counter() - t_phase, 3)
     emit("mesh", launches=launches, seconds=out["seconds"], measured_on=card)
     return out
@@ -7695,7 +7776,7 @@ def _rank_row(eng, reports, collectives0, n_tokens: int, seconds: float) -> dict
 
     dev = eng.device
     rank0 = {"rank": 0, "weight_bytes": _tree_bytes(eng.params),
-             "cache_bytes": sum(t.numel() * t.element_size() for t in (eng._ck, eng._cv)),
+             "cache_bytes": _cache_bytes(eng),
              "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
              "launches": {"flash_prefill": flash_prefill_attention.launches,
                           "flash_decode": flash_decode_attention.launches},
@@ -8691,6 +8772,266 @@ def _mesh_disagg_tp_cards(torch, spec, knobs, prompts, zero, add, cards=None) ->
     return out
 
 
+def _greedy_streams(eng, jobs, n: int) -> tuple[list[list[int]], float]:
+    """Greedy streams of ``jobs`` ((prompt, member) pairs), submitted at
+    once; each bounded by a deadline (a stream that never finishes fails
+    the leg instead of hanging it). Returns the tokens and the seconds."""
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=n, sampler=SamplerConfig(temperature=0.0), member=m,
+                       deadline=time.monotonic() + 2 * SERVE_TIMEOUT_S) for p, m in jobs]
+    got = [list(eng.stream_results(r)) for r in reqs]
+    return got, time.perf_counter() - t0
+
+
+def _cache_bytes(eng) -> int:
+    """Rank 0's decode cache bytes (an int8 side counts its values and
+    scales)."""
+    sides = [t for side in (eng._ck, eng._cv)
+             for t in (side if isinstance(side, tuple) else (side,))]
+    return sum(t.numel() * t.element_size() for t in sides)
+
+
+def _k2q8_replay_ms(torch, eng, jobs, n: int) -> dict:
+    """K2q8's device time inside rank 0's decode replays: ``jobs`` streamed
+    once more under torch.profiler (its start and stop holding the graph
+    launch gate, as the app's profile route does), the K2q8 kernel's device
+    time over its calls. Best effort: a trace without device time says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from quorum_tpu_torch.ops import launches
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with launches.GRAPH_LAUNCH_GATE:
+        prof.__enter__()
+    n0 = flash_decode_q8_attention.launches
+    try:
+        _greedy_streams(eng, jobs, n)
+        torch.cuda.synchronize()
+    finally:
+        with launches.GRAPH_LAUNCH_GATE:
+            prof.__exit__(None, None, None)
+    calls = flash_decode_q8_attention.launches - n0
+    us = count = 0
+    for ev in prof.key_averages():
+        if "q8_decode_cluster_kernel" in ev.key:
+            us += getattr(ev, "self_device_time_total", 0) or getattr(
+                ev, "self_cuda_time_total", 0)
+            count += ev.count
+    if not count:
+        return {"k2q8_replay_ms": None, "note": "not measured: the trace shows no K2q8 kernel",
+                "counted_calls": calls}
+    return {"k2q8_replay_ms": us / 1e3 / count, "traced_kernels": count, "counted_calls": calls}
+
+
+def _mesh_int8_members(torch, cpu, tiny, model, two, app_for, zero, add) -> dict:
+    """Leg (r), one card: tp=2 over gloo (two ranks sharing the card, eager
+    decode) at llama-3-8b widths. (1) ``quant=int8&kv_quant=int8&members=2``
+    at 4 layers against a one-card twin with the same knobs, 2 slots: each
+    member's greedy stream equal token for token (a row-parallel int8
+    product sums its int32 accumulators over tp: exact; 2 slots × 2 members
+    keep K2q8's cluster plan the twin's), K2q8 launched on each rank once
+    per layer per decode step and K2 on none; then one finite
+    ``response_format`` json_schema chat through the app on the same
+    engine, its content parsed and validated. (2) ``ensemble=2`` (int8
+    weights, bf16 cache: K2) at 2 layers, 4 slots, against its twin."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+    from quorum_tpu_torch.parallel import MeshConfig, make_mesh
+
+    dev = "cpu" if cpu else "cuda:0"
+    opts = {"head_dim": "64", "dtype": "bfloat16"} if tiny else {}
+    n_tok = 16
+    gen = random.Random(23)
+
+    def spec_of(layers):
+        return resolve_spec(model, {**opts, "n_layers": str(layers)})
+
+    def tp2():
+        return make_mesh(MeshConfig(tp=2), two, backend="gloo", timeout_s=MESH_GROUP_TIMEOUT_S)
+
+    fns = {"flash_decode": flash_decode_attention, "flash_decode_q8": flash_decode_q8_attention}
+
+    def launched(reports, since):
+        return {name: [fn.launches - since[name]] + [r["launches"][name] for r in reports]
+                for name, fn in fns.items()}
+
+    out = {}
+    for part, layers, knobs, jobs_of in (
+            ("members_int8", 4, dict(n_slots=2, quant="int8", kv_quant="int8", members=2),
+             lambda p: [(p[0], 0), (p[1], 1)]),
+            ("ensemble", 2, dict(n_slots=4, quant="int8", ensemble=2),
+             lambda p: [(p[0], 0), (p[1], 0)])):
+        spec = spec_of(layers)
+        prompts = [[gen.randrange(spec.vocab_size) for _ in range(k)] for k in (57, 300)]
+        knobs = dict(knobs, decode_chunk=8, seed=0)
+        t0 = time.perf_counter()
+        twin = InferenceEngine(spec, device=dev, **knobs)
+        want, _ = _greedy_streams(twin, jobs_of(prompts), n_tok)
+        twin_s = time.perf_counter() - t0
+        twin.shutdown()
+        del twin
+        _require_card_empty(torch, cpu, f"mesh (r) {part} twin")
+        zero()
+        since = {name: fn.launches for name, fn in fns.items()}
+        t0 = time.perf_counter()
+        eng = InferenceEngine(spec, mesh=tp2(), **knobs)
+        build_s = time.perf_counter() - t0
+        got, secs = _greedy_streams(eng, jobs_of(prompts), n_tok)
+        row = {"layers": layers, **{k: v for k, v in knobs.items() if k != "seed"},
+               "twin_s": round(twin_s, 3), "build_s": round(build_s, 3),
+               "streams_s": round(secs, 4), "tokens": sum(len(g) for g in got),
+               "greedy_equal": got == want}
+        require(got == want, f"mesh (r) {part}: the tp=2 engine's greedy streams {got} differ "
+                             f"from its one-card twin's {want}")
+        if part == "members_int8":
+            app, backend = app_for("int8_tp2", eng)
+            body = {"model": model, "messages": [{"role": "user", "content": "Is it north?"}],
+                    "max_tokens": 64, "temperature": 0,
+                    "response_format": CONSTRAIN_FORMATS["json_schema"]}
+            resp = asyncio.run(asyncio.wait_for(_call(app, body), 2 * SERVE_TIMEOUT_S))
+            chat = _check_response(resp, body, backend.tokenizer, 64)
+            obj = json.loads(chat["text"])
+            require(chat["finish"] == "stop" and list(obj) == ["ok", "dir", "unit"]
+                    and isinstance(obj["ok"], bool) and obj["dir"] in ("N", "S", "E", "W")
+                    and obj["unit"] in ("m", "km", None),
+                    f"mesh (r): the json_schema chat does not validate: {chat['text']!r}")
+            row["json_schema_chat"] = {"text": chat["text"], "finish": chat["finish"],
+                                       "seconds": round(chat["t_end"], 4)}
+            del app, backend
+        m = eng.metrics()
+        reports = eng.rank_reports()
+        counts = launched(reports, since)
+        steps = _k2_steps(m)
+        kernel, other = (("flash_decode_q8", "flash_decode") if part == "members_int8"
+                         else ("flash_decode", "flash_decode_q8"))
+        require(cpu or (counts[kernel] == [spec.n_layers * steps] * 2 and steps > 0
+                        and counts[other] == [0, 0]),
+                f"mesh (r) {part}: launches by rank {counts} for {steps} decode steps")
+        row.update(decode_steps=steps, launches_by_rank=counts,
+                   weight_bytes_per_rank=[_tree_bytes(eng.params), reports[0]["weight_bytes"]],
+                   cache_bytes_per_rank=[_cache_bytes(eng), reports[0]["cache_bytes"]],
+                   worker_collectives=reports[0]["collectives"])
+        add(reports)
+        eng.shutdown()
+        del eng
+        _require_card_empty(torch, cpu, f"mesh (r) {part}")
+        out[part] = row
+        emit("mesh", leg=f"r_{part}", **row)
+    return out
+
+
+def _mesh_int8_cards(torch, cpu, model, card: str, zero, add, cards=None) -> dict:
+    """Leg (s), four cards, NCCL at llama-3-8b's 32 layers. (1)
+    ``tp=2&dp=2&quant=int8&kv_quant=int8&members=2`` (2 slots) against the
+    one-card engine with the same knobs: each member's greedy stream equal
+    token for token; warm tok/s a card (4 streams of 128 tokens, every row,
+    after the key is captured); K2q8's device ms inside rank 0's replays
+    (``_k2q8_replay_ms``); K2q8 launched on every rank. (2)
+    ``disagg=2+2&tp=2&kv_quant=int8&members=2`` (prompts past one 512-token
+    segment: both engines admit chunked) against the colocated tp=2 engine
+    with the same knobs: live handoffs, each member's greedy stream equal."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+    from quorum_tpu_torch.parallel import MeshConfig, make_mesh
+    from quorum_tpu_torch.parallel.mesh import disagg_meshes
+
+    cards = cards or [f"cuda:{i}" for i in range(4)]
+    spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16"} if cpu else {})
+    gen = random.Random(29)
+    n = 32
+    out = {"layers": spec.n_layers, "measured_on": card}
+
+    knobs = dict(n_slots=2, decode_chunk=8, seed=0, quant="int8", kv_quant="int8", members=2)
+    prompts = [[gen.randrange(spec.vocab_size) for _ in range(k)] for k in (57, 300)]
+    jobs = [(prompts[0], 0), (prompts[1], 1)]
+    t0 = time.perf_counter()
+    one = InferenceEngine(spec, device=cards[0], **knobs)
+    want, _ = _greedy_streams(one, jobs, n)
+    one_s = time.perf_counter() - t0
+    one.shutdown()
+    del one
+    _require_card_empty(torch, cpu, "mesh (s) one card")
+    zero()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(tp=2, dp=2), cards,
+                                               timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
+    build_s = time.perf_counter() - t0
+    require(cpu or (eng.mesh.backend == "nccl" and eng.health()["mesh"]["decode"] == "graphs"),
+            "mesh (s): not NCCL with graphs")
+    got, _ = _greedy_streams(eng, jobs, n)
+    require(got == want, f"mesh (s): the dp=2 × tp=2 int8 members engine's greedy streams "
+                         f"{got} differ from the one-card engine's {want}")
+    every = [(p, m) for m in range(2) for p in prompts]  # every row of the 2 slots × 2 members
+    warm, secs = _greedy_streams(eng, every, 128)
+    n_warm = sum(len(w) for w in warm)
+    replay = (_k2q8_replay_ms(torch, eng, jobs, 16) if not cpu
+              else {"k2q8_replay_ms": None, "note": "not measured: CPU rehearsal"})
+    m = eng.metrics()
+    reports = eng.rank_reports()
+    k2q8 = [flash_decode_q8_attention.launches] + [r["launches"]["flash_decode_q8"]
+                                                   for r in reports]
+    require(cpu or all(k > 0 for k in k2q8), f"mesh (s): K2q8 launches by rank {k2q8}")
+    out["dp2_tp2"] = {
+        "knobs": {k: v for k, v in knobs.items() if k != "seed"},
+        "one_card_s": round(one_s, 3), "build_s": round(build_s, 3), "greedy_equal": True,
+        "warm_streams": len(every), "warm_tokens": n_warm, "warm_s": round(secs, 4),
+        "warm_tok_s_per_card": n_warm / secs / len(cards), **replay,
+        "captures": m["decode_graph_captures_total"], "k2q8_launches_by_rank": k2q8,
+        "weight_bytes_per_rank": [_tree_bytes(eng.params)] + [r["weight_bytes"]
+                                                              for r in reports],
+        "cache_bytes_per_rank": [_cache_bytes(eng)] + [r["cache_bytes"] for r in reports]}
+    add(reports)
+    eng.shutdown()
+    del eng
+    _require_card_empty(torch, cpu, "mesh (s) dp2 tp2")
+    emit("mesh", leg="s_dp2_tp2", **out["dp2_tp2"])
+
+    knobs = dict(n_slots=2, decode_chunk=8, seed=0, kv_quant="int8", members=2)
+    prompts = [[gen.randrange(spec.vocab_size) for _ in range(k)] for k in (600, 1100)]
+    jobs = [(prompts[0], 0), (prompts[1], 1), (prompts[1], 0)]
+    t0 = time.perf_counter()
+    col = InferenceEngine(spec, mesh=make_mesh(MeshConfig(tp=2), cards[:2],
+                                               timeout_s=MESH_GROUP_TIMEOUT_S), **knobs)
+    want, _ = _greedy_streams(col, jobs, n)
+    col_s = time.perf_counter() - t0
+    col.shutdown()
+    del col
+    _require_card_empty(torch, cpu, "mesh (s) colocated")
+    zero()
+    t0 = time.perf_counter()
+    pm, dm = disagg_meshes(2, 2, cards, tp=2)
+    eng = InferenceEngine(spec, mesh=dm, prefill_mesh=pm, **knobs)
+    build_s = time.perf_counter() - t0
+    got, secs = _greedy_streams(eng, jobs, n)
+    m = eng.metrics()
+    reports, preports = eng.rank_reports(), eng.prefill_rank_reports()
+    require(got == want, f"mesh (s): disagg=2+2 tp=2 streams {got} differ from the colocated "
+                         f"tp=2 engine's {want}")
+    require(m["kv_handoffs_total"] > 0, "mesh (s): the disagg engine made no handoff")
+    k2q8 = [flash_decode_q8_attention.launches] + [r["launches"]["flash_decode_q8"]
+                                                   for r in reports]
+    require(cpu or all(k > 0 for k in k2q8), f"mesh (s): disagg K2q8 launches {k2q8}")
+    out["disagg_2p2_tp2"] = {
+        "knobs": {k: v for k, v in knobs.items() if k != "seed"},
+        "colocated_s": round(col_s, 3), "build_s": round(build_s, 3),
+        "streams_s": round(secs, 4), "greedy_equal": True,
+        "route": eng.health()["disagg"]["route"], "kv_handoffs": m["kv_handoffs_total"],
+        "kv_handoff_bytes": m["kv_handoff_bytes_total"],
+        "kv_handoff_s": m["kv_handoff_seconds_total"], "k2q8_by_decode_rank": k2q8}
+    add(reports + preports)
+    eng.shutdown()
+    del eng
+    _require_card_empty(torch, cpu, "mesh (s) disagg")
+    emit("mesh", leg="s_disagg", **out["disagg_2p2_tp2"])
+    return out
+
+
 def total_model_bytes(spec) -> int:
     """The whole model's weight bytes (``init_params`` on the meta device)."""
     from quorum_tpu_torch.models.init import init_params
@@ -8764,7 +9105,8 @@ def main(argv=None) -> int:
                     help="comma-separated subset of phases to run; add 'profile' to trace "
                          "a second round of the serve requests with torch.profiler")
     ap.add_argument("--mesh-cards-only", action="store_true",
-                    help="the mesh phase's legs over cards of their own alone (h, l, o, p, q)")
+                    help="the mesh phase's legs over cards of their own alone "
+                         "(h, l, o, p, q, s)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -8875,7 +9217,7 @@ def main(argv=None) -> int:
                     g: n[name] for g, n in mesh["disagg_launches_by_group"].items()}
             if name == "flash_decode_q8":
                 row.update(k2_ms_same_lengths_bf16=r["k2_ms_same_lengths_bf16"],
-                           long_cache=r["long_cache"])
+                           long_cache=r["long_cache"], per_rank=r["per_rank"])
             rows.append(row)
         print(json.dumps({"kernels": rows}), flush=True)
     if args.cpu:

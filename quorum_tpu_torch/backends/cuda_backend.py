@@ -188,11 +188,19 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    the slot rows as K row groups through them
                    (``parallel/pipeline.py``; tp=dp=sp=1, K divides the
                    layers and slots=, single-shot admission). With ckpt=
-                   each rank reads its own cut of the checkpoint. Members,
-                   ensemble, quant, kv_quant, speculation, kv_pages,
-                   prefix_store, zero_drain, response_format, embeddings
-                   and scoring are refused on it (not yet on a multi-rank
-                   engine)
+                   each rank reads its own cut of the checkpoint. dp and
+                   tp serve quant=int8 (each rank's int8 cut carries the
+                   whole leaf's scales; a row-parallel product sums its
+                   int32 accumulators over tp), kv_quant=int8 (each
+                   rank's int8 cache at its kv heads, K2q8),
+                   members=/member_seeds=/quorum_dedup=, ensemble= and
+                   response_format (rank 0 keeps the grammar state);
+                   so do disagg=P+D groups cut by tp. Under sp or pp,
+                   quant and kv_quant are refused by name, members,
+                   ensemble and response_format in the JAX engine's
+                   words. Speculation, kv_pages, prefix_store,
+                   zero_drain, embeddings and scoring are refused on it
+                   (not yet on a multi-rank engine)
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet
@@ -898,16 +906,11 @@ class CudaBackend:
         from quorum_tpu_torch.constrain import (GrammarError, GrammarUnsatisfiable,
                                                 compile_response_format)
 
-        if getattr(self.engine, "mesh", None) is not None:
-            raise _invalid_request(
-                "response_format constrained decoding is not yet on a multi-rank engine "
-                "(dp=/tp=/sp= backends)")
-
         if self.engine.prefill_chunk <= 0:
             raise _invalid_request(
                 "response_format constrained decoding requires chunked "
                 "prefill (prefill_chunk >= 16), which this backend's "
-                "engine disables (prefill_chunk=0)")
+                "engine disables (sp>1 or prefill_chunk=0)")
         try:
             grammar = compile_response_format(rf, self.tokenizer, self.engine.spec.vocab_size)
         except GrammarUnsatisfiable as e:

@@ -283,9 +283,20 @@ timeout). The dense and MoE families (experts cut over tp), every tp size
 (a dim tp does not divide is whole on every rank), both admission routes,
 tier-0 reuse, the request knobs and deadlines, QoS, drain, park and resume
 carry; a local checkpoint (``ckpt=``, :func:`get_engine_from_ckpt` with a
-mesh) is read by every rank, each its own cut; members, ensembles, int8,
-speculation, paging, the host store, zero-drain, grammars, embeddings and
-scoring are refused (not yet on a multi-rank engine).
+mesh) is read by every rank, each its own cut. On dp and tp meshes (and
+disaggregated groups cut by tp) int8 carries: each rank's int8 leaves are
+the cut of the whole quantized tree (scales of whole channels), a
+row-parallel product quantizes its input with the whole row's amax (a max
+all-reduce over tp) and sums its int32 accumulators over tp, and each
+rank's int8 cache holds its kv heads (K2q8 reads them). So do stacked
+members (each rank its cut of every weight set, its cache rows ``m·S + s``
+for its dp group's slots; ``quorum_dedup`` copies member 0's rows on every
+rank), ensembles (every worker runs each weight set, rank 0 averages the
+logits) and grammars (rank 0 alone holds the arena and the DFA state; the
+workers' steps are the plain ones). Under sp and pp the JAX engine's
+refusals of members, ensembles and grammars hold in its words, and int8
+is refused by name. Speculation, paging, the host store, zero-drain,
+embeddings and scoring are refused (not yet on a multi-rank engine).
 
 Pipeline-staged engines (a mesh with pp > 1; the JAX engine's ``pp=K``):
 this rank is stage 0 and holds the embedding, the final norm, the head and
@@ -323,12 +334,13 @@ from quorum_tpu_torch.cache.prefix_store import DEFAULT_PREFIX_STORE_BYTES, Pref
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.convert import shard_params
 from quorum_tpu_torch.models.init import (check_quant, init_params, init_params_shard,
-                                          init_params_stacked)
+                                          init_params_stacked, init_params_stacked_shard)
 from quorum_tpu_torch.models.model_config import ModelSpec
-from quorum_tpu_torch.models.quant import is_quantized, quantize_params
-from quorum_tpu_torch.models.transformer import (decode_chunk, decode_loop, decode_multi,
-                                                 decode_step, host_to_device, init_cache,
-                                                 member_params, prefill, prefill_segment)
+from quorum_tpu_torch.models.quant import is_quantized, jax_layout_params, quantize_params
+from quorum_tpu_torch.models.transformer import (broadcast_member_rows, decode_chunk,
+                                                 decode_loop, decode_multi, decode_step,
+                                                 host_to_device, init_cache, member_params,
+                                                 prefill, prefill_segment)
 from quorum_tpu_torch.parallel.mesh import AXIS_DP, AXIS_PP, AXIS_SP, AXIS_TP
 from quorum_tpu_torch.parallel.ranks import RankGroup, WorkerLost, to_host
 from quorum_tpu_torch.parallel.pipeline import (staged_decode_chunk, staged_decode_loop,
@@ -995,22 +1007,23 @@ class InferenceEngine:
             if m is not None:
                 _check_mesh_knobs(self, spec, m, sp_impl, spec_decode, draft_spec, kv_pages,
                                   prefix_store, n_slots)
-        if mesh is not None:
-            params = self._start_ranks(spec, mesh, seed, params, n_slots, ckpt)
-        elif params is None:
-            if stack > 1:
-                seeds = ([seed] * stack if member_seeds == "shared"
-                         else [seed + i for i in range(stack)])
-                params = init_params_stacked(spec, seeds, self.device, quant=self.quant)
-            else:
-                params = init_params(spec, seed, self.device, quant=self.quant)
-        else:
+        # One seed per weight set (members or ensemble).
+        self._seeds = ([seed] * stack if member_seeds == "shared"
+                       else [seed + i for i in range(stack)])
+        if params is not None:
             emb = params["tok_emb"]["q8"] if is_quantized(params["tok_emb"]) else params["tok_emb"]
             if (emb.dim() == 3) != (stack > 1) or (stack > 1 and emb.shape[0] != stack):
                 raise ValueError(f"params must be a {stack}-member stacked tree"
                                  if stack > 1 else "params must be a single-model tree")
-            if self.quant:
-                params = quantize_params(params)
+        if mesh is not None:
+            params = self._start_ranks(spec, mesh, seed, params, n_slots, ckpt)
+        elif params is None:
+            if stack > 1:
+                params = init_params_stacked(spec, self._seeds, self.device, quant=self.quant)
+            else:
+                params = init_params(spec, seed, self.device, quant=self.quant)
+        elif self.quant:
+            params = quantize_params(params)
         self.params = params
         # The prefill group's weights (``_start_prefill_group``).
         self._prefill_params = None
@@ -1077,7 +1090,7 @@ class InferenceEngine:
             if mesh is not None:
                 n_kv = len(rank_kv_index(spec.n_heads, spec.n_kv_heads, mesh.shape["tp"], 0))
                 lo, hi, _ = self._rmesh.slots
-                cache_rows = hi - lo  # rank 0's dp block of the slot rows
+                cache_rows = stack * (hi - lo)  # rank 0's dp block of each weight set's slots
                 lo, hi = stage_layers(spec.n_layers, self.decode_pp, 0)
                 layers = hi - lo  # stage 0's layers
             self._ck, self._cv = init_cache(spec, cache_rows, device=self.device,
@@ -1351,8 +1364,6 @@ class InferenceEngine:
             err.retry_after = 1.0
             raise err
         spec = self.spec
-        if grammar is not None and self.mesh is not None:
-            raise ValueError(f"constrained decoding: {_NOT_ON_MESH}")
         if grammar is not None:
             # The JAX engine's preconditions: grammar completion
             # finishes the row by forcing EOS, and the first token must be
@@ -1367,7 +1378,7 @@ class InferenceEngine:
                     "(prefill_chunk >= 16 after power-of-two alignment): "
                     "the first constrained token is sampled by a masked "
                     "decode chunk, not inside the single-shot admit "
-                    "program — unavailable with prefill_chunk=0")
+                    "program — unavailable with sp>1 or prefill_chunk=0")
             if grammar.vocab_size != spec.vocab_size:
                 raise ValueError(
                     f"grammar compiled for vocab {grammar.vocab_size} does "
@@ -1758,41 +1769,61 @@ class InferenceEngine:
         """Start the mesh's worker ranks (``parallel/ranks.RankGroup``; each
         builds an ``engine/follower.Follower``), build this rank's shard of
         the weights while they start, then join the groups. Returns rank
-        0's shard. Given ``params`` (a full tree) are cut for every rank and
-        the workers' cuts sent at their spawn; given ``ckpt`` (a local HF
-        checkpoint's path and dtype) every rank reads its own cut from the
-        mapped files (``models/hf_loader``) and nothing is shipped; else
-        every rank draws its own cut of ``init_params(spec, seed)``."""
-        rows = max(1, int(n_slots))
-        dtype = None
-        if params is not None:
-            dtype = str(params["tok_emb"].dtype).removeprefix("torch.")
-
-        def setup(rank: int):
-            shard = None
-            if params is not None:
-                shard = (to_host(shard_params(params, mesh, rank, spec)), dtype)
-            return ("quorum_tpu_torch.engine.follower:Follower",
-                    dict(spec=spec, seed=int(seed), rows=rows, sp_impl=self.sp_impl,
-                         shard=shard, ckpt=ckpt))
-
-        self._ranks = RankGroup(mesh, setup=setup).spawn()
+        0's shard. Given ``params`` (a full tree, member-stacked on a
+        stacked engine) are cut for every rank (quantized whole first with
+        ``quant``) and the workers' cuts sent at their spawn; given
+        ``ckpt`` (a local HF checkpoint's path and dtype) every rank reads
+        its own cut from the mapped files (``models/hf_loader``) and
+        nothing is shipped; else every rank draws its own cut of
+        ``init_params(spec, seed, quant=)`` (of ``init_params_stacked`` over
+        the weight sets' seeds on a stacked engine)."""
+        self._ranks = RankGroup(mesh, setup=self._follower_setup(mesh, spec, seed, params,
+                                                                 n_slots, ckpt)).spawn()
         try:
-            if ckpt is not None:
-                from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
-
-                mine = load_hf_checkpoint(ckpt[0], dtype=ckpt[1], device=self.device,
-                                          mesh=mesh, rank=0)[1]
-            elif params is None:
-                mine = init_params_shard(spec, seed, mesh, 0, self.device)
-            else:
-                mine = shard_params(params, mesh, 0, spec)
+            mine = self._rank_weights(spec, mesh, seed, params, ckpt, self.device)
             self._rmesh = self._ranks.join()
-            self._rmesh.hold_slots(rows)
+            self._rmesh.hold_slots(max(1, int(n_slots)))
         except BaseException:
             self._ranks.stop()
             raise
         return mine
+
+    def _follower_setup(self, mesh, spec: ModelSpec, seed: int, params, n_slots: int,
+                        ckpt: tuple[str, str] | None):
+        """The ``RankGroup`` set-up of a worker of ``mesh``: its Follower
+        and the engine knobs that shape its weights and cache (a
+        ``params=`` engine ships each worker its cut, int8 leaves in the
+        JAX package's layout)."""
+        dtype = None  # a plain leaf's (int8 leaves keep int8 and float32 scales)
+        if params is not None:
+            dtype = str(params["blocks"]["attn_norm_w"].dtype).removeprefix("torch.")
+        knobs = dict(spec=spec, seed=int(seed), rows=max(1, int(n_slots)), sp_impl=self.sp_impl,
+                     ckpt=ckpt, quant=self.quant, kv_quant=self.kv_quant, seeds=self._seeds,
+                     members=self.members, ensemble=self.ensemble)
+
+        def setup(rank: int):
+            shard = None
+            if params is not None:
+                cut = shard_params(params, mesh, rank, spec, quant=self.quant)
+                shard = (to_host(jax_layout_params(cut)), dtype)
+            return ("quorum_tpu_torch.engine.follower:Follower", dict(knobs, shard=shard))
+
+        return setup
+
+    def _rank_weights(self, spec: ModelSpec, mesh, seed: int, params,
+                      ckpt: tuple[str, str] | None, device):
+        """Rank 0's cut of the weights on ``mesh`` (:meth:`_start_ranks`)."""
+        if ckpt is not None:
+            from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+            return load_hf_checkpoint(ckpt[0], dtype=ckpt[1], device=device, quant=self.quant,
+                                      mesh=mesh, rank=0)[1]
+        if params is not None:
+            return shard_params(params, mesh, 0, spec, quant=self.quant)
+        if max(self.members, self.ensemble) > 1:
+            return init_params_stacked_shard(spec, self._seeds, mesh, 0, device,
+                                             quant=self.quant)
+        return init_params_shard(spec, seed, mesh, 0, device, quant=self.quant)
 
     def _start_prefill_group(self, spec: ModelSpec, seed: int, given, n_slots: int,
                              ckpt: tuple[str, str] | None):
@@ -1810,33 +1841,19 @@ class InferenceEngine:
             if ckpt is not None:
                 from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
 
-                return load_hf_checkpoint(ckpt[0], dtype=ckpt[1], device=dev)[1]
-            return (_params_on(given, dev) if given is not None
-                    else init_params(spec, seed, dev, quant=self.quant))
-        rows = max(1, int(n_slots))
-        dtype = None if given is None else str(given["tok_emb"].dtype).removeprefix("torch.")
-
-        def setup(rank: int):
-            shard = None
+                return load_hf_checkpoint(ckpt[0], dtype=ckpt[1], device=dev,
+                                          quant=self.quant)[1]
             if given is not None:
-                shard = (to_host(shard_params(given, pm, rank, spec)), dtype)
-            return ("quorum_tpu_torch.engine.follower:Follower",
-                    dict(spec=spec, seed=int(seed), rows=rows, sp_impl=self.sp_impl,
-                         shard=shard, ckpt=ckpt))
-
-        self._pranks = RankGroup(pm, setup=setup).spawn()
+                return _params_on(quantize_params(given) if self.quant else given, dev)
+            if max(self.members, self.ensemble) > 1:
+                return init_params_stacked(spec, self._seeds, dev, quant=self.quant)
+            return init_params(spec, seed, dev, quant=self.quant)
+        self._pranks = RankGroup(pm, setup=self._follower_setup(pm, spec, seed, given, n_slots,
+                                                                ckpt)).spawn()
         try:
-            if ckpt is not None:
-                from quorum_tpu_torch.models.hf_loader import load_hf_checkpoint
-
-                mine = load_hf_checkpoint(ckpt[0], dtype=ckpt[1], device=dev, mesh=pm,
-                                          rank=0)[1]
-            elif given is None:
-                mine = init_params_shard(spec, seed, pm, 0, dev)
-            else:
-                mine = shard_params(given, pm, 0, spec)
+            mine = self._rank_weights(spec, pm, seed, given, ckpt, dev)
             self._prmesh = self._pranks.join()
-            self._prmesh.hold_slots(rows)
+            self._prmesh.hold_slots(max(1, int(n_slots)))
         except BaseException:
             self._pranks.stop()
             self._pranks = None
@@ -2736,15 +2753,17 @@ class InferenceEngine:
         prompts = [req.prompt_ids] * n_ens
         tokens, lengths = self._prompt_tokens(prompts, bucket), self._lengths_of(prompts)
         if n_ens > 1:
+            rows = [e * self.n_slots + slot for e in range(n_ens)]
+            self._plan("prefill", prompts, bucket, None, rows)
             logits, _, _ = prefill(self.params, spec, tokens, lengths, self._ck, self._cv,
-                                   rows=[e * self.n_slots + slot for e in range(n_ens)])
+                                   rows=rows, mesh=self._rmesh)
             logits = logits.mean(0, keepdim=True)
         elif self.decode_pp > 1:
-            self._plan("prefill", req.prompt_ids, bucket, slot)
+            self._plan("prefill", prompts, bucket, slot)
             logits, _, _ = staged_prefill(self.params, spec, tokens, lengths, self._ck,
                                           self._cv, slot, self._rmesh)
         else:
-            self._plan("prefill", req.prompt_ids, bucket, slot)
+            self._plan("prefill", prompts, bucket, slot)
             logits, _, _ = prefill(self.params, spec, tokens, lengths, self._ck, self._cv,
                                    slot=slot, mesh=self._rmesh, sp_impl=self.sp_impl)
         self.n_admission_dispatches += 1
@@ -2877,12 +2896,13 @@ class InferenceEngine:
         faults.fire("engine.prefill_segment")
         chunk, s = self.prefill_chunk, self.n_slots
         params = self._prefill_params if self.disagg else self.params
+        member = None
         if self.members > 1 and len(batch) > 1:
             per_row = [batch.get(m) for m in range(self.members)]
             rows = [a.slot if a is not None else None for a in per_row]
         elif self.members > 1:
-            (m, adm), = batch.items()
-            params, per_row, rows = member_params(params, m), [adm], [adm.slot]
+            (member, adm), = batch.items()
+            params, per_row, rows = member_params(params, member), [adm], [adm.slot]
         else:
             (adm,) = batch.values()
             per_row = [adm] * self.ensemble
@@ -2894,9 +2914,9 @@ class InferenceEngine:
         n_valid = [len(seg) for seg in segs]
         t0 = time.perf_counter()
         if self.disagg:
-            self._pplan("segment", segs, bucket, offsets, rows, history, n_valid)
+            self._pplan("segment", segs, bucket, offsets, rows, history, n_valid, member)
         else:
-            self._plan("segment", segs, bucket, offsets, rows, history, n_valid)
+            self._plan("segment", segs, bucket, offsets, rows, history, n_valid, member)
         with self._stage_scope():
             prefill_segment(params, self.spec,
                             self._prompt_tokens(segs, bucket, self.prefill_device), offsets,
@@ -3447,10 +3467,12 @@ class InferenceEngine:
             if use_dedup or len(live) == 1:
                 # One prompt through one member's weight views (member 0's
                 # under dedup): 1/M of the stacked prefill's work.
+                self._plan("prefill", [prompt], bucket, rows[0], None, members[0],
+                           use_dedup)
                 logits, _, _ = prefill(member_params(self.params, members[0]), spec,
                                        self._prompt_tokens([prompt], bucket),
                                        self._lengths_of([prompt]), self._ck, self._cv,
-                                       slot=rows[0])
+                                       slot=rows[0], mesh=self._rmesh)
                 if use_dedup and self.kv_pages:
                     # Member 0's pages into every member's pool copy.
                     with self._cond:
@@ -3462,18 +3484,17 @@ class InferenceEngine:
                             for m in range(1, n_mem):
                                 cache.pool[:, m * stride + p].copy_(src)
                 elif use_dedup:
-                    n = len(prompt)
-                    for cache in (self._ck, self._cv):
-                        by_member = cache.view(cache.shape[0], n_mem, s, *cache.shape[2:])
-                        by_member[:, 1:, row, :, :n].copy_(
-                            by_member[:, :1, row, :, :n].expand(-1, n_mem - 1, -1, -1, -1))
+                    broadcast_member_rows(self._ck, self._cv, n_mem, row, len(prompt),
+                                          self._rmesh)
+                if use_dedup:
                     logits = logits.expand(n_mem, -1)
             else:
                 prompts = [live[m].prompt_ids if m in live else [] for m in range(n_mem)]
+                flat = [m * s + row if m in live else None for m in range(n_mem)]
+                self._plan("prefill", prompts, bucket, None, flat)
                 logits, _, _ = prefill(self.params, spec, self._prompt_tokens(prompts, bucket),
                                        self._lengths_of(prompts), self._ck, self._cv,
-                                       rows=[m * s + row if m in live else None
-                                             for m in range(n_mem)])
+                                       rows=flat, mesh=self._rmesh)
                 if len(live) < n_mem:
                     logits = logits[host_to_device(members, torch.long, self.device)]
             self.n_admission_dispatches += 1
@@ -5220,16 +5241,23 @@ def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
                 "prefix_store does not compose with sp>1: sequence-"
                 "parallel serving disables chunked prefill, which the "
                 "restore path's nonzero-offset tail prefill rides")
+    if eng._use_sp or eng.decode_pp > 1:
+        # The JAX engine serves these there; the port's sequence-parallel
+        # admission and staged decode do not carry int8 yet.
+        staged = [name for name, on in (("quant", bool(eng.quant)),
+                                        ("kv_quant", bool(eng.kv_quant))) if on]
+        if staged:
+            axis = "sp" if eng._use_sp else "pp"
+            raise ValueError(f"{', '.join(staged)}: {_NOT_ON_MESH} with {axis}>1 "
+                             "(dp and tp serve int8 weights and KV)")
     refused = [name for name, on in (
-        ("members", eng.members > 1),
-        ("ensemble", eng.ensemble > 1), ("quant", bool(eng.quant)),
-        ("kv_quant", bool(eng.kv_quant)), ("speculative decoding",
-                                           int(spec_decode) > 0 or draft_spec is not None),
+        ("speculative decoding", int(spec_decode) > 0 or draft_spec is not None),
         ("kv_pages", bool(kv_pages)), ("prefix_store", bool(prefix_store)),
         ("zero_drain", eng.zero_drain)) if on]
     if refused:
         raise ValueError(f"{', '.join(refused)}: {_NOT_ON_MESH} (dp/tp/sp/pp serve the "
-                         "dense and MoE families with the default scheduler)")
+                         "dense and MoE families with the default scheduler; dp and tp "
+                         "also int8, members, ensembles and grammars)")
 
 
 def get_engine(

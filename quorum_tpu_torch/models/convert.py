@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from quorum_tpu_torch import resolve_device
-from quorum_tpu_torch.models.quant import QUANT_REDUCE_AXIS, port_layout
+from quorum_tpu_torch.models.quant import (QUANT_REDUCE_AXIS, cut_quantized, jax_layout,
+                                           port_layout, quantize_cut)
 
 
 def _leaf(x, device, dtype, name: str = ""):
@@ -91,32 +92,49 @@ def stack_params(trees: list[dict]) -> dict:
     return out
 
 
-def shard_params(params: Mapping, mesh, rank: int, spec) -> dict:
-    """Rank ``rank``'s shard of a full single-model tree (``params_from_numpy``
-    of the JAX package's parameters, or ``init_params``) on ``mesh`` (a
-    ``parallel/mesh.Mesh`` or ``RankMesh``): each leaf cut by
-    ``parallel/sharding``'s rules for ``spec`` (heads, experts, MLP hidden
-    and vocab over tp; each rank's kv heads those its query heads read;
-    layers over pp, a later stage holding no embedding, final norm or
+def shard_params(params: Mapping, mesh, rank: int, spec, quant: str | None = None) -> dict:
+    """Rank ``rank``'s shard of a full tree (``params_from_numpy`` of the
+    JAX package's parameters, ``init_params`` or ``init_params_stacked``)
+    on ``mesh`` (a ``parallel/mesh.Mesh`` or ``RankMesh``): each leaf cut
+    by ``parallel/sharding``'s rules for ``spec`` (heads, experts, MLP
+    hidden and vocab over tp; each rank's kv heads those its query heads
+    read; layers over pp, a later stage holding no embedding, final norm or
     head; replicated over dp, so a dp rank receives its cut and nothing
-    less), as contiguous tensors on the leaves' device. Member-stacked and
-    quantized trees are refused: not yet on a multi-rank engine."""
+    less), as contiguous tensors on the leaves' device. A member-stacked
+    tree is cut member by member (the member axis is never cut). A
+    quantized leaf is cut with its scales (``models/quant.cut_quantized``);
+    with ``quant="int8"`` a plain leaf the JAX package quantizes is
+    quantized whole, then cut: each channel's scale is its amax over the
+    whole contraction axis, as ``quantize_params`` of the whole tree gives
+    it."""
     from quorum_tpu_torch.parallel.sharding import rank_cut
 
     cut = rank_cut(spec, mesh, rank)
+    emb = params["tok_emb"]
+    stacked = (emb["qs"] if isinstance(emb, Mapping) else emb).dim() == 3
 
-    def leaf(name, x):
-        if x is None:
-            return None
+    def one(name, x):
+        axis = QUANT_REDUCE_AXIS.get(name)
         if isinstance(x, Mapping):
-            raise ValueError(f"quantized leaf {name!r}: quant is not yet on a multi-rank engine")
-        x = cut(name, x)
-        return None if x is None else x.contiguous()
+            return cut_quantized(jax_layout(x, axis), axis, lambda t: cut(name, t))
+        if quant and axis is not None:
+            return quantize_cut(x, axis, lambda t: cut(name, t))
+        return cut(name, x).contiguous()
 
-    if params["tok_emb"].dim() != 2:
-        raise ValueError("member-stacked trees are not yet on a multi-rank engine")
-    out = {k: leaf(k, v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = {k: leaf(k, v) for k, v in params["blocks"].items()}
+    def leaf(name, x, block: bool):
+        if x is None or not cut.keeps(name):
+            return None
+        if not stacked:
+            return one(name, x)
+        at = 1 if block else 0  # the member axis: after the layer axis in a block leaf
+        parts = [one(name, _map(x, lambda t: t.select(at, m)))
+                 for m in range((x["qs"] if isinstance(x, Mapping) else x).shape[at])]
+        if isinstance(parts[0], Mapping):
+            return {k: torch.stack([p[k] for p in parts], at) for k in parts[0]}
+        return torch.stack(parts, at)
+
+    out = {k: leaf(k, v, False) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: leaf(k, v, True) for k, v in params["blocks"].items()}
     return out
 
 

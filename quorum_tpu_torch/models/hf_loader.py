@@ -27,7 +27,9 @@ copy of the model (the JAX loader converts to float32 and stacks there).
 layout), and each checkpoint tensor — or each layer slice of a stacked
 leaf — is filled into a staging buffer in the spec's dtype and quantized
 into its slice, so the bf16 checkpoint never exists whole on the device.
-The result equals ``quantize_params`` of the bf16 load bit for bit.
+The result equals ``quantize_params`` of the bf16 load bit for bit. On a
+mesh rank each tensor is staged whole, quantized whole and then cut with
+its scales, so the rank's leaf equals the cut of that tree bit for bit.
 
 Conventions: HF ``nn.Linear`` stores ``[out, in]`` (transposed on load);
 GPT-2's ``Conv1D`` stores ``[in, out]`` (taken as is) and fuses q/k/v in
@@ -53,7 +55,7 @@ import torch
 
 from quorum_tpu_torch import resolve_device
 from quorum_tpu_torch.models.model_config import ModelSpec
-from quorum_tpu_torch.models.quant import QUANT_REDUCE_AXIS, leaf_shapes, quantize_weight
+from quorum_tpu_torch.models.quant import QUANT_REDUCE_AXIS, leaf_shapes, quantize_cut
 
 logger = logging.getLogger(__name__)
 
@@ -399,21 +401,34 @@ class _Filler:
             return _QSlot(dst, shape, axis)
         return torch.empty(shape, dtype=self.dtype, device=self.device)
 
-    def put(self, dst, src: torch.Tensor, transpose: bool = False) -> None:
+    def put(self, dst, src: torch.Tensor, transpose: bool = False, cut=None) -> None:
+        """Fill ``dst`` from ``src``; ``cut`` (an int8 slot on a mesh rank):
+        ``src`` is the whole tensor, quantized whole on the device and then
+        cut with its scales (``models/quant.quantize_cut``), so a row-parallel
+        leaf's scales are each channel's amax over its whole contraction
+        axis."""
         want = dst.shape if isinstance(dst, _QSlot) else tuple(dst.shape)
-        shape = tuple(src.shape[::-1] if transpose else src.shape)
+        whole = tuple(src.shape[::-1] if transpose else src.shape)
+        shape = whole if cut is None else tuple(cut(torch.empty(whole, device="meta")).shape)
         if shape != tuple(want):
             raise ValueError(f"checkpoint tensor of shape {shape} where the spec needs "
                              f"{tuple(want)}")
         if self.device.type != "cpu":
             src = self._to_device(src)  # the raw bytes over; transpose and cast there
         if isinstance(dst, _QSlot):
-            stage = torch.empty(want, dtype=self.dtype, device=self.device)
+            stage = torch.empty(whole, dtype=self.dtype, device=self.device)
             stage.copy_(src.T if transpose else src)
-            for k, v in quantize_weight(stage, dst.axis).items():
+            for k, v in quantize_cut(stage, dst.axis, cut).items():
                 dst.dst[k].copy_(v)
             return
         dst.copy_(src.T if transpose else src)
+
+    def _quant_cut(self, leaf: str, layer_part: bool):
+        """The cut an int8 leaf of a mesh rank takes after its whole tensor
+        is quantized (None where the rank's part is read pre-cut)."""
+        if self.cut is None or not (self.quant and leaf in QUANT_REDUCE_AXIS):
+            return None
+        return lambda x: self.cut(leaf, x, layer_part)
 
     def _to_device(self, src: torch.Tensor) -> torch.Tensor:
         out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
@@ -456,9 +471,10 @@ class _Filler:
         own = src is None
         if own:
             src = self.t.req(name)
-        if expert is None:
+        qcut = self._quant_cut(leaf, True) if expert is None else None
+        if expert is None and qcut is None:
             src = self._part(leaf, src, transpose, True)
-        self.put(blocks[leaf][idx], src, transpose)
+        self.put(blocks[leaf][idx], src, transpose, cut=qcut)
         if own:
             self.t.release(name)
 
@@ -475,7 +491,9 @@ class _Filler:
             return None
         src = self.t.req(name)
         dst = self.empty(*(src.shape[::-1] if transpose else src.shape), name=leaf)
-        self.put(dst, self._part(leaf, src, transpose, False), transpose)
+        qcut = self._quant_cut(leaf, False)
+        self.put(dst, src if qcut else self._part(leaf, src, transpose, False), transpose,
+                 cut=qcut)
         self.t.release(name)
         return _done(dst)
 

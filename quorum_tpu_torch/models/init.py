@@ -30,7 +30,7 @@ import torch
 
 from quorum_tpu_torch import resolve_device
 from quorum_tpu_torch.models.model_config import ModelSpec
-from quorum_tpu_torch.models.quant import QUANT_REDUCE_AXIS, quantize_weight
+from quorum_tpu_torch.models.quant import QUANT_REDUCE_AXIS, quantize_cut, quantize_weight
 
 Params = dict
 
@@ -70,25 +70,39 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
                                device=dev) * fan ** -0.5
 
         if cut is not None:
-            # A rank's shard: every part drawn whole, in the init's order,
-            # and cut before the next is drawn; a pipeline stage keeps its
+            # A rank's shard: every part (one member's layer slice, or
+            # leaf) drawn whole, in the init's order, and cut before the
+            # next is drawn; a quantized leaf's part is quantized whole
+            # first, so each channel's scale is its amax over the whole
+            # contraction axis, and its q8 and scales are cut together
+            # (``models/quant.quantize_cut``). A pipeline stage keeps its
             # own layers' parts (the others are drawn all the same, so the
-            # generator reaches each part where the whole init does) and
-            # a later stage skips the leaves it does not hold (all of them
+            # generator reaches each part where the whole init does) and a
+            # later stage skips the leaves it does not hold (all of them
             # drawn after every block leaf).
             if not cut.keeps(name):
                 return None
-            part = full_shape[1:] if layered else full_shape
-            kept = cut(name, torch.empty(part, device="meta"), layered).shape
             lo, hi = cut.layers if layered else (0, 1)
-            out = torch.empty(((hi - lo,) if layered else ()) + tuple(kept),
-                              dtype=dt, device=dev)
+            kept_lead = ((hi - lo,) if layered else ()) + lead
+            axis = QUANT_REDUCE_AXIS.get(name) if quant else None
+            out = None
             for gen, idx in parts(full_shape, layered):
-                piece = cut(name, draw(gen, part), layered)
-                if not layered:
-                    out.copy_(piece)
-                elif lo <= idx[0] < hi:
-                    out[idx[0] - lo].copy_(piece)
+                piece = draw(gen, full_shape[len(idx):])
+                if layered and not lo <= idx[0] < hi:
+                    continue
+                at = (idx[0] - lo,) + idx[1:] if layered else idx
+                if axis is None:
+                    piece = cut(name, piece, layered)
+                    if out is None:
+                        out = torch.empty(kept_lead + tuple(piece.shape), dtype=dt, device=dev)
+                    out[at].copy_(piece)
+                    continue
+                q = quantize_cut(piece.to(dt), axis, lambda x: cut(name, x, layered))
+                if out is None:
+                    out = {k: torch.empty(kept_lead + tuple(v.shape), dtype=v.dtype, device=dev)
+                           for k, v in q.items()}
+                for k, v in q.items():
+                    out[k][at].copy_(v)
             return out
         if not (quant and name in QUANT_REDUCE_AXIS):
             out = torch.empty(full_shape, dtype=dt, device=dev)
@@ -106,12 +120,17 @@ def _init(spec: ModelSpec, seeds: list[int], stacked: bool, device, dtype,
         return out
 
     def full(shape, value, layered=False, name=""):
-        full_shape = (shape[0],) + lead + shape[1:] if layered else lead + shape
-        out = torch.full(full_shape, value, dtype=dt, device=dev)
         if cut is None:
-            return out
-        out = cut(name, out)
-        return None if out is None else out.contiguous()
+            full_shape = (shape[0],) + lead + shape[1:] if layered else lead + shape
+            return torch.full(full_shape, value, dtype=dt, device=dev)
+        one = cut(name, torch.full(shape, value, dtype=dt, device=dev))
+        if one is None:
+            return None
+        if not stacked:
+            return one.contiguous()
+        at = 1 if layered else 0  # the member axis, after the layer axis
+        return one.unsqueeze(at).expand(*one.shape[:at], len(seeds),
+                                        *one.shape[at:]).contiguous()
 
     L, D, V = spec.n_layers, spec.d_model, spec.vocab_size
     H = spec.n_heads * spec.head_dim
@@ -167,17 +186,31 @@ def init_params(spec: ModelSpec, seed: int = 0, device=None, dtype=None,
 
 
 def init_params_shard(spec: ModelSpec, seed: int, mesh, rank: int, device=None,
-                      dtype=None) -> Params:
-    """Rank ``rank``'s shard of ``init_params(spec, seed)`` on ``mesh`` (a
-    ``parallel/mesh.Mesh`` or ``RankMesh``), bit for bit its cut
-    (``parallel/sharding.rank_cut``): each layer slice is drawn whole from
-    the same generator in the same order, cut, and only the cut kept, so a
-    rank holds its share of the weights plus one layer's float32 draw (a
-    pipeline stage: its own layers, and only stage 0 the embedding, final
-    norm and head)."""
+                      dtype=None, quant: str | None = None) -> Params:
+    """Rank ``rank``'s shard of ``init_params(spec, seed, quant=quant)`` on
+    ``mesh`` (a ``parallel/mesh.Mesh`` or ``RankMesh``), bit for bit its cut
+    (``parallel/sharding.rank_cut``; a quantized leaf's cut is
+    ``models/quant.cut_quantized`` of the whole leaf): each layer slice is
+    drawn whole from the same generator in the same order, quantized whole
+    with ``quant``, cut, and only the cut kept, so a rank holds its share of
+    the weights plus one layer's float32 draw (a pipeline stage: its own
+    layers, and only stage 0 the embedding, final norm and head)."""
     from quorum_tpu_torch.parallel.sharding import rank_cut
 
-    return _init(spec, [seed], False, device, dtype, cut=rank_cut(spec, mesh, rank))
+    return _init(spec, [seed], False, device, dtype, quant, cut=rank_cut(spec, mesh, rank))
+
+
+def init_params_stacked_shard(spec: ModelSpec, seeds: list[int], mesh, rank: int,
+                              device=None, dtype=None, quant: str | None = None) -> Params:
+    """Rank ``rank``'s cut of ``init_params_stacked(spec, seeds,
+    quant=quant)`` on ``mesh``: every member's weights cut as
+    :func:`init_params_shard` cuts one (the member axis is never cut, the
+    JAX package's ``lead_axes`` rule), in the stacked layout."""
+    from quorum_tpu_torch.parallel.sharding import rank_cut
+
+    if not seeds:
+        raise ValueError("init_params_stacked_shard needs at least one seed")
+    return _init(spec, list(seeds), True, device, dtype, quant, cut=rank_cut(spec, mesh, rank))
 
 
 def init_params_stacked(spec: ModelSpec, seeds: list[int], device=None, dtype=None,

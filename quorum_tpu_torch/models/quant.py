@@ -106,6 +106,49 @@ def quantize_weight(w: torch.Tensor, axis: int) -> dict[str, torch.Tensor]:
     return port_layout(quantize_leaf(w, axis), axis)
 
 
+def cut_quantized(leaf: Mapping, axis: int, cut=None) -> dict[str, torch.Tensor]:
+    """A JAX-layout quantized leaf (:func:`quantize_leaf` of a whole weight)
+    → a rank's cut of it in the port's layout: ``cut`` (a function of a
+    tensor of the weight's shape: the rank's view of it, e.g. a
+    ``parallel/sharding.RankCut``) cuts ``q8``, and ``qs`` as its broadcast
+    to that shape, narrowed back to size 1 on ``axis``; then the rank's
+    piece is padded (:func:`port_layout`). The scales are the whole leaf's:
+    where the rank holds part of a channel's contraction axis (a
+    row-parallel leaf) they stay that channel's amax over all of it, and a
+    cut of the N axis is made at the true N, so no padding lands inside a
+    rank's piece."""
+    q8, qs = leaf["q8"], leaf["qs"]
+    if cut is not None:
+        q8, qs = cut(q8), cut(qs.expand(q8.shape)).narrow(axis, 0, 1)
+    return port_layout({"q8": q8, "qs": qs}, axis)
+
+
+def quantize_cut(w: torch.Tensor, axis: int, cut=None) -> dict[str, torch.Tensor]:
+    """``w`` (JAX layout, whole) → the rank's cut of its quantized leaf in
+    the port's layout (:func:`cut_quantized`); without ``cut``,
+    :func:`quantize_weight`."""
+    return cut_quantized(quantize_leaf(w, axis), axis, cut)
+
+
+def jax_layout_params(params: Mapping[str, Any]) -> dict[str, Any]:
+    """A port tree with its quantized leaves in the JAX package's layout
+    (:func:`jax_layout`): what ``models/convert.params_from_numpy`` reads
+    back, e.g. a rank's cut shipped to a worker."""
+
+    def walk(tree: Mapping[str, Any]) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        for k, v in tree.items():
+            if is_quantized(v):
+                out[k] = jax_layout(v, QUANT_REDUCE_AXIS[k])
+            elif isinstance(v, Mapping):
+                out[k] = walk(v)
+            else:
+                out[k] = v
+        return out
+
+    return walk(params)
+
+
 def dq(leaf: Any, dtype=torch.bfloat16, axis: int = -1):
     """Explicit dequantization in ``dtype`` (the JAX package multiplies in
     the target dtype, not in float32), in the JAX package's layout of a
@@ -127,20 +170,36 @@ def emb_rows(leaf: Any, index, dtype: torch.dtype) -> torch.Tensor:
     return leaf[index].to(dtype)
 
 
-def _int_mm(x8: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
-    """``x8 [M, K] @ q8 [N, K]ᵀ`` as integers, read back as float32. On the
-    card: ``torch._int_mm`` (int8 × int8 → int32) with the rows padded with
-    zeros to more than 16; on the CPU: the float32 GEMM of the JAX package's
-    CPU branch."""
+def _int_acc(x8: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
+    """``x8 [M, K] @ q8 [N, K]ᵀ`` as int32 accumulators: on the card
+    ``torch._int_mm`` (int8 × int8 → int32) with the rows padded with zeros
+    to more than 16; on the CPU the float32 GEMM of the JAX package's CPU
+    branch, whose integer values convert exactly while its sums stay below
+    2^24."""
     if x8.device.type == "cpu":
-        return x8.float() @ q8.float().T
+        return (x8.float() @ q8.float().T).to(torch.int32)
     if x8.shape[-1] % _ALIGN or q8.shape[0] % _ALIGN:
         raise ValueError(f"int8 product needs K and N multiples of {_ALIGN}: "
                          f"{tuple(x8.shape)} @ {tuple(q8.shape)}ᵀ")
     m = x8.shape[0]
     if m < _MIN_ROWS:
         x8 = F.pad(x8, (0, 0, 0, _MIN_ROWS - m))
-    return torch._int_mm(x8, q8.T)[:m].float()
+    return torch._int_mm(x8, q8.T)[:m]
+
+
+def _int_mm(x8: torch.Tensor, q8: torch.Tensor, tp=None) -> torch.Tensor:
+    """``x8 [M, K] @ q8 [N, K]ᵀ`` as integers, read back as float32. On the
+    CPU without ``tp``: the float32 GEMM itself. ``tp`` (a
+    ``parallel/comm.Group``): ``K`` is this rank's piece of a contraction
+    axis the group cuts, and the int32 accumulators are summed over the
+    group before they are read as float32 — the one-rank product's integers
+    exactly (an int32 sum of int8 products stays far below 2^31 at every
+    served width: K · 127² is 2.3e8 at llama-3-8b's 14 336)."""
+    if tp is None:
+        if x8.device.type == "cpu":
+            return x8.float() @ q8.float().T
+        return _int_acc(x8, q8).float()
+    return tp.all_reduce(_int_acc(x8, q8)).float()
 
 
 def _rescale(y: torch.Tensor, xs: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
@@ -157,7 +216,7 @@ def quantize_act(x: torch.Tensor, *leaves) -> tuple[torch.Tensor, torch.Tensor] 
     return quantize_rows(x, axis=-1) if any(is_quantized(w) for w in leaves) else None
 
 
-def qeinsum(eq: str, x: torch.Tensor, leaf: Any, xq=None) -> torch.Tensor:
+def qeinsum(eq: str, x: torch.Tensor, leaf: Any, xq=None, tp=None) -> torch.Tensor:
     """``einsum(eq, x, w)`` read back as float32, where ``w`` may be a
     quantized leaf. The forms the transformer's products take:
 
@@ -177,24 +236,53 @@ def qeinsum(eq: str, x: torch.Tensor, leaf: Any, xq=None) -> torch.Tensor:
     the card, the output rounded to x's dtype, then read as float32). A
     quantized leaf quantizes x per row over its last axis once, runs the
     integer product (one ``_int_mm`` per group on the card), and rescales
-    in float32; ``xq`` is x already quantized (:func:`quantize_act`)."""
+    in float32; ``xq`` is x already quantized (:func:`quantize_act`).
+
+    ``tp`` (a ``parallel/comm.Group``; the first two forms): a row-parallel
+    product on a tensor-parallel rank — x's last axis and the leaf's
+    contraction axis are this rank's piece of an axis the group cuts. x is
+    quantized with the whole row's amax (a max all-reduce), the int32
+    accumulators are summed over the group, and the sum is rescaled once:
+    the returned sum equals the one-rank product bit for bit. Without a
+    quantized leaf, ``tp`` is the caller's to sum."""
     if not is_quantized(leaf):
         return torch.matmul(x, leaf).float()
     q8, qs = leaf["q8"], leaf["qs"][..., 0]
-    x8, xs = xq if xq is not None else quantize_rows(x, axis=-1)
+    if xq is None:
+        xq = quantize_rows(x, axis=-1) if tp is None else quantize_rows(x, axis=-1, group=tp)
+    x8, xs = xq
     if eq == "...d,df->...f":
         lead = x.shape[:-1]
-        y = _int_mm(x8.reshape(-1, x.shape[-1]), q8)
+        y = _int_mm(x8.reshape(-1, x.shape[-1]), q8, tp)
         return _rescale(y, xs.reshape(-1, 1), qs).reshape(*lead, qs.shape[-1])
     if eq == "mnd,mdf->mnf":
-        y = torch.stack([_int_mm(x8[g], q8[g]) for g in range(q8.shape[0])])
+        if tp is None:
+            y = torch.stack([_int_mm(x8[g], q8[g]) for g in range(q8.shape[0])])
+        else:  # one sum over the group for every member's accumulators
+            y = tp.all_reduce(torch.stack([_int_acc(x8[g], q8[g])
+                                           for g in range(q8.shape[0])])).float()
         return _rescale(y, xs, qs)
     if eq == "nd,edf->enf":
+        if tp is not None:
+            raise ValueError("qeinsum: the dense MoE form is never row-parallel")
         e, f = q8.shape[0], q8.shape[1]
         y = _int_mm(x8, q8.reshape(e * f, -1))            # one product for every expert
         y = y.reshape(-1, e, f).transpose(0, 1)           # [E, N, F]
         return _rescale(y, xs[None], qs)
     raise ValueError(f"qeinsum: unsupported form {eq!r}")
+
+
+def row_parallel_qmm(x: torch.Tensor, leaf: Mapping, mesh=None):
+    """A row-parallel int8 product as a tensor-parallel rank computes it
+    (``models/transformer``'s output and down projections): ``x [M, K']``
+    this rank's piece of each row, ``leaf`` its cut of a quantized weight
+    (contraction axis cut over ``mesh.tp``). Returns ``(xs [M, 1], y [M,
+    N])``: the activation scales x was quantized with (the whole rows')
+    and the product summed over tp — on one rank (no mesh), the plain
+    int8 product. For holding a rank's product against one rank's."""
+    tp = None if mesh is None else mesh.tp
+    xq = quantize_rows(x, axis=-1) if tp is None else quantize_rows(x, axis=-1, group=tp)
+    return xq[1], qeinsum("...d,df->...f", x, leaf, xq, tp)
 
 
 def quantize_params(params: Mapping[str, Any]) -> dict[str, Any]:

@@ -64,7 +64,12 @@ all-gathered; head counts come from the projections' widths. A leaf tp
 does not divide is whole on every rank and its product's sum is skipped
 (:func:`_tp_cut`); K/V projections whole over unevenly cut query-head
 groups give each rank its own kv heads by selection (:func:`_kv_select`).
-The layer loops run the layers the blocks hold (:func:`n_layers`): a
+A quantized row-parallel product (:func:`_row_mm`) quantizes its input
+with the whole row's amax (a max all-reduce over tp) and sums its int32
+accumulators over tp before one rescale, so it equals the one-rank product
+bit for bit; a rank's int8 cache holds its own kv heads. Member-stacked
+params on a mesh are each rank's cut of every weight set, the vocab-cut
+tables gathered per member. The layer loops run the layers the blocks hold (:func:`n_layers`): a
 pipeline stage's share (``parallel/pipeline.py``). A
 decode step takes rank 0's token, positions and write mask by one
 broadcast (``RankMesh.sync_step``: rank 0 samples, every rank feeds the
@@ -75,7 +80,8 @@ called whatever the group's size, so a one-rank NCCL mesh's graphs capture
 them (a one-rank gloo group skips them, ``parallel/comm``).
 
 On a mesh with dp > 1 whose dp divides the slot rows (the rank's cache then
-holds its dp group's block, ``RankMesh.hold_slots``), a decode step runs
+holds its dp group's block of each weight set's slots, ``RankMesh.hold_slots``:
+member m's slot s at local row m·(S/dp) + s − lo), a decode step runs
 each group's own rows through the layers and all-gathers the hidden states
 over dp before the final norm and the unembed, so every rank — rank 0,
 which samples, among them — has every row's logits. A single-shot admission
@@ -203,18 +209,19 @@ def _member_rows(n_members: int, n_rows: int, device) -> torch.Tensor:
     return idx
 
 
-def _mm(x: torch.Tensor, w, xq=None) -> torch.Tensor:
+def _mm(x: torch.Tensor, w, xq=None, tp=None) -> torch.Tensor:
     """x @ w read back as float32 (the JAX einsums' f32 output), through
-    ``qeinsum``: w plain or quantized, ``xq`` x already quantized. A
+    ``qeinsum``: w plain or quantized, ``xq`` x already quantized, ``tp`` a
+    quantized row-parallel product's group (:func:`_row_mm`). A
     member-stacked w [M, D, N] takes x's member-major rows as M groups: one
     batched GEMM [M, rows, D] × [M, D, N] (one int8 GEMM per member)."""
     if _w(w).dim() == 3:
         m = _w(w).shape[0]
         if xq is not None:
             xq = tuple(t.reshape(m, -1, t.shape[-1]) for t in xq)
-        out = qeinsum("mnd,mdf->mnf", x.reshape(m, -1, x.shape[-1]), w, xq)
+        out = qeinsum("mnd,mdf->mnf", x.reshape(m, -1, x.shape[-1]), w, xq, tp)
         return out.reshape(*x.shape[:-1], out.shape[-1])
-    return qeinsum("...d,df->...f", x, w, xq)
+    return qeinsum("...d,df->...f", x, w, xq, tp)
 
 
 def _per_member(x: torch.Tensor, v: torch.Tensor, op):
@@ -241,6 +248,19 @@ def _norm(x, w, b, spec: ModelSpec):
 
 def _gelu(x):
     return F.gelu(x, approximate="tanh")
+
+
+def _row_mm(x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """A row-parallel product (the output and down projections: x's last
+    axis and w's contraction axis this rank's piece of an axis tp cuts),
+    summed over tp. A plain leaf's f32 partial products are all-reduced
+    (:func:`_tp_sum`); a quantized one quantizes x with the whole row's
+    amax and sums the int32 accumulators before one rescale
+    (``models/quant.qeinsum`` with ``tp``): the one-rank product bit for
+    bit."""
+    if mesh is None or not is_quantized(w):
+        return _tp_sum(_mm(x, w), mesh)
+    return _mm(x, w, tp=mesh.tp)
 
 
 def _tp_sum(out: torch.Tensor, mesh) -> torch.Tensor:
@@ -281,7 +301,7 @@ def _dense_mlp(x, block, spec: ModelSpec, mesh=None):
         if block.get("b_up") is not None:
             up = _add(up, block["b_up"])
         h = _gelu(up).to(x.dtype)
-    out = _tp_sum(_mm(h, block["w_down"]), mesh)
+    out = _row_mm(h, block["w_down"], mesh)
     if block.get("b_down") is not None:  # once, after the reduction
         out = _add(out, block["b_down"])
     return out.to(x.dtype)
@@ -544,7 +564,7 @@ def _qkv(x, block, spec: ModelSpec, mesh=None):
 
 def _attn_out(attn, block, x_dtype, mesh=None):
     b, h, t, d = attn.shape
-    out = _tp_sum(_mm(attn.transpose(1, 2).reshape(b, t, h * d), block["wo"]), mesh)
+    out = _row_mm(attn.transpose(1, 2).reshape(b, t, h * d), block["wo"], mesh)
     if block.get("bo") is not None:  # once, after the reduction
         out = _add(out, block["bo"])
     return out.to(x_dtype)
@@ -556,16 +576,21 @@ def _scale_emb(x, spec: ModelSpec):
     return x
 
 
-def _emb_lookup(emb, tokens, spec: ModelSpec, mesh):
-    """Embedding rows of ``tokens``; a vocab-cut table (a tp rank's block of
+def _emb_lookup(emb, tokens, spec: ModelSpec, mesh, members=None):
+    """Embedding rows of ``tokens`` (``members``: each token's member index
+    into a member-stacked table); a vocab-cut table (a tp rank's block of
     rows, fewer than the vocabulary) gives its own tokens' rows and zeros
     for the rest, summed over the tp ranks (exact: one nonzero term)."""
-    rows = _w(emb).shape[0]
+    rows = (emb["qs"] if is_quantized(emb) else emb).shape[-2]  # q8's rows are padded
+
+    def at(t):
+        return t if members is None else (members, t)
+
     if mesh is None or rows == spec.vocab_size:
-        return emb_rows(emb, tokens, _dtype(spec))
+        return emb_rows(emb, at(tokens), _dtype(spec))
     local = tokens - mesh.tp_rank * rows
     inside = (local >= 0) & (local < rows)
-    x = emb_rows(emb, local.clamp(0, rows - 1), _dtype(spec))
+    x = emb_rows(emb, at(local.clamp(0, rows - 1)), _dtype(spec))
     return mesh.tp.all_reduce(torch.where(inside[..., None], x, torch.zeros_like(x)))
 
 
@@ -578,7 +603,7 @@ def _embed(params, spec: ModelSpec, tokens, positions, mesh=None):
     per_row = positions if positions.dim() == 2 else positions[None, :]
     if _w(emb).dim() == 3:
         mi = _member_rows(_w(emb).shape[0], tokens.shape[0], tokens.device)[:, None]
-        x = emb_rows(emb, (mi, tokens), _dtype(spec))
+        x = _emb_lookup(emb, tokens, spec, mesh, mi)
         pos = pos_emb[mi, per_row] if spec.pos == "learned" else None
     else:
         x = _emb_lookup(emb, tokens, spec, mesh)
@@ -713,14 +738,18 @@ def prefill(
     b, t = tokens.shape
     dev = tokens.device
     owner = None
-    if mesh is not None and mesh.splits_slots and slot is not None and rows is None:
-        s_lo, s_hi, _ = mesh.slots
-        owner = slot // (s_hi - s_lo)
+    if mesh is not None and mesh.splits_slots and (slot is not None or rows is not None):
+        # Every row of one admission is one slot's (a stacked engine's
+        # member rows m·S + s): the dp group holding slot s runs it.
+        owner = _slot_owner(mesh, slot if rows is None else next(r for r in rows if r is not None))
         if owner != mesh.dp_rank:
             last = mesh.dp.broadcast(
                 torch.zeros((b, spec.d_model), dtype=_dtype(spec), device=dev), owner)
             return unembed(params, spec, last, mesh), cache_k, cache_v
-        slot -= s_lo
+        if rows is None:
+            slot = _local_row(mesh, slot)
+        else:
+            rows = [None if r is None else _local_row(mesh, r) for r in rows]
     n_sp = _sp_blocks(mesh, t, spec, sp_impl)
     lo, s_loc = (mesh.sp_rank * (t // n_sp), t // n_sp) if n_sp > 1 else (0, t)
     positions = torch.arange(lo, lo + s_loc, device=dev)
@@ -769,6 +798,21 @@ def prefill(
     if owner is not None:
         last = mesh.dp.broadcast(last.contiguous(), owner)
     return unembed(params, spec, last, mesh), cache_k, cache_v
+
+
+def _slot_owner(mesh, row: int) -> int:
+    """The dp rank whose cache holds flat cache row ``row`` (member m's slot
+    s is row m·S + s; each dp group holds a block of the S slots for every
+    member, ``RankMesh.hold_slots``)."""
+    lo, hi, n = mesh.slots
+    return (row % n) // (hi - lo)
+
+
+def _local_row(mesh, row: int) -> int:
+    """Flat cache row ``row`` in this dp group's cache: member m's slot s at
+    ``m·(hi − lo) + s − lo``."""
+    lo, hi, n = mesh.slots
+    return (row // n) * (hi - lo) + row % n - lo
 
 
 def _sp_blocks(mesh, t: int, spec: ModelSpec, sp_impl: str) -> int:
@@ -867,15 +911,15 @@ def prefill_segment(
     sp > 1 turns chunked prefill off); where its dp cuts the slot rows,
     ``rows`` are global and only the owning group's rows run here."""
     if mesh is not None and mesh.splits_slots:
-        s_lo, s_hi, _ = mesh.slots
-        mine = [i for i, r in enumerate(rows) if r is not None and s_lo <= r < s_hi]
+        mine = [i for i, r in enumerate(rows)
+                if r is not None and _slot_owner(mesh, r) == mesh.dp_rank]
         if not mine:
             return cache_k, cache_v
         if len(mine) < len(rows):
             tokens = tokens[host_to_device(mine, torch.long, tokens.device)]
             offsets = [offsets[i] for i in mine]
             n_valid = None if n_valid is None else [n_valid[i] for i in mine]
-        rows = [rows[i] - s_lo for i in mine]
+        rows = [_local_row(mesh, rows[i]) for i in mine]
     b, t = tokens.shape
     dev = tokens.device
     hist = min(history, spec.max_seq)
@@ -944,7 +988,7 @@ def decode_token_embed(params: Params, spec: ModelSpec, token, lengths, mesh=Non
     emb, pos_emb = params["tok_emb"], params.get("pos_emb")
     if _w(emb).dim() == 3:
         mi = _member_rows(_w(emb).shape[0], token.shape[0], token.device)
-        x = emb_rows(emb, (mi, token), _dtype(spec))
+        x = _emb_lookup(emb, token, spec, mesh, mi)
         pos = pos_emb[mi, lengths] if spec.pos == "learned" else None
     else:
         x = _emb_lookup(emb, token, spec, mesh)
@@ -1074,30 +1118,60 @@ def decode_step(
 def _step_forward(params, spec, token, lengths, cache_k, cache_v, write_mask,
                   plain_attention=False, history=None, mesh=None):
     split = mesh is not None and mesh.splits_slots
-    if split:  # this dp group's rows; the others' hidden states come by all-gather
-        lo, hi, _ = mesh.slots
-        token, lengths = token[lo:hi], lengths[lo:hi]
-        write_mask = None if write_mask is None else write_mask[lo:hi]
+    if split:
+        # This dp group's rows: its block of the S slots of every weight
+        # set's rows (m·S + s); the others' hidden states come by all-gather.
+        lo, hi, n = mesh.slots
+        stack = token.shape[0] // n
+
+        def own(v):
+            return v.reshape(stack, n)[:, lo:hi].reshape(-1)
+
+        token, lengths = own(token), own(lengths)
+        write_mask = None if write_mask is None else own(write_mask)
     x = decode_token_embed(params, spec, token, lengths, mesh)
     x, cache_k, cache_v = decode_step_blocks(
         params["blocks"], spec, x, lengths, cache_k, cache_v,
         write_mask=write_mask, plain_attention=plain_attention, history=history, mesh=mesh)
     if split:
-        x = mesh.dp.all_gather(x, dim=0)
+        x = mesh.dp.all_gather(x.reshape(stack, hi - lo, *x.shape[1:]), dim=1)
+        x = x.reshape(stack * n, *x.shape[2:])
     x = _final_norm(params, spec, x)
     return unembed(params, spec, x[:, 0, :], mesh)
 
 
 def follow_decode_step(params: Params, spec: ModelSpec, token: torch.Tensor,
-                       lengths: torch.Tensor, write_mask: torch.Tensor, cache_k, cache_v, mesh):
+                       lengths: torch.Tensor, write_mask: torch.Tensor, cache_k, cache_v, mesh,
+                       ensemble: int = 1):
     """A worker rank's decode step: rank 0's inputs from the broadcast
     (``token``, ``lengths`` and ``write_mask`` give only their shapes and
-    dtypes), then the step's forward on this rank's shard, collective for
-    collective the one rank 0's :func:`decode_step` runs. Returns the
-    token and write mask it fed."""
+    dtypes), then the step's forward on this rank's shard (``ensemble``:
+    every row through each weight set, as :func:`decode_step` runs it),
+    collective for collective the one rank 0's :func:`decode_step` runs.
+    Returns the token and write mask it fed."""
     token, lengths, write_mask = mesh.sync_step(token, lengths, write_mask)
-    _step_forward(params, spec, token, lengths, cache_k, cache_v, write_mask, mesh=mesh)
+    tok, lens, wm = token, lengths, write_mask
+    if ensemble > 1:
+        tok, lens, wm = tok.repeat(ensemble), lens.repeat(ensemble), wm.repeat(ensemble)
+    _step_forward(params, spec, tok, lens, cache_k, cache_v, wm, mesh=mesh)
     return token, write_mask
+
+
+def broadcast_member_rows(cache_k, cache_v, n_members: int, slot: int, n: int,
+                          mesh=None) -> None:
+    """Member 0's positions ``[0, n)`` of slot ``slot`` copied into every
+    member's row of that slot, in place (a ``quorum_dedup`` admission: one
+    prefill on shared weights gives every member's K/V). On a mesh each
+    rank copies its own kv heads, and only the dp group holding the slot
+    copies: no collective."""
+    if mesh is not None and mesh.splits_slots:
+        if _slot_owner(mesh, slot) != mesh.dp_rank:
+            return
+        slot = _local_row(mesh, slot)
+    for cache in (cache_k, cache_v):
+        by_member = cache.view(cache.shape[0], n_members, -1, *cache.shape[2:])
+        by_member[:, 1:, slot, :, :n].copy_(
+            by_member[:, :1, slot, :, :n].expand(-1, n_members - 1, -1, -1, -1))
 
 
 def decode_chunk(

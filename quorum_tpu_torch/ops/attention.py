@@ -116,16 +116,22 @@ def decode_attention(
     return attention(q, k_cache, v_cache, valid[:, None, None, None, :])
 
 
-def quantize_rows(x: torch.Tensor, axis: int = -1) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, axis: int = -1,
+                  group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization along ``axis``: ``(q8, scale)`` with
     ``x ≈ q8 * scale`` (scale f32, keeping the reduced dim at size 1). The
     JAX package's formulation exactly: amax/127 with a 1e-30 floor for an
     all-zero row, round half to even (``torch.round`` as ``jnp.round``),
     clip to ±127. models/quant.py quantizes weights and activations the same
     way; the int8 KV cache's writes and its queries and probabilities use
-    this one."""
+    this one. ``group`` (a ``parallel/comm.Group``): ``x`` is this rank's
+    piece of rows whose ``axis`` the group's ranks cut; the amax is the
+    whole row's (a max all-reduce over the group), so each piece is
+    quantized exactly as the whole row would be."""
     xf = x.float()
     amax = torch.amax(xf.abs(), dim=axis, keepdim=True)
+    if group is not None:
+        group.all_reduce(amax, op="max")
     s = torch.clamp_min(amax, 1e-30) / 127.0
     return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
 

@@ -4,7 +4,7 @@ process groups: what GSPMD inserts for the JAX package (its
 Ulysses run ``ppermute`` and ``all_to_all`` inside ``shard_map``).
 
 A :class:`Group` is one rank's view of one axis subgroup (the mesh's dp,
-pp, tp or sp ranks, or all of them): all-reduce (sum), all-gather along a
+pp, tp or sp ranks, or all of them): all-reduce (sum or max), all-gather along a
 dimension, broadcast, all-to-all, the ring's pass to the next rank and the
 pipeline's one-way hop (:meth:`Group.shift`). A
 :class:`RankMesh` is the mesh as one rank sees it: the layout
@@ -64,7 +64,8 @@ class _Counter:
 
 
 COLLECTIVES = {name: _Counter(name) for name in
-               ("all_reduce", "all_gather", "broadcast", "all_to_all", "ring_pass", "p2p")}
+               ("all_reduce", "all_reduce_max", "all_gather", "broadcast", "all_to_all",
+                "ring_pass", "p2p")}
 
 
 def collective_counts() -> dict[str, int]:
@@ -146,17 +147,23 @@ class Group:
 
     # ---- collectives -------------------------------------------------------
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the group, in place; returns ``x``. A tensor that
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (``op="sum"``) or take the elementwise max (``op="max"``: an
+        int8 product's activation amax over a contraction axis tp cuts) of
+        ``x`` over the group, in place; returns ``x``. A tensor that
         requires grad is summed into a new one instead (the identity
-        backward: Megatron's g)."""
+        backward: Megatron's g). The max counts as ``all_reduce_max``."""
         if self.alone:
             return x
-        if x.requires_grad and torch.is_grad_enabled():
+        if op not in ("sum", "max"):
+            raise ValueError(f"all_reduce op {op!r} (sum or max)")
+        if op == "sum" and x.requires_grad and torch.is_grad_enabled():
             return _SumOut.apply(x, self)
-        launches.count(COLLECTIVES["all_reduce"])
+        launches.count(COLLECTIVES["all_reduce" if op == "sum" else "all_reduce_max"])
         h = self._stage(x, reduce=True)
-        self.pg.allreduce([h]).wait()
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+        self.pg.allreduce([h], opts).wait()
         if h is not x:
             x.copy_(h)
         return x

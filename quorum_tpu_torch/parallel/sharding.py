@@ -109,6 +109,19 @@ def kv_cache_spec(n_kv_heads: int, tp: int, dp: int = 1,
     return logical_to_spec(tuple(axes))
 
 
+def int8_kv_cache_specs(n_kv_heads: int, tp: int, dp: int = 1, batch: int | None = None,
+                        members: int = 1) -> tuple[tuple, tuple]:
+    """The specs of an int8 cache side's ``(values, scales)`` as the JAX
+    engine shards them: the values as :func:`kv_cache_spec`, the scales the
+    same without the head_dim axis; a member-stacked cache (``members`` >
+    1, the JAX layout ``[M, L, S, …]``) prepends a replicated member axis.
+    Each port rank's cache is its cut of both (its kv heads, its dp
+    group's slots), rows of every member flat (``m·S + s``)."""
+    values = kv_cache_spec(n_kv_heads, tp, dp, batch)
+    lead = (None,) if members > 1 else ()
+    return lead + values, lead + values[:4]
+
+
 def paged_kv_spec(n_kv_heads: int, tp: int) -> tuple[str | None, ...]:
     """The page pool's spec ``[layers, pages, kv_heads, page_size,
     head_dim]`` as the JAX package's ``paged_kv_sharding`` gives it: the

@@ -13,7 +13,9 @@ gpt2-tiny in float32, the JAX package's weights:
   all-reduce (random biases: added on both ranks the tokens differ);
 - the refused compositions are named (MoE specs and tp sizes that do not
   divide the heads serve now: ``tests/test_torch_mesh_moe.py``,
-  ``tests/test_torch_tp_fit.py``); ``cuda://llama-tiny?tp=2&device=cpu``
+  ``tests/test_torch_tp_fit.py``; int8, members, ensembles and grammars on
+  dp and tp: ``tests/test_torch_mesh_quant.py``,
+  ``tests/test_torch_mesh_members.py``); ``cuda://llama-tiny?tp=2&device=cpu``
   answers through the app; a killed worker ends its stream with an error
   and every later request is a 503, not a hang; no process is left after
   shutdown; a spawned rank imports neither jax nor quorum_tpu.
@@ -183,18 +185,36 @@ def test_gpt2_biases_are_added_once():
     assert got == want
 
 
-@pytest.mark.parametrize("knobs,match", [
-    (dict(quant="int8"), "quant: not yet on a multi-rank engine"),
-    (dict(kv_quant="int8"), "kv_quant: not yet on a multi-rank engine"),
-    (dict(members=2), "members: not yet on a multi-rank engine"),
-    (dict(spec_decode=4), "speculative decoding: not yet on a multi-rank engine"),
-    (dict(kv_pages=True), "kv_pages: not yet on a multi-rank engine"),
-    (dict(zero_drain=True), "zero_drain: not yet on a multi-rank engine"),
-    (dict(prefix_store="host"), "prefix_store: not yet on a multi-rank engine"),
+@pytest.mark.parametrize("axes,knobs,match", [
+    (dict(sp=2), dict(quant="int8"), "quant: not yet on a multi-rank engine with sp>1"),
+    (dict(pp=2), dict(kv_quant="int8"), "kv_quant: not yet on a multi-rank engine with pp>1"),
+    (dict(sp=2), "response_format", "constrained decoding requires chunked prefill .*"
+                                    "unavailable with sp>1 or prefill_chunk=0"),
+    (dict(tp=2), dict(spec_decode=4), "speculative decoding: not yet on a multi-rank engine"),
+    (dict(tp=2), dict(kv_pages=True), "kv_pages: not yet on a multi-rank engine"),
+    (dict(tp=2), dict(zero_drain=True), "zero_drain: not yet on a multi-rank engine"),
+    (dict(tp=2), dict(prefix_store="host"), "prefix_store: not yet on a multi-rank engine"),
 ])
-def test_refused_compositions_are_named(knobs, match):
-    with pytest.raises(ValueError, match=match):
-        InferenceEngine(resolve_spec("llama-tiny", OPTS), mesh=_mesh(tp=2), **knobs)
+def test_refused_compositions_are_named(axes, knobs, match):
+    """int8 on sp and pp meshes is refused by name (dp and tp serve it); a
+    grammar on an sp engine, whose admissions are single-shot, in the JAX
+    engine's words."""
+    spec = resolve_spec("llama-tiny", OPTS)
+    if knobs != "response_format":
+        with pytest.raises(ValueError, match=match):
+            InferenceEngine(spec, mesh=_mesh(**axes), **knobs)
+        return
+    from quorum_tpu_torch.constrain import compile_response_format
+    from quorum_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(spec.vocab_size)
+    g = compile_response_format({"type": "json_object"}, tok, spec.vocab_size)
+    eng = InferenceEngine(spec, mesh=_mesh(**axes), n_slots=1)
+    try:
+        with pytest.raises(ValueError, match=match):
+            eng.submit([1, 2, 3], max_new_tokens=4, eos_id=tok.eos_id, grammar=g)
+    finally:
+        eng.shutdown()
 
 
 @pytest.mark.parametrize("model,axes,impl,knobs,match", [
