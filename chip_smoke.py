@@ -7391,7 +7391,11 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     card, then across two; 2+2 with tp=2 on four); (r) and (s):
     ``_mesh_int8_members`` (int8 weights and KV, members, an ensemble and a
     grammar on tp=2 sharing the card) and ``_mesh_int8_cards`` (int8
-    members on dp=2 × tp=2 and on disagg=2+2 with tp=2 over NCCL on four).
+    members on dp=2 × tp=2 and on disagg=2+2 with tp=2 over NCCL on four);
+    (t) and (u): ``_mesh_memory_knobs`` (kv_pages, prefix_store and
+    zero_drain on tp=2 and dp=2 × tp=2 sharing the card) and
+    ``_mesh_memory_cards`` (the three at once on dp=2 × tp=2, then kv_pages
+    and prefix_store on disagg=2+2 with tp=2, over NCCL on four).
     K1, K2 and K2q8 launches are counted on every rank (workers report
     theirs), and K1 and K2 by group on the disaggregated engines."""
     from quorum_tpu_torch.backends.cuda_backend import CudaBackend
@@ -7468,9 +7472,9 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     _require_card_empty(torch, cpu, "mesh (a)")
 
     leg_s = {}
-    # One card: (a)–(g), (i)–(k), (m), (n) and (r); --mesh-cards-only runs
-    # the legs over cards of their own alone ((h), (l), (o), (p), (q), (s)), against
-    # the same reference.
+    # One card: (a)–(g), (i)–(k), (m), (n), (r) and (t); --mesh-cards-only
+    # runs the legs over cards of their own alone ((h), (l), (o), (p), (q),
+    # (s), (u)), against the same reference.
     if not cards_only:
         # (a) A one-rank NCCL mesh (gloo on the CPU rehearsal).
         zero()
@@ -7725,6 +7729,12 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
         out["r_int8_members_gloo"] = _mesh_int8_members(torch, cpu, tiny, model, two, app_for,
                                                         zero, add)
         leg_s["r"] = time.perf_counter() - t0
+        # (t) paged KV, the host prefix store and zero-drain staging on tp=2
+        # and dp=2 × tp=2 (ranks sharing the card over gloo).
+        t0 = time.perf_counter()
+        out["t_memory_knobs_gloo"] = _mesh_memory_knobs(torch, cpu, tiny, model, two, zero,
+                                                        add)
+        leg_s["t"] = time.perf_counter() - t0
     if n_cards >= 2:
         t0 = time.perf_counter()
         out["o_disagg_cards"] = _mesh_disagg_cards(torch, cpu, model, zero, add)
@@ -7747,10 +7757,13 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
         t0 = time.perf_counter()
         out["s_int8_members_cards"] = _mesh_int8_cards(torch, cpu, model, card, zero, add)
         leg_s["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["u_memory_knobs_cards"] = _mesh_memory_cards(torch, cpu, model, card, zero, add)
+        leg_s["u"] = time.perf_counter() - t0
     else:
-        print(f"mesh: legs (p), (q) and (s), pp=4 training, disagg=2+2 with tp=2 and int8 "
-              f"members on dp=2 × tp=2 over NCCL at 32 layers, need four cards; this machine "
-              f"has {n_cards}", flush=True)
+        print(f"mesh: legs (p), (q), (s) and (u), pp=4 training, disagg=2+2 with tp=2, int8 "
+              f"members and the memory knobs on dp=2 × tp=2 over NCCL at 32 layers, need four "
+              f"cards; this machine has {n_cards}", flush=True)
     out["disagg_launches_by_group"] = by_group
     out["new_leg_s"] = {k: round(v, 3) for k, v in leg_s.items()}
     emit("mesh", new_leg_s=out["new_leg_s"])
@@ -7902,8 +7915,10 @@ TRAIN_DP_LOSS_REL = 2.0 ** -8
 
 def _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add) -> dict:
     """Leg (g): dp=2 training, two ranks sharing the card over gloo, at the
-    model's widths and 4 layers: 3 steps on 2 × 2048 tokens (one row a
-    rank) against the one-rank step on the same 2-row batch (losses within
+    model's widths and 1 layer (the gradient all-reduce over gloo, most of
+    it the embedding's and the head's, is most of the leg): 2 steps on 2 ×
+    2048 tokens (one row a rank) against the one-rank step on the same
+    2-row batch (losses within
     ``TRAIN_DP_LOSS_REL``); the dp state saved, restored onto one rank with
     every leaf equal (``tree_digest``), and one greedy chat served from it
     through the app (K1 and K2 launch)."""
@@ -7918,8 +7933,9 @@ def _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add) -> dict:
     from quorum_tpu_torch.training import checkpoint, trainer
 
     spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16"} if tiny
-                         else {"n_layers": "4"})
+                         else {"n_layers": "1"})
     n_tokens = 64 if tiny else TRAIN_TOKENS
+    steps = 2  # each a gloo all-reduce of ≈ 5 GB of f32 gradients
     dev = "cpu" if cpu else "cuda:0"
     tokens = np.random.default_rng(7).integers(1, spec.vocab_size, (2, n_tokens))
     # One rank on the whole batch.
@@ -7928,7 +7944,7 @@ def _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add) -> dict:
     state = trainer.train_init(spec, device=dev, seed=0, optimizer=opt)
     step = trainer.make_train_step(spec, device=dev, optimizer=opt)
     want = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, loss = step(state, tokens)
         want.append(float(loss))
     one_s = time.perf_counter() - t0
@@ -7947,7 +7963,7 @@ def _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add) -> dict:
             start_s = time.perf_counter() - t0
             runs = grp.run("quorum_tpu_torch.training.trainer:train_steps",
                            [(spec, tokens)] * 2,
-                           [dict(seed=0, steps=TRAIN_STEPS, save=path, digest=True)] * 2)
+                           [dict(seed=0, steps=steps, save=path, digest=True)] * 2)
         finally:
             grp.stop()
         dp_s = time.perf_counter() - t0
@@ -7964,7 +7980,7 @@ def _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add) -> dict:
         t0 = time.perf_counter()
         restored = checkpoint.restore_checkpoint(path, spec, device=dev, optimizer=opt)
         restore_s = time.perf_counter() - t0
-        require(int(restored.step) == TRAIN_STEPS, f"mesh (g): restored step {restored.step}")
+        require(int(restored.step) == steps, f"mesh (g): restored step {restored.step}")
         require({"params": checkpoint.tree_digest(restored.params),
                  "opt_state": checkpoint.tree_digest(restored.opt_state)} == runs[0]["digest"],
                 "mesh (g): the restored leaves differ from the dp=2 state's")
@@ -7992,7 +8008,7 @@ def _mesh_dp2_train(torch, cpu, tiny, model, two, app_for, zero, add) -> dict:
         saved = runs[0]["saved_bytes"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    out = {"layers": spec.n_layers, "tokens_per_rank_step": n_tokens, "steps": TRAIN_STEPS,
+    out = {"layers": spec.n_layers, "tokens_per_rank_step": n_tokens, "steps": steps,
            "losses_dp2": got, "losses_one_rank": want, "loss_rel_diff": rel,
            "one_rank_s": round(one_s, 3), "group_start_s": round(start_s, 3),
            "dp2_s": round(dp_s, 3),
@@ -9032,6 +9048,434 @@ def _mesh_int8_cards(torch, cpu, model, card: str, zero, add, cards=None) -> dic
     return out
 
 
+def _memory_launches(fns, reports, since) -> dict:
+    """K1, K2 and K2q8 launches by rank since ``since`` (rank 0's counters;
+    the workers' from their reports, every one of them new with the
+    engine)."""
+    return {name: [fn.launches - since[name]] + [r["launches"][name] for r in reports]
+            for name, fn in fns.items()}
+
+
+def _no_page_leak(what: str, eng) -> dict:
+    """At rest: no live chain, and every allocated page held by a retained
+    chain (a slot group's reuse donor)."""
+    _quiet(eng)
+    a = eng._page_alloc
+    held = {p for chain in a.retained.values() for p in chain}
+    require(not a.chains and a.allocated_pages == len(held)
+            and a.allocated_pages + a.free_pages == eng.kv_pool_pages,
+            f"{what}: pages leaked (allocated {a.allocated_pages}, free {a.free_pages}, "
+            f"retained {len(held)}, live chains {len(a.chains)})")
+    return {"kv_pages_allocated": a.allocated_pages, "kv_pages_free": a.free_pages,
+            "kv_pool_pages": eng.kv_pool_pages}
+
+
+def _churn(eng, first, conv, other, n: int) -> tuple[list, list[int]]:
+    """``first`` fills slot 0, ``conv`` lands in slot 1 (dp group 1 on a
+    2-slot dp=2 engine) and ``other`` takes slot 1 from it (the shorter
+    resident loses a tie of no reuse); then ``conv``'s follow-up, which a
+    store engine restores. Every stream with its top-20 log-probabilities,
+    and the follow-up."""
+    out = []
+    for p in (first, conv, other):
+        out.append(_lp_stream(eng, p, n))
+        if eng.prefix_store is not None:
+            eng.drain_prefix_store()
+    follow = conv + out[1][0] + [17, 19]
+    out.append(_lp_stream(eng, follow, n))
+    return out, follow
+
+
+def _build_concurrently(makers: list) -> list:
+    """Each engine ``makers`` builds, built at once on a thread of its own:
+    a mesh engine's worker processes then start beside the others' rather
+    than after them. On a failure every engine built is shut down and the
+    first error raised."""
+    import threading
+
+    built, errors = [None] * len(makers), []
+
+    def build(i):
+        try:
+            built[i] = makers[i]()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(i,), daemon=True)
+               for i in range(len(makers))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        for eng in built:
+            if eng is not None:
+                eng.shutdown()
+        raise errors[0]
+    return built
+
+
+def _mesh_memory_knobs(torch, cpu, tiny, model, two, zero, add) -> dict:
+    """Leg (t), one card: paged KV, the host prefix store and zero-drain
+    staging on meshes whose ranks share the card over gloo, at llama-3-8b
+    widths, 4 layers, bf16. (1) ``tp=2&kv_pages=1`` and (2)
+    ``tp=2&zero_drain=1``, 4 slots, against the same mesh's dense,
+    drain-based engine: greedy streams equal token for token (prompts past
+    one 512-token segment: every engine admits them chunked), a staged
+    register beside a live stream counted in ``admission_overlap_total``;
+    (3) ``dp=2&tp=2&kv_pages=1&prefix_store=host``, 2 slots: a conversation
+    churned out of its slot (in dp group 1) and followed up restores and
+    equals the dense mesh engine's cold prefill; then a prefix exported
+    from it imports into a one-card engine and restores there, held against
+    that engine's cold stream. Every mesh stream is also held against the
+    one-card engine (``_hold_lp``: equal, or parted at a near-tie). K2 is
+    launched on each rank once per layer per decode step; no page leaks."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+    from quorum_tpu_torch.parallel import MeshConfig, make_mesh
+
+    dev = "cpu" if cpu else "cuda:0"
+    spec = resolve_spec(model, {**({"head_dim": "64", "dtype": "bfloat16"} if tiny else {}),
+                                "n_layers": "4"})
+    chunk = 16 if tiny else 512
+    sizes = (20, 40, 30, 50, 9) if tiny else (600, 1100, 700, 1300, 57)
+    n_tok = 8
+    gen = random.Random(31)
+    p0, p1, conv, first, short = ([gen.randrange(spec.vocab_size) for _ in range(k)]
+                                  for k in sizes)
+    other = [gen.randrange(spec.vocab_size) for _ in range(len(conv))]
+    conv2 = [gen.randrange(spec.vocab_size) for _ in range(len(conv))]
+    fns = {"flash_prefill": flash_prefill_attention, "flash_decode": flash_decode_attention,
+           "flash_decode_q8": flash_decode_q8_attention}
+    base = dict(decode_chunk=8, seed=0, prefill_chunk=chunk)
+
+    def mesh(**axes):
+        cfg = MeshConfig(**axes)
+        return make_mesh(cfg, two[:1] * cfg.n_devices, backend="gloo",
+                         timeout_s=MESH_GROUP_TIMEOUT_S)
+
+    def checked(what, eng, since):
+        m = eng.metrics()
+        reports = eng.rank_reports()
+        counts = _memory_launches(fns, reports, since)
+        steps, shots = _k2_steps(m), m["admission_dispatches_total"]
+        require(cpu or (counts["flash_decode"] == [spec.n_layers * steps] * eng.mesh.size
+                        and steps > 0),
+                f"mesh (t) {what}: K2 launches by rank {counts['flash_decode']} for {steps} "
+                f"decode steps")
+        require(cpu or eng.mesh.shape["dp"] > 1
+                or counts["flash_prefill"] == [spec.n_layers * shots] * eng.mesh.size,
+                f"mesh (t) {what}: K1 launches by rank {counts['flash_prefill']} for {shots} "
+                f"single-shot admissions")
+        add(reports)
+        return m, reports, counts, steps
+
+    out = {"layers": spec.n_layers, "prefill_chunk": chunk}
+    t0 = time.perf_counter()
+    one, dense, *knobbed = _build_concurrently([
+        lambda: InferenceEngine(spec, device=dev, n_slots=4, **base),
+        lambda: InferenceEngine(spec, mesh=mesh(tp=2), n_slots=4, **base),
+        lambda: InferenceEngine(spec, mesh=mesh(tp=2), n_slots=4, kv_pages=True, **base),
+        lambda: InferenceEngine(spec, mesh=mesh(tp=2), n_slots=4, zero_drain=True, **base)])
+    out["tp2_build_s"] = round(time.perf_counter() - t0, 3)
+    # The short prompt admits single-shot (K1 at a rank's heads, its K/V
+    # written through the pages); zero-drain stages every admission, so it
+    # streams the chunked ones only.
+    ref = [_lp_stream(one, p, n_tok) for p in (short, p0, p1)]
+
+    # (1), (2): tp=2 with kv_pages, then zero_drain, against tp=2 dense.
+    t0 = time.perf_counter()
+    want = [_lp_stream(dense, p, n_tok) for p in (short, p0, p1)]
+    with dense._cond:  # a live stream, then a three-segment admission beside it
+        live_reqs = [dense.submit(p0, max_new_tokens=48), dense.submit(p1, max_new_tokens=8)]
+    want_live = [list(dense.stream_results(r)) for r in live_reqs]
+    out["tp2_dense_s"] = round(time.perf_counter() - t0, 3)
+    dense.shutdown()
+    del dense
+    for part, eng, first_prompt in (("tp2_kv_pages", knobbed[0], 0),
+                                    ("tp2_zero_drain", knobbed[1], 1)):
+        zero()
+        since = {name: fn.launches for name, fn in fns.items()}
+        t0 = time.perf_counter()
+        got = [_lp_stream(eng, p, n_tok) for p in (short, p0, p1)[first_prompt:]]
+        require([g[0] for g in got] == [w[0] for w in want[first_prompt:]],
+                 f"mesh (t) {part}: greedy streams differ from the dense drain-based tp=2 "
+                 f"engine's")
+        with eng._cond:
+            reqs = [eng.submit(p0, max_new_tokens=48), eng.submit(p1, max_new_tokens=8)]
+        got_live = [list(eng.stream_results(r)) for r in reqs]
+        require(got_live == want_live, f"mesh (t) {part}: the live pair's streams differ")
+        held = [_hold_lp(f"mesh (t) {part} stream {i}", r, g)
+                for i, (r, g) in enumerate(zip(ref[first_prompt:], got))]
+        m, reports, counts, steps = checked(part, eng, since)
+        row = {"streams_s": round(time.perf_counter() - t0, 3), "greedy_equal": True,
+               "single_shot_admissions": m["admission_dispatches_total"],
+               "held_one_card": held, "decode_steps": steps, "launches_by_rank": counts,
+               "cache_bytes_per_rank": [r["cache_bytes"] for r in reports],
+               "pool_bytes_per_rank": [r["pool_bytes"] for r in reports],
+               "staging_bytes_per_rank": [r["staging_bytes"] for r in reports]}
+        if eng.kv_pages:
+            row.update(_no_page_leak(f"mesh (t) {part}", eng))
+        else:
+            require(m["admission_overlap_total"] > 0 and m["admission_dispatches_total"] == 0,
+                    f"mesh (t) {part}: overlap {m['admission_overlap_total']}, single-shot "
+                    f"{m['admission_dispatches_total']}")
+            row.update(admission_overlap=m["admission_overlap_total"],
+                       admission_stall_s=m["admission_stall_seconds_total"])
+        out[part] = row
+        emit("mesh", leg=f"t_{part}", **row)
+        eng.shutdown()
+    del knobbed, eng
+
+    # (3) dp=2 × tp=2 with kv_pages and the store: the churn restore; the
+    # one-card engine the exported prefix imports into.
+    t0 = time.perf_counter()
+    dense, eng, imp = _build_concurrently([
+        lambda: InferenceEngine(spec, mesh=mesh(dp=2, tp=2), n_slots=2, **base),
+        lambda: InferenceEngine(spec, mesh=mesh(dp=2, tp=2), n_slots=2, kv_pages=True,
+                                prefix_store="host", **base),
+        lambda: InferenceEngine(spec, device=dev, n_slots=4, prefix_store="host", **base)])
+    out["dp2_tp2_build_s"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
+    want, follow = _churn(dense, first, conv, other, n_tok)
+    dense_s = time.perf_counter() - t0
+    dense.shutdown()
+    del dense
+    zero()
+    since = {name: fn.launches for name, fn in fns.items()}
+    t0 = time.perf_counter()
+    restored = []
+    into = eng._restore_into
+    eng._restore_into = lambda req, slot, *a, **k: (restored.append(slot), into(req, slot, *a,
+                                                                                 **k))[1]
+    got, _ = _churn(eng, first, conv, other, n_tok)
+    del eng._restore_into
+    require([g[0] for g in got] == [w[0] for w in want],
+            "mesh (t) dp2_tp2: the store engine's streams differ from the dense mesh's")
+    require(restored == [1], f"mesh (t) dp2_tp2: restores into slots {restored}, not dp group "
+                             f"1's slot 1")
+    # A prefix exported from the mesh, to import into a one-card engine.
+    out_conv2 = _lp_stream(eng, conv2, n_tok)
+    eng.drain_prefix_store()
+    blob = eng.export_prefix_chunks()
+    m, reports, counts, steps = checked("dp2_tp2", eng, since)
+    require(m["prefix_store_hits_total"] >= 1, "mesh (t) dp2_tp2: no store hit")
+    ref_churn = [_lp_stream(one, p, n_tok) for p in (first, conv, other)] + [
+        _lp_stream(one, follow, n_tok)]
+    held = [_hold_lp(f"mesh (t) dp2_tp2 stream {i}", r, g)
+            for i, (r, g) in enumerate(zip(ref_churn, got))]
+    row = {"dense_streams_s": round(dense_s, 3),
+           "streams_s": round(time.perf_counter() - t0, 3),
+           "greedy_equal": True, "restored_slots": restored, "held_one_card": held,
+           "prefix_store_hits": m["prefix_store_hits_total"],
+           "restored_tokens": m["prefix_store_restored_tokens_total"],
+           "restore_s": m["prefix_store_restore_seconds_total"],
+           "restore_bytes": m["prefix_store_restore_bytes_total"],
+           "snapshot_bytes": m["prefix_store_snapshot_bytes_total"],
+           "decode_steps": steps, "launches_by_rank": counts,
+           **_no_page_leak("mesh (t) dp2_tp2", eng),
+           "pool_bytes_per_rank": [r["pool_bytes"] for r in reports]}
+    eng.shutdown()
+    del eng
+    follow2 = conv2 + out_conv2[0] + [17, 19]
+    cold = _lp_stream(one, follow2, n_tok)
+    one.shutdown()
+    del one
+    got_imp = imp.import_prefix_chunks(blob)
+    restored_imp = _lp_stream(imp, follow2, n_tok)
+    require(got_imp["chains_imported"] >= 1 and imp.prefix_store_hits == 1,
+            f"mesh (t): the imported prefix did not restore ({got_imp}, "
+            f"hits {imp.prefix_store_hits})")
+    row["export_import"] = {"blob_bytes": len(blob), **got_imp,
+                            "held_cold": _hold_lp("mesh (t) imported prefix", cold, restored_imp)}
+    imp.shutdown()
+    del imp
+    _require_card_empty(torch, cpu, "mesh (t)")
+    out["dp2_tp2_kv_pages_store"] = row
+    emit("mesh", leg="t_dp2_tp2", **row)
+    return out
+
+
+def _mesh_memory_cards(torch, cpu, model, card: str, zero, add, cards=None) -> dict:
+    """Leg (u), four cards, NCCL at llama-3-8b's 32 layers, bf16. (1)
+    ``tp=2&dp=2&kv_pages=1&prefix_store=host&zero_drain=1`` (4 slots)
+    against the same mesh's engine without the three knobs, both alive:
+    four greedy streams equal token for token (every prompt past one
+    512-token segment); a 2 100-token conversation churned out of its slot
+    by four others, then followed up, restores (2 048 tokens) and equals
+    the dense engine's cold prefill; a live stream's longest gap beside a
+    6 000-token admission on each engine, twice (the paged engine's first
+    reaches a new history bucket, whose graphs are captured then); device
+    ms per 8-step dispatch
+    over all 4 rows, paged against dense; restore seconds and GB/s,
+    snapshot bytes, each rank's pool, staging and peak bytes; K2 on each
+    rank once per layer per decode and warm-up step. (2)
+    ``disagg=2+2&tp=2&kv_pages=1&prefix_store=host`` (1 slot): the same
+    churn restore (into the prefill group's staging rows) equals the
+    colocated tp=2 engine's stream."""
+    from quorum_tpu_torch.cache.kv_transfer import kv_bytes
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
+    from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.parallel import MeshConfig, make_mesh
+    from quorum_tpu_torch.parallel.mesh import disagg_meshes
+
+    cards = cards or [f"cuda:{i}" for i in range(4)]
+    spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16"} if cpu else {})
+    gen = random.Random(37)
+    chunk = 16 if cpu else 512
+    sizes = (20, 40, 24, 30) if cpu else (600, 1100, 700, 900)
+    n_conv, n_long, n_live = (50, 90, 20) if cpu else (2100, 6000, 300)
+    n = 32
+    greedy = SamplerConfig(temperature=0.0)
+    prompts = [[gen.randrange(spec.vocab_size) for _ in range(k)] for k in sizes]
+    conv = [gen.randrange(spec.vocab_size) for _ in range(n_conv)]
+    churners = [[gen.randrange(spec.vocab_size) for _ in range(k)] for k in sizes]
+    long_prompts = [[gen.randrange(spec.vocab_size) for _ in range(n_long)] for _ in range(2)]
+    live_prompt = [gen.randrange(spec.vocab_size) for _ in range(n_live)]
+    fns = {"flash_prefill": flash_prefill_attention, "flash_decode": flash_decode_attention,
+           "flash_decode_q8": flash_decode_q8_attention}
+    base = dict(decode_chunk=8, seed=0, prefill_chunk=chunk)
+    out = {"layers": spec.n_layers, "measured_on": card}
+
+    def mesh(cfg, devs):
+        return make_mesh(cfg, devs, timeout_s=MESH_GROUP_TIMEOUT_S)
+
+    def run(eng):
+        streams, _ = _greedy_streams(eng, [(p, 0) for p in prompts], n)
+        c, _ = _greedy_streams(eng, [(conv, 0)], n)
+        eng.drain_prefix_store()
+        _greedy_streams(eng, [(p, 0) for p in churners], n)  # every slot taken
+        eng.drain_prefix_store()
+        follow = conv + c[0] + [17, 19]
+        f, _ = _greedy_streams(eng, [(follow, 0)], n)
+        return streams, c, f
+
+    zero()
+    since = {name: fn.launches for name, fn in fns.items()}
+    t0 = time.perf_counter()
+    dense = InferenceEngine(spec, mesh=mesh(MeshConfig(tp=2, dp=2), cards), n_slots=4, **base)
+    dense_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = InferenceEngine(spec, mesh=mesh(MeshConfig(tp=2, dp=2), cards), n_slots=4,
+                          kv_pages=True, prefix_store="host", zero_drain=True, **base)
+    build_s = time.perf_counter() - t0
+    require(cpu or (eng.mesh.backend == "nccl" and eng.health()["mesh"]["decode"] == "graphs"),
+            "mesh (u): not NCCL with graphs")
+    want = run(dense)
+    eng.rank_reports(reset_peak=True)
+    got = run(eng)
+    require(got[0] == want[0] and got[1] == want[1],
+            f"mesh (u): the knob engine's streams differ from the dense drain-based mesh's")
+    require(got[2] == want[2], "mesh (u): the restored follow-up differs from the dense "
+                               "engine's cold prefill")
+    m = eng.metrics()
+    require(m["prefix_store_hits_total"] >= 1 and m["prefix_store_restored_tokens_total"] > 0,
+            f"mesh (u): no restore ({m['prefix_store_hits_total']} hits)")
+    restore = {"hits": m["prefix_store_hits_total"],
+               "tokens": m["prefix_store_restored_tokens_total"],
+               "seconds": m["prefix_store_restore_seconds_total"],
+               "bytes": m["prefix_store_restore_bytes_total"]}
+    restore["gb_per_s"] = (restore["bytes"] / restore["seconds"] / 1e9
+                           if restore["seconds"] else None)
+    # Twice on each engine, each time a prompt neither has seen (no
+    # restore, no reuse): the paged engine's first long admission reaches
+    # the 8 192-position history bucket, whose decode graph every rank
+    # captures then; the second finds it captured.
+    gaps = {"note": "not measured: CPU rehearsal (the live stream outgrows max_seq)"}
+    if not cpu:
+        gaps = {name: [_public(_long_beside_live(e, live_prompt, lp, greedy))
+                       for lp in long_prompts]
+                for name, e in (("zero_drain", eng), ("drain_based", dense))}
+        require(all(g["admission_overlap"] >= 1 for g in gaps["zero_drain"]),
+                "mesh (u): a 6 000-token admission did not register beside the live stream")
+    disp = {}
+    for name, e in (("paged", eng), ("dense", dense)):
+        disp[name] = _paged_dispatch_ms(torch, cpu, e, prompts, 2 * n, greedy, "any")
+    m = eng.metrics()
+    reports = eng.rank_reports()
+    counts = _memory_launches(fns, reports, since)
+    steps, steps_dense = _k2_steps(m), _k2_steps(dense.metrics())
+    require(cpu or all(k == spec.n_layers * steps for k in counts["flash_decode"][1:]),
+            f"mesh (u): K2 launches by worker {counts['flash_decode'][1:]} for {steps} decode "
+            f"and warm-up steps")
+    require(cpu or counts["flash_decode"][0] == spec.n_layers * (steps + steps_dense),
+            f"mesh (u): rank 0's K2 launches {counts['flash_decode'][0]} for {steps} + "
+            f"{steps_dense} steps of its two engines")
+    out["dp2_tp2"] = {
+        "dense_build_s": round(dense_s, 3), "build_s": round(build_s, 3),
+        "greedy_equal": True, "follow_equal_cold": True, "restore": restore,
+        "snapshot_bytes": m["prefix_store_snapshot_bytes_total"],
+        "gap_beside_long": gaps, "dispatch_ms_8_steps": disp,
+        "decode_steps": steps, "k2_launches_by_rank": counts["flash_decode"],
+        **_no_page_leak("mesh (u)", eng),
+        "pool_bytes_per_rank": [kv_bytes(eng._ck, eng._cv)] + [r["pool_bytes"]
+                                                                for r in reports],
+        "staging_bytes_per_rank": [kv_bytes(eng._sck, eng._scv)] + [r["staging_bytes"]
+                                                                    for r in reports],
+        "peak_bytes_per_rank": [None if cpu else torch.cuda.max_memory_allocated(cards[0])]
+        + [r["peak_bytes"] for r in reports]}
+    add(reports + dense.rank_reports())
+    eng.shutdown()
+    dense.shutdown()
+    del eng, dense
+    _require_card_empty(torch, cpu, "mesh (u) dp2 tp2")
+    emit("mesh", leg="u_dp2_tp2", **out["dp2_tp2"])
+
+    # (2) disagg=2+2 with tp=2: kv_pages on the decode group, the store
+    # restoring into the prefill group's staging, against colocated tp=2.
+    one = dict(base, n_slots=1)
+
+    def churn_one(e):
+        c, _ = _greedy_streams(e, [(conv, 0)], n)
+        if e.prefix_store is not None:
+            e.drain_prefix_store()
+        _greedy_streams(e, [(churners[0], 0)], n)
+        if e.prefix_store is not None:
+            e.drain_prefix_store()
+        f, _ = _greedy_streams(e, [(conv + c[0] + [17, 19], 0)], n)
+        return c, f
+
+    t0 = time.perf_counter()
+    col = InferenceEngine(spec, mesh=mesh(MeshConfig(tp=2), cards[:2]), **one)
+    want = churn_one(col)
+    col_s = time.perf_counter() - t0
+    col.shutdown()
+    del col
+    _require_card_empty(torch, cpu, "mesh (u) colocated")
+    t0 = time.perf_counter()
+    pm, dm = disagg_meshes(2, 2, cards, tp=2)
+    eng = InferenceEngine(spec, mesh=dm, prefill_mesh=pm, kv_pages=True, prefix_store="host",
+                          **one)
+    got = churn_one(eng)
+    m = eng.metrics()
+    require(got == want, "mesh (u): disagg=2+2 tp=2's churn restore differs from the "
+                         "colocated tp=2 engine's")
+    require(m["prefix_store_hits_total"] >= 1 and m["kv_handoffs_total"] > 0,
+            f"mesh (u): disagg hits {m['prefix_store_hits_total']}, handoffs "
+            f"{m['kv_handoffs_total']}")
+    reports, preports = eng.rank_reports(), eng.prefill_rank_reports()
+    out["disagg_2p2_tp2"] = {
+        "colocated_s": round(col_s, 3), "build_and_streams_s": round(time.perf_counter() - t0, 3),
+        "greedy_equal": True, "prefix_store_hits": m["prefix_store_hits_total"],
+        "restore_s": m["prefix_store_restore_seconds_total"],
+        "restore_bytes": m["prefix_store_restore_bytes_total"],
+        "kv_handoffs": m["kv_handoffs_total"], "route": eng.health()["disagg"]["route"],
+        **_no_page_leak("mesh (u) disagg", eng)}
+    add(reports + preports)
+    eng.shutdown()
+    del eng
+    _require_card_empty(torch, cpu, "mesh (u) disagg")
+    emit("mesh", leg="u_disagg", **out["disagg_2p2_tp2"])
+    return out
+
+
 def total_model_bytes(spec) -> int:
     """The whole model's weight bytes (``init_params`` on the meta device)."""
     from quorum_tpu_torch.models.init import init_params
@@ -9106,7 +9550,7 @@ def main(argv=None) -> int:
                          "a second round of the serve requests with torch.profiler")
     ap.add_argument("--mesh-cards-only", action="store_true",
                     help="the mesh phase's legs over cards of their own alone "
-                         "(h, l, o, p, q, s)")
+                         "(h, l, o, p, q, s, u)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 

@@ -194,13 +194,22 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    int32 accumulators over tp), kv_quant=int8 (each
                    rank's int8 cache at its kv heads, K2q8),
                    members=/member_seeds=/quorum_dedup=, ensemble= and
-                   response_format (rank 0 keeps the grammar state);
-                   so do disagg=P+D groups cut by tp. Under sp or pp,
-                   quant and kv_quant are refused by name, members,
-                   ensemble and response_format in the JAX engine's
-                   words. Speculation, kv_pages, prefix_store,
-                   zero_drain, embeddings and scoring are refused on it
-                   (not yet on a multi-rank engine)
+                   response_format (rank 0 keeps the grammar state),
+                   kv_pages=1 (each rank's cut of the page pool at its
+                   kv heads, one host allocator on rank 0),
+                   prefix_store=host (the store whole-head on rank 0;
+                   snapshots gathered over the row's group, restores
+                   broadcast to it) and zero_drain=1 (each rank stages
+                   its own heads on a staging stream with process groups
+                   of its own); so do disagg=P+D groups cut by tp
+                   (kv_pages on the decode group, prefix_store restoring
+                   into the prefill group's staging; zero_drain stays
+                   refused beside disagg). Under sp or pp, quant and
+                   kv_quant are refused by name, members, ensemble,
+                   response_format, kv_pages, zero_drain and (sp)
+                   prefix_store in the JAX engine's words, prefix_store
+                   on pp by name. Speculation, embeddings and scoring are
+                   refused on it (not yet on a multi-rank engine)
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet

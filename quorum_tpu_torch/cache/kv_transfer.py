@@ -142,6 +142,113 @@ def select_heads(chunk, mesh, spec):
     return _map_chunk(chunk, lambda x: x.index_select(1, idx))
 
 
+# ---- a multi-rank engine's rows (dp/tp meshes) -------------------------------
+#
+# The host prefix store lives on rank 0 in whole-head chunks. A row's K/V
+# lies on the ranks of the dp group(s) holding it, each rank its own kv
+# heads. Every rank of the mesh calls these at the same point of rank 0's
+# plan order, so their collectives pair up.
+
+
+def holders(mesh, row: int) -> list[int]:
+    """The dp ranks whose caches hold flat row ``row``: the one group whose
+    block of the slots it is, or every group where dp does not divide the
+    slots (``RankMesh.hold_slots``)."""
+    lo, hi, n = mesh.slots
+    if not mesh.splits_slots:
+        return list(range(mesh.dp_size))
+    return [(row % n) // (hi - lo)]
+
+
+def local_row(mesh, row: int) -> int | None:
+    """Flat row ``row`` in this rank's cache (member m's slot s at
+    ``m·(hi − lo) + s − lo``), or None where its dp group does not hold it."""
+    if mesh is None or not mesh.splits_slots:
+        return row
+    lo, hi, n = mesh.slots
+    if not lo <= row % n < hi:
+        return None
+    return (row // n) * (hi - lo) + row % n - lo
+
+
+def kv_bytes(*sides) -> int:
+    """Device bytes of cache sides (dense tensors, int8 ``(q8, scale)``
+    pairs or paged pools with their table, a shared table once; None
+    counts 0)."""
+    seen, n = set(), 0
+    for side in sides:
+        parts = (side.pool, side.table) if kv_is_paged(side) else (side,)
+        for part in parts:
+            for t in (part if isinstance(part, tuple) else (part,)):
+                if t is not None and id(t) not in seen:
+                    seen.add(id(t))
+                    n += t.numel() * t.element_size()
+    return n
+
+
+def _whole_like(cache, spec, n: int):
+    """An empty whole-head wire chunk of ``n`` positions shaped like a
+    chunk of ``cache`` (a receiver's buffers)."""
+    side = cache[0]
+    vals = side.pool if kv_is_paged(side) else side
+    q8 = isinstance(vals, tuple)
+    like = vals[0] if q8 else vals
+    shape = (like.shape[0], spec.n_kv_heads, n, spec.head_dim)
+
+    def one():
+        if q8:
+            return (torch.empty(shape, dtype=torch.int8, device=like.device),
+                    torch.empty(shape[:3], dtype=torch.float32, device=like.device))
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+    return one(), one()
+
+
+def snapshot_rows(cache, row: int, start: int, n: int, mesh, spec):
+    """Positions ``[start, start+n)`` of flat row ``row`` as the whole-head
+    wire chunk on rank 0 (None on the other ranks): the holding group's
+    ranks slice their entries and gather them over its tp
+    (:func:`gather_heads`); a group other than rank 0's then broadcasts the
+    chunk over dp from its first rank. Without a mesh, :func:`slice_rows`."""
+    if mesh is None:
+        return slice_rows(cache, row, start, n)
+    src = holders(mesh, row)[0]
+    chunk = None
+    if mesh.dp_rank == src:
+        chunk = gather_heads(slice_rows(cache, local_row(mesh, row), start, n), mesh, spec)
+    if src != 0 and mesh.tp_rank == 0:
+        if chunk is None:
+            chunk = _whole_like(cache, spec, n)
+        for leaf in chunk_leaves(chunk):
+            mesh.dp.broadcast(leaf, src)
+    return chunk if mesh.rank == 0 else None
+
+
+def restore_rows(cache, chunk, row: int, start: int, n: int, mesh, spec) -> None:
+    """A whole-head wire chunk (rank 0's; None on the other ranks) into
+    positions ``[start, start+n)`` of flat row ``row`` on every rank whose
+    group holds it: broadcast over dp from rank 0 where another group holds
+    it, then over each holding group's tp, each rank writing its own entries
+    (:func:`select_heads`; a paged row through its pages). Without a mesh,
+    :func:`write_rows`."""
+    if mesh is None:
+        write_rows(cache, chunk, row, start)
+        return
+    hold = holders(mesh, row)
+    if hold != [0] and mesh.tp_rank == 0:
+        if chunk is None:
+            chunk = _whole_like(cache, spec, n)
+        for leaf in chunk_leaves(chunk):
+            mesh.dp.broadcast(leaf, 0)
+    if mesh.dp_rank not in hold:
+        return
+    if chunk is None:
+        chunk = _whole_like(cache, spec, n)
+    for leaf in chunk_leaves(chunk):
+        mesh.tp.broadcast(leaf, 0)
+    write_rows(cache, select_heads(chunk, mesh, spec), local_row(mesh, row), start)
+
+
 def transfer(chunk, device, *, route: str = "direct", stream=None, after=None,
              record: bool = True):
     """Move a sliced chunk onto ``device`` (the decode group's) and wait

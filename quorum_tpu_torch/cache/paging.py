@@ -61,6 +61,11 @@ class PagedKV:
     def page_size(self) -> int:
         return (self.pool[0] if self.is_q8 else self.pool).shape[-2]
 
+    @property
+    def n_kv(self) -> int:
+        """The kv heads the pool holds (a tp rank's: its entries)."""
+        return (self.pool[0] if self.is_q8 else self.pool).shape[-3]
+
     def layer(self, l: int) -> "PagedKV":
         """Layer ``l``'s view: the pool's layer slice, the same table."""
         pool = (self.pool[0][l], self.pool[1][l]) if self.is_q8 else self.pool[l]
@@ -92,15 +97,18 @@ def validate_page_config(max_seq: int, page_size: int) -> None:
 
 def init_paged_cache(spec, batch: int, n_pages: int, page_size: int, dtype=None,
                      kv_quant: str | None = None, members: int | None = None,
-                     device=None):
+                     device=None, n_kv_heads: int | None = None):
     """Zero page pools and one sink-pointing table: ``(PagedKV_k,
     PagedKV_v)``, both sides sharing the table ``[members·batch, max_pages]``
-    (member m's rows point at its own sink, page ``m·(n_pages+1)``)."""
+    (member m's rows point at its own sink, page ``m·(n_pages+1)``).
+    ``n_kv_heads``: a tp rank's entries (``parallel/sharding.paged_kv_spec``:
+    every page, the rank's kv heads; ``batch`` its dp group's rows)."""
     validate_page_config(spec.max_seq, page_size)
     m = members or 1
     mp = spec.max_seq // page_size
+    n_kv = spec.n_kv_heads if n_kv_heads is None else n_kv_heads
     # each member's sink and pages, then the trash page
-    shape = (spec.n_layers, m * (n_pages + 1) + 1, spec.n_kv_heads, page_size, spec.head_dim)
+    shape = (spec.n_layers, m * (n_pages + 1) + 1, n_kv, page_size, spec.head_dim)
     dt = getattr(torch, dtype) if isinstance(dtype, str) else (dtype or getattr(torch, spec.dtype))
 
     def side():
@@ -319,6 +327,18 @@ def paged_copy_page(pkv: PagedKV, dst: int, src: int, members: int = 1) -> Paged
         for m in range(members):
             p[:, m * stride + dst].copy_(p[:, m * stride + src])
     return pkv
+
+
+def copy_member_pages(cache, pages, members: int) -> None:
+    """Member 0's ``pages`` into every member's pool copy, on both sides
+    of ``cache`` (a paged ``quorum_dedup`` admission: one prefill through
+    member 0's row gives every member's K/V)."""
+    for side in cache:
+        stride = ((side.pool[0] if side.is_q8 else side.pool).shape[1] - 1) // members
+        for pool in (side.pool if side.is_q8 else (side.pool,)):
+            for p in pages:
+                for m in range(1, members):
+                    pool[:, m * stride + p].copy_(pool[:, p])
 
 
 # ---- host-side bookkeeping ---------------------------------------------------

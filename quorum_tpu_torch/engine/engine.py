@@ -328,8 +328,8 @@ from quorum_tpu_torch import faults, resolve_device
 from quorum_tpu_torch import observability as obs
 from quorum_tpu_torch.breaker import Breaker
 from quorum_tpu_torch.cache import kv_transfer, prefix_wire
-from quorum_tpu_torch.cache.paging import (PageAllocator, init_paged_cache, paged_copy_page,
-                                           validate_page_config)
+from quorum_tpu_torch.cache.paging import (PageAllocator, copy_member_pages, init_paged_cache,
+                                           paged_copy_page, validate_page_config)
 from quorum_tpu_torch.cache.prefix_store import DEFAULT_PREFIX_STORE_BYTES, PrefixStore
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.convert import shard_params
@@ -1007,6 +1007,37 @@ class InferenceEngine:
             if m is not None:
                 _check_mesh_knobs(self, spec, m, sp_impl, spec_decode, draft_spec, kv_pages,
                                   prefix_store, n_slots)
+        self.decode_chunk = max(1, int(decode_chunk))
+        self.decode_pipeline = max(1, int(decode_pipeline))
+        self.decode_loop = resolve_decode_loop(decode_loop)
+        self.prefill_chunk = aligned_prefill_chunk(int(prefill_chunk), spec.max_seq)
+        if self._use_sp or self.decode_pp > 1:
+            # The JAX engine's rule: the sp ring (or Ulysses) IS the long-
+            # prompt answer; every admission prefills single-shot. A
+            # pipeline-staged engine admits single-shot too, stage by stage
+            # (parallel/pipeline.staged_prefill).
+            self.prefill_chunk = 0
+        # Reuse rides the segment path (the suffix prefills at an offset).
+        # Off under staging: the resident K/V lives in the decode cache,
+        # which the staging segments cannot attend over (the host prefix
+        # store restores into the staging row instead).
+        self.prefix_cache = bool(prefix_cache) and self.prefill_chunk > 0 and not self.staged
+        self.n_slots = max(1, int(n_slots))
+        # A stacked engine absorbs the whole fan-out's admissions in one
+        # queue: M members carry the capacity M separate engines would have.
+        self.max_pending = max(1, int(max_pending)) * self.members
+        # Host slot space is flat across members: row m·S + s is member m's
+        # slot s (S rows when members == 1). The cache holds one row per
+        # slot per weight set.
+        self._rows = self.members * self.n_slots
+        # Speculative decoding: draft length g (0 = off), and the draft
+        # model's runtime when one proposes the drafts (the JAX engine's
+        # guards, word for word).
+        self.spec_decode = max(0, min(int(spec_decode), MAX_SPEC_DECODE))
+        # Paging and the store before any rank starts: their refusals come
+        # first, and a mesh's workers build their caches from the pool.
+        self._init_paging(kv_pages, kv_page_size, kv_pool_pages, draft_spec)
+        self._init_store(prefix_store, prefix_store_bytes, prefix_store_chunk)
         # One seed per weight set (members or ensemble).
         self._seeds = ([seed] * stack if member_seeds == "shared"
                        else [seed + i for i in range(stack)])
@@ -1035,35 +1066,6 @@ class InferenceEngine:
                 if self._ranks is not None:
                     self._ranks.stop()
                 raise
-        self.decode_chunk = max(1, int(decode_chunk))
-        self.decode_pipeline = max(1, int(decode_pipeline))
-        self.decode_loop = resolve_decode_loop(decode_loop)
-        self.prefill_chunk = aligned_prefill_chunk(int(prefill_chunk), spec.max_seq)
-        if self._use_sp or self.decode_pp > 1:
-            # The JAX engine's rule: the sp ring (or Ulysses) IS the long-
-            # prompt answer; every admission prefills single-shot. A
-            # pipeline-staged engine admits single-shot too, stage by stage
-            # (parallel/pipeline.staged_prefill).
-            self.prefill_chunk = 0
-        # Reuse rides the segment path (the suffix prefills at an offset).
-        # Off under staging: the resident K/V lives in the decode cache,
-        # which the staging segments cannot attend over (the host prefix
-        # store restores into the staging row instead).
-        self.prefix_cache = bool(prefix_cache) and self.prefill_chunk > 0 and not self.staged
-        self.n_slots = max(1, int(n_slots))
-        # A stacked engine absorbs the whole fan-out's admissions in one
-        # queue: M members carry the capacity M separate engines would have.
-        self.max_pending = max(1, int(max_pending)) * self.members
-        # Host slot space is flat across members: row m·S + s is member m's
-        # slot s (S rows when members == 1). The cache holds one row per
-        # slot per weight set.
-        self._rows = self.members * self.n_slots
-        # Speculative decoding: draft length g (0 = off), and the draft
-        # model's runtime when one proposes the drafts (the JAX engine's
-        # guards, word for word).
-        self.spec_decode = max(0, min(int(spec_decode), MAX_SPEC_DECODE))
-        self._init_paging(kv_pages, kv_page_size, kv_pool_pages, draft_spec)
-        self._init_store(prefix_store, prefix_store_bytes, prefix_store_chunk)
         self._draft_rt = None
         if draft_spec is not None:
             if self.members > 1 or self.ensemble > 1:
@@ -1078,22 +1080,23 @@ class InferenceEngine:
                     "off — drop the draft knob instead)")
             self._draft_rt = _DraftRuntime(draft_spec, self.spec, self._rows, self.device,
                                            seed=draft_seed, params=draft_params)
+        n_kv, held, layers = None, self.n_slots, None
+        if mesh is not None:
+            n_kv = len(rank_kv_index(spec.n_heads, spec.n_kv_heads, mesh.shape["tp"], 0))
+            lo, hi, _ = self._rmesh.slots
+            held = hi - lo  # rank 0's dp block of each weight set's slots
+            lo, hi = stage_layers(spec.n_layers, self.decode_pp, 0)
+            layers = hi - lo  # stage 0's layers
         if self.kv_pages:
-            # One device table shared by both sides, rewritten in place.
+            # One device table shared by both sides, rewritten in place (a
+            # mesh rank's: its cut of the pool, its dp group's rows).
             self._ck, self._cv = init_paged_cache(
-                spec, self.n_slots, self.kv_pool_pages, self.kv_page_size,
+                spec, held, self.kv_pool_pages, self.kv_page_size,
                 kv_quant=self.kv_quant, members=self.members if self.members > 1 else None,
-                device=self.device)
+                device=self.device, n_kv_heads=n_kv)
             self._table = self._ck.table
         else:
-            n_kv, cache_rows, layers = None, stack * self.n_slots, None
-            if mesh is not None:
-                n_kv = len(rank_kv_index(spec.n_heads, spec.n_kv_heads, mesh.shape["tp"], 0))
-                lo, hi, _ = self._rmesh.slots
-                cache_rows = stack * (hi - lo)  # rank 0's dp block of each weight set's slots
-                lo, hi = stage_layers(spec.n_layers, self.decode_pp, 0)
-                layers = hi - lo  # stage 0's layers
-            self._ck, self._cv = init_cache(spec, cache_rows, device=self.device,
+            self._ck, self._cv = init_cache(spec, stack * held, device=self.device,
                                             kv_quant=self.kv_quant, n_kv_heads=n_kv,
                                             layers=layers)
         # The staging cache of a zero-drain engine: the decode cache's dense
@@ -1103,10 +1106,13 @@ class InferenceEngine:
         # size (+ the int8 sides' f32 scales).
         self._sck = self._scv = None
         if self.staged:
-            n_kv = (None if self._prmesh is None else
-                    len(rank_kv_index(spec.n_heads, spec.n_kv_heads, self._prmesh.tp_size, 0)))
-            self._sck, self._scv = init_cache(spec, stack * self.n_slots,
-                                              device=self.prefill_device,
+            # Under disagg the prefill group's rank 0 cut (every row); on a
+            # zero-drain mesh rank 0's, as its decode cache's (its kv heads,
+            # its rows).
+            if self.disagg:
+                held, n_kv = self.n_slots, (None if self._prmesh is None else len(
+                    rank_kv_index(spec.n_heads, spec.n_kv_heads, self._prmesh.tp_size, 0)))
+            self._sck, self._scv = init_cache(spec, stack * held, device=self.prefill_device,
                                               kv_quant=self.kv_quant, n_kv_heads=n_kv)
         # Staged rows on their way to the decode cache: ("kv", admission,
         # [(row, chunk)], start, event) pieces and ("final", admission)
@@ -1284,6 +1290,8 @@ class InferenceEngine:
             if self.disagg:
                 self._handoff_stream = torch.cuda.Stream(self.device)
                 self._handoff_stream.wait_stream(torch.cuda.current_stream(self.device))
+        if self.prefix_store is not None:
+            self._snap_thread.start()
         self._thread = threading.Thread(target=self._scheduler, daemon=True,
                                         name="quorum-torch-scheduler")
         self._thread.start()
@@ -1778,7 +1786,8 @@ class InferenceEngine:
         ``init_params(spec, seed, quant=)`` (of ``init_params_stacked`` over
         the weight sets' seeds on a stacked engine)."""
         self._ranks = RankGroup(mesh, setup=self._follower_setup(mesh, spec, seed, params,
-                                                                 n_slots, ckpt)).spawn()
+                                                                 n_slots, ckpt, decode=True),
+                                staging=self.zero_drain).spawn()
         try:
             mine = self._rank_weights(spec, mesh, seed, params, ckpt, self.device)
             self._rmesh = self._ranks.join()
@@ -1789,17 +1798,23 @@ class InferenceEngine:
         return mine
 
     def _follower_setup(self, mesh, spec: ModelSpec, seed: int, params, n_slots: int,
-                        ckpt: tuple[str, str] | None):
+                        ckpt: tuple[str, str] | None, decode: bool = False):
         """The ``RankGroup`` set-up of a worker of ``mesh``: its Follower
         and the engine knobs that shape its weights and cache (a
         ``params=`` engine ships each worker its cut, int8 leaves in the
-        JAX package's layout)."""
+        JAX package's layout); a ``decode`` group's cache is paged with
+        ``kv_pages`` and has a staging cache beside it with ``zero_drain``
+        (a disaggregated prefill group's cache is its cut of the staging
+        cache)."""
         dtype = None  # a plain leaf's (int8 leaves keep int8 and float32 scales)
         if params is not None:
             dtype = str(params["blocks"]["attn_norm_w"].dtype).removeprefix("torch.")
         knobs = dict(spec=spec, seed=int(seed), rows=max(1, int(n_slots)), sp_impl=self.sp_impl,
                      ckpt=ckpt, quant=self.quant, kv_quant=self.kv_quant, seeds=self._seeds,
-                     members=self.members, ensemble=self.ensemble)
+                     members=self.members, ensemble=self.ensemble,
+                     kv_pages=((self.kv_pool_pages, self.kv_page_size)
+                               if decode and self.kv_pages else None),
+                     zero_drain=decode and self.zero_drain)
 
         def setup(rank: int):
             shard = None
@@ -2020,9 +2035,9 @@ class InferenceEngine:
                 f"{self.spec.max_seq}: no prefix could ever be stored")
         self.prefix_store = PrefixStore(chunk, int(prefix_store_bytes))
         self._snap_queue: queue.Queue = queue.Queue()
+        # Started with the scheduler thread, once the engine is built.
         self._snap_thread = threading.Thread(target=self._snapshot_worker, daemon=True,
                                              name="quorum-torch-prefix-store")
-        self._snap_thread.start()
 
     # ---- paged KV bookkeeping (kv_pages=1) ---------------------------------
     #
@@ -2188,7 +2203,9 @@ class InferenceEngine:
         offset into that member's pool copy. The source is a fresh pinned
         tensor per upload: the caching host allocator keeps its block until
         the copy has run, so a later upload never overwrites a copy still
-        queued."""
+        queued. On a mesh every worker gets the whole table first (a
+        ``table`` plan; each keeps its dp group's rows) and rank 0 uploads
+        its own rows."""
         if not self.kv_pages:
             return
         with self._cond:
@@ -2200,12 +2217,19 @@ class InferenceEngine:
         if m > 1:
             off = (torch.arange(m, dtype=torch.int32) * (self.kv_pool_pages + 1))
             tab = tab.repeat(m, 1) + off.repeat_interleave(self.n_slots)[:, None]
+        if self._ranks is not None:
+            self._plan("table", tab.numpy())
+            lo, hi, _ = self._rmesh.slots
+            tab = tab.view(m, self.n_slots, -1)[:, lo:hi].reshape(-1, tab.shape[-1])
         self._table.copy_(self._staged(tab), non_blocking=True)
 
     def _paged_install(self, cow) -> None:
-        """The device half of a claim: the copy-on-write page copies, then
-        the table upload, on the engine's stream before the admission's
-        first cache write."""
+        """The device half of a claim: the copy-on-write page copies (on
+        every rank of a mesh: each pool holds every page id), then the
+        table upload, on the engine's stream before the admission's first
+        cache write."""
+        if cow:
+            self._plan("cow", cow)
         for dst, src in cow:
             paged_copy_page(self._ck, dst, src, members=self.members)
             paged_copy_page(self._cv, dst, src, members=self.members)
@@ -2263,8 +2287,11 @@ class InferenceEngine:
                 have = self.prefix_store.covered(tokens)
                 if have >= len(tokens):
                     continue
-                payload = kv_transfer.slice_rows((self._ck, self._cv), slot, have,
-                                                 len(tokens) - have)
+                # On a mesh the holding group gathers its heads over tp
+                # (and sends them over dp to rank 0's), in plan order.
+                self._plan("snapshot", slot, have, len(tokens) - have)
+                payload = kv_transfer.snapshot_rows((self._ck, self._cv), slot, have,
+                                                    len(tokens) - have, self._rmesh, self.spec)
                 event = None
                 if self._stream is not None:
                     event = torch.cuda.Event()
@@ -2427,14 +2454,24 @@ class InferenceEngine:
         c = self.prefix_store.chunk_tokens
         q8 = self.kv_quant is not None
         moved = 0
+        # On a mesh each chunk goes from rank 0 to the ranks holding the
+        # row, over the group that writes it (``kv_transfer.restore_rows``).
+        if stage and self.disagg:
+            mesh, plan = self._prmesh, self._pplan
+        elif stage:
+            mesh, plan = (None if self._rmesh is None else self._rmesh.stage), self._plan
+        else:
+            mesh, plan = self._rmesh, self._plan
         for k in range(start // c, -(-end // c)):
             lo, hi = max(start, k * c), min(end, (k + 1) * c)
             leaves = [x.to(self.prefill_device if stage else self.device,
-                           non_blocking=True)[:, :, lo - k * c:hi - k * c]
+                           non_blocking=True)[:, :, lo - k * c:hi - k * c].contiguous()
                       for x in payloads[k]]
             moved += sum(x.nbytes for x in leaves)
-            kv_transfer.write_rows((self._sck, self._scv) if stage else (self._ck, self._cv),
-                                   kv_transfer.chunk_from_leaves(leaves, q8), slot, lo)
+            plan("restore", slot, lo, hi - lo, stage)
+            kv_transfer.restore_rows((self._sck, self._scv) if stage else (self._ck, self._cv),
+                                     kv_transfer.chunk_from_leaves(leaves, q8), slot, lo,
+                                     hi - lo, mesh, self.spec)
         if (self.prefill_device if stage else self.device).type == "cuda":
             done = torch.cuda.Event()
             done.record()
@@ -2913,15 +2950,22 @@ class InferenceEngine:
         offsets = [a.offset if a is not None else 0 for a in per_row]
         n_valid = [len(seg) for seg in segs]
         t0 = time.perf_counter()
+        mesh = self._prmesh if self.disagg else self._rmesh
         if self.disagg:
             self._pplan("segment", segs, bucket, offsets, rows, history, n_valid, member)
+        elif self.staged and mesh is not None:
+            # A zero-drain mesh: every rank stages on its staging stream,
+            # over the staging groups, and slices this segment's pieces.
+            mesh = mesh.stage
+            cuts = [(row, adm.handed, min(adm.offset + chunk, len(adm.req.prompt_ids))
+                     - adm.handed) for adm in batch.values() for row in self._piece_rows(adm)]
+            self._plan("segment", segs, bucket, offsets, rows, history, n_valid, member, cuts)
         else:
             self._plan("segment", segs, bucket, offsets, rows, history, n_valid, member)
         with self._stage_scope():
             prefill_segment(params, self.spec,
                             self._prompt_tokens(segs, bucket, self.prefill_device), offsets,
-                            *cache, rows=rows, history=history, n_valid=n_valid,
-                            mesh=self._prmesh if self.disagg else self._rmesh)
+                            *cache, rows=rows, history=history, n_valid=n_valid, mesh=mesh)
             for adm in batch.values():
                 adm.offset = min(adm.offset + chunk, len(adm.req.prompt_ids))
                 if self.staged:
@@ -3101,9 +3145,7 @@ class InferenceEngine:
         lo, hi = adm.handed, adm.offset
         if hi <= lo:
             return
-        rows = ([adm.slot] if self.members > 1
-                else [e * self.n_slots + adm.slot for e in range(self.ensemble)])
-        pieces = [(row, self._staged_rows(row, lo, hi - lo)) for row in rows]
+        pieces = [(row, self._staged_rows(row, lo, hi - lo)) for row in self._piece_rows(adm)]
         event = None
         if self._stage_stream is not None:
             event = torch.cuda.Event()
@@ -3111,11 +3153,24 @@ class InferenceEngine:
         adm.handed = hi
         (self._outbox if self.disagg else self._handoffs).append(("kv", adm, pieces, lo, event))
 
+    def _piece_rows(self, adm: _Admission) -> list[int]:
+        """The flat rows a piece of ``adm`` covers: its row; on an ensemble
+        the slot's row of every weight set."""
+        if self.members > 1:
+            return [adm.slot]
+        return [e * self.n_slots + adm.slot for e in range(self.ensemble)]
+
     def _staged_rows(self, row: int, lo: int, n: int):
         """Staging positions ``[lo, lo+n)`` of ``row`` as a wire chunk of
         every kv head: on a prefill group of several ranks each rank's
         entries gathered over its tp (``kv_transfer.gather_heads``; the
-        workers take part through a ``handoff`` plan)."""
+        workers take part through a ``handoff`` plan). On a zero-drain mesh
+        rank 0's own entries, where its dp group holds the row (None
+        elsewhere): every rank injects its own."""
+        if not self.disagg and self._rmesh is not None:
+            local = kv_transfer.local_row(self._rmesh, row)
+            return (None if local is None else
+                    kv_transfer.slice_rows((self._sck, self._scv), local, lo, n))
         chunk = kv_transfer.slice_rows((self._sck, self._scv), row, lo, n)
         if self._prmesh is None:
             return chunk
@@ -3139,29 +3194,43 @@ class InferenceEngine:
                 event.synchronize()
             self._handoffs.popleft()
             if adm.dead:
+                if kind == "kv" and self._zero_drain_mesh:
+                    self._plan("drop_pieces", [(row, start) for row, _ in pieces])
                 continue
             if kind == "kv":
                 self._inject(adm, pieces, start, event)
             else:
                 self._register_staged(adm)
 
+    @property
+    def _zero_drain_mesh(self) -> bool:
+        """A colocated zero-drain engine of several ranks: each rank stages
+        its own entries and injects them itself."""
+        return self.zero_drain and self._ranks is not None
+
     def _inject(self, adm: _Admission, pieces, start: int, event) -> None:
         """Write one piece into the decode cache on the ring's stream, after
-        the table upload (paged) and the piece's event."""
+        the table upload (paged) and the piece's event. On a zero-drain
+        mesh every rank holding the row writes its own entries of it, a
+        local copy (``stage_inject``); a disaggregated decode group of
+        several ranks gets the whole piece broadcast from rank 0, each rank
+        writing its entries."""
         try:
             self._paged_sync_table()
             if event is not None:
                 self._stream.wait_event(event)
             for row, chunk in pieces:
-                if self._ranks is not None:
-                    # A decode group of several ranks: the whole piece
-                    # broadcast from rank 0, each rank writing its entries.
+                if self._zero_drain_mesh:
+                    self._plan("stage_inject", row, start)
+                    if chunk is None:
+                        continue
+                    kv_transfer.write_rows((self._ck, self._cv), chunk,
+                                           kv_transfer.local_row(self._rmesh, row), start)
+                else:
                     n = kv_transfer.chunk_leaves(chunk)[0].shape[2]
                     self._plan("inject", row, start, n)
-                    for leaf in kv_transfer.chunk_leaves(chunk):
-                        self._rmesh.tp.broadcast(leaf, 0)
-                    chunk = kv_transfer.select_heads(chunk, self._rmesh, self.spec)
-                kv_transfer.write_rows((self._ck, self._cv), chunk, row, start)
+                    kv_transfer.restore_rows((self._ck, self._cv), chunk, row, start, n,
+                                             self._rmesh, self.spec)
                 if self._stream is not None:
                     for leaf in kv_transfer.chunk_leaves(chunk):
                         leaf.record_stream(self._stream)
@@ -3467,22 +3536,19 @@ class InferenceEngine:
             if use_dedup or len(live) == 1:
                 # One prompt through one member's weight views (member 0's
                 # under dedup): 1/M of the stacked prefill's work.
-                self._plan("prefill", [prompt], bucket, rows[0], None, members[0],
-                           use_dedup)
+                dedup = use_dedup
+                if use_dedup and self.kv_pages:
+                    # Member 0's pages into every member's pool copy.
+                    with self._cond:
+                        chain = list(self._page_alloc.chain(row) or [])
+                    dedup = chain[:self._page_alloc.pages_for(len(prompt))]
+                self._plan("prefill", [prompt], bucket, rows[0], None, members[0], dedup)
                 logits, _, _ = prefill(member_params(self.params, members[0]), spec,
                                        self._prompt_tokens([prompt], bucket),
                                        self._lengths_of([prompt]), self._ck, self._cv,
                                        slot=rows[0], mesh=self._rmesh)
                 if use_dedup and self.kv_pages:
-                    # Member 0's pages into every member's pool copy.
-                    with self._cond:
-                        chain = list(self._page_alloc.chain(row) or [])
-                    for p in chain[:self._page_alloc.pages_for(len(prompt))]:
-                        for cache in (self._ck, self._cv):
-                            stride = self.kv_pool_pages + 1
-                            src = cache.pool[:, p]
-                            for m in range(1, n_mem):
-                                cache.pool[:, m * stride + p].copy_(src)
+                    copy_member_pages((self._ck, self._cv), dedup, n_mem)
                 elif use_dedup:
                     broadcast_member_rows(self._ck, self._cv, n_mem, row, len(prompt),
                                           self._rmesh)
@@ -4243,9 +4309,12 @@ class InferenceEngine:
         the engine's state (``_program_issued``)."""
         if self._ranks is not None:
             # The workers' half: the same steps, and the eager warm-up step
-            # a first capture runs first (mesh dispatches are plain keys).
-            warm = self._graphs is not None and self._graphs.will_warm(key)
-            self._plan("decode", n_steps, n_chunks, warm)
+            # a first capture runs first (mesh dispatches are plain or
+            # paged keys; a paged one's window rides along).
+            paged = key[0] == "paged"
+            warm = self._graphs is not None and self._graphs.will_warm(
+                key, ("paged", key[-1]) if paged else None)
+            self._plan("decode", n_steps, n_chunks, warm, key[-1] if paged else None)
         self._program_issued = True
         self.dispatched_keys.add(key)
         t_issue = time.perf_counter()
@@ -4959,6 +5028,11 @@ class InferenceEngine:
                       + [a.req for a in self._admitting])
             for a in self._admitting:
                 a.dead = True  # their staged pieces are dropped
+            if self._zero_drain_mesh and self._handoffs and not self._ranks_lost():
+                try:
+                    self._plan("drop_pieces", None)
+                except Exception:
+                    logger.exception("dropping the workers' staged pieces failed")
             self._handoffs.clear()
             self._slots = [None] * self._rows
             self._admitting.clear()
@@ -5206,6 +5280,12 @@ def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
     on every rank, ``parallel/sharding``)."""
     if eng.decode_pp > 1:
         _check_pp_knobs(eng, spec, mesh, spec_decode, draft_spec, n_slots)
+        if kv_pages:
+            raise ValueError(
+                "kv_pages=1 does not compose with pp>1: the staged "
+                "decode schedule shards the cache's layer axis across "
+                "stages, and the page pool's layer axis would need a "
+                "per-stage page table — drop one knob")
     if eng._use_sp:
         if sp_impl == "ulysses" and not ulysses_supported(spec.n_heads, spec.n_kv_heads, mesh):
             raise ValueError(
@@ -5241,6 +5321,17 @@ def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
                 "prefix_store does not compose with sp>1: sequence-"
                 "parallel serving disables chunked prefill, which the "
                 "restore path's nonzero-offset tail prefill rides")
+        if eng.zero_drain:
+            # The JAX engine turns chunked prefill off under sp before its
+            # zero-drain check, which then refuses in these words.
+            raise ValueError(
+                "zero_drain requires chunked prefill (prefill_chunk >= "
+                "16 after power-of-two alignment): admissions prefill "
+                "into the staging cache segment by segment and inject "
+                "at a reap boundary — the single-shot admit program "
+                "blocks the host on its first-token fetch, which "
+                "behind a full dispatch ring is exactly the stall "
+                "zero_drain exists to remove")
     if eng._use_sp or eng.decode_pp > 1:
         # The JAX engine serves these there; the port's sequence-parallel
         # admission and staged decode do not carry int8 yet.
@@ -5250,14 +5341,15 @@ def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
             axis = "sp" if eng._use_sp else "pp"
             raise ValueError(f"{', '.join(staged)}: {_NOT_ON_MESH} with {axis}>1 "
                              "(dp and tp serve int8 weights and KV)")
-    refused = [name for name, on in (
-        ("speculative decoding", int(spec_decode) > 0 or draft_spec is not None),
-        ("kv_pages", bool(kv_pages)), ("prefix_store", bool(prefix_store)),
-        ("zero_drain", eng.zero_drain)) if on]
-    if refused:
-        raise ValueError(f"{', '.join(refused)}: {_NOT_ON_MESH} (dp/tp/sp/pp serve the "
+    if eng.decode_pp > 1 and prefix_store:
+        # The JAX engine serves it there, chunking its pp admissions; the
+        # port's pipeline-staged engine admits single-shot.
+        raise ValueError(f"prefix_store: {_NOT_ON_MESH} with pp>1 (dp and tp serve it)")
+    if int(spec_decode) > 0 or draft_spec is not None:
+        raise ValueError(f"speculative decoding: {_NOT_ON_MESH} (dp/tp/sp/pp serve the "
                          "dense and MoE families with the default scheduler; dp and tp "
-                         "also int8, members, ensembles and grammars)")
+                         "also int8, members, ensembles, grammars, kv_pages, "
+                         "prefix_store and zero_drain)")
 
 
 def get_engine(

@@ -18,9 +18,29 @@ arrive — collective for collective what rank 0's engine runs:
   all-gathered over tp, so rank 0 holds the piece of every kv head;
 - ``inject`` (its decode group): the piece of every kv head broadcast
   from rank 0, the rank's entries written into its cache row;
+- ``table`` / ``cow`` (``kv_pages``): rank 0's page table, whose rows of
+  this rank's dp group it copies into its device table in place (its
+  graphs read that address), and the copy-on-write page copies of a
+  claim, into its pool (every page id, its own kv heads);
+- ``snapshot`` / ``restore`` (the host prefix store on rank 0): a row's
+  positions sliced and gathered over its group's tp (and sent over dp to
+  rank 0's group), or a stored chunk broadcast from rank 0 and the rank's
+  entries written into its row, its pages or (``stage``) its staging row
+  (``cache/kv_transfer.snapshot_rows`` / ``restore_rows``);
+- ``stage_inject`` / ``drop_pieces`` (``zero_drain``): a piece sliced from
+  the staging row after a segment written into the decode row (or its
+  pages) on the ring's stream, or dropped with its dead admission;
 - ``report``: what this rank saw and holds — the tokens it fed per cache
   row (while the row was live) since the last report, its kernel launches
-  and collectives, its weight and cache bytes and peak device memory.
+  and collectives, its weight, cache, page pool and staging bytes and peak
+  device memory.
+
+A zero-drain rank holds a dense staging cache for its dp group's rows at
+its kv heads (dense under ``kv_pages`` too, as the JAX engine's) and runs
+every segment into it on a staging stream of its own, whose collectives go
+over the staging groups (``parallel/comm.StagingMesh``); each segment's
+pieces are sliced there right after it, behind an event the ring's stream
+waits on before their injection.
 
 The rank's own rank 0 state (sampling, the scheduler's bookkeeping) does not
 exist here: a worker keeps no per-request state. On a mesh whose dp cuts
@@ -48,6 +68,7 @@ import contextlib
 import torch
 
 from quorum_tpu_torch.cache import kv_transfer
+from quorum_tpu_torch.cache.paging import copy_member_pages, init_paged_cache, paged_copy_page
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.convert import params_from_numpy
 from quorum_tpu_torch.models.init import init_params_shard, init_params_stacked_shard
@@ -80,12 +101,15 @@ class Follower:
     dtype), all quantized with ``quant``; a cache of its kv heads and its
     stage's layers for its dp group's share of ``rows`` slots, one row per
     slot of each of ``members`` / ``ensemble`` weight sets, int8 with
-    ``kv_quant``."""
+    ``kv_quant``; with ``kv_pages`` (pool pages, page size) that cache is
+    the rank's cut of the page pool and its table, with ``zero_drain`` a
+    dense staging cache beside it."""
 
     def __init__(self, mesh, *, spec, seed: int, rows: int, sp_impl: str = "ring",
                  shard=None, ckpt=None, quant: str | None = None,
                  kv_quant: str | None = None, seeds: list[int] | None = None,
-                 members: int = 1, ensemble: int = 1):
+                 members: int = 1, ensemble: int = 1,
+                 kv_pages: tuple[int, int] | None = None, zero_drain: bool = False):
         self.mesh = mesh
         self.spec = spec
         self.sp_impl = sp_impl
@@ -109,37 +133,59 @@ class Follower:
         n_kv = len(rank_kv_index(spec.n_heads, spec.n_kv_heads, mesh.tp_size, mesh.tp_rank))
         lo, hi = stage_layers(spec.n_layers, mesh.pp_size, mesh.pp_rank)
         self._own = mesh.hold_slots(rows)
-        self._ck, self._cv = init_cache(spec, stack * (self._own[1] - self._own[0]), device=dev,
-                                        kv_quant=kv_quant, n_kv_heads=n_kv, layers=hi - lo)
+        held = self._own[1] - self._own[0]
+        self._table = None
+        if kv_pages is not None:
+            self._ck, self._cv = init_paged_cache(
+                spec, held, kv_pages[0], kv_pages[1], kv_quant=kv_quant,
+                members=members if members > 1 else None, device=dev, n_kv_heads=n_kv)
+            self._table = self._ck.table
+        else:
+            self._ck, self._cv = init_cache(spec, stack * held, device=dev, kv_quant=kv_quant,
+                                            n_kv_heads=n_kv, layers=hi - lo)
+        self._sck = self._scv = None
+        if zero_drain:
+            self._sck, self._scv = init_cache(spec, stack * held, device=dev,
+                                              kv_quant=kv_quant, n_kv_heads=n_kv)
+        # Staged pieces waiting for their injection: (row, start) → (chunk,
+        # the event behind its slice on the staging stream).
+        self._pieces: dict[tuple[int, int], tuple] = {}
         n = members * rows  # the engine's sampled rows
         self._tok = torch.zeros((n,), dtype=torch.long, device=dev)
         self._pos = torch.zeros((n,), dtype=torch.int32, device=dev)
         self._wm = torch.zeros((n,), dtype=torch.bool, device=dev)
         self.fed: list[list[int]] = [[] for _ in range(n)]
-        self._stream = self._graphs = None
+        self._stream = self._graphs = self._stage_stream = None
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)
             self._stream.wait_stream(torch.cuda.current_stream(dev))
+            if zero_drain:
+                self._stage_stream = torch.cuda.Stream(dev)
+                self._stage_stream.wait_stream(torch.cuda.current_stream(dev))
             if mesh.graphs_ok:
                 self._graphs = DecodeGraphs(dev, self._stream)
 
     @contextlib.contextmanager
-    def _scope(self):
+    def _scope(self, stage: bool = False):
+        """No grad, on the ring's stream (``stage``: the staging stream)."""
+        stream = self._stage_stream if stage else self._stream
         with torch.no_grad():
-            if self._stream is None:
+            if stream is None:
                 yield
             else:
-                with torch.cuda.stream(self._stream):
+                with torch.cuda.stream(stream):
                     yield
 
     def prefill(self, prompts: list[list[int]], bucket: int, slot: int | None = None,
                 rows: list[int | None] | None = None, member: int | None = None,
-                dedup: bool = False) -> None:
+                dedup=False) -> None:
         """A single-shot admission's prefill: ``prompts`` into flat cache row
         ``slot``, or batch row b into ``rows[b]`` (a stacked engine's
         member-coalesced group, an ensemble's weight sets); ``member``: one
         member's admission through its weight views; ``dedup``: member 0's
-        K/V then copied into every member's row of the slot."""
+        K/V then copied into every member's row of the slot (on a paged
+        cache ``dedup`` lists the pages to copy into every member's pool
+        copy)."""
         if self.mesh.pp_size > 1:
             with self._scope():
                 lengths = host_to_device([max(1, len(prompts[0]))], torch.int32, self.device)
@@ -156,7 +202,9 @@ class Follower:
                                      self.device)
             prefill(params, self.spec, tokens, lengths, self._ck, self._cv, slot=slot,
                     rows=rows, mesh=self.mesh, sp_impl=self.sp_impl)
-            if dedup:
+            if dedup and self._table is not None:
+                copy_member_pages((self._ck, self._cv), dedup, self.members)
+            elif dedup:
                 broadcast_member_rows(self._ck, self._cv, self.members, slot,
                                       len(prompts[0]), self.mesh)
         if dedup:
@@ -169,16 +217,96 @@ class Follower:
 
     def segment(self, segs: list[list[int]], bucket: int, offsets: list[int],
                 rows: list[int], history: int, n_valid: list[int],
-                member: int | None = None) -> None:
+                member: int | None = None, pieces=None) -> None:
+        """One chunked-prefill segment call; on a zero-drain rank into the
+        staging cache on the staging stream (over the staging groups), then
+        the ``pieces`` rank 0 queues behind it — ``(row, start, n)`` of the
+        staging rows — sliced there where this rank's group holds the row,
+        behind one event."""
         params = self.params if member is None else member_params(self.params, member)
-        with self._scope():
+        staged = self._sck is not None
+        cache = (self._sck, self._scv) if staged else (self._ck, self._cv)
+        with self._scope(stage=staged):
             tokens = host_to_device([sg + [0] * (bucket - len(sg)) for sg in segs], torch.long,
                                     self.device)
-            prefill_segment(params, self.spec, tokens, offsets, self._ck, self._cv,
-                            rows=rows, history=history, n_valid=n_valid, mesh=self.mesh)
+            prefill_segment(params, self.spec, tokens, offsets, *cache, rows=rows,
+                            history=history, n_valid=n_valid,
+                            mesh=self.mesh.stage if staged else self.mesh)
+            if pieces:
+                self._slice_pieces(pieces)
         for r, off in zip(rows, offsets):
             if r is not None and off == 0 and r < len(self.fed):
                 self.fed[r] = []
+
+    def _slice_pieces(self, pieces) -> None:
+        event = None
+        if self._stage_stream is not None:
+            event = torch.cuda.Event()
+        for row, start, n in pieces:
+            local = kv_transfer.local_row(self.mesh, row)
+            if local is not None:
+                chunk = kv_transfer.slice_rows((self._sck, self._scv), local, start, n)
+                self._pieces[(row, start)] = (chunk, event)
+        if event is not None:
+            event.record()
+
+    def stage_inject(self, row: int, start: int) -> None:
+        """Write the piece of ``row`` staged from ``start`` into the decode
+        row (its pages on a paged cache) on the ring's stream, after the
+        piece's slice: a local copy, no collective."""
+        piece = self._pieces.pop((row, start), None)
+        if piece is None:
+            return  # another dp group holds the row
+        chunk, event = piece
+        with self._scope():
+            if event is not None:
+                self._stream.wait_event(event)
+            kv_transfer.write_rows((self._ck, self._cv), chunk,
+                                   kv_transfer.local_row(self.mesh, row), start)
+            if self._stream is not None:
+                for leaf in kv_transfer.chunk_leaves(chunk):
+                    leaf.record_stream(self._stream)
+
+    def drop_pieces(self, keys=None) -> None:
+        """Forget the staged pieces of a dead admission (``keys``, its
+        ``(row, start)`` pairs), or every piece."""
+        if keys is None:
+            self._pieces.clear()
+        for key in keys or ():
+            self._pieces.pop(tuple(key), None)
+
+    def table(self, full) -> None:
+        """Rank 0's page table ``[rows, max_pages]`` (member offsets in):
+        this rank's dp group's rows copied into the device table in place."""
+        tab = torch.as_tensor(full, dtype=torch.int32)
+        lo, hi = self._own
+        tab = tab.view(-1, self.rows, tab.shape[-1])[:, lo:hi].reshape(-1, tab.shape[-1])
+        with self._scope():
+            host_to_device(tab.tolist(), torch.int32, self.device, out=self._table)
+
+    def cow(self, pairs) -> None:
+        """A claim's copy-on-write page copies (dst ← src, every member's
+        pool copy): page ids are the host allocator's, every rank's pool
+        holds them all."""
+        with self._scope():
+            for dst, src in pairs:
+                paged_copy_page(self._ck, dst, src, members=self.members)
+                paged_copy_page(self._cv, dst, src, members=self.members)
+
+    def snapshot(self, row: int, start: int, n: int) -> None:
+        with self._scope():
+            kv_transfer.snapshot_rows((self._ck, self._cv), row, start, n, self.mesh, self.spec)
+
+    def restore(self, row: int, start: int, n: int, stage: bool = False) -> None:
+        """A stored chunk's positions into ``row``: the decode row, or with
+        ``stage`` the staging row (a zero-drain rank's staging cache on its
+        staging stream; a disaggregated prefill group's cache, which is its
+        cut of the staging cache)."""
+        staged = stage and self._sck is not None
+        cache = (self._sck, self._scv) if staged else (self._ck, self._cv)
+        with self._scope(stage=staged):
+            kv_transfer.restore_rows(cache, None, row, start, n,
+                                     self.mesh.stage if staged else self.mesh, self.spec)
 
     def handoff(self, row: int, start: int, n: int) -> None:
         with self._scope():
@@ -186,31 +314,23 @@ class Follower:
             kv_transfer.gather_heads(chunk, self.mesh, self.spec)
 
     def inject(self, row: int, start: int, n: int) -> None:
-        s = self.spec
-        q8 = isinstance(self._ck, tuple)
-        # A side's leaves in wire order: values [L, K, n, hd], then (int8)
-        # their scales [L, K, n].
-        side = ([((s.n_layers, s.n_kv_heads, n, s.head_dim), torch.int8),
-                 ((s.n_layers, s.n_kv_heads, n), torch.float32)] if q8 else
-                [((s.n_layers, s.n_kv_heads, n, s.head_dim), self._ck.dtype)])
+        """A handed-off piece of every kv head broadcast from rank 0 over
+        tp, this rank's entries written into its row (its pages)."""
         with self._scope():
-            leaves = [torch.empty(shape, dtype=dt, device=self.device)
-                      for _ in range(2) for shape, dt in side]
-            for leaf in leaves:
-                self.mesh.tp.broadcast(leaf, 0)
-            whole = kv_transfer.chunk_from_leaves(leaves, q8)
-            kv_transfer.write_rows((self._ck, self._cv),
-                                   kv_transfer.select_heads(whole, self.mesh, s), row, start)
+            kv_transfer.restore_rows((self._ck, self._cv), None, row, start, n, self.mesh,
+                                     self.spec)
         if row < len(self.fed):
             self.fed[row] = []
 
-    def _program(self, n: int) -> torch.Tensor:
-        """``n`` decode steps fed by rank 0; returns ``[n, 2, rows]`` (each
-        step's tokens and write mask)."""
+    def _program(self, n: int, history: int | None = None) -> torch.Tensor:
+        """``n`` decode steps fed by rank 0 (``history``: a paged cache's
+        window); returns ``[n, 2, rows]`` (each step's tokens and write
+        mask)."""
         out = []
         for _ in range(n):
             tok, wm = follow_decode_step(self.params, self.spec, self._tok, self._pos, self._wm,
-                                         self._ck, self._cv, self.mesh, self.ensemble)
+                                         self._ck, self._cv, self.mesh, self.ensemble,
+                                         history=history)
             out.append(torch.stack([tok, wm.long()]))
         return torch.stack(out)
 
@@ -218,11 +338,13 @@ class Follower:
         follow_staged_decode(self.params["blocks"], self.spec, self.mesh, n_steps, n_chunks,
                              self.rows, self._ck, self._cv)
 
-    def decode(self, n_steps: int, n_chunks: int, warm: bool = False) -> None:
+    def decode(self, n_steps: int, n_chunks: int, warm: bool = False,
+               history: int | None = None) -> None:
         """One dispatch of ``n_steps × n_chunks`` steps; ``warm``: rank 0
-        runs its eager warm-up step first, and so does this rank. A later
-        pipeline stage runs its half of the staged schedule, which feeds it
-        no tokens (``fed`` stays empty)."""
+        runs its eager warm-up step first, and so does this rank; a paged
+        rank gathers rank 0's ``history`` window (its graphs keyed by it). A
+        later pipeline stage runs its half of the staged schedule, which
+        feeds it no tokens (``fed`` stays empty)."""
         if self.mesh.pp_size > 1:
             with self._scope():
                 if warm:
@@ -234,13 +356,14 @@ class Follower:
                                         lambda: self._staged(n_steps, n_chunks), lambda: None)
             return
         n = n_steps * n_chunks
+        key = (n,) if history is None else ("paged", n, history)
         with self._scope():
             if warm:
-                self._program(1)
+                self._program(1, history)
             if self._graphs is None:
-                fed = self._program(n)
+                fed = self._program(n, history)
             else:
-                fed = self._graphs.replay((n,), lambda: self._program(n), lambda: None)
+                fed = self._graphs.replay(key, lambda: self._program(n, history), lambda: None)
             fed = fed.cpu()
         lo, hi = self._own
         for step in fed:
@@ -264,8 +387,13 @@ class Follower:
                          "flash_decode_q8": flash_decode_q8_attention.launches},
             "collectives": collective_counts(),
             "weight_bytes": sum(t.numel() * t.element_size() for t in _tensors(self.params)),
-            "cache_bytes": sum(t.numel() * t.element_size()
-                               for t in _tensors({"k": self._ck, "v": self._cv})),
+            "cache_bytes": kv_transfer.kv_bytes(self._ck, self._cv),
+            # The page pool's share of that (0 on a dense cache) and the
+            # zero-drain staging cache's bytes.
+            "pool_bytes": (kv_transfer.kv_bytes(self._ck, self._cv)
+                           if self._table is not None else 0),
+            "staging_bytes": kv_transfer.kv_bytes(self._sck, self._scv),
+            "staged_pieces": len(self._pieces),
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
         }
         if digest:
@@ -285,4 +413,7 @@ class Follower:
         if self._graphs is not None:
             self._graphs.clear()
             torch.cuda.synchronize(self.device)
-        self.params = self._ck = self._cv = None
+        if self._stage_stream is not None:
+            self._stage_stream.synchronize()
+        self._pieces.clear()
+        self.params = self._ck = self._cv = self._sck = self._scv = self._table = None

@@ -80,11 +80,11 @@ class DecodeGraphs:
     def __contains__(self, key: tuple) -> bool:
         return key in self._graphs
 
-    def will_warm(self, key: tuple) -> bool:
-        """Whether :meth:`replay` of plain decode key ``key`` would run the
-        plain keys' warm-up first (a multi-rank engine's workers mirror
-        that step)."""
-        return key not in self._graphs and None not in self._warmed
+    def will_warm(self, key: tuple, family=None) -> bool:
+        """Whether :meth:`replay` of decode key ``key`` of ``family`` would
+        run that family's warm-up first (a multi-rank engine's workers
+        mirror that step)."""
+        return key not in self._graphs and family not in self._warmed
 
     def replay(self, key: tuple, program: Callable[[], object],
                warm_up: Callable[[], None], family: str | None = None, timing=None):

@@ -947,7 +947,7 @@ def prefill_segment(
         # Page slots and window blocks, the same for every layer and side.
         first = cache_k.layer(0)
         wslots = write_slots(first, dst[:, 0], wpos, wpos < spec.max_seq)
-        ridx = window_index(first.table[read], hist, first.page_size, spec.n_kv_heads)
+        ridx = window_index(first.table[read], hist, first.page_size, first.n_kv)
 
     for l in range(n_layers(blocks)):
         def attend(q, k, v, l=l):
@@ -1055,7 +1055,7 @@ def decode_step_blocks(
         first = cache_k.layer(0)
         hist = min(history or spec.max_seq, spec.max_seq)
         wslots = write_slots(first, rows, pos[:, None], (allow & (pos < spec.max_seq))[:, None])
-        ridx = window_index(first.table, hist, first.page_size, spec.n_kv_heads)
+        ridx = window_index(first.table, hist, first.page_size, first.n_kv)
 
     for l in range(n_layers(blocks)):
         def attend(q, k, v, l=l):
@@ -1142,18 +1142,19 @@ def _step_forward(params, spec, token, lengths, cache_k, cache_v, write_mask,
 
 def follow_decode_step(params: Params, spec: ModelSpec, token: torch.Tensor,
                        lengths: torch.Tensor, write_mask: torch.Tensor, cache_k, cache_v, mesh,
-                       ensemble: int = 1):
+                       ensemble: int = 1, history: int | None = None):
     """A worker rank's decode step: rank 0's inputs from the broadcast
     (``token``, ``lengths`` and ``write_mask`` give only their shapes and
     dtypes), then the step's forward on this rank's shard (``ensemble``:
-    every row through each weight set, as :func:`decode_step` runs it),
-    collective for collective the one rank 0's :func:`decode_step` runs.
-    Returns the token and write mask it fed."""
+    every row through each weight set, as :func:`decode_step` runs it;
+    ``history``: a paged cache's window, rank 0's), collective for
+    collective the one rank 0's :func:`decode_step` runs. Returns the token
+    and write mask it fed."""
     token, lengths, write_mask = mesh.sync_step(token, lengths, write_mask)
     tok, lens, wm = token, lengths, write_mask
     if ensemble > 1:
         tok, lens, wm = tok.repeat(ensemble), lens.repeat(ensemble), wm.repeat(ensemble)
-    _step_forward(params, spec, tok, lens, cache_k, cache_v, wm, mesh=mesh)
+    _step_forward(params, spec, tok, lens, cache_k, cache_v, wm, history=history, mesh=mesh)
     return token, write_mask
 
 
@@ -1313,7 +1314,7 @@ def decode_multi(
         first = cache_k.layer(0)
         wslots = write_slots(first, torch.arange(b, device=dev), pos,
                              allow[:, None] & (pos < max_seq))
-        ridx = window_index(first.table, hist, first.page_size, spec.n_kv_heads)
+        ridx = window_index(first.table, hist, first.page_size, first.n_kv)
 
     def write(side, value):
         if kv_is_paged(side):

@@ -319,7 +319,9 @@ class RankMesh:
     coordinates and device, and its ``world``, ``dp``, ``pp``, ``tp`` and
     ``sp`` groups (a subgroup with the world's ranks shares the world's backend).
     ``slots``: ``(lo, hi, n)``, the slot rows ``[lo, hi)`` of ``n`` this
-    rank's KV cache holds, once an engine set them (:meth:`hold_slots`)."""
+    rank's KV cache holds, once an engine set them (:meth:`hold_slots`).
+    ``stage``: the staging view (:class:`StagingMesh`) where the mesh was
+    joined with staging groups, else None."""
 
     def __init__(self, mesh: Mesh, rank: int, groups: dict[str, Group]):
         self.mesh = mesh
@@ -332,6 +334,7 @@ class RankMesh:
         self.sp = groups[AXIS_SP]
         self.pp = groups[AXIS_PP]
         self.slots: tuple[int, int, int] | None = None
+        self.stage: StagingMesh | None = None
         self._aborted = False
         self._abort_thread: threading.Thread | None = None
 
@@ -416,7 +419,8 @@ class RankMesh:
 
     def _pgs(self) -> list:
         seen, out = set(), []
-        for g in (self.world, self.dp, self.tp, self.sp, self.pp):
+        extra = () if self.stage is None else (self.stage.tp, self.stage.dp)
+        for g in (self.world, self.dp, self.tp, self.sp, self.pp, *extra):
             if id(g.pg) not in seen:
                 seen.add(id(g.pg))
                 out.append(g)
@@ -484,11 +488,35 @@ class RankMesh:
         return t is None or not t.is_alive()
 
 
-def join(mesh: Mesh, rank: int, store) -> RankMesh:
+class StagingMesh:
+    """A rank's mesh as a zero-drain engine's staging stream sees it: the
+    :class:`RankMesh` with tp and dp groups of its own. The staging
+    segments' tp all-reduces (and a restore's broadcasts into a staging
+    row) run on a second stream beside the ring's decode graphs; NCCL
+    kernels of ONE communicator on two concurrent streams may interleave
+    differently on different ranks and hang, so each stream has its own
+    communicators. Everything else (the layout, the slot rows, the other
+    groups) is the ring mesh's."""
+
+    def __init__(self, ring: RankMesh, tp: Group, dp: Group):
+        self._ring = ring
+        self.tp = tp
+        self.dp = dp
+
+    def __getattr__(self, name):
+        return getattr(self._ring, name)
+
+    def __repr__(self) -> str:
+        return f"StagingMesh({self._ring!r})"
+
+
+def join(mesh: Mesh, rank: int, store, staging: bool = False) -> RankMesh:
     """Rank ``rank``'s view of ``mesh``: its world group and its dp, tp and
     sp subgroups over prefixes of ``store`` (every rank of the mesh calls
-    this with the same store). NCCL groups run one collective at once: NCCL
-    creates its communicator lazily, which a graph capture must not do."""
+    this with the same store); with ``staging``, a second tp and dp group
+    each for the staging stream (:class:`StagingMesh`). NCCL groups run one
+    collective at once: NCCL creates its communicator lazily, which a graph
+    capture must not do."""
     size = mesh.size
     world_ranks = list(range(size))
 
@@ -505,13 +533,20 @@ def join(mesh: Mesh, rank: int, store) -> RankMesh:
             groups[axis] = Group(axis, w.pg, ranks, rank, mesh.backend)
         else:
             groups[axis] = group(axis, ranks)
+    stage = None
+    if staging:
+        stage = {axis: group(f"stage-{axis}", mesh.axis_ranks(rank, axis))
+                 for axis in (AXIS_TP, AXIS_DP)}
     if mesh.backend == "nccl":
         dev = mesh.devices[rank]
         torch.cuda.set_device(dev)
         seen = set()
-        for g in groups.values():
+        for g in [*groups.values(), *(stage or {}).values()]:
             if id(g.pg) not in seen:
                 seen.add(id(g.pg))
                 g.pg.allreduce([torch.zeros(1, device=dev)]).wait()
         torch.cuda.synchronize(dev)
-    return RankMesh(mesh, rank, groups)
+    out = RankMesh(mesh, rank, groups)
+    if stage is not None:
+        out.stage = StagingMesh(out, stage[AXIS_TP], stage[AXIS_DP])
+    return out

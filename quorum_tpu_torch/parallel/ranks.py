@@ -119,10 +119,11 @@ def _store(port: int, size: int, master: bool, timeout_s: float):
                          wait_for_workers=False)
 
 
-def worker_main(rank: int, mesh: Mesh, port: int, conn, setup) -> None:
-    """A worker rank's life: report in, join the mesh, build its handler,
-    then run plans until a stop or until rank 0's pipe closes. An error
-    is sent to rank 0 and ends the process (rank 0 then sees it dead)."""
+def worker_main(rank: int, mesh: Mesh, port: int, conn, setup, staging: bool = False) -> None:
+    """A worker rank's life: report in, join the mesh (with the staging
+    stream's groups when ``staging``), build its handler, then run plans
+    until a stop or until rank 0's pipe closes. An error is sent to rank 0
+    and ends the process (rank 0 then sees it dead)."""
     rmesh = None
     stacks = float(os.environ.get(STACKS_ENV, "0") or 0)
     if stacks > 0:  # a hang's diagnosis: every rank's stacks every so often
@@ -134,7 +135,7 @@ def worker_main(rank: int, mesh: Mesh, port: int, conn, setup) -> None:
         else:
             torch.cuda.set_device(dev)
         conn.send(("hello", rank, os.getpid()))
-        rmesh = join(mesh, rank, _store(port, mesh.size, False, mesh.timeout_s))
+        rmesh = join(mesh, rank, _store(port, mesh.size, False, mesh.timeout_s), staging)
         handler = None
         if setup is not None:
             path, kwargs = setup
@@ -189,11 +190,14 @@ class RankGroup:
     own set-up, which overlaps the workers' start) joins the groups and
     waits until every worker's handler is built; :meth:`plan` sends a plan;
     :meth:`stop` ends them. ``setup(rank)`` gives worker ``rank``'s
-    ``(path, kwargs)`` handler set-up (None: ``run`` plans only)."""
+    ``(path, kwargs)`` handler set-up (None: ``run`` plans only);
+    ``staging``: every rank joins the staging stream's groups too
+    (``comm.StagingMesh``: a zero-drain engine's)."""
 
-    def __init__(self, mesh: Mesh, setup=None):
+    def __init__(self, mesh: Mesh, setup=None, staging: bool = False):
         self.mesh = mesh
         self._setup = setup
+        self.staging = staging
         self.procs: list = []
         self._conns: list = []
         self.pids: dict[int, int] = {}
@@ -215,7 +219,8 @@ class RankGroup:
         for r in range(1, self.size):
             parent, child = ctx.Pipe()
             setup = self._setup(r) if self._setup is not None else None
-            p = ctx.Process(target=worker_main, args=(r, self.mesh, port, child, setup),
+            p = ctx.Process(target=worker_main,
+                            args=(r, self.mesh, port, child, setup, self.staging),
                             name=f"quorum-rank-{r}", daemon=True)
             p.start()
             child.close()
@@ -248,7 +253,7 @@ class RankGroup:
         """Join rank 0 to the mesh once every worker has started, then wait
         for every worker's handler."""
         self._expect("hello", SPAWN_TIMEOUT_S)
-        self.rank_mesh = join(self.mesh, 0, self._store)
+        self.rank_mesh = join(self.mesh, 0, self._store, self.staging)
         self._expect("ready", SPAWN_TIMEOUT_S)
         if self.procs:
             self._watcher = threading.Thread(target=self._watch, name="quorum-rank-watch",

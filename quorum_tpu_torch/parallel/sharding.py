@@ -127,8 +127,12 @@ def paged_kv_spec(n_kv_heads: int, tp: int) -> tuple[str | None, ...]:
     head_dim]`` as the JAX package's ``paged_kv_sharding`` gives it: the
     page axis never cut (a row's chain scatters over the whole pool), kv
     heads over tp with :func:`kv_cache_spec`'s rule, the layer axis over
-    pp. A paged engine is one rank, so its pool is whole (this rule names
-    the cut a multi-rank paged pool would take)."""
+    pp. A rank of a dp/tp engine holds its cut ``[L, pages, K_rank, page,
+    hd]``: every page, the kv heads :func:`rank_kv_index` gives it (its
+    query heads' entries, where tp does not divide K too). Neither the pool
+    nor the page ids are cut over dp: one host allocator on rank 0 hands
+    out every page, and a page is only ever read by the dp group whose row
+    wrote it; each rank's page table holds its own dp group's rows."""
     axes: list = ["layers", None, "kv_heads", None, None]
     if n_kv_heads % tp != 0:
         axes[2] = None

@@ -191,14 +191,20 @@ def test_gpt2_biases_are_added_once():
     (dict(sp=2), "response_format", "constrained decoding requires chunked prefill .*"
                                     "unavailable with sp>1 or prefill_chunk=0"),
     (dict(tp=2), dict(spec_decode=4), "speculative decoding: not yet on a multi-rank engine"),
-    (dict(tp=2), dict(kv_pages=True), "kv_pages: not yet on a multi-rank engine"),
-    (dict(tp=2), dict(zero_drain=True), "zero_drain: not yet on a multi-rank engine"),
-    (dict(tp=2), dict(prefix_store="host"), "prefix_store: not yet on a multi-rank engine"),
+    (dict(pp=2), dict(kv_pages=True), "kv_pages=1 does not compose with pp>1: the staged "
+                                      "decode schedule shards the cache's layer axis"),
+    (dict(sp=2), dict(kv_pages=True), "kv_pages=1 does not compose with sp>1: ring attention "
+                                      "shards the position axis"),
+    (dict(sp=2), dict(prefix_store="host"), "prefix_store does not compose with sp>1: sequence-"
+                                            "parallel serving disables chunked prefill"),
+    (dict(pp=2), dict(zero_drain=True), "pp>1 does not compose with zero_drain=1: staged-"
+                                        "injection admissions"),
 ])
 def test_refused_compositions_are_named(axes, knobs, match):
     """int8 on sp and pp meshes is refused by name (dp and tp serve it); a
-    grammar on an sp engine, whose admissions are single-shot, in the JAX
-    engine's words."""
+    grammar on an sp engine, whose admissions are single-shot, and paging,
+    the host prefix store and zero-drain staging where the JAX engine
+    refuses them, in its words (dp and tp serve those three)."""
     spec = resolve_spec("llama-tiny", OPTS)
     if knobs != "response_format":
         with pytest.raises(ValueError, match=match):
