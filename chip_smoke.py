@@ -7267,17 +7267,18 @@ MESH_GROUP_TIMEOUT_S = 60.0
 
 
 def _lp_stream(eng, ids: list[int], n: int, timeout: float = 2 * SERVE_TIMEOUT_S,
-               sampler=None, seed: int = 0):
+               sampler=None, seed: int = 0, logprobs: int = 20, bias=None):
     """One greedy (or ``sampler``'s, at ``seed``) request on the engine's
-    API with the top-20 log-probabilities of every step: (tokens, records,
-    seconds)."""
+    API with the top-20 log-probabilities of every step (``logprobs=-1``:
+    none, so a speculative engine drafts for it; ``bias``: a ``[V]`` logit
+    bias): (tokens, records, seconds)."""
     import threading
 
     from quorum_tpu_torch.ops.sampling import SamplerConfig
 
     t0 = time.perf_counter()
     req = eng.submit(ids, max_new_tokens=n, sampler=sampler or SamplerConfig(temperature=0.0),
-                     logprobs=20, seed=seed)
+                     logprobs=logprobs, seed=seed, logit_bias=bias)
     out: list = []
     th = threading.Thread(target=lambda: out.extend(eng.stream_results(req)), daemon=True)
     th.start()
@@ -7395,8 +7396,12 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     (t) and (u): ``_mesh_memory_knobs`` (kv_pages, prefix_store and
     zero_drain on tp=2 and dp=2 × tp=2 sharing the card) and
     ``_mesh_memory_cards`` (the three at once on dp=2 × tp=2, then kv_pages
-    and prefix_store on disagg=2+2 with tp=2, over NCCL on four).
-    K1, K2 and K2q8 launches are counted on every rank (workers report
+    and prefix_store on disagg=2+2 with tp=2, over NCCL on four); (v) and
+    (w): ``_mesh_spec_forwards`` (prompt lookup, an oracle draft,
+    embeddings and scoring on tp=2 and dp=2 × tp=2 sharing the card) and
+    ``_mesh_spec_cards`` (prompt lookup, a draft model on rank 0, dp=2 ×
+    tp=2, disagg=2+2 with tp=2 and scoring beside a stream, over NCCL on
+    four). K1, K2 and K2q8 launches are counted on every rank (workers report
     theirs), and K1 and K2 by group on the disaggregated engines."""
     from quorum_tpu_torch.backends.cuda_backend import CudaBackend
     from quorum_tpu_torch.config import Config
@@ -7472,9 +7477,9 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     _require_card_empty(torch, cpu, "mesh (a)")
 
     leg_s = {}
-    # One card: (a)–(g), (i)–(k), (m), (n), (r) and (t); --mesh-cards-only
-    # runs the legs over cards of their own alone ((h), (l), (o), (p), (q),
-    # (s), (u)), against the same reference.
+    # One card: (a)–(g), (i)–(k), (m), (n), (r), (t) and (v); --mesh-cards-
+    # only runs the legs over cards of their own alone ((h), (l), (o), (p),
+    # (q), (s), (u), (w)), against the same reference.
     if not cards_only:
         # (a) A one-rank NCCL mesh (gloo on the CPU rehearsal).
         zero()
@@ -7735,6 +7740,12 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
         out["t_memory_knobs_gloo"] = _mesh_memory_knobs(torch, cpu, tiny, model, two, zero,
                                                         add)
         leg_s["t"] = time.perf_counter() - t0
+        # (v) speculation (prompt lookup, an oracle draft), embeddings and
+        # scoring on tp=2 and dp=2 × tp=2 (ranks sharing the card over gloo).
+        t0 = time.perf_counter()
+        out["v_spec_forwards_gloo"] = _mesh_spec_forwards(torch, cpu, tiny, model, two, zero,
+                                                          add)
+        leg_s["v"] = time.perf_counter() - t0
     if n_cards >= 2:
         t0 = time.perf_counter()
         out["o_disagg_cards"] = _mesh_disagg_cards(torch, cpu, model, zero, add)
@@ -7760,10 +7771,13 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
         t0 = time.perf_counter()
         out["u_memory_knobs_cards"] = _mesh_memory_cards(torch, cpu, model, card, zero, add)
         leg_s["u"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["w_spec_cards"] = _mesh_spec_cards(torch, cpu, model, card, zero, add)
+        leg_s["w"] = time.perf_counter() - t0
     else:
-        print(f"mesh: legs (p), (q), (s) and (u), pp=4 training, disagg=2+2 with tp=2, int8 "
-              f"members and the memory knobs on dp=2 × tp=2 over NCCL at 32 layers, need four "
-              f"cards; this machine has {n_cards}", flush=True)
+        print(f"mesh: legs (p), (q), (s), (u) and (w), pp=4 training, disagg=2+2 with tp=2, "
+              f"int8 members, the memory knobs and speculation on dp=2 × tp=2 over NCCL at 32 "
+              f"layers, need four cards; this machine has {n_cards}", flush=True)
     out["disagg_launches_by_group"] = by_group
     out["new_leg_s"] = {k: round(v, 3) for k, v in leg_s.items()}
     emit("mesh", new_leg_s=out["new_leg_s"])
@@ -8877,26 +8891,31 @@ def _mesh_int8_members(torch, cpu, tiny, model, two, app_for, zero, add) -> dict
                 for name, fn in fns.items()}
 
     out = {}
-    for part, layers, knobs, jobs_of in (
-            ("members_int8", 4, dict(n_slots=2, quant="int8", kv_quant="int8", members=2),
-             lambda p: [(p[0], 0), (p[1], 1)]),
-            ("ensemble", 2, dict(n_slots=4, quant="int8", ensemble=2),
-             lambda p: [(p[0], 0), (p[1], 0)])):
+    parts = (("members_int8", 4, dict(n_slots=2, quant="int8", kv_quant="int8", members=2),
+              lambda p: [(p[0], 0), (p[1], 1)]),
+             ("ensemble", 2, dict(n_slots=4, quant="int8", ensemble=2),
+              lambda p: [(p[0], 0), (p[1], 0)]))
+    # Every part's twin and tp=2 engine built at once (a gloo engine's build
+    # is most of its worker processes' start).
+    t0 = time.perf_counter()
+    built = iter(_build_concurrently([
+        (lambda spec=spec_of(layers), knobs=knobs, mesh=mesh:
+         InferenceEngine(spec, **({"mesh": tp2()} if mesh else {"device": dev}), decode_chunk=8,
+                         seed=0, **knobs))
+        for _, layers, knobs, _ in parts for mesh in (False, True)]))
+    build_s = time.perf_counter() - t0
+    for part, layers, knobs, jobs_of in parts:
         spec = spec_of(layers)
         prompts = [[gen.randrange(spec.vocab_size) for _ in range(k)] for k in (57, 300)]
         knobs = dict(knobs, decode_chunk=8, seed=0)
+        twin, eng = next(built), next(built)
         t0 = time.perf_counter()
-        twin = InferenceEngine(spec, device=dev, **knobs)
         want, _ = _greedy_streams(twin, jobs_of(prompts), n_tok)
         twin_s = time.perf_counter() - t0
         twin.shutdown()
         del twin
-        _require_card_empty(torch, cpu, f"mesh (r) {part} twin")
         zero()
         since = {name: fn.launches for name, fn in fns.items()}
-        t0 = time.perf_counter()
-        eng = InferenceEngine(spec, mesh=tp2(), **knobs)
-        build_s = time.perf_counter() - t0
         got, secs = _greedy_streams(eng, jobs_of(prompts), n_tok)
         row = {"layers": layers, **{k: v for k, v in knobs.items() if k != "seed"},
                "twin_s": round(twin_s, 3), "build_s": round(build_s, 3),
@@ -8935,9 +8954,9 @@ def _mesh_int8_members(torch, cpu, tiny, model, two, app_for, zero, add) -> dict
         add(reports)
         eng.shutdown()
         del eng
-        _require_card_empty(torch, cpu, f"mesh (r) {part}")
         out[part] = row
         emit("mesh", leg=f"r_{part}", **row)
+    _require_card_empty(torch, cpu, "mesh (r)")
     return out
 
 
@@ -9476,6 +9495,438 @@ def _mesh_memory_cards(torch, cpu, model, card: str, zero, add, cards=None) -> d
     return out
 
 
+# Legs (v) and (w): a forward on a mesh against one card's — each
+# embedding's cosine, the scoring log-probabilities' mean and largest
+# difference — within the surfaces phase's K1-against-plain bounds (tp sums
+# the same bf16 products in another order, K1 runs at each rank's heads).
+MESH_FORWARD_COSINE = SURFACES_COSINE_PLAIN
+MESH_FORWARD_LP_MEAN = SURFACES_LP_MEAN_TOL
+MESH_FORWARD_LP_MAX = SURFACES_LP_MAX_TOL
+
+
+def _hold_spec(what: str, plain, got: list[int], tol: float) -> dict:
+    """A speculated greedy stream ``got`` against the same engine's plain
+    stream of the same request (``_lp_stream``: tokens and top-20 records;
+    a logprobs request drafts nothing): equal, or parted where the served
+    token is in the plain step's top-20 within ``tol`` of the plain token's
+    log-probability (a near-tie the verify turn's plain attention and K2
+    decide apart: ``SPEC_TIE_TOL``, the spec phase's audit bound); not
+    compared past it."""
+    want = list(plain[0])
+    if got == want:
+        return {"equal": True, "tokens": len(got)}
+    i = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    require(i is not None, f"{what}: streams differ in length only ({len(want)} vs {len(got)})")
+    _, ids, lps = plain[1][i]
+    lp = dict(zip((int(x) for x in ids), (float(x) for x in lps)))
+    require(got[i] in lp, f"{what}: step {i} served {got[i]}, not in the plain step's top-20")
+    gap = lp[want[i]] - lp[got[i]]
+    require(gap <= tol, f"{what}: step {i} served {got[i]} over {want[i]} (log-probability "
+                        f"gap {gap} > {tol})")
+    return {"equal": False, "tokens": len(got), "first_divergence": i, "gap": gap}
+
+
+def _alphabet_prompt(gen, vocab: int, n: int, k: int = 4) -> list[int]:
+    """``n`` tokens drawn from an alphabet of ``k`` random ids: every 2-gram
+    of the alphabet recurs in it (``_alphabet_bias`` keeps a stream on it)."""
+    alpha = [gen.randrange(vocab) for _ in range(k)]
+    return [gen.choice(alpha) for _ in range(n)]
+
+
+def _alphabet_bias(torch, vocab: int, prompt: list[int]) -> "torch.Tensor":
+    """A ``[V]`` logit bias of +``ALPHABET_BIAS`` on the tokens of
+    ``prompt`` (an ``_alphabet_prompt``'s few): a random-weight model's
+    greedy stream then picks among them, its own logits deciding which, so
+    every turn finds its last 2-gram in the history and prompt lookup
+    drafts (biased rows draft); whether a draft is accepted is the model's."""
+    row = torch.zeros(vocab)
+    row[sorted(set(prompt))] = ALPHABET_BIAS
+    return row
+
+
+# The logit bias that keeps a random-weight model's greedy stream on a
+# prompt's alphabet (``_alphabet_bias``): above any logit gap of theirs.
+ALPHABET_BIAS = 30.0
+
+
+def _spec_rows(what: str, eng, prompts, n: int, tol: float, bias=None) -> tuple[list, dict]:
+    """Each prompt's plain stream (logprobs: no verify turn runs for it,
+    checked), then its speculated stream, held by ``_hold_spec``, each with
+    ``bias(prompt)``'s logit bias when given; the spec counters the
+    speculated streams moved, acceptance and tokens per turn (one row at a
+    time)."""
+    keys = ("spec_turns_total", "spec_draft_tokens_total", "spec_accepted_total")
+    rows, moved = [], {k: 0 for k in keys}
+    for i, p in enumerate(prompts):
+        b = None if bias is None else bias(p)
+        m0 = eng.metrics()
+        plain = _lp_stream(eng, p, n, bias=b)
+        m1 = eng.metrics()
+        require(m1["spec_turns_total"] == m0["spec_turns_total"],
+                f"{what} prompt {i}: the plain twin ran verify turns")
+        got = _lp_stream(eng, p, n, logprobs=-1, bias=b)
+        m2 = eng.metrics()
+        for k in keys:
+            moved[k] += m2[k] - m1[k]
+        rows.append({"prompt_tokens": len(p), "plain_s": round(plain[2], 4),
+                     "spec_s": round(got[2], 4), **_hold_spec(f"{what} prompt {i}", plain,
+                                                              got[0], tol)})
+    turns, drafted = moved["spec_turns_total"], moved["spec_draft_tokens_total"]
+    require(turns > 0 and drafted > 0, f"{what}: no verify turn drafted ({moved})")
+    moved["acceptance"] = moved["spec_accepted_total"] / drafted
+    moved["tokens_per_turn"] = (moved["spec_accepted_total"] + turns) / turns
+    return rows, moved
+
+
+def _spec_launches(what: str, cpu: bool, layers: int, eng, c0: dict, c1: dict, reports,
+                   draft_layers: int = 0, k1_exact: bool = True) -> dict:
+    """K1, K2 and K2q8 launches of a fresh speculative mesh engine, by rank
+    (rank 0's between ``c0`` and ``c1``, the workers' from their reports):
+    K2 on every rank once per layer per decode and warm-up step (the verify
+    turns run plain attention), rank 0 adding the draft's layers per draft
+    step; with ``k1_exact`` K1 on every rank once per layer per single-shot
+    admission."""
+    m = eng.metrics()
+    got = {k: [c1[k] - c0[k]] + [r["launches"][k] for r in reports] for k in c0}
+    if not cpu:
+        steps = layers * _k2_steps(m)
+        want_k2 = [steps + draft_layers * m["spec_draft_steps_total"]] + [steps] * len(reports)
+        require(got["flash_decode"] == want_k2 and steps > 0,
+                f"{what}: K2 launches by rank {got['flash_decode']} != {want_k2}")
+        require(not any(got["flash_decode_q8"]), f"{what}: K2q8 launched on a bf16 cache")
+        if k1_exact:
+            want_k1 = [layers * m["admission_dispatches_total"]] * (1 + len(reports))
+            require(got["flash_prefill"] == want_k1,
+                    f"{what}: K1 launches by rank {got['flash_prefill']} != {want_k1}")
+    return got
+
+
+def _spec_forwards_spec(model: str, tiny: bool):
+    from quorum_tpu_torch.models.model_config import resolve_spec
+
+    return resolve_spec(model, {**({"head_dim": "64", "dtype": "bfloat16"} if tiny else {}),
+                                "n_layers": "2"})
+
+
+def _spec_forwards_makers(cpu, tiny, model, two) -> list:
+    """Leg (v)'s engines: the one-card engine, ``tp=2&spec_decode=4``, tp=2
+    with the oracle draft and ``dp=2&tp=2&spec_decode=4`` (gloo, sharing
+    the card), 2 layers, 4 slots."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.parallel import MeshConfig, make_mesh
+
+    dev = "cpu" if cpu else "cuda:0"
+    spec = _spec_forwards_spec(model, tiny)
+    base = dict(n_slots=4, decode_chunk=8, seed=0)
+
+    def mesh(**axes):
+        cfg = MeshConfig(**axes)
+        return make_mesh(cfg, two[:1] * cfg.n_devices, backend="gloo",
+                         timeout_s=MESH_GROUP_TIMEOUT_S)
+
+    return [lambda: InferenceEngine(spec, device=dev, **base),
+            lambda: InferenceEngine(spec, mesh=mesh(tp=2), spec_decode=4, **base),
+            lambda: InferenceEngine(spec, mesh=mesh(tp=2), spec_decode=4, draft_spec=spec,
+                                    draft_seed=0, **base),
+            lambda: InferenceEngine(spec, mesh=mesh(dp=2, tp=2), spec_decode=4, **base)]
+
+
+def _mesh_spec_forwards(torch, cpu, tiny, model, two, zero, add) -> dict:
+    """Leg (v), one card: speculation, embeddings and scoring on meshes
+    whose ranks share the card over gloo (eager decode), at llama-3-8b
+    widths, 2 layers, bf16, 4 slots: (1) ``tp=2&spec_decode=4``, (2)
+    ``tp=2`` with an oracle draft (the target's own spec and seed:
+    ``draft_spec=``, ``draft_seed=``; the draft whole on rank 0), (3)
+    ``dp=2&tp=2&spec_decode=4``. Each serves two prompts over a 4-token
+    alphabet (one single-shot, one past a 512-token segment; lookup streams
+    kept on the alphabet by ``_alphabet_bias``) greedy, speculated, held
+    against the same engine's plain stream of the same request
+    (``_hold_spec``); the spec counters (verify turns that drafted; the
+    oracle accepts); K2 on every rank once per layer per decode step, rank
+    0 adding the draft's layers per draft step (``_spec_launches``). (4) One
+    embeddings batch and one scoring request on (1)'s engine against the
+    one-card engine's: each vector's cosine and the log-probabilities'
+    mean and largest difference within ``MESH_FORWARD_*``; K1 once per
+    layer per forward sub-batch on both ranks. The four engines are built
+    at once (``_spec_forwards_makers``)."""
+    from quorum_tpu_torch.engine import embed as embed_mod
+    from quorum_tpu_torch.engine import score as score_mod
+
+    spec = _spec_forwards_spec(model, tiny)
+    tol = SPEC_TIE_TOL[spec.dtype]
+    n_tok = 24
+    gen = random.Random(41)
+
+    prompts = [_alphabet_prompt(gen, spec.vocab_size, n) for n in ((24, 100) if tiny
+                                                                  else (64, 640))]
+    lens_in = (5, 20, 60, 100) if tiny else (5, 60, 300, 700)
+    inputs = [[gen.randrange(spec.vocab_size) for _ in range(k)] for k in lens_in]
+    scored = [[gen.randrange(spec.vocab_size) for _ in range(k)]
+              for k in ((10, 60) if tiny else (40, 500))]
+    def bias(p):
+        return _alphabet_bias(torch, spec.vocab_size, p)
+
+    out = {"layers": spec.n_layers, "dtype": spec.dtype, "tie_tol": tol, "tokens": n_tok,
+           "lookup_bias": ALPHABET_BIAS}
+    zero()
+    t0 = time.perf_counter()
+    one, tp, dr, dp = _build_concurrently(_spec_forwards_makers(cpu, tiny, model, two))
+    out["build_s"] = round(time.perf_counter() - t0, 3)
+    reports_all = []
+    try:
+        for part, eng, draft_layers in (("tp2_lookup", tp, 0), ("tp2_draft", dr, spec.n_layers),
+                                        ("dp2_tp2_lookup", dp, 0)):
+            t0 = time.perf_counter()
+            c0 = _launch_counts()
+            rows, moved = _spec_rows(f"mesh (v) {part}", eng, prompts, n_tok, tol,
+                                     None if draft_layers else bias)
+            c1 = _launch_counts()
+            reports = eng.rank_reports()
+            m = eng.metrics()
+            if draft_layers:
+                require(moved["spec_accepted_total"] > 0 and m["spec_draft_steps_total"] > 0,
+                        f"mesh (v) {part}: the oracle draft accepted nothing ({moved})")
+            launches = _spec_launches(f"mesh (v) {part}", cpu, spec.n_layers, eng, c0, c1,
+                                      reports, draft_layers, k1_exact=eng.mesh.shape["dp"] == 1)
+            out[part] = {"streams": rows, **moved, "launches_by_rank": launches,
+                         "decode_steps": _k2_steps(m),
+                         "draft_steps": m["spec_draft_steps_total"],
+                         "verify_keys": sorted({str(k) for k in eng.dispatched_keys
+                                                if not isinstance(k[0], int)}),
+                         "seconds": round(time.perf_counter() - t0, 3)}
+            emit("mesh", leg=f"v_{part}", **out[part])
+            if eng is not tp:
+                reports_all += reports
+                eng.shutdown()
+        # (4) The forwards on (1)'s engine, then the one-card engine's.
+        t0 = time.perf_counter()
+        c0, r0 = _launch_counts(), tp.rank_reports()
+        emb = embed_mod.embed_token_batch(tp, inputs)
+        sc = score_mod.score_token_batch(tp, scored, top_k=1)
+        c1, r1 = _launch_counts(), tp.rank_reports()
+        fw_s = time.perf_counter() - t0
+        n_fw = (len(embed_mod.row_groups(spec, [max(len(t), 1) for t in inputs]))
+                + len(embed_mod.row_groups(spec, [len(t) for t in scored])))
+        k1 = [c1["flash_prefill"] - c0["flash_prefill"]] + [
+            b["launches"]["flash_prefill"] - a["launches"]["flash_prefill"]
+            for a, b in zip(r0, r1)]
+        require(cpu or k1 == [spec.n_layers * n_fw] * 2,
+                f"mesh (v) forwards: K1 launches by rank {k1} for {n_fw} forwards")
+        emb1 = embed_mod.embed_token_batch(one, inputs)
+        sc1 = score_mod.score_token_batch(one, scored, top_k=1)
+        cos = (emb * emb1).sum(dim=-1)
+        diffs = [abs(a - b) for g, w in zip(sc, sc1)
+                 for a, b in zip(g["token_logprobs"][1:], w["token_logprobs"][1:])]
+        lp_max, lp_mean = max(diffs), sum(diffs) / len(diffs)
+        require(float(cos.min()) >= MESH_FORWARD_COSINE,
+                f"mesh (v) forwards: embedding cosines {cos.tolist()} < {MESH_FORWARD_COSINE}")
+        require(lp_max <= MESH_FORWARD_LP_MAX and lp_mean <= MESH_FORWARD_LP_MEAN,
+                f"mesh (v) forwards: scoring log-probabilities differ by {lp_max} (mean "
+                f"{lp_mean}; bounds {MESH_FORWARD_LP_MAX}, {MESH_FORWARD_LP_MEAN})")
+        out["tp2_forwards"] = {
+            "inputs": [len(t) for t in inputs], "scored": [len(t) for t in scored],
+            "forwards": n_fw, "k1_by_rank": k1, "seconds": round(fw_s, 3),
+            "cosine_min": float(cos.min()), "logprob_max_diff": lp_max,
+            "logprob_mean_diff": lp_mean,
+            "bounds": {"cosine": MESH_FORWARD_COSINE, "lp_max": MESH_FORWARD_LP_MAX,
+                       "lp_mean": MESH_FORWARD_LP_MEAN}}
+        emit("mesh", leg="v_tp2_forwards", **out["tp2_forwards"])
+        reports_all += tp.rank_reports()
+    finally:
+        for eng in (one, tp, dr, dp):
+            eng.shutdown()
+    add(reports_all)
+    del one, tp, dr, dp
+    _require_card_empty(torch, cpu, "mesh (v)")
+    return out
+
+
+def _mesh_spec_cards(torch, cpu, model, card: str, zero, add, cards=None) -> dict:
+    """Leg (w), four cards, NCCL at llama-3-8b's 32 layers, bf16, 4 slots,
+    every rank decoding from graphs: (1) ``tp=2&spec_decode=4``, (2)
+    ``tp=2&spec_model=llama-3.2-1b`` (the draft whole on rank 0; random
+    weights, so acceptance near 0 is expected), (3)
+    ``dp=2&tp=2&spec_decode=4``, (4) ``disagg=2+2&tp=2&spec_decode=4``, one
+    at a time: a 1 500-token prompt over a 4-token alphabet (history bucket
+    2 048; lookup streams kept on it by ``_alphabet_bias``) greedy for 64
+    tokens, speculated, held against the same engine's plain
+    stream (``_hold_spec``); device ms per verify turn and per plain
+    8-step dispatch (each replay's CUDA events, ``_observe_device_time``),
+    tokens per turn and acceptance; K2 on every rank once per layer per
+    decode and warm-up step, rank 0 adding the draft's layers per draft
+    step (``_spec_launches``). (5) On (1)'s engine an 8 × 2 048 scoring
+    request while a speculated stream decodes: the stream's longest gap
+    beside the forward against its longest before it, the forward's
+    seconds, K1 once per layer per sub-batch on both ranks, and its first
+    prompt's log-probabilities against the engine's plain-attention
+    scoring of that prompt within ``MESH_FORWARD_*``."""
+    import threading
+
+    from quorum_tpu_torch.engine import embed as embed_mod
+    from quorum_tpu_torch.engine import score as score_mod
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.parallel import MeshConfig, make_mesh
+    from quorum_tpu_torch.parallel.mesh import disagg_meshes
+
+    cards = cards or [f"cuda:{i}" for i in range(4)]
+    spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16"} if cpu else {})
+    draft = resolve_spec("llama-tiny" if cpu else "llama-3.2-1b",
+                         {**({"head_dim": "64", "dtype": "bfloat16"} if cpu else {}),
+                          "max_seq": str(spec.max_seq), "vocab_size": str(spec.vocab_size),
+                          "sliding_window": str(spec.sliding_window)})
+    tol = SPEC_TIE_TOL[spec.dtype]
+    gen = random.Random(43)
+    prompt = _alphabet_prompt(gen, spec.vocab_size, 72 if cpu else 1500)
+    n_tok = 16 if cpu else 64
+    n_rows, row_len = (4, 64) if cpu else (8, 2048)
+    scored = [[gen.randrange(spec.vocab_size) for _ in range(row_len)] for _ in range(n_rows)]
+    base = dict(n_slots=4, decode_chunk=8, seed=0, spec_decode=4)
+
+    def bias(p):
+        return _alphabet_bias(torch, spec.vocab_size, p)
+
+    def mesh(axes, devs):
+        return make_mesh(MeshConfig(**axes), devs, timeout_s=MESH_GROUP_TIMEOUT_S)
+
+    def disagg():
+        pm, dm = disagg_meshes(2, 2, cards, tp=2)
+        return InferenceEngine(spec, mesh=dm, prefill_mesh=pm, **base)
+
+    makers = (
+        ("tp2_lookup", 0, lambda: InferenceEngine(spec, mesh=mesh(dict(tp=2), cards[:2]),
+                                                  **base)),
+        ("tp2_draft", draft.n_layers,
+         lambda: InferenceEngine(spec, mesh=mesh(dict(tp=2), cards[:2]), draft_spec=draft,
+                                 draft_seed=0, **base)),
+        ("dp2_tp2_lookup", 0, lambda: InferenceEngine(spec, mesh=mesh(dict(dp=2, tp=2), cards),
+                                                      **base)),
+        ("disagg_2p2_tp2_lookup", 0, disagg))
+    out = {"layers": spec.n_layers, "draft_layers": draft.n_layers, "prompt_tokens": len(prompt),
+           "tokens": n_tok, "tie_tol": tol, "measured_on": card}
+    for part, draft_layers, make in makers:
+        zero()
+        t0 = time.perf_counter()
+        eng = make()
+        build_s = time.perf_counter() - t0
+        times: list[tuple[str, float]] = []
+        observe = eng._observe_device_time
+
+        def timed(family, seconds, observe=observe):
+            times.append((family, seconds))
+            observe(family, seconds)
+
+        eng._observe_device_time = timed
+        try:
+            t0 = time.perf_counter()
+            c0 = _launch_counts()
+            rows, moved = _spec_rows(f"mesh (w) {part}", eng, [prompt], n_tok, tol,
+                                     None if draft_layers else bias)
+            c1 = _launch_counts()
+            reports = eng.rank_reports()
+            m = eng.metrics()
+            launches = _spec_launches(f"mesh (w) {part}", cpu, spec.n_layers, eng, c0, c1,
+                                      reports, draft_layers,
+                                      k1_exact=not eng.disagg and eng.mesh.shape["dp"] == 1)
+            fams: dict[str, list[float]] = {}
+            for fam, s in times:
+                fams.setdefault(fam, []).append(1e3 * s)
+            spec_fam = "spec_loop" if draft_layers else "verify"
+            require(cpu or fams.get(spec_fam), f"mesh (w) {part}: no {spec_fam} replay timed")
+            if not cpu:
+                require(m["decode_graph_captures_total"] > 0,
+                        f"mesh (w) {part}: the engine captured no graph")
+            row = {"build_s": round(build_s, 3), "streams": rows, **moved,
+                   "ms_per_verify_turn": (statistics.median(fams[spec_fam])
+                                          if fams.get(spec_fam) else None),
+                   "verify_turns_timed": len(fams.get(spec_fam, [])),
+                   "ms_per_plain_dispatch": (statistics.median(fams["plain"])
+                                             if fams.get("plain") else None),
+                   "plain_steps_per_dispatch": eng.decode_chunk,
+                   "decode_steps": _k2_steps(m), "draft_steps": m["spec_draft_steps_total"],
+                   "captures": m["decode_graph_captures_total"],
+                   "launches_by_rank": launches}
+            if eng.disagg:
+                row["kv_handoffs"] = m["kv_handoffs_total"]
+                row["prefill_launches_by_rank"] = [
+                    r["launches"] for r in eng.prefill_rank_reports()]
+            if part == "tp2_lookup":
+                row["beside_scoring"] = _scoring_beside_stream(
+                    torch, cpu, eng, spec, prompt, scored, c1, reports, embed_mod, score_mod,
+                    SamplerConfig, threading)
+            row["seconds"] = round(time.perf_counter() - t0, 3)
+            out[part] = row
+            emit("mesh", leg=f"w_{part}", **row)
+            add(eng.rank_reports() + (eng.prefill_rank_reports() if eng.disagg else []))
+        finally:
+            eng.shutdown()
+        del eng
+        _require_card_empty(torch, cpu, f"mesh (w) {part}")
+    return out
+
+
+def _scoring_beside_stream(torch, cpu, eng, spec, prompt, scored, c1, reports, embed_mod,
+                           score_mod, SamplerConfig, threading) -> dict:
+    """Leg (w) (5): a speculated greedy stream on ``eng``, then (once it has
+    48 tokens) the scoring request of ``scored``: the stream's longest gap
+    between tokens while the forward runs against its longest between its
+    16th token and the forward (past its first dispatches' captures), the
+    forward's seconds and sub-batches, K1 once per layer per sub-batch on
+    both ranks, and the first row's log-probabilities against the engine's
+    plain-attention scoring of it."""
+    live = eng.submit(prompt, max_new_tokens=512, sampler=SamplerConfig(temperature=0.0))
+    times: list[float] = []
+    stop = threading.Event()
+
+    def consume():
+        it = eng.stream_results(live)
+        for _ in it:
+            times.append(time.perf_counter())
+            if stop.is_set():
+                break
+        it.close()
+
+    th = threading.Thread(target=consume, daemon=True)
+    th.start()
+    deadline = time.perf_counter() + SERVE_TIMEOUT_S
+    while len(times) < 48 and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    require(len(times) >= 48, "mesh (w): the live stream did not start")
+    groups = len(embed_mod.row_groups(spec, [len(t) for t in scored],
+                                      embed_mod.forward_budget(eng)))
+    k0, r0 = _launch_counts()["flash_prefill"], eng.rank_reports()
+    t_sub = time.perf_counter()
+    got = score_mod.score_token_batch(eng, scored, top_k=1)
+    t_done = time.perf_counter()
+    k1 = [_launch_counts()["flash_prefill"] - k0] + [
+        b["launches"]["flash_prefill"] - a["launches"]["flash_prefill"]
+        for a, b in zip(r0, eng.rank_reports())]
+    n_done = len(times)
+    while len(times) < n_done + 8 and th.is_alive() and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    stop.set()
+    th.join(timeout=SERVE_TIMEOUT_S)
+    require(not th.is_alive(), "mesh (w): the live stream did not stop")
+    require(cpu or k1 == [spec.n_layers * groups] * 2,
+            f"mesh (w): K1 launches by rank {k1} for {groups} scoring sub-batches")
+    before = [b - a for a, b in zip(times[16:], times[17:]) if b <= t_sub]
+    beside = [b - a for a, b in zip(times, times[1:]) if b > t_sub and a < t_done]
+    ref = score_mod.score_token_batch(eng, scored[:1], top_k=1, plain_attention=True)[0]
+    diffs = [abs(a - b) for a, b in zip(got[0]["token_logprobs"][1:],
+                                        ref["token_logprobs"][1:])]
+    lp_max, lp_mean = max(diffs), sum(diffs) / len(diffs)
+    require(lp_max <= MESH_FORWARD_LP_MAX and lp_mean <= MESH_FORWARD_LP_MEAN,
+            f"mesh (w): scoring log-probabilities differ from the plain attention's by "
+            f"{lp_max} (mean {lp_mean})")
+    return {"rows": len(scored), "row_tokens": len(scored[0]), "sub_batches": groups,
+            "forward_s": round(t_done - t_sub, 4), "k1_by_rank": k1,
+            "live_max_gap_before_s": max(before) if before else None,
+            "live_max_gap_beside_s": max(beside) if beside else None,
+            "live_tokens_beside": sum(1 for t in times if t_sub < t <= t_done),
+            "logprob_max_diff_plain": lp_max, "logprob_mean_diff_plain": lp_mean}
+
+
 def total_model_bytes(spec) -> int:
     """The whole model's weight bytes (``init_params`` on the meta device)."""
     from quorum_tpu_torch.models.init import init_params
@@ -9550,7 +10001,7 @@ def main(argv=None) -> int:
                          "a second round of the serve requests with torch.profiler")
     ap.add_argument("--mesh-cards-only", action="store_true",
                     help="the mesh phase's legs over cards of their own alone "
-                         "(h, l, o, p, q, s, u)")
+                         "(h, l, o, p, q, s, u, w)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 

@@ -208,8 +208,17 @@ URL grammar:  ``cuda://<model-id>?<spec overrides>&<engine options>``
                    kv_quant are refused by name, members, ensemble,
                    response_format, kv_pages, zero_drain and (sp)
                    prefix_store in the JAX engine's words, prefix_store
-                   on pp by name. Speculation, embeddings and scoring are
-                   refused on it (not yet on a multi-rank engine)
+                   on pp by name. dp and tp (and disagg tp groups: the
+                   decode group) serve spec_decode= (the verify turns at
+                   each rank's heads) and spec_model= (the draft whole on
+                   rank 0, which broadcasts each turn's anchor and drafts;
+                   not beside disagg, kv_pages or members/ensemble, in
+                   the JAX engine's words), /embeddings and scoring (a
+                   forward on rank 0's dp group, each rank at its heads
+                   over process groups of its own beside the ring's);
+                   under sp they are refused by name, under pp
+                   speculation in the JAX engine's words and the forwards
+                   by name
 
 Any other option is a ValueError naming it, before an engine is built —
 including the ``tpu://`` options the port does not serve yet
@@ -1262,12 +1271,12 @@ class CudaBackend:
         final-norm hidden states, L2-normalised; ``dimensions`` truncates
         then renormalises; an input past ``max_seq`` keeps its head."""
         from quorum_tpu_torch.engine.embed import (MAX_BATCH, embed_token_batch,
-                                                   forward_tokens_error)
+                                                   forward_mesh_error, forward_tokens_error)
 
         effective = prepare_body(body, self.model)  # 400 when no model anywhere
-        if getattr(self.engine, "mesh", None) is not None:
-            raise _invalid_request("embeddings are not yet on a multi-rank engine "
-                                   "(dp=/tp=/sp= backends)")
+        refused = forward_mesh_error(getattr(self.engine, "mesh", None))
+        if refused:
+            raise _invalid_request(refused)
         token_lists = [self.tokenizer.encode(x) if isinstance(x, str) else x
                        for x in self._token_inputs(body.get("input"), "input", MAX_BATCH)]
         spec = self.engine.spec
@@ -1402,7 +1411,8 @@ class CudaBackend:
         chat plan over the raw prompt ids (no template). At most 8 prompts
         when generating (one slot each), 64 when only scoring; one deadline
         covers both phases."""
-        from quorum_tpu_torch.engine.embed import MAX_BATCH, forward_tokens_error
+        from quorum_tpu_torch.engine.embed import (MAX_BATCH, forward_mesh_error,
+                                                   forward_tokens_error)
         from quorum_tpu_torch.engine.score import score_token_batch
 
         effective = prepare_body(body, self.model)
@@ -1416,9 +1426,9 @@ class CudaBackend:
         if not isinstance(mt, int) or isinstance(mt, bool) or mt < 0:
             raise _invalid_request(f"Invalid value for 'max_tokens': {mt!r} (integer >= 0)")
         scoring = echo and lp is not None
-        if scoring and getattr(self.engine, "mesh", None) is not None:
-            raise _invalid_request("prompt scoring (echo with logprobs) is not yet on a "
-                                   "multi-rank engine (dp=/tp=/sp= backends)")
+        refused = forward_mesh_error(getattr(self.engine, "mesh", None))
+        if scoring and refused:
+            raise _invalid_request(refused)
         if mt == 0 and not scoring:
             raise _invalid_request(
                 "'max_tokens': 0 requires 'echo': true with 'logprobs' set (the pure "

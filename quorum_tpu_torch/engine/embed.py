@@ -16,6 +16,18 @@ forward stream (``engine.forward_scope``), through K1 for attention, and
 the host waits only to fetch the pooled vectors. Stacked engines select
 one weight set with ``member_params``; int8 engines run unchanged.
 
+On a multi-rank engine (dp and tp; disaggregated engines: the decode
+group) every forward runs on rank 0's dp group: rank 0 sends the padded
+tokens and lengths to the workers (``engine.forward_ranks``, a side plan
+of ``engine/follower.Follower.forward``), each rank runs
+``forward_hidden`` at its heads over the forward groups of its own
+(``parallel/comm.StreamMesh``), one sub-batch at a time with the decode
+ring parked at a turn boundary, and rank 0 pools (here) or scores
+(``engine/score.py``, through ``unembed`` on the vocab-cut head,
+all-gathered over tp). A stacked engine's ``member``
+picks that member's cut on every rank. Under sp and pp the forwards are
+refused by name (:func:`forward_mesh_error`).
+
 A request whose padded batch holds more than ``FORWARD_TOKENS`` tokens
 (``FORWARD_TOKENS_BUSY`` while the engine decodes: :func:`forward_budget`)
 runs as whole-row sub-batches (rows sorted by length, each sub-batch at
@@ -39,6 +51,7 @@ from __future__ import annotations
 import torch
 
 from quorum_tpu_torch.models.transformer import forward_hidden, member_params
+from quorum_tpu_torch.parallel.mesh import AXIS_PP, AXIS_SP
 
 # Requests above this many inputs are refused at the API layer; buckets stop
 # here.
@@ -129,7 +142,7 @@ def row_groups(spec, lens: list[int], budget: int | None = None) -> list[list[in
     return groups
 
 
-def padded_batch(spec, token_lists: list[list[int]], rows: list[int], device,
+def padded_batch(spec, token_lists: list[list[int]], rows: list[int], device="cpu",
                  min_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """(tokens [b_bucket, t_bucket] long, lengths [b_bucket] int32) on
     ``device`` for ``rows`` of ``token_lists``; pad rows have length 0 and
@@ -145,13 +158,33 @@ def padded_batch(spec, token_lists: list[list[int]], rows: list[int], device,
     return tokens.to(device), lengths.to(device)
 
 
+def forward_member(engine, member: int) -> int | None:
+    """The weight set index a forward names: ``member`` on a stacked
+    engine, None otherwise."""
+    return member if engine.members > 1 or engine.ensemble > 1 else None
+
+
+def forward_mesh_error(mesh) -> str | None:
+    """Why embeddings and scoring cannot run on an engine over ``mesh`` (a
+    ``parallel/mesh.Mesh``, or None), or None: dp and tp serve them; under
+    sp and pp (where the JAX engine serves them) they are refused by name."""
+    cut = [] if mesh is None else [f"{axis}>1" for axis in (AXIS_SP, AXIS_PP)
+                                   if mesh.shape[axis] > 1]
+    if not cut:
+        return None
+    return (f"embeddings and scoring: not yet on a multi-rank engine with "
+            f"{' and '.join(cut)} (dp and tp serve them)")
+
+
 def engine_params(engine, member: int):
     """The weight set a forward runs: member ``member`` of a stacked engine
-    (views, no copy), the engine's params otherwise. A multi-rank engine's
-    params are one rank's shard: refused."""
-    if getattr(engine, "mesh", None) is not None:
-        raise ValueError("embeddings and scoring: not yet on a multi-rank engine")
-    if engine.members > 1 or engine.ensemble > 1:
+    (views, no copy), the engine's params otherwise — on a multi-rank
+    engine rank 0's cut of it. A ValueError where the engine's mesh does
+    not serve forwards (:func:`forward_mesh_error`)."""
+    refused = forward_mesh_error(getattr(engine, "mesh", None))
+    if refused:
+        raise ValueError(refused)
+    if forward_member(engine, member) is not None:
         return member_params(engine.params, member)
     return engine.params
 
@@ -174,14 +207,18 @@ def embed_token_batch(engine, token_lists: list[list[int]], member: int = 0,
         for rows in row_groups(spec, [max(len(t), 1) for t in clipped],
                                forward_budget(engine)):
             # An empty input is one pad-id token (id 0): length 1.
-            tokens, lengths = padded_batch(spec, clipped, rows, engine.device, min_len=1)
-            h = forward_hidden(params, spec, tokens, lengths,
-                               plain_attention=plain_attention)  # [b, t, D]
-            valid = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-                     < lengths[:, None]).to(torch.float32)
-            pooled = (h.float() * valid[..., None]).sum(dim=1)
-            pooled = pooled / lengths.clamp(min=1).to(torch.float32)[:, None]
-            norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
-            vecs = (pooled / norm.clamp(min=1e-9))[: len(rows)].cpu()
+            tokens, lengths = padded_batch(spec, clipped, rows, min_len=1)
+            with engine.forward_ranks(tokens, lengths, forward_member(engine, member),
+                                      plain_attention=plain_attention) as mesh:
+                tokens, lengths = tokens.to(engine.device), lengths.to(engine.device)
+                h = forward_hidden(params, spec, tokens, lengths,
+                                   plain_attention=plain_attention, mesh=mesh)  # [b, t, D]
+                valid = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+                         < lengths[:, None]).to(torch.float32)
+                pooled = (h.float() * valid[..., None]).sum(dim=1)
+                pooled = pooled / lengths.clamp(min=1).to(torch.float32)[:, None]
+                norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+                vecs = (pooled / norm.clamp(min=1e-9))[: len(rows)]
+            vecs = vecs.cpu()
             out[torch.as_tensor(rows)] = vecs
     return out

@@ -199,6 +199,8 @@ The cache-free forwards (``engine/embed.py``, ``engine/score.py``) run on
 the caller's thread, outside the scheduler, inside :meth:`forward_scope`:
 on the card on a second stream of the engine's own, below the decode
 ring's in priority, at most ``SCORE_GATE_SLOTS`` at once (``score_gate``).
+On a mesh engine each forward sub-batch parks the ring at a turn boundary
+(:meth:`forward_ranks`).
 
 Lifecycle, as the JAX engine's: :meth:`drain` shuts submit (a
 ``QueueFullError`` with ``retry_after`` 1 s) and, with ``park``, retires
@@ -293,10 +295,20 @@ members (each rank its cut of every weight set, its cache rows ``m·S + s``
 for its dp group's slots; ``quorum_dedup`` copies member 0's rows on every
 rank), ensembles (every worker runs each weight set, rank 0 averages the
 logits) and grammars (rank 0 alone holds the arena and the DFA state; the
-workers' steps are the plain ones). Under sp and pp the JAX engine's
-refusals of members, ensembles and grammars hold in its words, and int8
-is refused by name. Speculation, paging, the host store, zero-drain,
-embeddings and scoring are refused (not yet on a multi-rank engine).
+workers' steps are the plain ones). So do paging, the host store and
+zero-drain (the staging stream over process groups of its own). So does
+speculation: a verify turn is ``decode_multi`` at each rank's heads, its
+anchor, drafts, positions and write mask broadcast by rank 0 (the
+workers' ``verify`` plan; over NCCL a graph of its own per width, turns
+and history, with the warm-up turn mirrored); prompt lookup and grammar
+filtering stay on rank 0's host, and a draft model runs whole on rank 0
+(the JAX engine keeps its draft runtime off the mesh too). And so do the
+cache-free forwards: on rank 0's dp group, each rank at its heads over a
+forward stream and tp groups of their own, a sub-batch at a time with the
+ring parked (:meth:`forward_ranks`, ``engine/embed.py``). Under sp and pp the JAX
+engine's refusals of members, ensembles, grammars and (pp) speculation
+hold in its words; int8, speculation on sp and the forwards are refused
+by name.
 
 Pipeline-staged engines (a mesh with pp > 1; the JAX engine's ``pp=K``):
 this rank is stage 0 and holds the embedding, the final norm, the head and
@@ -331,6 +343,7 @@ from quorum_tpu_torch.cache import kv_transfer, prefix_wire
 from quorum_tpu_torch.cache.paging import (PageAllocator, copy_member_pages, init_paged_cache,
                                            paged_copy_page, validate_page_config)
 from quorum_tpu_torch.cache.prefix_store import DEFAULT_PREFIX_STORE_BYTES, PrefixStore
+from quorum_tpu_torch.engine.embed import forward_mesh_error
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.convert import shard_params
 from quorum_tpu_torch.models.init import (check_quant, init_params, init_params_shard,
@@ -1034,6 +1047,17 @@ class InferenceEngine:
         # model's runtime when one proposes the drafts (the JAX engine's
         # guards, word for word).
         self.spec_decode = max(0, min(int(spec_decode), MAX_SPEC_DECODE))
+        if draft_spec is not None:
+            if self.members > 1 or self.ensemble > 1:
+                raise ValueError(
+                    "draft-model decoding (spec_model=/spec_ckpt=) does "
+                    "not compose with members/ensemble engines")
+            if self.spec_decode <= 0:
+                raise ValueError(
+                    "a draft model requires spec_decode > 0 (the backend "
+                    "defaults spec_decode=4 when spec_model=/spec_ckpt= is "
+                    "set and spec_decode= is absent; an explicit 0 means "
+                    "off — drop the draft knob instead)")
         # Paging and the store before any rank starts: their refusals come
         # first, and a mesh's workers build their caches from the pool.
         self._init_paging(kv_pages, kv_page_size, kv_pool_pages, draft_spec)
@@ -1068,16 +1092,8 @@ class InferenceEngine:
                 raise
         self._draft_rt = None
         if draft_spec is not None:
-            if self.members > 1 or self.ensemble > 1:
-                raise ValueError(
-                    "draft-model decoding (spec_model=/spec_ckpt=) does "
-                    "not compose with members/ensemble engines")
-            if self.spec_decode <= 0:
-                raise ValueError(
-                    "a draft model requires spec_decode > 0 (the backend "
-                    "defaults spec_decode=4 when spec_model=/spec_ckpt= is "
-                    "set and spec_decode= is absent; an explicit 0 means "
-                    "off — drop the draft knob instead)")
+            # The draft model runs on this device alone (rank 0 of a mesh;
+            # the workers verify what it drafts).
             self._draft_rt = _DraftRuntime(draft_spec, self.spec, self._rows, self.device,
                                            seed=draft_seed, params=draft_params)
         n_kv, held, layers = None, self.n_slots, None
@@ -1253,6 +1269,10 @@ class InferenceEngine:
         # Embedding and scoring forwards (engine/embed.py, engine/score.py)
         # admitted at once, by the backends' gate.
         self.score_gate = threading.Semaphore(SCORE_GATE_SLOTS)
+        # A mesh engine's forward sub-batches park the scheduler one at a
+        # time (``_ring_parked``).
+        self._fwd_lock = threading.Lock()
+        self._park_want = self._parked = False
         # The drain lifecycle: ``draining`` shuts submit (a retryable 503);
         # with ``_draining_park`` every resident stream is retired at the
         # next scheduler turn with a ``parked`` finish. Replayed tokens are
@@ -1677,6 +1697,70 @@ class InferenceEngine:
             with torch.cuda.device(self.device), torch.cuda.stream(self._fwd_stream):
                 yield
 
+    @contextlib.contextmanager
+    def forward_ranks(self, tokens: torch.Tensor, lengths: torch.Tensor, member: int | None,
+                      spans=(), plain_attention: bool = False) -> Iterator:
+        """Around one cache-free forward sub-batch of rank 0 (inside
+        :meth:`forward_scope`): yields the mesh it runs over. On one device
+        None: the forward runs beside the ring. On a mesh engine (dp and
+        tp) the scheduler first parks at a turn boundary with its streams
+        drained (:meth:`_ring_parked`), the workers of rank 0's dp group get
+        the plan that runs the same forward (host ``tokens [b, t]`` and
+        ``lengths [b]``, the weight set ``member`` of a stacked engine, the
+        scored ``spans``), the body runs over rank 0's forward view
+        (``RankMesh.fwd``: a tp group of its own), and the forward stream
+        drains before the ring resumes. NCCL kernels of two communicators
+        running at once on a rank may each wait for a peer that runs the
+        other first: a forward's all-reduce beside the verify turns' on four
+        H100s hung both ranks, so a forward never runs beside the ring's
+        collectives; a live stream waits one sub-batch at a time."""
+        if self._ranks is None:
+            yield None
+            return
+        with self._ring_parked():
+            self._plan("forward", tokens.numpy(), lengths.numpy(), member, list(spans),
+                       bool(plain_attention))
+            try:
+                yield self._rmesh.fwd
+            finally:
+                if self._fwd_stream is not None:
+                    self._fwd_stream.synchronize()
+
+    @contextlib.contextmanager
+    def _ring_parked(self) -> Iterator[None]:
+        """Hold the scheduler parked at a turn boundary, its ring and
+        staging streams drained (``_park_ring``), for the duration; one
+        holder at a time (``_fwd_lock``)."""
+        with self._fwd_lock:
+            with self._cond:
+                self._park_want = True
+                self._cond.notify_all()
+                while not self._parked:
+                    if self._stop or not self._thread.is_alive():
+                        self._park_want = False
+                        raise RuntimeError("the engine's scheduler is not running")
+                    self._cond.wait(0.05)
+            try:
+                yield
+            finally:
+                with self._cond:
+                    self._park_want = False
+                    self._cond.notify_all()
+
+    def _park_ring(self) -> None:
+        """The scheduler's half of :meth:`_ring_parked`: drain the device
+        work it issued (the dispatches in flight stay in the ring, their
+        outputs ready for their reap), then wait until the holder lets go."""
+        for stream in (self._stream, self._stage_stream):
+            if stream is not None:
+                stream.synchronize()
+        with self._cond:
+            self._parked = True
+            self._cond.notify_all()
+            while self._park_want and not self._stop:
+                self._cond.wait()
+            self._parked = False
+
     def drain(self, park: bool = False) -> dict:
         """Begin a graceful drain: submit sheds with a retryable
         ``QueueFullError`` from now on, and residents either finish
@@ -1787,7 +1871,8 @@ class InferenceEngine:
         the weight sets' seeds on a stacked engine)."""
         self._ranks = RankGroup(mesh, setup=self._follower_setup(mesh, spec, seed, params,
                                                                  n_slots, ckpt, decode=True),
-                                staging=self.zero_drain).spawn()
+                                staging=self.zero_drain,
+                                forward=forward_mesh_error(mesh) is None).spawn()
         try:
             mine = self._rank_weights(spec, mesh, seed, params, ckpt, self.device)
             self._rmesh = self._ranks.join()
@@ -2582,11 +2667,15 @@ class InferenceEngine:
         the staged pieces and registers), then the ring."""
         while True:
             with self._cond:
-                while not (self._stop or self._has_work()):
+                while not (self._stop or self._has_work() or self._park_want):
                     if self.disagg:
                         obs.DECODE_GROUP_ACTIVE.set(sum(1 for r in self._slots
                                                         if r is not None))
                     self._cond.wait()
+            if self._park_want:  # a forward on the ranks (``_ring_parked``)
+                self._park_ring()
+                continue
+            with self._cond:
                 if self._stop and not self._has_work():
                     if not (self.disagg and self._prefill_thread.is_alive()):
                         return
@@ -4299,22 +4388,29 @@ class InferenceEngine:
 
     def _issue(self, key: tuple, program, active, n_steps: int, n_chunks: int,
                constrained: bool, spec_turn: bool = False, drafted: int = 0,
-               warm_up=None) -> _InflightChunk:
+               warm_up=None, history: int | None = None) -> _InflightChunk:
         """Run one dispatch's program (one graph replay on the card, eagerly
         on the CPU) and enqueue the copy of its outputs to the host. A spec
-        dispatch brings the ``warm_up`` of its key family (``key[0]``). On
-        the card a pair of timing events brackets the replay on the engine's
-        stream (outside any capture), read at reap; the flight recorder
-        gets the dispatch event. From here on the dispatch's program runs on
-        the engine's state (``_program_issued``)."""
+        dispatch brings the ``warm_up`` of its key family (``key[0]``) and
+        its verify turns' ``history`` bucket. On the card a pair of timing
+        events brackets the replay on the engine's stream (outside any
+        capture), read at reap; the flight recorder gets the dispatch
+        event. From here on the dispatch's program runs on the engine's
+        state (``_program_issued``)."""
         if self._ranks is not None:
-            # The workers' half: the same steps, and the eager warm-up step
-            # a first capture runs first (mesh dispatches are plain or
-            # paged keys; a paged one's window rides along).
+            # The workers' half: the same steps (a spec dispatch's verify
+            # turns: n_chunks turns of n_steps = g+1 positions), and the
+            # eager warm-up step or turn a first capture runs first (a paged
+            # key's window rides along).
             paged = key[0] == "paged"
-            warm = self._graphs is not None and self._graphs.will_warm(
-                key, ("paged", key[-1]) if paged else None)
-            self._plan("decode", n_steps, n_chunks, warm, key[-1] if paged else None)
+            if spec_turn:
+                warm = self._graphs is not None and self._graphs.will_warm(
+                    key, _spec_family(key))
+                self._plan("verify", n_steps, n_chunks, warm, history)
+            else:
+                warm = self._graphs is not None and self._graphs.will_warm(
+                    key, ("paged", key[-1]) if paged else None)
+                self._plan("decode", n_steps, n_chunks, warm, key[-1] if paged else None)
         self._program_issued = True
         self.dispatched_keys.add(key)
         t_issue = time.perf_counter()
@@ -4482,7 +4578,7 @@ class InferenceEngine:
         return self._issue(key, program, active, g + 1, n_turns, constrained,
                            spec_turn=True, drafted=drafted,
                            warm_up=lambda: self._warm_spec(g, restrict, want_lp, constrained,
-                                                           history))
+                                                           history), history=history)
 
     def _contain_verify_failure(self, active, exc: Exception) -> None:
         """A speculative dispatch failed (fault injection, host-side error)
@@ -4571,7 +4667,7 @@ class InferenceEngine:
         tokens = torch.cat([torch.where(live, token, 0)[:, None], draft.clamp(min=0)], dim=1)
         logits, _, _ = decode_multi(self.params, self.spec, tokens, torch.where(live, lengths, 0),
                                     self._ck, self._cv, write_mask=live, history=history,
-                                    clamp_writes=True, ensemble=self.ensemble)
+                                    clamp_writes=True, ensemble=self.ensemble, mesh=self._rmesh)
         adj = adjust_logits(logits, self._bias[:, None], counts[:, None], self._pp[:, None],
                             self._fp[:, None])                                # [rows, n, V]
         rows = adj.shape[0]
@@ -5345,11 +5441,11 @@ def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
         # The JAX engine serves it there, chunking its pp admissions; the
         # port's pipeline-staged engine admits single-shot.
         raise ValueError(f"prefix_store: {_NOT_ON_MESH} with pp>1 (dp and tp serve it)")
-    if int(spec_decode) > 0 or draft_spec is not None:
-        raise ValueError(f"speculative decoding: {_NOT_ON_MESH} (dp/tp/sp/pp serve the "
-                         "dense and MoE families with the default scheduler; dp and tp "
-                         "also int8, members, ensembles, grammars, kv_pages, "
-                         "prefix_store and zero_drain)")
+    if eng._use_sp and (int(spec_decode) > 0 or draft_spec is not None):
+        # The JAX engine serves it there: a verify turn at width g+1 would
+        # need the ring (or Ulysses) over the turn's positions.
+        raise ValueError(f"speculative decoding: {_NOT_ON_MESH} with sp>1 (dp and tp "
+                         "serve prompt lookup and draft models)")
 
 
 def get_engine(

@@ -13,6 +13,21 @@ arrive — collective for collective what rank 0's engine runs:
   capture) the plan says so and this rank runs one eager step first:
   collective for collective the same sequence. Over gloo (host-staged
   collectives, which no graph captures) it runs eagerly;
+- ``verify``: one speculative dispatch of ``n_turns`` verify turns at
+  width g+1 (a prompt-lookup turn, or a fused draft→verify dispatch whose
+  draft model runs on rank 0 alone): each turn's anchor, drafts, positions
+  and write mask broadcast by rank 0, then ``decode_multi`` at the rank's
+  heads. Over NCCL one replay of a graph per (width, turns, history), its
+  warm-up turn mirrored as ``decode``'s is; the verify turns feed no
+  ``fed`` entries (which tokens a turn accepts only rank 0 knows);
+- ``forward``: an embedding or scoring forward sub-batch of rank 0's
+  padded tokens and lengths — ``forward_hidden`` at the rank's heads (K1
+  on the card), then the unembed of each scored span (its all-gather over
+  tp) — on a forward stream of its own over the forward groups
+  (``parallel/comm.StreamMesh``), once the ring's and the staging stream's
+  work has drained, and drained itself before the next plan: rank 0 parks
+  its ring for it, so no collective of another communicator runs beside
+  it. Ranks of rank 0's dp group only (a forward runs there whole);
 - ``handoff`` (a disaggregated engine's prefill group, whose cache is the
   rank's cut of the staging cache): a staged row's positions sliced and
   all-gathered over tp, so rank 0 holds the piece of every kv head;
@@ -38,7 +53,7 @@ arrive — collective for collective what rank 0's engine runs:
 A zero-drain rank holds a dense staging cache for its dp group's rows at
 its kv heads (dense under ``kv_pages`` too, as the JAX engine's) and runs
 every segment into it on a staging stream of its own, whose collectives go
-over the staging groups (``parallel/comm.StagingMesh``); each segment's
+over the staging groups (``parallel/comm.StreamMesh``); each segment's
 pieces are sliced there right after it, behind an event the ring's stream
 waits on before their injection.
 
@@ -72,9 +87,10 @@ from quorum_tpu_torch.cache.paging import copy_member_pages, init_paged_cache, p
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.convert import params_from_numpy
 from quorum_tpu_torch.models.init import init_params_shard, init_params_stacked_shard
-from quorum_tpu_torch.models.transformer import (broadcast_member_rows, follow_decode_step,
+from quorum_tpu_torch.models.transformer import (broadcast_member_rows, follow_decode_multi,
+                                                 follow_decode_step, forward_hidden,
                                                  host_to_device, init_cache, member_params,
-                                                 prefill, prefill_segment)
+                                                 prefill, prefill_segment, unembed)
 from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
 from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
 from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
@@ -155,10 +171,14 @@ class Follower:
         self._pos = torch.zeros((n,), dtype=torch.int32, device=dev)
         self._wm = torch.zeros((n,), dtype=torch.bool, device=dev)
         self.fed: list[list[int]] = [[] for _ in range(n)]
-        self._stream = self._graphs = self._stage_stream = None
+        # A verify turn's inputs at width g+1 (the broadcast's shapes).
+        self._multi: dict[int, torch.Tensor] = {}
+        self._stream = self._graphs = self._stage_stream = self._fwd_stream = None
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(dev)
             self._stream.wait_stream(torch.cuda.current_stream(dev))
+            self._fwd_stream = torch.cuda.Stream(dev)
+            self._fwd_stream.wait_stream(torch.cuda.current_stream(dev))
             if zero_drain:
                 self._stage_stream = torch.cuda.Stream(dev)
                 self._stage_stream.wait_stream(torch.cuda.current_stream(dev))
@@ -166,9 +186,10 @@ class Follower:
                 self._graphs = DecodeGraphs(dev, self._stream)
 
     @contextlib.contextmanager
-    def _scope(self, stage: bool = False):
-        """No grad, on the ring's stream (``stage``: the staging stream)."""
-        stream = self._stage_stream if stage else self._stream
+    def _scope(self, stage: bool = False, fwd: bool = False):
+        """No grad, on the ring's stream (``stage``: the staging stream,
+        ``fwd``: the forward stream)."""
+        stream = self._stage_stream if stage else self._fwd_stream if fwd else self._stream
         with torch.no_grad():
             if stream is None:
                 yield
@@ -371,6 +392,56 @@ class Follower:
                 if lo <= row % self.rows < hi:
                     self.fed[row].append(int(step[0, row]))
 
+    def _verify_turns(self, width: int, n_turns: int, history: int) -> None:
+        """``n_turns`` verify turns at ``width`` fed by rank 0 (the
+        inputs' shapes from fixed tensors, so a graph reads one address)."""
+        tok = self._multi.get(width)
+        if tok is None:
+            tok = self._multi[width] = torch.zeros((self._tok.shape[0], width),
+                                                   dtype=torch.long, device=self.device)
+        for _ in range(n_turns):
+            follow_decode_multi(self.params, self.spec, tok, self._pos, self._wm, self._ck,
+                                self._cv, self.mesh, history=history, ensemble=self.ensemble)
+
+    def verify(self, width: int, n_turns: int, warm: bool, history: int) -> None:
+        """One speculative dispatch of ``n_turns`` verify turns of ``width``
+        positions over rank 0's ``history`` bucket; ``warm``: rank 0 runs its
+        key family's eager warm-up turn first, and so does this rank."""
+        key = ("verify", width, n_turns, history)
+        with self._scope():
+            if warm:
+                self._verify_turns(width, 1, history)
+            if self._graphs is None:
+                self._verify_turns(width, n_turns, history)
+            else:
+                self._graphs.replay(key, lambda: self._verify_turns(width, n_turns, history),
+                                    lambda: None)
+
+    def forward(self, tokens, lengths, member: int | None, spans, plain_attention: bool) -> None:
+        """Rank 0's embedding or scoring forward sub-batch (``tokens [b, t]``
+        and ``lengths [b]``, numpy), run on this rank's cut of the weights
+        (``member``'s on a stacked engine) over the forward groups, then
+        the unembed of each ``(p0, p1)`` position span of ``spans`` (a
+        scoring forward's chunks): the collectives rank 0's forward runs,
+        in its order, with none of the ring's or the staging stream's
+        beside them. Only rank 0's dp group runs forwards."""
+        if self.mesh.dp_rank != 0:
+            return
+        for stream in (self._stream, self._stage_stream):
+            if stream is not None:
+                stream.synchronize()
+        params = self.params if member is None else member_params(self.params, member)
+        fm = self.mesh.fwd
+        with self._scope(fwd=True):
+            tok = torch.from_numpy(tokens).to(self.device)
+            lens = torch.from_numpy(lengths).to(self.device)
+            h = forward_hidden(params, self.spec, tok, lens, plain_attention=plain_attention,
+                               mesh=fm)
+            for p0, p1 in spans:
+                unembed(params, self.spec, h[:, p0:p1], fm)
+            if self._fwd_stream is not None:
+                self._fwd_stream.synchronize()
+
     def report(self, reset_peak: bool = False, digest: bool = False) -> dict:
         """The rank's observations since the last report (fed tokens are
         handed over and cleared); with ``digest``, an exact fingerprint of
@@ -413,7 +484,8 @@ class Follower:
         if self._graphs is not None:
             self._graphs.clear()
             torch.cuda.synchronize(self.device)
-        if self._stage_stream is not None:
-            self._stage_stream.synchronize()
+        for extra in (self._stage_stream, self._fwd_stream):
+            if extra is not None:
+                extra.synchronize()
         self._pieces.clear()
         self.params = self._ck = self._cv = self._sck = self._scv = self._table = None

@@ -22,6 +22,13 @@ chunks of at most ``SCORE_CHUNK_TOKENS`` (row, position) pairs of the final
 hidden states, and only the gathered logprobs and the top-k leave the card.
 At V = 128 256 a chunk's logits and log-softmax are 2 × 1.05 GB in f32,
 where one 64 × 2 048 request's whole tensor would be 67 GB.
+
+On a multi-rank engine (``engine/embed.py``'s section) the forward runs on
+rank 0's dp group, with the ring parked, and each chunk's unembed on its
+vocab-cut head,
+all-gathered over tp: every rank of the group holds one chunk's whole
+``[rows, chunk, V]`` logits at a time, as one card does, and rank 0 alone
+takes the log-softmax, the gather and the top-k.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from quorum_tpu_torch.engine.embed import (MAX_BATCH, engine_params, forward_budget,
-                                           padded_batch, row_groups)
+                                           forward_member, padded_batch, row_groups)
 from quorum_tpu_torch.models.transformer import forward_hidden, unembed
 
 # (row, position) pairs of logits per unembed chunk.
@@ -52,29 +59,34 @@ def score_token_batch(engine, token_lists: list[list[int]], member: int = 0,
     results: list[dict | None] = [None] * len(token_lists)
     with engine.forward_scope():
         for rows in row_groups(spec, [len(t) for t in token_lists], forward_budget(engine)):
-            tokens, lengths = padded_batch(spec, token_lists, rows, engine.device)
-            h = forward_hidden(params, spec, tokens, lengths,
-                               plain_attention=plain_attention)  # [b, t, D]
-            b = h.shape[0]
+            tokens, lengths = padded_batch(spec, token_lists, rows)
+            b = tokens.shape[0]
             n_pred = max(len(token_lists[i]) for i in rows) - 1  # positions that predict
-            token_lp = torch.zeros((b, n_pred + 1), dtype=torch.float32, device=h.device)
-            top_ix = top_lp = None
-            if top_k:
-                top_ix = torch.zeros((b, n_pred + 1, top_k), dtype=torch.long, device=h.device)
-                top_lp = torch.zeros((b, n_pred + 1, top_k), dtype=torch.float32,
-                                     device=h.device)
             step = max(1, SCORE_CHUNK_TOKENS // b)
-            for p0 in range(0, n_pred, step):
-                p1 = min(n_pred, p0 + step)
-                # Position p's row predicts token p + 1.
-                lps = torch.log_softmax(unembed(params, spec, h[:, p0:p1]).float(), dim=-1)
-                nxt = tokens[:, p0 + 1:p1 + 1]
-                token_lp[:, p0 + 1:p1 + 1] = lps.gather(-1, nxt[..., None])[..., 0]
+            spans = [(p0, min(n_pred, p0 + step)) for p0 in range(0, n_pred, step)]
+            with engine.forward_ranks(tokens, lengths, forward_member(engine, member), spans,
+                                      plain_attention) as mesh:
+                tokens, lengths = tokens.to(engine.device), lengths.to(engine.device)
+                h = forward_hidden(params, spec, tokens, lengths,
+                                   plain_attention=plain_attention, mesh=mesh)  # [b, t, D]
+                token_lp = torch.zeros((b, n_pred + 1), dtype=torch.float32, device=h.device)
+                top_ix = top_lp = None
                 if top_k:
-                    vals, ids = torch.topk(lps, top_k, dim=-1)
-                    top_lp[:, p0 + 1:p1 + 1] = vals
-                    top_ix[:, p0 + 1:p1 + 1] = ids
-                del lps
+                    top_ix = torch.zeros((b, n_pred + 1, top_k), dtype=torch.long,
+                                         device=h.device)
+                    top_lp = torch.zeros((b, n_pred + 1, top_k), dtype=torch.float32,
+                                         device=h.device)
+                for p0, p1 in spans:
+                    # Position p's row predicts token p + 1.
+                    lps = torch.log_softmax(unembed(params, spec, h[:, p0:p1], mesh).float(),
+                                            dim=-1)
+                    nxt = tokens[:, p0 + 1:p1 + 1]
+                    token_lp[:, p0 + 1:p1 + 1] = lps.gather(-1, nxt[..., None])[..., 0]
+                    if top_k:
+                        vals, ids = torch.topk(lps, top_k, dim=-1)
+                        top_lp[:, p0 + 1:p1 + 1] = vals
+                        top_ix[:, p0 + 1:p1 + 1] = ids
+                    del lps
             token_lp = token_lp.cpu()
             if top_k:
                 top_ix, top_lp = top_ix.cpu(), top_lp.cpu()

@@ -73,7 +73,10 @@ tables gathered per member. The layer loops run the layers the blocks hold (:fun
 pipeline stage's share (``parallel/pipeline.py``). A
 decode step takes rank 0's token, positions and write mask by one
 broadcast (``RankMesh.sync_step``: rank 0 samples, every rank feeds the
-same token; a worker runs :func:`follow_decode_step`). With sp > 1,
+same token; a worker runs :func:`follow_decode_step`), a verify turn
+(:func:`decode_multi`) its anchor, drafts, positions and write mask by
+another (``RankMesh.sync_multi``; a worker runs
+:func:`follow_decode_multi`). With sp > 1,
 :func:`prefill` and :func:`forward_logits_sp` run each rank's sequence block
 through ring attention or Ulysses (``parallel/``). The collectives are
 called whatever the group's size, so a one-rank NCCL mesh's graphs capture
@@ -84,7 +87,7 @@ holds its dp group's block of each weight set's slots, ``RankMesh.hold_slots``:
 member m's slot s at local row m·(S/dp) + s − lo), a decode step runs
 each group's own rows through the layers and all-gathers the hidden states
 over dp before the final norm and the unembed, so every rank — rank 0,
-which samples, among them — has every row's logits. A single-shot admission
+which samples, among them — has every row's logits (a verify turn alike). A single-shot admission
 runs on the group that owns its slot, whose last hidden state is then
 broadcast over dp; a prefill segment runs on the owning group alone (it
 returns nothing). Where dp does not divide the slot rows every group holds
@@ -1243,6 +1246,7 @@ def decode_multi(
     history: int | None = None,
     clamp_writes: bool = False,
     ensemble: int = 1,
+    mesh=None,
 ):
     """T-token decode: logits for positions ``lengths .. lengths+T-1`` of
     each row in ONE forward (the JAX package's ``decode_multi``, the
@@ -1272,10 +1276,53 @@ def decode_multi(
     (positions past ``max_seq`` drop, ``clamp_writes`` or not) and reads
     the gathered window. Member-stacked params run member-major rows as
     :func:`decode_chunk` does; ``ensemble`` = E > 1 runs every row through
-    the E weight sets (cache rows ``e·B + b``) and averages their logits."""
+    the E weight sets (cache rows ``e·B + b``) and averages their logits.
+
+    ``mesh``: this rank's shard of a mesh, as :func:`decode_step` takes it —
+    a verify turn at the rank's heads. The turn's ``tokens``, ``lengths``
+    and ``write_mask`` are rank 0's on every rank (one broadcast,
+    ``RankMesh.sync_multi``); q/k/v and the output projection are the
+    rank's tp cut with their all-reduce (``kv_select`` where query-head
+    groups cut unevenly), the MLP the rank's cut (its experts), the writes
+    the one-card function's into the rank's cache at its kv heads; where
+    dp cuts the slot rows each dp group runs its own rows and the hidden
+    states are all-gathered over dp before the vocab-cut head, whose
+    logits are all-gathered over tp: every row's, on every rank."""
+    if mesh is not None:
+        tokens, lengths, write_mask = mesh.sync_multi(tokens, lengths, write_mask)
+    return _multi_forward(params, spec, tokens, lengths, cache_k, cache_v, write_mask, history,
+                          clamp_writes, ensemble, mesh)
+
+
+def follow_decode_multi(params: Params, spec: ModelSpec, tokens: torch.Tensor,
+                        lengths: torch.Tensor, write_mask: torch.Tensor, cache_k, cache_v, mesh,
+                        history: int | None = None, ensemble: int = 1) -> None:
+    """A worker rank's verify turn: rank 0's inputs from the broadcast
+    (``tokens``, ``lengths`` and ``write_mask`` give only their shapes and
+    dtypes), then the turn's forward on this rank's shard, collective for
+    collective the one rank 0's :func:`decode_multi` runs (the writes
+    clamped at ``max_seq`` as rank 0's verify turns clamp them)."""
+    tokens, lengths, write_mask = mesh.sync_multi(tokens, lengths, write_mask)
+    _multi_forward(params, spec, tokens, lengths, cache_k, cache_v, write_mask, history, True,
+                   ensemble, mesh)
+
+
+def _multi_forward(params, spec, tokens, lengths, cache_k, cache_v, write_mask, history,
+                   clamp_writes, ensemble, mesh):
     if ensemble > 1:
         tokens, lengths = tokens.repeat(ensemble, 1), lengths.repeat(ensemble)
         write_mask = None if write_mask is None else write_mask.repeat(ensemble)
+    split = mesh is not None and mesh.splits_slots
+    if split:
+        # This dp group's rows (as :func:`_step_forward` takes them).
+        lo, hi, n = mesh.slots
+        stack = tokens.shape[0] // n
+
+        def own(v):
+            return v.reshape(stack, n, *v.shape[1:])[:, lo:hi].reshape(-1, *v.shape[1:])
+
+        tokens, lengths = own(tokens), own(lengths)
+        write_mask = None if write_mask is None else own(write_mask)
     b, t = tokens.shape
     dev = tokens.device
     max_seq = spec.max_seq
@@ -1283,7 +1330,7 @@ def decode_multi(
     j = torch.arange(t, device=dev)
     pos = lengths.long()[:, None] + j[None, :]                      # [B, T]
     pos_in = pos.clamp(max=max_seq - 1)
-    x = _embed(params, spec, tokens, pos_in)
+    x = _embed(params, spec, tokens, pos_in, mesh)
     cos, sin = _rope(spec, dev)
     allow = (torch.ones((b,), dtype=torch.bool, device=dev)
              if write_mask is None else write_mask)
@@ -1350,8 +1397,11 @@ def decode_multi(
             write(cv, v)
             return attention(q, read(ck, q.dtype), read(cv, q.dtype), mask), k, v
 
-        x = _block(x, _layer(params["blocks"], l), spec, attend, dense_moe=True)
-    logits = unembed(params, spec, _final_norm(params, spec, x))
+        x = _block(x, _layer(params["blocks"], l), spec, attend, dense_moe=True, mesh=mesh)
+    if split:
+        x = mesh.dp.all_gather(x.reshape(stack, hi - lo, *x.shape[1:]), dim=1)
+        x = x.reshape(stack * n, *x.shape[2:])
+    logits = unembed(params, spec, _final_norm(params, spec, x), mesh)
     if ensemble > 1:
         logits = logits.view(ensemble, -1, *logits.shape[1:]).mean(0)
     return logits, cache_k, cache_v

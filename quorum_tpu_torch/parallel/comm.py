@@ -13,6 +13,12 @@ pipeline's one-way hop (:meth:`Group.shift`). A
 holds (:meth:`RankMesh.hold_slots`). :func:`join` builds one from a
 rendezvous store.
 
+A second stream of a rank (a zero-drain engine's staging stream, the
+cache-free forwards' stream) runs its collectives over groups of its own
+(:class:`StreamMesh`, :func:`join`'s ``staging`` and ``forward``): NCCL
+kernels of one communicator on two concurrent streams may interleave
+differently on different ranks and hang.
+
 Training differentiates through the tp collectives (Megatron's f and g):
 :func:`tp_enter` is the identity forward and sums the gradient over the
 group backward, :meth:`Group.all_reduce` of a tensor that requires grad is
@@ -320,8 +326,9 @@ class RankMesh:
     ``sp`` groups (a subgroup with the world's ranks shares the world's backend).
     ``slots``: ``(lo, hi, n)``, the slot rows ``[lo, hi)`` of ``n`` this
     rank's KV cache holds, once an engine set them (:meth:`hold_slots`).
-    ``stage``: the staging view (:class:`StagingMesh`) where the mesh was
-    joined with staging groups, else None."""
+    ``stage`` and ``fwd``: the staging stream's and the forward stream's
+    views (:class:`StreamMesh`) where the mesh was joined with their
+    groups, else None."""
 
     def __init__(self, mesh: Mesh, rank: int, groups: dict[str, Group]):
         self.mesh = mesh
@@ -334,7 +341,8 @@ class RankMesh:
         self.sp = groups[AXIS_SP]
         self.pp = groups[AXIS_PP]
         self.slots: tuple[int, int, int] | None = None
-        self.stage: StagingMesh | None = None
+        self.stage: StreamMesh | None = None
+        self.fwd: StreamMesh | None = None
         self._aborted = False
         self._abort_thread: threading.Thread | None = None
 
@@ -417,9 +425,23 @@ class RankMesh:
             return token, lengths, write_mask
         return buf[0].to(token.dtype), buf[1].to(lengths.dtype), buf[2].bool()
 
+    def sync_multi(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                   write_mask: torch.Tensor | None):
+        """:meth:`sync_step` for a verify turn: rank 0's ``tokens [B, T]``
+        (the anchor and the drafts), positions and write mask on every
+        rank, in one broadcast of ``[B, T + 2]`` over the world."""
+        wm = (torch.ones_like(lengths, dtype=torch.bool) if write_mask is None else write_mask)
+        buf = torch.cat([tokens.long(), lengths.long()[:, None], wm.long()[:, None]], dim=1)
+        self.world.broadcast(buf, 0)
+        if self.rank == 0:
+            return tokens, lengths, write_mask
+        t = tokens.shape[1]
+        return buf[:, :t].to(tokens.dtype), buf[:, t].to(lengths.dtype), buf[:, t + 1].bool()
+
     def _pgs(self) -> list:
         seen, out = set(), []
-        extra = () if self.stage is None else (self.stage.tp, self.stage.dp)
+        extra = [g for side in (self.stage, self.fwd) if side is not None
+                 for g in (side.tp, side.dp) if g is not None]
         for g in (self.world, self.dp, self.tp, self.sp, self.pp, *extra):
             if id(g.pg) not in seen:
                 seen.add(id(g.pg))
@@ -488,17 +510,22 @@ class RankMesh:
         return t is None or not t.is_alive()
 
 
-class StagingMesh:
-    """A rank's mesh as a zero-drain engine's staging stream sees it: the
-    :class:`RankMesh` with tp and dp groups of its own. The staging
-    segments' tp all-reduces (and a restore's broadcasts into a staging
-    row) run on a second stream beside the ring's decode graphs; NCCL
-    kernels of ONE communicator on two concurrent streams may interleave
-    differently on different ranks and hang, so each stream has its own
-    communicators. Everything else (the layout, the slot rows, the other
-    groups) is the ring mesh's."""
+class StreamMesh:
+    """A rank's mesh as a second stream of its sees it: the
+    :class:`RankMesh` with groups of its own. A zero-drain engine's staging
+    segments (and a restore's broadcasts into a staging row) take a tp and
+    a dp group (``RankMesh.stage``) and run beside the ring's decode graphs:
+    NCCL kernels of ONE communicator on two concurrent streams may
+    interleave differently on different ranks and hang, so each stream has
+    its own communicators. The cache-free forwards (embeddings and
+    scoring), which run on rank 0's dp group alone, take a tp group
+    (``RankMesh.fwd``, whose ``dp`` is None: nothing of a forward crosses
+    dp); they run with the ring parked (``engine.forward_ranks``: a
+    forward's all-reduce beside the ring's on four H100s hung both ranks,
+    two communicators or not). Everything else (the layout, the slot rows,
+    the other groups) is the ring mesh's."""
 
-    def __init__(self, ring: RankMesh, tp: Group, dp: Group):
+    def __init__(self, ring: RankMesh, tp: Group, dp: Group | None):
         self._ring = ring
         self.tp = tp
         self.dp = dp
@@ -507,16 +534,18 @@ class StagingMesh:
         return getattr(self._ring, name)
 
     def __repr__(self) -> str:
-        return f"StagingMesh({self._ring!r})"
+        return f"StreamMesh({self.tp.name}, {self._ring!r})"
 
 
-def join(mesh: Mesh, rank: int, store, staging: bool = False) -> RankMesh:
+def join(mesh: Mesh, rank: int, store, staging: bool = False,
+         forward: bool = False) -> RankMesh:
     """Rank ``rank``'s view of ``mesh``: its world group and its dp, tp and
     sp subgroups over prefixes of ``store`` (every rank of the mesh calls
     this with the same store); with ``staging``, a second tp and dp group
-    each for the staging stream (:class:`StagingMesh`). NCCL groups run one
-    collective at once: NCCL creates its communicator lazily, which a graph
-    capture must not do."""
+    each for the staging stream, with ``forward`` a tp group for the
+    forward stream (:class:`StreamMesh`). NCCL groups run one collective at
+    once: NCCL creates its communicator lazily, which a graph capture must
+    not do."""
     size = mesh.size
     world_ranks = list(range(size))
 
@@ -533,20 +562,24 @@ def join(mesh: Mesh, rank: int, store, staging: bool = False) -> RankMesh:
             groups[axis] = Group(axis, w.pg, ranks, rank, mesh.backend)
         else:
             groups[axis] = group(axis, ranks)
-    stage = None
+    stage = fwd = None
     if staging:
         stage = {axis: group(f"stage-{axis}", mesh.axis_ranks(rank, axis))
                  for axis in (AXIS_TP, AXIS_DP)}
+    if forward:
+        fwd = {AXIS_TP: group(f"fwd-{AXIS_TP}", mesh.axis_ranks(rank, AXIS_TP))}
     if mesh.backend == "nccl":
         dev = mesh.devices[rank]
         torch.cuda.set_device(dev)
         seen = set()
-        for g in [*groups.values(), *(stage or {}).values()]:
+        for g in [*groups.values(), *(stage or {}).values(), *(fwd or {}).values()]:
             if id(g.pg) not in seen:
                 seen.add(id(g.pg))
                 g.pg.allreduce([torch.zeros(1, device=dev)]).wait()
         torch.cuda.synchronize(dev)
     out = RankMesh(mesh, rank, groups)
     if stage is not None:
-        out.stage = StagingMesh(out, stage[AXIS_TP], stage[AXIS_DP])
+        out.stage = StreamMesh(out, stage[AXIS_TP], stage[AXIS_DP])
+    if fwd is not None:
+        out.fwd = StreamMesh(out, fwd[AXIS_TP], None)
     return out

@@ -18,7 +18,8 @@ device of a mesh — the port builds here:
   up. A worker's ``handler`` (built from a picklable ``setup`` in the worker,
   e.g. ``engine/follower.Follower``) runs the plans; ``run`` plans call a
   function of the port by name with the rank's mesh as ``mesh=`` (the
-  tests' use);
+  tests' use). Rank 0 sends plans from several threads (the scheduler, a
+  forward's caller, a report's), one whole message at a time;
 - **lifecycle**: rank 0 checks that every worker is alive before each plan
   (:class:`WorkerLost` otherwise, with the worker's exit code and error),
   and a watcher thread sees a worker exit the moment it does: it records
@@ -119,11 +120,13 @@ def _store(port: int, size: int, master: bool, timeout_s: float):
                          wait_for_workers=False)
 
 
-def worker_main(rank: int, mesh: Mesh, port: int, conn, setup, staging: bool = False) -> None:
+def worker_main(rank: int, mesh: Mesh, port: int, conn, setup, staging: bool = False,
+                forward: bool = False) -> None:
     """A worker rank's life: report in, join the mesh (with the staging
-    stream's groups when ``staging``), build its handler, then run plans
-    until a stop or until rank 0's pipe closes. An error is sent to rank 0
-    and ends the process (rank 0 then sees it dead)."""
+    stream's groups when ``staging``, the forward stream's with
+    ``forward``), build its handler, then run plans until a stop or until
+    rank 0's pipe closes. An error is sent to rank 0 and ends the process
+    (rank 0 then sees it dead)."""
     rmesh = None
     stacks = float(os.environ.get(STACKS_ENV, "0") or 0)
     if stacks > 0:  # a hang's diagnosis: every rank's stacks every so often
@@ -135,7 +138,8 @@ def worker_main(rank: int, mesh: Mesh, port: int, conn, setup, staging: bool = F
         else:
             torch.cuda.set_device(dev)
         conn.send(("hello", rank, os.getpid()))
-        rmesh = join(mesh, rank, _store(port, mesh.size, False, mesh.timeout_s), staging)
+        rmesh = join(mesh, rank, _store(port, mesh.size, False, mesh.timeout_s), staging,
+                     forward)
         handler = None
         if setup is not None:
             path, kwargs = setup
@@ -191,13 +195,16 @@ class RankGroup:
     waits until every worker's handler is built; :meth:`plan` sends a plan;
     :meth:`stop` ends them. ``setup(rank)`` gives worker ``rank``'s
     ``(path, kwargs)`` handler set-up (None: ``run`` plans only);
-    ``staging``: every rank joins the staging stream's groups too
-    (``comm.StagingMesh``: a zero-drain engine's)."""
+    ``staging``: every rank joins the staging stream's groups too (a
+    zero-drain engine's), ``forward`` the forward stream's (an engine's
+    embeddings and scoring; ``comm.StreamMesh``)."""
 
-    def __init__(self, mesh: Mesh, setup=None, staging: bool = False):
+    def __init__(self, mesh: Mesh, setup=None, staging: bool = False, forward: bool = False):
         self.mesh = mesh
         self._setup = setup
         self.staging = staging
+        self.forward = forward
+        self._send_lock = threading.Lock()
         self.procs: list = []
         self._conns: list = []
         self.pids: dict[int, int] = {}
@@ -220,7 +227,8 @@ class RankGroup:
             parent, child = ctx.Pipe()
             setup = self._setup(r) if self._setup is not None else None
             p = ctx.Process(target=worker_main,
-                            args=(r, self.mesh, port, child, setup, self.staging),
+                            args=(r, self.mesh, port, child, setup, self.staging,
+                                  self.forward),
                             name=f"quorum-rank-{r}", daemon=True)
             p.start()
             child.close()
@@ -253,7 +261,7 @@ class RankGroup:
         """Join rank 0 to the mesh once every worker has started, then wait
         for every worker's handler."""
         self._expect("hello", SPAWN_TIMEOUT_S)
-        self.rank_mesh = join(self.mesh, 0, self._store, self.staging)
+        self.rank_mesh = join(self.mesh, 0, self._store, self.staging, self.forward)
         self._expect("ready", SPAWN_TIMEOUT_S)
         if self.procs:
             self._watcher = threading.Thread(target=self._watch, name="quorum-rank-watch",
@@ -309,12 +317,13 @@ class RankGroup:
         with ``reply``, wait for and return each worker's result, rank 1
         first."""
         self.check()
-        for c in self._conns:
-            try:
-                c.send((op, args, reply))
-            except (BrokenPipeError, OSError) as e:
-                self.check()
-                raise self._lose(f"a worker's plan channel broke: {e}") from e
+        with self._send_lock:
+            for c in self._conns:
+                try:
+                    c.send((op, args, reply))
+                except (BrokenPipeError, OSError) as e:
+                    self.check()
+                    raise self._lose(f"a worker's plan channel broke: {e}") from e
         return self.replies() if reply else None
 
     def replies(self) -> list:
