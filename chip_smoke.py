@@ -183,7 +183,7 @@ result line:
               left); (e) dp=2, two ranks sharing the card over gloo, 4
               chats through the app, greedy streams held, each rank's
               weight, cache and peak bytes, all-gathers and launches; (f)
-              dp=2 × tp=2, four gloo ranks, 8 layers, greedy held; (g)
+              dp=2 × tp=2, four gloo ranks, 4 layers, greedy held; (g)
               dp=2 training, 4 layers, 3 steps on 2 × 2 048 tokens against
               the one-rank step (losses within one bf16 rounding), the
               state saved, restored onto one rank with every leaf equal and
@@ -193,7 +193,7 @@ result line:
               these need two; (i)–(k) checkpoints on meshes, mixtral tp=2
               and pp=2 staged decode; (l) with four cards, mixtral-8x7b as
               pp=4 and tp=4 over NCCL; (m) pp=2 training, two stages sharing
-              the card over gloo, 4 layers, 3 steps on 2 × 1 024 tokens
+              the card over gloo, 2 layers, 3 steps on 2 × 1 024 tokens
               (2 microbatches) against the one-rank step (losses within one
               bf16 rounding, falling), ms a step, each stage's peak against
               the whole state; (n) disagg=1+1 with both groups on the card,
@@ -213,11 +213,24 @@ result line:
               a card, K2q8's device ms inside rank 0's replays), then
               disagg=2+2 with tp=2, kv_quant=int8 and members=2 against
               the colocated tp=2 engine (equal); on one card (r) tp=2 over
-              gloo with quant=int8, kv_quant=int8 and members=2 (4 layers)
-              and ensemble=2 (2 layers) against one-card twins, greedy
+              gloo with quant=int8, kv_quant=int8 and members=2 and
+              ensemble=2 (2 layers each) against one-card twins, greedy
               equal token for token, and a json_schema chat through the
-              app; each new leg's seconds; K1, K2 and K2q8 launches on
-              every rank;
+              app; (t)/(u) the memory knobs and (v)/(w) speculation and
+              the forwards on dp/tp meshes (one card / four); (x) on one
+              card at 2 layers: prompt lookup (ring, with int8 weights and
+              KV) and an oracle draft (Ulysses) on sp=2 held against their
+              plain streams, the int8 streams on sp=2 and int8 weights and
+              KV on pp=2 held against one card, embeddings and scoring on
+              sp=2 and pp=2 against one card; (y) on four cards at 32
+              layers: sp=2 × tp=2 with int8 weights and KV (an 8 191-token
+              admission and the first of a 4 × 8 192 scoring request held
+              against one card, lookup verify turns at the 8 192 bucket,
+              the scoring request beside a stream) and mixtral-8x7b as
+              pp=4 with an int8 cache (ms a warm token, each stage's cache
+              bytes, an 8 × 2 048 scoring request; the staged scoring held
+              against one card at 4 layers); each new leg's seconds; K1,
+              K2 and K2q8 launches on every rank;
  12. train    training (run last; the card's free memory printed first):
               (a) llama-3-8b, all 32 layers, bf16, seed 0, remat, three
               steps of the default recipe on one repeated 1 × 2 048 batch
@@ -815,37 +828,42 @@ def _kernels_per_rank(torch, cpu: bool, tiny: bool, rnd, graph_ms, sdpa) -> dict
         out["max_abs_err"]["flash_decode"] = max(out["max_abs_err"]["flash_decode"], err)
     require(cpu or all(int(c.abs().sum()) == 0 for c in ticket_counters()),
             "K2 ticket counters are not back at 0 after the per-rank replays")
-    out["flash_decode_q8"] = _kernels_q8_per_rank(torch, cpu, cuts, hd, t_keys, all_lens, rnd,
+    out["flash_decode_q8"] = _kernels_q8_per_rank(torch, cpu, k2_cuts, hd, t_keys, rnd,
                                                   graph_ms)
     out["max_abs_err"]["flash_decode_q8"] = max(r["max_abs_err"] for r in out["flash_decode_q8"])
     emit("kernels", per_rank=out)
     return out
 
 
-def _kernels_q8_per_rank(torch, cpu: bool, cuts, hd: int, t_keys: int, lens, rnd,
+def _kernels_q8_per_rank(torch, cpu: bool, cuts, hd: int, t_keys: int, rnd,
                          graph_ms) -> list[dict]:
     """K2q8 at the head counts a tp rank's int8 cache gives it (tp=2: H=16,
-    K=4; tp=4: H=8, K=2) over the kernels line's 4 slots and lengths, bf16
-    q: every output element within ``error_bound`` of the plain version,
-    one counted launch a call, then its time, the plain version's and the
-    bound (the live int8 rows and their scales)."""
+    K=4; tp=4: H=8, K=2) over the kernels line's 4 slots and lengths, and at
+    a pipeline stage's row group at the whole heads (pp=2: the 4096/8191
+    rows, pp=4: the 8191 row; an sp rank's cache holds the whole heads and
+    rows, the kernels line's shape), bf16 q: every output element within
+    ``error_bound`` of the plain version, one counted launch a call, then
+    its time, the plain version's and the bound (the live int8 rows and
+    their scales). ``cuts``: (name, H, K, lengths)."""
     from quorum_tpu_torch.ops.attention import decode_attention_q8, quantize_rows
     from quorum_tpu_torch.ops.flash_decode_q8 import (error_bound, flash_decode_q8_attention,
                                                       q8_cluster_size)
 
     dev = "cpu" if cpu else "cuda"
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    live = sum(lens)
     rows = []
-    for name, h, kv in cuts:
+    for name, h, kv, lens in cuts:
+        b = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live = sum(lens)
+
         def args():
-            k8, ks = quantize_rows(rnd(4, kv, t_keys, hd, dtype=torch.float32), -1)
-            v8, vs = quantize_rows(rnd(4, kv, t_keys, hd, dtype=torch.float32), -1)
-            return (rnd(4, h, 1, hd, dtype=torch.bfloat16), k8, ks[..., 0].contiguous(), v8,
+            k8, ks = quantize_rows(rnd(b, kv, t_keys, hd, dtype=torch.float32), -1)
+            v8, vs = quantize_rows(rnd(b, kv, t_keys, hd, dtype=torch.float32), -1)
+            return (rnd(b, h, 1, hd, dtype=torch.bfloat16), k8, ks[..., 0].contiguous(), v8,
                     vs[..., 0].contiguous(), lengths)
 
         flops = 4 * h * live * hd
-        nbytes = live * kv * (2 * hd + 2 * 4) + 2 * 2 * 4 * h * hd + 4 * 4
+        nbytes = live * kv * (2 * hd + 2 * 4) + 2 * 2 * b * h * hd + 4 * b
         sets = [args() for _ in range(1 if cpu else _copies(nbytes))]
         n0 = flash_decode_q8_attention.launches
         got = flash_decode_q8_attention(*sets[0])
@@ -860,8 +878,8 @@ def _kernels_q8_per_rank(torch, cpu: bool, cuts, hd: int, t_keys: int, lens, rnd
                 f"K2q8 per-rank {name} (H={h}, K={kv}): err {err} beyond error_bound")
         b_ms, b_by = _bound(flops, nbytes, "int8")
         t = graph_ms([lambda a=a: flash_decode_q8_attention(*a) for a in sets])
-        rows.append({"cut": name, "B": 4, "H": h, "K": kv, "T": t_keys, "hd": hd,
-                     "lengths": list(lens), "cluster": q8_cluster_size(4, kv, t_keys),
+        rows.append({"cut": name, "B": b, "H": h, "K": kv, "T": t_keys, "hd": hd,
+                     "lengths": list(lens), "cluster": q8_cluster_size(b, kv, t_keys),
                      "max_abs_err": err, "max_err_over_bound":
                          (diff / bound.clamp_min(1e-30)).max().item(), "ms": t,
                      "plain_ms": graph_ms([lambda a=a: decode_attention_q8(*a) for a in sets]),
@@ -7401,8 +7419,13 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     embeddings and scoring on tp=2 and dp=2 × tp=2 sharing the card) and
     ``_mesh_spec_cards`` (prompt lookup, a draft model on rank 0, dp=2 ×
     tp=2, disagg=2+2 with tp=2 and scoring beside a stream, over NCCL on
-    four). K1, K2 and K2q8 launches are counted on every rank (workers report
-    theirs), and K1 and K2 by group on the disaggregated engines."""
+    four); (x) and (y): ``_mesh_sp_pp_knobs`` (speculation, int8 and the
+    forwards on sp=2, int8 and the forwards on pp=2, ranks sharing the
+    card) and ``_mesh_sp_pp_cards`` (int8 and speculation on sp=2 × tp=2
+    with a scoring request beside a stream, mixtral pp=4 with an int8
+    cache, over NCCL on four). K1, K2 and K2q8 launches are counted on
+    every rank (workers report theirs), and K1 and K2 by group on the
+    disaggregated engines."""
     from quorum_tpu_torch.backends.cuda_backend import CudaBackend
     from quorum_tpu_torch.config import Config
     from quorum_tpu_torch.engine.engine import EngineBreakerOpen, InferenceEngine
@@ -7477,9 +7500,9 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
     _require_card_empty(torch, cpu, "mesh (a)")
 
     leg_s = {}
-    # One card: (a)–(g), (i)–(k), (m), (n), (r), (t) and (v); --mesh-cards-
-    # only runs the legs over cards of their own alone ((h), (l), (o), (p),
-    # (q), (s), (u), (w)), against the same reference.
+    # One card: (a)–(g), (i)–(k), (m), (n), (r), (t), (v) and (x); --mesh-
+    # cards-only runs the legs over cards of their own alone ((h), (l), (o),
+    # (p), (q), (s), (u), (w), (y)), against the same reference.
     if not cards_only:
         # (a) A one-rank NCCL mesh (gloo on the CPU rehearsal).
         zero()
@@ -7721,7 +7744,7 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
         # disagg with both one-rank groups on the card.
         t0 = time.perf_counter()
         out["m_pp2_train_gloo"] = _mesh_pp_train(
-            torch, cpu, tiny, model, two, "m", 4, 2, 64 if tiny else TRAIN_TOKENS // 2, "gloo")
+            torch, cpu, tiny, model, two, "m", 2, 2, 64 if tiny else TRAIN_TOKENS // 2, "gloo")
         leg_s["m"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["n_disagg_one_card"] = _mesh_disagg_card(torch, cpu, tiny, model, knobs, n_tok,
@@ -7746,6 +7769,11 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
         out["v_spec_forwards_gloo"] = _mesh_spec_forwards(torch, cpu, tiny, model, two, zero,
                                                           add)
         leg_s["v"] = time.perf_counter() - t0
+        # (x) speculation, int8 and the forwards on sp=2, int8 and the
+        # forwards on pp=2 (ranks sharing the card over gloo).
+        t0 = time.perf_counter()
+        out["x_sp_pp_knobs_gloo"] = _mesh_sp_pp_knobs(torch, cpu, tiny, model, two, zero, add)
+        leg_s["x"] = time.perf_counter() - t0
     if n_cards >= 2:
         t0 = time.perf_counter()
         out["o_disagg_cards"] = _mesh_disagg_cards(torch, cpu, model, zero, add)
@@ -7774,10 +7802,16 @@ def phase_mesh(torch, cpu: bool, tiny: bool, device_info: dict,
         t0 = time.perf_counter()
         out["w_spec_cards"] = _mesh_spec_cards(torch, cpu, model, card, zero, add)
         leg_s["w"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["y_sp_pp_cards"] = _mesh_sp_pp_cards(
+            torch, cpu, model, card, zero, add,
+            l_row=out.get("l_moe_cards", {}).get("pp4_bfloat16"))
+        leg_s["y"] = time.perf_counter() - t0
     else:
-        print(f"mesh: legs (p), (q), (s), (u) and (w), pp=4 training, disagg=2+2 with tp=2, "
-              f"int8 members, the memory knobs and speculation on dp=2 × tp=2 over NCCL at 32 "
-              f"layers, need four cards; this machine has {n_cards}", flush=True)
+        print(f"mesh: legs (p), (q), (s), (u), (w) and (y), pp=4 training, disagg=2+2 with "
+              f"tp=2, int8 members, the memory knobs and speculation on dp=2 × tp=2, int8 and "
+              f"speculation on sp=2 × tp=2 and pp=4 over NCCL at 32 layers, need four cards; "
+              f"this machine has {n_cards}", flush=True)
     out["disagg_launches_by_group"] = by_group
     out["new_leg_s"] = {k: round(v, 3) for k, v in leg_s.items()}
     emit("mesh", new_leg_s=out["new_leg_s"])
@@ -7885,7 +7919,7 @@ def _mesh_dp2(torch, cpu, spec, two, knobs, prompts, ref, bodies, app_for, zero,
 
 def _mesh_dp2_tp2(torch, cpu, tiny, model, four, knobs, prompts, zero, add) -> dict:
     """Leg (f): dp=2 × tp=2, four gloo ranks sharing the card, at the
-    model's widths and 8 layers (2.8 GB of weights a rank at llama-3-8b):
+    model's widths and 4 layers (1.9 GB of weights a rank at llama-3-8b):
     the greedy streams held against the single-device engine's at the same
     depth."""
     from quorum_tpu_torch.engine.engine import InferenceEngine
@@ -7894,7 +7928,7 @@ def _mesh_dp2_tp2(torch, cpu, tiny, model, four, knobs, prompts, zero, add) -> d
 
     n = 16
     spec = resolve_spec(model, {"head_dim": "64", "dtype": "bfloat16", "n_kv_heads": "4"}
-                         if tiny else {"n_layers": "8"})
+                         if tiny else {"n_layers": "4"})
     ref_eng = InferenceEngine(spec, device="cpu" if cpu else "cuda:0", **knobs)
     ref = [_lp_stream(ref_eng, p, n) for p in prompts]
     ref_eng.shutdown()
@@ -8155,7 +8189,7 @@ def _rank_digests(torch, params, mesh, spec) -> list[dict]:
 
 def _mesh_ckpt(torch, cpu, tiny, two, knobs, app_for, zero, add) -> dict:
     """Legs (i) and (j): local HF checkpoints on multi-rank engines, ranks
-    sharing the card over gloo. (i) llama-3-8b at full width and 4 layers,
+    sharing the card over gloo. (i) llama-3-8b at full width and 2 layers,
     written by ``_write_hf_checkpoint`` and served through
     ``get_engine_from_ckpt(mesh=)`` at tp=2 and at dp=2; (j) mixtral-8x7b at
     full width and 1 layer at tp=2 (4 of its 8 experts a rank), in float32:
@@ -8184,7 +8218,7 @@ def _mesh_ckpt(torch, cpu, tiny, two, knobs, app_for, zero, add) -> dict:
     out = {}
     root = tempfile.mkdtemp(prefix="quorum_mesh_ckpt_")
     cases = (("i", "llama-tiny" if tiny else "llama-3-8b", "llama",
-              {"head_dim": "64", "n_layers": "4"} if tiny else {"n_layers": "4"},
+              {"head_dim": "64", "n_layers": "4"} if tiny else {"n_layers": "2"},
               (("tp2", dict(tp=2)), ("dp2", dict(dp=2)))),
              ("j", "mixtral-tiny" if tiny else "mixtral-8x7b", "mixtral",
               {"head_dim": "64", "n_layers": "1", "dtype": "float32"} if tiny
@@ -8859,7 +8893,7 @@ def _k2q8_replay_ms(torch, eng, jobs, n: int) -> dict:
 def _mesh_int8_members(torch, cpu, tiny, model, two, app_for, zero, add) -> dict:
     """Leg (r), one card: tp=2 over gloo (two ranks sharing the card, eager
     decode) at llama-3-8b widths. (1) ``quant=int8&kv_quant=int8&members=2``
-    at 4 layers against a one-card twin with the same knobs, 2 slots: each
+    at 2 layers against a one-card twin with the same knobs, 2 slots: each
     member's greedy stream equal token for token (a row-parallel int8
     product sums its int32 accumulators over tp: exact; 2 slots × 2 members
     keep K2q8's cluster plan the twin's), K2q8 launched on each rank once
@@ -8891,7 +8925,7 @@ def _mesh_int8_members(torch, cpu, tiny, model, two, app_for, zero, add) -> dict
                 for name, fn in fns.items()}
 
     out = {}
-    parts = (("members_int8", 4, dict(n_slots=2, quant="int8", kv_quant="int8", members=2),
+    parts = (("members_int8", 2, dict(n_slots=2, quant="int8", kv_quant="int8", members=2),
               lambda p: [(p[0], 0), (p[1], 1)]),
              ("ensemble", 2, dict(n_slots=4, quant="int8", ensemble=2),
               lambda p: [(p[0], 0), (p[1], 0)]))
@@ -9137,7 +9171,7 @@ def _build_concurrently(makers: list) -> list:
 def _mesh_memory_knobs(torch, cpu, tiny, model, two, zero, add) -> dict:
     """Leg (t), one card: paged KV, the host prefix store and zero-drain
     staging on meshes whose ranks share the card over gloo, at llama-3-8b
-    widths, 4 layers, bf16. (1) ``tp=2&kv_pages=1`` and (2)
+    widths, 2 layers, bf16. (1) ``tp=2&kv_pages=1`` and (2)
     ``tp=2&zero_drain=1``, 4 slots, against the same mesh's dense,
     drain-based engine: greedy streams equal token for token (prompts past
     one 512-token segment: every engine admits them chunked), a staged
@@ -9158,7 +9192,7 @@ def _mesh_memory_knobs(torch, cpu, tiny, model, two, zero, add) -> dict:
 
     dev = "cpu" if cpu else "cuda:0"
     spec = resolve_spec(model, {**({"head_dim": "64", "dtype": "bfloat16"} if tiny else {}),
-                                "n_layers": "4"})
+                                "n_layers": "2"})
     chunk = 16 if tiny else 512
     sizes = (20, 40, 30, 50, 9) if tiny else (600, 1100, 700, 1300, 57)
     n_tok = 8
@@ -9699,37 +9733,14 @@ def _mesh_spec_forwards(torch, cpu, tiny, model, two, zero, add) -> dict:
                 reports_all += reports
                 eng.shutdown()
         # (4) The forwards on (1)'s engine, then the one-card engine's.
-        t0 = time.perf_counter()
-        c0, r0 = _launch_counts(), tp.rank_reports()
-        emb = embed_mod.embed_token_batch(tp, inputs)
-        sc = score_mod.score_token_batch(tp, scored, top_k=1)
-        c1, r1 = _launch_counts(), tp.rank_reports()
-        fw_s = time.perf_counter() - t0
-        n_fw = (len(embed_mod.row_groups(spec, [max(len(t), 1) for t in inputs]))
-                + len(embed_mod.row_groups(spec, [len(t) for t in scored])))
-        k1 = [c1["flash_prefill"] - c0["flash_prefill"]] + [
-            b["launches"]["flash_prefill"] - a["launches"]["flash_prefill"]
-            for a, b in zip(r0, r1)]
-        require(cpu or k1 == [spec.n_layers * n_fw] * 2,
-                f"mesh (v) forwards: K1 launches by rank {k1} for {n_fw} forwards")
-        emb1 = embed_mod.embed_token_batch(one, inputs)
-        sc1 = score_mod.score_token_batch(one, scored, top_k=1)
-        cos = (emb * emb1).sum(dim=-1)
-        diffs = [abs(a - b) for g, w in zip(sc, sc1)
-                 for a, b in zip(g["token_logprobs"][1:], w["token_logprobs"][1:])]
-        lp_max, lp_mean = max(diffs), sum(diffs) / len(diffs)
-        require(float(cos.min()) >= MESH_FORWARD_COSINE,
-                f"mesh (v) forwards: embedding cosines {cos.tolist()} < {MESH_FORWARD_COSINE}")
-        require(lp_max <= MESH_FORWARD_LP_MAX and lp_mean <= MESH_FORWARD_LP_MEAN,
-                f"mesh (v) forwards: scoring log-probabilities differ by {lp_max} (mean "
-                f"{lp_mean}; bounds {MESH_FORWARD_LP_MAX}, {MESH_FORWARD_LP_MEAN})")
+        fw = _forwards_held("mesh (v) forwards", tp, one, inputs, scored, embed_mod,
+                            score_mod)
+        require(cpu or fw["k1_by_rank"] == [spec.n_layers * fw["forwards"]] * 2,
+                f"mesh (v) forwards: K1 launches by rank {fw['k1_by_rank']} for "
+                f"{fw['forwards']} forwards")
         out["tp2_forwards"] = {
-            "inputs": [len(t) for t in inputs], "scored": [len(t) for t in scored],
-            "forwards": n_fw, "k1_by_rank": k1, "seconds": round(fw_s, 3),
-            "cosine_min": float(cos.min()), "logprob_max_diff": lp_max,
-            "logprob_mean_diff": lp_mean,
-            "bounds": {"cosine": MESH_FORWARD_COSINE, "lp_max": MESH_FORWARD_LP_MAX,
-                       "lp_mean": MESH_FORWARD_LP_MEAN}}
+            **fw, "bounds": {"cosine": MESH_FORWARD_COSINE, "lp_max": MESH_FORWARD_LP_MAX,
+                             "lp_mean": MESH_FORWARD_LP_MEAN}}
         emit("mesh", leg="v_tp2_forwards", **out["tp2_forwards"])
         reports_all += tp.rank_reports()
     finally:
@@ -9867,14 +9878,23 @@ def _mesh_spec_cards(torch, cpu, model, card: str, zero, add, cards=None) -> dic
 
 
 def _scoring_beside_stream(torch, cpu, eng, spec, prompt, scored, c1, reports, embed_mod,
-                           score_mod, SamplerConfig, threading) -> dict:
+                           score_mod, SamplerConfig, threading, k1_layers=None,
+                           ref_row=None, ref_spread=None, what="mesh (w)") -> dict:
     """Leg (w) (5): a speculated greedy stream on ``eng``, then (once it has
     48 tokens) the scoring request of ``scored``: the stream's longest gap
     between tokens while the forward runs against its longest between its
     16th token and the forward (past its first dispatches' captures), the
     forward's seconds and sub-batches, K1 once per layer per sub-batch on
-    both ranks, and the first row's log-probabilities against the engine's
-    plain-attention scoring of it."""
+    every rank (``k1_layers`` times a sub-batch where that differs: 0 on a
+    ring sp mesh, whose hops are plain block attention), and the first
+    row's log-probabilities within ``MESH_FORWARD_*`` of ``ref_row`` (its
+    scoring on one card), or where None of the engine's plain-attention
+    scoring of it. ``ref_spread`` (mean, largest): how far the one card's
+    own scoring of the row moves between K1 and the plain attention; an
+    int8 forward passes that reordering of its bf16 sums through the
+    activation quantizer's rounding, so the mesh, another reordering, is
+    held within twice it where that is wider than ``MESH_FORWARD_*`` (each
+    side that far from one value)."""
     live = eng.submit(prompt, max_new_tokens=512, sampler=SamplerConfig(temperature=0.0))
     times: list[float] = []
     stop = threading.Event()
@@ -9892,7 +9912,7 @@ def _scoring_beside_stream(torch, cpu, eng, spec, prompt, scored, c1, reports, e
     deadline = time.perf_counter() + SERVE_TIMEOUT_S
     while len(times) < 48 and time.perf_counter() < deadline:
         time.sleep(0.005)
-    require(len(times) >= 48, "mesh (w): the live stream did not start")
+    require(len(times) >= 48, f"{what}: the live stream did not start")
     groups = len(embed_mod.row_groups(spec, [len(t) for t in scored],
                                       embed_mod.forward_budget(eng)))
     k0, r0 = _launch_counts()["flash_prefill"], eng.rank_reports()
@@ -9907,24 +9927,502 @@ def _scoring_beside_stream(torch, cpu, eng, spec, prompt, scored, c1, reports, e
         time.sleep(0.005)
     stop.set()
     th.join(timeout=SERVE_TIMEOUT_S)
-    require(not th.is_alive(), "mesh (w): the live stream did not stop")
-    require(cpu or k1 == [spec.n_layers * groups] * 2,
-            f"mesh (w): K1 launches by rank {k1} for {groups} scoring sub-batches")
+    require(not th.is_alive(), f"{what}: the live stream did not stop")
+    k1_layers = spec.n_layers if k1_layers is None else k1_layers
+    require(cpu or k1 == [k1_layers * groups] * len(k1),
+            f"{what}: K1 launches by rank {k1} for {groups} scoring sub-batches")
     before = [b - a for a, b in zip(times[16:], times[17:]) if b <= t_sub]
     beside = [b - a for a, b in zip(times, times[1:]) if b > t_sub and a < t_done]
-    ref = score_mod.score_token_batch(eng, scored[:1], top_k=1, plain_attention=True)[0]
+    against = "plain" if ref_row is None else "one_card"
+    ref = ref_row or score_mod.score_token_batch(eng, scored[:1], top_k=1,
+                                                 plain_attention=True)[0]
     diffs = [abs(a - b) for a, b in zip(got[0]["token_logprobs"][1:],
                                         ref["token_logprobs"][1:])]
     lp_max, lp_mean = max(diffs), sum(diffs) / len(diffs)
-    require(lp_max <= MESH_FORWARD_LP_MAX and lp_mean <= MESH_FORWARD_LP_MEAN,
-            f"mesh (w): scoring log-probabilities differ from the plain attention's by "
-            f"{lp_max} (mean {lp_mean})")
+    spread_mean, spread_max = ref_spread or (0.0, 0.0)
+    bound_mean = max(MESH_FORWARD_LP_MEAN, 2 * spread_mean)
+    bound_max = max(MESH_FORWARD_LP_MAX, 2 * spread_max)
+    require(lp_max <= bound_max and lp_mean <= bound_mean,
+            f"{what}: scoring log-probabilities differ from the {against} scoring's by "
+            f"{lp_max} (mean {lp_mean}; bounds {bound_max}, {bound_mean})")
     return {"rows": len(scored), "row_tokens": len(scored[0]), "sub_batches": groups,
             "forward_s": round(t_done - t_sub, 4), "k1_by_rank": k1,
             "live_max_gap_before_s": max(before) if before else None,
             "live_max_gap_beside_s": max(beside) if beside else None,
             "live_tokens_beside": sum(1 for t in times if t_sub < t <= t_done),
-            "logprob_max_diff_plain": lp_max, "logprob_mean_diff_plain": lp_mean}
+            f"logprob_max_diff_{against}": lp_max, f"logprob_mean_diff_{against}": lp_mean,
+            "bounds": {"lp_max": bound_max, "lp_mean": bound_mean}}
+
+
+def _rank_launches(c0: dict, c1: dict, r0, r1) -> dict:
+    """Each kernel's launches by rank between two quiet points: rank 0's
+    from the wrappers' counters (``c0``, ``c1``), the workers' from their
+    reports before and after (``r0``, ``r1``)."""
+    return {k: [c1[k] - c0[k]] + [b["launches"][k] - a["launches"][k] for a, b in zip(r0, r1)]
+            for k in c0}
+
+
+def _forwards_held(what: str, eng, ref, inputs, scored, embed_mod, score_mod) -> dict:
+    """One embeddings batch and one scoring request on ``eng`` against the
+    same on ``ref`` (one card): each vector's cosine and the
+    log-probabilities' mean and largest difference within
+    ``MESH_FORWARD_*``; the sub-batches both ran, and K1's launches by rank
+    over ``eng``'s forwards alone (``k1_by_rank``, before ``ref`` runs)."""
+    c0, r0 = _launch_counts(), eng.rank_reports()
+    t0 = time.perf_counter()
+    emb = embed_mod.embed_token_batch(eng, inputs)
+    sc = score_mod.score_token_batch(eng, scored, top_k=1)
+    seconds = time.perf_counter() - t0
+    k1 = _rank_launches(c0, _launch_counts(), r0, eng.rank_reports())["flash_prefill"]
+    emb1 = embed_mod.embed_token_batch(ref, inputs)
+    sc1 = score_mod.score_token_batch(ref, scored, top_k=1)
+    cos = (emb * emb1).sum(dim=-1)
+    diffs = [abs(a - b) for g, w in zip(sc, sc1)
+             for a, b in zip(g["token_logprobs"][1:], w["token_logprobs"][1:])]
+    lp_max, lp_mean = max(diffs), sum(diffs) / len(diffs)
+    require(float(cos.min()) >= MESH_FORWARD_COSINE,
+            f"{what}: embedding cosines {cos.tolist()} < {MESH_FORWARD_COSINE}")
+    require(lp_max <= MESH_FORWARD_LP_MAX and lp_mean <= MESH_FORWARD_LP_MEAN,
+            f"{what}: scoring log-probabilities differ by {lp_max} (mean {lp_mean}; bounds "
+            f"{MESH_FORWARD_LP_MAX}, {MESH_FORWARD_LP_MEAN})")
+    spec = eng.spec
+    n_fw = (len(embed_mod.row_groups(spec, [max(len(t), 1) for t in inputs]))
+            + len(embed_mod.row_groups(spec, [len(t) for t in scored])))
+    return {"inputs": [len(t) for t in inputs], "scored": [len(t) for t in scored],
+            "forwards": n_fw, "k1_by_rank": k1, "seconds": round(seconds, 3),
+            "cosine_min": float(cos.min()), "logprob_max_diff": lp_max,
+            "logprob_mean_diff": lp_mean}
+
+
+def _sp_pp_knobs_makers(cpu, tiny, model, two) -> dict:
+    """Leg (x)'s engines at llama-3-8b widths and 2 layers, 4 slots: the
+    one-card references (bf16, int8 weights and KV), and on ranks sharing
+    the card over gloo ``sp=2&spec_decode=4`` with int8 weights and KV
+    (ring), ``sp=2&sp_impl=ulysses`` with the oracle draft and ``pp=2`` with
+    int8 weights and KV."""
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.parallel import MeshConfig, make_mesh
+
+    dev = "cpu" if cpu else "cuda:0"
+    spec = _spec_forwards_spec(model, tiny)
+    base = dict(n_slots=4, decode_chunk=8, seed=0)
+    q8 = dict(quant="int8", kv_quant="int8")
+
+    def mesh(**axes):
+        cfg = MeshConfig(**axes)
+        return make_mesh(cfg, two[:1] * cfg.n_devices, backend="gloo",
+                         timeout_s=MESH_GROUP_TIMEOUT_S)
+
+    return {
+        "one": lambda: InferenceEngine(spec, device=dev, **base),
+        "one_int8": lambda: InferenceEngine(spec, device=dev, **base, **q8),
+        "sp_lookup_int8": lambda: InferenceEngine(spec, mesh=mesh(sp=2), spec_decode=4,
+                                                  **base, **q8),
+        "sp_draft": lambda: InferenceEngine(spec, mesh=mesh(sp=2), sp_impl="ulysses",
+                                            spec_decode=4, draft_spec=spec, draft_seed=0,
+                                            **base),
+        "pp_int8": lambda: InferenceEngine(spec, mesh=mesh(pp=2), **base, **q8),
+    }
+
+
+def _hold_int8(torch, what: str, eng, ref, refs, prompts, n_tok: int, r1) -> dict:
+    """An int8 mesh engine (``quant`` and ``kv_quant``) against the one-card
+    int8 engine ``ref``: greedy streams of ``prompts`` held against
+    ``refs`` (``_hold_lp``), rank 0's layers, head and cache int8, and each
+    rank's cache its share of the one card's (the whole of it under sp,
+    whose ranks keep every position; half a stage's under pp=2)."""
+    from quorum_tpu_torch.models.quant import is_quantized
+
+    got = [_lp_stream(eng, p, n_tok) for p in prompts]
+    held = [_hold_lp(f"{what} stream {i}", r, g) for i, (r, g) in enumerate(zip(refs, got))]
+    require(isinstance(eng._ck, tuple) and eng._ck[0].dtype == torch.int8,
+            f"{what}: rank 0's cache is not int8")
+    require(is_quantized(eng.params["blocks"]["wq"]) and is_quantized(eng.params["lm_head"]),
+            f"{what}: rank 0's layers or head are not int8")
+    cache = [_cache_bytes(eng)] + [r["cache_bytes"] for r in r1]
+    ref_cache = _cache_bytes(ref)
+    require(cache == [ref_cache // eng.decode_pp] * 2,
+            f"{what}: cache bytes by rank {cache}, one card {ref_cache}")
+    return {"held": held, "cache_bytes_by_rank": cache, "one_card_cache_bytes": ref_cache,
+            "weight_bytes_by_rank": [_tree_bytes(eng.params)] + [r["weight_bytes"] for r in r1]}
+
+
+def _mesh_sp_pp_knobs(torch, cpu, tiny, model, two, zero, add) -> dict:
+    """Leg (x), one card: speculation, int8 and the forwards on sequence-
+    parallel engines, int8 and the forwards on pipeline-staged ones, ranks
+    sharing the card over gloo (eager decode), llama-3-8b widths at 2
+    layers, bf16, 4 slots, every engine built at once. sp=2: (1) prompt
+    lookup on the ring with int8 weights and KV and (2) the oracle draft
+    (the target's own spec and seed, whole on rank 0) on Ulysses, each
+    speculated stream held against the same engine's plain stream of the
+    same request (``_hold_spec``; two prompts over a 4-token alphabet, 64
+    and 640 tokens, both split over sp), with the spec counters; (1)'s
+    plain greedy streams held against the one-card int8 engine's (top-20
+    δ, near-ties named, ``_hold_lp``); an embeddings batch and a scoring
+    request on each against the one-card engine of its weights within
+    ``MESH_FORWARD_*``. pp=2: (3) int8 weights and KV, its greedy streams
+    and forwards held against the one-card int8 engine, stage 0 holding
+    the int8 head and half the cache. Launches by rank: K2 (K2q8 on an int8
+    cache) once per layer per decode and warm-up step on every sp rank
+    (rank 0 adding the draft's layers per draft step) and on every pp
+    stage (a stage's L/pp layers × pp group steps a step), K1 once per
+    layer per single-shot admission and per forward sub-batch on every
+    Ulysses rank (the draft's ingest launches none) and once per stage
+    layer on every pp stage, none on the ring (its hops are plain block
+    attention)."""
+    from quorum_tpu_torch.engine import embed as embed_mod
+    from quorum_tpu_torch.engine import score as score_mod
+
+    spec = _spec_forwards_spec(model, tiny)
+    L = spec.n_layers
+    tol = SPEC_TIE_TOL[spec.dtype]
+    n_tok = 24
+    gen = random.Random(47)
+    prompts = [_alphabet_prompt(gen, spec.vocab_size, n) for n in ((24, 100) if tiny
+                                                                  else (64, 640))]
+    lens_in = (5, 20, 60, 100) if tiny else (5, 60, 300, 700)
+    inputs = [[gen.randrange(spec.vocab_size) for _ in range(k)] for k in lens_in]
+    scored = [[gen.randrange(spec.vocab_size) for _ in range(k)]
+              for k in ((10, 60) if tiny else (40, 500))]
+    plain_prompts = [[gen.randrange(spec.vocab_size) for _ in range(k)]
+                     for k in ((12, 40) if tiny else (100, 600))]
+
+    def bias(p):
+        return _alphabet_bias(torch, spec.vocab_size, p)
+
+    makers = _sp_pp_knobs_makers(cpu, tiny, model, two)
+    out = {"layers": L, "dtype": spec.dtype, "tie_tol": tol, "tokens": n_tok}
+    zero()
+    built: dict = {}
+    reports_all = []
+    try:
+        t0 = time.perf_counter()
+        built.update(zip(makers, _build_concurrently(list(makers.values()))))
+        out["build_s"] = round(time.perf_counter() - t0, 3)
+        one_int8 = built["one_int8"]
+        refs = [_lp_stream(one_int8, p, n_tok) for p in plain_prompts]
+        for part, impl, draft_layers, ref_name in (("sp_lookup_int8", "ring", 0, "one_int8"),
+                                                   ("sp_draft", "ulysses", L, "one")):
+            eng = built[part]
+            what = f"mesh (x) {part}"
+            require(eng.mesh.shape["sp"] == 2 and eng.sp_impl == impl, f"{what}: not sp=2 {impl}")
+            t0 = time.perf_counter()
+            c0, r0 = _launch_counts(), eng.rank_reports()
+            rows, moved = _spec_rows(what, eng, prompts, n_tok, tol,
+                                     None if draft_layers else bias)
+            int8 = (_hold_int8(torch, what, eng, one_int8, refs, plain_prompts, n_tok, r0)
+                    if eng.quant else {})
+            c1, r1 = _launch_counts(), eng.rank_reports()
+            m = eng.metrics()
+            if draft_layers:
+                require(moved["spec_accepted_total"] > 0 and m["spec_draft_steps_total"] > 0,
+                        f"{what}: the oracle draft accepted nothing ({moved})")
+            launches = _rank_launches(c0, c1, r0, r1)
+            if not cpu:
+                steps = L * _k2_steps(m)
+                k2, other = (("flash_decode_q8", "flash_decode") if eng.kv_quant
+                             else ("flash_decode", "flash_decode_q8"))
+                want_k2 = [steps + draft_layers * m["spec_draft_steps_total"], steps]
+                require(launches[k2] == want_k2 and steps > 0,
+                        f"{what}: {k2} by rank {launches[k2]} != {want_k2}")
+                require(not any(launches[other]), f"{what}: {other} launched ({launches})")
+                adm = m["admission_dispatches_total"]
+                # the draft's ingest launches no K1 (leg (v) holds the same)
+                want_k1 = [0, 0] if impl == "ring" else [L * adm, L * adm]
+                require(launches["flash_prefill"] == want_k1,
+                        f"{what}: K1 by rank {launches['flash_prefill']} != {want_k1}")
+            fw = _forwards_held(f"{what} forwards", eng, built[ref_name], inputs, scored,
+                                embed_mod, score_mod)
+            want = [0, 0] if impl == "ring" else [L * fw["forwards"]] * 2
+            require(cpu or fw["k1_by_rank"] == want,
+                    f"{what} forwards: K1 by rank {fw['k1_by_rank']} != {want}")
+            out[part] = {"sp_impl": impl, "streams": rows, **moved, **int8,
+                         "launches_by_rank": launches, "decode_steps": _k2_steps(m),
+                         "draft_steps": m["spec_draft_steps_total"], "forwards": fw,
+                         "seconds": round(time.perf_counter() - t0, 3)}
+            emit("mesh", leg=f"x_{part}", **out[part])
+            reports_all += eng.rank_reports()
+            eng.shutdown()
+            built.pop(part)
+        eng, what = built["pp_int8"], "mesh (x) pp_int8"
+        pp = eng.decode_pp
+        t0 = time.perf_counter()
+        c0, r0 = _launch_counts(), eng.rank_reports()
+        row = _hold_int8(torch, what, eng, one_int8, refs, plain_prompts, n_tok, r0)
+        c1, r1 = _launch_counts(), eng.rank_reports()
+        m = eng.metrics()
+        launches = _rank_launches(c0, c1, r0, r1)
+        if not cpu:
+            want_q8 = [L * _k2_steps(m)] * 2
+            want_k1 = [L // pp * m["admission_dispatches_total"]] * 2
+            require(launches["flash_decode_q8"] == want_q8,
+                    f"{what}: K2q8 by stage {launches['flash_decode_q8']} != {want_q8}")
+            require(not any(launches["flash_decode"]), f"{what}: K2 on an int8 cache")
+            require(launches["flash_prefill"] == want_k1,
+                    f"{what}: K1 by stage {launches['flash_prefill']} != {want_k1}")
+        fw = _forwards_held(f"{what} forwards", eng, one_int8, inputs, scored, embed_mod,
+                            score_mod)
+        require(cpu or fw["k1_by_rank"] == [L // pp * fw["forwards"]] * 2,
+                f"{what} forwards: K1 by stage {fw['k1_by_rank']} for "
+                f"{fw['forwards']} sub-batches")
+        row.update(launches_by_rank=launches, decode_steps=_k2_steps(m), forwards=fw,
+                   seconds=round(time.perf_counter() - t0, 3))
+        out["pp_int8"] = row
+        emit("mesh", leg="x_pp_int8", **row)
+        reports_all += eng.rank_reports()
+    finally:
+        for eng in built.values():
+            eng.shutdown()
+    add(reports_all)
+    built.clear()
+    _require_card_empty(torch, cpu, "mesh (x)")
+    return out
+
+
+def _mesh_sp_pp_cards(torch, cpu, model, card: str, zero, add, cards=None,
+                      l_row=None) -> dict:
+    """Leg (y), four cards, NCCL (every rank decoding from graphs): (1)
+    ``sp=2&tp=2&quant=int8&kv_quant=int8&spec_decode=4`` (the ring) at
+    llama-3-8b's 32 layers, 4 slots: an 8 191-token admission, its seconds
+    and its first token and top-20 held against the one-card int8
+    engine's (built first on the first card, which also scores the first
+    row of (3), then freed); (2) on the same engine a prompt-lookup stream
+    over a 4-token alphabet (a ≈ 6 000-token prompt: history bucket 8 192)
+    held against the engine's plain stream (``_hold_spec``), with the
+    device ms a verify turn and a plain dispatch (each replay's CUDA
+    events); (3) a 4 × 8 192 scoring request beside a live stream
+    (``_scoring_beside_stream``: its seconds, the stream's longest gap, the
+    first row held against the one-card engine's within ``MESH_FORWARD_*``,
+    or twice the one card's own K1-against-plain spread of that row where
+    wider: int8 activations round that reordering); K2q8 once per layer per decode and warm-up step on
+    every rank, no K2 and (the ring's hops are plain block attention) no
+    K1. (4) ``pp=4&kv_quant=int8`` of mixtral-8x7b at its 32 layers (no
+    card holds it; bf16 weights, stage s on card s): a first and a warm
+    greedy stream, ms a warm token beside leg (l)'s bf16 pp=4 (``l_row``),
+    each stage's weight and cache bytes, K2q8 once per layer per step on
+    every stage and K1 once per stage layer per admission; then an 8 × 2 048
+    scoring request: its seconds and K1 once per stage layer per
+    sub-batch. No card holds the 32 layers to score them whole, so (5) the
+    staged forward is held at 4 layers: the same request on mixtral-8x7b
+    at 4 layers as pp=4 (a layer a stage) against one card, every row's
+    log-probabilities within ``MESH_FORWARD_*``."""
+    import threading
+
+    from quorum_tpu_torch.engine import embed as embed_mod
+    from quorum_tpu_torch.engine import score as score_mod
+    from quorum_tpu_torch.engine.engine import InferenceEngine
+    from quorum_tpu_torch.models.model_config import resolve_spec
+    from quorum_tpu_torch.ops.sampling import SamplerConfig
+    from quorum_tpu_torch.parallel import MeshConfig, make_mesh
+
+    cards = cards or [f"cuda:{i}" for i in range(4)]
+    tiny = {"head_dim": "64", "dtype": "bfloat16"} if cpu else {}
+    spec = resolve_spec(model, tiny)
+    L = spec.n_layers
+    tol = SPEC_TIE_TOL[spec.dtype]
+    gen = random.Random(53)
+    long_ids = [gen.randrange(spec.vocab_size) for _ in range(spec.max_seq - 1)]
+    prompt = _alphabet_prompt(gen, spec.vocab_size, 72 if cpu else 6000)
+    n_tok = 16 if cpu else 64
+    n_rows = 4
+    scored = [[gen.randrange(spec.vocab_size) for _ in range(spec.max_seq)]
+              for _ in range(n_rows)]
+    base = dict(n_slots=4, decode_chunk=8, seed=0, quant="int8", kv_quant="int8")
+    out = {"layers": L, "prompt_tokens": len(long_ids), "lookup_prompt_tokens": len(prompt),
+           "tokens": n_tok, "measured_on": card}
+
+    # (1) The one-card int8 reference of the long admission.
+    t0 = time.perf_counter()
+    ref = InferenceEngine(spec, device=cards[0], **base)
+    try:
+        ref_long = _lp_stream(ref, long_ids, 1)
+        ref_row = score_mod.score_token_batch(ref, scored[:1], top_k=1)[0]
+        ref_plain = score_mod.score_token_batch(ref, scored[:1], top_k=1,
+                                                plain_attention=True)[0]
+    finally:
+        ref.shutdown()
+    spread = [abs(a - b) for a, b in zip(ref_row["token_logprobs"][1:],
+                                         ref_plain["token_logprobs"][1:])]
+    ref_spread = (sum(spread) / len(spread), max(spread))
+    del ref
+    _require_card_empty(torch, cpu, "mesh (y) sp=2 × tp=2")
+    out["one_card_admission_s"] = round(ref_long[2], 4)
+    out["one_card_scoring_k1_vs_plain"] = {"mean": ref_spread[0], "max": ref_spread[1]}
+    out["one_card_s"] = round(time.perf_counter() - t0, 3)
+
+    zero()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(spec, mesh=make_mesh(MeshConfig(sp=2, tp=2), cards,
+                                               timeout_s=MESH_GROUP_TIMEOUT_S),
+                          spec_decode=4, **base)
+    build_s = time.perf_counter() - t0
+    times: list[tuple[str, float]] = []
+    observe = eng._observe_device_time
+
+    def timed(family, seconds):
+        times.append((family, seconds))
+        observe(family, seconds)
+
+    eng._observe_device_time = timed
+    try:
+        what = "mesh (y) sp2_tp2_int8"
+        require(cpu or (eng.mesh.backend == "nccl"
+                        and eng.health()["mesh"]["decode"] == "graphs"),
+                f"{what}: not NCCL with graphs")
+        c0, r0 = _launch_counts(), eng.rank_reports(reset_peak=True)
+        got_long = _lp_stream(eng, long_ids, 1)
+        held_long = _hold_lp(f"{what} admission", ref_long, got_long)
+        rows, moved = _spec_rows(what, eng, [prompt], n_tok, tol,
+                                 lambda p: _alphabet_bias(torch, spec.vocab_size, p))
+        c1, r1 = _launch_counts(), eng.rank_reports()
+        m = eng.metrics()
+        launches = _rank_launches(c0, c1, r0, r1)
+        if not cpu:
+            want_q8 = [L * _k2_steps(m)] * 4
+            require(launches["flash_decode_q8"] == want_q8,
+                    f"{what}: K2q8 by rank {launches['flash_decode_q8']} != {want_q8}")
+            require(not any(launches["flash_decode"]) and not any(launches["flash_prefill"]),
+                    f"{what}: K2 or K1 launched ({launches})")
+        fams: dict[str, list[float]] = {}
+        for fam, s in times:
+            fams.setdefault(fam, []).append(1e3 * s)
+        require(cpu or fams.get("verify"), f"{what}: no verify replay timed")
+        beside = _scoring_beside_stream(torch, cpu, eng, spec, prompt, scored, c1, r1,
+                                        embed_mod, score_mod, SamplerConfig, threading,
+                                        k1_layers=0, ref_row=ref_row, ref_spread=ref_spread,
+                                        what="mesh (y) sp2_tp2_int8 scoring")
+        reports = eng.rank_reports()
+        out["sp2_tp2_int8"] = {
+            "build_s": round(build_s, 3), "admission_s": round(got_long[2], 4),
+            "first_token": got_long[0][0], "one_card_first_token": ref_long[0][0],
+            **held_long, "streams": rows, **moved,
+            "ms_per_verify_turn": (statistics.median(fams["verify"])
+                                   if fams.get("verify") else None),
+            "verify_turns_timed": len(fams.get("verify", [])),
+            "history_bucket": max((k[-1] for k in eng.dispatched_keys
+                                   if k[0] == "verify"), default=None),
+            "ms_per_plain_dispatch": (statistics.median(fams["plain"])
+                                      if fams.get("plain") else None),
+            "decode_steps": _k2_steps(m), "captures": m["decode_graph_captures_total"],
+            "launches_by_rank": launches, "beside_scoring": beside,
+            "peak_bytes_by_rank": [None if cpu else torch.cuda.max_memory_allocated(cards[0])]
+            + [r["peak_bytes"] for r in reports],
+            "cache_bytes_by_rank": [_cache_bytes(eng)] + [r["cache_bytes"] for r in reports]}
+        emit("mesh", leg="y_sp2_tp2_int8", **out["sp2_tp2_int8"])
+        add(reports)
+    finally:
+        eng.shutdown()
+    del eng
+    _require_card_empty(torch, cpu, "mesh (y) pp=4")
+
+    # (4) mixtral-8x7b as pp=4 with an int8 cache.
+    mname = "mixtral-tiny" if cpu else "mixtral-8x7b"
+    mspec = resolve_spec(mname, {"dtype": "bfloat16", "n_layers": "4"} if cpu else {})
+    ML = mspec.n_layers
+    prompts = [[gen.randrange(mspec.vocab_size) for _ in range(k)]
+               for k in ((20, 60) if cpu else (200, 900))]
+    m_rows, m_len = (4, 32) if cpu else (8, 2048)
+    m_scored = [[gen.randrange(mspec.vocab_size) for _ in range(m_len)] for _ in range(m_rows)]
+    zero()
+    t0 = time.perf_counter()
+    eng = InferenceEngine(mspec, mesh=make_mesh(MeshConfig(pp=4), cards,
+                                                timeout_s=MESH_GROUP_TIMEOUT_S),
+                          n_slots=4, decode_chunk=8, seed=0, kv_quant="int8")
+    build_s = time.perf_counter() - t0
+    try:
+        what = "mesh (y) pp4_kv8"
+        n = 8 if cpu else 24
+        c0, r0 = _launch_counts(), eng.rank_reports(reset_peak=True)
+        first = [_lp_stream(eng, p, n) for p in prompts]
+        warm = _lp_stream(eng, prompts[0], n)
+        require(warm[0] == first[0][0], f"{what}: the warm stream differs")
+        c1, r1 = _launch_counts(), eng.rank_reports()
+        m = eng.metrics()
+        launches = _rank_launches(c0, c1, r0, r1)
+        if not cpu:
+            want_q8 = [ML * _k2_steps(m)] * 4
+            want_k1 = [ML // 4 * m["admission_dispatches_total"]] * 4
+            require(launches["flash_decode_q8"] == want_q8,
+                    f"{what}: K2q8 by stage {launches['flash_decode_q8']} != {want_q8}")
+            require(launches["flash_prefill"] == want_k1 and not any(launches["flash_decode"]),
+                    f"{what}: K1/K2 by stage {launches['flash_prefill']}/"
+                    f"{launches['flash_decode']} (K1 wanted {want_k1})")
+        cache = [_cache_bytes(eng)] + [r["cache_bytes"] for r in r1]
+        require(len(set(cache)) == 1 and isinstance(eng._ck, tuple),
+                f"{what}: stage cache bytes {cache}")
+        groups = len(embed_mod.row_groups(mspec, [len(t) for t in m_scored]))
+        t1 = time.perf_counter()
+        got = score_mod.score_token_batch(eng, m_scored, top_k=1)
+        score_s = time.perf_counter() - t1
+        c2, r2 = _launch_counts(), eng.rank_reports()
+        k1 = _rank_launches(c1, c2, r1, r2)["flash_prefill"]
+        require(cpu or k1 == [ML // 4 * groups] * 4,
+                f"{what}: scoring K1 by stage {k1} for {groups} sub-batches")
+        lps = [x for g in got for x in g["token_logprobs"][1:]]
+        require(len(got) == m_rows and all(math.isfinite(x) and x <= 0 for x in lps),
+                f"{what}: scoring returned non-finite or positive log-probabilities")
+        warm_ms = 1e3 * warm[2] / len(warm[0])
+        l_ms = (l_row or {}).get("ms_per_token_warm_stream")
+        row = {"build_s": round(build_s, 3), "layers_per_stage": ML // 4,
+               "ms_per_token_first_stream": round(1e3 * first[0][2] / len(first[0][0]), 3),
+               "ms_per_token_warm_stream": round(warm_ms, 3),
+               "l_bf16_pp4_ms_per_token_warm": l_ms,
+               "cache_bytes_by_stage": cache,
+               "weight_bytes_by_stage": [_tree_bytes(eng.params)]
+               + [r["weight_bytes"] for r in r2],
+               "peak_bytes_by_stage": [None if cpu else torch.cuda.max_memory_allocated(cards[0])]
+               + [r["peak_bytes"] for r in r2],
+               "launches_by_stage": launches, "decode_steps": _k2_steps(m),
+               "scoring": {"rows": m_rows, "row_tokens": m_len, "sub_batches": groups,
+                           "seconds": round(score_s, 4), "k1_by_stage": k1}}
+        out["pp4_kv8_mixtral"] = row
+        emit("mesh", leg="y_pp4_kv8", **row)
+        add(r2)
+    finally:
+        eng.shutdown()
+    del eng
+    _require_card_empty(torch, cpu, "mesh (y) pp=4 at 4 layers")
+
+    # (5) The staged scoring at 4 layers (a layer a stage) against one card.
+    sspec = resolve_spec(mname, {"dtype": "bfloat16", "n_layers": "4"})
+    knobs4 = dict(n_slots=4, decode_chunk=8, seed=0, kv_quant="int8")
+    t0 = time.perf_counter()
+    ref = InferenceEngine(sspec, device=cards[0], **knobs4)
+    try:
+        want = score_mod.score_token_batch(ref, m_scored, top_k=1)
+    finally:
+        ref.shutdown()
+    del ref
+    _require_card_empty(torch, cpu, "mesh (y) pp=4 at 4 layers, one card")
+    zero()
+    eng = InferenceEngine(sspec, mesh=make_mesh(MeshConfig(pp=4), cards,
+                                                timeout_s=MESH_GROUP_TIMEOUT_S), **knobs4)
+    try:
+        what = "mesh (y) pp4 at 4 layers"
+        r0 = eng.rank_reports()
+        c0 = _launch_counts()
+        got = score_mod.score_token_batch(eng, m_scored, top_k=1)
+        k1 = _rank_launches(c0, _launch_counts(), r0, eng.rank_reports())["flash_prefill"]
+        require(cpu or k1 == [groups] * 4,
+                f"{what}: scoring K1 by stage {k1} for {groups} sub-batches")
+        diffs = [abs(a - b) for g, w in zip(got, want)
+                 for a, b in zip(g["token_logprobs"][1:], w["token_logprobs"][1:])]
+        lp_max, lp_mean = max(diffs), sum(diffs) / len(diffs)
+        require(lp_max <= MESH_FORWARD_LP_MAX and lp_mean <= MESH_FORWARD_LP_MEAN,
+                f"{what}: scoring log-probabilities differ from one card's by {lp_max} "
+                f"(mean {lp_mean})")
+        row = {"layers": sspec.n_layers, "rows": m_rows, "row_tokens": m_len,
+               "k1_by_stage": k1, "logprob_max_diff_one_card": lp_max,
+               "logprob_mean_diff_one_card": lp_mean,
+               "seconds": round(time.perf_counter() - t0, 3)}
+        out["pp4_scoring_4_layers"] = row
+        emit("mesh", leg="y_pp4_scoring_4_layers", **row)
+        add(eng.rank_reports())
+    finally:
+        eng.shutdown()
+    del eng
+    _require_card_empty(torch, cpu, "mesh (y)")
+    return out
 
 
 def total_model_bytes(spec) -> int:
@@ -10001,7 +10499,7 @@ def main(argv=None) -> int:
                          "a second round of the serve requests with torch.profiler")
     ap.add_argument("--mesh-cards-only", action="store_true",
                     help="the mesh phase's legs over cards of their own alone "
-                         "(h, l, o, p, q, s, u, w)")
+                         "(h, l, o, p, q, s, u, w, y)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 

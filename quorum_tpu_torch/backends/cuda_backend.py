@@ -1271,12 +1271,9 @@ class CudaBackend:
         final-norm hidden states, L2-normalised; ``dimensions`` truncates
         then renormalises; an input past ``max_seq`` keeps its head."""
         from quorum_tpu_torch.engine.embed import (MAX_BATCH, embed_token_batch,
-                                                   forward_mesh_error, forward_tokens_error)
+                                                   forward_tokens_error)
 
         effective = prepare_body(body, self.model)  # 400 when no model anywhere
-        refused = forward_mesh_error(getattr(self.engine, "mesh", None))
-        if refused:
-            raise _invalid_request(refused)
         token_lists = [self.tokenizer.encode(x) if isinstance(x, str) else x
                        for x in self._token_inputs(body.get("input"), "input", MAX_BATCH)]
         spec = self.engine.spec
@@ -1411,8 +1408,7 @@ class CudaBackend:
         chat plan over the raw prompt ids (no template). At most 8 prompts
         when generating (one slot each), 64 when only scoring; one deadline
         covers both phases."""
-        from quorum_tpu_torch.engine.embed import (MAX_BATCH, forward_mesh_error,
-                                                   forward_tokens_error)
+        from quorum_tpu_torch.engine.embed import MAX_BATCH, forward_tokens_error
         from quorum_tpu_torch.engine.score import score_token_batch
 
         effective = prepare_body(body, self.model)
@@ -1426,9 +1422,6 @@ class CudaBackend:
         if not isinstance(mt, int) or isinstance(mt, bool) or mt < 0:
             raise _invalid_request(f"Invalid value for 'max_tokens': {mt!r} (integer >= 0)")
         scoring = echo and lp is not None
-        refused = forward_mesh_error(getattr(self.engine, "mesh", None))
-        if scoring and refused:
-            raise _invalid_request(refused)
         if mt == 0 and not scoring:
             raise _invalid_request(
                 "'max_tokens': 0 requires 'echo': true with 'logprobs' set (the pure "

@@ -16,17 +16,21 @@ forward stream (``engine.forward_scope``), through K1 for attention, and
 the host waits only to fetch the pooled vectors. Stacked engines select
 one weight set with ``member_params``; int8 engines run unchanged.
 
-On a multi-rank engine (dp and tp; disaggregated engines: the decode
+On a multi-rank engine (every mesh; disaggregated engines: the decode
 group) every forward runs on rank 0's dp group: rank 0 sends the padded
 tokens and lengths to the workers (``engine.forward_ranks``, a side plan
-of ``engine/follower.Follower.forward``), each rank runs
-``forward_hidden`` at its heads over the forward groups of its own
+of ``engine/follower.Follower.forward``), each rank runs the same forward
+at its heads over the forward groups of its own
 (``parallel/comm.StreamMesh``), one sub-batch at a time with the decode
 ring parked at a turn boundary, and rank 0 pools (here) or scores
 (``engine/score.py``, through ``unembed`` on the vocab-cut head,
-all-gathered over tp). A stacked engine's ``member``
-picks that member's cut on every rank. Under sp and pp the forwards are
-refused by name (:func:`forward_mesh_error`).
+all-gathered over tp). A stacked engine's ``member`` picks that member's
+cut on every rank. Under sp each rank runs its T/sp sequence block over
+the ring or Ulysses (as an admission does; the whole row where sp does not
+divide the bucket) and the blocks' hidden states are all-gathered over sp;
+under pp the forward runs stage by stage (``parallel/pipeline.
+staged_forward_hidden``). ``transformer.forward_hidden`` makes that choice
+from the mesh, and rank 0 (stage 0) pools or scores.
 
 A request whose padded batch holds more than ``FORWARD_TOKENS`` tokens
 (``FORWARD_TOKENS_BUSY`` while the engine decodes: :func:`forward_budget`)
@@ -51,7 +55,6 @@ from __future__ import annotations
 import torch
 
 from quorum_tpu_torch.models.transformer import forward_hidden, member_params
-from quorum_tpu_torch.parallel.mesh import AXIS_PP, AXIS_SP
 
 # Requests above this many inputs are refused at the API layer; buckets stop
 # here.
@@ -164,26 +167,10 @@ def forward_member(engine, member: int) -> int | None:
     return member if engine.members > 1 or engine.ensemble > 1 else None
 
 
-def forward_mesh_error(mesh) -> str | None:
-    """Why embeddings and scoring cannot run on an engine over ``mesh`` (a
-    ``parallel/mesh.Mesh``, or None), or None: dp and tp serve them; under
-    sp and pp (where the JAX engine serves them) they are refused by name."""
-    cut = [] if mesh is None else [f"{axis}>1" for axis in (AXIS_SP, AXIS_PP)
-                                   if mesh.shape[axis] > 1]
-    if not cut:
-        return None
-    return (f"embeddings and scoring: not yet on a multi-rank engine with "
-            f"{' and '.join(cut)} (dp and tp serve them)")
-
-
 def engine_params(engine, member: int):
     """The weight set a forward runs: member ``member`` of a stacked engine
     (views, no copy), the engine's params otherwise — on a multi-rank
-    engine rank 0's cut of it. A ValueError where the engine's mesh does
-    not serve forwards (:func:`forward_mesh_error`)."""
-    refused = forward_mesh_error(getattr(engine, "mesh", None))
-    if refused:
-        raise ValueError(refused)
+    engine rank 0's cut of it."""
     if forward_member(engine, member) is not None:
         return member_params(engine.params, member)
     return engine.params
@@ -211,8 +198,8 @@ def embed_token_batch(engine, token_lists: list[list[int]], member: int = 0,
             with engine.forward_ranks(tokens, lengths, forward_member(engine, member),
                                       plain_attention=plain_attention) as mesh:
                 tokens, lengths = tokens.to(engine.device), lengths.to(engine.device)
-                h = forward_hidden(params, spec, tokens, lengths,
-                                   plain_attention=plain_attention, mesh=mesh)  # [b, t, D]
+                h = forward_hidden(params, spec, tokens, lengths, plain_attention=plain_attention,
+                                   mesh=mesh, sp_impl=engine.sp_impl)  # [b, t, D]
                 valid = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
                          < lengths[:, None]).to(torch.float32)
                 pooled = (h.float() * valid[..., None]).sum(dim=1)

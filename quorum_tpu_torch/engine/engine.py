@@ -305,10 +305,14 @@ filtering stay on rank 0's host, and a draft model runs whole on rank 0
 (the JAX engine keeps its draft runtime off the mesh too). And so do the
 cache-free forwards: on rank 0's dp group, each rank at its heads over a
 forward stream and tp groups of their own, a sub-batch at a time with the
-ring parked (:meth:`forward_ranks`, ``engine/embed.py``). Under sp and pp the JAX
-engine's refusals of members, ensembles, grammars and (pp) speculation
-hold in its words; int8, speculation on sp and the forwards are refused
-by name.
+ring parked (:meth:`forward_ranks`, ``engine/embed.py``). On sp meshes
+int8, speculation and the forwards carry too: an admission quantizes the
+K/V it all-gathers over sp, a verify turn runs at each rank's heads
+replicated over sp (the cache's position axis is whole on every sp rank),
+and a forward runs its T/sp sequence block over ring or Ulysses attention
+on forward groups of its own (the blocks' hidden states all-gathered). Under sp and pp the JAX engine's
+refusals of members, ensembles, grammars and (pp) speculation hold in its
+words.
 
 Pipeline-staged engines (a mesh with pp > 1; the JAX engine's ``pp=K``):
 this rank is stage 0 and holds the embedding, the final norm, the head and
@@ -317,10 +321,17 @@ decode dispatch runs ``parallel/pipeline.staged_decode_chunk`` / ``_loop``
 (the slot rows as pp row groups flowing stage to stage; keys ``("pp",
 …)``, the JAX engine's families ``pp_plain`` / ``pp_loop``), an admission
 ``staged_prefill`` (single-shot only: ``prefill_chunk`` is 0, as under
-sp). The JAX engine's pp refusals hold in its words (zero_drain, sp, tp or
-dp beside pp, members and ensembles, speculation, pp not dividing the
-layers or the slots); ``quorum_tpu_decode_stage_occupancy{stage=}`` counts
-each row group's live rows.
+sp). int8 weights and KV carry: each stage holds its layers' cut of the
+whole quantized tree and their int8 cache, which the staged decode reads
+through K2q8. A forward (embeddings, scoring) runs stage by stage on the
+forward stream (``parallel/pipeline.staged_forward_hidden``: K1 at each
+stage's layers, the last stage's output back to stage 0 for the final
+norm and the head) with the ring parked. The JAX engine's pp refusals hold
+in its words (zero_drain, sp, tp or dp beside pp, members and ensembles,
+speculation, pp not dividing the layers or the slots); the port refuses
+``prefix_store`` there by name (single-shot admission);
+``quorum_tpu_decode_stage_occupancy{stage=}`` counts each row group's live
+rows.
 """
 
 from __future__ import annotations
@@ -343,7 +354,6 @@ from quorum_tpu_torch.cache import kv_transfer, prefix_wire
 from quorum_tpu_torch.cache.paging import (PageAllocator, copy_member_pages, init_paged_cache,
                                            paged_copy_page, validate_page_config)
 from quorum_tpu_torch.cache.prefix_store import DEFAULT_PREFIX_STORE_BYTES, PrefixStore
-from quorum_tpu_torch.engine.embed import forward_mesh_error
 from quorum_tpu_torch.engine.graphs import DecodeGraphs
 from quorum_tpu_torch.models.convert import shard_params
 from quorum_tpu_torch.models.init import (check_quant, init_params, init_params_shard,
@@ -1702,14 +1712,15 @@ class InferenceEngine:
                       spans=(), plain_attention: bool = False) -> Iterator:
         """Around one cache-free forward sub-batch of rank 0 (inside
         :meth:`forward_scope`): yields the mesh it runs over. On one device
-        None: the forward runs beside the ring. On a mesh engine (dp and
-        tp) the scheduler first parks at a turn boundary with its streams
-        drained (:meth:`_ring_parked`), the workers of rank 0's dp group get
-        the plan that runs the same forward (host ``tokens [b, t]`` and
+        None: the forward runs beside the ring. On a mesh engine the
+        scheduler first parks at a turn boundary with its streams drained
+        (:meth:`_ring_parked`), the workers of rank 0's dp group get the
+        plan that runs the same forward (host ``tokens [b, t]`` and
         ``lengths [b]``, the weight set ``member`` of a stacked engine, the
         scored ``spans``), the body runs over rank 0's forward view
-        (``RankMesh.fwd``: a tp group of its own), and the forward stream
-        drains before the ring resumes. NCCL kernels of two communicators
+        (``RankMesh.fwd``: tp, sp and pp groups of its own;
+        ``engine/embed.py``), and the forward stream drains before the ring
+        resumes. NCCL kernels of two communicators
         running at once on a rank may each wait for a peer that runs the
         other first: a forward's all-reduce beside the verify turns' on four
         H100s hung both ranks, so a forward never runs beside the ring's
@@ -1871,8 +1882,7 @@ class InferenceEngine:
         the weight sets' seeds on a stacked engine)."""
         self._ranks = RankGroup(mesh, setup=self._follower_setup(mesh, spec, seed, params,
                                                                  n_slots, ckpt, decode=True),
-                                staging=self.zero_drain,
-                                forward=forward_mesh_error(mesh) is None).spawn()
+                                staging=self.zero_drain, forward=True).spawn()
         try:
             mine = self._rank_weights(spec, mesh, seed, params, ckpt, self.device)
             self._rmesh = self._ranks.join()
@@ -5372,8 +5382,8 @@ def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
                       n_slots: int) -> None:
     """A mesh engine's refusals: the JAX engine's pipeline and sequence-
     parallel ones in its words, then what the port's mesh path does not
-    carry yet, by name. Every tp serves (a dim tp does not divide is whole
-    on every rank, ``parallel/sharding``)."""
+    carry yet (``prefix_store`` on pp), by name. Every tp serves (a dim tp
+    does not divide is whole on every rank, ``parallel/sharding``)."""
     if eng.decode_pp > 1:
         _check_pp_knobs(eng, spec, mesh, spec_decode, draft_spec, n_slots)
         if kv_pages:
@@ -5428,24 +5438,10 @@ def _check_mesh_knobs(eng: InferenceEngine, spec: ModelSpec, mesh, sp_impl: str,
                 "blocks the host on its first-token fetch, which "
                 "behind a full dispatch ring is exactly the stall "
                 "zero_drain exists to remove")
-    if eng._use_sp or eng.decode_pp > 1:
-        # The JAX engine serves these there; the port's sequence-parallel
-        # admission and staged decode do not carry int8 yet.
-        staged = [name for name, on in (("quant", bool(eng.quant)),
-                                        ("kv_quant", bool(eng.kv_quant))) if on]
-        if staged:
-            axis = "sp" if eng._use_sp else "pp"
-            raise ValueError(f"{', '.join(staged)}: {_NOT_ON_MESH} with {axis}>1 "
-                             "(dp and tp serve int8 weights and KV)")
     if eng.decode_pp > 1 and prefix_store:
         # The JAX engine serves it there, chunking its pp admissions; the
         # port's pipeline-staged engine admits single-shot.
         raise ValueError(f"prefix_store: {_NOT_ON_MESH} with pp>1 (dp and tp serve it)")
-    if eng._use_sp and (int(spec_decode) > 0 or draft_spec is not None):
-        # The JAX engine serves it there: a verify turn at width g+1 would
-        # need the ring (or Ulysses) over the turn's positions.
-        raise ValueError(f"speculative decoding: {_NOT_ON_MESH} with sp>1 (dp and tp "
-                         "serve prompt lookup and draft models)")
 
 
 def get_engine(

@@ -22,12 +22,16 @@ arrive — collective for collective what rank 0's engine runs:
   ``fed`` entries (which tokens a turn accepts only rank 0 knows);
 - ``forward``: an embedding or scoring forward sub-batch of rank 0's
   padded tokens and lengths — ``forward_hidden`` at the rank's heads (K1
-  on the card), then the unembed of each scored span (its all-gather over
-  tp) — on a forward stream of its own over the forward groups
-  (``parallel/comm.StreamMesh``), once the ring's and the staging stream's
-  work has drained, and drained itself before the next plan: rank 0 parks
-  its ring for it, so no collective of another communicator runs beside
-  it. Ranks of rank 0's dp group only (a forward runs there whole);
+  on the card) and, under sp, its sequence block over the ring or Ulysses
+  (the blocks all-gathered), then on sp rank 0 the unembed of each scored
+  span (its all-gather over tp); on a later
+  pipeline stage its layers between the hops (``parallel/pipeline.
+  follow_staged_forward``) — on a forward stream of its own over the
+  forward groups (``parallel/comm.StreamMesh``), once the ring's and the
+  staging stream's work has drained, and drained itself before the next
+  plan: rank 0 parks its ring for it, so no collective of another
+  communicator runs beside it. Ranks of rank 0's dp group only (a forward
+  runs there whole);
 - ``handoff`` (a disaggregated engine's prefill group, whose cache is the
   rank's cut of the staging cache): a staged row's positions sliced and
   all-gathered over tp, so rank 0 holds the piece of every kv head;
@@ -63,10 +67,12 @@ the slot rows the rank's cache holds its dp group's rows
 (``RankMesh.hold_slots``); the plans name global rows.
 
 On a pipeline-staged mesh (pp > 1) the rank is a later stage: it holds its
-layers and their cache slice only, a ``prefill`` plan runs its layers on
-the hidden states the previous stage hands it (``parallel/pipeline``), and
-a ``decode`` plan runs the staged schedule's half of this stage (one graph
-replay of it over NCCL on a card).
+layers and their cache slice only (int8 leaves and an int8 slice with
+``quant`` and ``kv_quant``), a ``prefill`` plan runs its layers on the
+hidden states the previous stage hands it (``parallel/pipeline``), a
+``decode`` plan runs the staged schedule's half of this stage (one graph
+replay of it over NCCL on a card; K2q8 on an int8 slice) and a
+``forward`` plan its layers of the staged forward.
 
 The weights: the rank's cut of ``init_params(spec, seed, quant=)`` (of
 ``init_params_stacked(spec, seeds, quant=)`` on a stacked engine), or a cut
@@ -95,7 +101,8 @@ from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
 from quorum_tpu_torch.ops.flash_decode import flash_decode_attention
 from quorum_tpu_torch.ops.flash_decode_q8 import flash_decode_q8_attention
 from quorum_tpu_torch.parallel.comm import collective_counts
-from quorum_tpu_torch.parallel.pipeline import follow_staged_decode, follow_staged_prefill
+from quorum_tpu_torch.parallel.pipeline import (follow_staged_decode, follow_staged_forward,
+                                                follow_staged_prefill)
 from quorum_tpu_torch.parallel.sharding import rank_kv_index, stage_layers
 
 
@@ -420,25 +427,32 @@ class Follower:
     def forward(self, tokens, lengths, member: int | None, spans, plain_attention: bool) -> None:
         """Rank 0's embedding or scoring forward sub-batch (``tokens [b, t]``
         and ``lengths [b]``, numpy), run on this rank's cut of the weights
-        (``member``'s on a stacked engine) over the forward groups, then
-        the unembed of each ``(p0, p1)`` position span of ``spans`` (a
-        scoring forward's chunks): the collectives rank 0's forward runs,
-        in its order, with none of the ring's or the staging stream's
-        beside them. Only rank 0's dp group runs forwards."""
+        (``member``'s on a stacked engine) over the forward groups — the
+        hidden states and, on sp rank 0, the unembed of each ``(p0, p1)``
+        position span of ``spans`` (a scoring forward's chunks); a later
+        pipeline stage runs its layers between the hops: the collectives
+        rank 0's forward runs, in its order, with none of the ring's or the
+        staging stream's beside them. Only rank 0's dp group runs
+        forwards."""
         if self.mesh.dp_rank != 0:
             return
         for stream in (self._stream, self._stage_stream):
             if stream is not None:
                 stream.synchronize()
         params = self.params if member is None else member_params(self.params, member)
-        fm = self.mesh.fwd
+        fm, spec = self.mesh.fwd, self.spec
         with self._scope(fwd=True):
             tok = torch.from_numpy(tokens).to(self.device)
             lens = torch.from_numpy(lengths).to(self.device)
-            h = forward_hidden(params, self.spec, tok, lens, plain_attention=plain_attention,
-                               mesh=fm)
-            for p0, p1 in spans:
-                unembed(params, self.spec, h[:, p0:p1], fm)
+            if self.mesh.pp_size > 1:
+                follow_staged_forward(params["blocks"], spec, (*tok.shape, spec.d_model), lens,
+                                      fm, plain_attention)
+            else:
+                h = forward_hidden(params, spec, tok, lens, plain_attention=plain_attention,
+                                   mesh=fm, sp_impl=self.sp_impl)
+                if self.mesh.sp_rank == 0:
+                    for p0, p1 in spans:
+                        unembed(params, spec, h[:, p0:p1], fm)
             if self._fwd_stream is not None:
                 self._fwd_stream.synchronize()
 

@@ -25,10 +25,13 @@ where one 64 × 2 048 request's whole tensor would be 67 GB.
 
 On a multi-rank engine (``engine/embed.py``'s section) the forward runs on
 rank 0's dp group, with the ring parked, and each chunk's unembed on its
-vocab-cut head,
-all-gathered over tp: every rank of the group holds one chunk's whole
-``[rows, chunk, V]`` logits at a time, as one card does, and rank 0 alone
-takes the log-softmax, the gather and the top-k.
+vocab-cut head, all-gathered over tp: every rank of rank 0's tp group
+holds one chunk's whole ``[rows, chunk, V]`` logits at a time, as one card
+does, and rank 0 alone takes the log-softmax, the gather and the top-k.
+Under sp the final hidden states are all-gathered over sp (``[b, t, D]``,
+at most ``FORWARD_TOKENS`` × D) and only the sp rank 0's tp group unembeds:
+the chunked unembed, not the gather, bounds the memory at V = 128 256.
+Under pp stage 0 holds the head and scores alone.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def score_token_batch(engine, token_lists: list[list[int]], member: int = 0,
                                       plain_attention) as mesh:
                 tokens, lengths = tokens.to(engine.device), lengths.to(engine.device)
                 h = forward_hidden(params, spec, tokens, lengths,
-                                   plain_attention=plain_attention, mesh=mesh)  # [b, t, D]
+                                   plain_attention=plain_attention, mesh=mesh,
+                                   sp_impl=engine.sp_impl)  # [b, t, D]
                 token_lp = torch.zeros((b, n_pred + 1), dtype=torch.float32, device=h.device)
                 top_ix = top_lp = None
                 if top_k:

@@ -837,13 +837,17 @@ def _sp_blocks(mesh, t: int, spec: ModelSpec, sp_impl: str) -> int:
     return mesh.sp_size if t % mesh.sp_size == 0 else 1
 
 
-def _sp_attention(q, k, v, lengths, mesh, spec: ModelSpec, sp_impl: str):
-    """This sp rank's block of sequence-parallel attention."""
+def _sp_attention(q, k, v, lengths, mesh, spec: ModelSpec, sp_impl: str,
+                  plain_attention: bool = False):
+    """This sp rank's block of sequence-parallel attention (Ulysses' local
+    attention K1, or with ``plain_attention`` its plain version; the ring's
+    hops are plain block attention either way)."""
     from quorum_tpu_torch.parallel.ring_attention import ring_prefill_attention
     from quorum_tpu_torch.parallel.ulysses import ulysses_prefill_attention
 
     if sp_impl == "ulysses":
-        return ulysses_prefill_attention(q, k, v, lengths, mesh, window=spec.sliding_window)
+        return ulysses_prefill_attention(q, k, v, lengths, mesh, window=spec.sliding_window,
+                                         plain=plain_attention)
     return ring_prefill_attention(q, k, v, lengths, mesh)
 
 
@@ -1463,7 +1467,7 @@ def decode_loop(
 def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
                    lengths: torch.Tensor | None = None,
                    plain_attention: bool = False, remat: bool = False,
-                   mesh=None) -> torch.Tensor:
+                   mesh=None, sp_impl: str = "ring") -> torch.Tensor:
     """Final-norm hidden states [B, T, D] with no KV cache: the embeddings
     forward, :func:`forward_logits` without the unembed.
 
@@ -1485,23 +1489,41 @@ def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
     ``jax.checkpoint`` per scanned layer: a layer's activations are
     recomputed in the backward instead of kept. ``mesh`` (a
     ``parallel/comm.RankMesh``, params this rank's tp shard): the tp
-    collectives, differentiable (the module docstring's training note)."""
+    collectives, differentiable (the module docstring's training note).
+    With pp > 1 (stage 0 of a pipeline-staged mesh: params its stage's
+    cut) the forward runs stage by stage
+    (``parallel/pipeline.staged_forward_hidden``; the later stages run
+    ``follow_staged_forward``). With sp > 1 (``sp_impl``: ring or Ulysses)
+    and sp dividing T (``_sp_blocks``, as an admission splits) each rank
+    runs its T/sp block of positions through every layer, attention over
+    the whole sequence by the ring or Ulysses over ``mesh.sp``, and the
+    blocks' hidden states are all-gathered over sp: every sp rank returns
+    the whole sequence's. The JAX forward runs replicated over sp instead,
+    so the two agree within float rounding, not bit for bit."""
+    if mesh is not None and mesh.pp_size > 1:
+        from quorum_tpu_torch.parallel.pipeline import staged_forward_hidden
+
+        return staged_forward_hidden(params, spec, tokens, lengths, mesh, plain_attention)
     b, t = tokens.shape
     dev = tokens.device
-    positions = torch.arange(t, device=dev)
+    n_sp = _sp_blocks(mesh, t, spec, sp_impl) if mesh is not None else 1
+    lo, s_loc = (mesh.sp_rank * (t // n_sp), t // n_sp) if n_sp > 1 else (0, t)
+    positions = torch.arange(lo, lo + s_loc, device=dev)
     lens = (torch.full((b,), t, dtype=torch.int32, device=dev) if lengths is None
             else lengths.to(device=dev, dtype=torch.int32))
     moe_mask = (None if lengths is None or not spec.is_moe
                 else positions[None, :] < lens[:, None])
-    x = _embed(params, spec, tokens, positions, mesh)
+    x = _embed(params, spec, tokens[:, lo:lo + s_loc], positions, mesh)
     cos, sin = _rope(spec, dev)
     mask = (causal_mask(t, t, window=spec.sliding_window, device=dev)
-            if plain_attention else None)
+            if plain_attention and n_sp == 1 else None)
 
     def attend(q, k, v):
         if spec.pos == "rope":
             q = apply_rope(q, cos, sin, positions)
             k = apply_rope(k, cos, sin, positions)
+        if n_sp > 1:
+            return _sp_attention(q, k, v, lens, mesh, spec, sp_impl, plain_attention), k, v
         if plain_attention:
             return attention(q, k, v, mask), k, v
         return flash_prefill_attention(q, k, v, lens, window=spec.sliding_window), k, v
@@ -1515,7 +1537,8 @@ def forward_hidden(params: Params, spec: ModelSpec, tokens: torch.Tensor,
             x = torch.utils.checkpoint.checkpoint(layer, x, block, use_reentrant=False)
         else:
             x = layer(x, block)
-    return _final_norm(params, spec, x)
+    x = _final_norm(params, spec, x)
+    return mesh.sp.all_gather(x, dim=1) if n_sp > 1 else x
 
 
 def forward_logits(params: Params, spec: ModelSpec, tokens: torch.Tensor,

@@ -328,7 +328,8 @@ class RankMesh:
     rank's KV cache holds, once an engine set them (:meth:`hold_slots`).
     ``stage`` and ``fwd``: the staging stream's and the forward stream's
     views (:class:`StreamMesh`) where the mesh was joined with their
-    groups, else None."""
+    groups, else None: the staging view's tp and dp groups, the forward
+    view's tp group and, on sp and pp meshes, its sp and pp groups."""
 
     def __init__(self, mesh: Mesh, rank: int, groups: dict[str, Group]):
         self.mesh = mesh
@@ -441,7 +442,7 @@ class RankMesh:
     def _pgs(self) -> list:
         seen, out = set(), []
         extra = [g for side in (self.stage, self.fwd) if side is not None
-                 for g in (side.tp, side.dp) if g is not None]
+                 for g in (side.tp, side.dp, side.sp, side.pp) if g is not None]
         for g in (self.world, self.dp, self.tp, self.sp, self.pp, *extra):
             if id(g.pg) not in seen:
                 seen.add(id(g.pg))
@@ -520,15 +521,19 @@ class StreamMesh:
     its own communicators. The cache-free forwards (embeddings and
     scoring), which run on rank 0's dp group alone, take a tp group
     (``RankMesh.fwd``, whose ``dp`` is None: nothing of a forward crosses
-    dp); they run with the ring parked (``engine.forward_ranks``: a
-    forward's all-reduce beside the ring's on four H100s hung both ranks,
-    two communicators or not). Everything else (the layout, the slot rows,
-    the other groups) is the ring mesh's."""
+    dp) and, where the mesh has them, an sp group (a forward's ring passes
+    or all-to-alls over its sequence blocks) and a pp group (a staged
+    forward's hops); they run with the ring parked
+    (``engine.forward_ranks``: a forward's all-reduce beside the ring's on
+    four H100s hung both ranks, two communicators or not). Everything else
+    (the layout, the slot rows, the other groups) is the ring mesh's."""
 
-    def __init__(self, ring: RankMesh, tp: Group, dp: Group | None):
+    def __init__(self, ring: RankMesh, tp: Group, dp: Group | None, **axes: Group):
         self._ring = ring
         self.tp = tp
         self.dp = dp
+        for name, g in axes.items():  # sp, pp: the ring's own where not given
+            setattr(self, name, g)
 
     def __getattr__(self, name):
         return getattr(self._ring, name)
@@ -542,8 +547,9 @@ def join(mesh: Mesh, rank: int, store, staging: bool = False,
     """Rank ``rank``'s view of ``mesh``: its world group and its dp, tp and
     sp subgroups over prefixes of ``store`` (every rank of the mesh calls
     this with the same store); with ``staging``, a second tp and dp group
-    each for the staging stream, with ``forward`` a tp group for the
-    forward stream (:class:`StreamMesh`). NCCL groups run one collective at
+    each for the staging stream, with ``forward`` a tp group (and an sp and
+    a pp group where those axes are > 1) for the forward stream
+    (:class:`StreamMesh`). NCCL groups run one collective at
     once: NCCL creates its communicator lazily, which a graph capture must
     not do."""
     size = mesh.size
@@ -567,7 +573,9 @@ def join(mesh: Mesh, rank: int, store, staging: bool = False,
         stage = {axis: group(f"stage-{axis}", mesh.axis_ranks(rank, axis))
                  for axis in (AXIS_TP, AXIS_DP)}
     if forward:
-        fwd = {AXIS_TP: group(f"fwd-{AXIS_TP}", mesh.axis_ranks(rank, AXIS_TP))}
+        fwd = {axis: group(f"fwd-{axis}", mesh.axis_ranks(rank, axis))
+               for axis in (AXIS_TP, AXIS_SP, AXIS_PP)
+               if axis == AXIS_TP or mesh.shape[axis] > 1}
     if mesh.backend == "nccl":
         dev = mesh.devices[rank]
         torch.cuda.set_device(dev)
@@ -581,5 +589,5 @@ def join(mesh: Mesh, rank: int, store, staging: bool = False,
     if stage is not None:
         out.stage = StreamMesh(out, stage[AXIS_TP], stage[AXIS_DP])
     if fwd is not None:
-        out.fwd = StreamMesh(out, fwd[AXIS_TP], None)
+        out.fwd = StreamMesh(out, fwd.pop(AXIS_TP), None, **fwd)
     return out

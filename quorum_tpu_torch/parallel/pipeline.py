@@ -39,9 +39,17 @@ prompt and runs K1 over its layers, writing its cache slice, and hands
 positions through the final norm and the head (:func:`staged_prefill`,
 :func:`follow_staged_prefill`).
 
-Kernels. Each stage launches K2 once per layer per group step over its own
-layers at full heads (pp cuts no heads), L/pp × pp·n_steps = L·n_steps
-launches a stage per chunk, and K1 once per layer in each admission.
+Forwards. An embedding or scoring forward runs the same route with no
+cache written (:func:`staged_forward_hidden`, :func:`follow_staged_forward`):
+stage 0 embeds, each stage runs its layers with K1, and the last stage's
+hidden states come back to stage 0 for the final norm (its pooling or
+unembed follow there). One sub-batch at a time fills the pipeline.
+
+Kernels. Each stage launches K2 (K2q8 on an int8 cache: a side is then the
+``(q8, scale)`` pair, each half sliced by row group alike, :func:`_rows_of`)
+once per layer per group step over its own layers at full heads (pp cuts
+no heads), L/pp × pp·n_steps = L·n_steps launches a stage per chunk, and K1
+once per layer in each admission and each forward.
 """
 
 from __future__ import annotations
@@ -110,23 +118,26 @@ def _check_positions(spec: ModelSpec) -> None:
 
 
 def _stage_prefill(blocks, spec: ModelSpec, x: torch.Tensor, lengths: torch.Tensor,
-                   cache_k, cache_v, slot: int, plain_attention: bool) -> torch.Tensor:
+                   cache_k, cache_v, slot: int | None, plain_attention: bool) -> torch.Tensor:
     """A stage's layers over prompt hidden states ``x`` [B, T, d], writing
-    K/V of every position into cache row ``slot`` of its cache slice."""
+    K/V of every position into cache row ``slot`` of its cache slice (an
+    int8 slice stores them quantized); a forward (``slot`` None) writes
+    nothing."""
     b, t, _ = x.shape
     dev = x.device
     positions = torch.arange(t, device=dev)
     cos, sin = _rope(spec, dev)
     attn_fn = prefill_attention if plain_attention else flash_prefill_attention
     moe_mask = (torch.arange(t, device=dev)[None, :] < lengths[:, None]) if spec.is_moe else None
-    dst = slice(slot, slot + 1)
+    dst = None if slot is None else slice(slot, slot + 1)
     for l in range(n_layers(blocks)):
         def attend(q, k, v, l=l):
             if spec.pos == "rope":
                 q = apply_rope(q, cos, sin, positions)
                 k = apply_rope(k, cos, sin, positions)
-            _kv_put(_kv_layer(cache_k, l), (dst, slice(None), slice(None, t)), k)
-            _kv_put(_kv_layer(cache_v, l), (dst, slice(None), slice(None, t)), v)
+            if slot is not None:
+                _kv_put(_kv_layer(cache_k, l), (dst, slice(None), slice(None, t)), k)
+                _kv_put(_kv_layer(cache_v, l), (dst, slice(None), slice(None, t)), v)
             return attn_fn(q, k, v, lengths, window=spec.sliding_window), k, v
 
         x = _block(x, _layer(blocks, l), spec, attend, token_mask=moe_mask)
@@ -160,7 +171,45 @@ def follow_staged_prefill(blocks, spec: ModelSpec, shape: tuple, lengths: torch.
     mesh.pp.shift(x.contiguous())
 
 
+# ---- forwards --------------------------------------------------------------
+
+
+def staged_forward_hidden(params, spec: ModelSpec, tokens: torch.Tensor,
+                          lengths: torch.Tensor, mesh,
+                          plain_attention: bool = False) -> torch.Tensor:
+    """Stage 0's cache-free forward (embeddings and scoring): embed
+    ``tokens`` [B, T] (right-padded, ``lengths`` [B]), run its layers with K1,
+    hand ``[B, T, d]`` on, take the last stage's hidden states back and
+    apply the final norm: ``transformer.forward_hidden``'s output, stage by
+    stage, with no cache written (one sub-batch fills the pipeline)."""
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _embed(params, spec, tokens, positions)
+    x = _stage_prefill(params["blocks"], spec, x, lengths, None, None, None, plain_attention)
+    mesh.pp.shift(x.contiguous())
+    x = mesh.pp.shift(like=x)
+    return _final_norm(params, spec, x)
+
+
+def follow_staged_forward(blocks, spec: ModelSpec, shape: tuple, lengths: torch.Tensor, mesh,
+                          plain_attention: bool = False) -> None:
+    """A later stage's half of :func:`staged_forward_hidden`: the previous
+    stage's hidden states ``shape`` = [B, T, d] in, its layers (K1), on to
+    the next stage."""
+    like = torch.empty(shape, dtype=_dtype(spec), device=lengths.device)
+    x = mesh.pp.shift(like=like)
+    x = _stage_prefill(blocks, spec, x, lengths, None, None, None, plain_attention)
+    mesh.pp.shift(x.contiguous())
+
+
 # ---- decode ----------------------------------------------------------------
+
+
+def _rows_of(cache, rows: slice):
+    """Rows ``rows`` of a stage's cache side (a view): a tensor ``[L, S,
+    …]``, or the int8 ``(q8, scale)`` pair, each cut alike."""
+    if isinstance(cache, tuple):
+        return tuple(c[:, rows] for c in cache)
+    return cache[:, rows]
 
 
 def _active(stage: int, t: int, pp: int, n_steps: int) -> bool:
@@ -230,8 +279,8 @@ def staged_decode_chunk(params, spec: ModelSpec, mesh, n_steps: int, token, leng
             cur_live = lv[rows]
             pos = torch.where(cur_live, lens[rows], torch.zeros_like(lens[rows]))
             x = decode_token_embed(params, spec, tok[rows], pos)
-            x, _, _ = decode_step_blocks(blocks, spec, x, pos, cache_k[:, rows],
-                                         cache_v[:, rows], write_mask=cur_live,
+            x, _, _ = decode_step_blocks(blocks, spec, x, pos, _rows_of(cache_k, rows),
+                                         _rows_of(cache_v, rows), write_mask=cur_live,
                                          plain_attention=plain_attention)
             out = _pack(x, pos, cur_live)
         back = _active(pp - 1, t, pp, n_steps)
@@ -283,7 +332,7 @@ def follow_staged_decode(blocks, spec: ModelSpec, mesh, n_steps: int, n_chunks: 
     steps it ran."""
     pp, s = mesh.pp_size, mesh.pp_rank
     sg = batch // row_groups(pp, batch)
-    like = _message_like(spec, sg, cache_k.device)
+    like = _message_like(spec, sg, (cache_k[0] if isinstance(cache_k, tuple) else cache_k).device)
     ran = 0
     for _ in range(n_chunks):
         buf = None
@@ -292,8 +341,8 @@ def follow_staged_decode(blocks, spec: ModelSpec, mesh, n_steps: int, n_chunks: 
             if _active(s, t, pp, n_steps):
                 rows, _, _ = _group_rows(t - s, pp, sg)
                 x, pos, allow = _unpack(buf)
-                y, _, _ = decode_step_blocks(blocks, spec, x, pos, cache_k[:, rows],
-                                             cache_v[:, rows], write_mask=allow,
+                y, _, _ = decode_step_blocks(blocks, spec, x, pos, _rows_of(cache_k, rows),
+                                             _rows_of(cache_v, rows), write_mask=allow,
                                              plain_attention=plain_attention)
                 out = _pack(y, pos, allow)
                 ran += 1

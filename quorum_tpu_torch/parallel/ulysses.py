@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from quorum_tpu_torch.ops.attention import prefill_attention
 from quorum_tpu_torch.ops.flash_attention import flash_prefill_attention
 from quorum_tpu_torch.parallel.mesh import AXIS_SP, AXIS_TP
 from quorum_tpu_torch.parallel.sharding import rank_kv_index
@@ -65,10 +66,13 @@ def ulysses_prefill_attention(
     mesh,                   # parallel/comm.RankMesh
     *,
     window: int = 0,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Causal, length-masked GQA attention with the sequence cut over sp,
     by head↔sequence all-to-alls. Returns this rank's block [B, Hq, s, hd].
-    Raises where the heads do not split over sp."""
+    Raises where the heads do not split over sp. ``plain``: the local
+    attention is K1's plain version on any device (a forward's ground
+    truth on the card)."""
     n_sp = mesh.sp_size
     b, hq, s, hd = q.shape
     hk = k.shape[1]
@@ -83,7 +87,8 @@ def ulysses_prefill_attention(
     full = got.permute(1, 2, 0, 3, 4).reshape(b, gq + 2 * w, n_sp * s, hd)
     qh, kh, vh = (full[:, :gq].contiguous(), full[:, gq:gq + w].contiguous(),
                   full[:, gq + w:].contiguous())
-    out = flash_prefill_attention(qh, kh, vh, lengths.to(q.device), window=window)
+    attn = prefill_attention if plain else flash_prefill_attention
+    out = attn(qh, kh, vh, lengths.to(q.device), window=window)
     back = out.reshape(b, gq, n_sp, s, hd).permute(2, 0, 1, 3, 4).contiguous()
     got = mesh.sp.all_to_all(back)                                  # [sp(src), B, gq, s, hd]
     return got.permute(1, 0, 2, 3, 4).reshape(b, hq, s, hd)

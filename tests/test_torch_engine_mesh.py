@@ -186,12 +186,8 @@ def test_gpt2_biases_are_added_once():
 
 
 @pytest.mark.parametrize("axes,knobs,match", [
-    (dict(sp=2), dict(quant="int8"), "quant: not yet on a multi-rank engine with sp>1"),
-    (dict(pp=2), dict(kv_quant="int8"), "kv_quant: not yet on a multi-rank engine with pp>1"),
     (dict(sp=2), "response_format", "constrained decoding requires chunked prefill .*"
                                     "unavailable with sp>1 or prefill_chunk=0"),
-    (dict(sp=2), dict(spec_decode=4),
-     "speculative decoding: not yet on a multi-rank engine with sp>1"),
     (dict(pp=2), dict(kv_pages=True), "kv_pages=1 does not compose with pp>1: the staged "
                                       "decode schedule shards the cache's layer axis"),
     (dict(sp=2), dict(kv_pages=True), "kv_pages=1 does not compose with sp>1: ring attention "
@@ -202,11 +198,11 @@ def test_gpt2_biases_are_added_once():
                                         "injection admissions"),
 ])
 def test_refused_compositions_are_named(axes, knobs, match):
-    """int8 and speculation on sp meshes are refused by name (dp and tp
-    serve them; int8 is refused on pp too); a grammar on an sp engine,
-    whose admissions are single-shot, and paging, the host prefix store and
-    zero-drain staging where the JAX engine refuses them, in its words (dp
-    and tp serve those three)."""
+    """A grammar on an sp engine, whose admissions are single-shot, and
+    paging, the host prefix store and zero-drain staging where the JAX
+    engine refuses them, in its words (dp and tp serve those three; int8
+    and speculation on sp and pp meshes serve: ``tests/test_torch_sp_knobs.py``,
+    ``tests/test_torch_pp_knobs.py``)."""
     spec = resolve_spec("llama-tiny", OPTS)
     if knobs != "response_format":
         with pytest.raises(ValueError, match=match):

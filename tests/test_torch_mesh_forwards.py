@@ -13,8 +13,8 @@ weights:
   of their own; each sub-batch parks the ring at a turn boundary) leave
   the stream equal to its twin's, and the stream ends;
 - ``/v1/embeddings`` and the scoring route answer on a ``tp=2`` backend as
-  on one card; under sp and pp the forwards are refused by name (400s at
-  the API).
+  on one card (sp and pp serve them too: ``tests/test_torch_sp_knobs.py``,
+  ``tests/test_torch_pp_knobs.py``).
 """
 
 import asyncio
@@ -186,25 +186,6 @@ def test_forwards_beside_a_live_stream_leave_it_unchanged(engines):
     assert not t.is_alive()
     assert out["tokens"] == twin
     assert eng.health()["mesh"]["workers_alive"]
-
-
-@pytest.mark.parametrize("axes,match", [
-    (dict(sp=2), "embeddings and scoring: not yet on a multi-rank engine with sp>1"),
-    (dict(pp=2), "embeddings and scoring: not yet on a multi-rank engine with pp>1"),
-], ids=["sp", "pp"])
-def test_forwards_refused_by_name_under_sp_and_pp(axes, match):
-    eng = InferenceEngine(SPEC, mesh=_mesh(**axes), n_slots=2)
-    try:
-        with pytest.raises(ValueError, match=match):
-            embed_mod.embed_token_batch(eng, INPUTS)
-        with pytest.raises(ValueError, match=match):
-            score_mod.score_token_batch(eng, PROMPTS)
-        app = create_app(Config(raw=_raw()), E1=CudaBackend("E1", eng, model="tiny",
-                                                            model_id="llama-tiny"))
-        r = asyncio.run(_post(app, "/v1/embeddings", {"model": "tiny", "input": ["a"]}))
-        assert r.status_code == 400 and match.split(" with ")[1] in r.text, r.text
-    finally:
-        eng.shutdown()
 
 
 def _raw():

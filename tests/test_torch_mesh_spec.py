@@ -13,9 +13,9 @@ spawned, gloo groups), llama-tiny in float32 on the JAX package's weights:
   its own noise), for prompt lookup on both layouts and the draft on tp=2;
 - the draft runs on rank 0 alone: the workers' verify plans feed the
   turns, and no worker launches a draft step;
-- the refusals kept: speculation on sp by name, a draft model beside
-  disagg, kv_pages or members, and speculation beside pp, in the JAX
-  engine's words.
+- the refusals kept: a draft model beside disagg, kv_pages or members,
+  and speculation beside pp, in the JAX engine's words (sp serves
+  speculation: ``tests/test_torch_sp_knobs.py``).
 
 Every comparison is exact: tokens in float32 on the CPU.
 """
@@ -172,8 +172,6 @@ def test_disagg_tp_groups_lookup_equals_the_jax_disagg_engine(weights):
 
 
 @pytest.mark.parametrize("axes,knobs,match", [
-    (dict(sp=2), dict(spec_decode=4),
-     "speculative decoding: not yet on a multi-rank engine with sp>1"),
     (dict(pp=2), dict(spec_decode=4), "pp>1 does not compose with spec_decode/spec_model"),
     (dict(tp=2), dict(spec_decode=4, draft_spec=SPEC, kv_pages=True),
      "kv_pages=1 does not compose with a draft model"),
@@ -181,7 +179,7 @@ def test_disagg_tp_groups_lookup_equals_the_jax_disagg_engine(weights):
      "draft-model decoding .* does not compose with members/ensemble engines"),
     ("disagg", dict(spec_decode=4, draft_spec=SPEC, prefill_chunk=16),
      "draft-model speculation .* does not compose with disagg"),
-], ids=["sp", "pp", "draft-kv_pages", "draft-members", "draft-disagg"])
+], ids=["pp", "draft-kv_pages", "draft-members", "draft-disagg"])
 def test_refusals_kept(axes, knobs, match):
     with pytest.raises(ValueError, match=match):
         if axes == "disagg":
